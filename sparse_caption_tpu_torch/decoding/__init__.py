@@ -1,0 +1,3 @@
+from sparse_caption_tpu_torch.decoding.penalties import penalty_fn  # noqa: F401
+from sparse_caption_tpu_torch.decoding.beam import beam_search  # noqa: F401
+from sparse_caption_tpu_torch.decoding.api import generate  # noqa: F401

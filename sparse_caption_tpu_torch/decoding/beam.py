@@ -1,0 +1,111 @@
+"""Batched beam search with beam-ancestry caches (port of
+``sparse_caption_tpu/decoding/beam.py``, group size 1, eval).
+
+Semantics kept from the reference:
+* candidates = beam score + log-prob, as a two-level top-K: the per-beam
+  top-K over the vocabulary (kernel K4, which also applies the constraints)
+  and then the top-K of the (K, K) candidate grid per image; the first step
+  is restricted to beam 0 by -1e18 initial scores
+* a beam that emits EOS at step t (or reaches the last step) is merged into
+  the fixed-size done set with score ``penalty(t + 1, sum_lp)``; its live
+  score then drops by 1000
+* constraints: ``decoding_constraint`` (no immediate repeat), ``suppress_UNK``
+  (-1000 on the unk id), bad endings (no EOS right after a bad-ending word,
+  on the real EOS id)
+* per-step chosen-token log-probs are recorded per beam (B, K, T)
+* beams reorder by gathering only the (B, K, T) ancestor map; the K/V cache
+  rows are never moved
+* every top-K breaks ties to the lower index, as ``lax.top_k``
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Optional, Sequence, Tuple
+
+import torch
+
+from sparse_caption_tpu_torch.decoding.penalties import penalty_fn
+from sparse_caption_tpu_torch.kernels.beam_topk import NEG_BIG, beam_topk, topk_lower_index
+
+
+def _pick(grid, beam_ix, rank_ix):
+    """grid (B, K, K) -> grid[b, beam_ix[b, j], rank_ix[b, j]] as (B, K)."""
+    by_beam = grid.gather(1, beam_ix[..., None].expand(-1, -1, grid.shape[2]))
+    return by_beam.gather(2, rank_ix[..., None])[..., 0]
+
+
+def _gather_beams(x, beam_ix):
+    """x (B, M, ...) -> (B, K, ...): x[b, beam_ix[b, j]] for the (B, K) indices."""
+    idx = beam_ix.reshape(*beam_ix.shape, *([1] * (x.dim() - 2)))
+    return x.gather(1, idx.expand(*beam_ix.shape, *x.shape[2:]))
+
+
+def beam_search(
+    step_fn: Callable,
+    init_cache,
+    batch_size: int,
+    beam_size: int,
+    max_len: int,
+    *,
+    bos_id: int,
+    eos_id: int,
+    pad_id: int = 0,
+    unk_id: int = 1,
+    length_penalty: str = "",
+    decoding_constraint: int = 0,
+    suppress_unk: int = 0,
+    bad_ending_ids: Optional[Sequence[int]] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Beam search over ``step_fn(it, cache, t) -> (logits (B*K, V), cache)``.
+
+    ``init_cache`` must carry the ``"ancestry"`` map (B, K, T) int32; rows are
+    interleaved (image i owns rows i*K..(i+1)*K-1). Returns (seq (B, K,
+    max_len) int64, seq_logprobs (B, K, max_len) f32), sorted by penalized
+    score per image, descending."""
+    k = beam_size
+    b = batch_size
+    if "ancestry" not in init_cache:
+        raise ValueError("beam_search needs a cache with a beam-ancestry map")
+    dev = init_cache["ancestry"].device
+    penalty = penalty_fn(length_penalty)
+    bad_ids = torch.tensor(list(bad_ending_ids), dtype=torch.int32, device=dev) if bad_ending_ids else None
+
+    cache = init_cache
+    tokens = torch.full((b * k,), bos_id, dtype=torch.int32, device=dev)
+    sum_lp = torch.where(torch.arange(k, device=dev)[None, :] == 0, 0.0, NEG_BIG).expand(b, k).float()
+    seq = torch.full((b, k, max_len), pad_id, dtype=torch.long, device=dev)
+    seq_lp = torch.zeros((b, k, max_len), device=dev)
+    done_score = torch.full((b, k), NEG_BIG, device=dev)
+    done_seq = seq.clone()
+    done_seq_lp = seq_lp.clone()
+
+    for t in range(max_len):
+        logits, cache = step_fn(tokens, cache, t)  # (B*K, V)
+        ban_token = tokens if (decoding_constraint and t > 0) else None
+        ban_eos = torch.isin(tokens, bad_ids) if (bad_ids is not None and t > 0) else None
+        row_lp, row_tok, row_raw = beam_topk(logits, k, ban_token=ban_token, ban_eos=ban_eos, eos_id=eos_id,
+                                             unk_id=unk_id if suppress_unk else None)  # (B*K, K) each
+        cand = sum_lp[..., None] + row_lp.reshape(b, k, k)
+        top_scores, flat_ix = topk_lower_index(cand.reshape(b, k * k), k)  # (B, K)
+        beam_ix = flat_ix // k  # parent beam
+        rank_ix = flat_ix % k  # which of the parent's top-K tokens
+        tok_ix = _pick(row_tok.reshape(b, k, k), beam_ix, rank_ix).long()
+        chosen_lp = _pick(row_raw.reshape(b, k, k), beam_ix, rank_ix)
+
+        seq = _gather_beams(seq, beam_ix)
+        seq_lp = _gather_beams(seq_lp, beam_ix)
+        cache = dict(cache, ancestry=_gather_beams(cache["ancestry"], beam_ix))
+        seq[:, :, t] = tok_ix
+        seq_lp[:, :, t] = chosen_lp
+        sum_lp = top_scores
+
+        is_end = (tok_ix == eos_id) | (t == max_len - 1)
+        fin_score = torch.where(is_end, penalty(t + 1.0, sum_lp), NEG_BIG)
+        merged_score = torch.cat([done_score, fin_score], dim=1)  # (B, 2K)
+        done_score, best_ix = topk_lower_index(merged_score, k)
+        done_seq = _gather_beams(torch.cat([done_seq, seq], dim=1), best_ix)
+        done_seq_lp = _gather_beams(torch.cat([done_seq_lp, seq_lp], dim=1), best_ix)
+
+        sum_lp = torch.where(is_end, sum_lp - 1000.0, sum_lp)
+        tokens = tok_ix.reshape(-1).int()
+    return done_seq, done_seq_lp

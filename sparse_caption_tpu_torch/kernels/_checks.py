@@ -1,0 +1,32 @@
+"""Argument checks shared by the kernel wrappers (run on every call, CPU or GPU)."""
+
+from __future__ import annotations
+
+import torch
+
+FLOATS = (torch.float32, torch.bfloat16)
+
+
+def check_float(t: torch.Tensor, name: str) -> None:
+    if t.dtype not in FLOATS:
+        raise TypeError(f"{name}: expected float32 or bfloat16, got {t.dtype}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: expected a contiguous tensor")
+
+
+def check_tensor(t: torch.Tensor, name: str, shape, dtype) -> None:
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: expected shape {tuple(shape)}, got {tuple(t.shape)}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name}: expected {dtype}, got {t.dtype}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: expected a contiguous tensor")
+
+
+def check_same_device(*tensors) -> None:
+    devices = {t.device for t in tensors if t is not None}
+    if len(devices) != 1:
+        raise ValueError(f"tensors on different devices: {sorted(map(str, devices))}")
+    dev = devices.pop()
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {dev}")

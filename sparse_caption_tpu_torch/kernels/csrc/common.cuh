@@ -1,0 +1,112 @@
+// Shared device helpers of the port's hand-written Hopper kernels.
+//
+// Inputs are f32 or bf16; all arithmetic runs in f32. `round_to<T>` marks the
+// points where the JAX reference rounds an intermediate to the compute dtype
+// (a no-op for f32). Every kernel here assumes a head width of 64 (d_model 512,
+// 8 heads), which the Python wrappers check before launching.
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math.h>
+
+namespace sct {
+
+constexpr int kHeadDim = 64;
+constexpr float kNegInf = -1e9f;  // the masked-score fill (layers.py NEG_INF)
+
+__device__ __forceinline__ float to_f(float x) { return x; }
+__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
+
+template <typename T> __device__ __forceinline__ T from_f(float x);
+template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
+template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
+  return __float2bfloat16_rn(x);
+}
+
+// x rounded to T (round to nearest even, as PyTorch casts) and widened again
+template <typename T> __device__ __forceinline__ float round_to(float x) { return to_f(from_f<T>(x)); }
+
+// two neighbouring elements in one 8-byte (f32) or 4-byte (bf16) access
+__device__ __forceinline__ float2 load2(const float* p) { return *reinterpret_cast<const float2*>(p); }
+__device__ __forceinline__ float2 load2(const __nv_bfloat16* p) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+}
+__device__ __forceinline__ void store2(float* p, float2 v) { *reinterpret_cast<float2*>(p) = v; }
+__device__ __forceinline__ void store2(__nv_bfloat16* p, float2 v) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __float22bfloat162_rn(v);
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+__device__ __forceinline__ float warp_max(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
+// Shared-memory row strides of a key tile (odd: lane j reading row j hits bank
+// (j + d) % 32, no conflicts) and of a value tile (lane reads 2 neighbours).
+constexpr int kKeyStride = kHeadDim + 1;
+constexpr int kValStride = kHeadDim;
+
+// Copy `rows` rows of 64 elements from global memory into f32 shared memory.
+template <typename T>
+__device__ __forceinline__ void load_tile(float* dst, const T* __restrict__ src, int rows, int stride) {
+  for (int e = threadIdx.x; e < rows * (kHeadDim / 2); e += blockDim.x) {
+    const int r = e / (kHeadDim / 2), c = (e % (kHeadDim / 2)) * 2;
+    const float2 v = load2(src + r * kHeadDim + c);
+    dst[r * stride + c] = v.x;
+    dst[r * stride + c + 1] = v.y;
+  }
+}
+
+// One warp attends one query row to R <= 64 keys held in shared memory:
+// scores q.k * scale, the -1e9 fill where mask == 0, an optional additive
+// bias AFTER the fill, softmax, then P.V written to `out` (64 elements).
+// q_s: 64 f32; k_s: R rows of kKeyStride; v_s: R rows of kValStride;
+// p_s: 64 f32 of scratch owned by this warp.
+template <typename T>
+__device__ __forceinline__ void warp_attend_row(const float* q_s, const float* k_s, const float* v_s,
+                                                const unsigned char* mask_s, const float* bias, int R,
+                                                float scale, float* p_s, T* __restrict__ out) {
+  const int lane = threadIdx.x & 31;
+  float s[2];
+#pragma unroll
+  for (int c = 0; c < 2; ++c) {
+    const int j = lane + 32 * c;
+    float v = -INFINITY;
+    if (j < R) {
+      const float* kr = k_s + j * kKeyStride;
+      float acc = 0.f;
+#pragma unroll 16
+      for (int d = 0; d < kHeadDim; ++d) acc = fmaf(q_s[d], kr[d], acc);
+      v = acc * scale;
+      if (mask_s != nullptr && mask_s[j] == 0) v = kNegInf;
+      if (bias != nullptr) v += bias[j];
+    }
+    s[c] = v;
+  }
+  const float m = warp_max(fmaxf(s[0], s[1]));
+  const float e0 = lane < R ? expf(s[0] - m) : 0.f;
+  const float e1 = lane + 32 < R ? expf(s[1] - m) : 0.f;
+  const float inv = 1.f / warp_sum(e0 + e1);
+  if (lane < R) p_s[lane] = e0 * inv;
+  if (lane + 32 < R) p_s[lane + 32] = e1 * inv;
+  __syncwarp();
+  float2 acc = make_float2(0.f, 0.f);
+  for (int j = 0; j < R; ++j) {
+    const float p = p_s[j];
+    const float* vr = v_s + j * kValStride + 2 * lane;
+    acc.x = fmaf(p, vr[0], acc.x);
+    acc.y = fmaf(p, vr[1], acc.y);
+  }
+  store2(out + 2 * lane, acc);
+  __syncwarp();  // p_s and the caller's q_s are rewritten for the next row
+}
+
+}  // namespace sct

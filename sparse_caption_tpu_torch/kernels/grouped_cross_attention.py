@@ -1,0 +1,60 @@
+"""K3: decode-step cross-attention with one memory K/V row per image shared by
+its beam rows (``csrc/grouped_cross_attention.cu``).
+
+``grouped_cross_attention`` launches the kernel for CUDA tensors and runs
+``grouped_cross_attention_plain`` for CPU tensors; nothing else falls back.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+
+from sparse_caption_tpu_torch.kernels import _build
+from sparse_caption_tpu_torch.kernels._checks import check_float, check_same_device, check_tensor
+from sparse_caption_tpu_torch.ops.attention import NEG_INF
+
+KERNEL = _build.CudaKernel("grouped_cross_attention", "sct_grouped_cross_attention", [
+    _build.I, _build.P, _build.P, _build.P, _build.P, _build.P,
+    _build.I, _build.I, _build.I, _build.I, _build.F32, _build.P,
+])
+
+
+def grouped_cross_attention_plain(q, mem_k, mem_v: Optional[torch.Tensor], mask):
+    """Each group of N/B query rows attends its image's memory by broadcast."""
+    if mem_v is None:
+        mem_v = mem_k
+    n, h, dk = q.shape
+    b = mem_k.shape[0]
+    qg = q.reshape(b, n // b, h, dk)
+    scores = torch.einsum("bkhd,bhsd->bkhs", qg, mem_k) / math.sqrt(dk)
+    scores = scores.masked_fill(~mask[:, None, None, :], NEG_INF)
+    out = torch.einsum("bkhs,bhsd->bkhd", torch.softmax(scores, dim=-1), mem_v)
+    return out.reshape(n, h, dk)
+
+
+def grouped_cross_attention(q, mem_k, mem_v: Optional[torch.Tensor], mask):
+    """q: (N, h, dk) with N a multiple of B (image i owns rows i*rep..(i+1)*rep-1);
+    mem_k/mem_v: (B, h, S, dk), mem_v=None when V shares K's storage;
+    mask: (B, S) bool, False = padded region. Returns (N, h, dk)."""
+    check_float(q, "q")
+    n, h, dk = q.shape
+    b, s = mem_k.shape[0], mem_k.shape[2]
+    if b < 1 or n % b != 0:
+        raise ValueError(f"{n} query rows do not split over {b} images")
+    check_tensor(mem_k, "mem_k", (b, h, s, dk), q.dtype)
+    if mem_v is not None:
+        check_tensor(mem_v, "mem_v", (b, h, s, dk), q.dtype)
+    check_tensor(mask, "mask", (b, s), torch.bool)
+    check_same_device(q, mem_k, mem_v, mask)
+    if q.device.type == "cpu":
+        return grouped_cross_attention_plain(q, mem_k, mem_v, mask)
+    if dk != 64 or s > 64:
+        raise ValueError(f"grouped_cross_attention kernel takes dk == 64, S <= 64; got dk={dk} S={s}")
+    out = torch.empty_like(q)
+    KERNEL.launch(_build.dtype_code(q), q.data_ptr(), mem_k.data_ptr(),
+                  (mem_k if mem_v is None else mem_v).data_ptr(), mask.data_ptr(), out.data_ptr(),
+                  b, h, s, n // b, 1.0 / math.sqrt(dk), _build.stream_handle(q))
+    return out

@@ -1,0 +1,20 @@
+"""Model registry of the port (names mirror ``sparse_caption_tpu.models``).
+
+Model API (eval; ``device`` defaults to ``"cuda"``):
+
+* ``model(att_feats, att_masks, seqs, boxes)``                     -> XE log-probs
+* ``model.encode(att_feats, att_masks, boxes)``                     -> memory dict
+* ``model.init_cache(memory, max_steps, rows_per_image, ...)``      -> decode cache dict
+* ``model.decode_step(it, cache, t, memory)``                       -> (log-probs, cache)
+* ``model.decode_step_logits(it, cache, t, memory)``                -> (logits, cache)
+"""
+
+from sparse_caption_tpu_torch.registry import Registry
+
+MODEL_REGISTRY: Registry = Registry("model")
+register_model = MODEL_REGISTRY.register
+
+
+def get_model(name: str):
+    MODEL_REGISTRY.import_all("sparse_caption_tpu_torch.models")
+    return MODEL_REGISTRY.get(name.lower())

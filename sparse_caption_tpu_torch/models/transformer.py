@@ -1,0 +1,233 @@
+"""Caption Transformer, eval mode (port of ``sparse_caption_tpu/models/transformer.py``).
+
+Pre-norm encoder-decoder with RefLayerNorm, sinusoidal PE and a log-softmax
+generator. The decode path keeps explicit static-shape caches: self K/V at
+``B * rows_per_image`` rows written in place at slot ``t``, projected cross
+K/V at ``B`` rows (one per image, shared by its beams), and, for beam search,
+a ``(B, K, T_max)`` ancestor map so beams reorder without touching the K/V
+cache. ``share_att_*`` / ``share_layer_*`` (ACORT) raise until their slice.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Optional, Sequence, Tuple
+
+import torch
+from torch import nn
+
+from sparse_caption_tpu_torch import check_eval, resolve_device
+from sparse_caption_tpu_torch.models import register_model
+from sparse_caption_tpu_torch.models.layers import (
+    Generator,
+    InputEmbedding,
+    MultiHeadAttention,
+    PositionalEncoding,
+    PositionwiseFeedForward,
+    RefLayerNorm,
+    SublayerConnection,
+)
+from sparse_caption_tpu_torch.ops.masked import MaskConfig, MaskedEmbedding, MaskedLinear
+
+
+def _unique_layer_plan(num_layers: int, share_layer: Optional[Sequence[int]]) -> Tuple[int, Tuple[int, ...]]:
+    """(n_unique, assignment) for layer sharing (reference transformer.py:133-142)."""
+    if share_layer:
+        share_layer = tuple(int(i) for i in share_layer)
+        assert len(share_layer) == num_layers, (
+            f"share_layer has {len(share_layer)} entries for num_layers={num_layers}; "
+            "a short list would silently change the model depth")
+        n_unique = len(set(share_layer))
+        assert set(share_layer) == set(range(n_unique)), f"share_layer must use indices 0..{n_unique - 1}"
+        return n_unique, share_layer
+    return num_layers, tuple(range(num_layers))
+
+
+class EncoderLayer(nn.Module):
+    def __init__(self, d_model: int, num_heads: int, d_ff: int, share_att=None, mask_cfg=None, **factory):
+        super().__init__()
+        self.self_attn = MultiHeadAttention(num_heads, d_model, share_att, mask_cfg, **factory)
+        self.feed_forward = PositionwiseFeedForward(d_model, d_ff, mask_cfg, **factory)
+        self.sub0 = SublayerConnection(d_model, **factory)
+        self.sub1 = SublayerConnection(d_model, **factory)
+
+    def forward(self, x, mask):
+        x = self.sub0(x, lambda y: self.self_attn(y, y, y, mask))
+        return self.sub1(x, self.feed_forward)
+
+
+class DecoderLayer(nn.Module):
+    def __init__(self, d_model: int, num_heads: int, d_ff: int, share_att=None, mask_cfg=None, **factory):
+        super().__init__()
+        self.self_attn = MultiHeadAttention(num_heads, d_model, share_att, mask_cfg, **factory)
+        self.src_attn = MultiHeadAttention(num_heads, d_model, share_att, mask_cfg, **factory)
+        self.feed_forward = PositionwiseFeedForward(d_model, d_ff, mask_cfg, **factory)
+        self.sub0 = SublayerConnection(d_model, **factory)
+        self.sub1 = SublayerConnection(d_model, **factory)
+        self.sub2 = SublayerConnection(d_model, **factory)
+
+    def forward(self, x, memory, src_mask, tgt_mask):
+        x = self.sub0(x, lambda y: self.self_attn(y, y, y, tgt_mask))
+        x = self.sub1(x, lambda y: self.src_attn(y, memory, memory, src_mask))
+        return self.sub2(x, self.feed_forward)
+
+    def step(self, x_t, layer_cache: Dict, cross: Dict, t: int, mem_mask, ancestry=None):
+        """One decode step. layer_cache: {self_k, self_v} (written in place at
+        slot t); cross: {cross_k, cross_v}; mem_mask: (B, S) bool."""
+        x_t = self.sub0(x_t, lambda y: self.self_attn.decode_self(
+            y, layer_cache["self_k"], layer_cache["self_v"], t, ancestry))
+        x_t = self.sub1(x_t, lambda y: self.src_attn.decode_cross(
+            y, cross["cross_k"], cross.get("cross_v"), mem_mask))
+        return self.sub2(x_t, self.feed_forward)
+
+
+def subsequent_mask(t: int, device=None):
+    """(1, 1, T, T) lower-triangular validity mask."""
+    return torch.tril(torch.ones((t, t), dtype=torch.bool, device=device))[None, None]
+
+
+def repeat_to_batch(memory, mem_mask, n_tgt: int):
+    """Repeat-interleave an encoded memory (+mask) to the target batch (seq_per_img
+    caption rows per image share one encoder pass)."""
+    if memory.shape[0] != n_tgt:
+        assert n_tgt % memory.shape[0] == 0, (n_tgt, memory.shape)
+        spi = n_tgt // memory.shape[0]
+        memory = memory.repeat_interleave(spi, dim=0)
+        mem_mask = mem_mask.repeat_interleave(spi, dim=0)
+    return memory, mem_mask
+
+
+@register_model("transformer")
+@register_model("transformer_prune")
+class Transformer(nn.Module):
+    """Caption transformer. Parameters are created on ``device`` (default
+    ``"cuda"``; raises without CUDA) in ``dtype`` and initialised like the JAX
+    package (xavier-uniform matrices, zero biases, unit norms) from
+    ``generator``."""
+
+    def __init__(self, vocab_size: int, d_model: int = 512, dim_feedforward: int = 2048, num_layers: int = 6,
+                 num_heads: int = 8, att_feat_size: int = 2048, max_seq_length: int = 18, pad_id: int = 0,
+                 bos_id: int = 2, eos_id: int = 3, unk_id: int = 1, share_att_encoder: Optional[str] = None,
+                 share_att_decoder: Optional[str] = None, share_layer_encoder: Optional[Sequence[int]] = None,
+                 share_layer_decoder: Optional[Sequence[int]] = None, mask_cfg: Optional[MaskConfig] = None,
+                 *, device="cuda", dtype=torch.float32, generator: Optional[torch.Generator] = None):
+        super().__init__()
+        if share_layer_encoder is not None or share_layer_decoder is not None:
+            raise NotImplementedError("share_layer (ACORT) lands in a later slice")
+        self.vocab_size = vocab_size
+        self.d_model = d_model
+        self.num_layers = num_layers
+        self.num_heads = num_heads
+        self.max_seq_length = max_seq_length
+        self.pad_id, self.bos_id, self.eos_id, self.unk_id = pad_id, bos_id, eos_id, unk_id
+        self.mask_cfg = mask_cfg
+        factory = dict(device=resolve_device(device), dtype=dtype)
+        _, self.dec_plan = _unique_layer_plan(num_layers, None)
+        self.tgt_embed = InputEmbedding(vocab_size, d_model, mask_cfg, **factory)
+        self.pos_enc = PositionalEncoding(d_model, device=factory["device"])
+        self.decoder_layers = nn.ModuleList(
+            DecoderLayer(d_model, num_heads, dim_feedforward, share_att_decoder, mask_cfg, **factory)
+            for _ in self.dec_plan)
+        self.decoder_norm = RefLayerNorm(d_model, **factory)
+        self.generator = Generator(d_model, vocab_size, mask_cfg, **factory)
+        self._build_encoder(att_feat_size, dim_feedforward, share_att_encoder, factory)
+        self.reset_parameters(generator)
+        self.eval()
+
+    def _build_encoder(self, att_feat_size, dim_feedforward, share_att, factory):
+        _, self.enc_plan = _unique_layer_plan(self.num_layers, None)
+        self.src_proj = MaskedLinear(att_feat_size, self.d_model, mask_cfg=self.mask_cfg, **factory)
+        self.encoder_layers = nn.ModuleList(
+            EncoderLayer(self.d_model, self.num_heads, dim_feedforward, share_att, self.mask_cfg, **factory)
+            for _ in self.enc_plan)
+        self.encoder_norm = RefLayerNorm(self.d_model, **factory)
+
+    def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
+        for m in self.modules():
+            if isinstance(m, (MaskedLinear, MaskedEmbedding)):
+                m.reset_parameters(generator)
+            elif isinstance(m, RefLayerNorm):
+                nn.init.ones_(m.weight)
+                nn.init.zeros_(m.bias)
+
+    # ----------------------------------------------------------- encoding
+    @torch.no_grad()
+    def encode(self, att_feats, att_masks, boxes=None, train: bool = False) -> Dict[str, Any]:
+        """att_feats: (B, S, F); att_masks: (B, S), 0 = padded. Returns the memory dict."""
+        check_eval(train)
+        x = torch.relu(self.src_proj(att_feats))
+        src_mask = (att_masks != 0)[:, None, None, :]
+        for i in self.enc_plan:
+            x = self.encoder_layers[i](x, src_mask)
+        return {"memory": self.encoder_norm(x), "mask": att_masks}
+
+    # ----------------------------------------------------- XE teacher force
+    def _decode_full(self, tgt, memory, mem_mask):
+        t = tgt.shape[1]
+        tgt_mask = (tgt != self.pad_id)[:, None, None, :] & subsequent_mask(t, tgt.device)
+        src_mask = (mem_mask != 0)[:, None, None, :]
+        x = self.pos_enc(self.tgt_embed(tgt))
+        for i in self.dec_plan:
+            x = self.decoder_layers[i](x, memory, src_mask, tgt_mask)
+        return self.decoder_norm(x)
+
+    @torch.no_grad()
+    def forward(self, att_feats, att_masks, seqs, boxes=None, train: bool = False):
+        """XE log-probs (N, T-1, V) of seqs[:, 1:] (decoder input seqs[:, :-1])."""
+        enc = self.encode(att_feats, att_masks, boxes, train)
+        tgt = seqs[:, :-1]
+        memory, mem_mask = repeat_to_batch(enc["memory"], enc["mask"], tgt.shape[0])
+        return self.generator(self._decode_full(tgt, memory, mem_mask))
+
+    # ------------------------------------------------------------- decode
+    @torch.no_grad()
+    def init_cache(self, memory_pytree: Dict[str, Any], max_steps: Optional[int] = None, rows_per_image: int = 1,
+                   beam_ancestry: bool = False, train: bool = False) -> Dict[str, Any]:
+        """Static-shape decode cache: self K/V zeros at ``B * rows_per_image``
+        rows, projected cross K/V at B rows, and with ``beam_ancestry`` an
+        identity ancestor map (B, rows_per_image, T_max) int32."""
+        check_eval(train)
+        memory = memory_pytree["memory"]
+        b = memory.shape[0]
+        rows = b * int(rows_per_image)
+        t_max = int(max_steps or (self.max_seq_length + 1))
+        dk = self.d_model // self.num_heads
+        layers, cross = [], []
+        for i in self.dec_plan:
+            ck, cv = self.decoder_layers[i].src_attn.project_memory_kv(memory)
+            zeros = lambda: torch.zeros((rows, self.num_heads, t_max, dk), dtype=ck.dtype, device=ck.device)  # noqa: E731
+            layers.append({"self_k": zeros(), "self_v": zeros()})
+            cross.append({"cross_k": ck, "cross_v": cv})
+        cache = {"layers": layers, "static": {"cross": cross}}
+        if beam_ancestry:
+            cache["ancestry"] = torch.arange(rows_per_image, dtype=torch.int32, device=memory.device)[
+                None, :, None].repeat(b, 1, t_max)
+        return cache
+
+    @torch.no_grad()
+    def decode_step_logits(self, it, cache: Dict[str, Any], t: int, memory_pytree: Dict[str, Any],
+                           train: bool = False):
+        """it: (N,) current tokens; t: step index. Returns (logits (N, V), cache).
+
+        The self K/V caches are written in place; the returned cache holds the
+        ancestor map with slot t set to identity (each row wrote slot t itself)."""
+        check_eval(train)
+        mem_mask = memory_pytree["mask"] != 0
+        x = self.pos_enc(self.tgt_embed(it[:, None]), t=t)  # (N, 1, D)
+        ancestry = cache.get("ancestry")
+        if ancestry is not None:
+            ancestry = ancestry.clone()
+            ancestry[:, :, t] = torch.arange(ancestry.shape[1], dtype=ancestry.dtype, device=ancestry.device)
+        for j, i in enumerate(self.dec_plan):
+            x = self.decoder_layers[i].step(x, cache["layers"][j], cache["static"]["cross"][j], t, mem_mask,
+                                            ancestry)
+        logits = self.generator.logits(self.decoder_norm(x)[:, 0])
+        new_cache = {"layers": cache["layers"], "static": cache["static"]}
+        if ancestry is not None:
+            new_cache["ancestry"] = ancestry
+        return logits, new_cache
+
+    @torch.no_grad()
+    def decode_step(self, it, cache: Dict[str, Any], t: int, memory_pytree: Dict[str, Any], train: bool = False):
+        """it: (N,) current tokens; t: step index. Returns (log-probs (N, V), cache)."""
+        logits, cache = self.decode_step_logits(it, cache, t, memory_pytree, train)
+        return torch.log_softmax(logits, dim=-1), cache

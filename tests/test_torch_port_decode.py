@@ -1,0 +1,73 @@
+"""Beam-5 decoding of the PyTorch port against the JAX package on the CPU: the
+JAX side uses its exact f32 top-k there (``decoding/beam.py:61-63``), so the
+token sequences must be identical and the sequence log-probs within 1e-4."""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+
+from _torch_port_common import KW, jax_mask_cfg, jax_variables, make_inputs, port_mask_cfg, port_model, t
+from sparse_caption_tpu.decoding import generate as jax_generate
+from sparse_caption_tpu.models.relation_transformer import RelationTransformer as JaxORT
+from sparse_caption_tpu_torch.decoding import beam_search, generate
+from sparse_caption_tpu_torch.kernels import launch_counts
+
+OPTS = {
+    "plain": {},
+    "constrained": {"decoding_constraint": 1, "suppress_UNK": 1, "bad_ending_ids": [5, 9, 12]},
+    "wu_penalty": {"length_penalty": "wu_0.7"},
+}
+
+
+@pytest.mark.parametrize("mask_type", [None, "supermask"])
+@pytest.mark.parametrize("opt_name", sorted(OPTS))
+def test_beam5_generate_matches_jax(opt_name, mask_type):
+    inputs = make_inputs(seed=3)
+    att, amask, boxes, _ = inputs
+    jm = JaxORT(**KW, mask_cfg=jax_mask_cfg(mask_type) if mask_type else None)
+    variables = jax_variables(jm, inputs, mask_seed=11 if mask_type else None)
+    opt = {"beam_size": 5, "max_seq_length": KW["max_seq_length"], **OPTS[opt_name]}
+    memory = jm.apply(variables, jnp.asarray(att), jnp.asarray(amask), jnp.asarray(boxes), method="encode")
+    ref_seq, ref_lp = (np.asarray(x) for x in jax_generate(jm, variables, memory, opt))
+
+    port = port_model("relation_transformer", variables, port_mask_cfg(mask_type) if mask_type else None)
+    before = launch_counts()
+    seq, lp = generate(port, port.encode(t(att), t(amask), t(boxes)), opt)
+    assert launch_counts() == before  # CPU tensors take the plain versions
+    assert seq.shape == (2, 5, KW["max_seq_length"])
+    np.testing.assert_array_equal(seq.numpy(), ref_seq)
+    np.testing.assert_allclose(lp.numpy(), ref_lp, rtol=1e-4, atol=1e-4)
+    if opt_name == "constrained":
+        s = seq.numpy()
+        assert not (s[..., 1:] == s[..., :-1])[s[..., 1:] != 0].any()  # no immediate repeats
+
+
+def test_beam_search_reorders_only_the_ancestry():
+    """The K/V cache tensors the step function sees are the ones init_cache built."""
+    port = port_model("relation_transformer", jax_variables(JaxORT(**KW), make_inputs()))
+    att, amask, boxes, _ = make_inputs()
+    memory = port.encode(t(att), t(amask), t(boxes))
+    cache = port.init_cache(memory, 6, rows_per_image=3, beam_ancestry=True)
+    kv = [c["self_k"] for c in cache["layers"]]
+    seen = []
+
+    def step_fn(it, cache, step):
+        seen.append(all(a is b for a, b in zip(kv, (c["self_k"] for c in cache["layers"]))))
+        return port.decode_step_logits(it, cache, step, memory)
+
+    seq, _ = beam_search(step_fn, cache, 2, 3, 6, bos_id=2, eos_id=3)
+    assert all(seen) and len(seen) == 6
+    assert seq.shape == (2, 3, 6)
+    with pytest.raises(ValueError, match="ancestry"):
+        beam_search(step_fn, port.init_cache(memory, 6, 3), 2, 3, 6, bos_id=2, eos_id=3)
+
+
+@pytest.mark.parametrize("opt", [
+    {"beam_size": 1}, {"beam_size": 0, "num_random_sample": 2}, {"beam_size": 4, "group_size": 2},
+    {"beam_size": 3, "decode_train": True}])
+def test_unported_decode_modes_raise(opt):
+    port = port_model("relation_transformer", jax_variables(JaxORT(**KW), make_inputs()))
+    att, amask, boxes, _ = make_inputs()
+    with pytest.raises(NotImplementedError, match="later slice"):
+        generate(port, port.encode(t(att), t(amask), t(boxes)), opt)
+
