@@ -144,11 +144,21 @@ class MultiHeadAttention(nn.Module):
         out = grouped_cross_attention(q, mem_k, mem_v, mem_mask)
         return self.out_proj(out.reshape(n, 1, -1))
 
+    def _fused_qkv(self):
+        """The concatenated q/k/v weight (3D, D) and bias (3D,). Built once and
+        rebuilt only when a projection's tensors change (a load, a mask fold
+        and a dtype or device move all give a new storage or version)."""
+        params = [p for m in (self.q_proj, self.k_proj, self.v_proj) for p in (m.weight, m.bias)]
+        key = tuple((p.data_ptr(), p._version) for p in params)
+        if getattr(self, "_qkv_key", None) != key:
+            self._qkv = (torch.cat(params[0::2]).detach(), torch.cat(params[1::2]).detach())
+            self._qkv_key = key
+        return self._qkv
+
     def _fused_qkv_step(self, x_t):
         """q, k, v for one step as one matmul over the concatenated weights,
         each (N, h, dk)."""
-        w = torch.cat([self.q_proj.weight, self.k_proj.weight, self.v_proj.weight])
-        b = torch.cat([self.q_proj.bias, self.k_proj.bias, self.v_proj.bias])
+        w, b = self._fused_qkv()
         n = x_t.shape[0]
         qkv = F.linear(x_t.reshape(n, -1), w, b).reshape(n, 3, self.num_heads, -1)
         return qkv[:, 0].contiguous(), qkv[:, 1], qkv[:, 2]
@@ -168,15 +178,14 @@ class MultiHeadAttention(nn.Module):
 class BoxMultiHeadAttention(nn.Module):
     """Geometry-biased self-attention of the ORT encoder: ``softmax(log(clamp(
     relu(wg . geo), 1e-6)) + fill(qk / sqrt(d)))`` with one (64 -> h) ``wg``
-    projection. The attention runs in kernel K1."""
+    projection (the trigonometric geometry; the 4-wide raw one is not
+    ported). The attention runs in kernel K1."""
 
-    def __init__(self, num_heads: int, d_model: int, trigonometric_embedding: bool = True,
-                 share_att: Optional[str] = None, mask_cfg: Optional[MaskConfig] = None, device=None, dtype=None):
+    def __init__(self, num_heads: int, d_model: int, share_att: Optional[str] = None,
+                 mask_cfg: Optional[MaskConfig] = None, device=None, dtype=None):
         super().__init__()
         assert d_model % num_heads == 0
         _check_share_att(share_att)
-        if not trigonometric_embedding:
-            raise NotImplementedError("the 4-wide non-trigonometric box geometry is not ported")
         self.num_heads = num_heads
         for name in ("q_proj", "k_proj", "v_proj", "out_proj"):
             setattr(self, name, MaskedLinear(d_model, d_model, mask_cfg=mask_cfg, device=device, dtype=dtype))

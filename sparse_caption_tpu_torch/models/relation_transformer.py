@@ -28,7 +28,7 @@ from sparse_caption_tpu_torch.ops.masked import MaskedLinear
 class BoxEncoderLayer(nn.Module):
     def __init__(self, d_model: int, num_heads: int, d_ff: int, share_att=None, mask_cfg=None, **factory):
         super().__init__()
-        self.self_attn = BoxMultiHeadAttention(num_heads, d_model, True, share_att, mask_cfg, **factory)
+        self.self_attn = BoxMultiHeadAttention(num_heads, d_model, share_att, mask_cfg, **factory)
         self.feed_forward = PositionwiseFeedForward(d_model, d_ff, mask_cfg, **factory)
         self.sub0 = SublayerConnection(d_model, **factory)
         self.sub1 = SublayerConnection(d_model, **factory)

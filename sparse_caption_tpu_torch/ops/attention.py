@@ -27,17 +27,19 @@ def scaled_dot_attention(q, k, v, mask: Optional[torch.Tensor] = None, bias: Opt
     return torch.matmul(torch.softmax(scores, dim=-1), v)
 
 
-def geometry_frequencies(dim_g: int = 64, wave_len: float = 1000.0, device=None) -> torch.Tensor:
-    """(dim_g // 8,) f32 trig frequencies ``1 / wave_len**(f / n_freq)``."""
+WAVE_LEN = 1000.0  # the trig features' longest wavelength (reference default)
+
+
+def geometry_frequencies(dim_g: int = 64, device=None) -> torch.Tensor:
+    """(dim_g // 8,) f32 trig frequencies ``1 / WAVE_LEN**(f / n_freq)``."""
     n_freq = dim_g // 8
-    return 1.0 / (wave_len ** (torch.arange(n_freq, dtype=torch.float32, device=device) / n_freq))
+    return 1.0 / (WAVE_LEN ** (torch.arange(n_freq, dtype=torch.float32, device=device) / n_freq))
 
 
-def box_relational_embedding(boxes: torch.Tensor, dim_g: int = 64, wave_len: float = 1000.0,
-                             trigonometric: bool = True) -> torch.Tensor:
-    """Pairwise log-delta (cx, cy, w, h) box geometry, optionally expanded to
-    sin/cos features at x100 scaling. boxes: (B, R, 4) as (x_min, y_min,
-    x_max, y_max). Returns (B, R, R, dim_g) ((B, R, R, 4) without trig)."""
+def box_relational_embedding(boxes: torch.Tensor, dim_g: int = 64) -> torch.Tensor:
+    """Pairwise log-delta (cx, cy, w, h) box geometry expanded to sin/cos
+    features at x100 scaling. boxes: (B, R, 4) as (x_min, y_min, x_max,
+    y_max). Returns (B, R, R, dim_g)."""
     x_min, y_min, x_max, y_max = boxes.split(1, dim=-1)  # (B, R, 1)
     cx = (x_min + x_max) * 0.5
     cy = (y_min + y_max) * 0.5
@@ -49,10 +51,7 @@ def box_relational_embedding(boxes: torch.Tensor, dim_g: int = 64, wave_len: flo
     delta_w = torch.log(w / w.transpose(1, 2))
     delta_h = torch.log(h / h.transpose(1, 2))
     position_mat = torch.stack([delta_x, delta_y, delta_w, delta_h], dim=-1)  # (B, R, R, 4)
-
-    if not trigonometric:
-        return position_mat
-    dim_mat = geometry_frequencies(dim_g, wave_len, boxes.device)
+    dim_mat = geometry_frequencies(dim_g, boxes.device)
     mul = 100.0 * position_mat[..., None] * dim_mat  # (B, R, R, 4, n_freq)
     b, r = boxes.shape[0], boxes.shape[1]
     mul = mul.reshape(b, r, r, 4 * (dim_g // 8))

@@ -27,11 +27,11 @@ from sparse_caption_tpu_torch.pruning import SUPER_MASKS, VALID_MASKS
 
 @dataclasses.dataclass(frozen=True)
 class MaskConfig:
-    """Per-model pruning configuration threaded into prunable layers."""
+    """Per-model pruning configuration threaded into prunable layers. Eval
+    folds masks that were trained elsewhere, so only the mask type matters;
+    the mask's init value and gradient options come with the training slice."""
 
     mask_type: str
-    mask_init_value: float = 1.0
-    bypass_sigmoid_grad: bool = False
 
     def __post_init__(self):
         if self.mask_type not in VALID_MASKS:

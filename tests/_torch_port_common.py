@@ -60,7 +60,7 @@ def jax_mask_cfg(mask_type):
 
 
 def port_mask_cfg(mask_type):
-    return MaskConfig(mask_type, 5.0 if mask_type == "supermask" else 1.0)
+    return MaskConfig(mask_type)
 
 
 def port_model(name, variables, mask_cfg=None):

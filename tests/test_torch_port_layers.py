@@ -94,8 +94,6 @@ def test_box_relational_embedding_matches_jax():
     # the 4 log-deltas agree to 1e-5; the sin/cos arguments reach
     # 100 * |log(1e-3)| = 691 rad, where one f32 ulp is 6.1e-5 rad, so the
     # trig features agree to 2 ulp of the argument
-    _close(pl.box_relational_embedding(t(boxes), trigonometric=False),
-           jl.box_relational_embedding(jnp.asarray(boxes), trigonometric=False))
     _close(port, ref, rtol=0, atol=1.25e-4)
 
 
@@ -163,6 +161,28 @@ def test_k2_decode_self_matches_jax(with_ancestry, step):
     _close(out, ref)
     _close(pk, ref_k)  # slot `step` written in place
     _close(pv, ref_v)
+
+
+def test_fused_qkv_built_once_and_rebuilt_after_weight_changes():
+    """decode_self's concatenated q/k/v weight is cached across steps and
+    follows a mask fold, a state_dict load and a dtype cast."""
+    mha = pl.MultiHeadAttention(HEADS, D, mask_cfg=port_mask_cfg("supermask"), device="cpu")
+    for m in (mha.q_proj, mha.k_proj, mha.v_proj):
+        m.reset_parameters(torch.Generator().manual_seed(0))
+
+    def expected():
+        return torch.cat([mha.q_proj.weight, mha.k_proj.weight, mha.v_proj.weight]).detach()
+
+    w, _ = mha._fused_qkv()
+    assert torch.equal(w, expected()) and mha._fused_qkv()[0] is w  # no rebuild between steps
+    mha.k_proj.fold_mask_(torch.randn(D, D, generator=torch.Generator().manual_seed(1)))
+    assert torch.equal(mha._fused_qkv()[0], expected())
+    state = {k: torch.randn_like(v) for k, v in mha.state_dict().items()}
+    mha.load_state_dict(state)
+    assert torch.equal(mha._fused_qkv()[0], expected())
+    mha.to(torch.bfloat16)
+    w, b = mha._fused_qkv()
+    assert w.dtype == b.dtype == torch.bfloat16 and torch.equal(w, expected())
 
 
 def test_k2_wrapper_checks_inputs():
