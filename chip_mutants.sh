@@ -25,6 +25,6 @@ for dt in ($dtypes):
 " 2>&1 | grep -E "mutant|box_attention|FAIL|Error|error" )
 }
 run_mutant bias_dropped common.cuh 's/if (bias != nullptr) v += bias\[j\];/if (false) v += bias[j];/' "torch.float32, torch.bfloat16"
-run_mutant logbias_unrounded box_attention.cu 's/= round_to<T>(logf(wg));/= logf(wg);/' "torch.bfloat16,"
-run_mutant geo_unrounded box_attention.cu 's/sn = round_to<T>(sn);/;/; s/cs = round_to<T>(cs);/;/' "torch.bfloat16,"
-run_mutant wg_bias_dropped box_attention.cu 's/round_to<T>(acc\[hh\]) + wb_s\[hh\]/round_to<T>(acc[hh])/' "torch.bfloat16,"
+run_mutant logbias_unrounded box_attention.cu 's/= round_to<T>(logf(wg\[hh\]));/= logf(wg[hh]);/' "torch.bfloat16,"
+run_mutant geo_unrounded box_geometry.cuh 's/sn = round_to<T>(sn);/;/; s/cs = round_to<T>(cs);/;/' "torch.bfloat16,"
+run_mutant wg_bias_dropped box_geometry.cuh 's/round_to<T>(acc\[hh\]) + wb_s\[hh\]/round_to<T>(acc[hh])/' "torch.bfloat16,"

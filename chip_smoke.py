@@ -2,17 +2,24 @@
 """Smoke run of the PyTorch/CUDA port (``sparse_caption_tpu_torch``) on one GPU.
 
 Phases:
-1. set-up: card name and power limit, versions, build of the four kernels
+1. set-up: card name and power limit, versions, build of the seven kernels
    (``kernels/csrc/*.cu``, nvcc for sm_90a, one process per source);
 2. kernel checks: each kernel against its plain PyTorch version at the
-   shapes of the paper-width beam-5 path (B = 2048 images, 36 regions, 8
-   heads of 64, vocab 10000, 17 steps), in f32 and bf16, and the times of
-   kernel, plain version and one PyTorch library call;
-3. main path: a paper-width ``relation_transformer_prune`` (random weights
-   and supermask logits from a seed, masks folded), ``encode`` + beam-5
-   ``generate`` in bf16 at batch 50 and 2048 with the kernels' launch counts
-   asserted, and the same weights in f32 at batch 8 on the card against the
-   CPU's plain versions (identical tokens, log-probs within 1e-4).
+   shapes of its path (beam-5 serving: B = 2048 images, 36 regions, 8 heads
+   of 64, vocab 10000, 17 steps; XE step: the 105 masked tensors, 256 x 5
+   captions), in f32 and bf16, forward and backward, each with a planted
+   fault, and the times of kernel, plain version and one PyTorch library call;
+3. serving path: a paper-width ``relation_transformer_prune`` (random
+   weights and supermask logits from a seed, masks folded), ``encode`` +
+   beam-5 ``generate`` in bf16 at batch 50 and 2048 with the kernels' launch
+   counts asserted, a profile of one encode + decode, and the same weights in
+   f32 at batch 8 on the card against the CPU's plain versions (identical
+   tokens, log-probs within 1e-4);
+4. train path: the supermask XE step (masks kept as parameters, init 5.0,
+   dropout on) at 15 x 5 captions in f32 and bf16 and at 256 x 5 in bf16,
+   1 warm-up + 10 steps each with the launch counts asserted, a profile of
+   one step at 256 x 5, and one f32 step at 2 x 5 without dropout on the
+   card against the CPU's plain versions (loss, gradients, params, masks).
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it is
 the card's name and power limit, and before that one JSON line with every
@@ -20,12 +27,14 @@ kernel's numbers. Exits non-zero, without the ok line, when CUDA is absent or
 any phase fails.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --whole-step-seeds 3   # only the card-vs-CPU XE step, data seeds 0..2
 """
 
 from __future__ import annotations
 
 import copy
 import json
+import math
 import subprocess
 import sys
 import time
@@ -59,7 +68,28 @@ REPLACES = {
     "ancestry_self_attention": "sparse_caption_tpu/models/layers.py:280",
     "grouped_cross_attention": "sparse_caption_tpu/models/layers.py:236",
     "beam_topk": "sparse_caption_tpu/models/layers.py:458",
+    "supermask": "sparse_caption_tpu/ops/masked.py:70",
+    "add_ref_layernorm": "sparse_caption_tpu/models/layers.py:71",
+    "box_attention_bwd": "sparse_caption_tpu/models/layers.py:406",
 }
+# the supermask XE train step (bench.py:230-292): 15 images x 5 captions of 18
+# tokens, and the throughput point at 256 images; supermask logits start at 5.0
+TRAIN_BATCH, TRAIN_BIG_BATCH, SEQ_PER_IMG, TRAIN_T = 15, 256, 5, MAX_LEN + 1
+WHOLE_STEP_BATCH, TRAIN_STEPS, MASK_INIT = 2, 10, 5.0
+TRAIN_CONFIG = dict(lr_scheduler="noam", optim="adam", d_model=PAPER["d_model"], noamopt_warmup=10000,
+                    grad_clip=0.1, learning_rate=5e-4, max_train_step=100000, prune_sparsity_target=0.8,
+                    caption_model="relation_transformer_prune", seed=SEED)
+# whole-step check (card vs CPU, f32). Element-wise, a gradient is held to
+# 1e-4 of its tensor's largest entry plus 1e-6 of the largest gradient
+# anywhere (the key projections' biases have a gradient of 0 in exact
+# arithmetic: rounding noise on both sides). That bound is reported; what must
+# hold is each tensor's norm-wise error, ||card - cpu|| <= 1e-2 ||cpu|| (+ the
+# same floor): a ReLU pre-activation within rounding of 0 may take the other
+# side of the kink on one device, which changes that unit's gradient row and,
+# by ~1e-3, every gradient upstream of it (norm-wise 1.9e-3 at worst for data
+# seed 2 of --whole-step-seeds 3 on an H100); a wrong wire or cast moves
+# gradients by O(1).
+STEP_GRAD_TOL, STEP_GRAD_FLOOR, STEP_GRAD_NORM_TOL, STEP_LOSS_RTOL = 1e-4, 1e-6, 1e-2, 1e-5
 
 
 def log(msg: str) -> None:
@@ -80,18 +110,21 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def allowed(b, dtype, scale: float = 0.0):
+def allowed(b, dtype, scale: float = 0.0, sum_scale: float = 0.0):
     """Per-element error allowed against the plain version's output `b`
-    (`scale`: rms of the values attended over, see BF16_SCALE_UNITS)."""
+    (`scale`: rms of the values attended over, see BF16_SCALE_UNITS;
+    `sum_scale`: for a sum over many terms, the size of the sum's rounding,
+    i.e. sqrt(terms) times their rms, held to the same units)."""
     b = b.float()
     if dtype == torch.float32:
-        return F32_TOL + F32_TOL * b.abs()
-    return BF16_U * (2 * b.abs() + BF16_SCALE_UNITS * scale)
+        return F32_TOL + F32_TOL * (b.abs() + sum_scale)
+    return BF16_U * (2 * b.abs() + BF16_SCALE_UNITS * max(scale, sum_scale))
 
 
-def close(a, b, dtype, scale: float = 0.0):
+def close(a, b, dtype, scale: float = 0.0, sum_scale: float = 0.0):
     """(max |a - b|, every element within its allowed error, worst |a - b| / allowed)."""
-    ratio = (a.float() - b.float()).abs() / allowed(b, dtype, scale)
+    err = (a.float() - b.float()).abs()
+    ratio = torch.where(err == 0, 0.0, err / allowed(b, dtype, scale, sum_scale))
     return (a.float() - b.float()).abs().max().item(), bool((ratio <= 1).all()), ratio.max().item()
 
 
@@ -99,10 +132,10 @@ def rms(x) -> float:
     return x.float().pow(2).mean().sqrt().item()
 
 
-def fault_caught(name, fault, ref, dtype, scale) -> bool:
+def fault_caught(name, fault, ref, dtype, scale, sum_scale: float = 0.0) -> bool:
     """A planted fault (`fault`: the plain version with one part of the
     function left out) must fail the tolerance the kernel is held to."""
-    ratio = (fault.float() - ref.float()).abs() / allowed(ref, dtype, scale)
+    ratio = (fault.float() - ref.float()).abs() / allowed(ref, dtype, scale, sum_scale)
     frac = (ratio > 1).float().mean().item()
     log(f"[fault] {name} {str(dtype).split('.')[-1]}: {frac:.3f} of elements outside the tolerance "
         f"(worst err/allowed {ratio.max().item():.1f}) {'caught' if frac > 0 else 'MISSED'}")
@@ -272,6 +305,201 @@ def check_kernels(gen, dtype, results: dict) -> bool:
     return ok
 
 
+def masked_shapes() -> list:
+    """(out, in) shapes of the 105 masked tensors of the paper-width ORT, in call order."""
+    d, ff, v, h = PAPER["d_model"], PAPER["dim_feedforward"], PAPER["vocab_size"], HEADS
+    enc = [(d, d)] * 3 + [(h, 64), (d, d), (ff, d), (d, ff)]
+    dec = [(d, d)] * 8 + [(ff, d), (d, ff)]
+    return [(d, PAPER["att_feat_size"])] + enc * PAPER["num_layers"] + [(v, d)] + dec * PAPER["num_layers"] + [(v, d)]
+
+
+def leaves(*ts):
+    return [t.detach().clone().requires_grad_() for t in ts]
+
+
+def check_train_kernels(gen, dtype, results: dict) -> bool:
+    """K5, K6, K1's train variant and K7 vs their plain versions (autograd)
+    at the XE step's shapes; timings of forward + backward."""
+    from sparse_caption_tpu_torch.kernels import add_ref_layernorm as k6
+    from sparse_caption_tpu_torch.kernels import box_attention as k1
+    from sparse_caption_tpu_torch.kernels import box_attention_bwd as k7
+    from sparse_caption_tpu_torch.kernels import supermask as k5
+    from sparse_caption_tpu_torch.ops.attention import NEG_INF, box_relational_embedding
+
+    dev = torch.device("cuda")
+    es = ESIZE[dtype]
+    dname = str(dtype).split(".")[-1]
+    rnd = lambda *shape: torch.randn(*shape, generator=gen, device=dev).to(dtype)  # noqa: E731
+    ok = True
+
+    def compare(name, out, ref, scale=0.0, sum_scale=0.0, fault=None):
+        nonlocal ok
+        err, good, worst = close(out, ref, dtype, scale, sum_scale)
+        log(f"[kernel] {name} {dname}: max_abs_err={err:.3e} worst err/allowed={worst:.3f} "
+            f"median|ref|={ref.float().abs().median().item():.3e} scale={max(scale, sum_scale):.3f} "
+            f"{'ok' if good else 'FAIL'}")
+        ok &= good
+        if fault is not None:
+            ok &= fault_caught(name, fault, ref, dtype, scale, sum_scale)
+        return err
+
+    def exact(name, out, ref, fault=None):
+        nonlocal ok
+        same = bool(torch.equal(out, ref))
+        log(f"[kernel] {name} {dname}: {'exact' if same else 'DIFFERS'} "
+            f"({int((out != ref).sum())} of {ref.numel()} elements differ)")
+        ok &= same
+        if fault is not None:
+            n_diff = int((fault != ref).sum())
+            log(f"[fault] {name} {dname}: {n_diff} of {ref.numel()} elements differ {'caught' if n_diff else 'MISSED'}")
+            ok &= n_diff > 0
+        return 0.0 if same else (out.float() - ref.float()).abs().max().item()
+
+    def record(name, err, ms, plain_ms, lib_ms, nbytes, ops):
+        bnd, by = bound_ms(nbytes, ops)
+        log(f"[kernel] {name} {dname}: ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms="
+            f"{'null' if lib_ms is None else f'{lib_ms:.4f}'} bound_ms={bnd:.4f} ({by})")
+        if dtype == torch.bfloat16:
+            results[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bnd,
+                                 bound_by=by)
+
+    # K5 supermask: every masked tensor of one step, forward + backward
+    shapes = masked_shapes()
+    n_el = sum(a * b for a, b in shapes)
+    assert len(shapes) == 105, len(shapes)
+    ws = [rnd(*sh) for sh in shapes]
+    ms = [torch.randn(*sh, generator=gen, device=dev) * 2.0 for sh in shapes]
+    us = [torch.rand(*sh, generator=gen, device=dev) for sh in shapes]
+    gs = [rnd(*sh) for sh in shapes]
+
+    def k5_step(fn, mode="sample"):
+        outs, dws, dms = [], [], []
+        for w, m, u, g in zip(ws, ms, us, gs):
+            w_, m_ = leaves(w, m)
+            out = fn(w_, m_, u if mode == "sample" else None, mode, False)
+            dw, dm = torch.autograd.grad(out, (w_, m_), g)
+            outs.append(out.detach().flatten())
+            dws.append(dw.flatten())
+            dms.append(dm.flatten())
+        return torch.cat(outs), torch.cat(dws), torch.cat(dms)
+
+    ko, kdw, kdm = k5_step(k5.supermask_weight)
+    po, pdw, pdm = k5_step(k5.supermask_weight_plain)
+    err = exact("supermask w_eff", ko, po, fault=k5_step(k5.supermask_weight_plain, "round")[0])
+    err = max(err, exact("supermask dw", kdw, pdw))
+    err = max(err, compare("supermask dm (f32)", kdm, pdm))
+    log(f"[kernel] supermask: {len(shapes)} tensors, {n_el} weights, kept share {ko.ne(0).float().mean().item():.3f}")
+    del ko, kdw, kdm, po, pdw, pdm
+    mode = k5.MODES["sample"]
+
+    def k5_kernels():  # the step's 105 forward and 105 backward launches
+        for w, m, u, g in zip(ws, ms, us, gs):
+            k5.launch_forward(w, m, u, mode)
+            k5.launch_backward(g, w, m, u, mode, False)
+
+    plain_leaves = [leaves(w, m) for w, m in zip(ws, ms)]
+
+    def k5_plain():
+        for (w, m), u, g in zip(plain_leaves, us, gs):
+            torch.autograd.grad(k5.supermask_weight_plain(w, m, u), (w, m), g)
+
+    record("supermask", err, time_ms(k5_kernels, iters=5, warmup=1), time_ms(k5_plain, iters=3, warmup=1), None,
+           n_el * ((es + 4 + 4 + es) + (es + es + 4 + 4 + es + 4)), {})
+    del plain_leaves
+    del ws, ms, us, gs
+
+    # K6 residual + RefLayerNorm: the decoder's rows at the throughput batch
+    rows, d = TRAIN_BIG_BATCH * SEQ_PER_IMG * MAX_LEN, PAPER["d_model"]
+    x, y = rnd(rows, d), rnd(rows, d)
+    a = (torch.rand(d, generator=gen, device=dev) + 0.5).to(dtype)
+    bias = rnd(d)
+    keep = torch.rand(rows, d, generator=gen, device=dev) < 0.9
+    gs_, gn_ = rnd(rows, d), rnd(rows, d)
+
+    def k6_run(fn):
+        ins = leaves(x, y, a, bias)
+        s_, n_ = fn(*ins, keep, 0.9)
+        return (s_.detach(), n_.detach()), torch.autograd.grad((s_, n_), ins, (gs_, gn_))
+
+    (ks, kn), kg = k6_run(k6.add_ref_layernorm)
+    (ps, pn), pg = k6_run(k6.add_ref_layernorm_plain)
+    err = compare("add_ref_layernorm s", ks, ps, rms(ps))
+    fault_n = (F.layer_norm(ps.float(), (d,), a.float(), bias.float(), 1e-6).to(dtype) if dtype == torch.float32
+               else k6.ref_layer_norm_plain(y, a, bias))  # biased variance (f32) / residual left out (bf16)
+    err = max(err, compare("add_ref_layernorm n", kn, pn, rms(pn), fault=fault_n))
+    sum_scale = (rows ** 0.5) * rms(gn_)
+    for nm, kt, pt in zip(("dx", "dy"), kg[:2], pg[:2]):
+        err = max(err, compare(f"add_ref_layernorm {nm}", kt, pt, rms(pt)))
+    for nm, kt, pt in zip(("da", "db"), kg[2:], pg[2:]):
+        err = max(err, compare(f"add_ref_layernorm {nm}", kt, pt, sum_scale=sum_scale))
+    n_only = k6.add_ref_layernorm_plain(x, None, a, bias)
+    compare("add_ref_layernorm norm only", k6.add_ref_layernorm(x, None, a, bias), n_only, rms(n_only))
+
+    def lib_run():
+        ins = leaves(x, y, a, bias)
+        s_ = torch.add(ins[0], ins[1])
+        n_ = F.layer_norm(s_, (d,), ins[2], ins[3], 1e-6)
+        return torch.autograd.grad((s_, n_), ins, (gs_, gn_))
+
+    record("add_ref_layernorm", err, time_ms(lambda: k6_run(k6.add_ref_layernorm)),
+           time_ms(lambda: k6_run(k6.add_ref_layernorm_plain), iters=5), time_ms(lib_run),
+           rows * d * ((2 * es + 1 + 2 * es) + (3 * es + 1 + 2 * es)), {})
+    del x, y, keep, gs_, gn_, ks, kn, kg, ps, pn, pg
+
+    # K1 train variant + K7 at the throughput batch, attention dropout 0.1
+    b, h, r, dk = TRAIN_BIG_BATCH, HEADS, REGIONS, DK
+    q, k, v, dout = rnd(b, h, r, dk), rnd(b, h, r, dk), rnd(b, h, r, dk), rnd(b, h, r, dk)
+    boxes = random_boxes(gen, b, r, dev)
+    picks = torch.rand(h, 64, generator=gen, device=dev).argsort(dim=1)[:, :4]
+    signs = torch.randint(0, 2, (h, 4), generator=gen, device=dev).float() * 2 - 1
+    wg_w = torch.zeros(h, 64, device=dev).scatter_(1, picks, signs * 0.225).to(dtype)  # w_g in [0.1, 1.9]
+    wg_b = torch.ones(h, device=dev).to(dtype)
+    mask = random_region_mask(gen, b, r, dev)
+    keep = torch.rand(b, h, r, r, generator=gen, device=dev) < 0.9
+
+    def k7_run(fn, keep_):
+        ins = leaves(q, k, v, wg_w, wg_b)
+        out = fn(ins[0], ins[1], ins[2], boxes, ins[3], ins[4], mask, keep_, 0.9)
+        return out.detach(), torch.autograd.grad(out, ins, dout)
+
+    kout, kg = k7_run(k7.box_attention_train, keep)
+    pout, pg = k7_run(k1.box_attention_plain, keep)
+    fout, fg = k7_run(k1.box_attention_plain, None)  # fault: keep-mask ignored
+    compare("box_attention train fwd", kout, pout, rms(v), fault=fout)
+    err = 0.0
+    # the plain version rounds dP = dO.V^T and dS to bf16 before the 36-term
+    # products that make dq, dk, dv, so its error follows the largest gradient
+    # rows: s = max |ref| for these three
+    for i, nm in enumerate(("dq", "dk", "dv")):
+        err = max(err, compare(f"box_attention_bwd {nm}", kg[i], pg[i], pg[i].float().abs().max().item(),
+                               fault=fg[i] if nm == "dq" else None))
+    for i, nm in ((3, "d wg_w"), (4, "d wg_b")):
+        ref = pg[i]
+        err = max(err, compare(f"box_attention_bwd {nm}", kg[i], ref, sum_scale=ref.float().abs().max().item(),
+                               fault=torch.zeros_like(ref) if nm == "d wg_w" else None))  # fault: wg gradient dropped
+    ins_k = leaves(q, k, v, wg_w, wg_b)
+    out_k = k7.box_attention_train(ins_k[0], ins_k[1], ins_k[2], boxes, ins_k[3], ins_k[4], mask, keep, 0.9)
+    ins_p = leaves(q, k, v, wg_w, wg_b)
+    out_p = k1.box_attention_plain(ins_p[0], ins_p[1], ins_p[2], boxes, ins_p[3], ins_p[4], mask, keep, 0.9)
+    geo = box_relational_embedding(boxes)
+    log_bias = torch.log(torch.clamp(torch.relu(F.linear(geo.to(dtype), wg_w, wg_b)), min=1e-6)).permute(0, 3, 1, 2)
+    float_mask = log_bias.masked_fill(~mask[:, None, None, :], NEG_INF).to(dtype).contiguous()
+    ins_l = leaves(q, k, v)
+    out_l = F.scaled_dot_product_attention(*ins_l, attn_mask=float_mask)
+    with torch.no_grad():
+        fwd_ms = time_ms(lambda: k7.box_attention_train(q, k, v, boxes, wg_w, wg_b, mask, keep, 0.9))
+    log(f"[kernel] box_attention train fwd {dname}: ms={fwd_ms:.4f}")
+    record("box_attention_bwd", err,
+           time_ms(lambda: torch.autograd.grad(out_k, ins_k, dout, retain_graph=True)),
+           time_ms(lambda: torch.autograd.grad(out_p, ins_p, dout, retain_graph=True), iters=5),
+           time_ms(lambda: torch.autograd.grad(out_l, ins_l, dout, retain_graph=True)),
+           8 * b * h * r * dk * es + b * h * r * 4 + b * h * r * r + b * r * 16 + b * r + 2 * h * 65 * es,
+           flops((dtype, 5 * 2 * b * h * r * r * dk), (torch.float32, 2 * 2 * b * r * r * 64 * h)))
+    if dtype == torch.bfloat16:
+        results["box_attention"]["train_fwd_ms"] = fwd_ms
+    return ok
+
+
 # ---------------------------------------------------------------- main path
 def build_model(seed: int):
     """Paper-width relation_transformer_prune in f32 on the card, random
@@ -334,23 +562,22 @@ def run_main_path(model_bf16, gen, b, expected) -> dict:
     return counts
 
 
-def profile_decode(model_bf16, gen, b) -> None:
-    """Device time by kernel over one encode + decode (torch.profiler), and
-    the device's busy share of that same window's wall time."""
+def profile_window(label: str, fn) -> None:
+    """Device time by kernel over one call of `fn` (torch.profiler), and the
+    device's busy share of that same window's wall time."""
     from torch.profiler import ProfilerActivity, profile, schedule
 
-    batch = make_batch(gen, b, torch.bfloat16)
-    caption(model_bf16, batch)
+    fn()
     torch.cuda.synchronize()
     # step 1 warms the profiler up (its start-up costs seconds of host time);
     # step 2 is the recorded window, timed on the host around the same calls
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
                  schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
-        caption(model_bf16, batch)
+        fn()
         torch.cuda.synchronize()
         prof.step()
         t0 = time.perf_counter()
-        caption(model_bf16, batch)
+        fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
         prof.step()
@@ -358,15 +585,17 @@ def profile_decode(model_bf16, gen, b) -> None:
     def dev_us(e):
         return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
 
-    # the step's own range ("ProfilerStep#2") spans the window on the device's
-    # timeline too; it is not a kernel
+    # the step's own range ("ProfilerStep#2") and the optimizers' annotations
+    # ("Optimizer.step#Adam.step") span their kernels on the device's timeline
+    # too; they are not kernels, and counting them would count those twice
     events = [e for e in prof.key_averages()
-              if e.device_type.name == "CUDA" and dev_us(e) > 0 and not e.key.startswith("ProfilerStep")]
+              if e.device_type.name == "CUDA" and dev_us(e) > 0
+              and not e.key.startswith(("ProfilerStep", "Optimizer."))]
     total_ms = sum(dev_us(e) for e in events) / 1e3
     # one stream, so kernels do not overlap; the profiler's per-call host work
     # lengthens the window, so the share is a lower bound for an unprofiled run
-    log(f"[profile] batch {b}: device kernels {total_ms:.1f} ms in {wall_ms:.1f} ms wall of the same window, "
-        f"busy {total_ms / wall_ms:.1%}")
+    log(f"[profile] {label}: device kernels {total_ms:.1f} ms in {wall_ms:.1f} ms wall of the same window, "
+        f"busy {total_ms / wall_ms:.1%}, {sum(e.count for e in events)} kernel launches")
     for e in sorted(events, key=lambda e: -dev_us(e))[:15]:
         log(f"[profile]   {dev_us(e) / 1e3:9.2f} ms  x{e.count:<6d} {e.key[:90]}")
 
@@ -387,6 +616,129 @@ def whole_path_check(model_f32, gen) -> bool:
     return same and err <= WHOLE_PATH_LP_TOL
 
 
+# ------------------------------------------------------------- train path
+def build_train_model(seed: int, dropout: bool = True):
+    """Paper-width relation_transformer_prune in f32 on the card with its
+    masks kept as parameters (init 5.0), random weights from the seed."""
+    from sparse_caption_tpu_torch.models import get_model
+    from sparse_caption_tpu_torch.ops.masked import MaskConfig
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    rates = {} if dropout else dict(dropout_rate=0.0, drop_prob_src=0.0)
+    return get_model("relation_transformer_prune")(
+        **PAPER, **rates, mask_cfg=MaskConfig("supermask", MASK_INIT, keep_masks=True), device="cuda", generator=gen)
+
+
+def make_train_batch(gen, b, device="cuda"):
+    att, mask, boxes = make_batch(gen, b, torch.float32, device)
+    seqs = torch.randint(4, PAPER["vocab_size"], (b * SEQ_PER_IMG, TRAIN_T), generator=gen, device=device)
+    seqs[:, 0] = 2  # BOS
+    return dict(att_feats=att, att_masks=mask, boxes=boxes, seqs=seqs,
+                seq_masks=torch.ones(b * SEQ_PER_IMG, TRAIN_T, device=device))
+
+
+def make_train_step(model, precision: str):
+    from sparse_caption_tpu_torch.engine.optim import build_mask_optimizer, build_weight_optimizer, make_schedule
+    from sparse_caption_tpu_torch.engine.training import make_xe_step
+    from sparse_caption_tpu_torch.ops.masked import split_params
+
+    config = dict(TRAIN_CONFIG, train_precision=precision)
+    params, masks = split_params(model)
+    opt_w = build_weight_optimizer(params.values(), config, make_schedule(config, steps_per_epoch=1000))
+    opt_m = build_mask_optimizer(masks.values(), config, trainable=True)
+    return make_xe_step(model, opt_w, opt_m, config)
+
+
+def run_train_phase(model, gen, b, precision, expected) -> dict:
+    """1 warm-up + TRAIN_STEPS XE steps: the first counted one checks the
+    launch counts, then 3 timed windows of 3 steps (steps/s: best window)."""
+    from sparse_caption_tpu_torch.engine.training import TrainState
+    from sparse_caption_tpu_torch.kernels import launch_counts, reset_launch_counts
+
+    step = make_train_step(model, precision)
+    batch = make_train_batch(gen, b)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    state, loss, aux = step(TrainState(), batch)  # warm-up
+    first = float(loss)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    state, loss, aux = step(state, batch)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    assert counts == expected, f"train launch counts {counts} != {expected}"
+    best = float("inf")
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(3):
+            state, loss, aux = step(state, batch)
+        torch.cuda.synchronize()
+        best = min(best, (time.perf_counter() - t0) / 3)
+    last = float(loss)
+    assert state.step == TRAIN_STEPS + 1 and all(map(math.isfinite, (first, last))), (state, first, last)
+    log(f"[train] {precision} batch {b}x{SEQ_PER_IMG}: {1 / best:.2f} steps/s ({best * 1e3:.1f} ms per step, best "
+        f"window of 3); loss {first:.4f} -> {last:.4f} over {state.step} steps; mask sparsity "
+        f"{float(aux['mask_sparsity']):.4f}; peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
+        f"launches per step {counts}")
+    return counts
+
+
+def whole_step_check(seed: int, gen) -> bool:
+    """One f32 XE step at 2 images x 5, dropout 0, the same mask uniforms, on
+    the card (kernels) and on the CPU (plain versions), from the same
+    weights: loss, every gradient, every param and mask after the update."""
+    from sparse_caption_tpu_torch.engine.training import TrainState
+    from sparse_caption_tpu_torch.ops.rng import TrainRandom
+
+    model_gpu = build_train_model(seed, dropout=False)
+    model_cpu = copy.deepcopy(model_gpu).to("cpu")
+    batch = make_train_batch(gen, WHOLE_STEP_BATCH)
+    results = {}
+    for name, model in (("cuda", model_gpu), ("cpu", model_cpu)):
+        dev = next(model.parameters()).device
+        step = make_train_step(model, "fp32")
+        rng = TrainRandom(torch.Generator().manual_seed(seed + 7))  # uniforms drawn on the CPU, then moved
+        _, loss, _ = step(TrainState(), {k: v.to(dev) for k, v in batch.items()}, rng)
+        results[name] = (float(loss), {n: (p.grad.cpu(), p.detach().cpu()) for n, p in model.named_parameters()})
+    (loss_g, got), (loss_c, ref) = results["cuda"], results["cpu"]
+    ok = abs(loss_g - loss_c) <= STEP_LOSS_RTOL * abs(loss_c)
+    log(f"[whole-step] f32 batch {WHOLE_STEP_BATCH}x{SEQ_PER_IMG}: loss card {loss_g:.7f} cpu {loss_c:.7f} "
+        f"{'ok' if ok else 'FAIL'}")
+    top = max(g.abs().max().item() for g, _ in ref.values())
+    lr_w = 512 ** -0.5 * 10000 ** -1.5  # noam's first update
+    worst = {"grad": 0.0, "param": 0.0, "mask": 0.0}
+    by_tensor, elementwise_ok = [], 0
+    for n, (g_ref, p_ref) in ref.items():
+        g_got, p_got = got[n]
+        g_tol = STEP_GRAD_TOL * g_ref.abs().max().item() + STEP_GRAD_FLOOR * top
+        out = (g_got - g_ref).abs() > g_tol
+        elementwise_ok += not bool(out.any())
+        norm_ratio = ((g_got - g_ref).norm() / (STEP_GRAD_NORM_TOL * g_ref.norm()
+                                                + STEP_GRAD_FLOOR * top * g_ref.numel() ** 0.5)).item()
+        rows = int(out.reshape(out.shape[0], -1).any(1).sum())
+        by_tensor.append((((g_got - g_ref).abs() / g_tol).max().item(), n, norm_ratio, int(out.sum()), rows,
+                          out.shape[0]))
+        worst["grad"] = max(worst["grad"], norm_ratio)
+        if n.endswith(".mask"):
+            # Adam's first update -lr g / (|g| + eps), lr 100, eps 1e-2: slope <= 1e4
+            p_tol = 100.0 / 1e-2 * g_tol + 2.0 ** -22 * p_ref.abs()
+            kind = "mask"
+        else:
+            # ~ -lr sign(g): an entry may move either way by lr, plus f32 rounding of p -+ lr
+            p_tol = 2 * lr_w * (1 + 2.0 ** -20) + 2.0 ** -20 * p_ref.abs()
+            kind = "param"
+        worst[kind] = max(worst[kind], ((p_got - p_ref).abs() / p_tol).max().item())
+    for ratio, n, norm_ratio, n_out, rows, n_rows in sorted(by_tensor, reverse=True)[:5]:
+        log(f"[whole-step]   gradient {n}: element-wise worst err/allowed {ratio:.3f} ({n_out} elements in {rows} of "
+            f"{n_rows} rows outside), norm-wise err/allowed {norm_ratio:.3f}")
+    good = all(v <= 1 for v in worst.values())
+    log(f"[whole-step] gradients: {elementwise_ok} of {len(ref)} tensors within the element-wise bound ({STEP_GRAD_TOL} "
+        f"of each tensor's max + {STEP_GRAD_FLOOR} of the largest, {top:.3e}); worst norm-wise err/allowed "
+        f"{worst['grad']:.3f}; params {worst['param']:.3f}, masks {worst['mask']:.3f} {'ok' if good else 'FAIL'}")
+    return ok and good
+
+
 def card_line() -> str:
     out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True)
@@ -397,6 +749,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 2
+    from sparse_caption_tpu_torch.engine.training import TrainState
     from sparse_caption_tpu_torch.kernels import KERNELS, _build, build_all
 
     card = card_line()
@@ -413,28 +766,57 @@ def main() -> int:
     ok = True
     for dtype in (torch.float32, torch.bfloat16):
         ok &= check_kernels(gen, dtype, results)
+        ok &= check_train_kernels(gen, dtype, results)
+    torch.cuda.empty_cache()
     if not ok:
         log("[kernel] a kernel disagrees with its plain version")
         return 1
 
+    # serving: encode + beam-5 generate
     model = build_model(SEED)
     model_bf16 = copy.deepcopy(model).to(torch.bfloat16)
     layers = PAPER["num_layers"]
-    expected = {"box_attention": layers, "ancestry_self_attention": layers * MAX_LEN,
-                "grouped_cross_attention": layers * MAX_LEN, "beam_topk": MAX_LEN}
-    run_main_path(model_bf16, gen, EVAL_BATCH, expected)
-    counts = run_main_path(model_bf16, gen, BIG_BATCH, expected)
+    serve = {name: 0 for name in KERNELS}
+    serve.update(box_attention=layers, ancestry_self_attention=layers * MAX_LEN,
+                 grouped_cross_attention=layers * MAX_LEN, beam_topk=MAX_LEN,
+                 add_ref_layernorm=(1 + 2 * layers) + MAX_LEN * (1 + 3 * layers))
+    run_main_path(model_bf16, gen, EVAL_BATCH, serve)
+    serve_counts = run_main_path(model_bf16, gen, BIG_BATCH, serve)
     log(f"[main] peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    profile_decode(model_bf16, gen, BIG_BATCH)
+    batch = make_batch(gen, BIG_BATCH, torch.bfloat16)
+    profile_window(f"encode + decode, bf16 batch {BIG_BATCH}", lambda: caption(model_bf16, batch))
     del model_bf16
     if not whole_path_check(model, gen):
         return 1
+    del model
+    torch.cuda.empty_cache()
+
+    # training: the supermask XE step
+    n_masked = len(masked_shapes())
+    train = {name: 0 for name in KERNELS}
+    train.update(box_attention_train=layers, box_attention_bwd=layers, supermask=n_masked, supermask_bwd=n_masked,
+                 add_ref_layernorm=(1 + 2 * layers) + (1 + 3 * layers),
+                 add_ref_layernorm_bwd=(1 + 2 * layers) + (1 + 3 * layers))
+    train_model = build_train_model(SEED)
+    for b, precision in ((TRAIN_BATCH, "fp32"), (TRAIN_BATCH, "bf16"), (TRAIN_BIG_BATCH, "bf16")):
+        train_counts = run_train_phase(train_model, gen, b, precision, train)
+    step, state = make_train_step(train_model, "bf16"), [TrainState()]
+    batch = make_train_batch(gen, TRAIN_BIG_BATCH)
+    profile_window(f"XE step, bf16 batch {TRAIN_BIG_BATCH}x{SEQ_PER_IMG}",
+                   lambda: state.append(step(state.pop(), batch)[0]))
+    del train_model
+    torch.cuda.empty_cache()
+    if not whole_step_check(SEED, gen):
+        return 1
 
     kernels = []
-    for name in KERNELS:
+    for name in _build.SOURCES:
+        entries = [e for e, k in KERNELS.items() if k.library_name == name]
+        by_path = {"serve": sum(serve_counts[e] for e in entries), "train_step": sum(train_counts[e] for e in entries)}
         src = _build.CSRC / f"{name}.cu"
         kernels.append(dict(name=name, route="cuda", source=str(src.relative_to(_build.CSRC.parents[2])),
-                            replaces=REPLACES[name], launches=counts[name], **results[name]))
+                            replaces=REPLACES[name], launches=sum(by_path.values()), launches_by_path=by_path,
+                            **results[name]))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -442,5 +824,20 @@ def main() -> int:
     return 0
 
 
+def whole_step_seeds(n: int) -> int:
+    """The card-vs-CPU XE step alone, on the batches of generator seeds 0..n-1."""
+    from sparse_caption_tpu_torch.kernels import build_all
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    build_all()
+    ok = True
+    for seed in range(n):
+        log(f"[whole-step] data seed {seed}")
+        ok &= whole_step_check(SEED, torch.Generator(device="cuda").manual_seed(seed))
+    return 0 if ok else 1
+
+
 if __name__ == "__main__":
+    if len(sys.argv) == 3 and sys.argv[1] == "--whole-step-seeds" and torch.cuda.is_available():
+        sys.exit(whole_step_seeds(int(sys.argv[2])))
     sys.exit(main())

@@ -18,6 +18,6 @@ def resolve_device(device="cuda") -> torch.device:
 
 
 def check_eval(train: bool) -> None:
-    """This slice ports eval (serving) semantics only."""
+    """Decoding is ported with eval semantics only (train-mode decoding is SCST's)."""
     if train:
-        raise NotImplementedError("training lands in a later slice")
+        raise NotImplementedError("train-mode decoding lands in a later slice")

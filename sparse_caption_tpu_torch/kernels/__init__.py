@@ -1,30 +1,43 @@
-"""Hand-written Hopper kernels of the serving path, each beside its plain PyTorch version.
+"""Hand-written Hopper kernels of the port, each beside its plain PyTorch version.
 
-==========================  ======================================  ==========================
-wrapper                     CUDA source                             replaces (JAX package)
-==========================  ======================================  ==========================
-box_attention (K1)          csrc/box_attention.cu                   models/layers.py:338-439
-ancestry_self_attention(K2) csrc/ancestry_self_attention.cu         models/layers.py:280-334
-grouped_cross_attention(K3) csrc/grouped_cross_attention.cu         models/layers.py:236-264
-beam_topk (K4)              csrc/beam_topk.cu                       layers.py:458-472, beam.py
-==========================  ======================================  ==========================
+==============================  ==================================  ======================================
+wrapper                         CUDA source                         replaces (JAX package)
+==============================  ==================================  ======================================
+box_attention (K1)              csrc/box_attention.cu               models/layers.py:338-439
+ancestry_self_attention (K2)    csrc/ancestry_self_attention.cu     models/layers.py:280-334
+grouped_cross_attention (K3)    csrc/grouped_cross_attention.cu     models/layers.py:236-264
+beam_topk (K4)                  csrc/beam_topk.cu                   layers.py:458-472, beam.py
+supermask_weight (K5)           csrc/supermask.cu                   ops/masked.py:70-82, ops/ste.py:51-64
+add_ref_layernorm (K6)          csrc/add_ref_layernorm.cu           models/layers.py:71-92,135-143
+box_attention_train (K1 + K7)   csrc/box_attention_bwd.cu           gradients of layers.py:338-439
+==============================  ==================================  ======================================
 
 A wrapper given CPU tensors runs the plain version; given CUDA tensors it
-launches its kernel (built at first use, see ``_build``) or raises.
+launches its kernel (built at first use, see ``_build``) or raises. K5, K6
+and K1/K7 are autograd Functions whose backward is a kernel too.
 """
 
+from sparse_caption_tpu_torch.kernels import add_ref_layernorm as _k6
 from sparse_caption_tpu_torch.kernels import ancestry_self_attention as _k2
 from sparse_caption_tpu_torch.kernels import beam_topk as _k4
 from sparse_caption_tpu_torch.kernels import box_attention as _k1
+from sparse_caption_tpu_torch.kernels import box_attention_bwd as _k7
 from sparse_caption_tpu_torch.kernels import grouped_cross_attention as _k3
+from sparse_caption_tpu_torch.kernels import supermask as _k5
 from sparse_caption_tpu_torch.kernels._build import build_all  # noqa: F401
 
-# name -> CudaKernel (launch counts live on these objects)
+# entry point -> CudaKernel (launch counts live on these objects)
 KERNELS = {
     "box_attention": _k1.KERNEL,
+    "box_attention_train": _k1.KERNEL_TRAIN,
     "ancestry_self_attention": _k2.KERNEL,
     "grouped_cross_attention": _k3.KERNEL,
     "beam_topk": _k4.KERNEL,
+    "supermask": _k5.KERNEL,
+    "supermask_bwd": _k5.KERNEL_BWD,
+    "add_ref_layernorm": _k6.KERNEL,
+    "add_ref_layernorm_bwd": _k6.KERNEL_BWD,
+    "box_attention_bwd": _k7.KERNEL,
 }
 
 

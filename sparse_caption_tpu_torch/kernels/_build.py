@@ -24,7 +24,8 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
-SOURCES = ("box_attention", "ancestry_self_attention", "grouped_cross_attention", "beam_topk")
+SOURCES = ("box_attention", "ancestry_self_attention", "grouped_cross_attention", "beam_topk", "supermask",
+           "add_ref_layernorm", "box_attention_bwd")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -46,7 +47,8 @@ def _nvcc() -> str:
 def _library_path(name: str) -> Path:
     h = hashlib.sha1(" ".join(NVCC_FLAGS).encode())
     h.update((CSRC / f"{name}.cu").read_bytes())
-    h.update((CSRC / "common.cuh").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
 
 
@@ -99,7 +101,7 @@ def library(name: str) -> ctypes.CDLL:
 
 
 class CudaKernel:
-    """One kernel's C entry point and its launch count.
+    """One C entry point of a kernel library and its launch count.
 
     ``launches`` grows by one per successful launch on the GPU; the plain
     PyTorch versions that CPU tensors take never touch it."""
@@ -128,6 +130,7 @@ class CudaKernel:
 
 P = ctypes.c_void_p
 I = ctypes.c_int  # noqa: E741
+I64 = ctypes.c_longlong
 F32 = ctypes.c_float
 
 

@@ -19,25 +19,29 @@ KERNEL = _build.CudaKernel("box_attention", "sct_box_attention", [
     _build.I, _build.P, _build.P, _build.P, _build.P, _build.P, _build.P, _build.P, _build.P, _build.P,
     _build.I, _build.I, _build.I, _build.F32, _build.P,
 ])
+# the train variant: dropout keep-mask on the probabilities, per-row log-sum-exp out
+KERNEL_TRAIN = _build.CudaKernel("box_attention", "sct_box_attention_train", [
+    _build.I, _build.P, _build.P, _build.P, _build.P, _build.P, _build.P, _build.P, _build.P, _build.P,
+    _build.F32, _build.P, _build.P, _build.I, _build.I, _build.I, _build.F32, _build.P,
+])
 DIM_G = 64
 
 
-def box_attention_plain(q, k, v, boxes, wg_weight, wg_bias, mask):
+def box_attention_plain(q, k, v, boxes, wg_weight, wg_bias, mask, keep=None, keep_prob: float = 1.0):
     """Reference math of ``BoxMultiHeadAttention`` after the q/k/v projections.
 
     Geometry in f32, cast to the compute dtype before the ``wg`` projection;
     relu, the 1e-6 clamp and the log in the compute dtype; the log-bias is
-    added after the -1e9 fill of padded keys."""
+    added after the -1e9 fill of padded keys; ``keep`` is the training
+    dropout on the probabilities."""
     geo = box_relational_embedding(boxes.float(), dim_g=DIM_G)
     w_g = torch.relu(F.linear(geo.to(q.dtype), wg_weight, wg_bias))  # (B, R, R, h)
     log_wg = torch.log(torch.clamp(w_g, min=1e-6)).permute(0, 3, 1, 2).to(q.dtype)
-    return scaled_dot_attention(q, k, v, mask=mask[:, None, None, :], bias=log_wg)
+    return scaled_dot_attention(q, k, v, mask=mask[:, None, None, :], bias=log_wg, keep=keep, keep_prob=keep_prob)
 
 
-def box_attention(q, k, v, boxes, wg_weight, wg_bias, mask):
-    """q, k, v: (B, h, R, dk) f32 or bf16; boxes: (B, R, 4) f32; wg_weight: (h, 64)
-    (the Linear layout of the (64, h) projection) and wg_bias: (h,) in the
-    compute dtype; mask: (B, R) bool, False = padded region. Returns (B, h, R, dk)."""
+def check_args(q, k, v, boxes, wg_weight, wg_bias, mask, keep=None):
+    """Shapes, dtypes and devices of a box-attention call; returns (B, h, R, dk)."""
     check_float(q, "q")
     b, h, r, dk = q.shape
     for name, t in (("k", k), ("v", v)):
@@ -46,11 +50,23 @@ def box_attention(q, k, v, boxes, wg_weight, wg_bias, mask):
     check_tensor(wg_weight, "wg_weight", (h, DIM_G), q.dtype)
     check_tensor(wg_bias, "wg_bias", (h,), q.dtype)
     check_tensor(mask, "mask", (b, r), torch.bool)
-    check_same_device(q, k, v, boxes, wg_weight, wg_bias, mask)
+    if keep is not None:
+        check_tensor(keep, "keep", (b, h, r, r), torch.bool)
+    check_same_device(q, k, v, boxes, wg_weight, wg_bias, mask, keep)
+    if q.device.type == "cuda" and (dk != 64 or r > 64 or h > 16):
+        raise ValueError(f"box_attention kernels take dk == 64, R <= 64, h <= 16; got dk={dk} R={r} h={h}")
+    return b, h, r, dk
+
+
+def box_attention(q, k, v, boxes, wg_weight, wg_bias, mask):
+    """q, k, v: (B, h, R, dk) f32 or bf16; boxes: (B, R, 4) f32; wg_weight: (h, 64)
+    (the Linear layout of the (64, h) projection) and wg_bias: (h,) in the
+    compute dtype; mask: (B, R) bool, False = padded region. Returns (B, h, R, dk).
+    Eval only: the result carries no gradient (training uses
+    ``box_attention_bwd.box_attention_train``)."""
+    b, h, r, dk = check_args(q, k, v, boxes, wg_weight, wg_bias, mask)
     if q.device.type == "cpu":
         return box_attention_plain(q, k, v, boxes, wg_weight, wg_bias, mask)
-    if dk != 64 or r > 64 or h > 16:
-        raise ValueError(f"box_attention kernel takes dk == 64, R <= 64, h <= 16; got dk={dk} R={r} h={h}")
     out = torch.empty_like(q)
     freq = geometry_frequencies(DIM_G, device=q.device)
     KERNEL.launch(_build.dtype_code(q), q.data_ptr(), k.data_ptr(), v.data_ptr(), boxes.data_ptr(),

@@ -1,0 +1,69 @@
+"""K7: backward of the ORT box-relation self-attention (``csrc/box_attention_bwd.cu``),
+bound with K1's train variant into one autograd Function.
+
+``box_attention_train`` is the training form of ``box_attention``: for CUDA
+tensors its forward launches K1's train variant (dropout keep-mask on the
+probabilities, per-row log-sum-exp saved) and its backward launches K7,
+which returns dq, dk, dv and the gradients of the ``wg`` projection; for
+CPU tensors it runs ``box_attention_plain``, whose autograd gives the same
+gradients. Nothing else falls back.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+
+from sparse_caption_tpu_torch.kernels import _build
+from sparse_caption_tpu_torch.kernels.box_attention import DIM_G, KERNEL_TRAIN, box_attention_plain, check_args
+from sparse_caption_tpu_torch.ops.attention import geometry_frequencies
+
+KERNEL = _build.CudaKernel("box_attention_bwd", "sct_box_attention_bwd", [
+    _build.I, _build.P, _build.P, _build.P, _build.P, _build.P, _build.P, _build.P, _build.P, _build.P, _build.P,
+    _build.P, _build.P, _build.F32, _build.P, _build.P, _build.P, _build.P, _build.P, _build.P,
+    _build.I, _build.I, _build.I, _build.F32, _build.P,
+])
+
+
+class _BoxAttentionFn(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, boxes, wg_weight, wg_bias, mask, keep, keep_prob: float):
+        b, h, r, dk = q.shape
+        out = torch.empty_like(q)
+        lse = torch.empty(b, h, r, device=q.device, dtype=torch.float32)
+        freq = geometry_frequencies(DIM_G, device=q.device)
+        KERNEL_TRAIN.launch(_build.dtype_code(q), q.data_ptr(), k.data_ptr(), v.data_ptr(), boxes.data_ptr(),
+                            wg_weight.data_ptr(), wg_bias.data_ptr(), freq.data_ptr(), mask.data_ptr(),
+                            _build.ptr(keep), keep_prob, out.data_ptr(), lse.data_ptr(), b, h, r,
+                            1.0 / math.sqrt(dk), _build.stream_handle(q))
+        ctx.keep_prob = keep_prob
+        ctx.save_for_backward(q, k, v, out, lse, boxes, wg_weight, wg_bias, mask, keep, freq)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse, boxes, wg_weight, wg_bias, mask, keep, freq = ctx.saved_tensors
+        b, h, r, dk = q.shape
+        dout = dout.contiguous()
+        dq, dk_, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+        dwg_w, dwg_b = torch.empty_like(wg_weight), torch.empty_like(wg_bias)
+        partial = torch.empty(b, h, DIM_G + 1, device=q.device, dtype=torch.float32)
+        KERNEL.launch(_build.dtype_code(q), q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                      dout.data_ptr(), lse.data_ptr(), boxes.data_ptr(), wg_weight.data_ptr(), wg_bias.data_ptr(),
+                      freq.data_ptr(), mask.data_ptr(), _build.ptr(keep), ctx.keep_prob, dq.data_ptr(),
+                      dk_.data_ptr(), dv.data_ptr(), dwg_w.data_ptr(), dwg_b.data_ptr(), partial.data_ptr(),
+                      b, h, r, 1.0 / math.sqrt(dk), _build.stream_handle(q))
+        return dq, dk_, dv, None, dwg_w, dwg_b, None, None, None
+
+
+def box_attention_train(q, k, v, boxes, wg_weight, wg_bias, mask, keep: Optional[torch.Tensor] = None,
+                        keep_prob: float = 1.0):
+    """``box_attention`` with gradients for q, k, v, wg_weight and wg_bias, and
+    the training dropout: keep (B, h, R, R) bool, kept probabilities scaled
+    by 1 / keep_prob (None: no dropout)."""
+    check_args(q, k, v, boxes, wg_weight, wg_bias, mask, keep)
+    if q.device.type == "cpu":
+        return box_attention_plain(q, k, v, boxes, wg_weight, wg_bias, mask, keep, keep_prob)
+    return _BoxAttentionFn.apply(q, k, v, boxes, wg_weight, wg_bias, mask, keep, float(keep_prob))

@@ -18,26 +18,31 @@
 // never leave the SM.
 //
 // Design: one block per image over all heads. The block first computes the
-// geometry of every (i, j) pair once (32 sincosf) and dots it with all heads'
-// wg rows, storing the (h, R, R) log-bias in shared memory; then, head by
-// head, it stages K and V in shared memory and each warp attends one query
-// row at a time (common.cuh warp_attend_row). Simple CUDA cores, no wgmma: the
-// 36-wide products are far too small for tensor-core tiles to matter before
-// the memory bound does.
-#include "common.cuh"
+// geometry of every (i, j) pair once (32 sincosf, box_geometry.cuh) and dots it
+// with all heads' wg rows, storing the (h, R, R) log-bias in shared memory;
+// then, head by head, it stages K and V in shared memory and each warp attends
+// one query row at a time (common.cuh warp_attend_row). Simple CUDA cores, no
+// wgmma: the 36-wide products are far too small for tensor-core tiles to
+// matter before the memory bound does.
+//
+// Train variant (sct_box_attention_train): the same kernel also applies the
+// attention-probability dropout keep-mask (B, h, R, R) as p * keep / keep_prob
+// after the softmax (layers.py:437-438) and writes each row's f32
+// log-sum-exp (B, h, R), from which K7 (box_attention_bwd.cu) recomputes the
+// probabilities.
+#include "box_geometry.cuh"
 
 namespace sct {
 
 constexpr int kBoxThreads = 256;
-constexpr int kMaxHeads = 16;
-constexpr int kFreqs = 8;  // dim_g 64 = 4 coords x 8 freqs x (sin, cos)
 
 template <typename T>
 __global__ void __launch_bounds__(kBoxThreads)
 box_attention_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                      const float* __restrict__ boxes, const T* __restrict__ wg_w, const T* __restrict__ wg_b,
                      const float* __restrict__ freq, const unsigned char* __restrict__ mask,
-                     T* __restrict__ out, int H, int R, float scale) {
+                     const unsigned char* __restrict__ keep, float keep_prob, T* __restrict__ out,
+                     float* __restrict__ lse, int H, int R, float scale) {
   extern __shared__ float smem[];
   const int nwarps = blockDim.x / 32, warp = threadIdx.x / 32, lane = threadIdx.x & 31;
   float* bias_s = smem;                    // H * R * R
@@ -60,49 +65,13 @@ box_attention_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
   __syncthreads();
 
   // geometry log-bias of every (head, i, j)
-  const float min_wg = round_to<T>(1e-6f);
   for (int p = threadIdx.x; p < R * R; p += blockDim.x) {
     const int i = p / R, j = p - (p / R) * R;
-    const float* bi = box_s + 4 * i;
-    const float* bj = box_s + 4 * j;
-    const float cxi = (bi[0] + bi[2]) * 0.5f, cyi = (bi[1] + bi[3]) * 0.5f;
-    const float wi = (bi[2] - bi[0]) + 1.f, hi = (bi[3] - bi[1]) + 1.f;
-    const float cxj = (bj[0] + bj[2]) * 0.5f, cyj = (bj[1] + bj[3]) * 0.5f;
-    const float wj = (bj[2] - bj[0]) + 1.f, hj = (bj[3] - bj[1]) + 1.f;
-    float pos[4];
-    pos[0] = logf(fmaxf(fabsf((cxi - cxj) / wi), 1e-3f));
-    pos[1] = logf(fmaxf(fabsf((cyi - cyj) / hi), 1e-3f));
-    pos[2] = logf(wi / wj);
-    pos[3] = logf(hi / hj);
-    float acc[kMaxHeads];
-#pragma unroll
-    for (int hh = 0; hh < kMaxHeads; ++hh) acc[hh] = 0.f;
-#pragma unroll 1
-    for (int c = 0; c < 4; ++c) {
-      const float scaled = 100.f * pos[c];
-#pragma unroll 1
-      for (int f = 0; f < kFreqs; ++f) {
-        float sn, cs;
-        sincosf(scaled * freq_s[f], &sn, &cs);
-        sn = round_to<T>(sn);  // geo enters the wg projection in the compute dtype
-        cs = round_to<T>(cs);
-        const int g = c * kFreqs + f;
-#pragma unroll
-        for (int hh = 0; hh < kMaxHeads; ++hh) {
-          if (hh < H) {
-            acc[hh] = fmaf(sn, w_s[hh * 64 + g], acc[hh]);
-            acc[hh] = fmaf(cs, w_s[hh * 64 + 4 * kFreqs + g], acc[hh]);
-          }
-        }
-      }
-    }
+    float wg[kMaxHeads];
+    pair_wg<T>(box_s + 4 * i, box_s + 4 * j, w_s, wb_s, freq_s, H, wg);
 #pragma unroll
     for (int hh = 0; hh < kMaxHeads; ++hh) {
-      if (hh < H) {
-        float wg = round_to<T>(round_to<T>(acc[hh]) + wb_s[hh]);
-        wg = fmaxf(fmaxf(wg, 0.f), min_wg);  // relu, then the 1e-6 clamp
-        bias_s[(hh * R + i) * R + j] = round_to<T>(logf(wg));
-      }
+      if (hh < H) bias_s[(hh * R + i) * R + j] = round_to<T>(logf(wg[hh]));
     }
   }
 
@@ -118,8 +87,11 @@ box_attention_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
       qw[2 * lane] = qv.x;
       qw[2 * lane + 1] = qv.y;
       __syncwarp();
+      const size_t row = ((size_t)b * H + hh) * R + i;
       warp_attend_row<T>(qw, k_s, v_s, mask_s, bias_s + (hh * R + i) * R, R, scale,
-                         p_s + warp * kHeadDim, out + base + (size_t)i * kHeadDim);
+                         p_s + warp * kHeadDim, out + base + (size_t)i * kHeadDim,
+                         keep == nullptr ? nullptr : keep + row * R, keep_prob,
+                         lse == nullptr ? nullptr : lse + row);
     }
   }
 }
@@ -133,8 +105,8 @@ inline size_t box_smem_bytes(int H, int R) {
 
 template <typename T>
 cudaError_t launch(const void* q, const void* k, const void* v, const void* boxes, const void* wg_w,
-                   const void* wg_b, const void* freq, const void* mask, void* out, int B, int H, int R,
-                   float scale, cudaStream_t stream) {
+                   const void* wg_b, const void* freq, const void* mask, const void* keep, float keep_prob, void* out,
+                   void* lse, int B, int H, int R, float scale, cudaStream_t stream) {
   const size_t smem = box_smem_bytes(H, R);
   cudaError_t err = cudaFuncSetAttribute(box_attention_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)smem);
@@ -142,9 +114,23 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* boxe
   box_attention_kernel<T><<<B, kBoxThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<const float*>(boxes), static_cast<const T*>(wg_w), static_cast<const T*>(wg_b),
-      static_cast<const float*>(freq), static_cast<const unsigned char*>(mask), static_cast<T*>(out), H, R,
+      static_cast<const float*>(freq), static_cast<const unsigned char*>(mask),
+      static_cast<const unsigned char*>(keep), keep_prob, static_cast<T*>(out), static_cast<float*>(lse), H, R,
       scale);
   return cudaGetLastError();
+}
+
+int dispatch(int dtype, const void* q, const void* k, const void* v, const void* boxes, const void* wg_w,
+             const void* wg_b, const void* freq, const void* mask, const void* keep, float keep_prob, void* out,
+             void* lse, int B, int H, int R, float scale, void* stream) {
+  if (H < 1 || H > kMaxHeads || R < 1 || R > 64) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) return (int)launch<float>(q, k, v, boxes, wg_w, wg_b, freq, mask, keep, keep_prob, out, lse, B, H, R, scale, s);
+  if (dtype == 1) {
+    return (int)launch<__nv_bfloat16>(q, k, v, boxes, wg_w, wg_b, freq, mask, keep, keep_prob, out, lse, B, H, R,
+                                      scale, s);
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace sct
@@ -154,12 +140,19 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* boxe
 extern "C" int sct_box_attention(int dtype, const void* q, const void* k, const void* v, const void* boxes,
                                  const void* wg_w, const void* wg_b, const void* freq, const void* mask,
                                  void* out, int B, int H, int R, float scale, void* stream) {
-  if (H < 1 || H > sct::kMaxHeads || R < 1 || R > 64) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return (int)sct::launch<float>(q, k, v, boxes, wg_w, wg_b, freq, mask, out, B, H, R, scale, s);
-  if (dtype == 1)
-    return (int)sct::launch<__nv_bfloat16>(q, k, v, boxes, wg_w, wg_b, freq, mask, out, B, H, R, scale, s);
-  return (int)cudaErrorInvalidValue;
+  return sct::dispatch(dtype, q, k, v, boxes, wg_w, wg_b, freq, mask, nullptr, 1.f, out, nullptr, B, H, R, scale,
+                       stream);
+}
+
+// Train variant: as above, plus keep (B, H, R, R) bool or null (no dropout)
+// with keep_prob, and lse (B, H, R) f32 written.
+extern "C" int sct_box_attention_train(int dtype, const void* q, const void* k, const void* v, const void* boxes,
+                                       const void* wg_w, const void* wg_b, const void* freq, const void* mask,
+                                       const void* keep, float keep_prob, void* out, void* lse, int B, int H, int R,
+                                       float scale, void* stream) {
+  if (lse == nullptr) return (int)cudaErrorInvalidValue;
+  return sct::dispatch(dtype, q, k, v, boxes, wg_w, wg_b, freq, mask, keep, keep_prob, out, lse, B, H, R, scale,
+                       stream);
 }
 
 extern "C" const char* sct_error_string(int err) { return cudaGetErrorString(static_cast<cudaError_t>(err)); }

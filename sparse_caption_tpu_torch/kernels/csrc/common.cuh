@@ -69,11 +69,15 @@ __device__ __forceinline__ void load_tile(float* dst, const T* __restrict__ src,
 // scores q.k * scale, the -1e9 fill where mask == 0, an optional additive
 // bias AFTER the fill, softmax, then P.V written to `out` (64 elements).
 // q_s: 64 f32; k_s: R rows of kKeyStride; v_s: R rows of kValStride;
-// p_s: 64 f32 of scratch owned by this warp.
+// p_s: 64 f32 of scratch owned by this warp. Optional (training): `keep`, the
+// row's R dropout flags, turns p into p * keep / keep_prob before P.V, and
+// `lse` receives the row's log-sum-exp of the scores (f32).
 template <typename T>
 __device__ __forceinline__ void warp_attend_row(const float* q_s, const float* k_s, const float* v_s,
                                                 const unsigned char* mask_s, const float* bias, int R,
-                                                float scale, float* p_s, T* __restrict__ out) {
+                                                float scale, float* p_s, T* __restrict__ out,
+                                                const unsigned char* __restrict__ keep = nullptr,
+                                                float keep_prob = 1.f, float* __restrict__ lse = nullptr) {
   const int lane = threadIdx.x & 31;
   float s[2];
 #pragma unroll
@@ -94,9 +98,16 @@ __device__ __forceinline__ void warp_attend_row(const float* q_s, const float* k
   const float m = warp_max(fmaxf(s[0], s[1]));
   const float e0 = lane < R ? expf(s[0] - m) : 0.f;
   const float e1 = lane + 32 < R ? expf(s[1] - m) : 0.f;
-  const float inv = 1.f / warp_sum(e0 + e1);
-  if (lane < R) p_s[lane] = e0 * inv;
-  if (lane + 32 < R) p_s[lane + 32] = e1 * inv;
+  const float sum = warp_sum(e0 + e1);
+  const float inv = 1.f / sum;
+  float p0 = e0 * inv, p1 = e1 * inv;
+  if (keep != nullptr) {
+    p0 = lane < R && keep[lane] ? p0 / keep_prob : 0.f;
+    p1 = lane + 32 < R && keep[lane + 32] ? p1 / keep_prob : 0.f;
+  }
+  if (lane < R) p_s[lane] = p0;
+  if (lane + 32 < R) p_s[lane + 32] = p1;
+  if (lse != nullptr && lane == 0) *lse = m + logf(sum);
   __syncwarp();
   float2 acc = make_float2(0.f, 0.f);
   for (int j = 0; j < R; ++j) {

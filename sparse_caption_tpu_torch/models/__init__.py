@@ -1,8 +1,10 @@
 """Model registry of the port (names mirror ``sparse_caption_tpu.models``).
 
-Model API (eval; ``device`` defaults to ``"cuda"``):
+Model API (``device`` defaults to ``"cuda"``):
 
-* ``model(att_feats, att_masks, seqs, boxes)``                     -> XE log-probs
+* ``model(att_feats, att_masks, seqs, boxes)``                     -> XE log-probs (eval)
+* ``model(att_feats, att_masks, seqs, boxes, train=True, rng=r)``  -> XE log-probs with
+  gradients, dropout and fresh supermask samples (``r``: ``ops.rng.TrainRandom``)
 * ``model.encode(att_feats, att_masks, boxes)``                     -> memory dict
 * ``model.init_cache(memory, max_steps, rows_per_image, ...)``      -> decode cache dict
 * ``model.decode_step(it, cache, t, memory)``                       -> (log-probs, cache)

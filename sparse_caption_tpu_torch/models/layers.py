@@ -1,12 +1,21 @@
-"""Shared model layers, eval mode (port of ``sparse_caption_tpu/models/layers.py``).
+"""Shared model layers (port of ``sparse_caption_tpu/models/layers.py``).
 
 Numerics kept from the reference:
 * ``RefLayerNorm`` uses Bessel-corrected std + eps with f32 stats (it is not
   ``nn.LayerNorm``, which uses sqrt(biased var + eps))
-* pre-norm residual ``x + f(norm(x))``; sinusoidal PE in the activation dtype
+* pre-norm residual ``x + dropout(f(norm(x)))``; sinusoidal PE in the
+  activation dtype
 * masked scores are filled with -1e9 in their own dtype, and the ORT geometry
   bias is added after the fill
 * ORT geometry trig in f32, cast to the compute dtype before ``wg``
+* in training the generator's log_softmax runs in f32
+
+Train mode: a forward given ``rng`` (an ``ops.rng.TrainRandom``) draws the
+supermask samples and the dropout masks from it; ``rng=None`` is eval.
+The residual add of sublayer i and the norm of sublayer i+1 run fused in
+kernel K6 (``prenorm_stack``); the ORT encoder's attention in K1 (eval) or
+K1's train variant with its backward K7; masked weights in K5. The decoder's
+full-sequence attention (XE teacher forcing) is plain torch.
 
 Decode caches are explicit tensors ``(N, h, T_max, dk)``; ``decode_self``
 writes slot ``t`` IN PLACE (the JAX package returns an updated copy).
@@ -17,22 +26,25 @@ Parameter names follow the flax leaf paths (``q_proj.weight`` <-
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Callable, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from sparse_caption_tpu_torch.kernels.add_ref_layernorm import add_ref_layernorm
 from sparse_caption_tpu_torch.kernels.ancestry_self_attention import ancestry_self_attention
 from sparse_caption_tpu_torch.kernels.box_attention import DIM_G, box_attention
+from sparse_caption_tpu_torch.kernels.box_attention_bwd import box_attention_train
 from sparse_caption_tpu_torch.kernels.grouped_cross_attention import grouped_cross_attention
 from sparse_caption_tpu_torch.ops.attention import box_relational_embedding, scaled_dot_attention  # noqa: F401
 from sparse_caption_tpu_torch.ops.masked import MaskConfig, MaskedEmbedding, MaskedLinear
+from sparse_caption_tpu_torch.ops.rng import dropout, keep_mask
 
 
 class RefLayerNorm(nn.Module):
     """``a * (x - mean) / (std + eps) + b`` with unbiased std, stats in f32,
-    result in the input dtype."""
+    result in the input dtype (kernel K6 without the residual)."""
 
     def __init__(self, d: int, eps: float = 1e-6, device=None, dtype=None):
         super().__init__()
@@ -41,12 +53,7 @@ class RefLayerNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(d, device=device, dtype=dtype))
 
     def forward(self, x):
-        d = x.shape[-1]
-        xf = x.float()
-        mean = xf.mean(dim=-1, keepdim=True)
-        var = torch.square(xf - mean).sum(dim=-1, keepdim=True) / max(d - 1, 1)
-        out = self.weight.float() * (xf - mean) / (torch.sqrt(var) + self.eps) + self.bias.float()
-        return out.to(x.dtype)
+        return add_ref_layernorm(x, None, self.weight, self.bias, eps=self.eps)
 
 
 def sinusoid_table(max_len: int, d_model: int, device=None) -> torch.Tensor:
@@ -60,38 +67,57 @@ def sinusoid_table(max_len: int, d_model: int, device=None) -> torch.Tensor:
 
 
 class PositionalEncoding(nn.Module):
-    def __init__(self, d_model: int, max_len: int = 5000, device=None):
+    def __init__(self, d_model: int, dropout_rate: float = 0.1, max_len: int = 5000, device=None):
         super().__init__()
+        self.dropout_rate = dropout_rate
         self.register_buffer("pe", sinusoid_table(max_len, d_model, device), persistent=False)
 
-    def forward(self, x, t: Optional[int] = None):
+    def forward(self, x, t: Optional[int] = None, rng=None):
         """x: (B, T, D); with ``t`` (incremental decode) x is (B, 1, D) at step t.
         The f32 table is cast to x's dtype so a bf16 decode stays bf16."""
         pe = self.pe.to(x.dtype)
-        if t is None:
-            return x + pe[None, : x.shape[1]]
-        return x + pe[None, t: t + 1]
+        x = x + (pe[None, : x.shape[1]] if t is None else pe[None, t: t + 1])
+        return dropout(x, self.dropout_rate, rng)
 
 
 class PositionwiseFeedForward(nn.Module):
-    def __init__(self, d_model: int, d_ff: int, mask_cfg: Optional[MaskConfig] = None, device=None, dtype=None):
+    def __init__(self, d_model: int, d_ff: int, dropout_rate: float = 0.1, mask_cfg: Optional[MaskConfig] = None,
+                 device=None, dtype=None):
         super().__init__()
+        self.dropout_rate = dropout_rate
         self.w_1 = MaskedLinear(d_model, d_ff, mask_cfg=mask_cfg, device=device, dtype=dtype)
         self.w_2 = MaskedLinear(d_ff, d_model, mask_cfg=mask_cfg, device=device, dtype=dtype)
 
-    def forward(self, x):
-        return self.w_2(torch.relu(self.w_1(x)))
+    def forward(self, x, rng=None):
+        return self.w_2(dropout(torch.relu(self.w_1(x, rng)), self.dropout_rate, rng), rng)
 
 
 class SublayerConnection(nn.Module):
-    """Pre-norm residual wrapper."""
+    """Pre-norm residual wrapper: holds the sublayer's norm and its dropout
+    rate; ``prenorm_stack`` runs it."""
 
-    def __init__(self, d_model: int, device=None, dtype=None):
+    def __init__(self, d_model: int, dropout_rate: float = 0.1, device=None, dtype=None):
         super().__init__()
+        self.dropout_rate = dropout_rate
         self.norm = RefLayerNorm(d_model, device=device, dtype=dtype)
 
-    def forward(self, x, sublayer):
-        return x + sublayer(self.norm(x))
+
+Step = Tuple[SublayerConnection, Callable]
+
+
+def prenorm_stack(x, steps: Sequence[Step], final_norm: RefLayerNorm, rng=None):
+    """``x = x + dropout(f(norm(x)))`` for every (sublayer, f) in order, then
+    ``final_norm(x)``. Sublayer i's residual add (with its dropout) runs fused
+    with the norm of sublayer i+1, or with the final norm, in kernel K6:
+    1 + len(steps) launches."""
+    first = steps[0][0].norm
+    n = add_ref_layernorm(x, None, first.weight, first.bias, eps=first.eps)
+    for i, (sub, fn) in enumerate(steps):
+        y = fn(n)
+        nxt = steps[i + 1][0].norm if i + 1 < len(steps) else final_norm
+        keep = keep_mask(y.shape, sub.dropout_rate, rng, y.device)
+        x, n = add_ref_layernorm(x, y, nxt.weight, nxt.bias, keep, 1.0 - sub.dropout_rate, eps=nxt.eps)
+    return n
 
 
 def _split_heads(x, h: int):
@@ -114,26 +140,31 @@ def _check_share_att(share_att) -> None:
 class MultiHeadAttention(nn.Module):
     """MHA with cached-decode methods (unshared q/k/v/out projections)."""
 
-    def __init__(self, num_heads: int, d_model: int, share_att: Optional[str] = None,
+    def __init__(self, num_heads: int, d_model: int, dropout_rate: float = 0.1, share_att: Optional[str] = None,
                  mask_cfg: Optional[MaskConfig] = None, device=None, dtype=None):
         super().__init__()
         assert d_model % num_heads == 0
         _check_share_att(share_att)
         self.num_heads = num_heads
+        self.dropout_rate = dropout_rate
         for name in ("q_proj", "k_proj", "v_proj", "out_proj"):
             setattr(self, name, MaskedLinear(d_model, d_model, mask_cfg=mask_cfg, device=device, dtype=dtype))
 
-    def forward(self, query, key, value, mask=None):
-        """Full-sequence attention. mask: (B, 1, Tq, Tk) or (B, 1, 1, Tk); 0 = invalid."""
+    def forward(self, query, key, value, mask=None, rng=None):
+        """Full-sequence attention (plain torch, with autograd in training).
+        mask: (B, 1, Tq, Tk) or (B, 1, 1, Tk); 0 = invalid."""
         h = self.num_heads
-        q = _split_heads(self.q_proj(query), h)
-        k, v = self.project_memory_kv(key, value)
-        return self.out_proj(_merge_heads(scaled_dot_attention(q, k, v, mask=mask)))
+        q = _split_heads(self.q_proj(query, rng), h)
+        k, v = self.project_memory_kv(key, value, rng)
+        keep = keep_mask((q.shape[0], h, q.shape[2], k.shape[2]), self.dropout_rate, rng, q.device)
+        out = scaled_dot_attention(q, k, v, mask=mask, keep=keep, keep_prob=1.0 - self.dropout_rate)
+        return self.out_proj(_merge_heads(out), rng)
 
-    def project_memory_kv(self, key, value=None):
+    def project_memory_kv(self, key, value=None, rng=None):
         """(B, S, D) -> K, V each (B, h, S, dk), contiguous; computed once per decode."""
         value = key if value is None else value
-        return _split_heads(self.k_proj(key), self.num_heads), _split_heads(self.v_proj(value), self.num_heads)
+        return (_split_heads(self.k_proj(key, rng), self.num_heads),
+                _split_heads(self.v_proj(value, rng), self.num_heads))
 
     def decode_cross(self, x_t, mem_k, mem_v, mem_mask):
         """x_t: (N, 1, D); mem_k/v: (B, h, S, dk), B dividing N (each image's
@@ -179,26 +210,35 @@ class BoxMultiHeadAttention(nn.Module):
     """Geometry-biased self-attention of the ORT encoder: ``softmax(log(clamp(
     relu(wg . geo), 1e-6)) + fill(qk / sqrt(d)))`` with one (64 -> h) ``wg``
     projection (the trigonometric geometry; the 4-wide raw one is not
-    ported). The attention runs in kernel K1."""
+    ported). The attention runs in kernel K1, or with gradients in K1's train
+    variant and K7."""
 
-    def __init__(self, num_heads: int, d_model: int, share_att: Optional[str] = None,
+    def __init__(self, num_heads: int, d_model: int, dropout_rate: float = 0.1, share_att: Optional[str] = None,
                  mask_cfg: Optional[MaskConfig] = None, device=None, dtype=None):
         super().__init__()
         assert d_model % num_heads == 0
         _check_share_att(share_att)
         self.num_heads = num_heads
+        self.dropout_rate = dropout_rate
         for name in ("q_proj", "k_proj", "v_proj", "out_proj"):
             setattr(self, name, MaskedLinear(d_model, d_model, mask_cfg=mask_cfg, device=device, dtype=dtype))
         self.wg = MaskedLinear(DIM_G, num_heads, mask_cfg=mask_cfg, device=device, dtype=dtype)
 
-    def forward(self, x, boxes, mask):
+    def forward(self, x, boxes, mask, rng=None):
         """x: (B, R, D); boxes: (B, R, 4) f32; mask: (B, R) bool, False = padded."""
         h = self.num_heads
-        q = _split_heads(self.q_proj(x), h)
-        k = _split_heads(self.k_proj(x), h)
-        v = _split_heads(self.v_proj(x), h)
-        out = box_attention(q, k, v, boxes.float().contiguous(), self.wg.weight, self.wg.bias, mask)
-        return self.out_proj(_merge_heads(out))
+        q = _split_heads(self.q_proj(x, rng), h)
+        k = _split_heads(self.k_proj(x, rng), h)
+        v = _split_heads(self.v_proj(x, rng), h)
+        wg_w = self.wg.effective_weight(rng)
+        boxes = boxes.float().contiguous()
+        if rng is None and not torch.is_grad_enabled():
+            out = box_attention(q, k, v, boxes, wg_w, self.wg.bias, mask)
+        else:
+            b, r = x.shape[0], x.shape[1]
+            keep = keep_mask((b, h, r, r), self.dropout_rate, rng, x.device)
+            out = box_attention_train(q, k, v, boxes, wg_w, self.wg.bias, mask, keep, 1.0 - self.dropout_rate)
+        return self.out_proj(_merge_heads(out), rng)
 
 
 class InputEmbedding(nn.Module):
@@ -210,21 +250,24 @@ class InputEmbedding(nn.Module):
         self.scale = math.sqrt(d_model)
         self.lut = MaskedEmbedding(vocab_size, d_model, mask_cfg=mask_cfg, device=device, dtype=dtype)
 
-    def forward(self, ids):
-        return self.lut(ids) * self.scale
+    def forward(self, ids, rng=None):
+        return self.lut(ids, rng) * self.scale
 
 
 class Generator(nn.Module):
-    """Linear + log_softmax output head; in eval the log_softmax runs in the
-    compute dtype."""
+    """Linear + log_softmax output head. In eval the log_softmax runs in the
+    compute dtype; in training (``rng`` given) in f32."""
 
     def __init__(self, d_model: int, vocab_size: int, mask_cfg: Optional[MaskConfig] = None, device=None,
                  dtype=None):
         super().__init__()
         self.proj = MaskedLinear(d_model, vocab_size, mask_cfg=mask_cfg, device=device, dtype=dtype)
 
-    def logits(self, x):
-        return self.proj(x)
+    def logits(self, x, rng=None):
+        return self.proj(x, rng)
 
-    def forward(self, x):
-        return torch.log_softmax(self.proj(x), dim=-1)
+    def forward(self, x, rng=None):
+        logits = self.proj(x, rng)
+        if rng is not None:
+            logits = logits.float()
+        return torch.log_softmax(logits, dim=-1)

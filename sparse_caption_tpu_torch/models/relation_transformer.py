@@ -1,41 +1,45 @@
-"""Object Relation Transformer, eval mode (port of
+"""Object Relation Transformer (port of
 ``sparse_caption_tpu/models/relation_transformer.py``).
 
-Encoder: ``att_embed`` (Linear + ReLU) then box-relation self-attention
-layers (kernel K1) over the region features; decoder, PE, generator and
-caching are the caption Transformer's.
+Encoder: ``att_embed`` (Linear + ReLU + dropout) then box-relation
+self-attention layers (kernel K1; in training K1's train variant and K7)
+over the region features; decoder, PE, generator and caching are the
+caption Transformer's.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, List
 
 import torch
 from torch import nn
 
-from sparse_caption_tpu_torch import check_eval
 from sparse_caption_tpu_torch.models import register_model
 from sparse_caption_tpu_torch.models.layers import (
     BoxMultiHeadAttention,
     PositionwiseFeedForward,
     RefLayerNorm,
+    Step,
     SublayerConnection,
+    prenorm_stack,
 )
-from sparse_caption_tpu_torch.models.transformer import Transformer, _unique_layer_plan
+from sparse_caption_tpu_torch.models.transformer import Transformer, _unique_layer_plan, train_rng
 from sparse_caption_tpu_torch.ops.masked import MaskedLinear
+from sparse_caption_tpu_torch.ops.rng import dropout
 
 
 class BoxEncoderLayer(nn.Module):
-    def __init__(self, d_model: int, num_heads: int, d_ff: int, share_att=None, mask_cfg=None, **factory):
+    def __init__(self, d_model: int, num_heads: int, d_ff: int, dropout_rate: float = 0.1, share_att=None,
+                 mask_cfg=None, **factory):
         super().__init__()
-        self.self_attn = BoxMultiHeadAttention(num_heads, d_model, share_att, mask_cfg, **factory)
-        self.feed_forward = PositionwiseFeedForward(d_model, d_ff, mask_cfg, **factory)
-        self.sub0 = SublayerConnection(d_model, **factory)
-        self.sub1 = SublayerConnection(d_model, **factory)
+        self.self_attn = BoxMultiHeadAttention(num_heads, d_model, dropout_rate, share_att, mask_cfg, **factory)
+        self.feed_forward = PositionwiseFeedForward(d_model, d_ff, dropout_rate, mask_cfg, **factory)
+        self.sub0 = SublayerConnection(d_model, dropout_rate, **factory)
+        self.sub1 = SublayerConnection(d_model, dropout_rate, **factory)
 
-    def forward(self, x, boxes, mask):
-        x = self.sub0(x, lambda y: self.self_attn(y, boxes, mask))
-        return self.sub1(x, self.feed_forward)
+    def steps(self, boxes, mask, rng=None) -> List[Step]:
+        return [(self.sub0, lambda y: self.self_attn(y, boxes, mask, rng)),
+                (self.sub1, lambda y: self.feed_forward(y, rng))]
 
 
 @register_model("relation_transformer")
@@ -46,20 +50,20 @@ class RelationTransformer(Transformer):
     def _build_encoder(self, att_feat_size, dim_feedforward, share_att, factory):
         _, self.box_enc_plan = _unique_layer_plan(self.num_layers, None)
         self.box_encoder_layers = nn.ModuleList(
-            BoxEncoderLayer(self.d_model, self.num_heads, dim_feedforward, share_att, self.mask_cfg, **factory)
+            BoxEncoderLayer(self.d_model, self.num_heads, dim_feedforward, self.dropout_rate, share_att,
+                            self.mask_cfg, **factory)
             for _ in self.box_enc_plan)
         self.att_embed = MaskedLinear(att_feat_size, self.d_model, mask_cfg=self.mask_cfg, **factory)
         self.box_encoder_norm = RefLayerNorm(self.d_model, **factory)
 
-    @torch.no_grad()
-    def encode(self, att_feats, att_masks, boxes=None, train: bool = False) -> Dict[str, Any]:
+    def encode(self, att_feats, att_masks, boxes=None, train: bool = False, rng=None) -> Dict[str, Any]:
         """att_feats: (B, R, F); att_masks: (B, R), 0 = padded; boxes: (B, R, 4)."""
-        check_eval(train)
         if boxes is None:
             raise ValueError("relation_transformer requires boxes")
-        x = torch.relu(self.att_embed(att_feats))
-        mask = (att_masks != 0).contiguous()
-        boxes = boxes.float().contiguous()
-        for i in self.box_enc_plan:
-            x = self.box_encoder_layers[i](x, boxes, mask)
-        return {"memory": self.box_encoder_norm(x), "mask": att_masks}
+        rng = train_rng(train, rng)
+        with torch.set_grad_enabled(train):
+            x = dropout(torch.relu(self.att_embed(att_feats, rng)), self.drop_prob_src, rng)
+            mask = (att_masks != 0).contiguous()
+            boxes = boxes.float().contiguous()
+            steps = [s for i in self.box_enc_plan for s in self.box_encoder_layers[i].steps(boxes, mask, rng)]
+            return {"memory": prenorm_stack(x, steps, self.box_encoder_norm, rng), "mask": att_masks}

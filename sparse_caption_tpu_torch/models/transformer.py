@@ -1,16 +1,19 @@
-"""Caption Transformer, eval mode (port of ``sparse_caption_tpu/models/transformer.py``).
+"""Caption Transformer (port of ``sparse_caption_tpu/models/transformer.py``).
 
 Pre-norm encoder-decoder with RefLayerNorm, sinusoidal PE and a log-softmax
-generator. The decode path keeps explicit static-shape caches: self K/V at
-``B * rows_per_image`` rows written in place at slot ``t``, projected cross
-K/V at ``B`` rows (one per image, shared by its beams), and, for beam search,
-a ``(B, K, T_max)`` ancestor map so beams reorder without touching the K/V
-cache. ``share_att_*`` / ``share_layer_*`` (ACORT) raise until their slice.
+generator. ``forward``/``encode`` run in eval (no gradients) or, with
+``train=True`` and a ``TrainRandom``, in train mode with gradients: dropout,
+fresh supermask samples, f32 log-softmax. The decode path (eval only) keeps
+explicit static-shape caches: self K/V at ``B * rows_per_image`` rows written
+in place at slot ``t``, projected cross K/V at ``B`` rows (one per image,
+shared by its beams), and, for beam search, a ``(B, K, T_max)`` ancestor map
+so beams reorder without touching the K/V cache. ``share_att_*`` /
+``share_layer_*`` (ACORT) raise until their slice.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Optional, Sequence, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
@@ -24,9 +27,12 @@ from sparse_caption_tpu_torch.models.layers import (
     PositionalEncoding,
     PositionwiseFeedForward,
     RefLayerNorm,
+    Step,
     SublayerConnection,
+    prenorm_stack,
 )
 from sparse_caption_tpu_torch.ops.masked import MaskConfig, MaskedEmbedding, MaskedLinear
+from sparse_caption_tpu_torch.ops.rng import dropout
 
 
 def _unique_layer_plan(num_layers: int, share_layer: Optional[Sequence[int]]) -> Tuple[int, Tuple[int, ...]]:
@@ -42,42 +48,53 @@ def _unique_layer_plan(num_layers: int, share_layer: Optional[Sequence[int]]) ->
     return num_layers, tuple(range(num_layers))
 
 
-class EncoderLayer(nn.Module):
-    def __init__(self, d_model: int, num_heads: int, d_ff: int, share_att=None, mask_cfg=None, **factory):
-        super().__init__()
-        self.self_attn = MultiHeadAttention(num_heads, d_model, share_att, mask_cfg, **factory)
-        self.feed_forward = PositionwiseFeedForward(d_model, d_ff, mask_cfg, **factory)
-        self.sub0 = SublayerConnection(d_model, **factory)
-        self.sub1 = SublayerConnection(d_model, **factory)
+def train_rng(train: bool, rng):
+    """The forward's random source: required in train mode, ignored in eval."""
+    if train and rng is None:
+        raise ValueError("train=True needs rng (an ops.rng.TrainRandom)")
+    return rng if train else None
 
-    def forward(self, x, mask):
-        x = self.sub0(x, lambda y: self.self_attn(y, y, y, mask))
-        return self.sub1(x, self.feed_forward)
+
+class EncoderLayer(nn.Module):
+    def __init__(self, d_model: int, num_heads: int, d_ff: int, dropout_rate: float = 0.1, share_att=None,
+                 mask_cfg=None, **factory):
+        super().__init__()
+        self.self_attn = MultiHeadAttention(num_heads, d_model, dropout_rate, share_att, mask_cfg, **factory)
+        self.feed_forward = PositionwiseFeedForward(d_model, d_ff, dropout_rate, mask_cfg, **factory)
+        self.sub0 = SublayerConnection(d_model, dropout_rate, **factory)
+        self.sub1 = SublayerConnection(d_model, dropout_rate, **factory)
+
+    def steps(self, mask, rng=None) -> List[Step]:
+        """The layer's two pre-norm sublayers for ``prenorm_stack``."""
+        return [(self.sub0, lambda y: self.self_attn(y, y, y, mask, rng)),
+                (self.sub1, lambda y: self.feed_forward(y, rng))]
 
 
 class DecoderLayer(nn.Module):
-    def __init__(self, d_model: int, num_heads: int, d_ff: int, share_att=None, mask_cfg=None, **factory):
+    def __init__(self, d_model: int, num_heads: int, d_ff: int, dropout_rate: float = 0.1, share_att=None,
+                 mask_cfg=None, **factory):
         super().__init__()
-        self.self_attn = MultiHeadAttention(num_heads, d_model, share_att, mask_cfg, **factory)
-        self.src_attn = MultiHeadAttention(num_heads, d_model, share_att, mask_cfg, **factory)
-        self.feed_forward = PositionwiseFeedForward(d_model, d_ff, mask_cfg, **factory)
-        self.sub0 = SublayerConnection(d_model, **factory)
-        self.sub1 = SublayerConnection(d_model, **factory)
-        self.sub2 = SublayerConnection(d_model, **factory)
+        self.self_attn = MultiHeadAttention(num_heads, d_model, dropout_rate, share_att, mask_cfg, **factory)
+        self.src_attn = MultiHeadAttention(num_heads, d_model, dropout_rate, share_att, mask_cfg, **factory)
+        self.feed_forward = PositionwiseFeedForward(d_model, d_ff, dropout_rate, mask_cfg, **factory)
+        self.sub0 = SublayerConnection(d_model, dropout_rate, **factory)
+        self.sub1 = SublayerConnection(d_model, dropout_rate, **factory)
+        self.sub2 = SublayerConnection(d_model, dropout_rate, **factory)
 
-    def forward(self, x, memory, src_mask, tgt_mask):
-        x = self.sub0(x, lambda y: self.self_attn(y, y, y, tgt_mask))
-        x = self.sub1(x, lambda y: self.src_attn(y, memory, memory, src_mask))
-        return self.sub2(x, self.feed_forward)
+    def steps(self, memory, src_mask, tgt_mask, rng=None) -> List[Step]:
+        """Full-sequence (teacher-forced) sublayers for ``prenorm_stack``."""
+        return [(self.sub0, lambda y: self.self_attn(y, y, y, tgt_mask, rng)),
+                (self.sub1, lambda y: self.src_attn(y, memory, memory, src_mask, rng)),
+                (self.sub2, lambda y: self.feed_forward(y, rng))]
 
-    def step(self, x_t, layer_cache: Dict, cross: Dict, t: int, mem_mask, ancestry=None):
-        """One decode step. layer_cache: {self_k, self_v} (written in place at
-        slot t); cross: {cross_k, cross_v}; mem_mask: (B, S) bool."""
-        x_t = self.sub0(x_t, lambda y: self.self_attn.decode_self(
-            y, layer_cache["self_k"], layer_cache["self_v"], t, ancestry))
-        x_t = self.sub1(x_t, lambda y: self.src_attn.decode_cross(
-            y, cross["cross_k"], cross.get("cross_v"), mem_mask))
-        return self.sub2(x_t, self.feed_forward)
+    def decode_steps(self, layer_cache: Dict, cross: Dict, t: int, mem_mask, ancestry=None) -> List[Step]:
+        """One decode step's sublayers. layer_cache: {self_k, self_v} (written
+        in place at slot t); cross: {cross_k, cross_v}; mem_mask: (B, S) bool."""
+        return [(self.sub0, lambda y: self.self_attn.decode_self(
+                    y, layer_cache["self_k"], layer_cache["self_v"], t, ancestry)),
+                (self.sub1, lambda y: self.src_attn.decode_cross(
+                    y, cross["cross_k"], cross.get("cross_v"), mem_mask)),
+                (self.sub2, self.feed_forward)]
 
 
 def subsequent_mask(t: int, device=None):
@@ -109,6 +126,7 @@ class Transformer(nn.Module):
                  bos_id: int = 2, eos_id: int = 3, unk_id: int = 1, share_att_encoder: Optional[str] = None,
                  share_att_decoder: Optional[str] = None, share_layer_encoder: Optional[Sequence[int]] = None,
                  share_layer_decoder: Optional[Sequence[int]] = None, mask_cfg: Optional[MaskConfig] = None,
+                 dropout_rate: float = 0.1, drop_prob_src: float = 0.5,
                  *, device="cuda", dtype=torch.float32, generator: Optional[torch.Generator] = None):
         super().__init__()
         if share_layer_encoder is not None or share_layer_decoder is not None:
@@ -120,12 +138,13 @@ class Transformer(nn.Module):
         self.max_seq_length = max_seq_length
         self.pad_id, self.bos_id, self.eos_id, self.unk_id = pad_id, bos_id, eos_id, unk_id
         self.mask_cfg = mask_cfg
+        self.dropout_rate, self.drop_prob_src = dropout_rate, drop_prob_src
         factory = dict(device=resolve_device(device), dtype=dtype)
         _, self.dec_plan = _unique_layer_plan(num_layers, None)
         self.tgt_embed = InputEmbedding(vocab_size, d_model, mask_cfg, **factory)
-        self.pos_enc = PositionalEncoding(d_model, device=factory["device"])
+        self.pos_enc = PositionalEncoding(d_model, dropout_rate, device=factory["device"])
         self.decoder_layers = nn.ModuleList(
-            DecoderLayer(d_model, num_heads, dim_feedforward, share_att_decoder, mask_cfg, **factory)
+            DecoderLayer(d_model, num_heads, dim_feedforward, dropout_rate, share_att_decoder, mask_cfg, **factory)
             for _ in self.dec_plan)
         self.decoder_norm = RefLayerNorm(d_model, **factory)
         self.generator = Generator(d_model, vocab_size, mask_cfg, **factory)
@@ -137,7 +156,8 @@ class Transformer(nn.Module):
         _, self.enc_plan = _unique_layer_plan(self.num_layers, None)
         self.src_proj = MaskedLinear(att_feat_size, self.d_model, mask_cfg=self.mask_cfg, **factory)
         self.encoder_layers = nn.ModuleList(
-            EncoderLayer(self.d_model, self.num_heads, dim_feedforward, share_att, self.mask_cfg, **factory)
+            EncoderLayer(self.d_model, self.num_heads, dim_feedforward, self.dropout_rate, share_att, self.mask_cfg,
+                         **factory)
             for _ in self.enc_plan)
         self.encoder_norm = RefLayerNorm(self.d_model, **factory)
 
@@ -150,33 +170,33 @@ class Transformer(nn.Module):
                 nn.init.zeros_(m.bias)
 
     # ----------------------------------------------------------- encoding
-    @torch.no_grad()
-    def encode(self, att_feats, att_masks, boxes=None, train: bool = False) -> Dict[str, Any]:
+    def encode(self, att_feats, att_masks, boxes=None, train: bool = False, rng=None) -> Dict[str, Any]:
         """att_feats: (B, S, F); att_masks: (B, S), 0 = padded. Returns the memory dict."""
-        check_eval(train)
-        x = torch.relu(self.src_proj(att_feats))
-        src_mask = (att_masks != 0)[:, None, None, :]
-        for i in self.enc_plan:
-            x = self.encoder_layers[i](x, src_mask)
-        return {"memory": self.encoder_norm(x), "mask": att_masks}
+        rng = train_rng(train, rng)
+        with torch.set_grad_enabled(train):
+            x = dropout(torch.relu(self.src_proj(att_feats, rng)), self.drop_prob_src, rng)
+            src_mask = (att_masks != 0)[:, None, None, :]
+            steps = [s for i in self.enc_plan for s in self.encoder_layers[i].steps(src_mask, rng)]
+            return {"memory": prenorm_stack(x, steps, self.encoder_norm, rng), "mask": att_masks}
 
     # ----------------------------------------------------- XE teacher force
-    def _decode_full(self, tgt, memory, mem_mask):
+    def _decode_full(self, tgt, memory, mem_mask, rng=None):
         t = tgt.shape[1]
         tgt_mask = (tgt != self.pad_id)[:, None, None, :] & subsequent_mask(t, tgt.device)
         src_mask = (mem_mask != 0)[:, None, None, :]
-        x = self.pos_enc(self.tgt_embed(tgt))
-        for i in self.dec_plan:
-            x = self.decoder_layers[i](x, memory, src_mask, tgt_mask)
-        return self.decoder_norm(x)
+        x = self.pos_enc(self.tgt_embed(tgt, rng), rng=rng)
+        steps = [s for i in self.dec_plan for s in self.decoder_layers[i].steps(memory, src_mask, tgt_mask, rng)]
+        return prenorm_stack(x, steps, self.decoder_norm, rng)
 
-    @torch.no_grad()
-    def forward(self, att_feats, att_masks, seqs, boxes=None, train: bool = False):
-        """XE log-probs (N, T-1, V) of seqs[:, 1:] (decoder input seqs[:, :-1])."""
-        enc = self.encode(att_feats, att_masks, boxes, train)
-        tgt = seqs[:, :-1]
-        memory, mem_mask = repeat_to_batch(enc["memory"], enc["mask"], tgt.shape[0])
-        return self.generator(self._decode_full(tgt, memory, mem_mask))
+    def forward(self, att_feats, att_masks, seqs, boxes=None, train: bool = False, rng=None):
+        """XE log-probs (N, T-1, V) of seqs[:, 1:] (decoder input seqs[:, :-1]).
+        ``train=True`` (with ``rng``) runs the train-mode forward with gradients."""
+        rng = train_rng(train, rng)
+        with torch.set_grad_enabled(train):
+            enc = self.encode(att_feats, att_masks, boxes, train, rng)
+            tgt = seqs[:, :-1]
+            memory, mem_mask = repeat_to_batch(enc["memory"], enc["mask"], tgt.shape[0])
+            return self.generator(self._decode_full(tgt, memory, mem_mask, rng), rng)
 
     # ------------------------------------------------------------- decode
     @torch.no_grad()
@@ -217,10 +237,9 @@ class Transformer(nn.Module):
         if ancestry is not None:
             ancestry = ancestry.clone()
             ancestry[:, :, t] = torch.arange(ancestry.shape[1], dtype=ancestry.dtype, device=ancestry.device)
-        for j, i in enumerate(self.dec_plan):
-            x = self.decoder_layers[i].step(x, cache["layers"][j], cache["static"]["cross"][j], t, mem_mask,
-                                            ancestry)
-        logits = self.generator.logits(self.decoder_norm(x)[:, 0])
+        steps = [s for j, i in enumerate(self.dec_plan) for s in self.decoder_layers[i].decode_steps(
+            cache["layers"][j], cache["static"]["cross"][j], t, mem_mask, ancestry)]
+        logits = self.generator.logits(prenorm_stack(x, steps, self.decoder_norm)[:, 0])
         new_cache = {"layers": cache["layers"], "static": cache["static"]}
         if ancestry is not None:
             new_cache["ancestry"] = ancestry

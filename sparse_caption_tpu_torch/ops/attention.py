@@ -14,17 +14,23 @@ import torch
 NEG_INF = -1e9
 
 
-def scaled_dot_attention(q, k, v, mask: Optional[torch.Tensor] = None, bias: Optional[torch.Tensor] = None):
+def scaled_dot_attention(q, k, v, mask: Optional[torch.Tensor] = None, bias: Optional[torch.Tensor] = None,
+                         keep: Optional[torch.Tensor] = None, keep_prob: float = 1.0):
     """q/k/v: (B, h, T, dk); mask broadcastable to (B, h, Tq, Tk), 0 = invalid.
 
     ``masked_fill`` keeps the scores' dtype (a bf16 run stays bf16), and the
-    bias (ORT geometry) is added AFTER the -1e9 fill."""
+    bias (ORT geometry) is added AFTER the -1e9 fill. ``keep`` (bool, the
+    probabilities' shape) is the training dropout on the probabilities:
+    ``p / keep_prob`` where kept, 0 elsewhere."""
     scores = torch.matmul(q, k.transpose(-1, -2)) / math.sqrt(q.shape[-1])
     if mask is not None:
         scores = scores.masked_fill(mask == 0, NEG_INF)
     if bias is not None:
         scores = scores + bias
-    return torch.matmul(torch.softmax(scores, dim=-1), v)
+    probs = torch.softmax(scores, dim=-1)
+    if keep is not None:
+        probs = torch.where(keep, probs / keep_prob, torch.zeros_like(probs))
+    return torch.matmul(probs, v)
 
 
 WAVE_LEN = 1000.0  # the trig features' longest wavelength (reference default)

@@ -1,15 +1,19 @@
-"""Masked (prunable) layers, eval semantics.
+"""Masked (prunable) layers.
 
-Port of ``sparse_caption_tpu/ops/masked.py``. The eval forward of a masked
-layer is an exact product with a 0/1 tensor:
+Port of ``sparse_caption_tpu/ops/masked.py``. The forward of a masked layer
+multiplies its weight by a 0/1 sample of the mask:
 
-* supermask: ``w * round(sigmoid(m))``
+* supermask, train: ``w * [u < sigmoid(m)]`` (a Bernoulli draw, ``u`` fresh
+  per forward and layer), straight-through to ``m``; eval:
+  ``w * round(sigmoid(m))``
 * every other mask type: ``w * m``
 
-so the port folds the mask into the weight ONCE, at load
-(``fold_mask`` / ``fold_mask_``), and the layers then run as plain Linear /
-Embedding. The straight-through train-mode sampling (``ops/ste.py``) comes
-with the training slice.
+A layer built for serving (``MaskConfig.keep_masks=False``) has no mask: the
+eval sample is folded into the weight ONCE, at load (``fold_mask`` /
+``fold_mask_``), and the layer runs as a plain Linear / Embedding. A layer
+built for training keeps its mask as a separate f32 parameter ``mask`` in
+the weight's layout (the JAX package's ``"masks"`` collection), and the
+product runs in kernel K5 (``kernels/supermask.py``) on every forward.
 """
 
 from __future__ import annotations
@@ -21,17 +25,21 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from sparse_caption_tpu_torch import check_eval
+from sparse_caption_tpu_torch.kernels.supermask import supermask_weight
 from sparse_caption_tpu_torch.pruning import SUPER_MASKS, VALID_MASKS
 
 
 @dataclasses.dataclass(frozen=True)
 class MaskConfig:
-    """Per-model pruning configuration threaded into prunable layers. Eval
-    folds masks that were trained elsewhere, so only the mask type matters;
-    the mask's init value and gradient options come with the training slice."""
+    """Per-model pruning configuration threaded into prunable layers.
+
+    ``keep_masks``: keep each mask as a trainable parameter (training, or
+    loading masks unfolded) instead of folding it into the weight at load."""
 
     mask_type: str
+    mask_init_value: float = 1.0
+    bypass_sigmoid_grad: bool = False
+    keep_masks: bool = False
 
     def __post_init__(self):
         if self.mask_type not in VALID_MASKS:
@@ -64,19 +72,48 @@ def xavier_uniform_(w: torch.Tensor, generator: Optional[torch.Generator] = None
 class _Prunable(nn.Module):
     mask_cfg: Optional[MaskConfig]
 
+    def _init_mask(self) -> None:
+        cfg = self.mask_cfg
+        if cfg is None or not cfg.keep_masks:
+            self.register_parameter("mask", None)
+            return
+        self.mask = nn.Parameter(torch.empty(self.weight.shape, device=self.weight.device, dtype=torch.float32))
+        self._reset_mask()
+
+    def _reset_mask(self) -> None:
+        if self.mask is not None:
+            nn.init.constant_(self.mask, self.mask_cfg.mask_init_value if self.mask_cfg.is_supermask else 1.0)
+
     @torch.no_grad()
     def fold_mask_(self, mask: torch.Tensor) -> None:
         """Fold a mask (in the weight's layout) into the weight, in place."""
         if self.mask_cfg is None:
             raise ValueError("layer has no mask config")
+        if self.mask is not None:
+            raise ValueError("layer keeps its mask as a parameter; build it with keep_masks=False to fold")
         if mask.shape != self.weight.shape:
             raise ValueError(f"mask shape {tuple(mask.shape)} != weight shape {tuple(self.weight.shape)}")
         self.weight.copy_(fold_mask(self.weight, mask, self.mask_cfg))
 
+    def effective_weight(self, rng=None) -> torch.Tensor:
+        """The weight times the mask's sample (kernel K5), or the (folded)
+        weight itself. ``rng``: a ``TrainRandom`` in training, None in eval."""
+        cfg = self.mask_cfg
+        if self.mask is None:
+            if rng is not None and cfg is not None:
+                raise ValueError("this layer's mask was folded at load; build the model with "
+                                 "MaskConfig(keep_masks=True) to train it")
+            return self.weight
+        if not cfg.is_supermask:
+            return supermask_weight(self.weight, self.mask, None, "multiply")
+        if rng is None:
+            return supermask_weight(self.weight, self.mask, None, "round", cfg.bypass_sigmoid_grad)
+        u = rng.mask_uniform(self, self.weight.shape, self.weight.device)
+        return supermask_weight(self.weight, self.mask, u, "sample", cfg.bypass_sigmoid_grad)
+
 
 class MaskedLinear(_Prunable):
-    """Dense layer; ``weight`` is (out, in). With a mask config the mask is
-    folded into ``weight`` at load (see module docstring)."""
+    """Dense layer; ``weight`` is (out, in), and so is ``mask`` when kept."""
 
     def __init__(self, in_features: int, out_features: int, bias: bool = True,
                  mask_cfg: Optional[MaskConfig] = None, device=None, dtype=None):
@@ -84,29 +121,41 @@ class MaskedLinear(_Prunable):
         self.mask_cfg = mask_cfg
         self.weight = nn.Parameter(torch.empty(out_features, in_features, device=device, dtype=dtype))
         self.bias = nn.Parameter(torch.zeros(out_features, device=device, dtype=dtype)) if bias else None
+        self._init_mask()
 
     def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
         xavier_uniform_(self.weight, generator)
         if self.bias is not None:
             nn.init.zeros_(self.bias)
+        self._reset_mask()
 
-    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
-        check_eval(train)
-        return F.linear(x, self.weight, self.bias)
+    def forward(self, x: torch.Tensor, rng=None) -> torch.Tensor:
+        return F.linear(x, self.effective_weight(rng), self.bias)
 
 
 class MaskedEmbedding(_Prunable):
-    """Embedding table (num_embeddings, features) with a foldable mask."""
+    """Embedding table (num_embeddings, features) with a foldable or kept mask."""
 
     def __init__(self, num_embeddings: int, features: int, mask_cfg: Optional[MaskConfig] = None,
                  device=None, dtype=None):
         super().__init__()
         self.mask_cfg = mask_cfg
         self.weight = nn.Parameter(torch.empty(num_embeddings, features, device=device, dtype=dtype))
+        self._init_mask()
 
     def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
         xavier_uniform_(self.weight, generator)
+        self._reset_mask()
 
-    def forward(self, ids: torch.Tensor, train: bool = False) -> torch.Tensor:
-        check_eval(train)
-        return F.embedding(ids, self.weight)
+    def forward(self, ids: torch.Tensor, rng=None) -> torch.Tensor:
+        return F.embedding(ids, self.effective_weight(rng))
+
+
+def split_params(model: nn.Module):
+    """(params, masks): the model's parameters by name, masks (the kept
+    ``mask`` of every prunable layer) apart from the rest."""
+    mask_ids = {id(m.mask) for m in model.modules() if isinstance(m, _Prunable) and m.mask is not None}
+    params, masks = {}, {}
+    for name, p in model.named_parameters():
+        (masks if id(p) in mask_ids else params)[name] = p
+    return params, masks

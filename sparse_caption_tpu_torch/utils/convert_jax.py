@@ -10,7 +10,9 @@ Flax leaf paths become parameter names:
   ``wg`` stays one (64, h) projection, i.e. a (h, 64) weight
 * ``embedding`` -> ``weight``; RefLayerNorm ``scale`` -> ``weight``; ``bias`` -> ``bias``
 * masks (same paths, leaf ``mask``) are folded into their weights with the
-  eval semantics of ``ops/masked.py`` and do not appear in the result
+  eval semantics of ``ops/masked.py`` and do not appear in the result (serving);
+  with ``fold_masks=False`` each becomes ``<module>.mask``, transposed like its
+  kernel, for a model built with ``MaskConfig(keep_masks=True)`` (training)
 """
 
 from __future__ import annotations
@@ -46,11 +48,12 @@ def _module_name(path: Tuple[str, ...]) -> str:
     return ".".join(parts)
 
 
-def convert_jax_variables(variables: Mapping, mask_cfg: Optional[MaskConfig] = None) -> Dict[str, torch.Tensor]:
+def convert_jax_variables(variables: Mapping, mask_cfg: Optional[MaskConfig] = None,
+                          fold_masks: bool = True) -> Dict[str, torch.Tensor]:
     """Flax ``{"params", "masks"}`` (numpy leaves) -> the port's state_dict (CPU tensors)."""
     params = _flatten(variables["params"])
     masks = _flatten(variables.get("masks", {}))
-    if masks and mask_cfg is None:
+    if masks and fold_masks and mask_cfg is None:
         raise ValueError("variables carry masks; pass the model's MaskConfig to fold them")
     used = set()
     state = {}
@@ -61,7 +64,12 @@ def convert_jax_variables(variables: Mapping, mask_cfg: Optional[MaskConfig] = N
         t = torch.from_numpy(np.array(arr, copy=True))
         mask_path = path[:-1] + ("mask",)
         if leaf in ("kernel", "embedding") and mask_path in masks:
-            t = fold_mask(t, torch.from_numpy(np.array(masks[mask_path], copy=True)), mask_cfg)
+            m = torch.from_numpy(np.array(masks[mask_path], copy=True))
+            if fold_masks:
+                t = fold_mask(t, m, mask_cfg)
+            else:
+                state[".".join(filter(None, (_module_name(path[:-1]), "mask")))] = (
+                    m.T.contiguous() if leaf == "kernel" else m)
             used.add(mask_path)
         if leaf == "kernel":
             t = t.T.contiguous()
@@ -73,6 +81,9 @@ def convert_jax_variables(variables: Mapping, mask_cfg: Optional[MaskConfig] = N
 
 
 def load_jax_variables(model: torch.nn.Module, variables: Mapping) -> torch.nn.Module:
-    """Load converted JAX variables into ``model`` (strict), folding its masks."""
-    model.load_state_dict(convert_jax_variables(variables, model.mask_cfg))
+    """Load converted JAX variables into ``model`` (strict): masks folded, or
+    kept as parameters when the model's MaskConfig says ``keep_masks``."""
+    cfg = model.mask_cfg
+    keep = cfg is not None and cfg.keep_masks
+    model.load_state_dict(convert_jax_variables(variables, cfg, fold_masks=not keep))
     return model

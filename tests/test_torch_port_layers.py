@@ -21,6 +21,7 @@ from sparse_caption_tpu_torch.kernels.box_attention import box_attention
 from sparse_caption_tpu_torch.kernels.grouped_cross_attention import grouped_cross_attention
 from sparse_caption_tpu_torch.models import layers as pl
 from sparse_caption_tpu_torch.ops.masked import MaskedEmbedding, MaskedLinear
+from sparse_caption_tpu_torch.ops.rng import TrainRandom
 from sparse_caption_tpu_torch.utils.convert_jax import convert_jax_variables
 
 KEY = jax.random.PRNGKey(0)
@@ -83,8 +84,8 @@ def test_masked_layers_fold_like_jax(mask_type):
         port_layer.load_state_dict(convert_jax_variables(jv, port_mask_cfg(mask_type)))
         port_arg = t(arg).long() if arg.dtype == np.int32 else t(arg)
         _close(port_layer(port_arg), ref)
-        with pytest.raises(NotImplementedError, match="later slice"):
-            port_layer(port_arg, train=True)
+        with pytest.raises(ValueError, match="folded"):  # a folded mask cannot train
+            port_layer(port_arg, TrainRandom(torch.Generator().manual_seed(0)))
 
 
 def test_box_relational_embedding_matches_jax():
@@ -269,8 +270,12 @@ def test_k4_wrapper_checks_inputs():
 
 
 def test_kernel_table_names_sources():
-    assert set(KERNELS) == {"box_attention", "ancestry_self_attention", "grouped_cross_attention", "beam_topk"}
+    assert set(KERNELS) == {"box_attention", "box_attention_train", "ancestry_self_attention",
+                            "grouped_cross_attention", "beam_topk", "supermask", "supermask_bwd", "add_ref_layernorm",
+                            "add_ref_layernorm_bwd", "box_attention_bwd"}
     from sparse_caption_tpu_torch.kernels._build import CSRC, SOURCES
+
+    assert {k.library_name for k in KERNELS.values()} == set(SOURCES)
 
     for name in SOURCES:
         src = (CSRC / f"{name}.cu").read_text()
