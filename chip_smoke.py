@@ -2,7 +2,7 @@
 """Smoke run of the PyTorch/CUDA port (``sparse_caption_tpu_torch``) on one GPU.
 
 Phases:
-1. set-up: card name and power limit, versions, build of the seven kernels
+1. set-up: card name and power limit, versions, build of the ten kernel libraries
    (``kernels/csrc/*.cu``, nvcc for sm_90a, one process per source);
 2. kernel checks: each kernel against its plain PyTorch version at the
    shapes of its path (beam-5 serving: B = 2048 images, 36 regions, 8 heads
@@ -19,7 +19,18 @@ Phases:
    dropout on) at 15 x 5 captions in f32 and bf16 and at 256 x 5 in bf16,
    1 warm-up + 10 steps each with the launch counts asserted, a profile of
    one step at 256 x 5, and one f32 step at 2 x 5 without dropout on the
-   card against the CPU's plain versions (loss, gradients, params, masks).
+   card against the CPU's plain versions (loss, gradients, params, masks);
+5. SCST path: the kernel checks of K8 (keyed dropout, at the replay shape
+   75 x 17 x 2048), K9 (sampling step, 960 x 10000) and K10 (CIDEr-D + BLEU
+   reward, 960 captions against 5 refs), each with a planted fault; the
+   paper's sparse SCST step (mask_freeze ORT, frozen 0/1 masks at 0.9875
+   sparsity, dropout 0.1, f32, step LR 5e-5, 15 random samples per image,
+   leave-one-out baseline, CIDEr-D + BLEU-4 reward) at 5 x 15 and 64 x 15,
+   1 warm-up + 5 steps each with the launch counts asserted, a profile of
+   one step at 64 x 15; the replay's log-probs against the sampling
+   decode's at 5 x 15; and one step at 2 x 3 with dropout on, on the card
+   and on the CPU from the same seed, the card's tokens feeding both
+   replays (rewards, loss, gradients, differing sampled tokens).
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it is
 the card's name and power limit, and before that one JSON line with every
@@ -38,7 +49,9 @@ import math
 import subprocess
 import sys
 import time
+from unittest import mock
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -71,6 +84,9 @@ REPLACES = {
     "supermask": "sparse_caption_tpu/ops/masked.py:70",
     "add_ref_layernorm": "sparse_caption_tpu/models/layers.py:71",
     "box_attention_bwd": "sparse_caption_tpu/models/layers.py:406",
+    "keyed_dropout": "sparse_caption_tpu/models/layers.py:31",
+    "sample_step": "sparse_caption_tpu/decoding/sample.py:134",
+    "cider_reward": "sparse_caption_tpu/scst/device_reward.py:282",
 }
 # the supermask XE train step (bench.py:230-292): 15 images x 5 captions of 18
 # tokens, and the throughput point at 256 images; supermask logits start at 5.0
@@ -90,6 +106,19 @@ TRAIN_CONFIG = dict(lr_scheduler="noam", optim="adam", d_model=PAPER["d_model"],
 # seed 2 of --whole-step-seeds 3 on an H100); a wrong wire or cast moves
 # gradients by O(1).
 STEP_GRAD_TOL, STEP_GRAD_FLOOR, STEP_GRAD_NORM_TOL, STEP_LOSS_RTOL = 1e-4, 1e-6, 1e-2, 1e-5
+# the paper's sparse SCST stage (resources/commands_pruning.sh:98-114): frozen
+# 0/1 masks at 0.9875 sparsity, 15 random samples per image, leave-one-out
+# baseline, CIDEr-D + BLEU-4, step LR 5e-5; 5 images (the paper's) and 64
+# (bench.py:1038-1045); refs and df as bench.py:354-362 makes them
+SCST_SPARSITY, SCST_SAMPLES, SCST_BATCHES, SCST_STEPS, SCST_BLEU = 0.9875, 15, (5, 64), 5, (0.0, 0.0, 0.0, 1.0)
+SCST_CONFIG = dict(lr_scheduler="step", learning_rate=5e-5, optim="adam", grad_clip=0.1, scst_sample="random",
+                   scst_baseline="sample", max_seq_length=MAX_LEN + 1, seed=SEED)
+SCST_CHECK_BATCH, SCST_CHECK_SAMPLES = 2, 3
+# replay vs sampling decode (f32, plain full-sequence attention vs K2/K3 over
+# the cache: rounding only); K10 vs its plain version (summation order); the
+# card-vs-CPU step: rewards relative (plus the kernel's absolute floor), loss
+# absolute, gradients norm-wise as the XE step's
+REPLAY_LP_TOL, REWARD_RTOL, REWARD_ATOL, SCST_LOSS_TOL = 1e-4, 1e-5, 1e-6, 1e-5
 
 
 def log(msg: str) -> None:
@@ -739,6 +768,332 @@ def whole_step_check(seed: int, gen) -> bool:
     return ok and good
 
 
+# --------------------------------------------------------------- SCST path
+def check_scst_kernels(gen, results: dict) -> bool:
+    """K8, K9 and K10 against their plain versions at the SCST path's shapes
+    (f32, its dtype), each with a planted fault; timings."""
+    from sparse_caption_tpu_torch.kernels import cider_reward as k10
+    from sparse_caption_tpu_torch.kernels import keyed_dropout as k8
+    from sparse_caption_tpu_torch.kernels import sample_step as k9
+    from sparse_caption_tpu_torch.ops.rng import SAMPLE_SITE
+
+    dev, dtype = torch.device("cuda"), torch.float32
+    ok = True
+
+    def record(name, err, ms, plain_ms, lib_ms, nbytes, ops):
+        bnd, by = bound_ms(nbytes, ops)
+        log(f"[kernel] {name} f32: ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms="
+            f"{'null' if lib_ms is None else f'{lib_ms:.4f}'} bound_ms={bnd:.4f} ({by})")
+        results[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bnd, bound_by=by)
+
+    def exact(name, out, ref) -> bool:
+        same = bool(torch.equal(out, ref))
+        log(f"[kernel] {name}: {'exact' if same else 'DIFFERS'} ({int((out != ref).sum())} of {ref.numel()} differ)")
+        return same
+
+    # K8 at the replay shape of the FFN site: 5 x 15 rows, 17 steps, 2048 wide
+    n, tl, d, kp, key, site = 5 * SCST_SAMPLES, MAX_LEN, PAPER["dim_feedforward"], 0.9, 0x5EED5EED12345, 4242
+    keep = k8.keyed_keep_mask(key, site, 0, n, tl, d, kp, dev)
+    ok &= exact("keyed_keep_mask replay vs plain", keep, k8.keyed_keep_mask_plain(key, site, 0, n, tl, d, kp, dev))
+    steps = torch.cat([k8.keyed_keep_mask(key, site, step, n, 1, d, kp, dev) for step in range(tl)], 1)
+    ok &= exact("keyed_keep_mask replay vs 17 step draws", keep, steps)
+
+    def flat_keyed(t0, tl_):  # fault: the counter is the flat element index, not (t, row, column)
+        e4 = torch.arange((n * tl_ * d + 3) // 4, device=dev)
+        words = k8.philox4x32_10(torch.full_like(e4, site), torch.full_like(e4, t0), torch.zeros_like(e4), e4, key)
+        return k8.keep_from_bits(torch.stack(words, -1).flatten()[: n * tl_ * d].reshape(n, tl_, d), kp)
+
+    n_diff = int((flat_keyed(0, tl) != torch.cat([flat_keyed(step, 1) for step in range(tl)], 1)).sum())
+    log(f"[fault] keyed_keep_mask keyed by flat index: replay vs step draws differ in {n_diff} elements "
+        f"{'caught' if n_diff else 'MISSED'}")
+    ok &= n_diff > 0
+    log(f"[kernel] keyed_keep_mask: keep rate {keep.float().mean().item():.5f} (keep_prob {kp})")
+    for xdt in (torch.float32, torch.bfloat16):
+        x = torch.randn(n, tl, d, generator=gen, device=dev).to(xdt).requires_grad_()
+        out = k8.keyed_dropout(x, key, site, 0, kp)
+        (gx,) = torch.autograd.grad(out, x, torch.ones_like(out))
+        ok &= exact(f"keyed_dropout apply {str(xdt).split('.')[-1]}", out.detach(),
+                    k8.keyed_dropout_plain(x.detach(), key, site, 0, kp))
+        ok &= exact(f"keyed_dropout apply backward {str(xdt).split('.')[-1]}", gx,
+                    k8.keyed_dropout_plain(torch.ones_like(x), key, site, 0, kp))
+    record("keyed_dropout", 0.0, time_ms(lambda: k8.keyed_keep_mask(key, site, 0, n, tl, d, kp, dev)),
+           time_ms(lambda: k8.keyed_keep_mask_plain(key, site, 0, n, tl, d, kp, dev), iters=5), None,
+           n * tl * d, {})
+    x32 = torch.randn(n, tl, d, generator=gen, device=dev)
+    log(f"[kernel] keyed_dropout apply f32: ms={time_ms(lambda: k8.keyed_dropout(x32, key, site, 0, kp)):.4f} "
+        f"(bound {bound_ms(2 * 4 * n * tl * d, {})[0]:.4f}, bytes)")
+
+    # K9 at 64 x 15 rows over the vocabulary
+    n, vocab, t_max, step = 64 * SCST_SAMPLES, PAPER["vocab_size"], MAX_LEN, 5
+    logits = torch.randn(n, vocab, generator=gen, device=dev) * 3.0
+    prev = torch.randint(4, vocab, (n,), generator=gen, device=dev, dtype=torch.int32)
+    unfinished = torch.rand(n, generator=gen, device=dev) < 0.8
+    logits[:, 3] += 4.0 * (torch.rand(n, generator=gen, device=dev) < 0.3)  # some rows finish here
+    k9_err = 0.0
+    for label, kw in (("random T=1", dict(temperature=1.0)), ("random T=0.7 ban", dict(temperature=0.7, ban_prev=True)),
+                      ("greedy ban", dict(greedy=True, ban_prev=True))):
+        outs = {}
+        for impl, fn in (("kernel", k9.sample_step), ("plain", k9.sample_step_plain)):
+            u = unfinished.clone()
+            seq = torch.zeros(n, t_max, dtype=torch.int32, device=dev)
+            lp = torch.zeros(n, t_max, device=dev)
+            nxt = fn(logits, prev, u, seq, lp, step, key=key, site=SAMPLE_SITE, **kw)
+            outs[impl] = (nxt, u, seq, lp)
+        (kn, ku, ks, kl), (pn, pu, ps, pl) = outs["kernel"], outs["plain"]
+        c = k9.sample_logprobs(logits, prev, kw.get("ban_prev", False))
+        z = c if kw.get("greedy") else c / kw["temperature"] + k9.gumbel_noise(key, SAMPLE_SITE, step, n, vocab, dev)
+        differ = kn != pn
+        # a token may differ only at a near-tie: the plain z at the kernel's token within f32 rounding of the max
+        z_max = z.max(1).values
+        tie_ok = bool(((z_max - z.gather(1, kn.long()[:, None])[:, 0]).abs() <= allowed(z_max, dtype))[differ].all())
+        same = ~differ
+        lp_err, lp_good, lp_worst = close(kl[:, step][same], pl[:, step][same], dtype)
+        k9_err = max(k9_err, lp_err)
+        rest = bool(torch.equal(ku[same], pu[same]) and torch.equal(ks[same], ps[same]))
+        log(f"[kernel] sample_step {label}: tokens differing {int(differ.sum())}/{n} (near-ties ok={tie_ok}); chosen "
+            f"log-prob max_abs_err={lp_err:.3e} worst err/allowed={lp_worst:.3f}; latch and seq equal={rest}")
+        ok &= tie_ok and lp_good and rest
+        if label.startswith("random T=0.7"):  # fault: the chosen log-prob taken after the temperature
+            fault = c.gather(1, pn.long()[:, None])[:, 0] / kw["temperature"]
+            ok &= fault_caught("sample_step chosen log-prob tempered", fault, pl[:, step], dtype, 0.0)
+    g = k9.gumbel_noise(key, SAMPLE_SITE, step, n, vocab, dev)
+    u = unfinished.clone()
+    seq, lp = torch.zeros(n, t_max, dtype=torch.int32, device=dev), torch.zeros(n, t_max, device=dev)
+
+    def library():
+        lps = torch.log_softmax(logits, dim=-1)
+        return lps.gather(1, torch.argmax(lps + g, dim=-1, keepdim=True))
+
+    record("sample_step", k9_err,
+           time_ms(lambda: k9.sample_step(logits, prev, u, seq, lp, step, key=key, site=SAMPLE_SITE)),
+           time_ms(lambda: k9.sample_step_plain(logits, prev, u, seq, lp, step, key=key, site=SAMPLE_SITE), iters=5),
+           time_ms(library), n * vocab * 4 + n * (4 + 1 + 4 + 4 + 4 + 1), flops((torch.float32, 8 * n * vocab)))
+
+    # K10: 64 images x 15 captions of 17 tokens against 5 refs each
+    b = 64
+    table, pack = scst_reward_setup(b, dev)
+    tbl = table.to(dev)
+    tensors = {"hi": tbl.hi, "lo": tbl.lo, "val": tbl.val}
+    ids = torch.randint(4, 200, (b * SCST_SAMPLES, MAX_LEN), generator=gen, device=dev, dtype=torch.int32)
+    eos_at = torch.randint(3, MAX_LEN + 4, (b * SCST_SAMPLES, 1), generator=gen, device=dev)
+    ids = torch.where(torch.arange(MAX_LEN, device=dev)[None] == eos_at, torch.full_like(ids, 3), ids)
+    ids[::7, 2] = 0  # pad / bos noise inside some captions
+    ids[::11, 4] = 2
+    ids[::5, 6:10] = ids[::5, 2:6]  # repeated grams
+    img = torch.arange(b, device=dev, dtype=torch.int32).repeat_interleave(SCST_SAMPLES)
+    kw = dict(probe=table.probe, ref_len=table.ref_len, bleu_weight=SCST_BLEU)
+    got = k10.cider_reward(ids, img, tensors, pack, **kw)
+    ref = k10.cider_reward_plain(ids, img, tensors, pack, **kw)
+    err = (got - ref).abs()
+    good = bool((err <= REWARD_RTOL * ref.abs() + REWARD_ATOL).all())
+    log(f"[kernel] cider_reward: {b * SCST_SAMPLES} captions, rewards in [{ref.min().item():.4f}, "
+        f"{ref.max().item():.4f}], max_abs_err={err.max().item():.3e} (rtol {REWARD_RTOL}, atol {REWARD_ATOL}) "
+        f"{'ok' if good else 'FAIL'}")
+    ok &= good
+    for label, target, fake in (("without the length penalty", "length_penalty", lambda lh, rl: torch.ones_like(rl)),
+                                ("without first-occurrence dedup", "first_occurrence", lambda eqv, gvalid: gvalid)):
+        with mock.patch.object(k10, target, fake):
+            fault = k10.cider_reward_plain(ids, img, tensors, pack, **kw)
+        frac = ((fault - ref).abs() > REWARD_RTOL * ref.abs() + REWARD_ATOL).float().mean().item()
+        log(f"[fault] cider_reward {label}: {frac:.3f} of captions outside the tolerance "
+            f"{'caught' if frac > 0 else 'MISSED'}")
+        ok &= frac > 0
+    ghi, glo, _, _, _ = k10.grams(ids, 3, 0, 2)
+    slots = ((k10.mix(ghi, glo) & (table.size - 1))[..., None] + torch.arange(table.probe, device=dev)) % table.size
+    used = torch.unique(img.long())
+    pack_bytes = sum(v[used].numel() * v.element_size() for v in pack.values())
+    record("cider_reward", err.max().item(), time_ms(lambda: k10.cider_reward(ids, img, tensors, pack, **kw)),
+           time_ms(lambda: k10.cider_reward_plain(ids, img, tensors, pack, **kw), iters=5), None,
+           ids.numel() * 4 + img.numel() * 4 + pack_bytes + torch.unique(slots).numel() * 12 + ids.shape[0] * 4, {})
+    return ok
+
+
+def scst_reward_setup(b: int, device, seed: int = 2, gts=None):
+    """(df table, ref pack on `device`) of b images with 5 synthetic refs
+    each (token ids as words, bench.py:354-362), or the given `gts`, and the
+    df of those refs."""
+    from sparse_caption_tpu_torch.kernels import _build
+    from sparse_caption_tpu_torch.metrics.cider import build_df_pickle, load_df_pickle
+    from sparse_caption_tpu_torch.scst.device_reward import DfTable, scst_ref_pack
+
+    rng = np.random.default_rng(seed)
+    if gts is None:
+        gts = [[" ".join(f"w{i}" for i in rng.integers(4, 200, rng.integers(8, 15))) for _ in range(5)]
+               for _ in range(b)]
+    path = _build.BUILD_DIR.parent / "scst_smoke" / f"df_{b}.p"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    build_df_pickle(gts, str(path))
+    df, ref_len = load_df_pickle(str(path))
+    tok2id = {w: i for i, w in enumerate(["<pad>", "<unk>", "<bos>", "<eos>"])}
+    tok2id.update({f"w{i}": i for i in range(4, PAPER["vocab_size"])})
+    table = DfTable.build(df, ref_len, tok2id)
+    return table, scst_ref_pack(gts, df, table, tok2id, PAPER["vocab_size"], device)
+
+
+def build_scst_model(seed: int):
+    """Paper-width relation_transformer_prune in f32 on the card, mask_freeze
+    with its frozen 0/1 masks kept as parameters (bench.py:340-344: kept where
+    a uniform >= the sparsity), random weights from the seed, dropout on."""
+    from sparse_caption_tpu_torch.models import get_model
+    from sparse_caption_tpu_torch.ops.masked import MaskConfig, split_params
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    model = get_model("relation_transformer_prune")(
+        **PAPER, mask_cfg=MaskConfig("mask_freeze", keep_masks=True), device="cuda", generator=gen)
+    _, masks = split_params(model)
+    with torch.no_grad():
+        for m in masks.values():
+            m.copy_((torch.rand(m.shape, generator=gen, device="cuda") >= SCST_SPARSITY).float())
+    kept = sum(int(m.sum()) for m in masks.values()) / sum(m.numel() for m in masks.values())
+    log(f"[scst] mask_freeze: {len(masks)} masks, {kept:.4f} of the masked weights kept")
+    return model
+
+
+def make_scst(model, table, samples: int = SCST_SAMPLES):
+    from sparse_caption_tpu_torch.engine.optim import build_mask_optimizer, build_weight_optimizer, make_schedule
+    from sparse_caption_tpu_torch.engine.training import make_scst_step
+    from sparse_caption_tpu_torch.ops.masked import split_params
+    from sparse_caption_tpu_torch.scst.device_reward import make_reward_fn
+
+    config = dict(SCST_CONFIG, scst_num_samples=samples)
+    params, masks = split_params(model)
+    opt_w = build_weight_optimizer(params.values(), config, make_schedule(config))
+    opt_m = build_mask_optimizer(masks.values(), config, trainable=False)
+    reward_fn = make_reward_fn(table, bleu_weight=SCST_BLEU)
+    step = make_scst_step(model, opt_w, opt_m, config, reward_fn)
+    step.reward = reward_fn
+    return step
+
+
+def scst_launches(layers: int, steps: int, n_masked: int, names) -> dict:
+    """Launches of one SCST step: a train-mode encode and `steps` decode steps
+    without gradients, the reward, then the replay's encode and decoder pass
+    with their backward. Masked weights are multiplied once per sampling
+    phase (kept until the next update) and once more in the replay."""
+    enc_k6, dec_k6 = 1 + 2 * layers, 1 + 3 * layers
+    counts = {name: 0 for name in names}
+    counts.update(box_attention_train=2 * layers, box_attention_bwd=layers, ancestry_self_attention=layers * steps,
+                  grouped_cross_attention=layers * steps, supermask=2 * n_masked, supermask_bwd=n_masked,
+                  add_ref_layernorm=enc_k6 + steps * dec_k6 + enc_k6 + dec_k6, add_ref_layernorm_bwd=enc_k6 + dec_k6,
+                  keyed_keep_mask=3 * layers * (steps + 3), keyed_dropout=(1 + layers) * (steps + 5),
+                  sample_step=steps, cider_reward=1)
+    return counts
+
+
+def scst_batch(gen, b, pack):
+    att, mask, boxes = make_batch(gen, b, torch.float32, pack["hi"].device)
+    return dict(att_feats=att, att_masks=mask, boxes=boxes, ref_pack=pack)
+
+
+def run_scst_phase(model, gen, b, expected) -> tuple:
+    """1 warm-up + SCST_STEPS steps at b x 15; every step's launches must
+    equal `expected`. Returns (counts per step, step, state, batch)."""
+    from sparse_caption_tpu_torch.engine.training import TrainState
+    from sparse_caption_tpu_torch.kernels import launch_counts, reset_launch_counts
+
+    table, pack = scst_reward_setup(b, "cuda")
+    step = make_scst(model, table)
+    batch = scst_batch(gen, b, pack)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    state, loss, aux = step(TrainState(), batch)  # warm-up
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    for _ in range(SCST_STEPS):
+        state, loss, aux = step(state, batch)
+    torch.cuda.synchronize()
+    per_step = (time.perf_counter() - t0) / SCST_STEPS
+    counts = launch_counts()
+    assert counts == {k: SCST_STEPS * v for k, v in expected.items()}, f"SCST launch counts {counts} != 5 x {expected}"
+    assert math.isfinite(float(loss)) and state.step == SCST_STEPS + 1
+    log(f"[scst] f32 batch {b}x{SCST_SAMPLES}: {1 / per_step:.3f} steps/s, {b * SCST_SAMPLES / per_step:.1f} "
+        f"samples/s ({per_step * 1e3:.1f} ms per step, mean of {SCST_STEPS}); loss {float(loss):.5f}, avg_sample "
+        f"{float(aux['avg_sample']):.5f}, avg_reward {float(aux['avg_reward']):.3e}; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; launches per step {expected}")
+    return expected, step, state, batch
+
+
+def replay_check(model, gen) -> bool:
+    """At 5 x 15 with dropout on: the replay's log-probs at non-pad positions
+    equal the sampling decode's (K2/K3 over the cache vs plain attention)."""
+    from sparse_caption_tpu_torch.decoding import generate
+    from sparse_caption_tpu_torch.ops.rng import KeyedStream, decode_train_keys
+
+    att, mask, boxes = make_batch(gen, SCST_BATCHES[0], torch.float32)
+    opt = {"num_random_sample": SCST_SAMPLES, "beam_size": 0, "max_seq_length": MAX_LEN, "decode_train": True}
+    with torch.no_grad():
+        memory = model.encode(att, mask, boxes, train=True, rng=KeyedStream(11))
+        seq, seq_lp = generate(model, memory, opt, rng=12)
+        flat = seq.reshape(-1, MAX_LEN).long()
+        seqs_in = torch.cat([torch.full((flat.shape[0], 1), model.bos_id, device=flat.device), flat], 1)
+        lp = model.decode_teacher_forced(memory, seqs_in, train=True, rng=KeyedStream(decode_train_keys(12).dropout))
+        at = lp.gather(2, flat[..., None])[..., 0]
+    valid = flat != model.pad_id
+    gap = (at - seq_lp.reshape(-1, MAX_LEN))[valid].abs().max().item()
+    log(f"[replay] f32 {SCST_BATCHES[0]}x{SCST_SAMPLES}: {int(valid.sum())} non-pad positions, worst |replay - "
+        f"sampling| log-prob {gap:.3e} (tol {REPLAY_LP_TOL}) {'ok' if gap <= REPLAY_LP_TOL else 'FAIL'}")
+    return gap <= REPLAY_LP_TOL
+
+
+def scst_whole_step_check(seed: int, gen) -> bool:
+    """One f32 SCST step at 2 x 3 with dropout on, on the card and on the CPU
+    from the same weights and seed; the card's tokens feed both replays."""
+    from sparse_caption_tpu_torch.engine.training import TrainState
+
+    from sparse_caption_tpu_torch.scst.device_reward import DfTable
+
+    model_gpu = build_scst_model(seed)
+    model_cpu = copy.deepcopy(model_gpu).to("cpu")
+    att, mask, boxes = make_batch(gen, SCST_CHECK_BATCH, torch.float32)
+    inputs = dict(att_feats=att, att_masks=mask, boxes=boxes)
+    # the sampling phase reads no reference; each image's refs are then its
+    # first sample (every third word dropped) and four unrelated captions, so
+    # that the leave-one-out rewards, and with them the gradients, are far
+    # from 0 (the near-uniform policy's loss stays near 0: lp is ~ -log V at
+    # every token and the rewards of an image sum to 0)
+    res = make_scst(model_gpu, DfTable.build({}, 0.0, {}), SCST_CHECK_SAMPLES).sample_fn(TrainState(), inputs)
+    rng = np.random.default_rng(seed)
+    gts = []
+    for rows in res["sample"].cpu().tolist():
+        first = rows[0][:rows[0].index(3)] if 3 in rows[0] else rows[0]
+        gts.append([" ".join(f"w{i}" for j, i in enumerate(first) if j % 3 != 2 and i > 3)]
+                   + [" ".join(f"w{i}" for i in rng.integers(4, 200, 10)) for _ in range(4)])
+    table, pack = scst_reward_setup(SCST_CHECK_BATCH, "cuda", gts=gts)
+    batch_gpu = dict(inputs, ref_pack=pack)
+    batch_cpu = {k: ({kk: vv.cpu() for kk, vv in v.items()} if isinstance(v, dict) else v.cpu())
+                 for k, v in batch_gpu.items()}
+    step_gpu = make_scst(model_gpu, table, SCST_CHECK_SAMPLES)
+    step_cpu = make_scst(model_cpu, table, SCST_CHECK_SAMPLES)
+    res_cpu = step_cpu.sample_fn(TrainState(), batch_cpu)
+    n_tok = int((res["sample"].cpu() != res_cpu["sample"]).sum())
+    flat = res["sample"].reshape(-1, MAX_LEN)
+    img = torch.arange(SCST_CHECK_BATCH, device="cuda", dtype=torch.int32).repeat_interleave(SCST_CHECK_SAMPLES)
+    r_gpu = step_gpu.reward(flat, img, pack).cpu()
+    r_cpu = step_cpu.reward(flat.cpu(), img.cpu(), batch_cpu["ref_pack"])
+    r_err = (r_gpu - r_cpu).abs()
+    r_ok = bool((r_err <= REWARD_RTOL * r_cpu.abs() + REWARD_ATOL).all())
+    _, loss_g, _ = step_gpu.grad_fn(TrainState(), batch_gpu, res)
+    _, loss_c, _ = step_cpu.grad_fn(TrainState(), batch_cpu, {"sample": res["sample"].cpu()})
+    loss_ok = abs(float(loss_g) - float(loss_c)) <= SCST_LOSS_TOL
+    ref = {n: p.grad for n, p in model_cpu.named_parameters()}
+    got = {n: p.grad.cpu() for n, p in model_gpu.named_parameters()}
+    top = max(g.abs().max().item() for g in ref.values())
+    worst, elementwise_ok = 0.0, 0
+    for n, g_ref in ref.items():
+        diff = got[n] - g_ref
+        elementwise_ok += bool((diff.abs() <= STEP_GRAD_TOL * g_ref.abs().max().item() + STEP_GRAD_FLOOR * top).all())
+        worst = max(worst, (diff.norm() / (STEP_GRAD_NORM_TOL * g_ref.norm()
+                                           + STEP_GRAD_FLOOR * top * g_ref.numel() ** 0.5)).item())
+    log(f"[scst-step] f32 {SCST_CHECK_BATCH}x{SCST_CHECK_SAMPLES}, dropout on: sampled tokens differing card vs CPU "
+        f"{n_tok}/{flat.numel()}; rewards {[round(x, 4) for x in r_cpu.tolist()]}, largest gradient {top:.3e}; "
+        f"rewards max_abs_err {r_err.max().item():.3e} (rtol {REWARD_RTOL}, atol "
+        f"{REWARD_ATOL}) {'ok' if r_ok else 'FAIL'}; loss card {float(loss_g):.7f} cpu {float(loss_c):.7f} "
+        f"{'ok' if loss_ok else 'FAIL'}; gradients: {elementwise_ok} of {len(ref)} tensors within the element-wise "
+        f"bound, worst norm-wise err/allowed {worst:.3f} {'ok' if worst <= 1 else 'FAIL'}")
+    return r_ok and loss_ok and worst <= 1
+
+
 def card_line() -> str:
     out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True)
@@ -767,6 +1122,7 @@ def main() -> int:
     for dtype in (torch.float32, torch.bfloat16):
         ok &= check_kernels(gen, dtype, results)
         ok &= check_train_kernels(gen, dtype, results)
+    ok &= check_scst_kernels(gen, results)
     torch.cuda.empty_cache()
     if not ok:
         log("[kernel] a kernel disagrees with its plain version")
@@ -809,10 +1165,27 @@ def main() -> int:
     if not whole_step_check(SEED, gen):
         return 1
 
+    # SCST: the paper's sparse self-critical step
+    scst_model = build_scst_model(SEED)
+    scst = scst_launches(layers, MAX_LEN, n_masked, KERNELS)
+    for b in SCST_BATCHES:
+        scst_counts, step, state, batch = run_scst_phase(scst_model, gen, b, scst)
+    held = [state]
+    profile_window(f"SCST step, f32 batch {SCST_BATCHES[-1]}x{SCST_SAMPLES}",
+                   lambda: held.append(step(held.pop(), batch)[0]))
+    del step, batch, held
+    if not replay_check(scst_model, gen):
+        return 1
+    del scst_model
+    torch.cuda.empty_cache()
+    if not scst_whole_step_check(SEED, gen):
+        return 1
+
     kernels = []
     for name in _build.SOURCES:
         entries = [e for e, k in KERNELS.items() if k.library_name == name]
-        by_path = {"serve": sum(serve_counts[e] for e in entries), "train_step": sum(train_counts[e] for e in entries)}
+        by_path = {"serve": sum(serve_counts[e] for e in entries), "train_step": sum(train_counts[e] for e in entries),
+                   "scst_step": sum(scst_counts[e] for e in entries)}
         src = _build.CSRC / f"{name}.cu"
         kernels.append(dict(name=name, route="cuda", source=str(src.relative_to(_build.CSRC.parents[2])),
                             replaces=REPLACES[name], launches=sum(by_path.values()), launches_by_path=by_path,

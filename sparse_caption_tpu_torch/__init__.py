@@ -15,9 +15,3 @@ def resolve_device(device="cuda") -> torch.device:
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("CUDA is not available; pass device='cpu' to run the plain PyTorch versions")
     return dev
-
-
-def check_eval(train: bool) -> None:
-    """Decoding is ported with eval semantics only (train-mode decoding is SCST's)."""
-    if train:
-        raise NotImplementedError("train-mode decoding lands in a later slice")

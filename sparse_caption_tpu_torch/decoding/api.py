@@ -1,8 +1,18 @@
 """Generation entry point (port of ``sparse_caption_tpu/decoding/api.py``).
 
-This slice ports beam search (``beam_size > 1``, ``group_size == 1``, eval).
-Greedy decoding, random sampling, diverse beam search and train-mode
-decoding raise ``NotImplementedError`` until their slice.
+Dispatch on the opt dict as the JAX package does:
+
+* ``num_random_sample > 0`` (requires ``beam_size < 1``): temperature
+  sampling, ``num_random_sample`` rows per image sharing its cross K/V
+* ``beam_size > 1``: batched beam search (eval only)
+* else: greedy
+
+``decode_train=True`` decodes under the train policy (the SCST sampling
+phase): dropout keyed per step from the ``rng`` seed's streams
+(``ops.rng.decode_train_keys``), masks applied as in training, f32 logits.
+Diverse beam search (``group_size > 1``), beam search under the train
+policy and ``sample_method`` other than ``random`` raise
+``NotImplementedError`` until their slice.
 """
 
 from __future__ import annotations
@@ -12,37 +22,62 @@ from typing import Any, Dict, Optional
 import torch
 
 from sparse_caption_tpu_torch.decoding.beam import beam_search
+from sparse_caption_tpu_torch.decoding.sample import sample_decode
+from sparse_caption_tpu_torch.ops.rng import SAMPLE_SITE, KeyedStream, decode_train_keys
 
 
 @torch.no_grad()
-def generate(model, memory: Dict[str, Any], opt: Optional[Dict[str, Any]] = None):
-    """Beam-search captions from an encoded memory dict (``model.encode``).
-
-    Runs on the memory's device. Returns (seq (B, K, max_len), seq_logprobs
-    (B, K, max_len)), best beam first."""
+def generate(model, memory: Dict[str, Any], opt: Optional[Dict[str, Any]] = None, rng: Optional[int] = None,
+             noise=None):
+    """Captions from an encoded memory dict (``model.encode``), on the
+    memory's device. ``rng``: the seed of the decode's random streams
+    (required with ``decode_train``; sampling otherwise defaults to 0);
+    ``noise``: explicit per-step Gumbel noise for the CPU plain version
+    (``decoding.sample.sample_decode``). Returns (seq (B, K, max_len),
+    seq_logprobs (B, K, max_len)); beam search puts the best beam first."""
     opt = opt or {}
+    num_random_sample = int(opt.get("num_random_sample", 0))
     beam_size = int(opt.get("beam_size", 1))
-    if int(opt.get("num_random_sample", 0)) > 0:
-        raise NotImplementedError("random sampling lands in a later slice")
-    if bool(opt.get("decode_train", False)):
-        raise NotImplementedError("train-mode decoding lands in a later slice")
-    if beam_size <= 1:
-        raise NotImplementedError("greedy decoding lands in a later slice")
+    decode_train = bool(opt.get("decode_train", False))
+    max_len = int(opt.get("max_seq_length", model.max_seq_length))
+    decoding_constraint = int(opt.get("decoding_constraint", 0))
     if int(opt.get("group_size", 1)) > 1:
         raise NotImplementedError("diverse beam search lands in a later slice")
-
-    max_len = int(opt.get("max_seq_length", model.max_seq_length))
     b = memory["memory"].shape[0]
-    cache = model.init_cache(memory, max_len, beam_size, beam_ancestry=True)
+
+    if beam_size > 1 and num_random_sample <= 0:
+        if decode_train:
+            raise NotImplementedError("beam search under the train policy (beam-sample SCST) lands in a later slice")
+        cache = model.init_cache(memory, max_len, beam_size, beam_ancestry=True)
+        return beam_search(
+            lambda it, cache, t: model.decode_step_logits(it, cache, t, memory), cache, b, beam_size, max_len,
+            bos_id=model.bos_id, eos_id=model.eos_id, pad_id=model.pad_id, unk_id=model.unk_id,
+            length_penalty=str(opt.get("length_penalty", "")), decoding_constraint=decoding_constraint,
+            suppress_unk=int(opt.get("suppress_UNK", 0)), bad_ending_ids=opt.get("bad_ending_ids"))
+
+    rows = 1
+    if num_random_sample > 0:
+        if beam_size >= 1:
+            raise ValueError(f"beam_size must be < 1 for random sampling, got {beam_size}")
+        method = str(opt.get("sample_method", "random"))
+        if method != "random":
+            raise NotImplementedError(f"sample_method `{method}` lands in a later slice")
+        rows = num_random_sample
+    sample_key = 0 if rng is None else int(rng)
+    cache_rng = step_rng = None
+    if decode_train:
+        if rng is None:
+            raise ValueError("decode_train needs an rng seed")
+        keys = decode_train_keys(int(rng))
+        sample_key, step_rng, cache_rng = keys.sample, KeyedStream(keys.dropout), KeyedStream(keys.cache)
+    cache = model.init_cache(memory, max_len, rows, train=decode_train, rng=cache_rng)
 
     def step_fn(it, cache, t):
-        return model.decode_step_logits(it, cache, t, memory)
+        return model.decode_step_logits(it, cache, t, memory, decode_train, step_rng)
 
-    return beam_search(
-        step_fn, cache, b, beam_size, max_len,
-        bos_id=model.bos_id, eos_id=model.eos_id, pad_id=model.pad_id, unk_id=model.unk_id,
-        length_penalty=str(opt.get("length_penalty", "")),
-        decoding_constraint=int(opt.get("decoding_constraint", 0)),
-        suppress_unk=int(opt.get("suppress_UNK", 0)),
-        bad_ending_ids=opt.get("bad_ending_ids"),
-    )
+    seq, seq_lp = sample_decode(
+        step_fn, cache, b * rows, max_len, bos_id=model.bos_id, eos_id=model.eos_id, pad_id=model.pad_id,
+        greedy=num_random_sample <= 0, temperature=float(opt.get("temperature", 1.0)),
+        decoding_constraint=decoding_constraint, key=sample_key, site=SAMPLE_SITE,
+        device=memory["memory"].device, noise=noise)
+    return seq.reshape(b, rows, max_len), seq_lp.reshape(b, rows, max_len)

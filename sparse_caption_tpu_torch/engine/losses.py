@@ -1,8 +1,7 @@
 """Training criteria (port of ``sparse_caption_tpu/engine/losses.py``).
 
-Both take log-probabilities and normalize by the mask sum, as the reference
-does (label smoothing keeps torch KLDivLoss's constant term). The REINFORCE
-``reward_loss`` comes with SCST.
+All take log-probabilities and normalize by the mask sum, as the reference
+does (label smoothing keeps torch KLDivLoss's constant term).
 """
 
 from __future__ import annotations
@@ -31,3 +30,11 @@ def label_smoothing_loss(logprobs, targets, masks, smoothing: float = 0.1):
     log_t = torch.where(one_hot > 0, torch.log(torch.clamp(one_hot, min=1e-30)), torch.zeros_like(one_hot))
     kl = torch.sum(one_hot * (log_t - logprobs), dim=-1)
     return torch.sum(kl * masks) / torch.clamp(torch.sum(masks), min=1.0)
+
+
+def reward_loss(sample_logprobs, masks, rewards):
+    """REINFORCE: mean over the mask of -logp * reward. sample_logprobs (N, T)
+    chosen-token log-probs; rewards (N,) broadcast over time."""
+    masks = masks.to(sample_logprobs.dtype)
+    out = -sample_logprobs * (masks * rewards[:, None])
+    return torch.sum(out) / torch.clamp(torch.sum(masks), min=1.0)

@@ -1,6 +1,7 @@
-"""The supermask XE train step (port of ``sparse_caption_tpu/engine/training.py``
-``make_xe_step`` 489-570, ``_grad_update`` 445-455, ``_loss_criterion``
-428-432 and ``_sparsity_loss_args`` 434-443) as plain functions.
+"""The train steps (port of ``sparse_caption_tpu/engine/training.py``
+``make_xe_step`` 489-570, ``make_scst_step`` 675-859, ``_grad_update``
+445-455, ``_loss_criterion`` 428-432 and ``_sparsity_loss_args`` 434-443) as
+plain functions.
 
     params, masks = split_params(model)
     opt_w = build_weight_optimizer(params.values(), config, make_schedule(config))
@@ -15,6 +16,15 @@ and the sparsity anneal's step); after a step each parameter's ``.grad``
 holds that step's raw gradient. With ``train_precision`` bf16 the master
 params stay f32 and the forward runs on a differentiable bf16 cast of them
 (masks and boxes stay f32, the log-softmax runs in f32).
+
+SCST (the two-phase step with the device reward; mask_freeze or dense
+models, ``scst_sample random``):
+
+    reward_fn = make_reward_fn(DfTable.from_pickle(df_path, tok2id), bleu_weight=(0, 0, 0, 1))
+    step = make_scst_step(model, opt_w, opt_m, config, reward_fn)
+    batch = dict(att_feats=..., att_masks=..., boxes=...,
+                 ref_pack=scst_ref_pack(gts, df, table, tok2id, vocab_size, device))
+    state, loss, aux = step(TrainState(), batch)
 """
 
 from __future__ import annotations
@@ -26,11 +36,13 @@ from typing import Dict, Optional, Tuple
 import torch
 from torch import nn
 
+from sparse_caption_tpu_torch.decoding.api import generate
 from sparse_caption_tpu_torch.engine import losses as losses_mod
 from sparse_caption_tpu_torch.engine.optim import Optimizer
 from sparse_caption_tpu_torch.ops.masked import MaskConfig, split_params
-from sparse_caption_tpu_torch.ops.rng import TrainRandom
+from sparse_caption_tpu_torch.ops.rng import KeyedStream, TrainRandom, decode_train_keys, derive_key
 from sparse_caption_tpu_torch.pruning.engine import compute_sparsity_loss
+from sparse_caption_tpu_torch.scst.device_reward import leave_one_out_baseline
 
 
 @dataclasses.dataclass(frozen=True)
@@ -106,3 +118,102 @@ def make_xe_step(model: nn.Module, opt_w: Optimizer, opt_m: Optimizer, config):
         return grad_update(state, opt_w, opt_m), loss.detach(), aux
 
     return xe_step
+
+
+def make_scst_step(model: nn.Module, opt_w: Optimizer, opt_m: Optimizer, config, reward_fn):
+    """-> ``scst_step(state, batch) -> (state, loss, aux)``, the two-phase SCST
+    step with the device reward (``reward_fn``: ``scst.device_reward.make_reward_fn``).
+
+    ``batch`` holds ``att_feats`` (B, R, F), ``att_masks`` (B, R), ``boxes``
+    (B, R, 4) and ``ref_pack``, the batch's reference pack on the model's
+    device (``scst.device_reward.scst_ref_pack``). Each step derives one
+    seed from ``config["seed"]`` and the update count, and from it the
+    encoder's and the decoder's keyed streams:
+
+    1. ``scst_step.sample_fn(state, batch)``, under ``torch.no_grad``: a
+       train-mode encode and ``scst_num_samples`` sampled captions per image
+       under the train policy (keyed dropout per step), and with
+       ``scst_baseline greedy`` an eval-mode greedy caption;
+    2. ``scst_step.grad_fn(state, batch, res)``: rewards of the samples (K10)
+       minus the baseline (the other samples' mean, or the greedy caption's
+       reward), then ONE teacher-forced forward in replay mode under the same
+       streams, which reproduces the sampling decode's log-probs, the
+       REINFORCE loss, its backward and the optimizer update.
+
+    The replay is exact only when the masks are deterministic: a supermask
+    model (a fresh Bernoulli draw per step), beam-sample SCST, the host
+    reward and the pipelined and fused steps raise ``NotImplementedError``."""
+    num_samples = int(config.get("scst_num_samples", 15))
+    sample_mode = str(config.get("scst_sample", "random"))
+    baseline_mode = str(config.get("scst_baseline", "greedy"))
+    if sample_mode == "beam_search":
+        raise NotImplementedError("beam-sample SCST lands in a later slice")
+    if sample_mode != "random" or baseline_mode not in ("greedy", "sample"):
+        raise ValueError(f"bad scst_sample `{sample_mode}` or scst_baseline `{baseline_mode}`")
+    if str(config.get("scst_reward", "device")) != "device":
+        raise NotImplementedError("the host reward path and its scorer land in a later slice")
+    if model.mask_cfg is not None and model.mask_cfg.is_supermask:
+        raise NotImplementedError("supermask SCST (the differentiable scan through per-step Bernoulli draws) "
+                                  "lands in a later slice")
+    max_len = int(config.get("max_seq_length", 18)) - 1
+    sample_opt = {"num_random_sample": num_samples, "beam_size": 0, "max_seq_length": max_len,
+                  "temperature": float(config.get("scst_temperature", 1.0)), "decode_train": True}
+    greedy_opt = {"beam_size": 1, "max_seq_length": max_len}
+    base_seed = derive_key(int(config.get("seed", 8888)) + 1, 0x5C57)
+
+    def seeds(state: TrainState):
+        """(encoder key, decode seed) of the step."""
+        step_seed = derive_key(base_seed, state.step)
+        return derive_key(step_seed, 1), derive_key(step_seed, 2)
+
+    def encoder_args(batch: Dict):
+        return batch["att_feats"], batch["att_masks"], batch.get("boxes")
+
+    @torch.no_grad()
+    def sample_fn(state: TrainState, batch: Dict) -> Dict:
+        enc_key, dec_seed = seeds(state)
+        memory = model.encode(*encoder_args(batch), train=True, rng=KeyedStream(enc_key))
+        out = {"sample": generate(model, memory, sample_opt, rng=dec_seed)[0]}
+        if baseline_mode == "greedy":
+            out["greedy"] = generate(model, model.encode(*encoder_args(batch)), greedy_opt)[0]
+        return out
+
+    def grad_fn(state: TrainState, batch: Dict, res: Dict):
+        enc_key, dec_seed = seeds(state)
+        sample = res["sample"]
+        b, s, t = sample.shape
+        flat = sample.reshape(b * s, t)
+        with torch.no_grad():
+            img = torch.arange(b, device=flat.device, dtype=torch.int32)
+            sc_s = reward_fn(flat, img.repeat_interleave(s), batch["ref_pack"])
+            if baseline_mode == "greedy":
+                sc_b = reward_fn(res["greedy"].reshape(b, t), img, batch["ref_pack"]).repeat_interleave(s)
+            else:
+                sc_b = leave_one_out_baseline(sc_s, s)
+            rewards = sc_s - sc_b
+        opt_w.zero_grad()
+        opt_m.zero_grad()
+        memory = model.encode(*encoder_args(batch), train=True, rng=KeyedStream(enc_key))
+        seqs_in = torch.cat([torch.full((b * s, 1), model.bos_id, dtype=flat.dtype, device=flat.device), flat], 1)
+        lp = model.decode_teacher_forced(memory, seqs_in, train=True,
+                                         rng=KeyedStream(decode_train_keys(dec_seed).dropout))
+        seq_lp = torch.gather(lp, 2, flat.long()[..., None])[..., 0]
+        loss = losses_mod.reward_loss(seq_lp, flat != model.pad_id, rewards)
+        loss.backward()
+        aux = {"avg_reward": rewards.mean(), "avg_sample": sc_s.mean(), "avg_baseline": sc_b.mean()}
+        return grad_update(state, opt_w, opt_m), loss.detach(), aux
+
+    def scst_step(state: TrainState, batch: Dict):
+        return grad_fn(state, batch, sample_fn(state, batch))
+
+    scst_step.sample_fn = sample_fn
+    scst_step.grad_fn = grad_fn
+    return scst_step
+
+
+def make_scst_pipelined_step(*args, **kwargs):
+    raise NotImplementedError("the pipelined SCST step lands in a later slice")
+
+
+def make_scst_fused_step(*args, **kwargs):
+    raise NotImplementedError("the fused SCST step lands in a later slice")

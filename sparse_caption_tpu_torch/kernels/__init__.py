@@ -10,11 +10,16 @@ beam_topk (K4)                  csrc/beam_topk.cu                   layers.py:45
 supermask_weight (K5)           csrc/supermask.cu                   ops/masked.py:70-82, ops/ste.py:51-64
 add_ref_layernorm (K6)          csrc/add_ref_layernorm.cu           models/layers.py:71-92,135-143
 box_attention_train (K1 + K7)   csrc/box_attention_bwd.cu           gradients of layers.py:338-439
+keyed_keep_mask (K8)            csrc/keyed_dropout.cu               models/layers.py:31-68 TimeDropout
+keyed_dropout (K8 apply)        csrc/keyed_dropout.cu               models/layers.py:31-68 TimeDropout
+sample_step (K9)                csrc/sample_step.cu                 decoding/sample.py:134-159, layers.py:465-472
+cider_reward (K10)              csrc/cider_reward.cu                scst/device_reward.py:282-403
 ==============================  ==================================  ======================================
 
 A wrapper given CPU tensors runs the plain version; given CUDA tensors it
-launches its kernel (built at first use, see ``_build``) or raises. K5, K6
-and K1/K7 are autograd Functions whose backward is a kernel too.
+launches its kernel (built at first use, see ``_build``) or raises. K5, K6,
+K1/K7 and K8's apply variant are autograd Functions whose backward is a
+kernel too.
 """
 
 from sparse_caption_tpu_torch.kernels import add_ref_layernorm as _k6
@@ -23,6 +28,9 @@ from sparse_caption_tpu_torch.kernels import beam_topk as _k4
 from sparse_caption_tpu_torch.kernels import box_attention as _k1
 from sparse_caption_tpu_torch.kernels import box_attention_bwd as _k7
 from sparse_caption_tpu_torch.kernels import grouped_cross_attention as _k3
+from sparse_caption_tpu_torch.kernels import cider_reward as _k10
+from sparse_caption_tpu_torch.kernels import keyed_dropout as _k8
+from sparse_caption_tpu_torch.kernels import sample_step as _k9
 from sparse_caption_tpu_torch.kernels import supermask as _k5
 from sparse_caption_tpu_torch.kernels._build import build_all  # noqa: F401
 
@@ -38,6 +46,10 @@ KERNELS = {
     "add_ref_layernorm": _k6.KERNEL,
     "add_ref_layernorm_bwd": _k6.KERNEL_BWD,
     "box_attention_bwd": _k7.KERNEL,
+    "keyed_keep_mask": _k8.KERNEL,
+    "keyed_dropout": _k8.KERNEL_APPLY,
+    "sample_step": _k9.KERNEL,
+    "cider_reward": _k10.KERNEL,
 }
 
 

@@ -25,7 +25,7 @@ import torch
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 SOURCES = ("box_attention", "ancestry_self_attention", "grouped_cross_attention", "beam_topk", "supermask",
-           "add_ref_layernorm", "box_attention_bwd")
+           "add_ref_layernorm", "box_attention_bwd", "keyed_dropout", "sample_step", "cider_reward")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -130,6 +130,7 @@ class CudaKernel:
 
 P = ctypes.c_void_p
 I = ctypes.c_int  # noqa: E741
+U32 = ctypes.c_uint32
 I64 = ctypes.c_longlong
 F32 = ctypes.c_float
 

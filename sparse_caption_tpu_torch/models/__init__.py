@@ -9,6 +9,11 @@ Model API (``device`` defaults to ``"cuda"``):
 * ``model.init_cache(memory, max_steps, rows_per_image, ...)``      -> decode cache dict
 * ``model.decode_step(it, cache, t, memory)``                       -> (log-probs, cache)
 * ``model.decode_step_logits(it, cache, t, memory)``                -> (logits, cache)
+* ``model.decode_teacher_forced(memory, seqs)``                     -> log-probs of seqs[:, 1:]
+
+Train-mode decoding (the SCST sampling phase) passes ``train=True`` and the
+decode's ``ops.rng.KeyedStream`` to ``init_cache`` and the decode steps;
+``decode_teacher_forced(memory, seqs, train=True, rng=stream)`` replays it.
 """
 
 from sparse_caption_tpu_torch.registry import Registry

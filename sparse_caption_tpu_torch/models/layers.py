@@ -10,12 +10,16 @@ Numerics kept from the reference:
 * ORT geometry trig in f32, cast to the compute dtype before ``wg``
 * in training the generator's log_softmax runs in f32
 
-Train mode: a forward given ``rng`` (an ``ops.rng.TrainRandom``) draws the
-supermask samples and the dropout masks from it; ``rng=None`` is eval.
+Train mode: a forward given ``rng`` (an ``ops.rng.TrainRandom`` or
+``KeyedStream``) draws the supermask samples and the dropout masks from it;
+``rng=None`` is eval. Every module that draws dropout holds a ``site`` id
+(``assign_dropout_sites``) that keys a ``KeyedStream``'s draws: with one, the
+decode draws in step mode at ``t`` and the teacher-forced replay draws all t
+at once (kernel K8), and the two agree bit for bit.
 The residual add of sublayer i and the norm of sublayer i+1 run fused in
 kernel K6 (``prenorm_stack``); the ORT encoder's attention in K1 (eval) or
 K1's train variant with its backward K7; masked weights in K5. The decoder's
-full-sequence attention (XE teacher forcing) is plain torch.
+full-sequence attention (XE teacher forcing, SCST replay) is plain torch.
 
 Decode caches are explicit tensors ``(N, h, T_max, dk)``; ``decode_self``
 writes slot ``t`` IN PLACE (the JAX package returns an updated copy).
@@ -39,7 +43,7 @@ from sparse_caption_tpu_torch.kernels.box_attention_bwd import box_attention_tra
 from sparse_caption_tpu_torch.kernels.grouped_cross_attention import grouped_cross_attention
 from sparse_caption_tpu_torch.ops.attention import box_relational_embedding, scaled_dot_attention  # noqa: F401
 from sparse_caption_tpu_torch.ops.masked import MaskConfig, MaskedEmbedding, MaskedLinear
-from sparse_caption_tpu_torch.ops.rng import dropout, keep_mask
+from sparse_caption_tpu_torch.ops.rng import dropout, keep_mask, site_id
 
 
 class RefLayerNorm(nn.Module):
@@ -66,21 +70,34 @@ def sinusoid_table(max_len: int, d_model: int, device=None) -> torch.Tensor:
     return pe
 
 
-class PositionalEncoding(nn.Module):
+class DropoutSite:
+    """A module that draws dropout; ``site`` is set from its qualified name."""
+
+    site: int = 0
+
+
+def assign_dropout_sites(model: nn.Module) -> None:
+    for name, m in model.named_modules():
+        if isinstance(m, DropoutSite):
+            m.site = site_id(name or "root")
+
+
+class PositionalEncoding(nn.Module, DropoutSite):
     def __init__(self, d_model: int, dropout_rate: float = 0.1, max_len: int = 5000, device=None):
         super().__init__()
         self.dropout_rate = dropout_rate
         self.register_buffer("pe", sinusoid_table(max_len, d_model, device), persistent=False)
 
     def forward(self, x, t: Optional[int] = None, rng=None):
-        """x: (B, T, D); with ``t`` (incremental decode) x is (B, 1, D) at step t.
-        The f32 table is cast to x's dtype so a bf16 decode stays bf16."""
+        """x: (B, T, D); with ``t`` (incremental decode) x is (B, 1, D) at step t
+        (and ``rng``, if keyed, is the step view at t). The f32 table is cast
+        to x's dtype so a bf16 decode stays bf16."""
         pe = self.pe.to(x.dtype)
         x = x + (pe[None, : x.shape[1]] if t is None else pe[None, t: t + 1])
-        return dropout(x, self.dropout_rate, rng)
+        return dropout(x, self.dropout_rate, rng, self.site)
 
 
-class PositionwiseFeedForward(nn.Module):
+class PositionwiseFeedForward(nn.Module, DropoutSite):
     def __init__(self, d_model: int, d_ff: int, dropout_rate: float = 0.1, mask_cfg: Optional[MaskConfig] = None,
                  device=None, dtype=None):
         super().__init__()
@@ -89,10 +106,10 @@ class PositionwiseFeedForward(nn.Module):
         self.w_2 = MaskedLinear(d_ff, d_model, mask_cfg=mask_cfg, device=device, dtype=dtype)
 
     def forward(self, x, rng=None):
-        return self.w_2(dropout(torch.relu(self.w_1(x, rng)), self.dropout_rate, rng), rng)
+        return self.w_2(dropout(torch.relu(self.w_1(x, rng)), self.dropout_rate, rng, self.site), rng)
 
 
-class SublayerConnection(nn.Module):
+class SublayerConnection(nn.Module, DropoutSite):
     """Pre-norm residual wrapper: holds the sublayer's norm and its dropout
     rate; ``prenorm_stack`` runs it."""
 
@@ -115,7 +132,7 @@ def prenorm_stack(x, steps: Sequence[Step], final_norm: RefLayerNorm, rng=None):
     for i, (sub, fn) in enumerate(steps):
         y = fn(n)
         nxt = steps[i + 1][0].norm if i + 1 < len(steps) else final_norm
-        keep = keep_mask(y.shape, sub.dropout_rate, rng, y.device)
+        keep = keep_mask(y.shape, sub.dropout_rate, rng, y.device, sub.site)
         x, n = add_ref_layernorm(x, y, nxt.weight, nxt.bias, keep, 1.0 - sub.dropout_rate, eps=nxt.eps)
     return n
 
@@ -137,7 +154,7 @@ def _check_share_att(share_att) -> None:
         raise NotImplementedError("share_att (ACORT) lands in a later slice")
 
 
-class MultiHeadAttention(nn.Module):
+class MultiHeadAttention(nn.Module, DropoutSite):
     """MHA with cached-decode methods (unshared q/k/v/out projections)."""
 
     def __init__(self, num_heads: int, d_model: int, dropout_rate: float = 0.1, share_att: Optional[str] = None,
@@ -150,13 +167,16 @@ class MultiHeadAttention(nn.Module):
         for name in ("q_proj", "k_proj", "v_proj", "out_proj"):
             setattr(self, name, MaskedLinear(d_model, d_model, mask_cfg=mask_cfg, device=device, dtype=dtype))
 
-    def forward(self, query, key, value, mask=None, rng=None):
+    def forward(self, query, key, value, mask=None, rng=None, attn_dropout: bool = True):
         """Full-sequence attention (plain torch, with autograd in training).
-        mask: (B, 1, Tq, Tk) or (B, 1, 1, Tk); 0 = invalid."""
+        mask: (B, 1, Tq, Tk) or (B, 1, 1, Tk); 0 = invalid. ``attn_dropout=False``
+        skips the dropout on the probabilities (the SCST replay: the step
+        decode it reproduces applies none)."""
         h = self.num_heads
         q = _split_heads(self.q_proj(query, rng), h)
         k, v = self.project_memory_kv(key, value, rng)
-        keep = keep_mask((q.shape[0], h, q.shape[2], k.shape[2]), self.dropout_rate, rng, q.device)
+        keep = keep_mask((q.shape[0], h, q.shape[2], k.shape[2]), self.dropout_rate, rng if attn_dropout else None,
+                         q.device, self.site)
         out = scaled_dot_attention(q, k, v, mask=mask, keep=keep, keep_prob=1.0 - self.dropout_rate)
         return self.out_proj(_merge_heads(out), rng)
 
@@ -176,13 +196,17 @@ class MultiHeadAttention(nn.Module):
         return self.out_proj(out.reshape(n, 1, -1))
 
     def _fused_qkv(self):
-        """The concatenated q/k/v weight (3D, D) and bias (3D,). Built once and
-        rebuilt only when a projection's tensors change (a load, a mask fold
-        and a dtype or device move all give a new storage or version)."""
-        params = [p for m in (self.q_proj, self.k_proj, self.v_proj) for p in (m.weight, m.bias)]
-        key = tuple((p.data_ptr(), p._version) for p in params)
+        """The concatenated effective q/k/v weight (3D, D) (a kept mask
+        applied) and bias (3D,). Built once and rebuilt only when a
+        projection's tensors change (a load, a mask fold, an optimizer
+        update and a dtype or device move all give a new storage or
+        version)."""
+        projs = (self.q_proj, self.k_proj, self.v_proj)
+        tensors = [p for m in projs for p in (m.weight, m.bias, m.mask) if p is not None]
+        key = tuple((p.data_ptr(), p._version) for p in tensors)
         if getattr(self, "_qkv_key", None) != key:
-            self._qkv = (torch.cat(params[0::2]).detach(), torch.cat(params[1::2]).detach())
+            with torch.no_grad():
+                self._qkv = (torch.cat([m.effective_weight() for m in projs]), torch.cat([m.bias for m in projs]))
             self._qkv_key = key
         return self._qkv
 
@@ -206,7 +230,7 @@ class MultiHeadAttention(nn.Module):
         return self.out_proj(out.reshape(x_t.shape[0], 1, -1))
 
 
-class BoxMultiHeadAttention(nn.Module):
+class BoxMultiHeadAttention(nn.Module, DropoutSite):
     """Geometry-biased self-attention of the ORT encoder: ``softmax(log(clamp(
     relu(wg . geo), 1e-6)) + fill(qk / sqrt(d)))`` with one (64 -> h) ``wg``
     projection (the trigonometric geometry; the 4-wide raw one is not
@@ -236,7 +260,7 @@ class BoxMultiHeadAttention(nn.Module):
             out = box_attention(q, k, v, boxes, wg_w, self.wg.bias, mask)
         else:
             b, r = x.shape[0], x.shape[1]
-            keep = keep_mask((b, h, r, r), self.dropout_rate, rng, x.device)
+            keep = keep_mask((b, h, r, r), self.dropout_rate, rng, x.device, self.site)
             out = box_attention_train(q, k, v, boxes, wg_w, self.wg.bias, mask, keep, 1.0 - self.dropout_rate)
         return self.out_proj(_merge_heads(out), rng)
 

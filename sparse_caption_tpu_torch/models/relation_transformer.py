@@ -61,8 +61,8 @@ class RelationTransformer(Transformer):
         if boxes is None:
             raise ValueError("relation_transformer requires boxes")
         rng = train_rng(train, rng)
-        with torch.set_grad_enabled(train):
-            x = dropout(torch.relu(self.att_embed(att_feats, rng)), self.drop_prob_src, rng)
+        with torch.set_grad_enabled(train and torch.is_grad_enabled()):
+            x = dropout(torch.relu(self.att_embed(att_feats, rng)), self.drop_prob_src, rng, self.site)
             mask = (att_masks != 0).contiguous()
             boxes = boxes.float().contiguous()
             steps = [s for i in self.box_enc_plan for s in self.box_encoder_layers[i].steps(boxes, mask, rng)]

@@ -2,13 +2,17 @@
 
 Pre-norm encoder-decoder with RefLayerNorm, sinusoidal PE and a log-softmax
 generator. ``forward``/``encode`` run in eval (no gradients) or, with
-``train=True`` and a ``TrainRandom``, in train mode with gradients: dropout,
-fresh supermask samples, f32 log-softmax. The decode path (eval only) keeps
-explicit static-shape caches: self K/V at ``B * rows_per_image`` rows written
-in place at slot ``t``, projected cross K/V at ``B`` rows (one per image,
-shared by its beams), and, for beam search, a ``(B, K, T_max)`` ancestor map
-so beams reorder without touching the K/V cache. ``share_att_*`` /
-``share_layer_*`` (ACORT) raise until their slice.
+``train=True`` and a random source (``ops.rng``), in train mode: dropout,
+fresh supermask samples, f32 log-softmax, with gradients unless the caller
+disabled them (the SCST sampling phase runs under ``torch.no_grad``). The
+decode path keeps explicit static-shape caches: self K/V at
+``B * rows_per_image`` rows written in place at slot ``t``, projected cross
+K/V at ``B`` rows (one per image, shared by its beams or samples), and, for
+beam search, a ``(B, K, T_max)`` ancestor map so beams reorder without
+touching the K/V cache. A train-mode decode step draws its dropout from a
+``KeyedStream`` at ``t``; ``decode_teacher_forced(train=True)`` replays every
+step's draws in one pass. ``share_att_*`` / ``share_layer_*`` (ACORT) raise
+until their slice.
 """
 
 from __future__ import annotations
@@ -18,9 +22,10 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 import torch
 from torch import nn
 
-from sparse_caption_tpu_torch import check_eval, resolve_device
+from sparse_caption_tpu_torch import resolve_device
 from sparse_caption_tpu_torch.models import register_model
 from sparse_caption_tpu_torch.models.layers import (
+    DropoutSite,
     Generator,
     InputEmbedding,
     MultiHeadAttention,
@@ -29,6 +34,7 @@ from sparse_caption_tpu_torch.models.layers import (
     RefLayerNorm,
     Step,
     SublayerConnection,
+    assign_dropout_sites,
     prenorm_stack,
 )
 from sparse_caption_tpu_torch.ops.masked import MaskConfig, MaskedEmbedding, MaskedLinear
@@ -81,20 +87,21 @@ class DecoderLayer(nn.Module):
         self.sub1 = SublayerConnection(d_model, dropout_rate, **factory)
         self.sub2 = SublayerConnection(d_model, dropout_rate, **factory)
 
-    def steps(self, memory, src_mask, tgt_mask, rng=None) -> List[Step]:
+    def steps(self, memory, src_mask, tgt_mask, rng=None, attn_dropout: bool = True) -> List[Step]:
         """Full-sequence (teacher-forced) sublayers for ``prenorm_stack``."""
-        return [(self.sub0, lambda y: self.self_attn(y, y, y, tgt_mask, rng)),
-                (self.sub1, lambda y: self.src_attn(y, memory, memory, src_mask, rng)),
+        return [(self.sub0, lambda y: self.self_attn(y, y, y, tgt_mask, rng, attn_dropout)),
+                (self.sub1, lambda y: self.src_attn(y, memory, memory, src_mask, rng, attn_dropout)),
                 (self.sub2, lambda y: self.feed_forward(y, rng))]
 
-    def decode_steps(self, layer_cache: Dict, cross: Dict, t: int, mem_mask, ancestry=None) -> List[Step]:
+    def decode_steps(self, layer_cache: Dict, cross: Dict, t: int, mem_mask, ancestry=None, rng=None) -> List[Step]:
         """One decode step's sublayers. layer_cache: {self_k, self_v} (written
-        in place at slot t); cross: {cross_k, cross_v}; mem_mask: (B, S) bool."""
+        in place at slot t); cross: {cross_k, cross_v}; mem_mask: (B, S) bool;
+        rng: the train-mode step stream (no attention-prob dropout here)."""
         return [(self.sub0, lambda y: self.self_attn.decode_self(
                     y, layer_cache["self_k"], layer_cache["self_v"], t, ancestry)),
                 (self.sub1, lambda y: self.src_attn.decode_cross(
                     y, cross["cross_k"], cross.get("cross_v"), mem_mask)),
-                (self.sub2, self.feed_forward)]
+                (self.sub2, lambda y: self.feed_forward(y, rng))]
 
 
 def subsequent_mask(t: int, device=None):
@@ -115,7 +122,7 @@ def repeat_to_batch(memory, mem_mask, n_tgt: int):
 
 @register_model("transformer")
 @register_model("transformer_prune")
-class Transformer(nn.Module):
+class Transformer(nn.Module, DropoutSite):
     """Caption transformer. Parameters are created on ``device`` (default
     ``"cuda"``; raises without CUDA) in ``dtype`` and initialised like the JAX
     package (xavier-uniform matrices, zero biases, unit norms) from
@@ -150,6 +157,7 @@ class Transformer(nn.Module):
         self.generator = Generator(d_model, vocab_size, mask_cfg, **factory)
         self._build_encoder(att_feat_size, dim_feedforward, share_att_encoder, factory)
         self.reset_parameters(generator)
+        assign_dropout_sites(self)
         self.eval()
 
     def _build_encoder(self, att_feat_size, dim_feedforward, share_att, factory):
@@ -173,19 +181,26 @@ class Transformer(nn.Module):
     def encode(self, att_feats, att_masks, boxes=None, train: bool = False, rng=None) -> Dict[str, Any]:
         """att_feats: (B, S, F); att_masks: (B, S), 0 = padded. Returns the memory dict."""
         rng = train_rng(train, rng)
-        with torch.set_grad_enabled(train):
-            x = dropout(torch.relu(self.src_proj(att_feats, rng)), self.drop_prob_src, rng)
+        with torch.set_grad_enabled(train and torch.is_grad_enabled()):
+            x = dropout(torch.relu(self.src_proj(att_feats, rng)), self.drop_prob_src, rng, self.site)
             src_mask = (att_masks != 0)[:, None, None, :]
             steps = [s for i in self.enc_plan for s in self.encoder_layers[i].steps(src_mask, rng)]
             return {"memory": prenorm_stack(x, steps, self.encoder_norm, rng), "mask": att_masks}
 
     # ----------------------------------------------------- XE teacher force
-    def _decode_full(self, tgt, memory, mem_mask, rng=None):
+    def _decode_full(self, tgt, memory, mem_mask, rng=None, replay: bool = False):
+        """Decoder output (N, T, D). ``replay`` reproduces a train-mode
+        decode: a causal-only key mask (the step decode attends every written
+        slot <= t, pad or not), no attention-prob dropout, and ``rng`` a
+        ``KeyedStream`` drawing every step's dropout at once."""
         t = tgt.shape[1]
-        tgt_mask = (tgt != self.pad_id)[:, None, None, :] & subsequent_mask(t, tgt.device)
+        tgt_mask = subsequent_mask(t, tgt.device)
+        if not replay:
+            tgt_mask = (tgt != self.pad_id)[:, None, None, :] & tgt_mask
         src_mask = (mem_mask != 0)[:, None, None, :]
         x = self.pos_enc(self.tgt_embed(tgt, rng), rng=rng)
-        steps = [s for i in self.dec_plan for s in self.decoder_layers[i].steps(memory, src_mask, tgt_mask, rng)]
+        steps = [s for i in self.dec_plan
+                 for s in self.decoder_layers[i].steps(memory, src_mask, tgt_mask, rng, attn_dropout=not replay)]
         return prenorm_stack(x, steps, self.decoder_norm, rng)
 
     def forward(self, att_feats, att_masks, seqs, boxes=None, train: bool = False, rng=None):
@@ -198,14 +213,29 @@ class Transformer(nn.Module):
             memory, mem_mask = repeat_to_batch(enc["memory"], enc["mask"], tgt.shape[0])
             return self.generator(self._decode_full(tgt, memory, mem_mask, rng), rng)
 
+    # --------------------------------------------- SCST teacher-forced replay
+    def decode_teacher_forced(self, memory_pytree: Dict[str, Any], seqs, train: bool = False, rng=None):
+        """Log-probs (N, T-1, V) of ``seqs[:, 1:]`` given an encoded memory
+        (N a multiple of its batch: memory rows repeat per sample). With
+        ``train=True`` and the ``KeyedStream`` of a train-mode decode, the
+        result equals that decode's per-step log-probs at every position up
+        to its EOS (the replay of ``TimeDropout``); gradients flow unless the
+        caller disabled them."""
+        rng = train_rng(train, rng)
+        with torch.set_grad_enabled(train and torch.is_grad_enabled()):
+            tgt = seqs[:, :-1]
+            memory, mem_mask = repeat_to_batch(memory_pytree["memory"], memory_pytree["mask"], tgt.shape[0])
+            return self.generator(self._decode_full(tgt, memory, mem_mask, rng, replay=train), rng)
+
     # ------------------------------------------------------------- decode
     @torch.no_grad()
     def init_cache(self, memory_pytree: Dict[str, Any], max_steps: Optional[int] = None, rows_per_image: int = 1,
-                   beam_ancestry: bool = False, train: bool = False) -> Dict[str, Any]:
+                   beam_ancestry: bool = False, train: bool = False, rng=None) -> Dict[str, Any]:
         """Static-shape decode cache: self K/V zeros at ``B * rows_per_image``
-        rows, projected cross K/V at B rows, and with ``beam_ancestry`` an
-        identity ancestor map (B, rows_per_image, T_max) int32."""
-        check_eval(train)
+        rows, projected cross K/V at B rows (``train``: under the train
+        policy's masks, ``rng`` its random source), and with ``beam_ancestry``
+        an identity ancestor map (B, rows_per_image, T_max) int32."""
+        rng = train_rng(train, rng)
         memory = memory_pytree["memory"]
         b = memory.shape[0]
         rows = b * int(rows_per_image)
@@ -213,7 +243,7 @@ class Transformer(nn.Module):
         dk = self.d_model // self.num_heads
         layers, cross = [], []
         for i in self.dec_plan:
-            ck, cv = self.decoder_layers[i].src_attn.project_memory_kv(memory)
+            ck, cv = self.decoder_layers[i].src_attn.project_memory_kv(memory, rng=rng)
             zeros = lambda: torch.zeros((rows, self.num_heads, t_max, dk), dtype=ck.dtype, device=ck.device)  # noqa: E731
             layers.append({"self_k": zeros(), "self_v": zeros()})
             cross.append({"cross_k": ck, "cross_v": cv})
@@ -225,28 +255,34 @@ class Transformer(nn.Module):
 
     @torch.no_grad()
     def decode_step_logits(self, it, cache: Dict[str, Any], t: int, memory_pytree: Dict[str, Any],
-                           train: bool = False):
-        """it: (N,) current tokens; t: step index. Returns (logits (N, V), cache).
+                           train: bool = False, rng=None):
+        """it: (N,) current tokens; t: step index. Returns (logits (N, V), cache);
+        in train mode (``rng`` the decode's ``KeyedStream``) dropout draws at t
+        and the logits are f32.
 
         The self K/V caches are written in place; the returned cache holds the
         ancestor map with slot t set to identity (each row wrote slot t itself)."""
-        check_eval(train)
+        rng = train_rng(train, rng)
+        rng = None if rng is None else rng.at(t)
         mem_mask = memory_pytree["mask"] != 0
-        x = self.pos_enc(self.tgt_embed(it[:, None]), t=t)  # (N, 1, D)
+        x = self.pos_enc(self.tgt_embed(it[:, None], rng), t=t, rng=rng)  # (N, 1, D)
         ancestry = cache.get("ancestry")
         if ancestry is not None:
             ancestry = ancestry.clone()
             ancestry[:, :, t] = torch.arange(ancestry.shape[1], dtype=ancestry.dtype, device=ancestry.device)
         steps = [s for j, i in enumerate(self.dec_plan) for s in self.decoder_layers[i].decode_steps(
-            cache["layers"][j], cache["static"]["cross"][j], t, mem_mask, ancestry)]
-        logits = self.generator.logits(prenorm_stack(x, steps, self.decoder_norm)[:, 0])
+            cache["layers"][j], cache["static"]["cross"][j], t, mem_mask, ancestry, rng)]
+        logits = self.generator.logits(prenorm_stack(x, steps, self.decoder_norm, rng)[:, 0], rng)
+        if train:
+            logits = logits.float()
         new_cache = {"layers": cache["layers"], "static": cache["static"]}
         if ancestry is not None:
             new_cache["ancestry"] = ancestry
         return logits, new_cache
 
     @torch.no_grad()
-    def decode_step(self, it, cache: Dict[str, Any], t: int, memory_pytree: Dict[str, Any], train: bool = False):
+    def decode_step(self, it, cache: Dict[str, Any], t: int, memory_pytree: Dict[str, Any], train: bool = False,
+                    rng=None):
         """it: (N,) current tokens; t: step index. Returns (log-probs (N, V), cache)."""
-        logits, cache = self.decode_step_logits(it, cache, t, memory_pytree, train)
+        logits, cache = self.decode_step_logits(it, cache, t, memory_pytree, train, rng)
         return torch.log_softmax(logits, dim=-1), cache

@@ -97,19 +97,30 @@ class _Prunable(nn.Module):
 
     def effective_weight(self, rng=None) -> torch.Tensor:
         """The weight times the mask's sample (kernel K5), or the (folded)
-        weight itself. ``rng``: a ``TrainRandom`` in training, None in eval."""
+        weight itself. ``rng``: a ``TrainRandom`` or ``KeyedStream`` in
+        training, None in eval.
+
+        A deterministic sample (every mask type but a training supermask)
+        computed without autograd is kept and reused until the weight or the
+        mask changes (new storage or version): a decode then runs K5 once
+        per tensor, not once per step."""
         cfg = self.mask_cfg
         if self.mask is None:
             if rng is not None and cfg is not None:
                 raise ValueError("this layer's mask was folded at load; build the model with "
                                  "MaskConfig(keep_masks=True) to train it")
             return self.weight
-        if not cfg.is_supermask:
-            return supermask_weight(self.weight, self.mask, None, "multiply")
-        if rng is None:
-            return supermask_weight(self.weight, self.mask, None, "round", cfg.bypass_sigmoid_grad)
-        u = rng.mask_uniform(self, self.weight.shape, self.weight.device)
-        return supermask_weight(self.weight, self.mask, u, "sample", cfg.bypass_sigmoid_grad)
+        if cfg.is_supermask and rng is not None:
+            u = rng.mask_uniform(self, self.weight.shape, self.weight.device)
+            return supermask_weight(self.weight, self.mask, u, "sample", cfg.bypass_sigmoid_grad)
+        mode = "round" if cfg.is_supermask else "multiply"
+        if torch.is_grad_enabled():
+            return supermask_weight(self.weight, self.mask, None, mode, cfg.bypass_sigmoid_grad)
+        key = (self.weight.data_ptr(), self.weight._version, self.mask.data_ptr(), self.mask._version)
+        if getattr(self, "_w_eff_key", None) != key:
+            self._w_eff = supermask_weight(self.weight, self.mask, None, mode, cfg.bypass_sigmoid_grad)
+            self._w_eff_key = key
+        return self._w_eff
 
 
 class MaskedLinear(_Prunable):

@@ -1,20 +1,40 @@
 """Random draws of a training forward (the JAX package's ``"mask"`` and
 ``"dropout"`` rng streams).
 
-A ``TrainRandom`` is handed to a train-mode forward; ``None`` in its place
-means eval. Both streams draw from one ``torch.Generator``:
+Two random sources can be handed to a train-mode forward; ``None`` in their
+place means eval.
 
-* ``mask_uniform``: the uniforms ``u`` of a supermask sample ``[u < sigmoid(m)]``
-  (one tensor per masked layer per forward, in the layer's call order)
-* ``keep_mask``: a dropout keep-mask ``u < keep_prob``
-
-Tests subclass it to replay the JAX side's uniforms in the same call order.
+* ``TrainRandom`` (the XE step): every draw comes from one ``torch.Generator``
+  in call order: ``mask_uniform`` gives the uniforms ``u`` of a supermask
+  sample ``[u < sigmoid(m)]``, ``keep_mask`` a dropout keep-mask
+  ``u < keep_prob``. Tests subclass it to replay the JAX side's uniforms.
+* ``KeyedStream`` (SCST): a counter-based stream, so a draw does not depend
+  on call order or device. A dropout site's keep-mask is a pure function of
+  (key, site, t, row, column): Philox4x32-10 (kernel K8) keyed by the
+  64-bit key, counter (site, t, row, column // 4). A tensor of shape
+  ``(N, *mid, D)`` is read as (N, T, D) with T = prod(mid): row n, position
+  j draws at t = j (the replay of ``TimeDropout``, ``models/layers.py:31-68``
+  of the JAX package); a step view ``stream.at(t)`` draws a (N, 1, D)
+  tensor at step t. Both give the same bits for the same (site, t, row,
+  column), which is what makes the SCST teacher-forced replay equal the
+  sampling decode. Sites are 32-bit ids from the module's qualified name
+  (``site_id``). Its dropout scales kept values by ``1 / keep_prob``
+  rounded to f32 (kernel K8). Supermask draws are not keyed:
+  ``mask_uniform`` raises.
 """
 
 from __future__ import annotations
 
+import math
+import zlib
+from typing import NamedTuple, Optional
+
 import torch
 from torch import nn
+
+from sparse_caption_tpu_torch.kernels.keyed_dropout import keyed_dropout, keyed_keep_mask
+
+M64 = (1 << 64) - 1
 
 
 class TrainRandom:
@@ -29,21 +49,97 @@ class TrainRandom:
         """f32 uniforms in [0, 1) for ``layer``'s mask (the weight's layout)."""
         return self._uniform(shape, device)
 
-    def keep_mask(self, shape, keep_prob: float, device) -> torch.Tensor:
+    def keep_mask(self, shape, keep_prob: float, device, site: Optional[int] = None) -> torch.Tensor:
         return self._uniform(shape, device) < keep_prob
 
+    def dropout(self, x: torch.Tensor, keep_prob: float, site: Optional[int] = None) -> torch.Tensor:
+        keep = self.keep_mask(x.shape, keep_prob, x.device, site)
+        return torch.where(keep, x / keep_prob, torch.zeros_like(x))
 
-def dropout(x: torch.Tensor, rate: float, rng) -> torch.Tensor:
-    """Standard-mode dropout (``TimeDropout`` with ``t=None``): ``x / keep`` where
-    kept, 0 elsewhere; the identity in eval (``rng=None``) or at rate 0."""
+
+def site_id(name: str) -> int:
+    """The 32-bit id of a dropout site, from its qualified module name."""
+    return zlib.crc32(name.encode())
+
+
+def splitmix64(x: int) -> int:
+    x = (x + 0x9E3779B97F4A7C15) & M64
+    x = ((x ^ (x >> 30)) * 0xBF58476D1CE4E5B9) & M64
+    x = ((x ^ (x >> 27)) * 0x94D049BB133111EB) & M64
+    return x ^ (x >> 31)
+
+
+def derive_key(seed: int, *tags: int) -> int:
+    """A 64-bit key from a seed and integer tags (splitmix64 chain)."""
+    k = splitmix64(seed & M64)
+    for tag in tags:
+        k = splitmix64(k ^ (tag & M64))
+    return k
+
+
+class KeyedStream:
+    def __init__(self, key: int, t: Optional[int] = None):
+        self.key = int(key) & M64
+        self.t = t
+
+    def at(self, t: int) -> "KeyedStream":
+        """The step view at decode step ``t``."""
+        return KeyedStream(self.key, int(t))
+
+    def _layout(self, shape):
+        n, d = int(shape[0]), int(shape[-1])
+        tl = math.prod(int(s) for s in shape[1:-1])
+        if self.t is not None and tl != 1:
+            raise ValueError(f"a step view draws (N, 1, D); got shape {tuple(shape)}")
+        return n, tl, d, 0 if self.t is None else self.t
+
+    @staticmethod
+    def _site(site: Optional[int]) -> int:
+        if site is None:
+            raise ValueError("a keyed draw needs its dropout site id")
+        return int(site)
+
+    def keep_mask(self, shape, keep_prob: float, device, site: Optional[int] = None) -> torch.Tensor:
+        n, tl, d, t0 = self._layout(shape)
+        keep = keyed_keep_mask(self.key, self._site(site), t0, n, tl, d, keep_prob, device)
+        return keep.reshape(tuple(shape))
+
+    def dropout(self, x: torch.Tensor, keep_prob: float, site: Optional[int] = None) -> torch.Tensor:
+        n, tl, d, t0 = self._layout(x.shape)
+        out = keyed_dropout(x.reshape(n, tl, d).contiguous(), self.key, self._site(site), t0, keep_prob)
+        return out.reshape(x.shape)
+
+    def mask_uniform(self, layer: nn.Module, shape, device) -> torch.Tensor:
+        raise NotImplementedError("supermask SCST (per-step Bernoulli draws through the differentiable "
+                                  "scan) lands in a later slice")
+
+
+class DecodeKeys(NamedTuple):
+    sample: int  # Gumbel noise of the sampling step (kernel K9), under SAMPLE_SITE
+    dropout: int  # the decoder's keyed dropout (step mode in the decode, replay in the gradient pass)
+    cache: int  # the cross K/V projection of ``init_cache(train=True)``
+
+
+SAMPLE_SITE = site_id("sample")
+
+
+def decode_train_keys(seed: int) -> DecodeKeys:
+    """The streams of a train-mode decode, derived from one seed (the JAX
+    package's ``decoding/api.py decode_train_keys``). The SCST gradient pass
+    derives the same dropout key to replay the decode."""
+    return DecodeKeys(derive_key(seed, 1), derive_key(seed, 2), derive_key(seed, 3))
+
+
+def dropout(x: torch.Tensor, rate: float, rng, site: Optional[int] = None) -> torch.Tensor:
+    """Dropout: ``x / keep`` where kept, 0 elsewhere; the identity in eval
+    (``rng=None``) or at rate 0. ``site`` keys a ``KeyedStream``'s draw."""
     if rng is None or rate == 0.0:
         return x
-    keep = rng.keep_mask(x.shape, 1.0 - rate, x.device)
-    return torch.where(keep, x / (1.0 - rate), torch.zeros_like(x))
+    return rng.dropout(x, 1.0 - rate, site)
 
 
-def keep_mask(shape, rate: float, rng, device):
+def keep_mask(shape, rate: float, rng, device, site: Optional[int] = None):
     """The keep-mask a fused kernel applies itself, or None (eval, rate 0)."""
     if rng is None or rate == 0.0:
         return None
-    return rng.keep_mask(shape, 1.0 - rate, device)
+    return rng.keep_mask(shape, 1.0 - rate, device, site)

@@ -11,6 +11,9 @@ from sparse_caption_tpu.decoding import generate as jax_generate
 from sparse_caption_tpu.models.relation_transformer import RelationTransformer as JaxORT
 from sparse_caption_tpu_torch.decoding import beam_search, generate
 from sparse_caption_tpu_torch.kernels import launch_counts
+from sparse_caption_tpu_torch.models import get_model
+from sparse_caption_tpu_torch.ops.masked import MaskConfig
+from sparse_caption_tpu_torch.utils.convert_jax import load_jax_variables
 
 OPTS = {
     "plain": {},
@@ -63,7 +66,8 @@ def test_beam_search_reorders_only_the_ancestry():
 
 
 @pytest.mark.parametrize("opt", [
-    {"beam_size": 1}, {"beam_size": 0, "num_random_sample": 2}, {"beam_size": 4, "group_size": 2},
+    {"beam_size": 0, "num_random_sample": 2, "sample_method": "top3"},
+    {"beam_size": 0, "num_random_sample": 2, "sample_method": "gumbel"}, {"beam_size": 4, "group_size": 2},
     {"beam_size": 3, "decode_train": True}])
 def test_unported_decode_modes_raise(opt):
     port = port_model("relation_transformer", jax_variables(JaxORT(**KW), make_inputs()))
@@ -71,3 +75,27 @@ def test_unported_decode_modes_raise(opt):
     with pytest.raises(NotImplementedError, match="later slice"):
         generate(port, port.encode(t(att), t(amask), t(boxes)), opt)
 
+
+def test_beam5_generate_with_kept_masks_matches_jax():
+    """A supermask model built with ``keep_masks=True`` (masks as parameters,
+    logits of mixed sign) decodes like the JAX package and like the same
+    weights with the masks folded: the decode's fused q/k/v projection must
+    apply the kept mask (it used the raw weights once)."""
+    inputs = make_inputs(seed=5)
+    att, amask, boxes, _ = inputs
+    jm = JaxORT(**KW, mask_cfg=jax_mask_cfg("supermask"))
+    variables = jax_variables(jm, inputs, mask_seed=13)
+    opt = {"beam_size": 5, "max_seq_length": KW["max_seq_length"]}
+    memory = jm.apply(variables, jnp.asarray(att), jnp.asarray(amask), jnp.asarray(boxes), method="encode")
+    ref_seq, ref_lp = (np.asarray(x) for x in jax_generate(jm, variables, memory, opt))
+
+    kept = get_model("relation_transformer_prune")(**KW, mask_cfg=MaskConfig("supermask", 5.0, keep_masks=True),
+                                                   device="cpu")
+    load_jax_variables(kept, variables)
+    assert kept.decoder_layers[0].self_attn.q_proj.mask is not None
+    seq, lp = generate(kept, kept.encode(t(att), t(amask), t(boxes)), opt)
+    np.testing.assert_array_equal(seq.numpy(), ref_seq)
+    np.testing.assert_allclose(lp.numpy(), ref_lp, rtol=1e-4, atol=1e-4)
+    folded = port_model("relation_transformer", variables, port_mask_cfg("supermask"))
+    seq_f, _ = generate(folded, folded.encode(t(att), t(amask), t(boxes)), opt)
+    np.testing.assert_array_equal(seq.numpy(), seq_f.numpy())

@@ -272,7 +272,8 @@ def test_k4_wrapper_checks_inputs():
 def test_kernel_table_names_sources():
     assert set(KERNELS) == {"box_attention", "box_attention_train", "ancestry_self_attention",
                             "grouped_cross_attention", "beam_topk", "supermask", "supermask_bwd", "add_ref_layernorm",
-                            "add_ref_layernorm_bwd", "box_attention_bwd"}
+                            "add_ref_layernorm_bwd", "box_attention_bwd", "keyed_keep_mask", "keyed_dropout",
+                            "sample_step", "cider_reward"}
     from sparse_caption_tpu_torch.kernels._build import CSRC, SOURCES
 
     assert {k.library_name for k in KERNELS.values()} == set(SOURCES)

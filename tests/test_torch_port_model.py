@@ -106,7 +106,7 @@ def test_layer_plan_registry_and_unported_options():
             cls(**KW, **kw, device="cpu")
     port = cls(**KW, device="cpu")
     a, m, s, b = _port_args(make_inputs())
-    with pytest.raises(NotImplementedError, match="later slice"):  # train-mode decoding comes with SCST
+    with pytest.raises(ValueError, match="rng"):  # a train-mode decode needs its random source
         port.init_cache(port.encode(a, m, b), 6, train=True)
     with pytest.raises(ValueError, match="rng"):
         port.encode(a, m, b, train=True)
