@@ -2,13 +2,15 @@
 """Smoke run of the PyTorch/CUDA port (``sparse_caption_tpu_torch``) on one GPU.
 
 Phases:
-1. set-up: card name and power limit, versions, build of the ten kernel libraries
-   (``kernels/csrc/*.cu``, nvcc for sm_90a, one process per source);
+1. set-up: card name and power limit, versions, build of the thirteen kernel
+   libraries (``kernels/csrc/*.cu``, nvcc for sm_90a, one process per source);
 2. kernel checks: each kernel against its plain PyTorch version at the
    shapes of its path (beam-5 serving: B = 2048 images, 36 regions, 8 heads
    of 64, vocab 10000, 17 steps; XE step: the 105 masked tensors, 256 x 5
-   captions), in f32 and bf16, forward and backward, each with a planted
-   fault, and the times of kernel, plain version and one PyTorch library call;
+   captions; Up-Down's K11-K13: 1024 x 5 beams, 1000 units, 512 attention
+   units, 36 regions, and 256 x 5 x 17 rows of 10000 logits), in f32 and bf16,
+   forward and backward, each with a planted fault, and the times of kernel,
+   plain version and one PyTorch library call;
 3. serving path: a paper-width ``relation_transformer_prune`` (random
    weights and supermask logits from a seed, masks folded), ``encode`` +
    beam-5 ``generate`` in bf16 at batch 50 and 2048 with the kernels' launch
@@ -30,7 +32,16 @@ Phases:
    one step at 64 x 15; the replay's log-probs against the sampling
    decode's at 5 x 15; and one step at 2 x 3 with dropout on, on the card
    and on the CPU from the same seed, the card's tokens feeding both
-   replays (rewards, loss, gradients, differing sampled tokens).
+   replays (rewards, loss, gradients, differing sampled tokens);
+6. Up-Down path: a paper-width ``up_down_lstm_prune`` (rnn 1000, att_hid
+   512, 2048-wide fc and region features): beam-5 serving in bf16 at batch
+   50 and 1024 (masks folded) with the launch counts asserted and a profile
+   at 1024, the f32 batch-8 card-vs-CPU check; the supermask XE step (the
+   paper's Up-Down family: cosine LR 0.01, Adam eps 0.01, dropout 0.1,
+   target 0.991, weight 120; fresh mask samples on every call, 3 + 8 per
+   step) at 15 x 5 in f32 and bf16 and 256 x 5 in bf16 with the launch
+   counts asserted and a profile at 256 x 5, and the card-vs-CPU f32 step at
+   2 x 5 without dropout.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it is
 the card's name and power limit, and before that one JSON line with every
@@ -87,6 +98,9 @@ REPLACES = {
     "keyed_dropout": "sparse_caption_tpu/models/layers.py:31",
     "sample_step": "sparse_caption_tpu/decoding/sample.py:134",
     "cider_reward": "sparse_caption_tpu/scst/device_reward.py:282",
+    "lstm_cell": "sparse_caption_tpu/models/up_down.py:47",
+    "additive_attention": "sparse_caption_tpu/models/up_down.py:67",
+    "vocab_log_softmax": "sparse_caption_tpu/models/up_down.py:124",
 }
 # the supermask XE train step (bench.py:230-292): 15 images x 5 captions of 18
 # tokens, and the throughput point at 256 images; supermask logits start at 5.0
@@ -119,6 +133,18 @@ SCST_CHECK_BATCH, SCST_CHECK_SAMPLES = 2, 3
 # card-vs-CPU step: rewards relative (plus the kernel's absolute floor), loss
 # absolute, gradients norm-wise as the XE step's
 REPLAY_LP_TOL, REWARD_RTOL, REWARD_ATOL, SCST_LOSS_TOL = 1e-4, 1e-5, 1e-6, 1e-5
+# Up-Down at paper width (sparse_caption_tpu/models/up_down.py:22, bench.py:620-710):
+# rnn 1000, input encoding 1000, att_hid 512, fc and att features 2048, 36
+# regions, vocab 10000, 17 steps; beam-5 serving at batch 50 and 1024
+UPDOWN = dict(vocab_size=10000, rnn_size=1000, input_encoding_size=1000, att_hid_size=512, fc_feat_size=2048,
+              att_feat_size=2048, max_seq_length=MAX_LEN)
+UPDOWN_BATCHES = (50, 1024)
+# the paper's Up-Down supermask family (resources/commands_pruning.sh:19,23-25,52-58,98-113):
+# cosine LR 0.01, Adam eps 0.01, drop_prob_lm 0.1, target 0.991, weight 120
+UPDOWN_CONFIG = dict(lr_scheduler="cosine", learning_rate=0.01, optim_epsilon=0.01, optim="adam", grad_clip=0.1,
+                     max_train_step=100000, prune_sparsity_target=0.991, prune_supermask_sparsity_weight=120,
+                     caption_model="up_down_lstm_prune", seed=SEED)
+UPDOWN_DROP = 0.1
 
 
 def log(msg: str) -> None:
@@ -165,7 +191,7 @@ def fault_caught(name, fault, ref, dtype, scale, sum_scale: float = 0.0) -> bool
     """A planted fault (`fault`: the plain version with one part of the
     function left out) must fail the tolerance the kernel is held to."""
     ratio = (fault.float() - ref.float()).abs() / allowed(ref, dtype, scale, sum_scale)
-    frac = (ratio > 1).float().mean().item()
+    frac = ((ratio > 1) | ~torch.isfinite(ratio)).float().mean().item()
     log(f"[fault] {name} {str(dtype).split('.')[-1]}: {frac:.3f} of elements outside the tolerance "
         f"(worst err/allowed {ratio.max().item():.1f}) {'caught' if frac > 0 else 'MISSED'}")
     return frac > 0
@@ -564,10 +590,10 @@ def caption(model, batch):
     return generate(model, memory, {"beam_size": BEAM, "max_seq_length": MAX_LEN})
 
 
-def run_main_path(model_bf16, gen, b, expected) -> dict:
+def run_main_path(model_bf16, gen, b, expected, make=make_batch, label="main") -> dict:
     from sparse_caption_tpu_torch.kernels import launch_counts, reset_launch_counts
 
-    batch = make_batch(gen, b, torch.bfloat16)
+    batch = make(gen, b, torch.bfloat16)
     seq, lp = caption(model_bf16, batch)  # warm-up
     torch.cuda.synchronize()
     reset_launch_counts()
@@ -577,7 +603,7 @@ def run_main_path(model_bf16, gen, b, expected) -> dict:
     assert counts == expected, f"launch counts {counts} != {expected}"
     assert seq.shape == (b, BEAM, MAX_LEN) and lp.shape == (b, BEAM, MAX_LEN)
     assert bool(torch.isfinite(lp).all()), "non-finite log-probs"
-    assert int(seq.min()) >= 0 and int(seq.max()) < PAPER["vocab_size"]
+    assert int(seq.min()) >= 0 and int(seq.max()) < model_bf16.vocab_size
     best = float("inf")
     for _ in range(3):
         torch.cuda.synchronize()
@@ -586,7 +612,7 @@ def run_main_path(model_bf16, gen, b, expected) -> dict:
         torch.cuda.synchronize()
         best = min(best, time.perf_counter() - t0)
     enc_ms = time_ms(lambda: model_bf16.encode(*batch), iters=3, warmup=1)
-    log(f"[main] bf16 batch {b}: {b / best:.1f} captions/s (best of 3: {best * 1e3:.1f} ms per encode+decode; "
+    log(f"[{label}] bf16 batch {b}: {b / best:.1f} captions/s (best of 3: {best * 1e3:.1f} ms per encode+decode; "
         f"encode alone {enc_ms:.1f} ms); launches {counts}")
     return counts
 
@@ -627,21 +653,26 @@ def profile_window(label: str, fn) -> None:
         f"busy {total_ms / wall_ms:.1%}, {sum(e.count for e in events)} kernel launches")
     for e in sorted(events, key=lambda e: -dev_us(e))[:15]:
         log(f"[profile]   {dev_us(e) / 1e3:9.2f} ms  x{e.count:<6d} {e.key[:90]}")
+    # the host's side of the same window: where the issuing thread spends its time
+    host = [e for e in prof.key_averages() if e.self_cpu_time_total > 0 and not e.key.startswith("ProfilerStep")]
+    log(f"[profile] {label}: host self time {sum(e.self_cpu_time_total for e in host) / 1e3:.1f} ms, top ops:")
+    for e in sorted(host, key=lambda e: -e.self_cpu_time_total)[:8]:
+        log(f"[profile]   host {e.self_cpu_time_total / 1e3:9.2f} ms  x{e.count:<6d} {e.key[:80]}")
 
 
-def whole_path_check(model_f32, gen) -> bool:
+def whole_path_check(model_f32, gen, make=make_batch, label="whole-path") -> bool:
     """f32 on the card (kernels) vs the CPU (plain versions) on the same weights."""
-    batch = make_batch(gen, CHECK_BATCH, torch.float32)
+    batch = make(gen, CHECK_BATCH, torch.float32)
     seq_gpu, lp_gpu = caption(model_f32, batch)
     model_cpu = copy.deepcopy(model_f32).to("cpu")
     seq_cpu, lp_cpu = caption(model_cpu, tuple(x.cpu() for x in batch))
     same = bool(torch.equal(seq_gpu.cpu(), seq_cpu))
     err = (lp_gpu.cpu() - lp_cpu).abs().max().item()
-    log(f"[whole-path] f32 batch {CHECK_BATCH}: tokens identical={same} seq log-prob max_abs_err={err:.3e} "
+    log(f"[{label}] f32 batch {CHECK_BATCH}: tokens identical={same} seq log-prob max_abs_err={err:.3e} "
         f"(tol {WHOLE_PATH_LP_TOL})")
     if not same:
         rows = (seq_gpu.cpu() != seq_cpu).any(-1).nonzero().tolist()
-        log(f"[whole-path] differing (image, beam) rows: {rows[:10]}")
+        log(f"[{label}] differing (image, beam) rows: {rows[:10]}")
     return same and err <= WHOLE_PATH_LP_TOL
 
 
@@ -666,26 +697,27 @@ def make_train_batch(gen, b, device="cuda"):
                 seq_masks=torch.ones(b * SEQ_PER_IMG, TRAIN_T, device=device))
 
 
-def make_train_step(model, precision: str):
+def make_train_step(model, precision: str, config=TRAIN_CONFIG):
     from sparse_caption_tpu_torch.engine.optim import build_mask_optimizer, build_weight_optimizer, make_schedule
     from sparse_caption_tpu_torch.engine.training import make_xe_step
     from sparse_caption_tpu_torch.ops.masked import split_params
 
-    config = dict(TRAIN_CONFIG, train_precision=precision)
+    config = dict(config, train_precision=precision)
     params, masks = split_params(model)
     opt_w = build_weight_optimizer(params.values(), config, make_schedule(config, steps_per_epoch=1000))
     opt_m = build_mask_optimizer(masks.values(), config, trainable=True)
     return make_xe_step(model, opt_w, opt_m, config)
 
 
-def run_train_phase(model, gen, b, precision, expected) -> dict:
+def run_train_phase(model, gen, b, precision, expected, config=TRAIN_CONFIG, make=make_train_batch,
+                    label="train") -> dict:
     """1 warm-up + TRAIN_STEPS XE steps: the first counted one checks the
     launch counts, then 3 timed windows of 3 steps (steps/s: best window)."""
     from sparse_caption_tpu_torch.engine.training import TrainState
     from sparse_caption_tpu_torch.kernels import launch_counts, reset_launch_counts
 
-    step = make_train_step(model, precision)
-    batch = make_train_batch(gen, b)
+    step = make_train_step(model, precision, config)
+    batch = make(gen, b)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     state, loss, aux = step(TrainState(), batch)  # warm-up
@@ -706,36 +738,39 @@ def run_train_phase(model, gen, b, precision, expected) -> dict:
         best = min(best, (time.perf_counter() - t0) / 3)
     last = float(loss)
     assert state.step == TRAIN_STEPS + 1 and all(map(math.isfinite, (first, last))), (state, first, last)
-    log(f"[train] {precision} batch {b}x{SEQ_PER_IMG}: {1 / best:.2f} steps/s ({best * 1e3:.1f} ms per step, best "
+    log(f"[{label}] {precision} batch {b}x{SEQ_PER_IMG}: {1 / best:.2f} steps/s ({best * 1e3:.1f} ms per step, best "
         f"window of 3); loss {first:.4f} -> {last:.4f} over {state.step} steps; mask sparsity "
         f"{float(aux['mask_sparsity']):.4f}; peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
         f"launches per step {counts}")
     return counts
 
 
-def whole_step_check(seed: int, gen) -> bool:
+def whole_step_check(seed: int, gen, build=None, make=make_train_batch, config=TRAIN_CONFIG,
+                     label="whole-step") -> bool:
     """One f32 XE step at 2 images x 5, dropout 0, the same mask uniforms, on
     the card (kernels) and on the CPU (plain versions), from the same
-    weights: loss, every gradient, every param and mask after the update."""
+    weights: loss, every gradient, every param and mask after the update.
+    `build` makes the model without dropout (default: the ORT's)."""
+    from sparse_caption_tpu_torch.engine.optim import make_schedule
     from sparse_caption_tpu_torch.engine.training import TrainState
     from sparse_caption_tpu_torch.ops.rng import TrainRandom
 
-    model_gpu = build_train_model(seed, dropout=False)
+    model_gpu = build() if build else build_train_model(seed, dropout=False)
     model_cpu = copy.deepcopy(model_gpu).to("cpu")
-    batch = make_train_batch(gen, WHOLE_STEP_BATCH)
+    batch = make(gen, WHOLE_STEP_BATCH)
     results = {}
     for name, model in (("cuda", model_gpu), ("cpu", model_cpu)):
         dev = next(model.parameters()).device
-        step = make_train_step(model, "fp32")
+        step = make_train_step(model, "fp32", config)
         rng = TrainRandom(torch.Generator().manual_seed(seed + 7))  # uniforms drawn on the CPU, then moved
         _, loss, _ = step(TrainState(), {k: v.to(dev) for k, v in batch.items()}, rng)
         results[name] = (float(loss), {n: (p.grad.cpu(), p.detach().cpu()) for n, p in model.named_parameters()})
     (loss_g, got), (loss_c, ref) = results["cuda"], results["cpu"]
     ok = abs(loss_g - loss_c) <= STEP_LOSS_RTOL * abs(loss_c)
-    log(f"[whole-step] f32 batch {WHOLE_STEP_BATCH}x{SEQ_PER_IMG}: loss card {loss_g:.7f} cpu {loss_c:.7f} "
+    log(f"[{label}] f32 batch {WHOLE_STEP_BATCH}x{SEQ_PER_IMG}: loss card {loss_g:.7f} cpu {loss_c:.7f} "
         f"{'ok' if ok else 'FAIL'}")
     top = max(g.abs().max().item() for g, _ in ref.values())
-    lr_w = 512 ** -0.5 * 10000 ** -1.5  # noam's first update
+    lr_w = make_schedule(config, steps_per_epoch=1000)(0)  # the first update's LR (noam: 512^-0.5 10000^-1.5)
     worst = {"grad": 0.0, "param": 0.0, "mask": 0.0}
     by_tensor, elementwise_ok = [], 0
     for n, (g_ref, p_ref) in ref.items():
@@ -759,10 +794,10 @@ def whole_step_check(seed: int, gen) -> bool:
             kind = "param"
         worst[kind] = max(worst[kind], ((p_got - p_ref).abs() / p_tol).max().item())
     for ratio, n, norm_ratio, n_out, rows, n_rows in sorted(by_tensor, reverse=True)[:5]:
-        log(f"[whole-step]   gradient {n}: element-wise worst err/allowed {ratio:.3f} ({n_out} elements in {rows} of "
+        log(f"[{label}]   gradient {n}: element-wise worst err/allowed {ratio:.3f} ({n_out} elements in {rows} of "
             f"{n_rows} rows outside), norm-wise err/allowed {norm_ratio:.3f}")
     good = all(v <= 1 for v in worst.values())
-    log(f"[whole-step] gradients: {elementwise_ok} of {len(ref)} tensors within the element-wise bound ({STEP_GRAD_TOL} "
+    log(f"[{label}] gradients: {elementwise_ok} of {len(ref)} tensors within the element-wise bound ({STEP_GRAD_TOL} "
         f"of each tensor's max + {STEP_GRAD_FLOOR} of the largest, {top:.3e}); worst norm-wise err/allowed "
         f"{worst['grad']:.3f}; params {worst['param']:.3f}, masks {worst['mask']:.3f} {'ok' if good else 'FAIL'}")
     return ok and good
@@ -976,7 +1011,7 @@ def scst_launches(layers: int, steps: int, n_masked: int, names) -> dict:
                   grouped_cross_attention=layers * steps, supermask=2 * n_masked, supermask_bwd=n_masked,
                   add_ref_layernorm=enc_k6 + steps * dec_k6 + enc_k6 + dec_k6, add_ref_layernorm_bwd=enc_k6 + dec_k6,
                   keyed_keep_mask=3 * layers * (steps + 3), keyed_dropout=(1 + layers) * (steps + 5),
-                  sample_step=steps, cider_reward=1)
+                  sample_step=steps, cider_reward=1, vocab_log_softmax=1, vocab_log_softmax_bwd=1)
     return counts
 
 
@@ -1094,6 +1129,177 @@ def scst_whole_step_check(seed: int, gen) -> bool:
     return r_ok and loss_ok and worst <= 1
 
 
+# ----------------------------------------------------------- Up-Down path
+def check_updown_kernels(gen, dtype, results: dict) -> bool:
+    """K11, K12 and K13 against their plain versions: K11 and K12 forward at
+    the serving shape (1024 images x 5 beams), K13 forward at the XE shape
+    (256 x 5 captions x 17 steps); backwards in f32 at the XE shape; each with
+    a planted fault; bf16 times (forward at the serving shape, and forward +
+    backward at the XE shape as `xe_ms`) into the JSON line."""
+    from sparse_caption_tpu_torch.kernels import additive_attention as k12
+    from sparse_caption_tpu_torch.kernels import lstm_cell as k11
+    from sparse_caption_tpu_torch.kernels import vocab_log_softmax as k13
+
+    dev = torch.device("cuda")
+    es = ESIZE[dtype]
+    dname = str(dtype).split(".")[-1]
+    rnd = lambda *shape: torch.randn(*shape, generator=gen, device=dev).to(dtype)  # noqa: E731
+    h, a, d, r, vocab = UPDOWN["rnn_size"], UPDOWN["att_hid_size"], UPDOWN["rnn_size"], REGIONS, UPDOWN["vocab_size"]
+    n_s, b_s = UPDOWN_BATCHES[-1] * BEAM, UPDOWN_BATCHES[-1]  # serving rows, images
+    n_t, b_t = TRAIN_BIG_BATCH * SEQ_PER_IMG, TRAIN_BIG_BATCH  # XE rows, images
+    ok = True
+
+    def compare(name, out, ref, scale=0.0, sum_scale=0.0, fault=None):
+        nonlocal ok
+        err, good, worst = close(out, ref, out.dtype, scale, sum_scale)
+        log(f"[kernel] {name} {str(out.dtype).split('.')[-1]}: max_abs_err={err:.3e} worst err/allowed={worst:.3f} "
+            f"median|ref|={ref.float().abs().median().item():.3e} scale={max(scale, sum_scale):.3f} "
+            f"{'ok' if good else 'FAIL'}")
+        ok &= good
+        if fault is not None:
+            ok &= fault_caught(name, fault, ref, out.dtype, scale, sum_scale)
+        return err
+
+    def record(name, err, ms, plain_ms, lib_ms, nbytes, ops, xe_ms):
+        bnd, by = bound_ms(nbytes, ops)
+        log(f"[kernel] {name} {dname}: ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms="
+            f"{'null' if lib_ms is None else f'{lib_ms:.4f}'} bound_ms={bnd:.4f} ({by}) xe_ms={xe_ms:.4f}")
+        if dtype == torch.bfloat16:
+            results[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bnd,
+                                 bound_by=by, xe_ms=xe_ms)
+
+    def fwd_bwd(fn, ins, cots):
+        """Forward + backward of fn on the leaves `ins`: (outputs, gradients)."""
+        out = fn(*ins)
+        out = out if isinstance(out, tuple) else (out,)
+        return tuple(o.detach() for o in out), torch.autograd.grad(out, ins, cots)
+
+    # K11: gate pre-activations (N, 4H) from the two GEMMs, cell state (N, H)
+    gx, gh, c = rnd(n_s, 4 * h), rnd(n_s, 4 * h), rnd(n_s, h)
+    (hk, ck), (hp, cp) = k11.lstm_cell(gx, gh, c), k11.lstm_cell_plain(gx, gh, c)
+    swap = lambda g: torch.cat([g[:, h:2 * h], g[:, :h], g[:, 2 * h:]], dim=1)  # noqa: E731  i and f swapped
+    scale = rms(cp)  # a one-ulp difference of a term carried through c' = f c + i g
+    err = max(compare("lstm_cell h'", hk, hp, scale), compare("lstm_cell c'", ck, cp, scale,
+                                                               fault=k11.lstm_cell_plain(swap(gx), swap(gh), c)[1]))
+    tg = leaves(rnd(n_t, 4 * h), rnd(n_t, 4 * h), rnd(n_t, h))
+    cot = (rnd(n_t, h), rnd(n_t, h))
+    if dtype == torch.float32:
+        _, kg = fwd_bwd(k11.lstm_cell, tg, cot)
+        _, pg = fwd_bwd(k11.lstm_cell_plain, tg, cot)
+        for nm, kt, pt in zip(("d gx", "d gh", "d c"), kg, pg):
+            compare(f"lstm_cell_bwd {nm}", kt, pt)
+    try:
+        lib_ms = time_ms(lambda: torch.ops.aten._thnn_fused_lstm_cell(gx, gh, c))
+    except RuntimeError as exc:  # a dtype the library kernel does not take
+        log(f"[kernel] lstm_cell {dname}: aten._thnn_fused_lstm_cell refused: {str(exc).splitlines()[0]}")
+        lib_ms = None
+    record("lstm_cell", err, time_ms(lambda: k11.lstm_cell(gx, gh, c)),
+           time_ms(lambda: k11.lstm_cell_plain(gx, gh, c), iters=5), lib_ms,
+           n_s * (2 * 4 * h + h + 2 * h) * es, {},
+           time_ms(lambda: fwd_bwd(k11.lstm_cell, tg, cot), iters=10))
+    del gx, gh, c, hk, ck, hp, cp, tg, cot
+
+    # K12: p_att (B, R, A), att (B, R, D), the rows' att_h (N, A); scores O(1)
+    # (w ~ N(0, 1 / A)); padded regions, and image 0 with every region padded
+    def k12_inputs(b, n):
+        mask = random_region_mask(gen, b, r, dev)
+        mask[0] = False
+        w = (torch.randn(a, generator=gen, device=dev) / a ** 0.5).to(dtype)
+        return rnd(b, r, a), rnd(n, a), w, (torch.ones(1, device=dev) * 0.3).to(dtype), mask, rnd(b, r, d)
+
+    p_att, att_h, w, bias, mask, att = k12_inputs(b_s, n_s)
+    out_k = k12.additive_attention(p_att, att_h, w, bias, mask, att)
+    out_p = k12.additive_attention_plain(p_att, att_h, w, bias, mask, att)
+    err = compare("additive_attention", out_k, out_p, rms(att),  # fault: softmax over every region, no renorm
+                  fault=k12.additive_attention_plain(p_att, att_h, w, bias, torch.ones_like(mask), att))
+    zero = bool((out_k[:BEAM] == 0).all())
+    log(f"[kernel] additive_attention {dname}: image with every region padded gives zeros={zero}")
+    ok &= zero
+    ti = k12_inputs(b_t, n_t)
+    tin = leaves(ti[0], ti[1], ti[2], ti[3], ti[5])
+    run12 = lambda fn: (lambda p, q, w_, b_, at: fn(p, q, w_, b_, ti[4], at))  # noqa: E731
+    cot = rnd(n_t, d)
+    if dtype == torch.float32:
+        _, kg = fwd_bwd(run12(k12.additive_attention), tin, cot)
+        _, pg = fwd_bwd(run12(k12.additive_attention_plain), tin, cot)
+        for nm, kt, pt in zip(("d p_att", "d att_h"), kg[:2], pg[:2]):
+            compare(f"additive_attention_bwd {nm}", kt, pt)
+        compare("additive_attention_bwd d att", kg[4], pg[4])
+        # d w and d bias sum the score gradients over images x rows x regions;
+        # d bias is 0 in exact arithmetic (a softmax ignores a shift of every
+        # score), so both sides give rounding noise of the size of d w's sums
+        dw_scale = pg[2].float().abs().max().item()
+        for nm, kt, pt in zip(("d w", "d bias"), kg[2:4], pg[2:4]):
+            compare(f"additive_attention_bwd {nm}", kt, pt, sum_scale=dw_scale)
+    record("additive_attention", err, time_ms(lambda: k12.additive_attention(p_att, att_h, w, bias, mask, att)),
+           time_ms(lambda: k12.additive_attention_plain(p_att, att_h, w, bias, mask, att), iters=5), None,
+           (b_s * r * (a + d) + n_s * (a + d) + a + 1) * es + b_s * r,
+           flops((torch.float32, n_s * r * (4 * a + 2 * d))),
+           time_ms(lambda: fwd_bwd(run12(k12.additive_attention), tin, cot), iters=10))
+    del p_att, att_h, att, out_k, out_p, ti, tin, cot
+
+    # K13: the XE step's logits (256 x 5 x 17 rows x 10000) with an offset of
+    # 100, so that a log-sum-exp without the max shift overflows
+    rows = n_t * MAX_LEN
+    x = (torch.randn(rows, vocab, generator=gen, device=dev) * 3 + 100).to(dtype)
+    yk, yp = k13.vocab_log_softmax(x), k13.vocab_log_softmax_plain(x)
+    xf = x.float()
+    no_shift = (xf - torch.log(torch.exp(xf).sum(dim=-1, keepdim=True))).to(dtype)
+    err = compare("vocab_log_softmax", yk, yp, fault=no_shift)
+    del yk, yp, xf, no_shift
+    if dtype == torch.bfloat16:  # the ORT generator's train site: bf16 logits, f32 log-probs
+        compare("vocab_log_softmax to f32", k13.vocab_log_softmax(x, torch.float32),
+                k13.vocab_log_softmax_plain(x, torch.float32))
+    dy = torch.randn(rows, vocab, generator=gen, device=dev).to(dtype)
+    xl = leaves(x)
+    del x
+    if dtype == torch.float32:
+        (yp,), (gp,) = fwd_bwd(k13.vocab_log_softmax_plain, xl, dy)
+        _, (gk,) = fwd_bwd(k13.vocab_log_softmax, xl, dy)
+        # dx = dy - p sum(dy): p times a 10,000-term sum whose rounding follows its order
+        sum_scale = yp.max().exp().item() * vocab ** 0.5 * rms(dy)
+        err = max(err, compare("vocab_log_softmax_bwd dx", gk, gp, sum_scale=sum_scale))
+        del gk, gp, yp
+    t_k = time_ms(lambda: fwd_bwd(k13.vocab_log_softmax, xl, dy), iters=5)
+    record("vocab_log_softmax", err, t_k, time_ms(lambda: fwd_bwd(k13.vocab_log_softmax_plain, xl, dy), iters=3),
+           time_ms(lambda: fwd_bwd(lambda v: torch.log_softmax(v, dim=-1), xl, dy), iters=5),
+           rows * vocab * 5 * es + rows * 16, {}, t_k)
+    return ok
+
+
+def build_updown(seed: int, train: bool = False, dropout: bool = True):
+    """Paper-width up_down_lstm_prune in f32 on the card, random weights from
+    the seed: for serving with random supermask logits folded, for training
+    with its masks kept as parameters (init 5.0)."""
+    from sparse_caption_tpu_torch.models import get_model
+    from sparse_caption_tpu_torch.ops.masked import MaskConfig, MaskedEmbedding, MaskedLinear
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    cfg = MaskConfig("supermask", MASK_INIT, keep_masks=True) if train else MaskConfig("supermask")
+    model = get_model("up_down_lstm_prune")(**UPDOWN, drop_prob_lm=UPDOWN_DROP if dropout else 0.0, mask_cfg=cfg,
+                                            device="cuda", generator=gen)
+    if not train:
+        for m in model.modules():
+            if isinstance(m, (MaskedLinear, MaskedEmbedding)):
+                m.fold_mask_(torch.randn(m.weight.shape, generator=gen, device="cuda") * 2.0 + 1.0)
+    return model
+
+
+def make_updown_batch(gen, b, dtype, device="cuda"):
+    att = torch.randn(b, REGIONS, UPDOWN["att_feat_size"], generator=gen, device=device).to(dtype)
+    mask = random_region_mask(gen, b, REGIONS, device).to(dtype)
+    fc = torch.randn(b, UPDOWN["fc_feat_size"], generator=gen, device=device).to(dtype)
+    return att, mask, fc
+
+
+def make_updown_train_batch(gen, b, device="cuda"):
+    att, mask, fc = make_updown_batch(gen, b, torch.float32, device)
+    seqs = torch.randint(4, UPDOWN["vocab_size"], (b * SEQ_PER_IMG, TRAIN_T), generator=gen, device=device)
+    seqs[:, 0] = 2  # BOS
+    return dict(att_feats=att, att_masks=mask, fc_feats=fc, seqs=seqs,
+                seq_masks=torch.ones(b * SEQ_PER_IMG, TRAIN_T, device=device))
+
+
 def card_line() -> str:
     out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True)
@@ -1122,6 +1328,8 @@ def main() -> int:
     for dtype in (torch.float32, torch.bfloat16):
         ok &= check_kernels(gen, dtype, results)
         ok &= check_train_kernels(gen, dtype, results)
+        ok &= check_updown_kernels(gen, dtype, results)
+        torch.cuda.empty_cache()
     ok &= check_scst_kernels(gen, results)
     torch.cuda.empty_cache()
     if not ok:
@@ -1152,7 +1360,8 @@ def main() -> int:
     train = {name: 0 for name in KERNELS}
     train.update(box_attention_train=layers, box_attention_bwd=layers, supermask=n_masked, supermask_bwd=n_masked,
                  add_ref_layernorm=(1 + 2 * layers) + (1 + 3 * layers),
-                 add_ref_layernorm_bwd=(1 + 2 * layers) + (1 + 3 * layers))
+                 add_ref_layernorm_bwd=(1 + 2 * layers) + (1 + 3 * layers), vocab_log_softmax=1,
+                 vocab_log_softmax_bwd=1)
     train_model = build_train_model(SEED)
     for b, precision in ((TRAIN_BATCH, "fp32"), (TRAIN_BATCH, "bf16"), (TRAIN_BIG_BATCH, "bf16")):
         train_counts = run_train_phase(train_model, gen, b, precision, train)
@@ -1181,11 +1390,48 @@ def main() -> int:
     if not scst_whole_step_check(SEED, gen):
         return 1
 
+    # Up-Down: beam-5 serving (K11, K12, K4) and the supermask XE step
+    updown = build_updown(SEED)
+    updown_bf16 = copy.deepcopy(updown).to(torch.bfloat16)
+    ud_serve = {name: 0 for name in KERNELS}
+    ud_serve.update(lstm_cell=2 * MAX_LEN, additive_attention=MAX_LEN, beam_topk=MAX_LEN)
+    torch.cuda.reset_peak_memory_stats()
+    for b in UPDOWN_BATCHES:
+        ud_serve_counts = run_main_path(updown_bf16, gen, b, ud_serve, make_updown_batch, "updown")
+    log(f"[updown] peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    batch = make_updown_batch(gen, UPDOWN_BATCHES[-1], torch.bfloat16)
+    profile_window(f"Up-Down encode + decode, bf16 batch {UPDOWN_BATCHES[-1]}", lambda: caption(updown_bf16, batch))
+    del updown_bf16, batch
+    if not whole_path_check(updown, gen, make_updown_batch, "updown whole-path"):
+        return 1
+    del updown
+    torch.cuda.empty_cache()
+    ud_masked = 3 + 8 * MAX_LEN  # fresh samples: the encode's 3 tensors, then 8 per step
+    ud_train = {name: 0 for name in KERNELS}
+    ud_train.update(supermask=ud_masked, supermask_bwd=ud_masked, lstm_cell=2 * MAX_LEN, lstm_cell_bwd=2 * MAX_LEN,
+                    additive_attention=MAX_LEN, additive_attention_bwd=MAX_LEN, vocab_log_softmax=1,
+                    vocab_log_softmax_bwd=1)
+    ud_model = build_updown(SEED, train=True)
+    for b, precision in ((TRAIN_BATCH, "fp32"), (TRAIN_BATCH, "bf16"), (TRAIN_BIG_BATCH, "bf16")):
+        ud_train_counts = run_train_phase(ud_model, gen, b, precision, ud_train, UPDOWN_CONFIG,
+                                          make_updown_train_batch, "updown train")
+    step, state = make_train_step(ud_model, "bf16", UPDOWN_CONFIG), [TrainState()]
+    batch = make_updown_train_batch(gen, TRAIN_BIG_BATCH)
+    profile_window(f"Up-Down XE step, bf16 batch {TRAIN_BIG_BATCH}x{SEQ_PER_IMG}",
+                   lambda: state.append(step(state.pop(), batch)[0]))
+    del ud_model, step, state, batch
+    torch.cuda.empty_cache()
+    if not whole_step_check(SEED, gen, lambda: build_updown(SEED, train=True, dropout=False),
+                            make_updown_train_batch, UPDOWN_CONFIG, "updown whole-step"):
+        return 1
+
     kernels = []
     for name in _build.SOURCES:
         entries = [e for e, k in KERNELS.items() if k.library_name == name]
         by_path = {"serve": sum(serve_counts[e] for e in entries), "train_step": sum(train_counts[e] for e in entries),
-                   "scst_step": sum(scst_counts[e] for e in entries)}
+                   "scst_step": sum(scst_counts[e] for e in entries),
+                   "updown_serve": sum(ud_serve_counts[e] for e in entries),
+                   "updown_train_step": sum(ud_train_counts[e] for e in entries)}
         src = _build.CSRC / f"{name}.cu"
         kernels.append(dict(name=name, route="cuda", source=str(src.relative_to(_build.CSRC.parents[2])),
                             replaces=REPLACES[name], launches=sum(by_path.values()), launches_by_path=by_path,

@@ -11,8 +11,10 @@ Dispatch on the opt dict as the JAX package does:
 phase): dropout keyed per step from the ``rng`` seed's streams
 (``ops.rng.decode_train_keys``), masks applied as in training, f32 logits.
 Diverse beam search (``group_size > 1``), beam search under the train
-policy and ``sample_method`` other than ``random`` raise
-``NotImplementedError`` until their slice.
+policy, ``sample_method`` other than ``random`` and greedy or sampling
+decode of a ``BEAM_ONLY`` model (Up-Down) raise ``NotImplementedError``
+until their slice. Memory stays one row per image for every model: the
+beam or sample rows of an image read its row.
 """
 
 from __future__ import annotations
@@ -43,7 +45,9 @@ def generate(model, memory: Dict[str, Any], opt: Optional[Dict[str, Any]] = None
     decoding_constraint = int(opt.get("decoding_constraint", 0))
     if int(opt.get("group_size", 1)) > 1:
         raise NotImplementedError("diverse beam search lands in a later slice")
-    b = memory["memory"].shape[0]
+    b = memory["mask"].shape[0]  # every model's memory carries its (B, R) region mask
+    if getattr(model, "BEAM_ONLY", False) and (beam_size <= 1 or num_random_sample > 0):
+        raise NotImplementedError(f"greedy and sampling decode of {type(model).__name__} land in a later slice")
 
     if beam_size > 1 and num_random_sample <= 0:
         if decode_train:
@@ -79,5 +83,5 @@ def generate(model, memory: Dict[str, Any], opt: Optional[Dict[str, Any]] = None
         step_fn, cache, b * rows, max_len, bos_id=model.bos_id, eos_id=model.eos_id, pad_id=model.pad_id,
         greedy=num_random_sample <= 0, temperature=float(opt.get("temperature", 1.0)),
         decoding_constraint=decoding_constraint, key=sample_key, site=SAMPLE_SITE,
-        device=memory["memory"].device, noise=noise)
+        device=memory["mask"].device, noise=noise)
     return seq.reshape(b, rows, max_len), seq_lp.reshape(b, rows, max_len)

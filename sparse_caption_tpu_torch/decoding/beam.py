@@ -13,8 +13,11 @@ Semantics kept from the reference:
   (-1000 on the unk id), bad endings (no EOS right after a bad-ending word,
   on the real EOS id)
 * per-step chosen-token log-probs are recorded per beam (B, K, T)
-* beams reorder by gathering only the (B, K, T) ancestor map; the K/V cache
-  rows are never moved
+* beams reorder by parent beam in one of the JAX package's two modes: a
+  cache with an ``"ancestry"`` map (B, K, T) gathers only that map (the K/V
+  cache rows never move); any other cache gathers every (B*K, ...) tensor
+  by parent row (an exact gather; Up-Down's LSTM states), except the
+  top-level ``"static"`` subtree, whose rows an image's beams share
 * every top-K breaks ties to the lower index, as ``lax.top_k``
 """
 
@@ -40,6 +43,34 @@ def _gather_beams(x, beam_ix):
     return x.gather(1, idx.expand(*beam_ix.shape, *x.shape[2:]))
 
 
+def _leaves(tree):
+    if isinstance(tree, torch.Tensor):
+        yield tree
+    elif isinstance(tree, (dict, list, tuple)):
+        for v in (tree.values() if isinstance(tree, dict) else tree):
+            yield from _leaves(v)
+
+
+def _reorder_rows(tree, rows):
+    """Every tensor of ``tree`` gathered along its first axis by ``rows``."""
+    if isinstance(tree, torch.Tensor):
+        return tree.index_select(0, rows)
+    if isinstance(tree, dict):
+        return {k: _reorder_rows(v, rows) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_reorder_rows(v, rows) for v in tree)
+    return tree
+
+
+def _reorder_cache(cache, beam_ix):
+    """The cache after the step's beam choice (B, K) of parent beams."""
+    if "ancestry" in cache:
+        return dict(cache, ancestry=_gather_beams(cache["ancestry"], beam_ix))
+    b, k = beam_ix.shape
+    rows = (beam_ix + torch.arange(b, device=beam_ix.device)[:, None] * k).reshape(-1)
+    return {key: v if key == "static" else _reorder_rows(v, rows) for key, v in cache.items()}
+
+
 def beam_search(
     step_fn: Callable,
     init_cache,
@@ -58,15 +89,14 @@ def beam_search(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Beam search over ``step_fn(it, cache, t) -> (logits (B*K, V), cache)``.
 
-    ``init_cache`` must carry the ``"ancestry"`` map (B, K, T) int32; rows are
+    ``init_cache`` is a dict, with a beam-ancestry map (B, K, T) int32 or
+    with (B*K, ...) tensors to reorder (see the module notes); rows are
     interleaved (image i owns rows i*K..(i+1)*K-1). Returns (seq (B, K,
     max_len) int64, seq_logprobs (B, K, max_len) f32), sorted by penalized
     score per image, descending."""
     k = beam_size
     b = batch_size
-    if "ancestry" not in init_cache:
-        raise ValueError("beam_search needs a cache with a beam-ancestry map")
-    dev = init_cache["ancestry"].device
+    dev = next(_leaves(init_cache)).device
     penalty = penalty_fn(length_penalty)
     bad_ids = torch.tensor(list(bad_ending_ids), dtype=torch.int32, device=dev) if bad_ending_ids else None
 
@@ -94,7 +124,7 @@ def beam_search(
 
         seq = _gather_beams(seq, beam_ix)
         seq_lp = _gather_beams(seq_lp, beam_ix)
-        cache = dict(cache, ancestry=_gather_beams(cache["ancestry"], beam_ix))
+        cache = _reorder_cache(cache, beam_ix)
         seq[:, :, t] = tok_ix
         seq_lp[:, :, t] = chosen_lp
         sum_lp = top_scores

@@ -9,13 +9,15 @@ plain functions.
     step = make_xe_step(model, opt_w, opt_m, config)
     state, loss, aux = step(TrainState(), batch)
 
-``batch`` holds ``att_feats`` (B, R, F), ``att_masks`` (B, R), ``boxes`` (B, R, 4),
-``seqs`` (B * seq_per_img, T) and ``seq_masks`` (B * seq_per_img, T). The model
-is updated in place; ``TrainState`` carries the update count (the schedule's
-and the sparsity anneal's step); after a step each parameter's ``.grad``
-holds that step's raw gradient. With ``train_precision`` bf16 the master
+``batch`` holds the model's ``COLLATE_FIELDS`` (``att_feats`` (B, R, F),
+``att_masks`` (B, R), and ``boxes`` (B, R, 4) for the ORT or ``fc_feats``
+(B, F) for Up-Down), ``seqs`` (B * seq_per_img, T) and ``seq_masks``
+(B * seq_per_img, T). The model is updated in place; ``TrainState``
+carries the update count (the schedule's and the sparsity anneal's step);
+after a step each parameter's ``.grad`` holds that step's raw gradient. With ``train_precision`` bf16 the master
 params stay f32 and the forward runs on a differentiable bf16 cast of them
-(masks and boxes stay f32, the log-softmax runs in f32).
+(masks and boxes stay f32; the ORT's log-softmax writes f32, Up-Down's the
+compute dtype, as the JAX package's do).
 
 SCST (the two-phase step with the device reward; mask_freeze or dense
 models, ``scst_sample random``):
@@ -89,13 +91,16 @@ def make_xe_step(model: nn.Module, opt_w: Optimizer, opt_m: Optimizer, config):
     device = next(iter(params.values())).device
     default_rng = TrainRandom(torch.Generator(device=device).manual_seed(int(config.get("seed", 8888)) + 1))
 
+    extra_fields = [k for k in model.COLLATE_FIELDS if k not in ("att_feats", "att_masks")]  # boxes / fc_feats
+
     def forward(inputs: Dict, rng: TrainRandom):
-        args = (inputs["att_feats"], inputs["att_masks"], inputs["seqs"], inputs.get("boxes"))
+        args = (inputs["att_feats"], inputs["att_masks"], inputs["seqs"])
+        kwargs = dict({k: inputs[k] for k in extra_fields}, train=True, rng=rng)
         if not bf16:
-            return model(*args, train=True, rng=rng)
+            return model(*args, **kwargs)
         # differentiable cast of the f32 master params; masks stay f32
         cast = {n: p.to(torch.bfloat16) for n, p in params.items() if p.is_floating_point()}
-        return torch.func.functional_call(model, cast, args, dict(train=True, rng=rng))
+        return torch.func.functional_call(model, cast, args, kwargs)
 
     def xe_step(state: TrainState, batch: Dict, rng: Optional[TrainRandom] = None):
         rng = rng or default_rng
@@ -104,8 +109,9 @@ def make_xe_step(model: nn.Module, opt_w: Optimizer, opt_m: Optimizer, config):
         inputs = dict(batch)
         if bf16:
             # boxes stay f32: the geometry's x100-scaled trig arguments need it
-            for k in ("att_feats", "att_masks"):
-                inputs[k] = inputs[k].to(torch.bfloat16)
+            for k in model.COLLATE_FIELDS:
+                if k != "boxes":
+                    inputs[k] = inputs[k].to(torch.bfloat16)
         lp = forward(inputs, rng)
         seqs = inputs["seqs"]
         loss = criterion(lp, seqs[:, 1:], inputs["seq_masks"][:, 1:])

@@ -14,15 +14,19 @@ keyed_keep_mask (K8)            csrc/keyed_dropout.cu               models/layer
 keyed_dropout (K8 apply)        csrc/keyed_dropout.cu               models/layers.py:31-68 TimeDropout
 sample_step (K9)                csrc/sample_step.cu                 decoding/sample.py:134-159, layers.py:465-472
 cider_reward (K10)              csrc/cider_reward.cu                scst/device_reward.py:282-403
+lstm_cell (K11)                 csrc/lstm_cell.cu                   models/up_down.py:47-54
+additive_attention (K12)        csrc/additive_attention.cu          models/up_down.py:67-73
+vocab_log_softmax (K13)         csrc/vocab_log_softmax.cu           up_down.py:124, layers.py:465-472
 ==============================  ==================================  ======================================
 
 A wrapper given CPU tensors runs the plain version; given CUDA tensors it
 launches its kernel (built at first use, see ``_build``) or raises. K5, K6,
-K1/K7 and K8's apply variant are autograd Functions whose backward is a
-kernel too.
+K1/K7, K8's apply variant and K11-K13 are autograd Functions whose backward
+is a kernel too.
 """
 
 from sparse_caption_tpu_torch.kernels import add_ref_layernorm as _k6
+from sparse_caption_tpu_torch.kernels import additive_attention as _k12
 from sparse_caption_tpu_torch.kernels import ancestry_self_attention as _k2
 from sparse_caption_tpu_torch.kernels import beam_topk as _k4
 from sparse_caption_tpu_torch.kernels import box_attention as _k1
@@ -30,8 +34,10 @@ from sparse_caption_tpu_torch.kernels import box_attention_bwd as _k7
 from sparse_caption_tpu_torch.kernels import grouped_cross_attention as _k3
 from sparse_caption_tpu_torch.kernels import cider_reward as _k10
 from sparse_caption_tpu_torch.kernels import keyed_dropout as _k8
+from sparse_caption_tpu_torch.kernels import lstm_cell as _k11
 from sparse_caption_tpu_torch.kernels import sample_step as _k9
 from sparse_caption_tpu_torch.kernels import supermask as _k5
+from sparse_caption_tpu_torch.kernels import vocab_log_softmax as _k13
 from sparse_caption_tpu_torch.kernels._build import build_all  # noqa: F401
 
 # entry point -> CudaKernel (launch counts live on these objects)
@@ -50,6 +56,12 @@ KERNELS = {
     "keyed_dropout": _k8.KERNEL_APPLY,
     "sample_step": _k9.KERNEL,
     "cider_reward": _k10.KERNEL,
+    "lstm_cell": _k11.KERNEL,
+    "lstm_cell_bwd": _k11.KERNEL_BWD,
+    "additive_attention": _k12.KERNEL,
+    "additive_attention_bwd": _k12.KERNEL_BWD,
+    "vocab_log_softmax": _k13.KERNEL,
+    "vocab_log_softmax_bwd": _k13.KERNEL_BWD,
 }
 
 

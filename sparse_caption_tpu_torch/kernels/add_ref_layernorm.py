@@ -16,6 +16,7 @@ import torch
 
 from sparse_caption_tpu_torch.kernels import _build
 from sparse_caption_tpu_torch.kernels._checks import check_float, check_same_device, check_tensor
+from sparse_caption_tpu_torch.ops.keep import apply_keep, keep_divisor
 
 KERNEL = _build.CudaKernel("add_ref_layernorm", "sct_add_ref_layernorm", [
     _build.I, _build.P, _build.P, _build.P, _build.P, _build.P, _build.P, _build.P, _build.P,
@@ -45,7 +46,7 @@ def add_ref_layernorm_plain(x, y, weight, bias, keep: Optional[torch.Tensor] = N
     if y is None:
         return ref_layer_norm_plain(x, weight, bias, eps)
     if keep is not None:
-        y = torch.where(keep, y / keep_prob, torch.zeros_like(y))
+        y = apply_keep(y, keep, keep_prob)
     s = x + y
     return s, ref_layer_norm_plain(s, weight, bias, eps)
 
@@ -112,4 +113,4 @@ def add_ref_layernorm(x, y, weight, bias, keep: Optional[torch.Tensor] = None, k
         return add_ref_layernorm_plain(x, y, weight, bias, keep, keep_prob, eps)
     if d > MAX_D:
         raise ValueError(f"add_ref_layernorm kernel takes d <= {MAX_D}; got d={d}")
-    return _AddNormFn.apply(x, y, weight, bias, keep, float(keep_prob), float(eps))
+    return _AddNormFn.apply(x, y, weight, bias, keep, keep_divisor(keep_prob, x.dtype), float(eps))

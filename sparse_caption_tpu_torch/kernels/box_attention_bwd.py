@@ -19,6 +19,7 @@ import torch
 from sparse_caption_tpu_torch.kernels import _build
 from sparse_caption_tpu_torch.kernels.box_attention import DIM_G, KERNEL_TRAIN, box_attention_plain, check_args
 from sparse_caption_tpu_torch.ops.attention import geometry_frequencies
+from sparse_caption_tpu_torch.ops.keep import keep_divisor
 
 KERNEL = _build.CudaKernel("box_attention_bwd", "sct_box_attention_bwd", [
     _build.I, _build.P, _build.P, _build.P, _build.P, _build.P, _build.P, _build.P, _build.P, _build.P, _build.P,
@@ -66,4 +67,4 @@ def box_attention_train(q, k, v, boxes, wg_weight, wg_bias, mask, keep: Optional
     check_args(q, k, v, boxes, wg_weight, wg_bias, mask, keep)
     if q.device.type == "cpu":
         return box_attention_plain(q, k, v, boxes, wg_weight, wg_bias, mask, keep, keep_prob)
-    return _BoxAttentionFn.apply(q, k, v, boxes, wg_weight, wg_bias, mask, keep, float(keep_prob))
+    return _BoxAttentionFn.apply(q, k, v, boxes, wg_weight, wg_bias, mask, keep, keep_divisor(keep_prob, q.dtype))

@@ -6,7 +6,8 @@
 // add with the norm of sublayer i+1 (or the stack's final norm).
 //
 // Computes, row by row over the last dimension d,
-//   forward   y'   = keep ? y / keep_prob : 0   (keep given; else y' = y)
+//   forward   y'   = keep ? y / keep_prob : 0   (keep given; else y' = y; the
+//                  wrapper passes keep_prob rounded to T, as the JAX package divides)
 //             s    = x + y'                     (rounded to T; y absent: s = x)
 //             n    = (a (s - mean)) / (std + eps) + b,  std Bessel-corrected (d - 1)
 //   with the stats in f32 and n rounded to T; mean and std are saved per row.

@@ -31,18 +31,6 @@ constexpr int kTopkThreads = 256;
 constexpr int kMaxK = 8;
 constexpr float kNegBig = -1e18f;  // beam.py NEG_BIG
 
-__device__ __forceinline__ void merge_max_sum(float& m, float& s, float om, float os) {
-  const float mm = fmaxf(m, om);
-  if (mm == -INFINITY) return;
-  s = s * expf(m - mm) + os * expf(om - mm);
-  m = mm;
-}
-
-// a ranks above b: larger value, ties to the lower index
-__device__ __forceinline__ bool ranks_above(float va, int ia, float vb, int ib) {
-  return va > vb || (va == vb && ia < ib);
-}
-
 template <typename T>
 __global__ void __launch_bounds__(kTopkThreads)
 beam_topk_kernel(const T* __restrict__ logits, int V, int k, const int* __restrict__ ban_token,

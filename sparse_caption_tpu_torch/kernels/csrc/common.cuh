@@ -49,6 +49,19 @@ __device__ __forceinline__ float warp_max(float v) {
   return v;
 }
 
+// merge a partial (max, sum exp(x - max)) pair into another (online log-sum-exp)
+__device__ __forceinline__ void merge_max_sum(float& m, float& s, float om, float os) {
+  const float mm = fmaxf(m, om);
+  if (mm == -INFINITY) return;
+  s = s * expf(m - mm) + os * expf(om - mm);
+  m = mm;
+}
+
+// a ranks above b: larger value, ties to the lower index
+__device__ __forceinline__ bool ranks_above(float va, int ia, float vb, int ib) {
+  return va > vb || (va == vb && ia < ib);
+}
+
 // Shared-memory row strides of a key tile (odd: lane j reading row j hits bank
 // (j + d) % 32, no conflicts) and of a value tile (lane reads 2 neighbours).
 constexpr int kKeyStride = kHeadDim + 1;

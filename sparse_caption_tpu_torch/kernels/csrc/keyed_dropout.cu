@@ -14,9 +14,10 @@
 // agree bit for bit at every (t, row, column).
 //
 // Two entry points: the bool keep-mask (consumed by K6 and K1's train
-// variant) and the apply variant out = keep ? x * inv_keep : 0, inv_keep =
-// f32(1 / keep_prob) (the PE and FFN sites, and its own backward on the
-// gradient; a multiply, as PyTorch's `x / scalar` is on the card).
+// variant) and the apply variant out = keep ? x / divisor : 0 (the PE and
+// FFN sites, and its own backward on the gradient), divisor = keep_prob
+// rounded to x's dtype and an IEEE division, as the JAX package's
+// `x / keep` (the plain version divides by a 0-dim tensor on both devices).
 //
 // Bound on the H100: bytes. The mask writes one byte per element (the replay
 // of the FFN site, 75 x 17 x 2048: 2.6 MB, 0.8 us at 3.35 TB/s); the apply
@@ -36,7 +37,7 @@ template <typename T, bool kApply>
 __global__ void __launch_bounds__(kDropThreads)
 keyed_dropout_kernel(const T* __restrict__ x, T* __restrict__ out, unsigned char* __restrict__ keep_out,
                      uint32_t k0, uint32_t k1, uint32_t site, int t0, int N, int Tl, int D, float keep_prob,
-                     float inv_keep) {
+                     float divisor) {
   const int c4n = (D + 3) / 4;
   const long long total = (long long)N * Tl * c4n;
   for (long long g = blockIdx.x * (long long)blockDim.x + threadIdx.x; g < total;
@@ -51,7 +52,7 @@ keyed_dropout_kernel(const T* __restrict__ x, T* __restrict__ out, unsigned char
       if (4 * c4 + q >= D) break;
       const bool keep = keep_bit(philox_word(r, q), keep_prob);
       if (kApply) {
-        out[base + q] = keep ? from_f<T>(to_f(x[base + q]) * inv_keep) : from_f<T>(0.f);
+        out[base + q] = keep ? from_f<T>(to_f(x[base + q]) / divisor) : from_f<T>(0.f);
       } else {
         keep_out[base + q] = keep ? 1 : 0;
       }
@@ -77,20 +78,20 @@ extern "C" int sct_keyed_keep_mask(uint32_t k0, uint32_t k1, uint32_t site, int 
   return (int)cudaGetLastError();
 }
 
-// dtype: 0 = float32, 1 = bfloat16. x, out (N, Tl, D): out = keep ? x * inv_keep : 0.
+// dtype: 0 = float32, 1 = bfloat16. x, out (N, Tl, D): out = keep ? x / divisor : 0.
 extern "C" int sct_keyed_dropout_apply(int dtype, const void* x, void* out, uint32_t k0, uint32_t k1, uint32_t site,
-                                       int t0, int N, int Tl, int D, float keep_prob, float inv_keep, void* stream) {
+                                       int t0, int N, int Tl, int D, float keep_prob, float divisor, void* stream) {
   if (N <= 0 || Tl <= 0 || D <= 0) return (int)cudaErrorInvalidValue;
   const long long groups = (long long)N * Tl * ((D + 3) / 4);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
     sct::keyed_dropout_kernel<float, true><<<sct::grid_for(groups), sct::kDropThreads, 0, s>>>(
         static_cast<const float*>(x), static_cast<float*>(out), nullptr, k0, k1, site, t0, N, Tl, D, keep_prob,
-        inv_keep);
+        divisor);
   } else if (dtype == 1) {
     sct::keyed_dropout_kernel<__nv_bfloat16, true><<<sct::grid_for(groups), sct::kDropThreads, 0, s>>>(
         static_cast<const __nv_bfloat16*>(x), static_cast<__nv_bfloat16*>(out), nullptr, k0, k1, site, t0, N, Tl,
-        D, keep_prob, inv_keep);
+        D, keep_prob, divisor);
   } else {
     return (int)cudaErrorInvalidValue;
   }

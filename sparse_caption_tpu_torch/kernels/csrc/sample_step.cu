@@ -37,17 +37,6 @@ namespace sct {
 constexpr int kSampleThreads = 256;
 constexpr float kBanPrev = -1e30f;  // sample.py: nan_to_num(one_hot * -inf, neginf=-1e30)
 
-__device__ __forceinline__ void merge_max_sum2(float& m, float& s, float om, float os) {
-  const float mm = fmaxf(m, om);
-  if (mm == -INFINITY) return;
-  s = s * expf(m - mm) + os * expf(om - mm);
-  m = mm;
-}
-
-__device__ __forceinline__ bool ranks_above2(float va, int ia, float vb, int ib) {
-  return va > vb || (va == vb && ia < ib);
-}
-
 __device__ __forceinline__ float gumbel(uint32_t bits) {
   const float u = static_cast<float>((bits >> 9) * 2u + 1u) * 0x1p-24f;
   return -logf(-logf(u));
@@ -79,7 +68,7 @@ sample_step_kernel(const T* __restrict__ logits, int V, const int* __restrict__ 
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) {
     const float om = __shfl_xor_sync(0xffffffffu, m, o), os = __shfl_xor_sync(0xffffffffu, s, o);
-    merge_max_sum2(m, s, om, os);
+    merge_max_sum(m, s, om, os);
   }
   if (lane == 0) {
     red_a[warp] = m;
@@ -88,7 +77,7 @@ sample_step_kernel(const T* __restrict__ logits, int V, const int* __restrict__ 
   __syncthreads();
   m = -INFINITY;
   s = 0.f;
-  for (int w = 0; w < nwarps; ++w) merge_max_sum2(m, s, red_a[w], red_b[w]);
+  for (int w = 0; w < nwarps; ++w) merge_max_sum(m, s, red_a[w], red_b[w]);
   const float mx = m, logsum = logf(s);
   __syncthreads();  // red_a is reused below
 
@@ -117,7 +106,7 @@ sample_step_kernel(const T* __restrict__ logits, int V, const int* __restrict__ 
   for (int o = 16; o > 0; o >>= 1) {
     const float ov = __shfl_xor_sync(0xffffffffu, best, o);
     const int oi = __shfl_xor_sync(0xffffffffu, best_i, o);
-    if (ranks_above2(ov, oi, best, best_i)) {
+    if (ranks_above(ov, oi, best, best_i)) {
       best = ov;
       best_i = oi;
     }
@@ -129,7 +118,7 @@ sample_step_kernel(const T* __restrict__ logits, int V, const int* __restrict__ 
   __syncthreads();
   if (threadIdx.x == 0) {
     for (int w = 1; w < nwarps; ++w)
-      if (ranks_above2(red_a[w], red_i[w], best, best_i)) {
+      if (ranks_above(red_a[w], red_i[w], best, best_i)) {
         best = red_a[w];
         best_i = red_i[w];
       }

@@ -1,16 +1,16 @@
 """K8: keyed dropout (``csrc/keyed_dropout.cu``).
 
 ``keyed_keep_mask`` draws the bool keep-mask of one dropout site and
-``keyed_dropout`` applies it (``x * (1 / keep_prob)`` where kept, 0
-elsewhere, the scale rounded to f32 once; an autograd Function whose
-backward applies the same mask to the gradient).
+``keyed_dropout`` applies it (``x / keep_prob`` where kept, 0 elsewhere,
+``keep_prob`` rounded to x's dtype as in ``ops/keep.py``; an autograd
+Function whose backward applies the same mask to the gradient).
 The draw of row n, position j, column c is Philox4x32-10 keyed by the
 64-bit ``key`` with counter (site, t0 + j, n, c // 4), word c % 4, kept
 where ``(bits >> 8) * 2**-24 < keep_prob``. CUDA tensors launch the kernel,
 CPU tensors run the plain version (the same Philox in int64 torch
-arithmetic masked to 32 bits, so both agree bit for bit; the scale is a
-multiply on both sides, as PyTorch's own ``x / scalar`` is on the card but
-not on the CPU). Nothing else falls back, and ``torch.rand``'s own CUDA
+arithmetic masked to 32 bits, and the same true division, so both agree
+bit for bit with each other and with the JAX package's ``x / keep``).
+Nothing else falls back, and ``torch.rand``'s own CUDA
 Philox is not used: its offsets are not a function of (site, t, row,
 column).
 """
@@ -21,6 +21,7 @@ import torch
 
 from sparse_caption_tpu_torch.kernels import _build
 from sparse_caption_tpu_torch.kernels._checks import check_float
+from sparse_caption_tpu_torch.ops.keep import apply_keep, keep_divisor
 
 KERNEL = _build.CudaKernel("keyed_dropout", "sct_keyed_keep_mask", [
     _build.U32, _build.U32, _build.U32, _build.I, _build.I, _build.I, _build.I, _build.F32, _build.P, _build.P,
@@ -95,15 +96,14 @@ def keyed_keep_mask(key: int, site: int, t0: int, n: int, tl: int, d: int, keep_
 
 def keyed_dropout_plain(x, key: int, site: int, t0: int, keep_prob: float):
     n, tl, d = x.shape
-    keep = keyed_keep_mask_plain(key, site, t0, n, tl, d, keep_prob, x.device)
-    return torch.where(keep, x * (1.0 / keep_prob), torch.zeros_like(x))
+    return apply_keep(x, keyed_keep_mask_plain(key, site, t0, n, tl, d, keep_prob, x.device), keep_prob)
 
 
 def _launch_apply(x, key: int, site: int, t0: int, keep_prob: float):
     n, tl, d = x.shape
     out = torch.empty_like(x)
     KERNEL_APPLY.launch(_build.dtype_code(x), x.data_ptr(), out.data_ptr(), key & M32, key >> 32, site, t0, n, tl,
-                        d, keep_prob, 1.0 / keep_prob, _build.stream_handle(x))
+                        d, keep_prob, keep_divisor(keep_prob, x.dtype), _build.stream_handle(x))
     return out
 
 
@@ -119,8 +119,8 @@ class _KeyedDropoutFn(torch.autograd.Function):
 
 
 def keyed_dropout(x, key: int, site: int, t0: int, keep_prob: float):
-    """x: (N, T, D) f32 or bf16, contiguous. Returns x * (1 / keep_prob) where
-    the keyed keep-mask holds, 0 elsewhere, in x's dtype."""
+    """x: (N, T, D) f32 or bf16, contiguous. Returns x / keep_prob where the
+    keyed keep-mask holds, 0 elsewhere, in x's dtype."""
     check_float(x, "x")
     if x.dim() != 3:
         raise ValueError(f"x: expected (N, T, D), got {tuple(x.shape)}")

@@ -8,7 +8,8 @@ Numerics kept from the reference:
 * masked scores are filled with -1e9 in their own dtype, and the ORT geometry
   bias is added after the fill
 * ORT geometry trig in f32, cast to the compute dtype before ``wg``
-* in training the generator's log_softmax runs in f32
+* in training the generator's log-probs are f32 (kernel K13 computes in f32
+  and writes f32 or the compute dtype)
 
 Train mode: a forward given ``rng`` (an ``ops.rng.TrainRandom`` or
 ``KeyedStream``) draws the supermask samples and the dropout masks from it;
@@ -41,6 +42,7 @@ from sparse_caption_tpu_torch.kernels.ancestry_self_attention import ancestry_se
 from sparse_caption_tpu_torch.kernels.box_attention import DIM_G, box_attention
 from sparse_caption_tpu_torch.kernels.box_attention_bwd import box_attention_train
 from sparse_caption_tpu_torch.kernels.grouped_cross_attention import grouped_cross_attention
+from sparse_caption_tpu_torch.kernels.vocab_log_softmax import vocab_log_softmax
 from sparse_caption_tpu_torch.ops.attention import box_relational_embedding, scaled_dot_attention  # noqa: F401
 from sparse_caption_tpu_torch.ops.masked import MaskConfig, MaskedEmbedding, MaskedLinear
 from sparse_caption_tpu_torch.ops.rng import dropout, keep_mask, site_id
@@ -279,8 +281,8 @@ class InputEmbedding(nn.Module):
 
 
 class Generator(nn.Module):
-    """Linear + log_softmax output head. In eval the log_softmax runs in the
-    compute dtype; in training (``rng`` given) in f32."""
+    """Linear + log_softmax output head (kernel K13). In eval the log-probs
+    come out in the compute dtype; in training (``rng`` given) in f32."""
 
     def __init__(self, d_model: int, vocab_size: int, mask_cfg: Optional[MaskConfig] = None, device=None,
                  dtype=None):
@@ -292,6 +294,4 @@ class Generator(nn.Module):
 
     def forward(self, x, rng=None):
         logits = self.proj(x, rng)
-        if rng is not None:
-            logits = logits.float()
-        return torch.log_softmax(logits, dim=-1)
+        return vocab_log_softmax(logits, torch.float32 if rng is not None else logits.dtype)

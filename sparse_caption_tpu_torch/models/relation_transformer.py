@@ -47,6 +47,8 @@ class BoxEncoderLayer(nn.Module):
 class RelationTransformer(Transformer):
     """ORT: box-relation encoder + cached transformer decoder."""
 
+    COLLATE_FIELDS = ("att_feats", "att_masks", "boxes")
+
     def _build_encoder(self, att_feat_size, dim_feedforward, share_att, factory):
         _, self.box_enc_plan = _unique_layer_plan(self.num_layers, None)
         self.box_encoder_layers = nn.ModuleList(

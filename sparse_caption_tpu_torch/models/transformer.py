@@ -23,6 +23,7 @@ import torch
 from torch import nn
 
 from sparse_caption_tpu_torch import resolve_device
+from sparse_caption_tpu_torch.kernels.vocab_log_softmax import vocab_log_softmax
 from sparse_caption_tpu_torch.models import register_model
 from sparse_caption_tpu_torch.models.layers import (
     DropoutSite,
@@ -127,6 +128,8 @@ class Transformer(nn.Module, DropoutSite):
     ``"cuda"``; raises without CUDA) in ``dtype`` and initialised like the JAX
     package (xavier-uniform matrices, zero biases, unit norms) from
     ``generator``."""
+
+    COLLATE_FIELDS = ("att_feats", "att_masks")
 
     def __init__(self, vocab_size: int, d_model: int = 512, dim_feedforward: int = 2048, num_layers: int = 6,
                  num_heads: int = 8, att_feat_size: int = 2048, max_seq_length: int = 18, pad_id: int = 0,
@@ -285,4 +288,4 @@ class Transformer(nn.Module, DropoutSite):
                     rng=None):
         """it: (N,) current tokens; t: step index. Returns (log-probs (N, V), cache)."""
         logits, cache = self.decode_step_logits(it, cache, t, memory_pytree, train, rng)
-        return torch.log_softmax(logits, dim=-1), cache
+        return vocab_log_softmax(logits), cache

@@ -1,0 +1,197 @@
+"""Up-Down (Bottom-Up Top-Down) LSTM captioner (port of
+``sparse_caption_tpu/models/up_down.py``).
+
+* token embed -> ReLU -> dropout; fc / att feature projections (ReLU +
+  dropout); ``p_att = ctx2att(att)`` computed once per encode
+* two LSTM cells per step: the attention LSTM reads ``[h_lang, fc, x_t]``;
+  additive attention over the regions with masked renormalisation (softmax
+  over every region, then mask and renormalise); the language LSTM reads
+  ``[attended, h_att]``; dropout, then the logit layer
+* the cells keep torch gate order (i, f, g, o) and their two masked
+  projections ``ih`` / ``hh`` as GEMMs; the gate nonlinearities run in
+  kernel K11, the attention after ``h2att`` in K12, the teacher-forced
+  log-softmax over the vocabulary in K13 (once per forward, over the stacked
+  steps, in the compute dtype), masked weights in training in K5, drawn
+  fresh on every call as the JAX package's flax modules draw them
+* memory stays one row per image: the B * rows state rows of a decode (beams)
+  or an XE step (captions) read their image's ``att`` / ``p_att`` in K12; the
+  ``fc`` projection is repeated to the rows once
+
+The decode cache is the four (N, rnn) LSTM states, which beam search
+reorders by parent beam each step (no ancestor map), plus a ``"static"``
+subtree it leaves alone. Scheduled sampling (``ss_prob > 0``), more than one
+logit layer, train-mode decoding and greedy / sampling decode raise
+``NotImplementedError`` until their slice.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Optional
+
+import torch
+from torch import nn
+
+from sparse_caption_tpu_torch import resolve_device
+from sparse_caption_tpu_torch.kernels.additive_attention import additive_attention
+from sparse_caption_tpu_torch.kernels.lstm_cell import lstm_cell
+from sparse_caption_tpu_torch.kernels.vocab_log_softmax import vocab_log_softmax
+from sparse_caption_tpu_torch.models import register_model
+from sparse_caption_tpu_torch.models.layers import DropoutSite, assign_dropout_sites
+from sparse_caption_tpu_torch.models.transformer import train_rng
+from sparse_caption_tpu_torch.ops.masked import MaskConfig, MaskedEmbedding, MaskedLinear
+from sparse_caption_tpu_torch.ops.rng import dropout
+
+STATE = ("h_att", "c_att", "h_lang", "c_lang")
+
+
+class MaskedLSTMCell(nn.Module):
+    """LSTM cell with prunable ``ih`` / ``hh`` projections (kernel K11 after the two GEMMs)."""
+
+    def __init__(self, input_size: int, hidden_size: int, mask_cfg: Optional[MaskConfig] = None, **factory):
+        super().__init__()
+        self.ih = MaskedLinear(input_size, 4 * hidden_size, mask_cfg=mask_cfg, **factory)
+        self.hh = MaskedLinear(hidden_size, 4 * hidden_size, mask_cfg=mask_cfg, **factory)
+
+    def forward(self, x, h, c, rng=None):
+        """x: (N, in); h, c: (N, H). Returns (h', c')."""
+        gx = self.ih(x, rng)
+        return lstm_cell(gx, self.hh(h, rng), c)
+
+
+class AdditiveAttention(nn.Module):
+    """Soft attention with masked renormalisation; ``h2att`` stays a GEMM, the rest is kernel K12."""
+
+    def __init__(self, rnn_size: int, att_hid_size: int, mask_cfg: Optional[MaskConfig] = None, **factory):
+        super().__init__()
+        self.h2att = MaskedLinear(rnn_size, att_hid_size, mask_cfg=mask_cfg, **factory)
+        self.alpha_net = MaskedLinear(att_hid_size, 1, mask_cfg=mask_cfg, **factory)
+
+    def forward(self, h, att, p_att, mask, rng=None):
+        """h: (B * rows, rnn); att: (B, R, rnn); p_att: (B, R, att_hid); mask: (B, R) bool."""
+        att_h = self.h2att(h, rng)
+        w = self.alpha_net.effective_weight(rng).reshape(-1)
+        return additive_attention(p_att, att_h, w, self.alpha_net.bias, mask, att)
+
+
+@register_model("up_down_lstm")
+@register_model("up_down_lstm_prune")
+class UpDownModel(nn.Module, DropoutSite):
+    """Up-Down LSTM. Parameters are created on ``device`` (default ``"cuda"``;
+    raises without CUDA) in ``dtype`` and initialised like the JAX package
+    (xavier-uniform matrices, zero biases) from ``generator``."""
+
+    COLLATE_FIELDS = ("att_feats", "att_masks", "fc_feats")
+    BEAM_ONLY = True  # greedy and sampling decode are not ported yet
+
+    def __init__(self, vocab_size: int, rnn_size: int = 1000, input_encoding_size: int = 1000,
+                 att_hid_size: int = 512, fc_feat_size: int = 2048, att_feat_size: int = 2048, logit_layers: int = 1,
+                 drop_prob_lm: float = 0.5, max_seq_length: int = 18, pad_id: int = 0, bos_id: int = 2,
+                 eos_id: int = 3, unk_id: int = 1, ss_prob: float = 0.0, mask_cfg: Optional[MaskConfig] = None,
+                 *, device="cuda", dtype=torch.float32, generator: Optional[torch.Generator] = None):
+        super().__init__()
+        if ss_prob > 0:
+            raise NotImplementedError("scheduled sampling (ss_prob > 0) lands in a later slice")
+        if logit_layers != 1:
+            raise NotImplementedError("logit_layers > 1 lands in a later slice")
+        self.vocab_size, self.rnn_size = vocab_size, rnn_size
+        self.drop_prob_lm = drop_prob_lm
+        self.max_seq_length = max_seq_length
+        self.pad_id, self.bos_id, self.eos_id, self.unk_id = pad_id, bos_id, eos_id, unk_id
+        self.mask_cfg = mask_cfg
+        factory = dict(device=resolve_device(device), dtype=dtype)
+        self.embed = MaskedEmbedding(vocab_size, input_encoding_size, mask_cfg, **factory)
+        self.fc_embed = MaskedLinear(fc_feat_size, rnn_size, mask_cfg=mask_cfg, **factory)
+        self.att_embed = MaskedLinear(att_feat_size, rnn_size, mask_cfg=mask_cfg, **factory)
+        self.ctx2att = MaskedLinear(rnn_size, att_hid_size, mask_cfg=mask_cfg, **factory)
+        self.att_lstm = MaskedLSTMCell(2 * rnn_size + input_encoding_size, rnn_size, mask_cfg, **factory)
+        self.lang_lstm = MaskedLSTMCell(2 * rnn_size, rnn_size, mask_cfg, **factory)
+        self.attention = AdditiveAttention(rnn_size, att_hid_size, mask_cfg, **factory)
+        self.logit = nn.ModuleList([MaskedLinear(rnn_size, vocab_size, mask_cfg=mask_cfg, **factory)])
+        self.reset_parameters(generator)
+        assign_dropout_sites(self)
+        self.eval()
+
+    def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
+        for m in self.modules():
+            if isinstance(m, (MaskedLinear, MaskedEmbedding)):
+                m.reset_parameters(generator)
+
+    def _drop(self, x, rng):
+        return dropout(x, self.drop_prob_lm, rng, self.site)
+
+    # ------------------------------------------------------------- encode
+    def encode(self, att_feats, att_masks, fc_feats=None, boxes=None, train: bool = False,
+               rng=None) -> Dict[str, Any]:
+        """att_feats: (B, R, F); att_masks: (B, R), 0 = padded; fc_feats: (B, F).
+        Returns the memory dict {fc, att, p_att, mask (bool)}."""
+        del boxes
+        if fc_feats is None:
+            raise ValueError("up_down_lstm requires fc_feats")
+        rng = train_rng(train, rng)
+        with torch.set_grad_enabled(train and torch.is_grad_enabled()):
+            fc = self._drop(torch.relu(self.fc_embed(fc_feats, rng)), rng)  # (B, rnn)
+            att = self._drop(torch.relu(self.att_embed(att_feats, rng)), rng)  # (B, R, rnn)
+            p_att = self.ctx2att(att, rng)  # (B, R, att_hid)
+            return {"fc": fc, "att": att, "p_att": p_att, "mask": (att_masks != 0).contiguous()}
+
+    # --------------------------------------------------------------- core
+    def _core_step(self, it, state: Dict[str, torch.Tensor], fc_rows, memory: Dict[str, Any], rng=None):
+        """One step over N = B * rows state rows: (logits (N, V), new state)."""
+        xt = self._drop(torch.relu(self.embed(it, rng)), rng)
+        h_att, c_att = self.att_lstm(torch.cat([state["h_lang"], fc_rows, xt], dim=1), state["h_att"],
+                                     state["c_att"], rng)
+        att_res = self.attention(h_att, memory["att"], memory["p_att"], memory["mask"], rng)
+        h_lang, c_lang = self.lang_lstm(torch.cat([att_res, h_att], dim=1), state["h_lang"], state["c_lang"], rng)
+        logits = self.logit[0](self._drop(h_lang, rng), rng)
+        return logits, {"h_att": h_att, "c_att": c_att, "h_lang": h_lang, "c_lang": c_lang}
+
+    # ------------------------------------------------------------ XE path
+    def forward(self, att_feats, att_masks, seqs, fc_feats=None, boxes=None, train: bool = False, rng=None):
+        """Teacher-forced log-probs (N, T-1, V) of seqs[:, 1:] in the compute
+        dtype; N a multiple of the batch (rows of one image share its memory)."""
+        rng = train_rng(train, rng)
+        with torch.set_grad_enabled(train):
+            memory = self.encode(att_feats, att_masks, fc_feats, boxes, train, rng)
+            b, n = memory["fc"].shape[0], seqs.shape[0]
+            if n % b:
+                raise ValueError(f"{n} caption rows for {b} images")
+            fc_rows = memory["fc"].repeat_interleave(n // b, dim=0)
+            zeros = torch.zeros((n, self.rnn_size), dtype=fc_rows.dtype, device=fc_rows.device)
+            state = dict.fromkeys(STATE, zeros)
+            logits = []
+            for t in range(seqs.shape[1] - 1):
+                step_logits, state = self._core_step(seqs[:, t], state, fc_rows, memory, rng)
+                logits.append(step_logits)
+            return vocab_log_softmax(torch.stack(logits, dim=1))
+
+    # ------------------------------------------------------------- decode
+    @torch.no_grad()
+    def init_cache(self, memory_pytree: Dict[str, Any], max_steps: Optional[int] = None, rows_per_image: int = 1,
+                   beam_ancestry: bool = False, train: bool = False, rng=None) -> Dict[str, Any]:
+        """Zero LSTM states at ``B * rows_per_image`` rows and, under
+        ``"static"``, the fc projection repeated to those rows. There is no
+        per-step history, so ``max_steps`` and ``beam_ancestry`` change
+        nothing: beam search reorders the state rows themselves."""
+        del max_steps, beam_ancestry, rng
+        if train:
+            raise NotImplementedError("train-mode Up-Down decoding (SCST) lands in a later slice")
+        fc_rows = memory_pytree["fc"].repeat_interleave(int(rows_per_image), dim=0)
+        zeros = torch.zeros_like(fc_rows)
+        return dict(dict.fromkeys(STATE, zeros), static={"fc": fc_rows})
+
+    @torch.no_grad()
+    def decode_step_logits(self, it, cache: Dict[str, Any], t: int, memory_pytree: Dict[str, Any],
+                           train: bool = False, rng=None):
+        """it: (N,) current tokens. Returns (logits (N, V), cache)."""
+        del t, rng
+        if train:
+            raise NotImplementedError("train-mode Up-Down decoding (SCST) lands in a later slice")
+        logits, state = self._core_step(it, cache, cache["static"]["fc"], memory_pytree)
+        return logits, dict(state, static=cache["static"])
+
+    @torch.no_grad()
+    def decode_step(self, it, cache: Dict[str, Any], t: int, memory_pytree: Dict[str, Any], train: bool = False,
+                    rng=None):
+        """it: (N,) current tokens. Returns (log-probs (N, V), cache)."""
+        logits, cache = self.decode_step_logits(it, cache, t, memory_pytree, train, rng)
+        return vocab_log_softmax(logits), cache

@@ -11,6 +11,8 @@ from typing import Optional
 
 import torch
 
+from sparse_caption_tpu_torch.ops.keep import apply_keep
+
 NEG_INF = -1e9
 
 
@@ -20,8 +22,8 @@ def scaled_dot_attention(q, k, v, mask: Optional[torch.Tensor] = None, bias: Opt
 
     ``masked_fill`` keeps the scores' dtype (a bf16 run stays bf16), and the
     bias (ORT geometry) is added AFTER the -1e9 fill. ``keep`` (bool, the
-    probabilities' shape) is the training dropout on the probabilities:
-    ``p / keep_prob`` where kept, 0 elsewhere."""
+    probabilities' shape) is the training dropout on the probabilities
+    (``ops/keep.py``)."""
     scores = torch.matmul(q, k.transpose(-1, -2)) / math.sqrt(q.shape[-1])
     if mask is not None:
         scores = scores.masked_fill(mask == 0, NEG_INF)
@@ -29,7 +31,7 @@ def scaled_dot_attention(q, k, v, mask: Optional[torch.Tensor] = None, bias: Opt
         scores = scores + bias
     probs = torch.softmax(scores, dim=-1)
     if keep is not None:
-        probs = torch.where(keep, probs / keep_prob, torch.zeros_like(probs))
+        probs = apply_keep(probs, keep, keep_prob)
     return torch.matmul(probs, v)
 
 

@@ -18,9 +18,10 @@ place means eval.
   tensor at step t. Both give the same bits for the same (site, t, row,
   column), which is what makes the SCST teacher-forced replay equal the
   sampling decode. Sites are 32-bit ids from the module's qualified name
-  (``site_id``). Its dropout scales kept values by ``1 / keep_prob``
-  rounded to f32 (kernel K8). Supermask draws are not keyed:
-  ``mask_uniform`` raises.
+  (``site_id``). Supermask draws are not keyed: ``mask_uniform`` raises.
+
+Both divide a kept value by the keep probability rounded to its dtype, as
+the JAX package does (``ops/keep.py``).
 """
 
 from __future__ import annotations
@@ -33,6 +34,7 @@ import torch
 from torch import nn
 
 from sparse_caption_tpu_torch.kernels.keyed_dropout import keyed_dropout, keyed_keep_mask
+from sparse_caption_tpu_torch.ops.keep import apply_keep
 
 M64 = (1 << 64) - 1
 
@@ -53,8 +55,7 @@ class TrainRandom:
         return self._uniform(shape, device) < keep_prob
 
     def dropout(self, x: torch.Tensor, keep_prob: float, site: Optional[int] = None) -> torch.Tensor:
-        keep = self.keep_mask(x.shape, keep_prob, x.device, site)
-        return torch.where(keep, x / keep_prob, torch.zeros_like(x))
+        return apply_keep(x, self.keep_mask(x.shape, keep_prob, x.device, site), keep_prob)
 
 
 def site_id(name: str) -> int:

@@ -5,7 +5,8 @@ Input is ``{"params": ..., "masks": ...}`` as nested dicts of numpy arrays
 Flax leaf paths become parameter names:
 
 * ``decoder_layers_3/self_attn/q_proj/kernel`` -> ``decoder_layers.3.self_attn.q_proj.weight``
-  (``*_layers_N`` lists become ModuleList indices)
+  (``*_layers_N`` lists, and Up-Down's ``logit_N`` setup list, become
+  ModuleList indices)
 * Dense ``kernel`` (in, out) -> ``weight`` (out, in), transposed here, once;
   ``wg`` stays one (64, h) projection, i.e. a (h, 64) weight
 * ``embedding`` -> ``weight``; RefLayerNorm ``scale`` -> ``weight``; ``bias`` -> ``bias``
@@ -25,7 +26,7 @@ import torch
 
 from sparse_caption_tpu_torch.ops.masked import MaskConfig, fold_mask
 
-_LAYER_LIST = re.compile(r"^(\w+_layers)_(\d+)$")
+_LAYER_LIST = re.compile(r"^(\w+_layers|logit)_(\d+)$")
 _LEAF = {"kernel": "weight", "embedding": "weight", "scale": "weight", "bias": "bias"}
 
 

@@ -5,6 +5,7 @@ token sequences must be identical and the sequence log-probs within 1e-4."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from _torch_port_common import KW, jax_mask_cfg, jax_variables, make_inputs, port_mask_cfg, port_model, t
 from sparse_caption_tpu.decoding import generate as jax_generate
@@ -46,7 +47,9 @@ def test_beam5_generate_matches_jax(opt_name, mask_type):
 
 
 def test_beam_search_reorders_only_the_ancestry():
-    """The K/V cache tensors the step function sees are the ones init_cache built."""
+    """The K/V cache tensors the step function sees are the ones init_cache
+    built. A cache without the ancestor map has its (B*K, ...) rows reordered
+    by parent beam instead (the JAX package's other mode): the same captions."""
     port = port_model("relation_transformer", jax_variables(JaxORT(**KW), make_inputs()))
     att, amask, boxes, _ = make_inputs()
     memory = port.encode(t(att), t(amask), t(boxes))
@@ -58,11 +61,19 @@ def test_beam_search_reorders_only_the_ancestry():
         seen.append(all(a is b for a, b in zip(kv, (c["self_k"] for c in cache["layers"]))))
         return port.decode_step_logits(it, cache, step, memory)
 
-    seq, _ = beam_search(step_fn, cache, 2, 3, 6, bos_id=2, eos_id=3)
+    seq, lp = beam_search(step_fn, cache, 2, 3, 6, bos_id=2, eos_id=3)
     assert all(seen) and len(seen) == 6
     assert seq.shape == (2, 3, 6)
-    with pytest.raises(ValueError, match="ancestry"):
-        beam_search(step_fn, port.init_cache(memory, 6, 3), 2, 3, 6, bos_id=2, eos_id=3)
+    moved = []
+
+    def reorder_step(it, cache, step):
+        moved.append(not all(a is b for a, b in zip(kv, (c["self_k"] for c in cache["layers"]))))
+        return port.decode_step_logits(it, cache, step, memory)
+
+    seq_r, lp_r = beam_search(reorder_step, port.init_cache(memory, 6, 3), 2, 3, 6, bos_id=2, eos_id=3)
+    assert all(moved[1:])
+    assert torch.equal(seq_r, seq)
+    torch.testing.assert_close(lp_r, lp)
 
 
 @pytest.mark.parametrize("opt", [

@@ -101,7 +101,7 @@ def test_keyed_step_and_replay_draws_are_identical():
     x = torch.randn(shape)
     applied = torch.cat([stream.at(j).dropout(x[:, j: j + 1], 0.9, site) for j in range(5)], 1)
     assert torch.equal(stream.dropout(x, 0.9, site), applied)
-    assert torch.equal(applied, torch.where(replay, x * (1 / 0.9), torch.zeros_like(x)))
+    assert torch.equal(applied, torch.where(replay, x / 0.9, torch.zeros_like(x)))
     assert not torch.equal(replay, stream.keep_mask(shape, 0.9, "cpu", site + 1))  # sites differ
     assert not torch.equal(replay, KeyedStream(1).keep_mask(shape, 0.9, "cpu", site))  # keys differ
     with pytest.raises(ValueError, match="site"):
