@@ -2,15 +2,18 @@
 """Smoke run of the PyTorch/CUDA port (``sparse_caption_tpu_torch``) on one GPU.
 
 Phases:
-1. set-up: card name and power limit, versions, build of the thirteen kernel
+1. set-up: card name and power limit, versions, build of the fifteen kernel
    libraries (``kernels/csrc/*.cu``, nvcc for sm_90a, one process per source);
 2. kernel checks: each kernel against its plain PyTorch version at the
    shapes of its path (beam-5 serving: B = 2048 images, 36 regions, 8 heads
    of 64, vocab 10000, 17 steps; XE step: the 105 masked tensors, 256 x 5
    captions; Up-Down's K11-K13: 1024 x 5 beams, 1000 units, 512 attention
-   units, 36 regions, and 256 x 5 x 17 rows of 10000 logits), in f32 and bf16,
-   forward and backward, each with a planted fault, and the times of kernel,
-   plain version and one PyTorch library call;
+   units, 36 regions, and 256 x 5 x 17 rows of 10000 logits; the decoder's
+   full-sequence attention K14/K15: 256 x 5 captions and the SCST replay's
+   64 x 15 samples, causal self-attention over 17 tokens and cross-attention
+   over 36 regions read once per image), in f32 and bf16, forward and
+   backward, each with a planted fault, and the times of kernel, plain
+   version and one PyTorch library call;
 3. serving path: a paper-width ``relation_transformer_prune`` (random
    weights and supermask logits from a seed, masks folded), ``encode`` +
    beam-5 ``generate`` in bf16 at batch 50 and 2048 with the kernels' launch
@@ -41,7 +44,16 @@ Phases:
    target 0.991, weight 120; fresh mask samples on every call, 3 + 8 per
    step) at 15 x 5 in f32 and bf16 and 256 x 5 in bf16 with the launch
    counts asserted and a profile at 256 x 5, and the card-vs-CPU f32 step at
-   2 x 5 without dropout.
+   2 x 5 without dropout; greedy decode card vs CPU (f32, batch 8); the
+   paper's sparse SCST step for Up-Down (mask_freeze at 0.991, dropout 0.1,
+   f32, 60 random samples per image, leave-one-out baseline, CIDEr-D +
+   BLEU-4) at 5 x 60 and 16 x 60 with the launch counts asserted and a
+   profile at 16 x 60, its replay check at 5 x 60, and its card-vs-CPU step
+   at 2 x 3 with dropout on.
+
+The ORT XE and SCST steps run the decoder's full-sequence attention through
+K14/K15 (12 + 12 launches per step, asserted), and the plain
+``scaled_dot_attention`` must not run in any train or SCST step.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it is
 the card's name and power limit, and before that one JSON line with every
@@ -54,6 +66,7 @@ any phase fails.
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import json
 import math
@@ -101,6 +114,8 @@ REPLACES = {
     "lstm_cell": "sparse_caption_tpu/models/up_down.py:47",
     "additive_attention": "sparse_caption_tpu/models/up_down.py:67",
     "vocab_log_softmax": "sparse_caption_tpu/models/up_down.py:124",
+    "decoder_attention": "sparse_caption_tpu/models/layers.py:158",
+    "decoder_attention_bwd": "sparse_caption_tpu/models/layers.py:158",
 }
 # the supermask XE train step (bench.py:230-292): 15 images x 5 captions of 18
 # tokens, and the throughput point at 256 images; supermask logits start at 5.0
@@ -145,6 +160,11 @@ UPDOWN_CONFIG = dict(lr_scheduler="cosine", learning_rate=0.01, optim_epsilon=0.
                      max_train_step=100000, prune_sparsity_target=0.991, prune_supermask_sparsity_weight=120,
                      caption_model="up_down_lstm_prune", seed=SEED)
 UPDOWN_DROP = 0.1
+# the paper's Up-Down sparse SCST (resources/commands_pruning.sh:113): mask_freeze
+# at 0.991, 60 random samples per image, leave-one-out baseline, dropout 0.1,
+# the ORT SCST's step LR 5e-5 / Adam / clip 0.1 and reward; 5 images (the
+# paper's batch) and 16 (960 rows, the ORT's 64 x 15)
+UPDOWN_SCST_SPARSITY, UPDOWN_SCST_SAMPLES, UPDOWN_SCST_BATCHES = 0.991, 60, (5, 16)
 
 
 def log(msg: str) -> None:
@@ -281,7 +301,7 @@ def check_kernels(gen, dtype, results: dict) -> bool:
     log(f"[kernel] box_attention {dname}: geometry log-bias in [{bias.min().item():.3f}, {bias.max().item():.3f}], "
         f"std {bias.float().std().item():.3f}")
     err, _ = compare("box_attention", k1.box_attention(*args), k1.box_attention_plain(*args), rms(v),
-                     fault=scaled_dot_attention(q, k, v, mask=mask[:, None, None, :]))  # geometry bias dropped
+                     fault=scaled_dot_attention(q, k, v, mask))  # geometry bias dropped
     float_mask = bias.masked_fill(~mask[:, None, None, :], NEG_INF).to(dtype).contiguous()
     record("box_attention", err,
            time_ms(lambda: k1.box_attention(*args)), time_ms(lambda: k1.box_attention_plain(*args), iters=5),
@@ -555,6 +575,151 @@ def check_train_kernels(gen, dtype, results: dict) -> bool:
     return ok
 
 
+def check_decoder_attention_kernels(gen, results: dict) -> bool:
+    """K14 and K15 against the plain version with autograd: at the ORT XE
+    step's shape (256 images x 5 captions) in f32 and bf16 and at the SCST
+    replay's (64 x 15 samples) in f32, causal self-attention over 17 tokens
+    (pad keys after each caption's end; causal only in the replay) and
+    cross-attention over 36 regions with one K/V row per image (image 0 with
+    every region padded), each with and without a dropout keep-mask; planted
+    faults (the causal rule dropped in the forward, the keep-mask dropped in
+    the backward); the bf16 times of one decoder layer's pair of calls (self
+    + cross) at the XE shape into the JSON line."""
+    from sparse_caption_tpu_torch.kernels import decoder_attention as k14
+
+    dev = torch.device("cuda")
+    h, dk, tq, r = HEADS, DK, MAX_LEN, REGIONS
+    ok = True
+
+    def inputs(dtype, b, g, kind, with_keep, pad_keys=True):
+        n = b * g
+        rnd = lambda *shape: torch.randn(*shape, generator=gen, device=dev).to(dtype)  # noqa: E731
+        if kind == "self":
+            nk, tk, causal = n, tq, True
+            ends = torch.randint(2, tq + 1, (n, 1), generator=gen, device=dev)
+            valid = (torch.arange(tq, device=dev)[None] < ends) if pad_keys else None
+        else:
+            nk, tk, causal = b, r, False
+            valid = random_region_mask(gen, b, r, dev)
+            valid[0] = False
+        keep = (torch.rand(n, h, tq, tk, generator=gen, device=dev) < 0.9) if with_keep else None
+        return (rnd(n, h, tq, dk), rnd(nk, h, tk, dk), rnd(nk, h, tk, dk), valid, causal, keep), rnd(n, h, tq, dk)
+
+    def run(fn, args, dout, **change):
+        q, k, v, valid, causal, keep = args
+        kw = dict(dict(key_valid=valid, causal=causal, keep=keep, keep_prob=0.9), **change)
+        ins = leaves(q, k, v)
+        out = fn(*ins, **kw)
+        return out.detach(), torch.autograd.grad(out, ins, dout)
+
+    errs = {"fwd": 0.0, "bwd": 0.0}
+    cases = [(dt, TRAIN_BIG_BATCH, SEQ_PER_IMG, kind, kp, True) for dt in (torch.float32, torch.bfloat16)
+             for kind in ("self", "cross") for kp in (True, False)]
+    cases += [(torch.float32, SCST_BATCHES[-1], SCST_SAMPLES, kind, kp, False) for kind in ("self", "cross")
+              for kp in (True, False)]
+    for dtype, b, g, kind, with_keep, pad_keys in cases:
+        args, dout = inputs(dtype, b, g, kind, with_keep, pad_keys)
+        label = (f"decoder_attention {kind} {b}x{g}{' keep' if with_keep else ''}"
+                 f"{' causal-only' if kind == 'self' and not pad_keys else ''}")
+        dname = str(dtype).split(".")[-1]
+        kout, kg = run(k14.decoder_attention, args, dout)
+        pout, pg = run(k14.decoder_attention_plain, args, dout)
+        err, good, worst = close(kout, pout, dtype, rms(args[2]))
+        log(f"[kernel] {label} {dname}: max_abs_err={err:.3e} worst err/allowed={worst:.3f} {'ok' if good else 'FAIL'}")
+        ok &= good
+        if dtype == torch.bfloat16:
+            errs["fwd"] = max(errs["fwd"], err)
+        if kind == "self":  # fault: the causal rule dropped
+            ok &= fault_caught(f"{label} causal ignored", run(k14.decoder_attention_plain, args, dout, causal=False)[0],
+                               pout, dtype, rms(args[2]))
+        fg = run(k14.decoder_attention_plain, args, dout, keep=None)[1] if with_keep else None
+        # bf16: the plain version rounds dP, dS and each product to bf16 and
+        # sums a group's dK / dV in bf16, so its error follows the largest
+        # gradient entries (s = max |ref|, as K7's check); f32: the sums' scale
+        for i, nm in enumerate(("dq", "dk", "dv")):
+            err, good, worst = close(kg[i], pg[i], dtype, pg[i].float().abs().max().item(), rms(pg[i]))
+            log(f"[kernel] {label} {nm} {dname}: max_abs_err={err:.3e} worst err/allowed={worst:.3f} "
+                f"{'ok' if good else 'FAIL'}")
+            ok &= good
+            if dtype == torch.bfloat16:
+                errs["bwd"] = max(errs["bwd"], err)
+            if fg is not None and nm != "dk":  # fault: the keep-mask dropped in the backward
+                ok &= fault_caught(f"{label} {nm} keep ignored in the backward", fg[i], pg[i], dtype,
+                                   pg[i].float().abs().max().item(), rms(pg[i]))
+        if kind == "cross":  # image 0 has no valid region: uniform weights, no gradient to its q or k
+            zero = bool((kg[0][:g] == 0).all() and (kg[1][0] == 0).all())
+            msg = f"[kernel] {label} {dname}: all-padded image: dq and dk exactly 0={zero}"
+            if not with_keep:
+                uniform = (kout[:g].float() - args[2][0].float().mean(1)[None, :, None]).abs().max().item()
+                msg += f", output - mean(v) max {uniform:.3e}"
+            log(msg)
+            ok &= zero
+        del args, dout, kout, kg, pout, pg, fg
+
+    # times: one decoder layer's pair of calls at the XE shape in bf16, with dropout
+    dtype, es, n = torch.bfloat16, 2, TRAIN_BIG_BATCH * SEQ_PER_IMG
+    pair = [inputs(dtype, TRAIN_BIG_BATCH, SEQ_PER_IMG, kind, True) for kind in ("self", "cross")]
+
+    def forward(fn):
+        for args, _ in pair:
+            q, k, v, valid, causal, keep = args
+            fn(q, k, v, valid, causal, keep, 0.9)
+
+    def library_inputs(args):
+        """SDPA's inputs: K/V repeated to the query rows, a dense bool mask (no keep-mask: SDPA draws its own)."""
+        q, k, v, valid, causal, _ = args
+        g = q.shape[0] // k.shape[0]
+        mask = valid.repeat_interleave(g, 0)[:, None, None, :]
+        if causal:
+            mask = mask & torch.tril(torch.ones(tq, tq, dtype=torch.bool, device=dev))
+        return leaves(q, k.repeat_interleave(g, 0), v.repeat_interleave(g, 0)), mask
+
+    graphs = {"kernel": [], "plain": [], "library": []}
+    for args, dout in pair:
+        for impl, fn in (("kernel", k14.decoder_attention), ("plain", k14.decoder_attention_plain)):
+            ins = leaves(*args[:3])
+            graphs[impl].append((fn(*ins, *args[3:], 0.9), ins, dout))
+        ins, mask = library_inputs(args)
+        graphs["library"].append((F.scaled_dot_product_attention(*ins, attn_mask=mask), ins, dout))
+
+    def backward(impl):
+        for out, ins, dout in graphs[impl]:
+            torch.autograd.grad(out, ins, dout, retain_graph=True)
+
+    lib_in = [library_inputs(args) for args, _ in pair]
+    with torch.no_grad():
+        fwd = (time_ms(lambda: forward(k14.decoder_attention)), time_ms(lambda: forward(k14.decoder_attention_plain),
+                                                                        iters=5),
+               time_ms(lambda: [F.scaled_dot_product_attention(*i, attn_mask=m) for i, m in lib_in]))
+    bwd = (time_ms(lambda: backward("kernel")), time_ms(lambda: backward("plain"), iters=5),
+           time_ms(lambda: backward("library")))
+    nbytes_f = nbytes_b = 0
+    ops_f = ops_b = 0
+    for args, _ in pair:
+        q, k, v, valid, _, keep = args
+        q_el, kv_el, pairs = q.numel(), k.numel(), q.numel() // dk * k.shape[2]
+        extra = keep.numel() + valid.numel()
+        nbytes_f += (2 * q_el + 2 * kv_el) * es + extra
+        nbytes_b += (3 * q_el + 4 * kv_el) * es + extra
+        ops_f += 4 * pairs * dk
+        ops_b += 10 * pairs * dk
+    for name, (ms, plain_ms, lib_ms), nbytes, ops, err in (("decoder_attention", fwd, nbytes_f, ops_f, errs["fwd"]),
+                                                          ("decoder_attention_bwd", bwd, nbytes_b, ops_b,
+                                                           errs["bwd"])):
+        bnd, by = bound_ms(nbytes, flops((dtype, ops)))
+        log(f"[kernel] {name} bf16 self + cross at {TRAIN_BIG_BATCH}x{SEQ_PER_IMG} ({n} rows): ms={ms:.4f} "
+            f"plain_ms={plain_ms:.4f} library_ms={lib_ms:.4f} (SDPA, bool mask, K/V repeated) bound_ms={bnd:.4f} ({by})")
+        results[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bnd, bound_by=by)
+    del graphs, pair, lib_in
+    # the replay's pair (f32, 64 x 15, causal-only self, no dropout): kernel vs plain, forward + backward
+    rpair = [inputs(torch.float32, SCST_BATCHES[-1], SCST_SAMPLES, kind, False, False) for kind in ("self", "cross")]
+    t_k, t_p = (time_ms(lambda: [run(fn, a, d) for a, d in rpair], iters=5)
+                for fn in (k14.decoder_attention, k14.decoder_attention_plain))
+    log(f"[kernel] decoder_attention f32 self + cross, forward + backward at the replay shape "
+        f"{SCST_BATCHES[-1]}x{SCST_SAMPLES}: ms={t_k:.4f} plain_ms={t_p:.4f}")
+    return ok
+
+
 # ---------------------------------------------------------------- main path
 def build_model(seed: int):
     """Paper-width relation_transformer_prune in f32 on the card, random
@@ -660,6 +825,26 @@ def profile_window(label: str, fn) -> None:
         log(f"[profile]   host {e.self_cpu_time_total / 1e3:9.2f} ms  x{e.count:<6d} {e.key[:80]}")
 
 
+@contextlib.contextmanager
+def plain_attention_calls():
+    """Counts, while inside, the calls of the plain ``scaled_dot_attention``
+    through every module of the port that holds it (yields a 1-list)."""
+    import sparse_caption_tpu_torch.ops.attention as attention
+
+    original, calls = attention.scaled_dot_attention, [0]
+
+    def counting(*args, **kwargs):
+        calls[0] += 1
+        return original(*args, **kwargs)
+
+    holders = [m for name, m in list(sys.modules.items())
+               if name.startswith("sparse_caption_tpu_torch") and getattr(m, "scaled_dot_attention", None) is original]
+    with contextlib.ExitStack() as stack:
+        for m in holders:
+            stack.enter_context(mock.patch.object(m, "scaled_dot_attention", counting))
+        yield calls
+
+
 def whole_path_check(model_f32, gen, make=make_batch, label="whole-path") -> bool:
     """f32 on the card (kernels) vs the CPU (plain versions) on the same weights."""
     batch = make(gen, CHECK_BATCH, torch.float32)
@@ -724,10 +909,12 @@ def run_train_phase(model, gen, b, precision, expected, config=TRAIN_CONFIG, mak
     first = float(loss)
     torch.cuda.synchronize()
     reset_launch_counts()
-    state, loss, aux = step(state, batch)
+    with plain_attention_calls() as plain:
+        state, loss, aux = step(state, batch)
     torch.cuda.synchronize()
     counts = launch_counts()
     assert counts == expected, f"train launch counts {counts} != {expected}"
+    assert plain[0] == 0, f"the plain scaled_dot_attention ran {plain[0]} times in a {label} step"
     best = float("inf")
     for _ in range(3):
         torch.cuda.synchronize()
@@ -965,23 +1152,43 @@ def scst_reward_setup(b: int, device, seed: int = 2, gts=None):
     return table, scst_ref_pack(gts, df, table, tok2id, PAPER["vocab_size"], device)
 
 
+def freeze_masks(model, gen, sparsity: float, label: str):
+    """mask_freeze's frozen 0/1 masks, kept as parameters (bench.py:340-344:
+    kept where a uniform >= the sparsity)."""
+    from sparse_caption_tpu_torch.ops.masked import split_params
+
+    _, masks = split_params(model)
+    with torch.no_grad():
+        for m in masks.values():
+            m.copy_((torch.rand(m.shape, generator=gen, device="cuda") >= sparsity).float())
+    kept = sum(int(m.sum()) for m in masks.values()) / sum(m.numel() for m in masks.values())
+    log(f"[{label}] mask_freeze: {len(masks)} masks, {kept:.4f} of the masked weights kept")
+    return model
+
+
 def build_scst_model(seed: int):
     """Paper-width relation_transformer_prune in f32 on the card, mask_freeze
-    with its frozen 0/1 masks kept as parameters (bench.py:340-344: kept where
-    a uniform >= the sparsity), random weights from the seed, dropout on."""
+    at 0.9875, random weights from the seed, dropout on."""
     from sparse_caption_tpu_torch.models import get_model
-    from sparse_caption_tpu_torch.ops.masked import MaskConfig, split_params
+    from sparse_caption_tpu_torch.ops.masked import MaskConfig
 
     gen = torch.Generator(device="cuda").manual_seed(seed)
     model = get_model("relation_transformer_prune")(
         **PAPER, mask_cfg=MaskConfig("mask_freeze", keep_masks=True), device="cuda", generator=gen)
-    _, masks = split_params(model)
-    with torch.no_grad():
-        for m in masks.values():
-            m.copy_((torch.rand(m.shape, generator=gen, device="cuda") >= SCST_SPARSITY).float())
-    kept = sum(int(m.sum()) for m in masks.values()) / sum(m.numel() for m in masks.values())
-    log(f"[scst] mask_freeze: {len(masks)} masks, {kept:.4f} of the masked weights kept")
-    return model
+    return freeze_masks(model, gen, SCST_SPARSITY, "scst")
+
+
+def build_updown_scst(seed: int):
+    """Paper-width up_down_lstm_prune in f32 on the card, mask_freeze at
+    0.991, random weights from the seed, dropout 0.1 (the paper's Up-Down
+    SCST, resources/commands_pruning.sh:113)."""
+    from sparse_caption_tpu_torch.models import get_model
+    from sparse_caption_tpu_torch.ops.masked import MaskConfig
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    model = get_model("up_down_lstm_prune")(**UPDOWN, drop_prob_lm=UPDOWN_DROP, device="cuda", generator=gen,
+                                            mask_cfg=MaskConfig("mask_freeze", keep_masks=True))
+    return freeze_masks(model, gen, UPDOWN_SCST_SPARSITY, "updown scst")
 
 
 def make_scst(model, table, samples: int = SCST_SAMPLES):
@@ -1011,7 +1218,25 @@ def scst_launches(layers: int, steps: int, n_masked: int, names) -> dict:
                   grouped_cross_attention=layers * steps, supermask=2 * n_masked, supermask_bwd=n_masked,
                   add_ref_layernorm=enc_k6 + steps * dec_k6 + enc_k6 + dec_k6, add_ref_layernorm_bwd=enc_k6 + dec_k6,
                   keyed_keep_mask=3 * layers * (steps + 3), keyed_dropout=(1 + layers) * (steps + 5),
-                  sample_step=steps, cider_reward=1, vocab_log_softmax=1, vocab_log_softmax_bwd=1)
+                  sample_step=steps, cider_reward=1, vocab_log_softmax=1, vocab_log_softmax_bwd=1,
+                  decoder_attention=2 * layers, decoder_attention_bwd=2 * layers)
+    return counts
+
+
+def updown_scst_launches(steps: int, names) -> dict:
+    """Launches of one Up-Down SCST step: the sampling phase (a train-mode
+    encode and `steps` decode steps without gradients: each of the 11 masked
+    tensors multiplied once, kept until the update; two LSTM cells, the
+    attention, the sampling step and two keyed dropouts per step, two in
+    the encode), the reward, then the replay: the unrolled steps with every
+    masked tensor multiplied on every call (3 + 8 per step, as flax samples
+    them) and the backward of each launch."""
+    calls = 3 + 8 * steps
+    counts = {name: 0 for name in names}
+    counts.update(supermask=11 + calls, supermask_bwd=calls, keyed_dropout=3 * (2 + 2 * steps),
+                  lstm_cell=4 * steps, lstm_cell_bwd=2 * steps, additive_attention=2 * steps,
+                  additive_attention_bwd=steps, sample_step=steps, cider_reward=1, vocab_log_softmax=1,
+                  vocab_log_softmax_bwd=1)
     return counts
 
 
@@ -1020,45 +1245,55 @@ def scst_batch(gen, b, pack):
     return dict(att_feats=att, att_masks=mask, boxes=boxes, ref_pack=pack)
 
 
-def run_scst_phase(model, gen, b, expected) -> tuple:
-    """1 warm-up + SCST_STEPS steps at b x 15; every step's launches must
-    equal `expected`. Returns (counts per step, step, state, batch)."""
+def updown_scst_batch(gen, b, pack):
+    att, mask, fc = make_updown_batch(gen, b, torch.float32, pack["hi"].device)
+    return dict(att_feats=att, att_masks=mask, fc_feats=fc, ref_pack=pack)
+
+
+def run_scst_phase(model, gen, b, expected, samples=SCST_SAMPLES, make=scst_batch, label="scst") -> tuple:
+    """1 warm-up + SCST_STEPS steps at b x samples; every step's launches
+    must equal `expected`, and the plain scaled_dot_attention never runs.
+    Returns (counts per step, step, state, batch)."""
     from sparse_caption_tpu_torch.engine.training import TrainState
     from sparse_caption_tpu_torch.kernels import launch_counts, reset_launch_counts
 
     table, pack = scst_reward_setup(b, "cuda")
-    step = make_scst(model, table)
-    batch = scst_batch(gen, b, pack)
+    step = make_scst(model, table, samples)
+    batch = make(gen, b, pack)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     state, loss, aux = step(TrainState(), batch)  # warm-up
     torch.cuda.synchronize()
     reset_launch_counts()
     t0 = time.perf_counter()
-    for _ in range(SCST_STEPS):
-        state, loss, aux = step(state, batch)
-    torch.cuda.synchronize()
+    with plain_attention_calls() as plain:
+        for _ in range(SCST_STEPS):
+            state, loss, aux = step(state, batch)
+        torch.cuda.synchronize()
     per_step = (time.perf_counter() - t0) / SCST_STEPS
     counts = launch_counts()
-    assert counts == {k: SCST_STEPS * v for k, v in expected.items()}, f"SCST launch counts {counts} != 5 x {expected}"
+    assert counts == {k: SCST_STEPS * v for k, v in expected.items()}, f"{label} launch counts {counts} != 5 x {expected}"
+    assert plain[0] == 0, f"the plain scaled_dot_attention ran {plain[0]} times in {SCST_STEPS} {label} steps"
     assert math.isfinite(float(loss)) and state.step == SCST_STEPS + 1
-    log(f"[scst] f32 batch {b}x{SCST_SAMPLES}: {1 / per_step:.3f} steps/s, {b * SCST_SAMPLES / per_step:.1f} "
+    log(f"[{label}] f32 batch {b}x{samples}: {1 / per_step:.3f} steps/s, {b * samples / per_step:.1f} "
         f"samples/s ({per_step * 1e3:.1f} ms per step, mean of {SCST_STEPS}); loss {float(loss):.5f}, avg_sample "
         f"{float(aux['avg_sample']):.5f}, avg_reward {float(aux['avg_reward']):.3e}; peak device memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; launches per step {expected}")
     return expected, step, state, batch
 
 
-def replay_check(model, gen) -> bool:
-    """At 5 x 15 with dropout on: the replay's log-probs at non-pad positions
-    equal the sampling decode's (K2/K3 over the cache vs plain attention)."""
+def replay_check(model, gen, make=make_batch, samples=SCST_SAMPLES, label="replay") -> bool:
+    """At 5 x samples with dropout on: the replay's log-probs at non-pad
+    positions equal the sampling decode's (ORT: K14 over the sequence vs
+    K2/K3 over the cache; Up-Down: the same unrolled steps with and without
+    gradients)."""
     from sparse_caption_tpu_torch.decoding import generate
     from sparse_caption_tpu_torch.ops.rng import KeyedStream, decode_train_keys
 
-    att, mask, boxes = make_batch(gen, SCST_BATCHES[0], torch.float32)
-    opt = {"num_random_sample": SCST_SAMPLES, "beam_size": 0, "max_seq_length": MAX_LEN, "decode_train": True}
+    batch = make(gen, SCST_BATCHES[0], torch.float32)
+    opt = {"num_random_sample": samples, "beam_size": 0, "max_seq_length": MAX_LEN, "decode_train": True}
     with torch.no_grad():
-        memory = model.encode(att, mask, boxes, train=True, rng=KeyedStream(11))
+        memory = model.encode(*batch, train=True, rng=KeyedStream(11))
         seq, seq_lp = generate(model, memory, opt, rng=12)
         flat = seq.reshape(-1, MAX_LEN).long()
         seqs_in = torch.cat([torch.full((flat.shape[0], 1), model.bos_id, device=flat.device), flat], 1)
@@ -1066,22 +1301,22 @@ def replay_check(model, gen) -> bool:
         at = lp.gather(2, flat[..., None])[..., 0]
     valid = flat != model.pad_id
     gap = (at - seq_lp.reshape(-1, MAX_LEN))[valid].abs().max().item()
-    log(f"[replay] f32 {SCST_BATCHES[0]}x{SCST_SAMPLES}: {int(valid.sum())} non-pad positions, worst |replay - "
+    log(f"[{label}] f32 {SCST_BATCHES[0]}x{samples}: {int(valid.sum())} non-pad positions, worst |replay - "
         f"sampling| log-prob {gap:.3e} (tol {REPLAY_LP_TOL}) {'ok' if gap <= REPLAY_LP_TOL else 'FAIL'}")
     return gap <= REPLAY_LP_TOL
 
 
-def scst_whole_step_check(seed: int, gen) -> bool:
+def scst_whole_step_check(seed: int, gen, build=build_scst_model, make=make_batch, label="scst-step") -> bool:
     """One f32 SCST step at 2 x 3 with dropout on, on the card and on the CPU
-    from the same weights and seed; the card's tokens feed both replays."""
+    from the same weights and seed (`build`; inputs from `make` in the
+    model's COLLATE_FIELDS order); the card's tokens feed both replays."""
     from sparse_caption_tpu_torch.engine.training import TrainState
 
     from sparse_caption_tpu_torch.scst.device_reward import DfTable
 
-    model_gpu = build_scst_model(seed)
+    model_gpu = build(seed)
     model_cpu = copy.deepcopy(model_gpu).to("cpu")
-    att, mask, boxes = make_batch(gen, SCST_CHECK_BATCH, torch.float32)
-    inputs = dict(att_feats=att, att_masks=mask, boxes=boxes)
+    inputs = dict(zip(model_gpu.COLLATE_FIELDS, make(gen, SCST_CHECK_BATCH, torch.float32)))
     # the sampling phase reads no reference; each image's refs are then its
     # first sample (every third word dropped) and four unrelated captions, so
     # that the leave-one-out rewards, and with them the gradients, are far
@@ -1120,7 +1355,7 @@ def scst_whole_step_check(seed: int, gen) -> bool:
         elementwise_ok += bool((diff.abs() <= STEP_GRAD_TOL * g_ref.abs().max().item() + STEP_GRAD_FLOOR * top).all())
         worst = max(worst, (diff.norm() / (STEP_GRAD_NORM_TOL * g_ref.norm()
                                            + STEP_GRAD_FLOOR * top * g_ref.numel() ** 0.5)).item())
-    log(f"[scst-step] f32 {SCST_CHECK_BATCH}x{SCST_CHECK_SAMPLES}, dropout on: sampled tokens differing card vs CPU "
+    log(f"[{label}] f32 {SCST_CHECK_BATCH}x{SCST_CHECK_SAMPLES}, dropout on: sampled tokens differing card vs CPU "
         f"{n_tok}/{flat.numel()}; rewards {[round(x, 4) for x in r_cpu.tolist()]}, largest gradient {top:.3e}; "
         f"rewards max_abs_err {r_err.max().item():.3e} (rtol {REWARD_RTOL}, atol "
         f"{REWARD_ATOL}) {'ok' if r_ok else 'FAIL'}; loss card {float(loss_g):.7f} cpu {float(loss_c):.7f} "
@@ -1231,6 +1466,20 @@ def check_updown_kernels(gen, dtype, results: dict) -> bool:
         dw_scale = pg[2].float().abs().max().item()
         for nm, kt, pt in zip(("d w", "d bias"), kg[2:4], pg[2:4]):
             compare(f"additive_attention_bwd {nm}", kt, pt, sum_scale=dw_scale)
+        # the Up-Down SCST shape: 60 samples per image, in 4 chunks of rows
+        b_c = UPDOWN_SCST_BATCHES[-1]
+        si = k12_inputs(b_c, b_c * UPDOWN_SCST_SAMPLES)
+        sin = leaves(si[0], si[1], si[2], si[3], si[5])
+        run_s = lambda fn: (lambda p, q, w_, b_, at: fn(p, q, w_, b_, si[4], at))  # noqa: E731
+        scot = rnd(b_c * UPDOWN_SCST_SAMPLES, d)
+        (so_k,), sg_k = fwd_bwd(run_s(k12.additive_attention), sin, scot)
+        (so_p,), sg_p = fwd_bwd(run_s(k12.additive_attention_plain), sin, scot)
+        compare(f"additive_attention {b_c}x{UPDOWN_SCST_SAMPLES}", so_k, so_p, rms(si[5]))
+        dw_scale = sg_p[2].float().abs().max().item()
+        for nm, kt, pt, sc in zip(("d p_att", "d att_h", "d w", "d bias", "d att"), sg_k, sg_p,
+                                  (0.0, 0.0, dw_scale, dw_scale, 0.0)):
+            compare(f"additive_attention_bwd {nm} {b_c}x{UPDOWN_SCST_SAMPLES}", kt, pt, sum_scale=sc)
+        del si, sin, scot, so_k, sg_k, so_p, sg_p
     record("additive_attention", err, time_ms(lambda: k12.additive_attention(p_att, att_h, w, bias, mask, att)),
            time_ms(lambda: k12.additive_attention_plain(p_att, att_h, w, bias, mask, att), iters=5), None,
            (b_s * r * (a + d) + n_s * (a + d) + a + 1) * es + b_s * r,
@@ -1300,6 +1549,23 @@ def make_updown_train_batch(gen, b, device="cuda"):
                 seq_masks=torch.ones(b * SEQ_PER_IMG, TRAIN_T, device=device))
 
 
+def greedy_check(model_f32, gen, label="updown greedy") -> bool:
+    """Greedy decode, f32 batch 8, on the card (kernels) and on the CPU
+    (plain versions): identical tokens, log-probs within 1e-4."""
+    from sparse_caption_tpu_torch.decoding import generate
+
+    batch = make_updown_batch(gen, CHECK_BATCH, torch.float32)
+    opt = {"beam_size": 1, "max_seq_length": MAX_LEN}
+    seq_gpu, lp_gpu = generate(model_f32, model_f32.encode(*batch), opt)
+    model_cpu = copy.deepcopy(model_f32).to("cpu")
+    seq_cpu, lp_cpu = generate(model_cpu, model_cpu.encode(*(x.cpu() for x in batch)), opt)
+    same = bool(torch.equal(seq_gpu.cpu(), seq_cpu))
+    err = (lp_gpu.cpu() - lp_cpu).abs().max().item()
+    log(f"[{label}] f32 batch {CHECK_BATCH}: tokens identical={same} ({len(torch.unique(seq_cpu))} distinct); "
+        f"log-prob max_abs_err={err:.3e} (tol {WHOLE_PATH_LP_TOL})")
+    return same and err <= WHOLE_PATH_LP_TOL
+
+
 def card_line() -> str:
     out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True)
@@ -1330,6 +1596,9 @@ def main() -> int:
         ok &= check_train_kernels(gen, dtype, results)
         ok &= check_updown_kernels(gen, dtype, results)
         torch.cuda.empty_cache()
+    # its own generator: the later phases keep the inputs that earlier slices drew for them
+    ok &= check_decoder_attention_kernels(torch.Generator(device="cuda").manual_seed(SEED + 14), results)
+    torch.cuda.empty_cache()
     ok &= check_scst_kernels(gen, results)
     torch.cuda.empty_cache()
     if not ok:
@@ -1361,7 +1630,7 @@ def main() -> int:
     train.update(box_attention_train=layers, box_attention_bwd=layers, supermask=n_masked, supermask_bwd=n_masked,
                  add_ref_layernorm=(1 + 2 * layers) + (1 + 3 * layers),
                  add_ref_layernorm_bwd=(1 + 2 * layers) + (1 + 3 * layers), vocab_log_softmax=1,
-                 vocab_log_softmax_bwd=1)
+                 vocab_log_softmax_bwd=1, decoder_attention=2 * layers, decoder_attention_bwd=2 * layers)
     train_model = build_train_model(SEED)
     for b, precision in ((TRAIN_BATCH, "fp32"), (TRAIN_BATCH, "bf16"), (TRAIN_BIG_BATCH, "bf16")):
         train_counts = run_train_phase(train_model, gen, b, precision, train)
@@ -1402,7 +1671,7 @@ def main() -> int:
     batch = make_updown_batch(gen, UPDOWN_BATCHES[-1], torch.bfloat16)
     profile_window(f"Up-Down encode + decode, bf16 batch {UPDOWN_BATCHES[-1]}", lambda: caption(updown_bf16, batch))
     del updown_bf16, batch
-    if not whole_path_check(updown, gen, make_updown_batch, "updown whole-path"):
+    if not whole_path_check(updown, gen, make_updown_batch, "updown whole-path") or not greedy_check(updown, gen):
         return 1
     del updown
     torch.cuda.empty_cache()
@@ -1425,13 +1694,31 @@ def main() -> int:
                             make_updown_train_batch, UPDOWN_CONFIG, "updown whole-step"):
         return 1
 
+    # Up-Down sparse SCST: the paper's recipe through the sampling decode and the unrolled replay
+    ud_scst_model = build_updown_scst(SEED)
+    ud_scst = updown_scst_launches(MAX_LEN, KERNELS)
+    for b in UPDOWN_SCST_BATCHES:
+        ud_scst_counts, step, state, batch = run_scst_phase(ud_scst_model, gen, b, ud_scst, UPDOWN_SCST_SAMPLES,
+                                                            updown_scst_batch, "updown scst")
+    held = [state]
+    profile_window(f"Up-Down SCST step, f32 batch {UPDOWN_SCST_BATCHES[-1]}x{UPDOWN_SCST_SAMPLES}",
+                   lambda: held.append(step(held.pop(), batch)[0]))
+    del step, batch, held
+    if not replay_check(ud_scst_model, gen, make_updown_batch, UPDOWN_SCST_SAMPLES, "updown replay"):
+        return 1
+    del ud_scst_model
+    torch.cuda.empty_cache()
+    if not scst_whole_step_check(SEED, gen, build_updown_scst, make_updown_batch, "updown scst-step"):
+        return 1
+
     kernels = []
     for name in _build.SOURCES:
         entries = [e for e, k in KERNELS.items() if k.library_name == name]
         by_path = {"serve": sum(serve_counts[e] for e in entries), "train_step": sum(train_counts[e] for e in entries),
                    "scst_step": sum(scst_counts[e] for e in entries),
                    "updown_serve": sum(ud_serve_counts[e] for e in entries),
-                   "updown_train_step": sum(ud_train_counts[e] for e in entries)}
+                   "updown_train_step": sum(ud_train_counts[e] for e in entries),
+                   "updown_scst_step": sum(ud_scst_counts[e] for e in entries)}
         src = _build.CSRC / f"{name}.cu"
         kernels.append(dict(name=name, route="cuda", source=str(src.relative_to(_build.CSRC.parents[2])),
                             replaces=REPLACES[name], launches=sum(by_path.values()), launches_by_path=by_path,

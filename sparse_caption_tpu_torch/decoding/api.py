@@ -11,10 +11,9 @@ Dispatch on the opt dict as the JAX package does:
 phase): dropout keyed per step from the ``rng`` seed's streams
 (``ops.rng.decode_train_keys``), masks applied as in training, f32 logits.
 Diverse beam search (``group_size > 1``), beam search under the train
-policy, ``sample_method`` other than ``random`` and greedy or sampling
-decode of a ``BEAM_ONLY`` model (Up-Down) raise ``NotImplementedError``
-until their slice. Memory stays one row per image for every model: the
-beam or sample rows of an image read its row.
+policy and ``sample_method`` other than ``random`` raise
+``NotImplementedError`` until their slice. Memory stays one row per image
+for every model: the beam or sample rows of an image read its row.
 """
 
 from __future__ import annotations
@@ -46,8 +45,6 @@ def generate(model, memory: Dict[str, Any], opt: Optional[Dict[str, Any]] = None
     if int(opt.get("group_size", 1)) > 1:
         raise NotImplementedError("diverse beam search lands in a later slice")
     b = memory["mask"].shape[0]  # every model's memory carries its (B, R) region mask
-    if getattr(model, "BEAM_ONLY", False) and (beam_size <= 1 or num_random_sample > 0):
-        raise NotImplementedError(f"greedy and sampling decode of {type(model).__name__} land in a later slice")
 
     if beam_size > 1 and num_random_sample <= 0:
         if decode_train:

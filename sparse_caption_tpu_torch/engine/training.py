@@ -20,11 +20,11 @@ params stay f32 and the forward runs on a differentiable bf16 cast of them
 compute dtype, as the JAX package's do).
 
 SCST (the two-phase step with the device reward; mask_freeze or dense
-models, ``scst_sample random``):
+models of either family, ``scst_sample random``):
 
     reward_fn = make_reward_fn(DfTable.from_pickle(df_path, tok2id), bleu_weight=(0, 0, 0, 1))
     step = make_scst_step(model, opt_w, opt_m, config, reward_fn)
-    batch = dict(att_feats=..., att_masks=..., boxes=...,
+    batch = dict(att_feats=..., att_masks=..., boxes=...,  # fc_feats=... for Up-Down
                  ref_pack=scst_ref_pack(gts, df, table, tok2id, vocab_size, device))
     state, loss, aux = step(TrainState(), batch)
 """
@@ -130,10 +130,11 @@ def make_scst_step(model: nn.Module, opt_w: Optimizer, opt_m: Optimizer, config,
     """-> ``scst_step(state, batch) -> (state, loss, aux)``, the two-phase SCST
     step with the device reward (``reward_fn``: ``scst.device_reward.make_reward_fn``).
 
-    ``batch`` holds ``att_feats`` (B, R, F), ``att_masks`` (B, R), ``boxes``
-    (B, R, 4) and ``ref_pack``, the batch's reference pack on the model's
-    device (``scst.device_reward.scst_ref_pack``). Each step derives one
-    seed from ``config["seed"]`` and the update count, and from it the
+    ``batch`` holds the model's ``COLLATE_FIELDS`` (``att_feats`` (B, R, F),
+    ``att_masks`` (B, R), and ``boxes`` (B, R, 4) for the ORT or ``fc_feats``
+    (B, F) for Up-Down) and ``ref_pack``, the batch's reference pack on the
+    model's device (``scst.device_reward.scst_ref_pack``). Each step derives
+    one seed from ``config["seed"]`` and the update count, and from it the
     encoder's and the decoder's keyed streams:
 
     1. ``scst_step.sample_fn(state, batch)``, under ``torch.no_grad``: a
@@ -143,8 +144,11 @@ def make_scst_step(model: nn.Module, opt_w: Optimizer, opt_m: Optimizer, config,
     2. ``scst_step.grad_fn(state, batch, res)``: rewards of the samples (K10)
        minus the baseline (the other samples' mean, or the greedy caption's
        reward), then ONE teacher-forced forward in replay mode under the same
-       streams, which reproduces the sampling decode's log-probs, the
-       REINFORCE loss, its backward and the optimizer update.
+       streams, which reproduces the sampling decode's log-probs (the ORT in
+       one parallel pass; Up-Down through its unrolled steps, step t under
+       the step view at t, which is the JAX package's differentiable scan
+       on the same tokens), the REINFORCE loss, its backward and the
+       optimizer update.
 
     The replay is exact only when the masks are deterministic: a supermask
     model (a fresh Bernoulli draw per step), beam-sample SCST, the host
@@ -172,16 +176,19 @@ def make_scst_step(model: nn.Module, opt_w: Optimizer, opt_m: Optimizer, config,
         step_seed = derive_key(base_seed, state.step)
         return derive_key(step_seed, 1), derive_key(step_seed, 2)
 
-    def encoder_args(batch: Dict):
-        return batch["att_feats"], batch["att_masks"], batch.get("boxes")
+    def encode(batch: Dict, rng=None):
+        """The model's encode on its ``COLLATE_FIELDS``, by name (``boxes`` for
+        the ORT, ``fc_feats`` for Up-Down); train mode under ``rng``."""
+        fields = {k: batch[k] for k in model.COLLATE_FIELDS}
+        return model.encode(**fields, train=rng is not None, rng=rng)
 
     @torch.no_grad()
     def sample_fn(state: TrainState, batch: Dict) -> Dict:
         enc_key, dec_seed = seeds(state)
-        memory = model.encode(*encoder_args(batch), train=True, rng=KeyedStream(enc_key))
+        memory = encode(batch, KeyedStream(enc_key))
         out = {"sample": generate(model, memory, sample_opt, rng=dec_seed)[0]}
         if baseline_mode == "greedy":
-            out["greedy"] = generate(model, model.encode(*encoder_args(batch)), greedy_opt)[0]
+            out["greedy"] = generate(model, encode(batch), greedy_opt)[0]
         return out
 
     def grad_fn(state: TrainState, batch: Dict, res: Dict):
@@ -199,7 +206,7 @@ def make_scst_step(model: nn.Module, opt_w: Optimizer, opt_m: Optimizer, config,
             rewards = sc_s - sc_b
         opt_w.zero_grad()
         opt_m.zero_grad()
-        memory = model.encode(*encoder_args(batch), train=True, rng=KeyedStream(enc_key))
+        memory = encode(batch, KeyedStream(enc_key))
         seqs_in = torch.cat([torch.full((b * s, 1), model.bos_id, dtype=flat.dtype, device=flat.device), flat], 1)
         lp = model.decode_teacher_forced(memory, seqs_in, train=True,
                                          rng=KeyedStream(decode_train_keys(dec_seed).dropout))

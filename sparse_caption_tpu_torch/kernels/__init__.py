@@ -17,12 +17,14 @@ cider_reward (K10)              csrc/cider_reward.cu                scst/device_
 lstm_cell (K11)                 csrc/lstm_cell.cu                   models/up_down.py:47-54
 additive_attention (K12)        csrc/additive_attention.cu          models/up_down.py:67-73
 vocab_log_softmax (K13)         csrc/vocab_log_softmax.cu           up_down.py:124, layers.py:465-472
+decoder_attention (K14)         csrc/decoder_attention.cu           models/layers.py:158-172,217-228
+decoder_attention (K15 bwd)     csrc/decoder_attention_bwd.cu       gradients of layers.py:158-172
 ==============================  ==================================  ======================================
 
 A wrapper given CPU tensors runs the plain version; given CUDA tensors it
 launches its kernel (built at first use, see ``_build``) or raises. K5, K6,
-K1/K7, K8's apply variant and K11-K13 are autograd Functions whose backward
-is a kernel too.
+K1/K7, K8's apply variant, K11-K13 and K14/K15 are autograd Functions whose
+backward is a kernel too.
 """
 
 from sparse_caption_tpu_torch.kernels import add_ref_layernorm as _k6
@@ -33,6 +35,7 @@ from sparse_caption_tpu_torch.kernels import box_attention as _k1
 from sparse_caption_tpu_torch.kernels import box_attention_bwd as _k7
 from sparse_caption_tpu_torch.kernels import grouped_cross_attention as _k3
 from sparse_caption_tpu_torch.kernels import cider_reward as _k10
+from sparse_caption_tpu_torch.kernels import decoder_attention as _k14
 from sparse_caption_tpu_torch.kernels import keyed_dropout as _k8
 from sparse_caption_tpu_torch.kernels import lstm_cell as _k11
 from sparse_caption_tpu_torch.kernels import sample_step as _k9
@@ -62,6 +65,8 @@ KERNELS = {
     "additive_attention_bwd": _k12.KERNEL_BWD,
     "vocab_log_softmax": _k13.KERNEL,
     "vocab_log_softmax_bwd": _k13.KERNEL_BWD,
+    "decoder_attention": _k14.KERNEL,
+    "decoder_attention_bwd": _k14.KERNEL_BWD,
 }
 
 

@@ -8,9 +8,11 @@ mask applied and the weights renormalised by ``max(sum, 1e-9)``, then the
 weighted sum of ``att``. Memory is one row per image; the B * rows query
 rows of ``att_h`` (image i owns rows i * rows .. (i + 1) * rows - 1) share
 their image's ``p_att`` and ``att``, which the JAX package repeats per row
-instead (the same numbers). CUDA tensors launch the kernel in both
-directions (an autograd Function); CPU tensors run
-``additive_attention_plain``. Nothing else falls back.
+instead (the same numbers). An image's rows run in chunks of at most 16
+per block (SCST's 60 samples in 4), their backward partials summed in chunk
+order. CUDA tensors launch the kernel in both directions (an autograd
+Function); CPU tensors run ``additive_attention_plain``. Nothing else falls
+back.
 """
 
 from __future__ import annotations
@@ -27,9 +29,10 @@ KERNEL = _build.CudaKernel("additive_attention", "sct_additive_attention", [
 ])
 KERNEL_BWD = _build.CudaKernel("additive_attention", "sct_additive_attention_bwd", [
     _build.I, _build.P, _build.P, _build.P, _build.P, _build.P, _build.P, _build.P, _build.P, _build.P, _build.P,
-    _build.P, _build.P, _build.P, _build.P, _build.P, _build.I, _build.I, _build.I, _build.I, _build.I, _build.P,
+    _build.P, _build.P, _build.P, _build.P, _build.P, _build.P, _build.P, _build.I, _build.I, _build.I, _build.I,
+    _build.I, _build.P,
 ])
-MAX_REGIONS, MAX_ROWS = 64, 16
+MAX_REGIONS, CHUNK_ROWS = 64, 16  # regions per image; query rows per block
 RENORM_FLOOR = 1e-9
 
 
@@ -66,12 +69,16 @@ class _AdditiveAttentionFn(torch.autograd.Function):
         dout = dout.contiguous()
         d_p_att, d_att_h, d_att = torch.empty_like(p_att), torch.empty_like(att_h), torch.empty_like(att)
         dw, db = torch.empty_like(w), torch.empty(1, dtype=w.dtype, device=w.device)
-        partial_w = torch.empty((bsz, a), dtype=torch.float32, device=w.device)
-        partial_b = torch.empty(bsz, dtype=torch.float32, device=w.device)
+        chunks = -(-(n // bsz) // CHUNK_ROWS)
+        scratch = lambda *shape: torch.empty(shape, dtype=torch.float32, device=w.device)  # noqa: E731
+        partial_w, partial_b = scratch(bsz * chunks, a), scratch(bsz * chunks)
+        part_p_att = scratch(bsz * chunks, r, a) if chunks > 1 else None
+        part_att = scratch(bsz * chunks, r, d) if chunks > 1 else None
         KERNEL_BWD.launch(_build.dtype_code(att), p_att.data_ptr(), att_h.data_ptr(), w.data_ptr(), mask.data_ptr(),
                           att.data_ptr(), prob.data_ptr(), weight.data_ptr(), dout.data_ptr(), d_p_att.data_ptr(),
                           d_att_h.data_ptr(), d_att.data_ptr(), dw.data_ptr(), db.data_ptr(), partial_w.data_ptr(),
-                          partial_b.data_ptr(), bsz, n // bsz, r, a, d, _build.stream_handle(att))
+                          partial_b.data_ptr(), _build.ptr(part_p_att), _build.ptr(part_att), bsz, n // bsz, r, a, d,
+                          _build.stream_handle(att))
         return d_p_att, d_att_h, dw, db, None, d_att
 
 
@@ -93,7 +100,6 @@ def additive_attention(p_att, att_h, w, b, mask, att):
     check_same_device(p_att, att_h, w, b, mask, att)
     if p_att.device.type == "cpu":
         return additive_attention_plain(p_att, att_h, w, b, mask, att)
-    if r > MAX_REGIONS or n // bsz > MAX_ROWS:
-        raise ValueError(f"additive_attention kernel takes R <= {MAX_REGIONS} and <= {MAX_ROWS} rows per image; "
-                         f"got R={r}, {n // bsz} rows")
+    if r > MAX_REGIONS:
+        raise ValueError(f"additive_attention kernel takes R <= {MAX_REGIONS}; got R={r}")
     return _AdditiveAttentionFn.apply(p_att, att_h, w, b, mask, att)

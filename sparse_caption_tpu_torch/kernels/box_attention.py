@@ -37,7 +37,7 @@ def box_attention_plain(q, k, v, boxes, wg_weight, wg_bias, mask, keep=None, kee
     geo = box_relational_embedding(boxes.float(), dim_g=DIM_G)
     w_g = torch.relu(F.linear(geo.to(q.dtype), wg_weight, wg_bias))  # (B, R, R, h)
     log_wg = torch.log(torch.clamp(w_g, min=1e-6)).permute(0, 3, 1, 2).to(q.dtype)
-    return scaled_dot_attention(q, k, v, mask=mask[:, None, None, :], bias=log_wg, keep=keep, keep_prob=keep_prob)
+    return scaled_dot_attention(q, k, v, mask, bias=log_wg, keep=keep, keep_prob=keep_prob)
 
 
 def check_args(q, k, v, boxes, wg_weight, wg_bias, mask, keep=None):

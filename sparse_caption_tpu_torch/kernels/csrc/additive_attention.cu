@@ -18,7 +18,7 @@
 //   ds       = p (mask dq - p . (mask dq))
 //   d p_att[b, r, a] = w_a sum_n ds[n, r] (1 - t^2),  d att_h[n, a] = w_a sum_r ds[n, r] (1 - t^2)
 //   d w_a    = sum_{n, r} ds[n, r] t,  d bias = sum_{n, r} ds[n, r]   (t = tanh(p_att + att_h), recomputed)
-// d w and d bias are per-image partials, summed over images in a fixed order
+// d w and d bias are per-block partials, summed over blocks in a fixed order
 // by a second kernel: no float atomics.
 //
 // Bound on the H100: bytes. Each image's p_att (R x A) and att (R x D) are
@@ -27,13 +27,16 @@
 // tanh (94M at that shape) are ~0.1 ms of the f32 units' rate, so the two
 // are of one size.
 //
-// Design: one block of 256 threads per image. Scores: one warp per (row,
-// region) pair, lanes over A, p_att[b] re-read from L1 for each row; softmax
-// and renormalisation: one warp per row (R <= 64: two regions per lane); the
-// weighted sum: one thread per output column, each att element read once for
-// all rows of the image. The backward walks the same layout, thread per
-// column a of p_att in its last phase so the image's rows and regions are
-// summed in registers.
+// Design: one block of 256 threads per image and chunk of at most 16 of its
+// rows (one chunk for beams and XE captions; 4 for SCST's 60 samples).
+// Scores: one warp per (row, region) pair, lanes over A, p_att[b] re-read
+// from L1 for each row; softmax and renormalisation: one warp per row (R <=
+// 64: two regions per lane); the weighted sum: one thread per output column,
+// each att element read once for all rows of the chunk. The backward walks
+// the same layout, thread per column a of p_att in its last phase so the
+// chunk's rows and regions are summed in registers. With more than one chunk
+// per image, the chunks' d p_att and d att go to f32 partials that a last
+// kernel sums over the image's chunks in order and rounds once.
 #include "common.cuh"
 
 namespace sct {
@@ -49,10 +52,11 @@ __global__ void __launch_bounds__(kAttThreads)
 additive_attention_fwd_kernel(const T* __restrict__ p_att, const T* __restrict__ att_h, const T* __restrict__ w,
                               const T* __restrict__ bias, const unsigned char* __restrict__ mask,
                               const T* __restrict__ att, T* __restrict__ out, float* __restrict__ prob_out,
-                              float* __restrict__ weight_out, int rows, int R, int A, int D) {
+                              float* __restrict__ weight_out, int img_rows, int chunks, int R, int A, int D) {
   __shared__ float s_w[kAttMaxRows * kAttMaxRegions];  // scores, then weights
-  const int b = blockIdx.x, lane = threadIdx.x & 31, warp = threadIdx.x / 32;
-  const long long row0 = (long long)b * rows;
+  const int b = blockIdx.x / chunks, lane = threadIdx.x & 31, warp = threadIdx.x / 32;
+  const int first = (blockIdx.x - b * chunks) * kAttMaxRows, rows = min(kAttMaxRows, img_rows - first);
+  const long long row0 = (long long)b * img_rows + first;
 
   for (int pair = warp; pair < rows * R; pair += kAttWarps) {
     const int n = pair / R, r = pair % R;
@@ -126,12 +130,16 @@ additive_attention_bwd_kernel(const T* __restrict__ p_att, const T* __restrict__
                               const float* __restrict__ prob, const float* __restrict__ weight,
                               const T* __restrict__ dout, T* __restrict__ d_p_att, T* __restrict__ d_att_h,
                               T* __restrict__ d_att, float* __restrict__ partial_w, float* __restrict__ partial_b,
-                              int rows, int R, int A, int D) {
+                              float* __restrict__ part_p_att, float* __restrict__ part_att, int img_rows, int chunks,
+                              int R, int A, int D) {
   __shared__ float g_s[kAttMaxRows * kAttMaxRegions];  // d weight, then d score
   __shared__ float w_s[kAttMaxRows * kAttMaxRegions];  // the forward's weights
   __shared__ float row_db[kAttMaxRows];
-  const int b = blockIdx.x, lane = threadIdx.x & 31, warp = threadIdx.x / 32;
-  const long long row0 = (long long)b * rows;
+  const int b = blockIdx.x / chunks, lane = threadIdx.x & 31, warp = threadIdx.x / 32;
+  const int first = (blockIdx.x - b * chunks) * kAttMaxRows, rows = min(kAttMaxRows, img_rows - first);
+  const long long row0 = (long long)b * img_rows + first;
+  // d p_att / d att: the compute dtype directly (one chunk), else this chunk's f32 partial
+  const long long part = (long long)blockIdx.x * R;
   const T* at = att + (long long)b * R * D;
   for (int e = threadIdx.x; e < rows * R; e += kAttThreads) w_s[e] = weight[row0 * R + e];
 
@@ -158,7 +166,8 @@ additive_attention_bwd_kernel(const T* __restrict__ p_att, const T* __restrict__
       for (int n = 0; n < kAttMaxRows; ++n) {
         if (n < rows) acc = fmaf(w_s[n * R + r], dv[n], acc);
       }
-      d_att[((long long)b * R + r) * D + d] = from_f<T>(acc);
+      if (part_att == nullptr) d_att[((long long)b * R + r) * D + d] = from_f<T>(acc);
+      else part_att[(part + r) * D + d] = acc;
     }
   }
 
@@ -209,22 +218,35 @@ additive_attention_bwd_kernel(const T* __restrict__ p_att, const T* __restrict__
           dah[n] += e;
         }
       }
-      d_p_att[((long long)b * R + r) * A + a] = from_f<T>(dpa);
+      if (part_p_att == nullptr) d_p_att[((long long)b * R + r) * A + a] = from_f<T>(dpa);
+      else part_p_att[(part + r) * A + a] = dpa;
     }
 #pragma unroll
     for (int n = 0; n < kAttMaxRows; ++n) {
       if (n < rows) d_att_h[(row0 + n) * A + a] = from_f<T>(dah[n]);
     }
-    partial_w[(long long)b * A + a] = dw;
+    partial_w[(long long)blockIdx.x * A + a] = dw;
   }
   if (threadIdx.x == 0) {
     float db = 0.f;
     for (int n = 0; n < rows; ++n) db += row_db[n];
-    partial_b[b] = db;
+    partial_b[blockIdx.x] = db;
   }
 }
 
-// d w[a] (a < A) and d bias (a == A): sums of the per-image partials in image order
+// d p_att (B, R, A) or d att (B, R, D): the image's chunk partials summed in chunk order
+template <typename T>
+__global__ void additive_attention_chunk_sum_kernel(const float* __restrict__ part, long long per_image, int chunks,
+                                                    long long total, T* __restrict__ out) {
+  const long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (e >= total) return;
+  const long long b = e / per_image, i = e - b * per_image;
+  float acc = 0.f;
+  for (int c = 0; c < chunks; ++c) acc += part[(b * chunks + c) * per_image + i];
+  out[e] = from_f<T>(acc);
+}
+
+// d w[a] (a < A) and d bias (a == A): sums of the per-block partials in block order
 template <typename T>
 __global__ void additive_attention_reduce_kernel(const float* __restrict__ partial_w,
                                                  const float* __restrict__ partial_b, int B, int A,
@@ -241,38 +263,54 @@ __global__ void additive_attention_reduce_kernel(const float* __restrict__ parti
   }
 }
 
+inline int row_chunks(int rows) { return (rows + kAttMaxRows - 1) / kAttMaxRows; }
+
 template <typename T>
 cudaError_t launch_fwd(const void* p_att, const void* att_h, const void* w, const void* bias, const void* mask,
                        const void* att, void* out, void* prob, void* weight, int B, int rows, int R, int A, int D,
                        cudaStream_t st) {
-  additive_attention_fwd_kernel<T><<<B, kAttThreads, 0, st>>>(
+  const int chunks = row_chunks(rows);
+  additive_attention_fwd_kernel<T><<<B * chunks, kAttThreads, 0, st>>>(
       static_cast<const T*>(p_att), static_cast<const T*>(att_h), static_cast<const T*>(w),
       static_cast<const T*>(bias), static_cast<const unsigned char*>(mask), static_cast<const T*>(att),
-      static_cast<T*>(out), static_cast<float*>(prob), static_cast<float*>(weight), rows, R, A, D);
+      static_cast<T*>(out), static_cast<float*>(prob), static_cast<float*>(weight), rows, chunks, R, A, D);
   return cudaGetLastError();
 }
 
 template <typename T>
 cudaError_t launch_bwd(const void* p_att, const void* att_h, const void* w, const void* mask, const void* att,
                        const void* prob, const void* weight, const void* dout, void* d_p_att, void* d_att_h,
-                       void* d_att, void* dw, void* db, void* partial_w, void* partial_b, int B, int rows, int R,
-                       int A, int D, cudaStream_t st) {
-  additive_attention_bwd_kernel<T><<<B, kAttThreads, 0, st>>>(
+                       void* d_att, void* dw, void* db, void* partial_w, void* partial_b, void* part_p_att,
+                       void* part_att, int B, int rows, int R, int A, int D, cudaStream_t st) {
+  const int chunks = row_chunks(rows);
+  if (chunks > 1 && (part_p_att == nullptr || part_att == nullptr)) return cudaErrorInvalidValue;
+  float* pp = chunks > 1 ? static_cast<float*>(part_p_att) : nullptr;
+  float* pa = chunks > 1 ? static_cast<float*>(part_att) : nullptr;
+  additive_attention_bwd_kernel<T><<<B * chunks, kAttThreads, 0, st>>>(
       static_cast<const T*>(p_att), static_cast<const T*>(att_h), static_cast<const T*>(w),
       static_cast<const unsigned char*>(mask), static_cast<const T*>(att), static_cast<const float*>(prob),
       static_cast<const float*>(weight), static_cast<const T*>(dout), static_cast<T*>(d_p_att),
       static_cast<T*>(d_att_h), static_cast<T*>(d_att), static_cast<float*>(partial_w),
-      static_cast<float*>(partial_b), rows, R, A, D);
+      static_cast<float*>(partial_b), pp, pa, rows, chunks, R, A, D);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
+  if (chunks > 1) {
+    const long long n_pa = (long long)B * R * A, n_at = (long long)B * R * D;
+    additive_attention_chunk_sum_kernel<T><<<(unsigned)((n_pa + 255) / 256), 256, 0, st>>>(
+        pp, (long long)R * A, chunks, n_pa, static_cast<T*>(d_p_att));
+    additive_attention_chunk_sum_kernel<T><<<(unsigned)((n_at + 255) / 256), 256, 0, st>>>(
+        pa, (long long)R * D, chunks, n_at, static_cast<T*>(d_att));
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
   additive_attention_reduce_kernel<T><<<(A + 1 + 255) / 256, 256, 0, st>>>(
-      static_cast<const float*>(partial_w), static_cast<const float*>(partial_b), B, A, static_cast<T*>(dw),
-      static_cast<T*>(db));
+      static_cast<const float*>(partial_w), static_cast<const float*>(partial_b), B * chunks, A,
+      static_cast<T*>(dw), static_cast<T*>(db));
   return cudaGetLastError();
 }
 
 inline bool shapes_ok(int B, int rows, int R, int A, int D) {
-  return B >= 1 && rows >= 1 && rows <= kAttMaxRows && R >= 1 && R <= kAttMaxRegions && A >= 1 && D >= 1;
+  return B >= 1 && rows >= 1 && R >= 1 && R <= kAttMaxRegions && A >= 1 && D >= 1;
 }
 
 }  // namespace sct
@@ -297,21 +335,23 @@ extern "C" int sct_additive_attention(int dtype, const void* p_att, const void* 
 }
 
 // The gradients of p_att, att_h, att, w and bias (all in the compute dtype) from dout (B * rows, D) and the
-// forward's prob and weight; partial_w (B, A) and partial_b (B) are f32 scratch.
+// forward's prob and weight. f32 scratch, with C = ceil(rows / 16) chunks of rows per image: partial_w (B * C,
+// A), partial_b (B * C), and for C > 1 part_p_att (B * C, R, A) and part_att (B * C, R, D) (else null).
 extern "C" int sct_additive_attention_bwd(int dtype, const void* p_att, const void* att_h, const void* w,
                                           const void* mask, const void* att, const void* prob, const void* weight,
                                           const void* dout, void* d_p_att, void* d_att_h, void* d_att, void* dw,
-                                          void* db, void* partial_w, void* partial_b, int B, int rows, int R, int A,
-                                          int D, void* stream) {
+                                          void* db, void* partial_w, void* partial_b, void* part_p_att,
+                                          void* part_att, int B, int rows, int R, int A, int D, void* stream) {
   if (!sct::shapes_ok(B, rows, R, A, D)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
     return (int)sct::launch_bwd<float>(p_att, att_h, w, mask, att, prob, weight, dout, d_p_att, d_att_h, d_att, dw,
-                                       db, partial_w, partial_b, B, rows, R, A, D, st);
+                                       db, partial_w, partial_b, part_p_att, part_att, B, rows, R, A, D, st);
   }
   if (dtype == 1) {
     return (int)sct::launch_bwd<__nv_bfloat16>(p_att, att_h, w, mask, att, prob, weight, dout, d_p_att, d_att_h,
-                                               d_att, dw, db, partial_w, partial_b, B, rows, R, A, D, st);
+                                               d_att, dw, db, partial_w, partial_b, part_p_att, part_att, B, rows,
+                                               R, A, D, st);
   }
   return (int)cudaErrorInvalidValue;
 }

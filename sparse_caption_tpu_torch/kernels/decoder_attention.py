@@ -1,0 +1,100 @@
+"""K14 / K15: the decoder's full-sequence attention, forward and backward
+(``csrc/decoder_attention.cu``, ``csrc/decoder_attention_bwd.cu``).
+
+``decoder_attention(q, k, v, key_valid, causal, keep, keep_prob)`` computes
+``softmax(fill(q k^T / sqrt(dk))) v`` with the masked scores filled with -1e9
+in their dtype. The mask is a key-validity vector (one row per K/V row) and a
+causal flag instead of a dense tensor; a K/V row may serve a group of g
+consecutive query rows (the captions or samples of one image in
+cross-attention), so the memory is projected and read once per image.
+``keep`` is the training dropout on the probabilities. CUDA tensors launch
+K14, inside an autograd Function whose backward is K15 (dK and dV summed over
+each group in a fixed order); CPU tensors run ``decoder_attention_plain``
+(``ops/attention.py scaled_dot_attention``). Nothing else falls back.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+
+from sparse_caption_tpu_torch.kernels import _build
+from sparse_caption_tpu_torch.kernels._checks import check_float, check_same_device, check_tensor
+from sparse_caption_tpu_torch.ops.attention import scaled_dot_attention
+from sparse_caption_tpu_torch.ops.keep import keep_divisor
+
+KERNEL = _build.CudaKernel("decoder_attention", "sct_decoder_attention", [
+    _build.I, _build.P, _build.P, _build.P, _build.P, _build.P, _build.F32, _build.P,
+    _build.I, _build.I, _build.I, _build.I, _build.I, _build.I, _build.F32, _build.P,
+])
+KERNEL_BWD = _build.CudaKernel("decoder_attention_bwd", "sct_decoder_attention_bwd", [
+    _build.I, _build.P, _build.P, _build.P, _build.P, _build.P, _build.P, _build.F32, _build.P, _build.P, _build.P,
+    _build.I, _build.I, _build.I, _build.I, _build.I, _build.I, _build.F32, _build.P,
+])
+MAX_LEN = 64  # the kernels' limit on keys and (backward) query positions
+
+
+def decoder_attention_plain(q, k, v, key_valid=None, causal: bool = False, keep=None, keep_prob: float = 1.0):
+    """The plain version (the JAX package's ``scaled_dot_attention`` with K/V
+    repeated to the query rows)."""
+    return scaled_dot_attention(q, k, v, key_valid, causal, keep=keep, keep_prob=keep_prob)
+
+
+class _DecoderAttentionFn(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, key_valid, keep, causal: bool, keep_prob: float):
+        n, h, tq, dk = q.shape
+        nk, tk = k.shape[0], k.shape[2]
+        out = torch.empty_like(q)
+        KERNEL.launch(_build.dtype_code(q), q.data_ptr(), k.data_ptr(), v.data_ptr(), _build.ptr(key_valid),
+                      _build.ptr(keep), keep_prob, out.data_ptr(), nk, h, tq, tk, n // nk, int(causal),
+                      1.0 / math.sqrt(dk), _build.stream_handle(q))
+        ctx.causal, ctx.keep_prob = causal, keep_prob
+        ctx.save_for_backward(q, k, v, key_valid, keep)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, key_valid, keep = ctx.saved_tensors
+        n, h, tq, dk = q.shape
+        nk, tk = k.shape[0], k.shape[2]
+        dout = dout.contiguous()
+        dq, dk_, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+        KERNEL_BWD.launch(_build.dtype_code(q), q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
+                          _build.ptr(key_valid), _build.ptr(keep), ctx.keep_prob, dq.data_ptr(), dk_.data_ptr(),
+                          dv.data_ptr(), nk, h, tq, tk, n // nk, int(ctx.causal), 1.0 / math.sqrt(dk),
+                          _build.stream_handle(q))
+        return dq, dk_, dv, None, None, None, None
+
+
+def decoder_attention(q, k, v, key_valid: Optional[torch.Tensor] = None, causal: bool = False,
+                      keep: Optional[torch.Tensor] = None, keep_prob: float = 1.0):
+    """q: (N, h, Tq, dk); k, v: (Nk, h, Tk, dk) with Nk dividing N (K/V row b
+    serves query rows b*g .. b*g + g - 1, g = N / Nk); key_valid: (Nk, Tk)
+    bool, False = masked key, or None (every key valid); causal: query
+    position i attends keys j <= i (needs Tq == Tk); keep: (N, h, Tq, Tk) bool,
+    kept probabilities divided by ``keep_prob`` rounded to q's dtype, or None
+    (no dropout). One dtype, f32 or bf16. Returns (N, h, Tq, dk), with
+    gradients for q, k and v."""
+    check_float(q, "q")
+    n, h, tq, dk = q.shape
+    nk, tk = k.shape[0], k.shape[2]
+    if nk < 1 or n % nk != 0:
+        raise ValueError(f"{n} query rows do not split over {nk} key rows")
+    check_tensor(k, "k", (nk, h, tk, dk), q.dtype)
+    check_tensor(v, "v", (nk, h, tk, dk), q.dtype)
+    if key_valid is not None:
+        check_tensor(key_valid, "key_valid", (nk, tk), torch.bool)
+    if keep is not None:
+        check_tensor(keep, "keep", (n, h, tq, tk), torch.bool)
+    if causal and tq != tk:
+        raise ValueError(f"causal attention needs as many keys as query positions; got Tq={tq} Tk={tk}")
+    check_same_device(q, k, v, key_valid, keep)
+    if q.device.type == "cpu":
+        return decoder_attention_plain(q, k, v, key_valid, causal, keep, keep_prob)
+    if dk != 64 or tq > MAX_LEN or tk > MAX_LEN:
+        raise ValueError(f"decoder_attention kernels take dk == 64, Tq and Tk <= {MAX_LEN}; got dk={dk} Tq={tq} "
+                         f"Tk={tk}")
+    return _DecoderAttentionFn.apply(q, k, v, key_valid, keep, causal, keep_divisor(keep_prob, q.dtype))

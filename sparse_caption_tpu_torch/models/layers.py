@@ -19,8 +19,10 @@ decode draws in step mode at ``t`` and the teacher-forced replay draws all t
 at once (kernel K8), and the two agree bit for bit.
 The residual add of sublayer i and the norm of sublayer i+1 run fused in
 kernel K6 (``prenorm_stack``); the ORT encoder's attention in K1 (eval) or
-K1's train variant with its backward K7; masked weights in K5. The decoder's
-full-sequence attention (XE teacher forcing, SCST replay) is plain torch.
+K1's train variant with its backward K7; masked weights in K5; the
+full-sequence attention of ``MultiHeadAttention`` (the decoder's in XE
+teacher forcing and the SCST replay, the plain Transformer's encoder) in K14
+with its backward K15, cross-attention reading one memory row per image.
 
 Decode caches are explicit tensors ``(N, h, T_max, dk)``; ``decode_self``
 writes slot ``t`` IN PLACE (the JAX package returns an updated copy).
@@ -41,9 +43,10 @@ from sparse_caption_tpu_torch.kernels.add_ref_layernorm import add_ref_layernorm
 from sparse_caption_tpu_torch.kernels.ancestry_self_attention import ancestry_self_attention
 from sparse_caption_tpu_torch.kernels.box_attention import DIM_G, box_attention
 from sparse_caption_tpu_torch.kernels.box_attention_bwd import box_attention_train
+from sparse_caption_tpu_torch.kernels.decoder_attention import decoder_attention
 from sparse_caption_tpu_torch.kernels.grouped_cross_attention import grouped_cross_attention
 from sparse_caption_tpu_torch.kernels.vocab_log_softmax import vocab_log_softmax
-from sparse_caption_tpu_torch.ops.attention import box_relational_embedding, scaled_dot_attention  # noqa: F401
+from sparse_caption_tpu_torch.ops.attention import box_relational_embedding  # noqa: F401
 from sparse_caption_tpu_torch.ops.masked import MaskConfig, MaskedEmbedding, MaskedLinear
 from sparse_caption_tpu_torch.ops.rng import dropout, keep_mask, site_id
 
@@ -169,17 +172,20 @@ class MultiHeadAttention(nn.Module, DropoutSite):
         for name in ("q_proj", "k_proj", "v_proj", "out_proj"):
             setattr(self, name, MaskedLinear(d_model, d_model, mask_cfg=mask_cfg, device=device, dtype=dtype))
 
-    def forward(self, query, key, value, mask=None, rng=None, attn_dropout: bool = True):
-        """Full-sequence attention (plain torch, with autograd in training).
-        mask: (B, 1, Tq, Tk) or (B, 1, 1, Tk); 0 = invalid. ``attn_dropout=False``
-        skips the dropout on the probabilities (the SCST replay: the step
-        decode it reproduces applies none)."""
+    def forward(self, query, key, value, key_valid=None, causal: bool = False, rng=None, attn_dropout: bool = True):
+        """Full-sequence attention (kernel K14, its backward K15). query: (N,
+        Tq, D); key/value: (Nk, Tk, D) with Nk dividing N: each key row serves
+        N / Nk consecutive query rows (an image's captions read its memory row,
+        projected once); key_valid: (Nk, Tk) bool, False = masked key, or None;
+        causal: position i attends keys <= i. ``attn_dropout=False`` skips the
+        dropout on the probabilities (the SCST replay: the step decode it
+        reproduces applies none)."""
         h = self.num_heads
         q = _split_heads(self.q_proj(query, rng), h)
         k, v = self.project_memory_kv(key, value, rng)
         keep = keep_mask((q.shape[0], h, q.shape[2], k.shape[2]), self.dropout_rate, rng if attn_dropout else None,
                          q.device, self.site)
-        out = scaled_dot_attention(q, k, v, mask=mask, keep=keep, keep_prob=1.0 - self.dropout_rate)
+        out = decoder_attention(q, k, v, key_valid, causal, keep, 1.0 - self.dropout_rate)
         return self.out_proj(_merge_heads(out), rng)
 
     def project_memory_kv(self, key, value=None, rng=None):

@@ -71,9 +71,9 @@ class EncoderLayer(nn.Module):
         self.sub0 = SublayerConnection(d_model, dropout_rate, **factory)
         self.sub1 = SublayerConnection(d_model, dropout_rate, **factory)
 
-    def steps(self, mask, rng=None) -> List[Step]:
-        """The layer's two pre-norm sublayers for ``prenorm_stack``."""
-        return [(self.sub0, lambda y: self.self_attn(y, y, y, mask, rng)),
+    def steps(self, key_valid, rng=None) -> List[Step]:
+        """The layer's two pre-norm sublayers for ``prenorm_stack``; key_valid: (B, S) bool."""
+        return [(self.sub0, lambda y: self.self_attn(y, y, y, key_valid, rng=rng)),
                 (self.sub1, lambda y: self.feed_forward(y, rng))]
 
 
@@ -88,10 +88,14 @@ class DecoderLayer(nn.Module):
         self.sub1 = SublayerConnection(d_model, dropout_rate, **factory)
         self.sub2 = SublayerConnection(d_model, dropout_rate, **factory)
 
-    def steps(self, memory, src_mask, tgt_mask, rng=None, attn_dropout: bool = True) -> List[Step]:
-        """Full-sequence (teacher-forced) sublayers for ``prenorm_stack``."""
-        return [(self.sub0, lambda y: self.self_attn(y, y, y, tgt_mask, rng, attn_dropout)),
-                (self.sub1, lambda y: self.src_attn(y, memory, memory, src_mask, rng, attn_dropout)),
+    def steps(self, memory, mem_valid, tgt_valid, rng=None, attn_dropout: bool = True) -> List[Step]:
+        """Full-sequence (teacher-forced) sublayers for ``prenorm_stack``:
+        causal self-attention over the caption's valid tokens (``tgt_valid``
+        (N, T) bool, or None for all) and cross-attention over the memory
+        (B, S, D), one row per image for its N / B captions (``mem_valid`` (B,
+        S) bool)."""
+        return [(self.sub0, lambda y: self.self_attn(y, y, y, tgt_valid, True, rng, attn_dropout)),
+                (self.sub1, lambda y: self.src_attn(y, memory, memory, mem_valid, False, rng, attn_dropout)),
                 (self.sub2, lambda y: self.feed_forward(y, rng))]
 
     def decode_steps(self, layer_cache: Dict, cross: Dict, t: int, mem_mask, ancestry=None, rng=None) -> List[Step]:
@@ -103,22 +107,6 @@ class DecoderLayer(nn.Module):
                 (self.sub1, lambda y: self.src_attn.decode_cross(
                     y, cross["cross_k"], cross.get("cross_v"), mem_mask)),
                 (self.sub2, lambda y: self.feed_forward(y, rng))]
-
-
-def subsequent_mask(t: int, device=None):
-    """(1, 1, T, T) lower-triangular validity mask."""
-    return torch.tril(torch.ones((t, t), dtype=torch.bool, device=device))[None, None]
-
-
-def repeat_to_batch(memory, mem_mask, n_tgt: int):
-    """Repeat-interleave an encoded memory (+mask) to the target batch (seq_per_img
-    caption rows per image share one encoder pass)."""
-    if memory.shape[0] != n_tgt:
-        assert n_tgt % memory.shape[0] == 0, (n_tgt, memory.shape)
-        spi = n_tgt // memory.shape[0]
-        memory = memory.repeat_interleave(spi, dim=0)
-        mem_mask = mem_mask.repeat_interleave(spi, dim=0)
-    return memory, mem_mask
 
 
 @register_model("transformer")
@@ -186,24 +174,22 @@ class Transformer(nn.Module, DropoutSite):
         rng = train_rng(train, rng)
         with torch.set_grad_enabled(train and torch.is_grad_enabled()):
             x = dropout(torch.relu(self.src_proj(att_feats, rng)), self.drop_prob_src, rng, self.site)
-            src_mask = (att_masks != 0)[:, None, None, :]
-            steps = [s for i in self.enc_plan for s in self.encoder_layers[i].steps(src_mask, rng)]
+            steps = [s for i in self.enc_plan
+                     for s in self.encoder_layers[i].steps((att_masks != 0).contiguous(), rng)]
             return {"memory": prenorm_stack(x, steps, self.encoder_norm, rng), "mask": att_masks}
 
     # ----------------------------------------------------- XE teacher force
     def _decode_full(self, tgt, memory, mem_mask, rng=None, replay: bool = False):
-        """Decoder output (N, T, D). ``replay`` reproduces a train-mode
-        decode: a causal-only key mask (the step decode attends every written
-        slot <= t, pad or not), no attention-prob dropout, and ``rng`` a
-        ``KeyedStream`` drawing every step's dropout at once."""
-        t = tgt.shape[1]
-        tgt_mask = subsequent_mask(t, tgt.device)
-        if not replay:
-            tgt_mask = (tgt != self.pad_id)[:, None, None, :] & tgt_mask
-        src_mask = (mem_mask != 0)[:, None, None, :]
+        """Decoder output (N, T, D) over the memory (B, S, D), B dividing N:
+        each image's row serves its N / B captions. ``replay`` reproduces a
+        train-mode decode: a causal-only key mask (the step decode attends
+        every written slot <= t, pad or not), no attention-prob dropout, and
+        ``rng`` a ``KeyedStream`` drawing every step's dropout at once."""
+        tgt_valid = None if replay else (tgt != self.pad_id).contiguous()
+        mem_valid = (mem_mask != 0).contiguous()
         x = self.pos_enc(self.tgt_embed(tgt, rng), rng=rng)
         steps = [s for i in self.dec_plan
-                 for s in self.decoder_layers[i].steps(memory, src_mask, tgt_mask, rng, attn_dropout=not replay)]
+                 for s in self.decoder_layers[i].steps(memory, mem_valid, tgt_valid, rng, attn_dropout=not replay)]
         return prenorm_stack(x, steps, self.decoder_norm, rng)
 
     def forward(self, att_feats, att_masks, seqs, boxes=None, train: bool = False, rng=None):
@@ -212,23 +198,20 @@ class Transformer(nn.Module, DropoutSite):
         rng = train_rng(train, rng)
         with torch.set_grad_enabled(train):
             enc = self.encode(att_feats, att_masks, boxes, train, rng)
-            tgt = seqs[:, :-1]
-            memory, mem_mask = repeat_to_batch(enc["memory"], enc["mask"], tgt.shape[0])
-            return self.generator(self._decode_full(tgt, memory, mem_mask, rng), rng)
+            return self.generator(self._decode_full(seqs[:, :-1], enc["memory"], enc["mask"], rng), rng)
 
     # --------------------------------------------- SCST teacher-forced replay
     def decode_teacher_forced(self, memory_pytree: Dict[str, Any], seqs, train: bool = False, rng=None):
         """Log-probs (N, T-1, V) of ``seqs[:, 1:]`` given an encoded memory
-        (N a multiple of its batch: memory rows repeat per sample). With
-        ``train=True`` and the ``KeyedStream`` of a train-mode decode, the
-        result equals that decode's per-step log-probs at every position up
-        to its EOS (the replay of ``TimeDropout``); gradients flow unless the
-        caller disabled them."""
+        (N a multiple of its batch: an image's samples read its memory row).
+        With ``train=True`` and the ``KeyedStream`` of a train-mode decode,
+        the result equals that decode's per-step log-probs at every position
+        up to its EOS (the replay of ``TimeDropout``); gradients flow unless
+        the caller disabled them."""
         rng = train_rng(train, rng)
         with torch.set_grad_enabled(train and torch.is_grad_enabled()):
-            tgt = seqs[:, :-1]
-            memory, mem_mask = repeat_to_batch(memory_pytree["memory"], memory_pytree["mask"], tgt.shape[0])
-            return self.generator(self._decode_full(tgt, memory, mem_mask, rng, replay=train), rng)
+            out = self._decode_full(seqs[:, :-1], memory_pytree["memory"], memory_pytree["mask"], rng, replay=train)
+            return self.generator(out, rng)
 
     # ------------------------------------------------------------- decode
     @torch.no_grad()

@@ -19,9 +19,15 @@
 
 The decode cache is the four (N, rnn) LSTM states, which beam search
 reorders by parent beam each step (no ancestor map), plus a ``"static"``
-subtree it leaves alone. Scheduled sampling (``ss_prob > 0``), more than one
-logit layer, train-mode decoding and greedy / sampling decode raise
-``NotImplementedError`` until their slice.
+subtree it leaves alone. A train-mode decode step (the SCST sampling policy)
+draws its dropout from the decode's ``KeyedStream`` at ``t`` and returns f32
+logits; ``decode_teacher_forced(train=True)`` replays the same unrolled steps
+under the same step views, so its log-probs are the sampling decode's. Each
+of the four dropout calls (``fc``, ``att``, the token embedding and the
+output) has its own site, so keyed draws at one step are independent, as
+flax's fresh key per call makes them. Scheduled sampling (``ss_prob > 0``)
+and more than one logit layer raise ``NotImplementedError`` until their
+slice.
 """
 
 from __future__ import annotations
@@ -36,12 +42,13 @@ from sparse_caption_tpu_torch.kernels.additive_attention import additive_attenti
 from sparse_caption_tpu_torch.kernels.lstm_cell import lstm_cell
 from sparse_caption_tpu_torch.kernels.vocab_log_softmax import vocab_log_softmax
 from sparse_caption_tpu_torch.models import register_model
-from sparse_caption_tpu_torch.models.layers import DropoutSite, assign_dropout_sites
 from sparse_caption_tpu_torch.models.transformer import train_rng
 from sparse_caption_tpu_torch.ops.masked import MaskConfig, MaskedEmbedding, MaskedLinear
-from sparse_caption_tpu_torch.ops.rng import dropout
+from sparse_caption_tpu_torch.ops.rng import dropout, site_id
 
 STATE = ("h_att", "c_att", "h_lang", "c_lang")
+# the keyed dropout site of each of the model's four dropout calls
+SITES = {name: site_id(f"up_down.{name}") for name in ("fc", "att", "embed", "out")}
 
 
 class MaskedLSTMCell(nn.Module):
@@ -75,13 +82,12 @@ class AdditiveAttention(nn.Module):
 
 @register_model("up_down_lstm")
 @register_model("up_down_lstm_prune")
-class UpDownModel(nn.Module, DropoutSite):
+class UpDownModel(nn.Module):
     """Up-Down LSTM. Parameters are created on ``device`` (default ``"cuda"``;
     raises without CUDA) in ``dtype`` and initialised like the JAX package
     (xavier-uniform matrices, zero biases) from ``generator``."""
 
     COLLATE_FIELDS = ("att_feats", "att_masks", "fc_feats")
-    BEAM_ONLY = True  # greedy and sampling decode are not ported yet
 
     def __init__(self, vocab_size: int, rnn_size: int = 1000, input_encoding_size: int = 1000,
                  att_hid_size: int = 512, fc_feat_size: int = 2048, att_feat_size: int = 2048, logit_layers: int = 1,
@@ -108,7 +114,6 @@ class UpDownModel(nn.Module, DropoutSite):
         self.attention = AdditiveAttention(rnn_size, att_hid_size, mask_cfg, **factory)
         self.logit = nn.ModuleList([MaskedLinear(rnn_size, vocab_size, mask_cfg=mask_cfg, **factory)])
         self.reset_parameters(generator)
-        assign_dropout_sites(self)
         self.eval()
 
     def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
@@ -116,8 +121,8 @@ class UpDownModel(nn.Module, DropoutSite):
             if isinstance(m, (MaskedLinear, MaskedEmbedding)):
                 m.reset_parameters(generator)
 
-    def _drop(self, x, rng):
-        return dropout(x, self.drop_prob_lm, rng, self.site)
+    def _drop(self, x, rng, site: str):
+        return dropout(x, self.drop_prob_lm, rng, SITES[site])
 
     # ------------------------------------------------------------- encode
     def encode(self, att_feats, att_masks, fc_feats=None, boxes=None, train: bool = False,
@@ -129,21 +134,40 @@ class UpDownModel(nn.Module, DropoutSite):
             raise ValueError("up_down_lstm requires fc_feats")
         rng = train_rng(train, rng)
         with torch.set_grad_enabled(train and torch.is_grad_enabled()):
-            fc = self._drop(torch.relu(self.fc_embed(fc_feats, rng)), rng)  # (B, rnn)
-            att = self._drop(torch.relu(self.att_embed(att_feats, rng)), rng)  # (B, R, rnn)
+            fc = self._drop(torch.relu(self.fc_embed(fc_feats, rng)), rng, "fc")  # (B, rnn)
+            att = self._drop(torch.relu(self.att_embed(att_feats, rng)), rng, "att")  # (B, R, rnn)
             p_att = self.ctx2att(att, rng)  # (B, R, att_hid)
             return {"fc": fc, "att": att, "p_att": p_att, "mask": (att_masks != 0).contiguous()}
 
     # --------------------------------------------------------------- core
     def _core_step(self, it, state: Dict[str, torch.Tensor], fc_rows, memory: Dict[str, Any], rng=None):
-        """One step over N = B * rows state rows: (logits (N, V), new state)."""
-        xt = self._drop(torch.relu(self.embed(it, rng)), rng)
+        """One step over N = B * rows state rows: (logits (N, V), new state).
+        ``rng``: a ``TrainRandom``, or a ``KeyedStream``'s step view."""
+        xt = self._drop(torch.relu(self.embed(it, rng)), rng, "embed")
         h_att, c_att = self.att_lstm(torch.cat([state["h_lang"], fc_rows, xt], dim=1), state["h_att"],
                                      state["c_att"], rng)
         att_res = self.attention(h_att, memory["att"], memory["p_att"], memory["mask"], rng)
         h_lang, c_lang = self.lang_lstm(torch.cat([att_res, h_att], dim=1), state["h_lang"], state["c_lang"], rng)
-        logits = self.logit[0](self._drop(h_lang, rng), rng)
+        logits = self.logit[0](self._drop(h_lang, rng, "out"), rng)
         return logits, {"h_att": h_att, "c_att": c_att, "h_lang": h_lang, "c_lang": c_lang}
+
+    def _unroll(self, memory: Dict[str, Any], seqs, rng, step_views: bool):
+        """The stacked logits (N, T-1, V) of feeding seqs[:, :-1] from zero
+        states; ``step_views``: step t draws from ``rng.at(t)`` (a keyed
+        stream replaying a decode), else every step from ``rng`` in call
+        order."""
+        b, n = memory["fc"].shape[0], seqs.shape[0]
+        if n % b:
+            raise ValueError(f"{n} caption rows for {b} images")
+        fc_rows = memory["fc"].repeat_interleave(n // b, dim=0)
+        zeros = torch.zeros((n, self.rnn_size), dtype=fc_rows.dtype, device=fc_rows.device)
+        state = dict.fromkeys(STATE, zeros)
+        logits = []
+        for t in range(seqs.shape[1] - 1):
+            step_rng = rng.at(t) if step_views and rng is not None else rng
+            step_logits, state = self._core_step(seqs[:, t], state, fc_rows, memory, step_rng)
+            logits.append(step_logits)
+        return torch.stack(logits, dim=1)
 
     # ------------------------------------------------------------ XE path
     def forward(self, att_feats, att_masks, seqs, fc_feats=None, boxes=None, train: bool = False, rng=None):
@@ -152,17 +176,21 @@ class UpDownModel(nn.Module, DropoutSite):
         rng = train_rng(train, rng)
         with torch.set_grad_enabled(train):
             memory = self.encode(att_feats, att_masks, fc_feats, boxes, train, rng)
-            b, n = memory["fc"].shape[0], seqs.shape[0]
-            if n % b:
-                raise ValueError(f"{n} caption rows for {b} images")
-            fc_rows = memory["fc"].repeat_interleave(n // b, dim=0)
-            zeros = torch.zeros((n, self.rnn_size), dtype=fc_rows.dtype, device=fc_rows.device)
-            state = dict.fromkeys(STATE, zeros)
-            logits = []
-            for t in range(seqs.shape[1] - 1):
-                step_logits, state = self._core_step(seqs[:, t], state, fc_rows, memory, rng)
-                logits.append(step_logits)
-            return vocab_log_softmax(torch.stack(logits, dim=1))
+            return vocab_log_softmax(self._unroll(memory, seqs, rng, step_views=False))
+
+    # --------------------------------------------- SCST teacher-forced replay
+    def decode_teacher_forced(self, memory_pytree: Dict[str, Any], seqs, train: bool = False, rng=None):
+        """Log-probs (N, T-1, V) of ``seqs[:, 1:]`` given an encoded memory (N
+        a multiple of its batch). With ``train=True`` and the ``KeyedStream``
+        of a train-mode decode, step t draws from ``rng.at(t)`` as the decode
+        did, so the result (f32, as the decode's sampling step computes it)
+        equals the decode's per-step log-probs at every position up to its
+        EOS; gradients flow unless the caller disabled them (the sampled
+        tokens carry none, so this is the gradient of the decode itself)."""
+        rng = train_rng(train, rng)
+        with torch.set_grad_enabled(train and torch.is_grad_enabled()):
+            logits = self._unroll(memory_pytree, seqs, rng, step_views=True)
+            return vocab_log_softmax(logits, torch.float32 if train else logits.dtype)
 
     # ------------------------------------------------------------- decode
     @torch.no_grad()
@@ -170,11 +198,10 @@ class UpDownModel(nn.Module, DropoutSite):
                    beam_ancestry: bool = False, train: bool = False, rng=None) -> Dict[str, Any]:
         """Zero LSTM states at ``B * rows_per_image`` rows and, under
         ``"static"``, the fc projection repeated to those rows. There is no
-        per-step history, so ``max_steps`` and ``beam_ancestry`` change
-        nothing: beam search reorders the state rows themselves."""
-        del max_steps, beam_ancestry, rng
-        if train:
-            raise NotImplementedError("train-mode Up-Down decoding (SCST) lands in a later slice")
+        per-step history and no cached projection, so ``max_steps``,
+        ``beam_ancestry``, ``train`` and ``rng`` change nothing: beam search
+        reorders the state rows themselves."""
+        del max_steps, beam_ancestry, train, rng
         fc_rows = memory_pytree["fc"].repeat_interleave(int(rows_per_image), dim=0)
         zeros = torch.zeros_like(fc_rows)
         return dict(dict.fromkeys(STATE, zeros), static={"fc": fc_rows})
@@ -182,12 +209,13 @@ class UpDownModel(nn.Module, DropoutSite):
     @torch.no_grad()
     def decode_step_logits(self, it, cache: Dict[str, Any], t: int, memory_pytree: Dict[str, Any],
                            train: bool = False, rng=None):
-        """it: (N,) current tokens. Returns (logits (N, V), cache)."""
-        del t, rng
-        if train:
-            raise NotImplementedError("train-mode Up-Down decoding (SCST) lands in a later slice")
-        logits, state = self._core_step(it, cache, cache["static"]["fc"], memory_pytree)
-        return logits, dict(state, static=cache["static"])
+        """it: (N,) current tokens. Returns (logits (N, V), cache); in train
+        mode (``rng`` the decode's ``KeyedStream``) dropout draws at t and the
+        logits are f32."""
+        rng = train_rng(train, rng)
+        rng = None if rng is None else rng.at(t)
+        logits, state = self._core_step(it, cache, cache["static"]["fc"], memory_pytree, rng)
+        return (logits.float() if train else logits), dict(state, static=cache["static"])
 
     @torch.no_grad()
     def decode_step(self, it, cache: Dict[str, Any], t: int, memory_pytree: Dict[str, Any], train: bool = False,

@@ -16,17 +16,29 @@ from sparse_caption_tpu_torch.ops.keep import apply_keep
 NEG_INF = -1e9
 
 
-def scaled_dot_attention(q, k, v, mask: Optional[torch.Tensor] = None, bias: Optional[torch.Tensor] = None,
-                         keep: Optional[torch.Tensor] = None, keep_prob: float = 1.0):
-    """q/k/v: (B, h, T, dk); mask broadcastable to (B, h, Tq, Tk), 0 = invalid.
+def scaled_dot_attention(q, k, v, key_valid: Optional[torch.Tensor] = None, causal: bool = False,
+                         bias: Optional[torch.Tensor] = None, keep: Optional[torch.Tensor] = None,
+                         keep_prob: float = 1.0):
+    """q: (N, h, Tq, dk); k/v: (N / g, h, Tk, dk), each row shared by g
+    consecutive query rows (repeated here); key_valid: (N / g, Tk) bool,
+    False = masked key, or None; causal: query i attends keys <= i.
 
     ``masked_fill`` keeps the scores' dtype (a bf16 run stays bf16), and the
     bias (ORT geometry) is added AFTER the -1e9 fill. ``keep`` (bool, the
     probabilities' shape) is the training dropout on the probabilities
     (``ops/keep.py``)."""
+    group = q.shape[0] // k.shape[0]
+    if group > 1:
+        k, v = k.repeat_interleave(group, dim=0), v.repeat_interleave(group, dim=0)
+        key_valid = None if key_valid is None else key_valid.repeat_interleave(group, dim=0)
     scores = torch.matmul(q, k.transpose(-1, -2)) / math.sqrt(q.shape[-1])
-    if mask is not None:
-        scores = scores.masked_fill(mask == 0, NEG_INF)
+    if key_valid is not None or causal:
+        valid = torch.ones(scores.shape[-2:], dtype=torch.bool, device=q.device)
+        if causal:
+            valid = torch.tril(valid)
+        if key_valid is not None:
+            valid = key_valid[:, None, None, :] & valid
+        scores = scores.masked_fill(~valid, NEG_INF)
     if bias is not None:
         scores = scores + bias
     probs = torch.softmax(scores, dim=-1)

@@ -274,7 +274,8 @@ def test_kernel_table_names_sources():
                             "grouped_cross_attention", "beam_topk", "supermask", "supermask_bwd", "add_ref_layernorm",
                             "add_ref_layernorm_bwd", "box_attention_bwd", "keyed_keep_mask", "keyed_dropout",
                             "sample_step", "cider_reward", "lstm_cell", "lstm_cell_bwd", "additive_attention",
-                            "additive_attention_bwd", "vocab_log_softmax", "vocab_log_softmax_bwd"}
+                            "additive_attention_bwd", "vocab_log_softmax", "vocab_log_softmax_bwd",
+                            "decoder_attention", "decoder_attention_bwd"}
     from sparse_caption_tpu_torch.kernels._build import CSRC, SOURCES
 
     assert {k.library_name for k in KERNELS.values()} == set(SOURCES)

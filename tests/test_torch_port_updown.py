@@ -364,11 +364,5 @@ def test_unported_updown_options_raise():
             get_model("up_down_lstm")(**KW, **kw, device="cpu")
     port = port_model(variables)
     att, amask, fc, _ = inputs
-    memory = port.encode(t(att), t(amask), t(fc))
-    for opt in ({"beam_size": 1}, {"beam_size": 0, "num_random_sample": 2}):
-        with pytest.raises(NotImplementedError, match="later slice"):
-            generate(port, memory, opt)
-    with pytest.raises(NotImplementedError, match="later slice"):
-        port.init_cache(memory, 6, 5, train=True, rng=TrainRandom(torch.Generator()))
     with pytest.raises(ValueError, match="fc_feats"):
         port.encode(t(att), t(amask))
