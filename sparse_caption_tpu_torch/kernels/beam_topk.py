@@ -18,7 +18,8 @@ KERNEL = _build.CudaKernel("beam_topk", "sct_beam_topk", [
     _build.P, _build.P, _build.P, _build.P,
 ])
 NEG_BIG = -1e18
-MAX_K = 8
+REGISTER_K = 32  # larger k takes the kernel's radix-select variant
+SELECT_SMEM_LIMIT = 232448 - 4096  # bytes of dynamic shared memory that variant may take
 
 
 def topk_lower_index(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -58,11 +59,13 @@ def beam_topk(logits, k: int, ban_token: Optional[torch.Tensor] = None, ban_eos:
     down by -1e18 (bad endings); unk_id: column knocked down by 1000
     (``suppress_UNK``). The penalties add in f32.
     Returns (values (N, k) f32, indices (N, k) int32, raw log-probs at the
-    indices (N, k) f32); ties go to the lower index."""
+    indices (N, k) f32); ties go to the lower index. Any 1 <= k <= V; on the
+    card a k above 32 holds the row and the k winners in shared memory
+    (4 V + 8 * pow2ceil(k) bytes, which V = 10000 allows for every k)."""
     check_float(logits, "logits")
     n, vocab = logits.shape
-    if not 1 <= k <= min(MAX_K, vocab):
-        raise ValueError(f"k={k} outside 1..{min(MAX_K, vocab)}")
+    if not 1 <= k <= vocab:
+        raise ValueError(f"k={k} outside 1..{vocab}")
     if ban_token is not None:
         check_tensor(ban_token, "ban_token", (n,), torch.int32)
     if ban_eos is not None:
@@ -70,6 +73,8 @@ def beam_topk(logits, k: int, ban_token: Optional[torch.Tensor] = None, ban_eos:
     check_same_device(logits, ban_token, ban_eos)
     if logits.device.type == "cpu":
         return beam_topk_plain(logits, k, ban_token, ban_eos, eos_id, unk_id)
+    if k > REGISTER_K and 4 * vocab + 8 * (1 << (k - 1).bit_length()) > SELECT_SMEM_LIMIT:
+        raise ValueError(f"k={k} over V={vocab} needs more shared memory than a block has")
     dev = logits.device
     vals = torch.empty((n, k), dtype=torch.float32, device=dev)
     idx = torch.empty((n, k), dtype=torch.int32, device=dev)

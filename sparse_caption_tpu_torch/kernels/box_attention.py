@@ -16,27 +16,37 @@ from sparse_caption_tpu_torch.kernels._checks import check_float, check_same_dev
 from sparse_caption_tpu_torch.ops.attention import box_relational_embedding, geometry_frequencies, scaled_dot_attention
 
 KERNEL = _build.CudaKernel("box_attention", "sct_box_attention", [
-    _build.I, _build.P, _build.P, _build.P, _build.P, _build.P, _build.P, _build.P, _build.P, _build.P,
+    _build.I, _build.P, _build.P, _build.P, _build.P, _build.P, _build.P, _build.P, _build.P, _build.P, _build.P,
     _build.I, _build.I, _build.I, _build.F32, _build.P,
 ])
-# the train variant: dropout keep-mask on the probabilities, per-row log-sum-exp out
+# the train variant: dropout keep-mask on the probabilities
 KERNEL_TRAIN = _build.CudaKernel("box_attention", "sct_box_attention_train", [
     _build.I, _build.P, _build.P, _build.P, _build.P, _build.P, _build.P, _build.P, _build.P, _build.P,
-    _build.F32, _build.P, _build.P, _build.I, _build.I, _build.I, _build.F32, _build.P,
+    _build.F32, _build.P, _build.I, _build.I, _build.I, _build.F32, _build.P,
 ])
 DIM_G = 64
 
 
-def box_attention_plain(q, k, v, boxes, wg_weight, wg_bias, mask, keep=None, keep_prob: float = 1.0):
-    """Reference math of ``BoxMultiHeadAttention`` after the q/k/v projections.
+def log_bias_from_geometry(geo, wg_weight, wg_bias, dtype):
+    """The (B, h, R, R) log-bias ``log(max(relu(geo . wg + wg_b), 1e-6))`` of
+    the f32 geometry (B, R, R, 64) in ``dtype``, with the JAX layer's cast
+    points: the geometry cast to ``dtype``, the product rounded before the
+    bias is added (``MaskedDense`` adds it after the dot), relu, the clamp and
+    the log in ``dtype``."""
+    w_g = torch.relu(F.linear(geo.to(dtype), wg_weight) + wg_bias)  # (B, R, R, h)
+    return torch.log(torch.clamp(w_g, min=1e-6)).permute(0, 3, 1, 2).to(dtype)
 
-    Geometry in f32, cast to the compute dtype before the ``wg`` projection;
-    relu, the 1e-6 clamp and the log in the compute dtype; the log-bias is
-    added after the -1e9 fill of padded keys; ``keep`` is the training
-    dropout on the probabilities."""
-    geo = box_relational_embedding(boxes.float(), dim_g=DIM_G)
-    w_g = torch.relu(F.linear(geo.to(q.dtype), wg_weight, wg_bias))  # (B, R, R, h)
-    log_wg = torch.log(torch.clamp(w_g, min=1e-6)).permute(0, 3, 1, 2).to(q.dtype)
+
+def box_log_bias_plain(boxes, wg_weight, wg_bias, dtype):
+    """K1's log-bias: ``log_bias_from_geometry`` of the boxes' f32 geometry."""
+    return log_bias_from_geometry(box_relational_embedding(boxes.float(), dim_g=DIM_G), wg_weight, wg_bias, dtype)
+
+
+def box_attention_plain(q, k, v, boxes, wg_weight, wg_bias, mask, keep=None, keep_prob: float = 1.0):
+    """Reference math of ``BoxMultiHeadAttention`` after the q/k/v projections:
+    the log-bias of ``box_log_bias_plain`` added after the -1e9 fill of padded
+    keys; ``keep`` is the training dropout on the probabilities."""
+    log_wg = box_log_bias_plain(boxes, wg_weight, wg_bias, q.dtype)
     return scaled_dot_attention(q, k, v, mask, bias=log_wg, keep=keep, keep_prob=keep_prob)
 
 
@@ -58,18 +68,26 @@ def check_args(q, k, v, boxes, wg_weight, wg_bias, mask, keep=None):
     return b, h, r, dk
 
 
-def box_attention(q, k, v, boxes, wg_weight, wg_bias, mask):
+def box_attention(q, k, v, boxes, wg_weight, wg_bias, mask, bias_out=None):
     """q, k, v: (B, h, R, dk) f32 or bf16; boxes: (B, R, 4) f32; wg_weight: (h, 64)
     (the Linear layout of the (64, h) projection) and wg_bias: (h,) in the
     compute dtype; mask: (B, R) bool, False = padded region. Returns (B, h, R, dk).
-    Eval only: the result carries no gradient (training uses
+    ``bias_out``, a (B, h, R, R) tensor in the compute dtype or None (the main
+    path), receives the log-bias the call added: the check of K1's geometry
+    rounding. Eval only: the result carries no gradient (training uses
     ``box_attention_bwd.box_attention_train``)."""
     b, h, r, dk = check_args(q, k, v, boxes, wg_weight, wg_bias, mask)
+    if bias_out is not None:
+        check_tensor(bias_out, "bias_out", (b, h, r, r), q.dtype)
+        check_same_device(q, bias_out)
     if q.device.type == "cpu":
+        if bias_out is not None:
+            bias_out.copy_(box_log_bias_plain(boxes, wg_weight, wg_bias, q.dtype))
         return box_attention_plain(q, k, v, boxes, wg_weight, wg_bias, mask)
     out = torch.empty_like(q)
     freq = geometry_frequencies(DIM_G, device=q.device)
     KERNEL.launch(_build.dtype_code(q), q.data_ptr(), k.data_ptr(), v.data_ptr(), boxes.data_ptr(),
                   wg_weight.data_ptr(), wg_bias.data_ptr(), freq.data_ptr(), mask.data_ptr(), out.data_ptr(),
-                  b, h, r, 1.0 / math.sqrt(dk), _build.stream_handle(q))
+                  None if bias_out is None else bias_out.data_ptr(), b, h, r, 1.0 / math.sqrt(dk),
+                  _build.stream_handle(q))
     return out

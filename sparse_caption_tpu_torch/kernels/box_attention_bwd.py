@@ -3,7 +3,8 @@ bound with K1's train variant into one autograd Function.
 
 ``box_attention_train`` is the training form of ``box_attention``: for CUDA
 tensors its forward launches K1's train variant (dropout keep-mask on the
-probabilities, per-row log-sum-exp saved) and its backward launches K7,
+probabilities) and its backward launches K7, which recomputes the
+probabilities with K1's arithmetic and
 which returns dq, dk, dv and the gradients of the ``wg`` projection; for
 CPU tensors it runs ``box_attention_plain``, whose autograd gives the same
 gradients. Nothing else falls back.
@@ -21,9 +22,10 @@ from sparse_caption_tpu_torch.kernels.box_attention import DIM_G, KERNEL_TRAIN, 
 from sparse_caption_tpu_torch.ops.attention import geometry_frequencies
 from sparse_caption_tpu_torch.ops.keep import keep_divisor
 
+HEAD_GROUP = 4  # heads per block of the kernel (csrc/box_attention_bwd.cu kGroupHeads)
 KERNEL = _build.CudaKernel("box_attention_bwd", "sct_box_attention_bwd", [
     _build.I, _build.P, _build.P, _build.P, _build.P, _build.P, _build.P, _build.P, _build.P, _build.P, _build.P,
-    _build.P, _build.P, _build.F32, _build.P, _build.P, _build.P, _build.P, _build.P, _build.P,
+    _build.F32, _build.P, _build.P, _build.P, _build.P, _build.P, _build.P,
     _build.I, _build.I, _build.I, _build.F32, _build.P,
 ])
 
@@ -33,26 +35,26 @@ class _BoxAttentionFn(torch.autograd.Function):
     def forward(ctx, q, k, v, boxes, wg_weight, wg_bias, mask, keep, keep_prob: float):
         b, h, r, dk = q.shape
         out = torch.empty_like(q)
-        lse = torch.empty(b, h, r, device=q.device, dtype=torch.float32)
         freq = geometry_frequencies(DIM_G, device=q.device)
         KERNEL_TRAIN.launch(_build.dtype_code(q), q.data_ptr(), k.data_ptr(), v.data_ptr(), boxes.data_ptr(),
                             wg_weight.data_ptr(), wg_bias.data_ptr(), freq.data_ptr(), mask.data_ptr(),
-                            _build.ptr(keep), keep_prob, out.data_ptr(), lse.data_ptr(), b, h, r,
-                            1.0 / math.sqrt(dk), _build.stream_handle(q))
+                            _build.ptr(keep), keep_prob, out.data_ptr(), b, h, r, 1.0 / math.sqrt(dk),
+                            _build.stream_handle(q))
         ctx.keep_prob = keep_prob
-        ctx.save_for_backward(q, k, v, out, lse, boxes, wg_weight, wg_bias, mask, keep, freq)
+        ctx.save_for_backward(q, k, v, boxes, wg_weight, wg_bias, mask, keep, freq)
         return out
 
     @staticmethod
     def backward(ctx, dout):
-        q, k, v, out, lse, boxes, wg_weight, wg_bias, mask, keep, freq = ctx.saved_tensors
+        q, k, v, boxes, wg_weight, wg_bias, mask, keep, freq = ctx.saved_tensors
         b, h, r, dk = q.shape
         dout = dout.contiguous()
         dq, dk_, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
         dwg_w, dwg_b = torch.empty_like(wg_weight), torch.empty_like(wg_bias)
-        partial = torch.empty(b, h, DIM_G + 1, device=q.device, dtype=torch.float32)
-        KERNEL.launch(_build.dtype_code(q), q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                      dout.data_ptr(), lse.data_ptr(), boxes.data_ptr(), wg_weight.data_ptr(), wg_bias.data_ptr(),
+        # per-(image, head group) d wg partials, summed by the kernel's second pass in a fixed order
+        partial = torch.empty(b, -(-h // HEAD_GROUP), h, DIM_G + 1, device=q.device, dtype=torch.float32)
+        KERNEL.launch(_build.dtype_code(q), q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                      dout.data_ptr(), boxes.data_ptr(), wg_weight.data_ptr(), wg_bias.data_ptr(),
                       freq.data_ptr(), mask.data_ptr(), _build.ptr(keep), ctx.keep_prob, dq.data_ptr(),
                       dk_.data_ptr(), dv.data_ptr(), dwg_w.data_ptr(), dwg_b.data_ptr(), partial.data_ptr(),
                       b, h, r, 1.0 / math.sqrt(dk), _build.stream_handle(q))

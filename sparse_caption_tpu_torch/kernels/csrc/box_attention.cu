@@ -4,154 +4,502 @@
 // and :406-439 BoxMultiHeadAttention.__call__ (left to XLA's fusions on the
 // TPU; no Pallas kernel there).
 //
-// Computes, for each image b and head h,
-//   geo[i,j]   = sin/cos(100 * log-delta(box_i, box_j) * freq)     (f32 trig)
-//   w_g[i,j,h] = relu(geo[i,j] (cast to T) . wg[h] + wg_b[h])      (rounded to T)
-//   bias       = log(max(w_g, 1e-6))                                (rounded to T)
-//   out        = softmax(fill(q.k / sqrt(dk), mask, -1e9) + bias) . v
-// with the cast points of layers.py:425-435.
+// Computes, for each image b and head h, with the cast points of the plain
+// version (layers.py:425-435, ops/attention.py):
+//   geo[i,j]   = sin/cos(100 * log-delta(box_i, box_j) * freq)      (f32 trig, rounded to T)
+//   w_g[i,j,h] = max(relu(round(round(geo . wg[h]) + wg_b[h])), 1e-6)
+//   bias       = round(log(w_g))
+//   s          = round(fill(round(round(q.k) * scale), mask, -1e9) + bias)
+//   p          = round(softmax(s))    (f32 max, exp and sum)
+//   out        = round(p . v)
+// where round() is the rounding to the compute dtype T (a no-op in f32).
 //
-// Bound on the H100 (d_model 512, 8 heads, R = 36): bytes. q, k, v and out
-// are 4 * B * 8 * 36 * 64 elements (302 MB in bf16 at B = 2048, 0.09 ms at
-// 3.35 TB/s); the arithmetic (QK, PV, the 64-wide wg dot per pair and head)
-// is under 10 GFLOP. The geometry tensor (B, R, R, 64) and the bias (B, h, R, R)
-// never leave the SM.
+// Bound on the H100 (d_model 512, 8 heads, R = 36): bytes, then the trig.
+// q, k, v and out are 4 * B * 8 * 36 * 64 elements (302 MB in bf16 at B =
+// 2048, 0.09 ms at 3.35 TB/s); the geometry is 1296 x 32 sincosf per image
+// (about 0.1 ms on the CUDA cores at B = 2048); the products (QK, PV, the
+// 64-wide wg dot per pair and head) are under 10 GFLOP. The geometry tensor
+// (B, R, R, 64) and the bias (B, h, R, R) never leave the SM.
 //
-// Design: one block per image over all heads. The block first computes the
-// geometry of every (i, j) pair once (32 sincosf, box_geometry.cuh) and dots it
-// with all heads' wg rows, storing the (h, R, R) log-bias in shared memory;
-// then, head by head, it stages K and V in shared memory and each warp attends
-// one query row at a time (common.cuh warp_attend_row). Simple CUDA cores, no
-// wgmma: the 36-wide products are far too small for tensor-core tiles to
-// matter before the memory bound does.
+// Design: in bf16 (the serving and XE path), one block of 8 warps per image,
+// everything on tensor cores with mma.sync.m16n8k16 (f32 accumulators).
+// - Geometry as a product (box_geometry.cuh geometry_tile_bf16): each warp
+//   takes tiles of 16 pairs, computes the trig features of its A fragments in
+//   registers (one sincosf per pair, coordinate and frequency), multiplies
+//   them by wg^T (one n-tile = 8 heads, four k-steps) and writes the rounded
+//   log-bias of every head into shared memory (bf16, H * R * R).
+// - Loads: each head's q, k and v tiles (R rows of 128 B each) arrive by 1-D
+//   TMA (cp.async.bulk, one copy per row into rows padded to 144 B, so that
+//   the fragment loads below hit 32 distinct banks) on the head's mbarrier,
+//   in 3 stages: heads 0-2 load while the block computes the geometry, head
+//   h + 3 as soon as every tile of head h is done (a second mbarrier per
+//   head). Rows past R read one shared zero row.
+// - Attention: the (head, 16-row query tile) units, H * ceil(R / 16) of them,
+//   go to the 8 warps in turn (R padded to RP = 16 * ceil(R / 16)). S = QK^T
+//   (4 k-steps over d = 64, 2 RP / 16
+//   n-tiles of keys) stays in the accumulators; the scale, fill, bias and
+//   the f32 softmax (row max and sum over the quad by shuffles) run there;
+//   P is rounded to bf16 and reused in registers as the A operand of P.V
+//   (V's B fragments by ldmatrix.trans, 8 n-tiles over d); the result goes
+//   through the warp's own rows of the q tile to 16-byte stores.
+// - mma.sync and not wgmma: the tiles are 36 x 36 x 64, far below what a
+//   64-row warpgroup tile would fill, and the kernel is bound by bytes and
+//   trig, not by the tensor cores. Shared memory per block at R = 36, h = 8:
+//   46.8 KB of staged tiles + 20.7 KB of bias + 1 KB = 69 KB, so three
+//   blocks (24 warps) per SM, as the registers (80 a thread) allow.
+// In f32 (the SCST path; TF32 is never used), one block of 8 warps per
+// image on the CUDA cores with exact f32 FMAs. The geometry is computed pair
+// by pair (box_geometry.cuh pair_wg); then, head by head, each warp takes 4
+// query rows at a time: every lane holds one key (two for R > 32) and reads it
+// with 128-bit loads shared by the 4 rows, and P.V reads each value pair once
+// for the 4 rows.
 //
-// Train variant (sct_box_attention_train): the same kernel also applies the
-// attention-probability dropout keep-mask (B, h, R, R) as p * keep / keep_prob
-// after the softmax (layers.py:437-438) and writes each row's f32
-// log-sum-exp (B, h, R), from which K7 (box_attention_bwd.cu) recomputes the
-// probabilities.
+// Train variant (sct_box_attention_train): the same kernels also apply the
+// attention-probability dropout keep-mask (B, h, R, R) as
+// round(p / keep_prob) where kept, 0 elsewhere (layers.py:437-438). K7
+// (box_attention_bwd.cu) recomputes the probabilities itself, with this
+// arithmetic, so nothing else is saved.
+// Check output (bias_out of sct_box_attention, null on the main path): the
+// (B, h, R, R) log-bias in T.
 #include "box_geometry.cuh"
 
 namespace sct {
 
-constexpr int kBoxThreads = 256;
+using bf16 = __nv_bfloat16;
 
-template <typename T>
-__global__ void __launch_bounds__(kBoxThreads)
-box_attention_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                     const float* __restrict__ boxes, const T* __restrict__ wg_w, const T* __restrict__ wg_b,
-                     const float* __restrict__ freq, const unsigned char* __restrict__ mask,
-                     const unsigned char* __restrict__ keep, float keep_prob, T* __restrict__ out,
-                     float* __restrict__ lse, int H, int R, float scale) {
-  extern __shared__ float smem[];
-  const int nwarps = blockDim.x / 32, warp = threadIdx.x / 32, lane = threadIdx.x & 31;
-  float* bias_s = smem;                    // H * R * R
-  float* k_s = bias_s + H * R * R;         // R * kKeyStride
-  float* v_s = k_s + R * kKeyStride;       // R * kValStride
-  float* q_s = v_s + R * kValStride;       // nwarps * 64
-  float* p_s = q_s + nwarps * kHeadDim;    // nwarps * 64
-  float* box_s = p_s + nwarps * kHeadDim;  // R * 4
+// ------------------------------------------------------------ bf16: tensor cores
+constexpr int kMmaWarps = 8;
+constexpr int kMmaThreads = 32 * kMmaWarps;
+constexpr int kStages = 3;  // heads in flight: 3 x ceil(36 / 16) = 9 query tiles for the 8 warps
+constexpr int kLd = kHeadDim + 8;  // staged row stride in bf16 (144 B)
+
+inline int padded_rows(int R) { return 16 * ((R + 15) / 16); }
+
+// dynamic shared memory: 2 mbarriers per head | kStages x (q, k, v) x R rows |
+// a zero row (every padded row reads it) | bias | boxes | wg_b | mask
+inline size_t mma_smem_bytes(int H, int R) {
+  const size_t tiles = (kStages * 3 * (size_t)R + 1) * kLd * sizeof(bf16);
+  const size_t bias = (((size_t)H * R * R + 7) / 8) * 8 * sizeof(bf16);
+  return 2 * kMaxHeads * sizeof(uint64_t) + tiles + bias + (size_t)R * 4 * sizeof(float) +
+         kMaxHeads * sizeof(float) + R;
+}
+
+// row r of a staged tile, or the zero row for the padding rows r >= R
+__device__ __forceinline__ const bf16* tile_row(const bf16* tile, int r, int R, const bf16* zero) {
+  return r < R ? tile + r * kLd : zero;
+}
+
+template <int RP>
+__device__ __forceinline__ void attend_tile_bf16(bf16* qs, const bf16* ks, const bf16* vs, const bf16* zero,
+                                                 const bf16* bias_h, const unsigned char* mask_s,
+                                                 const unsigned char* __restrict__ keep_h, float keep_prob,
+                                                 bf16* __restrict__ out_h, int R, int mt, float scale) {
+  constexpr int KS = RP / 16;  // key k-steps of P.V
+  constexpr int NS = 2 * KS;   // key n-tiles of S
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int rows[2] = {16 * mt + g, 16 * mt + g + 8};
+  const int nsv = (R + 7) / 8;  // key n-tiles that hold keys; the rest of S stays 0 and P 0
+
+  float sacc[NS][4];
+#pragma unroll
+  for (int nt = 0; nt < NS; ++nt) sacc[nt][0] = sacc[nt][1] = sacc[nt][2] = sacc[nt][3] = 0.f;
+#pragma unroll
+  for (int kd = 0; kd < kHeadDim / 16; ++kd) {
+    const int col = 16 * kd + 2 * t;
+    const bf16* q0 = tile_row(qs, rows[0], R, zero) + col;
+    const bf16* q1 = tile_row(qs, rows[1], R, zero) + col;
+    const uint32_t a[4] = {lds_u32(q0), lds_u32(q1), lds_u32(q0 + 8), lds_u32(q1 + 8)};
+#pragma unroll
+    for (int nt = 0; nt < NS; ++nt) {
+      if (nt < nsv) {
+        const bf16* kr = tile_row(ks, 8 * nt + g, R, zero) + col;
+        const uint32_t b[2] = {lds_u32(kr), lds_u32(kr + 8)};
+        mma_bf16(sacc[nt], a, b);
+      }
+    }
+  }
+
+  // scores, then the softmax of each row over its quad
+  const float fill = round_to<bf16>(kNegInf);
+  float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+  for (int nt = 0; nt < NS; ++nt) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int j = 8 * nt + 2 * t + (e & 1), row = rows[e >> 1];
+      float s = -INFINITY;
+      if (j < R) {
+        s = round_to<bf16>(round_to<bf16>(sacc[nt][e]) * scale);
+        if (mask_s[j] == 0) s = fill;
+        if (row < R) s = round_to<bf16>(s + __bfloat162float(bias_h[row * R + j]));
+      }
+      sacc[nt][e] = s;
+      mx[e >> 1] = fmaxf(mx[e >> 1], s);
+    }
+  }
+  float sum[2] = {0.f, 0.f};
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+  }
+#pragma unroll
+  for (int nt = 0; nt < NS; ++nt) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float x = sacc[nt][e] == -INFINITY ? 0.f : expf(sacc[nt][e] - mx[e >> 1]);
+      sacc[nt][e] = x;
+      sum[e >> 1] += x;
+    }
+  }
+  float inv[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], 1);
+    sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], 2);
+    inv[r] = 1.f / sum[r];
+  }
+#pragma unroll
+  for (int nt = 0; nt < NS; ++nt) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int j = 8 * nt + 2 * t + (e & 1), row = rows[e >> 1];
+      float p = round_to<bf16>(div_by(sacc[nt][e], sum[e >> 1], inv[e >> 1]));  // P rounded where the plain softmax writes it
+      if (keep_h != nullptr) p = row < R && j < R && keep_h[row * R + j] ? round_to<bf16>(p / keep_prob) : 0.f;
+      sacc[nt][e] = p;
+    }
+  }
+
+  // P.V: P's accumulators are the A fragments; V's B fragments by ldmatrix.trans
+  float oacc[8][4];
+#pragma unroll
+  for (int nt = 0; nt < 8; ++nt) oacc[nt][0] = oacc[nt][1] = oacc[nt][2] = oacc[nt][3] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < KS; ++kk) {
+    const uint32_t a[4] = {pack_bf16(sacc[2 * kk][0], sacc[2 * kk][1]), pack_bf16(sacc[2 * kk][2], sacc[2 * kk][3]),
+                           pack_bf16(sacc[2 * kk + 1][0], sacc[2 * kk + 1][1]),
+                           pack_bf16(sacc[2 * kk + 1][2], sacc[2 * kk + 1][3])};
+#pragma unroll
+    for (int jn = 0; jn < 4; ++jn) {
+      uint32_t r[4];
+      ldmatrix_x4_trans(r, tile_row(vs, 16 * kk + (lane & 15), R, zero) + 16 * jn + (lane >> 4) * 8);
+      const uint32_t b0[2] = {r[0], r[1]}, b1[2] = {r[2], r[3]};
+      mma_bf16(oacc[2 * jn], a, b0);
+      mma_bf16(oacc[2 * jn + 1], a, b1);
+    }
+  }
+
+  // out: through this warp's own 16 rows of the q tile, then 16-byte stores
+  __syncwarp();  // every lane is done reading those q rows
+#pragma unroll
+  for (int nt = 0; nt < 8; ++nt) {
+    const int col = 8 * nt + 2 * t;
+    if (rows[0] < R) *reinterpret_cast<uint32_t*>(qs + rows[0] * kLd + col) = pack_bf16(oacc[nt][0], oacc[nt][1]);
+    if (rows[1] < R) *reinterpret_cast<uint32_t*>(qs + rows[1] * kLd + col) = pack_bf16(oacc[nt][2], oacc[nt][3]);
+  }
+  __syncwarp();
+  for (int c = lane; c < 16 * (kHeadDim / 8); c += 32) {
+    const int row = 16 * mt + c / (kHeadDim / 8), col = 8 * (c % (kHeadDim / 8));
+    if (row < R) {
+      *reinterpret_cast<uint4*>(out_h + row * kHeadDim + col) = *reinterpret_cast<const uint4*>(qs + row * kLd + col);
+    }
+  }
+}
+
+template <int RP>
+__global__ void __launch_bounds__(kMmaThreads)
+box_attention_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
+                         const float* __restrict__ boxes, const bf16* __restrict__ wg_w,
+                         const bf16* __restrict__ wg_b, const float* __restrict__ freq,
+                         const unsigned char* __restrict__ mask, const unsigned char* __restrict__ keep,
+                         float keep_prob, bf16* __restrict__ out, bf16* __restrict__ bias_out, int H, int R,
+                         float scale) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem);  // per head: its tiles have landed
+  uint64_t* empty = full + kMaxHeads;                  // per head: its query tiles are done
+  bf16* tiles = reinterpret_cast<bf16*>(empty + kMaxHeads);  // [stage][q, k, v][R][kLd]
+  const int P = R * R, MT = RP / 16;
+  bf16* zero = tiles + kStages * 3 * R * kLd;  // kLd zeros
+  bf16* bias_s = zero + kLd;             // [H][R][R]
+  float* box_s = reinterpret_cast<float*>(bias_s + ((H * P + 7) / 8) * 8);
+  float* wb_s = box_s + R * 4;
+  unsigned char* mask_s = reinterpret_cast<unsigned char*>(wb_s + kMaxHeads);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x & 31, t = lane & 3, g = lane >> 2;
+  const int b = blockIdx.x;
+  auto tile = [&](int stage, int which) { return tiles + (stage * 3 + which) * R * kLd; };
+
+  if (threadIdx.x == 0) {
+    for (int h = 0; h < H; ++h) {
+      mbar_init(&full[h], 1);
+      mbar_init(&empty[h], MT);
+    }
+    mbar_fence_init();
+  }
+  for (int e = threadIdx.x; e < kLd; e += blockDim.x) zero[e] = __float2bfloat16_rn(0.f);
+  for (int e = threadIdx.x; e < R * 4; e += blockDim.x) box_s[e] = boxes[(size_t)b * R * 4 + e];
+  for (int e = threadIdx.x; e < kMaxHeads; e += blockDim.x) wb_s[e] = e < H ? __bfloat162float(wg_b[e]) : 0.f;
+  for (int e = threadIdx.x; e < R; e += blockDim.x) mask_s[e] = mask[(size_t)b * R + e];
+  __syncthreads();
+
+  const size_t head_elems = (size_t)R * kHeadDim;
+  auto load_head = [&](int h) {  // one warp: head h's q, k, v into stage h % kStages, one copy per row
+    const int s = h % kStages;
+    if (lane == 0) mbar_arrive_expect_tx(&full[h], 3u * R * kHeadDim * sizeof(bf16));
+    __syncwarp();
+    const size_t base = ((size_t)b * H + h) * head_elems;
+    for (int r = lane; r < R; r += 32) {
+      tma_load_1d(tile(s, 0) + r * kLd, q + base + r * kHeadDim, kHeadDim * sizeof(bf16), &full[h]);
+      tma_load_1d(tile(s, 1) + r * kLd, k + base + r * kHeadDim, kHeadDim * sizeof(bf16), &full[h]);
+      tma_load_1d(tile(s, 2) + r * kLd, v + base + r * kHeadDim, kHeadDim * sizeof(bf16), &full[h]);
+    }
+  };
+  if (warp < kStages && warp < H) load_head(warp);
+
+  // geometry log-bias of every (head, pair): tiles of 16 pairs on the tensor cores
+  {
+    uint32_t wfrag[kHeadTiles][4][2];
+    load_wg_frags(wg_w, H, wfrag);
+    const float fq[2] = {freq[2 * t], freq[2 * t + 1]};
+    for (int mt = warp; 16 * mt < P; mt += kMmaWarps) {
+      float wgc[kHeadTiles][4];
+      geometry_tile_bf16(box_s, R, mt, fq, wfrag, H, wb_s, wgc);
+#pragma unroll
+      for (int nt = 0; nt < kHeadTiles; ++nt) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int head = 8 * nt + 2 * t + (e & 1), p = 16 * mt + g + 8 * (e >> 1);
+          if (head < H && p < P) {
+            const bf16 lb = __float2bfloat16_rn(logf(wgc[nt][e]));
+            bias_s[head * P + p] = lb;
+            if (bias_out != nullptr) bias_out[((size_t)b * H + head) * P + p] = lb;
+          }
+        }
+      }
+    }
+  }
+  __syncthreads();
+
+  // attention: the (head, query tile) units in order over all warps. Each
+  // head has its own pair of barriers (used once: no phase can be mistaken
+  // for another); the warp that finishes a head's last tile waits until the
+  // head's other tiles are done too and loads head h + kStages into the stage.
+  for (int u = warp; u < H * MT; u += kMmaWarps) {
+    const int h = u / MT, mt = u - (u / MT) * MT, s = h % kStages;
+    mbar_wait(&full[h], 0);
+    const size_t row0 = ((size_t)b * H + h) * R;
+    attend_tile_bf16<RP>(tile(s, 0), tile(s, 1), tile(s, 2), zero, bias_s + h * P, mask_s,
+                         keep == nullptr ? nullptr : keep + row0 * R, keep_prob, out + row0 * kHeadDim, R, mt, scale);
+    fence_proxy_async();  // the output staging wrote into the stage that a later copy overwrites
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[h]);
+    if (mt == MT - 1 && h + kStages < H) {
+      mbar_wait(&empty[h], 0);
+      load_head(h + kStages);
+    }
+  }
+}
+
+// ------------------------------------------------------------ f32: CUDA cores
+constexpr int kF32Threads = 256;
+constexpr int kF32Warps = kF32Threads / 32;
+constexpr int kRowsPerWarp = 4;          // query rows sharing each key load
+constexpr int kKeyLd = kHeadDim + 4;     // f32 key row stride: 128-bit loads of 8 lanes hit distinct banks
+
+// the f32 bias region, rounded up so that the tiles after it take 16-byte loads
+__host__ __device__ inline int bias_floats(int H, int R) { return ((H * R * R + 3) / 4) * 4; }
+
+inline size_t f32_smem_bytes(int H, int R) {
+  const size_t floats = bias_floats(H, R) + (size_t)R * kKeyLd + 2 * (size_t)R * kHeadDim +
+                        (size_t)kF32Warps * 64 * kRowsPerWarp + (size_t)R * 4 + (size_t)H * 64 + H + kFreqs;
+  return floats * sizeof(float) + R;
+}
+
+__global__ void __launch_bounds__(kF32Threads)
+box_attention_f32_kernel(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
+                         const float* __restrict__ boxes, const float* __restrict__ wg_w,
+                         const float* __restrict__ wg_b, const float* __restrict__ freq,
+                         const unsigned char* __restrict__ mask, const unsigned char* __restrict__ keep,
+                         float keep_prob, float* __restrict__ out, float* __restrict__ bias_out, int H, int R,
+                         float scale) {
+  extern __shared__ __align__(16) float smem_f[];
+  const int warp = threadIdx.x / 32, lane = threadIdx.x & 31;
+  float* bias_s = smem_f;                  // H * R * R
+  float* q_s = bias_s + bias_floats(H, R);  // R * 64
+  float* k_s = q_s + R * kHeadDim;         // R * kKeyLd
+  float* v_s = k_s + R * kKeyLd;           // R * 64
+  float* p_s = v_s + R * kHeadDim;         // per warp 64 keys x 4 rows
+  float* box_s = p_s + kF32Warps * 64 * kRowsPerWarp;
   float* w_s = box_s + R * 4;              // H * 64
   float* wb_s = w_s + H * 64;              // H
   float* freq_s = wb_s + H;                // kFreqs
-  unsigned char* mask_s = reinterpret_cast<unsigned char*>(freq_s + kFreqs);  // R
-
+  unsigned char* mask_s = reinterpret_cast<unsigned char*>(freq_s + kFreqs);
   const int b = blockIdx.x;
   for (int e = threadIdx.x; e < R * 4; e += blockDim.x) box_s[e] = boxes[(size_t)b * R * 4 + e];
-  for (int e = threadIdx.x; e < H * 64; e += blockDim.x) w_s[e] = to_f(wg_w[e]);
-  for (int e = threadIdx.x; e < H; e += blockDim.x) wb_s[e] = to_f(wg_b[e]);
+  for (int e = threadIdx.x; e < H * 64; e += blockDim.x) w_s[e] = wg_w[e];
+  for (int e = threadIdx.x; e < H; e += blockDim.x) wb_s[e] = wg_b[e];
   for (int e = threadIdx.x; e < kFreqs; e += blockDim.x) freq_s[e] = freq[e];
   for (int e = threadIdx.x; e < R; e += blockDim.x) mask_s[e] = mask[(size_t)b * R + e];
   __syncthreads();
 
-  // geometry log-bias of every (head, i, j)
   for (int p = threadIdx.x; p < R * R; p += blockDim.x) {
     const int i = p / R, j = p - (p / R) * R;
     float wg[kMaxHeads];
-    pair_wg<T>(box_s + 4 * i, box_s + 4 * j, w_s, wb_s, freq_s, H, wg);
+    pair_wg<float>(box_s + 4 * i, box_s + 4 * j, w_s, wb_s, freq_s, H, wg);
 #pragma unroll
     for (int hh = 0; hh < kMaxHeads; ++hh) {
-      if (hh < H) bias_s[(hh * R + i) * R + j] = round_to<T>(logf(wg[hh]));
+      if (hh < H) {
+        const float lb = logf(wg[hh]);
+        bias_s[hh * R * R + p] = lb;
+        if (bias_out != nullptr) bias_out[((size_t)b * H + hh) * R * R + p] = lb;
+      }
     }
   }
 
+  float* pw = p_s + warp * 64 * kRowsPerWarp;  // [key][row]
   for (int hh = 0; hh < H; ++hh) {
     const size_t base = ((size_t)b * H + hh) * R * kHeadDim;
-    __syncthreads();  // bias done / previous head's tiles no longer read
-    load_tile(k_s, k + base, R, kKeyStride);
-    load_tile(v_s, v + base, R, kValStride);
+    __syncthreads();  // bias done / the previous head's tiles no longer read
+    for (int e = threadIdx.x; e < R * (kHeadDim / 4); e += blockDim.x) {
+      const int r = e / (kHeadDim / 4), c = 4 * (e % (kHeadDim / 4));
+      const float4 qv = *reinterpret_cast<const float4*>(q + base + r * kHeadDim + c);
+      const float4 kv = *reinterpret_cast<const float4*>(k + base + r * kHeadDim + c);
+      const float4 vv = *reinterpret_cast<const float4*>(v + base + r * kHeadDim + c);
+      *reinterpret_cast<float4*>(q_s + r * kHeadDim + c) = qv;
+      *reinterpret_cast<float4*>(k_s + r * kKeyLd + c) = kv;
+      *reinterpret_cast<float4*>(v_s + r * kHeadDim + c) = vv;
+    }
     __syncthreads();
-    float* qw = q_s + warp * kHeadDim;
-    for (int i = warp; i < R; i += nwarps) {
-      const float2 qv = load2(q + base + (size_t)i * kHeadDim + 2 * lane);
-      qw[2 * lane] = qv.x;
-      qw[2 * lane + 1] = qv.y;
+    const float* bias_h = bias_s + hh * R * R;
+    for (int i0 = kRowsPerWarp * warp; i0 < R; i0 += kRowsPerWarp * kF32Warps) {
+      float acc[kRowsPerWarp][2];
+#pragma unroll
+      for (int r = 0; r < kRowsPerWarp; ++r) acc[r][0] = acc[r][1] = 0.f;
+      const int j0 = lane < R ? lane : 0, j1 = lane + 32 < R ? lane + 32 : 0;
+#pragma unroll 4
+      for (int d = 0; d < kHeadDim; d += 4) {
+        const float4 k0 = *reinterpret_cast<const float4*>(k_s + j0 * kKeyLd + d);
+        const float4 k1 = *reinterpret_cast<const float4*>(k_s + j1 * kKeyLd + d);
+#pragma unroll
+        for (int r = 0; r < kRowsPerWarp; ++r) {
+          const int i = min(i0 + r, R - 1);
+          const float4 qv = *reinterpret_cast<const float4*>(q_s + i * kHeadDim + d);  // broadcast
+          acc[r][0] = fmaf(qv.x, k0.x, acc[r][0]);
+          acc[r][0] = fmaf(qv.y, k0.y, acc[r][0]);
+          acc[r][0] = fmaf(qv.z, k0.z, acc[r][0]);
+          acc[r][0] = fmaf(qv.w, k0.w, acc[r][0]);
+          acc[r][1] = fmaf(qv.x, k1.x, acc[r][1]);
+          acc[r][1] = fmaf(qv.y, k1.y, acc[r][1]);
+          acc[r][1] = fmaf(qv.z, k1.z, acc[r][1]);
+          acc[r][1] = fmaf(qv.w, k1.w, acc[r][1]);
+        }
+      }
+#pragma unroll
+      for (int r = 0; r < kRowsPerWarp; ++r) {
+        const int i = min(i0 + r, R - 1);
+        float s[2];
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const int j = lane + 32 * c;
+          s[c] = -INFINITY;
+          if (j < R) {
+            s[c] = acc[r][c] * scale;
+            if (mask_s[j] == 0) s[c] = kNegInf;
+            s[c] += bias_h[i * R + j];
+          }
+        }
+        const float m = warp_max(fmaxf(s[0], s[1]));
+        const float e0 = lane < R ? expf(s[0] - m) : 0.f;
+        const float e1 = lane + 32 < R ? expf(s[1] - m) : 0.f;
+        const float sum = warp_sum(e0 + e1);
+        float p0 = e0 / sum, p1 = e1 / sum;
+        if (keep != nullptr) {
+          const unsigned char* kr = keep + (((size_t)b * H + hh) * R + i) * R;
+          p0 = lane < R && kr[lane] ? p0 / keep_prob : 0.f;
+          p1 = lane + 32 < R && kr[lane + 32] ? p1 / keep_prob : 0.f;
+        }
+        pw[lane * kRowsPerWarp + r] = p0;
+        pw[(lane + 32) * kRowsPerWarp + r] = p1;
+      }
       __syncwarp();
-      const size_t row = ((size_t)b * H + hh) * R + i;
-      warp_attend_row<T>(qw, k_s, v_s, mask_s, bias_s + (hh * R + i) * R, R, scale,
-                         p_s + warp * kHeadDim, out + base + (size_t)i * kHeadDim,
-                         keep == nullptr ? nullptr : keep + row * R, keep_prob,
-                         lse == nullptr ? nullptr : lse + row);
+      float2 o[kRowsPerWarp];
+#pragma unroll
+      for (int r = 0; r < kRowsPerWarp; ++r) o[r] = make_float2(0.f, 0.f);
+      for (int j = 0; j < R; ++j) {
+        const float4 pj = *reinterpret_cast<const float4*>(pw + j * kRowsPerWarp);  // broadcast: 4 rows' p
+        const float2 vv = *reinterpret_cast<const float2*>(v_s + j * kHeadDim + 2 * lane);
+        const float pr[4] = {pj.x, pj.y, pj.z, pj.w};
+#pragma unroll
+        for (int r = 0; r < kRowsPerWarp; ++r) {
+          o[r].x = fmaf(pr[r], vv.x, o[r].x);
+          o[r].y = fmaf(pr[r], vv.y, o[r].y);
+        }
+      }
+#pragma unroll
+      for (int r = 0; r < kRowsPerWarp; ++r) {
+        if (i0 + r < R) *reinterpret_cast<float2*>(out + base + (i0 + r) * kHeadDim + 2 * lane) = o[r];
+      }
+      __syncwarp();  // pw is rewritten by the next rows
     }
   }
-}
-
-inline size_t box_smem_bytes(int H, int R) {
-  const int nwarps = kBoxThreads / 32;
-  const size_t floats = (size_t)H * R * R + (size_t)R * kKeyStride + (size_t)R * kValStride +
-                        2 * (size_t)nwarps * kHeadDim + (size_t)R * 4 + (size_t)H * 64 + H + kFreqs;
-  return floats * sizeof(float) + R;
-}
-
-template <typename T>
-cudaError_t launch(const void* q, const void* k, const void* v, const void* boxes, const void* wg_w,
-                   const void* wg_b, const void* freq, const void* mask, const void* keep, float keep_prob, void* out,
-                   void* lse, int B, int H, int R, float scale, cudaStream_t stream) {
-  const size_t smem = box_smem_bytes(H, R);
-  cudaError_t err = cudaFuncSetAttribute(box_attention_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)smem);
-  if (err != cudaSuccess) return err;
-  box_attention_kernel<T><<<B, kBoxThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const float*>(boxes), static_cast<const T*>(wg_w), static_cast<const T*>(wg_b),
-      static_cast<const float*>(freq), static_cast<const unsigned char*>(mask),
-      static_cast<const unsigned char*>(keep), keep_prob, static_cast<T*>(out), static_cast<float*>(lse), H, R,
-      scale);
-  return cudaGetLastError();
 }
 
 int dispatch(int dtype, const void* q, const void* k, const void* v, const void* boxes, const void* wg_w,
              const void* wg_b, const void* freq, const void* mask, const void* keep, float keep_prob, void* out,
-             void* lse, int B, int H, int R, float scale, void* stream) {
-  if (H < 1 || H > kMaxHeads || R < 1 || R > 64) return (int)cudaErrorInvalidValue;
+             void* bias_out, int B, int H, int R, float scale, void* stream) {
+  if (H < 1 || H > kMaxHeads || R < 1 || R > 64 || B < 1) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return (int)launch<float>(q, k, v, boxes, wg_w, wg_b, freq, mask, keep, keep_prob, out, lse, B, H, R, scale, s);
-  if (dtype == 1) {
-    return (int)launch<__nv_bfloat16>(q, k, v, boxes, wg_w, wg_b, freq, mask, keep, keep_prob, out, lse, B, H, R,
-                                      scale, s);
+  const unsigned char* mk = static_cast<const unsigned char*>(mask);
+  const unsigned char* kp = static_cast<const unsigned char*>(keep);
+  if (dtype == 0) {
+    const size_t smem = f32_smem_bytes(H, R);
+    if (smem > 232448) return (int)cudaErrorInvalidValue;
+    cudaError_t err = cudaFuncSetAttribute(box_attention_f32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    box_attention_f32_kernel<<<B, kF32Threads, smem, s>>>(
+        static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+        static_cast<const float*>(boxes), static_cast<const float*>(wg_w), static_cast<const float*>(wg_b),
+        static_cast<const float*>(freq), mk, kp, keep_prob, static_cast<float*>(out), static_cast<float*>(bias_out),
+        H, R, scale);
+    return (int)cudaGetLastError();
   }
-  return (int)cudaErrorInvalidValue;
+  if (dtype != 1) return (int)cudaErrorInvalidValue;
+  const size_t smem = mma_smem_bytes(H, R);
+  if (smem > 232448) return (int)cudaErrorInvalidValue;
+  const int rp = padded_rows(R);
+  auto kernel = rp == 16 ? box_attention_mma_kernel<16>
+                : rp == 32 ? box_attention_mma_kernel<32>
+                : rp == 48 ? box_attention_mma_kernel<48>
+                           : box_attention_mma_kernel<64>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<B, kMmaThreads, smem, s>>>(static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+                                      static_cast<const bf16*>(v), static_cast<const float*>(boxes),
+                                      static_cast<const bf16*>(wg_w), static_cast<const bf16*>(wg_b),
+                                      static_cast<const float*>(freq), mk, kp, keep_prob, static_cast<bf16*>(out),
+                                      static_cast<bf16*>(bias_out), H, R, scale);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace sct
 
 // dtype: 0 = float32, 1 = bfloat16. q/k/v/out (B, H, R, 64); boxes (B, R, 4) f32;
-// wg_w (H, 64) and wg_b (H,) in the compute dtype; freq (8,) f32; mask (B, R) bool.
+// wg_w (H, 64) and wg_b (H,) in the compute dtype; freq (8,) f32; mask (B, R) bool;
+// bias_out (B, H, R, R) in the compute dtype, or null: the log-bias added, for the check.
 extern "C" int sct_box_attention(int dtype, const void* q, const void* k, const void* v, const void* boxes,
                                  const void* wg_w, const void* wg_b, const void* freq, const void* mask,
-                                 void* out, int B, int H, int R, float scale, void* stream) {
-  return sct::dispatch(dtype, q, k, v, boxes, wg_w, wg_b, freq, mask, nullptr, 1.f, out, nullptr, B, H, R, scale,
+                                 void* out, void* bias_out, int B, int H, int R, float scale, void* stream) {
+  return sct::dispatch(dtype, q, k, v, boxes, wg_w, wg_b, freq, mask, nullptr, 1.f, out, bias_out, B, H, R, scale,
                        stream);
 }
 
 // Train variant: as above, plus keep (B, H, R, R) bool or null (no dropout)
-// with keep_prob, and lse (B, H, R) f32 written.
+// with keep_prob (the divisor, already rounded to the compute dtype).
 extern "C" int sct_box_attention_train(int dtype, const void* q, const void* k, const void* v, const void* boxes,
                                        const void* wg_w, const void* wg_b, const void* freq, const void* mask,
-                                       const void* keep, float keep_prob, void* out, void* lse, int B, int H, int R,
+                                       const void* keep, float keep_prob, void* out, int B, int H, int R,
                                        float scale, void* stream) {
-  if (lse == nullptr) return (int)cudaErrorInvalidValue;
-  return sct::dispatch(dtype, q, k, v, boxes, wg_w, wg_b, freq, mask, keep, keep_prob, out, lse, B, H, R, scale,
+  return sct::dispatch(dtype, q, k, v, boxes, wg_w, wg_b, freq, mask, keep, keep_prob, out, nullptr, B, H, R, scale,
                        stream);
 }
 

@@ -37,6 +37,15 @@ __device__ __forceinline__ void store2(__nv_bfloat16* p, float2 v) {
   *reinterpret_cast<__nv_bfloat162*>(p) = __float22bfloat162_rn(v);
 }
 
+// a / b rounded to nearest, from r = 1 / b rounded to nearest: one
+// remainder step with FMAs (Markstein's correction), the result of the
+// IEEE division for the finite, non-tiny operands of a softmax; one
+// reciprocal then serves a whole row
+__device__ __forceinline__ float div_by(float a, float b, float r) {
+  const float q = a * r;
+  return fmaf(fmaf(-q, b, a), r, q);
+}
+
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);

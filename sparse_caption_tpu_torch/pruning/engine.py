@@ -3,9 +3,11 @@
 ``path_str``, ``active_paths``, ``compute_sparsity_loss``).
 
 Masks are the port's mask parameters by name (``ops.masked.split_params``):
-``decoder_layers.0.self_attn.q_proj.mask`` where the JAX package has the path
-``("decoder_layers_0", "self_attn", "q_proj", "mask")``. ``freeze_scope``
-prefixes match these dotted names.
+``decoder_layers.0.self_attn.q_proj.mask`` where the JAX package has the flax
+path ``("decoder_layers_0", "self_attn", "q_proj", "mask")``. Paths here are
+those flax paths (``utils.convert_jax.flax_path``), so ``freeze_scope``
+prefixes match the strings the JAX package matches
+(``decoder_layers_0/self_attn``), and paths sort in its order.
 """
 
 from __future__ import annotations
@@ -16,20 +18,21 @@ from typing import Dict, List, Mapping, Optional, Sequence, Tuple
 import torch
 
 from sparse_caption_tpu_torch.ops.ste import rounding_sigmoid
+from sparse_caption_tpu_torch.utils.convert_jax import flax_path
 
 
 def flat_masks(masks: Mapping[str, torch.Tensor]) -> Dict[Tuple[str, ...], torch.Tensor]:
-    """{path tuple: mask} from {dotted name: mask}."""
-    return {tuple(name.split(".")): m for name, m in masks.items()}
+    """{flax path tuple: mask} from {port parameter name: mask}."""
+    return {flax_path(name): m for name, m in masks.items()}
 
 
 def path_str(path: Tuple[str, ...]) -> str:
-    return ".".join(path)
+    return "/".join(path)
 
 
 def active_paths(masks: Mapping[str, torch.Tensor],
                  freeze_scope: Optional[Sequence[str]] = None) -> List[Tuple[str, ...]]:
-    """Mask paths, sorted, not excluded by ``freeze_scope`` name prefixes."""
+    """Flax mask paths, sorted, not excluded by ``freeze_scope`` prefixes of their path strings."""
     scopes = [s for s in (freeze_scope or []) if s]
     paths = sorted(flat_masks(masks))
     return [p for p in paths if not any(path_str(p).startswith(s) for s in scopes)]

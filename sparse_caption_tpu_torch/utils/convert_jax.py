@@ -49,6 +49,19 @@ def _module_name(path: Tuple[str, ...]) -> str:
     return ".".join(parts)
 
 
+def flax_path(name: str) -> Tuple[str, ...]:
+    """The flax path of a port parameter name, the inverse of ``_module_name``:
+    ``decoder_layers.0.self_attn.q_proj.mask`` -> ``("decoder_layers_0",
+    "self_attn", "q_proj", "mask")``."""
+    parts = []
+    for p in name.split("."):
+        if p.isdigit() and parts and _LAYER_LIST.match(f"{parts[-1]}_{p}"):
+            parts[-1] = f"{parts[-1]}_{p}"
+        else:
+            parts.append(p)
+    return tuple(parts)
+
+
 def convert_jax_variables(variables: Mapping, mask_cfg: Optional[MaskConfig] = None,
                           fold_masks: bool = True) -> Dict[str, torch.Tensor]:
     """Flax ``{"params", "masks"}`` (numpy leaves) -> the port's state_dict (CPU tensors)."""

@@ -1,0 +1,55 @@
+"""The card-vs-CPU caption check of ``chip_smoke.py`` (``tie_aware_match``),
+on the CPU: a caption that differs from the CPU's is accepted only where the
+two tie to rounding under the CPU's own teacher-forced scores."""
+
+import pytest
+import torch
+
+import chip_smoke
+from _torch_port_common import KW
+from sparse_caption_tpu_torch.decoding import generate
+from sparse_caption_tpu_torch.models import get_model
+
+EOS = 3
+# per-token log-probs of a toy scorer: tokens 5 and 6 tie, 7 does not
+TABLE = torch.tensor([0.0, -4.0, -4.0, -0.5, -4.0, -1.0, -1.0, -2.0, -1.5, -0.25])
+
+
+def _toy(seq):
+    return TABLE[seq]
+
+
+@pytest.mark.parametrize("swap,accepted", [(6, True), (7, False)])
+def test_tie_aware_match_accepts_only_a_tie_swap(swap, accepted):
+    seq_cpu = torch.tensor([[[5, 8, EOS, 0], [9, 8, 5, EOS]]])  # (B, K, T)
+    seq_card = seq_cpu.clone()
+    seq_card[0, 0, 0] = swap  # token 5 of beam 0 replaced: a tie (6) or not (7)
+    ok, n_ties, _ = chip_smoke.tie_aware_match(seq_card, _toy(seq_card) * (seq_card != 0), seq_cpu,
+                                               _toy(seq_cpu) * (seq_cpu != 0), _toy, EOS)
+    assert ok is accepted
+    assert n_ties == int(accepted)
+
+
+def test_tie_aware_match_on_a_model_rejects_a_beam_swap():
+    """A small ORT's beam-5 captions: identical ones pass with no tie taken; the
+    card's beams 0 and 1 of an image swapped (scores apart) fail."""
+    torch.manual_seed(0)
+    model = get_model("relation_transformer")(**KW, device="cpu").eval()
+    g = torch.Generator().manual_seed(1)
+    att = torch.randn(2, 5, KW["att_feat_size"], generator=g)
+    xy = torch.rand(2, 5, 2, generator=g) * 400
+    boxes = torch.cat([xy, xy + 10 + torch.rand(2, 5, 2, generator=g) * 190], -1)
+    memory = model.encode(att, torch.ones(2, 5), boxes)
+    seq, lp = generate(model, memory, {"beam_size": 5, "max_seq_length": KW["max_seq_length"]})
+
+    def rescore(s):
+        return chip_smoke.teacher_forced_logprobs(model, memory, s)
+
+    # the rescoring is the beam's own scoring
+    torch.testing.assert_close(rescore(seq) * (lp != 0), lp, rtol=0, atol=1e-5)
+    assert chip_smoke.tie_aware_match(seq, lp, seq, lp, rescore, model.eos_id) == (True, 0, 0.0)
+    swapped, lp_swapped = seq.clone(), lp.clone()
+    swapped[0, [0, 1]], lp_swapped[0, [0, 1]] = seq[0, [1, 0]], lp[0, [1, 0]]
+    assert (lp[0, 0].sum() - lp[0, 1].sum()).abs() > 1e-3
+    ok, n_ties, _ = chip_smoke.tie_aware_match(swapped, lp_swapped, seq, lp, rescore, model.eos_id)
+    assert not ok and n_ties == 0

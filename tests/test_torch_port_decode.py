@@ -46,6 +46,23 @@ def test_beam5_generate_matches_jax(opt_name, mask_type):
         assert not (s[..., 1:] == s[..., :-1])[s[..., 1:] != 0].any()  # no immediate repeats
 
 
+def test_beam10_generate_matches_jax():
+    """A beam wider than 8 (the JAX package takes any width): beam-10 tokens
+    identical to the JAX package's, log-probs within 1e-4."""
+    inputs = make_inputs(seed=4)
+    att, amask, boxes, _ = inputs
+    jm = JaxORT(**KW)
+    variables = jax_variables(jm, inputs)
+    opt = {"beam_size": 10, "max_seq_length": KW["max_seq_length"]}
+    memory = jm.apply(variables, jnp.asarray(att), jnp.asarray(amask), jnp.asarray(boxes), method="encode")
+    ref_seq, ref_lp = (np.asarray(x) for x in jax_generate(jm, variables, memory, opt))
+    port = port_model("relation_transformer", variables)
+    seq, lp = generate(port, port.encode(t(att), t(amask), t(boxes)), opt)
+    assert seq.shape == (2, 10, KW["max_seq_length"])
+    np.testing.assert_array_equal(seq.numpy(), ref_seq)
+    np.testing.assert_allclose(lp.numpy(), ref_lp, rtol=1e-4, atol=1e-4)
+
+
 def test_beam_search_reorders_only_the_ancestry():
     """The K/V cache tensors the step function sees are the ones init_cache
     built. A cache without the ancestor map has its (B*K, ...) rows reordered

@@ -17,7 +17,7 @@ from sparse_caption_tpu.ops.masked import MaskedDense, MaskedEmbed
 from sparse_caption_tpu_torch.kernels import KERNELS, launch_counts
 from sparse_caption_tpu_torch.kernels.ancestry_self_attention import ancestry_self_attention
 from sparse_caption_tpu_torch.kernels.beam_topk import NEG_BIG, beam_topk
-from sparse_caption_tpu_torch.kernels.box_attention import box_attention
+from sparse_caption_tpu_torch.kernels.box_attention import box_attention, log_bias_from_geometry
 from sparse_caption_tpu_torch.kernels.grouped_cross_attention import grouped_cross_attention
 from sparse_caption_tpu_torch.models import layers as pl
 from sparse_caption_tpu_torch.ops.masked import MaskedEmbedding, MaskedLinear
@@ -113,6 +113,29 @@ def test_k1_box_attention_layer_matches_jax():
     with torch.no_grad():
         out = port(t(x), t(boxes), t(amask) != 0)
     _close(out, ref)
+
+
+def test_k1_plain_log_bias_matches_jax_bit_for_bit_in_bf16():
+    """K1's plain log-bias in bf16 is the JAX layer's ``log_wg``
+    (layers.py:425-435: the f32 geometry cast to bf16, ``MaskedDense`` as
+    ``wg`` with its bias added after the rounded dot, relu, the 1e-6 clamp and
+    the log in bf16), bit for bit, over 36 regions, 8 heads and weights that
+    put part of w_g below relu's kink. Both start from the JAX package's f32
+    geometry: the two frameworks' f32 sin/cos of arguments up to 691 rad
+    differ in the last bits (``test_box_relational_embedding_matches_jax``),
+    which moves a rounded feature now and then; this test is about the cast
+    points after it."""
+    rng = np.random.default_rng(6)
+    b, r, h = 2, 36, 8
+    geo = jl.box_relational_embedding(jnp.asarray(_boxes(rng, b, r)))
+    wk = jnp.asarray(rng.normal(0, 0.3, size=(64, h)).astype(np.float32)).astype(jnp.bfloat16)
+    wb = jnp.asarray(rng.normal(0.5, 0.5, size=(h,)).astype(np.float32)).astype(jnp.bfloat16)
+    w_g = jax.nn.relu(MaskedDense(h).apply({"params": {"kernel": wk, "bias": wb}}, geo.astype(jnp.bfloat16)))
+    ref = jnp.log(jnp.maximum(w_g, 1e-6)).transpose(0, 3, 1, 2).astype(jnp.bfloat16)
+    port = log_bias_from_geometry(t(geo), t(np.asarray(wk.astype(jnp.float32)).T.copy()).bfloat16(),
+                                  t(np.asarray(wb.astype(jnp.float32))).bfloat16(), torch.bfloat16)
+    assert port.dtype == torch.bfloat16 and 0.05 < float((np.asarray(w_g.astype(jnp.float32)) == 0).mean()) < 0.95
+    np.testing.assert_array_equal(port.view(torch.int16).numpy().view(np.uint16), np.asarray(ref).view(np.uint16))
 
 
 def test_k1_wrapper_routes_cpu_to_plain_and_checks_inputs():
@@ -259,10 +282,31 @@ def test_k4_beam_topk_matches_jax(constraint, bad, unk, step):
     assert NEG_BIG == JAX_NEG_BIG
 
 
+@pytest.mark.parametrize("k", [10, 15, 40])
+def test_k4_beam_topk_wide_matches_jax(k):
+    """Beams wider than 8: K4's plain version vs ``lax.top_k`` on the same
+    augmented scores (every constraint on), with many exact ties."""
+    rng = np.random.default_rng(30 + k)
+    n, vocab, eos_id, unk_id = 6, 64, 3, 1
+    logits = np.round(rng.normal(size=(n, vocab)), 1).astype(np.float32)
+    prev = rng.integers(0, vocab, size=(n,)).astype(np.int32)
+    prev[:2] = [7, 9]
+    ref = _jax_beam_topk(logits, k, prev, 1, [7, 9], eos_id, unk_id, 1, 1)
+    vals, idx, raw = beam_topk(t(logits), k, ban_token=t(prev), ban_eos=torch.isin(t(prev), torch.tensor([7, 9])),
+                               eos_id=eos_id, unk_id=unk_id)
+    assert idx.shape == (n, k)
+    np.testing.assert_array_equal(idx.numpy(), np.asarray(ref[1]))
+    _close(vals, ref[0])
+    _close(raw, ref[2])
+
+
 def test_k4_wrapper_checks_inputs():
     logits = torch.zeros(4, 10)
+    assert beam_topk(logits, 10)[1].shape == (4, 10)  # any k up to the vocabulary
     with pytest.raises(ValueError):
-        beam_topk(logits, 9)
+        beam_topk(logits, 11)
+    with pytest.raises(ValueError):
+        beam_topk(logits, 0)
     with pytest.raises(TypeError):
         beam_topk(logits, 2, ban_token=torch.zeros(4, dtype=torch.int64))
     with pytest.raises(ValueError):

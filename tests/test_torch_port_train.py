@@ -255,7 +255,7 @@ SP_TARGET, SP_WEIGHT = 0.8, 7.5  # max(5, 1.5 / (1 - 0.8))
 MASK_LR, MASK_EPS = 100.0, 1e-2  # the mask optimizer's defaults
 
 
-def _jax_xe_steps(bypass, n_steps, monkeypatch):
+def _jax_xe_steps(bypass, n_steps, monkeypatch, freeze_scope=None):
     inputs = make_inputs()
     att, amask, boxes, seqs = (jnp.asarray(a) for a in inputs)
     seq_masks = jnp.asarray((np.asarray(inputs[3]) != 0).astype(np.float32))
@@ -283,7 +283,7 @@ def _jax_xe_steps(bypass, n_steps, monkeypatch):
             lp = jm.apply({"params": params, "masks": masks}, att, amask, seqs, boxes, train=True,
                           rngs={"dropout": KEY, "mask": jax.random.PRNGKey(100 + step)})
             cap = jax_losses.language_model_loss(lp, seqs[:, 1:], seq_masks[:, 1:])
-            sp, aux = jax_sparsity_loss(masks, SP_TARGET, SP_WEIGHT, step, CFG["max_train_step"])
+            sp, aux = jax_sparsity_loss(masks, SP_TARGET, SP_WEIGHT, step, CFG["max_train_step"], freeze_scope)
             return cap + sp, dict(aux, caption_loss=cap)
 
         (loss, aux), (gw, gm) = jax.value_and_grad(loss_fn, argnums=(0, 1), has_aux=True)(params, masks)
@@ -311,20 +311,27 @@ def test_xe_step_matches_jax(bypass, n_steps, monkeypatch):
     gradient's tolerance (Adam's first update is -lr g / (|g| + eps) with lr
     100 and eps 1e-2, whose slope in g is at most lr / eps = 1e4)."""
     variables, inputs, steps = _jax_xe_steps(bypass, n_steps, monkeypatch)
+    _port_xe_steps_match(variables, inputs, steps, bypass, CFG)
+
+
+def _port_xe_steps_match(variables, inputs, steps, bypass, cfg):
+    """The port's ``make_xe_step`` from the same variables and uniforms, held
+    against the recorded JAX steps (tolerances: ``test_xe_step_matches_jax``)."""
+    n_steps = len(steps)
     model = get_model("relation_transformer_prune")(
         **KW, dropout_rate=0.0, drop_prob_src=0.0, device="cpu",
         mask_cfg=MaskConfig("supermask", 5.0, bypass_sigmoid_grad=bypass, keep_masks=True))
     load_jax_variables(model, variables)
     params, masks = split_params(model)
-    opt_w = port_optim.build_weight_optimizer(params.values(), CFG, port_optim.make_schedule(CFG))
-    opt_m = port_optim.build_mask_optimizer(masks.values(), CFG, trainable=True)
-    xe_step = make_xe_step(model, opt_w, opt_m, CFG)
+    opt_w = port_optim.build_weight_optimizer(params.values(), cfg, port_optim.make_schedule(cfg))
+    opt_m = port_optim.build_mask_optimizer(masks.values(), cfg, trainable=True)
+    xe_step = make_xe_step(model, opt_w, opt_m, cfg)
     att, amask, boxes, seqs = inputs
     batch = dict(att_feats=t(att), att_masks=t(amask), boxes=t(boxes), seqs=t(seqs).long(),
                  seq_masks=t((seqs != 0).astype(np.float32)))
     state = TrainState()
     named = dict(model.named_parameters())
-    sched = port_optim.make_schedule(CFG)
+    sched = port_optim.make_schedule(cfg)
     noisy = {}  # weight entries whose gradient was within its tolerance of 0 at some step
     for step_i, ref in enumerate(steps):
         rng = ReplayRandom(ref["u"])
@@ -351,3 +358,24 @@ def test_xe_step_matches_jax(bypass, n_steps, monkeypatch):
     assert state.step == n_steps
     if n_steps > 1:  # the sparsity term really pushed the masks in step 2
         assert ref["aux"]["anneal_rate"] < 1
+
+
+@pytest.mark.parametrize("scope,n_active", [("decoder_layers_0", 27), ("box_encoder_layers_1/self_attn", 32)])
+def test_xe_step_with_freeze_scope_matches_jax(scope, n_active, monkeypatch):
+    """``prune_mask_freeze_scope`` prefixes match flax path strings, as in the
+    JAX package's XE step (``engine/training.py`` passes them to
+    ``compute_sparsity_loss``): a scope that names a layer index or uses ``/``
+    leaves the same masks active (27 and 32 of 37 in this 2-layer ORT), and
+    two steps (the second with the sparsity term's gradient on) agree in
+    loss, sparsity aux, gradients, params and masks."""
+    from sparse_caption_tpu.pruning.engine import active_paths as jax_active_paths
+    from sparse_caption_tpu_torch.pruning.engine import active_paths
+
+    variables, inputs, steps = _jax_xe_steps(False, 2, monkeypatch, [scope])
+    jax_active = jax_active_paths(variables["masks"], [scope])
+    model = get_model("relation_transformer_prune")(**KW, mask_cfg=MaskConfig("supermask", 5.0, keep_masks=True),
+                                                    device="cpu")
+    load_jax_variables(model, variables)
+    assert active_paths(split_params(model)[1], [scope]) == jax_active
+    assert len(jax_active) == n_active and len(split_params(model)[1]) == 37
+    _port_xe_steps_match(variables, inputs, steps, False, dict(CFG, prune_mask_freeze_scope=scope))
