@@ -1,11 +1,16 @@
 #!/bin/bash
-# Planted source faults in kernels K1 (box attention) and K7 (its backward), to
-# show what the kernel checks of chip_smoke.py catch. Each mutant is a copy of
-# the port under build/mutants/<name>/ with sed edits to one CUDA source; its
-# kernel checks (check_kernels: K1 serving with its log-bias check, and
-# check_train_kernels: K1's train variant and K7) then run at paper shapes and
-# at small R. A mutant whose checks pass is one they cannot see; each verdict
-# line ends "caught" (a kernel that raises is caught too) or "checks pass".
+# Planted source faults in the kernels whose checks hold them bit by bit, to
+# show what the kernel checks of chip_smoke.py catch: K1 (box attention) and
+# K7 (its backward), K6 (residual + RefLayerNorm) and K13 (vocabulary
+# log-softmax). Each mutant is a copy of the port under build/mutants/<name>/
+# with sed edits to one CUDA source, reusing the unmutated libraries already
+# built (a library's file name carries a hash of its sources); its kernel
+# checks then run at paper shapes and at the small or off-width shapes: for
+# K1/K7 check_kernels (K1 serving with its log-bias check) and
+# check_train_kernels (K1's train variant and K7), for K6/K13
+# check_norm_softmax_kernels without its timings. A mutant whose checks pass
+# is one they cannot see; each verdict line ends "caught" (a kernel that
+# raises is caught too) or "checks pass".
 #
 # In the bf16 tensor-core design the trig features and K1's log-bias reach
 # the products and the scores only as bf16 values (MMA fragments, a bf16
@@ -14,10 +19,14 @@
 #
 #     bash chip_mutants.sh      # on a machine with one H100, from the repo root
 cd "$(dirname "$0")" || exit 1
-run_mutant() {  # name file sed-expression dtypes
-  local name=$1 file=$2 expr=$3 dtypes=$4 dir=build/mutants/$1
-  rm -rf "$dir" && mkdir -p "$dir"
+python3 -c "from sparse_caption_tpu_torch.kernels import build_all; build_all()" || exit 1
+K17="c.check_kernels(g, dt, results) & c.check_train_kernels(g, dt, results)"
+K613="c.check_norm_softmax_kernels(g, results, (dt,), timing=False)"
+run_mutant() {  # name file sed-expression dtypes checks
+  local name=$1 file=$2 expr=$3 dtypes=$4 checks=$5 dir=build/mutants/$1
+  rm -rf "$dir" && mkdir -p "$dir/build"
   cp -r sparse_caption_tpu_torch chip_smoke.py "$dir/"
+  cp -r build/torch_kernels "$dir/build/"
   sed -i "$expr" "$dir/sparse_caption_tpu_torch/kernels/csrc/$file"
   if cmp -s "sparse_caption_tpu_torch/kernels/csrc/$file" "$dir/sparse_caption_tpu_torch/kernels/csrc/$file"; then
     echo "[mutant] $name: sed changed nothing"; return
@@ -31,17 +40,24 @@ build_all()
 for dt in ($dtypes):
     g, results = torch.Generator(device='cuda').manual_seed(0), {}
     try:
-        verdict = 'checks pass' if c.check_kernels(g, dt, results) & c.check_train_kernels(g, dt, results) else 'caught'
+        verdict = 'checks pass' if $checks else 'caught'
     except RuntimeError as e:  # a kernel that fails to launch or faults fails chip_smoke.py too
         verdict = 'caught (raised: ' + str(e).splitlines()[0][:120] + ')'
     print('[mutant] $name', str(dt).split('.')[-1], verdict, flush=True)
-" 2>&1 | grep -E "^\[mutant\]|FAIL|MISSED|Error|error" )
+" 2>&1 | grep -E "^\[mutant\]|FAIL|MISSED|Error|error" | head -40)
 }
-run_mutant bias_dropped box_attention.cu 's/if (row < R) s = round_to<bf16>(s + __bfloat162float(bias_h\[row \* R + j\]));/;/; s/s\[c\] += bias_h\[i \* R + j\];/;/' "torch.float32, torch.bfloat16"
-run_mutant logbias_unrounded box_attention_bwd.cu 's/round_to<bf16>(logf(__bfloat162float(wz\[row \* R + j\])))/logf(__bfloat162float(wz[row * R + j]))/' "torch.bfloat16,"
-run_mutant wg_sum_unrounded box_geometry.cuh 's/round_to<__nv_bfloat16>(round_to<__nv_bfloat16>(acc\[e\]) + wb)/round_to<__nv_bfloat16>(acc[e] + wb)/' "torch.bfloat16,"
-run_mutant wg_bias_dropped box_geometry.cuh 's/round_to<__nv_bfloat16>(acc\[e\]) + wb)/round_to<__nv_bfloat16>(acc[e]))/' "torch.bfloat16,"
-run_mutant geo_argument_reordered box_geometry.cuh 's/sincos_call(100.f \* delta_c \* freq_f);/sincos_call(100.f * (delta_c * freq_f));/' "torch.bfloat16,"
-run_mutant p_unrounded box_attention_bwd.cu 's/round_to<bf16>(div_by(sacc\[nt\]\[e\], sum\[e >> 1\], inv\[e >> 1\]))/div_by(sacc[nt][e], sum[e >> 1], inv[e >> 1])/' "torch.bfloat16,"
-run_mutant keep_dropped_in_dP box_attention_bwd.cu 's/const float dpk = !kept ? 0.f/const float dpk = !real ? 0.f/' "torch.bfloat16,"
-run_mutant fold_smem_short box_attention_bwd.cu 's/return bars + (parts > fold ? parts : fold);/return bars + parts;/' "torch.bfloat16,"
+run_mutant bias_dropped box_attention.cu 's/if (row < R) s = round_to<bf16>(s + __bfloat162float(bias_h\[row \* R + j\]));/;/; s/s\[c\] += bias_h\[i \* R + j\];/;/' "torch.float32, torch.bfloat16" "$K17"
+run_mutant logbias_unrounded box_attention_bwd.cu 's/round_to<bf16>(logf(__bfloat162float(wz\[row \* R + j\])))/logf(__bfloat162float(wz[row * R + j]))/' "torch.bfloat16," "$K17"
+run_mutant wg_sum_unrounded box_geometry.cuh 's/round_to<__nv_bfloat16>(round_to<__nv_bfloat16>(acc\[e\]) + wb)/round_to<__nv_bfloat16>(acc[e] + wb)/' "torch.bfloat16," "$K17"
+run_mutant wg_bias_dropped box_geometry.cuh 's/round_to<__nv_bfloat16>(acc\[e\]) + wb)/round_to<__nv_bfloat16>(acc[e]))/' "torch.bfloat16," "$K17"
+run_mutant geo_argument_reordered box_geometry.cuh 's/sincos_call(100.f \* delta_c \* freq_f);/sincos_call(100.f * (delta_c * freq_f));/' "torch.bfloat16," "$K17"
+run_mutant p_unrounded box_attention_bwd.cu 's/round_to<bf16>(div_by(sacc\[nt\]\[e\], sum\[e >> 1\], inv\[e >> 1\]))/div_by(sacc[nt][e], sum[e >> 1], inv[e >> 1])/' "torch.bfloat16," "$K17"
+run_mutant keep_dropped_in_dP box_attention_bwd.cu 's/const float dpk = !kept ? 0.f/const float dpk = !real ? 0.f/' "torch.bfloat16," "$K17"
+run_mutant fold_smem_short box_attention_bwd.cu 's/return bars + (parts > fold ? parts : fold);/return bars + parts;/' "torch.bfloat16," "$K17"
+run_mutant bessel_dropped add_ref_layernorm.cu 's/ \/ (d > 1 ? d - 1 : 1));/ \/ d);/' "torch.float32, torch.bfloat16" "$K613"
+run_mutant keep_divisor_unrounded add_ref_layernorm.cu 's/round_to<T>(t \/ keep_prob)/(t \/ keep_prob)/; s/round_to<T>(yy \/ keep_prob)/(yy \/ keep_prob)/' "torch.bfloat16," "$K613"
+run_mutant gs_dropped_from_dx add_ref_layernorm.cu 's/ds\[i\] = round_to<T>(ds\[i\] + g2\[i\]);/ds[i] = round_to<T>(ds[i]);/; s/ds = round_to<T>(ds + to_f(gs\[base + c\]));/ds = round_to<T>(ds);/' "torch.float32, torch.bfloat16" "$K613"
+run_mutant db_last_block_dropped add_ref_layernorm.cu 's/p < nblocks; p += kNormWarps/p < nblocks - 1; p += kNormWarps/' "torch.float32, torch.bfloat16" "$K613"
+run_mutant max_shift_dropped vocab_log_softmax.cu 's/const float m = block_max(mloc, red\[0\]);/const float m = 0.f * block_max(mloc, red[0]);/' "torch.float32, torch.bfloat16" "$K613"
+run_mutant dy_sum_last_chunk_dropped vocab_log_softmax.cu 's/for (int k = 0; k < PER; ++k) {  \/\/ sum(dy)/for (int k = 0; k < PER - 1; ++k) {  \/\/ sum(dy)/' "torch.float32, torch.bfloat16" "$K613"
+run_mutant tail_last_element_skipped vocab_log_softmax.cu 's/i < V; i += kLsmThreads) {  \/\/ pass 1/i < V - 1; i += kLsmThreads) {  \/\/ pass 1/' "torch.bfloat16," "$K613"

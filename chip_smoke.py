@@ -16,7 +16,15 @@ Phases:
    version and one PyTorch library call; K1 and K7 also with an image that
    has no valid region, bf16 K1/K7 outputs and K1's log-bias held bit by bit
    against the plain versions (``rounding_share``), and their times as
-   medians of 5 windows; K4 also at beams 10, 15 and 40;
+   medians of 5 windows; K4 also at beams 10, 15 and 40; K6 and K13 also
+   bit by bit in bf16 (K6's s exactly, its n, dx, dy and K13's y by
+   ``rounding_share``), K6's da / db repeated bit for bit, both at off widths
+   (K6 d = 37 and 500, K13 V = 37 and 9,999) and K13 also bf16 -> f32, on
+   inputs of their own generator; K6 timed forward + backward at the XE
+   shape and forward alone at the serving decode step (10,240 x 512), K13
+   in f32, bf16 and bf16 -> f32, kernel, plain version and library call in
+   turns, medians of 5 windows of device time (the host's enqueue held off
+   the window), beside byte bounds (``k6_bytes``, ``k13_bytes``);
 3. serving path: a paper-width ``relation_transformer_prune`` (random
    weights and supermask logits from a seed, masks folded), ``encode`` +
    beam-5 ``generate`` in bf16 at batch 50 and 2048 with the kernels' launch
@@ -105,6 +113,16 @@ WHOLE_PATH_LP_TOL = 1e-4
 BIAS_SHARE_LIMIT = 0.01
 K1_SHARE_LIMIT, K1_FAR_LIMIT = 0.02, 0.001
 K7_SHARE_LIMIT, K7_FAR_LIMIT = 0.05, 0.005
+# K6 (n, dx, dy) and K13 (y) in bf16 against their plain versions, bit by
+# bit: the stats and the backward's row sums are taken in another order, so
+# an element may move by one ulp now and then; more than one ulp only where
+# the value is tiny next to its row (|ds| ~ 1e-5 of the row's scale, where
+# an f32 rounding of the sum is several bf16 ulps of the element)
+K6_SHARE_LIMIT, K6_FAR_LIMIT = 0.01, 1e-4
+K13_SHARE_LIMIT, K13_FAR_LIMIT = 0.01, 1e-4
+K6_OFF_WIDTHS, K13_OFF_WIDTHS, OFF_ROWS = (37, 500), (37, 9999), 333  # scalar paths and vector tails
+SERVE_ROWS = BIG_BATCH * BEAM  # the serving decode step's rows
+HOLD_CYCLES = 100_000_000  # ~55 ms of the card's clock: longer than the host takes to enqueue a timed window
 BEAM_WIDTHS = (BEAM, 10, 15, 40)  # K4: the serving beam, then wider ones (any width up to the vocabulary)
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}  # dense bf16 tensor core / f32 CUDA cores
@@ -180,12 +198,17 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
-    """Mean device time of one call, from CUDA events around `iters` calls."""
+def time_ms(fn, iters: int = 20, warmup: int = 3, hold: bool = False) -> float:
+    """Mean device time of one call, from CUDA events around `iters` calls.
+    With `hold` the card first spins for HOLD_CYCLES while the host enqueues
+    the whole window, so that the host's time per call (autograd, the
+    launches) does not show: the time of the work on the device alone."""
     for _ in range(warmup):
         fn()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
+    if hold:
+        torch.cuda._sleep(HOLD_CYCLES)
     start.record()
     for _ in range(iters):
         fn()
@@ -199,6 +222,42 @@ def median_ms(fn, windows: int = 5, iters: int = 20) -> float:
     can read 2x another with the same code."""
     times = sorted(time_ms(fn, iters=iters, warmup=3 if i == 0 else 0) for i in range(windows))
     return times[len(times) // 2]
+
+
+def turns_ms(*fns) -> list:
+    """For each of `fns`, the median of 5 held `time_ms` windows of 20 calls
+    (device time alone), the functions taking turns window by window (kernel,
+    plain, library, kernel, ...) so that a slow stretch of the card falls on all."""
+    times = [[] for _ in fns]
+    for w in range(5):
+        for fn, t in zip(fns, times):
+            t.append(time_ms(fn, warmup=3 if w == 0 else 0, hold=True))
+    return [sorted(t)[len(t) // 2] for t in times]
+
+
+def k6_bytes(rows: int, d: int, dtype, keep: bool = True, backward: bool = True) -> int:
+    """Bytes K6 must move (with y), each launch's inputs read once and outputs
+    written once. Forward: x, y (and keep) in, s, n out, a and b in, the stats
+    (8 bytes a row) out. Backward: gn, gs, s (and keep) in, dx, dy out, the
+    stats and a in, da and db out."""
+    es, flags = ESIZE[dtype], 1 if keep else 0
+    fwd = rows * d * (4 * es + flags) + rows * 8 + 2 * d * es
+    bwd = rows * d * (5 * es + flags) + rows * 8 + 3 * d * es
+    return fwd + (bwd if backward else 0)
+
+
+def k13_bytes(rows: int, vocab: int, in_dtype, out_dtype) -> int:
+    """Bytes K13 must move, forward and backward: x in, y and the stats out;
+    then dy, x and the stats in, dx out."""
+    ei, eo = ESIZE[in_dtype], ESIZE[out_dtype]
+    return rows * vocab * ((ei + eo) + (eo + 2 * ei)) + rows * 16
+
+
+def fwd_bwd(fn, ins, cots):
+    """Forward + backward of fn on the leaves `ins`: (detached outputs, gradients)."""
+    out = fn(*ins)
+    out = out if isinstance(out, tuple) else (out,)
+    return tuple(o.detach() for o in out), torch.autograd.grad(out, ins, cots)
 
 
 def bf16_ulps(a, b):
@@ -585,17 +644,7 @@ def check_train_kernels(gen, dtype, results: dict) -> bool:
         err = max(err, compare(f"add_ref_layernorm {nm}", kt, pt, sum_scale=sum_scale))
     n_only = k6.add_ref_layernorm_plain(x, None, a, bias)
     compare("add_ref_layernorm norm only", k6.add_ref_layernorm(x, None, a, bias), n_only, rms(n_only))
-
-    def lib_run():
-        ins = leaves(x, y, a, bias)
-        s_ = torch.add(ins[0], ins[1])
-        n_ = F.layer_norm(s_, (d,), ins[2], ins[3], 1e-6)
-        return torch.autograd.grad((s_, n_), ins, (gs_, gn_))
-
-    record("add_ref_layernorm", err, time_ms(lambda: k6_run(k6.add_ref_layernorm)),
-           time_ms(lambda: k6_run(k6.add_ref_layernorm_plain), iters=5), time_ms(lib_run),
-           rows * d * ((2 * es + 1 + 2 * es) + (3 * es + 1 + 2 * es)), {})
-    del x, y, keep, gs_, gn_, ks, kn, kg, ps, pn, pg
+    del x, y, keep, gs_, gn_, ks, kn, kg, ps, pn, pg  # K6's times: check_norm_softmax_kernels
 
     # K1 train variant + K7 at the throughput batch, attention dropout 0.1
     b, h, r, dk = TRAIN_BIG_BATCH, HEADS, REGIONS, DK
@@ -1555,12 +1604,6 @@ def check_updown_kernels(gen, dtype, results: dict) -> bool:
             results[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bnd,
                                  bound_by=by, xe_ms=xe_ms)
 
-    def fwd_bwd(fn, ins, cots):
-        """Forward + backward of fn on the leaves `ins`: (outputs, gradients)."""
-        out = fn(*ins)
-        out = out if isinstance(out, tuple) else (out,)
-        return tuple(o.detach() for o in out), torch.autograd.grad(out, ins, cots)
-
     # K11: gate pre-activations (N, 4H) from the two GEMMs, cell state (N, H)
     gx, gh, c = rnd(n_s, 4 * h), rnd(n_s, 4 * h), rnd(n_s, h)
     (hk, ck), (hp, cp) = k11.lstm_cell(gx, gh, c), k11.lstm_cell_plain(gx, gh, c)
@@ -1661,10 +1704,191 @@ def check_updown_kernels(gen, dtype, results: dict) -> bool:
         sum_scale = yp.max().exp().item() * vocab ** 0.5 * rms(dy)
         err = max(err, compare("vocab_log_softmax_bwd dx", gk, gp, sum_scale=sum_scale))
         del gk, gp, yp
-    t_k = time_ms(lambda: fwd_bwd(k13.vocab_log_softmax, xl, dy), iters=5)
-    record("vocab_log_softmax", err, t_k, time_ms(lambda: fwd_bwd(k13.vocab_log_softmax_plain, xl, dy), iters=3),
-           time_ms(lambda: fwd_bwd(lambda v: torch.log_softmax(v, dim=-1), xl, dy), iters=5),
-           rows * vocab * 5 * es + rows * 16, {}, t_k)
+    return ok  # K13's times: check_norm_softmax_kernels
+
+
+def check_norm_softmax_kernels(gen, results: dict, dtypes=(torch.float32, torch.bfloat16),
+                               timing: bool = True) -> bool:
+    """K6 and K13 in `dtypes`, on inputs drawn from `gen` alone: at the main
+    path's shapes (K6 over the ORT XE step's 21,760 x 512 rows with the
+    keep-mask, and norm-only; K13 over its 21,760 x 10,000 logits, f32 ->
+    f32, bf16 -> bf16 and bf16 -> f32) every output element-wise against the
+    plain version, with the bounds of check_train_kernels; in bf16 also bit
+    by bit: K6's s exactly (one rounding of x + round(y / keep_prob)), K6's n,
+    dx, dy and K13's y by `rounding_share`; K6's da and db bitwise equal over
+    two runs; the off-width shapes (K6 at d = 37 and 500, K13 at V = 37 and
+    9,999, 333 rows), which take the scalar paths and the vector tails; K6's
+    forward at the serving decode step (10,240 x 512, y given, no keep). With
+    `timing`, each variant's kernel, plain version and one library call as
+    medians of 5 windows taken in turns (inputs made outside the timed
+    window), beside the byte bound (`k6_bytes`, `k13_bytes`); the bf16 times
+    (and K13's f32 and bf16 -> f32) go into the JSON line."""
+    from sparse_caption_tpu_torch.kernels import add_ref_layernorm as k6
+    from sparse_caption_tpu_torch.kernels import vocab_log_softmax as k13
+
+    dev = torch.device("cuda")
+    dn = lambda dt: str(dt).split(".")[-1]  # noqa: E731
+    ok = True
+
+    def compare(name, out, ref, scale=0.0, sum_scale=0.0):
+        nonlocal ok
+        err, good, worst = close(out, ref, out.dtype, scale, sum_scale)
+        log(f"[kernel] {name} {dn(out.dtype)}: max_abs_err={err:.3e} worst err/allowed={worst:.3f} "
+            f"scale={max(scale, sum_scale):.3f} {'ok' if good else 'FAIL'}")
+        ok &= good
+        return err
+
+    def exact(name, out, ref):
+        nonlocal ok
+        same = bool(torch.equal(out, ref))
+        log(f"[kernel] {name}: {'exact' if same else 'DIFFERS'} ({int((out != ref).sum())} of {ref.numel()} "
+            f"elements differ)")
+        ok &= same
+
+    def bits(name, out, ref, share, far):
+        nonlocal ok
+        ok &= rounding_share(name, out, ref, share, far)
+
+    def times(name, nbytes, kernel, plain, library) -> dict:
+        ms, plain_ms, lib_ms = turns_ms(kernel, plain, library)
+        bnd, by = bound_ms(nbytes, {})
+        log(f"[kernel] {name}: ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms={lib_ms:.4f} bound_ms={bnd:.4f} "
+            f"({by}; medians of 5 windows in turns)")
+        return dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bnd, bound_by=by)
+
+    # ---- K6
+    d = PAPER["d_model"]
+    k6_rows = TRAIN_BIG_BATCH * SEQ_PER_IMG * MAX_LEN
+    k6_out: dict = {}
+
+    def k6_inputs(dtype, rows, width):
+        rnd = lambda *shape: torch.randn(*shape, generator=gen, device=dev).to(dtype)  # noqa: E731
+        x, y = rnd(rows, width), rnd(rows, width)
+        a = (torch.rand(width, generator=gen, device=dev) + 0.5).to(dtype)
+        b = rnd(width)
+        keep = torch.rand(rows, width, generator=gen, device=dev) < 0.9
+        return x, y, a, b, keep, rnd(rows, width), rnd(rows, width)
+
+    def k6_check(dtype, rows, width, tag):
+        x, y, a, b, keep, gs, gn = k6_inputs(dtype, rows, width)
+        ins = leaves(x, y, a, b)
+
+        def run(fn):
+            return fwd_bwd(lambda x_, y_, a_, b_: fn(x_, y_, a_, b_, keep, 0.9), ins, (gs, gn))
+
+        (ks, kn), kg = run(k6.add_ref_layernorm)
+        (ps, pn), pg = run(k6.add_ref_layernorm_plain)
+        err = max(compare(f"add_ref_layernorm s {tag}", ks, ps, rms(ps)),
+                  compare(f"add_ref_layernorm n {tag}", kn, pn, rms(pn)))
+        for nm, kt, pt in zip(("dx", "dy"), kg[:2], pg[:2]):
+            err = max(err, compare(f"add_ref_layernorm {nm} {tag}", kt, pt, rms(pt)))
+        sum_scale = (rows ** 0.5) * rms(gn)
+        for nm, kt, pt in zip(("da", "db"), kg[2:], pg[2:]):
+            err = max(err, compare(f"add_ref_layernorm {nm} {tag}", kt, pt, sum_scale=sum_scale))
+        if dtype == torch.bfloat16:
+            exact(f"add_ref_layernorm s {tag} bf16 (bit for bit)", ks, ps)
+            for nm, kt, pt in (("n", kn, pn), ("dx", kg[0], pg[0]), ("dy", kg[1], pg[1])):
+                bits(f"add_ref_layernorm {nm} {tag}", kt, pt, K6_SHARE_LIMIT, K6_FAR_LIMIT)
+        _, kg2 = run(k6.add_ref_layernorm)
+        exact(f"add_ref_layernorm da, db {tag} {dn(dtype)} repeated run",
+              torch.cat([kg2[2], kg2[3]]), torch.cat([kg[2], kg[3]]))
+        return err, (x, y, a, b, keep, gs, gn, ins, run)
+
+    for dtype in dtypes:
+        err, (x, y, a, b, keep, gs, gn, ins, run) = k6_check(dtype, k6_rows, d, f"{k6_rows}x{d}")
+        # norm only (the first norm of each stack): no y, gs, keep or dy
+        nins = leaves(x, a, b)
+        (kn,), kg = fwd_bwd(lambda x_, a_, b_: k6.add_ref_layernorm(x_, None, a_, b_), nins, gn)
+        (pn,), pg = fwd_bwd(lambda x_, a_, b_: k6.add_ref_layernorm_plain(x_, None, a_, b_), nins, gn)
+        err = max(err, compare(f"add_ref_layernorm norm only n", kn, pn, rms(pn)),
+                  compare(f"add_ref_layernorm norm only dx", kg[0], pg[0], rms(pg[0])))
+        for nm, kt, pt in zip(("da", "db"), kg[1:], pg[1:]):
+            err = max(err, compare(f"add_ref_layernorm norm only {nm}", kt, pt, sum_scale=(k6_rows ** 0.5) * rms(gn)))
+        if dtype == torch.bfloat16:
+            bits("add_ref_layernorm norm only n", kn, pn, K6_SHARE_LIMIT, K6_FAR_LIMIT)
+            bits("add_ref_layernorm norm only dx", kg[0], pg[0], K6_SHARE_LIMIT, K6_FAR_LIMIT)
+        del nins, kn, kg, pn, pg
+        if timing:
+            lib_ins = leaves(x, y, a, b)
+
+            def lib_run():
+                s_ = torch.add(lib_ins[0], lib_ins[1])
+                n_ = F.layer_norm(s_, (d,), lib_ins[2], lib_ins[3], 1e-6)
+                return torch.autograd.grad((s_, n_), lib_ins, (gs, gn))
+
+            t = times(f"add_ref_layernorm fwd+bwd {k6_rows}x{d} keep {dn(dtype)}", k6_bytes(k6_rows, d, dtype),
+                      lambda: run(k6.add_ref_layernorm), lambda: run(k6.add_ref_layernorm_plain), lib_run)
+            if dtype == torch.bfloat16:
+                k6_out.update(max_abs_err=err, **t)
+            else:
+                k6_out.update({f"f32_{key}": v for key, v in t.items()})
+            del lib_ins
+        del x, y, a, b, keep, gs, gn, ins, run
+        for width in K6_OFF_WIDTHS:
+            k6_check(dtype, OFF_ROWS, width, f"{OFF_ROWS}x{width}")
+        # the serving decode step: y given, no keep-mask, no gradient
+        x, y, a, b, _, _, _ = k6_inputs(dtype, SERVE_ROWS, d)
+        with torch.no_grad():
+            ks, kn = k6.add_ref_layernorm(x, y, a, b)
+            ps, pn = k6.add_ref_layernorm_plain(x, y, a, b)
+            compare(f"add_ref_layernorm serve s {SERVE_ROWS}x{d}", ks, ps, rms(ps))
+            compare(f"add_ref_layernorm serve n {SERVE_ROWS}x{d}", kn, pn, rms(pn))
+            if dtype == torch.bfloat16:
+                exact(f"add_ref_layernorm serve s {SERVE_ROWS}x{d} bf16 (bit for bit)", ks, ps)
+                bits(f"add_ref_layernorm serve n {SERVE_ROWS}x{d}", kn, pn, K6_SHARE_LIMIT, K6_FAR_LIMIT)
+            if timing and dtype == torch.bfloat16:
+                t = times(f"add_ref_layernorm serve fwd {SERVE_ROWS}x{d} {dn(dtype)}",
+                          k6_bytes(SERVE_ROWS, d, dtype, keep=False, backward=False),
+                          lambda: k6.add_ref_layernorm(x, y, a, b), lambda: k6.add_ref_layernorm_plain(x, y, a, b),
+                          lambda: F.layer_norm(torch.add(x, y), (d,), a, b, 1e-6))
+                k6_out.update({f"serve_fwd_{key}": v for key, v in t.items()})
+        del x, y, a, b, ks, kn, ps, pn
+        torch.cuda.empty_cache()
+    if k6_out:
+        results["add_ref_layernorm"] = k6_out
+
+    # ---- K13: logits with an offset of 100 (a log-sum-exp without the max shift overflows)
+    vocab, k13_rows = UPDOWN["vocab_size"], TRAIN_BIG_BATCH * SEQ_PER_IMG * MAX_LEN
+    pairs = ([(torch.float32, torch.float32)] if torch.float32 in dtypes else []) + (
+        [(torch.bfloat16, torch.bfloat16), (torch.bfloat16, torch.float32)] if torch.bfloat16 in dtypes else [])
+    k13_out: dict = {}
+
+    def k13_check(tin, tout, rows, width, tag):
+        x = (torch.randn(rows, width, generator=gen, device=dev) * 3 + 100).to(tin)
+        dy = torch.randn(rows, width, generator=gen, device=dev).to(tout)
+        xl = leaves(x)
+
+        def run(fn):
+            return fwd_bwd(lambda v: fn(v, tout), xl, dy)
+
+        (yk,), (gk,) = run(k13.vocab_log_softmax)
+        (yp,), (gp,) = run(k13.vocab_log_softmax_plain)
+        err = compare(f"vocab_log_softmax y {tag}", yk, yp)
+        # dx = dy - p sum(dy): p times a V-term sum whose rounding follows its order
+        sum_scale = yp.float().max().exp().item() * width ** 0.5 * rms(dy)
+        err = max(err, compare(f"vocab_log_softmax_bwd dx {tag}", gk, gp, sum_scale=sum_scale))
+        if tout == torch.bfloat16:
+            bits(f"vocab_log_softmax y {tag}", yk, yp, K13_SHARE_LIMIT, K13_FAR_LIMIT)
+        return err, xl, dy, run
+
+    for tin, tout in pairs:
+        tag = f"{dn(tin)}->{dn(tout)}"
+        err, xl, dy, run = k13_check(tin, tout, k13_rows, vocab, f"{tag} {k13_rows}x{vocab}")
+        if timing:
+            t = times(f"vocab_log_softmax fwd+bwd {tag} {k13_rows}x{vocab}", k13_bytes(k13_rows, vocab, tin, tout),
+                      lambda: run(k13.vocab_log_softmax), lambda: run(k13.vocab_log_softmax_plain),
+                      lambda: fwd_bwd(lambda v: torch.log_softmax(v, dim=-1, dtype=tout), xl, dy))
+            if tin == tout == torch.bfloat16:
+                k13_out.update(max_abs_err=err, xe_ms=t["ms"], **t)
+            else:
+                prefix = "f32" if tin == torch.float32 else "bf16_to_f32"
+                k13_out.update({f"{prefix}_{key}": v for key, v in t.items()})
+        del xl, dy, run
+        torch.cuda.empty_cache()
+        for width in K13_OFF_WIDTHS:
+            k13_check(tin, tout, OFF_ROWS, width, f"{tag} {OFF_ROWS}x{width}")
+    if k13_out:
+        results["vocab_log_softmax"] = k13_out
     return ok
 
 
@@ -1751,7 +1975,9 @@ def main() -> int:
         ok &= check_train_kernels(gen, dtype, results)
         ok &= check_updown_kernels(gen, dtype, results)
         torch.cuda.empty_cache()
-    # its own generator: the later phases keep the inputs that earlier slices drew for them
+    # their own generators: the later phases keep the inputs that earlier slices drew for them
+    ok &= check_norm_softmax_kernels(torch.Generator(device="cuda").manual_seed(SEED + 6), results)
+    torch.cuda.empty_cache()
     ok &= check_decoder_attention_kernels(torch.Generator(device="cuda").manual_seed(SEED + 14), results)
     torch.cuda.empty_cache()
     ok &= check_scst_kernels(gen, results)

@@ -14,22 +14,163 @@
 // The backward recomputes the softmax from x and the row's two stats, so a
 // bf16 output costs the gradient no precision.
 //
-// Bound on the H100: bytes. The forward reads x once and writes y (Up-Down XE
-// at 256 x 5 captions x 17 steps: 21,760 rows x 10,000, bf16 in and out, 870
-// MB, 0.26 ms at 3.35 TB/s); the backward reads dy and x and writes dx. The
-// exp and log are a few operations per byte, far below the card's rate.
+// Bound on the H100: bytes. The forward reads x once and writes y; the
+// backward reads dy and x and writes dx (21,760 rows x 10,000 of the XE
+// step: 20 bytes per element in f32, 10 in bf16, 14 bf16 -> f32; 0.65-1.30
+// ms at 3.35 TB/s). The exp and log are a few operations per byte, far below
+// the card's rate.
 //
-// Design: one block of 256 threads per row. Forward pass 1 keeps an online
-// max / sum per thread and merges the block's in a fixed order; pass 2
-// rereads the row (at most 40 KB, from L1/L2) and writes y. Backward pass 1
-// sums dy over the block in a fixed order; pass 2 rereads dy and x.
+// Design: the held path (V a multiple of the 16-byte vector of Tin, aligned
+// rows, V <= 1024 threads x 32 values) runs one block per row, sized to the row (320
+// threads at V = 10,000), each thread holding 32 values of the row in
+// registers, loaded as 16-byte vectors, consecutive threads on consecutive
+// vectors. The forward reads x once: a block max over the held values, one
+// expf per element (no online rescale) and a block sum, then y from the
+// held values. The backward holds dy in registers and sums it while each
+// thread's part of the x row streams into shared memory with cp.async, then
+// writes dx from the two. Block reductions run in a fixed order (warp
+// shuffle tree, then the warps in order), so a run repeats bit for bit.
+// Other rows (V not a multiple of the vector, unaligned rows such as bf16
+// with odd V, or rows too long to hold) take the general path: 256 threads
+// per row, scalar loads, an online max / sum over the row in chunks of 256
+// elements, then a second pass that rereads the row.
 #include "common.cuh"
+#include "vec.cuh"
 
 namespace sct {
 
-constexpr int kLsmThreads = 256;
+constexpr int kLsmThreads = 256;       // general path
 constexpr int kLsmWarps = kLsmThreads / 32;
+constexpr int kLsmMaxThreads = 1024;   // held path
+constexpr int kLsmHeld = 32;           // values a thread of the held path holds
 
+// ------------------------------------------------------------ held path
+// the row's max / sum over the block from each thread's value, in every
+// thread; red: 32 floats of shared memory per reduction
+__device__ __forceinline__ float block_max(float v, float* red) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x / 32;
+  v = warp_max(v);
+  if (lane == 0) red[warp] = v;
+  __syncthreads();
+  float r = -INFINITY;
+  for (int w = 0; w < (int)blockDim.x / 32; ++w) r = fmaxf(r, red[w]);
+  return r;
+}
+
+__device__ __forceinline__ float block_sum(float v, float* red) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x / 32;
+  v = warp_sum(v);
+  if (lane == 0) red[warp] = v;
+  __syncthreads();
+  float r = 0.f;
+  for (int w = 0; w < (int)blockDim.x / 32; ++w) r += red[w];
+  return r;
+}
+
+// one row per block; thread t holds the 16-byte vectors t, t + nt, ... (PER of them)
+template <typename Tin, typename Tout>
+__global__ void __launch_bounds__(kLsmMaxThreads)
+log_softmax_fwd_held_kernel(const Tin* __restrict__ x, Tout* __restrict__ y, float* __restrict__ stats, int V) {
+  constexpr int UE = 16 / sizeof(Tin);
+  constexpr int PER = kLsmHeld / UE;
+  __shared__ float red[2][32];
+  const int nt = blockDim.x, tid = threadIdx.x;
+  const int units = V / UE;
+  const size_t base = (size_t)blockIdx.x * V;
+  uint4 raw[PER];  // kept packed: the whole row's loads in flight at once
+#pragma unroll
+  for (int k = 0; k < PER; ++k) {
+    const int u = k * nt + tid;
+    raw[k] = u < units ? ld16(x + base + (size_t)u * UE) : make_uint4(0u, 0u, 0u, 0u);
+  }
+  float mloc = -INFINITY;
+#pragma unroll
+  for (int k = 0; k < PER; ++k) {
+    if (k * nt + tid < units) {
+      float v[UE];
+      unpack16<Tin>(raw[k], v);
+#pragma unroll
+      for (int i = 0; i < UE; ++i) mloc = fmaxf(mloc, v[i]);
+    }
+  }
+  const float m = block_max(mloc, red[0]);
+  float sloc = 0.f;
+#pragma unroll
+  for (int k = 0; k < PER; ++k) {
+    if (k * nt + tid < units) {
+      float v[UE];
+      unpack16<Tin>(raw[k], v);
+#pragma unroll
+      for (int i = 0; i < UE; ++i) sloc += expf(v[i] - m);
+    }
+  }
+  const float logsum = logf(block_sum(sloc, red[1]));
+#pragma unroll
+  for (int k = 0; k < PER; ++k) {
+    const int u = k * nt + tid;
+    if (u < units) {
+      float v[UE];
+      unpack16<Tin>(raw[k], v);
+#pragma unroll
+      for (int i = 0; i < UE; ++i) v[i] = (v[i] - m) - logsum;
+      store_n<UE>(y + base + (size_t)u * UE, v);
+    }
+  }
+  if (tid == 0) reinterpret_cast<float2*>(stats)[blockIdx.x] = make_float2(m, logsum);
+}
+
+// dynamic shared memory: the x row, thread t's vectors at (k nt + t) x 16 bytes
+template <typename Tin, typename Tout>
+__global__ void __launch_bounds__(kLsmMaxThreads)
+log_softmax_bwd_held_kernel(const Tout* __restrict__ dy, const Tin* __restrict__ x, const float* __restrict__ stats,
+                            Tin* __restrict__ dx, int V) {
+  constexpr int UE = 16 / sizeof(Tin);
+  constexpr int PER = kLsmHeld / UE;
+  extern __shared__ __align__(16) unsigned char xs[];
+  __shared__ float red[32];
+  const int nt = blockDim.x, tid = threadIdx.x;
+  const int units = V / UE;
+  const size_t base = (size_t)blockIdx.x * V;
+#pragma unroll
+  for (int k = 0; k < PER; ++k) {  // x streams into shared memory while dy is summed
+    const int u = k * nt + tid;
+    if (u < units) cp_async<16>(xs + (size_t)u * 16, x + base + (size_t)u * UE);
+  }
+  cp_async_commit();
+  float g[PER][UE];
+#pragma unroll
+  for (int k = 0; k < PER; ++k) {
+    const int u = k * nt + tid;
+    if (u < units) {
+      load_n<UE>(dy + base + (size_t)u * UE, g[k]);
+    } else {
+#pragma unroll
+      for (int i = 0; i < UE; ++i) g[k][i] = 0.f;
+    }
+  }
+  float tloc = 0.f;
+#pragma unroll
+  for (int k = 0; k < PER; ++k) {  // sum(dy)
+#pragma unroll
+    for (int i = 0; i < UE; ++i) tloc += g[k][i];
+  }
+  const float total = block_sum(tloc, red);
+  const float2 st = reinterpret_cast<const float2*>(stats)[blockIdx.x];
+  cp_async_wait<0>();
+#pragma unroll
+  for (int k = 0; k < PER; ++k) {
+    const int u = k * nt + tid;
+    if (u < units) {
+      float xv[UE];
+      unpack16<Tin>(ld16(xs + (size_t)u * 16), xv);
+#pragma unroll
+      for (int i = 0; i < UE; ++i) xv[i] = g[k][i] - expf((xv[i] - st.x) - st.y) * total;
+      store_n<UE>(dx + base + (size_t)u * UE, xv);
+    }
+  }
+}
+
+// ------------------------------------------------------------ general path
 // the row's (max, sum exp(x - max)) from each thread's partial pair, in every thread
 __device__ __forceinline__ void block_max_sum(float& m, float& s, float* red_m, float* red_s) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x / 32;
@@ -55,7 +196,7 @@ log_softmax_fwd_kernel(const Tin* __restrict__ x, Tout* __restrict__ y, float* _
   __shared__ float red_s[kLsmWarps];
   const size_t base = (size_t)blockIdx.x * V;
   float m = -INFINITY, s = 0.f;
-  for (int i = threadIdx.x; i < V; i += kLsmThreads) {
+  for (int i = threadIdx.x; i < V; i += kLsmThreads) {  // pass 1: online max / sum
     const float xi = to_f(x[base + i]);
     if (xi > m) {
       s = s * expf(m - xi) + 1.f;
@@ -93,18 +234,51 @@ log_softmax_bwd_kernel(const Tout* __restrict__ dy, const Tin* __restrict__ x, c
   }
 }
 
+// ------------------------------------------------------------ launch
+// threads of the held path for rows of V elements (0: the row does not fit
+// or is not vector-aligned); `a` is x (16 bytes), `b` the Tout tensor
+template <typename Tin, typename Tout>
+int held_threads(int V, const void* a, const void* b, const void* c) {
+  constexpr int UE = 16 / sizeof(Tin);
+  constexpr int out_bytes = UE * sizeof(Tout) < 16 ? UE * sizeof(Tout) : 16;
+  if (V % UE != 0 || !aligned_to(a, 16) || !aligned_to(c, 16) || !aligned_to(b, out_bytes)) return 0;
+  const int per = kLsmHeld / UE;
+  const int units = V / UE;
+  const int threads = ((units + per - 1) / per + 31) / 32 * 32;
+  return threads <= kLsmMaxThreads ? threads : 0;
+}
+
 template <typename Tin, typename Tout>
 cudaError_t launch_fwd(const void* x, void* y, void* stats, int rows, int V, cudaStream_t st) {
-  log_softmax_fwd_kernel<Tin, Tout><<<rows, kLsmThreads, 0, st>>>(static_cast<const Tin*>(x), static_cast<Tout*>(y),
-                                                                  static_cast<float*>(stats), V);
+  const int threads = held_threads<Tin, Tout>(V, x, y, nullptr);
+  if (threads > 0) {
+    log_softmax_fwd_held_kernel<Tin, Tout><<<rows, threads, 0, st>>>(static_cast<const Tin*>(x),
+                                                                     static_cast<Tout*>(y),
+                                                                     static_cast<float*>(stats), V);
+  } else {
+    log_softmax_fwd_kernel<Tin, Tout><<<rows, kLsmThreads, 0, st>>>(static_cast<const Tin*>(x),
+                                                                    static_cast<Tout*>(y),
+                                                                    static_cast<float*>(stats), V);
+  }
   return cudaGetLastError();
 }
 
 template <typename Tin, typename Tout>
 cudaError_t launch_bwd(const void* dy, const void* x, const void* stats, void* dx, int rows, int V, cudaStream_t st) {
-  log_softmax_bwd_kernel<Tin, Tout><<<rows, kLsmThreads, 0, st>>>(
-      static_cast<const Tout*>(dy), static_cast<const Tin*>(x), static_cast<const float*>(stats),
-      static_cast<Tin*>(dx), V);
+  const int threads = held_threads<Tin, Tout>(V, x, dy, dx);
+  if (threads > 0) {
+    constexpr int UE = 16 / sizeof(Tin);
+    const size_t smem = (size_t)(kLsmHeld / UE) * threads * 16;
+    auto kernel = log_softmax_bwd_held_kernel<Tin, Tout>;
+    cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+    kernel<<<rows, threads, smem, st>>>(static_cast<const Tout*>(dy), static_cast<const Tin*>(x),
+                                        static_cast<const float*>(stats), static_cast<Tin*>(dx), V);
+  } else {
+    log_softmax_bwd_kernel<Tin, Tout><<<rows, kLsmThreads, 0, st>>>(
+        static_cast<const Tout*>(dy), static_cast<const Tin*>(x), static_cast<const float*>(stats),
+        static_cast<Tin*>(dx), V);
+  }
   return cudaGetLastError();
 }
 
@@ -114,7 +288,7 @@ cudaError_t launch_bwd(const void* dy, const void* x, const void* stats, void* d
 // row-major; stats (rows, 2) f32 receives each row's max and log sum.
 extern "C" int sct_vocab_log_softmax(int in_dtype, int out_dtype, const void* x, void* y, void* stats, int rows, int V,
                                      void* stream) {
-  if (rows < 0 || V < 1) return (int)cudaErrorInvalidValue;
+  if (rows < 0 || V < 1 || !sct::aligned_to(stats, 8)) return (int)cudaErrorInvalidValue;
   if (rows == 0) return 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (in_dtype == 0 && out_dtype == 0) return (int)sct::launch_fwd<float, float>(x, y, stats, rows, V, st);
@@ -129,7 +303,7 @@ extern "C" int sct_vocab_log_softmax(int in_dtype, int out_dtype, const void* x,
 // dy (rows, V) in the forward's out dtype; x, dx in its in dtype; stats as the forward wrote them.
 extern "C" int sct_vocab_log_softmax_bwd(int in_dtype, int out_dtype, const void* dy, const void* x, const void* stats,
                                          void* dx, int rows, int V, void* stream) {
-  if (rows < 0 || V < 1) return (int)cudaErrorInvalidValue;
+  if (rows < 0 || V < 1 || !sct::aligned_to(stats, 8)) return (int)cudaErrorInvalidValue;
   if (rows == 0) return 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (in_dtype == 0 && out_dtype == 0) return (int)sct::launch_bwd<float, float>(dy, x, stats, dx, rows, V, st);

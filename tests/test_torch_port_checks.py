@@ -1,6 +1,7 @@
-"""The card-vs-CPU caption check of ``chip_smoke.py`` (``tie_aware_match``),
-on the CPU: a caption that differs from the CPU's is accepted only where the
-two tie to rounding under the CPU's own teacher-forced scores."""
+"""Helpers of ``chip_smoke.py`` on the CPU: the card-vs-CPU caption check
+(``tie_aware_match``: a caption that differs from the CPU's is accepted only
+where the two tie to rounding under the CPU's own teacher-forced scores) and
+the byte counts that K6's and K13's bounds are computed from."""
 
 import pytest
 import torch
@@ -53,3 +54,40 @@ def test_tie_aware_match_on_a_model_rejects_a_beam_swap():
     assert (lp[0, 0].sum() - lp[0, 1].sum()).abs() > 1e-3
     ok, n_ties, _ = chip_smoke.tie_aware_match(swapped, lp_swapped, seq, lp, rescore, model.eos_id)
     assert not ok and n_ties == 0
+
+
+# ----------------------------------------------------- K6 / K13 byte counts
+ROWS, D, VOCAB = 21760, 512, 10000  # the ORT XE step: 256 x 5 captions x 17 steps
+
+
+@pytest.mark.parametrize("dtype,keep,per_element", [
+    # forward x, y, keep in, s, n out; backward gn, gs, s, keep in, dx, dy out
+    (torch.bfloat16, True, (2 + 2 + 1 + 2 + 2) + (2 + 2 + 2 + 1 + 2 + 2)),
+    (torch.float32, True, (4 + 4 + 1 + 4 + 4) + (4 + 4 + 4 + 1 + 4 + 4)),
+    (torch.bfloat16, False, (2 + 2 + 2 + 2) + (2 + 2 + 2 + 2 + 2)),
+])
+def test_k6_bytes_count_each_tensor_once(dtype, keep, per_element):
+    es = 2 if dtype == torch.bfloat16 else 4
+    # per row: the stats (mean, std in f32) written forward, read backward;
+    # per column: a, b read forward, a read and da, db written backward
+    want = ROWS * D * per_element + ROWS * 8 * 2 + D * es * 5
+    assert chip_smoke.k6_bytes(ROWS, D, dtype, keep=keep) == want
+    assert per_element == {(2, True): 20, (4, True): 38, (2, False): 18}[(es, keep)]
+
+
+def test_k6_bytes_serving_forward():
+    rows = 2048 * 5  # the serving decode step: beam 5 over 2048 images
+    # no keep-mask, forward only: x, y in, s, n out
+    assert chip_smoke.k6_bytes(rows, D, torch.bfloat16, keep=False, backward=False) == \
+        rows * D * 8 + rows * 8 + 2 * D * 2
+
+
+@pytest.mark.parametrize("tin,tout,per_element", [
+    # forward x in, y out; backward dy, x in, dx out
+    (torch.float32, torch.float32, 4 + 4 + 4 + 4 + 4),
+    (torch.bfloat16, torch.bfloat16, 2 + 2 + 2 + 2 + 2),
+    (torch.bfloat16, torch.float32, 2 + 4 + 4 + 2 + 2),  # the ORT generator's train site: 14
+])
+def test_k13_bytes_count_each_tensor_once(tin, tout, per_element):
+    # per row: the stats (max, log-sum in f32) written forward, read backward
+    assert chip_smoke.k13_bytes(ROWS, VOCAB, tin, tout) == ROWS * VOCAB * per_element + ROWS * 16

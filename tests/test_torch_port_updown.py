@@ -158,19 +158,32 @@ def _ulp_bf16(x):
     return 2.0 ** (np.floor(np.log2(np.maximum(np.abs(x), 2.0 ** -126))) - 7)
 
 
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "bfloat16_to_float32"])
 def test_k13_vocab_log_softmax_twin_matches_jax(dtype):
     """Value and VJP of K13's plain version vs ``jax.nn.log_softmax``. K13
     computes in f32 and rounds once, so in bf16 the reference is JAX's
-    log_softmax of the bf16 logits taken in f32 and rounded to bf16 (the ORT
-    generator's train site), held to one bf16 ulp element-wise; JAX's
-    all-bf16 log_softmax (Up-Down's site, which also rounds the shift, the
-    exponentials and their sum) stays within one ulp of each row's
-    log-sum-exp. The logits carry an offset of 20."""
+    log_softmax of the bf16 logits taken in f32 and rounded to bf16, held to
+    one bf16 ulp element-wise; JAX's all-bf16 log_softmax (Up-Down's site,
+    which also rounds the shift, the exponentials and their sum) stays within
+    one ulp of each row's log-sum-exp. The ORT generator's train site takes
+    bf16 logits to f32 log-probs (``layers.py:465-472``): the value within
+    1e-5 of JAX's ``log_softmax(x.astype(f32))`` and the VJP, back to bf16,
+    within one bf16 ulp. The logits carry an offset of 20."""
     rng = np.random.default_rng(3)
     x = (rng.normal(size=(6, 4, V)) * 3 + 20).astype(np.float32)
     g = np.zeros_like(x)  # the NLL's cotangent: -1/n at each row's target
     g[np.arange(6)[:, None], np.arange(4)[None, :], rng.integers(0, V, size=(6, 4))] = -1.0 / 24
+    if dtype == "bfloat16_to_float32":
+        xb = np.asarray(jnp.asarray(x, jnp.bfloat16).astype(jnp.float32))
+        px = t(xb, torch.bfloat16).requires_grad_()
+        out = vocab_log_softmax(px, torch.float32)
+        (pg,) = torch.autograd.grad(out, px, t(g))
+        assert out.dtype == torch.float32 and pg.dtype == torch.bfloat16
+        ref, vjp = jax.vjp(lambda a: jax.nn.log_softmax(a.astype(jnp.float32), axis=-1), jnp.asarray(xb, jnp.bfloat16))
+        _close(out, ref)
+        ref_g = np.asarray(vjp(jnp.asarray(g))[0].astype(jnp.float32))
+        assert (np.abs(pg.float().numpy() - ref_g) <= _ulp_bf16(ref_g)).all()
+        return
     jd, td = getattr(jnp, dtype), getattr(torch, dtype)
     xb = np.asarray(jnp.asarray(x, jd).astype(jnp.float32))  # the inputs as the dtype holds them
     px = t(xb, td).requires_grad_()
