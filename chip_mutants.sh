@@ -1,14 +1,17 @@
 #!/bin/bash
 # Planted source faults in the kernels whose checks hold them bit by bit, to
 # show what the kernel checks of chip_smoke.py catch: K1 (box attention) and
-# K7 (its backward), K6 (residual + RefLayerNorm) and K13 (vocabulary
-# log-softmax). Each mutant is a copy of the port under build/mutants/<name>/
+# K7 (its backward), K6 (residual + RefLayerNorm), K13 (vocabulary
+# log-softmax), K15 (the decoder attention's backward) and K3 (grouped
+# cross-attention). Each mutant is a copy of the port under build/mutants/<name>/
 # with sed edits to one CUDA source, reusing the unmutated libraries already
 # built (a library's file name carries a hash of its sources); its kernel
 # checks then run at paper shapes and at the small or off-width shapes: for
 # K1/K7 check_kernels (K1 serving with its log-bias check) and
 # check_train_kernels (K1's train variant and K7), for K6/K13
-# check_norm_softmax_kernels without its timings. A mutant whose checks pass
+# check_norm_softmax_kernels without its timings, for K15
+# check_decoder_attention_kernels and for K3 check_kernels, both without
+# their timings. A mutant whose checks pass
 # is one they cannot see; each verdict line ends "caught" (a kernel that
 # raises is caught too) or "checks pass".
 #
@@ -22,6 +25,8 @@ cd "$(dirname "$0")" || exit 1
 python3 -c "from sparse_caption_tpu_torch.kernels import build_all; build_all()" || exit 1
 K17="c.check_kernels(g, dt, results) & c.check_train_kernels(g, dt, results)"
 K613="c.check_norm_softmax_kernels(g, results, (dt,), timing=False)"
+K15="c.check_decoder_attention_kernels(g, results, timing=False)"
+K3="c.check_kernels(g, dt, results, timing=False)"
 run_mutant() {  # name file sed-expression dtypes checks
   local name=$1 file=$2 expr=$3 dtypes=$4 checks=$5 dir=build/mutants/$1
   rm -rf "$dir" && mkdir -p "$dir/build"
@@ -61,3 +66,10 @@ run_mutant db_last_block_dropped add_ref_layernorm.cu 's/p < nblocks; p += kNorm
 run_mutant max_shift_dropped vocab_log_softmax.cu 's/const float m = block_max(mloc, red\[0\]);/const float m = 0.f * block_max(mloc, red[0]);/' "torch.float32, torch.bfloat16" "$K613"
 run_mutant dy_sum_last_chunk_dropped vocab_log_softmax.cu 's/for (int k = 0; k < PER; ++k) {  \/\/ sum(dy)/for (int k = 0; k < PER - 1; ++k) {  \/\/ sum(dy)/' "torch.float32, torch.bfloat16" "$K613"
 run_mutant tail_last_element_skipped vocab_log_softmax.cu 's/i < V; i += kLsmThreads) {  \/\/ pass 1/i < V - 1; i += kLsmThreads) {  \/\/ pass 1/' "torch.bfloat16," "$K613"
+run_mutant D_from_unrounded_products decoder_attention_bwd.cu 's/const float gp = round_to<bf16>(dpk \* p);/const float gp = dpk * p;/' "torch.bfloat16," "$K15"
+run_mutant member_sum_unrounded decoder_attention_bwd.cu 's/tot\[nt\]\[e\] += round_to<bf16>(acc\[nt\]\[e\]);/tot[nt][e] += acc[nt][e];/' "torch.bfloat16," "$K15"
+run_mutant keep_dropped_from_dV decoder_attention_bwd.cu 's/const float pk = !kept ? 0.f : keep == nullptr ? p : round_to<bf16>(div_by(p, keep_prob, inv_kp));/const float pk = p;/; s/pk\[c\] = kept ? (keep != nullptr ? p\[c\] \/ keep_prob : p\[c\]) : 0.f;/pk[c] = p[c];/' "torch.bfloat16," "$K15"
+run_mutant causal_dropped_from_recompute decoder_attention_bwd.cu 's/return ((vbits >> c) \& 1u) != 0 \&\& (!causal || j <= i);/return ((vbits >> c) \& 1u) != 0;/; s/const bool ok0 = v0 \&\& (!causal || lane <= i), ok1 = v1 \&\& (!causal || lane + 32 <= i);/const bool ok0 = v0, ok1 = v1;/' "torch.bfloat16," "$K15"
+run_mutant last_member_skipped decoder_attention_bwd.cu 's/for (int m = 0; m < group; ++m) {/for (int m = 0; m < group - 1; ++m) {/' "torch.bfloat16," "$K15"
+run_mutant k3_last_row_skipped grouped_cross_attention.cu 's/    if (rows\[r\] < rep) {/    if (rows[r] < rep - 1) {/' "torch.bfloat16," "$K3"
+run_mutant k3_mask_ignored grouped_cross_attention.cu 's/if (j < S \&\& mask_b\[j\] != 0) vbits/if (j < S) vbits/' "torch.bfloat16," "$K3"

@@ -13,18 +13,23 @@ Phases:
    64 x 15 samples, causal self-attention over 17 tokens and cross-attention
    over 36 regions read once per image), in f32 and bf16, forward and
    backward, each with a planted fault, and the times of kernel, plain
-   version and one PyTorch library call; K1 and K7 also with an image that
-   has no valid region, bf16 K1/K7 outputs and K1's log-bias held bit by bit
-   against the plain versions (``rounding_share``), and their times as
-   medians of 5 windows; K4 also at beams 10, 15 and 40; K6 and K13 also
-   bit by bit in bf16 (K6's s exactly, its n, dx, dy and K13's y by
-   ``rounding_share``), K6's da / db repeated bit for bit, both at off widths
-   (K6 d = 37 and 500, K13 V = 37 and 9,999) and K13 also bf16 -> f32, on
-   inputs of their own generator; K6 timed forward + backward at the XE
+   version and one PyTorch library call, every one of them the median of 5
+   windows of device time taken in turns (``turns_ms``: the host's enqueue
+   held off the window); K1 and K7 also with an image that has no valid
+   region, bf16 K1/K7 outputs and K1's log-bias held bit by bit against the
+   plain versions (``rounding_share``); K14's bf16 output and K15's dq, dk,
+   dv (self and cross calls, with and without the keep-mask) and K3's bf16
+   output too, K15 and K3 also at off shapes (K15: Tk 9 and 64, a group of
+   3 x 20 rows; K3: 15 and 40 rows an image, 33 regions), and their
+   shared-memory sizes against the wrappers' limits; K4 also at beams 10,
+   15 and 40; K6 and K13 also bit by bit in bf16 (K6's s exactly, its n,
+   dx, dy and K13's y by ``rounding_share``), K6's da / db repeated bit for
+   bit, both at off widths (K6 d = 37 and 500, K13 V = 37 and 9,999) and
+   K13 also bf16 -> f32, on inputs of their own generator; K6 timed forward + backward at the XE
    shape and forward alone at the serving decode step (10,240 x 512), K13
-   in f32, bf16 and bf16 -> f32, kernel, plain version and library call in
-   turns, medians of 5 windows of device time (the host's enqueue held off
-   the window), beside byte bounds (``k6_bytes``, ``k13_bytes``);
+   in f32, bf16 and bf16 -> f32, beside byte bounds (``k6_bytes``,
+   ``k13_bytes``; K3's, K14's and K15's from ``k3_bytes``, ``k14_bytes``,
+   ``k15_bytes`` and ``decoder_attention_flops``);
 3. serving path: a paper-width ``relation_transformer_prune`` (random
    weights and supermask logits from a seed, masks folded), ``encode`` +
    beam-5 ``generate`` in bf16 at batch 50 and 2048 with the kernels' launch
@@ -79,6 +84,7 @@ from __future__ import annotations
 
 import contextlib
 import copy
+import ctypes
 import json
 import math
 import subprocess
@@ -113,6 +119,12 @@ WHOLE_PATH_LP_TOL = 1e-4
 BIAS_SHARE_LIMIT = 0.01
 K1_SHARE_LIMIT, K1_FAR_LIMIT = 0.02, 0.001
 K7_SHARE_LIMIT, K7_FAR_LIMIT = 0.05, 0.005
+# K14's output and K15's dq, dk, dv in bf16 against the plain version, bit by
+# bit as K1 / K7
+K14_SHARE_LIMIT, K14_FAR_LIMIT = 0.02, 0.001
+K15_SHARE_LIMIT, K15_FAR_LIMIT = 0.05, 0.005
+# K3's bf16 output against the plain version, bit by bit as K1's
+K3_SHARE_LIMIT, K3_FAR_LIMIT = 0.02, 0.001
 # K6 (n, dx, dy) and K13 (y) in bf16 against their plain versions, bit by
 # bit: the stats and the backward's row sums are taken in another order, so
 # an element may move by one ulp now and then; more than one ulp only where
@@ -217,13 +229,6 @@ def time_ms(fn, iters: int = 20, warmup: int = 3, hold: bool = False) -> float:
     return start.elapsed_time(end) / iters
 
 
-def median_ms(fn, windows: int = 5, iters: int = 20) -> float:
-    """Median over `windows` of `time_ms` windows (one mean each): one window
-    can read 2x another with the same code."""
-    times = sorted(time_ms(fn, iters=iters, warmup=3 if i == 0 else 0) for i in range(windows))
-    return times[len(times) // 2]
-
-
 def turns_ms(*fns) -> list:
     """For each of `fns`, the median of 5 held `time_ms` windows of 20 calls
     (device time alone), the functions taking turns window by window (kernel,
@@ -251,6 +256,45 @@ def k13_bytes(rows: int, vocab: int, in_dtype, out_dtype) -> int:
     then dy, x and the stats in, dx out."""
     ei, eo = ESIZE[in_dtype], ESIZE[out_dtype]
     return rows * vocab * ((ei + eo) + (eo + 2 * ei)) + rows * 16
+
+
+def k14_bytes(n: int, nk: int, tk: int, dtype, keep: bool = True, valid: bool = True, tq: int = MAX_LEN) -> int:
+    """Bytes K14 must move for one call: q read and out written (n query rows),
+    k and v read (nk K/V rows, one per image in cross-attention), the
+    keep-mask (n, h, tq, tk) and the key-validity flags (nk, tk)."""
+    return ((2 * n * tq + 2 * nk * tk) * HEADS * DK * ESIZE[dtype] + (n * HEADS * tq * tk if keep else 0)
+            + (nk * tk if valid else 0))
+
+
+def k15_bytes(n: int, nk: int, tk: int, dtype, keep: bool = True, valid: bool = True, tq: int = MAX_LEN) -> int:
+    """Bytes K15 must move for one call: q and dO read and dq written (n
+    query rows), k and v read and dk and dv written (nk K/V rows), the
+    keep-mask and the key-validity flags read."""
+    return ((3 * n * tq + 4 * nk * tk) * HEADS * DK * ESIZE[dtype] + (n * HEADS * tq * tk if keep else 0)
+            + (nk * tk if valid else 0))
+
+
+def decoder_attention_flops(n: int, tk: int, backward: bool = False, tq: int = MAX_LEN) -> int:
+    """Operations of K14 (S = QK^T, P V) or K15 (S recomputed, dPd = dO V^T,
+    dQ = dS K, dK = dS^T Q, dV = P~^T dO) for n query rows: 2 n h tq tk dk
+    a product."""
+    return (10 if backward else 4) * n * HEADS * tq * tk * DK
+
+
+def k3_bytes(images: int, beams: int, dtype, regions: int = REGIONS) -> int:
+    """Bytes K3 must move for one decode step: the image's memory K and V
+    read once per image (not per beam), q read and out written per beam
+    row, the region mask."""
+    return (2 * images * regions + 2 * images * beams) * HEADS * DK * ESIZE[dtype] + images * regions
+
+
+def k11_bytes(n: int, h: int, dtype, backward: bool = False) -> int:
+    """Bytes K11 must move for n rows of h units. Forward: gx, gh (4h each)
+    and c in, h', c' out. With the backward too: gx, gh, c, dh', dc' in,
+    the gates' gradient (4h, one tensor for gx and gh) and dc out."""
+    fwd = (4 * h + 4 * h + h + 2 * h) * n
+    bwd = (4 * h + 4 * h + h + 2 * h + 4 * h + h) * n
+    return (fwd + (bwd if backward else 0)) * ESIZE[dtype]
 
 
 def fwd_bwd(fn, ins, cots):
@@ -344,8 +388,29 @@ def random_region_mask(gen, b, r, device):
 
 
 # ------------------------------------------------------------ kernel checks
-def check_kernels(gen, dtype, results: dict) -> bool:
-    """Each kernel vs its plain version at the main path's shapes; timings."""
+def no_turns(*fns) -> list:
+    """`turns_ms` left out (a check run without timings): each function once."""
+    for fn in fns:
+        fn()
+    return [float("nan")] * len(fns)
+
+
+def smem_agrees(name: str, symbol: str, python_fn, shapes) -> bool:
+    """A kernel library's shared-memory size (its C function `symbol`)
+    against the Python wrapper's copy of the formula that bounds the inputs."""
+    from sparse_caption_tpu_torch.kernels import _build
+
+    fn = getattr(_build.library(name), symbol)
+    fn.restype, fn.argtypes = ctypes.c_longlong, [ctypes.c_int] * len(shapes[0])
+    got = [(shape, fn(*shape), python_fn(*shape)) for shape in shapes]
+    good = all(c == p for _, c, p in got)
+    log(f"[kernel] {name} shared memory, C vs wrapper: {got} {'ok' if good else 'FAIL'}")
+    return good
+
+
+def check_kernels(gen, dtype, results: dict, timing: bool = True) -> bool:
+    """Each kernel vs its plain version at the main path's shapes; timings
+    (with `timing`)."""
     from sparse_caption_tpu_torch.kernels import ancestry_self_attention as k2
     from sparse_caption_tpu_torch.kernels import beam_topk as k4
     from sparse_caption_tpu_torch.kernels import box_attention as k1
@@ -357,6 +422,7 @@ def check_kernels(gen, dtype, results: dict) -> bool:
     dname = str(dtype).split(".")[-1]
     b, n, r, h, dk, t_max, vocab = BIG_BATCH, BIG_BATCH * BEAM, REGIONS, HEADS, DK, MAX_LEN, PAPER["vocab_size"]
     rnd = lambda *shape: torch.randn(*shape, generator=gen, device=dev).to(dtype)  # noqa: E731
+    turns = turns_ms if timing else no_turns
     ok = True
 
     def compare(name, out, ref, scale=0.0, fault=None):
@@ -372,9 +438,11 @@ def check_kernels(gen, dtype, results: dict) -> bool:
         return err, good
 
     def record(name, err, ms, plain_ms, lib_ms, nbytes, ops):
+        if not timing:
+            return
         bnd, by = bound_ms(nbytes, ops)
         log(f"[kernel] {name} {dname}: ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms={lib_ms:.4f} "
-            f"bound_ms={bnd:.4f} ({by})")
+            f"bound_ms={bnd:.4f} ({by}; held windows in turns)")
         if dtype == torch.bfloat16:  # the main path's dtype goes into the JSON line
             results[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bnd,
                                  bound_by=by)
@@ -427,15 +495,15 @@ def check_kernels(gen, dtype, results: dict) -> bool:
         w_ = torch.relu(F.linear(g_.to(dtype), wg_w) + wg_b)
         return torch.log(torch.clamp(w_, min=1e-6)).permute(0, 3, 1, 2).masked_fill(~mask[:, None, None, :], NEG_INF)
 
-    bias_ms = median_ms(build_bias)
-    record("box_attention", err,
-           median_ms(lambda: k1.box_attention(*args)), time_ms(lambda: k1.box_attention_plain(*args), iters=5),
-           median_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=float_mask)),
+    ms, plain_ms, lib_ms, bias_ms = turns(lambda: k1.box_attention(*args), lambda: k1.box_attention_plain(*args),
+                                             lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=float_mask),
+                                             build_bias)
+    record("box_attention", err, ms, plain_ms, lib_ms,
            4 * b * h * r * dk * es + b * r * 4 * 4 + b * r + h * 65 * es,
            flops((dtype, 4 * b * h * r * r * dk), (torch.float32, 2 * b * r * r * 64 * h)))
     log(f"[kernel] box_attention {dname}: bias build (geometry + linear + relu + clamp + log + fill) "
-        f"ms={bias_ms:.4f} (median of 5 windows)")
-    if dtype == torch.bfloat16:
+        f"ms={bias_ms:.4f} (in the same turns)")
+    if dtype == torch.bfloat16 and timing:
         results["box_attention"]["bias_build_ms"] = bias_ms
 
     # K2 ancestry self-attention at step 5 and at the last step (full cache)
@@ -458,9 +526,9 @@ def check_kernels(gen, dtype, results: dict) -> bool:
     touched = torch.unique(rows * t_max + slots).numel()
     q4 = q[:, :, None]
     record("ancestry_self_attention", err,
-           time_ms(lambda: k2.ancestry_self_attention(q, ck, cv, anc_t, step)),
-           time_ms(lambda: k2.ancestry_self_attention_plain(q, ck, cv, anc_t, step), iters=5),
-           time_ms(lambda: F.scaled_dot_product_attention(q4, kg, vg)),
+           *turns(lambda: k2.ancestry_self_attention(q, ck, cv, anc_t, step),
+                  lambda: k2.ancestry_self_attention_plain(q, ck, cv, anc_t, step),
+                  lambda: F.scaled_dot_product_attention(q4, kg, vg)),
            2 * touched * h * dk * es + 2 * n * h * dk * es + n * t_max * 4,
            flops((dtype, 4 * n * h * t_max * dk)))
 
@@ -469,19 +537,52 @@ def check_kernels(gen, dtype, results: dict) -> bool:
     mk, mv = rnd(b, h, r, dk), rnd(b, h, r, dk)
     mask = random_region_mask(gen, b, r, dev)
     no_mask = torch.ones_like(mask)
-    err, _ = compare("grouped_cross_attention", k3.grouped_cross_attention(q, mk, mv, mask),
-                     k3.grouped_cross_attention_plain(q, mk, mv, mask), rms(mv),
+    out3, ref3 = k3.grouped_cross_attention(q, mk, mv, mask), k3.grouped_cross_attention_plain(q, mk, mv, mask)
+    err, _ = compare("grouped_cross_attention", out3, ref3, rms(mv),
                      fault=k3.grouped_cross_attention_plain(q, mk, mv, no_mask))  # padding attended
     compare("grouped_cross_attention mem_v=None", k3.grouped_cross_attention(q, mk, None, mask),
             k3.grouped_cross_attention_plain(q, mk, None, mask), rms(mk))
+    if dtype == torch.bfloat16:  # bit by bit: scores, their scaling, P and the output rounded as the plain version
+        ok &= rounding_share("grouped_cross_attention out", out3, ref3, K3_SHARE_LIMIT, K3_FAR_LIMIT)
+        ok &= smem_agrees("grouped_cross_attention", "sct_grouped_cross_attention_smem", k3.bf16_smem,
+                          [(REGIONS, BEAM), (REGIONS, BEAM_WIDTHS[-1]), (64, 300), (REGIONS, 800)])
+    del out3, ref3
+    # the SCST sampling group (15 samples an image), a wide beam (40: three
+    # 16-row tiles) and 33 regions (region flags read from device memory, not
+    # staged), 64 images, image 0 with every region padded (uniform weights);
+    # inputs of their own generator
+    g3 = torch.Generator(device=dev).manual_seed(SEED + 3)
+    for rep_, rx in ((SCST_SAMPLES, r), (BEAM_WIDTHS[-1], r), (BEAM, 33)):
+        bx = SCST_BATCHES[-1]
+        qx = torch.randn(bx * rep_, h, dk, generator=g3, device=dev).to(dtype)
+        kx, vx = (torch.randn(bx, h, rx, dk, generator=g3, device=dev).to(dtype) for _ in range(2))
+        mx = random_region_mask(g3, bx, rx, dev)
+        mx[0] = False
+        ox, px = k3.grouped_cross_attention(qx, kx, vx, mx), k3.grouped_cross_attention_plain(qx, kx, vx, mx)
+        tag = f"{bx}x{rep_}" + ("" if rx == r else f" S={rx}")
+        compare(f"grouped_cross_attention {tag}", ox, px, rms(vx))
+        if dtype == torch.bfloat16:
+            ok &= rounding_share(f"grouped_cross_attention {tag} out", ox, px, K3_SHARE_LIMIT, K3_FAR_LIMIT)
+        uniform = (ox[:rep_].float() - vx[0].float().mean(1)[None]).abs().max().item()
+        log(f"[kernel] grouped_cross_attention {tag} {dname}: all-padded image, output - mean(v) max {uniform:.3e}")
+        if rep_ == SCST_SAMPLES and timing:
+            t_k, t_p = turns_ms(lambda: k3.grouped_cross_attention(qx, kx, vx, mx),
+                                lambda: k3.grouped_cross_attention_plain(qx, kx, vx, mx))
+            log(f"[kernel] grouped_cross_attention {dname} at the SCST sampling shape {bx}x{rep_}: ms={t_k:.4f} "
+                f"plain_ms={t_p:.4f} bound_ms={bound_ms(k3_bytes(bx, rep_, dtype), {})[0]:.4f} (held windows in turns)")
+            if dtype == torch.float32:  # the SCST sampling decode's dtype: into the JSON line with the bf16 row
+                results["grouped_cross_attention_scst_f32"] = dict(scst_f32_ms=t_k, scst_f32_plain_ms=t_p)
+        del qx, kx, vx, ox, px
     qg = q.reshape(b, BEAM, h, dk).transpose(1, 2)  # (B, h, K, dk): the beams as query rows
     cross_mask = torch.zeros(b, 1, 1, r, device=dev, dtype=dtype).masked_fill(~mask[:, None, None, :], NEG_INF)
     record("grouped_cross_attention", err,
-           time_ms(lambda: k3.grouped_cross_attention(q, mk, mv, mask)),
-           time_ms(lambda: k3.grouped_cross_attention_plain(q, mk, mv, mask), iters=5),
-           time_ms(lambda: F.scaled_dot_product_attention(qg, mk, mv, attn_mask=cross_mask)),
-           2 * b * h * r * dk * es + 2 * n * h * dk * es + b * r,
+           *turns(lambda: k3.grouped_cross_attention(q, mk, mv, mask),
+                  lambda: k3.grouped_cross_attention_plain(q, mk, mv, mask),
+                  lambda: F.scaled_dot_product_attention(qg, mk, mv, attn_mask=cross_mask)),
+           k3_bytes(b, BEAM, dtype),
            flops((dtype, 4 * n * h * r * dk)))
+    if timing and dtype == torch.bfloat16 and "grouped_cross_attention_scst_f32" in results:
+        results["grouped_cross_attention"].update(results.pop("grouped_cross_attention_scst_f32"))
 
     # K4 beam top-k with every constraint on: the serving beam and wider
     # beams (register lists of 16 and 32, and the radix-select variant)
@@ -507,9 +608,8 @@ def check_kernels(gen, dtype, results: dict) -> bool:
         if width == BEAM:
             err_k = max(err_v, err_r)
     record("beam_topk", err_k,
-           time_ms(lambda: k4.beam_topk(logits, BEAM, **kw)),
-           time_ms(lambda: k4.beam_topk_plain(logits, BEAM, **kw), iters=5),
-           time_ms(lambda: torch.topk(torch.log_softmax(logits, dim=-1), BEAM)),
+           *turns(lambda: k4.beam_topk(logits, BEAM, **kw), lambda: k4.beam_topk_plain(logits, BEAM, **kw),
+                  lambda: torch.topk(torch.log_softmax(logits, dim=-1), BEAM)),
            n * vocab * es + n * 5 + 3 * n * BEAM * 4,
            flops((torch.float32, 4 * n * vocab)))
     return ok
@@ -568,7 +668,7 @@ def check_train_kernels(gen, dtype, results: dict) -> bool:
     def record(name, err, ms, plain_ms, lib_ms, nbytes, ops):
         bnd, by = bound_ms(nbytes, ops)
         log(f"[kernel] {name} {dname}: ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms="
-            f"{'null' if lib_ms is None else f'{lib_ms:.4f}'} bound_ms={bnd:.4f} ({by})")
+            f"{'null' if lib_ms is None else f'{lib_ms:.4f}'} bound_ms={bnd:.4f} ({by}; held windows in turns)")
         if dtype == torch.bfloat16:
             results[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bnd,
                                  bound_by=by)
@@ -613,7 +713,7 @@ def check_train_kernels(gen, dtype, results: dict) -> bool:
         for (w, m), u, g in zip(plain_leaves, us, gs):
             torch.autograd.grad(k5.supermask_weight_plain(w, m, u), (w, m), g)
 
-    record("supermask", err, time_ms(k5_kernels, iters=5, warmup=1), time_ms(k5_plain, iters=3, warmup=1), None,
+    record("supermask", err, *turns_ms(k5_kernels, k5_plain), None,
            n_el * ((es + 4 + 4 + es) + (es + es + 4 + 4 + es + 4)), {})
     del plain_leaves
     del ws, ms, us, gs
@@ -696,12 +796,16 @@ def check_train_kernels(gen, dtype, results: dict) -> bool:
     ins_l = leaves(q, k, v)
     out_l = F.scaled_dot_product_attention(*ins_l, attn_mask=float_mask)
     with torch.no_grad():
-        fwd_ms = median_ms(lambda: k7.box_attention_train(q, k, v, boxes, wg_w, wg_b, mask, keep, 0.9))
-    log(f"[kernel] box_attention train fwd {dname}: ms={fwd_ms:.4f} (median of 5 windows)")
+        fwd_ms, fwd_plain_ms, fwd_lib_ms = turns_ms(
+            lambda: k7.box_attention_train(q, k, v, boxes, wg_w, wg_b, mask, keep, 0.9),
+            lambda: k1.box_attention_plain(q, k, v, boxes, wg_w, wg_b, mask, keep, 0.9),
+            lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=float_mask))
+    log(f"[kernel] box_attention train fwd {dname}: ms={fwd_ms:.4f} plain_ms={fwd_plain_ms:.4f} "
+        f"library_ms={fwd_lib_ms:.4f} (SDPA, float bias given; held windows in turns)")
     record("box_attention_bwd", err,
-           median_ms(lambda: torch.autograd.grad(out_k, ins_k, dout, retain_graph=True)),
-           time_ms(lambda: torch.autograd.grad(out_p, ins_p, dout, retain_graph=True), iters=5),
-           median_ms(lambda: torch.autograd.grad(out_l, ins_l, dout, retain_graph=True)),
+           *turns_ms(lambda: torch.autograd.grad(out_k, ins_k, dout, retain_graph=True),
+                     lambda: torch.autograd.grad(out_p, ins_p, dout, retain_graph=True),
+                     lambda: torch.autograd.grad(out_l, ins_l, dout, retain_graph=True)),
            7 * b * h * r * dk * es + b * h * r * r + b * r * 16 + b * r + 2 * h * 65 * es,
            flops((dtype, 5 * 2 * b * h * r * r * dk), (torch.float32, 2 * 2 * b * r * r * 64 * h)))
     if dtype == torch.bfloat16:
@@ -733,7 +837,7 @@ def check_train_kernels(gen, dtype, results: dict) -> bool:
     return ok
 
 
-def check_decoder_attention_kernels(gen, results: dict) -> bool:
+def check_decoder_attention_kernels(gen, results: dict, timing: bool = True) -> bool:
     """K14 and K15 against the plain version with autograd: at the ORT XE
     step's shape (256 images x 5 captions) in f32 and bf16 and at the SCST
     replay's (64 x 15 samples) in f32, causal self-attention over 17 tokens
@@ -741,8 +845,11 @@ def check_decoder_attention_kernels(gen, results: dict) -> bool:
     cross-attention over 36 regions with one K/V row per image (image 0 with
     every region padded), each with and without a dropout keep-mask; planted
     faults (the causal rule dropped in the forward, the keep-mask dropped in
-    the backward); the bf16 times of one decoder layer's pair of calls (self
-    + cross) at the XE shape into the JSON line."""
+    the backward); in bf16 K14's output and K15's dq, dk, dv also bit by bit
+    (`rounding_share`); with `timing`, the bf16 times of one decoder layer's
+    pair of calls (self + cross) at the XE shape into the JSON line, and
+    K15's f32 time at the replay's shape, kernel, plain version and SDPA in
+    held turns."""
     from sparse_caption_tpu_torch.kernels import decoder_attention as k14
 
     dev = torch.device("cuda")
@@ -804,6 +911,10 @@ def check_decoder_attention_kernels(gen, results: dict) -> bool:
             if fg is not None and nm != "dk":  # fault: the keep-mask dropped in the backward
                 ok &= fault_caught(f"{label} {nm} keep ignored in the backward", fg[i], pg[i], dtype,
                                    pg[i].float().abs().max().item(), rms(pg[i]))
+        if dtype == torch.bfloat16:  # bit by bit against the card's plain version
+            ok &= rounding_share(f"{label} out", kout, pout, K14_SHARE_LIMIT, K14_FAR_LIMIT)
+            for i, nm in enumerate(("dq", "dk", "dv")):
+                ok &= rounding_share(f"{label} {nm}", kg[i], pg[i], K15_SHARE_LIMIT, K15_FAR_LIMIT)
         if kind == "cross":  # image 0 has no valid region: uniform weights, no gradient to its q or k
             zero = bool((kg[0][:g] == 0).all() and (kg[1][0] == 0).all())
             msg = f"[kernel] {label} {dname}: all-padded image: dq and dk exactly 0={zero}"
@@ -813,6 +924,37 @@ def check_decoder_attention_kernels(gen, results: dict) -> bool:
             log(msg)
             ok &= zero
         del args, dout, kout, kg, pout, pg, fg
+    # off shapes, on inputs of their own generator: the other key tiles (Tk =
+    # 9: one 16-key tile; Tk = 64: four), and a group whose members' rows
+    # straddle the 16-row tiles (3 x 20 positions); padded keys, one K/V row
+    # with every key padded, the keep-mask
+    g15 = torch.Generator(device=dev).manual_seed(SEED + 15)
+    for dtype in (torch.float32, torch.bfloat16):
+        for kind, b_, g_, tq_, tk_ in (("self", 16, 1, 9, 9), ("cross", 16, 3, 20, 64)):
+            n_, nk_ = b_ * g_, b_ * g_ if kind == "self" else b_
+            rnd = lambda *shape: torch.randn(*shape, generator=g15, device=dev).to(dtype)  # noqa: E731
+            valid = torch.arange(tk_, device=dev)[None] < torch.randint(1, tk_ + 1, (nk_, 1), generator=g15, device=dev)
+            valid[0] = False
+            keep = torch.rand(n_, h, tq_, tk_, generator=g15, device=dev) < 0.9
+            args = (rnd(n_, h, tq_, dk), rnd(nk_, h, tk_, dk), rnd(nk_, h, tk_, dk), valid, kind == "self", keep)
+            dout = rnd(n_, h, tq_, dk)
+            kout, kg = run(k14.decoder_attention, args, dout)
+            pout, pg = run(k14.decoder_attention_plain, args, dout)
+            label = f"decoder_attention {kind} {b_}x{g_} Tq={tq_} Tk={tk_} keep"
+            dname = str(dtype).split(".")[-1]
+            for nm, kt, pt, sc in (("out", kout, pout, rms(args[2])),) + tuple(
+                    (nm, kg[i], pg[i], pg[i].float().abs().max().item()) for i, nm in enumerate(("dq", "dk", "dv"))):
+                err, good, worst = close(kt, pt, dtype, sc, rms(pt) if nm != "out" else 0.0)
+                log(f"[kernel] {label} {nm} {dname}: max_abs_err={err:.3e} worst err/allowed={worst:.3f} "
+                    f"{'ok' if good else 'FAIL'}")
+                ok &= good
+                if dtype == torch.bfloat16 and nm != "out":
+                    ok &= rounding_share(f"{label} {nm}", kt, pt, K15_SHARE_LIMIT, K15_FAR_LIMIT)
+            del args, dout, kout, kg, pout, pg
+    ok &= smem_agrees("decoder_attention_bwd", "sct_decoder_attention_bwd_smem", k14.bf16_backward_smem,
+                      [(tq, tq, 1), (tq, r, SEQ_PER_IMG), (tq, r, SCST_SAMPLES), (64, 64, 5), (64, 64, 6)])
+    if not timing:
+        return ok
 
     # times: one decoder layer's pair of calls at the XE shape in bf16, with dropout
     dtype, es, n = torch.bfloat16, 2, TRAIN_BIG_BATCH * SEQ_PER_IMG
@@ -840,41 +982,52 @@ def check_decoder_attention_kernels(gen, results: dict) -> bool:
         ins, mask = library_inputs(args)
         graphs["library"].append((F.scaled_dot_product_attention(*ins, attn_mask=mask), ins, dout))
 
-    def backward(impl):
-        for out, ins, dout in graphs[impl]:
-            torch.autograd.grad(out, ins, dout, retain_graph=True)
+    def backward(impl, only=None):
+        for i, (out, ins, dout) in enumerate(graphs[impl]):
+            if only is None or i == only:
+                torch.autograd.grad(out, ins, dout, retain_graph=True)
 
     lib_in = [library_inputs(args) for args, _ in pair]
     with torch.no_grad():
-        fwd = (time_ms(lambda: forward(k14.decoder_attention)), time_ms(lambda: forward(k14.decoder_attention_plain),
-                                                                        iters=5),
-               time_ms(lambda: [F.scaled_dot_product_attention(*i, attn_mask=m) for i, m in lib_in]))
-    bwd = (time_ms(lambda: backward("kernel")), time_ms(lambda: backward("plain"), iters=5),
-           time_ms(lambda: backward("library")))
-    nbytes_f = nbytes_b = 0
-    ops_f = ops_b = 0
-    for args, _ in pair:
-        q, k, v, valid, _, keep = args
-        q_el, kv_el, pairs = q.numel(), k.numel(), q.numel() // dk * k.shape[2]
-        extra = keep.numel() + valid.numel()
-        nbytes_f += (2 * q_el + 2 * kv_el) * es + extra
-        nbytes_b += (3 * q_el + 4 * kv_el) * es + extra
-        ops_f += 4 * pairs * dk
-        ops_b += 10 * pairs * dk
-    for name, (ms, plain_ms, lib_ms), nbytes, ops, err in (("decoder_attention", fwd, nbytes_f, ops_f, errs["fwd"]),
-                                                          ("decoder_attention_bwd", bwd, nbytes_b, ops_b,
-                                                           errs["bwd"])):
+        fwd = turns_ms(lambda: forward(k14.decoder_attention), lambda: forward(k14.decoder_attention_plain),
+                       lambda: [F.scaled_dot_product_attention(*i, attn_mask=m) for i, m in lib_in])
+    bwd = turns_ms(lambda: backward("kernel"), lambda: backward("plain"), lambda: backward("library"),
+                   lambda: backward("kernel", 0), lambda: backward("kernel", 1))
+    log(f"[kernel] decoder_attention_bwd bf16 at {TRAIN_BIG_BATCH}x{SEQ_PER_IMG}: self call ms={bwd[3]:.4f}, "
+        f"cross call ms={bwd[4]:.4f} (in the same turns)")
+    shapes = [(n, n, tq), (n, TRAIN_BIG_BATCH, r)]  # (query rows, K/V rows, keys) of the self and cross calls
+    for name, (ms, plain_ms, lib_ms, *_), nbytes, ops, err in (
+            ("decoder_attention", fwd, sum(k14_bytes(nq, nk, tk, dtype) for nq, nk, tk in shapes),
+             sum(decoder_attention_flops(nq, tk) for nq, _, tk in shapes), errs["fwd"]),
+            ("decoder_attention_bwd", bwd, sum(k15_bytes(nq, nk, tk, dtype) for nq, nk, tk in shapes),
+             sum(decoder_attention_flops(nq, tk, backward=True) for nq, _, tk in shapes), errs["bwd"])):
         bnd, by = bound_ms(nbytes, flops((dtype, ops)))
         log(f"[kernel] {name} bf16 self + cross at {TRAIN_BIG_BATCH}x{SEQ_PER_IMG} ({n} rows): ms={ms:.4f} "
-            f"plain_ms={plain_ms:.4f} library_ms={lib_ms:.4f} (SDPA, bool mask, K/V repeated) bound_ms={bnd:.4f} ({by})")
+            f"plain_ms={plain_ms:.4f} library_ms={lib_ms:.4f} (SDPA, bool mask, K/V repeated) bound_ms={bnd:.4f} "
+            f"({by}; held windows in turns)")
         results[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bnd, bound_by=by)
-    del graphs, pair, lib_in
-    # the replay's pair (f32, 64 x 15, causal-only self, no dropout): kernel vs plain, forward + backward
+    results["decoder_attention_bwd"].update(self_ms=bwd[3], cross_ms=bwd[4])
+    del pair, lib_in
+    # the replay's pair (f32, 64 x 15, causal-only self, no dropout): K15 alone, then forward + backward
     rpair = [inputs(torch.float32, SCST_BATCHES[-1], SCST_SAMPLES, kind, False, False) for kind in ("self", "cross")]
-    t_k, t_p = (time_ms(lambda: [run(fn, a, d) for a, d in rpair], iters=5)
-                for fn in (k14.decoder_attention, k14.decoder_attention_plain))
-    log(f"[kernel] decoder_attention f32 self + cross, forward + backward at the replay shape "
-        f"{SCST_BATCHES[-1]}x{SCST_SAMPLES}: ms={t_k:.4f} plain_ms={t_p:.4f}")
+    for impl, fn in (("kernel", k14.decoder_attention), ("plain", k14.decoder_attention_plain)):
+        graphs[impl] = []
+        for args, dout in rpair:
+            ins = leaves(*args[:3])
+            graphs[impl].append((fn(*ins, *args[3:], 0.9), ins, dout))
+    t_bk, t_bp, t_k, t_p = turns_ms(lambda: backward("kernel"), lambda: backward("plain"),
+                                    lambda: [run(k14.decoder_attention, a, d) for a, d in rpair],
+                                    lambda: [run(k14.decoder_attention_plain, a, d) for a, d in rpair])
+    nr = SCST_BATCHES[-1] * SCST_SAMPLES
+    rshapes = [(nr, nr, tq), (nr, SCST_BATCHES[-1], r)]
+    r_bound = bound_ms(sum(k15_bytes(nq, nk, tk, torch.float32, keep=False, valid=vd)
+                           for (nq, nk, tk), vd in zip(rshapes, (False, True))),
+                       flops((torch.float32, sum(decoder_attention_flops(nq, tk, backward=True)
+                                                 for nq, _, tk in rshapes))))
+    log(f"[kernel] decoder_attention_bwd f32 self + cross at the replay shape {SCST_BATCHES[-1]}x{SCST_SAMPLES}: "
+        f"ms={t_bk:.4f} plain_ms={t_bp:.4f} bound_ms={r_bound[0]:.4f} ({r_bound[1]}); forward + backward ms={t_k:.4f} "
+        f"plain_ms={t_p:.4f} (held windows in turns)")
+    results["decoder_attention_bwd"].update(replay_f32_ms=t_bk, replay_f32_plain_ms=t_bp)
     return ok
 
 
@@ -1206,7 +1359,7 @@ def check_scst_kernels(gen, results: dict) -> bool:
     def record(name, err, ms, plain_ms, lib_ms, nbytes, ops):
         bnd, by = bound_ms(nbytes, ops)
         log(f"[kernel] {name} f32: ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms="
-            f"{'null' if lib_ms is None else f'{lib_ms:.4f}'} bound_ms={bnd:.4f} ({by})")
+            f"{'null' if lib_ms is None else f'{lib_ms:.4f}'} bound_ms={bnd:.4f} ({by}; held windows in turns)")
         results[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bnd, bound_by=by)
 
     def exact(name, out, ref) -> bool:
@@ -1239,11 +1392,13 @@ def check_scst_kernels(gen, results: dict) -> bool:
                     k8.keyed_dropout_plain(x.detach(), key, site, 0, kp))
         ok &= exact(f"keyed_dropout apply backward {str(xdt).split('.')[-1]}", gx,
                     k8.keyed_dropout_plain(torch.ones_like(x), key, site, 0, kp))
-    record("keyed_dropout", 0.0, time_ms(lambda: k8.keyed_keep_mask(key, site, 0, n, tl, d, kp, dev)),
-           time_ms(lambda: k8.keyed_keep_mask_plain(key, site, 0, n, tl, d, kp, dev), iters=5), None,
+    record("keyed_dropout", 0.0, *turns_ms(lambda: k8.keyed_keep_mask(key, site, 0, n, tl, d, kp, dev),
+                                           lambda: k8.keyed_keep_mask_plain(key, site, 0, n, tl, d, kp, dev)), None,
            n * tl * d, {})
     x32 = torch.randn(n, tl, d, generator=gen, device=dev)
-    log(f"[kernel] keyed_dropout apply f32: ms={time_ms(lambda: k8.keyed_dropout(x32, key, site, 0, kp)):.4f} "
+    apply_ms, apply_plain_ms = turns_ms(lambda: k8.keyed_dropout(x32, key, site, 0, kp),
+                                        lambda: k8.keyed_dropout_plain(x32, key, site, 0, kp))
+    log(f"[kernel] keyed_dropout apply f32: ms={apply_ms:.4f} plain_ms={apply_plain_ms:.4f} "
         f"(bound {bound_ms(2 * 4 * n * tl * d, {})[0]:.4f}, bytes)")
 
     # K9 at 64 x 15 rows over the vocabulary
@@ -1288,9 +1443,9 @@ def check_scst_kernels(gen, results: dict) -> bool:
         return lps.gather(1, torch.argmax(lps + g, dim=-1, keepdim=True))
 
     record("sample_step", k9_err,
-           time_ms(lambda: k9.sample_step(logits, prev, u, seq, lp, step, key=key, site=SAMPLE_SITE)),
-           time_ms(lambda: k9.sample_step_plain(logits, prev, u, seq, lp, step, key=key, site=SAMPLE_SITE), iters=5),
-           time_ms(library), n * vocab * 4 + n * (4 + 1 + 4 + 4 + 4 + 1), flops((torch.float32, 8 * n * vocab)))
+           *turns_ms(lambda: k9.sample_step(logits, prev, u, seq, lp, step, key=key, site=SAMPLE_SITE),
+                     lambda: k9.sample_step_plain(logits, prev, u, seq, lp, step, key=key, site=SAMPLE_SITE),
+                     library), n * vocab * 4 + n * (4 + 1 + 4 + 4 + 4 + 1), flops((torch.float32, 8 * n * vocab)))
 
     # K10: 64 images x 15 captions of 17 tokens against 5 refs each
     b = 64
@@ -1325,8 +1480,9 @@ def check_scst_kernels(gen, results: dict) -> bool:
     slots = ((k10.mix(ghi, glo) & (table.size - 1))[..., None] + torch.arange(table.probe, device=dev)) % table.size
     used = torch.unique(img.long())
     pack_bytes = sum(v[used].numel() * v.element_size() for v in pack.values())
-    record("cider_reward", err.max().item(), time_ms(lambda: k10.cider_reward(ids, img, tensors, pack, **kw)),
-           time_ms(lambda: k10.cider_reward_plain(ids, img, tensors, pack, **kw), iters=5), None,
+    record("cider_reward", err.max().item(), *turns_ms(lambda: k10.cider_reward(ids, img, tensors, pack, **kw),
+                                                       lambda: k10.cider_reward_plain(ids, img, tensors, pack, **kw)),
+           None,
            ids.numel() * 4 + img.numel() * 4 + pack_bytes + torch.unique(slots).numel() * 12 + ids.shape[0] * 4, {})
     return ok
 
@@ -1599,7 +1755,7 @@ def check_updown_kernels(gen, dtype, results: dict) -> bool:
     def record(name, err, ms, plain_ms, lib_ms, nbytes, ops, xe_ms):
         bnd, by = bound_ms(nbytes, ops)
         log(f"[kernel] {name} {dname}: ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms="
-            f"{'null' if lib_ms is None else f'{lib_ms:.4f}'} bound_ms={bnd:.4f} ({by}) xe_ms={xe_ms:.4f}")
+            f"{'null' if lib_ms is None else f'{lib_ms:.4f}'} bound_ms={bnd:.4f} ({by}) xe_ms={xe_ms:.4f} (held windows in turns)")
         if dtype == torch.bfloat16:
             results[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bnd,
                                  bound_by=by, xe_ms=xe_ms)
@@ -1618,15 +1774,17 @@ def check_updown_kernels(gen, dtype, results: dict) -> bool:
         _, pg = fwd_bwd(k11.lstm_cell_plain, tg, cot)
         for nm, kt, pt in zip(("d gx", "d gh", "d c"), kg, pg):
             compare(f"lstm_cell_bwd {nm}", kt, pt)
+    fns = [lambda: k11.lstm_cell(gx, gh, c), lambda: k11.lstm_cell_plain(gx, gh, c)]
     try:
-        lib_ms = time_ms(lambda: torch.ops.aten._thnn_fused_lstm_cell(gx, gh, c))
+        torch.ops.aten._thnn_fused_lstm_cell(gx, gh, c)
+        fns.append(lambda: torch.ops.aten._thnn_fused_lstm_cell(gx, gh, c))
     except RuntimeError as exc:  # a dtype the library kernel does not take
         log(f"[kernel] lstm_cell {dname}: aten._thnn_fused_lstm_cell refused: {str(exc).splitlines()[0]}")
-        lib_ms = None
-    record("lstm_cell", err, time_ms(lambda: k11.lstm_cell(gx, gh, c)),
-           time_ms(lambda: k11.lstm_cell_plain(gx, gh, c), iters=5), lib_ms,
-           n_s * (2 * 4 * h + h + 2 * h) * es, {},
-           time_ms(lambda: fwd_bwd(k11.lstm_cell, tg, cot), iters=10))
+    ms, plain_ms, *lib = turns_ms(*fns)
+    xe_ms, xe_plain_ms = turns_ms(lambda: fwd_bwd(k11.lstm_cell, tg, cot), lambda: fwd_bwd(k11.lstm_cell_plain, tg, cot))
+    record("lstm_cell", err, ms, plain_ms, lib[0] if lib else None, k11_bytes(n_s, h, dtype), {}, xe_ms)
+    log(f"[kernel] lstm_cell {dname} fwd+bwd at {n_t}x{h}: plain_ms={xe_plain_ms:.4f} "
+        f"bound_ms={bound_ms(k11_bytes(n_t, h, dtype, backward=True), {})[0]:.4f}")
     del gx, gh, c, hk, ck, hp, cp, tg, cot
 
     # K12: p_att (B, R, A), att (B, R, D), the rows' att_h (N, A); scores O(1)
@@ -1675,11 +1833,14 @@ def check_updown_kernels(gen, dtype, results: dict) -> bool:
                                   (0.0, 0.0, dw_scale, dw_scale, 0.0)):
             compare(f"additive_attention_bwd {nm} {b_c}x{UPDOWN_SCST_SAMPLES}", kt, pt, sum_scale=sc)
         del si, sin, scot, so_k, sg_k, so_p, sg_p
-    record("additive_attention", err, time_ms(lambda: k12.additive_attention(p_att, att_h, w, bias, mask, att)),
-           time_ms(lambda: k12.additive_attention_plain(p_att, att_h, w, bias, mask, att), iters=5), None,
+    ms, plain_ms = turns_ms(lambda: k12.additive_attention(p_att, att_h, w, bias, mask, att),
+                            lambda: k12.additive_attention_plain(p_att, att_h, w, bias, mask, att))
+    xe_ms, xe_plain_ms = turns_ms(lambda: fwd_bwd(run12(k12.additive_attention), tin, cot),
+                                  lambda: fwd_bwd(run12(k12.additive_attention_plain), tin, cot))
+    log(f"[kernel] additive_attention {dname} fwd+bwd at {n_t} rows: plain_ms={xe_plain_ms:.4f}")
+    record("additive_attention", err, ms, plain_ms, None,
            (b_s * r * (a + d) + n_s * (a + d) + a + 1) * es + b_s * r,
-           flops((torch.float32, n_s * r * (4 * a + 2 * d))),
-           time_ms(lambda: fwd_bwd(run12(k12.additive_attention), tin, cot), iters=10))
+           flops((torch.float32, n_s * r * (4 * a + 2 * d))), xe_ms)
     del p_att, att_h, att, out_k, out_p, ti, tin, cot
 
     # K13: the XE step's logits (256 x 5 x 17 rows x 10000) with an offset of

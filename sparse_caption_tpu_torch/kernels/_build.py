@@ -129,6 +129,8 @@ class CudaKernel:
         self.launches += 1
 
 
+BLOCK_SMEM_LIMIT = 232448  # dynamic shared memory a block may use on the H100 (csrc/common.cuh)
+
 P = ctypes.c_void_p
 I = ctypes.c_int  # noqa: E741
 U32 = ctypes.c_uint32
@@ -150,3 +152,9 @@ def stream_handle(t) -> int:
 
 def ptr(t) -> Optional[int]:
     return None if t is None else t.data_ptr()
+
+
+def aligned16(t):
+    """t itself if its data is 16-byte aligned (what the kernels' 16-byte copies
+    need), else a fresh copy."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()

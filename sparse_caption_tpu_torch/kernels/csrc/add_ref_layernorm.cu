@@ -453,13 +453,6 @@ add_norm_colsum_kernel(const float* __restrict__ partial, int nblocks, int d, T*
 }
 
 // ------------------------------------------------------------ launch
-int sm_count() {
-  int dev = 0, n = 0;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
-  return n < 1 ? 1 : n;
-}
-
 // blocks that fill every SM (at most one per 8 rows), from the occupancy calculator
 template <typename K>
 int fill_blocks(K kernel, size_t smem, int rows) {

@@ -14,6 +14,15 @@ namespace sct {
 
 constexpr int kHeadDim = 64;
 constexpr float kNegInf = -1e9f;  // the masked-score fill (layers.py NEG_INF)
+constexpr int kBlockSmemLimit = 232448;  // dynamic shared memory a block may use on the H100
+
+// the card's SMs (a persistent grid's size)
+inline int sm_count() {
+  int dev = 0, n = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
+  return n < 1 ? 1 : n;
+}
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }

@@ -6,162 +6,677 @@
 // kernel there).
 //
 // With K14's scores s, probabilities P (recomputed, see Design), the dropout
-// Pd = P * keep / keep_prob and the output gradient dO of query row n = b *
-// group + m:
-//   dPd = dO . V^T;   dP = dPd * keep / keep_prob;   D_i = sum_j P_ij dP_ij
-//   dS  = P (dP - D), 0 where the key was masked (the -1e9 fill cuts it off)
-//   dQ  = scale dS K;   dK[b] = scale sum over the group's rows of dS^T Q;
-//   dV[b] = sum over the group's rows of Pd^T dO
-// rounded to T where the plain version's autograd rounds (dPd, dP, dS and its
-// scaling, each product's result). D is the row sum of P dP, as PyTorch's
-// softmax backward takes it (equal to dO . O in exact arithmetic, without
-// reading O). A row with no valid key has dS = 0: its dQ is 0 and it adds
-// nothing to dK, only its uniform P to dV.
+// P~ = P * keep / keep_prob and the output gradient dO of query row n = b *
+// group + m, and round() the rounding to the compute dtype T where the plain
+// version's autograd on the card rounds (a no-op in f32):
+//   dPd = round(dO V^T);  dP = round(dPd * keep / keep_prob)
+//   g = round(dP P);  D_i = sum_j g_ij;  dS = round(g - P D)   (PyTorch's CUDA softmax
+//   backward: the product rounded to T first, then f32), 0 where the key was
+//   masked (the -1e9 fill cuts it off)
+//   dQ = round(round(dS scale) K)
+//   dK[b] = round(sum over the group's members m, in order, of round(round(dS_m scale)^T Q_m))
+//   dV[b] = round(sum over the group's members m, in order, of round(P~_m^T dO_m))
+// The plain version repeats K and V to the query rows, so autograd rounds
+// each member's product and sums the copies in f32. A row with no valid key
+// has dS = 0: its dQ is 0 and it adds nothing to dK, only its uniform P to dV.
 //
 // Bound on the H100 (the ORT XE step at 256 x 5 captions, bf16): bytes. It
 // reads q, k, v, dO and the keep-mask and writes dq, dk, dv: 159 MB for the
 // self-attention call (17 keys), 0.047 ms at 3.35 TB/s, and 111 MB for the
 // cross-attention call (36 regions, one K/V row per image), 0.033 ms. The
-// five 17 x Tk x 64 products per (row, head) are 1.9 and 4.0 GFLOP.
+// five 17 x Tk x 64 products per (row, head) are 1.9 and 4.0 GFLOP, little
+// on the tensor cores.
 //
-// Design: one block per (key row, head), as K14: K and V are staged once, and
-// the block walks its group's query rows in order (one caption, or the 5
-// captions / 15 samples of an image), staging each row's Q and dO. One warp
-// per query position recomputes the row's scores and softmax exactly as K14
-// does (no saved log-sum-exp: for a row whose keys are all masked, -1e9 +
-// log(Tk) rounds to -1e9 in f32 and exp(s - lse) would give P = 1, not
-// 1 / Tk), then dP, D, dS into shared memory and the row's dQ. Then each
-// thread owns fixed (key, column) elements of dK and dV and adds this
-// member's dS^T Q and Pd^T dO to them in shared memory, so the group's sum
-// runs in a fixed order with no float atomics and is written once, rounded.
+// Design: in bf16 (tensor cores, mma.sync.m16n8k16 with f32 accumulators),
+// a persistent grid of blocks, one team of warps a block, walks the (K/V row,
+// head) units. A unit's K, V and the q and dO rows of its whole group (one
+// caption, or an image's 5 captions stacked as 85 rows) are copied by 16-byte
+// cp.async into bf16 rows of 144 bytes (ldmatrix rows in distinct banks),
+// two stages deep: the next unit lands while this one computes. Query side,
+// one 16-row tile of the stacked rows per warp: S = Q K^T and dPd = dO V^T on
+// the tensor cores, the softmax recomputed on the accumulators exactly as K14
+// computes it (no saved log-sum-exp: for a row whose keys are all masked,
+// -1e9 + log(Tk) rounds to -1e9 in f32 and exp(s - lse) would give P = 1,
+// not 1 / Tk), dS in registers, dQ = dS K with dS's accumulators as the A
+// operand; dS and P~ go to shared memory in bf16, each member's rows in a
+// block of 16-aligned rows of its own. Key side, one (16 keys, dK or dV) tile per
+// warp: each member's dS_m^T Q_m (or P~_m^T dO_m) contracts over that
+// member's rows alone, is rounded to bf16 and added in member order to f32
+// sums kept in registers, so the group's sum needs no float atomics and no
+// walk over members with a barrier each. Padding rows and keys read one
+// shared zero row.
+// In f32 (the SCST replay; no TF32): CUDA cores, one block per (K/V
+// row, head), K and V staged once in f32 rows of 68 floats (16-byte loads,
+// 8 lanes in distinct banks); the group's query rows in chunks of whole
+// members (at most 64 rows). Each warp takes 4 query rows at a time (one
+// when the chunk has fewer than 32 rows, so that all 8 warps share them), so
+// every 16-byte load of a key or value row feeds 16 FMAs; then each thread
+// owns 2 keys x 4 columns of dK and dV across the chunks and reads q, dO, dS
+// and P~ by 8- and 16-byte loads.
 #include "decoder_attention.cuh"
+#include "mma.cuh"
+#include "vec.cuh"
 
 namespace sct {
 
-template <typename T>
-__global__ void __launch_bounds__(kDecThreads)
-decoder_attention_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                             const T* __restrict__ dout, const unsigned char* __restrict__ key_valid,
-                             const unsigned char* __restrict__ keep, float keep_prob, T* __restrict__ dq,
-                             T* __restrict__ dk, T* __restrict__ dv, int H, int Tq, int Tk, int group, int causal,
-                             float scale) {
-  extern __shared__ float smem[];
-  const int warp = threadIdx.x / 32, lane = threadIdx.x & 31;
-  float* k_s = smem;                    // Tk * kDecStride
-  float* v_s = k_s + Tk * kDecStride;   // Tk * kDecStride
-  float* q_s = v_s + Tk * kDecStride;   // Tq * kDecStride
-  float* do_s = q_s + Tq * kDecStride;  // Tq * kDecStride
-  float* ds_s = do_s + Tq * kDecStride; // Tq * Tk: scale * dS, masked keys 0
-  float* pd_s = ds_s + Tq * Tk;         // Tq * Tk: Pd
-  float* dk_s = pd_s + Tq * Tk;         // Tk * kHeadDim
-  float* dv_s = dk_s + Tk * kHeadDim;   // Tk * kHeadDim
-  unsigned char* valid_s = reinterpret_cast<unsigned char*>(dv_s + Tk * kHeadDim);  // Tk
+using bf16 = __nv_bfloat16;
 
-  const int b = blockIdx.x / H, h = blockIdx.x - (blockIdx.x / H) * H;
-  const size_t kv_base = ((size_t)b * H + h) * Tk * kHeadDim;
-  load_tile(k_s, k + kv_base, Tk, kDecStride);
-  load_tile(v_s, v + kv_base, Tk, kDecStride);
-  dec_load_valid(valid_s, key_valid, b, Tk);
+// ------------------------------------------------------------ bf16: tensor cores
+constexpr int kLd = kHeadDim + 8;  // staged row pitch in bf16 (144 B)
+constexpr int kMaxTeam = 8;        // warps of a block
 
-  for (int m = 0; m < group; ++m) {
-    const size_t row0 = ((size_t)(b * group + m) * H + h) * Tq;  // (n, h, 0)
-    __syncthreads();  // the previous member's tiles are no longer read
-    load_tile(q_s, q + row0 * kHeadDim, Tq, kDecStride);
-    load_tile(do_s, dout + row0 * kHeadDim, Tq, kDecStride);
-    __syncthreads();
-    for (int i = warp; i < Tq; i += kDecWarps) {
-      const size_t row = row0 + i;
-      const float* qr = q_s + i * kDecStride;
-      const float* dr = do_s + i * kDecStride;
-      float s[2], p[2], dp[2];
-      bool ok[2];
+// the unit's stage: K (Tk rows), V (Tk), Q (group * Tq), dO (group * Tq)
+__host__ __device__ inline int stage_elems(int Tq, int Tk, int group) { return (2 * Tk + 2 * group * Tq) * kLd; }
+__host__ __device__ inline int member_cols(int Tq) { return 16 * ((Tq + 15) / 16); }
+__host__ __device__ inline int ds_ld(int Tk) { return 16 * ((Tk + 15) / 16) + 8; }  // keys padded to 16, + 8
+
+// stages | a zero row | dS and P~ (group x member_cols rows of ds_ld each)
+inline size_t mma_smem_bytes(int Tq, int Tk, int group, int stages) {
+  return ((size_t)stages * stage_elems(Tq, Tk, group) + kLd + 2 * (size_t)group * member_cols(Tq) * ds_ld(Tk)) *
+         sizeof(bf16);
+}
+
+__device__ __forceinline__ bool key_attended(uint32_t vbits, int c, int j, int i, int causal) {
+  return ((vbits >> c) & 1u) != 0 && (!causal || j <= i);
+}
+
+// Query side of one 16-row tile mt of the unit's stacked rows (row sr is
+// member sr / Tq, position sr % Tq): dS and P~ into dS_s / P_s (row
+// member * qp + position, keys along the row), dQ to global.
+template <int KT>
+__device__ __forceinline__ void query_tile_mma(const bf16* ks, const bf16* vs, const bf16* qs, const bf16* dos,
+                                               const bf16* zero, bf16* ds_s, bf16* p_s, int qp,
+                                               const unsigned char* __restrict__ valid_b,
+                                               const unsigned char* __restrict__ keep, float keep_prob,
+                                               bf16* __restrict__ dq, int b, int h, int H, int Tq, int Tk, int group,
+                                               int causal, float scale, int mt) {
+  constexpr int NS = 2 * KT;
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int rows = group * Tq;
+  bool live[2];
+  int mem[2], pos[2];
+  size_t grow[2];  // (n, h, i) row index of q / dO / dq
+  const bf16* qr[2];
+  const bf16* dr[2];
 #pragma unroll
-      for (int c = 0; c < 2; ++c) {
-        const int j = lane + 32 * c;
-        ok[c] = j < Tk && dec_key_ok(valid_s, i, j, causal);
-        s[c] = j < Tk ? dec_score<T>(qr, k_s + j * kDecStride, scale, ok[c]) : -INFINITY;
+  for (int r = 0; r < 2; ++r) {
+    const int sr = 16 * mt + g + 8 * r;
+    live[r] = sr < rows;
+    mem[r] = live[r] ? sr / Tq : 0;
+    pos[r] = live[r] ? sr - mem[r] * Tq : 0;
+    grow[r] = (((size_t)b * group + mem[r]) * H + h) * Tq + pos[r];
+    qr[r] = live[r] ? qs + sr * kLd : zero;
+    dr[r] = live[r] ? dos + sr * kLd : zero;
+  }
+  // rows g + 8 of the tile hold a live row (warp-uniform); else their elementwise work is skipped
+  const bool half1 = 16 * mt + 8 < rows;
+  // the flags this lane needs, read before the products: key validity of its
+  // keys (bit 2 nt + c for key 8 nt + 2 t + c), the keep-mask of its elements
+  // (bit 4 nt + e)
+  uint32_t vbits = 0, kbits = 0xffffffffu;
+#pragma unroll
+  for (int nt = 0; nt < NS; ++nt) {
+#pragma unroll
+    for (int c = 0; c < 2; ++c) {
+      const int j = 8 * nt + 2 * t + c;
+      if (j < Tk && (valid_b == nullptr || valid_b[j] != 0)) vbits |= 1u << (2 * nt + c);
+    }
+  }
+  if (keep != nullptr) {
+    kbits = 0;
+#pragma unroll
+    for (int nt = 0; nt < NS; ++nt) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int j = 8 * nt + 2 * t + (e & 1), r = e >> 1;
+        if (live[r] && j < Tk && keep[grow[r] * Tk + j] != 0) kbits |= 1u << (4 * nt + e);
       }
-      dec_softmax<T>(s, Tk, p);
+    }
+  }
+  const int nsv = (Tk + 7) / 8;  // key n-tiles that hold keys; the rest of S stays 0 and P 0
+  float sacc[NS][4], dacc[NS][4];
+#pragma unroll
+  for (int nt = 0; nt < NS; ++nt) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) sacc[nt][e] = dacc[nt][e] = 0.f;
+  }
+#pragma unroll
+  for (int kd = 0; kd < kHeadDim / 16; ++kd) {
+    const int col = 16 * kd + 2 * t;
+    const uint32_t aq[4] = {lds_u32(qr[0] + col), lds_u32(qr[1] + col), lds_u32(qr[0] + col + 8),
+                            lds_u32(qr[1] + col + 8)};
+    const uint32_t ad[4] = {lds_u32(dr[0] + col), lds_u32(dr[1] + col), lds_u32(dr[0] + col + 8),
+                            lds_u32(dr[1] + col + 8)};
+#pragma unroll
+    for (int nt = 0; nt < NS; ++nt) {
+      if (nt < nsv) {
+        const int j = 8 * nt + g;
+        const bf16* kr = (j < Tk ? ks + j * kLd : zero) + col;
+        const bf16* vr = (j < Tk ? vs + j * kLd : zero) + col;
+        const uint32_t bk[2] = {lds_u32(kr), lds_u32(kr + 8)};
+        const uint32_t bv[2] = {lds_u32(vr), lds_u32(vr + 8)};
+        mma_bf16(sacc[nt], aq, bk);
+        mma_bf16(dacc[nt], ad, bv);
+      }
+    }
+  }
+  // K14's scores and softmax: the product and its scaling rounded to bf16,
+  // -1e9 (in bf16) where the key may not be attended, p = round(e / sum)
+  const float fill = round_to<bf16>(kNegInf);
+  float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+  for (int nt = 0; nt < NS; ++nt) {
+    if (nt >= nsv) continue;  // no key there: S, P and dS stay 0
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int c = e & 1, j = 8 * nt + 2 * t + c, r = e >> 1;
+      if (r == 1 && !half1) continue;
+      float s = -INFINITY;
+      if (j < Tk) {
+        s = key_attended(vbits, 2 * nt + c, j, pos[r], causal) ? round_to<bf16>(round_to<bf16>(sacc[nt][e]) * scale)
+                                                                : fill;
+      }
+      sacc[nt][e] = s;
+      mx[r] = fmaxf(mx[r], s);
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+  }
+  float sum[2] = {0.f, 0.f};
+#pragma unroll
+  for (int nt = 0; nt < NS; ++nt) {
+    if (nt >= nsv) continue;
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      if ((e >> 1) == 1 && !half1) continue;
+      const float x = sacc[nt][e] == -INFINITY ? 0.f : expf(sacc[nt][e] - mx[e >> 1]);
+      sacc[nt][e] = x;
+      sum[e >> 1] += x;
+    }
+  }
+  float inv[2];  // p = e / sum and x / keep_prob by one reciprocal each (div_by: the IEEE quotient)
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], 1);
+    sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], 2);
+    inv[r] = 1.f / sum[r];
+  }
+  const float inv_kp = 1.f / keep_prob;
+  const int ldk = 16 * KT + 8;
+  int srow[2];  // the rows' shared-memory row in dS_s / P_s
+#pragma unroll
+  for (int r = 0; r < 2; ++r) srow[r] = (mem[r] * qp + pos[r]) * ldk + 2 * t;
+  // p; P~ into P_s; g = round(dP p) (in dacc); D = the row sum of g
+  float dsum[2] = {0.f, 0.f};
+#pragma unroll
+  for (int nt = 0; nt < NS; ++nt) {
+    if (nt >= nsv) continue;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      if (r == 1 && !half1) continue;
+      float pk2[2];
 #pragma unroll
       for (int c = 0; c < 2; ++c) {
-        const int j = lane + 32 * c;
-        dp[c] = 0.f;
-        if (j < Tk) {
-          const float* vr = v_s + j * kDecStride;
-          float acc = 0.f;
-#pragma unroll 16
-          for (int d = 0; d < kHeadDim; ++d) acc = fmaf(dr[d], vr[d], acc);
-          float dpj = round_to<T>(acc), pd = p[c];
-          if (keep != nullptr) {
-            const bool kept = keep[row * Tk + j] != 0;
-            dpj = kept ? round_to<T>(dpj / keep_prob) : 0.f;
-            pd = kept ? round_to<T>(pd / keep_prob) : 0.f;
+        const int e = 2 * r + c, j = 8 * nt + 2 * t + c;
+        const bool real = live[r] && j < Tk;
+        const float p = real ? round_to<bf16>(div_by(sacc[nt][e], sum[r], inv[r])) : 0.f;
+        const bool kept = real && ((kbits >> (4 * nt + e)) & 1u) != 0;
+        const float dp = round_to<bf16>(dacc[nt][e]);
+        const float dpk = !kept ? 0.f : keep == nullptr ? dp : round_to<bf16>(div_by(dp, keep_prob, inv_kp));
+        const float pk = !kept ? 0.f : keep == nullptr ? p : round_to<bf16>(div_by(p, keep_prob, inv_kp));
+        pk2[c] = pk;
+        const float gp = round_to<bf16>(dpk * p);
+        sacc[nt][e] = p;
+        dacc[nt][e] = gp;
+        dsum[r] += gp;
+      }
+      if (live[r]) *reinterpret_cast<uint32_t*>(p_s + srow[r] + 8 * nt) = pack_bf16(pk2[0], pk2[1]);
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    dsum[r] += __shfl_xor_sync(0xffffffffu, dsum[r], 1);
+    dsum[r] += __shfl_xor_sync(0xffffffffu, dsum[r], 2);
+  }
+  // dS = round(g - p D); dS * scale with masked keys zeroed into dS_s and sacc (dQ's A operand)
+#pragma unroll
+  for (int nt = 0; nt < NS; ++nt) {
+    if (nt >= nsv) continue;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      if (r == 1 && !half1) continue;
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const int e = 2 * r + c, j = 8 * nt + 2 * t + c;
+        const bool real = live[r] && j < Tk;
+        const float ds = real ? round_to<bf16>(fmaf(-sacc[nt][e], dsum[r], dacc[nt][e])) : 0.f;
+        sacc[nt][e] =
+            real && key_attended(vbits, 2 * nt + c, j, pos[r], causal) ? round_to<bf16>(ds * scale) : 0.f;
+      }
+      if (live[r]) {
+        *reinterpret_cast<uint32_t*>(ds_s + srow[r] + 8 * nt) = pack_bf16(sacc[nt][2 * r], sacc[nt][2 * r + 1]);
+      }
+    }
+  }
+  // dQ = dS K: dS's accumulators as A, K's B fragments by ldmatrix.trans
+  float qacc[8][4];
+#pragma unroll
+  for (int nt = 0; nt < 8; ++nt) qacc[nt][0] = qacc[nt][1] = qacc[nt][2] = qacc[nt][3] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < KT; ++kk) {
+    const uint32_t a[4] = {pack_bf16(sacc[2 * kk][0], sacc[2 * kk][1]), pack_bf16(sacc[2 * kk][2], sacc[2 * kk][3]),
+                           pack_bf16(sacc[2 * kk + 1][0], sacc[2 * kk + 1][1]),
+                           pack_bf16(sacc[2 * kk + 1][2], sacc[2 * kk + 1][3])};
+    const int j = 16 * kk + (lane & 15);
+    const bf16* kr = (j < Tk ? ks + j * kLd : zero) + (lane >> 4) * 8;
+#pragma unroll
+    for (int jn = 0; jn < 4; ++jn) {
+      uint32_t rr[4];
+      ldmatrix_x4_trans(rr, kr + 16 * jn);
+      const uint32_t b0[2] = {rr[0], rr[1]}, b1[2] = {rr[2], rr[3]};
+      mma_bf16(qacc[2 * jn], a, b0);
+      mma_bf16(qacc[2 * jn + 1], a, b1);
+    }
+  }
+#pragma unroll
+  for (int nt = 0; nt < 8; ++nt) {
+    const int col = 8 * nt + 2 * t;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      if (live[r]) {
+        *reinterpret_cast<uint32_t*>(dq + grow[r] * kHeadDim + col) = pack_bf16(qacc[nt][2 * r], qacc[nt][2 * r + 1]);
+      }
+    }
+  }
+}
+
+// Key side of key tile km: dK (A = dS^T, B = Q) or dV (A = P~^T, B = dO) of
+// the unit, each member's product over its own rows rounded to bf16 and
+// added in member order to f32 sums, written once, rounded. A's fragments
+// come from dS_s / P_s (query rows by keys) by ldmatrix.trans.
+__device__ __forceinline__ void key_tile_mma(const bf16* as, const bf16* bs, const bf16* zero, int ldk, int qp,
+                                             bf16* __restrict__ dst, int Tq, int Tk, int group, int km) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int keys[2] = {16 * km + g, 16 * km + g + 8};
+  float tot[8][4];
+#pragma unroll
+  for (int nt = 0; nt < 8; ++nt) tot[nt][0] = tot[nt][1] = tot[nt][2] = tot[nt][3] = 0.f;
+  for (int m = 0; m < group; ++m) {
+    float acc[8][4];
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt) acc[nt][0] = acc[nt][1] = acc[nt][2] = acc[nt][3] = 0.f;
+    for (int kk = 0; kk < qp / 16; ++kk) {
+      // matrix l / 8 of A: query rows + 8 (l / 16), keys + 8 (l / 8 % 2)
+      uint32_t a[4];
+      ldmatrix_x4_trans(a, as + (m * qp + 16 * kk + (lane & 7) + 8 * ((lane >> 4) & 1)) * ldk + 16 * km +
+                               8 * ((lane >> 3) & 1));
+      const int i = 16 * kk + (lane & 15);
+      const bf16* br = (i < Tq ? bs + (m * Tq + i) * kLd : zero) + (lane >> 4) * 8;
+#pragma unroll
+      for (int jn = 0; jn < 4; ++jn) {
+        uint32_t rr[4];
+        ldmatrix_x4_trans(rr, br + 16 * jn);
+        const uint32_t b0[2] = {rr[0], rr[1]}, b1[2] = {rr[2], rr[3]};
+        mma_bf16(acc[2 * jn], a, b0);
+        mma_bf16(acc[2 * jn + 1], a, b1);
+      }
+    }
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) tot[nt][e] += round_to<bf16>(acc[nt][e]);
+    }
+  }
+#pragma unroll
+  for (int nt = 0; nt < 8; ++nt) {
+    const int col = 8 * nt + 2 * t;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      if (keys[r] < Tk) {
+        *reinterpret_cast<uint32_t*>(dst + keys[r] * kHeadDim + col) = pack_bf16(tot[nt][2 * r], tot[nt][2 * r + 1]);
+      }
+    }
+  }
+}
+
+template <int KT>
+__global__ void __launch_bounds__(32 * kMaxTeam)
+decoder_attention_bwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
+                                 const bf16* __restrict__ dout, const unsigned char* __restrict__ key_valid,
+                                 const unsigned char* __restrict__ keep, float keep_prob, bf16* __restrict__ dq,
+                                 bf16* __restrict__ dk, bf16* __restrict__ dv, int units, int H, int Tq, int Tk,
+                                 int group, int causal, float scale, int stages) {
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  bf16* smem = reinterpret_cast<bf16*>(smem_raw);
+  const int rows = group * Tq, se = stage_elems(Tq, Tk, group), qp = member_cols(Tq), ldk = ds_ld(Tk);
+  bf16* zero = smem + stages * se;
+  bf16* ds_s = zero + kLd;
+  bf16* p_s = ds_s + group * qp * ldk;
+  const int team = blockDim.x / 32, warp = threadIdx.x / 32;
+  // the zero row, and dS_s / P_s whose padding rows and keys are never written
+  for (int e = threadIdx.x; e < kLd + 2 * group * qp * ldk; e += blockDim.x) zero[e] = __float2bfloat16_rn(0.f);
+
+  auto issue = [&](int u, int s) {  // unit u's rows into stage s, 16 bytes a copy
+    const int b = u / H, h = u - (u / H) * H;
+    bf16* st = smem + s * se;
+    const int chunks = (2 * Tk + 2 * rows) * 8;
+    for (int c = threadIdx.x; c < chunks; c += blockDim.x) {
+      const int r = c >> 3, part = (c & 7) * 8;
+      const bf16* src;
+      if (r < 2 * Tk) {
+        src = (r < Tk ? k : v) + (((size_t)b * H + h) * Tk + (r < Tk ? r : r - Tk)) * kHeadDim;
+      } else {
+        const int sr = r - 2 * Tk, qr = sr < rows ? sr : sr - rows;
+        const int m = qr / Tq, i = qr - (qr / Tq) * Tq;
+        src = (sr < rows ? q : dout) + ((((size_t)b * group + m) * H + h) * Tq + i) * kHeadDim;
+      }
+      cp_async<16>(st + r * kLd + part, src + part);
+    }
+  };
+
+  if (stages == 2 && (int)blockIdx.x < units) issue(blockIdx.x, 0);
+  cp_async_commit();
+  int it = 0;
+  for (int u = blockIdx.x; u < units; u += gridDim.x, ++it) {
+    int s = 0;
+    if (stages == 2) {
+      s = it & 1;
+      if (u + (int)gridDim.x < units) issue(u + gridDim.x, s ^ 1);  // stage s ^ 1 was freed by the last barrier
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      issue(u, 0);
+      cp_async_commit();
+      cp_async_wait<0>();
+    }
+    __syncthreads();  // every thread's copies of this unit have landed
+    const int b = u / H, h = u - (u / H) * H;
+    const bf16* ks = smem + s * se;
+    const bf16* vs = ks + Tk * kLd;
+    const bf16* qs = vs + Tk * kLd;
+    const bf16* dos = qs + rows * kLd;
+    for (int mt = warp; 16 * mt < rows; mt += team) {
+      query_tile_mma<KT>(ks, vs, qs, dos, zero, ds_s, p_s, qp,
+                         key_valid == nullptr ? nullptr : key_valid + (size_t)b * Tk, keep, keep_prob, dq, b, h, H, Tq,
+                         Tk, group, causal, scale, mt);
+    }
+    __syncthreads();  // dS_s and P_s complete
+    const size_t kv0 = ((size_t)b * H + h) * Tk * kHeadDim;
+    for (int item = warp; item < 2 * KT; item += team) {
+      const bool is_v = item >= KT;
+      key_tile_mma(is_v ? p_s : ds_s, is_v ? dos : qs, zero, ldk, qp, (is_v ? dv : dk) + kv0, Tq, Tk, group,
+                   is_v ? item - KT : item);
+    }
+    __syncthreads();  // the stage and dS_s / P_s may be overwritten
+  }
+  cp_async_wait<0>();
+}
+
+// the stages that fit (2, else 1; 0: none)
+inline int mma_stages(int Tq, int Tk, int group) {
+  if (mma_smem_bytes(Tq, Tk, group, 2) <= (size_t)kBlockSmemLimit) return 2;
+  return mma_smem_bytes(Tq, Tk, group, 1) <= (size_t)kBlockSmemLimit ? 1 : 0;
+}
+
+template <int KT>
+cudaError_t launch_bwd_mma(const void* q, const void* k, const void* v, const void* dout, const void* key_valid,
+                           const void* keep, float keep_prob, void* dq, void* dk, void* dv, int Nk, int H, int Tq,
+                           int Tk, int group, int causal, float scale, cudaStream_t stream) {
+  const int stages = mma_stages(Tq, Tk, group);
+  if (stages == 0) return cudaErrorInvalidValue;
+  const size_t smem = mma_smem_bytes(Tq, Tk, group, stages);
+  auto kernel = decoder_attention_bwd_mma_kernel<KT>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  const int mtiles = (group * Tq + 15) / 16;
+  int team = mtiles > KT ? mtiles : KT;
+  if (team > kMaxTeam) team = kMaxTeam;
+  int per_sm = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, 32 * team, smem);
+  if (err != cudaSuccess) return err;
+  if (per_sm < 1) return cudaErrorInvalidValue;
+  const int units = Nk * H;
+  const int cap = sm_count() * per_sm;
+  kernel<<<units < cap ? units : cap, 32 * team, smem, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      static_cast<const bf16*>(dout), static_cast<const unsigned char*>(key_valid),
+      static_cast<const unsigned char*>(keep), keep_prob, static_cast<bf16*>(dq), static_cast<bf16*>(dk),
+      static_cast<bf16*>(dv), units, H, Tq, Tk, group, causal, scale, stages);
+  return cudaGetLastError();
+}
+
+// ------------------------------------------------------------ f32: CUDA cores
+constexpr int kF32Threads = 256;
+constexpr int kF32Warps = kF32Threads / 32;
+constexpr int kF32Ld = kHeadDim + 4;  // 68 floats: 16-byte rows; 8 lanes reading 8 rows hit distinct banks
+constexpr int kWideRows = 32;         // chunks of at least this many rows take 4 query rows a warp at a time
+constexpr int kChunkRows = 64;        // query rows staged at a time (whole members)
+constexpr int kOwn = 2;               // (2 keys x 4 columns) items a thread owns, of dK and of dV
+
+__host__ __device__ inline int f32_chunk_members(int Tq, int group) {
+  const int m = kChunkRows / Tq;
+  return m < 1 ? 1 : (m > group ? group : m);
+}
+__host__ __device__ inline int f32_tk_pad(int Tk) { return 4 * ((Tk + 3) / 4); }
+
+// k_s, v_s (Tk rows) | q_s, do_s (chunk rows) | ds_s, pd_s (chunk rows x Tk padded to 4)
+inline size_t f32_smem_bytes(int Tq, int Tk, int group) {
+  const int cr = f32_chunk_members(Tq, group) * Tq;
+  return ((size_t)(2 * Tk + 2 * cr) * kF32Ld + 2 * (size_t)cr * f32_tk_pad(Tk)) * sizeof(float);
+}
+
+__device__ __forceinline__ float4 lds4(const float* p) { return *reinterpret_cast<const float4*>(p); }
+__device__ __forceinline__ float dot4(float4 a, float4 b, float acc) {
+  return fmaf(a.w, b.w, fmaf(a.z, b.z, fmaf(a.y, b.y, fmaf(a.x, b.x, acc))));
+}
+
+// rows of 64 f32 from global into rows of kF32Ld, 16 bytes a copy
+__device__ __forceinline__ void stage_rows_f32(float* dst, const float* __restrict__ src, int rows) {
+  for (int e = threadIdx.x; e < rows * 16; e += blockDim.x) {
+    const int r = e >> 4, c = (e & 15) * 4;
+    *reinterpret_cast<float4*>(dst + r * kF32Ld + c) = *reinterpret_cast<const float4*>(src + r * kHeadDim + c);
+  }
+}
+
+// kRowTile: query rows a warp takes at a time. With one row, at most 64
+// registers, so that 4 blocks share an SM: the self call's many small blocks
+// (one caption each) are bound by how many are in flight.
+template <int kRowTile>
+__global__ void __launch_bounds__(kF32Threads, kRowTile == 1 ? 4 : 2)
+decoder_attention_bwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
+                                 const float* __restrict__ dout, const unsigned char* __restrict__ key_valid,
+                                 const unsigned char* __restrict__ keep, float keep_prob, float* __restrict__ dq,
+                                 float* __restrict__ dk, float* __restrict__ dv, int H, int Tq, int Tk, int group,
+                                 int causal, float scale) {
+  extern __shared__ __align__(16) float fsm[];
+  const int cm = f32_chunk_members(Tq, group), cr_max = cm * Tq, tkp = f32_tk_pad(Tk);
+  float* k_s = fsm;
+  float* v_s = k_s + Tk * kF32Ld;
+  float* q_s = v_s + Tk * kF32Ld;
+  float* do_s = q_s + cr_max * kF32Ld;
+  float* ds_s = do_s + cr_max * kF32Ld;  // scale * dS, masked keys 0; columns past Tk 0
+  float* pd_s = ds_s + cr_max * tkp;     // P~
+  const int warp = threadIdx.x / 32, lane = threadIdx.x & 31;
+  const int b = blockIdx.x / H, h = blockIdx.x - (blockIdx.x / H) * H;
+  const size_t kv0 = ((size_t)b * H + h) * Tk * kHeadDim;
+  stage_rows_f32(k_s, k + kv0, Tk);
+  stage_rows_f32(v_s, v + kv0, Tk);
+  const bool v0 = lane < Tk && (key_valid == nullptr || key_valid[(size_t)b * Tk + lane] != 0);
+  const bool v1 = lane + 32 < Tk && (key_valid == nullptr || key_valid[(size_t)b * Tk + lane + 32] != 0);
+  const int kpairs = (Tk + 1) / 2;
+  float ak[kOwn][2][4], av[kOwn][2][4];
+#pragma unroll
+  for (int o = 0; o < kOwn; ++o) {
+#pragma unroll
+    for (int x = 0; x < 2; ++x) {
+#pragma unroll
+      for (int y = 0; y < 4; ++y) ak[o][x][y] = av[o][x][y] = 0.f;
+    }
+  }
+
+  for (int m0 = 0; m0 < group; m0 += cm) {
+    const int members = group - m0 < cm ? group - m0 : cm, cr = members * Tq;
+    __syncthreads();  // the previous chunk's tiles are no longer read
+    for (int m = 0; m < members; ++m) {
+      const size_t row0 = (((size_t)b * group + m0 + m) * H + h) * Tq;
+      stage_rows_f32(q_s + m * Tq * kF32Ld, q + row0 * kHeadDim, Tq);
+      stage_rows_f32(do_s + m * Tq * kF32Ld, dout + row0 * kHeadDim, Tq);
+    }
+    __syncthreads();
+    // query side: 4 rows at a time per warp; lane owns keys lane and lane + 32
+    for (int r0 = kRowTile * warp; r0 < cr; r0 += kRowTile * kF32Warps) {
+      float s[kRowTile][2], dp[kRowTile][2];
+#pragma unroll
+      for (int rr = 0; rr < kRowTile; ++rr) s[rr][0] = s[rr][1] = dp[rr][0] = dp[rr][1] = 0.f;
+      const int r_last = cr - 1;
+      const float* kr0 = k_s + (lane < Tk ? lane : 0) * kF32Ld;
+      const float* kr1 = k_s + (lane + 32 < Tk ? lane + 32 : 0) * kF32Ld;
+      const float* vr0 = v_s + (lane < Tk ? lane : 0) * kF32Ld;
+      const float* vr1 = v_s + (lane + 32 < Tk ? lane + 32 : 0) * kF32Ld;
+      const bool two = Tk > 32;
+#pragma unroll 4
+      for (int d = 0; d < kHeadDim; d += 4) {
+        const float4 k0 = lds4(kr0 + d), w0 = lds4(vr0 + d);
+        const float4 k1 = two ? lds4(kr1 + d) : k0, w1 = two ? lds4(vr1 + d) : w0;
+#pragma unroll
+        for (int rr = 0; rr < kRowTile; ++rr) {
+          const int row = r0 + rr < cr ? r0 + rr : r_last;
+          const float4 qv = lds4(q_s + row * kF32Ld + d), dv4 = lds4(do_s + row * kF32Ld + d);
+          s[rr][0] = dot4(qv, k0, s[rr][0]);
+          dp[rr][0] = dot4(dv4, w0, dp[rr][0]);
+          if (two) {
+            s[rr][1] = dot4(qv, k1, s[rr][1]);
+            dp[rr][1] = dot4(dv4, w1, dp[rr][1]);
           }
-          dp[c] = dpj;
-          pd_s[i * Tk + j] = pd;
         }
       }
-      const float di = warp_sum(p[0] * dp[0] + p[1] * dp[1]);
 #pragma unroll
-      for (int c = 0; c < 2; ++c) {
-        const int j = lane + 32 * c;
-        if (j < Tk) ds_s[i * Tk + j] = ok[c] ? round_to<T>(round_to<T>(p[c] * (dp[c] - di)) * scale) : 0.f;
+      for (int rr = 0; rr < kRowTile; ++rr) {
+        const int row = r0 + rr;
+        if (row >= cr) break;  // warp-uniform
+        const int m = row / Tq, i = row - (row / Tq) * Tq;
+        const size_t grow = (((size_t)b * group + m0 + m) * H + h) * Tq + i;
+        const bool ok0 = v0 && (!causal || lane <= i), ok1 = v1 && (!causal || lane + 32 <= i);
+        const float s0 = lane < Tk ? (ok0 ? s[rr][0] * scale : kNegInf) : -INFINITY;
+        const float s1 = lane + 32 < Tk ? (ok1 ? s[rr][1] * scale : kNegInf) : -INFINITY;
+        const float sv[2] = {s0, s1};
+        float p[2];
+        dec_softmax<float>(sv, Tk, p);
+        float pk[2], dpk[2];
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const int j = lane + 32 * c;
+          bool kept = j < Tk;
+          if (kept && keep != nullptr) kept = keep[grow * Tk + j] != 0;
+          pk[c] = kept ? (keep != nullptr ? p[c] / keep_prob : p[c]) : 0.f;
+          dpk[c] = kept ? (keep != nullptr ? dp[rr][c] / keep_prob : dp[rr][c]) : 0.f;
+        }
+        const float gp0 = dpk[0] * p[0], gp1 = dpk[1] * p[1];
+        const float di = warp_sum(gp0 + gp1);
+        if (lane < tkp) {
+          ds_s[row * tkp + lane] = ok0 && lane < Tk ? fmaf(-p[0], di, gp0) * scale : 0.f;
+          pd_s[row * tkp + lane] = pk[0];
+        }
+        if (lane + 32 < tkp) {
+          ds_s[row * tkp + lane + 32] = ok1 && lane + 32 < Tk ? fmaf(-p[1], di, gp1) * scale : 0.f;
+          pd_s[row * tkp + lane + 32] = pk[1];
+        }
       }
       __syncwarp();
-      float2 acc = make_float2(0.f, 0.f);
-      for (int j = 0; j < Tk; ++j) {
-        const float dsj = ds_s[i * Tk + j];
-        acc.x = fmaf(dsj, k_s[j * kDecStride + 2 * lane], acc.x);
-        acc.y = fmaf(dsj, k_s[j * kDecStride + 2 * lane + 1], acc.y);
+      // dQ for the 4 rows: lane owns columns 2 lane, 2 lane + 1
+      float2 acc[kRowTile];
+#pragma unroll
+      for (int rr = 0; rr < kRowTile; ++rr) acc[rr] = make_float2(0.f, 0.f);
+      for (int j = 0; j < tkp; j += 4) {
+        float2 kc[4];
+#pragma unroll
+        for (int x = 0; x < 4; ++x) {
+          kc[x] = j + x < Tk ? *reinterpret_cast<const float2*>(k_s + (j + x) * kF32Ld + 2 * lane) : make_float2(0.f, 0.f);
+        }
+#pragma unroll
+        for (int rr = 0; rr < kRowTile; ++rr) {
+          const int row = r0 + rr < cr ? r0 + rr : r_last;
+          const float4 d4 = lds4(ds_s + row * tkp + j);
+          acc[rr].x = fmaf(d4.w, kc[3].x, fmaf(d4.z, kc[2].x, fmaf(d4.y, kc[1].x, fmaf(d4.x, kc[0].x, acc[rr].x))));
+          acc[rr].y = fmaf(d4.w, kc[3].y, fmaf(d4.z, kc[2].y, fmaf(d4.y, kc[1].y, fmaf(d4.x, kc[0].y, acc[rr].y))));
+        }
       }
-      store2(dq + row * kHeadDim + 2 * lane, acc);
+#pragma unroll
+      for (int rr = 0; rr < kRowTile; ++rr) {
+        const int row = r0 + rr;
+        if (row < cr) {
+          const int m = row / Tq, i = row - (row / Tq) * Tq;
+          const size_t grow = (((size_t)b * group + m0 + m) * H + h) * Tq + i;
+          *reinterpret_cast<float2*>(dq + grow * kHeadDim + 2 * lane) = acc[rr];
+        }
+      }
     }
-    __syncthreads();
-    // dK, dV: thread-owned (key, column) elements, members added in order
-    for (int e = threadIdx.x; e < Tk * kHeadDim; e += blockDim.x) {
-      const int j = e / kHeadDim, col = e - (e / kHeadDim) * kHeadDim;
-      float ak = 0.f, av = 0.f;
-      for (int i = 0; i < Tq; ++i) {
-        ak = fmaf(ds_s[i * Tk + j], q_s[i * kDecStride + col], ak);
-        av = fmaf(pd_s[i * Tk + j], do_s[i * kDecStride + col], av);
+    __syncthreads();  // ds_s / pd_s complete
+    // key side: thread-owned (2 keys, 4 columns) items, the chunk's rows added in order
+#pragma unroll
+    for (int o = 0; o < kOwn; ++o) {
+      const int item = threadIdx.x + o * kF32Threads;
+      const int kp = item >> 4, c4 = (item & 15) * 4;
+      if (kp < kpairs) {
+        for (int row = 0; row < cr; ++row) {
+          const float4 qv = lds4(q_s + row * kF32Ld + c4), dv4 = lds4(do_s + row * kF32Ld + c4);
+          const float2 ds2 = *reinterpret_cast<const float2*>(ds_s + row * tkp + 2 * kp);
+          const float2 pd2 = *reinterpret_cast<const float2*>(pd_s + row * tkp + 2 * kp);
+          const float qa[4] = {qv.x, qv.y, qv.z, qv.w}, da[4] = {dv4.x, dv4.y, dv4.z, dv4.w};
+#pragma unroll
+          for (int y = 0; y < 4; ++y) {
+            ak[o][0][y] = fmaf(ds2.x, qa[y], ak[o][0][y]);
+            ak[o][1][y] = fmaf(ds2.y, qa[y], ak[o][1][y]);
+            av[o][0][y] = fmaf(pd2.x, da[y], av[o][0][y]);
+            av[o][1][y] = fmaf(pd2.y, da[y], av[o][1][y]);
+          }
+        }
       }
-      dk_s[e] = m == 0 ? ak : dk_s[e] + ak;
-      dv_s[e] = m == 0 ? av : dv_s[e] + av;
     }
   }
-  // each thread wrote its own elements of dk_s / dv_s: no barrier needed
-  for (int e = threadIdx.x; e < Tk * kHeadDim; e += blockDim.x) {
-    dk[kv_base + e] = from_f<T>(dk_s[e]);
-    dv[kv_base + e] = from_f<T>(dv_s[e]);
+#pragma unroll
+  for (int o = 0; o < kOwn; ++o) {
+    const int item = threadIdx.x + o * kF32Threads;
+    const int kp = item >> 4, c4 = (item & 15) * 4;
+#pragma unroll
+    for (int x = 0; x < 2; ++x) {
+      const int j = 2 * kp + x;
+      if (kp < kpairs && j < Tk) {
+        *reinterpret_cast<float4*>(dk + kv0 + j * kHeadDim + c4) =
+            make_float4(ak[o][x][0], ak[o][x][1], ak[o][x][2], ak[o][x][3]);
+        *reinterpret_cast<float4*>(dv + kv0 + j * kHeadDim + c4) =
+            make_float4(av[o][x][0], av[o][x][1], av[o][x][2], av[o][x][3]);
+      }
+    }
   }
 }
 
-inline size_t bwd_smem_bytes(int Tq, int Tk) {
-  const size_t floats = 2 * (size_t)(Tk + Tq) * kDecStride + 2 * (size_t)Tq * Tk + 2 * (size_t)Tk * kHeadDim;
-  return floats * sizeof(float) + Tk;
-}
-
-template <typename T>
-cudaError_t launch_bwd(const void* q, const void* k, const void* v, const void* dout, const void* key_valid,
-                       const void* keep, float keep_prob, void* dq, void* dk, void* dv, int Nk, int H, int Tq,
-                       int Tk, int group, int causal, float scale, cudaStream_t stream) {
-  const size_t smem = bwd_smem_bytes(Tq, Tk);
-  if (smem > 232448) return cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(decoder_attention_bwd_kernel<T>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+cudaError_t launch_bwd_f32(const void* q, const void* k, const void* v, const void* dout, const void* key_valid,
+                           const void* keep, float keep_prob, void* dq, void* dk, void* dv, int Nk, int H, int Tq,
+                           int Tk, int group, int causal, float scale, cudaStream_t stream) {
+  const size_t smem = f32_smem_bytes(Tq, Tk, group);
+  if (smem > (size_t)kBlockSmemLimit || 16 * ((Tk + 1) / 2) > kOwn * kF32Threads) return cudaErrorInvalidValue;
+  // a chunk of fewer rows (the self call's one caption) spreads them one a warp over all 8 warps
+  auto kernel = f32_chunk_members(Tq, group) * Tq >= kWideRows ? decoder_attention_bwd_f32_kernel<4>
+                                                               : decoder_attention_bwd_f32_kernel<1>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  decoder_attention_bwd_kernel<T><<<Nk * H, kDecThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), static_cast<const T*>(dout),
-      static_cast<const unsigned char*>(key_valid), static_cast<const unsigned char*>(keep), keep_prob,
-      static_cast<T*>(dq), static_cast<T*>(dk), static_cast<T*>(dv), H, Tq, Tk, group, causal, scale);
+  kernel<<<Nk * H, kF32Threads, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<const float*>(dout), static_cast<const unsigned char*>(key_valid),
+      static_cast<const unsigned char*>(keep), keep_prob, static_cast<float*>(dq), static_cast<float*>(dk),
+      static_cast<float*>(dv), H, Tq, Tk, group, causal, scale);
   return cudaGetLastError();
 }
 
 }  // namespace sct
 
 // dtype: 0 = float32, 1 = bfloat16. q, dout, dq (Nk * group, H, Tq, 64); k, v,
-// dk, dv (Nk, H, Tk, 64); key_valid, keep, keep_prob, causal and scale as
-// sct_decoder_attention took them.
+// dk, dv (Nk, H, Tk, 64), every pointer 16-byte aligned; key_valid, keep,
+// keep_prob, causal and scale as sct_decoder_attention took them.
 extern "C" int sct_decoder_attention_bwd(int dtype, const void* q, const void* k, const void* v, const void* dout,
                                          const void* key_valid, const void* keep, float keep_prob, void* dq,
                                          void* dk, void* dv, int Nk, int H, int Tq, int Tk, int group, int causal,
@@ -169,16 +684,31 @@ extern "C" int sct_decoder_attention_bwd(int dtype, const void* q, const void* k
   if (Nk < 1 || H < 1 || Tq < 1 || Tq > sct::kDecMaxLen || Tk < 1 || Tk > sct::kDecMaxLen || group < 1) {
     return (int)cudaErrorInvalidValue;
   }
+  const void* ptrs[] = {q, k, v, dout, dq, dk, dv};
+  for (const void* p : ptrs) {
+    if (!sct::aligned_to(p, 16)) return (int)cudaErrorInvalidValue;
+  }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
-    return (int)sct::launch_bwd<float>(q, k, v, dout, key_valid, keep, keep_prob, dq, dk, dv, Nk, H, Tq, Tk, group,
-                                       causal, scale, s);
+    return (int)sct::launch_bwd_f32(q, k, v, dout, key_valid, keep, keep_prob, dq, dk, dv, Nk, H, Tq, Tk, group,
+                                    causal, scale, s);
   }
   if (dtype == 1) {
-    return (int)sct::launch_bwd<__nv_bfloat16>(q, k, v, dout, key_valid, keep, keep_prob, dq, dk, dv, Nk, H, Tq, Tk,
-                                               group, causal, scale, s);
+#define SCT_BWD(KT) \
+  sct::launch_bwd_mma<KT>(q, k, v, dout, key_valid, keep, keep_prob, dq, dk, dv, Nk, H, Tq, Tk, group, causal, scale, s)
+    if (Tk <= 16) return (int)SCT_BWD(1);
+    if (Tk <= 32) return (int)SCT_BWD(2);
+    if (Tk <= 48) return (int)SCT_BWD(3);
+    return (int)SCT_BWD(4);
+#undef SCT_BWD
   }
   return (int)cudaErrorInvalidValue;
+}
+
+// the bf16 kernel's shared memory for (Tq, Tk, group) at its stage count; 0 if none fits
+extern "C" long long sct_decoder_attention_bwd_smem(int Tq, int Tk, int group) {
+  const int stages = sct::mma_stages(Tq, Tk, group);
+  return stages == 0 ? 0 : (long long)sct::mma_smem_bytes(Tq, Tk, group, stages);
 }
 
 extern "C" const char* sct_error_string(int err) { return cudaGetErrorString(static_cast<cudaError_t>(err)); }

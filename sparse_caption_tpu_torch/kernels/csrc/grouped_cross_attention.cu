@@ -12,21 +12,272 @@
 // K and V are read once per image: 151 MB of bf16 at B = 2048 (0.045 ms at
 // 3.35 TB/s), plus 21 MB of q and out.
 //
-// Design: one block per (image, head). The block stages the image's 36 x 64
-// K and V tiles in shared memory once and its warps serve all `rep` beam rows
-// from there (common.cuh warp_attend_row), so the memory rows are read from
-// device memory once per image and not once per beam.
+// Design: in bf16 (the serving path), a persistent grid of small blocks walks
+// (image, 2 heads) units, several blocks to an SM. A unit's K and V rows
+// (18.4 KB at 36 regions) and its q rows land by 16-byte cp.async copies of
+// every thread into rows of 144 bytes (the tensor-core fragment loads of 8
+// rows hit distinct banks), with the image's region flags (4-byte copies
+// where S is a multiple of 4), two units deep: unit i + 1 loads while unit i
+// computes (one stage when two do not fit). Not 1-D TMA: one copy per
+// 128-byte row (576 an image, a whole image per block of 8 warps) took
+// 0.3974 ms at B = 2048 on an H100, 1.9 times the SIMT kernel this one
+// replaced and 7.7 times the bytes' bound: the copies, not the bytes, set
+// the pace. Each warp takes
+// (head, 16 beam rows) tiles: S = Q K^T on the tensor cores
+// (mma.sync.m16n8k16), the softmax on the accumulators, and P V with P's
+// accumulators as the A operand and V's B fragments by ldmatrix.trans. The
+// scores, their scaling, the probabilities and the output are rounded to
+// bf16 where the plain version rounds them. Beam rows past `rep` and regions
+// past S read zeros.
+// In f32 (the SCST sampling decode): one block per (image, head) stages K and V
+// in f32 shared memory once and its warps serve all `rep` rows
+// (common.cuh warp_attend_row), in f32 throughout.
 #include "common.cuh"
+#include "mma.cuh"
+#include "vec.cuh"
 
 namespace sct {
 
+using bf16 = __nv_bfloat16;
+
+// ------------------------------------------------------------ bf16: tensor cores
+constexpr int kXMaxWarps = 8;
+constexpr int kXHeads = 2;          // heads of an image a unit takes
+constexpr int kXLd = kHeadDim + 8;  // staged row pitch in bf16 (144 B)
+
+// rows of one unit's stage: K and V of its kXHeads heads (kXHeads * S each),
+// its q rows (rep beams x kXHeads heads, beam-major), and a row that holds
+// the image's S <= 64 region flags
+__host__ __device__ inline int cross_stage_rows(int S, int rep) { return (2 * S + rep) * kXHeads + 1; }
+
+// `stages` stages and a zero row
+inline size_t cross_smem_bytes(int S, int rep, int stages) {
+  return (stages * (size_t)cross_stage_rows(S, rep) + 1) * kXLd * sizeof(bf16);
+}
+
+// the stages that fit (2, else 1; 0: none)
+inline int cross_stages(int S, int rep) {
+  if (cross_smem_bytes(S, rep, 2) <= (size_t)kBlockSmemLimit) return 2;
+  return cross_smem_bytes(S, rep, 1) <= (size_t)kBlockSmemLimit ? 1 : 0;
+}
+
+// one (head, 16 query rows) tile of image b: beams mt * 16 + g and + 8, beam
+// r's q at qs + r * qstride rows
+template <int KT>
+__device__ __forceinline__ void cross_tile_bf16(const bf16* qs, int qstride, const bf16* ks, const bf16* vs,
+                                                const bf16* zero, const unsigned char* mask_b,
+                                                bf16* __restrict__ out, int b, int h, int H, int S, int rep, int mt,
+                                                float scale) {
+  constexpr int NS = 2 * KT;
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int rows[2] = {16 * mt + g, 16 * mt + g + 8};
+  const bool half1 = 16 * mt + 8 < rep;  // warp-uniform: rows g + 8 hold a beam
+  uint32_t vbits = 0;  // validity of this lane's regions 8 nt + 2 t + c (bit 2 nt + c)
+#pragma unroll
+  for (int nt = 0; nt < NS; ++nt) {
+#pragma unroll
+    for (int c = 0; c < 2; ++c) {
+      const int j = 8 * nt + 2 * t + c;
+      if (j < S && mask_b[j] != 0) vbits |= 1u << (2 * nt + c);
+    }
+  }
+  const bf16* qr[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) qr[r] = rows[r] < rep ? qs + rows[r] * qstride * kXLd : zero;
+  const int nsv = (S + 7) / 8;
+  float sacc[NS][4];
+#pragma unroll
+  for (int nt = 0; nt < NS; ++nt) sacc[nt][0] = sacc[nt][1] = sacc[nt][2] = sacc[nt][3] = 0.f;
+#pragma unroll
+  for (int kd = 0; kd < 4; ++kd) {
+    const int col = 16 * kd + 2 * t;
+    const uint32_t aq[4] = {lds_u32(qr[0] + col), lds_u32(qr[1] + col), lds_u32(qr[0] + col + 8),
+                            lds_u32(qr[1] + col + 8)};
+#pragma unroll
+    for (int nt = 0; nt < NS; ++nt) {
+      if (nt < nsv) {
+        const int j = 8 * nt + g;
+        const bf16* kr = (j < S ? ks + j * kXLd : zero) + col;
+        const uint32_t bk[2] = {lds_u32(kr), lds_u32(kr + 8)};
+        mma_bf16(sacc[nt], aq, bk);
+      }
+    }
+  }
+  // the plain version: scores rounded, scaled (rounded), -1e9 (bf16) where padded, softmax rounded
+  const float fill = round_to<bf16>(kNegInf);
+  float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+  for (int nt = 0; nt < NS; ++nt) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int c = e & 1, j = 8 * nt + 2 * t + c;
+      if ((e >> 1) == 1 && !half1) continue;
+      float s = -INFINITY;
+      if (j < S) s = ((vbits >> (2 * nt + c)) & 1u) ? round_to<bf16>(round_to<bf16>(sacc[nt][e]) * scale) : fill;
+      sacc[nt][e] = s;
+      mx[e >> 1] = fmaxf(mx[e >> 1], s);
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+  }
+  float sum[2] = {0.f, 0.f};
+#pragma unroll
+  for (int nt = 0; nt < NS; ++nt) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      if ((e >> 1) == 1 && !half1) continue;
+      const float x = sacc[nt][e] == -INFINITY ? 0.f : expf(sacc[nt][e] - mx[e >> 1]);
+      sacc[nt][e] = x;
+      sum[e >> 1] += x;
+    }
+  }
+  float inv[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], 1);
+    sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], 2);
+    inv[r] = 1.f / sum[r];
+  }
+  // P V: P (e / sum, the IEEE quotient by div_by, rounded to bf16) as A, V's B fragments by ldmatrix.trans
+  float oacc[8][4];
+#pragma unroll
+  for (int nt = 0; nt < 8; ++nt) oacc[nt][0] = oacc[nt][1] = oacc[nt][2] = oacc[nt][3] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < KT; ++kk) {
+    float p[2][4];
+#pragma unroll
+    for (int x = 0; x < 2; ++x) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        p[x][e] = (e >> 1) == 1 && !half1 ? 0.f : div_by(sacc[2 * kk + x][e], sum[e >> 1], inv[e >> 1]);
+      }
+    }
+    const uint32_t a[4] = {pack_bf16(p[0][0], p[0][1]), pack_bf16(p[0][2], p[0][3]), pack_bf16(p[1][0], p[1][1]),
+                           pack_bf16(p[1][2], p[1][3])};
+    const int j = 16 * kk + (lane & 15);
+    const bf16* vr = (j < S ? vs + j * kXLd : zero) + (lane >> 4) * 8;
+#pragma unroll
+    for (int jn = 0; jn < 4; ++jn) {
+      uint32_t rr[4];
+      ldmatrix_x4_trans(rr, vr + 16 * jn);
+      const uint32_t b0[2] = {rr[0], rr[1]}, b1[2] = {rr[2], rr[3]};
+      mma_bf16(oacc[2 * jn], a, b0);
+      mma_bf16(oacc[2 * jn + 1], a, b1);
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    if (rows[r] < rep) {
+      bf16* dst = out + (((size_t)b * rep + rows[r]) * H + h) * kHeadDim + 2 * t;
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt) {
+        *reinterpret_cast<uint32_t*>(dst + 8 * nt) = pack_bf16(oacc[nt][2 * r], oacc[nt][2 * r + 1]);
+      }
+    }
+  }
+}
+
+template <int KT>
+__global__ void __launch_bounds__(32 * kXMaxWarps)
+grouped_cross_attention_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ mem_k,
+                                    const bf16* __restrict__ mem_v, const unsigned char* __restrict__ mask,
+                                    bf16* __restrict__ out, int B, int H, int S, int rep, float scale, int stages) {
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  bf16* tiles = reinterpret_cast<bf16*>(smem_raw);  // [stage][K: kXHeads x S, V: kXHeads x S, q: rep x kXHeads][kXLd]
+  const int stage_rows = cross_stage_rows(S, rep), groups = (H + kXHeads - 1) / kXHeads, units = B * groups;
+  bf16* zero = tiles + stages * stage_rows * kXLd;
+  const int warp = threadIdx.x / 32, nwarps = blockDim.x / 32;
+  for (int e = threadIdx.x; e < kXLd; e += blockDim.x) zero[e] = __float2bfloat16_rn(0.f);
+
+  // unit u: image u / groups, heads h0 .. h0 + hn - 1; K, V rows contiguous, q rows hn to a beam
+  auto issue = [&](int u, int s) {
+    const int b = u / groups, h0 = (u - b * groups) * kXHeads, hn = min(kXHeads, H - h0);
+    bf16* st = tiles + s * stage_rows * kXLd;
+    const int kv_rows = hn * S;
+    const size_t kv0 = ((size_t)b * H + h0) * S * kHeadDim;
+    const int chunks = (2 * kv_rows + rep * hn) * 8;
+    for (int c = threadIdx.x; c < chunks + (S % 4 == 0 ? S / 4 : 0); c += blockDim.x) {
+      if (c >= chunks) {  // the region flags, 4 a copy (then read from shared memory)
+        cp_async<4>(reinterpret_cast<unsigned char*>(st + (stage_rows - 1) * kXLd) + 4 * (c - chunks),
+                    mask + (size_t)b * S + 4 * (c - chunks));
+        continue;
+      }
+      const int r = c >> 3, part = (c & 7) * 8;
+      const bf16* src;
+      int dst;
+      if (r < 2 * kv_rows) {
+        src = (r < kv_rows ? mem_k : mem_v) + kv0 + (size_t)(r < kv_rows ? r : r - kv_rows) * kHeadDim;
+        dst = r < kv_rows ? r : kXHeads * S + r - kv_rows;
+      } else {
+        const int qr = r - 2 * kv_rows, beam = qr / hn, hl = qr - beam * hn;
+        src = q + (((size_t)b * rep + beam) * H + h0 + hl) * kHeadDim;
+        dst = 2 * kXHeads * S + qr;
+      }
+      cp_async<16>(st + dst * kXLd + part, src + part);
+    }
+  };
+  if (stages == 2 && (int)blockIdx.x < units) issue(blockIdx.x, 0);
+  cp_async_commit();
+  const int mtiles = (rep + 15) / 16;
+  int it = 0;
+  for (int u = blockIdx.x; u < units; u += gridDim.x, ++it) {
+    int s = 0;
+    if (stages == 2) {
+      s = it & 1;
+      if (u + (int)gridDim.x < units) issue(u + gridDim.x, s ^ 1);  // stage s ^ 1 was freed by the last barrier
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      issue(u, 0);
+      cp_async_commit();
+      cp_async_wait<0>();
+    }
+    __syncthreads();  // every thread's copies of unit u have landed
+    const int b = u / groups, h0 = (u - b * groups) * kXHeads, hn = min(kXHeads, H - h0);
+    const bf16* st = tiles + s * stage_rows * kXLd;
+    const unsigned char* mask_b = S % 4 == 0 ? reinterpret_cast<const unsigned char*>(st + (stage_rows - 1) * kXLd)
+                                              : mask + (size_t)b * S;
+    for (int item = warp; item < hn * mtiles; item += nwarps) {
+      const int hl = item / mtiles, mt = item - hl * mtiles;
+      cross_tile_bf16<KT>(st + (2 * kXHeads * S + hl) * kXLd, hn, st + hl * S * kXLd,
+                          st + (kXHeads * S + hl * S) * kXLd, zero, mask_b, out, b, h0 + hl, H, S, rep, mt, scale);
+    }
+    __syncthreads();  // the stage may be refilled
+  }
+  cp_async_wait<0>();
+}
+
+template <int KT>
+cudaError_t launch_bf16(const void* q, const void* mk, const void* mv, const void* mask, void* out, int B, int H,
+                        int S, int rep, float scale, cudaStream_t stream) {
+  const int stages = cross_stages(S, rep);
+  if (stages == 0) return cudaErrorInvalidValue;
+  const size_t smem = cross_smem_bytes(S, rep, stages);
+  auto kernel = grouped_cross_attention_bf16_kernel<KT>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  const int items = kXHeads * ((rep + 15) / 16), warps = items < kXMaxWarps ? items : kXMaxWarps;
+  int per_sm = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, 32 * warps, smem);
+  if (err != cudaSuccess) return err;
+  if (per_sm < 1) return cudaErrorInvalidValue;
+  const int units = B * ((H + kXHeads - 1) / kXHeads), cap = sm_count() * per_sm;
+  kernel<<<units < cap ? units : cap, 32 * warps, smem, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(mk), static_cast<const bf16*>(mv),
+      static_cast<const unsigned char*>(mask), static_cast<bf16*>(out), B, H, S, rep, scale, stages);
+  return cudaGetLastError();
+}
+
+// ------------------------------------------------------------ f32: CUDA cores
 constexpr int kCrossThreads = 128;
 
-template <typename T>
 __global__ void __launch_bounds__(kCrossThreads)
-grouped_cross_attention_kernel(const T* __restrict__ q, const T* __restrict__ mem_k, const T* __restrict__ mem_v,
-                               const unsigned char* __restrict__ mask, T* __restrict__ out, int H, int S, int rep,
-                               float scale) {
+grouped_cross_attention_f32_kernel(const float* __restrict__ q, const float* __restrict__ mem_k,
+                                   const float* __restrict__ mem_v, const unsigned char* __restrict__ mask,
+                                   float* __restrict__ out, int H, int S, int rep, float scale) {
   extern __shared__ float smem[];
   const int nwarps = blockDim.x / 32, warp = threadIdx.x / 32, lane = threadIdx.x & 31;
   float* k_s = smem;                        // S * kKeyStride
@@ -49,33 +300,48 @@ grouped_cross_attention_kernel(const T* __restrict__ q, const T* __restrict__ me
     qw[2 * lane] = qv.x;
     qw[2 * lane + 1] = qv.y;
     __syncwarp();
-    warp_attend_row<T>(qw, k_s, v_s, mask_s, nullptr, S, scale, p_s + warp * kHeadDim, out + qo);
+    warp_attend_row<float>(qw, k_s, v_s, mask_s, nullptr, S, scale, p_s + warp * kHeadDim, out + qo);
   }
 }
 
-template <typename T>
-cudaError_t launch(const void* q, const void* mk, const void* mv, const void* mask, void* out, int B, int H, int S,
-                   int rep, float scale, cudaStream_t stream) {
+cudaError_t launch_f32(const void* q, const void* mk, const void* mv, const void* mask, void* out, int B, int H,
+                       int S, int rep, float scale, cudaStream_t stream) {
   const int nwarps = kCrossThreads / 32;
   const size_t smem = ((size_t)S * (kKeyStride + kValStride) + 2 * (size_t)nwarps * kHeadDim) * sizeof(float) + S;
-  grouped_cross_attention_kernel<T><<<B * H, kCrossThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(mk), static_cast<const T*>(mv),
-      static_cast<const unsigned char*>(mask), static_cast<T*>(out), H, S, rep, scale);
+  grouped_cross_attention_f32_kernel<<<B * H, kCrossThreads, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(mk), static_cast<const float*>(mv),
+      static_cast<const unsigned char*>(mask), static_cast<float*>(out), H, S, rep, scale);
   return cudaGetLastError();
 }
 
 }  // namespace sct
 
 // dtype: 0 = float32, 1 = bfloat16. q/out (B * rep, H, 64); mem_k/mem_v (B, H, S, 64)
-// (pass mem_k twice for shared K/V); mask (B, S) bool.
+// (pass mem_k twice for shared K/V), 16-byte aligned in bf16; mask (B, S) bool.
 extern "C" int sct_grouped_cross_attention(int dtype, const void* q, const void* mem_k, const void* mem_v,
                                            const void* mask, void* out, int B, int H, int S, int rep,
                                            float scale, void* stream) {
   if (H < 1 || S < 1 || S > 64 || rep < 1) return (int)cudaErrorInvalidValue;
+  if (B == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return (int)sct::launch<float>(q, mem_k, mem_v, mask, out, B, H, S, rep, scale, s);
-  if (dtype == 1) return (int)sct::launch<__nv_bfloat16>(q, mem_k, mem_v, mask, out, B, H, S, rep, scale, s);
+  if (dtype == 0) return (int)sct::launch_f32(q, mem_k, mem_v, mask, out, B, H, S, rep, scale, s);
+  if (dtype == 1) {
+    const void* ptrs[] = {q, mem_k, mem_v, out};
+    for (const void* p : ptrs) {
+      if ((reinterpret_cast<uintptr_t>(p) & 15) != 0) return (int)cudaErrorInvalidValue;
+    }
+    if (S <= 16) return (int)sct::launch_bf16<1>(q, mem_k, mem_v, mask, out, B, H, S, rep, scale, s);
+    if (S <= 32) return (int)sct::launch_bf16<2>(q, mem_k, mem_v, mask, out, B, H, S, rep, scale, s);
+    if (S <= 48) return (int)sct::launch_bf16<3>(q, mem_k, mem_v, mask, out, B, H, S, rep, scale, s);
+    return (int)sct::launch_bf16<4>(q, mem_k, mem_v, mask, out, B, H, S, rep, scale, s);
+  }
   return (int)cudaErrorInvalidValue;
+}
+
+// the bf16 kernel's shared memory for S regions and rep rows an image, at its stage count; 0 if none fits
+extern "C" long long sct_grouped_cross_attention_smem(int S, int rep) {
+  const int stages = sct::cross_stages(S, rep);
+  return stages == 0 ? 0 : (long long)sct::cross_smem_bytes(S, rep, stages);
 }
 
 extern "C" const char* sct_error_string(int err) { return cudaGetErrorString(static_cast<cudaError_t>(err)); }

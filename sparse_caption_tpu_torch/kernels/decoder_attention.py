@@ -9,7 +9,9 @@ consecutive query rows (the captions or samples of one image in
 cross-attention), so the memory is projected and read once per image.
 ``keep`` is the training dropout on the probabilities. CUDA tensors launch
 K14, inside an autograd Function whose backward is K15 (dK and dV summed over
-each group in a fixed order); CPU tensors run ``decoder_attention_plain``
+each group in a fixed order; in bf16 on the tensor cores, the whole group's
+query rows in shared memory at once, which bounds the group:
+``bf16_backward_smem``); CPU tensors run ``decoder_attention_plain``
 (``ops/attention.py scaled_dot_attention``). Nothing else falls back.
 """
 
@@ -34,6 +36,21 @@ KERNEL_BWD = _build.CudaKernel("decoder_attention_bwd", "sct_decoder_attention_b
     _build.I, _build.I, _build.I, _build.I, _build.I, _build.I, _build.F32, _build.P,
 ])
 MAX_LEN = 64  # the kernels' limit on keys and (backward) query positions
+ROW_PITCH = 72  # K15's staged bf16 rows (csrc/decoder_attention_bwd.cu kLd)
+
+
+def bf16_backward_smem(tq: int, tk: int, group: int) -> int:
+    """Shared memory of K15's bf16 kernel (``mma_smem_bytes``) for a K/V row
+    whose group of ``group`` query rows has ``tq`` positions each: two stages
+    of (K, V, the group's q and dO rows) if they fit, else one, plus a zero
+    row and dS, P~ (each member's positions padded to 16 x the keys padded to
+    16, + 8). 0 when even one stage does not fit."""
+    kp, qp = 16 * -(-tk // 16), 16 * -(-tq // 16)
+    for stages in (2, 1):
+        elems = stages * (2 * tk + 2 * group * tq) * ROW_PITCH + ROW_PITCH + 2 * group * qp * (kp + 8)
+        if 2 * elems <= _build.BLOCK_SMEM_LIMIT:
+            return 2 * elems
+    return 0
 
 
 def decoder_attention_plain(q, k, v, key_valid=None, causal: bool = False, keep=None, keep_prob: float = 1.0):
@@ -60,7 +77,7 @@ class _DecoderAttentionFn(torch.autograd.Function):
         q, k, v, key_valid, keep = ctx.saved_tensors
         n, h, tq, dk = q.shape
         nk, tk = k.shape[0], k.shape[2]
-        dout = dout.contiguous()
+        q, k, v, dout = (_build.aligned16(t) for t in (q, k, v, dout.contiguous()))
         dq, dk_, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
         KERNEL_BWD.launch(_build.dtype_code(q), q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
                           _build.ptr(key_valid), _build.ptr(keep), ctx.keep_prob, dq.data_ptr(), dk_.data_ptr(),
@@ -97,4 +114,8 @@ def decoder_attention(q, k, v, key_valid: Optional[torch.Tensor] = None, causal:
     if dk != 64 or tq > MAX_LEN or tk > MAX_LEN:
         raise ValueError(f"decoder_attention kernels take dk == 64, Tq and Tk <= {MAX_LEN}; got dk={dk} Tq={tq} "
                          f"Tk={tk}")
+    if q.dtype == torch.bfloat16 and bf16_backward_smem(tq, tk, n // nk) == 0 and torch.is_grad_enabled() and any(
+            t.requires_grad for t in (q, k, v)):
+        raise ValueError(f"decoder_attention's bf16 backward holds a K/V row's {n // nk} x {tq} query rows in shared "
+                         f"memory; they do not fit with Tk={tk}")
     return _DecoderAttentionFn.apply(q, k, v, key_valid, keep, causal, keep_divisor(keep_prob, q.dtype))

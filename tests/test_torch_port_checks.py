@@ -91,3 +91,64 @@ def test_k6_bytes_serving_forward():
 def test_k13_bytes_count_each_tensor_once(tin, tout, per_element):
     # per row: the stats (max, log-sum in f32) written forward, read backward
     assert chip_smoke.k13_bytes(ROWS, VOCAB, tin, tout) == ROWS * VOCAB * per_element + ROWS * 16
+
+
+# ------------------------------------------------ K15 / K3 bytes and operations
+N_XE, IMAGES = 256 * 5, 256  # the ORT XE step's caption rows and images
+
+
+@pytest.mark.parametrize("kind,keep,want", [
+    # per (row, head): q, dO read and dq written, 17 x 64 bf16 each; per (K/V
+    # row, head): k, v read and dk, dv written, Tk x 64 each; the keep-mask one
+    # byte per (row, head, position, key); key validity one byte per (K/V row, key)
+    ("self", True, 1280 * 8 * (3 * 17 * 64 * 2) + 1280 * 8 * (4 * 17 * 64 * 2) + 1280 * 8 * 17 * 17 + 1280 * 17),
+    ("self", False, 1280 * 8 * (3 * 17 * 64 * 2) + 1280 * 8 * (4 * 17 * 64 * 2) + 1280 * 17),
+    # cross: one K/V row per image (36 regions) for its 5 captions
+    ("cross", True, 1280 * 8 * (3 * 17 * 64 * 2) + 256 * 8 * (4 * 36 * 64 * 2) + 1280 * 8 * 17 * 36 + 256 * 36),
+    ("cross", False, 1280 * 8 * (3 * 17 * 64 * 2) + 256 * 8 * (4 * 36 * 64 * 2) + 256 * 36),
+])
+def test_k15_bytes_count_each_tensor_once(kind, keep, want):
+    nk, tk = (N_XE, 17) if kind == "self" else (IMAGES, 36)
+    assert chip_smoke.k15_bytes(N_XE, nk, tk, torch.bfloat16, keep=keep) == want
+    # with the keep-mask 159 MB (self) and 111 MB (cross), as the kernel's note says
+    assert round(want / 1e6) == {("self", True): 159, ("self", False): 156, ("cross", True): 111,
+                                 ("cross", False): 105}[(kind, keep)]
+
+
+@pytest.mark.parametrize("kind,backward,want", [
+    # S = QK^T and P V forward; S again, dPd = dO V^T, dQ, dK, dV backward:
+    # 2 x rows x heads x 17 x Tk x 64 a product
+    ("self", False, 2 * 2 * 1280 * 8 * 17 * 17 * 64),
+    ("self", True, 5 * 2 * 1280 * 8 * 17 * 17 * 64),
+    ("cross", True, 5 * 2 * 1280 * 8 * 17 * 36 * 64),
+])
+def test_decoder_attention_flops_count_each_product(kind, backward, want):
+    tk = 17 if kind == "self" else 36
+    assert chip_smoke.decoder_attention_flops(N_XE, tk, backward=backward) == want
+
+
+def test_k14_bytes_read_the_memory_once_per_image():
+    # q in, out out per caption row; k, v in once per image; keep and validity flags
+    want = 1280 * 8 * 2 * 17 * 64 * 2 + 256 * 8 * 2 * 36 * 64 * 2 + 1280 * 8 * 17 * 36 + 256 * 36
+    assert chip_smoke.k14_bytes(N_XE, IMAGES, 36, torch.bfloat16) == want
+
+
+@pytest.mark.parametrize("dtype,beams,want", [
+    # serving: 2048 images, K and V (8 heads x 36 regions x 64) read once per
+    # image, q read and out written per beam row (8 x 64), the region mask
+    (torch.bfloat16, 5, 2048 * 2 * 8 * 36 * 64 * 2 + 2048 * 5 * 2 * 8 * 64 * 2 + 2048 * 36),
+    (torch.float32, 15, 2048 * 2 * 8 * 36 * 64 * 4 + 2048 * 15 * 2 * 8 * 64 * 4 + 2048 * 36),
+])
+def test_k3_bytes_read_one_memory_row_per_image(dtype, beams, want):
+    assert chip_smoke.k3_bytes(2048, beams, dtype) == want
+    if beams == 5:  # 151 MB of memory K / V and 21 MB of q and out (the kernel's note)
+        assert round(2048 * 2 * 8 * 36 * 64 * 2 / 1e6) == 151 and round(2048 * 5 * 2 * 8 * 64 * 2 / 1e6) == 21
+
+
+@pytest.mark.parametrize("backward,per_unit", [
+    (False, 4 + 4 + 1 + 1 + 1),  # forward: gx, gh (4 gates each) and c in, h', c' out
+    (True, (4 + 4 + 1 + 1 + 1) + (4 + 4 + 1 + 1 + 1 + 4 + 1)),  # + gx, gh, c, dh', dc' in, d gates, dc out
+])
+def test_k11_bytes_count_each_tensor_once(backward, per_unit):
+    rows, units = 1024 * 5, 1000  # Up-Down serving: 1024 images x beam 5, rnn 1000
+    assert chip_smoke.k11_bytes(rows, units, torch.bfloat16, backward=backward) == rows * units * per_unit * 2

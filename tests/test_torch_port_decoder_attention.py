@@ -26,7 +26,8 @@ import torch
 from _torch_port_common import D, HEADS, t, to_numpy
 from sparse_caption_tpu.models import layers as jl
 from sparse_caption_tpu_torch.kernels import launch_counts
-from sparse_caption_tpu_torch.kernels.decoder_attention import decoder_attention
+from sparse_caption_tpu_torch.kernels._build import BLOCK_SMEM_LIMIT
+from sparse_caption_tpu_torch.kernels.decoder_attention import bf16_backward_smem, decoder_attention
 from sparse_caption_tpu_torch.models import layers as pl
 from sparse_caption_tpu_torch.utils.convert_jax import convert_jax_variables
 
@@ -188,3 +189,22 @@ def test_wrapper_checks_inputs():
         decoder_attention(q, kv, kv, valid, keep=torch.ones(6, HEADS, TQ, TQ, dtype=torch.bool))
     with pytest.raises(TypeError):
         decoder_attention(q, kv.double(), kv.double(), valid)
+    # K15's bf16 kernel holds a K/V row's whole group in shared memory: the
+    # wrapper's limit follows the kernel's layout (checked against the C
+    # function by chip_smoke.py)
+    assert bf16_backward_smem(17, 36, 5) < bf16_backward_smem(17, 36, 15) < BLOCK_SMEM_LIMIT
+    assert bf16_backward_smem(64, 64, 6) == 0
+
+
+@pytest.mark.parametrize("tq,tk,group,want", [
+    # two stages of (K, V: tk rows; q, dO: group x tq rows) x 72 bf16, a zero
+    # row of 72, dS and P~: group x (tq padded to 16) rows x ((tk padded to
+    # 16) + 8)
+    (17, 17, 1, 2 * (2 * (34 + 34) * 72 + 72 + 2 * 32 * 40)),  # the XE self call: 24,848 B
+    (17, 36, 5, 2 * (2 * (72 + 170) * 72 + 72 + 2 * 160 * 56)),  # the XE cross call: 105,680 B
+    (17, 36, 15, 2 * ((72 + 510) * 72 + 72 + 2 * 480 * 56)),  # a 15-sample group: one stage, 191,472 B
+    (64, 64, 5, 2 * ((128 + 640) * 72 + 72 + 2 * 320 * 72)),  # one stage, 202,896 B of 232,448
+])
+def test_bf16_backward_smem_counts_by_hand(tq, tk, group, want):
+    assert bf16_backward_smem(tq, tk, group) == want
+    assert want in (24848, 105680, 191472, 202896)

@@ -18,6 +18,7 @@ from sparse_caption_tpu_torch.kernels import KERNELS, launch_counts
 from sparse_caption_tpu_torch.kernels.ancestry_self_attention import ancestry_self_attention
 from sparse_caption_tpu_torch.kernels.beam_topk import NEG_BIG, beam_topk
 from sparse_caption_tpu_torch.kernels.box_attention import box_attention, log_bias_from_geometry
+from sparse_caption_tpu_torch.kernels.grouped_cross_attention import bf16_smem as k3_bf16_smem
 from sparse_caption_tpu_torch.kernels.grouped_cross_attention import grouped_cross_attention
 from sparse_caption_tpu_torch.models import layers as pl
 from sparse_caption_tpu_torch.ops.masked import MaskedEmbedding, MaskedLinear
@@ -239,6 +240,20 @@ def test_k3_decode_cross_matches_jax(rep, shared_v):
     _close(out, ref)
     with pytest.raises(ValueError):
         grouped_cross_attention(torch.zeros(5, HEADS, dk), t(mk), None, t(amask) != 0)
+
+
+@pytest.mark.parametrize("regions,rep,stages", [(36, 5, 2), (36, 40, 2), (64, 300, 1), (36, 800, 0)])
+def test_k3_bf16_smem_bounds_regions_and_rows(regions, rep, stages):
+    """K3's bf16 kernel stages the K and V rows (regions each) of 2 heads of
+    an image, their rep x 2 q rows and a row of region flags, 144 bytes a
+    row, two units deep where that fits, plus a zero row; the wrapper refuses
+    what does not fit in a block's 232,448 bytes (chip_smoke.py checks the
+    formula against the C function)."""
+    want = (stages * ((2 * regions + rep) * 2 + 1) + 1) * 144 if stages else 0
+    assert k3_bf16_smem(regions, rep) == want  # the paper's 36 regions, beam 5: 44,784 bytes
+    assert want <= 232448
+    if stages == 1:  # two stages would not fit
+        assert (2 * ((2 * regions + rep) * 2 + 1) + 1) * 144 > 232448
 
 
 def _jax_beam_topk(logits, k, prev, step, bad_ids, eos_id, unk_id, decoding_constraint, suppress_unk):
