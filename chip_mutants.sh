@@ -2,16 +2,17 @@
 # Planted source faults in the kernels whose checks hold them bit by bit, to
 # show what the kernel checks of chip_smoke.py catch: K1 (box attention) and
 # K7 (its backward), K6 (residual + RefLayerNorm), K13 (vocabulary
-# log-softmax), K15 (the decoder attention's backward) and K3 (grouped
-# cross-attention). Each mutant is a copy of the port under build/mutants/<name>/
+# log-softmax), K15 (the decoder attention's backward), K3 (grouped
+# cross-attention), K4 (beam log-softmax + top-K) and K12 (additive
+# attention). Each mutant is a copy of the port under build/mutants/<name>/
 # with sed edits to one CUDA source, reusing the unmutated libraries already
 # built (a library's file name carries a hash of its sources); its kernel
 # checks then run at paper shapes and at the small or off-width shapes: for
 # K1/K7 check_kernels (K1 serving with its log-bias check) and
 # check_train_kernels (K1's train variant and K7), for K6/K13
 # check_norm_softmax_kernels without its timings, for K15
-# check_decoder_attention_kernels and for K3 check_kernels, both without
-# their timings. A mutant whose checks pass
+# check_decoder_attention_kernels and for K3 and K4 check_kernels, for K12
+# check_updown_kernels, all without their timings. A mutant whose checks pass
 # is one they cannot see; each verdict line ends "caught" (a kernel that
 # raises is caught too) or "checks pass".
 #
@@ -27,6 +28,8 @@ K17="c.check_kernels(g, dt, results) & c.check_train_kernels(g, dt, results)"
 K613="c.check_norm_softmax_kernels(g, results, (dt,), timing=False)"
 K15="c.check_decoder_attention_kernels(g, results, timing=False)"
 K3="c.check_kernels(g, dt, results, timing=False)"
+K4="$K3"
+K12="c.check_updown_kernels(g, dt, results, timing=False)"
 run_mutant() {  # name file sed-expression dtypes checks
   local name=$1 file=$2 expr=$3 dtypes=$4 checks=$5 dir=build/mutants/$1
   rm -rf "$dir" && mkdir -p "$dir/build"
@@ -63,7 +66,7 @@ run_mutant bessel_dropped add_ref_layernorm.cu 's/ \/ (d > 1 ? d - 1 : 1));/ \/ 
 run_mutant keep_divisor_unrounded add_ref_layernorm.cu 's/round_to<T>(t \/ keep_prob)/(t \/ keep_prob)/; s/round_to<T>(yy \/ keep_prob)/(yy \/ keep_prob)/' "torch.bfloat16," "$K613"
 run_mutant gs_dropped_from_dx add_ref_layernorm.cu 's/ds\[i\] = round_to<T>(ds\[i\] + g2\[i\]);/ds[i] = round_to<T>(ds[i]);/; s/ds = round_to<T>(ds + to_f(gs\[base + c\]));/ds = round_to<T>(ds);/' "torch.float32, torch.bfloat16" "$K613"
 run_mutant db_last_block_dropped add_ref_layernorm.cu 's/p < nblocks; p += kNormWarps/p < nblocks - 1; p += kNormWarps/' "torch.float32, torch.bfloat16" "$K613"
-run_mutant max_shift_dropped vocab_log_softmax.cu 's/const float m = block_max(mloc, red\[0\]);/const float m = 0.f * block_max(mloc, red[0]);/' "torch.float32, torch.bfloat16" "$K613"
+run_mutant max_shift_dropped row_softmax.cuh 's/  m = block_max(mloc, red_max);/  m = 0.f * block_max(mloc, red_max);/' "torch.float32, torch.bfloat16" "$K613"
 run_mutant dy_sum_last_chunk_dropped vocab_log_softmax.cu 's/for (int k = 0; k < PER; ++k) {  \/\/ sum(dy)/for (int k = 0; k < PER - 1; ++k) {  \/\/ sum(dy)/' "torch.float32, torch.bfloat16" "$K613"
 run_mutant tail_last_element_skipped vocab_log_softmax.cu 's/i < V; i += kLsmThreads) {  \/\/ pass 1/i < V - 1; i += kLsmThreads) {  \/\/ pass 1/' "torch.bfloat16," "$K613"
 run_mutant D_from_unrounded_products decoder_attention_bwd.cu 's/const float gp = round_to<bf16>(dpk \* p);/const float gp = dpk * p;/' "torch.bfloat16," "$K15"
@@ -73,3 +76,12 @@ run_mutant causal_dropped_from_recompute decoder_attention_bwd.cu 's/return ((vb
 run_mutant last_member_skipped decoder_attention_bwd.cu 's/for (int m = 0; m < group; ++m) {/for (int m = 0; m < group - 1; ++m) {/' "torch.bfloat16," "$K15"
 run_mutant k3_last_row_skipped grouped_cross_attention.cu 's/    if (rows\[r\] < rep) {/    if (rows[r] < rep - 1) {/' "torch.bfloat16," "$K3"
 run_mutant k3_mask_ignored grouped_cross_attention.cu 's/if (j < S \&\& mask_b\[j\] != 0) vbits/if (j < S) vbits/' "torch.bfloat16," "$K3"
+run_mutant k4_unk_penalty_dropped beam_topk.cu 's/  if (i == unk_id) c += -1000.f;/  ;/' "torch.float32, torch.bfloat16" "$K4"
+run_mutant k4_ban_eos_ignored beam_topk.cu 's/  if (no_eos \&\& i == eos_id) c += kNegBig;/  ;/' "torch.float32, torch.bfloat16" "$K4"
+run_mutant k4_ties_to_higher_index beam_topk.cu 's/  return ((unsigned long long)order_key(v) << 32) | (0xFFFFFFFFu - (unsigned int)i);/  return ((unsigned long long)order_key(v) << 32) | (unsigned int)i;/; s/{ return (int)(0xFFFFFFFFu - (unsigned int)key); }/{ return (int)(unsigned int)key; }/' "torch.bfloat16," "$K4"
+run_mutant k4_last_vector_skipped beam_topk.cu 's/  const int units = V \/ UE;/  const int units = V \/ UE - 1;/' "torch.float32, torch.bfloat16" "$K4"
+run_mutant k4_logprob_reassociated beam_topk.cu 's/const float lp = round_to<T>((xv - m) - logsum);/const float lp = round_to<T>(xv - (m + logsum));/' "torch.float32, torch.bfloat16" "$K4"
+run_mutant k12_tanh_input_unrounded additive_attention.cu 's/const uint32_t tr = tanh_bits(xr \& 0xFFFFu, tab) | (tanh_bits(xr >> 16, tab) << 16);/const uint32_t tr = pack_bf16x2(tanhf(bf16_lo(pw[i]) + bf16_lo(hw[i])), tanhf(bf16_hi(pw[i]) + bf16_hi(hw[i])));/' "torch.bfloat16," "$K12"
+run_mutant k12_mask_ignored_in_renorm additive_attention.cu 's/const float q0 = in0 \&\& mask_b\[lane\] ? p0 : 0.f;/const float q0 = in0 ? p0 : 0.f;/; s/const float q1 = in1 \&\& mask_b\[lane + 32\] ? p1 : 0.f;/const float q1 = in1 ? p1 : 0.f;/' "torch.float32, torch.bfloat16" "$K12"
+run_mutant k12_last_region_skipped additive_attention.cu 's/for (int r = 0; r < R; ++r) {  \/\/ the weighted sum over regions/for (int r = 0; r < R - 1; ++r) {  \/\/ the weighted sum over regions/' "torch.float32, torch.bfloat16" "$K12"
+run_mutant k12_tanh_table_left_out_of_smem_check additive_attention.cu 's/ + sizeof(unsigned short) \* kTanhEntries;/;/' "torch.bfloat16," "$K12"

@@ -22,7 +22,10 @@ Phases:
    output too, K15 and K3 also at off shapes (K15: Tk 9 and 64, a group of
    3 x 20 rows; K3: 15 and 40 rows an image, 33 regions), and their
    shared-memory sizes against the wrappers' limits; K4 also at beams 10,
-   15 and 40; K6 and K13 also bit by bit in bf16 (K6's s exactly, its n,
+   15 and 40, bit by bit in bf16, with rows tied at the top and rows whose
+   log-sum lies next to a bf16 midpoint (``k4_midpoint_counts``), and at V =
+   9,999; K12 bit by bit in bf16 at the serving, SCST and off shapes (one
+   at the edge of its held forward's shared memory); K6 and K13 also bit by bit in bf16 (K6's s exactly, its n,
    dx, dy and K13's y by ``rounding_share``), K6's da / db repeated bit for
    bit, both at off widths (K6 d = 37 and 500, K13 V = 37 and 9,999) and
    K13 also bf16 -> f32, on inputs of their own generator; K6 timed forward + backward at the XE
@@ -55,7 +58,8 @@ Phases:
 6. Up-Down path: a paper-width ``up_down_lstm_prune`` (rnn 1000, att_hid
    512, 2048-wide fc and region features): beam-5 serving in bf16 at batch
    50 and 1024 (masks folded) with the launch counts asserted and a profile
-   at 1024, the f32 batch-8 card-vs-CPU check; the supermask XE step (the
+   at 1024, K4 timed on the logits that run hands it (``path_topk_times``),
+   the f32 batch-8 card-vs-CPU check; the supermask XE step (the
    paper's Up-Down family: cosine LR 0.01, Adam eps 0.01, dropout 0.1,
    target 0.991, weight 120; fresh mask samples on every call, 3 + 8 per
    step) at 15 x 5 in f32 and bf16 and 256 x 5 in bf16 with the launch
@@ -133,6 +137,23 @@ K3_SHARE_LIMIT, K3_FAR_LIMIT = 0.02, 0.001
 K6_SHARE_LIMIT, K6_FAR_LIMIT = 0.01, 1e-4
 K13_SHARE_LIMIT, K13_FAR_LIMIT = 0.01, 1e-4
 K6_OFF_WIDTHS, K13_OFF_WIDTHS, OFF_ROWS = (37, 500), (37, 9999), 333  # scalar paths and vector tails
+# K4's raw log-probs in bf16 against torch.log_softmax at the kernel's
+# indices, and its values where no penalty touched either side's entry, bit
+# by bit with K13's limits (the log-prob is K13's computation). Ties go to the
+# lower index: a row whose k values equal the plain version's bit for bit
+# holds the plain indices, but for a near-tie of an element one ulp off (at
+# most this share of rows)
+K4_INDEX_SHARE_LIMIT = 1e-3
+K4_OFF_WIDTH = 9999  # rows that are not whole 16-byte vectors: the general path
+K4_MIDPOINT_TOP = 1024.0  # the top logit of K4's rows whose log-sum lies next to a bf16 midpoint
+# K12's bf16 output as K1's; its backward's d p_att, d att_h, d att as K7's
+K12_SHARE_LIMIT, K12_FAR_LIMIT = 0.02, 0.001
+K12_BWD_SHARE_LIMIT, K12_BWD_FAR_LIMIT = 0.05, 0.005
+# (regions, A, D, rows an image): a short region list; a D off the 16-byte
+# vector; the held forward's largest bf16 A at R = 64 and 16 rows (its
+# staging, scores and tanh table fill 232,400 of a block's 232,448 bytes of
+# shared memory) and the next A, which takes the general forward
+K12_OFF_SHAPES = ((20, 512, 1000, BEAM), (36, 512, 1001, BEAM), (64, 1384, 1000, 16), (64, 1392, 1000, 16))
 SERVE_ROWS = BIG_BATCH * BEAM  # the serving decode step's rows
 HOLD_CYCLES = 100_000_000  # ~55 ms of the card's clock: longer than the host takes to enqueue a timed window
 BEAM_WIDTHS = (BEAM, 10, 15, 40)  # K4: the serving beam, then wider ones (any width up to the vocabulary)
@@ -288,6 +309,30 @@ def k3_bytes(images: int, beams: int, dtype, regions: int = REGIONS) -> int:
     return (2 * images * regions + 2 * images * beams) * HEADS * DK * ESIZE[dtype] + images * regions
 
 
+def k4_bytes(n: int, vocab: int, k: int, dtype) -> int:
+    """Bytes K4 must move: the (n, vocab) logits read once, each row's banned
+    token (int32) and bad-ending flag (one byte), the k values, indices and
+    raw log-probs written (4 bytes each)."""
+    return n * vocab * ESIZE[dtype] + n * 5 + 3 * n * k * 4
+
+
+def k12_bytes(images: int, rows: int, regions: int, a: int, d: int, dtype, backward: bool = False) -> int:
+    """Bytes K12 must move for `rows` query rows an image. Forward: p_att (R x
+    A) and att (R x D) read once per image, att_h (A) read and out (D) written
+    per row, w and the bias, the region mask (one byte a region). With the
+    backward: the forward also writes prob and weight (f32, R a row); the
+    backward reads p_att, att, att_h, w, the mask, prob, weight and dout, and
+    writes d p_att, d att, d att_h, d w and d bias."""
+    es, n = ESIZE[dtype], images * rows
+    fwd = (images * regions * (a + d) + n * (a + d) + a + 1) * es + images * regions
+    if not backward:
+        return fwd
+    saved = 2 * n * regions * 4
+    bwd_in = (images * regions * (a + d) + n * (a + d) + a) * es + images * regions + saved
+    bwd_out = (images * regions * (a + d) + n * a + a + 1) * es
+    return fwd + saved + bwd_in + bwd_out
+
+
 def k11_bytes(n: int, h: int, dtype, backward: bool = False) -> int:
     """Bytes K11 must move for n rows of h units. Forward: gx, gh (4h each)
     and c in, h', c' out. With the backward too: gx, gh, c, dh', dc' in,
@@ -406,6 +451,97 @@ def smem_agrees(name: str, symbol: str, python_fn, shapes) -> bool:
     good = all(c == p for _, c, p in got)
     log(f"[kernel] {name} shared memory, C vs wrapper: {got} {'ok' if good else 'FAIL'}")
     return good
+
+
+def k4_constraints(gen, n: int, vocab: int) -> dict:
+    """Every K4 constraint on: a banned token a row, bad endings on ~30% of
+    rows, the UNK penalty."""
+    dev = torch.device("cuda")
+    return dict(ban_token=torch.randint(0, vocab, (n,), generator=gen, device=dev, dtype=torch.int32),
+                ban_eos=torch.rand(n, generator=gen, device=dev) < 0.3, eos_id=3, unk_id=1)
+
+
+def bf16_round(x: np.ndarray) -> np.ndarray:
+    """f32 values rounded to bf16 (to nearest, ties to even), as f32."""
+    bits = np.asarray(x, dtype=np.float32).view(np.uint32).astype(np.uint64)
+    bits = (bits + 0x7FFF + ((bits >> 16) & 1)) & 0xFFFF0000
+    return bits.astype(np.uint32).view(np.float32)
+
+
+def k4_midpoint_counts(vocab: int, top: float = K4_MIDPOINT_TOP) -> list:
+    """Counts n of a row's equal top logits `top` (the rest 200 below, whose
+    exp is 0 in f32, so that the row's sum is n) for which K4's bf16 log-prob
+    of a top entry, (x - m) - L = -L with L = log n, and the same value
+    formed as x - (m + L) round apart: L lies within 2^-14 (half an f32 ulp
+    of m + L at m = 1024) of a bf16 rounding midpoint M, so m + L rounds to
+    m + M and x - (m + L) is -M, a tie that rounds to the even neighbour,
+    while -L rounds to the odd one. Every L within 3 f32 ulps of log n does
+    the same (logf's error on the card is at most one), so such rows hold
+    the bf16 log-prob to K13's order of operations."""
+    m = np.float32(top)
+    counts = []
+    for n in range(1, vocab + 1):
+        near = np.float32(np.log(np.float64(n)))
+        ls = np.array([np.float32(near + k * np.spacing(near)) for k in range(-3, 4)], dtype=np.float32)
+        kept = bf16_round(np.float32(0.0) - ls)  # (x - m) - L with x = m
+        moved = bf16_round(m - (m + ls).astype(np.float32))  # x - (m + L)
+        if (kept == kept[3]).all() and (moved != kept).all():
+            counts.append(n)
+    return counts
+
+
+def check_beam_topk(logits, kw: dict, dtype, tag: str = "") -> tuple:
+    """K4 against its plain version at every width of BEAM_WIDTHS: values and
+    raw log-probs element-wise; indices equal but for near-ties (tie-aware),
+    and equal outright in rows whose values agree bit for bit (ties to the
+    lower index); the raw log-probs equal K13's output at the kernel's
+    indices bit for bit up to width 32 (K4's held path and its scalar path
+    share K13's reduction order; the radix-select variant beyond 32 keeps an
+    online one); in bf16 the raw log-probs and the untouched values by
+    `rounding_share`. Returns (every check passed, the serving width's worst
+    element error)."""
+    from sparse_caption_tpu_torch.kernels import beam_topk as k4
+    from sparse_caption_tpu_torch.kernels import vocab_log_softmax as k13
+
+    dname = str(dtype).split(".")[-1]
+    ok, err_k = True, 0.0
+    lp, c = k4.constrained_logprobs(logits, **kw)
+    y13 = k13.vocab_log_softmax(logits).float()
+    ban, ban_eos, eos_id, unk_id = kw["ban_token"].long()[:, None], kw["ban_eos"][:, None], kw["eos_id"], kw["unk_id"]
+
+    def touched(idx):  # entries a penalty moved
+        return (idx == ban) | (ban_eos & (idx == eos_id)) | (idx == unk_id)
+
+    for width in BEAM_WIDTHS:
+        vals, idx, raw = k4.beam_topk(logits, width, **kw)
+        pvals, pidx, _ = k4.beam_topk_plain(logits, width, **kw)
+        ik = idx.long()
+        name = f"beam_topk{tag} k={width}"
+        err_v, good_v, worst_v = close(vals, pvals, dtype)
+        err_r, good_r, worst_r = close(raw, lp.gather(1, ik), dtype)
+        log(f"[kernel] {name} {dname}: values max_abs_err={err_v:.3e} worst err/allowed={worst_v:.3f}, raw log-probs "
+            f"max_abs_err={err_r:.3e} worst err/allowed={worst_r:.3f} {'ok' if good_v and good_r else 'FAIL'}")
+        ok &= good_v and good_r
+        # an index may differ from the plain one only at a near-tie: then the plain
+        # constrained value at the kernel's index must match the rank's value
+        differ = idx != pidx
+        tie_ok = bool(((c.gather(1, ik) - pvals).abs() <= allowed(pvals, dtype))[differ].all())
+        same_vals = (vals == pvals).all(dim=1)
+        swapped = (same_vals & differ.any(dim=1)).float().mean().item()
+        k13_same = bool(torch.equal(raw, y13.gather(1, ik)))
+        log(f"[kernel] {name}: indices differing {int(differ.sum())}/{differ.numel()} (near-ties ok={tie_ok}); "
+            f"rows with bit-equal values but other indices {swapped:.5f} (limit {K4_INDEX_SHARE_LIMIT}) "
+            f"{'ok' if swapped <= K4_INDEX_SHARE_LIMIT else 'FAIL'}; raw log-probs equal K13's bit for bit={k13_same}")
+        ok &= tie_ok and swapped <= K4_INDEX_SHARE_LIMIT and (k13_same or width > k4.REGISTER_K)
+        if dtype == torch.bfloat16:
+            ok &= rounding_share(f"{name} raw log-probs", raw, torch.log_softmax(logits, dim=-1).gather(1, ik),
+                                 K13_SHARE_LIMIT, K13_FAR_LIMIT)
+            plain_rank = ~(touched(ik) | touched(pidx.long()))
+            ok &= rounding_share(f"{name} untouched values", vals[plain_rank], pvals[plain_rank], K13_SHARE_LIMIT,
+                                 K13_FAR_LIMIT)
+        if width == BEAM:
+            err_k = max(err_v, err_r)
+    return ok, err_k
 
 
 def check_kernels(gen, dtype, results: dict, timing: bool = True) -> bool:
@@ -587,31 +723,38 @@ def check_kernels(gen, dtype, results: dict, timing: bool = True) -> bool:
     # K4 beam top-k with every constraint on: the serving beam and wider
     # beams (register lists of 16 and 32, and the radix-select variant)
     logits = rnd(n, vocab)
-    ban_token = torch.randint(0, vocab, (n,), generator=gen, device=dev, dtype=torch.int32)
-    ban_eos = torch.rand(n, generator=gen, device=dev) < 0.3
-    kw = dict(ban_token=ban_token, ban_eos=ban_eos, eos_id=3, unk_id=1)
-    _, c = k4.constrained_logprobs(logits, **kw)
-    for width in BEAM_WIDTHS:
-        vals, idx, raw = k4.beam_topk(logits, width, **kw)
-        pvals, pidx, praw = k4.beam_topk_plain(logits, width, **kw)
-        err_v, _ = compare(f"beam_topk k={width} values", vals, pvals)
-        # an index may differ from the plain one only at a near-tie: then the plain
-        # constrained value at the kernel's index must match the rank's value
-        differ = idx != pidx
-        at_kernel_idx = c.gather(1, idx.long())
-        tie_ok = bool(((at_kernel_idx - pvals).abs() <= allowed(pvals, dtype))[differ].all())
-        err_r, _ = compare(f"beam_topk k={width} raw log-probs", raw,
-                           torch.log_softmax(logits, dim=-1).float().gather(1, idx.long()))
-        log(f"[kernel] beam_topk k={width}: indices differing {int(differ.sum())}/{differ.numel()} "
-            f"(near-ties ok={tie_ok})")
-        ok &= tie_ok
-        if width == BEAM:
-            err_k = max(err_v, err_r)
+    kw = k4_constraints(gen, n, vocab)
+    logits[1] = 0  # every entry ties: the lowest indices win
+    logits[2, : 3 * BEAM_WIDTHS[-1]] = 8  # more ties at the top than the widest beam takes
+    # rows 3, 4, ...: n equal top logits spread over the row, with a log-sum
+    # next to a bf16 midpoint (k4_midpoint_counts), so that a log-prob formed
+    # in another order than K13's moves by one bf16 ulp
+    for row, count in enumerate(k4_midpoint_counts(vocab), start=3):
+        logits[row] = K4_MIDPOINT_TOP - 200
+        logits[row, torch.arange(count, device=dev) * (vocab // count)] = K4_MIDPOINT_TOP
+    good, err_k = check_beam_topk(logits, kw, dtype)
+    ok &= good
+    # the general paths: rows that are not 16-byte vectors (V = 9,999)
+    g4 = torch.Generator(device=dev).manual_seed(SEED + 4)
+    off = torch.randn(OFF_ROWS, K4_OFF_WIDTH, generator=g4, device=dev).to(dtype)
+    ok &= check_beam_topk(off, k4_constraints(g4, OFF_ROWS, K4_OFF_WIDTH), dtype, f" V={K4_OFF_WIDTH}")[0]
+    del off
     record("beam_topk", err_k,
            *turns(lambda: k4.beam_topk(logits, BEAM, **kw), lambda: k4.beam_topk_plain(logits, BEAM, **kw),
                   lambda: torch.topk(torch.log_softmax(logits, dim=-1), BEAM)),
-           n * vocab * es + n * 5 + 3 * n * BEAM * 4,
+           k4_bytes(n, vocab, BEAM, dtype),
            flops((torch.float32, 4 * n * vocab)))
+    # Up-Down's serving step: 1024 images x beam 5 rows
+    n_ud = UPDOWN_BATCHES[-1] * BEAM
+    ud_logits, ud_kw = logits[:n_ud], {key: val[:n_ud] if torch.is_tensor(val) else val for key, val in kw.items()}
+    if timing:
+        t_k, t_p, t_l = turns_ms(lambda: k4.beam_topk(ud_logits, BEAM, **ud_kw),
+                                 lambda: k4.beam_topk_plain(ud_logits, BEAM, **ud_kw),
+                                 lambda: torch.topk(torch.log_softmax(ud_logits, dim=-1), BEAM))
+        log(f"[kernel] beam_topk {dname} at Up-Down's N={n_ud}: ms={t_k:.4f} plain_ms={t_p:.4f} library_ms={t_l:.4f} "
+            f"bound_ms={bound_ms(k4_bytes(n_ud, vocab, BEAM, dtype), {})[0]:.4f} (held windows in turns)")
+        if dtype == torch.bfloat16:
+            results["beam_topk"].update(updown_ms=t_k, updown_plain_ms=t_p, updown_library_ms=t_l)
     return ok
 
 
@@ -1091,6 +1234,46 @@ def run_main_path(model_bf16, gen, b, expected, make=make_batch, label="main") -
     log(f"[{label}] bf16 batch {b}: {b / best:.1f} captions/s (best of 3: {best * 1e3:.1f} ms per encode+decode; "
         f"encode alone {enc_ms:.1f} ms); launches {counts}")
     return counts
+
+
+def path_topk_times(model, batch, results: dict, label: str) -> None:
+    """K4 on the logits that one caption run of `model` hands it (every decode
+    step's rows, constraints and width, captured as the beam search calls
+    K4), in held windows in turns with its plain version and one library call
+    over the same calls; times per call. K4's selection costs more where many
+    of a row's entries round to its best bf16 log-prob, as in a random-weight
+    model's flat rows, than on the kernel phase's N(0, 1) logits."""
+    from sparse_caption_tpu_torch.decoding import beam as beam_mod
+    from sparse_caption_tpu_torch.kernels import beam_topk as k4
+
+    calls = []
+
+    def capture(logits, k, **kw):
+        calls.append((logits.clone(), k, {key: v.clone() if torch.is_tensor(v) else v for key, v in kw.items()}))
+        return k4.beam_topk(logits, k, **kw)
+
+    with mock.patch.object(beam_mod, "beam_topk", capture):
+        caption(model, batch)
+    ties, spread = 0.0, 0.0  # entries of a row at its best log-prob (in the logits' dtype); the logits' std
+    for x, _, _ in calls:
+        lp = torch.log_softmax(x, dim=-1)
+        ties += float((lp == lp.max(dim=1, keepdim=True).values).sum(dim=1).float().mean())
+        spread += float(x.float().std(dim=1).mean())
+        del lp
+    t_k, t_p, t_l = (t / len(calls) for t in turns_ms(
+        lambda: [k4.beam_topk(x, k, **kw) for x, k, kw in calls],
+        lambda: [k4.beam_topk_plain(x, k, **kw) for x, k, kw in calls],
+        lambda: [torch.topk(torch.log_softmax(x, dim=-1), k) for x, k, _ in calls]))
+    rows, vocab = calls[0][0].shape
+    bnd = bound_ms(k4_bytes(rows, vocab, calls[0][1], calls[0][0].dtype), {})[0]
+    log(f"[kernel] beam_topk on the {label} path's logits ({len(calls)} calls of {rows} rows, "
+        f"on average {ties / len(calls):.1f} entries at the row's best log-prob, logits' std {spread / len(calls):.4f}): "
+        f"ms={t_k:.4f} plain_ms={t_p:.4f} "
+        f"library_ms={t_l:.4f} bound_ms={bnd:.4f} per call (held windows in turns)")
+    results["beam_topk"].update({f"{label}_path_ms": t_k, f"{label}_path_plain_ms": t_p,
+                                 f"{label}_path_library_ms": t_l, f"{label}_path_ties": ties / len(calls),
+                                 f"{label}_path_logit_std": spread / len(calls)})
+    del calls
 
 
 def profile_window(label: str, fn) -> None:
@@ -1722,12 +1905,34 @@ def scst_whole_step_check(seed: int, gen, build=build_scst_model, make=make_batc
 
 
 # ----------------------------------------------------------- Up-Down path
-def check_updown_kernels(gen, dtype, results: dict) -> bool:
+def bf16_tanh_agrees() -> bool:
+    """K12's bf16 tanh (a table of tanhf results and its two limits) against
+    the plain version's `torch.tanh`, bit for bit on all 65,536 bf16 values
+    (NaN for NaN)."""
+    from sparse_caption_tpu_torch.kernels import _build
+
+    x = torch.arange(-32768, 32768, device="cuda", dtype=torch.int32).to(torch.int16).view(torch.bfloat16)
+    y = torch.empty_like(x)
+    fn = _build.library("additive_attention").sct_bf16_tanh
+    fn.restype, fn.argtypes = ctypes.c_int, [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
+    if fn(x.data_ptr(), y.data_ptr(), x.numel(), _build.stream_handle(x)) != 0:
+        raise RuntimeError("sct_bf16_tanh failed to launch")
+    ref = torch.tanh(x)
+    bad = int((~((y.view(torch.int16) == ref.view(torch.int16)) | (torch.isnan(y) & torch.isnan(ref)))).sum())
+    log(f"[rounding] additive_attention bf16 tanh: {bad} of {x.numel()} bf16 values differ from torch.tanh "
+        f"{'ok' if bad == 0 else 'FAIL'}")
+    return bad == 0
+
+
+def check_updown_kernels(gen, dtype, results: dict, timing: bool = True) -> bool:
     """K11, K12 and K13 against their plain versions: K11 and K12 forward at
     the serving shape (1024 images x 5 beams), K13 forward at the XE shape
     (256 x 5 captions x 17 steps); backwards in f32 at the XE shape; each with
-    a planted fault; bf16 times (forward at the serving shape, and forward +
-    backward at the XE shape as `xe_ms`) into the JSON line."""
+    a planted fault; K12 in bf16 also bit by bit (forward at the serving and
+    SCST shapes and at off shapes, backward at the XE shape), its serving
+    output against the training-mode forward's; bf16 times (with `timing`:
+    forward at the serving shape, and forward + backward at the XE shape as
+    `xe_ms`) into the JSON line."""
     from sparse_caption_tpu_torch.kernels import additive_attention as k12
     from sparse_caption_tpu_torch.kernels import lstm_cell as k11
     from sparse_caption_tpu_torch.kernels import vocab_log_softmax as k13
@@ -1739,6 +1944,7 @@ def check_updown_kernels(gen, dtype, results: dict) -> bool:
     h, a, d, r, vocab = UPDOWN["rnn_size"], UPDOWN["att_hid_size"], UPDOWN["rnn_size"], REGIONS, UPDOWN["vocab_size"]
     n_s, b_s = UPDOWN_BATCHES[-1] * BEAM, UPDOWN_BATCHES[-1]  # serving rows, images
     n_t, b_t = TRAIN_BIG_BATCH * SEQ_PER_IMG, TRAIN_BIG_BATCH  # XE rows, images
+    turns = turns_ms if timing else no_turns
     ok = True
 
     def compare(name, out, ref, scale=0.0, sum_scale=0.0, fault=None):
@@ -1780,8 +1986,8 @@ def check_updown_kernels(gen, dtype, results: dict) -> bool:
         fns.append(lambda: torch.ops.aten._thnn_fused_lstm_cell(gx, gh, c))
     except RuntimeError as exc:  # a dtype the library kernel does not take
         log(f"[kernel] lstm_cell {dname}: aten._thnn_fused_lstm_cell refused: {str(exc).splitlines()[0]}")
-    ms, plain_ms, *lib = turns_ms(*fns)
-    xe_ms, xe_plain_ms = turns_ms(lambda: fwd_bwd(k11.lstm_cell, tg, cot), lambda: fwd_bwd(k11.lstm_cell_plain, tg, cot))
+    ms, plain_ms, *lib = turns(*fns)
+    xe_ms, xe_plain_ms = turns(lambda: fwd_bwd(k11.lstm_cell, tg, cot), lambda: fwd_bwd(k11.lstm_cell_plain, tg, cot))
     record("lstm_cell", err, ms, plain_ms, lib[0] if lib else None, k11_bytes(n_s, h, dtype), {}, xe_ms)
     log(f"[kernel] lstm_cell {dname} fwd+bwd at {n_t}x{h}: plain_ms={xe_plain_ms:.4f} "
         f"bound_ms={bound_ms(k11_bytes(n_t, h, dtype, backward=True), {})[0]:.4f}")
@@ -1789,11 +1995,12 @@ def check_updown_kernels(gen, dtype, results: dict) -> bool:
 
     # K12: p_att (B, R, A), att (B, R, D), the rows' att_h (N, A); scores O(1)
     # (w ~ N(0, 1 / A)); padded regions, and image 0 with every region padded
-    def k12_inputs(b, n):
-        mask = random_region_mask(gen, b, r, dev)
+    def k12_inputs(b, n, g=gen, r=r, d=d, a=a):
+        mask = random_region_mask(g, b, r, dev)
         mask[0] = False
-        w = (torch.randn(a, generator=gen, device=dev) / a ** 0.5).to(dtype)
-        return rnd(b, r, a), rnd(n, a), w, (torch.ones(1, device=dev) * 0.3).to(dtype), mask, rnd(b, r, d)
+        w = (torch.randn(a, generator=g, device=dev) / a ** 0.5).to(dtype)
+        x = lambda *shape: torch.randn(*shape, generator=g, device=dev).to(dtype)  # noqa: E731
+        return x(b, r, a), x(n, a), w, (torch.ones(1, device=dev) * 0.3).to(dtype), mask, x(b, r, d)
 
     p_att, att_h, w, bias, mask, att = k12_inputs(b_s, n_s)
     out_k = k12.additive_attention(p_att, att_h, w, bias, mask, att)
@@ -1803,13 +2010,23 @@ def check_updown_kernels(gen, dtype, results: dict) -> bool:
     zero = bool((out_k[:BEAM] == 0).all())
     log(f"[kernel] additive_attention {dname}: image with every region padded gives zeros={zero}")
     ok &= zero
+    if dtype == torch.bfloat16:
+        ok &= bf16_tanh_agrees()
+        ok &= rounding_share("additive_attention out", out_k, out_p, K12_SHARE_LIMIT, K12_FAR_LIMIT)
+    # serving (no input requires a gradient) against the training-mode forward, bit for bit
+    held = leaves(p_att, att_h, w, bias, att)
+    out_t = k12.additive_attention(held[0], held[1], held[2], held[3], mask, held[4])
+    same = bool(torch.equal(out_t.detach(), out_k)) and out_t.requires_grad
+    log(f"[kernel] additive_attention {dname}: serving output equals the training-mode forward's bit for bit={same}")
+    ok &= same
+    del held, out_t
     ti = k12_inputs(b_t, n_t)
     tin = leaves(ti[0], ti[1], ti[2], ti[3], ti[5])
     run12 = lambda fn: (lambda p, q, w_, b_, at: fn(p, q, w_, b_, ti[4], at))  # noqa: E731
     cot = rnd(n_t, d)
+    _, kg = fwd_bwd(run12(k12.additive_attention), tin, cot)
+    _, pg = fwd_bwd(run12(k12.additive_attention_plain), tin, cot)
     if dtype == torch.float32:
-        _, kg = fwd_bwd(run12(k12.additive_attention), tin, cot)
-        _, pg = fwd_bwd(run12(k12.additive_attention_plain), tin, cot)
         for nm, kt, pt in zip(("d p_att", "d att_h"), kg[:2], pg[:2]):
             compare(f"additive_attention_bwd {nm}", kt, pt)
         compare("additive_attention_bwd d att", kg[4], pg[4])
@@ -1819,9 +2036,17 @@ def check_updown_kernels(gen, dtype, results: dict) -> bool:
         dw_scale = pg[2].float().abs().max().item()
         for nm, kt, pt in zip(("d w", "d bias"), kg[2:4], pg[2:4]):
             compare(f"additive_attention_bwd {nm}", kt, pt, sum_scale=dw_scale)
-        # the Up-Down SCST shape: 60 samples per image, in 4 chunks of rows
-        b_c = UPDOWN_SCST_BATCHES[-1]
-        si = k12_inputs(b_c, b_c * UPDOWN_SCST_SAMPLES)
+    else:  # bit by bit against autograd's bf16 gradients of the plain version
+        for nm, i in (("d p_att", 0), ("d att_h", 1), ("d att", 4)):
+            ok &= rounding_share(f"additive_attention_bwd {nm}", kg[i], pg[i], K12_BWD_SHARE_LIMIT, K12_BWD_FAR_LIMIT)
+    del kg, pg
+    # the Up-Down SCST shape: 60 samples per image, in 4 chunks of rows; bf16
+    # checks, and the off shapes (the general path where D is off the 16-byte
+    # vector), on inputs of their own generator
+    b_c = UPDOWN_SCST_BATCHES[-1]
+    g12 = torch.Generator(device=dev).manual_seed(SEED + 12)
+    si = k12_inputs(b_c, b_c * UPDOWN_SCST_SAMPLES, gen if dtype == torch.float32 else g12)
+    if dtype == torch.float32:
         sin = leaves(si[0], si[1], si[2], si[3], si[5])
         run_s = lambda fn: (lambda p, q, w_, b_, at: fn(p, q, w_, b_, si[4], at))  # noqa: E731
         scot = rnd(b_c * UPDOWN_SCST_SAMPLES, d)
@@ -1832,15 +2057,33 @@ def check_updown_kernels(gen, dtype, results: dict) -> bool:
         for nm, kt, pt, sc in zip(("d p_att", "d att_h", "d w", "d bias", "d att"), sg_k, sg_p,
                                   (0.0, 0.0, dw_scale, dw_scale, 0.0)):
             compare(f"additive_attention_bwd {nm} {b_c}x{UPDOWN_SCST_SAMPLES}", kt, pt, sum_scale=sc)
-        del si, sin, scot, so_k, sg_k, so_p, sg_p
-    ms, plain_ms = turns_ms(lambda: k12.additive_attention(p_att, att_h, w, bias, mask, att),
+        del sin, scot, so_k, sg_k, so_p, sg_p
+    else:
+        so_k, so_p = k12.additive_attention(*si), k12.additive_attention_plain(*si)
+        compare(f"additive_attention {b_c}x{UPDOWN_SCST_SAMPLES}", so_k, so_p, rms(si[5]))
+        ok &= rounding_share(f"additive_attention {b_c}x{UPDOWN_SCST_SAMPLES} out", so_k, so_p, K12_SHARE_LIMIT,
+                             K12_FAR_LIMIT)
+        del so_k, so_p
+    del si
+    for r_x, a_x, d_x, rows_x in K12_OFF_SHAPES:
+        xi = k12_inputs(b_c, b_c * rows_x, g12, r_x, d_x, a_x)
+        xo_k, xo_p = k12.additive_attention(*xi), k12.additive_attention_plain(*xi)
+        tag = f"R={r_x} A={a_x} D={d_x} rows={rows_x}"
+        compare(f"additive_attention {tag}", xo_k, xo_p, rms(xi[5]))
+        ok &= bool((xo_k[:rows_x] == 0).all())
+        if dtype == torch.bfloat16:
+            ok &= rounding_share(f"additive_attention {tag} out", xo_k, xo_p, K12_SHARE_LIMIT, K12_FAR_LIMIT)
+        del xi, xo_k, xo_p
+    ms, plain_ms = turns(lambda: k12.additive_attention(p_att, att_h, w, bias, mask, att),
                             lambda: k12.additive_attention_plain(p_att, att_h, w, bias, mask, att))
-    xe_ms, xe_plain_ms = turns_ms(lambda: fwd_bwd(run12(k12.additive_attention), tin, cot),
+    xe_ms, xe_plain_ms = turns(lambda: fwd_bwd(run12(k12.additive_attention), tin, cot),
                                   lambda: fwd_bwd(run12(k12.additive_attention_plain), tin, cot))
-    log(f"[kernel] additive_attention {dname} fwd+bwd at {n_t} rows: plain_ms={xe_plain_ms:.4f}")
-    record("additive_attention", err, ms, plain_ms, None,
-           (b_s * r * (a + d) + n_s * (a + d) + a + 1) * es + b_s * r,
+    log(f"[kernel] additive_attention {dname} fwd+bwd at {n_t} rows: plain_ms={xe_plain_ms:.4f} bound_ms="
+        f"{bound_ms(k12_bytes(b_t, SEQ_PER_IMG, r, a, d, dtype, backward=True), {})[0]:.4f}")
+    record("additive_attention", err, ms, plain_ms, None, k12_bytes(b_s, BEAM, r, a, d, dtype),
            flops((torch.float32, n_s * r * (4 * a + 2 * d))), xe_ms)
+    if dtype == torch.bfloat16:
+        results["additive_attention"]["xe_plain_ms"] = xe_plain_ms
     del p_att, att_h, att, out_k, out_p, ti, tin, cot
 
     # K13: the XE step's logits (256 x 5 x 17 rows x 10000) with an offset of
@@ -2212,6 +2455,7 @@ def main() -> int:
     log(f"[updown] peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     batch = make_updown_batch(gen, UPDOWN_BATCHES[-1], torch.bfloat16)
     profile_window(f"Up-Down encode + decode, bf16 batch {UPDOWN_BATCHES[-1]}", lambda: caption(updown_bf16, batch))
+    path_topk_times(updown_bf16, batch, results, "updown")
     del updown_bf16, batch
     if not whole_path_check(updown, gen, make_updown_batch, "updown whole-path") or not greedy_check(updown, gen):
         return 1

@@ -11,8 +11,10 @@ their image's ``p_att`` and ``att``, which the JAX package repeats per row
 instead (the same numbers). An image's rows run in chunks of at most 16
 per block (SCST's 60 samples in 4), their backward partials summed in chunk
 order. CUDA tensors launch the kernel in both directions (an autograd
-Function); CPU tensors run ``additive_attention_plain``. Nothing else falls
-back.
+Function) when a gradient may follow; serving (under ``torch.no_grad()``, or
+no input requiring a gradient) launches the forward alone, which then writes
+no probabilities or weights for a backward. CPU tensors run
+``additive_attention_plain``. Nothing else falls back.
 """
 
 from __future__ import annotations
@@ -47,17 +49,24 @@ def additive_attention_plain(p_att, att_h, w, b, mask, att):
     return torch.einsum("nr,nrd->nd", weight, att)
 
 
+def _forward(p_att, att_h, w, b, mask, att, saved: bool):
+    """The forward kernel's output; with `saved`, also the f32 probabilities
+    and weights (N, R) the backward reads (else the kernel writes neither)."""
+    bsz, r, a = p_att.shape
+    n, d = att_h.shape[0], att.shape[2]
+    out = torch.empty((n, d), dtype=att.dtype, device=att.device)
+    prob = torch.empty((n, r), dtype=torch.float32, device=att.device) if saved else None
+    weight = torch.empty_like(prob) if saved else None
+    KERNEL.launch(_build.dtype_code(att), p_att.data_ptr(), att_h.data_ptr(), w.data_ptr(), b.data_ptr(),
+                  mask.data_ptr(), att.data_ptr(), out.data_ptr(), _build.ptr(prob), _build.ptr(weight), bsz,
+                  n // bsz, r, a, d, _build.stream_handle(att))
+    return out, prob, weight
+
+
 class _AdditiveAttentionFn(torch.autograd.Function):
     @staticmethod
     def forward(ctx, p_att, att_h, w, b, mask, att):
-        bsz, r, a = p_att.shape
-        n, d = att_h.shape[0], att.shape[2]
-        out = torch.empty((n, d), dtype=att.dtype, device=att.device)
-        prob = torch.empty((n, r), dtype=torch.float32, device=att.device)
-        weight = torch.empty_like(prob)
-        KERNEL.launch(_build.dtype_code(att), p_att.data_ptr(), att_h.data_ptr(), w.data_ptr(), b.data_ptr(),
-                      mask.data_ptr(), att.data_ptr(), out.data_ptr(), prob.data_ptr(), weight.data_ptr(), bsz,
-                      n // bsz, r, a, d, _build.stream_handle(att))
+        out, prob, weight = _forward(p_att, att_h, w, b, mask, att, saved=True)
         ctx.save_for_backward(p_att, att_h, w, mask, att, prob, weight)
         return out
 
@@ -102,4 +111,6 @@ def additive_attention(p_att, att_h, w, b, mask, att):
         return additive_attention_plain(p_att, att_h, w, b, mask, att)
     if r > MAX_REGIONS:
         raise ValueError(f"additive_attention kernel takes R <= {MAX_REGIONS}; got R={r}")
-    return _AdditiveAttentionFn.apply(p_att, att_h, w, b, mask, att)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (p_att, att_h, w, b, att)):
+        return _AdditiveAttentionFn.apply(p_att, att_h, w, b, mask, att)
+    return _forward(p_att, att_h, w, b, mask, att, saved=False)[0]

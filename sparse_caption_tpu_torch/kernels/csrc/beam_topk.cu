@@ -17,25 +17,49 @@
 // Bound on the H100 (beam 5, vocab 10000): bytes. The logits are read once:
 // at B = 2048 (N = 10240 rows) 205 MB of bf16, 0.06 ms at 3.35 TB/s.
 //
-// Design: one block of 256 threads per row. Pass 1 keeps an online max/sum
-// per thread and merges them across the block. For k <= 32, pass 2 rereads
-// the row (from L2: 20 KB per row) and keeps a sorted per-thread top-k in
-// registers (a list of 8, 16 or 32 entries, chosen at compile time from k);
-// k rounds of a block-wide argmax then merge the per-thread lists. For
-// k > 32 (any k <= V), pass 2 writes the row's constrained f32 values into
-// shared memory (40 KB at V = 10000), a block-wide radix select (four 8-bit
-// passes of a shared histogram over order-preserving uint32 keys) finds the
-// k-th value, the values above it and the first of the values equal to it
-// in index order are gathered, and a bitonic sort of those k entries (value
-// descending, index ascending, packed in one uint64) orders them.
+// Design: the held path (k <= 32, rows of whole 16-byte vectors, 16-byte
+// aligned, V <= 320 threads x 32 values) reads each row once: one block per
+// row, sized to the row as K13's held path (320 threads at V = 10,000; four
+// blocks an SM in bf16, three in f32), each thread holding its 32 values as
+// raw 16-byte vectors, consecutive threads on consecutive vectors, every
+// load issued before any math. The row's max and log-sum-exp come from
+// `held_row_stats` (row_softmax.cuh): K13's reduction, in K13's order, so
+// each log-prob is K13's bit for bit. A threshold then leaves the top-k only
+// a few entries to sort: each thread's best constrained value is the
+// log-prob of its largest logit (the at most three threads that hold a
+// penalised entry take no part), and the k-th largest of the threads' best
+// is reached by k entries of the row, so by every entry of its best k. Each
+// thread marks which of its 32 logits can round to a log-prob at the
+// threshold (a few a row when the logits spread; many when they tie at the
+// top); its warp walks the slots marked in any lane, vector by vector, and
+// inserts their packed (value, index) keys (a key orders by value, then by
+// the lower index) into the warp's list of its best k, held one entry a
+// lane, one key at a time by ballots and shuffles. The selection is a chain
+// of dependent warp steps, so its maxima are single `redux.sync`
+// instructions on order-preserving keys: k rounds in each warp and k over
+// the warps for the threshold, k over the warps' lists for the result (warp
+// 0). Four barriers a row in all (max, sum, threshold, lists). The raw
+// log-prob of a winner is its value unless a penalty touched it (then it is
+// recomputed from its logit).
+// For k > 32 (any k <= V), one block of 256 threads per row writes the row's
+// constrained f32 values into shared memory (40 KB at V = 10000); a
+// block-wide radix select (four 8-bit passes of a shared histogram
+// over order-preserving uint32 keys) finds the k-th value, the values above it
+// and the first of the values equal to it in index order are gathered, and a
+// bitonic sort of those k entries (value descending, index ascending, packed
+// in one uint64) orders them. Rows off the held path with k <= 32 (V not whole
+// vectors, unaligned, or too long) take a scalar kernel: an online max / sum,
+// then a second pass that rereads the row into per-thread lists of 8, 16 or
+// 32 and k rounds of a block-wide argmax.
 #include <climits>
 
-#include "common.cuh"
+#include "row_softmax.cuh"
 
 namespace sct {
 
 constexpr int kTopkThreads = 256;
 constexpr int kRegisterK = 32;  // largest k kept in per-thread register lists
+constexpr int kTopkHeldMaxThreads = 320;  // the held path's largest block (V <= 10,240)
 constexpr float kNegBig = -1e18f;  // beam.py NEG_BIG
 
 // Row statistics of pass 1: the max and log(sum exp(x - max)) of one row of
@@ -72,17 +96,192 @@ __device__ __forceinline__ void row_logsumexp(const T* __restrict__ x, int V, fl
   __syncthreads();  // red_a / red_b are reused by the caller
 }
 
-// The constrained value c[i] of the module notes.
-template <typename T>
-__device__ __forceinline__ float constrained(const T* __restrict__ x, int i, float mx, float logsum, int ban,
-                                             bool no_eos, int eos_id, int unk_id) {
-  float c = round_to<T>((to_f(x[i]) - mx) - logsum);
+// The penalties of the module notes, added in f32 to the log-prob lp of index i.
+__device__ __forceinline__ float penalize(float c, int i, int ban, bool no_eos, int eos_id, int unk_id) {
   if (i == ban) c += kNegBig;
   if (no_eos && i == eos_id) c += kNegBig;
   if (i == unk_id) c += -1000.f;
   return c;
 }
 
+__device__ __forceinline__ bool penalized(int i, int ban, bool no_eos, int eos_id, int unk_id) {
+  return i == ban || (no_eos && i == eos_id) || i == unk_id;
+}
+
+// The constrained value c[i] of the module notes.
+template <typename T>
+__device__ __forceinline__ float constrained(const T* __restrict__ x, int i, float mx, float logsum, int ban,
+                                             bool no_eos, int eos_id, int unk_id) {
+  return penalize(round_to<T>((to_f(x[i]) - mx) - logsum), i, ban, no_eos, eos_id, unk_id);
+}
+
+// order-preserving uint32 key of a float (larger float, larger key; -0 as +0)
+__device__ __forceinline__ unsigned int order_key(float f) {
+  const unsigned int u = __float_as_uint(f == 0.f ? 0.f : f);
+  return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
+}
+
+// (value, index) as one key: a larger value ranks above, and of equal values
+// the lower index; 0 is below every key of a real entry
+__device__ __forceinline__ unsigned long long topk_key(float v, int i) {
+  return ((unsigned long long)order_key(v) << 32) | (0xFFFFFFFFu - (unsigned int)i);
+}
+__device__ __forceinline__ int key_index(unsigned long long key) { return (int)(0xFFFFFFFFu - (unsigned int)key); }
+// the float of an order_key
+__device__ __forceinline__ float order_value(unsigned int u) {
+  return __uint_as_float((u & 0x80000000u) ? (u & 0x7FFFFFFFu) : ~u);
+}
+__device__ __forceinline__ float key_value(unsigned long long key) { return order_value((unsigned int)(key >> 32)); }
+
+// the warp's largest key: the largest value half, then the largest index half among it
+__device__ __forceinline__ unsigned long long warp_max_key(unsigned long long key) {
+  const unsigned int hi = __reduce_max_sync(0xffffffffu, (unsigned int)(key >> 32));
+  const unsigned int lo = __reduce_max_sync(0xffffffffu, (unsigned int)(key >> 32) == hi ? (unsigned int)key : 0u);
+  return ((unsigned long long)hi << 32) | lo;
+}
+
+// The held path: one block per row of `units` 16-byte vectors; thread t
+// holds vectors t, t + nt, ... (PER of them).
+template <typename T>
+__global__ void __launch_bounds__(kTopkHeldMaxThreads, sizeof(T) == 2 ? 4 : 3)
+beam_topk_held_kernel(const T* __restrict__ logits, int V, int k, const int* __restrict__ ban_token,
+                      const unsigned char* __restrict__ ban_eos, int eos_id, int unk_id, float* __restrict__ out_val,
+                      int* __restrict__ out_idx, float* __restrict__ out_raw) {
+  constexpr int UE = 16 / sizeof(T);
+  constexpr int PER = kRowHeld / UE;
+  constexpr unsigned kAll = 0xffffffffu;
+  __shared__ float red[2][32];
+  __shared__ unsigned long long cand[32 * kRegisterK];  // each warp's best k, best first
+  __shared__ unsigned int wbest[32 * kRegisterK];  // each warp's k best of its threads' best values
+  const int nt = blockDim.x, tid = threadIdx.x, lane = tid & 31, warp = tid / 32;
+  const int units = V / UE;
+  const int row = blockIdx.x;
+  const T* x = logits + (size_t)row * V;
+  uint4 raw[PER];  // kept packed: the whole row's loads in flight at once
+#pragma unroll
+  for (int j = 0; j < PER; ++j) {
+    const int u = j * nt + tid;
+    raw[j] = u < units ? ld16(x + (size_t)u * UE) : make_uint4(0u, 0u, 0u, 0u);
+  }
+  const int ban = ban_token != nullptr ? ban_token[row] : -1;
+  const bool no_eos = ban_eos != nullptr && ban_eos[row] != 0;
+  float m, logsum, xmax;
+  held_row_stats<T, PER>(raw, units, red[0], red[1], m, logsum, xmax);
+
+  // this thread's best constrained value: the log-prob of its largest logit
+  // (penalties only lower a value); a thread that holds a penalised entry (at
+  // most three a row) offers none
+  auto owns = [&](int i) { return i >= 0 && i < units * UE && (i / UE) % nt == tid; };
+  float cbest = xmax == -INFINITY ? -INFINITY : round_to<T>((xmax - m) - logsum);
+  if (owns(ban) || (no_eos && owns(eos_id)) || owns(unk_id)) cbest = -INFINITY;
+  // the row's threshold: the k-th largest of the threads' best values (k
+  // entries of the row reach it, so every entry of the row's best k does):
+  // k rounds of a warp argmax on order keys in each warp, then k over the warps'
+  const int nwarps = nt / 32;
+  const unsigned int ckey = order_key(cbest);  // above 0 even for -inf
+  {
+    bool out = false;
+    unsigned int round_best = 0u;
+    for (int r = 0; r < k; ++r) {
+      const unsigned int best = __reduce_max_sync(kAll, out ? 0u : ckey);
+      if (lane == r) round_best = best;
+      const unsigned at = __ballot_sync(kAll, !out && ckey == best);
+      if (lane == __ffs(at) - 1) out = true;
+    }
+    if (lane < k) wbest[warp * kRegisterK + lane] = round_best;
+  }
+  __syncthreads();
+  unsigned int thr_key = 0u;
+  {
+    int head = 0;
+    for (int r = 0; r < k; ++r) {
+      const bool live = lane < nwarps && head < k;
+      const unsigned int v = live ? wbest[lane * kRegisterK + head] : 0u;
+      thr_key = __reduce_max_sync(kAll, v);
+      const unsigned at = __ballot_sync(kAll, live && v == thr_key);
+      if (lane == __ffs(at) - 1) ++head;
+    }
+  }
+  const float thr = thr_key == 0u ? -INFINITY : order_value(thr_key);
+  // a logit below x_lo cannot round to a log-prob that reaches thr (a margin
+  // of one ulp of the log-prob's dtype at thr, and of f32's over the two
+  // subtractions)
+  const float x_lo = thr == -INFINITY ? -INFINITY
+                                      : (thr + m + logsum) - fabsf(thr) * (sizeof(T) == 2 ? 0x1p-7f : 0x1p-22f) -
+                                            (fabsf(thr) + fabsf(m) + fabsf(logsum)) * 0x1p-20f;
+
+  // the warp's best k, lane q holding entry q (descending keys; 0: empty):
+  // the entries whose logit reaches x_lo (a few a row) are inserted one at a
+  // time, each once it beats the list's k-th entry
+  unsigned long long entry = 0ull, last = 0ull;  // last: entry k - 1
+  unsigned reach = 0u;  // bit j UE + e: this thread's value e of vector j reaches x_lo
+  if (xmax >= x_lo) {
+#pragma unroll
+    for (int j = 0; j < PER; ++j) {
+      float v[UE];
+      unpack16<T>(raw[j], v);
+#pragma unroll
+      for (int e = 0; e < UE; ++e)
+        if (j * nt + tid < units && v[e] >= x_lo) reach |= 1u << (j * UE + e);
+    }
+  }
+  // the slots marked in any lane, vector by vector
+  const unsigned any_reach = __reduce_or_sync(kAll, reach);
+#pragma unroll
+  for (int j = 0; j < PER; ++j) {
+    unsigned slots = (any_reach >> (j * UE)) & ((1u << UE) - 1u);
+    if (slots == 0u) continue;
+    float v[UE];
+    unpack16<T>(raw[j], v);
+    for (; slots != 0u; slots &= slots - 1u) {
+      const int e = __ffs(slots) - 1;
+      float xv = v[0];
+#pragma unroll
+      for (int q = 1; q < UE; ++q)
+        if (q == e) xv = v[q];
+      const int i = (j * nt + tid) * UE + e;
+      const float lp = round_to<T>((xv - m) - logsum);
+      const unsigned long long mine =
+          (reach >> (j * UE + e)) & 1u ? topk_key(penalize(lp, i, ban, no_eos, eos_id, unk_id), i) : 0ull;
+      // the lanes whose key beats the list's k-th entry, lowest lane first;
+      // each insertion raises the k-th entry, and lanes it passes drop out
+      // (many equal logits cost one ballot, not one insertion each)
+      unsigned pending = __ballot_sync(kAll, mine > last);
+      while (pending != 0u) {
+        const int src = __ffs(pending) - 1;
+        const unsigned long long key = __shfl_sync(kAll, mine, src);
+        const int pos = __popc(__ballot_sync(kAll, lane < k && entry > key));
+        const unsigned long long above = __shfl_up_sync(kAll, entry, 1);
+        if (lane == pos) entry = key;
+        else if (lane > pos && lane < k) entry = above;
+        last = __shfl_sync(kAll, entry, k - 1);
+        pending &= __ballot_sync(kAll, mine > last) & ~(1u << src);
+      }
+    }
+  }
+  if (lane < k) cand[warp * kRegisterK + lane] = entry;
+  __syncthreads();
+  if (warp != 0) return;
+  // the row's best k: k rounds over the warps' lists, lane w reading warp w's
+  int head = 0;
+  unsigned long long result = 0ull;
+  for (int r = 0; r < k; ++r) {
+    const unsigned long long key = lane < nwarps && head < k ? cand[lane * kRegisterK + head] : 0ull;
+    const unsigned long long best = warp_max_key(key);
+    if (key == best) ++head;
+    if (lane == r) result = best;
+  }
+  if (lane < k) {
+    const int i = key_index(result);
+    const float val = key_value(result);
+    const size_t o = (size_t)row * k + lane;
+    out_val[o] = val;
+    out_idx[o] = i;
+    out_raw[o] = penalized(i, ban, no_eos, eos_id, unk_id) ? round_to<T>((to_f(x[i]) - m) - logsum) : val;
+  }
+}
+
+// Rows off the held path with k <= kRegisterK: a scalar kernel of 256 threads a row.
 template <typename T, int KMAX>
 __global__ void __launch_bounds__(kTopkThreads)
 beam_topk_kernel(const T* __restrict__ logits, int V, int k, const int* __restrict__ ban_token,
@@ -176,12 +375,6 @@ beam_topk_kernel(const T* __restrict__ logits, int V, int k, const int* __restri
     __syncthreads();
     if (mine == winner) ++head;
   }
-}
-
-// order-preserving uint32 key of a float (larger float, larger key; -0 as +0)
-__device__ __forceinline__ unsigned int order_key(float f) {
-  const unsigned int u = __float_as_uint(f == 0.f ? 0.f : f);
-  return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
 }
 
 // k > kRegisterK: radix select over the row's constrained values in shared
@@ -304,7 +497,10 @@ cudaError_t launch(const void* logits, int N, int V, int k, const void* ban_toke
   float* ov = static_cast<float*>(out_val);
   int* oi = static_cast<int*>(out_idx);
   float* orw = static_cast<float*>(out_raw);
-  if (k <= 8) {
+  const int held = aligned_to(logits, 16) ? held_row_threads<T>(V, kTopkHeldMaxThreads) : 0;
+  if (held > 0 && k <= kRegisterK) {
+    beam_topk_held_kernel<T><<<N, held, 0, stream>>>(lg, V, k, bt, be, eos_id, unk_id, ov, oi, orw);
+  } else if (k <= 8) {
     beam_topk_kernel<T, 8><<<N, kTopkThreads, 0, stream>>>(lg, V, k, bt, be, eos_id, unk_id, ov, oi, orw);
   } else if (k <= 16) {
     beam_topk_kernel<T, 16><<<N, kTopkThreads, 0, stream>>>(lg, V, k, bt, be, eos_id, unk_id, ov, oi, orw);

@@ -22,10 +22,11 @@
 // read once (38.4 MB, 11.5 us at 3.35 TB/s); the 2.4M Philox calls and 19M
 // logf are below the card's integer and SFU rates.
 //
-// Design: one block of 256 threads per row, as K4. Pass 1 keeps an online
-// max/sum per thread and merges them across the block; pass 2 rereads the
-// row (from L2: 40 KB per row), each thread taking 4 consecutive columns per
-// Philox call, and keeps its best (z, index); a block-wide argmax merges them.
+// Design: one block of 256 threads per row, as K4's scalar path. Pass 1
+// keeps an online max/sum per thread and merges them across the block; pass
+// 2 rereads the row (from L2: 40 KB per row), each thread taking 4
+// consecutive columns per Philox call, and keeps its best (z, index); a
+// block-wide argmax merges them.
 #include <climits>
 #include <stdint.h>
 

@@ -1,5 +1,6 @@
 // 16-byte global accesses and per-thread cp.async copies for the byte-bound
-// row kernels (K6 residual + RefLayerNorm, K13 vocabulary log-softmax).
+// row kernels (K6 residual + RefLayerNorm, K13 vocabulary log-softmax, K4
+// beam top-K, K12 additive attention).
 //
 // `ld16` / `st16` move 16 bytes as raw bits, `unpack16<T>` widens them to
 // f32 and `pack16<T>` rounds f32 back to T (round to nearest even, as
@@ -12,7 +13,8 @@
 // thread issued since its last `cp_async_commit` form one group, and
 // `cp_async_wait<n>` returns once at most n of its groups are still in
 // flight. A thread that reads back only what it copied itself needs no
-// barrier beyond that wait.
+// barrier beyond that wait. `prefetch_l2` brings a line into L2 ahead of
+// its use.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -103,6 +105,11 @@ __device__ __forceinline__ uint2 ld_flags(const unsigned char* p) {
   return make_uint2(*reinterpret_cast<const uint32_t*>(p), 0u);
 }
 __device__ __forceinline__ bool flag(uint2 w, int i) { return (((i < 4 ? w.x : w.y) >> (8 * (i % 4))) & 0xffu) != 0; }
+
+// ask for the 128-byte line at p to be brought into L2 (no registers, no wait)
+__device__ __forceinline__ void prefetch_l2(const void* p) {
+  asm volatile("prefetch.global.L2 [%0];\n" ::"l"(p));
+}
 
 __device__ __forceinline__ uint32_t shared_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));

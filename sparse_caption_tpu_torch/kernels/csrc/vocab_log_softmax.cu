@@ -25,8 +25,8 @@
 // threads at V = 10,000), each thread holding 32 values of the row in
 // registers, loaded as 16-byte vectors, consecutive threads on consecutive
 // vectors. The forward reads x once: a block max over the held values, one
-// expf per element (no online rescale) and a block sum, then y from the
-// held values. The backward holds dy in registers and sums it while each
+// expf per element (no online rescale) and a block sum (`held_row_stats`,
+// row_softmax.cuh, which K4 shares), then y from the held values. The backward holds dy in registers and sums it while each
 // thread's part of the x row streams into shared memory with cp.async, then
 // writes dx from the two. Block reductions run in a fixed order (warp
 // shuffle tree, then the warps in order), so a run repeats bit for bit.
@@ -34,45 +34,21 @@
 // with odd V, or rows too long to hold) take the general path: 256 threads
 // per row, scalar loads, an online max / sum over the row in chunks of 256
 // elements, then a second pass that rereads the row.
-#include "common.cuh"
-#include "vec.cuh"
+#include "row_softmax.cuh"
 
 namespace sct {
 
 constexpr int kLsmThreads = 256;       // general path
 constexpr int kLsmWarps = kLsmThreads / 32;
 constexpr int kLsmMaxThreads = 1024;   // held path
-constexpr int kLsmHeld = 32;           // values a thread of the held path holds
 
 // ------------------------------------------------------------ held path
-// the row's max / sum over the block from each thread's value, in every
-// thread; red: 32 floats of shared memory per reduction
-__device__ __forceinline__ float block_max(float v, float* red) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x / 32;
-  v = warp_max(v);
-  if (lane == 0) red[warp] = v;
-  __syncthreads();
-  float r = -INFINITY;
-  for (int w = 0; w < (int)blockDim.x / 32; ++w) r = fmaxf(r, red[w]);
-  return r;
-}
-
-__device__ __forceinline__ float block_sum(float v, float* red) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x / 32;
-  v = warp_sum(v);
-  if (lane == 0) red[warp] = v;
-  __syncthreads();
-  float r = 0.f;
-  for (int w = 0; w < (int)blockDim.x / 32; ++w) r += red[w];
-  return r;
-}
-
 // one row per block; thread t holds the 16-byte vectors t, t + nt, ... (PER of them)
 template <typename Tin, typename Tout>
 __global__ void __launch_bounds__(kLsmMaxThreads)
 log_softmax_fwd_held_kernel(const Tin* __restrict__ x, Tout* __restrict__ y, float* __restrict__ stats, int V) {
   constexpr int UE = 16 / sizeof(Tin);
-  constexpr int PER = kLsmHeld / UE;
+  constexpr int PER = kRowHeld / UE;
   __shared__ float red[2][32];
   const int nt = blockDim.x, tid = threadIdx.x;
   const int units = V / UE;
@@ -83,28 +59,8 @@ log_softmax_fwd_held_kernel(const Tin* __restrict__ x, Tout* __restrict__ y, flo
     const int u = k * nt + tid;
     raw[k] = u < units ? ld16(x + base + (size_t)u * UE) : make_uint4(0u, 0u, 0u, 0u);
   }
-  float mloc = -INFINITY;
-#pragma unroll
-  for (int k = 0; k < PER; ++k) {
-    if (k * nt + tid < units) {
-      float v[UE];
-      unpack16<Tin>(raw[k], v);
-#pragma unroll
-      for (int i = 0; i < UE; ++i) mloc = fmaxf(mloc, v[i]);
-    }
-  }
-  const float m = block_max(mloc, red[0]);
-  float sloc = 0.f;
-#pragma unroll
-  for (int k = 0; k < PER; ++k) {
-    if (k * nt + tid < units) {
-      float v[UE];
-      unpack16<Tin>(raw[k], v);
-#pragma unroll
-      for (int i = 0; i < UE; ++i) sloc += expf(v[i] - m);
-    }
-  }
-  const float logsum = logf(block_sum(sloc, red[1]));
+  float m, logsum, mine;
+  held_row_stats<Tin, PER>(raw, units, red[0], red[1], m, logsum, mine);
 #pragma unroll
   for (int k = 0; k < PER; ++k) {
     const int u = k * nt + tid;
@@ -125,7 +81,7 @@ __global__ void __launch_bounds__(kLsmMaxThreads)
 log_softmax_bwd_held_kernel(const Tout* __restrict__ dy, const Tin* __restrict__ x, const float* __restrict__ stats,
                             Tin* __restrict__ dx, int V) {
   constexpr int UE = 16 / sizeof(Tin);
-  constexpr int PER = kLsmHeld / UE;
+  constexpr int PER = kRowHeld / UE;
   extern __shared__ __align__(16) unsigned char xs[];
   __shared__ float red[32];
   const int nt = blockDim.x, tid = threadIdx.x;
@@ -239,13 +195,10 @@ log_softmax_bwd_kernel(const Tout* __restrict__ dy, const Tin* __restrict__ x, c
 // or is not vector-aligned); `a` is x (16 bytes), `b` the Tout tensor
 template <typename Tin, typename Tout>
 int held_threads(int V, const void* a, const void* b, const void* c) {
-  constexpr int UE = 16 / sizeof(Tin);
+  constexpr int UE = 16 / sizeof(Tin);  // a held row is whole vectors of UE elements
   constexpr int out_bytes = UE * sizeof(Tout) < 16 ? UE * sizeof(Tout) : 16;
-  if (V % UE != 0 || !aligned_to(a, 16) || !aligned_to(c, 16) || !aligned_to(b, out_bytes)) return 0;
-  const int per = kLsmHeld / UE;
-  const int units = V / UE;
-  const int threads = ((units + per - 1) / per + 31) / 32 * 32;
-  return threads <= kLsmMaxThreads ? threads : 0;
+  if (!aligned_to(a, 16) || !aligned_to(c, 16) || !aligned_to(b, out_bytes)) return 0;
+  return held_row_threads<Tin>(V, kLsmMaxThreads);
 }
 
 template <typename Tin, typename Tout>
@@ -268,7 +221,7 @@ cudaError_t launch_bwd(const void* dy, const void* x, const void* stats, void* d
   const int threads = held_threads<Tin, Tout>(V, x, dy, dx);
   if (threads > 0) {
     constexpr int UE = 16 / sizeof(Tin);
-    const size_t smem = (size_t)(kLsmHeld / UE) * threads * 16;
+    const size_t smem = (size_t)(kRowHeld / UE) * threads * 16;
     auto kernel = log_softmax_bwd_held_kernel<Tin, Tout>;
     cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;

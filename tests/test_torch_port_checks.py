@@ -152,3 +152,66 @@ def test_k3_bytes_read_one_memory_row_per_image(dtype, beams, want):
 def test_k11_bytes_count_each_tensor_once(backward, per_unit):
     rows, units = 1024 * 5, 1000  # Up-Down serving: 1024 images x beam 5, rnn 1000
     assert chip_smoke.k11_bytes(rows, units, torch.bfloat16, backward=backward) == rows * units * per_unit * 2
+
+
+# ------------------------------------------------------ K4 / K12 byte counts
+@pytest.mark.parametrize("dtype,rows,k", [
+    (torch.bfloat16, 2048 * 5, 5),  # ORT serving: 2048 images x beam 5
+    (torch.bfloat16, 1024 * 5, 5),  # Up-Down serving: 1024 images x beam 5
+    (torch.float32, 2048 * 5, 40),
+])
+def test_k4_bytes_read_the_logits_once(dtype, rows, k):
+    es = 2 if dtype == torch.bfloat16 else 4
+    # logits in; per row the banned token (int32) and the bad-ending flag (one
+    # byte) in; k values (f32), indices (int32) and raw log-probs (f32) out
+    want = rows * VOCAB * es + rows * (4 + 1) + rows * k * (4 + 4 + 4)
+    assert chip_smoke.k4_bytes(rows, VOCAB, k, dtype) == want
+    if (dtype, rows, k) == (torch.bfloat16, 10240, 5):  # 205 MB: 0.0613 ms at 3.35 TB/s (the kernel's note)
+        assert round(want / 1e6) == 205 and round(want / 3.35e12 * 1e3, 4) == 0.0613
+
+
+@pytest.mark.parametrize("backward", [False, True])
+def test_k12_bytes_read_the_memory_once_per_image(backward):
+    images, rows, regions, a, d = 1024, 5, 36, 512, 1000  # Up-Down serving, bf16
+    n = images * rows
+    # forward: p_att and att per image, att_h in and out per row, w and the
+    # bias, the region mask (one byte a region)
+    fwd = images * regions * a * 2 + images * regions * d * 2 + n * a * 2 + n * d * 2 + a * 2 + 2 + images * regions
+    want = fwd
+    if backward:
+        saved = n * regions * 4 * 2  # prob and weight (f32), written forward, read backward
+        bwd_in = images * regions * (a + d) * 2 + n * a * 2 + a * 2 + images * regions + n * d * 2  # ... and dout
+        bwd_out = images * regions * (a + d) * 2 + n * a * 2 + a * 2 + 2  # d p_att, d att, d att_h, d w, d bias
+        want = fwd + saved + bwd_in + saved + bwd_out
+    assert chip_smoke.k12_bytes(images, rows, regions, a, d, torch.bfloat16, backward=backward) == want
+    if not backward:  # 127 MB: 0.0379 ms at 3.35 TB/s (the kernel's note)
+        assert round(want / 1e6) == 127 and round(want / 3.35e12 * 1e3, 4) == 0.0379
+
+
+# ------------------------------------------- K4 rows next to a bf16 midpoint
+def test_bf16_round_matches_torch():
+    g = torch.Generator().manual_seed(0)
+    x = torch.randn(4096, generator=g) * 100
+    # exact midpoints between bf16 neighbours: ties go to the even one
+    mids = (x.to(torch.bfloat16).float().view(torch.int32) | 0x8000).view(torch.float32)
+    for v in (x, mids):
+        got = chip_smoke.bf16_round(v.numpy())
+        assert torch.equal(torch.from_numpy(got), v.to(torch.bfloat16).float())
+
+
+@pytest.mark.parametrize("count,midpoint,kept,moved", [
+    # log 742 = 6.6093492..., 2.6e-5 below the midpoint 6.609375 of 6.59375
+    # (odd) and 6.625 (even); 1024 + log 742 rounds to 1030.609375
+    (742, 6.609375, -6.59375, -6.625),
+    # log 9474 = 9.1563062..., 2.8e-5 above the midpoint 9.15625 of 9.125
+    # (even) and 9.1875 (odd)
+    (9474, 9.15625, -9.1875, -9.125),
+])
+def test_k4_midpoint_counts_by_hand(count, midpoint, kept, moved):
+    counts = chip_smoke.k4_midpoint_counts(VOCAB)
+    assert count in counts and all(1 <= n <= VOCAB for n in counts)
+    log_sum = torch.tensor(count, dtype=torch.float64).log().float()
+    m = torch.tensor(1024.0)
+    assert abs(float(log_sum) - midpoint) < 2.0 ** -14
+    assert float((m - m - log_sum).to(torch.bfloat16)) == kept
+    assert float((m - (m + log_sum)).to(torch.bfloat16)) == moved
