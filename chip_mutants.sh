@@ -2,24 +2,31 @@
 # Planted source faults in the kernels whose checks hold them bit by bit, to
 # show what the kernel checks of chip_smoke.py catch: K1 (box attention) and
 # K7 (its backward), K6 (residual + RefLayerNorm), K13 (vocabulary
-# log-softmax), K15 (the decoder attention's backward), K3 (grouped
-# cross-attention), K4 (beam log-softmax + top-K) and K12 (additive
-# attention). Each mutant is a copy of the port under build/mutants/<name>/
-# with sed edits to one CUDA source, reusing the unmutated libraries already
-# built (a library's file name carries a hash of its sources); its kernel
+# log-softmax), K14 / K15 (the decoder attention, forward and backward), K3
+# (grouped cross-attention), K4 (beam log-softmax + top-K), K12 (additive
+# attention) and K5 (the supermask sets). Each mutant is a copy of the port
+# under build/mutants/<name>/ with sed edits to one CUDA source (or, with
+# run_mutant_cmd, any shell edit in its csrc/), reusing the unmutated
+# libraries already built (a library's file name carries a hash of its
+# sources; an edited or added .cuh header rebuilds them all); its kernel
 # checks then run at paper shapes and at the small or off-width shapes: for
 # K1/K7 check_kernels (K1 serving with its log-bias check) and
 # check_train_kernels (K1's train variant and K7), for K6/K13
-# check_norm_softmax_kernels without its timings, for K15
-# check_decoder_attention_kernels and for K3 and K4 check_kernels, for K12
-# check_updown_kernels, all without their timings. A mutant whose checks pass
-# is one they cannot see; each verdict line ends "caught" (a kernel that
-# raises is caught too) or "checks pass".
+# check_norm_softmax_kernels without its timings, for K14/K15
+# check_decoder_attention_kernels (with the check that K14's P~ equals K15's
+# bit for bit) and for K3 and K4 check_kernels, for K12
+# check_updown_kernels, for K5 check_supermask_kernels, all without their
+# timings. A mutant whose checks pass is one they cannot see; each verdict
+# line ends "caught" (a kernel that raises is caught too) or "checks pass".
 #
-# In the bf16 tensor-core design the trig features and K1's log-bias reach
-# the products and the scores only as bf16 values (MMA fragments, a bf16
-# array), so leaving them unrounded cannot be written; the mutants drop the
-# rounding points that remain in f32 arithmetic.
+# In the bf16 tensor-core designs the trig features, K1's log-bias and K14's
+# P~ reach the products only as bf16 values (MMA fragments, a bf16 array),
+# so leaving them unrounded cannot be written; the mutants drop the rounding
+# points that remain in f32 arithmetic. K14 and K15 share their scores and
+# softmax (decoder_attention.cuh), so a mutant there moves both: the
+# dropout quotient left unrounded shows only in K15's dP (K14 packs P~ to
+# bf16 either way), and the score's rounding before its exact 1/8 scaling
+# is no rounding point at all, so that mutant leaves the score unrounded.
 #
 #     bash chip_mutants.sh      # on a machine with one H100, from the repo root
 cd "$(dirname "$0")" || exit 1
@@ -27,19 +34,39 @@ python3 -c "from sparse_caption_tpu_torch.kernels import build_all; build_all()"
 K17="c.check_kernels(g, dt, results) & c.check_train_kernels(g, dt, results)"
 K613="c.check_norm_softmax_kernels(g, results, (dt,), timing=False)"
 K15="c.check_decoder_attention_kernels(g, results, timing=False)"
+K14="$K15"
+K5="c.check_supermask_kernels(g, dt, results, timing=False)"
 K3="c.check_kernels(g, dt, results, timing=False)"
 K4="$K3"
 K12="c.check_updown_kernels(g, dt, results, timing=False)"
 run_mutant() {  # name file sed-expression dtypes checks
-  local name=$1 file=$2 expr=$3 dtypes=$4 checks=$5 dir=build/mutants/$1
-  rm -rf "$dir" && mkdir -p "$dir/build"
-  cp -r sparse_caption_tpu_torch chip_smoke.py "$dir/"
-  cp -r build/torch_kernels "$dir/build/"
+  local name=$1 file=$2 expr=$3 dir=build/mutants/$1
+  prepare "$name"
   sed -i "$expr" "$dir/sparse_caption_tpu_torch/kernels/csrc/$file"
   if cmp -s "sparse_caption_tpu_torch/kernels/csrc/$file" "$dir/sparse_caption_tpu_torch/kernels/csrc/$file"; then
     echo "[mutant] $name: sed changed nothing"; return
   fi
   echo "[mutant] $name: $(diff "sparse_caption_tpu_torch/kernels/csrc/$file" "$dir/sparse_caption_tpu_torch/kernels/csrc/$file" | grep '^>' | head -2 | tr '\n' ' ')"
+  check_mutant "$name" "$4" "$5"
+}
+run_mutant_cmd() {  # name shell-command (run in the mutant's csrc/) dtypes checks
+  local name=$1 dir=build/mutants/$1
+  prepare "$name"
+  (cd "$dir/sparse_caption_tpu_torch/kernels/csrc" && eval "$2") || { echo "[mutant] $name: the edit failed"; return; }
+  if diff -rq sparse_caption_tpu_torch/kernels/csrc "$dir/sparse_caption_tpu_torch/kernels/csrc" > /dev/null; then
+    echo "[mutant] $name: the edit changed nothing"; return
+  fi
+  echo "[mutant] $name: $(diff -r sparse_caption_tpu_torch/kernels/csrc "$dir/sparse_caption_tpu_torch/kernels/csrc" | grep '^>' | head -2 | tr '\n' ' ')"
+  check_mutant "$name" "$3" "$4"
+}
+prepare() {  # a copy of the port and of the built libraries under build/mutants/<name>/
+  local dir=build/mutants/$1
+  rm -rf "$dir" && mkdir -p "$dir/build"
+  cp -r sparse_caption_tpu_torch chip_smoke.py "$dir/"
+  cp -r build/torch_kernels "$dir/build/"
+}
+check_mutant() {  # name dtypes checks
+  local name=$1 dtypes=$2 checks=$3 dir=build/mutants/$1
   (cd "$dir" && python3 -c "
 import torch, chip_smoke as c
 from sparse_caption_tpu_torch.kernels import build_all
@@ -71,8 +98,8 @@ run_mutant dy_sum_last_chunk_dropped vocab_log_softmax.cu 's/for (int k = 0; k <
 run_mutant tail_last_element_skipped vocab_log_softmax.cu 's/i < V; i += kLsmThreads) {  \/\/ pass 1/i < V - 1; i += kLsmThreads) {  \/\/ pass 1/' "torch.bfloat16," "$K613"
 run_mutant D_from_unrounded_products decoder_attention_bwd.cu 's/const float gp = round_to<bf16>(dpk \* p);/const float gp = dpk * p;/' "torch.bfloat16," "$K15"
 run_mutant member_sum_unrounded decoder_attention_bwd.cu 's/tot\[nt\]\[e\] += round_to<bf16>(acc\[nt\]\[e\]);/tot[nt][e] += acc[nt][e];/' "torch.bfloat16," "$K15"
-run_mutant keep_dropped_from_dV decoder_attention_bwd.cu 's/const float pk = !kept ? 0.f : keep == nullptr ? p : round_to<bf16>(div_by(p, keep_prob, inv_kp));/const float pk = p;/; s/pk\[c\] = kept ? (keep != nullptr ? p\[c\] \/ keep_prob : p\[c\]) : 0.f;/pk[c] = p[c];/' "torch.bfloat16," "$K15"
-run_mutant causal_dropped_from_recompute decoder_attention_bwd.cu 's/return ((vbits >> c) \& 1u) != 0 \&\& (!causal || j <= i);/return ((vbits >> c) \& 1u) != 0;/; s/const bool ok0 = v0 \&\& (!causal || lane <= i), ok1 = v1 \&\& (!causal || lane + 32 <= i);/const bool ok0 = v0, ok1 = v1;/' "torch.bfloat16," "$K15"
+run_mutant keep_dropped_from_dV decoder_attention_bwd.cu 's/pk2\[c\] = dec_dropped(p, kept, keep != nullptr, keep_prob, inv_kp);/pk2[c] = p;/; s/pk\[c\] = kept ? (keep != nullptr ? p\[c\] \/ keep_prob : p\[c\]) : 0.f;/pk[c] = p[c];/' "torch.bfloat16," "$K15"
+run_mutant causal_dropped_from_softmax decoder_attention.cuh 's/return ((vbits >> c) \& 1u) != 0 \&\& (!causal || j <= i);/return ((vbits >> c) \& 1u) != 0;/' "torch.bfloat16," "$K15"
 run_mutant last_member_skipped decoder_attention_bwd.cu 's/for (int m = 0; m < group; ++m) {/for (int m = 0; m < group - 1; ++m) {/' "torch.bfloat16," "$K15"
 run_mutant k3_last_row_skipped grouped_cross_attention.cu 's/    if (rows\[r\] < rep) {/    if (rows[r] < rep - 1) {/' "torch.bfloat16," "$K3"
 run_mutant k3_mask_ignored grouped_cross_attention.cu 's/if (j < S \&\& mask_b\[j\] != 0) vbits/if (j < S) vbits/' "torch.bfloat16," "$K3"
@@ -85,3 +112,10 @@ run_mutant k12_tanh_input_unrounded additive_attention.cu 's/const uint32_t tr =
 run_mutant k12_mask_ignored_in_renorm additive_attention.cu 's/const float q0 = in0 \&\& mask_b\[lane\] ? p0 : 0.f;/const float q0 = in0 ? p0 : 0.f;/; s/const float q1 = in1 \&\& mask_b\[lane + 32\] ? p1 : 0.f;/const float q1 = in1 ? p1 : 0.f;/' "torch.float32, torch.bfloat16" "$K12"
 run_mutant k12_last_region_skipped additive_attention.cu 's/for (int r = 0; r < R; ++r) {  \/\/ the weighted sum over regions/for (int r = 0; r < R - 1; ++r) {  \/\/ the weighted sum over regions/' "torch.float32, torch.bfloat16" "$K12"
 run_mutant k12_tanh_table_left_out_of_smem_check additive_attention.cu 's/ + sizeof(unsigned short) \* kTanhEntries;/;/' "torch.bfloat16," "$K12"
+run_mutant k14_score_unrounded decoder_attention.cuh 's/? round_to<bf16>(round_to<bf16>(sacc\[nt\]\[e\]) \* scale)/? sacc[nt][e] * scale/' "torch.bfloat16," "$K14"
+run_mutant k14_padding_keys_filled decoder_attention.cuh 's/      float s = -INFINITY;/      float s = fill;/' "torch.bfloat16," "$K14"
+run_mutant k14_dropout_quotient_unrounded decoder_attention.cuh 's/!dropout ? x : round_to<bf16>(div_by(x, keep_prob, inv_kp));/!dropout ? x : div_by(x, keep_prob, inv_kp);/' "torch.bfloat16," "$K14"
+run_mutant k14_last_member_skipped decoder_attention.cu 's/    live\[r\] = sr < rows;/    live[r] = sr < rows - Tq;/' "torch.bfloat16," "$K14"
+run_mutant_cmd k14_private_quad_sum 'cp decoder_attention.cuh decoder_attention_k14.cuh && sed -i "s/\"decoder_attention.cuh\"/\"decoder_attention_k14.cuh\"/" decoder_attention.cu && sed -i "s/sum\[r\], 1);/sum[r], 9);/; s/sum\[r\], 2);/sum[r], 1);/; s/sum\[r\], 9);/sum[r], 2);/" decoder_attention_k14.cuh' "torch.bfloat16," "$K14"
+run_mutant k5_scalar_tail_skipped supermask.cu 's/const int cnt = (int)(ent.n - e0 < kUnit ? ent.n - e0 : kUnit);/const int cnt = 0;/' "torch.float32, torch.bfloat16" "$K5"
+run_mutant k5_next_word_bit supermask.cu 's/byte = (bits\[bu >> 2\] >> (8 \* (bu \& 3))) \& 0xffu;/byte = (bits[(bu >> 2) + 1] >> (8 * (bu \& 3))) \& 0xffu;/' "torch.float32, torch.bfloat16" "$K5"

@@ -6,8 +6,9 @@ Phases:
    libraries (``kernels/csrc/*.cu``, nvcc for sm_90a, one process per source);
 2. kernel checks: each kernel against its plain PyTorch version at the
    shapes of its path (beam-5 serving: B = 2048 images, 36 regions, 8 heads
-   of 64, vocab 10000, 17 steps; XE step: the 105 masked tensors, 256 x 5
-   captions; Up-Down's K11-K13: 1024 x 5 beams, 1000 units, 512 attention
+   of 64, vocab 10000, 17 steps; XE step: the 105 masked tensors as one K5
+   set, 256 x 5 captions; Up-Down's K5 sets (the encode's 3 tensors, an
+   unrolled step's 8) and K11-K13: 1024 x 5 beams, 1000 units, 512 attention
    units, 36 regions, and 256 x 5 x 17 rows of 10000 logits; the decoder's
    full-sequence attention K14/K15: 256 x 5 captions and the SCST replay's
    64 x 15 samples, causal self-attention over 17 tokens and cross-attention
@@ -21,7 +22,11 @@ Phases:
    dv (self and cross calls, with and without the keep-mask) and K3's bf16
    output too, K15 and K3 also at off shapes (K15: Tk 9 and 64, a group of
    3 x 20 rows; K3: 15 and 40 rows an image, 33 regions), and their
-   shared-memory sizes against the wrappers' limits; K4 also at beams 10,
+   shared-memory sizes against the wrappers' limits; the P~ K14 used
+   against the P~ K15 recomputes, bit for bit (K14's output with V = the
+   identity against K15's dV with dO = the identity), on every bf16 case;
+   K5 on a set of off shapes (unaligned storage, a tail) in every mode,
+   w_eff and dw exactly; K4 also at beams 10,
    15 and 40, bit by bit in bf16, with rows tied at the top and rows whose
    log-sum lies next to a bf16 midpoint (``k4_midpoint_counts``), and at V =
    9,999; K12 bit by bit in bf16 at the serving, SCST and off shapes (one
@@ -32,7 +37,7 @@ Phases:
    shape and forward alone at the serving decode step (10,240 x 512), K13
    in f32, bf16 and bf16 -> f32, beside byte bounds (``k6_bytes``,
    ``k13_bytes``; K3's, K14's and K15's from ``k3_bytes``, ``k14_bytes``,
-   ``k15_bytes`` and ``decoder_attention_flops``);
+   ``k15_bytes`` and ``decoder_attention_flops``, K5's from ``k5_bytes``);
 3. serving path: a paper-width ``relation_transformer_prune`` (random
    weights and supermask logits from a seed, masks folded), ``encode`` +
    beam-5 ``generate`` in bf16 at batch 50 and 2048 with the kernels' launch
@@ -73,7 +78,9 @@ Phases:
 
 The ORT XE and SCST steps run the decoder's full-sequence attention through
 K14/K15 (12 + 12 launches per step, asserted), and the plain
-``scaled_dot_attention`` must not run in any train or SCST step.
+``scaled_dot_attention`` must not run in any train or SCST step. Masked
+products with gradients run as K5 sets: one forward and one backward launch
+per ORT step (the XE forward, the SCST replay), 1 + 17 per Up-Down step.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it is
 the card's name and power limit, and before that one JSON line with every
@@ -270,6 +277,21 @@ def k6_bytes(rows: int, d: int, dtype, keep: bool = True, backward: bool = True)
     fwd = rows * d * (4 * es + flags) + rows * 8 + 2 * d * es
     bwd = rows * d * (5 * es + flags) + rows * 8 + 3 * d * es
     return fwd + (bwd if backward else 0)
+
+
+def k5_bytes(n_weights: int, dtype, bits: bool = True, mode: str = "sample", bypass: bool = False) -> int:
+    """Bytes K5 must move for a set of n weights, forward and backward.
+    Forward: w and m in (and u in mode sample), w_eff out, and in mode sample
+    with `bits` the sample out, one bit a weight. Backward: g and w in, dw
+    and dm out; the sample from its bits (mode sample with `bits`), else
+    from u and m again; m for sigmoid' unless `bypass` (and for the sample
+    of the other modes)."""
+    es, sample = ESIZE[dtype], mode == "sample"
+    bit_bytes = -(-n_weights // 8) if sample and bits else 0
+    fwd = n_weights * (2 * es + 4 + (4 if sample else 0)) + bit_bytes
+    need_m = not (sample and bits and bypass)
+    bwd = n_weights * (3 * es + 4 + (4 if need_m else 0) + (4 if sample and not bits else 0)) + bit_bytes
+    return fwd + bwd
 
 
 def k13_bytes(rows: int, vocab: int, in_dtype, out_dtype) -> int:
@@ -766,17 +788,179 @@ def masked_shapes() -> list:
     return [(d, PAPER["att_feat_size"])] + enc * PAPER["num_layers"] + [(v, d)] + dec * PAPER["num_layers"] + [(v, d)]
 
 
+def updown_masked_shapes() -> tuple:
+    """(out, in) shapes of the paper-width Up-Down's masked tensors, in call
+    order: (the encode's 3, one unrolled step's 8)."""
+    r, e, a, v = UPDOWN["rnn_size"], UPDOWN["input_encoding_size"], UPDOWN["att_hid_size"], UPDOWN["vocab_size"]
+    enc = [(r, UPDOWN["fc_feat_size"]), (r, UPDOWN["att_feat_size"]), (a, r)]
+    step = [(v, e), (4 * r, 2 * r + e), (4 * r, r), (a, r), (1, a), (4 * r, 2 * r), (4 * r, r), (v, r)]
+    return enc, step
+
+
 def leaves(*ts):
     return [t.detach().clone().requires_grad_() for t in ts]
 
 
+def check_supermask_kernels(gen, dtype, results: dict, timing: bool = True) -> bool:
+    """K5 against its plain version (autograd), each set in one launch each
+    way: the ORT's 105 masked tensors (inputs from `gen`), Up-Down's encode
+    set (3 tensors) and unrolled step's set (8), and a set of off shapes
+    (the shapes of wg and alpha_net at storage off the 16-byte boundary, 91
+    weights: a tail of 3; in every mode, bypass on and off, one output that
+    no loss reaches) on inputs of their own generator; w_eff and dw exact,
+    dm element-wise, a planted fault (the round mode in place of the
+    sample). With `timing`: the set, the same tensors one set each, and the
+    plain version in held turns, and the Up-Down XE step's K5 time (17 step
+    sets and 1 encode set) against its bound."""
+    from sparse_caption_tpu_torch.kernels import supermask as k5
+
+    dev = torch.device("cuda")
+    dname = str(dtype).split(".")[-1]
+    turns = turns_ms if timing else no_turns
+    ok = True
+
+    def draw(g, shapes, unaligned=()):
+        """w, m, u, g for each shape; the tensors at the indices in `unaligned`
+        start one element past an allocation's 16-byte boundary."""
+        def make(sh, i, fn, dt):
+            if i not in unaligned:
+                return fn(*sh, generator=g, device=dev).to(dt)
+            n = math.prod(sh)
+            return fn(n + 1, generator=g, device=dev).to(dt)[1:].view(sh)
+        return ([make(sh, i, torch.randn, dtype) for i, sh in enumerate(shapes)],
+                [make(sh, i, torch.randn, torch.float32) * 2.0 for i, sh in enumerate(shapes)],
+                [make(sh, i, torch.rand, torch.float32) for i, sh in enumerate(shapes)],
+                [make(sh, i, torch.randn, dtype) for i, sh in enumerate(shapes)])
+
+    def plain_set(ws, ms, us, mode, bypass):
+        return [k5.supermask_weight_plain(w, m, None if us is None else us[i], mode, bypass)
+                for i, (w, m) in enumerate(zip(ws, ms))]
+
+    def run(fn, ws, ms, us, gs, mode="sample", bypass=False, unused_last=False):
+        """(w_effs, dws, dms) of one set; with `unused_last` no loss reaches
+        the last output, whose w and m then get no gradient (None)."""
+        wl = [w.detach().requires_grad_() for w in ws]  # views keep their storage offset
+        ml = [m.detach().requires_grad_() for m in ms]
+        outs = fn(wl, ml, us if mode == "sample" else None, mode, bypass)
+        used = len(outs) - 1 if unused_last else len(outs)
+        grads = torch.autograd.grad(outs[:used], wl + ml, gs[:used], allow_unused=True)
+        return [o.detach() for o in outs], grads[:len(ws)], grads[len(ws):]
+
+    def flat(ts):
+        return torch.cat([t.flatten() for t in ts if t is not None])
+
+    def held(tag, ws, ms, us, gs, fault=True, **kw):
+        nonlocal ok
+        ko, kdw, kdm = run(k5.supermask_weights, ws, ms, us, gs, **kw)
+        po, pdw, pdm = run(plain_set, ws, ms, us, gs, **kw)
+        if kw.get("unused_last"):
+            none = kdw[-1] is None and kdm[-1] is None
+            log(f"[kernel] supermask {tag} {dname}: the output no loss reaches gives no gradient={none}")
+            ok &= none
+        for nm, kt, pt in (("w_eff", ko, po), ("dw", kdw, pdw)):
+            kt, pt = flat(kt), flat(pt)
+            same = bool(torch.equal(kt, pt))
+            log(f"[kernel] supermask {tag} {nm} {dname}: {'exact' if same else 'DIFFERS'} "
+                f"({int((kt != pt).sum())} of {pt.numel()} elements differ)")
+            ok &= same
+        kdm, pdm = flat(kdm), flat(pdm)
+        err, good, worst = close(kdm, pdm, torch.float32)
+        log(f"[kernel] supermask {tag} dm (f32) {dname}: max_abs_err={err:.3e} worst err/allowed={worst:.3f} "
+            f"{'ok' if good else 'FAIL'}")
+        ok &= good
+        if fault:  # the round mode in place of the sample
+            fo = flat(run(plain_set, ws, ms, None, gs, mode="round")[0])
+            n_diff = int((fo != flat(po)).sum())
+            log(f"[fault] supermask {tag} w_eff {dname}: {n_diff} of {fo.numel()} elements differ "
+                f"{'caught' if n_diff else 'MISSED'}")
+            ok &= n_diff > 0
+        return 0.0 if good else err, flat(ko).ne(0).float().mean().item()
+
+    def times(ws, ms, us, gs):
+        """(set, one set a tensor, plain) ms, forward + backward in mode sample."""
+        mode = k5.MODES["sample"]
+        bit_units = k5.unit_offsets([w.numel() for w in ws])[:-1]
+
+        def set_kernels():
+            _, bits = k5.launch_forward(ws, ms, us, mode)
+            k5.launch_backward(gs, ws, ms, bits, bit_units, mode, False)
+
+        def tensor_kernels():
+            for w, m, u, g in zip(ws, ms, us, gs):
+                _, bits = k5.launch_forward([w], [m], [u], mode)
+                k5.launch_backward([g], [w], [m], bits, [0], mode, False)
+
+        plain_leaves = [leaves(w, m) for w, m in zip(ws, ms)]
+
+        def plain():
+            for (w, m), u, g in zip(plain_leaves, us, gs):
+                torch.autograd.grad(k5.supermask_weight_plain(w, m, u), (w, m), g)
+
+        return turns(set_kernels, tensor_kernels, plain)
+
+    # the ORT's set: every masked tensor of one XE step
+    shapes = masked_shapes()
+    assert len(shapes) == 105, len(shapes)
+    n_el = sum(a * b for a, b in shapes)
+    rnd = lambda *shape: torch.randn(*shape, generator=gen, device=dev).to(dtype)  # noqa: E731
+    ws = [rnd(*sh) for sh in shapes]
+    ms = [torch.randn(*sh, generator=gen, device=dev) * 2.0 for sh in shapes]
+    us = [torch.rand(*sh, generator=gen, device=dev) for sh in shapes]
+    gs = [rnd(*sh) for sh in shapes]
+    err, kept = held("ORT set", ws, ms, us, gs)
+    log(f"[kernel] supermask: {len(shapes)} tensors, {n_el} weights, kept share {kept:.3f}")
+    t_set, t_tensor, t_plain = times(ws, ms, us, gs)
+    bnd, by = bound_ms(k5_bytes(n_el, dtype), {})
+    log(f"[kernel] supermask {dname} ORT set: ms={t_set:.4f} (one set a tensor: {t_tensor:.4f}) plain_ms={t_plain:.4f} "
+        f"library_ms=null bound_ms={bnd:.4f} ({by}; held windows in turns)")
+    if dtype == torch.bfloat16:
+        results["supermask"] = dict(max_abs_err=err, ms=t_set, plain_ms=t_plain, library_ms=None, bound_ms=bnd,
+                                    bound_by=by, per_tensor_ms=t_tensor)
+    del ws, ms, us, gs
+
+    # Up-Down's sets (fresh samples on every call: the encode's 3 tensors,
+    # then 8 per unrolled step) and the off shapes, on inputs of their own generator
+    g5 = torch.Generator(device=dev).manual_seed(SEED + 5)
+    enc_shapes, step_shapes = updown_masked_shapes()
+    ud = {}
+    for tag, set_shapes in (("encode", enc_shapes), ("step", step_shapes)):
+        sw, sm, su, sg = draw(g5, set_shapes)
+        held(f"Up-Down {tag} set", sw, sm, su, sg)
+        n_set = sum(a * b for a, b in set_shapes)
+        t_set, t_tensor, t_plain = times(sw, sm, su, sg)
+        bnd = bound_ms(k5_bytes(n_set, dtype), {})[0]
+        log(f"[kernel] supermask {dname} Up-Down {tag} set ({len(set_shapes)} tensors, {n_set} weights): "
+            f"ms={t_set:.4f} (one set a tensor: {t_tensor:.4f}) plain_ms={t_plain:.4f} bound_ms={bnd:.4f} "
+            f"(bytes; held windows in turns)")
+        ud[tag] = (t_set, t_tensor, t_plain, bnd)
+        del sw, sm, su, sg
+    if timing:
+        total = {key: MAX_LEN * ud["step"][i] + ud["encode"][i] for i, key in enumerate(("ms", "per_tensor_ms",
+                                                                                        "plain_ms", "bound_ms"))}
+        log(f"[kernel] supermask {dname} Up-Down XE step ({MAX_LEN} step sets + 1 encode set): {total['ms']:.4f} ms "
+            f"(one set a tensor: {total['per_tensor_ms']:.4f}) against a bound of {total['bound_ms']:.4f} "
+            f"(loss {total['ms'] - total['bound_ms']:.4f} ms)")
+        if dtype == torch.bfloat16:
+            results["supermask"].update({f"updown_{tag}_{key}": val for tag, vals in ud.items()
+                                         for key, val in zip(("ms", "per_tensor_ms", "plain_ms", "bound_ms"), vals)})
+            results["supermask"].update({f"updown_xe_step_{key}": val for key, val in total.items()})
+    off = [(HEADS, 64), (1, UPDOWN["att_hid_size"]), (7, 13), (64, 64)]  # wg's and alpha_net's shapes unaligned
+    sw, sm, su, sg = draw(g5, off, unaligned=(0, 1))
+    for mode in ("sample", "round", "multiply"):
+        for bypass in (False, True):
+            mm = [(m > 0).float() for m in sm] if mode == "multiply" else sm
+            held(f"off shapes {mode}{' bypass' if bypass else ''}", sw, mm, su, sg, fault=mode == "sample",
+                 mode=mode, bypass=bypass, unused_last=True)
+    return ok
+
+
 def check_train_kernels(gen, dtype, results: dict) -> bool:
-    """K5, K6, K1's train variant and K7 vs their plain versions (autograd)
-    at the XE step's shapes; timings of forward + backward."""
+    """K5 (``check_supermask_kernels``), K6, K1's train variant and K7 vs
+    their plain versions (autograd) at the XE step's shapes; timings of
+    forward + backward."""
     from sparse_caption_tpu_torch.kernels import add_ref_layernorm as k6
     from sparse_caption_tpu_torch.kernels import box_attention as k1
     from sparse_caption_tpu_torch.kernels import box_attention_bwd as k7
-    from sparse_caption_tpu_torch.kernels import supermask as k5
     from sparse_caption_tpu_torch.ops.attention import NEG_INF, box_relational_embedding
 
     dev = torch.device("cuda")
@@ -796,18 +980,6 @@ def check_train_kernels(gen, dtype, results: dict) -> bool:
             ok &= fault_caught(name, fault, ref, dtype, scale, sum_scale)
         return err
 
-    def exact(name, out, ref, fault=None):
-        nonlocal ok
-        same = bool(torch.equal(out, ref))
-        log(f"[kernel] {name} {dname}: {'exact' if same else 'DIFFERS'} "
-            f"({int((out != ref).sum())} of {ref.numel()} elements differ)")
-        ok &= same
-        if fault is not None:
-            n_diff = int((fault != ref).sum())
-            log(f"[fault] {name} {dname}: {n_diff} of {ref.numel()} elements differ {'caught' if n_diff else 'MISSED'}")
-            ok &= n_diff > 0
-        return 0.0 if same else (out.float() - ref.float()).abs().max().item()
-
     def record(name, err, ms, plain_ms, lib_ms, nbytes, ops):
         bnd, by = bound_ms(nbytes, ops)
         log(f"[kernel] {name} {dname}: ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms="
@@ -816,50 +988,7 @@ def check_train_kernels(gen, dtype, results: dict) -> bool:
             results[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bnd,
                                  bound_by=by)
 
-    # K5 supermask: every masked tensor of one step, forward + backward
-    shapes = masked_shapes()
-    n_el = sum(a * b for a, b in shapes)
-    assert len(shapes) == 105, len(shapes)
-    ws = [rnd(*sh) for sh in shapes]
-    ms = [torch.randn(*sh, generator=gen, device=dev) * 2.0 for sh in shapes]
-    us = [torch.rand(*sh, generator=gen, device=dev) for sh in shapes]
-    gs = [rnd(*sh) for sh in shapes]
-
-    def k5_step(fn, mode="sample"):
-        outs, dws, dms = [], [], []
-        for w, m, u, g in zip(ws, ms, us, gs):
-            w_, m_ = leaves(w, m)
-            out = fn(w_, m_, u if mode == "sample" else None, mode, False)
-            dw, dm = torch.autograd.grad(out, (w_, m_), g)
-            outs.append(out.detach().flatten())
-            dws.append(dw.flatten())
-            dms.append(dm.flatten())
-        return torch.cat(outs), torch.cat(dws), torch.cat(dms)
-
-    ko, kdw, kdm = k5_step(k5.supermask_weight)
-    po, pdw, pdm = k5_step(k5.supermask_weight_plain)
-    err = exact("supermask w_eff", ko, po, fault=k5_step(k5.supermask_weight_plain, "round")[0])
-    err = max(err, exact("supermask dw", kdw, pdw))
-    err = max(err, compare("supermask dm (f32)", kdm, pdm))
-    log(f"[kernel] supermask: {len(shapes)} tensors, {n_el} weights, kept share {ko.ne(0).float().mean().item():.3f}")
-    del ko, kdw, kdm, po, pdw, pdm
-    mode = k5.MODES["sample"]
-
-    def k5_kernels():  # the step's 105 forward and 105 backward launches
-        for w, m, u, g in zip(ws, ms, us, gs):
-            k5.launch_forward(w, m, u, mode)
-            k5.launch_backward(g, w, m, u, mode, False)
-
-    plain_leaves = [leaves(w, m) for w, m in zip(ws, ms)]
-
-    def k5_plain():
-        for (w, m), u, g in zip(plain_leaves, us, gs):
-            torch.autograd.grad(k5.supermask_weight_plain(w, m, u), (w, m), g)
-
-    record("supermask", err, *turns_ms(k5_kernels, k5_plain), None,
-           n_el * ((es + 4 + 4 + es) + (es + es + 4 + 4 + es + 4)), {})
-    del plain_leaves
-    del ws, ms, us, gs
+    ok &= check_supermask_kernels(gen, dtype, results)
 
     # K6 residual + RefLayerNorm: the decoder's rows at the throughput batch
     rows, d = TRAIN_BIG_BATCH * SEQ_PER_IMG * MAX_LEN, PAPER["d_model"]
@@ -1020,6 +1149,31 @@ def check_decoder_attention_kernels(gen, results: dict, timing: bool = True) -> 
         out = fn(*ins, **kw)
         return out.detach(), torch.autograd.grad(out, ins, dout)
 
+    def p_agreement(label, args):
+        """K14's P~ against K15's, bit for bit: K14's output with V = the
+        identity (v[b, h, j] = e_j) is P~ itself, and K15's dV with dO = the
+        identity (dO[n, h, i] = e_i) on one group member at a time, the others'
+        dO 0, is that member's P~ transposed. Tq, Tk <= 64 = dk."""
+        q, k, _, valid, causal, keep = args
+        nk, _, tk, _ = k.shape
+        n, _, tq_, _ = q.shape
+        g = n // nk
+        eye = torch.eye(dk, device=dev, dtype=q.dtype)
+        v = eye[:tk].expand(nk, h, tk, dk).contiguous()
+        ins = leaves(q, k, v)
+        out = k14.decoder_attention(*ins, valid, causal, keep, 0.9)
+        p14 = out.detach()[..., :tk]
+        p15 = torch.empty_like(p14)
+        for m in range(g):
+            dout = torch.zeros_like(q)
+            dout.view(nk, g, h, tq_, dk)[:, m] = eye[:tq_]
+            dv = torch.autograd.grad(out, ins[2], dout, retain_graph=True)[0]
+            p15.view(nk, g, h, tq_, tk)[:, m] = dv[..., :tq_].transpose(-1, -2)
+        differ = int((p14 != p15).sum())
+        log(f"[kernel] {label}: K14's P~ vs K15's, bit for bit: {differ} of {p14.numel()} elements differ "
+            f"({differ / p14.numel():.6f}) {'ok' if differ == 0 else 'FAIL'}")
+        return differ == 0
+
     errs = {"fwd": 0.0, "bwd": 0.0}
     cases = [(dt, TRAIN_BIG_BATCH, SEQ_PER_IMG, kind, kp, True) for dt in (torch.float32, torch.bfloat16)
              for kind in ("self", "cross") for kp in (True, False)]
@@ -1058,6 +1212,7 @@ def check_decoder_attention_kernels(gen, results: dict, timing: bool = True) -> 
             ok &= rounding_share(f"{label} out", kout, pout, K14_SHARE_LIMIT, K14_FAR_LIMIT)
             for i, nm in enumerate(("dq", "dk", "dv")):
                 ok &= rounding_share(f"{label} {nm}", kg[i], pg[i], K15_SHARE_LIMIT, K15_FAR_LIMIT)
+            ok &= p_agreement(label, args)
         if kind == "cross":  # image 0 has no valid region: uniform weights, no gradient to its q or k
             zero = bool((kg[0][:g] == 0).all() and (kg[1][0] == 0).all())
             msg = f"[kernel] {label} {dname}: all-padded image: dq and dk exactly 0={zero}"
@@ -1093,9 +1248,14 @@ def check_decoder_attention_kernels(gen, results: dict, timing: bool = True) -> 
                 ok &= good
                 if dtype == torch.bfloat16 and nm != "out":
                     ok &= rounding_share(f"{label} {nm}", kt, pt, K15_SHARE_LIMIT, K15_FAR_LIMIT)
+            if dtype == torch.bfloat16:
+                ok &= p_agreement(label, args)
             del args, dout, kout, kg, pout, pg
     ok &= smem_agrees("decoder_attention_bwd", "sct_decoder_attention_bwd_smem", k14.bf16_backward_smem,
                       [(tq, tq, 1), (tq, r, SEQ_PER_IMG), (tq, r, SCST_SAMPLES), (64, 64, 5), (64, 64, 6)])
+    ok &= smem_agrees("decoder_attention", "sct_decoder_attention_smem", k14.bf16_forward_smem,
+                      [(tq, tq, 1, 1), (tq, r, SEQ_PER_IMG, 1), (tq, r, SCST_SAMPLES, 0), (tq, r, SCST_SAMPLES, 1),
+                       (64, 64, 16, 1), (64, 64, 17, 1), (20, 64, 3, 1)])
     if not timing:
         return ok
 
@@ -1103,15 +1263,18 @@ def check_decoder_attention_kernels(gen, results: dict, timing: bool = True) -> 
     dtype, es, n = torch.bfloat16, 2, TRAIN_BIG_BATCH * SEQ_PER_IMG
     pair = [inputs(dtype, TRAIN_BIG_BATCH, SEQ_PER_IMG, kind, True) for kind in ("self", "cross")]
 
-    def forward(fn):
-        for args, _ in pair:
+    def forward(fn, calls=pair, only=None):
+        for i, (args, _) in enumerate(calls):
             q, k, v, valid, causal, keep = args
-            fn(q, k, v, valid, causal, keep, 0.9)
+            if only is None or i == only:
+                fn(q, k, v, valid, causal, keep, 0.9)
 
     def library_inputs(args):
         """SDPA's inputs: K/V repeated to the query rows, a dense bool mask (no keep-mask: SDPA draws its own)."""
         q, k, v, valid, causal, _ = args
         g = q.shape[0] // k.shape[0]
+        if valid is None:  # the replay's causal-only self call
+            valid = torch.ones(k.shape[0], k.shape[2], dtype=torch.bool, device=dev)
         mask = valid.repeat_interleave(g, 0)[:, None, None, :]
         if causal:
             mask = mask & torch.tril(torch.ones(tq, tq, dtype=torch.bool, device=dev))
@@ -1133,11 +1296,13 @@ def check_decoder_attention_kernels(gen, results: dict, timing: bool = True) -> 
     lib_in = [library_inputs(args) for args, _ in pair]
     with torch.no_grad():
         fwd = turns_ms(lambda: forward(k14.decoder_attention), lambda: forward(k14.decoder_attention_plain),
-                       lambda: [F.scaled_dot_product_attention(*i, attn_mask=m) for i, m in lib_in])
+                       lambda: [F.scaled_dot_product_attention(*i, attn_mask=m) for i, m in lib_in],
+                       lambda: forward(k14.decoder_attention, only=0), lambda: forward(k14.decoder_attention, only=1))
     bwd = turns_ms(lambda: backward("kernel"), lambda: backward("plain"), lambda: backward("library"),
                    lambda: backward("kernel", 0), lambda: backward("kernel", 1))
-    log(f"[kernel] decoder_attention_bwd bf16 at {TRAIN_BIG_BATCH}x{SEQ_PER_IMG}: self call ms={bwd[3]:.4f}, "
-        f"cross call ms={bwd[4]:.4f} (in the same turns)")
+    for name, times in (("decoder_attention", fwd), ("decoder_attention_bwd", bwd)):
+        log(f"[kernel] {name} bf16 at {TRAIN_BIG_BATCH}x{SEQ_PER_IMG}: self call ms={times[3]:.4f}, "
+            f"cross call ms={times[4]:.4f} (in the same turns)")
     shapes = [(n, n, tq), (n, TRAIN_BIG_BATCH, r)]  # (query rows, K/V rows, keys) of the self and cross calls
     for name, (ms, plain_ms, lib_ms, *_), nbytes, ops, err in (
             ("decoder_attention", fwd, sum(k14_bytes(nq, nk, tk, dtype) for nq, nk, tk in shapes),
@@ -1149,6 +1314,7 @@ def check_decoder_attention_kernels(gen, results: dict, timing: bool = True) -> 
             f"plain_ms={plain_ms:.4f} library_ms={lib_ms:.4f} (SDPA, bool mask, K/V repeated) bound_ms={bnd:.4f} "
             f"({by}; held windows in turns)")
         results[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bnd, bound_by=by)
+    results["decoder_attention"].update(self_ms=fwd[3], cross_ms=fwd[4])
     results["decoder_attention_bwd"].update(self_ms=bwd[3], cross_ms=bwd[4])
     del pair, lib_in
     # the replay's pair (f32, 64 x 15, causal-only self, no dropout): K15 alone, then forward + backward
@@ -1158,18 +1324,31 @@ def check_decoder_attention_kernels(gen, results: dict, timing: bool = True) -> 
         for args, dout in rpair:
             ins = leaves(*args[:3])
             graphs[impl].append((fn(*ins, *args[3:], 0.9), ins, dout))
+    rlib = [library_inputs(args) for args, _ in rpair]
+    with torch.no_grad():
+        t_fk, t_fp, t_fl = turns_ms(lambda: forward(k14.decoder_attention, rpair),
+                                    lambda: forward(k14.decoder_attention_plain, rpair),
+                                    lambda: [F.scaled_dot_product_attention(*i, attn_mask=m) for i, m in rlib])
     t_bk, t_bp, t_k, t_p = turns_ms(lambda: backward("kernel"), lambda: backward("plain"),
                                     lambda: [run(k14.decoder_attention, a, d) for a, d in rpair],
                                     lambda: [run(k14.decoder_attention_plain, a, d) for a, d in rpair])
     nr = SCST_BATCHES[-1] * SCST_SAMPLES
     rshapes = [(nr, nr, tq), (nr, SCST_BATCHES[-1], r)]
+    f_bound = bound_ms(sum(k14_bytes(nq, nk, tk, torch.float32, keep=False, valid=vd)
+                           for (nq, nk, tk), vd in zip(rshapes, (False, True))),
+                       flops((torch.float32, sum(decoder_attention_flops(nq, tk) for nq, _, tk in rshapes))))
     r_bound = bound_ms(sum(k15_bytes(nq, nk, tk, torch.float32, keep=False, valid=vd)
                            for (nq, nk, tk), vd in zip(rshapes, (False, True))),
                        flops((torch.float32, sum(decoder_attention_flops(nq, tk, backward=True)
                                                  for nq, _, tk in rshapes))))
+    log(f"[kernel] decoder_attention f32 self + cross at the replay shape {SCST_BATCHES[-1]}x{SCST_SAMPLES}: "
+        f"ms={t_fk:.4f} plain_ms={t_fp:.4f} library_ms={t_fl:.4f} (SDPA, bool mask, K/V repeated) "
+        f"bound_ms={f_bound[0]:.4f} ({f_bound[1]}; held windows in turns)")
     log(f"[kernel] decoder_attention_bwd f32 self + cross at the replay shape {SCST_BATCHES[-1]}x{SCST_SAMPLES}: "
         f"ms={t_bk:.4f} plain_ms={t_bp:.4f} bound_ms={r_bound[0]:.4f} ({r_bound[1]}); forward + backward ms={t_k:.4f} "
         f"plain_ms={t_p:.4f} (held windows in turns)")
+    results["decoder_attention"].update(replay_f32_ms=t_fk, replay_f32_plain_ms=t_fp, replay_f32_library_ms=t_fl,
+                                        replay_f32_bound_ms=f_bound[0])
     results["decoder_attention_bwd"].update(replay_f32_ms=t_bk, replay_f32_plain_ms=t_bp)
     return ok
 
@@ -1750,12 +1929,13 @@ def make_scst(model, table, samples: int = SCST_SAMPLES):
 def scst_launches(layers: int, steps: int, n_masked: int, names) -> dict:
     """Launches of one SCST step: a train-mode encode and `steps` decode steps
     without gradients, the reward, then the replay's encode and decoder pass
-    with their backward. Masked weights are multiplied once per sampling
-    phase (kept until the next update) and once more in the replay."""
+    with their backward. Masked weights are multiplied one tensor a launch
+    once per sampling phase (kept until the next update), and as one K5 set
+    in the replay."""
     enc_k6, dec_k6 = 1 + 2 * layers, 1 + 3 * layers
     counts = {name: 0 for name in names}
     counts.update(box_attention_train=2 * layers, box_attention_bwd=layers, ancestry_self_attention=layers * steps,
-                  grouped_cross_attention=layers * steps, supermask=2 * n_masked, supermask_bwd=n_masked,
+                  grouped_cross_attention=layers * steps, supermask=n_masked + 1, supermask_bwd=1,
                   add_ref_layernorm=enc_k6 + steps * dec_k6 + enc_k6 + dec_k6, add_ref_layernorm_bwd=enc_k6 + dec_k6,
                   keyed_keep_mask=3 * layers * (steps + 3), keyed_dropout=(1 + layers) * (steps + 5),
                   sample_step=steps, cider_reward=1, vocab_log_softmax=1, vocab_log_softmax_bwd=1,
@@ -1768,12 +1948,12 @@ def updown_scst_launches(steps: int, names) -> dict:
     encode and `steps` decode steps without gradients: each of the 11 masked
     tensors multiplied once, kept until the update; two LSTM cells, the
     attention, the sampling step and two keyed dropouts per step, two in
-    the encode), the reward, then the replay: the unrolled steps with every
-    masked tensor multiplied on every call (3 + 8 per step, as flax samples
-    them) and the backward of each launch."""
-    calls = 3 + 8 * steps
+    the encode), the reward, then the replay: the encode's 3 masked tensors
+    as one K5 set and each unrolled step's 8 as another (fresh products on
+    every call, as flax samples them), and the backward of each set."""
+    sets = 1 + steps
     counts = {name: 0 for name in names}
-    counts.update(supermask=11 + calls, supermask_bwd=calls, keyed_dropout=3 * (2 + 2 * steps),
+    counts.update(supermask=11 + sets, supermask_bwd=sets, keyed_dropout=3 * (2 + 2 * steps),
                   lstm_cell=4 * steps, lstm_cell_bwd=2 * steps, additive_attention=2 * steps,
                   additive_attention_bwd=steps, sample_step=steps, cider_reward=1, vocab_log_softmax=1,
                   vocab_log_softmax_bwd=1)
@@ -2412,7 +2592,7 @@ def main() -> int:
     # training: the supermask XE step
     n_masked = len(masked_shapes())
     train = {name: 0 for name in KERNELS}
-    train.update(box_attention_train=layers, box_attention_bwd=layers, supermask=n_masked, supermask_bwd=n_masked,
+    train.update(box_attention_train=layers, box_attention_bwd=layers, supermask=1, supermask_bwd=1,
                  add_ref_layernorm=(1 + 2 * layers) + (1 + 3 * layers),
                  add_ref_layernorm_bwd=(1 + 2 * layers) + (1 + 3 * layers), vocab_log_softmax=1,
                  vocab_log_softmax_bwd=1, decoder_attention=2 * layers, decoder_attention_bwd=2 * layers)
@@ -2461,9 +2641,9 @@ def main() -> int:
         return 1
     del updown
     torch.cuda.empty_cache()
-    ud_masked = 3 + 8 * MAX_LEN  # fresh samples: the encode's 3 tensors, then 8 per step
+    ud_sets = 1 + MAX_LEN  # fresh samples: the encode's set of 3 tensors, then a set of 8 per step
     ud_train = {name: 0 for name in KERNELS}
-    ud_train.update(supermask=ud_masked, supermask_bwd=ud_masked, lstm_cell=2 * MAX_LEN, lstm_cell_bwd=2 * MAX_LEN,
+    ud_train.update(supermask=ud_sets, supermask_bwd=ud_sets, lstm_cell=2 * MAX_LEN, lstm_cell_bwd=2 * MAX_LEN,
                     additive_attention=MAX_LEN, additive_attention_bwd=MAX_LEN, vocab_log_softmax=1,
                     vocab_log_softmax_bwd=1)
     ud_model = build_updown(SEED, train=True)

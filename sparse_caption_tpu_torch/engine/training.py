@@ -206,10 +206,12 @@ def make_scst_step(model: nn.Module, opt_w: Optimizer, opt_m: Optimizer, config,
             rewards = sc_s - sc_b
         opt_w.zero_grad()
         opt_m.zero_grad()
-        memory = encode(batch, KeyedStream(enc_key))
-        seqs_in = torch.cat([torch.full((b * s, 1), model.bos_id, dtype=flat.dtype, device=flat.device), flat], 1)
-        lp = model.decode_teacher_forced(memory, seqs_in, train=True,
-                                         rng=KeyedStream(decode_train_keys(dec_seed).dropout))
+        enc_rng = KeyedStream(enc_key)
+        with model.mask_set(enc_rng):  # the replay's masked products: one K5 set (ORT), or the encode's (Up-Down)
+            memory = encode(batch, enc_rng)
+            seqs_in = torch.cat([torch.full((b * s, 1), model.bos_id, dtype=flat.dtype, device=flat.device), flat], 1)
+            lp = model.decode_teacher_forced(memory, seqs_in, train=True,
+                                             rng=KeyedStream(decode_train_keys(dec_seed).dropout))
         seq_lp = torch.gather(lp, 2, flat.long()[..., None])[..., 0]
         loss = losses_mod.reward_loss(seq_lp, flat != model.pad_id, rewards)
         loss.backward()

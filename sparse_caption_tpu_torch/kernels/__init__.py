@@ -7,7 +7,7 @@ box_attention (K1)              csrc/box_attention.cu               models/layer
 ancestry_self_attention (K2)    csrc/ancestry_self_attention.cu     models/layers.py:280-334
 grouped_cross_attention (K3)    csrc/grouped_cross_attention.cu     models/layers.py:236-264
 beam_topk (K4)                  csrc/beam_topk.cu                   layers.py:458-472, beam.py
-supermask_weight (K5)           csrc/supermask.cu                   ops/masked.py:70-82, ops/ste.py:51-64
+supermask_weights (K5)          csrc/supermask.cu                   ops/masked.py:70-82, ops/ste.py:51-64
 add_ref_layernorm (K6)          csrc/add_ref_layernorm.cu           models/layers.py:71-92,135-143
 box_attention_train (K1 + K7)   csrc/box_attention_bwd.cu           gradients of layers.py:338-439
 keyed_keep_mask (K8)            csrc/keyed_dropout.cu               models/layers.py:31-68 TimeDropout

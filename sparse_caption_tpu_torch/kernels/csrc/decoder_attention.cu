@@ -12,8 +12,9 @@
 //   p        = softmax_j(s);   pd = p * keep[n,h,i,j] / keep_prob (optional dropout)
 //   out[n,h,i] = sum_j pd[i,j] v[b,h,j]
 // rounded to the compute dtype T where the plain version (ops/attention.py)
-// rounds: the product and its scaling, the probabilities, their dropout
-// scaling and the output. A row with no valid key averages every value
+// rounds on the card: the product and its scaling, the -1e9 fill, p =
+// round(e / sum), the dropout quotient round(p / keep_prob), and the output
+// once after f32 sums. A row with no valid key averages every value
 // uniformly, as the -1e9 fill makes the plain version do.
 //
 // Bound on the H100 (8 heads of 64, 17 query positions; the ORT XE step at
@@ -22,113 +23,394 @@
 // (36 regions, 5 captions per image) reads one K/V row per image: 70 MB,
 // 0.021 ms. The products are 0.8 and 1.6 GFLOP.
 //
-// Design: one block per (key row, head), so K and V are staged in shared
-// memory once and serve every query row of their group (the 5 captions or 15
-// samples of an image in cross-attention; the caption itself in
-// self-attention) without the repeat the JAX package makes. Each warp takes
-// one query row at a time: lane j scores keys j and j + 32, the warp's
-// shuffles give the row max and sum, and the weighted sum of V runs two
-// columns per lane. No log-sum-exp is written: K15 recomputes each row's
-// softmax in one warp from the same scores, bit for bit. CUDA cores only: a
-// 17 x 36 x 64 product per (row, head) is far below a tensor-core tile.
+// Design: in bf16 (tensor cores, mma.sync.m16n8k16 with f32 accumulators),
+// K15's: a persistent grid of blocks walks the (K/V row, head) units. A
+// unit's K, V and the q rows of its whole group (one caption, or an image's
+// 5 captions stacked as 85 rows) are copied by 16-byte cp.async into bf16
+// rows of 144 bytes, each member's keep flags (Tq x Tk contiguous bytes) by
+// 16-byte cp.async where aligned; two stages deep, so the next unit lands
+// while this one computes. One 16-row tile of the stacked rows per warp
+// (row r is member r / Tq, position r % Tq): S = Q K^T and its softmax come
+// from decoder_attention.cuh, the code K15 recomputes P with, so the two
+// agree bit for bit. P~ is packed to bf16 from the accumulators as the A
+// operand of O = P~ V (V's B fragments by ldmatrix.trans); O goes through
+// the warp's own q rows in shared memory and out as 16-byte row stores.
+// Padding keys of the last key tile read a shared zero row.
+// In f32 (the SCST replay; no TF32), K15's f32 layout: CUDA cores, one block
+// per (K/V row, head), K and V staged once in f32 rows of 68 floats (16-byte
+// loads), the group's query rows in chunks of whole members (at most 64
+// rows). Each warp takes 4 query rows at a time (one when the chunk has fewer
+// than 32 rows), so every 16-byte load of a key row feeds 16 FMAs; the
+// weighted sum of V reads P~ by 16-byte loads. Each row's dot products and
+// sums run in the order of K15's f32 variant.
 #include "decoder_attention.cuh"
+#include "vec.cuh"
 
 namespace sct {
 
-template <typename T>
-__global__ void __launch_bounds__(kDecThreads)
-decoder_attention_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                         const unsigned char* __restrict__ key_valid, const unsigned char* __restrict__ keep,
-                         float keep_prob, T* __restrict__ out, int H, int Tq, int Tk, int group, int causal,
-                         float scale) {
-  extern __shared__ float smem[];
-  const int warp = threadIdx.x / 32, lane = threadIdx.x & 31;
-  float* k_s = smem;                            // Tk * kDecStride
-  float* v_s = k_s + Tk * kDecStride;           // Tk * kHeadDim
-  float* q_s = v_s + Tk * kHeadDim;             // kDecWarps * kHeadDim
-  float* p_s = q_s + kDecWarps * kHeadDim;      // kDecWarps * kDecMaxLen
-  unsigned char* valid_s = reinterpret_cast<unsigned char*>(p_s + kDecWarps * kDecMaxLen);  // Tk
+// ------------------------------------------------------------ bf16: tensor cores
+constexpr int kMaxTeam = 8;  // warps of a block
 
-  const int b = blockIdx.x / H, h = blockIdx.x - (blockIdx.x / H) * H;
-  const size_t kv_base = ((size_t)b * H + h) * Tk * kHeadDim;
-  load_tile(k_s, k + kv_base, Tk, kDecStride);
-  load_tile(v_s, v + kv_base, Tk, kHeadDim);
-  dec_load_valid(valid_s, key_valid, b, Tk);
-  __syncthreads();
+// a member's keep flags (Tq x Tk bytes) in a region of this pitch, at the
+// offset that keeps them congruent to their global address mod 16
+__host__ __device__ inline int keep_pitch(int Tq, int Tk) { return 16 * ((Tq * Tk + 15 + 15) / 16); }
+// the unit's stage: K (Tk rows), V (Tk), Q (group * Tq) | keep flags (group regions)
+__host__ __device__ inline int fwd_stage_bytes(int Tq, int Tk, int group, int keep) {
+  return (2 * Tk + group * Tq) * kLd * (int)sizeof(bf16) + (keep ? group * keep_pitch(Tq, Tk) : 0);
+}
+// stages | a zero row
+inline size_t fwd_smem_bytes(int Tq, int Tk, int group, int keep, int stages) {
+  return (size_t)stages * fwd_stage_bytes(Tq, Tk, group, keep) + kLd * sizeof(bf16);
+}
+// the stages that fit (2, else 1; 0: none)
+inline int fwd_stages(int Tq, int Tk, int group, int keep) {
+  if (fwd_smem_bytes(Tq, Tk, group, keep, 2) <= (size_t)kBlockSmemLimit) return 2;
+  return fwd_smem_bytes(Tq, Tk, group, keep, 1) <= (size_t)kBlockSmemLimit ? 1 : 0;
+}
 
-  float* qw = q_s + warp * kHeadDim;
-  float* pw = p_s + warp * kDecMaxLen;
-  for (int r = warp; r < group * Tq; r += kDecWarps) {
-    const int m = r / Tq, i = r - (r / Tq) * Tq;
-    const size_t row = ((size_t)(b * group + m) * H + h) * Tq + i;  // (n, h, i)
-    const float2 qv = load2(q + row * kHeadDim + 2 * lane);
-    qw[2 * lane] = qv.x;
-    qw[2 * lane + 1] = qv.y;
-    __syncwarp();
-    float s[2], p[2];
+// One 16-row tile mt of the unit's stacked rows: S, P, P~ on the
+// accumulators, O = P~ V, written through the tile's own q rows.
+template <int KT>
+__device__ __forceinline__ void fwd_query_tile(const bf16* ks, const bf16* vs, bf16* qs, const bf16* zero,
+                                               const unsigned char* keep_s,
+                                               const unsigned char* __restrict__ valid_b,
+                                               const unsigned char* __restrict__ keep, float keep_prob,
+                                               bf16* __restrict__ out, int b, int h, int H, int Tq, int Tk, int group,
+                                               int causal, float scale, int mt) {
+  constexpr int NS = 2 * KT;
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int rows = group * Tq, kp = keep_pitch(Tq, Tk);
+  bool live[2];
+  int pos[2];
+  const bf16* qr[2];
+  const unsigned char* krow[2];
 #pragma unroll
-    for (int c = 0; c < 2; ++c) {
-      const int j = lane + 32 * c;
-      s[c] = j < Tk ? dec_score<T>(qw, k_s + j * kDecStride, scale, dec_key_ok(valid_s, i, j, causal)) : -INFINITY;
+  for (int r = 0; r < 2; ++r) {
+    const int sr = 16 * mt + g + 8 * r;
+    live[r] = sr < rows;
+    const int m = live[r] ? sr / Tq : 0;
+    pos[r] = live[r] ? sr - m * Tq : 0;
+    qr[r] = live[r] ? qs + sr * kLd : zero;
+    const size_t base = (((size_t)b * group + m) * H + h) * Tq * Tk;  // the member's keep flags
+    krow[r] = keep_s == nullptr ? nullptr
+                                : keep_s + m * kp + (reinterpret_cast<uintptr_t>(keep + base) & 15) + pos[r] * Tk;
+  }
+  const uint32_t vbits = dec_key_bits<NS>(valid_b, Tk);
+  const uint32_t kbits = keep_s == nullptr ? 0xffffffffu : dec_keep_bits<NS>(krow, live, Tk);
+  float sacc[NS][4];
+  dec_scores_mma<KT>(qr, ks, zero, Tk, sacc);
+  dec_softmax_mma<KT>(sacc, vbits, pos, live, Tk, causal, scale);
+  const float inv_kp = 1.f / keep_prob;
+#pragma unroll
+  for (int nt = 0; nt < NS; ++nt) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      sacc[nt][e] = dec_dropped(sacc[nt][e], ((kbits >> (4 * nt + e)) & 1u) != 0, keep_s != nullptr, keep_prob, inv_kp);
     }
-    dec_softmax<T>(s, Tk, p);
+  }
+  // O = P~ V: P~'s accumulators as A, V's B fragments by ldmatrix.trans
+  float oacc[8][4];
 #pragma unroll
-    for (int c = 0; c < 2; ++c) {
-      const int j = lane + 32 * c;
-      if (j < Tk) {
-        float pd = p[c];
-        if (keep != nullptr) pd = keep[row * Tk + j] ? round_to<T>(pd / keep_prob) : 0.f;
-        pw[j] = pd;
+  for (int nt = 0; nt < 8; ++nt) oacc[nt][0] = oacc[nt][1] = oacc[nt][2] = oacc[nt][3] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < KT; ++kk) {
+    const uint32_t a[4] = {pack_bf16(sacc[2 * kk][0], sacc[2 * kk][1]), pack_bf16(sacc[2 * kk][2], sacc[2 * kk][3]),
+                           pack_bf16(sacc[2 * kk + 1][0], sacc[2 * kk + 1][1]),
+                           pack_bf16(sacc[2 * kk + 1][2], sacc[2 * kk + 1][3])};
+    const int j = 16 * kk + (lane & 15);
+    const bf16* vr = (j < Tk ? vs + j * kLd : zero) + (lane >> 4) * 8;
+#pragma unroll
+    for (int jn = 0; jn < 4; ++jn) {
+      uint32_t rr[4];
+      ldmatrix_x4_trans(rr, vr + 16 * jn);
+      const uint32_t b0[2] = {rr[0], rr[1]}, b1[2] = {rr[2], rr[3]};
+      mma_bf16(oacc[2 * jn], a, b0);
+      mma_bf16(oacc[2 * jn + 1], a, b1);
+    }
+  }
+  // the tile's q rows are read: O rounded to bf16 into them, then out by 16-byte row stores
+  __syncwarp();
+#pragma unroll
+  for (int nt = 0; nt < 8; ++nt) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      if (live[r]) {
+        *reinterpret_cast<uint32_t*>(qs + (16 * mt + g + 8 * r) * kLd + 8 * nt + 2 * t) =
+            pack_bf16(oacc[nt][2 * r], oacc[nt][2 * r + 1]);
       }
     }
-    __syncwarp();
-    float2 acc = make_float2(0.f, 0.f);
-    for (int j = 0; j < Tk; ++j) {
-      const float pj = pw[j];
-      const float* vr = v_s + j * kHeadDim + 2 * lane;
-      acc.x = fmaf(pj, vr[0], acc.x);
-      acc.y = fmaf(pj, vr[1], acc.y);
+  }
+  __syncwarp();
+#pragma unroll
+  for (int x = lane; x < 16 * 8; x += 32) {
+    const int sr = 16 * mt + (x >> 3), part = (x & 7) * 8;
+    if (sr < rows) {
+      const int m = sr / Tq, i = sr - (sr / Tq) * Tq;
+      st16(out + ((((size_t)b * group + m) * H + h) * Tq + i) * kHeadDim + part, ld16(qs + sr * kLd + part));
     }
-    store2(out + row * kHeadDim + 2 * lane, acc);
-    __syncwarp();  // qw and pw are rewritten for the warp's next row
   }
 }
 
-template <typename T>
-cudaError_t launch(const void* q, const void* k, const void* v, const void* key_valid, const void* keep,
-                   float keep_prob, void* out, int Nk, int H, int Tq, int Tk, int group, int causal, float scale,
-                   cudaStream_t stream) {
-  const size_t smem = ((size_t)Tk * (kDecStride + kHeadDim) + (size_t)kDecWarps * (kHeadDim + kDecMaxLen)) *
-                      sizeof(float) + Tk;
-  cudaError_t err = cudaFuncSetAttribute(decoder_attention_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)smem);
+template <int KT>
+__global__ void __launch_bounds__(32 * kMaxTeam)
+decoder_attention_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
+                             const unsigned char* __restrict__ key_valid, const unsigned char* __restrict__ keep,
+                             float keep_prob, bf16* __restrict__ out, int units, int H, int Tq, int Tk, int group,
+                             int causal, float scale, int stages) {
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  const int rows = group * Tq, sb = fwd_stage_bytes(Tq, Tk, group, keep != nullptr), kp = keep_pitch(Tq, Tk);
+  const int row_bytes = (2 * Tk + rows) * kLd * (int)sizeof(bf16);  // K, V, Q of a stage; its keep flags follow
+  bf16* zero = reinterpret_cast<bf16*>(smem_raw + (size_t)stages * sb);
+  const int team = blockDim.x / 32, warp = threadIdx.x / 32;
+  for (int e = threadIdx.x; e < kLd; e += blockDim.x) zero[e] = __float2bfloat16_rn(0.f);
+
+  auto issue = [&](int u, int s) {  // unit u into stage s, 16 bytes a copy
+    const int b = u / H, h = u - (u / H) * H;
+    bf16* st = reinterpret_cast<bf16*>(smem_raw + (size_t)s * sb);
+    for (int c = threadIdx.x; c < (2 * Tk + rows) * 8; c += blockDim.x) {
+      const int r = c >> 3, part = (c & 7) * 8;
+      const bf16* src;
+      if (r < 2 * Tk) {
+        src = (r < Tk ? k : v) + (((size_t)b * H + h) * Tk + (r < Tk ? r : r - Tk)) * kHeadDim;
+      } else {
+        const int sr = r - 2 * Tk, m = sr / Tq, i = sr - (sr / Tq) * Tq;
+        src = q + ((((size_t)b * group + m) * H + h) * Tq + i) * kHeadDim;
+      }
+      cp_async<16>(st + r * kLd + part, src + part);
+    }
+    if (keep == nullptr) return;
+    const int n = Tq * Tk;
+    for (int m = 0; m < group; ++m) {  // the member's flags: a head, 16-byte chunks, a tail
+      const unsigned char* src = keep + (((size_t)b * group + m) * H + h) * n;
+      const int off = (int)(reinterpret_cast<uintptr_t>(src) & 15), head = min((16 - off) & 15, n);
+      const int chunks = (n - head) / 16, tail = n - head - 16 * chunks;
+      unsigned char* dst = smem_raw + (size_t)s * sb + row_bytes + m * kp + off;
+      for (int x = threadIdx.x; x < head + chunks + tail; x += blockDim.x) {
+        if (x < head) {
+          dst[x] = src[x];
+        } else if (x < head + chunks) {
+          const int o = head + 16 * (x - head);
+          cp_async<16>(dst + o, src + o);
+        } else {
+          const int o = head + 16 * chunks + (x - head - chunks);
+          dst[o] = src[o];
+        }
+      }
+    }
+  };
+
+  if (stages == 2 && (int)blockIdx.x < units) issue(blockIdx.x, 0);
+  cp_async_commit();
+  int it = 0;
+  for (int u = blockIdx.x; u < units; u += gridDim.x, ++it) {
+    int s = 0;
+    if (stages == 2) {
+      s = it & 1;
+      if (u + (int)gridDim.x < units) issue(u + gridDim.x, s ^ 1);  // stage s ^ 1 was freed by the last barrier
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      issue(u, 0);
+      cp_async_commit();
+      cp_async_wait<0>();
+    }
+    __syncthreads();  // every thread's copies of this unit have landed
+    const int b = u / H, h = u - (u / H) * H;
+    unsigned char* st = smem_raw + (size_t)s * sb;
+    const bf16* ks = reinterpret_cast<const bf16*>(st);
+    const bf16* vs = ks + Tk * kLd;
+    bf16* qs = reinterpret_cast<bf16*>(st) + 2 * Tk * kLd;
+    const unsigned char* keep_s = keep == nullptr ? nullptr : st + row_bytes;
+    for (int mt = warp; 16 * mt < rows; mt += team) {
+      fwd_query_tile<KT>(ks, vs, qs, zero, keep_s, key_valid == nullptr ? nullptr : key_valid + (size_t)b * Tk, keep,
+                         keep_prob, out, b, h, H, Tq, Tk, group, causal, scale, mt);
+    }
+    __syncthreads();  // the stage may be overwritten
+  }
+  cp_async_wait<0>();
+}
+
+template <int KT>
+cudaError_t launch_fwd_mma(const void* q, const void* k, const void* v, const void* key_valid, const void* keep,
+                           float keep_prob, void* out, int Nk, int H, int Tq, int Tk, int group, int causal,
+                           float scale, cudaStream_t stream) {
+  const int stages = fwd_stages(Tq, Tk, group, keep != nullptr);
+  if (stages == 0) return cudaErrorInvalidValue;
+  const size_t smem = fwd_smem_bytes(Tq, Tk, group, keep != nullptr, stages);
+  auto kernel = decoder_attention_mma_kernel<KT>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  decoder_attention_kernel<T><<<Nk * H, kDecThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+  const int mtiles = (group * Tq + 15) / 16;
+  const int team = mtiles < kMaxTeam ? mtiles : kMaxTeam;
+  int per_sm = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, 32 * team, smem);
+  if (err != cudaSuccess) return err;
+  if (per_sm < 1) return cudaErrorInvalidValue;
+  const int units = Nk * H, cap = sm_count() * per_sm;
+  kernel<<<units < cap ? units : cap, 32 * team, smem, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
       static_cast<const unsigned char*>(key_valid), static_cast<const unsigned char*>(keep), keep_prob,
-      static_cast<T*>(out), H, Tq, Tk, group, causal, scale);
+      static_cast<bf16*>(out), units, H, Tq, Tk, group, causal, scale, stages);
+  return cudaGetLastError();
+}
+
+// ------------------------------------------------------------ f32: CUDA cores
+// k_s, v_s (Tk rows) | q_s (chunk rows) | pd_s (chunk rows x Tk padded to 4)
+inline size_t f32_fwd_smem_bytes(int Tq, int Tk, int group) {
+  const int cr = f32_chunk_members(Tq, group) * Tq;
+  return ((size_t)(2 * Tk + cr) * kF32Ld + (size_t)cr * f32_tk_pad(Tk)) * sizeof(float);
+}
+
+// kRowTile: query rows a warp takes at a time (4, or 1 for chunks of fewer
+// than 32 rows, so that all 8 warps share them)
+template <int kRowTile>
+__global__ void __launch_bounds__(kF32Threads, kRowTile == 1 ? 4 : 2)
+decoder_attention_f32_kernel(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
+                             const unsigned char* __restrict__ key_valid, const unsigned char* __restrict__ keep,
+                             float keep_prob, float* __restrict__ out, int H, int Tq, int Tk, int group, int causal,
+                             float scale) {
+  extern __shared__ __align__(16) float fsm[];
+  const int cm = f32_chunk_members(Tq, group), cr_max = cm * Tq, tkp = f32_tk_pad(Tk);
+  float* k_s = fsm;
+  float* v_s = k_s + Tk * kF32Ld;
+  float* q_s = v_s + Tk * kF32Ld;
+  float* pd_s = q_s + cr_max * kF32Ld;  // P~; columns past Tk 0
+  const int warp = threadIdx.x / 32, lane = threadIdx.x & 31;
+  const int b = blockIdx.x / H, h = blockIdx.x - (blockIdx.x / H) * H;
+  const size_t kv0 = ((size_t)b * H + h) * Tk * kHeadDim;
+  stage_rows_f32(k_s, k + kv0, Tk);
+  stage_rows_f32(v_s, v + kv0, Tk);
+  const bool v0 = lane < Tk && (key_valid == nullptr || key_valid[(size_t)b * Tk + lane] != 0);
+  const bool v1 = lane + 32 < Tk && (key_valid == nullptr || key_valid[(size_t)b * Tk + lane + 32] != 0);
+
+  for (int m0 = 0; m0 < group; m0 += cm) {
+    const int members = group - m0 < cm ? group - m0 : cm, cr = members * Tq;
+    __syncthreads();  // the previous chunk's rows are no longer read
+    for (int m = 0; m < members; ++m) {
+      stage_rows_f32(q_s + m * Tq * kF32Ld, q + (((size_t)b * group + m0 + m) * H + h) * Tq * kHeadDim, Tq);
+    }
+    __syncthreads();
+    for (int r0 = kRowTile * warp; r0 < cr; r0 += kRowTile * kF32Warps) {
+      float s[kRowTile][2];
+#pragma unroll
+      for (int rr = 0; rr < kRowTile; ++rr) s[rr][0] = s[rr][1] = 0.f;
+      const int r_last = cr - 1;
+      const float* kr0 = k_s + (lane < Tk ? lane : 0) * kF32Ld;
+      const float* kr1 = k_s + (lane + 32 < Tk ? lane + 32 : 0) * kF32Ld;
+      const bool two = Tk > 32;
+#pragma unroll 4
+      for (int d = 0; d < kHeadDim; d += 4) {
+        const float4 k0 = lds4(kr0 + d);
+        const float4 k1 = two ? lds4(kr1 + d) : k0;
+#pragma unroll
+        for (int rr = 0; rr < kRowTile; ++rr) {
+          const float4 qv = lds4(q_s + (r0 + rr < cr ? r0 + rr : r_last) * kF32Ld + d);
+          s[rr][0] = dot4(qv, k0, s[rr][0]);
+          if (two) s[rr][1] = dot4(qv, k1, s[rr][1]);
+        }
+      }
+#pragma unroll
+      for (int rr = 0; rr < kRowTile; ++rr) {
+        const int row = r0 + rr;
+        if (row >= cr) break;  // warp-uniform
+        const int m = row / Tq, i = row - (row / Tq) * Tq;
+        const size_t grow = (((size_t)b * group + m0 + m) * H + h) * Tq + i;
+        const bool ok0 = v0 && (!causal || lane <= i), ok1 = v1 && (!causal || lane + 32 <= i);
+        const float sv[2] = {lane < Tk ? (ok0 ? s[rr][0] * scale : kNegInf) : -INFINITY,
+                             lane + 32 < Tk ? (ok1 ? s[rr][1] * scale : kNegInf) : -INFINITY};
+        float p[2];
+        dec_softmax(sv, Tk, p);
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const int j = lane + 32 * c;
+          const bool kept = j < Tk && (keep == nullptr || keep[grow * Tk + j] != 0);
+          if (j < tkp) pd_s[row * tkp + j] = kept ? (keep != nullptr ? p[c] / keep_prob : p[c]) : 0.f;
+        }
+      }
+      __syncwarp();
+      // O for the rows: lane owns columns 2 lane, 2 lane + 1; keys in order
+      float2 acc[kRowTile];
+#pragma unroll
+      for (int rr = 0; rr < kRowTile; ++rr) acc[rr] = make_float2(0.f, 0.f);
+      for (int j = 0; j < tkp; j += 4) {
+        float2 vc[4];
+#pragma unroll
+        for (int x = 0; x < 4; ++x) {
+          vc[x] = j + x < Tk ? *reinterpret_cast<const float2*>(v_s + (j + x) * kF32Ld + 2 * lane) : make_float2(0.f, 0.f);
+        }
+#pragma unroll
+        for (int rr = 0; rr < kRowTile; ++rr) {
+          const float4 d4 = lds4(pd_s + (r0 + rr < cr ? r0 + rr : r_last) * tkp + j);
+          acc[rr].x = fmaf(d4.w, vc[3].x, fmaf(d4.z, vc[2].x, fmaf(d4.y, vc[1].x, fmaf(d4.x, vc[0].x, acc[rr].x))));
+          acc[rr].y = fmaf(d4.w, vc[3].y, fmaf(d4.z, vc[2].y, fmaf(d4.y, vc[1].y, fmaf(d4.x, vc[0].y, acc[rr].y))));
+        }
+      }
+#pragma unroll
+      for (int rr = 0; rr < kRowTile; ++rr) {
+        const int row = r0 + rr;
+        if (row < cr) {
+          const int m = row / Tq, i = row - (row / Tq) * Tq;
+          const size_t grow = (((size_t)b * group + m0 + m) * H + h) * Tq + i;
+          *reinterpret_cast<float2*>(out + grow * kHeadDim + 2 * lane) = acc[rr];
+        }
+      }
+    }
+  }
+}
+
+cudaError_t launch_f32(const void* q, const void* k, const void* v, const void* key_valid, const void* keep,
+                       float keep_prob, void* out, int Nk, int H, int Tq, int Tk, int group, int causal, float scale,
+                       cudaStream_t stream) {
+  const size_t smem = f32_fwd_smem_bytes(Tq, Tk, group);
+  if (smem > (size_t)kBlockSmemLimit) return cudaErrorInvalidValue;
+  auto kernel = f32_chunk_members(Tq, group) * Tq >= kWideRows ? decoder_attention_f32_kernel<4>
+                                                               : decoder_attention_f32_kernel<1>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<Nk * H, kF32Threads, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<const unsigned char*>(key_valid), static_cast<const unsigned char*>(keep), keep_prob,
+      static_cast<float*>(out), H, Tq, Tk, group, causal, scale);
   return cudaGetLastError();
 }
 
 }  // namespace sct
 
 // dtype: 0 = float32, 1 = bfloat16. q/out (Nk * group, H, Tq, 64); k/v (Nk, H,
-// Tk, 64); key_valid (Nk, Tk) bool or null (every key valid); keep (Nk * group,
-// H, Tq, Tk) bool or null (no dropout) with keep_prob (rounded to the compute
-// dtype by the caller); causal: query position i attends keys j <= i.
+// Tk, 64), every one 16-byte aligned; key_valid (Nk, Tk) bool or null (every
+// key valid); keep (Nk * group, H, Tq, Tk) bool or null (no dropout) with
+// keep_prob (rounded to the compute dtype by the caller); causal: query
+// position i attends keys j <= i.
 extern "C" int sct_decoder_attention(int dtype, const void* q, const void* k, const void* v, const void* key_valid,
                                      const void* keep, float keep_prob, void* out, int Nk, int H, int Tq, int Tk,
                                      int group, int causal, float scale, void* stream) {
-  if (Nk < 1 || H < 1 || Tq < 1 || Tk < 1 || Tk > sct::kDecMaxLen || group < 1) return (int)cudaErrorInvalidValue;
+  if (Nk < 1 || H < 1 || Tq < 1 || Tq > sct::kDecMaxLen || Tk < 1 || Tk > sct::kDecMaxLen || group < 1) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const void* ptrs[] = {q, k, v, out};
+  for (const void* p : ptrs) {
+    if (!sct::aligned_to(p, 16)) return (int)cudaErrorInvalidValue;
+  }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
-    return (int)sct::launch<float>(q, k, v, key_valid, keep, keep_prob, out, Nk, H, Tq, Tk, group, causal, scale, s);
+    return (int)sct::launch_f32(q, k, v, key_valid, keep, keep_prob, out, Nk, H, Tq, Tk, group, causal, scale, s);
   }
   if (dtype == 1) {
-    return (int)sct::launch<__nv_bfloat16>(q, k, v, key_valid, keep, keep_prob, out, Nk, H, Tq, Tk, group, causal,
-                                           scale, s);
+#define SCT_FWD(KT) \
+  sct::launch_fwd_mma<KT>(q, k, v, key_valid, keep, keep_prob, out, Nk, H, Tq, Tk, group, causal, scale, s)
+    if (Tk <= 16) return (int)SCT_FWD(1);
+    if (Tk <= 32) return (int)SCT_FWD(2);
+    if (Tk <= 48) return (int)SCT_FWD(3);
+    return (int)SCT_FWD(4);
+#undef SCT_FWD
   }
   return (int)cudaErrorInvalidValue;
+}
+
+// the bf16 kernel's shared memory for (Tq, Tk, group, keep-mask given) at its stage count; 0 if none fits
+extern "C" long long sct_decoder_attention_smem(int Tq, int Tk, int group, int keep) {
+  const int stages = sct::fwd_stages(Tq, Tk, group, keep);
+  return stages == 0 ? 0 : (long long)sct::fwd_smem_bytes(Tq, Tk, group, keep, stages);
 }
 
 extern "C" const char* sct_error_string(int err) { return cudaGetErrorString(static_cast<cudaError_t>(err)); }

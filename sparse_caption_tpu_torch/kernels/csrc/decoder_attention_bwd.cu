@@ -34,8 +34,9 @@
 // cp.async into bf16 rows of 144 bytes (ldmatrix rows in distinct banks),
 // two stages deep: the next unit lands while this one computes. Query side,
 // one 16-row tile of the stacked rows per warp: S = Q K^T and dPd = dO V^T on
-// the tensor cores, the softmax recomputed on the accumulators exactly as K14
-// computes it (no saved log-sum-exp: for a row whose keys are all masked,
+// the tensor cores, the softmax recomputed on the accumulators by K14's own
+// code (decoder_attention.cuh: the same P, bit for bit; no saved
+// log-sum-exp: for a row whose keys are all masked,
 // -1e9 + log(Tk) rounds to -1e9 in f32 and exp(s - lse) would give P = 1,
 // not 1 / Tk), dS in registers, dQ = dS K with dS's accumulators as the A
 // operand; dS and P~ go to shared memory in bf16, each member's rows in a
@@ -54,16 +55,12 @@
 // owns 2 keys x 4 columns of dK and dV across the chunks and reads q, dO, dS
 // and P~ by 8- and 16-byte loads.
 #include "decoder_attention.cuh"
-#include "mma.cuh"
 #include "vec.cuh"
 
 namespace sct {
 
-using bf16 = __nv_bfloat16;
-
 // ------------------------------------------------------------ bf16: tensor cores
-constexpr int kLd = kHeadDim + 8;  // staged row pitch in bf16 (144 B)
-constexpr int kMaxTeam = 8;        // warps of a block
+constexpr int kMaxTeam = 8;  // warps of a block
 
 // the unit's stage: K (Tk rows), V (Tk), Q (group * Tq), dO (group * Tq)
 __host__ __device__ inline int stage_elems(int Tq, int Tk, int group) { return (2 * Tk + 2 * group * Tq) * kLd; }
@@ -74,10 +71,6 @@ __host__ __device__ inline int ds_ld(int Tk) { return 16 * ((Tk + 15) / 16) + 8;
 inline size_t mma_smem_bytes(int Tq, int Tk, int group, int stages) {
   return ((size_t)stages * stage_elems(Tq, Tk, group) + kLd + 2 * (size_t)group * member_cols(Tq) * ds_ld(Tk)) *
          sizeof(bf16);
-}
-
-__device__ __forceinline__ bool key_attended(uint32_t vbits, int c, int j, int i, int causal) {
-  return ((vbits >> c) & 1u) != 0 && (!causal || j <= i);
 }
 
 // Query side of one 16-row tile mt of the unit's stacked rows (row sr is
@@ -110,100 +103,36 @@ __device__ __forceinline__ void query_tile_mma(const bf16* ks, const bf16* vs, c
   }
   // rows g + 8 of the tile hold a live row (warp-uniform); else their elementwise work is skipped
   const bool half1 = 16 * mt + 8 < rows;
-  // the flags this lane needs, read before the products: key validity of its
-  // keys (bit 2 nt + c for key 8 nt + 2 t + c), the keep-mask of its elements
-  // (bit 4 nt + e)
-  uint32_t vbits = 0, kbits = 0xffffffffu;
-#pragma unroll
-  for (int nt = 0; nt < NS; ++nt) {
-#pragma unroll
-    for (int c = 0; c < 2; ++c) {
-      const int j = 8 * nt + 2 * t + c;
-      if (j < Tk && (valid_b == nullptr || valid_b[j] != 0)) vbits |= 1u << (2 * nt + c);
-    }
-  }
+  // the flags this lane needs, read before the products (decoder_attention.cuh)
+  const uint32_t vbits = dec_key_bits<NS>(valid_b, Tk);
+  uint32_t kbits = 0xffffffffu;
   if (keep != nullptr) {
-    kbits = 0;
-#pragma unroll
-    for (int nt = 0; nt < NS; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int j = 8 * nt + 2 * t + (e & 1), r = e >> 1;
-        if (live[r] && j < Tk && keep[grow[r] * Tk + j] != 0) kbits |= 1u << (4 * nt + e);
-      }
-    }
+    const unsigned char* krow[2] = {keep + grow[0] * Tk, keep + grow[1] * Tk};
+    kbits = dec_keep_bits<NS>(krow, live, Tk);
   }
   const int nsv = (Tk + 7) / 8;  // key n-tiles that hold keys; the rest of S stays 0 and P 0
+  // K14's scores and softmax (decoder_attention.cuh): p in sacc
   float sacc[NS][4], dacc[NS][4];
+  dec_scores_mma<KT>(qr, ks, zero, Tk, sacc);
+  // dPd = dO V^T
 #pragma unroll
-  for (int nt = 0; nt < NS; ++nt) {
-#pragma unroll
-    for (int e = 0; e < 4; ++e) sacc[nt][e] = dacc[nt][e] = 0.f;
-  }
+  for (int nt = 0; nt < NS; ++nt) dacc[nt][0] = dacc[nt][1] = dacc[nt][2] = dacc[nt][3] = 0.f;
 #pragma unroll
   for (int kd = 0; kd < kHeadDim / 16; ++kd) {
     const int col = 16 * kd + 2 * t;
-    const uint32_t aq[4] = {lds_u32(qr[0] + col), lds_u32(qr[1] + col), lds_u32(qr[0] + col + 8),
-                            lds_u32(qr[1] + col + 8)};
     const uint32_t ad[4] = {lds_u32(dr[0] + col), lds_u32(dr[1] + col), lds_u32(dr[0] + col + 8),
                             lds_u32(dr[1] + col + 8)};
 #pragma unroll
     for (int nt = 0; nt < NS; ++nt) {
       if (nt < nsv) {
         const int j = 8 * nt + g;
-        const bf16* kr = (j < Tk ? ks + j * kLd : zero) + col;
         const bf16* vr = (j < Tk ? vs + j * kLd : zero) + col;
-        const uint32_t bk[2] = {lds_u32(kr), lds_u32(kr + 8)};
         const uint32_t bv[2] = {lds_u32(vr), lds_u32(vr + 8)};
-        mma_bf16(sacc[nt], aq, bk);
         mma_bf16(dacc[nt], ad, bv);
       }
     }
   }
-  // K14's scores and softmax: the product and its scaling rounded to bf16,
-  // -1e9 (in bf16) where the key may not be attended, p = round(e / sum)
-  const float fill = round_to<bf16>(kNegInf);
-  float mx[2] = {-INFINITY, -INFINITY};
-#pragma unroll
-  for (int nt = 0; nt < NS; ++nt) {
-    if (nt >= nsv) continue;  // no key there: S, P and dS stay 0
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int c = e & 1, j = 8 * nt + 2 * t + c, r = e >> 1;
-      if (r == 1 && !half1) continue;
-      float s = -INFINITY;
-      if (j < Tk) {
-        s = key_attended(vbits, 2 * nt + c, j, pos[r], causal) ? round_to<bf16>(round_to<bf16>(sacc[nt][e]) * scale)
-                                                                : fill;
-      }
-      sacc[nt][e] = s;
-      mx[r] = fmaxf(mx[r], s);
-    }
-  }
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-  }
-  float sum[2] = {0.f, 0.f};
-#pragma unroll
-  for (int nt = 0; nt < NS; ++nt) {
-    if (nt >= nsv) continue;
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      if ((e >> 1) == 1 && !half1) continue;
-      const float x = sacc[nt][e] == -INFINITY ? 0.f : expf(sacc[nt][e] - mx[e >> 1]);
-      sacc[nt][e] = x;
-      sum[e >> 1] += x;
-    }
-  }
-  float inv[2];  // p = e / sum and x / keep_prob by one reciprocal each (div_by: the IEEE quotient)
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], 1);
-    sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], 2);
-    inv[r] = 1.f / sum[r];
-  }
+  dec_softmax_mma<KT>(sacc, vbits, pos, live, Tk, causal, scale);
   const float inv_kp = 1.f / keep_prob;
   const int ldk = 16 * KT + 8;
   int srow[2];  // the rows' shared-memory row in dS_s / P_s
@@ -217,19 +146,16 @@ __device__ __forceinline__ void query_tile_mma(const bf16* ks, const bf16* vs, c
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       if (r == 1 && !half1) continue;
-      float pk2[2];
+      float pk2[2];  // P~
 #pragma unroll
       for (int c = 0; c < 2; ++c) {
         const int e = 2 * r + c, j = 8 * nt + 2 * t + c;
         const bool real = live[r] && j < Tk;
-        const float p = real ? round_to<bf16>(div_by(sacc[nt][e], sum[r], inv[r])) : 0.f;
+        const float p = sacc[nt][e];
         const bool kept = real && ((kbits >> (4 * nt + e)) & 1u) != 0;
-        const float dp = round_to<bf16>(dacc[nt][e]);
-        const float dpk = !kept ? 0.f : keep == nullptr ? dp : round_to<bf16>(div_by(dp, keep_prob, inv_kp));
-        const float pk = !kept ? 0.f : keep == nullptr ? p : round_to<bf16>(div_by(p, keep_prob, inv_kp));
-        pk2[c] = pk;
+        const float dpk = dec_dropped(round_to<bf16>(dacc[nt][e]), kept, keep != nullptr, keep_prob, inv_kp);
+        pk2[c] = dec_dropped(p, kept, keep != nullptr, keep_prob, inv_kp);
         const float gp = round_to<bf16>(dpk * p);
-        sacc[nt][e] = p;
         dacc[nt][e] = gp;
         dsum[r] += gp;
       }
@@ -449,36 +375,12 @@ cudaError_t launch_bwd_mma(const void* q, const void* k, const void* v, const vo
 }
 
 // ------------------------------------------------------------ f32: CUDA cores
-constexpr int kF32Threads = 256;
-constexpr int kF32Warps = kF32Threads / 32;
-constexpr int kF32Ld = kHeadDim + 4;  // 68 floats: 16-byte rows; 8 lanes reading 8 rows hit distinct banks
-constexpr int kWideRows = 32;         // chunks of at least this many rows take 4 query rows a warp at a time
-constexpr int kChunkRows = 64;        // query rows staged at a time (whole members)
-constexpr int kOwn = 2;               // (2 keys x 4 columns) items a thread owns, of dK and of dV
-
-__host__ __device__ inline int f32_chunk_members(int Tq, int group) {
-  const int m = kChunkRows / Tq;
-  return m < 1 ? 1 : (m > group ? group : m);
-}
-__host__ __device__ inline int f32_tk_pad(int Tk) { return 4 * ((Tk + 3) / 4); }
+constexpr int kOwn = 2;  // (2 keys x 4 columns) items a thread owns, of dK and of dV
 
 // k_s, v_s (Tk rows) | q_s, do_s (chunk rows) | ds_s, pd_s (chunk rows x Tk padded to 4)
 inline size_t f32_smem_bytes(int Tq, int Tk, int group) {
   const int cr = f32_chunk_members(Tq, group) * Tq;
   return ((size_t)(2 * Tk + 2 * cr) * kF32Ld + 2 * (size_t)cr * f32_tk_pad(Tk)) * sizeof(float);
-}
-
-__device__ __forceinline__ float4 lds4(const float* p) { return *reinterpret_cast<const float4*>(p); }
-__device__ __forceinline__ float dot4(float4 a, float4 b, float acc) {
-  return fmaf(a.w, b.w, fmaf(a.z, b.z, fmaf(a.y, b.y, fmaf(a.x, b.x, acc))));
-}
-
-// rows of 64 f32 from global into rows of kF32Ld, 16 bytes a copy
-__device__ __forceinline__ void stage_rows_f32(float* dst, const float* __restrict__ src, int rows) {
-  for (int e = threadIdx.x; e < rows * 16; e += blockDim.x) {
-    const int r = e >> 4, c = (e & 15) * 4;
-    *reinterpret_cast<float4*>(dst + r * kF32Ld + c) = *reinterpret_cast<const float4*>(src + r * kHeadDim + c);
-  }
 }
 
 // kRowTile: query rows a warp takes at a time. With one row, at most 64
@@ -564,7 +466,7 @@ decoder_attention_bwd_f32_kernel(const float* __restrict__ q, const float* __res
         const float s1 = lane + 32 < Tk ? (ok1 ? s[rr][1] * scale : kNegInf) : -INFINITY;
         const float sv[2] = {s0, s1};
         float p[2];
-        dec_softmax<float>(sv, Tk, p);
+        dec_softmax(sv, Tk, p);
         float pk[2], dpk[2];
 #pragma unroll
         for (int c = 0; c < 2; ++c) {

@@ -9,10 +9,12 @@ consecutive query rows (the captions or samples of one image in
 cross-attention), so the memory is projected and read once per image.
 ``keep`` is the training dropout on the probabilities. CUDA tensors launch
 K14, inside an autograd Function whose backward is K15 (dK and dV summed over
-each group in a fixed order; in bf16 on the tensor cores, the whole group's
-query rows in shared memory at once, which bounds the group:
-``bf16_backward_smem``); CPU tensors run ``decoder_attention_plain``
-(``ops/attention.py scaled_dot_attention``). Nothing else falls back.
+each group in a fixed order). In bf16 both run on the tensor cores with the
+whole group's query rows in shared memory at once, which bounds the group
+(``bf16_forward_smem``, ``bf16_backward_smem``); they share the score and
+softmax code, so K15 recomputes the probabilities K14 used, bit for bit.
+CPU tensors run ``decoder_attention_plain`` (``ops/attention.py
+scaled_dot_attention``). Nothing else falls back.
 """
 
 from __future__ import annotations
@@ -35,8 +37,23 @@ KERNEL_BWD = _build.CudaKernel("decoder_attention_bwd", "sct_decoder_attention_b
     _build.I, _build.P, _build.P, _build.P, _build.P, _build.P, _build.P, _build.F32, _build.P, _build.P, _build.P,
     _build.I, _build.I, _build.I, _build.I, _build.I, _build.I, _build.F32, _build.P,
 ])
-MAX_LEN = 64  # the kernels' limit on keys and (backward) query positions
-ROW_PITCH = 72  # K15's staged bf16 rows (csrc/decoder_attention_bwd.cu kLd)
+MAX_LEN = 64  # the kernels' limit on keys and query positions
+ROW_PITCH = 72  # the staged bf16 rows of K14 and K15 (csrc/decoder_attention.cuh kLd)
+
+
+def bf16_forward_smem(tq: int, tk: int, group: int, keep: bool) -> int:
+    """Shared memory of K14's bf16 kernel (``fwd_smem_bytes``) for a K/V row
+    whose group of ``group`` query rows has ``tq`` positions each: two stages
+    of (K, V, the group's q rows in rows of 144 bytes and, with a keep-mask,
+    each member's tq x tk flags in a region rounded up to 16 bytes with 15
+    to spare) if they fit, else one, plus a zero row. 0 when even one stage
+    does not fit."""
+    keep_pitch = 16 * -(-(tq * tk + 15) // 16)
+    stage = 2 * (2 * tk + group * tq) * ROW_PITCH + (group * keep_pitch if keep else 0)
+    for stages in (2, 1):
+        if stages * stage + 2 * ROW_PITCH <= _build.BLOCK_SMEM_LIMIT:
+            return stages * stage + 2 * ROW_PITCH
+    return 0
 
 
 def bf16_backward_smem(tq: int, tk: int, group: int) -> int:
@@ -64,6 +81,7 @@ class _DecoderAttentionFn(torch.autograd.Function):
     def forward(ctx, q, k, v, key_valid, keep, causal: bool, keep_prob: float):
         n, h, tq, dk = q.shape
         nk, tk = k.shape[0], k.shape[2]
+        q, k, v = (_build.aligned16(t) for t in (q, k, v))
         out = torch.empty_like(q)
         KERNEL.launch(_build.dtype_code(q), q.data_ptr(), k.data_ptr(), v.data_ptr(), _build.ptr(key_valid),
                       _build.ptr(keep), keep_prob, out.data_ptr(), nk, h, tq, tk, n // nk, int(causal),
@@ -114,6 +132,9 @@ def decoder_attention(q, k, v, key_valid: Optional[torch.Tensor] = None, causal:
     if dk != 64 or tq > MAX_LEN or tk > MAX_LEN:
         raise ValueError(f"decoder_attention kernels take dk == 64, Tq and Tk <= {MAX_LEN}; got dk={dk} Tq={tq} "
                          f"Tk={tk}")
+    if q.dtype == torch.bfloat16 and bf16_forward_smem(tq, tk, n // nk, keep is not None) == 0:
+        raise ValueError(f"decoder_attention's bf16 forward holds a K/V row's {n // nk} x {tq} query rows in shared "
+                         f"memory; they do not fit with Tk={tk}")
     if q.dtype == torch.bfloat16 and bf16_backward_smem(tq, tk, n // nk) == 0 and torch.is_grad_enabled() and any(
             t.requires_grad for t in (q, k, v)):
         raise ValueError(f"decoder_attention's bf16 backward holds a K/V row's {n // nk} x {tq} query rows in shared "

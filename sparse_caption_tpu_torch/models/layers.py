@@ -103,6 +103,8 @@ class PositionalEncoding(nn.Module, DropoutSite):
 
 
 class PositionwiseFeedForward(nn.Module, DropoutSite):
+    MASKED_CALL_ORDER = ("w_1", "w_2")
+
     def __init__(self, d_model: int, d_ff: int, dropout_rate: float = 0.1, mask_cfg: Optional[MaskConfig] = None,
                  device=None, dtype=None):
         super().__init__()
@@ -161,6 +163,8 @@ def _check_share_att(share_att) -> None:
 
 class MultiHeadAttention(nn.Module, DropoutSite):
     """MHA with cached-decode methods (unshared q/k/v/out projections)."""
+
+    MASKED_CALL_ORDER = ("q_proj", "k_proj", "v_proj", "out_proj")
 
     def __init__(self, num_heads: int, d_model: int, dropout_rate: float = 0.1, share_att: Optional[str] = None,
                  mask_cfg: Optional[MaskConfig] = None, device=None, dtype=None):
@@ -245,6 +249,8 @@ class BoxMultiHeadAttention(nn.Module, DropoutSite):
     ported). The attention runs in kernel K1, or with gradients in K1's train
     variant and K7."""
 
+    MASKED_CALL_ORDER = ("q_proj", "k_proj", "v_proj", "wg", "out_proj")
+
     def __init__(self, num_heads: int, d_model: int, dropout_rate: float = 0.1, share_att: Optional[str] = None,
                  mask_cfg: Optional[MaskConfig] = None, device=None, dtype=None):
         super().__init__()
@@ -276,6 +282,8 @@ class BoxMultiHeadAttention(nn.Module, DropoutSite):
 class InputEmbedding(nn.Module):
     """Token embedding scaled by sqrt(d_model)."""
 
+    MASKED_CALL_ORDER = ("lut",)
+
     def __init__(self, vocab_size: int, d_model: int, mask_cfg: Optional[MaskConfig] = None, device=None,
                  dtype=None):
         super().__init__()
@@ -289,6 +297,8 @@ class InputEmbedding(nn.Module):
 class Generator(nn.Module):
     """Linear + log_softmax output head (kernel K13). In eval the log-probs
     come out in the compute dtype; in training (``rng`` given) in f32."""
+
+    MASKED_CALL_ORDER = ("proj",)
 
     def __init__(self, d_model: int, vocab_size: int, mask_cfg: Optional[MaskConfig] = None, device=None,
                  dtype=None):

@@ -24,11 +24,13 @@ from sparse_caption_tpu_torch.models.layers import (
     prenorm_stack,
 )
 from sparse_caption_tpu_torch.models.transformer import Transformer, _unique_layer_plan, train_rng
-from sparse_caption_tpu_torch.ops.masked import MaskedLinear
+from sparse_caption_tpu_torch.ops.masked import MaskedLinear, mask_set, masked_call_order
 from sparse_caption_tpu_torch.ops.rng import dropout
 
 
 class BoxEncoderLayer(nn.Module):
+    MASKED_CALL_ORDER = ("self_attn", "feed_forward")
+
     def __init__(self, d_model: int, num_heads: int, d_ff: int, dropout_rate: float = 0.1, share_att=None,
                  mask_cfg=None, **factory):
         super().__init__()
@@ -58,12 +60,15 @@ class RelationTransformer(Transformer):
         self.att_embed = MaskedLinear(att_feat_size, self.d_model, mask_cfg=self.mask_cfg, **factory)
         self.box_encoder_norm = RefLayerNorm(self.d_model, **factory)
 
+    def _encoder_masked(self) -> list:
+        return masked_call_order(self.att_embed, *(self.box_encoder_layers[i] for i in self.box_enc_plan))
+
     def encode(self, att_feats, att_masks, boxes=None, train: bool = False, rng=None) -> Dict[str, Any]:
         """att_feats: (B, R, F); att_masks: (B, R), 0 = padded; boxes: (B, R, 4)."""
         if boxes is None:
             raise ValueError("relation_transformer requires boxes")
         rng = train_rng(train, rng)
-        with torch.set_grad_enabled(train and torch.is_grad_enabled()):
+        with torch.set_grad_enabled(train and torch.is_grad_enabled()), mask_set(self._encoder_masked(), rng):
             x = dropout(torch.relu(self.att_embed(att_feats, rng)), self.drop_prob_src, rng, self.site)
             mask = (att_masks != 0).contiguous()
             boxes = boxes.float().contiguous()

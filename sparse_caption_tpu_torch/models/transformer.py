@@ -38,7 +38,7 @@ from sparse_caption_tpu_torch.models.layers import (
     assign_dropout_sites,
     prenorm_stack,
 )
-from sparse_caption_tpu_torch.ops.masked import MaskConfig, MaskedEmbedding, MaskedLinear
+from sparse_caption_tpu_torch.ops.masked import MaskConfig, MaskedEmbedding, MaskedLinear, mask_set, masked_call_order
 from sparse_caption_tpu_torch.ops.rng import dropout
 
 
@@ -63,6 +63,8 @@ def train_rng(train: bool, rng):
 
 
 class EncoderLayer(nn.Module):
+    MASKED_CALL_ORDER = ("self_attn", "feed_forward")
+
     def __init__(self, d_model: int, num_heads: int, d_ff: int, dropout_rate: float = 0.1, share_att=None,
                  mask_cfg=None, **factory):
         super().__init__()
@@ -78,6 +80,8 @@ class EncoderLayer(nn.Module):
 
 
 class DecoderLayer(nn.Module):
+    MASKED_CALL_ORDER = ("self_attn", "src_attn", "feed_forward")
+
     def __init__(self, d_model: int, num_heads: int, d_ff: int, dropout_rate: float = 0.1, share_att=None,
                  mask_cfg=None, **factory):
         super().__init__()
@@ -168,11 +172,25 @@ class Transformer(nn.Module, DropoutSite):
                 nn.init.ones_(m.weight)
                 nn.init.zeros_(m.bias)
 
+    # ------------------------------------------------------ masked products
+    def _encoder_masked(self) -> list:
+        """The encoder's masked layers in the order ``encode`` calls them."""
+        return masked_call_order(self.src_proj, *(self.encoder_layers[i] for i in self.enc_plan))
+
+    def _decoder_masked(self) -> list:
+        """The masked layers of a teacher-forced decoder pass and the generator, in call order."""
+        return masked_call_order(self.tgt_embed, *(self.decoder_layers[i] for i in self.dec_plan), self.generator)
+
+    def mask_set(self, rng=None):
+        """One K5 set (``ops/masked.py mask_set``) for the masked products of
+        a teacher-forced pass: ``encode``, then the decoder and the generator."""
+        return mask_set(self._encoder_masked() + self._decoder_masked(), rng)
+
     # ----------------------------------------------------------- encoding
     def encode(self, att_feats, att_masks, boxes=None, train: bool = False, rng=None) -> Dict[str, Any]:
         """att_feats: (B, S, F); att_masks: (B, S), 0 = padded. Returns the memory dict."""
         rng = train_rng(train, rng)
-        with torch.set_grad_enabled(train and torch.is_grad_enabled()):
+        with torch.set_grad_enabled(train and torch.is_grad_enabled()), mask_set(self._encoder_masked(), rng):
             x = dropout(torch.relu(self.src_proj(att_feats, rng)), self.drop_prob_src, rng, self.site)
             steps = [s for i in self.enc_plan
                      for s in self.encoder_layers[i].steps((att_masks != 0).contiguous(), rng)]
@@ -196,7 +214,7 @@ class Transformer(nn.Module, DropoutSite):
         """XE log-probs (N, T-1, V) of seqs[:, 1:] (decoder input seqs[:, :-1]).
         ``train=True`` (with ``rng``) runs the train-mode forward with gradients."""
         rng = train_rng(train, rng)
-        with torch.set_grad_enabled(train):
+        with torch.set_grad_enabled(train), self.mask_set(rng):
             enc = self.encode(att_feats, att_masks, boxes, train, rng)
             return self.generator(self._decode_full(seqs[:, :-1], enc["memory"], enc["mask"], rng), rng)
 
@@ -209,7 +227,7 @@ class Transformer(nn.Module, DropoutSite):
         up to its EOS (the replay of ``TimeDropout``); gradients flow unless
         the caller disabled them."""
         rng = train_rng(train, rng)
-        with torch.set_grad_enabled(train and torch.is_grad_enabled()):
+        with torch.set_grad_enabled(train and torch.is_grad_enabled()), mask_set(self._decoder_masked(), rng):
             out = self._decode_full(seqs[:, :-1], memory_pytree["memory"], memory_pytree["mask"], rng, replay=train)
             return self.generator(out, rng)
 

@@ -43,7 +43,7 @@ from sparse_caption_tpu_torch.kernels.lstm_cell import lstm_cell
 from sparse_caption_tpu_torch.kernels.vocab_log_softmax import vocab_log_softmax
 from sparse_caption_tpu_torch.models import register_model
 from sparse_caption_tpu_torch.models.transformer import train_rng
-from sparse_caption_tpu_torch.ops.masked import MaskConfig, MaskedEmbedding, MaskedLinear
+from sparse_caption_tpu_torch.ops.masked import MaskConfig, MaskedEmbedding, MaskedLinear, mask_set, masked_call_order
 from sparse_caption_tpu_torch.ops.rng import dropout, site_id
 
 STATE = ("h_att", "c_att", "h_lang", "c_lang")
@@ -53,6 +53,8 @@ SITES = {name: site_id(f"up_down.{name}") for name in ("fc", "att", "embed", "ou
 
 class MaskedLSTMCell(nn.Module):
     """LSTM cell with prunable ``ih`` / ``hh`` projections (kernel K11 after the two GEMMs)."""
+
+    MASKED_CALL_ORDER = ("ih", "hh")
 
     def __init__(self, input_size: int, hidden_size: int, mask_cfg: Optional[MaskConfig] = None, **factory):
         super().__init__()
@@ -67,6 +69,8 @@ class MaskedLSTMCell(nn.Module):
 
 class AdditiveAttention(nn.Module):
     """Soft attention with masked renormalisation; ``h2att`` stays a GEMM, the rest is kernel K12."""
+
+    MASKED_CALL_ORDER = ("h2att", "alpha_net")
 
     def __init__(self, rnn_size: int, att_hid_size: int, mask_cfg: Optional[MaskConfig] = None, **factory):
         super().__init__()
@@ -113,6 +117,8 @@ class UpDownModel(nn.Module):
         self.lang_lstm = MaskedLSTMCell(2 * rnn_size, rnn_size, mask_cfg, **factory)
         self.attention = AdditiveAttention(rnn_size, att_hid_size, mask_cfg, **factory)
         self.logit = nn.ModuleList([MaskedLinear(rnn_size, vocab_size, mask_cfg=mask_cfg, **factory)])
+        # the masked layers of one unrolled step, in call order (one K5 set a step)
+        self._step_masked = masked_call_order(self.embed, self.att_lstm, self.attention, self.lang_lstm, self.logit[0])
         self.reset_parameters(generator)
         self.eval()
 
@@ -124,6 +130,13 @@ class UpDownModel(nn.Module):
     def _drop(self, x, rng, site: str):
         return dropout(x, self.drop_prob_lm, rng, SITES[site])
 
+    # ------------------------------------------------------ masked products
+    def mask_set(self, rng=None):
+        """One K5 set (``ops/masked.py mask_set``) for the encode's masked
+        products; each unrolled step draws its own set of 8, as flax samples
+        fresh masks on every call."""
+        return mask_set(masked_call_order(self.fc_embed, self.att_embed, self.ctx2att), rng)
+
     # ------------------------------------------------------------- encode
     def encode(self, att_feats, att_masks, fc_feats=None, boxes=None, train: bool = False,
                rng=None) -> Dict[str, Any]:
@@ -133,7 +146,7 @@ class UpDownModel(nn.Module):
         if fc_feats is None:
             raise ValueError("up_down_lstm requires fc_feats")
         rng = train_rng(train, rng)
-        with torch.set_grad_enabled(train and torch.is_grad_enabled()):
+        with torch.set_grad_enabled(train and torch.is_grad_enabled()), self.mask_set(rng):
             fc = self._drop(torch.relu(self.fc_embed(fc_feats, rng)), rng, "fc")  # (B, rnn)
             att = self._drop(torch.relu(self.att_embed(att_feats, rng)), rng, "att")  # (B, R, rnn)
             p_att = self.ctx2att(att, rng)  # (B, R, att_hid)
@@ -142,13 +155,16 @@ class UpDownModel(nn.Module):
     # --------------------------------------------------------------- core
     def _core_step(self, it, state: Dict[str, torch.Tensor], fc_rows, memory: Dict[str, Any], rng=None):
         """One step over N = B * rows state rows: (logits (N, V), new state).
-        ``rng``: a ``TrainRandom``, or a ``KeyedStream``'s step view."""
-        xt = self._drop(torch.relu(self.embed(it, rng)), rng, "embed")
-        h_att, c_att = self.att_lstm(torch.cat([state["h_lang"], fc_rows, xt], dim=1), state["h_att"],
-                                     state["c_att"], rng)
-        att_res = self.attention(h_att, memory["att"], memory["p_att"], memory["mask"], rng)
-        h_lang, c_lang = self.lang_lstm(torch.cat([att_res, h_att], dim=1), state["h_lang"], state["c_lang"], rng)
-        logits = self.logit[0](self._drop(h_lang, rng, "out"), rng)
+        ``rng``: a ``TrainRandom``, or a ``KeyedStream``'s step view. The
+        step's masked products run as one K5 set."""
+        with mask_set(self._step_masked, rng):
+            xt = self._drop(torch.relu(self.embed(it, rng)), rng, "embed")
+            h_att, c_att = self.att_lstm(torch.cat([state["h_lang"], fc_rows, xt], dim=1), state["h_att"],
+                                         state["c_att"], rng)
+            att_res = self.attention(h_att, memory["att"], memory["p_att"], memory["mask"], rng)
+            h_lang, c_lang = self.lang_lstm(torch.cat([att_res, h_att], dim=1), state["h_lang"], state["c_lang"],
+                                            rng)
+            logits = self.logit[0](self._drop(h_lang, rng, "out"), rng)
         return logits, {"h_att": h_att, "c_att": c_att, "h_lang": h_lang, "c_lang": c_lang}
 
     def _unroll(self, memory: Dict[str, Any], seqs, rng, step_views: bool):

@@ -13,19 +13,22 @@ eval sample is folded into the weight ONCE, at load (``fold_mask`` /
 ``fold_mask_``), and the layer runs as a plain Linear / Embedding. A layer
 built for training keeps its mask as a separate f32 parameter ``mask`` in
 the weight's layout (the JAX package's ``"masks"`` collection), and the
-product runs in kernel K5 (``kernels/supermask.py``) on every forward.
+product runs in kernel K5 (``kernels/supermask.py``) on every forward. A
+model's forward runs the products of the layers it calls as one set
+(``mask_set``): one K5 launch each way for all of them.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
-from typing import Optional
+from typing import Iterable, Optional
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from sparse_caption_tpu_torch.kernels.supermask import supermask_weight
+from sparse_caption_tpu_torch.kernels.supermask import MAX_SET, supermask_weight, supermask_weights
 from sparse_caption_tpu_torch.pruning import SUPER_MASKS, VALID_MASKS
 
 
@@ -95,32 +98,96 @@ class _Prunable(nn.Module):
             raise ValueError(f"mask shape {tuple(mask.shape)} != weight shape {tuple(self.weight.shape)}")
         self.weight.copy_(fold_mask(self.weight, mask, self.mask_cfg))
 
+    def _per_call_mode(self, rng) -> Optional[str]:
+        """The K5 mode of this layer's product where it runs on every call
+        (a training supermask's sample, or a deterministic sample under
+        autograd), else None (no kept mask, or a deterministic sample
+        without autograd: the cached one)."""
+        if self.mask is None:
+            return None
+        if self.mask_cfg.is_supermask and rng is not None:
+            return "sample"
+        if not torch.is_grad_enabled():
+            return None
+        return "round" if self.mask_cfg.is_supermask else "multiply"
+
     def effective_weight(self, rng=None) -> torch.Tensor:
         """The weight times the mask's sample (kernel K5), or the (folded)
         weight itself. ``rng``: a ``TrainRandom`` or ``KeyedStream`` in
-        training, None in eval.
+        training, None in eval. Inside a ``mask_set`` that holds this layer,
+        its product from the set's launch.
 
         A deterministic sample (every mask type but a training supermask)
         computed without autograd is kept and reused until the weight or the
         mask changes (new storage or version): a decode then runs K5 once
         per tensor, not once per step."""
+        from_set = self.__dict__.pop("_set_w_eff", None)
+        if from_set is not None:
+            return from_set
         cfg = self.mask_cfg
         if self.mask is None:
             if rng is not None and cfg is not None:
                 raise ValueError("this layer's mask was folded at load; build the model with "
                                  "MaskConfig(keep_masks=True) to train it")
             return self.weight
-        if cfg.is_supermask and rng is not None:
-            u = rng.mask_uniform(self, self.weight.shape, self.weight.device)
-            return supermask_weight(self.weight, self.mask, u, "sample", cfg.bypass_sigmoid_grad)
+        mode = self._per_call_mode(rng)
+        if mode is not None:
+            u = rng.mask_uniform(self, self.weight.shape, self.weight.device) if mode == "sample" else None
+            return supermask_weight(self.weight, self.mask, u, mode, cfg.bypass_sigmoid_grad)
         mode = "round" if cfg.is_supermask else "multiply"
-        if torch.is_grad_enabled():
-            return supermask_weight(self.weight, self.mask, None, mode, cfg.bypass_sigmoid_grad)
         key = (self.weight.data_ptr(), self.weight._version, self.mask.data_ptr(), self.mask._version)
         if getattr(self, "_w_eff_key", None) != key:
             self._w_eff = supermask_weight(self.weight, self.mask, None, mode, cfg.bypass_sigmoid_grad)
             self._w_eff_key = key
         return self._w_eff
+
+
+def masked_call_order(*modules) -> list:
+    """The masked layers under ``modules`` in the order their forwards call
+    them: a masked layer itself, else the children its ``MASKED_CALL_ORDER``
+    names, in turn (a module without one holds none)."""
+    out = []
+    for m in modules:
+        if isinstance(m, _Prunable):
+            out.append(m)
+        else:
+            out += masked_call_order(*(getattr(m, name) for name in getattr(m, "MASKED_CALL_ORDER", ())))
+    return out
+
+
+@contextlib.contextmanager
+def mask_set(layers: Iterable[_Prunable], rng=None):
+    """Run the masked products of ``layers`` as one set: one K5 launch each
+    way (``supermask_weights``) in place of one a layer. ``layers`` in the
+    order the forward calls them: a training supermask draws each layer's
+    uniforms from ``rng`` in that order, as the layers' own calls would.
+    Inside the context each layer's next ``effective_weight`` returns its
+    product from the set; layers already in an open set, and layers whose
+    product would be cached or folded (``_per_call_mode``), are left out."""
+    if rng is None and not torch.is_grad_enabled():  # eval: every product is cached or folded
+        yield
+        return
+    todo = [m for m in layers if "_set_w_eff" not in m.__dict__]
+    modes = {m: m._per_call_mode(rng) for m in todo}
+    todo = [m for m in todo if modes[m] is not None]
+    if len({modes[m] for m in todo}) > 1:
+        raise ValueError(f"a set takes one K5 mode; got {sorted({modes[m] for m in todo})}")
+    try:
+        if todo:
+            mode = modes[todo[0]]
+            us = [rng.mask_uniform(m, m.weight.shape, m.weight.device) for m in todo] if mode == "sample" else None
+            for i in range(0, len(todo), MAX_SET):  # sets of more than MAX_SET layers: one launch a chunk
+                chunk = todo[i:i + MAX_SET]
+                w_effs = supermask_weights([m.weight for m in chunk], [m.mask for m in chunk],
+                                           None if us is None else us[i:i + MAX_SET], mode,
+                                           chunk[0].mask_cfg.bypass_sigmoid_grad)
+                for m, w in zip(chunk, w_effs):
+                    m._set_w_eff = w
+            del us
+        yield
+    finally:
+        for m in todo:
+            m.__dict__.pop("_set_w_eff", None)
 
 
 class MaskedLinear(_Prunable):

@@ -1,7 +1,7 @@
 """Helpers of ``chip_smoke.py`` on the CPU: the card-vs-CPU caption check
 (``tie_aware_match``: a caption that differs from the CPU's is accepted only
 where the two tie to rounding under the CPU's own teacher-forced scores) and
-the byte counts that K6's and K13's bounds are computed from."""
+the byte counts that the kernels' bounds are computed from."""
 
 import pytest
 import torch
@@ -215,3 +215,29 @@ def test_k4_midpoint_counts_by_hand(count, midpoint, kept, moved):
     assert abs(float(log_sum) - midpoint) < 2.0 ** -14
     assert float((m - m - log_sum).to(torch.bfloat16)) == kept
     assert float((m - (m + log_sum)).to(torch.bfloat16)) == moved
+
+
+# ------------------------------------------------------------- K5 bytes
+ORT_MASKED = 55_331_840  # the ORT's set: its 105 masked tensors
+
+
+@pytest.mark.parametrize("dtype,bits,mode,bypass,per_weight,bit_passes", [
+    # forward: w, m (and u) in, w_eff out; backward: g, w (and m) in, dw and
+    # dm (f32) out; the sample as one bit a weight, written once and read once
+    (torch.bfloat16, True, "sample", False, (2 + 4 + 4 + 2) + (2 + 2 + 4 + 2 + 4), 2),  # 26.25 B a weight
+    (torch.bfloat16, False, "sample", False, (2 + 4 + 4 + 2) + (2 + 2 + 4 + 4 + 2 + 4), 0),  # u and m read again
+    (torch.float32, True, "sample", True, (4 + 4 + 4 + 4) + (4 + 4 + 4 + 4), 2),  # bypass: no m in the backward
+    (torch.bfloat16, True, "multiply", False, (2 + 4 + 2) + (2 + 2 + 4 + 2 + 4), 0),  # s = m: no u, no bits
+])
+def test_k5_bytes_count_each_tensor_once(dtype, bits, mode, bypass, per_weight, bit_passes):
+    want = ORT_MASKED * per_weight + bit_passes * ORT_MASKED // 8
+    assert chip_smoke.k5_bytes(ORT_MASKED, dtype, bits, mode, bypass) == want
+    # a set's bits round up to whole bytes
+    assert chip_smoke.k5_bytes(9, dtype, bits, mode, bypass) == 9 * per_weight + bit_passes * 2
+
+
+def test_k5_bound_of_the_ort_set():
+    # 26.25 B a weight in bf16: 1.452 GB, 0.4336 ms at 3.35 TB/s
+    bound, by = chip_smoke.bound_ms(chip_smoke.k5_bytes(ORT_MASKED, torch.bfloat16), {})
+    assert by == "bytes" and bound == pytest.approx(ORT_MASKED * 26.25 / 3.35e12 * 1e3)
+    assert bound == pytest.approx(0.43357, abs=1e-5)

@@ -8,7 +8,13 @@ behind kernels K14 / K15) against the JAX package on the CPU, at small widths
   per image for 3 query rows each (the JAX side repeats it);
 * the attention function with a dropout keep-mask, handed to the JAX
   function as its ``dropout`` callable with the same divisor;
-* the grouped memory (one K/V row per image) against the repeated layout.
+* the grouped memory (one K/V row per image) against the repeated layout;
+* the read-outs of ``chip_smoke.py``'s check that K14's P~ equals K15's,
+  on the plain version in bf16: with V = the identity the output is P~,
+  and with dO = the identity on one group member dV is that member's P~
+  transposed, both exactly;
+* the bf16 kernels' shared-memory sizes (``bf16_forward_smem``,
+  ``bf16_backward_smem``) counted by hand.
 
 Tolerances: outputs 1e-5; each gradient within 1e-5 of its tensor's largest
 entry plus 1e-6 of the largest gradient of all (the two sides sum the same
@@ -16,6 +22,8 @@ terms in other orders; the key projection's bias has a gradient of 0 in exact
 arithmetic, a softmax ignoring a shift of every score, so both sides give
 rounding noise).
 """
+
+import math
 
 import jax
 import jax.numpy as jnp
@@ -27,8 +35,14 @@ from _torch_port_common import D, HEADS, t, to_numpy
 from sparse_caption_tpu.models import layers as jl
 from sparse_caption_tpu_torch.kernels import launch_counts
 from sparse_caption_tpu_torch.kernels._build import BLOCK_SMEM_LIMIT
-from sparse_caption_tpu_torch.kernels.decoder_attention import bf16_backward_smem, decoder_attention
+from sparse_caption_tpu_torch.kernels.decoder_attention import (
+    bf16_backward_smem,
+    bf16_forward_smem,
+    decoder_attention,
+)
 from sparse_caption_tpu_torch.models import layers as pl
+from sparse_caption_tpu_torch.ops.attention import NEG_INF
+from sparse_caption_tpu_torch.ops.keep import apply_keep, keep_divisor
 from sparse_caption_tpu_torch.utils.convert_jax import convert_jax_variables
 
 TQ, B, G, S, PAD = 6, 2, 3, 5, 0
@@ -208,3 +222,52 @@ def test_wrapper_checks_inputs():
 def test_bf16_backward_smem_counts_by_hand(tq, tk, group, want):
     assert bf16_backward_smem(tq, tk, group) == want
     assert want in (24848, 105680, 191472, 202896)
+
+
+@pytest.mark.parametrize("tq,tk,group,keep,want", [
+    # two stages of (K, V: tk rows; q: group x tq rows) in rows of 144 B and,
+    # with a keep-mask, each member's tq x tk flags in a region rounded up to
+    # 16 B with 15 to spare; a zero row of 144 B
+    (17, 17, 1, True, 2 * ((34 + 17) * 144 + 304) + 144),  # the XE self call: 15,440 B
+    (17, 36, 5, True, 2 * ((72 + 85) * 144 + 5 * 640) + 144),  # the XE cross call: 51,760 B
+    (17, 36, 15, False, 2 * (72 + 255) * 144 + 144),  # the replay's cross call without dropout: 94,320 B
+    (64, 64, 16, True, (128 + 1024) * 144 + 16 * 4112 + 144),  # one stage: 231,824 B of 232,448
+    (64, 64, 17, True, 0),  # not even one stage fits
+])
+def test_bf16_forward_smem_counts_by_hand(tq, tk, group, keep, want):
+    assert bf16_forward_smem(tq, tk, group, keep) == want
+    assert want in (15440, 51760, 94320, 231824, 0)
+
+
+@pytest.mark.parametrize("kind", ["self", "cross"])
+@pytest.mark.parametrize("with_keep", [False, True])
+def test_identity_readouts_give_p_exactly(kind, with_keep):
+    """With V = the identity (v[b, h, j] = e_j) the output is P~; with dO =
+    the identity (dO[n, h, i] = e_i) on group member m and 0 on the others,
+    dV[b, h, j, i] = P~_m[i, j]. Bit for bit in bf16: each element sums one
+    bf16 value with zeros."""
+    g = torch.Generator().manual_seed(3)
+    dt = torch.bfloat16
+    b, group, tq, tk = (4, 1, 7, 7) if kind == "self" else (2, 3, 7, 5)
+    n, nk = b * group, (b * group if kind == "self" else b)
+    q = torch.randn(n, HEADS, tq, DK, generator=g).to(dt)
+    k = torch.randn(nk, HEADS, tk, DK, generator=g).to(dt)
+    valid = torch.arange(tk)[None] < torch.randint(1, tk + 1, (nk, 1), generator=g)
+    valid[0] = kind != "cross"  # cross: a K/V row with every key masked
+    keep = torch.rand(n, HEADS, tq, tk, generator=g) < 0.9 if with_keep else None
+    causal = kind == "self"
+    # P~ as the plain version forms it, K/V repeated to the query rows
+    kr, vr = k.repeat_interleave(n // nk, 0), valid.repeat_interleave(n // nk, 0)
+    mask = vr[:, None, None, :] & (torch.tril(torch.ones(tq, tk, dtype=torch.bool)) if causal else True)
+    scores = (torch.matmul(q, kr.transpose(-1, -2)) / math.sqrt(DK)).masked_fill(~mask, NEG_INF)
+    p = torch.softmax(scores, dim=-1)
+    p = apply_keep(p, keep, keep_divisor(0.9, dt)) if with_keep else p
+    eye = torch.eye(DK, dtype=dt)
+    v = eye[:tk].expand(nk, HEADS, tk, DK).contiguous().requires_grad_()
+    out = decoder_attention(q, k, v, valid, causal, keep, 0.9)
+    assert torch.equal(out[..., :tk], p) and not out[..., tk:].any()
+    for m in range(group):
+        dout = torch.zeros(n, HEADS, tq, DK, dtype=dt)
+        dout.view(nk, n // nk, HEADS, tq, DK)[:, m] = eye[:tq]
+        (dv,) = torch.autograd.grad(out, v, dout, retain_graph=True)
+        assert torch.equal(dv[..., :tq].transpose(-1, -2), p.view(nk, n // nk, HEADS, tq, tk)[:, m])
