@@ -4,9 +4,11 @@
 # K7 (its backward), K6 (residual + RefLayerNorm), K13 (vocabulary
 # log-softmax), K14 / K15 (the decoder attention, forward and backward), K3
 # (grouped cross-attention), K4 (beam log-softmax + top-K), K12 (additive
-# attention) and K5 (the supermask sets). Each mutant is a copy of the port
-# under build/mutants/<name>/ with sed edits to one CUDA source (or, with
-# run_mutant_cmd, any shell edit in its csrc/), reusing the unmutated
+# attention), K5 (the supermask sets), K2 (ancestry self-attention), K11 (the
+# LSTM cell) and K16 (the magnitude threshold). Each mutant is a copy of the
+# port under build/mutants/<name>/ with sed edits to one CUDA source (or,
+# with run_mutant_cmd, any shell edit run in its csrc/, the wrappers beside
+# it included), reusing the unmutated
 # libraries already built (a library's file name carries a hash of its
 # sources; an edited or added .cuh header rebuilds them all); its kernel
 # checks then run at paper shapes and at the small or off-width shapes: for
@@ -15,9 +17,12 @@
 # check_norm_softmax_kernels without its timings, for K14/K15
 # check_decoder_attention_kernels (with the check that K14's P~ equals K15's
 # bit for bit) and for K3 and K4 check_kernels, for K12
-# check_updown_kernels, for K5 check_supermask_kernels, all without their
-# timings. A mutant whose checks pass is one they cannot see; each verdict
-# line ends "caught" (a kernel that raises is caught too) or "checks pass".
+# check_updown_kernels, for K5 check_supermask_kernels, for K2
+# check_kernels, for K11 check_updown_kernels, for K16
+# check_magnitude_kernels, all without their timings. A mutant whose checks
+# pass is one they cannot see; each verdict line ends "caught" (a kernel that
+# raises is caught too) or "checks pass", and the last line counts the
+# mutants caught (every verdict line of the mutant "caught") of all run.
 #
 # In the bf16 tensor-core designs the trig features, K1's log-bias and K14's
 # P~ reach the products only as bf16 values (MMA fragments, a bf16 array),
@@ -28,9 +33,11 @@
 # bf16 either way), and the score's rounding before its exact 1/8 scaling
 # is no rounding point at all, so that mutant leaves the score unrounded.
 #
-#     bash chip_mutants.sh      # on a machine with one H100, from the repo root
+#     bash chip_mutants.sh          # on a machine with one H100, from the repo root
+#     bash chip_mutants.sh 'k2_|k16_'   # only the mutants whose names match the regex
 cd "$(dirname "$0")" || exit 1
 python3 -c "from sparse_caption_tpu_torch.kernels import build_all; build_all()" || exit 1
+mkdir -p build/mutants && VERDICTS=build/mutants/verdicts.txt && : > "$VERDICTS"
 K17="c.check_kernels(g, dt, results) & c.check_train_kernels(g, dt, results)"
 K613="c.check_norm_softmax_kernels(g, results, (dt,), timing=False)"
 K15="c.check_decoder_attention_kernels(g, results, timing=False)"
@@ -39,24 +46,31 @@ K5="c.check_supermask_kernels(g, dt, results, timing=False)"
 K3="c.check_kernels(g, dt, results, timing=False)"
 K4="$K3"
 K12="c.check_updown_kernels(g, dt, results, timing=False)"
+K2="$K3"
+K11="$K12"
+K16="c.check_magnitude_kernels(g, results, timing=False)"
+ONLY=${1:-}
+picked() { [[ -z "$ONLY" || $1 =~ $ONLY ]]; }
 run_mutant() {  # name file sed-expression dtypes checks
   local name=$1 file=$2 expr=$3 dir=build/mutants/$1
+  picked "$name" || return 0
   prepare "$name"
   sed -i "$expr" "$dir/sparse_caption_tpu_torch/kernels/csrc/$file"
   if cmp -s "sparse_caption_tpu_torch/kernels/csrc/$file" "$dir/sparse_caption_tpu_torch/kernels/csrc/$file"; then
-    echo "[mutant] $name: sed changed nothing"; return
+    echo "[mutant] $name: sed changed nothing" | tee -a "$VERDICTS"; return
   fi
   echo "[mutant] $name: $(diff "sparse_caption_tpu_torch/kernels/csrc/$file" "$dir/sparse_caption_tpu_torch/kernels/csrc/$file" | grep '^>' | head -2 | tr '\n' ' ')"
   check_mutant "$name" "$4" "$5"
 }
 run_mutant_cmd() {  # name shell-command (run in the mutant's csrc/) dtypes checks
   local name=$1 dir=build/mutants/$1
+  picked "$name" || return 0
   prepare "$name"
-  (cd "$dir/sparse_caption_tpu_torch/kernels/csrc" && eval "$2") || { echo "[mutant] $name: the edit failed"; return; }
-  if diff -rq sparse_caption_tpu_torch/kernels/csrc "$dir/sparse_caption_tpu_torch/kernels/csrc" > /dev/null; then
-    echo "[mutant] $name: the edit changed nothing"; return
+  (cd "$dir/sparse_caption_tpu_torch/kernels/csrc" && eval "$2") || { echo "[mutant] $name: the edit failed" | tee -a "$VERDICTS"; return; }
+  if diff -rq -x __pycache__ sparse_caption_tpu_torch "$dir/sparse_caption_tpu_torch" > /dev/null; then
+    echo "[mutant] $name: the edit changed nothing" | tee -a "$VERDICTS"; return
   fi
-  echo "[mutant] $name: $(diff -r sparse_caption_tpu_torch/kernels/csrc "$dir/sparse_caption_tpu_torch/kernels/csrc" | grep '^>' | head -2 | tr '\n' ' ')"
+  echo "[mutant] $name: $(diff -r -x __pycache__ sparse_caption_tpu_torch "$dir/sparse_caption_tpu_torch" | grep '^>' | head -2 | tr '\n' ' ')"
   check_mutant "$name" "$3" "$4"
 }
 prepare() {  # a copy of the port and of the built libraries under build/mutants/<name>/
@@ -79,7 +93,7 @@ for dt in ($dtypes):
     except RuntimeError as e:  # a kernel that fails to launch or faults fails chip_smoke.py too
         verdict = 'caught (raised: ' + str(e).splitlines()[0][:120] + ')'
     print('[mutant] $name', str(dt).split('.')[-1], verdict, flush=True)
-" 2>&1 | grep -E "^\[mutant\]|FAIL|MISSED|Error|error" | head -40)
+" 2>&1 | grep -E "^\[mutant\]|FAIL|MISSED|Error|error" | head -40) | tee -a "$VERDICTS"
 }
 run_mutant bias_dropped box_attention.cu 's/if (row < R) s = round_to<bf16>(s + __bfloat162float(bias_h\[row \* R + j\]));/;/; s/s\[c\] += bias_h\[i \* R + j\];/;/' "torch.float32, torch.bfloat16" "$K17"
 run_mutant logbias_unrounded box_attention_bwd.cu 's/round_to<bf16>(logf(__bfloat162float(wz\[row \* R + j\])))/logf(__bfloat162float(wz[row * R + j]))/' "torch.bfloat16," "$K17"
@@ -119,3 +133,13 @@ run_mutant k14_last_member_skipped decoder_attention.cu 's/    live\[r\] = sr < 
 run_mutant_cmd k14_private_quad_sum 'cp decoder_attention.cuh decoder_attention_k14.cuh && sed -i "s/\"decoder_attention.cuh\"/\"decoder_attention_k14.cuh\"/" decoder_attention.cu && sed -i "s/sum\[r\], 1);/sum[r], 9);/; s/sum\[r\], 2);/sum[r], 1);/; s/sum\[r\], 9);/sum[r], 2);/" decoder_attention_k14.cuh' "torch.bfloat16," "$K14"
 run_mutant k5_scalar_tail_skipped supermask.cu 's/const int cnt = (int)(ent.n - e0 < kUnit ? ent.n - e0 : kUnit);/const int cnt = 0;/' "torch.float32, torch.bfloat16" "$K5"
 run_mutant k5_next_word_bit supermask.cu 's/byte = (bits\[bu >> 2\] >> (8 \* (bu \& 3))) \& 0xffu;/byte = (bits[(bu >> 2) + 1] >> (8 * (bu \& 3))) \& 0xffu;/' "torch.float32, torch.bfloat16" "$K5"
+run_mutant k2_softmax_unrounded ancestry_self_attention.cu 's/p\[j\] = round_to<T>(e\[j\] \/ sum);/p[j] = e[j] \/ sum;/' "torch.bfloat16," "$K2"
+run_mutant k11_sigmoid_bwd_unrounded lstm_cell.cu 's/return round_to<T>(round_to<T>(g \* round_to<T>(1.f - s)) \* s);/return round_to<T>(g * (1.f - s) * s);/' "torch.bfloat16," "$K11"
+run_mutant_cmd k16_index_in_f64 'sed -i "0,/f32 = np.float32/s//f32 = np.float64/" ../magnitude_threshold.py' "torch.float32," "$K16"
+run_mutant k16_fma_interpolation magnitude_threshold.cu 's/th\[p\] = __fadd_rn(__fmul_rn(v_lo, lwhw\[2 \* p\]), __fmul_rn(v_hi, lwhw\[2 \* p + 1\]));/th[p] = fmaf(v_hi, lwhw[2 * p + 1], v_lo * lwhw[2 * p]);/' "torch.float32," "$K16"
+run_mutant k16_ge_in_place_of_gt magnitude_threshold.cu 's/mask\[i\] = criterion(w\[i\], stats, set.tensor0 + c.ti) > t ? 1.f : 0.f;/mask[i] = criterion(w[i], stats, set.tensor0 + c.ti) >= t ? 1.f : 0.f;/' "torch.float32," "$K16"
+run_mutant k16_last_radix_pass_dropped magnitude_threshold.cu 's/for (int pass = 0; pass < sct::kPasses; ++pass) {/for (int pass = 0; pass < sct::kPasses - 1; ++pass) {/' "torch.float32," "$K16"
+# a mutant is caught when every verdict line it printed says so
+awk '/^\[mutant\] [^ :]+ [a-z0-9]+ / { n[$2]++; if ($0 ~ / caught/) c[$2]++ }
+     /^\[mutant\] [^ ]+: (sed changed nothing|the edit)/ { name = $2; sub(":", "", name); n[name]++ }
+     END { t = 0; k = 0; for (m in n) { t++; if (c[m] == n[m]) k++ } print "[mutants] " k " of " t " caught" }' "$VERDICTS"

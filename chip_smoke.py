@@ -2,7 +2,7 @@
 """Smoke run of the PyTorch/CUDA port (``sparse_caption_tpu_torch``) on one GPU.
 
 Phases:
-1. set-up: card name and power limit, versions, build of the fifteen kernel
+1. set-up: card name and power limit, versions, build of the sixteen kernel
    libraries (``kernels/csrc/*.cu``, nvcc for sm_90a, one process per source);
 2. kernel checks: each kernel against its plain PyTorch version at the
    shapes of its path (beam-5 serving: B = 2048 images, 36 regions, 8 heads
@@ -38,6 +38,13 @@ Phases:
    in f32, bf16 and bf16 -> f32, beside byte bounds (``k6_bytes``,
    ``k13_bytes``; K3's, K14's and K15's from ``k3_bytes``, ``k14_bytes``,
    ``k15_bytes`` and ``decoder_attention_flops``, K5's from ``k5_bytes``);
+   K2's bf16 output and K11's bf16 h', c' and backward (d gates, d c) bit
+   by bit (``rounding_share``); K16 (the magnitude threshold) on the ORT's
+   105 masked tensors as 105 pools and as one pool of 55,331,840 weights
+   (|w| and dist) at the gradual schedule's sparsities and on off shapes:
+   thresholds and masks bit for bit, each pool's pruned count against an f32
+   index reference written in torch (``f32_quantile_index``), and K16, its
+   plain version, ``torch.kthvalue`` and the compare alone timed in turns;
 3. serving path: a paper-width ``relation_transformer_prune`` (random
    weights and supermask logits from a seed, masks folded), ``encode`` +
    beam-5 ``generate`` in bf16 at batch 50 and 2048 with the kernels' launch
@@ -49,6 +56,14 @@ Phases:
    1 warm-up + 10 steps each with the launch counts asserted, a profile of
    one step at 256 x 5, and one f32 step at 2 x 5 without dropout on the
    card against the CPU's plain versions (loss, gradients, params, masks);
+   then the prune path (``run_prune_phase``): gradual magnitude pruning
+   (mag_grad_uniform to 0.8, bf16 at 15 x 5, the schedule shortened so that
+   4 updates fire in 9 steps) through ``engine/prune_training.py
+   gradual_prune`` and K16, the launch counts asserted, each update held
+   against the plain version (per tensor, and one blind and one dist pool of
+   every weight), every pruned weight's gradient 0 in the next step; a host
+   one-shot mag_blind prune and a SNIP saliency over 2 batches timed on the
+   host clock; the lottery rewind to a ``torch.save``'d init snapshot;
 5. SCST path: the kernel checks of K8 (keyed dropout, at the replay shape
    75 x 17 x 2048), K9 (sampling step, 960 x 10000) and K10 (CIDEr-D + BLEU
    reward, 960 captions against 5 refs), each with a planted fault; the
@@ -98,8 +113,10 @@ import copy
 import ctypes
 import json
 import math
+import os
 import subprocess
 import sys
+import tempfile
 import time
 from unittest import mock
 
@@ -134,8 +151,15 @@ K7_SHARE_LIMIT, K7_FAR_LIMIT = 0.05, 0.005
 # bit as K1 / K7
 K14_SHARE_LIMIT, K14_FAR_LIMIT = 0.02, 0.001
 K15_SHARE_LIMIT, K15_FAR_LIMIT = 0.05, 0.005
-# K3's bf16 output against the plain version, bit by bit as K1's
+# K3's and K2's bf16 outputs against the plain version, bit by bit as K1's
 K3_SHARE_LIMIT, K3_FAR_LIMIT = 0.02, 0.001
+K2_SHARE_LIMIT, K2_FAR_LIMIT = 0.02, 0.001
+# K2 beyond 32 cache slots: the character tokenizer's 60 (two slots a lane), then 8 a lane
+K2_LONG_CACHES, K2_LONG_IMAGES = (60, 250), 64
+# K11's bf16 h', c' and its backward's d gates, d c against the plain
+# version's autograd, bit by bit: the same rounding points and the same
+# transcendental functions, so only a rare 1-ulp difference of expf / tanhf
+K11_SHARE_LIMIT, K11_FAR_LIMIT = 0.01, 1e-4
 # K6 (n, dx, dy) and K13 (y) in bf16 against their plain versions, bit by
 # bit: the stats and the backward's row sums are taken in another order, so
 # an element may move by one ulp now and then; more than one ulp only where
@@ -183,6 +207,7 @@ REPLACES = {
     "vocab_log_softmax": "sparse_caption_tpu/models/up_down.py:124",
     "decoder_attention": "sparse_caption_tpu/models/layers.py:158",
     "decoder_attention_bwd": "sparse_caption_tpu/models/layers.py:158",
+    "magnitude_threshold": "sparse_caption_tpu/pruning/engine.py:210",
 }
 # the supermask XE train step (bench.py:230-292): 15 images x 5 captions of 18
 # tokens, and the throughput point at 256 images; supermask logits start at 5.0
@@ -208,7 +233,7 @@ STEP_GRAD_TOL, STEP_GRAD_FLOOR, STEP_GRAD_NORM_TOL, STEP_LOSS_RTOL = 1e-4, 1e-6,
 # (bench.py:1038-1045); refs and df as bench.py:354-362 makes them
 SCST_SPARSITY, SCST_SAMPLES, SCST_BATCHES, SCST_STEPS, SCST_BLEU = 0.9875, 15, (5, 64), 5, (0.0, 0.0, 0.0, 1.0)
 SCST_CONFIG = dict(lr_scheduler="step", learning_rate=5e-5, optim="adam", grad_clip=0.1, scst_sample="random",
-                   scst_baseline="sample", max_seq_length=MAX_LEN + 1, seed=SEED)
+                   scst_baseline="sample", scst_reward="device", max_seq_length=MAX_LEN + 1, seed=SEED)
 SCST_CHECK_BATCH, SCST_CHECK_SAMPLES = 2, 3
 # replay vs sampling decode (f32, plain full-sequence attention vs K2/K3 over
 # the cache: rounding only); K10 vs its plain version (summation order); the
@@ -232,6 +257,17 @@ UPDOWN_DROP = 0.1
 # the ORT SCST's step LR 5e-5 / Adam / clip 0.1 and reward; 5 images (the
 # paper's batch) and 16 (960 rows, the ORT's 64 x 15)
 UPDOWN_SCST_SPARSITY, UPDOWN_SCST_SAMPLES, UPDOWN_SCST_BATCHES = 0.991, 60, (5, 16)
+# the paper's gradual magnitude pruning (resources/commands_pruning.sh:60-75:
+# mag_grad_uniform to 0.8) on the paper-width ORT, bf16 XE at 15 x 5, its Zhu
+# & Gupta schedule shortened to 2 steps an epoch, an update every 2 steps to
+# half of 16 steps: updates after steps 2, 4, 6 and 8 to sparsities 0,
+# 0.563, 0.770 and 0.8, then one more step on the pruned weights
+PRUNE_TYPE, PRUNE_TARGET = "mag_grad_uniform", 0.8
+PRUNE_EPOCH_STEPS, PRUNE_FREQ, PRUNE_MAX_STEP, PRUNE_STEPS = 2, 2, 16, 9
+# K16's dist stats against torch.mean / torch.std: the mean within 1e-6 of
+# the tensor's std, the std within 1e-6 relative (f32 sums of up to 5.1M
+# weights in two fixed orders)
+K16_STATS_TOL = 1e-6
 
 
 def log(msg: str) -> None:
@@ -671,9 +707,25 @@ def check_kernels(gen, dtype, results: dict, timing: bool = True) -> bool:
     for step in (5, t_max - 1):
         anc_t = anc.clone()
         anc_t[:, :, step] = torch.arange(BEAM, device=dev, dtype=torch.int32)
-        err, _ = compare(f"ancestry_self_attention t={step}", k2.ancestry_self_attention(q, ck, cv, anc_t, step),
-                         k2.ancestry_self_attention_plain(q, ck, cv, anc_t, step), rms(cv),
+        out2, ref2 = k2.ancestry_self_attention(q, ck, cv, anc_t, step), k2.ancestry_self_attention_plain(
+            q, ck, cv, anc_t, step)
+        err, _ = compare(f"ancestry_self_attention t={step}", out2, ref2, rms(cv),
                          fault=k2.ancestry_self_attention_plain(q, ck, cv, None, step))  # ancestry ignored
+        if dtype == torch.bfloat16:  # bit by bit: the score, its scaling and P rounded as the plain version
+            ok &= rounding_share(f"ancestry_self_attention t={step} out", out2, ref2, K2_SHARE_LIMIT, K2_FAR_LIMIT)
+        del out2, ref2
+    for t_long in K2_LONG_CACHES:  # more slots than lanes: S = ceil(T_max / 32) a lane
+        nl = K2_LONG_IMAGES * BEAM
+        ql, ckl, cvl = rnd(nl, h, dk), rnd(nl, h, t_long, dk), rnd(nl, h, t_long, dk)
+        ancl = torch.randint(0, BEAM, (K2_LONG_IMAGES, BEAM, t_long), generator=gen, device=dev, dtype=torch.int32)
+        for step in (40, t_long - 1):
+            out2 = k2.ancestry_self_attention(ql, ckl, cvl, ancl, step)
+            ref2 = k2.ancestry_self_attention_plain(ql, ckl, cvl, ancl, step)
+            compare(f"ancestry_self_attention T_max={t_long} t={step}", out2, ref2, rms(cvl),
+                    fault=k2.ancestry_self_attention_plain(ql, ckl, cvl, None, step))
+            if dtype == torch.bfloat16:
+                ok &= rounding_share(f"ancestry_self_attention T_max={t_long} t={step} out", out2, ref2,
+                                     K2_SHARE_LIMIT, K2_FAR_LIMIT)
     step = t_max - 1
     rows = (anc_t.long() + torch.arange(b, device=dev)[:, None, None] * BEAM).reshape(n, t_max)
     slots = torch.arange(t_max, device=dev)
@@ -780,12 +832,13 @@ def check_kernels(gen, dtype, results: dict, timing: bool = True) -> bool:
     return ok
 
 
-def masked_shapes() -> list:
-    """(out, in) shapes of the 105 masked tensors of the paper-width ORT, in call order."""
+def masked_shapes(layers: int = PAPER["num_layers"]) -> list:
+    """(out, in) shapes of the masked tensors of the paper-width ORT, in call
+    order: 105 at the paper's 6 layers, 139 at 8."""
     d, ff, v, h = PAPER["d_model"], PAPER["dim_feedforward"], PAPER["vocab_size"], HEADS
     enc = [(d, d)] * 3 + [(h, 64), (d, d), (ff, d), (d, ff)]
     dec = [(d, d)] * 8 + [(ff, d), (d, ff)]
-    return [(d, PAPER["att_feat_size"])] + enc * PAPER["num_layers"] + [(v, d)] + dec * PAPER["num_layers"] + [(v, d)]
+    return [(d, PAPER["att_feat_size"])] + enc * layers + [(v, d)] + dec * layers + [(v, d)]
 
 
 def updown_masked_shapes() -> tuple:
@@ -1578,16 +1631,17 @@ def whole_path_check(model_f32, gen, make=make_batch, label="whole-path") -> boo
 
 
 # ------------------------------------------------------------- train path
-def build_train_model(seed: int, dropout: bool = True):
+def build_train_model(seed: int, dropout: bool = True, mask_type: str = "supermask"):
     """Paper-width relation_transformer_prune in f32 on the card with its
-    masks kept as parameters (init 5.0), random weights from the seed."""
+    masks kept as parameters (supermask logits at 5.0, other types' 0/1
+    masks at 1), random weights from the seed."""
     from sparse_caption_tpu_torch.models import get_model
     from sparse_caption_tpu_torch.ops.masked import MaskConfig
 
     gen = torch.Generator(device="cuda").manual_seed(seed)
     rates = {} if dropout else dict(dropout_rate=0.0, drop_prob_src=0.0)
     return get_model("relation_transformer_prune")(
-        **PAPER, **rates, mask_cfg=MaskConfig("supermask", MASK_INIT, keep_masks=True), device="cuda", generator=gen)
+        **PAPER, **rates, mask_cfg=MaskConfig(mask_type, MASK_INIT, keep_masks=True), device="cuda", generator=gen)
 
 
 def make_train_batch(gen, b, device="cuda"):
@@ -1602,11 +1656,12 @@ def make_train_step(model, precision: str, config=TRAIN_CONFIG):
     from sparse_caption_tpu_torch.engine.optim import build_mask_optimizer, build_weight_optimizer, make_schedule
     from sparse_caption_tpu_torch.engine.training import make_xe_step
     from sparse_caption_tpu_torch.ops.masked import split_params
+    from sparse_caption_tpu_torch.pruning import TRAINABLE_MASKS
 
     config = dict(config, train_precision=precision)
     params, masks = split_params(model)
     opt_w = build_weight_optimizer(params.values(), config, make_schedule(config, steps_per_epoch=1000))
-    opt_m = build_mask_optimizer(masks.values(), config, trainable=True)
+    opt_m = build_mask_optimizer(masks.values(), config, trainable=model.mask_cfg.mask_type in TRAINABLE_MASKS)
     return make_xe_step(model, opt_w, opt_m, config)
 
 
@@ -2155,11 +2210,18 @@ def check_updown_kernels(gen, dtype, results: dict, timing: bool = True) -> bool
                                                                fault=k11.lstm_cell_plain(swap(gx), swap(gh), c)[1]))
     tg = leaves(rnd(n_t, 4 * h), rnd(n_t, 4 * h), rnd(n_t, h))
     cot = (rnd(n_t, h), rnd(n_t, h))
+    _, kg = fwd_bwd(k11.lstm_cell, tg, cot)
+    _, pg = fwd_bwd(k11.lstm_cell_plain, tg, cot)
     if dtype == torch.float32:
-        _, kg = fwd_bwd(k11.lstm_cell, tg, cot)
-        _, pg = fwd_bwd(k11.lstm_cell_plain, tg, cot)
         for nm, kt, pt in zip(("d gx", "d gh", "d c"), kg, pg):
             compare(f"lstm_cell_bwd {nm}", kt, pt)
+    else:  # bit by bit: the forward's rounding points, and autograd's in the backward
+        ok &= rounding_share("lstm_cell h'", hk, hp, K11_SHARE_LIMIT, K11_FAR_LIMIT)
+        ok &= rounding_share("lstm_cell c'", ck, cp, K11_SHARE_LIMIT, K11_FAR_LIMIT)
+        for nm, kt, pt in zip(("d gates", "d c"), kg[1:], pg[1:]):
+            ok &= rounding_share(f"lstm_cell_bwd {nm}", kt, pt, K11_SHARE_LIMIT, K11_FAR_LIMIT)
+        ok &= bool(torch.equal(kg[0], kg[1]))  # d gx = d gh
+    del kg, pg
     fns = [lambda: k11.lstm_cell(gx, gh, c), lambda: k11.lstm_cell_plain(gx, gh, c)]
     try:
         torch.ops.aten._thnn_fused_lstm_cell(gx, gh, c)
@@ -2529,6 +2591,261 @@ def greedy_check(model_f32, gen, label="updown greedy") -> bool:
     return good
 
 
+# ------------------------------------------------------------- prune path
+@contextlib.contextmanager
+def uncounted():
+    """Launches inside (a kernel held against its plain version) leave the
+    launch counts as they were."""
+    from sparse_caption_tpu_torch.kernels import KERNELS
+
+    saved = {name: k.launches for name, k in KERNELS.items()}
+    try:
+        yield
+    finally:
+        for name, k in KERNELS.items():
+            k.launches = saved[name]
+
+
+def f32_quantile_index(n: int, q: float) -> tuple:
+    """``jnp.quantile``'s index arithmetic (jax's ``_quantile``, linear), written
+    again in torch f32 ops on the host: the reference that the wrapper's
+    ``quantile_index`` is held to. Returns (lo, hi, lw, hw) with lw and hw
+    0-dim f32 tensors."""
+    nf, qf = torch.tensor(float(n), dtype=torch.float32), torch.tensor(q, dtype=torch.float32)
+    pos = qf * (nf - 1)
+    lo, hi = torch.floor(pos), torch.ceil(pos)
+    hw = pos - lo
+    lw = 1 - hw
+    zero = torch.zeros((), dtype=torch.float32)
+    return int(torch.clamp(lo, zero, nf - 1)), int(torch.clamp(hi, zero, nf - 1)), lw, hw
+
+
+def k16_case(label: str, ws, pools, q: float, dist: bool = False, measured=None) -> bool:
+    """K16 against its plain version on one set: every pool's threshold and
+    every mask bit for bit (dist: the plain selection on K16's own stats,
+    and K16's stats against torch.mean / torch.std), and each pool's pruned
+    count equal to the count of criteria <= the threshold that the f32 index
+    reference (``f32_quantile_index``) gives on the sorted pool. `measured`
+    collects the largest |th - th_plain| and |mask - mask_plain| (max_abs_err)
+    and the count of mask elements that differ (mask_mismatches)."""
+    from sparse_caption_tpu_torch.kernels import magnitude_threshold as k16
+
+    masks, th, stats = k16.magnitude_masks(ws, pools, q, dist)
+    masks_p, th_p, _ = k16.magnitude_masks_plain(ws, pools, q, dist, stats=stats)
+    torch.cuda.synchronize()
+    mismatches = sum(int((a != b).sum()) for a, b in zip(masks, masks_p))
+    err = max((th - th_p).abs().max().item(), float(mismatches > 0))  # a mask element differs by 1
+    if measured is not None:
+        measured["max_abs_err"] = max(measured.get("max_abs_err", 0.0), err)
+        measured["mask_mismatches"] = measured.get("mask_mismatches", 0) + mismatches
+    same_masks = mismatches == 0
+    same_th = bool(torch.equal(th, th_p))
+    ok, worst_stats, index_ok, count_ok = same_masks and same_th, 0.0, True, True
+    if dist:
+        own = torch.stack([k16.tensor_stats_plain(w) for w in ws])
+        worst_stats = max(((stats[:, 0] - own[:, 0]).abs() / own[:, 1]).max().item(),
+                          ((stats[:, 1] - own[:, 1]).abs() / own[:, 1]).max().item())
+        ok &= worst_stats <= K16_STATS_TOL
+    crits = [k16.criterion_plain(w, stats[i] if dist else None) for i, w in enumerate(ws)]
+    for p in range(max(pools) + 1):
+        members = [i for i, pp in enumerate(pools) if pp == p]
+        ordered = torch.sort(torch.cat([crits[i].reshape(-1) for i in members])).values
+        n = ordered.numel()
+        lo, hi, lw, hw = f32_quantile_index(n, q)
+        index_ok &= (lo, hi, lw.item(), hw.item()) == k16.quantile_index(n, q)
+        v = ordered[[lo, hi]].cpu()
+        th_ref = v[0] * lw + v[1] * hw  # two f32 products and one add, on the host
+        expected = int(torch.searchsorted(ordered, th_ref.to(ordered.device).reshape(1), right=True))
+        pruned = sum(int((masks[i] == 0).sum()) for i in members)
+        count_ok &= pruned == expected and bool(th[p].cpu() == th_ref)
+    ok &= index_ok and count_ok
+    n_all = sum(w.numel() for w in ws)
+    zeros = sum(int((m == 0).sum()) for m in masks)
+    log(f"[k16] {label}: {len(ws)} tensors, {max(pools) + 1} pools, {n_all} weights, q={q:.6f}: masks equal "
+        f"{same_masks} ({mismatches} differ), thresholds equal {same_th} (max |diff| {err:.3e}), f32 index "
+        f"{index_ok}, pruned counts {count_ok} ({zeros} pruned, {zeros / n_all:.4f})" + (f", stats worst err/std {worst_stats:.2e}" if dist else "")
+        + f" {'ok' if ok else 'FAIL'}")
+    return ok
+
+
+def magnitude_weights(gen, layers: int = PAPER["num_layers"]):
+    """f32 weights at the ORT's masked shapes, Glorot-uniform scale, one of
+    them with a block of exact zeros (a pruned checkpoint's ties) and one
+    on a grid of 1/256 (many equal magnitudes)."""
+    ws = []
+    for i, (o, n) in enumerate(masked_shapes(layers)):
+        w = (torch.rand(o, n, generator=gen, device="cuda") * 2 - 1) * (6.0 / (o + n)) ** 0.5
+        if i == 1:
+            w[:, : n // 3] = 0.0
+        elif i == 2:
+            w = torch.round(w * 256) / 256
+        ws.append(w.contiguous())
+    return ws
+
+
+def check_magnitude_kernels(gen, results: dict, timing: bool = True) -> bool:
+    """K16 against its plain version (``k16_case``): the ORT's 105 masked
+    tensors as 105 pools (mag_*_uniform) and as one pool of 55,331,840 (blind,
+    and dist with per-tensor stats) at the schedule's sparsities; the 8-layer
+    ORT's 139 (more than one table of 128) the same ways; off shapes (a chunk
+    and one weight, single weights, a tensor of equal magnitudes). The
+    kernels line's max_abs_err and mask_mismatches are those of every case.
+    Times (with `timing`): K16 on the blind pool, its plain version and the
+    compare alone, in turns, and one library call (``torch.kthvalue`` at
+    ranks lo and hi of the built pool) after them, beside the byte bound;
+    K16 on the 105 pools and on the dist pool; a profile of one K16 call
+    (its passes by name)."""
+    from sparse_caption_tpu_torch.kernels import magnitude_threshold as k16
+    from sparse_caption_tpu_torch.pruning.engine import gradual_sparsity_target
+
+    ws = magnitude_weights(gen)
+    per_tensor, one_pool = list(range(len(ws))), [0] * len(ws)
+    n_all = sum(w.numel() for w in ws)
+    ok, measured = True, results.setdefault("magnitude_threshold", {})
+    schedule = [gradual_sparsity_target(PRUNE_TARGET, s, PRUNE_EPOCH_STEPS, 3, prune_frequency=PRUNE_FREQ)
+                for s in (2, 4, 6, 8)]
+    for q in schedule:
+        ok &= k16_case("uniform", ws, per_tensor, q, measured=measured)
+        ok &= k16_case("blind", ws, one_pool, q, measured=measured)
+    ok &= k16_case("dist", ws, one_pool, PRUNE_TARGET, dist=True, measured=measured)
+    ok &= k16_case("dist per tensor", ws, per_tensor, 0.5, dist=True, measured=measured)
+    deep = magnitude_weights(gen, layers=8)
+    ok &= len(deep) > k16.MAX_TENSORS
+    ok &= k16_case("8 layers, uniform", deep, list(range(len(deep))), PRUNE_TARGET, measured=measured)
+    ok &= k16_case("8 layers, blind", deep, [0] * len(deep), PRUNE_TARGET, measured=measured)
+    ok &= k16_case("8 layers, dist", deep, [0] * len(deep), 0.5, dist=True, measured=measured)
+    del deep
+    off = [torch.randn(k16.CHUNK + 1, generator=gen, device="cuda"), torch.randn(1, generator=gen, device="cuda"),
+           torch.full((37, 3), -0.25, device="cuda"), torch.randn(3, 5, generator=gen, device="cuda")]
+    for q in (0.0, 0.5, 0.999, 1.0):
+        ok &= k16_case("off shapes", off, list(range(len(off))), q, measured=measured)
+        ok &= k16_case("off shapes, one pool", off, [0] * len(off), q, measured=measured)
+    if not timing:
+        return ok
+    q = PRUNE_TARGET
+    lo, hi, _, _ = k16.quantile_index(n_all, q)
+    pool = torch.cat([w.abs().reshape(-1) for w in ws])
+    _, th, _ = k16.magnitude_masks(ws, one_pool, q)
+    ms, plain_ms, cmp_ms = turns_ms(
+        lambda: k16.magnitude_masks(ws, one_pool, q), lambda: k16.magnitude_masks_plain(ws, one_pool, q),
+        lambda: [(w.abs() > th[0]).float() for w in ws])
+    # kthvalue of one slice this long takes about 0.4 s a call: two held calls, not 5 windows of 20
+    lib_ms = time_ms(lambda: (torch.kthvalue(pool, lo + 1), torch.kthvalue(pool, hi + 1)), iters=2, warmup=1,
+                     hold=True)
+    uniform_ms, dist_ms = turns_ms(lambda: k16.magnitude_masks(ws, per_tensor, q),
+                                   lambda: k16.magnitude_masks(ws, one_pool, q, dist=True))
+    profile_window(f"K16, one pool of {n_all}", lambda: k16.magnitude_masks(ws, one_pool, q))
+    bnd, by = bound_ms(8 * n_all, {})
+    dist_bnd = bound_ms(12 * n_all, {})[0]
+    log(f"[kernel] magnitude_threshold f32, one pool of {n_all}: ms={ms:.4f} plain_ms={plain_ms:.4f} "
+        f"library_ms={lib_ms:.4f} (torch.kthvalue at ranks lo, hi) compare_ms={cmp_ms:.4f} bound_ms={bnd:.4f} ({by}); "
+        f"105 pools ms={uniform_ms:.4f}; dist ms={dist_ms:.4f} bound_ms={dist_bnd:.4f} (held windows in turns)")
+    measured.update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bnd, bound_by=by, compare_ms=cmp_ms,
+                    uniform_ms=uniform_ms, dist_ms=dist_ms, dist_bound_ms=dist_bnd)
+    return ok
+
+
+def run_prune_phase(gen, results: dict, expected_step: dict) -> tuple:
+    """The paper's gradual magnitude pruning on the paper-width ORT
+    (``PRUNE_TYPE``, bf16 XE at 15 x 5): PRUNE_STEPS steps, the gradual hook
+    (``engine/prune_training.py gradual_prune``) after each, its four updates
+    on the card (K16), the launch counts of that run asserted. After each
+    update (uncounted): the masks and thresholds equal the plain version's on
+    the same weights, the pruned counts those of the f32 index, and one pool
+    of every weight held the same way (blind, dist); after the next step every
+    pruned weight's gradient is exactly 0. Then the hook's whole update once
+    more in a held window (K16 writing the mask parameters), and, timed on
+    the host clock: a one-shot mag_blind prune through the host ``update_masks_once``, a SNIP
+    saliency over 2 batches, and the lottery rewind to a ``torch.save``'d init
+    snapshot (weights equal to the snapshot's, masks kept). Returns (ok, the
+    run's launch counts)."""
+    from sparse_caption_tpu_torch.engine import checkpoints, prune_training
+    from sparse_caption_tpu_torch.engine.training import TrainState
+    from sparse_caption_tpu_torch.kernels import launch_counts, magnitude_threshold as k16, reset_launch_counts
+    from sparse_caption_tpu_torch.ops.masked import split_params
+    from sparse_caption_tpu_torch.pruning import engine as prune_engine
+
+    model = build_train_model(SEED, mask_type=PRUNE_TYPE)
+    cfg = dict(TRAIN_CONFIG, prune_sparsity_target=PRUNE_TARGET, prune_gradual_frequency=PRUNE_FREQ)
+    step = make_train_step(model, "bf16", cfg)
+    batch = make_train_batch(gen, TRAIN_BATCH)
+    pairs = prune_engine.mask_weight_pairs(model)
+    ok, updates, last_pruned = True, [], None
+    with tempfile.TemporaryDirectory() as tmp:
+        init_path = checkpoints.save_checkpoint(os.path.join(tmp, "model_init.pt"), model)
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        state = TrainState()
+        for _ in range(PRUNE_STEPS):
+            state, loss, _ = step(state, batch)
+            if last_pruned is not None:  # the step after an update ran on the pruned weights
+                with uncounted():
+                    zero_grad = all(not bool(mw.weight.grad[m].any()) for mw, m in zip(pairs, last_pruned))
+                log(f"[prune] step {state.step}: loss {float(loss):.4f}; every pruned weight's gradient is 0: "
+                    f"{zero_grad}")
+                ok &= zero_grad and math.isfinite(float(loss))
+            st = prune_training.gradual_prune(model, cfg, state.step, PRUNE_EPOCH_STEPS, PRUNE_MAX_STEP)
+            if st is None:
+                continue
+            updates.append(st)
+            with uncounted():
+                ws = [mw.weight.detach() for mw in pairs]
+                masks_p, _, _ = k16.magnitude_masks_plain(ws, list(range(len(ws))), st)
+                same = all(torch.equal(mw.mask.detach(), m) for mw, m in zip(pairs, masks_p))
+                log(f"[prune] update {len(updates)} after step {state.step} to {st:.6f}: the hook's masks equal the "
+                    f"plain version's {same}")
+                ok &= same
+                measured = results["magnitude_threshold"]
+                ok &= k16_case(f"update {len(updates)} uniform", ws, list(range(len(ws))), st, measured=measured)
+                ok &= k16_case(f"update {len(updates)} blind", ws, [0] * len(ws), st, measured=measured)
+                ok &= k16_case(f"update {len(updates)} dist", ws, [0] * len(ws), st, dist=True, measured=measured)
+                last_pruned = [mw.mask.detach() == 0 for mw in pairs]
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        expected = {name: n * PRUNE_STEPS for name, n in expected_step.items()}
+        expected["magnitude_threshold"] = len(updates)
+        ok &= counts == expected and len(updates) == 4 and updates[-1] == PRUNE_TARGET
+        log(f"[prune] {PRUNE_TYPE} bf16 {TRAIN_BATCH}x{SEQ_PER_IMG}: {PRUNE_STEPS} steps, updates to {updates}; "
+            f"launches {counts} {'ok' if counts == expected else f'FAIL (expected {expected})'}")
+        _, masks = split_params(model)
+        sparsity = float(prune_engine.mask_sparsity(masks, PRUNE_TYPE)[0])
+        log(f"[prune] mask sparsity {sparsity:.6f}; best checkpoint allowed: "
+            f"{prune_training.allow_best_checkpoint(model, cfg)}")
+        ok &= abs(sparsity - PRUNE_TARGET) < 1e-3 and prune_training.allow_best_checkpoint(model, cfg)
+        with uncounted():  # the hook's whole update as it runs (the same masks again), K16 writing the parameters
+            update_ms = time_ms(lambda: prune_engine.update_masks_once_device(model, PRUNE_TYPE, PRUNE_TARGET),
+                                hold=True)
+        log(f"[prune] update_masks_once_device, {len(pairs)} pools: ms={update_ms:.4f} (a held window)")
+
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        prune_engine.update_masks_once(model, "mag_blind", PRUNE_TARGET)
+        torch.cuda.synchronize()
+        host_s = time.perf_counter() - t0
+        n_all = sum(mw.mask.numel() for mw in pairs)
+        zeros = sum(int((mw.mask == 0).sum()) for mw in pairs)
+        ok &= zeros == int(PRUNE_TARGET * n_all)
+        snip_batches = [make_train_batch(gen, TRAIN_BATCH) for _ in range(2)]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        saliency = prune_training.snip_saliency(model, snip_batches, cfg)
+        torch.cuda.synchronize()
+        snip_s = time.perf_counter() - t0
+        ok &= len(saliency) == len(pairs) and all(bool(torch.isfinite(g).all()) for g in saliency.values())
+        kept = {mw.name: mw.mask.detach().clone() for mw in pairs}
+        prune_training.lottery_rewind(model, init_path)
+        snapshot = checkpoints.load_checkpoint(init_path)["params"]
+        params, masks = split_params(model)
+        rewound = all(torch.equal(p.detach().cpu(), snapshot[n]) for n, p in params.items())
+        masks_kept = all(torch.equal(masks[n], kept[n]) for n in kept)
+        ok &= rewound and masks_kept
+    log(f"[prune] host one-shot mag_blind over {n_all} weights: {host_s:.3f} s ({zeros} pruned); SNIP saliency over "
+        f"2 batches: {snip_s:.3f} s (host clock); lottery rewind: weights equal the snapshot {rewound}, masks kept "
+        f"{masks_kept} {'ok' if ok else 'FAIL'}")
+    results["magnitude_threshold"].update(host_update_s=host_s, snip_s=snip_s, update_ms=update_ms)
+    return ok, counts
+
+
 def card_line() -> str:
     out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True)
@@ -2565,6 +2882,8 @@ def main() -> int:
     ok &= check_decoder_attention_kernels(torch.Generator(device="cuda").manual_seed(SEED + 14), results)
     torch.cuda.empty_cache()
     ok &= check_scst_kernels(gen, results)
+    torch.cuda.empty_cache()
+    ok &= check_magnitude_kernels(torch.Generator(device="cuda").manual_seed(SEED + 16), results)
     torch.cuda.empty_cache()
     if not ok:
         log("[kernel] a kernel disagrees with its plain version")
@@ -2606,6 +2925,12 @@ def main() -> int:
     del train_model
     torch.cuda.empty_cache()
     if not whole_step_check(SEED, gen):
+        return 1
+
+    # pruning: gradual magnitude (K16 in the hook), then one-shot, SNIP and the lottery rewind
+    good, prune_counts = run_prune_phase(torch.Generator(device="cuda").manual_seed(SEED + 17), results, train)
+    torch.cuda.empty_cache()
+    if not good:
         return 1
 
     # SCST: the paper's sparse self-critical step
@@ -2684,7 +3009,8 @@ def main() -> int:
                    "scst_step": sum(scst_counts[e] for e in entries),
                    "updown_serve": sum(ud_serve_counts[e] for e in entries),
                    "updown_train_step": sum(ud_train_counts[e] for e in entries),
-                   "updown_scst_step": sum(ud_scst_counts[e] for e in entries)}
+                   "updown_scst_step": sum(ud_scst_counts[e] for e in entries),
+                   "prune_update": sum(prune_counts[e] for e in entries)}
         src = _build.CSRC / f"{name}.cu"
         kernels.append(dict(name=name, route="cuda", source=str(src.relative_to(_build.CSRC.parents[2])),
                             replaces=REPLACES[name], launches=sum(by_path.values()), launches_by_path=by_path,

@@ -19,8 +19,8 @@ params stay f32 and the forward runs on a differentiable bf16 cast of them
 (masks and boxes stay f32; the ORT's log-softmax writes f32, Up-Down's the
 compute dtype, as the JAX package's do).
 
-SCST (the two-phase step with the device reward; mask_freeze or dense
-models of either family, ``scst_sample random``):
+SCST (the two-phase step with the device reward, ``scst_reward device``;
+mask_freeze or dense models of either family, ``scst_sample random``):
 
     reward_fn = make_reward_fn(DfTable.from_pickle(df_path, tok2id), bleu_weight=(0, 0, 0, 1))
     step = make_scst_step(model, opt_w, opt_m, config, reward_fn)
@@ -150,9 +150,12 @@ def make_scst_step(model: nn.Module, opt_w: Optimizer, opt_m: Optimizer, config,
        on the same tokens), the REINFORCE loss, its backward and the
        optimizer update.
 
-    The replay is exact only when the masks are deterministic: a supermask
-    model (a fresh Bernoulli draw per step), beam-sample SCST, the host
-    reward and the pipelined and fused steps raise ``NotImplementedError``."""
+    ``config["scst_reward"]`` must be ``"device"``: the host reward, the JAX
+    package's default when the key is absent, raises ``NotImplementedError``
+    until it is ported. The replay is exact only when the masks are
+    deterministic: a supermask model (a fresh Bernoulli draw per step),
+    beam-sample SCST and the pipelined and fused steps raise
+    ``NotImplementedError`` too."""
     num_samples = int(config.get("scst_num_samples", 15))
     sample_mode = str(config.get("scst_sample", "random"))
     baseline_mode = str(config.get("scst_baseline", "greedy"))
@@ -160,7 +163,7 @@ def make_scst_step(model: nn.Module, opt_w: Optimizer, opt_m: Optimizer, config,
         raise NotImplementedError("beam-sample SCST lands in a later slice")
     if sample_mode != "random" or baseline_mode not in ("greedy", "sample"):
         raise ValueError(f"bad scst_sample `{sample_mode}` or scst_baseline `{baseline_mode}`")
-    if str(config.get("scst_reward", "device")) != "device":
+    if str(config.get("scst_reward", "host")) != "device":  # the JAX package's default is the host reward
         raise NotImplementedError("the host reward path and its scorer land in a later slice")
     if model.mask_cfg is not None and model.mask_cfg.is_supermask:
         raise NotImplementedError("supermask SCST (the differentiable scan through per-step Bernoulli draws) "

@@ -19,6 +19,7 @@ additive_attention (K12)        csrc/additive_attention.cu          models/up_do
 vocab_log_softmax (K13)         csrc/vocab_log_softmax.cu           up_down.py:124, layers.py:465-472
 decoder_attention (K14)         csrc/decoder_attention.cu           models/layers.py:158-172,217-228
 decoder_attention (K15 bwd)     csrc/decoder_attention_bwd.cu       gradients of layers.py:158-172
+magnitude_masks (K16)           csrc/magnitude_threshold.cu         pruning/engine.py:210-257
 ==============================  ==================================  ======================================
 
 A wrapper given CPU tensors runs the plain version; given CUDA tensors it
@@ -38,6 +39,7 @@ from sparse_caption_tpu_torch.kernels import cider_reward as _k10
 from sparse_caption_tpu_torch.kernels import decoder_attention as _k14
 from sparse_caption_tpu_torch.kernels import keyed_dropout as _k8
 from sparse_caption_tpu_torch.kernels import lstm_cell as _k11
+from sparse_caption_tpu_torch.kernels import magnitude_threshold as _k16
 from sparse_caption_tpu_torch.kernels import sample_step as _k9
 from sparse_caption_tpu_torch.kernels import supermask as _k5
 from sparse_caption_tpu_torch.kernels import vocab_log_softmax as _k13
@@ -67,6 +69,7 @@ KERNELS = {
     "vocab_log_softmax_bwd": _k13.KERNEL_BWD,
     "decoder_attention": _k14.KERNEL,
     "decoder_attention_bwd": _k14.KERNEL_BWD,
+    "magnitude_threshold": _k16.KERNEL,
 }
 
 

@@ -19,6 +19,9 @@ KERNEL = _build.CudaKernel("ancestry_self_attention", "sct_ancestry_self_attenti
     _build.I, _build.P, _build.P, _build.P, _build.P, _build.P,
     _build.I, _build.I, _build.I, _build.I, _build.I, _build.F32, _build.P,
 ])
+# cache slots the kernel takes: the rows PyTorch's warp softmax takes, whose
+# layout the kernel follows (csrc: 32 lanes, at most 32 slots each)
+MAX_SLOTS = 1024
 
 
 def ancestry_self_attention_plain(q, cache_k, cache_v, ancestry: Optional[torch.Tensor], t: int):
@@ -26,7 +29,9 @@ def ancestry_self_attention_plain(q, cache_k, cache_v, ancestry: Optional[torch.
     b*K + ancestry[b, k, t'] (row n itself without a map).
 
     The reference scores every slot and masks t' > t with -1e9; those
-    softmax weights are exactly 0, so reading slots 0..t only is the same."""
+    softmax weights are exactly 0, so reading slots 0..t only is the same.
+    In bf16 the score, the scaled score and the softmax weights round to
+    bf16, the points the kernel rounds at."""
     n, h, dk = q.shape
     keys, vals = cache_k[:, :, : t + 1], cache_v[:, :, : t + 1]  # (N, h, t+1, dk)
     if ancestry is not None:
@@ -60,8 +65,9 @@ def ancestry_self_attention(q, cache_k, cache_v, ancestry: Optional[torch.Tensor
     check_same_device(q, cache_k, cache_v, ancestry)
     if q.device.type == "cpu":
         return ancestry_self_attention_plain(q, cache_k, cache_v, ancestry, t)
-    if dk != 64 or h > 32:
-        raise ValueError(f"ancestry_self_attention kernel takes dk == 64, h <= 32; got dk={dk} h={h}")
+    if dk != 64 or h > 32 or t_max > MAX_SLOTS:
+        raise ValueError(f"ancestry_self_attention kernel takes dk == 64, h <= 32, T_max <= {MAX_SLOTS}; "
+                         f"got dk={dk} h={h} T_max={t_max}")
     out = torch.empty_like(q)
     KERNEL.launch(_build.dtype_code(q), q.data_ptr(), cache_k.data_ptr(), cache_v.data_ptr(),
                   _build.ptr(ancestry), out.data_ptr(), n, h, t_max, kb, t, 1.0 / math.sqrt(dk),

@@ -17,15 +17,24 @@
 // whose softmax weight is exactly 0).
 //
 // Design: one warp per (row, head), one block per row (all heads). Each lane
-// holds 2 of the 64 dims; the warp walks the slots t' = 0..t, reading the
-// ancestor index directly (one broadcast load) instead of a one-hot
-// contraction, and keeps an online softmax (running max, sum and P.V) in
-// registers, so nothing but q, the touched cache slots and out moves.
+// holds 2 of the 64 dims, and S = ceil(T_max / 32) slots of the row: slot
+// j*32 + lane in its register j, with that slot's cache row (its ancestor,
+// one load per lane instead of a one-hot contraction). The warp walks the
+// slots t' = 0..t twice: first the keys, each score reduced across the warp
+// and kept by the lane of its slot, then the values. The softmax between the
+// two passes is the plain version's, rounding point for rounding point: the
+// score rounded to T (the product q k^T in T), scaled by 1/8 and rounded
+// again; then PyTorch's warp softmax over the row (rows up to 1024), in its
+// layout: each lane's max over its slots, the butterfly max, e = exp(score -
+// max), each lane's sum of its e in slot order, the butterfly sum, p = e /
+// sum rounded to T; the output sums p v in f32 and rounds once. The row's
+// scores and weights stay in registers; nothing but q, the touched cache
+// slots and out moves.
 #include "common.cuh"
 
 namespace sct {
 
-template <typename T>
+template <typename T, int S>
 __global__ void ancestry_self_attention_kernel(const T* __restrict__ q, const T* __restrict__ cache_k,
                                                const T* __restrict__ cache_v, const int* __restrict__ anc,
                                                T* __restrict__ out, int H, int t_max, int K, int t,
@@ -34,48 +43,89 @@ __global__ void ancestry_self_attention_kernel(const T* __restrict__ q, const T*
   const size_t qo = ((size_t)n * H + h) * kHeadDim + 2 * lane;
   const float2 qv = load2(q + qo);
   const int b = n / K;
-  const int* arow = anc != nullptr ? anc + (size_t)n * t_max : nullptr;  // anc (B, K, T_max), row n = b*K + k
-  float m = -INFINITY, l = 0.f;
-  float2 acc = make_float2(0.f, 0.f);
-  for (int s = 0; s <= t; ++s) {
-    const int r = arow != nullptr ? b * K + arow[s] : n;
-    const size_t off = (((size_t)r * H + h) * t_max + s) * kHeadDim + 2 * lane;
-    const float2 kv = load2(cache_k + off);
-    const float2 vv = load2(cache_v + off);
-    const float sc = warp_sum(qv.x * kv.x + qv.y * kv.y) * scale;
-    const float mn = fmaxf(m, sc);
-    const float corr = expf(m - mn);
-    const float p = expf(sc - mn);
-    l = l * corr + p;
-    acc.x = acc.x * corr + p * vv.x;
-    acc.y = acc.y * corr + p * vv.y;
-    m = mn;
+  // anc (B, K, T_max), row n = b*K + k; lane l's register j <= t holds slot j*32 + l's cache row
+  int my_row[S];
+  float my_score[S];
+#pragma unroll
+  for (int j = 0; j < S; ++j) {
+    const int slot = j * 32 + lane;
+    my_row[j] = anc != nullptr && slot <= t ? b * K + anc[(size_t)n * t_max + slot] : n;
+    my_score[j] = -INFINITY;
   }
-  const float inv = 1.f / l;
-  store2(out + qo, make_float2(acc.x * inv, acc.y * inv));
+  const size_t head = (size_t)h * t_max * kHeadDim + 2 * lane;
+#pragma unroll
+  for (int j = 0; j < S; ++j) {
+    for (int l = 0; l < 32 && j * 32 + l <= t; ++l) {
+      const int s = j * 32 + l;
+      const int r = __shfl_sync(0xffffffffu, my_row[j], l);
+      const float2 kv = load2(cache_k + (size_t)r * H * t_max * kHeadDim + head + (size_t)s * kHeadDim);
+      const float sc = round_to<T>(round_to<T>(warp_sum(qv.x * kv.x + qv.y * kv.y)) * scale);
+      if (lane == l) my_score[j] = sc;
+    }
+  }
+  float m = my_score[0];
+#pragma unroll
+  for (int j = 1; j < S; ++j) m = fmaxf(m, my_score[j]);
+  m = warp_max(m);
+  float e[S], sum = 0.f;
+#pragma unroll
+  for (int j = 0; j < S; ++j) {
+    e[j] = j * 32 + lane <= t ? expf(my_score[j] - m) : 0.f;
+    sum += e[j];
+  }
+  sum = warp_sum(sum);
+  float p[S];
+#pragma unroll
+  for (int j = 0; j < S; ++j) p[j] = round_to<T>(e[j] / sum);
+  float2 acc = make_float2(0.f, 0.f);
+#pragma unroll
+  for (int j = 0; j < S; ++j) {
+    for (int l = 0; l < 32 && j * 32 + l <= t; ++l) {
+      const int s = j * 32 + l;
+      const int r = __shfl_sync(0xffffffffu, my_row[j], l);
+      const float ps = __shfl_sync(0xffffffffu, p[j], l);
+      const float2 vv = load2(cache_v + (size_t)r * H * t_max * kHeadDim + head + (size_t)s * kHeadDim);
+      acc.x += ps * vv.x;
+      acc.y += ps * vv.y;
+    }
+  }
+  store2(out + qo, acc);
 }
 
-template <typename T>
+template <typename T, int S>
 cudaError_t launch(const void* q, const void* ck, const void* cv, const void* anc, void* out, int N, int H,
                    int t_max, int K, int t, float scale, cudaStream_t stream) {
-  ancestry_self_attention_kernel<T><<<N, H * 32, 0, stream>>>(
+  ancestry_self_attention_kernel<T, S><<<N, H * 32, 0, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(ck), static_cast<const T*>(cv),
       static_cast<const int*>(anc), static_cast<T*>(out), H, t_max, K, t, scale);
   return cudaGetLastError();
 }
 
+// the smallest S of 1, 2, 4, .., 32 with 32 S >= T_max
+template <typename T>
+cudaError_t dispatch(const void* q, const void* ck, const void* cv, const void* anc, void* out, int N, int H,
+                     int t_max, int K, int t, float scale, cudaStream_t stream) {
+  if (t_max <= 32) return launch<T, 1>(q, ck, cv, anc, out, N, H, t_max, K, t, scale, stream);
+  if (t_max <= 64) return launch<T, 2>(q, ck, cv, anc, out, N, H, t_max, K, t, scale, stream);
+  if (t_max <= 128) return launch<T, 4>(q, ck, cv, anc, out, N, H, t_max, K, t, scale, stream);
+  if (t_max <= 256) return launch<T, 8>(q, ck, cv, anc, out, N, H, t_max, K, t, scale, stream);
+  if (t_max <= 512) return launch<T, 16>(q, ck, cv, anc, out, N, H, t_max, K, t, scale, stream);
+  return launch<T, 32>(q, ck, cv, anc, out, N, H, t_max, K, t, scale, stream);
+}
+
 }  // namespace sct
 
-// dtype: 0 = float32, 1 = bfloat16. q/out (N, H, 64); cache_k/v (N, H, T_max, 64);
+// dtype: 0 = float32, 1 = bfloat16. q/out (N, H, 64); cache_k/v (N, H, T_max, 64), T_max <= 1024;
 // anc (N / K, K, T_max) int32 or null; 0 <= t < T_max.
 extern "C" int sct_ancestry_self_attention(int dtype, const void* q, const void* cache_k, const void* cache_v,
                                            const void* anc, void* out, int N, int H, int t_max, int K, int t,
                                            float scale, void* stream) {
-  if (H < 1 || H > 32 || K < 1 || N % K != 0 || t < 0 || t >= t_max) return (int)cudaErrorInvalidValue;
+  if (H < 1 || H > 32 || K < 1 || N % K != 0 || t < 0 || t >= t_max || t_max > 1024)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return (int)sct::launch<float>(q, cache_k, cache_v, anc, out, N, H, t_max, K, t, scale, s);
+  if (dtype == 0) return (int)sct::dispatch<float>(q, cache_k, cache_v, anc, out, N, H, t_max, K, t, scale, s);
   if (dtype == 1)
-    return (int)sct::launch<__nv_bfloat16>(q, cache_k, cache_v, anc, out, N, H, t_max, K, t, scale, s);
+    return (int)sct::dispatch<__nv_bfloat16>(q, cache_k, cache_v, anc, out, N, H, t_max, K, t, scale, s);
   return (int)cudaErrorInvalidValue;
 }
 

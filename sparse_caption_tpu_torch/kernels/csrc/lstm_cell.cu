@@ -10,11 +10,18 @@
 // in f32, rounded to T at each point where the JAX package's compute dtype
 // rounds (every elementwise op; a no-op for f32). The backward takes dh', dc'
 // (either may be absent) and recomputes every gate from gx, gh and c, so no
-// activation is stored beyond the forward's inputs:
-//   dc    = dc' + dh' sigmoid(o) (1 - tanh(c')^2)
-//   d i   = dc tanh(g) sigmoid'(i),  d f = dc c sigmoid'(f)
-//   d g   = dc sigmoid(i) (1 - tanh(g)^2),  d o = dh' tanh(c') sigmoid'(o)
-//   d c_prev = dc sigmoid(f);  d gx = d gh = d gates
+// activation is stored beyond the forward's inputs. It rounds where autograd
+// of the plain version rounds in T: each product's gradient, the sum of the
+// two gradients of c', and PyTorch's sigmoid and tanh backward, which
+// compute in T op by op (sigmoid: round(round(g round(1 - s)) s); tanh:
+// round(g round(1 - round(y y)))):
+//   g_o~  = round(dh' tanh(c')),  g_tc = round(dh' sigmoid(o))
+//   dc    = round(dc' + tanh_bwd(g_tc, tanh(c')))
+//   d i   = sigmoid_bwd(round(dc tanh(g)), sigmoid(i))
+//   d f   = sigmoid_bwd(round(dc c), sigmoid(f))
+//   d g   = tanh_bwd(round(dc sigmoid(i)), tanh(g))
+//   d o   = sigmoid_bwd(g_o~, sigmoid(o))
+//   d c_prev = round(dc sigmoid(f));  d gx = d gh = d gates
 //
 // Bound on the H100: bytes. The forward reads gx, gh and c and writes h', c'
 // (Up-Down serving at 1024 x 5 beams, H = 1000, bf16: 102 MB, 0.03 ms); the
@@ -66,6 +73,16 @@ lstm_cell_fwd_kernel(const T* __restrict__ gx, const T* __restrict__ gh, const T
   }
 }
 
+// PyTorch's sigmoid_backward and tanh_backward, op by op in T
+template <typename T>
+__device__ __forceinline__ float sigmoid_bwd(float g, float s) {
+  return round_to<T>(round_to<T>(g * round_to<T>(1.f - s)) * s);
+}
+template <typename T>
+__device__ __forceinline__ float tanh_bwd(float g, float y) {
+  return round_to<T>(g * round_to<T>(1.f - round_to<T>(y * y)));
+}
+
 template <typename T>
 __global__ void __launch_bounds__(kCellThreads)
 lstm_cell_bwd_kernel(const T* __restrict__ gx, const T* __restrict__ gh, const T* __restrict__ c,
@@ -78,12 +95,13 @@ lstm_cell_bwd_kernel(const T* __restrict__ gx, const T* __restrict__ gh, const T
     const int j = (int)(e % H);
     const Gates<T> g(gx, gh, c, n, j, H);
     const float dhv = dh != nullptr ? to_f(dh[e]) : 0.f;
-    const float dc = (dc_next != nullptr ? to_f(dc_next[e]) : 0.f) + dhv * g.so * (1.f - g.tc * g.tc);
+    const float dcv = dc_next != nullptr ? to_f(dc_next[e]) : 0.f;
+    const float dc = round_to<T>(dcv + tanh_bwd<T>(round_to<T>(dhv * g.so), g.tc));
     const long long g0 = n * 4 * H + j;
-    dgates[g0] = from_f<T>(dc * g.tg * g.si * (1.f - g.si));
-    dgates[g0 + H] = from_f<T>(dc * to_f(c[e]) * g.sf * (1.f - g.sf));
-    dgates[g0 + 2 * H] = from_f<T>(dc * g.si * (1.f - g.tg * g.tg));
-    dgates[g0 + 3 * H] = from_f<T>(dhv * g.tc * g.so * (1.f - g.so));
+    dgates[g0] = from_f<T>(sigmoid_bwd<T>(round_to<T>(dc * g.tg), g.si));
+    dgates[g0 + H] = from_f<T>(sigmoid_bwd<T>(round_to<T>(dc * to_f(c[e])), g.sf));
+    dgates[g0 + 2 * H] = from_f<T>(tanh_bwd<T>(round_to<T>(dc * g.si), g.tg));
+    dgates[g0 + 3 * H] = from_f<T>(sigmoid_bwd<T>(round_to<T>(dhv * g.tc), g.so));
     dc_prev[e] = from_f<T>(dc * g.sf);
   }
 }

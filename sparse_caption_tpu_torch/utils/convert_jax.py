@@ -14,6 +14,9 @@ Flax leaf paths become parameter names:
   eval semantics of ``ops/masked.py`` and do not appear in the result (serving);
   with ``fold_masks=False`` each becomes ``<module>.mask``, transposed like its
   kernel, for a model built with ``MaskConfig(keep_masks=True)`` (training)
+
+``to_jax_variables`` goes the other way: a port model's parameters as the
+JAX package's ``{"params", "masks"}`` tree, flax names and layouts.
 """
 
 from __future__ import annotations
@@ -24,18 +27,19 @@ from typing import Dict, Mapping, Optional, Tuple
 import numpy as np
 import torch
 
-from sparse_caption_tpu_torch.ops.masked import MaskConfig, fold_mask
+from sparse_caption_tpu_torch.ops.masked import MaskConfig, MaskedEmbedding, MaskedLinear, fold_mask
 
 _LAYER_LIST = re.compile(r"^(\w+_layers|logit)_(\d+)$")
 _LEAF = {"kernel": "weight", "embedding": "weight", "scale": "weight", "bias": "bias"}
 
 
-def _flatten(tree: Mapping, prefix: Tuple[str, ...] = ()) -> Dict[Tuple[str, ...], np.ndarray]:
+def flatten_tree(tree: Mapping, prefix: Tuple[str, ...] = ()) -> Dict[Tuple[str, ...], np.ndarray]:
+    """{path tuple: numpy leaf} of a nested dict."""
     out = {}
     for key, value in tree.items():
         path = prefix + (str(key),)
         if isinstance(value, Mapping):
-            out.update(_flatten(value, path))
+            out.update(flatten_tree(value, path))
         else:
             out[path] = np.asarray(value)
     return out
@@ -62,11 +66,24 @@ def flax_path(name: str) -> Tuple[str, ...]:
     return tuple(parts)
 
 
+def to_jax_layout(t: torch.Tensor, transposed: bool) -> np.ndarray:
+    """A port tensor as a C-ordered numpy array in the JAX layout (``jax_leaf``'s
+    ``transposed``: a Dense kernel or its mask, (out, in) -> (in, out))."""
+    t = t.detach().cpu()
+    return (t.T if transposed else t).contiguous().numpy()
+
+
+def from_jax_layout(arr: np.ndarray, transposed: bool) -> torch.Tensor:
+    """The inverse of ``to_jax_layout``: a JAX-layout array as a CPU tensor in the port's layout."""
+    t = torch.from_numpy(np.array(arr, copy=True))
+    return t.T.contiguous() if transposed else t
+
+
 def convert_jax_variables(variables: Mapping, mask_cfg: Optional[MaskConfig] = None,
                           fold_masks: bool = True) -> Dict[str, torch.Tensor]:
     """Flax ``{"params", "masks"}`` (numpy leaves) -> the port's state_dict (CPU tensors)."""
-    params = _flatten(variables["params"])
-    masks = _flatten(variables.get("masks", {}))
+    params = flatten_tree(variables["params"])
+    masks = flatten_tree(variables.get("masks", {}))
     if masks and fold_masks and mask_cfg is None:
         raise ValueError("variables carry masks; pass the model's MaskConfig to fold them")
     used = set()
@@ -78,12 +95,11 @@ def convert_jax_variables(variables: Mapping, mask_cfg: Optional[MaskConfig] = N
         t = torch.from_numpy(np.array(arr, copy=True))
         mask_path = path[:-1] + ("mask",)
         if leaf in ("kernel", "embedding") and mask_path in masks:
-            m = torch.from_numpy(np.array(masks[mask_path], copy=True))
             if fold_masks:
-                t = fold_mask(t, m, mask_cfg)
+                t = fold_mask(t, torch.from_numpy(np.array(masks[mask_path], copy=True)), mask_cfg)
             else:
-                state[".".join(filter(None, (_module_name(path[:-1]), "mask")))] = (
-                    m.T.contiguous() if leaf == "kernel" else m)
+                state[".".join(filter(None, (_module_name(path[:-1]), "mask")))] = from_jax_layout(
+                    masks[mask_path], leaf == "kernel")
             used.add(mask_path)
         if leaf == "kernel":
             t = t.T.contiguous()
@@ -101,3 +117,32 @@ def load_jax_variables(model: torch.nn.Module, variables: Mapping) -> torch.nn.M
     keep = cfg is not None and cfg.keep_masks
     model.load_state_dict(convert_jax_variables(variables, cfg, fold_masks=not keep))
     return model
+
+
+def jax_leaf(module: torch.nn.Module, name: str) -> Tuple[str, bool]:
+    """(flax leaf name, transposed) of parameter ``name`` of ``module``: a
+    Dense kernel or its kept mask is transposed, (out, in) -> (in, out)."""
+    if name == "mask":
+        return "mask", isinstance(module, MaskedLinear)
+    if name == "weight":
+        if isinstance(module, MaskedLinear):
+            return "kernel", True
+        return ("embedding" if isinstance(module, MaskedEmbedding) else "scale"), False
+    return name, False
+
+
+def to_jax_variables(model: torch.nn.Module) -> Dict[str, Dict]:
+    """The inverse of ``convert_jax_variables(fold_masks=False)``: the model's
+    parameters as nested dicts of numpy arrays, ``{"params": ..., "masks":
+    ...}``, by flax path and in the JAX package's layouts."""
+    out: Dict[str, Dict] = {"params": {}, "masks": {}}
+    for mod_name, module in model.named_modules():
+        for name, p in module.named_parameters(recurse=False):
+            leaf, transposed = jax_leaf(module, name)
+            path = flax_path(".".join(filter(None, (mod_name, name))))[:-1] + (leaf,)
+            arr = to_jax_layout(p, transposed)
+            node = out["masks" if leaf == "mask" else "params"]
+            for key in path[:-1]:
+                node = node.setdefault(key, {})
+            node[path[-1]] = arr
+    return out

@@ -241,3 +241,15 @@ def test_k5_bound_of_the_ort_set():
     bound, by = chip_smoke.bound_ms(chip_smoke.k5_bytes(ORT_MASKED, torch.bfloat16), {})
     assert by == "bytes" and bound == pytest.approx(ORT_MASKED * 26.25 / 3.35e12 * 1e3)
     assert bound == pytest.approx(0.43357, abs=1e-5)
+
+
+@pytest.mark.parametrize("n", [1, 7, 512, 5_120_000, 16_777_220, 55_331_840])
+@pytest.mark.parametrize("q", [0.0, 0.5629629629629629, 0.8, 1.0])
+def test_f32_quantile_index_agrees_with_the_wrapper(n, q):
+    """chip_smoke's torch f32 reference of the quantile index, which holds
+    ``quantile_index`` on the card, agrees with it here (the CPU test of
+    ``quantile_index`` itself is against lax, test_torch_port_pruning.py)."""
+    from sparse_caption_tpu_torch.kernels.magnitude_threshold import quantile_index
+
+    lo, hi, lw, hw = chip_smoke.f32_quantile_index(n, q)
+    assert (lo, hi, lw.item(), hw.item()) == quantile_index(n, q)

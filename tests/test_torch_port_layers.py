@@ -15,6 +15,7 @@ from sparse_caption_tpu.decoding.beam import _row_topk
 from sparse_caption_tpu.models import layers as jl
 from sparse_caption_tpu.ops.masked import MaskedDense, MaskedEmbed
 from sparse_caption_tpu_torch.kernels import KERNELS, launch_counts
+from sparse_caption_tpu_torch.kernels.ancestry_self_attention import MAX_SLOTS as K2_MAX_SLOTS
 from sparse_caption_tpu_torch.kernels.ancestry_self_attention import ancestry_self_attention
 from sparse_caption_tpu_torch.kernels.beam_topk import NEG_BIG, beam_topk
 from sparse_caption_tpu_torch.kernels.box_attention import box_attention, log_bias_from_geometry
@@ -188,6 +189,27 @@ def test_k2_decode_self_matches_jax(with_ancestry, step):
     _close(pv, ref_v)
 
 
+def test_k2_decode_self_matches_jax_beyond_32_slots():
+    """A cache of 60 slots (the character tokenizer's default length), more
+    than the 32 lanes of K2's warp: the kernel holds two a lane; here the
+    plain version, against JAX, at a step past the first 32."""
+    rng = np.random.default_rng(16)
+    b, kb, t_max, dk, step = 2, 3, 60, D // HEADS, 40
+    n = b * kb
+    x_t = rng.normal(size=(n, 1, D)).astype(np.float32)
+    ck = rng.normal(size=(n, HEADS, t_max, dk)).astype(np.float32)
+    cv = rng.normal(size=(n, HEADS, t_max, dk)).astype(np.float32)
+    anc = rng.integers(0, kb, size=(b, kb, t_max)).astype(np.int32)
+    mha, jv = _jax_mha(jnp.asarray(x_t))
+    ref, _, _ = mha.apply(jv, jnp.asarray(x_t), jnp.asarray(ck), jnp.asarray(cv), step, method="decode_self",
+                          ancestry_onehot=jax.nn.one_hot(jnp.asarray(anc), kb, dtype=jnp.float32))
+    port = _load(pl.MultiHeadAttention(HEADS, D), jv)
+    with torch.no_grad():
+        out = port.decode_self(t(x_t), t(ck), t(cv), step, t(anc))
+    _close(out, ref)
+    assert t_max <= K2_MAX_SLOTS
+
+
 def test_fused_qkv_built_once_and_rebuilt_after_weight_changes():
     """decode_self's concatenated q/k/v weight is cached across steps and
     follows a mask fold, a state_dict load and a dtype cast."""
@@ -334,7 +356,7 @@ def test_kernel_table_names_sources():
                             "add_ref_layernorm_bwd", "box_attention_bwd", "keyed_keep_mask", "keyed_dropout",
                             "sample_step", "cider_reward", "lstm_cell", "lstm_cell_bwd", "additive_attention",
                             "additive_attention_bwd", "vocab_log_softmax", "vocab_log_softmax_bwd",
-                            "decoder_attention", "decoder_attention_bwd"}
+                            "decoder_attention", "decoder_attention_bwd", "magnitude_threshold"}
     from sparse_caption_tpu_torch.kernels._build import CSRC, SOURCES
 
     assert {k.library_name for k in KERNELS.values()} == set(SOURCES)

@@ -327,7 +327,7 @@ def test_mask_freeze_masks_load_unfolded_as_binary_f32():
 
 # ------------------------------------------------------ whole SCST step
 CFG = dict(lr_scheduler="step", learning_rate=5e-5, optim="adam", grad_clip=0.1, scst_num_samples=3,
-           scst_sample="random", scst_baseline="sample", max_seq_length=L + 1, seed=8)
+           scst_sample="random", scst_baseline="sample", scst_reward="device", max_seq_length=L + 1, seed=8)
 BLEU = (0.0, 0.0, 0.0, 1.0)
 
 
@@ -423,6 +423,19 @@ def test_scst_step_runs_with_dropout_and_greedy_baseline(reward_setup):
     assert not torch.equal(res2["sample"], res["sample"])
     state, _, aux2 = step(state, batch)
     assert state.step == 2 and np.isfinite(float(aux2["avg_baseline"]))
+
+
+def test_scst_reward_defaults_to_host():
+    """A config without ``scst_reward`` asks for the JAX package's default,
+    the host reward (``opts.py:72``), which the port does not have yet: the
+    step is refused and the device reward is never built or called."""
+    calls = []
+    model = get_model("relation_transformer_prune")(**KW, device="cpu",
+                                                    mask_cfg=MaskConfig("mask_freeze", keep_masks=True))
+    cfg = {k: v for k, v in CFG.items() if k != "scst_reward"}
+    with pytest.raises(NotImplementedError, match="host reward"):
+        make_scst_step(model, None, None, cfg, lambda *args: calls.append(args))
+    assert calls == []
 
 
 def test_unported_scst_paths_raise(reward_setup):

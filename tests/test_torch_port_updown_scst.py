@@ -189,7 +189,7 @@ def test_replay_equals_sampling_with_dropout():
 
 # ------------------------------------------------------- whole SCST step
 CFG = dict(lr_scheduler="step", learning_rate=5e-5, optim="adam", grad_clip=0.1, scst_num_samples=3,
-           scst_sample="random", scst_baseline="sample", max_seq_length=L + 1, seed=8)
+           scst_sample="random", scst_baseline="sample", scst_reward="device", max_seq_length=L + 1, seed=8)
 BLEU = (0.0, 0.0, 0.0, 1.0)
 
 
