@@ -45,6 +45,14 @@ Phases:
    thresholds and masks bit for bit, each pool's pruned count against an f32
    index reference written in torch (``f32_quantile_index``), and K16, its
    plain version, ``torch.kthvalue`` and the compare alone timed in turns;
+   the kv modes of K1 (eval and train variant), K7, K2 and K3 at ACORT-base's
+   shapes (``check_acort_kernels``: one tensor is K and V; element-wise and
+   in bf16 by ``rounding_share`` against the plain versions on that tensor,
+   bit-equal to the unshared kernels given it twice, K2 also past its
+   staged slots, K3's shared memory against the wrapper's), K4 and K13 at
+   the radix vocabulary's V = 771, K14 / K15 at ACORT's 26 positions with
+   the one tensor as k and v; each kv mode timed beside the unshared kernel
+   on the tensor passed twice, the plain version and one library call;
 3. serving path: a paper-width ``relation_transformer_prune`` (random
    weights and supermask logits from a seed, masks folded), ``encode`` +
    beam-5 ``generate`` in bf16 at batch 50 and 2048 with the kernels' launch
@@ -89,7 +97,20 @@ Phases:
    f32, 60 random samples per image, leave-one-out baseline, CIDEr-D +
    BLEU-4) at 5 x 60 and 16 x 60 with the launch counts asserted and a
    profile at 16 x 60, its replay check at 5 x 60, and its card-vs-CPU step
-   at 2 x 3 with dropout on.
+   at 2 x 3 with dropout on;
+7. ACORT path (``run_acort_phase``): ACORT-base built by ``from_config``
+   from the recipe's flags (``resources/commands_acort.sh``: kv sharing and
+   6 slots over 2 layers on both sides) and a radix tokenizer over a
+   synthetic 10,000-word vocabulary (vocab 771, 26 tokens), random weights:
+   beam-5 serving in bf16 at batch 50 and 2048 with the launch counts
+   asserted (the kv modes of K1, K2 and K3, K4 at V = 771), a profile at
+   2048, two captions decoded to words, the f32 batch-8 card-vs-CPU check;
+   the dense XE step (noam, dropout on) in bf16 at 15 x 5 and 256 x 5 with
+   the launch counts asserted (the kv modes of K1's train variant and K7,
+   K13 at V = 771, K14 / K15 with the one tensor as k and v) and a profile
+   at 256 x 5, the card-vs-CPU f32 step at 2 x 5; then a 2-layer qk-shared
+   ORT's card-vs-CPU decode and step (the unshared kernels, q's projection
+   as k).
 
 The ORT XE and SCST steps run the decoder's full-sequence attention through
 K14/K15 (12 + 12 launches per step, asserted), and the plain
@@ -209,6 +230,19 @@ REPLACES = {
     "decoder_attention_bwd": "sparse_caption_tpu/models/layers.py:158",
     "magnitude_threshold": "sparse_caption_tpu/pruning/engine.py:210",
 }
+# the ACORT rows of the kernels line: (name, library, entry points, JAX site)
+ACORT_MODES = (
+    ("box_attention kv", "box_attention", ("box_attention_kv", "box_attention_train_kv"),
+     "sparse_caption_tpu/models/layers.py:383"),
+    ("box_attention_bwd kv", "box_attention_bwd", ("box_attention_bwd_kv",), "sparse_caption_tpu/models/layers.py:383"),
+    ("ancestry_self_attention kv", "ancestry_self_attention", ("ancestry_self_attention_kv",),
+     "sparse_caption_tpu/models/layers.py:296"),
+    ("grouped_cross_attention kv", "grouped_cross_attention", ("grouped_cross_attention_kv",),
+     "sparse_caption_tpu/models/layers.py:244"),
+    ("beam_topk V=771", "beam_topk", ("beam_topk",), "sparse_caption_tpu/models/layers.py:458"),
+    ("vocab_log_softmax V=771", "vocab_log_softmax", ("vocab_log_softmax", "vocab_log_softmax_bwd"),
+     "sparse_caption_tpu/models/layers.py:465"),
+)
 # the supermask XE train step (bench.py:230-292): 15 images x 5 captions of 18
 # tokens, and the throughput point at 256 images; supermask logits start at 5.0
 TRAIN_BATCH, TRAIN_BIG_BATCH, SEQ_PER_IMG, TRAIN_T = 15, 256, 5, MAX_LEN + 1
@@ -268,6 +302,26 @@ PRUNE_EPOCH_STEPS, PRUNE_FREQ, PRUNE_MAX_STEP, PRUNE_STEPS = 2, 2, 16, 9
 # the tensor's std, the std within 1e-6 relative (f32 sums of up to 5.1M
 # weights in two fixed orders)
 K16_STATS_TOL = 1e-6
+# ACORT-base (resources/commands_acort.sh:13-21,30-40): the ORT at d512 /
+# ff2048, 8 heads, kv-shared attention on both sides, 6 layer slots over 2
+# unique layers a side, radix tokens of base 768 over a synthetic word
+# vocabulary of ACORT_WORDS words (2 digits a word; vocab 771: pad 0, digits
+# 1..768, bos 769, eos 770; unk id 1, a digit, as the JAX package's
+# from_config gives it), 26 tokens; dense, noam, dropout 0.1 / 0.5 (the
+# recipe's defaults), 36 regions x 2048 features
+ACORT_FLAGS = dict(caption_model="relation_transformer", tokenizer="radix", radix_base=768, max_seq_length=26,
+                   share_att_encoder="kv", share_att_decoder="kv", share_layer_encoder="(0, 0, 0, 1, 1, 1)",
+                   share_layer_decoder="(0, 0, 0, 1, 1, 1)", d_model=512, dim_feedforward=2048, num_layers=6,
+                   num_heads=8, att_feat_size=2048)
+ACORT_BASE = dict(vocab_size=771, pad_id=0, bos_id=769, eos_id=770, unk_id=1)  # what the radix tokenizer writes
+ACORT_LEN, ACORT_SLOTS, ACORT_WORDS = ACORT_FLAGS["max_seq_length"], ACORT_FLAGS["num_layers"], 10000
+ACORT_CONFIG = dict(lr_scheduler="noam", optim="adam", d_model=ACORT_FLAGS["d_model"], noamopt_warmup=10000,
+                    grad_clip=0.1, max_train_step=100000, caption_model="relation_transformer", seed=SEED)
+# a small ORT with qk-shared attention on both sides (the JAX package's other
+# sharing layout): 2 layers at paper width, dense, served and stepped once
+# against the CPU
+QK_ORT = dict(PAPER, num_layers=2, share_att_encoder="qk", share_att_decoder="qk")
+QK_CONFIG = dict(ACORT_CONFIG, d_model=PAPER["d_model"])
 
 
 def log(msg: str) -> None:
@@ -360,11 +414,11 @@ def decoder_attention_flops(n: int, tk: int, backward: bool = False, tq: int = M
     return (10 if backward else 4) * n * HEADS * tq * tk * DK
 
 
-def k3_bytes(images: int, beams: int, dtype, regions: int = REGIONS) -> int:
+def k3_bytes(images: int, beams: int, dtype, regions: int = REGIONS, kv: bool = False) -> int:
     """Bytes K3 must move for one decode step: the image's memory K and V
-    read once per image (not per beam), q read and out written per beam
-    row, the region mask."""
-    return (2 * images * regions + 2 * images * beams) * HEADS * DK * ESIZE[dtype] + images * regions
+    read once per image (not per beam; with `kv` one array, K and V), q read
+    and out written per beam row, the region mask."""
+    return ((1 if kv else 2) * images * regions + 2 * images * beams) * HEADS * DK * ESIZE[dtype] + images * regions
 
 
 def k4_bytes(n: int, vocab: int, k: int, dtype) -> int:
@@ -511,12 +565,12 @@ def smem_agrees(name: str, symbol: str, python_fn, shapes) -> bool:
     return good
 
 
-def k4_constraints(gen, n: int, vocab: int) -> dict:
+def k4_constraints(gen, n: int, vocab: int, eos_id: int = 3, unk_id: int = 1) -> dict:
     """Every K4 constraint on: a banned token a row, bad endings on ~30% of
     rows, the UNK penalty."""
     dev = torch.device("cuda")
     return dict(ban_token=torch.randint(0, vocab, (n,), generator=gen, device=dev, dtype=torch.int32),
-                ban_eos=torch.rand(n, generator=gen, device=dev) < 0.3, eos_id=3, unk_id=1)
+                ban_eos=torch.rand(n, generator=gen, device=dev) < 0.3, eos_id=eos_id, unk_id=unk_id)
 
 
 def bf16_round(x: np.ndarray) -> np.ndarray:
@@ -754,8 +808,10 @@ def check_kernels(gen, dtype, results: dict, timing: bool = True) -> bool:
             k3.grouped_cross_attention_plain(q, mk, None, mask), rms(mk))
     if dtype == torch.bfloat16:  # bit by bit: scores, their scaling, P and the output rounded as the plain version
         ok &= rounding_share("grouped_cross_attention out", out3, ref3, K3_SHARE_LIMIT, K3_FAR_LIMIT)
-        ok &= smem_agrees("grouped_cross_attention", "sct_grouped_cross_attention_smem", k3.bf16_smem,
-                          [(REGIONS, BEAM), (REGIONS, BEAM_WIDTHS[-1]), (64, 300), (REGIONS, 800)])
+        ok &= smem_agrees("grouped_cross_attention", "sct_grouped_cross_attention_smem",
+                          lambda s_, rep_, kv_: k3.bf16_smem(s_, rep_, bool(kv_)),
+                          [(REGIONS, BEAM, kv_) for kv_ in (0, 1)] + [(REGIONS, BEAM_WIDTHS[-1], 0), (64, 300, 0),
+                                                                      (64, 300, 1), (REGIONS, 800, 0), (REGIONS, 800, 1)])
     del out3, ref3
     # the SCST sampling group (15 samples an image), a wide beam (40: three
     # 16-row tiles) and 33 regions (region flags read from device memory, not
@@ -1162,6 +1218,315 @@ def check_train_kernels(gen, dtype, results: dict) -> bool:
     return ok
 
 
+def bounded_wg(gen, h: int, dtype):
+    """A wg projection (h, 64) with 4 entries of +-0.225 a head and a bias of
+    1: w_g = relu(wg . geo + 1) lies in [0.1, 1.9], away from relu's kink
+    (see check_kernels)."""
+    dev = torch.device("cuda")
+    picks = torch.rand(h, 64, generator=gen, device=dev).argsort(dim=1)[:, :4]
+    signs = torch.randint(0, 2, (h, 4), generator=gen, device=dev).float() * 2 - 1
+    return (torch.zeros(h, 64, device=dev).scatter_(1, picks, signs * 0.225).to(dtype),
+            torch.ones(h, device=dev).to(dtype))
+
+
+def check_acort_kernels(gen, dtype, results: dict, timing: bool = True) -> bool:
+    """The kv modes of K1 (eval and train variant), K7, K2 and K3 (ACORT's
+    kv-shared layers: one tensor is K and V) against their plain versions
+    called with that tensor as K and V, at ACORT-base's shapes (serving: B =
+    2048 images x beam 5, 36 regions, 8 heads of 64, a 26-slot cache; XE:
+    256 x 5 captions), element-wise, and in bf16 bit by bit
+    (`rounding_share`); each kv mode also bit-equal to the unshared kernel
+    given the one tensor twice (the same arithmetic, the rows read once), K2
+    also at the long caches (past the staged slots of its shared memory), K3
+    at the SCST group, a wide beam and 33 regions, and its shared memory
+    against the wrapper's; each with a planted fault. K4 at V = 771 (the
+    radix vocabulary: not whole 16-byte vectors, eos 770, unk 1, a digit) and
+    K13 at V = 771 over the XE rows, as in check_kernels and
+    check_norm_softmax_kernels; K14 / K15 at ACORT's XE shape (26 positions:
+    two 16-row tiles, the second part padding) with the one tensor as k and
+    v. With `timing`, the bf16 times: each kv mode, the unshared kernel on
+    the tensor passed twice, the plain version and one library call, in held
+    turns, beside the bound with the shared rows counted once."""
+    from sparse_caption_tpu_torch.kernels import ancestry_self_attention as k2
+    from sparse_caption_tpu_torch.kernels import beam_topk as k4
+    from sparse_caption_tpu_torch.kernels import box_attention as k1
+    from sparse_caption_tpu_torch.kernels import box_attention_bwd as k7
+    from sparse_caption_tpu_torch.kernels import decoder_attention as k14
+    from sparse_caption_tpu_torch.kernels import grouped_cross_attention as k3
+    from sparse_caption_tpu_torch.kernels import vocab_log_softmax as k13
+    from sparse_caption_tpu_torch.ops.attention import NEG_INF, box_relational_embedding
+
+    dev = torch.device("cuda")
+    es = ESIZE[dtype]
+    dname = str(dtype).split(".")[-1]
+    b, n, r, h, dk = BIG_BATCH, BIG_BATCH * BEAM, REGIONS, HEADS, DK
+    t_max, vocab = ACORT_LEN, ACORT_BASE["vocab_size"]
+    rnd = lambda *shape: torch.randn(*shape, generator=gen, device=dev).to(dtype)  # noqa: E731
+    turns = turns_ms if timing else no_turns
+    ok = True
+
+    def compare(name, out, ref, scale=0.0, sum_scale=0.0, fault=None):
+        """Element-wise, with the bound of the output's dtype."""
+        nonlocal ok
+        err, good, worst = close(out, ref, out.dtype, scale, sum_scale)
+        log(f"[kernel] {name} {dname}: max_abs_err={err:.3e} worst err/allowed={worst:.3f} "
+            f"median|ref|={ref.float().abs().median().item():.3e} scale={max(scale, sum_scale):.3f} "
+            f"{'ok' if good else 'FAIL'}")
+        ok &= good
+        if fault is not None:
+            ok &= fault_caught(name, fault, ref, out.dtype, scale, sum_scale)
+        return err
+
+    def same(name, a, b_):
+        nonlocal ok
+        equal = bool(torch.equal(a, b_))
+        log(f"[kernel] {name} {dname}: bit-equal to the unshared kernel given the tensor twice={equal} "
+            f"{'ok' if equal else 'FAIL'}")
+        ok &= equal
+
+    def bits(name, out, ref, share, far):
+        nonlocal ok
+        if dtype == torch.bfloat16:
+            ok &= rounding_share(name, out, ref, share, far)
+
+    def record(key, err, times, nbytes, ops, lib_note):
+        if not timing:
+            return
+        ms, unshared_ms, plain_ms, lib_ms = times
+        bnd, by = bound_ms(nbytes, ops)
+        log(f"[kernel] {key} {dname}: ms={ms:.4f} unshared_ms={unshared_ms:.4f} (the tensor passed twice) "
+            f"plain_ms={plain_ms:.4f} library_ms={lib_ms:.4f} ({lib_note}) bound_ms={bnd:.4f} ({by}, shared rows "
+            f"counted once; held windows in turns)")
+        if dtype == torch.bfloat16:
+            results[key] = dict(max_abs_err=err, ms=ms, unshared_ms=unshared_ms, plain_ms=plain_ms, library_ms=lib_ms,
+                                bound_ms=bnd, bound_by=by)
+
+    # K1 kv mode at ACORT serving: one tensor kv is K and V
+    q, kv = rnd(b, h, r, dk), rnd(b, h, r, dk)
+    boxes = random_boxes(gen, b, r, dev)
+    wg_w, wg_b = bounded_wg(gen, h, dtype)
+    mask = random_region_mask(gen, b, r, dev)
+    mask[0] = False
+    out = k1.box_attention(q, kv, None, boxes, wg_w, wg_b, mask)
+    ref = k1.box_attention_plain(q, kv, None, boxes, wg_w, wg_b, mask)
+    err = compare("box_attention kv", out, ref, rms(kv),
+                  fault=k1.box_attention_plain(q, kv, q, boxes, wg_w, wg_b, mask))  # V read from another tensor
+    same("box_attention kv", out, k1.box_attention(q, kv, kv, boxes, wg_w, wg_b, mask))
+    bits("box_attention kv out", out, ref, K1_SHARE_LIMIT, K1_FAR_LIMIT)
+    bias = k1.box_log_bias_plain(boxes, wg_w, wg_b, dtype)
+    float_mask = bias.masked_fill(~mask[:, None, None, :], NEG_INF).to(dtype).contiguous()
+    record("box_attention kv", err,
+           turns(lambda: k1.box_attention(q, kv, None, boxes, wg_w, wg_b, mask),
+                 lambda: k1.box_attention(q, kv, kv, boxes, wg_w, wg_b, mask),
+                 lambda: k1.box_attention_plain(q, kv, None, boxes, wg_w, wg_b, mask),
+                 lambda: F.scaled_dot_product_attention(q, kv, kv, attn_mask=float_mask)),
+           3 * b * h * r * dk * es + b * r * 4 * 4 + b * r + h * 65 * es,
+           flops((dtype, 4 * b * h * r * r * dk), (torch.float32, 2 * b * r * r * 64 * h)), "SDPA, float bias given")
+    del q, kv, out, ref, bias, float_mask
+
+    # K1's train variant and K7 in their kv modes at the XE throughput batch, attention dropout 0.1
+    bt = TRAIN_BIG_BATCH
+    q, kv, dout = rnd(bt, h, r, dk), rnd(bt, h, r, dk), rnd(bt, h, r, dk)
+    boxes = random_boxes(gen, bt, r, dev)
+    wg_w, wg_b = bounded_wg(gen, h, dtype)
+    mask = random_region_mask(gen, bt, r, dev)
+    mask[0] = False
+    keep = torch.rand(bt, h, r, r, generator=gen, device=dev) < 0.9
+
+    def k7_run(fn, v_of=lambda kv_: None):
+        ins = leaves(q, kv, wg_w, wg_b)
+        o = fn(ins[0], ins[1], v_of(ins[1]), boxes, ins[2], ins[3], mask, keep, 0.9)
+        return o.detach(), torch.autograd.grad(o, ins, dout)
+
+    kout, kg = k7_run(k7.box_attention_train)
+    uout, ug = k7_run(k7.box_attention_train, lambda kv_: kv_)  # the unshared kernels, autograd adds dk + dv
+    pout, pg = k7_run(k1.box_attention_plain)
+    _, fg = k7_run(k1.box_attention_plain, lambda kv_: kv_.detach())  # fault: dV left out of dKV
+    err = compare("box_attention train kv fwd", kout, pout, rms(kv))
+    err = max(err, compare("box_attention_bwd kv dq", kg[0], pg[0], pg[0].float().abs().max().item()),
+              compare("box_attention_bwd kv dkv", kg[1], pg[1], pg[1].float().abs().max().item(), fault=fg[1]))
+    for i, nm in ((2, "d wg_w"), (3, "d wg_b")):
+        err = max(err, compare(f"box_attention_bwd kv {nm}", kg[i], pg[i], sum_scale=pg[i].float().abs().max().item()))
+    same("box_attention train kv fwd", kout, uout)
+    for i, nm in enumerate(("dq", "dkv", "d wg_w", "d wg_b")):
+        same(f"box_attention_bwd kv {nm}", kg[i], ug[i])
+    bits("box_attention train kv fwd", kout, pout, K1_SHARE_LIMIT, K1_FAR_LIMIT)
+    bits("box_attention_bwd kv dq", kg[0], pg[0], K7_SHARE_LIMIT, K7_FAR_LIMIT)
+    bits("box_attention_bwd kv dkv", kg[1], pg[1], K7_SHARE_LIMIT, K7_FAR_LIMIT)
+    geo = box_relational_embedding(boxes)
+    log_bias = torch.log(torch.clamp(torch.relu(F.linear(geo.to(dtype), wg_w, wg_b)), min=1e-6)).permute(0, 3, 1, 2)
+    float_mask = log_bias.masked_fill(~mask[:, None, None, :], NEG_INF).to(dtype).contiguous()
+    graphs = []
+    for fn, v_of in ((k7.box_attention_train, lambda kv_: None), (k7.box_attention_train, lambda kv_: kv_),
+                     (k1.box_attention_plain, lambda kv_: None)):
+        ins = leaves(q, kv, wg_w, wg_b)
+        graphs.append((fn(ins[0], ins[1], v_of(ins[1]), boxes, ins[2], ins[3], mask, keep, 0.9), ins))
+    ins_l = leaves(q, kv)
+    graphs.append((F.scaled_dot_product_attention(ins_l[0], ins_l[1], ins_l[1], attn_mask=float_mask), ins_l))
+    if timing:
+        with torch.no_grad():
+            fwd = turns_ms(lambda: k7.box_attention_train(q, kv, None, boxes, wg_w, wg_b, mask, keep, 0.9),
+                           lambda: k7.box_attention_train(q, kv, kv, boxes, wg_w, wg_b, mask, keep, 0.9))
+        log(f"[kernel] box_attention train kv fwd {dname}: ms={fwd[0]:.4f} unshared_ms={fwd[1]:.4f} "
+            f"(held windows in turns)")
+    record("box_attention_bwd kv", err,
+           turns(*(lambda o=o, i=i: torch.autograd.grad(o, i, dout, retain_graph=True) for o, i in graphs)),
+           5 * bt * h * r * dk * es + bt * h * r * r + bt * r * 16 + bt * r + 2 * h * 65 * es,
+           flops((dtype, 5 * 2 * bt * h * r * r * dk), (torch.float32, 2 * 2 * bt * r * r * 64 * h)),
+           "SDPA backward, float bias given")
+    if timing and dtype == torch.bfloat16:
+        results["box_attention_bwd kv"].update(train_fwd_ms=fwd[0], train_fwd_unshared_ms=fwd[1])
+    del q, kv, dout, kg, ug, pg, fg, graphs, ins_l, keep
+
+    # K2 kv mode: one cache array, at step 5 and the last step of ACORT's 26, then the long caches
+    q = rnd(n, h, dk)
+    cache = rnd(n, h, t_max, dk)
+    anc = torch.randint(0, BEAM, (b, BEAM, t_max), generator=gen, device=dev, dtype=torch.int32)
+    for step in (5, t_max - 1):
+        anc_t = anc.clone()
+        anc_t[:, :, step] = torch.arange(BEAM, device=dev, dtype=torch.int32)
+        out2 = k2.ancestry_self_attention(q, cache, None, anc_t, step)
+        ref2 = k2.ancestry_self_attention_plain(q, cache, None, anc_t, step)
+        err = compare(f"ancestry_self_attention kv t={step}", out2, ref2, rms(cache),
+                      fault=k2.ancestry_self_attention_plain(q, cache, None, None, step))  # ancestry ignored
+        same(f"ancestry_self_attention kv t={step}", out2, k2.ancestry_self_attention(q, cache, cache, anc_t, step))
+        bits(f"ancestry_self_attention kv t={step} out", out2, ref2, K2_SHARE_LIMIT, K2_FAR_LIMIT)
+    for t_long in K2_LONG_CACHES:  # at 250 bf16 slots of 8 heads, more than the block's shared memory stages
+        nl = K2_LONG_IMAGES * BEAM
+        ql, cl = rnd(nl, h, dk), rnd(nl, h, t_long, dk)
+        ancl = torch.randint(0, BEAM, (K2_LONG_IMAGES, BEAM, t_long), generator=gen, device=dev, dtype=torch.int32)
+        for step in (40, t_long - 1):
+            out_l = k2.ancestry_self_attention(ql, cl, None, ancl, step)
+            ref_l = k2.ancestry_self_attention_plain(ql, cl, None, ancl, step)
+            compare(f"ancestry_self_attention kv T_max={t_long} t={step}", out_l, ref_l, rms(cl))
+            same(f"ancestry_self_attention kv T_max={t_long} t={step}", out_l,
+                 k2.ancestry_self_attention(ql, cl, cl, ancl, step))
+            bits(f"ancestry_self_attention kv T_max={t_long} t={step} out", out_l, ref_l, K2_SHARE_LIMIT,
+                 K2_FAR_LIMIT)
+    step = t_max - 1  # anc_t is the last step's map
+    rows = (anc_t.long() + torch.arange(b, device=dev)[:, None, None] * BEAM).reshape(n, t_max)
+    slots = torch.arange(t_max, device=dev)
+    kg_ = cache.transpose(1, 2)[rows, slots].transpose(1, 2).contiguous()  # the physically reordered cache
+    touched = torch.unique(rows * t_max + slots).numel()
+    q4 = q[:, :, None]
+    record("ancestry_self_attention kv", err,
+           turns(lambda: k2.ancestry_self_attention(q, cache, None, anc_t, step),
+                 lambda: k2.ancestry_self_attention(q, cache, cache, anc_t, step),
+                 lambda: k2.ancestry_self_attention_plain(q, cache, None, anc_t, step),
+                 lambda: F.scaled_dot_product_attention(q4, kg_, kg_)),
+           touched * h * dk * es + 2 * n * h * dk * es + n * t_max * 4,
+           flops((dtype, 4 * n * h * t_max * dk)), "SDPA on the gathered cache as K and V")
+    del q, cache, kg_, q4
+
+    # K3 kv mode: one memory array an image, read once for both products
+    q = rnd(n, h, dk)
+    mem = rnd(b, h, r, dk)
+    mask = random_region_mask(gen, b, r, dev)
+    out3 = k3.grouped_cross_attention(q, mem, None, mask)
+    ref3 = k3.grouped_cross_attention_plain(q, mem, None, mask)
+    err = compare("grouped_cross_attention kv", out3, ref3, rms(mem),
+                  fault=k3.grouped_cross_attention_plain(q, mem, None, torch.ones_like(mask)))  # padding attended
+    same("grouped_cross_attention kv", out3, k3.grouped_cross_attention(q, mem, mem, mask))
+    bits("grouped_cross_attention kv out", out3, ref3, K3_SHARE_LIMIT, K3_FAR_LIMIT)
+    for rep_, rx in ((SCST_SAMPLES, r), (BEAM_WIDTHS[-1], r), (BEAM, 33)):
+        bx = SCST_BATCHES[-1]
+        qx, mx_ = rnd(bx * rep_, h, dk), rnd(bx, h, rx, dk)
+        valid = random_region_mask(gen, bx, rx, dev)
+        valid[0] = False
+        ox = k3.grouped_cross_attention(qx, mx_, None, valid)
+        px = k3.grouped_cross_attention_plain(qx, mx_, None, valid)
+        tag = f"{bx}x{rep_}" + ("" if rx == r else f" S={rx}")
+        compare(f"grouped_cross_attention kv {tag}", ox, px, rms(mx_))
+        same(f"grouped_cross_attention kv {tag}", ox, k3.grouped_cross_attention(qx, mx_, mx_, valid))
+        bits(f"grouped_cross_attention kv {tag} out", ox, px, K3_SHARE_LIMIT, K3_FAR_LIMIT)
+    qg = q.reshape(b, BEAM, h, dk).transpose(1, 2)
+    cross_mask = torch.zeros(b, 1, 1, r, device=dev, dtype=dtype).masked_fill(~mask[:, None, None, :], NEG_INF)
+    record("grouped_cross_attention kv", err,
+           turns(lambda: k3.grouped_cross_attention(q, mem, None, mask),
+                 lambda: k3.grouped_cross_attention(q, mem, mem, mask),
+                 lambda: k3.grouped_cross_attention_plain(q, mem, None, mask),
+                 lambda: F.scaled_dot_product_attention(qg, mem, mem, attn_mask=cross_mask)),
+           k3_bytes(b, BEAM, dtype, kv=True),
+           flops((dtype, 4 * n * h * r * dk)), "SDPA, the memory as K and V")
+    del q, mem, out3, ref3, qg
+
+    # K14 / K15 at ACORT's XE shape, the one tensor as k and v (autograd adds the two gradients)
+    tq, bx = ACORT_LEN, TRAIN_BIG_BATCH
+    for kind in ("self", "cross"):
+        nx = bx * SEQ_PER_IMG
+        nk, tk = (nx, tq) if kind == "self" else (bx, r)
+        qx, kvx, dox = rnd(nx, h, tq, dk), rnd(nk, h, tk, dk), rnd(nx, h, tq, dk)
+        if kind == "self":
+            valid = torch.arange(tq, device=dev)[None] < torch.randint(2, tq + 1, (nx, 1), generator=gen, device=dev)
+        else:
+            valid = random_region_mask(gen, bx, r, dev)
+        keep = torch.rand(nx, h, tq, tk, generator=gen, device=dev) < 0.9
+
+        (ko,), kgx = fwd_bwd(lambda a_, b_: k14.decoder_attention(a_, b_, b_, valid, kind == "self", keep, 0.9),
+                             leaves(qx, kvx), dox)
+        (po,), pgx = fwd_bwd(lambda a_, b_: k14.decoder_attention_plain(a_, b_, b_, valid, kind == "self", keep, 0.9),
+                             leaves(qx, kvx), dox)
+        compare(f"decoder_attention kv {kind} T={tq}", ko, po, rms(kvx))
+        compare(f"decoder_attention_bwd kv {kind} T={tq} dq", kgx[0], pgx[0], pgx[0].float().abs().max().item())
+        compare(f"decoder_attention_bwd kv {kind} T={tq} dkv", kgx[1], pgx[1], pgx[1].float().abs().max().item())
+        bits(f"decoder_attention kv {kind} T={tq} out", ko, po, K14_SHARE_LIMIT, K14_FAR_LIMIT)
+        bits(f"decoder_attention_bwd kv {kind} T={tq} dq", kgx[0], pgx[0], K15_SHARE_LIMIT, K15_FAR_LIMIT)
+        bits(f"decoder_attention_bwd kv {kind} T={tq} dkv", kgx[1], pgx[1], K15_SHARE_LIMIT, K15_FAR_LIMIT)
+        del qx, kvx, dox, keep, ko, kgx, po, pgx
+
+    # K4 at V = 771 (the radix vocabulary), every constraint on, eos 770 and unk 1 (a digit)
+    logits = rnd(n, vocab)
+    kw = k4_constraints(gen, n, vocab, eos_id=ACORT_BASE["eos_id"], unk_id=ACORT_BASE["unk_id"])
+    logits[1] = 0
+    logits[2, : 3 * BEAM_WIDTHS[-1]] = 8
+    for row, count in enumerate(k4_midpoint_counts(vocab), start=3):
+        logits[row] = K4_MIDPOINT_TOP - 200
+        logits[row, torch.arange(count, device=dev) * (vocab // count)] = K4_MIDPOINT_TOP
+    good, err_k = check_beam_topk(logits, kw, dtype, f" V={vocab}")
+    ok &= good
+    if timing:
+        t_k, t_p, t_l = turns_ms(lambda: k4.beam_topk(logits, BEAM, **kw), lambda: k4.beam_topk_plain(logits, BEAM, **kw),
+                                 lambda: torch.topk(torch.log_softmax(logits, dim=-1), BEAM))
+        bnd, by = bound_ms(k4_bytes(n, vocab, BEAM, dtype), flops((torch.float32, 4 * n * vocab)))
+        log(f"[kernel] beam_topk V={vocab} {dname}: ms={t_k:.4f} plain_ms={t_p:.4f} library_ms={t_l:.4f} "
+            f"bound_ms={bnd:.4f} ({by}; held windows in turns)")
+        if dtype == torch.bfloat16:
+            results[f"beam_topk V={vocab}"] = dict(max_abs_err=err_k, ms=t_k, plain_ms=t_p, library_ms=t_l,
+                                                   bound_ms=bnd, bound_by=by)
+    del logits
+
+    # K13 at V = 771 over ACORT's XE rows (256 x 5 captions x 26 positions): the compute dtype, and bf16 -> f32
+    # (the ORT generator's train site); logits offset by 100 as in check_norm_softmax_kernels
+    rows13 = TRAIN_BIG_BATCH * SEQ_PER_IMG * ACORT_LEN
+    for tout in ((dtype,) if dtype == torch.float32 else (torch.bfloat16, torch.float32)):
+        x = (torch.randn(rows13, vocab, generator=gen, device=dev) * 3 + 100).to(dtype)
+        dy = torch.randn(rows13, vocab, generator=gen, device=dev).to(tout)
+        xl = leaves(x)
+
+        def run13(fn):
+            return fwd_bwd(lambda v_: fn(v_, tout), xl, dy)
+
+        (yk,), (gk,) = run13(k13.vocab_log_softmax)
+        (yp,), (gp,) = run13(k13.vocab_log_softmax_plain)
+        tag = f"V={vocab} {dname}->{str(tout).split('.')[-1]} {rows13}x{vocab}"
+        err13 = compare(f"vocab_log_softmax y {tag}", yk, yp)
+        sum_scale = yp.float().max().exp().item() * vocab ** 0.5 * rms(dy)
+        err13 = max(err13, compare(f"vocab_log_softmax_bwd dx {tag}", gk, gp, sum_scale=sum_scale))
+        if tout == torch.bfloat16:
+            bits(f"vocab_log_softmax y {tag}", yk, yp, K13_SHARE_LIMIT, K13_FAR_LIMIT)
+        if timing and dtype == torch.bfloat16 and tout == torch.float32:
+            t_k, t_p, t_l = turns_ms(lambda: run13(k13.vocab_log_softmax), lambda: run13(k13.vocab_log_softmax_plain),
+                                     lambda: fwd_bwd(lambda v_: torch.log_softmax(v_, dim=-1, dtype=tout), xl, dy))
+            bnd, by = bound_ms(k13_bytes(rows13, vocab, dtype, tout), {})
+            log(f"[kernel] vocab_log_softmax fwd+bwd {tag}: ms={t_k:.4f} plain_ms={t_p:.4f} library_ms={t_l:.4f} "
+                f"bound_ms={bnd:.4f} ({by}; held windows in turns)")
+            results[f"vocab_log_softmax V={vocab}"] = dict(max_abs_err=err13, ms=t_k, plain_ms=t_p, library_ms=t_l,
+                                                           bound_ms=bnd, bound_by=by)
+        del x, dy, xl, yk, gk, yp, gp
+    torch.cuda.empty_cache()
+    return ok
+
+
 def check_decoder_attention_kernels(gen, results: dict, timing: bool = True) -> bool:
     """K14 and K15 against the plain version with autograd: at the ORT XE
     step's shape (256 images x 5 captions) in f32 and bf16 and at the SCST
@@ -1438,7 +1803,7 @@ def caption(model, batch):
     from sparse_caption_tpu_torch.decoding import generate
 
     memory = model.encode(*batch)
-    return generate(model, memory, {"beam_size": BEAM, "max_seq_length": MAX_LEN})
+    return generate(model, memory, {"beam_size": BEAM, "max_seq_length": model.max_seq_length})
 
 
 def run_main_path(model_bf16, gen, b, expected, make=make_batch, label="main") -> dict:
@@ -1452,7 +1817,8 @@ def run_main_path(model_bf16, gen, b, expected, make=make_batch, label="main") -
     torch.cuda.synchronize()
     counts = launch_counts()
     assert counts == expected, f"launch counts {counts} != {expected}"
-    assert seq.shape == (b, BEAM, MAX_LEN) and lp.shape == (b, BEAM, MAX_LEN)
+    steps = model_bf16.max_seq_length
+    assert seq.shape == (b, BEAM, steps) and lp.shape == (b, BEAM, steps)
     assert bool(torch.isfinite(lp).all()), "non-finite log-probs"
     assert int(seq.min()) >= 0 and int(seq.max()) < model_bf16.vocab_size
     best = float("inf")
@@ -1661,7 +2027,8 @@ def make_train_step(model, precision: str, config=TRAIN_CONFIG):
     config = dict(config, train_precision=precision)
     params, masks = split_params(model)
     opt_w = build_weight_optimizer(params.values(), config, make_schedule(config, steps_per_epoch=1000))
-    opt_m = build_mask_optimizer(masks.values(), config, trainable=model.mask_cfg.mask_type in TRAINABLE_MASKS)
+    opt_m = build_mask_optimizer(masks.values(), config, trainable=model.mask_cfg is not None
+                                 and model.mask_cfg.mask_type in TRAINABLE_MASKS)
     return make_xe_step(model, opt_w, opt_m, config)
 
 
@@ -1698,7 +2065,8 @@ def run_train_phase(model, gen, b, precision, expected, config=TRAIN_CONFIG, mak
     assert state.step == TRAIN_STEPS + 1 and all(map(math.isfinite, (first, last))), (state, first, last)
     log(f"[{label}] {precision} batch {b}x{SEQ_PER_IMG}: {1 / best:.2f} steps/s ({best * 1e3:.1f} ms per step, best "
         f"window of 3); loss {first:.4f} -> {last:.4f} over {state.step} steps; mask sparsity "
-        f"{float(aux['mask_sparsity']):.4f}; peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
+        f"{float(aux.get('mask_sparsity', float('nan'))):.4f}; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
         f"launches per step {counts}")
     return counts
 
@@ -2846,6 +3214,126 @@ def run_prune_phase(gen, results: dict, expected_step: dict) -> tuple:
     return ok, counts
 
 
+# --------------------------------------------------------------- ACORT path
+def acort_tokenizer(log_dir: str):
+    """(the radix tokenizer, the run config it completed): ACORT_FLAGS over a
+    synthetic word vocabulary of ACORT_WORDS words written into `log_dir`
+    (the artifact the word tokenizer reads); the tokenizer writes the vocab
+    size and the special ids into the config, as in a training run."""
+    from sparse_caption_tpu_torch.config import Config
+    from sparse_caption_tpu_torch.tokenizers import get_tokenizer
+
+    words = ["<pad>", "<unk>", "<bos>", "<eos>"] + [f"w{i}" for i in range(ACORT_WORDS - 4)]
+    os.makedirs(os.path.join(log_dir, "tokenizer"), exist_ok=True)
+    with open(os.path.join(log_dir, "tokenizer", "word.vocab.json"), "w") as f:
+        json.dump({"model_type": "word", "vocab": words}, f)
+    config = Config(log_dir=log_dir, **ACORT_FLAGS)
+    tok = get_tokenizer(config.tokenizer)(config)
+    got = dict(vocab_size=config.vocab_size, pad_id=config.pad_token_id, bos_id=config.bos_token_id,
+               eos_id=config.eos_token_id, unk_id=1)
+    assert got == ACORT_BASE, (got, ACORT_BASE)
+    return tok, config
+
+
+def build_acort(config, seed: int, dropout: bool = True):
+    """ACORT-base in f32 on the card through the model's ``from_config``,
+    random weights from the seed (dense: the recipe prunes nothing)."""
+    from sparse_caption_tpu_torch.config import Config
+    from sparse_caption_tpu_torch.models import get_model
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    extra = {} if dropout else dict(dropout_rate=0.0)
+    if not dropout:
+        config = Config(**dict(config.to_dict(), drop_prob_src=0.0))
+    model = get_model(config.caption_model).from_config(config, device="cuda", generator=gen, **extra)
+    assert len(model.box_encoder_layers) == len(model.decoder_layers) == 2, "2 unique layers a side"
+    return model
+
+
+def build_qk_ort(seed: int, dropout: bool = True):
+    """QK_ORT in f32 on the card, random weights from the seed."""
+    from sparse_caption_tpu_torch.models import get_model
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    rates = {} if dropout else dict(dropout_rate=0.0, drop_prob_src=0.0)
+    return get_model("relation_transformer")(**QK_ORT, **rates, device="cuda", generator=gen)
+
+
+def make_acort_train_batch(gen, b, device="cuda"):
+    """ACORT's XE batch: b images x 5 captions of 27 radix tokens (BOS, then
+    random digits)."""
+    att, mask, boxes = make_batch(gen, b, torch.float32, device)
+    seqs = torch.randint(1, ACORT_BASE["bos_id"], (b * SEQ_PER_IMG, ACORT_LEN + 1), generator=gen, device=device)
+    seqs[:, 0] = ACORT_BASE["bos_id"]
+    return dict(att_feats=att, att_masks=mask, boxes=boxes, seqs=seqs,
+                seq_masks=torch.ones(b * SEQ_PER_IMG, ACORT_LEN + 1, device=device))
+
+
+def run_acort_phase(gen) -> tuple:
+    """ACORT-base: beam-5 serving in bf16 at batch 50 and 2048 with the launch
+    counts asserted (the kv modes of K1, K2 and K3; K4 at V = 771), a
+    profile at 2048, captions decoded to words, the f32 batch-8 card-vs-CPU
+    check; the dense XE step (noam, dropout on) in bf16 at 15 x 5 and 256 x
+    5 with the launch counts asserted (the kv modes of K1's train variant
+    and K7; K13 at V = 771; K14 / K15 with the one tensor as k and v) and a
+    profile at 256 x 5, the card-vs-CPU f32 step at 2 x 5; then the small qk
+    ORT's card-vs-CPU decode and step. Returns (ok, serving counts, XE
+    counts)."""
+    from sparse_caption_tpu_torch.engine.training import TrainState
+    from sparse_caption_tpu_torch.kernels import KERNELS
+
+    with tempfile.TemporaryDirectory() as log_dir:
+        tok, config = acort_tokenizer(log_dir)
+    slots, steps = ACORT_SLOTS, ACORT_LEN
+    model = build_acort(config, SEED)
+    model_bf16 = copy.deepcopy(model).to(torch.bfloat16)
+    serve = {name: 0 for name in KERNELS}
+    serve.update(box_attention_kv=slots, ancestry_self_attention_kv=slots * steps,
+                 grouped_cross_attention_kv=slots * steps, beam_topk=steps,
+                 add_ref_layernorm=(1 + 2 * slots) + steps * (1 + 3 * slots))
+    torch.cuda.reset_peak_memory_stats()
+    for b in (EVAL_BATCH, BIG_BATCH):
+        serve_counts = run_main_path(model_bf16, gen, b, serve, label="acort")
+    log(f"[acort] peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    batch = make_batch(gen, BIG_BATCH, torch.bfloat16)
+    profile_window(f"ACORT encode + decode, bf16 batch {BIG_BATCH}", lambda: caption(model_bf16, batch))
+    seq, _ = caption(model_bf16, tuple(x[:2] for x in batch))
+    log(f"[acort] captions of images 0 and 1 (random weights): {[tok.decode(seq[i, 0].tolist()) for i in range(2)]}")
+    del model_bf16, batch
+    if not whole_path_check(model, gen, label="acort whole-path"):
+        return False, None, None
+    del model
+    torch.cuda.empty_cache()
+
+    train = {name: 0 for name in KERNELS}
+    train.update(box_attention_train_kv=slots, box_attention_bwd_kv=slots,
+                 add_ref_layernorm=(1 + 2 * slots) + (1 + 3 * slots),
+                 add_ref_layernorm_bwd=(1 + 2 * slots) + (1 + 3 * slots), vocab_log_softmax=1,
+                 vocab_log_softmax_bwd=1, decoder_attention=2 * slots, decoder_attention_bwd=2 * slots)
+    train_model = build_acort(config, SEED)
+    for b in (TRAIN_BATCH, TRAIN_BIG_BATCH):
+        train_counts = run_train_phase(train_model, gen, b, "bf16", train, ACORT_CONFIG, make_acort_train_batch,
+                                       "acort train")
+    step, state = make_train_step(train_model, "bf16", ACORT_CONFIG), [TrainState()]
+    batch = make_acort_train_batch(gen, TRAIN_BIG_BATCH)
+    profile_window(f"ACORT XE step, bf16 batch {TRAIN_BIG_BATCH}x{SEQ_PER_IMG}",
+                   lambda: state.append(step(state.pop(), batch)[0]))
+    del train_model, step, state, batch
+    torch.cuda.empty_cache()
+    if not whole_step_check(SEED, gen, lambda: build_acort(config, SEED, dropout=False), make_acort_train_batch,
+                            ACORT_CONFIG, "acort whole-step"):
+        return False, None, None
+
+    # qk sharing through the unshared kernels, q's projection passed as k
+    qk = build_qk_ort(SEED)
+    good = whole_path_check(qk, gen, label="qk whole-path")
+    del qk
+    good &= whole_step_check(SEED, gen, lambda: build_qk_ort(SEED, dropout=False), make_train_batch, QK_CONFIG,
+                             "qk whole-step")
+    torch.cuda.empty_cache()
+    return good, serve_counts, train_counts
+
+
 def card_line() -> str:
     out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True)
@@ -2885,6 +3373,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     ok &= check_magnitude_kernels(torch.Generator(device="cuda").manual_seed(SEED + 16), results)
     torch.cuda.empty_cache()
+    g12 = torch.Generator(device="cuda").manual_seed(SEED + 12)
+    for dtype in (torch.float32, torch.bfloat16):
+        ok &= check_acort_kernels(g12, dtype, results)
+        torch.cuda.empty_cache()
     if not ok:
         log("[kernel] a kernel disagrees with its plain version")
         return 1
@@ -3002,19 +3494,30 @@ def main() -> int:
     if not scst_whole_step_check(SEED, gen, build_updown_scst, make_updown_batch, "updown scst-step"):
         return 1
 
+    # ACORT-base: serving and the dense XE step through the kv modes, and the qk ORT
+    good, acort_serve_counts, acort_train_counts = run_acort_phase(torch.Generator(device="cuda").manual_seed(SEED + 13))
+    if not good:
+        return 1
+
+    paths = {"serve": serve_counts, "train_step": train_counts, "scst_step": scst_counts,
+             "updown_serve": ud_serve_counts, "updown_train_step": ud_train_counts,
+             "updown_scst_step": ud_scst_counts, "prune_update": prune_counts, "acort_serve": acort_serve_counts,
+             "acort_train_step": acort_train_counts}
     kernels = []
     for name in _build.SOURCES:
         entries = [e for e, k in KERNELS.items() if k.library_name == name]
-        by_path = {"serve": sum(serve_counts[e] for e in entries), "train_step": sum(train_counts[e] for e in entries),
-                   "scst_step": sum(scst_counts[e] for e in entries),
-                   "updown_serve": sum(ud_serve_counts[e] for e in entries),
-                   "updown_train_step": sum(ud_train_counts[e] for e in entries),
-                   "updown_scst_step": sum(ud_scst_counts[e] for e in entries),
-                   "prune_update": sum(prune_counts[e] for e in entries)}
+        by_path = {path: sum(counts[e] for e in entries) for path, counts in paths.items()}
         src = _build.CSRC / f"{name}.cu"
         kernels.append(dict(name=name, route="cuda", source=str(src.relative_to(_build.CSRC.parents[2])),
                             replaces=REPLACES[name], launches=sum(by_path.values()), launches_by_path=by_path,
                             **results[name]))
+    # the kv modes and the radix vocabulary's width: their own entries, launches on ACORT's paths
+    for mode, library, entries, replaces in ACORT_MODES:
+        by_path = {path: sum(paths[path][e] for e in entries) for path in ("acort_serve", "acort_train_step")}
+        src = _build.CSRC / f"{library}.cu"
+        kernels.append(dict(name=mode, route="cuda", source=str(src.relative_to(_build.CSRC.parents[2])),
+                            replaces=replaces, launches=sum(by_path.values()), launches_by_path=by_path,
+                            **results[mode]))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -23,7 +23,9 @@ magnitude_masks (K16)           csrc/magnitude_threshold.cu         pruning/engi
 ==============================  ==================================  ======================================
 
 A wrapper given CPU tensors runs the plain version; given CUDA tensors it
-launches its kernel (built at first use, see ``_build``) or raises. K5, K6,
+launches its kernel (built at first use, see ``_build``) or raises. K1, K2,
+K3 and K7 have kv modes (``*_kv`` entry points, their own launch counts):
+an ACORT kv-shared layer passes one tensor as K and V. K5, K6,
 K1/K7, K8's apply variant, K11-K13 and K14/K15 are autograd Functions whose
 backward is a kernel too.
 """
@@ -49,14 +51,19 @@ from sparse_caption_tpu_torch.kernels._build import build_all  # noqa: F401
 KERNELS = {
     "box_attention": _k1.KERNEL,
     "box_attention_train": _k1.KERNEL_TRAIN,
+    "box_attention_kv": _k1.KERNEL_KV,
+    "box_attention_train_kv": _k1.KERNEL_TRAIN_KV,
     "ancestry_self_attention": _k2.KERNEL,
+    "ancestry_self_attention_kv": _k2.KERNEL_KV,
     "grouped_cross_attention": _k3.KERNEL,
+    "grouped_cross_attention_kv": _k3.KERNEL_KV,
     "beam_topk": _k4.KERNEL,
     "supermask": _k5.KERNEL,
     "supermask_bwd": _k5.KERNEL_BWD,
     "add_ref_layernorm": _k6.KERNEL,
     "add_ref_layernorm_bwd": _k6.KERNEL_BWD,
     "box_attention_bwd": _k7.KERNEL,
+    "box_attention_bwd_kv": _k7.KERNEL_KV,
     "keyed_keep_mask": _k8.KERNEL,
     "keyed_dropout": _k8.KERNEL_APPLY,
     "sample_step": _k9.KERNEL,

@@ -1,7 +1,10 @@
 """K1: fused ORT box-relation self-attention (``csrc/box_attention.cu``).
 
 ``box_attention`` launches the kernel for CUDA tensors and runs
-``box_attention_plain`` for CPU tensors; nothing else falls back.
+``box_attention_plain`` for CPU tensors; nothing else falls back. With
+``v=None`` (a kv-shared layer, ACORT: V is the K tensor) it launches the
+kernel's kv mode, which stages q and k and reads the k tile for both
+products.
 """
 
 from __future__ import annotations
@@ -22,6 +25,15 @@ KERNEL = _build.CudaKernel("box_attention", "sct_box_attention", [
 # the train variant: dropout keep-mask on the probabilities
 KERNEL_TRAIN = _build.CudaKernel("box_attention", "sct_box_attention_train", [
     _build.I, _build.P, _build.P, _build.P, _build.P, _build.P, _build.P, _build.P, _build.P, _build.P,
+    _build.F32, _build.P, _build.I, _build.I, _build.I, _build.F32, _build.P,
+])
+# the kv modes (V is K): the same entry points without a v
+KERNEL_KV = _build.CudaKernel("box_attention", "sct_box_attention_kv", [
+    _build.I, _build.P, _build.P, _build.P, _build.P, _build.P, _build.P, _build.P, _build.P, _build.P,
+    _build.I, _build.I, _build.I, _build.F32, _build.P,
+])
+KERNEL_TRAIN_KV = _build.CudaKernel("box_attention", "sct_box_attention_train_kv", [
+    _build.I, _build.P, _build.P, _build.P, _build.P, _build.P, _build.P, _build.P, _build.P,
     _build.F32, _build.P, _build.I, _build.I, _build.I, _build.F32, _build.P,
 ])
 DIM_G = 64
@@ -45,17 +57,20 @@ def box_log_bias_plain(boxes, wg_weight, wg_bias, dtype):
 def box_attention_plain(q, k, v, boxes, wg_weight, wg_bias, mask, keep=None, keep_prob: float = 1.0):
     """Reference math of ``BoxMultiHeadAttention`` after the q/k/v projections:
     the log-bias of ``box_log_bias_plain`` added after the -1e9 fill of padded
-    keys; ``keep`` is the training dropout on the probabilities."""
+    keys; ``keep`` is the training dropout on the probabilities; v=None reads
+    k as V (autograd then adds k's two gradients)."""
     log_wg = box_log_bias_plain(boxes, wg_weight, wg_bias, q.dtype)
-    return scaled_dot_attention(q, k, v, mask, bias=log_wg, keep=keep, keep_prob=keep_prob)
+    return scaled_dot_attention(q, k, k if v is None else v, mask, bias=log_wg, keep=keep, keep_prob=keep_prob)
 
 
 def check_args(q, k, v, boxes, wg_weight, wg_bias, mask, keep=None):
-    """Shapes, dtypes and devices of a box-attention call; returns (B, h, R, dk)."""
+    """Shapes, dtypes and devices of a box-attention call (v=None: the kv
+    mode); returns (B, h, R, dk)."""
     check_float(q, "q")
     b, h, r, dk = q.shape
     for name, t in (("k", k), ("v", v)):
-        check_tensor(t, name, (b, h, r, dk), q.dtype)
+        if t is not None or name == "k":
+            check_tensor(t, name, (b, h, r, dk), q.dtype)
     check_tensor(boxes, "boxes", (b, r, 4), torch.float32)
     check_tensor(wg_weight, "wg_weight", (h, DIM_G), q.dtype)
     check_tensor(wg_bias, "wg_bias", (h,), q.dtype)
@@ -69,7 +84,7 @@ def check_args(q, k, v, boxes, wg_weight, wg_bias, mask, keep=None):
 
 
 def box_attention(q, k, v, boxes, wg_weight, wg_bias, mask, bias_out=None):
-    """q, k, v: (B, h, R, dk) f32 or bf16; boxes: (B, R, 4) f32; wg_weight: (h, 64)
+    """q, k, v: (B, h, R, dk) f32 or bf16, v=None for V = K; boxes: (B, R, 4) f32; wg_weight: (h, 64)
     (the Linear layout of the (64, h) projection) and wg_bias: (h,) in the
     compute dtype; mask: (B, R) bool, False = padded region. Returns (B, h, R, dk).
     ``bias_out``, a (B, h, R, R) tensor in the compute dtype or None (the main
@@ -86,8 +101,10 @@ def box_attention(q, k, v, boxes, wg_weight, wg_bias, mask, bias_out=None):
         return box_attention_plain(q, k, v, boxes, wg_weight, wg_bias, mask)
     out = torch.empty_like(q)
     freq = geometry_frequencies(DIM_G, device=q.device)
-    KERNEL.launch(_build.dtype_code(q), q.data_ptr(), k.data_ptr(), v.data_ptr(), boxes.data_ptr(),
-                  wg_weight.data_ptr(), wg_bias.data_ptr(), freq.data_ptr(), mask.data_ptr(), out.data_ptr(),
-                  None if bias_out is None else bias_out.data_ptr(), b, h, r, 1.0 / math.sqrt(dk),
-                  _build.stream_handle(q))
+    tail = (boxes.data_ptr(), wg_weight.data_ptr(), wg_bias.data_ptr(), freq.data_ptr(), mask.data_ptr(),
+            out.data_ptr(), _build.ptr(bias_out), b, h, r, 1.0 / math.sqrt(dk), _build.stream_handle(q))
+    if v is None:
+        KERNEL_KV.launch(_build.dtype_code(q), q.data_ptr(), k.data_ptr(), *tail)
+    else:
+        KERNEL.launch(_build.dtype_code(q), q.data_ptr(), k.data_ptr(), v.data_ptr(), *tail)
     return out

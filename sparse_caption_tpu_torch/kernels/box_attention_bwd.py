@@ -7,7 +7,10 @@ probabilities) and its backward launches K7, which recomputes the
 probabilities with K1's arithmetic and
 which returns dq, dk, dv and the gradients of the ``wg`` projection; for
 CPU tensors it runs ``box_attention_plain``, whose autograd gives the same
-gradients. Nothing else falls back.
+gradients. Nothing else falls back. With ``v=None`` (a kv-shared layer,
+ACORT) both launch their kv modes: V is the K tensor, and K7 returns one
+gradient for it, dK and dV each rounded to the compute dtype and then added
+there, as the plain version's autograd adds the two uses of k.
 """
 
 from __future__ import annotations
@@ -18,7 +21,13 @@ from typing import Optional
 import torch
 
 from sparse_caption_tpu_torch.kernels import _build
-from sparse_caption_tpu_torch.kernels.box_attention import DIM_G, KERNEL_TRAIN, box_attention_plain, check_args
+from sparse_caption_tpu_torch.kernels.box_attention import (
+    DIM_G,
+    KERNEL_TRAIN,
+    KERNEL_TRAIN_KV,
+    box_attention_plain,
+    check_args,
+)
 from sparse_caption_tpu_torch.ops.attention import geometry_frequencies
 from sparse_caption_tpu_torch.ops.keep import keep_divisor
 
@@ -26,6 +35,12 @@ HEAD_GROUP = 4  # heads per block of the kernel (csrc/box_attention_bwd.cu kGrou
 KERNEL = _build.CudaKernel("box_attention_bwd", "sct_box_attention_bwd", [
     _build.I, _build.P, _build.P, _build.P, _build.P, _build.P, _build.P, _build.P, _build.P, _build.P, _build.P,
     _build.F32, _build.P, _build.P, _build.P, _build.P, _build.P, _build.P,
+    _build.I, _build.I, _build.I, _build.F32, _build.P,
+])
+# the kv mode: no v in, one gradient dkv out
+KERNEL_KV = _build.CudaKernel("box_attention_bwd", "sct_box_attention_bwd_kv", [
+    _build.I, _build.P, _build.P, _build.P, _build.P, _build.P, _build.P, _build.P, _build.P, _build.P,
+    _build.F32, _build.P, _build.P, _build.P, _build.P, _build.P,
     _build.I, _build.I, _build.I, _build.F32, _build.P,
 ])
 
@@ -36,10 +51,12 @@ class _BoxAttentionFn(torch.autograd.Function):
         b, h, r, dk = q.shape
         out = torch.empty_like(q)
         freq = geometry_frequencies(DIM_G, device=q.device)
-        KERNEL_TRAIN.launch(_build.dtype_code(q), q.data_ptr(), k.data_ptr(), v.data_ptr(), boxes.data_ptr(),
-                            wg_weight.data_ptr(), wg_bias.data_ptr(), freq.data_ptr(), mask.data_ptr(),
-                            _build.ptr(keep), keep_prob, out.data_ptr(), b, h, r, 1.0 / math.sqrt(dk),
-                            _build.stream_handle(q))
+        tail = (boxes.data_ptr(), wg_weight.data_ptr(), wg_bias.data_ptr(), freq.data_ptr(), mask.data_ptr(),
+                _build.ptr(keep), keep_prob, out.data_ptr(), b, h, r, 1.0 / math.sqrt(dk), _build.stream_handle(q))
+        if v is None:
+            KERNEL_TRAIN_KV.launch(_build.dtype_code(q), q.data_ptr(), k.data_ptr(), *tail)
+        else:
+            KERNEL_TRAIN.launch(_build.dtype_code(q), q.data_ptr(), k.data_ptr(), v.data_ptr(), *tail)
         ctx.keep_prob = keep_prob
         ctx.save_for_backward(q, k, v, boxes, wg_weight, wg_bias, mask, keep, freq)
         return out
@@ -49,21 +66,26 @@ class _BoxAttentionFn(torch.autograd.Function):
         q, k, v, boxes, wg_weight, wg_bias, mask, keep, freq = ctx.saved_tensors
         b, h, r, dk = q.shape
         dout = dout.contiguous()
-        dq, dk_, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+        dq, dk_ = torch.empty_like(q), torch.empty_like(k)
         dwg_w, dwg_b = torch.empty_like(wg_weight), torch.empty_like(wg_bias)
         # per-(image, head group) d wg partials, summed by the kernel's second pass in a fixed order
         partial = torch.empty(b, -(-h // HEAD_GROUP), h, DIM_G + 1, device=q.device, dtype=torch.float32)
-        KERNEL.launch(_build.dtype_code(q), q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                      dout.data_ptr(), boxes.data_ptr(), wg_weight.data_ptr(), wg_bias.data_ptr(),
-                      freq.data_ptr(), mask.data_ptr(), _build.ptr(keep), ctx.keep_prob, dq.data_ptr(),
-                      dk_.data_ptr(), dv.data_ptr(), dwg_w.data_ptr(), dwg_b.data_ptr(), partial.data_ptr(),
-                      b, h, r, 1.0 / math.sqrt(dk), _build.stream_handle(q))
+        inputs = (dout.data_ptr(), boxes.data_ptr(), wg_weight.data_ptr(), wg_bias.data_ptr(), freq.data_ptr(),
+                  mask.data_ptr(), _build.ptr(keep), ctx.keep_prob, dq.data_ptr(), dk_.data_ptr())
+        tail = (dwg_w.data_ptr(), dwg_b.data_ptr(), partial.data_ptr(), b, h, r, 1.0 / math.sqrt(dk),
+                _build.stream_handle(q))
+        if v is None:  # dk_ is d(k as K) + d(k as V)
+            KERNEL_KV.launch(_build.dtype_code(q), q.data_ptr(), k.data_ptr(), *inputs, *tail)
+            return dq, dk_, None, None, dwg_w, dwg_b, None, None, None
+        dv = torch.empty_like(v)
+        KERNEL.launch(_build.dtype_code(q), q.data_ptr(), k.data_ptr(), v.data_ptr(), *inputs, dv.data_ptr(), *tail)
         return dq, dk_, dv, None, dwg_w, dwg_b, None, None, None
 
 
 def box_attention_train(q, k, v, boxes, wg_weight, wg_bias, mask, keep: Optional[torch.Tensor] = None,
                         keep_prob: float = 1.0):
-    """``box_attention`` with gradients for q, k, v, wg_weight and wg_bias, and
+    """``box_attention`` with gradients for q, k, v (v=None: V is k, the kv
+    mode), wg_weight and wg_bias, and
     the training dropout: keep (B, h, R, R) bool, kept probabilities scaled
     by 1 / keep_prob (None: no dropout)."""
     check_args(q, k, v, boxes, wg_weight, wg_bias, mask, keep)

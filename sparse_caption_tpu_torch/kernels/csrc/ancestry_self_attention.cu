@@ -30,15 +30,28 @@
 // sum rounded to T; the output sums p v in f32 and rounds once. The row's
 // scores and weights stay in registers; nothing but q, the touched cache
 // slots and out moves.
+//
+// kv mode (sct_ancestry_self_attention_kv; ACORT's kv-shared layers, whose
+// cache holds one array that is both K and V): the value pass reads the same
+// cache rows as the key pass, which the key pass has just brought into the
+// SM's L1 (the kernel takes no shared memory, so L1 keeps its largest
+// carveout) or L2: each cached slot comes from memory once. Bytes at ACORT
+// serving (B = 2048, beam 5, 8 heads, step t): (t + 1) x 10.5 MB instead of
+// (t + 1) x 21 MB. Keeping the rows in shared memory between the passes was
+// slower on an H100 (bf16, B = 2048, 26 slots, last step: 0.1908 ms
+// against 0.1811 for the re-read; f32 0.2616 against 0.1995): the staging
+// shrinks L1, and the stores cost more than the re-read's hits.
 #include "common.cuh"
 
 namespace sct {
 
+// cache_v == nullptr: the kv mode, V read from the K cache
 template <typename T, int S>
 __global__ void ancestry_self_attention_kernel(const T* __restrict__ q, const T* __restrict__ cache_k,
                                                const T* __restrict__ cache_v, const int* __restrict__ anc,
                                                T* __restrict__ out, int H, int t_max, int K, int t,
                                                float scale) {
+  const T* __restrict__ vals = cache_v != nullptr ? cache_v : cache_k;
   const int n = blockIdx.x, h = threadIdx.x / 32, lane = threadIdx.x & 31;
   const size_t qo = ((size_t)n * H + h) * kHeadDim + 2 * lane;
   const float2 qv = load2(q + qo);
@@ -84,7 +97,7 @@ __global__ void ancestry_self_attention_kernel(const T* __restrict__ q, const T*
       const int s = j * 32 + l;
       const int r = __shfl_sync(0xffffffffu, my_row[j], l);
       const float ps = __shfl_sync(0xffffffffu, p[j], l);
-      const float2 vv = load2(cache_v + (size_t)r * H * t_max * kHeadDim + head + (size_t)s * kHeadDim);
+      const float2 vv = load2(vals + (size_t)r * H * t_max * kHeadDim + head + (size_t)s * kHeadDim);
       acc.x += ps * vv.x;
       acc.y += ps * vv.y;
     }
@@ -120,12 +133,23 @@ cudaError_t dispatch(const void* q, const void* ck, const void* cv, const void* 
 extern "C" int sct_ancestry_self_attention(int dtype, const void* q, const void* cache_k, const void* cache_v,
                                            const void* anc, void* out, int N, int H, int t_max, int K, int t,
                                            float scale, void* stream) {
-  if (H < 1 || H > 32 || K < 1 || N % K != 0 || t < 0 || t >= t_max || t_max > 1024)
+  if (H < 1 || H > 32 || K < 1 || N % K != 0 || t < 0 || t >= t_max || t_max > 1024 || cache_v == nullptr)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return (int)sct::dispatch<float>(q, cache_k, cache_v, anc, out, N, H, t_max, K, t, scale, s);
   if (dtype == 1)
     return (int)sct::dispatch<__nv_bfloat16>(q, cache_k, cache_v, anc, out, N, H, t_max, K, t, scale, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// kv mode: cache (N, H, T_max, 64) is both K and V.
+extern "C" int sct_ancestry_self_attention_kv(int dtype, const void* q, const void* cache, const void* anc, void* out,
+                                              int N, int H, int t_max, int K, int t, float scale, void* stream) {
+  if (H < 1 || H > 32 || K < 1 || N % K != 0 || t < 0 || t >= t_max || t_max > 1024)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) return (int)sct::dispatch<float>(q, cache, nullptr, anc, out, N, H, t_max, K, t, scale, s);
+  if (dtype == 1) return (int)sct::dispatch<__nv_bfloat16>(q, cache, nullptr, anc, out, N, H, t_max, K, t, scale, s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -46,7 +46,8 @@
 //   64-row warpgroup tile would fill, and the kernel is bound by bytes and
 //   trig, not by the tensor cores. Shared memory per block at R = 36, h = 8:
 //   46.8 KB of staged tiles + 20.7 KB of bias + 1 KB = 69 KB, so three
-//   blocks (24 warps) per SM, as the registers (80 a thread) allow.
+//   blocks (24 warps) per SM, as the registers (80 a thread, held to 85 by
+//   the launch bounds) allow.
 // In f32 (the SCST path; TF32 is never used), one block of 8 warps per
 // image on the CUDA cores with exact f32 FMAs. The geometry is computed pair
 // by pair (box_geometry.cuh pair_wg); then, head by head, each warp takes 4
@@ -61,6 +62,14 @@
 // arithmetic, so nothing else is saved.
 // Check output (bias_out of sct_box_attention, null on the main path): the
 // (B, h, R, R) log-bias in T.
+//
+// kv mode (sct_box_attention_kv, sct_box_attention_train_kv; ACORT's
+// kv-shared encoder layers, where V is the K tensor): the bf16 kernel stages
+// q and k of each head (2 tiles a stage instead of 3) and feeds the k tile
+// to both products, S = QK^T and O = PV (V's B fragments by ldmatrix.trans
+// from the k rows); the f32 kernel stages k once and reads its rows as V.
+// Bytes at ACORT's serving shape (B = 2048, 8 heads, R = 36): 226 MB instead
+// of 302.
 #include "box_geometry.cuh"
 
 namespace sct {
@@ -75,10 +84,11 @@ constexpr int kLd = kHeadDim + 8;  // staged row stride in bf16 (144 B)
 
 inline int padded_rows(int R) { return 16 * ((R + 15) / 16); }
 
-// dynamic shared memory: 2 mbarriers per head | kStages x (q, k, v) x R rows |
-// a zero row (every padded row reads it) | bias | boxes | wg_b | mask
-inline size_t mma_smem_bytes(int H, int R) {
-  const size_t tiles = (kStages * 3 * (size_t)R + 1) * kLd * sizeof(bf16);
+// dynamic shared memory: 2 mbarriers per head | kStages x (q, k, v) x R rows
+// ((q, k) in the kv mode) | a zero row (every padded row reads it) | bias |
+// boxes | wg_b | mask
+inline size_t mma_smem_bytes(int H, int R, bool kv) {
+  const size_t tiles = (kStages * (kv ? 2 : 3) * (size_t)R + 1) * kLd * sizeof(bf16);
   const size_t bias = (((size_t)H * R * R + 7) / 8) * 8 * sizeof(bf16);
   return 2 * kMaxHeads * sizeof(uint64_t) + tiles + bias + (size_t)R * 4 * sizeof(float) +
          kMaxHeads * sizeof(float) + R;
@@ -206,8 +216,10 @@ __device__ __forceinline__ void attend_tile_bf16(bf16* qs, const bf16* ks, const
   }
 }
 
-template <int RP>
-__global__ void __launch_bounds__(kMmaThreads)
+// three blocks an SM: at most 85 registers a thread (the kv mode took 91,
+// and two blocks an SM, when left free)
+template <int RP, bool KV>
+__global__ void __launch_bounds__(kMmaThreads, 3)
 box_attention_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
                          const float* __restrict__ boxes, const bf16* __restrict__ wg_w,
                          const bf16* __restrict__ wg_b, const float* __restrict__ freq,
@@ -217,16 +229,18 @@ box_attention_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   extern __shared__ __align__(128) unsigned char smem[];
   uint64_t* full = reinterpret_cast<uint64_t*>(smem);  // per head: its tiles have landed
   uint64_t* empty = full + kMaxHeads;                  // per head: its query tiles are done
+  constexpr int NT = KV ? 2 : 3;  // tiles a stage: q, k and, but in the kv mode, v
   bf16* tiles = reinterpret_cast<bf16*>(empty + kMaxHeads);  // [stage][q, k, v][R][kLd]
   const int P = R * R, MT = RP / 16;
-  bf16* zero = tiles + kStages * 3 * R * kLd;  // kLd zeros
+  bf16* zero = tiles + kStages * NT * R * kLd;  // kLd zeros
   bf16* bias_s = zero + kLd;             // [H][R][R]
   float* box_s = reinterpret_cast<float*>(bias_s + ((H * P + 7) / 8) * 8);
   float* wb_s = box_s + R * 4;
   unsigned char* mask_s = reinterpret_cast<unsigned char*>(wb_s + kMaxHeads);
   const int warp = threadIdx.x / 32, lane = threadIdx.x & 31, t = lane & 3, g = lane >> 2;
   const int b = blockIdx.x;
-  auto tile = [&](int stage, int which) { return tiles + (stage * 3 + which) * R * kLd; };
+  // tile 2, V, is the k tile in the kv mode
+  auto tile = [&](int stage, int which) { return tiles + (stage * NT + (which < NT ? which : 1)) * R * kLd; };
 
   if (threadIdx.x == 0) {
     for (int h = 0; h < H; ++h) {
@@ -242,15 +256,15 @@ box_attention_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   __syncthreads();
 
   const size_t head_elems = (size_t)R * kHeadDim;
-  auto load_head = [&](int h) {  // one warp: head h's q, k, v into stage h % kStages, one copy per row
+  auto load_head = [&](int h) {  // one warp: head h's q, k, v (q, k) into stage h % kStages, one copy per row
     const int s = h % kStages;
-    if (lane == 0) mbar_arrive_expect_tx(&full[h], 3u * R * kHeadDim * sizeof(bf16));
+    if (lane == 0) mbar_arrive_expect_tx(&full[h], (unsigned)NT * R * kHeadDim * sizeof(bf16));
     __syncwarp();
     const size_t base = ((size_t)b * H + h) * head_elems;
     for (int r = lane; r < R; r += 32) {
       tma_load_1d(tile(s, 0) + r * kLd, q + base + r * kHeadDim, kHeadDim * sizeof(bf16), &full[h]);
       tma_load_1d(tile(s, 1) + r * kLd, k + base + r * kHeadDim, kHeadDim * sizeof(bf16), &full[h]);
-      tma_load_1d(tile(s, 2) + r * kLd, v + base + r * kHeadDim, kHeadDim * sizeof(bf16), &full[h]);
+      if (!KV) tma_load_1d(tile(s, 2) + r * kLd, v + base + r * kHeadDim, kHeadDim * sizeof(bf16), &full[h]);
     }
   };
   if (warp < kStages && warp < H) load_head(warp);
@@ -308,12 +322,13 @@ constexpr int kKeyLd = kHeadDim + 4;     // f32 key row stride: 128-bit loads of
 // the f32 bias region, rounded up so that the tiles after it take 16-byte loads
 __host__ __device__ inline int bias_floats(int H, int R) { return ((H * R * R + 3) / 4) * 4; }
 
-inline size_t f32_smem_bytes(int H, int R) {
-  const size_t floats = bias_floats(H, R) + (size_t)R * kKeyLd + 2 * (size_t)R * kHeadDim +
+inline size_t f32_smem_bytes(int H, int R, bool kv) {
+  const size_t floats = bias_floats(H, R) + (size_t)R * kKeyLd + (kv ? 1 : 2) * (size_t)R * kHeadDim +
                         (size_t)kF32Warps * 64 * kRowsPerWarp + (size_t)R * 4 + (size_t)H * 64 + H + kFreqs;
   return floats * sizeof(float) + R;
 }
 
+template <bool KV>
 __global__ void __launch_bounds__(kF32Threads)
 box_attention_f32_kernel(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
                          const float* __restrict__ boxes, const float* __restrict__ wg_w,
@@ -326,8 +341,9 @@ box_attention_f32_kernel(const float* __restrict__ q, const float* __restrict__ 
   float* bias_s = smem_f;                  // H * R * R
   float* q_s = bias_s + bias_floats(H, R);  // R * 64
   float* k_s = q_s + R * kHeadDim;         // R * kKeyLd
-  float* v_s = k_s + R * kKeyLd;           // R * 64
-  float* p_s = v_s + R * kHeadDim;         // per warp 64 keys x 4 rows
+  float* v_s = KV ? k_s : k_s + R * kKeyLd;  // R * 64; the key tile in the kv mode
+  constexpr int vld = KV ? kKeyLd : kHeadDim;  // its row stride
+  float* p_s = k_s + R * kKeyLd + (KV ? 0 : R * kHeadDim);  // per warp 64 keys x 4 rows
   float* box_s = p_s + kF32Warps * 64 * kRowsPerWarp;
   float* w_s = box_s + R * 4;              // H * 64
   float* wb_s = w_s + H * 64;              // H
@@ -363,10 +379,9 @@ box_attention_f32_kernel(const float* __restrict__ q, const float* __restrict__ 
       const int r = e / (kHeadDim / 4), c = 4 * (e % (kHeadDim / 4));
       const float4 qv = *reinterpret_cast<const float4*>(q + base + r * kHeadDim + c);
       const float4 kv = *reinterpret_cast<const float4*>(k + base + r * kHeadDim + c);
-      const float4 vv = *reinterpret_cast<const float4*>(v + base + r * kHeadDim + c);
       *reinterpret_cast<float4*>(q_s + r * kHeadDim + c) = qv;
       *reinterpret_cast<float4*>(k_s + r * kKeyLd + c) = kv;
-      *reinterpret_cast<float4*>(v_s + r * kHeadDim + c) = vv;
+      if (!KV) *reinterpret_cast<float4*>(v_s + r * kHeadDim + c) = *reinterpret_cast<const float4*>(v + base + r * kHeadDim + c);
     }
     __syncthreads();
     const float* bias_h = bias_s + hh * R * R;
@@ -426,7 +441,7 @@ box_attention_f32_kernel(const float* __restrict__ q, const float* __restrict__ 
       for (int r = 0; r < kRowsPerWarp; ++r) o[r] = make_float2(0.f, 0.f);
       for (int j = 0; j < R; ++j) {
         const float4 pj = *reinterpret_cast<const float4*>(pw + j * kRowsPerWarp);  // broadcast: 4 rows' p
-        const float2 vv = *reinterpret_cast<const float2*>(v_s + j * kHeadDim + 2 * lane);
+        const float2 vv = *reinterpret_cast<const float2*>(v_s + j * vld + 2 * lane);
         const float pr[4] = {pj.x, pj.y, pj.z, pj.w};
 #pragma unroll
         for (int r = 0; r < kRowsPerWarp; ++r) {
@@ -443,6 +458,7 @@ box_attention_f32_kernel(const float* __restrict__ q, const float* __restrict__ 
   }
 }
 
+template <bool KV>
 int dispatch(int dtype, const void* q, const void* k, const void* v, const void* boxes, const void* wg_w,
              const void* wg_b, const void* freq, const void* mask, const void* keep, float keep_prob, void* out,
              void* bias_out, int B, int H, int R, float scale, void* stream) {
@@ -451,12 +467,12 @@ int dispatch(int dtype, const void* q, const void* k, const void* v, const void*
   const unsigned char* mk = static_cast<const unsigned char*>(mask);
   const unsigned char* kp = static_cast<const unsigned char*>(keep);
   if (dtype == 0) {
-    const size_t smem = f32_smem_bytes(H, R);
+    const size_t smem = f32_smem_bytes(H, R, KV);
     if (smem > 232448) return (int)cudaErrorInvalidValue;
-    cudaError_t err = cudaFuncSetAttribute(box_attention_f32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+    cudaError_t err = cudaFuncSetAttribute(box_attention_f32_kernel<KV>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                            (int)smem);
     if (err != cudaSuccess) return (int)err;
-    box_attention_f32_kernel<<<B, kF32Threads, smem, s>>>(
+    box_attention_f32_kernel<KV><<<B, kF32Threads, smem, s>>>(
         static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
         static_cast<const float*>(boxes), static_cast<const float*>(wg_w), static_cast<const float*>(wg_b),
         static_cast<const float*>(freq), mk, kp, keep_prob, static_cast<float*>(out), static_cast<float*>(bias_out),
@@ -464,13 +480,13 @@ int dispatch(int dtype, const void* q, const void* k, const void* v, const void*
     return (int)cudaGetLastError();
   }
   if (dtype != 1) return (int)cudaErrorInvalidValue;
-  const size_t smem = mma_smem_bytes(H, R);
+  const size_t smem = mma_smem_bytes(H, R, KV);
   if (smem > 232448) return (int)cudaErrorInvalidValue;
   const int rp = padded_rows(R);
-  auto kernel = rp == 16 ? box_attention_mma_kernel<16>
-                : rp == 32 ? box_attention_mma_kernel<32>
-                : rp == 48 ? box_attention_mma_kernel<48>
-                           : box_attention_mma_kernel<64>;
+  auto kernel = rp == 16 ? box_attention_mma_kernel<16, KV>
+                : rp == 32 ? box_attention_mma_kernel<32, KV>
+                : rp == 48 ? box_attention_mma_kernel<48, KV>
+                           : box_attention_mma_kernel<64, KV>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   kernel<<<B, kMmaThreads, smem, s>>>(static_cast<const bf16*>(q), static_cast<const bf16*>(k),
@@ -489,8 +505,8 @@ int dispatch(int dtype, const void* q, const void* k, const void* v, const void*
 extern "C" int sct_box_attention(int dtype, const void* q, const void* k, const void* v, const void* boxes,
                                  const void* wg_w, const void* wg_b, const void* freq, const void* mask,
                                  void* out, void* bias_out, int B, int H, int R, float scale, void* stream) {
-  return sct::dispatch(dtype, q, k, v, boxes, wg_w, wg_b, freq, mask, nullptr, 1.f, out, bias_out, B, H, R, scale,
-                       stream);
+  return sct::dispatch<false>(dtype, q, k, v, boxes, wg_w, wg_b, freq, mask, nullptr, 1.f, out, bias_out, B, H, R,
+                              scale, stream);
 }
 
 // Train variant: as above, plus keep (B, H, R, R) bool or null (no dropout)
@@ -499,8 +515,24 @@ extern "C" int sct_box_attention_train(int dtype, const void* q, const void* k, 
                                        const void* wg_w, const void* wg_b, const void* freq, const void* mask,
                                        const void* keep, float keep_prob, void* out, int B, int H, int R,
                                        float scale, void* stream) {
-  return sct::dispatch(dtype, q, k, v, boxes, wg_w, wg_b, freq, mask, keep, keep_prob, out, nullptr, B, H, R, scale,
-                       stream);
+  return sct::dispatch<false>(dtype, q, k, v, boxes, wg_w, wg_b, freq, mask, keep, keep_prob, out, nullptr, B, H, R,
+                              scale, stream);
+}
+
+// kv modes of both: k (B, H, R, 64) is also V.
+extern "C" int sct_box_attention_kv(int dtype, const void* q, const void* k, const void* boxes, const void* wg_w,
+                                    const void* wg_b, const void* freq, const void* mask, void* out, void* bias_out,
+                                    int B, int H, int R, float scale, void* stream) {
+  return sct::dispatch<true>(dtype, q, k, k, boxes, wg_w, wg_b, freq, mask, nullptr, 1.f, out, bias_out, B, H, R,
+                             scale, stream);
+}
+
+extern "C" int sct_box_attention_train_kv(int dtype, const void* q, const void* k, const void* boxes,
+                                          const void* wg_w, const void* wg_b, const void* freq, const void* mask,
+                                          const void* keep, float keep_prob, void* out, int B, int H, int R,
+                                          float scale, void* stream) {
+  return sct::dispatch<true>(dtype, q, k, k, boxes, wg_w, wg_b, freq, mask, keep, keep_prob, out, nullptr, B, H, R,
+                             scale, stream);
 }
 
 extern "C" const char* sct_error_string(int err) { return cudaGetErrorString(static_cast<cudaError_t>(err)); }

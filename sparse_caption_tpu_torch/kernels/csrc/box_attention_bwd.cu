@@ -63,6 +63,13 @@
 // 128-bit loads for the 4 rows, softmax, dS, dz, dq) and then 4 key rows (dk,
 // dv, each q and dO pair read once for the 4 rows), and the d wg partials
 // come from the trig recomputed one (coordinate, frequency) per lane.
+//
+// kv mode (sct_box_attention_bwd_kv; ACORT's kv-shared encoder layers, V is
+// the K tensor): the stages hold q, k and dO (3 tiles instead of 4), the k
+// tile serves as V in dP = dO V^T, and the key side writes one gradient,
+// dKV = round(round(dK) + round(dV)): the plain version's autograd rounds
+// each use's product to T and then adds the two in T (in f32, dK + dV).
+// Adding in f32 and rounding once differs in the last bit.
 #include <cooperative_groups.h>
 
 #include "box_geometry.cuh"
@@ -86,10 +93,10 @@ inline int padded_rows(int R) { return 16 * ((R + 15) / 16); }
 // P~^T (RP x (RP + 8) bf16 each) | boxes | wg_b | mask; at the end the fold of
 // the d wg partials (kBwdWarps x kMaxHeads x 72 f32) reuses it from the stages
 // on, so at small R it sets the size
-inline size_t bwd_mma_smem_bytes(int R) {
+inline size_t bwd_mma_smem_bytes(int R, bool kv) {
   const int rp = padded_rows(R);
   const size_t bars = 3 * kGroupHeads * sizeof(uint64_t);
-  const size_t parts = (2 * 4 * (size_t)R + 1) * kLd * sizeof(bf16) +
+  const size_t parts = (2 * (kv ? 3 : 4) * (size_t)R + 1) * kLd * sizeof(bf16) +
                        ((kGroupHeads * (size_t)R * R + 7) / 8) * 8 * sizeof(bf16) +
                        2 * 2 * (size_t)rp * (rp + 8) * sizeof(bf16) + (size_t)R * 4 * sizeof(float) +
                        kMaxHeads * sizeof(float) + R;
@@ -255,8 +262,9 @@ __device__ __forceinline__ void query_tile_bf16(const bf16* qs, const bf16* ks, 
   store_rows_bf16(qacc, dq_h, 16 * mt, R);
 }
 
-// key side of one head for key tile mk: dK = dS^T Q and dV = P~^T dO
-template <int RP>
+// key side of one head for key tile mk: dK = dS^T Q and dV = P~^T dO (the kv
+// mode: their sum, each rounded first, into dk_h)
+template <int RP, bool KV>
 __device__ __forceinline__ void key_tile_bf16(const bf16* qs, const bf16* dos, const bf16* zero, const bf16* dsT,
                                               const bf16* pT, bf16* __restrict__ dk_h, bf16* __restrict__ dv_h, int R,
                                               int mk) {
@@ -290,11 +298,20 @@ __device__ __forceinline__ void key_tile_bf16(const bf16* qs, const bf16* dos, c
       mma_bf16(vacc[2 * jn + 1], ap, bd1);
     }
   }
+  if (KV) {
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) kacc[nt][e] = round_to<bf16>(round_to<bf16>(kacc[nt][e]) + round_to<bf16>(vacc[nt][e]));
+    }
+    store_rows_bf16(kacc, dk_h, 16 * mk, R);
+    return;
+  }
   store_rows_bf16(kacc, dk_h, 16 * mk, R);
   store_rows_bf16(vacc, dv_h, 16 * mk, R);
 }
 
-template <int RP>
+template <int RP, bool KV>
 __global__ void __launch_bounds__(kBwdThreads)
 box_attention_bwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
                              const bf16* __restrict__ dout, const float* __restrict__ boxes,
@@ -308,9 +325,10 @@ box_attention_bwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict_
   uint64_t* full = reinterpret_cast<uint64_t*>(smem);  // per group head: its tiles have landed
   uint64_t* qdone = full + kGroupHeads;                // its query tiles are done (dS^T, P~^T written)
   uint64_t* kdone = qdone + kGroupHeads;               // its key tiles are done (the stage is free)
+  constexpr int NT = KV ? 3 : 4;  // tiles a stage: q, k, v (not in the kv mode), dO
   bf16* tiles = reinterpret_cast<bf16*>(kdone + kGroupHeads);  // [stage][q, k, v, dO][R][kLd]
   const int P = R * R;
-  bf16* zero = tiles + 2 * 4 * R * kLd;
+  bf16* zero = tiles + 2 * NT * R * kLd;
   bf16* wz_s = zero + kLd;  // [group head][P]: w_g, then dz
   bf16* ds_s = wz_s + ((kGroupHeads * P + 7) / 8) * 8;  // [stage][dS^T, P~^T][RP][LDT]
   float* box_s = reinterpret_cast<float*>(ds_s + 2 * 2 * RP * LDT);
@@ -320,7 +338,10 @@ box_attention_bwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict_
   cg::cluster_group cluster = cg::this_cluster();  // the image's head groups, rank = blockIdx.y
   const int rank = (int)cluster.block_rank(), groups = (int)cluster.num_blocks();
   const int b = blockIdx.x, h0 = kGroupHeads * rank, G = min(kGroupHeads, H - h0);
-  auto tile = [&](int stage, int which) { return tiles + (stage * 4 + which) * R * kLd; };
+  // which: 0 q, 1 k, 2 v, 3 dO; the kv mode reads the k tile as v
+  auto tile = [&](int stage, int which) {
+    return tiles + (stage * NT + (!KV ? which : which == 3 ? 2 : which == 2 ? 1 : which)) * R * kLd;
+  };
 
   if (threadIdx.x == 0) {
     for (int hl = 0; hl < G; ++hl) {
@@ -338,15 +359,15 @@ box_attention_bwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict_
   cluster.sync();  // every block of the image has started: its shared memory may be written
 
   const size_t head_elems = (size_t)R * kHeadDim;
-  auto load_head = [&](int hl) {  // one warp: head h0 + hl's q, k, v, dO into stage hl % 2
+  auto load_head = [&](int hl) {  // one warp: head h0 + hl's q, k, v (not in the kv mode), dO into stage hl % 2
     const int s = hl & 1;
-    if (lane == 0) mbar_arrive_expect_tx(&full[hl], 4u * R * kHeadDim * sizeof(bf16));
+    if (lane == 0) mbar_arrive_expect_tx(&full[hl], (unsigned)NT * R * kHeadDim * sizeof(bf16));
     __syncwarp();
     const size_t base = ((size_t)b * H + h0 + hl) * head_elems;
     for (int r = lane; r < R; r += 32) {
       tma_load_1d(tile(s, 0) + r * kLd, q + base + r * kHeadDim, kHeadDim * sizeof(bf16), &full[hl]);
       tma_load_1d(tile(s, 1) + r * kLd, k + base + r * kHeadDim, kHeadDim * sizeof(bf16), &full[hl]);
-      tma_load_1d(tile(s, 2) + r * kLd, v + base + r * kHeadDim, kHeadDim * sizeof(bf16), &full[hl]);
+      if (!KV) tma_load_1d(tile(s, 2) + r * kLd, v + base + r * kHeadDim, kHeadDim * sizeof(bf16), &full[hl]);
       tma_load_1d(tile(s, 3) + r * kLd, dout + base + r * kHeadDim, kHeadDim * sizeof(bf16), &full[hl]);
     }
   };
@@ -394,8 +415,8 @@ box_attention_bwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict_
       if (lane == 0) mbar_arrive(&qdone[hl]);
     } else {
       mbar_wait(&qdone[hl], 0);
-      key_tile_bf16<RP>(tile(s, 0), tile(s, 3), zero, dsT, pT, dk + row0 * kHeadDim, dv + row0 * kHeadDim, R,
-                        part - MT);
+      key_tile_bf16<RP, KV>(tile(s, 0), tile(s, 3), zero, dsT, pT, dk + row0 * kHeadDim,
+                            KV ? nullptr : dv + row0 * kHeadDim, R, part - MT);
       __syncwarp();
       if (lane == 0) mbar_arrive(&kdone[hl]);
       if (part == 2 * MT - 1 && hl + 2 < G) {
@@ -493,12 +514,13 @@ constexpr int kF32Threads = 32 * kF32Warps;
 constexpr int kRows = 4;               // query (key) rows a warp takes at once, sharing each load
 constexpr int kRowLd = kHeadDim + 4;   // f32 row stride: 128-bit loads of 8 lanes hit distinct banks
 
-inline size_t bwd_f32_smem_bytes(int R) {
-  const size_t floats = ((kGroupHeads * (size_t)R * R + 3) / 4) * 4 + 4 * (size_t)R * kRowLd + 2 * (size_t)R * R +
+inline size_t bwd_f32_smem_bytes(int R, bool kv) {
+  const size_t floats = ((kGroupHeads * (size_t)R * R + 3) / 4) * 4 + (kv ? 3 : 4) * (size_t)R * kRowLd + 2 * (size_t)R * R +
                         (size_t)R * 4 + (size_t)kMaxHeads * 64 + kMaxHeads + kFreqs;
   return floats * sizeof(float) + R;
 }
 
+template <bool KV>
 __global__ void __launch_bounds__(kF32Threads)
 box_attention_bwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
                              const float* __restrict__ dout, const float* __restrict__ boxes,
@@ -513,7 +535,7 @@ box_attention_bwd_f32_kernel(const float* __restrict__ q, const float* __restric
   float* wz_s = smem_f;                                          // G * R * R: w_g, then dz
   float* q_s = wz_s + ((kGroupHeads * R * R + 3) / 4) * 4;       // R * kRowLd
   float* k_s = q_s + R * kRowLd;
-  float* v_s = k_s + R * kRowLd;
+  float* v_s = KV ? k_s : k_s + R * kRowLd;  // the kv mode reads the k rows as v
   float* do_s = v_s + R * kRowLd;
   float* ds_s = do_s + R * kRowLd;  // R * R: dS * scale, masked keys zeroed
   float* pd_s = ds_s + R * R;       // R * R: P~
@@ -548,7 +570,7 @@ box_attention_bwd_f32_kernel(const float* __restrict__ q, const float* __restric
       const int r = e / (kHeadDim / 4), c = 4 * (e % (kHeadDim / 4));
       *reinterpret_cast<float4*>(q_s + r * kRowLd + c) = *reinterpret_cast<const float4*>(q + base + r * kHeadDim + c);
       *reinterpret_cast<float4*>(k_s + r * kRowLd + c) = *reinterpret_cast<const float4*>(k + base + r * kHeadDim + c);
-      *reinterpret_cast<float4*>(v_s + r * kRowLd + c) = *reinterpret_cast<const float4*>(v + base + r * kHeadDim + c);
+      if (!KV) *reinterpret_cast<float4*>(v_s + r * kRowLd + c) = *reinterpret_cast<const float4*>(v + base + r * kHeadDim + c);
       *reinterpret_cast<float4*>(do_s + r * kRowLd + c) =
           *reinterpret_cast<const float4*>(dout + base + r * kHeadDim + c);
     }
@@ -653,7 +675,9 @@ box_attention_bwd_f32_kernel(const float* __restrict__ q, const float* __restric
       }
 #pragma unroll
       for (int r = 0; r < kRows; ++r) {
-        if (jb + r < R) {
+        if (jb + r < R && KV) {  // d(k as K) + d(k as V)
+          store2(dk + base + (size_t)(jb + r) * kHeadDim + 2 * lane, make_float2(ak[r].x + av[r].x, ak[r].y + av[r].y));
+        } else if (jb + r < R) {
           store2(dk + base + (size_t)(jb + r) * kHeadDim + 2 * lane, ak[r]);
           store2(dv + base + (size_t)(jb + r) * kHeadDim + 2 * lane, av[r]);
         }
@@ -722,18 +746,11 @@ cudaError_t launch_reduce(void* partial, int B, int Y, int H, void* dwg_w, void*
   return cudaGetLastError();
 }
 
-}  // namespace sct
-
-// dtype: 0 = float32, 1 = bfloat16. q, k, v, dout, dq, dk, dv (B, H, R, 64);
-// boxes (B, R, 4) f32; wg_w (H, 64), wg_b (H,), dwg_w, dwg_b in the compute
-// dtype; freq (8,) f32; mask (B, R) bool; keep (B, H, R, R) bool or null with
-// keep_prob (the divisor, rounded to the compute dtype); partial (B, H, 65) f32 scratch.
-extern "C" int sct_box_attention_bwd(int dtype, const void* q, const void* k, const void* v, const void* dout,
-                                     const void* boxes, const void* wg_w, const void* wg_b, const void* freq,
-                                     const void* mask, const void* keep, float keep_prob, void* dq, void* dk, void* dv,
-                                     void* dwg_w, void* dwg_b, void* partial, int B, int H, int R, float scale,
-                                     void* stream) {
-  using namespace sct;
+template <bool KV>
+int bwd_entry(int dtype, const void* q, const void* k, const void* v, const void* dout, const void* boxes,
+              const void* wg_w, const void* wg_b, const void* freq, const void* mask, const void* keep,
+              float keep_prob, void* dq, void* dk, void* dv, void* dwg_w, void* dwg_b, void* partial, int B, int H,
+              int R, float scale, void* stream) {
   if (H < 1 || H > kMaxHeads || R < 1 || R > 64 || B < 1) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const dim3 grid(B, (H + kGroupHeads - 1) / kGroupHeads);
@@ -741,12 +758,12 @@ extern "C" int sct_box_attention_bwd(int dtype, const void* q, const void* k, co
   const unsigned char* kp = static_cast<const unsigned char*>(keep);
   float* part = static_cast<float*>(partial);
   if (dtype == 0) {
-    const size_t smem = bwd_f32_smem_bytes(R);
+    const size_t smem = bwd_f32_smem_bytes(R, KV);
     if (smem > 232448) return (int)cudaErrorInvalidValue;
-    cudaError_t err = cudaFuncSetAttribute(box_attention_bwd_f32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                           (int)smem);
+    cudaError_t err = cudaFuncSetAttribute(box_attention_bwd_f32_kernel<KV>,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
-    box_attention_bwd_f32_kernel<<<grid, kF32Threads, smem, s>>>(
+    box_attention_bwd_f32_kernel<KV><<<grid, kF32Threads, smem, s>>>(
         static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
         static_cast<const float*>(dout), static_cast<const float*>(boxes), static_cast<const float*>(wg_w),
         static_cast<const float*>(wg_b), static_cast<const float*>(freq), mk, kp, keep_prob, static_cast<float*>(dq),
@@ -756,13 +773,13 @@ extern "C" int sct_box_attention_bwd(int dtype, const void* q, const void* k, co
     return (int)launch_reduce<float>(partial, B, 1, H, dwg_w, dwg_b, s);
   }
   if (dtype != 1) return (int)cudaErrorInvalidValue;
-  const size_t smem = bwd_mma_smem_bytes(R);
+  const size_t smem = bwd_mma_smem_bytes(R, KV);
   if (smem > 232448) return (int)cudaErrorInvalidValue;
   const int rp = padded_rows(R);
-  auto kernel = rp == 16 ? box_attention_bwd_mma_kernel<16>
-                : rp == 32 ? box_attention_bwd_mma_kernel<32>
-                : rp == 48 ? box_attention_bwd_mma_kernel<48>
-                           : box_attention_bwd_mma_kernel<64>;
+  auto kernel = rp == 16 ? box_attention_bwd_mma_kernel<16, KV>
+                : rp == 32 ? box_attention_bwd_mma_kernel<32, KV>
+                : rp == 48 ? box_attention_bwd_mma_kernel<48, KV>
+                           : box_attention_bwd_mma_kernel<64, KV>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   cudaLaunchConfig_t config = {};
@@ -784,6 +801,31 @@ extern "C" int sct_box_attention_bwd(int dtype, const void* q, const void* k, co
                            static_cast<bf16*>(dq), static_cast<bf16*>(dk), static_cast<bf16*>(dv), part, H, R, scale);
   if (err != cudaSuccess) return (int)err;
   return (int)launch_reduce<bf16>(partial, B, grid.y, H, dwg_w, dwg_b, s);
+}
+
+
+}  // namespace sct
+
+// dtype: 0 = float32, 1 = bfloat16. q, k, v, dout, dq, dk, dv (B, H, R, 64);
+// boxes (B, R, 4) f32; wg_w (H, 64), wg_b (H,), dwg_w, dwg_b in the compute
+// dtype; freq (8,) f32; mask (B, R) bool; keep (B, H, R, R) bool or null with
+// keep_prob (the divisor, rounded to the compute dtype); partial (B, H, 65) f32 scratch.
+extern "C" int sct_box_attention_bwd(int dtype, const void* q, const void* k, const void* v, const void* dout,
+                                     const void* boxes, const void* wg_w, const void* wg_b, const void* freq,
+                                     const void* mask, const void* keep, float keep_prob, void* dq, void* dk, void* dv,
+                                     void* dwg_w, void* dwg_b, void* partial, int B, int H, int R, float scale,
+                                     void* stream) {
+  return sct::bwd_entry<false>(dtype, q, k, v, dout, boxes, wg_w, wg_b, freq, mask, keep, keep_prob, dq, dk, dv,
+                               dwg_w, dwg_b, partial, B, H, R, scale, stream);
+}
+
+// kv mode: k is also V; dkv (B, H, R, 64) receives its one gradient.
+extern "C" int sct_box_attention_bwd_kv(int dtype, const void* q, const void* k, const void* dout, const void* boxes,
+                                        const void* wg_w, const void* wg_b, const void* freq, const void* mask,
+                                        const void* keep, float keep_prob, void* dq, void* dkv, void* dwg_w,
+                                        void* dwg_b, void* partial, int B, int H, int R, float scale, void* stream) {
+  return sct::bwd_entry<true>(dtype, q, k, k, dout, boxes, wg_w, wg_b, freq, mask, keep, keep_prob, dq, dkv, nullptr,
+                              dwg_w, dwg_b, partial, B, H, R, scale, stream);
 }
 
 extern "C" const char* sct_error_string(int err) { return cudaGetErrorString(static_cast<cudaError_t>(err)); }

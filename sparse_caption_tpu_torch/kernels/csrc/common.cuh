@@ -102,13 +102,15 @@ __device__ __forceinline__ void load_tile(float* dst, const T* __restrict__ src,
 // q_s: 64 f32; k_s: R rows of kKeyStride; v_s: R rows of kValStride;
 // p_s: 64 f32 of scratch owned by this warp. Optional (training): `keep`, the
 // row's R dropout flags, turns p into p * keep / keep_prob before P.V, and
-// `lse` receives the row's log-sum-exp of the scores (f32).
+// `lse` receives the row's log-sum-exp of the scores (f32). `v_stride`: the
+// value rows' stride (kKeyStride where the key tile serves as V).
 template <typename T>
 __device__ __forceinline__ void warp_attend_row(const float* q_s, const float* k_s, const float* v_s,
                                                 const unsigned char* mask_s, const float* bias, int R,
                                                 float scale, float* p_s, T* __restrict__ out,
                                                 const unsigned char* __restrict__ keep = nullptr,
-                                                float keep_prob = 1.f, float* __restrict__ lse = nullptr) {
+                                                float keep_prob = 1.f, float* __restrict__ lse = nullptr,
+                                                int v_stride = kValStride) {
   const int lane = threadIdx.x & 31;
   float s[2];
 #pragma unroll
@@ -143,7 +145,7 @@ __device__ __forceinline__ void warp_attend_row(const float* q_s, const float* k
   float2 acc = make_float2(0.f, 0.f);
   for (int j = 0; j < R; ++j) {
     const float p = p_s[j];
-    const float* vr = v_s + j * kValStride + 2 * lane;
+    const float* vr = v_s + j * v_stride + 2 * lane;
     acc.x = fmaf(p, vr[0], acc.x);
     acc.y = fmaf(p, vr[1], acc.y);
   }

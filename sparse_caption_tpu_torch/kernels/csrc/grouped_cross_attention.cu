@@ -32,6 +32,12 @@
 // In f32 (the SCST sampling decode): one block per (image, head) stages K and V
 // in f32 shared memory once and its warps serve all `rep` rows
 // (common.cuh warp_attend_row), in f32 throughout.
+// kv mode (sct_grouped_cross_attention_kv; ACORT's kv-shared layers, whose
+// memory is one array that is both K and V): both kernels stage the K rows
+// alone and read them for both products (QK^T's B fragments and, by
+// ldmatrix.trans, P V's); a bf16 unit's stage is (S + rep) x 2 + 1 rows
+// instead of (2 S + rep) x 2 + 1. Bytes at ACORT serving (B = 2048, 36
+// regions, 8 heads): 75.5 MB of memory rows instead of 151.
 #include "common.cuh"
 #include "mma.cuh"
 #include "vec.cuh"
@@ -46,19 +52,21 @@ constexpr int kXHeads = 2;          // heads of an image a unit takes
 constexpr int kXLd = kHeadDim + 8;  // staged row pitch in bf16 (144 B)
 
 // rows of one unit's stage: K and V of its kXHeads heads (kXHeads * S each),
-// its q rows (rep beams x kXHeads heads, beam-major), and a row that holds
-// the image's S <= 64 region flags
-__host__ __device__ inline int cross_stage_rows(int S, int rep) { return (2 * S + rep) * kXHeads + 1; }
+// its q rows (rep beams x kXHeads heads, beam-major), and a row that holds the
+// image's S <= 64 region flags; the kv mode stages K alone
+__host__ __device__ inline int cross_stage_rows(int S, int rep, bool kv) {
+  return ((kv ? 1 : 2) * S + rep) * kXHeads + 1;
+}
 
 // `stages` stages and a zero row
-inline size_t cross_smem_bytes(int S, int rep, int stages) {
-  return (stages * (size_t)cross_stage_rows(S, rep) + 1) * kXLd * sizeof(bf16);
+inline size_t cross_smem_bytes(int S, int rep, int stages, bool kv) {
+  return (stages * (size_t)cross_stage_rows(S, rep, kv) + 1) * kXLd * sizeof(bf16);
 }
 
 // the stages that fit (2, else 1; 0: none)
-inline int cross_stages(int S, int rep) {
-  if (cross_smem_bytes(S, rep, 2) <= (size_t)kBlockSmemLimit) return 2;
-  return cross_smem_bytes(S, rep, 1) <= (size_t)kBlockSmemLimit ? 1 : 0;
+inline int cross_stages(int S, int rep, bool kv) {
+  if (cross_smem_bytes(S, rep, 2, kv) <= (size_t)kBlockSmemLimit) return 2;
+  return cross_smem_bytes(S, rep, 1, kv) <= (size_t)kBlockSmemLimit ? 1 : 0;
 }
 
 // one (head, 16 query rows) tile of image b: beams mt * 16 + g and + 8, beam
@@ -180,14 +188,16 @@ __device__ __forceinline__ void cross_tile_bf16(const bf16* qs, int qstride, con
   }
 }
 
-template <int KT>
+template <int KT, bool KV>
 __global__ void __launch_bounds__(32 * kXMaxWarps)
 grouped_cross_attention_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ mem_k,
                                     const bf16* __restrict__ mem_v, const unsigned char* __restrict__ mask,
                                     bf16* __restrict__ out, int B, int H, int S, int rep, float scale, int stages) {
   extern __shared__ __align__(128) unsigned char smem_raw[];
-  bf16* tiles = reinterpret_cast<bf16*>(smem_raw);  // [stage][K: kXHeads x S, V: kXHeads x S, q: rep x kXHeads][kXLd]
-  const int stage_rows = cross_stage_rows(S, rep), groups = (H + kXHeads - 1) / kXHeads, units = B * groups;
+  // [stage][K: kXHeads x S, V: kXHeads x S (not in the kv mode), q: rep x kXHeads][kXLd]
+  bf16* tiles = reinterpret_cast<bf16*>(smem_raw);
+  constexpr int NKV = KV ? 1 : 2;  // staged memory arrays
+  const int stage_rows = cross_stage_rows(S, rep, KV), groups = (H + kXHeads - 1) / kXHeads, units = B * groups;
   bf16* zero = tiles + stages * stage_rows * kXLd;
   const int warp = threadIdx.x / 32, nwarps = blockDim.x / 32;
   for (int e = threadIdx.x; e < kXLd; e += blockDim.x) zero[e] = __float2bfloat16_rn(0.f);
@@ -198,7 +208,7 @@ grouped_cross_attention_bf16_kernel(const bf16* __restrict__ q, const bf16* __re
     bf16* st = tiles + s * stage_rows * kXLd;
     const int kv_rows = hn * S;
     const size_t kv0 = ((size_t)b * H + h0) * S * kHeadDim;
-    const int chunks = (2 * kv_rows + rep * hn) * 8;
+    const int chunks = (NKV * kv_rows + rep * hn) * 8;
     for (int c = threadIdx.x; c < chunks + (S % 4 == 0 ? S / 4 : 0); c += blockDim.x) {
       if (c >= chunks) {  // the region flags, 4 a copy (then read from shared memory)
         cp_async<4>(reinterpret_cast<unsigned char*>(st + (stage_rows - 1) * kXLd) + 4 * (c - chunks),
@@ -208,13 +218,13 @@ grouped_cross_attention_bf16_kernel(const bf16* __restrict__ q, const bf16* __re
       const int r = c >> 3, part = (c & 7) * 8;
       const bf16* src;
       int dst;
-      if (r < 2 * kv_rows) {
+      if (r < NKV * kv_rows) {
         src = (r < kv_rows ? mem_k : mem_v) + kv0 + (size_t)(r < kv_rows ? r : r - kv_rows) * kHeadDim;
         dst = r < kv_rows ? r : kXHeads * S + r - kv_rows;
       } else {
-        const int qr = r - 2 * kv_rows, beam = qr / hn, hl = qr - beam * hn;
+        const int qr = r - NKV * kv_rows, beam = qr / hn, hl = qr - beam * hn;
         src = q + (((size_t)b * rep + beam) * H + h0 + hl) * kHeadDim;
-        dst = 2 * kXHeads * S + qr;
+        dst = NKV * kXHeads * S + qr;
       }
       cp_async<16>(st + dst * kXLd + part, src + part);
     }
@@ -242,21 +252,22 @@ grouped_cross_attention_bf16_kernel(const bf16* __restrict__ q, const bf16* __re
                                               : mask + (size_t)b * S;
     for (int item = warp; item < hn * mtiles; item += nwarps) {
       const int hl = item / mtiles, mt = item - hl * mtiles;
-      cross_tile_bf16<KT>(st + (2 * kXHeads * S + hl) * kXLd, hn, st + hl * S * kXLd,
-                          st + (kXHeads * S + hl * S) * kXLd, zero, mask_b, out, b, h0 + hl, H, S, rep, mt, scale);
+      const bf16* ks = st + hl * S * kXLd;  // the kv mode reads these rows as V too
+      cross_tile_bf16<KT>(st + (NKV * kXHeads * S + hl) * kXLd, hn, ks, KV ? ks : st + (kXHeads * S + hl * S) * kXLd,
+                          zero, mask_b, out, b, h0 + hl, H, S, rep, mt, scale);
     }
     __syncthreads();  // the stage may be refilled
   }
   cp_async_wait<0>();
 }
 
-template <int KT>
+template <int KT, bool KV>
 cudaError_t launch_bf16(const void* q, const void* mk, const void* mv, const void* mask, void* out, int B, int H,
                         int S, int rep, float scale, cudaStream_t stream) {
-  const int stages = cross_stages(S, rep);
+  const int stages = cross_stages(S, rep, KV);
   if (stages == 0) return cudaErrorInvalidValue;
-  const size_t smem = cross_smem_bytes(S, rep, stages);
-  auto kernel = grouped_cross_attention_bf16_kernel<KT>;
+  const size_t smem = cross_smem_bytes(S, rep, stages, KV);
+  auto kernel = grouped_cross_attention_bf16_kernel<KT, KV>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const int items = kXHeads * ((rep + 15) / 16), warps = items < kXMaxWarps ? items : kXMaxWarps;
@@ -274,22 +285,23 @@ cudaError_t launch_bf16(const void* q, const void* mk, const void* mv, const voi
 // ------------------------------------------------------------ f32: CUDA cores
 constexpr int kCrossThreads = 128;
 
+template <bool KV>
 __global__ void __launch_bounds__(kCrossThreads)
 grouped_cross_attention_f32_kernel(const float* __restrict__ q, const float* __restrict__ mem_k,
                                    const float* __restrict__ mem_v, const unsigned char* __restrict__ mask,
                                    float* __restrict__ out, int H, int S, int rep, float scale) {
   extern __shared__ float smem[];
   const int nwarps = blockDim.x / 32, warp = threadIdx.x / 32, lane = threadIdx.x & 31;
-  float* k_s = smem;                        // S * kKeyStride
-  float* v_s = k_s + S * kKeyStride;        // S * kValStride
-  float* q_s = v_s + S * kValStride;        // nwarps * 64
+  float* k_s = smem;                                 // S * kKeyStride
+  float* v_s = KV ? k_s : k_s + S * kKeyStride;      // S * kValStride, the K tile in the kv mode
+  float* q_s = k_s + S * (kKeyStride + (KV ? 0 : kValStride));  // nwarps * 64
   float* p_s = q_s + nwarps * kHeadDim;     // nwarps * 64
   unsigned char* mask_s = reinterpret_cast<unsigned char*>(p_s + nwarps * kHeadDim);  // S
 
   const int b = blockIdx.x / H, h = blockIdx.x - (blockIdx.x / H) * H;
   const size_t base = ((size_t)b * H + h) * S * kHeadDim;
   load_tile(k_s, mem_k + base, S, kKeyStride);
-  load_tile(v_s, mem_v + base, S, kValStride);
+  if (!KV) load_tile(v_s, mem_v + base, S, kValStride);
   for (int e = threadIdx.x; e < S; e += blockDim.x) mask_s[e] = mask[(size_t)b * S + e];
   __syncthreads();
 
@@ -300,48 +312,64 @@ grouped_cross_attention_f32_kernel(const float* __restrict__ q, const float* __r
     qw[2 * lane] = qv.x;
     qw[2 * lane + 1] = qv.y;
     __syncwarp();
-    warp_attend_row<float>(qw, k_s, v_s, mask_s, nullptr, S, scale, p_s + warp * kHeadDim, out + qo);
+    warp_attend_row<float>(qw, k_s, v_s, mask_s, nullptr, S, scale, p_s + warp * kHeadDim, out + qo, nullptr, 1.f,
+                           nullptr, KV ? kKeyStride : kValStride);
   }
 }
 
+template <bool KV>
 cudaError_t launch_f32(const void* q, const void* mk, const void* mv, const void* mask, void* out, int B, int H,
                        int S, int rep, float scale, cudaStream_t stream) {
   const int nwarps = kCrossThreads / 32;
-  const size_t smem = ((size_t)S * (kKeyStride + kValStride) + 2 * (size_t)nwarps * kHeadDim) * sizeof(float) + S;
-  grouped_cross_attention_f32_kernel<<<B * H, kCrossThreads, smem, stream>>>(
+  const size_t smem =
+      ((size_t)S * (kKeyStride + (KV ? 0 : kValStride)) + 2 * (size_t)nwarps * kHeadDim) * sizeof(float) + S;
+  grouped_cross_attention_f32_kernel<KV><<<B * H, kCrossThreads, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(mk), static_cast<const float*>(mv),
       static_cast<const unsigned char*>(mask), static_cast<float*>(out), H, S, rep, scale);
   return cudaGetLastError();
 }
 
-}  // namespace sct
-
-// dtype: 0 = float32, 1 = bfloat16. q/out (B * rep, H, 64); mem_k/mem_v (B, H, S, 64)
-// (pass mem_k twice for shared K/V), 16-byte aligned in bf16; mask (B, S) bool.
-extern "C" int sct_grouped_cross_attention(int dtype, const void* q, const void* mem_k, const void* mem_v,
-                                           const void* mask, void* out, int B, int H, int S, int rep,
-                                           float scale, void* stream) {
+template <bool KV>
+int entry(int dtype, const void* q, const void* mem_k, const void* mem_v, const void* mask, void* out, int B, int H,
+          int S, int rep, float scale, void* stream) {
   if (H < 1 || S < 1 || S > 64 || rep < 1) return (int)cudaErrorInvalidValue;
   if (B == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return (int)sct::launch_f32(q, mem_k, mem_v, mask, out, B, H, S, rep, scale, s);
+  if (dtype == 0) return (int)launch_f32<KV>(q, mem_k, mem_v, mask, out, B, H, S, rep, scale, s);
   if (dtype == 1) {
-    const void* ptrs[] = {q, mem_k, mem_v, out};
+    const void* ptrs[] = {q, mem_k, KV ? mem_k : mem_v, out};
     for (const void* p : ptrs) {
       if ((reinterpret_cast<uintptr_t>(p) & 15) != 0) return (int)cudaErrorInvalidValue;
     }
-    if (S <= 16) return (int)sct::launch_bf16<1>(q, mem_k, mem_v, mask, out, B, H, S, rep, scale, s);
-    if (S <= 32) return (int)sct::launch_bf16<2>(q, mem_k, mem_v, mask, out, B, H, S, rep, scale, s);
-    if (S <= 48) return (int)sct::launch_bf16<3>(q, mem_k, mem_v, mask, out, B, H, S, rep, scale, s);
-    return (int)sct::launch_bf16<4>(q, mem_k, mem_v, mask, out, B, H, S, rep, scale, s);
+    if (S <= 16) return (int)launch_bf16<1, KV>(q, mem_k, mem_v, mask, out, B, H, S, rep, scale, s);
+    if (S <= 32) return (int)launch_bf16<2, KV>(q, mem_k, mem_v, mask, out, B, H, S, rep, scale, s);
+    if (S <= 48) return (int)launch_bf16<3, KV>(q, mem_k, mem_v, mask, out, B, H, S, rep, scale, s);
+    return (int)launch_bf16<4, KV>(q, mem_k, mem_v, mask, out, B, H, S, rep, scale, s);
   }
   return (int)cudaErrorInvalidValue;
 }
 
-// the bf16 kernel's shared memory for S regions and rep rows an image, at its stage count; 0 if none fits
-extern "C" long long sct_grouped_cross_attention_smem(int S, int rep) {
-  const int stages = sct::cross_stages(S, rep);
-  return stages == 0 ? 0 : (long long)sct::cross_smem_bytes(S, rep, stages);
+}  // namespace sct
+
+// dtype: 0 = float32, 1 = bfloat16. q/out (B * rep, H, 64); mem_k/mem_v (B, H, S, 64),
+// 16-byte aligned in bf16; mask (B, S) bool.
+extern "C" int sct_grouped_cross_attention(int dtype, const void* q, const void* mem_k, const void* mem_v,
+                                           const void* mask, void* out, int B, int H, int S, int rep,
+                                           float scale, void* stream) {
+  return sct::entry<false>(dtype, q, mem_k, mem_v, mask, out, B, H, S, rep, scale, stream);
+}
+
+// kv mode: mem (B, H, S, 64) is both K and V, staged once.
+extern "C" int sct_grouped_cross_attention_kv(int dtype, const void* q, const void* mem, const void* mask, void* out,
+                                              int B, int H, int S, int rep, float scale, void* stream) {
+  return sct::entry<true>(dtype, q, mem, nullptr, mask, out, B, H, S, rep, scale, stream);
+}
+
+// the bf16 kernel's shared memory for S regions and rep rows an image (kv: the
+// kv mode), at its stage count; 0 if none fits
+extern "C" long long sct_grouped_cross_attention_smem(int S, int rep, int kv) {
+  const int stages = sct::cross_stages(S, rep, kv != 0);
+  return stages == 0 ? 0 : (long long)sct::cross_smem_bytes(S, rep, stages, kv != 0);
 }
 
 extern "C" const char* sct_error_string(int err) { return cudaGetErrorString(static_cast<cudaError_t>(err)); }

@@ -3,9 +3,11 @@ its beam rows (``csrc/grouped_cross_attention.cu``).
 
 ``grouped_cross_attention`` launches the kernel for CUDA tensors and runs
 ``grouped_cross_attention_plain`` for CPU tensors; nothing else falls back.
-In bf16 the kernel holds the K, V and q rows of (image, 2 heads) units in
-shared memory (two units when they fit), which bounds regions and rows an
-image (``bf16_smem``).
+With ``mem_v=None`` (a kv-shared layer, ACORT) it launches the kernel's kv
+mode, which stages each memory row once and reads it for both products.
+In bf16 the kernel holds the K, V (K alone in the kv mode) and q rows of
+(image, 2 heads) units in shared memory (two units when they fit), which
+bounds regions and rows an image (``bf16_smem``).
 """
 
 from __future__ import annotations
@@ -23,16 +25,22 @@ KERNEL = _build.CudaKernel("grouped_cross_attention", "sct_grouped_cross_attenti
     _build.I, _build.P, _build.P, _build.P, _build.P, _build.P,
     _build.I, _build.I, _build.I, _build.I, _build.F32, _build.P,
 ])
+# the kv mode: one memory array, read as K and V
+KERNEL_KV = _build.CudaKernel("grouped_cross_attention", "sct_grouped_cross_attention_kv", [
+    _build.I, _build.P, _build.P, _build.P, _build.P,
+    _build.I, _build.I, _build.I, _build.I, _build.F32, _build.P,
+])
 UNIT_HEADS = 2  # heads of an image one unit of the bf16 kernel takes (csrc kXHeads)
 
 
-def bf16_smem(regions: int, rep: int) -> int:
+def bf16_smem(regions: int, rep: int, kv: bool = False) -> int:
     """Shared memory of the bf16 kernel (``cross_smem_bytes``): two stages of
     a unit's rows if they fit, else one (K and V of its 2 heads, regions rows
-    each, its rep x 2 q rows and a row of region flags), and a zero row, each
-    row 144 bytes. 0 when even one stage does not fit."""
+    each, K alone in the kv mode, its rep x 2 q rows and a row of region
+    flags), and a zero row, each row 144 bytes. 0 when even one stage does
+    not fit."""
     for stages in (2, 1):
-        nbytes = (stages * ((2 * regions + rep) * UNIT_HEADS + 1) + 1) * 144
+        nbytes = (stages * (((1 if kv else 2) * regions + rep) * UNIT_HEADS + 1) + 1) * 144
         if nbytes <= _build.BLOCK_SMEM_LIMIT:
             return nbytes
     return 0
@@ -69,13 +77,16 @@ def grouped_cross_attention(q, mem_k, mem_v: Optional[torch.Tensor], mask):
         return grouped_cross_attention_plain(q, mem_k, mem_v, mask)
     if dk != 64 or s > 64:
         raise ValueError(f"grouped_cross_attention kernel takes dk == 64, S <= 64; got dk={dk} S={s}")
-    if q.dtype == torch.bfloat16 and bf16_smem(s, n // b) == 0:
+    if q.dtype == torch.bfloat16 and bf16_smem(s, n // b, mem_v is None) == 0:
         raise ValueError(f"grouped_cross_attention's bf16 kernel holds 2 heads' K, V and q rows in shared memory; "
                          f"{s} regions and {n // b} rows an image do not fit")
     q, mem_k = _build.aligned16(q), _build.aligned16(mem_k)
-    mem_v = None if mem_v is None else _build.aligned16(mem_v)
     out = torch.empty_like(q)
-    KERNEL.launch(_build.dtype_code(q), q.data_ptr(), mem_k.data_ptr(),
-                  (mem_k if mem_v is None else mem_v).data_ptr(), mask.data_ptr(), out.data_ptr(),
-                  b, h, s, n // b, 1.0 / math.sqrt(dk), _build.stream_handle(q))
+    if mem_v is None:
+        KERNEL_KV.launch(_build.dtype_code(q), q.data_ptr(), mem_k.data_ptr(), mask.data_ptr(), out.data_ptr(),
+                         b, h, s, n // b, 1.0 / math.sqrt(dk), _build.stream_handle(q))
+        return out
+    mem_v = _build.aligned16(mem_v)
+    KERNEL.launch(_build.dtype_code(q), q.data_ptr(), mem_k.data_ptr(), mem_v.data_ptr(), mask.data_ptr(),
+                  out.data_ptr(), b, h, s, n // b, 1.0 / math.sqrt(dk), _build.stream_handle(q))
     return out

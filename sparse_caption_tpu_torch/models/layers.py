@@ -24,6 +24,11 @@ full-sequence attention of ``MultiHeadAttention`` (the decoder's in XE
 teacher forcing and the SCST replay, the plain Transformer's encoder) in K14
 with its backward K15, cross-attention reading one memory row per image.
 
+The attention layers take ACORT's ``share_att`` layouts: "kv" (one
+projection is K and V: the kv modes of K1 / K7, K2 and K3, and the one
+tensor as k and v in K14 / K15) and "qk" (K from ``q_proj``; the unshared
+kernels with q's projection as k).
+
 Decode caches are explicit tensors ``(N, h, T_max, dk)``; ``decode_self``
 writes slot ``t`` IN PLACE (the JAX package returns an updated copy).
 Parameter names follow the flax leaf paths (``q_proj.weight`` <-
@@ -156,15 +161,28 @@ def _merge_heads(x):
     return x.transpose(1, 2).reshape(b, t, h * dk)
 
 
+SHARE_ATT = (None, "kv", "qk")
+# the input projections of each ``share_att`` layout (ACORT): "kv" projects
+# K once and reads it as V too; "qk" takes K from ``q_proj``
+PROJECTIONS = {None: ("q_proj", "k_proj", "v_proj"), "kv": ("q_proj", "kv_proj"), "qk": ("q_proj", "v_proj")}
+# the masked projections in the order a full-sequence forward calls them
+# (under "qk" ``q_proj`` runs twice, on the query and then on the key, and a
+# training supermask draws for each call as in the JAX package)
+CALL_ORDER = {None: ("q_proj", "k_proj", "v_proj"), "kv": ("q_proj", "kv_proj"), "qk": ("q_proj", "q_proj", "v_proj")}
+
+
 def _check_share_att(share_att) -> None:
-    if share_att is not None:
-        raise NotImplementedError("share_att (ACORT) lands in a later slice")
+    if share_att not in SHARE_ATT:
+        raise ValueError(f"share_att must be one of {SHARE_ATT}, got {share_att!r}")
 
 
 class MultiHeadAttention(nn.Module, DropoutSite):
-    """MHA with cached-decode methods (unshared q/k/v/out projections)."""
-
-    MASKED_CALL_ORDER = ("q_proj", "k_proj", "v_proj", "out_proj")
+    """MHA with cached-decode methods. ``share_att`` (ACORT): None (q, k, v
+    and out projections), "kv" (q, a shared kv projection whose output is
+    both K and V, out) or "qk" (K from ``q_proj``, v, out). Under "kv" a
+    decode cache holds one array, K, and the kernels K2 and K3 run their kv
+    modes, which read each cached row once for both products; the
+    full-sequence attention (K14 / K15) gets the one tensor as k and v."""
 
     def __init__(self, num_heads: int, d_model: int, dropout_rate: float = 0.1, share_att: Optional[str] = None,
                  mask_cfg: Optional[MaskConfig] = None, device=None, dtype=None):
@@ -173,7 +191,9 @@ class MultiHeadAttention(nn.Module, DropoutSite):
         _check_share_att(share_att)
         self.num_heads = num_heads
         self.dropout_rate = dropout_rate
-        for name in ("q_proj", "k_proj", "v_proj", "out_proj"):
+        self.share_att = share_att
+        self.MASKED_CALL_ORDER = CALL_ORDER[share_att] + ("out_proj",)
+        for name in PROJECTIONS[share_att] + ("out_proj",):
             setattr(self, name, MaskedLinear(d_model, d_model, mask_cfg=mask_cfg, device=device, dtype=dtype))
 
     def forward(self, query, key, value, key_valid=None, causal: bool = False, rng=None, attn_dropout: bool = True):
@@ -189,31 +209,35 @@ class MultiHeadAttention(nn.Module, DropoutSite):
         k, v = self.project_memory_kv(key, value, rng)
         keep = keep_mask((q.shape[0], h, q.shape[2], k.shape[2]), self.dropout_rate, rng if attn_dropout else None,
                          q.device, self.site)
-        out = decoder_attention(q, k, v, key_valid, causal, keep, 1.0 - self.dropout_rate)
+        out = decoder_attention(q, k, k if v is None else v, key_valid, causal, keep, 1.0 - self.dropout_rate)
         return self.out_proj(_merge_heads(out), rng)
 
     def project_memory_kv(self, key, value=None, rng=None):
-        """(B, S, D) -> K, V each (B, h, S, dk), contiguous; computed once per decode."""
+        """(B, S, D) -> K, V each (B, h, S, dk), contiguous; computed once per
+        decode. Under "kv" V is K and comes back as None."""
         value = key if value is None else value
-        return (_split_heads(self.k_proj(key, rng), self.num_heads),
-                _split_heads(self.v_proj(value, rng), self.num_heads))
+        h = self.num_heads
+        if self.share_att == "kv":
+            return _split_heads(self.kv_proj(key, rng), h), None
+        k_proj = self.q_proj if self.share_att == "qk" else self.k_proj
+        return _split_heads(k_proj(key, rng), h), _split_heads(self.v_proj(value, rng), h)
 
     def decode_cross(self, x_t, mem_k, mem_v, mem_mask):
         """x_t: (N, 1, D); mem_k/v: (B, h, S, dk), B dividing N (each image's
-        beam rows share its memory row); mem_v=None means V is K;
-        mem_mask: (B, S) bool. Runs kernel K3."""
+        beam rows share its memory row); mem_v=None means V is K (kernel K3's
+        kv mode); mem_mask: (B, S) bool. Runs kernel K3."""
         n = x_t.shape[0]
         q = self.q_proj(x_t).reshape(n, self.num_heads, -1)
         out = grouped_cross_attention(q, mem_k, mem_v, mem_mask)
         return self.out_proj(out.reshape(n, 1, -1))
 
     def _fused_qkv(self):
-        """The concatenated effective q/k/v weight (3D, D) (a kept mask
-        applied) and bias (3D,). Built once and rebuilt only when a
-        projection's tensors change (a load, a mask fold, an optimizer
-        update and a dtype or device move all give a new storage or
-        version)."""
-        projs = (self.q_proj, self.k_proj, self.v_proj)
+        """The concatenated effective weight (P D, D) (a kept mask applied)
+        and bias (P D,) of the layer's P input projections (q, k, v; q, kv
+        under "kv"; q, v under "qk"). Built once and rebuilt only when a
+        projection's tensors change (a load, a mask fold, an optimizer update
+        and a dtype or device move all give a new storage or version)."""
+        projs = [getattr(self, name) for name in PROJECTIONS[self.share_att]]
         tensors = [p for m in projs for p in (m.weight, m.bias, m.mask) if p is not None]
         key = tuple((p.data_ptr(), p._version) for p in tensors)
         if getattr(self, "_qkv_key", None) != key:
@@ -223,21 +247,31 @@ class MultiHeadAttention(nn.Module, DropoutSite):
         return self._qkv
 
     def _fused_qkv_step(self, x_t):
-        """q, k, v for one step as one matmul over the concatenated weights,
-        each (N, h, dk)."""
+        """q, k and v of one decode step, each (N, h, dk), from one matmul over
+        the concatenated input projections (one (2D, D) product under "kv" and
+        "qk"); v is None under "kv", and k is q under "qk"."""
         w, b = self._fused_qkv()
         n = x_t.shape[0]
-        qkv = F.linear(x_t.reshape(n, -1), w, b).reshape(n, 3, self.num_heads, -1)
-        return qkv[:, 0].contiguous(), qkv[:, 1], qkv[:, 2]
+        out = F.linear(x_t.reshape(n, -1), w, b).reshape(n, -1, self.num_heads, w.shape[1] // self.num_heads)
+        q = out[:, 0].contiguous()
+        if self.share_att == "kv":
+            return q, out[:, 1], None
+        if self.share_att == "qk":
+            return q, q, out[:, 1]
+        return q, out[:, 1], out[:, 2]
 
     def decode_self(self, x_t, cache_k, cache_v, t: int, ancestry: Optional[torch.Tensor] = None):
         """One causal step. x_t: (N, 1, D); cache_k/v: (N, h, T_max, dk), slot t
-        written IN PLACE; ancestry: (B, K, T_max) int32 ancestor map (row
+        written IN PLACE; cache_v=None under "kv" (one array, read as K and V:
+        kernel K2's kv mode); ancestry: (B, K, T_max) int32 ancestor map (row
         b*K + k reads slot t' of row b*K + ancestry[b, k, t']) or None.
         Runs kernel K2."""
+        if (cache_v is None) != (self.share_att == "kv"):
+            raise ValueError("a kv-shared layer caches one array (cache_v=None); every other layer two")
         q, k_t, v_t = self._fused_qkv_step(x_t)
         cache_k[:, :, t] = k_t
-        cache_v[:, :, t] = v_t
+        if cache_v is not None:
+            cache_v[:, :, t] = v_t
         out = ancestry_self_attention(q, cache_k, cache_v, ancestry, t)
         return self.out_proj(out.reshape(x_t.shape[0], 1, -1))
 
@@ -247,9 +281,8 @@ class BoxMultiHeadAttention(nn.Module, DropoutSite):
     relu(wg . geo), 1e-6)) + fill(qk / sqrt(d)))`` with one (64 -> h) ``wg``
     projection (the trigonometric geometry; the 4-wide raw one is not
     ported). The attention runs in kernel K1, or with gradients in K1's train
-    variant and K7."""
-
-    MASKED_CALL_ORDER = ("q_proj", "k_proj", "v_proj", "wg", "out_proj")
+    variant and K7; ``share_att`` as ``MultiHeadAttention``'s, "kv" through
+    the kv modes of K1 and K7 (V is the K tensor; one gradient for it)."""
 
     def __init__(self, num_heads: int, d_model: int, dropout_rate: float = 0.1, share_att: Optional[str] = None,
                  mask_cfg: Optional[MaskConfig] = None, device=None, dtype=None):
@@ -258,7 +291,9 @@ class BoxMultiHeadAttention(nn.Module, DropoutSite):
         _check_share_att(share_att)
         self.num_heads = num_heads
         self.dropout_rate = dropout_rate
-        for name in ("q_proj", "k_proj", "v_proj", "out_proj"):
+        self.share_att = share_att
+        self.MASKED_CALL_ORDER = CALL_ORDER[share_att] + ("wg", "out_proj")
+        for name in PROJECTIONS[share_att] + ("out_proj",):
             setattr(self, name, MaskedLinear(d_model, d_model, mask_cfg=mask_cfg, device=device, dtype=dtype))
         self.wg = MaskedLinear(DIM_G, num_heads, mask_cfg=mask_cfg, device=device, dtype=dtype)
 
@@ -266,8 +301,11 @@ class BoxMultiHeadAttention(nn.Module, DropoutSite):
         """x: (B, R, D); boxes: (B, R, 4) f32; mask: (B, R) bool, False = padded."""
         h = self.num_heads
         q = _split_heads(self.q_proj(x, rng), h)
-        k = _split_heads(self.k_proj(x, rng), h)
-        v = _split_heads(self.v_proj(x, rng), h)
+        if self.share_att == "kv":
+            k, v = _split_heads(self.kv_proj(x, rng), h), None
+        else:
+            k = _split_heads((self.q_proj if self.share_att == "qk" else self.k_proj)(x, rng), h)
+            v = _split_heads(self.v_proj(x, rng), h)
         wg_w = self.wg.effective_weight(rng)
         boxes = boxes.float().contiguous()
         if rng is None and not torch.is_grad_enabled():

@@ -4,7 +4,10 @@
 Encoder: ``att_embed`` (Linear + ReLU + dropout) then box-relation
 self-attention layers (kernel K1; in training K1's train variant and K7)
 over the region features; decoder, PE, generator and caching are the
-caption Transformer's.
+caption Transformer's. ACORT is this model with the radix tokenizer,
+``share_att_*="kv"`` and ``share_layer_*`` plans
+(``resources/commands_acort.sh``); the box encoder runs its own plan. The
+4-wide raw geometry (``no_box_trigonometric_embedding``) is not ported.
 """
 
 from __future__ import annotations
@@ -23,7 +26,7 @@ from sparse_caption_tpu_torch.models.layers import (
     SublayerConnection,
     prenorm_stack,
 )
-from sparse_caption_tpu_torch.models.transformer import Transformer, _unique_layer_plan, train_rng
+from sparse_caption_tpu_torch.models.transformer import Transformer, _unique_layer_plan
 from sparse_caption_tpu_torch.ops.masked import MaskedLinear, mask_set, masked_call_order
 from sparse_caption_tpu_torch.ops.rng import dropout
 
@@ -52,13 +55,16 @@ class RelationTransformer(Transformer):
     COLLATE_FIELDS = ("att_feats", "att_masks", "boxes")
 
     def _build_encoder(self, att_feat_size, dim_feedforward, share_att, factory):
-        _, self.box_enc_plan = _unique_layer_plan(self.num_layers, None)
+        n_enc, self.box_enc_plan = _unique_layer_plan(self.num_layers, self.share_layer_encoder)
         self.box_encoder_layers = nn.ModuleList(
             BoxEncoderLayer(self.d_model, self.num_heads, dim_feedforward, self.dropout_rate, share_att,
                             self.mask_cfg, **factory)
-            for _ in self.box_enc_plan)
+            for _ in range(n_enc))
         self.att_embed = MaskedLinear(att_feat_size, self.d_model, mask_cfg=self.mask_cfg, **factory)
         self.box_encoder_norm = RefLayerNorm(self.d_model, **factory)
+
+    def _plans(self):
+        return self.box_enc_plan, self.dec_plan
 
     def _encoder_masked(self) -> list:
         return masked_call_order(self.att_embed, *(self.box_encoder_layers[i] for i in self.box_enc_plan))
@@ -67,10 +73,17 @@ class RelationTransformer(Transformer):
         """att_feats: (B, R, F); att_masks: (B, R), 0 = padded; boxes: (B, R, 4)."""
         if boxes is None:
             raise ValueError("relation_transformer requires boxes")
-        rng = train_rng(train, rng)
+        rng = self._train_rng(train, rng)
         with torch.set_grad_enabled(train and torch.is_grad_enabled()), mask_set(self._encoder_masked(), rng):
             x = dropout(torch.relu(self.att_embed(att_feats, rng)), self.drop_prob_src, rng, self.site)
             mask = (att_masks != 0).contiguous()
             boxes = boxes.float().contiguous()
             steps = [s for i in self.box_enc_plan for s in self.box_encoder_layers[i].steps(boxes, mask, rng)]
             return {"memory": prenorm_stack(x, steps, self.box_encoder_norm, rng), "mask": att_masks}
+
+    @classmethod
+    def from_config(cls, config, mask_cfg=None, **factory):
+        if config.get("no_box_trigonometric_embedding", False):
+            raise NotImplementedError("the 4-wide raw box geometry (no_box_trigonometric_embedding) lands in a "
+                                      "later slice")
+        return super().from_config(config, mask_cfg, **factory)

@@ -23,6 +23,7 @@ import torch
 from torch import nn
 
 from sparse_caption_tpu_torch import resolve_device
+from sparse_caption_tpu_torch.config import list_of_ints
 from sparse_caption_tpu_torch.kernels.vocab_log_softmax import vocab_log_softmax
 from sparse_caption_tpu_torch.models import register_model
 from sparse_caption_tpu_torch.models.layers import (
@@ -39,7 +40,7 @@ from sparse_caption_tpu_torch.models.layers import (
     prenorm_stack,
 )
 from sparse_caption_tpu_torch.ops.masked import MaskConfig, MaskedEmbedding, MaskedLinear, mask_set, masked_call_order
-from sparse_caption_tpu_torch.ops.rng import dropout
+from sparse_caption_tpu_torch.ops.rng import KeyedStream, dropout
 
 
 def _unique_layer_plan(num_layers: int, share_layer: Optional[Sequence[int]]) -> Tuple[int, Tuple[int, ...]]:
@@ -104,10 +105,11 @@ class DecoderLayer(nn.Module):
 
     def decode_steps(self, layer_cache: Dict, cross: Dict, t: int, mem_mask, ancestry=None, rng=None) -> List[Step]:
         """One decode step's sublayers. layer_cache: {self_k, self_v} (written
-        in place at slot t); cross: {cross_k, cross_v}; mem_mask: (B, S) bool;
+        in place at slot t; no self_v under kv); cross: {cross_k, cross_v} (no
+        cross_v under kv); mem_mask: (B, S) bool;
         rng: the train-mode step stream (no attention-prob dropout here)."""
         return [(self.sub0, lambda y: self.self_attn.decode_self(
-                    y, layer_cache["self_k"], layer_cache["self_v"], t, ancestry)),
+                    y, layer_cache["self_k"], layer_cache.get("self_v"), t, ancestry)),
                 (self.sub1, lambda y: self.src_attn.decode_cross(
                     y, cross["cross_k"], cross.get("cross_v"), mem_mask)),
                 (self.sub2, lambda y: self.feed_forward(y, rng))]
@@ -131,8 +133,6 @@ class Transformer(nn.Module, DropoutSite):
                  dropout_rate: float = 0.1, drop_prob_src: float = 0.5,
                  *, device="cuda", dtype=torch.float32, generator: Optional[torch.Generator] = None):
         super().__init__()
-        if share_layer_encoder is not None or share_layer_decoder is not None:
-            raise NotImplementedError("share_layer (ACORT) lands in a later slice")
         self.vocab_size = vocab_size
         self.d_model = d_model
         self.num_layers = num_layers
@@ -141,13 +141,14 @@ class Transformer(nn.Module, DropoutSite):
         self.pad_id, self.bos_id, self.eos_id, self.unk_id = pad_id, bos_id, eos_id, unk_id
         self.mask_cfg = mask_cfg
         self.dropout_rate, self.drop_prob_src = dropout_rate, drop_prob_src
+        self.share_layer_encoder, self.share_layer_decoder = share_layer_encoder, share_layer_decoder
         factory = dict(device=resolve_device(device), dtype=dtype)
-        _, self.dec_plan = _unique_layer_plan(num_layers, None)
+        n_dec, self.dec_plan = _unique_layer_plan(num_layers, share_layer_decoder)
         self.tgt_embed = InputEmbedding(vocab_size, d_model, mask_cfg, **factory)
         self.pos_enc = PositionalEncoding(d_model, dropout_rate, device=factory["device"])
         self.decoder_layers = nn.ModuleList(
             DecoderLayer(d_model, num_heads, dim_feedforward, dropout_rate, share_att_decoder, mask_cfg, **factory)
-            for _ in self.dec_plan)
+            for _ in range(n_dec))
         self.decoder_norm = RefLayerNorm(d_model, **factory)
         self.generator = Generator(d_model, vocab_size, mask_cfg, **factory)
         self._build_encoder(att_feat_size, dim_feedforward, share_att_encoder, factory)
@@ -156,12 +157,12 @@ class Transformer(nn.Module, DropoutSite):
         self.eval()
 
     def _build_encoder(self, att_feat_size, dim_feedforward, share_att, factory):
-        _, self.enc_plan = _unique_layer_plan(self.num_layers, None)
+        n_enc, self.enc_plan = _unique_layer_plan(self.num_layers, self.share_layer_encoder)
         self.src_proj = MaskedLinear(att_feat_size, self.d_model, mask_cfg=self.mask_cfg, **factory)
         self.encoder_layers = nn.ModuleList(
             EncoderLayer(self.d_model, self.num_heads, dim_feedforward, self.dropout_rate, share_att, self.mask_cfg,
                          **factory)
-            for _ in self.enc_plan)
+            for _ in range(n_enc))
         self.encoder_norm = RefLayerNorm(self.d_model, **factory)
 
     def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
@@ -171,6 +172,24 @@ class Transformer(nn.Module, DropoutSite):
             elif isinstance(m, RefLayerNorm):
                 nn.init.ones_(m.weight)
                 nn.init.zeros_(m.bias)
+
+    def _plans(self):
+        return self.enc_plan, self.dec_plan
+
+    def _train_rng(self, train: bool, rng):
+        """``train_rng``, refusing what shared layers cannot do yet: the JAX
+        package draws a fresh supermask sample and fresh dropout for each
+        slot of a shared layer, and a ``KeyedStream`` keys dropout by the
+        module's site, which the slots share."""
+        rng = train_rng(train, rng)
+        shared = any(len(set(plan)) < len(plan) for plan in self._plans())
+        if rng is not None and shared and self.mask_cfg is not None and self.mask_cfg.is_supermask:
+            raise NotImplementedError("a training supermask with share_layer (a fresh sample per slot) "
+                                      "lands in a later slice")
+        if isinstance(rng, KeyedStream) and shared and self.dropout_rate > 0:
+            raise NotImplementedError("keyed dropout with share_layer (a site per slot, ACORT SCST) lands in a "
+                                      "later slice")
+        return rng
 
     # ------------------------------------------------------ masked products
     def _encoder_masked(self) -> list:
@@ -189,7 +208,7 @@ class Transformer(nn.Module, DropoutSite):
     # ----------------------------------------------------------- encoding
     def encode(self, att_feats, att_masks, boxes=None, train: bool = False, rng=None) -> Dict[str, Any]:
         """att_feats: (B, S, F); att_masks: (B, S), 0 = padded. Returns the memory dict."""
-        rng = train_rng(train, rng)
+        rng = self._train_rng(train, rng)
         with torch.set_grad_enabled(train and torch.is_grad_enabled()), mask_set(self._encoder_masked(), rng):
             x = dropout(torch.relu(self.src_proj(att_feats, rng)), self.drop_prob_src, rng, self.site)
             steps = [s for i in self.enc_plan
@@ -213,7 +232,7 @@ class Transformer(nn.Module, DropoutSite):
     def forward(self, att_feats, att_masks, seqs, boxes=None, train: bool = False, rng=None):
         """XE log-probs (N, T-1, V) of seqs[:, 1:] (decoder input seqs[:, :-1]).
         ``train=True`` (with ``rng``) runs the train-mode forward with gradients."""
-        rng = train_rng(train, rng)
+        rng = self._train_rng(train, rng)
         with torch.set_grad_enabled(train), self.mask_set(rng):
             enc = self.encode(att_feats, att_masks, boxes, train, rng)
             return self.generator(self._decode_full(seqs[:, :-1], enc["memory"], enc["mask"], rng), rng)
@@ -226,7 +245,7 @@ class Transformer(nn.Module, DropoutSite):
         the result equals that decode's per-step log-probs at every position
         up to its EOS (the replay of ``TimeDropout``); gradients flow unless
         the caller disabled them."""
-        rng = train_rng(train, rng)
+        rng = self._train_rng(train, rng)
         with torch.set_grad_enabled(train and torch.is_grad_enabled()), mask_set(self._decoder_masked(), rng):
             out = self._decode_full(seqs[:, :-1], memory_pytree["memory"], memory_pytree["mask"], rng, replay=train)
             return self.generator(out, rng)
@@ -236,21 +255,30 @@ class Transformer(nn.Module, DropoutSite):
     def init_cache(self, memory_pytree: Dict[str, Any], max_steps: Optional[int] = None, rows_per_image: int = 1,
                    beam_ancestry: bool = False, train: bool = False, rng=None) -> Dict[str, Any]:
         """Static-shape decode cache: self K/V zeros at ``B * rows_per_image``
-        rows, projected cross K/V at B rows (``train``: under the train
-        policy's masks, ``rng`` its random source), and with ``beam_ancestry``
-        an identity ancestor map (B, rows_per_image, T_max) int32."""
-        rng = train_rng(train, rng)
+        rows (``self_k`` only in a kv-shared layer), projected cross K/V at B
+        rows (``cross_k`` only under kv; in eval once per unique layer, shared
+        by its slots; with ``train`` once per slot, under the train policy's
+        masks, ``rng`` its random source), and with ``beam_ancestry`` an
+        identity ancestor map (B, rows_per_image, T_max) int32."""
+        rng = self._train_rng(train, rng)
         memory = memory_pytree["memory"]
         b = memory.shape[0]
         rows = b * int(rows_per_image)
         t_max = int(max_steps or (self.max_seq_length + 1))
         dk = self.d_model // self.num_heads
-        layers, cross = [], []
+        layers, cross, proj = [], [], {}
         for i in self.dec_plan:
-            ck, cv = self.decoder_layers[i].src_attn.project_memory_kv(memory, rng=rng)
+            layer = self.decoder_layers[i]
+            if train:
+                ck, cv = layer.src_attn.project_memory_kv(memory, rng=rng)
+            else:
+                if i not in proj:
+                    proj[i] = layer.src_attn.project_memory_kv(memory)
+                ck, cv = proj[i]
             zeros = lambda: torch.zeros((rows, self.num_heads, t_max, dk), dtype=ck.dtype, device=ck.device)  # noqa: E731
-            layers.append({"self_k": zeros(), "self_v": zeros()})
-            cross.append({"cross_k": ck, "cross_v": cv})
+            layers.append({"self_k": zeros()} if layer.self_attn.share_att == "kv"
+                          else {"self_k": zeros(), "self_v": zeros()})
+            cross.append({"cross_k": ck} if cv is None else {"cross_k": ck, "cross_v": cv})
         cache = {"layers": layers, "static": {"cross": cross}}
         if beam_ancestry:
             cache["ancestry"] = torch.arange(rows_per_image, dtype=torch.int32, device=memory.device)[
@@ -266,7 +294,7 @@ class Transformer(nn.Module, DropoutSite):
 
         The self K/V caches are written in place; the returned cache holds the
         ancestor map with slot t set to identity (each row wrote slot t itself)."""
-        rng = train_rng(train, rng)
+        rng = self._train_rng(train, rng)
         rng = None if rng is None else rng.at(t)
         mem_mask = memory_pytree["mask"] != 0
         x = self.pos_enc(self.tgt_embed(it[:, None], rng), t=t, rng=rng)  # (N, 1, D)
@@ -290,3 +318,27 @@ class Transformer(nn.Module, DropoutSite):
         """it: (N,) current tokens; t: step index. Returns (log-probs (N, V), cache)."""
         logits, cache = self.decode_step_logits(it, cache, t, memory_pytree, train, rng)
         return vocab_log_softmax(logits), cache
+
+    @classmethod
+    def from_config(cls, config, mask_cfg: Optional[MaskConfig] = None, **factory):
+        """The model of a run config (the JAX package's ``from_config``
+        defaults: 18 tokens, pad / bos / eos ids from the config, unk id 1);
+        ``factory``: ``device``, ``dtype``, ``generator``."""
+
+        def share_layer(v):
+            if v is None or v == "":
+                return None
+            return tuple(list_of_ints(v)) if isinstance(v, str) else tuple(v)
+
+        vocab_size = config.get("vocab_size")
+        if vocab_size is None:
+            raise ValueError("the config has no vocab_size (a tokenizer writes it)")
+        return cls(vocab_size=vocab_size, d_model=config.get("d_model", 512),
+                   dim_feedforward=config.get("dim_feedforward", 2048), num_layers=config.get("num_layers", 6),
+                   num_heads=config.get("num_heads", 8), drop_prob_src=config.get("drop_prob_src", 0.5),
+                   att_feat_size=config.get("att_feat_size", 2048), max_seq_length=config.get("max_seq_length", 18),
+                   pad_id=config.get("pad_token_id", 0), bos_id=config.get("bos_token_id", 2),
+                   eos_id=config.get("eos_token_id", 3), unk_id=1,
+                   share_att_encoder=config.get("share_att_encoder"), share_att_decoder=config.get("share_att_decoder"),
+                   share_layer_encoder=share_layer(config.get("share_layer_encoder")),
+                   share_layer_decoder=share_layer(config.get("share_layer_decoder")), mask_cfg=mask_cfg, **factory)

@@ -115,15 +115,19 @@ class _Prunable(nn.Module):
         """The weight times the mask's sample (kernel K5), or the (folded)
         weight itself. ``rng``: a ``TrainRandom`` or ``KeyedStream`` in
         training, None in eval. Inside a ``mask_set`` that holds this layer,
-        its product from the set's launch.
+        its product from the set's launch (the next one, for a layer the
+        forward calls more than once).
 
         A deterministic sample (every mask type but a training supermask)
         computed without autograd is kept and reused until the weight or the
         mask changes (new storage or version): a decode then runs K5 once
         per tensor, not once per step."""
-        from_set = self.__dict__.pop("_set_w_eff", None)
+        from_set = self.__dict__.get("_set_w_eff")
         if from_set is not None:
-            return from_set
+            w = from_set.pop(0)
+            if not from_set:
+                del self.__dict__["_set_w_eff"]
+            return w
         cfg = self.mask_cfg
         if self.mask is None:
             if rng is not None and cfg is not None:
@@ -159,11 +163,14 @@ def masked_call_order(*modules) -> list:
 def mask_set(layers: Iterable[_Prunable], rng=None):
     """Run the masked products of ``layers`` as one set: one K5 launch each
     way (``supermask_weights``) in place of one a layer. ``layers`` in the
-    order the forward calls them: a training supermask draws each layer's
-    uniforms from ``rng`` in that order, as the layers' own calls would.
-    Inside the context each layer's next ``effective_weight`` returns its
-    product from the set; layers already in an open set, and layers whose
-    product would be cached or folded (``_per_call_mode``), are left out."""
+    order the forward calls them, a layer once per call (a shared layer's
+    slots, a "qk" layer's ``q_proj``): a training supermask draws each call's
+    uniforms from ``rng`` in that order, as the layers' own calls would, and
+    the calls of one layer take its products in turn; a deterministic sample
+    is computed once a layer and serves all its calls. Inside the context
+    each layer's next ``effective_weight`` returns its product from the set;
+    layers already in an open set, and layers whose product would be cached
+    or folded (``_per_call_mode``), are left out."""
     if rng is None and not torch.is_grad_enabled():  # eval: every product is cached or folded
         yield
         return
@@ -172,21 +179,28 @@ def mask_set(layers: Iterable[_Prunable], rng=None):
     todo = [m for m in todo if modes[m] is not None]
     if len({modes[m] for m in todo}) > 1:
         raise ValueError(f"a set takes one K5 mode; got {sorted({modes[m] for m in todo})}")
+    calls = {}
+    for m in todo:
+        calls[m] = calls.get(m, 0) + 1
     try:
         if todo:
             mode = modes[todo[0]]
-            us = [rng.mask_uniform(m, m.weight.shape, m.weight.device) for m in todo] if mode == "sample" else None
-            for i in range(0, len(todo), MAX_SET):  # sets of more than MAX_SET layers: one launch a chunk
-                chunk = todo[i:i + MAX_SET]
+            entries = todo if mode == "sample" else list(calls)
+            us = [rng.mask_uniform(m, m.weight.shape, m.weight.device) for m in entries] if mode == "sample" else None
+            products = {m: [] for m in calls}
+            for i in range(0, len(entries), MAX_SET):  # sets of more than MAX_SET products: one launch a chunk
+                chunk = entries[i:i + MAX_SET]
                 w_effs = supermask_weights([m.weight for m in chunk], [m.mask for m in chunk],
                                            None if us is None else us[i:i + MAX_SET], mode,
                                            chunk[0].mask_cfg.bypass_sigmoid_grad)
                 for m, w in zip(chunk, w_effs):
-                    m._set_w_eff = w
+                    products[m].append(w)
             del us
+            for m, ws in products.items():
+                m._set_w_eff = ws if mode == "sample" else ws * calls[m]
         yield
     finally:
-        for m in todo:
+        for m in calls:
             m.__dict__.pop("_set_w_eff", None)
 
 

@@ -138,9 +138,11 @@ def test_k14_bytes_read_the_memory_once_per_image():
     # image, q read and out written per beam row (8 x 64), the region mask
     (torch.bfloat16, 5, 2048 * 2 * 8 * 36 * 64 * 2 + 2048 * 5 * 2 * 8 * 64 * 2 + 2048 * 36),
     (torch.float32, 15, 2048 * 2 * 8 * 36 * 64 * 4 + 2048 * 15 * 2 * 8 * 64 * 4 + 2048 * 36),
+    ("kv", 5, 2048 * 1 * 8 * 36 * 64 * 2 + 2048 * 5 * 2 * 8 * 64 * 2 + 2048 * 36),  # ACORT: one array is K and V
 ])
 def test_k3_bytes_read_one_memory_row_per_image(dtype, beams, want):
-    assert chip_smoke.k3_bytes(2048, beams, dtype) == want
+    kv = dtype == "kv"
+    assert chip_smoke.k3_bytes(2048, beams, torch.bfloat16 if kv else dtype, kv=kv) == want
     if beams == 5:  # 151 MB of memory K / V and 21 MB of q and out (the kernel's note)
         assert round(2048 * 2 * 8 * 36 * 64 * 2 / 1e6) == 151 and round(2048 * 5 * 2 * 8 * 64 * 2 / 1e6) == 21
 

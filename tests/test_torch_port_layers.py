@@ -351,8 +351,9 @@ def test_k4_wrapper_checks_inputs():
 
 
 def test_kernel_table_names_sources():
-    assert set(KERNELS) == {"box_attention", "box_attention_train", "ancestry_self_attention",
-                            "grouped_cross_attention", "beam_topk", "supermask", "supermask_bwd", "add_ref_layernorm",
+    assert set(KERNELS) == {"box_attention", "box_attention_train", "box_attention_kv", "box_attention_train_kv",
+                            "ancestry_self_attention", "ancestry_self_attention_kv", "grouped_cross_attention",
+                            "grouped_cross_attention_kv", "box_attention_bwd_kv", "beam_topk", "supermask", "supermask_bwd", "add_ref_layernorm",
                             "add_ref_layernorm_bwd", "box_attention_bwd", "keyed_keep_mask", "keyed_dropout",
                             "sample_step", "cider_reward", "lstm_cell", "lstm_cell_bwd", "additive_attention",
                             "additive_attention_bwd", "vocab_log_softmax", "vocab_log_softmax_bwd",

@@ -101,9 +101,13 @@ def test_layer_plan_registry_and_unported_options():
     assert get_model("relation_transformer_prune") is get_model("relation_transformer")
     assert get_model("transformer_prune") is get_model("transformer")
     cls = get_model("relation_transformer")
-    for kw in ({"share_att_encoder": "kv"}, {"share_att_decoder": "qk"}, {"share_layer_decoder": (0, 0)}):
-        with pytest.raises(NotImplementedError):
-            cls(**KW, **kw, device="cpu")
+    # ACORT's options build (tests/test_torch_port_acort.py holds them against JAX); a plan holds one layer an index
+    shared = cls(**KW, share_att_encoder="kv", share_att_decoder="qk", share_layer_decoder=(0, 0), device="cpu")
+    assert len(shared.decoder_layers) == 1 and shared.dec_plan == (0, 0) and len(shared.box_encoder_layers) == 2
+    with pytest.raises(ValueError):  # no such layout
+        cls(**KW, share_att_encoder="vk", device="cpu")
+    with pytest.raises(NotImplementedError):  # the 4-wide raw geometry is not ported
+        cls.from_config(dict(KW, no_box_trigonometric_embedding=True), device="cpu")
     port = cls(**KW, device="cpu")
     a, m, s, b = _port_args(make_inputs())
     with pytest.raises(ValueError, match="rng"):  # a train-mode decode needs its random source

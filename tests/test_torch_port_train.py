@@ -205,6 +205,37 @@ def test_schedules_match_jax(cfg):
         np.testing.assert_allclose(psched(step), float(jsched(jnp.asarray(step, jnp.int32))), rtol=1e-6)
 
 
+@pytest.mark.parametrize("optim", ["sgd", "sgdm", "sgdmom"])
+def test_sgd_family_matches_optax(optim):
+    """Two updates of ``sgd``, ``sgdm`` and ``sgdmom`` (``torch.optim.SGD``,
+    nesterov for sgdmom) against the JAX package's optax chain on the same
+    params and gradients: the value clip at 0.1 (gradients up to 0.5 here),
+    coupled L2 weight decay 1e-2 after the clip, momentum 0.9, a step
+    schedule that halves the LR from the second update on; so momentum and
+    nesterov act past their first step. Params within 1e-6 relative (+1e-7):
+    f32 rounding of the same operations."""
+    cfg = dict(optim=optim, lr_scheduler="step", learning_rate=0.1, learning_rate_decay_start=0,
+               learning_rate_decay_every=1, learning_rate_decay_rate=0.5, weight_decay=1e-2, grad_clip=0.1,
+               optim_alpha=0.9)
+    rng = np.random.default_rng(20)
+    params = {"w": rng.normal(size=(4, 5)).astype(np.float32), "b": rng.normal(size=(5,)).astype(np.float32)}
+    grads = [{k: rng.normal(0, 0.2, size=v.shape).astype(np.float32) for k, v in params.items()} for _ in range(2)]
+    tx = jax_optim.build_weight_optimizer(cfg, jax_optim.make_schedule(cfg, steps_per_epoch=1))
+    jparams = {k: jnp.asarray(v) for k, v in params.items()}
+    jstate = tx.init(jparams)
+    ported = {k: t(v).requires_grad_() for k, v in params.items()}
+    opt = port_optim.build_weight_optimizer(ported.values(), cfg, port_optim.make_schedule(cfg, steps_per_epoch=1))
+    for step, g in enumerate(grads):
+        updates, jstate = tx.update({k: jnp.asarray(v) for k, v in g.items()}, jstate, jparams)
+        jparams = optax.apply_updates(jparams, updates)
+        for k, p in ported.items():
+            p.grad = t(g[k])
+        opt.step(step)
+        for k, p in ported.items():
+            _close(p, jparams[k], rtol=1e-6, atol=1e-7)
+            _close(p.grad, g[k], rtol=0, atol=0)  # the raw gradient stays in .grad
+
+
 def test_unported_optimizers_raise():
     p = [torch.zeros(2, requires_grad=True)]
     with pytest.raises(NotImplementedError):
