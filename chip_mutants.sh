@@ -5,8 +5,9 @@
 # log-softmax), K14 / K15 (the decoder attention, forward and backward), K3
 # (grouped cross-attention), K4 (beam log-softmax + top-K), K12 (additive
 # attention), K5 (the supermask sets), K2 (ancestry self-attention), K11 (the
-# LSTM cell), K16 (the magnitude threshold) and the kv modes of K1, K7, K2 and
-# K3 (ACORT's kv-shared layers). Each mutant is a copy of the
+# LSTM cell), K16 (the magnitude threshold), the kv modes of K1, K7, K2 and
+# K3 (ACORT's kv-shared layers), the head width 32 instances (ACORT-small) and
+# K10's radix mode. Each mutant is a copy of the
 # port under build/mutants/<name>/ with sed edits to one CUDA source (or,
 # with run_mutant_cmd, any shell edit run in its csrc/, the wrappers beside
 # it included), reusing the unmutated
@@ -22,7 +23,9 @@
 # check_kernels, for K11 check_updown_kernels, for K16
 # check_magnitude_kernels, for the kv modes check_acort_kernels (each kv mode
 # against its plain version and bit-equal to the unshared kernel given the
-# one tensor twice), all without their timings. A mutant whose checks
+# one tensor twice), for the dk 32 instances check_acort_small_kernels and
+# for K10's radix mode check_radix_reward (bit-equal to the word mode on the
+# plain regroup's words), all without their timings. A mutant whose checks
 # pass is one they cannot see; each verdict line ends "caught" (a kernel that
 # raises is caught too) or "checks pass", and the last line counts the
 # mutants caught (every verdict line of the mutant "caught") of all run.
@@ -53,6 +56,8 @@ K2="$K3"
 K11="$K12"
 K16="c.check_magnitude_kernels(g, results, timing=False)"
 KV="c.check_acort_kernels(g, dt, results, timing=False)"
+K32="c.check_acort_small_kernels(g, dt, results, timing=False)"
+K10R="c.check_radix_reward(results, timing=False)"
 ONLY=${1:-}
 picked() { [[ -z "$ONLY" || $1 =~ $ONLY ]]; }
 run_mutant() {  # name file sed-expression dtypes checks
@@ -143,10 +148,14 @@ run_mutant_cmd k16_index_in_f64 'sed -i "0,/f32 = np.float32/s//f32 = np.float64
 run_mutant k16_fma_interpolation magnitude_threshold.cu 's/th\[p\] = __fadd_rn(__fmul_rn(v_lo, lwhw\[2 \* p\]), __fmul_rn(v_hi, lwhw\[2 \* p + 1\]));/th[p] = fmaf(v_hi, lwhw[2 * p + 1], v_lo * lwhw[2 * p]);/' "torch.float32," "$K16"
 run_mutant k16_ge_in_place_of_gt magnitude_threshold.cu 's/mask\[i\] = criterion(w\[i\], stats, set.tensor0 + c.ti) > t ? 1.f : 0.f;/mask[i] = criterion(w[i], stats, set.tensor0 + c.ti) >= t ? 1.f : 0.f;/' "torch.float32," "$K16"
 run_mutant k16_last_radix_pass_dropped magnitude_threshold.cu 's/for (int pass = 0; pass < sct::kPasses; ++pass) {/for (int pass = 0; pass < sct::kPasses - 1; ++pass) {/' "torch.float32," "$K16"
-run_mutant k2_kv_values_through_own_row ancestry_self_attention.cu 's/      const float2 vv = load2(vals + (size_t)r \* H/      const float2 vv = load2(vals + (size_t)(cache_v != nullptr ? r : n) * H/' "torch.float32, torch.bfloat16" "$KV"
+run_mutant k2_kv_values_through_own_row ancestry_self_attention.cu 's/      vv.load(vals + (size_t)r \* H/      vv.load(vals + (size_t)(cache_v != nullptr ? r : n) * H/' "torch.float32, torch.bfloat16" "$KV"
 run_mutant k3_kv_half_rows_staged grouped_cross_attention.cu 's/    const int kv_rows = hn \* S;/    const int kv_rows = KV ? hn * S \/ 2 : hn * S;/' "torch.bfloat16," "$KV"
 run_mutant k7_kv_dkv_summed_in_f32 box_attention_bwd.cu 's/kacc\[nt\]\[e\] = round_to<bf16>(round_to<bf16>(kacc\[nt\]\[e\]) + round_to<bf16>(vacc\[nt\]\[e\]));/kacc[nt][e] = kacc[nt][e] + vacc[nt][e];/' "torch.bfloat16," "$KV"
 run_mutant k1_kv_v_from_q_tile box_attention.cu 's/(which < NT ? which : 1)/(which < NT ? which : 0)/' "torch.bfloat16," "$KV"
+run_mutant k10_radix_tail_filled_with_0 cider_reward.cu 's/      if (k > 0) {  \/\/ the short tail/      if (false) {  \/\/ the short tail/' "torch.float32," "$K10R"
+run_mutant k10_radix_bos_kept cider_reward.cu 's/if (d == 0 || d == bos_r) continue;/if (d == 0) continue;/' "torch.float32," "$K10R"
+run_mutant k1_dk32_q_rows_strided_by_64 box_attention.cu 's/(q_s + i \* DK + d);  \/\/ broadcast/(q_s + i * 64 + d);  \/\/ broadcast/' "torch.float32," "$K32"
+run_mutant k2_dk32_lane_pairs ancestry_self_attention.cu 's/constexpr int PL = DK \/ 32;  \/\/ dims a lane holds/constexpr int PL = 2;  \/\/ dims a lane holds/' "torch.float32, torch.bfloat16" "$K32"
 # a mutant is caught when every verdict line it printed says so
 awk '/^\[mutant\] [^ :]+ [a-z0-9]+ / { n[$2]++; if ($0 ~ / caught/) c[$2]++ }
      /^\[mutant\] [^ ]+: (sed changed nothing|the edit)/ { name = $2; sub(":", "", name); n[name]++ }

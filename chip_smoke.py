@@ -322,6 +322,34 @@ ACORT_CONFIG = dict(lr_scheduler="noam", optim="adam", d_model=ACORT_FLAGS["d_mo
 # against the CPU
 QK_ORT = dict(PAPER, num_layers=2, share_att_encoder="qk", share_att_decoder="qk")
 QK_CONFIG = dict(ACORT_CONFIG, d_model=PAPER["d_model"])
+# ACORT-small (resources/commands_acort.sh:41-52; its SCST stage :72-98): ACORT
+# at d256 / ff1024, 8 heads of 32, the same sharing, radix tokens and 26
+# positions; XE as ACORT-base's (noam at d256, dropout 0.1 / 0.5); SCST with
+# --drop_prob_src 0.1 (dropout 0.1, the model's default), step LR 5e-5 without
+# decay, Adam, clip 0.1, 15 random samples, the sample baseline, BLEU-4 weight
+# 1 with CIDEr-D, f32; at 5 x 15 (the recipe's batch) and 64 x 15 (the ORT SCST
+# cell's 960 rows). Nothing cut.
+ACORT_SMALL_FLAGS = dict(ACORT_FLAGS, d_model=256, dim_feedforward=1024)
+DK_SMALL = ACORT_SMALL_FLAGS["d_model"] // ACORT_SMALL_FLAGS["num_heads"]
+ACORT_SMALL_CONFIG = dict(ACORT_CONFIG, d_model=ACORT_SMALL_FLAGS["d_model"])
+ACORT_SMALL_SCST_DROP_SRC = 0.1
+ACORT_SMALL_SCST_CONFIG = dict(SCST_CONFIG, max_seq_length=ACORT_LEN)
+# the dk 32 rows of the kernels line (ACORT-small's instances): (name, library, entry points, JAX site)
+ACORT_SMALL_MODES = (
+    ("box_attention kv dk32", "box_attention", ("box_attention_kv", "box_attention_train_kv"),
+     "sparse_caption_tpu/models/layers.py:383"),
+    ("box_attention_bwd kv dk32", "box_attention_bwd", ("box_attention_bwd_kv",),
+     "sparse_caption_tpu/models/layers.py:383"),
+    ("ancestry_self_attention kv dk32", "ancestry_self_attention", ("ancestry_self_attention_kv",),
+     "sparse_caption_tpu/models/layers.py:296"),
+    ("grouped_cross_attention kv dk32", "grouped_cross_attention", ("grouped_cross_attention_kv",),
+     "sparse_caption_tpu/models/layers.py:244"),
+    ("decoder_attention dk32", "decoder_attention", ("decoder_attention",), "sparse_caption_tpu/models/layers.py:158"),
+    ("decoder_attention_bwd dk32", "decoder_attention_bwd", ("decoder_attention_bwd",),
+     "sparse_caption_tpu/models/layers.py:158"),
+    ("cider_reward radix", "cider_reward", ("cider_reward",), "sparse_caption_tpu/scst/device_reward.py:235"),
+)
+ACORT_SMALL_PATHS = ("acort_small_serve", "acort_small_train_step", "acort_small_scst_step")
 
 
 def log(msg: str) -> None:
@@ -391,34 +419,38 @@ def k13_bytes(rows: int, vocab: int, in_dtype, out_dtype) -> int:
     return rows * vocab * ((ei + eo) + (eo + 2 * ei)) + rows * 16
 
 
-def k14_bytes(n: int, nk: int, tk: int, dtype, keep: bool = True, valid: bool = True, tq: int = MAX_LEN) -> int:
+def k14_bytes(n: int, nk: int, tk: int, dtype, keep: bool = True, valid: bool = True, tq: int = MAX_LEN,
+              dk: int = DK, kv: bool = False) -> int:
     """Bytes K14 must move for one call: q read and out written (n query rows),
-    k and v read (nk K/V rows, one per image in cross-attention), the
-    keep-mask (n, h, tq, tk) and the key-validity flags (nk, tk)."""
-    return ((2 * n * tq + 2 * nk * tk) * HEADS * DK * ESIZE[dtype] + (n * HEADS * tq * tk if keep else 0)
-            + (nk * tk if valid else 0))
+    k and v read (nk K/V rows, one per image in cross-attention; with `kv`
+    one tensor, read once), the keep-mask (n, h, tq, tk) and the
+    key-validity flags (nk, tk)."""
+    return ((2 * n * tq + (1 if kv else 2) * nk * tk) * HEADS * dk * ESIZE[dtype]
+            + (n * HEADS * tq * tk if keep else 0) + (nk * tk if valid else 0))
 
 
-def k15_bytes(n: int, nk: int, tk: int, dtype, keep: bool = True, valid: bool = True, tq: int = MAX_LEN) -> int:
+def k15_bytes(n: int, nk: int, tk: int, dtype, keep: bool = True, valid: bool = True, tq: int = MAX_LEN,
+              dk: int = DK, kv: bool = False) -> int:
     """Bytes K15 must move for one call: q and dO read and dq written (n
-    query rows), k and v read and dk and dv written (nk K/V rows), the
-    keep-mask and the key-validity flags read."""
-    return ((3 * n * tq + 4 * nk * tk) * HEADS * DK * ESIZE[dtype] + (n * HEADS * tq * tk if keep else 0)
-            + (nk * tk if valid else 0))
+    query rows), k and v read and dk and dv written (nk K/V rows; with `kv`
+    one tensor read and its one gradient written), the keep-mask and the
+    key-validity flags read."""
+    return ((3 * n * tq + (2 if kv else 4) * nk * tk) * HEADS * dk * ESIZE[dtype]
+            + (n * HEADS * tq * tk if keep else 0) + (nk * tk if valid else 0))
 
 
-def decoder_attention_flops(n: int, tk: int, backward: bool = False, tq: int = MAX_LEN) -> int:
+def decoder_attention_flops(n: int, tk: int, backward: bool = False, tq: int = MAX_LEN, dk: int = DK) -> int:
     """Operations of K14 (S = QK^T, P V) or K15 (S recomputed, dPd = dO V^T,
     dQ = dS K, dK = dS^T Q, dV = P~^T dO) for n query rows: 2 n h tq tk dk
     a product."""
-    return (10 if backward else 4) * n * HEADS * tq * tk * DK
+    return (10 if backward else 4) * n * HEADS * tq * tk * dk
 
 
-def k3_bytes(images: int, beams: int, dtype, regions: int = REGIONS, kv: bool = False) -> int:
+def k3_bytes(images: int, beams: int, dtype, regions: int = REGIONS, kv: bool = False, dk: int = DK) -> int:
     """Bytes K3 must move for one decode step: the image's memory K and V
     read once per image (not per beam; with `kv` one array, K and V), q read
     and out written per beam row, the region mask."""
-    return ((1 if kv else 2) * images * regions + 2 * images * beams) * HEADS * DK * ESIZE[dtype] + images * regions
+    return ((1 if kv else 2) * images * regions + 2 * images * beams) * HEADS * dk * ESIZE[dtype] + images * regions
 
 
 def k4_bytes(n: int, vocab: int, k: int, dtype) -> int:
@@ -809,9 +841,10 @@ def check_kernels(gen, dtype, results: dict, timing: bool = True) -> bool:
     if dtype == torch.bfloat16:  # bit by bit: scores, their scaling, P and the output rounded as the plain version
         ok &= rounding_share("grouped_cross_attention out", out3, ref3, K3_SHARE_LIMIT, K3_FAR_LIMIT)
         ok &= smem_agrees("grouped_cross_attention", "sct_grouped_cross_attention_smem",
-                          lambda s_, rep_, kv_: k3.bf16_smem(s_, rep_, bool(kv_)),
-                          [(REGIONS, BEAM, kv_) for kv_ in (0, 1)] + [(REGIONS, BEAM_WIDTHS[-1], 0), (64, 300, 0),
-                                                                      (64, 300, 1), (REGIONS, 800, 0), (REGIONS, 800, 1)])
+                          lambda dk_, s_, rep_, kv_: k3.bf16_smem(s_, rep_, bool(kv_), dk_),
+                          [(64, REGIONS, BEAM, kv_) for kv_ in (0, 1)] + [
+                              (64, REGIONS, BEAM_WIDTHS[-1], 0), (64, 64, 300, 0), (64, 64, 300, 1),
+                              (64, REGIONS, 800, 0), (64, REGIONS, 800, 1)])
     del out3, ref3
     # the SCST sampling group (15 samples an image), a wide beam (40: three
     # 16-row tiles) and 33 regions (region flags read from device memory, not
@@ -1527,6 +1560,379 @@ def check_acort_kernels(gen, dtype, results: dict, timing: bool = True) -> bool:
     return ok
 
 
+def check_acort_small_kernels(gen, dtype, results: dict, timing: bool = True) -> bool:
+    """Head width 32 (ACORT-small's and ORT-small's d256 over 8 heads): K1
+    (eval and train variant), K7, K2, K3, K14 and K15 at dk 32, unshared and
+    in their kv modes (K14 / K15: k and v apart, and the one tensor as both),
+    against their plain versions at ACORT-small's shapes (serving: B = 2048
+    images x beam 5, 36 regions, a 26-slot cache; XE: 256 x 5 captions of 26
+    positions; the SCST group: 64 images x 15 samples), element-wise, and in
+    bf16 bit by bit (`rounding_share`), each with a planted fault; K3's, K14's
+    and K15's shared memory at dk 32 against their wrappers'. With `timing`,
+    the bf16 times of ACORT-small's instances (the kv modes, K14 / K15 with
+    the one tensor): kernel, plain version and one library call (SDPA at dk
+    32), in held turns, beside the bound."""
+    from sparse_caption_tpu_torch.kernels import ancestry_self_attention as k2
+    from sparse_caption_tpu_torch.kernels import box_attention as k1
+    from sparse_caption_tpu_torch.kernels import box_attention_bwd as k7
+    from sparse_caption_tpu_torch.kernels import decoder_attention as k14
+    from sparse_caption_tpu_torch.kernels import grouped_cross_attention as k3
+    from sparse_caption_tpu_torch.ops.attention import NEG_INF, box_relational_embedding
+
+    dev = torch.device("cuda")
+    es = ESIZE[dtype]
+    dname = str(dtype).split(".")[-1]
+    b, n, r, h, dk = BIG_BATCH, BIG_BATCH * BEAM, REGIONS, HEADS, DK_SMALL
+    t_max = ACORT_LEN
+    rnd = lambda *shape: torch.randn(*shape, generator=gen, device=dev).to(dtype)  # noqa: E731
+    turns = turns_ms if timing else no_turns
+    ok = True
+
+    def compare(name, out, ref, scale=0.0, sum_scale=0.0, fault=None):
+        """Element-wise, with the bound of the output's dtype."""
+        nonlocal ok
+        err, good, worst = close(out, ref, out.dtype, scale, sum_scale)
+        log(f"[kernel] {name} dk{dk} {dname}: max_abs_err={err:.3e} worst err/allowed={worst:.3f} "
+            f"median|ref|={ref.float().abs().median().item():.3e} scale={max(scale, sum_scale):.3f} "
+            f"{'ok' if good else 'FAIL'}")
+        ok &= good
+        if fault is not None:
+            ok &= fault_caught(f"{name} dk{dk}", fault, ref, out.dtype, scale, sum_scale)
+        return err
+
+    def bits(name, out, ref, share, far):
+        nonlocal ok
+        if dtype == torch.bfloat16:
+            ok &= rounding_share(f"{name} dk{dk}", out, ref, share, far)
+
+    def record(key, err, times, nbytes, ops, lib_note):
+        if not timing:
+            return
+        ms, plain_ms, lib_ms = times
+        bnd, by = bound_ms(nbytes, ops)
+        log(f"[kernel] {key} {dname}: ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms={lib_ms:.4f} ({lib_note}) "
+            f"bound_ms={bnd:.4f} ({by}; held windows in turns)")
+        if dtype == torch.bfloat16:
+            results[key] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bnd,
+                                bound_by=by)
+
+    # K1 at ACORT-small serving, unshared (ORT-small) and kv (ACORT-small)
+    boxes = random_boxes(gen, b, r, dev)
+    wg_w, wg_b = bounded_wg(gen, h, dtype)
+    mask = random_region_mask(gen, b, r, dev)
+    mask[0] = False
+    for kv in (False, True):
+        q, k, v = rnd(b, h, r, dk), rnd(b, h, r, dk), rnd(b, h, r, dk)
+        v_in, tag = (None, "box_attention kv") if kv else (v, "box_attention")
+        out = k1.box_attention(q, k, v_in, boxes, wg_w, wg_b, mask)
+        ref = k1.box_attention_plain(q, k, v_in, boxes, wg_w, wg_b, mask)
+        err = compare(tag, out, ref, rms(k if kv else v),
+                      fault=k1.box_attention_plain(q, k, q, boxes, wg_w, wg_b, mask))  # V read from another tensor
+        bits(f"{tag} out", out, ref, K1_SHARE_LIMIT, K1_FAR_LIMIT)
+        if kv:
+            bias = k1.box_log_bias_plain(boxes, wg_w, wg_b, dtype)
+            float_mask = bias.masked_fill(~mask[:, None, None, :], NEG_INF).to(dtype).contiguous()
+            record("box_attention kv dk32", err,
+                   turns(lambda: k1.box_attention(q, k, None, boxes, wg_w, wg_b, mask),
+                         lambda: k1.box_attention_plain(q, k, None, boxes, wg_w, wg_b, mask),
+                         lambda: F.scaled_dot_product_attention(q, k, k, attn_mask=float_mask)),
+                   3 * b * h * r * dk * es + b * r * 4 * 4 + b * r + h * 65 * es,
+                   flops((dtype, 4 * b * h * r * r * dk), (torch.float32, 2 * b * r * r * 64 * h)),
+                   "SDPA, float bias given")
+            del bias, float_mask
+        del q, k, v, out, ref
+
+    # K1's train variant and K7 at the XE throughput batch, attention dropout 0.1
+    bt = TRAIN_BIG_BATCH
+    boxes = random_boxes(gen, bt, r, dev)
+    wg_w, wg_b = bounded_wg(gen, h, dtype)
+    mask = random_region_mask(gen, bt, r, dev)
+    mask[0] = False
+    keep = torch.rand(bt, h, r, r, generator=gen, device=dev) < 0.9
+    for kv in (False, True):
+        q, k, v, dout = rnd(bt, h, r, dk), rnd(bt, h, r, dk), rnd(bt, h, r, dk), rnd(bt, h, r, dk)
+        tag = "box_attention_bwd kv" if kv else "box_attention_bwd"
+
+        def k7_run(fn, keep_=keep):
+            ins = leaves(q, k, wg_w, wg_b) if kv else leaves(q, k, wg_w, wg_b, v)
+            o = fn(ins[0], ins[1], None if kv else ins[4], boxes, ins[2], ins[3], mask, keep_, 0.9)
+            return o.detach(), torch.autograd.grad(o, ins, dout)
+
+        kout, kg = k7_run(k7.box_attention_train)
+        pout, pg = k7_run(k1.box_attention_plain)
+        _, fg = k7_run(k1.box_attention_plain, None)  # fault: the dropout left out
+        err = compare(f"{tag} train fwd", kout, pout, rms(k if kv else v))
+        names = ("dq", "dkv" if kv else "dk", "d wg_w", "d wg_b") + (() if kv else ("dv",))
+        for i, nm in enumerate(names):
+            peak = pg[i].float().abs().max().item()
+            scale, sum_scale = (0.0, peak) if nm.startswith("d wg") else (peak, 0.0)
+            err = max(err, compare(f"{tag} {nm}", kg[i], pg[i], scale, sum_scale, fault=fg[i] if i == 0 else None))
+            if not nm.startswith("d wg"):
+                bits(f"{tag} {nm}", kg[i], pg[i], K7_SHARE_LIMIT, K7_FAR_LIMIT)
+        bits(f"{tag} train fwd", kout, pout, K1_SHARE_LIMIT, K1_FAR_LIMIT)
+        if kv:
+            geo = box_relational_embedding(boxes)
+            log_bias = torch.log(torch.clamp(torch.relu(F.linear(geo.to(dtype), wg_w, wg_b)), min=1e-6))
+            float_mask = log_bias.permute(0, 3, 1, 2).masked_fill(~mask[:, None, None, :], NEG_INF).to(dtype)
+            graphs = []
+            for fn in (k7.box_attention_train, k1.box_attention_plain):
+                ins = leaves(q, k, wg_w, wg_b)
+                graphs.append((fn(ins[0], ins[1], None, boxes, ins[2], ins[3], mask, keep, 0.9), ins))
+            ins_l = leaves(q, k)
+            graphs.append((F.scaled_dot_product_attention(ins_l[0], ins_l[1], ins_l[1],
+                                                          attn_mask=float_mask.contiguous()), ins_l))
+            record("box_attention_bwd kv dk32", err,
+                   turns(*(lambda o=o, i=i: torch.autograd.grad(o, i, dout, retain_graph=True) for o, i in graphs)),
+                   5 * bt * h * r * dk * es + bt * h * r * r + bt * r * 16 + bt * r + 2 * h * 65 * es,
+                   flops((dtype, 5 * 2 * bt * h * r * r * dk), (torch.float32, 2 * 2 * bt * r * r * 64 * h)),
+                   "SDPA backward, float bias given")
+            if timing and dtype == torch.bfloat16:
+                with torch.no_grad():
+                    fwd = turns_ms(lambda: k7.box_attention_train(q, k, None, boxes, wg_w, wg_b, mask, keep, 0.9))
+                results["box_attention_bwd kv dk32"].update(train_fwd_ms=fwd[0])
+                log(f"[kernel] box_attention train kv dk32 fwd {dname}: ms={fwd[0]:.4f} (held windows)")
+            del graphs, ins_l, float_mask, log_bias, geo
+        del q, k, v, dout, kg, pg, fg
+    del keep
+
+    # K2 at ACORT-small serving's cache: steps 5 and 25 of 26, unshared and kv
+    anc = torch.randint(0, BEAM, (b, BEAM, t_max), generator=gen, device=dev, dtype=torch.int32)
+    for kv in (False, True):
+        q, ck, cv = rnd(n, h, dk), rnd(n, h, t_max, dk), rnd(n, h, t_max, dk)
+        cv_in, tag = (None, "ancestry_self_attention kv") if kv else (cv, "ancestry_self_attention")
+        for step in (5, t_max - 1):
+            anc_t = anc.clone()
+            anc_t[:, :, step] = torch.arange(BEAM, device=dev, dtype=torch.int32)
+            out2 = k2.ancestry_self_attention(q, ck, cv_in, anc_t, step)
+            ref2 = k2.ancestry_self_attention_plain(q, ck, cv_in, anc_t, step)
+            err = compare(f"{tag} t={step}", out2, ref2, rms(ck if kv else cv),
+                          fault=k2.ancestry_self_attention_plain(q, ck, cv_in, None, step))  # ancestry ignored
+            bits(f"{tag} t={step} out", out2, ref2, K2_SHARE_LIMIT, K2_FAR_LIMIT)
+        if kv:
+            rows = (anc_t.long() + torch.arange(b, device=dev)[:, None, None] * BEAM).reshape(n, t_max)
+            slots = torch.arange(t_max, device=dev)
+            kg_ = ck.transpose(1, 2)[rows, slots].transpose(1, 2).contiguous()  # the physically reordered cache
+            touched = torch.unique(rows * t_max + slots).numel()
+            q4 = q[:, :, None]
+            record("ancestry_self_attention kv dk32", err,
+                   turns(lambda: k2.ancestry_self_attention(q, ck, None, anc_t, t_max - 1),
+                         lambda: k2.ancestry_self_attention_plain(q, ck, None, anc_t, t_max - 1),
+                         lambda: F.scaled_dot_product_attention(q4, kg_, kg_)),
+                   touched * h * dk * es + 2 * n * h * dk * es + n * t_max * 4,
+                   flops((dtype, 4 * n * h * t_max * dk)), "SDPA on the gathered cache as K and V")
+            del kg_, q4
+        del q, ck, cv
+
+    # K3 at ACORT-small serving and at the SCST sampling group (64 x 15), unshared and kv
+    for kv in (False, True):
+        tag = "grouped_cross_attention kv" if kv else "grouped_cross_attention"
+        for bx, rep_ in ((b, BEAM), (SCST_BATCHES[-1], SCST_SAMPLES)):
+            q, mk, mv = rnd(bx * rep_, h, dk), rnd(bx, h, r, dk), rnd(bx, h, r, dk)
+            mv_in = None if kv else mv
+            valid = random_region_mask(gen, bx, r, dev)
+            out3 = k3.grouped_cross_attention(q, mk, mv_in, valid)
+            ref3 = k3.grouped_cross_attention_plain(q, mk, mv_in, valid)
+            err = compare(f"{tag} {bx}x{rep_}", out3, ref3, rms(mk if kv else mv),
+                          fault=k3.grouped_cross_attention_plain(q, mk, mv_in, torch.ones_like(valid)))
+            bits(f"{tag} {bx}x{rep_} out", out3, ref3, K3_SHARE_LIMIT, K3_FAR_LIMIT)
+            if kv and bx == b:
+                qg = q.reshape(b, BEAM, h, dk).transpose(1, 2)
+                cross_mask = torch.zeros(b, 1, 1, r, device=dev, dtype=dtype).masked_fill(~valid[:, None, None, :],
+                                                                                         NEG_INF)
+                record("grouped_cross_attention kv dk32", err,
+                       turns(lambda: k3.grouped_cross_attention(q, mk, None, valid),
+                             lambda: k3.grouped_cross_attention_plain(q, mk, None, valid),
+                             lambda: F.scaled_dot_product_attention(qg, mk, mk, attn_mask=cross_mask)),
+                       k3_bytes(b, BEAM, dtype, kv=True, dk=dk), flops((dtype, 4 * n * h * r * dk)),
+                       "SDPA, the memory as K and V")
+                del qg, cross_mask
+            del q, mk, mv, out3, ref3
+    if dtype == torch.bfloat16:
+        ok &= smem_agrees("grouped_cross_attention", "sct_grouped_cross_attention_smem",
+                          lambda dk_, s_, rep_, kv_: k3.bf16_smem(s_, rep_, bool(kv_), dk_),
+                          [(dk, r, BEAM, 0), (dk, r, BEAM, 1), (dk, r, SCST_SAMPLES, 1), (dk, 64, 500, 0),
+                           (dk, 64, 700, 1), (dk, r, 1400, 0)])
+
+    # K14 / K15 at ACORT-small's XE shape (256 x 5 captions of 26 positions, dropout 0.1) and at the
+    # SCST replay's (64 x 15 samples, causal-only self, no dropout); k and v apart, then the one tensor
+    tq = t_max
+    errs = {"fwd": 0.0, "bwd": 0.0}  # ACORT-small's XE calls (the one tensor as k and v), for the kernels line
+    for bx, group, train in ((TRAIN_BIG_BATCH, SEQ_PER_IMG, True), (SCST_BATCHES[-1], SCST_SAMPLES, False)):
+        nx = bx * group
+        for kind in ("self", "cross"):
+            nk, tk = (nx, tq) if kind == "self" else (bx, r)
+            if kind == "self":
+                valid = None if not train else (torch.arange(tq, device=dev)[None]
+                                                < torch.randint(2, tq + 1, (nx, 1), generator=gen, device=dev))
+            else:
+                valid = random_region_mask(gen, bx, r, dev)
+            keep = torch.rand(nx, h, tq, tk, generator=gen, device=dev) < 0.9 if train else None
+            for kv in (False, True):
+                qx, kx, vx, dox = rnd(nx, h, tq, dk), rnd(nk, h, tk, dk), rnd(nk, h, tk, dk), rnd(nx, h, tq, dk)
+                tag = f"decoder_attention{' kv' if kv else ''} {kind} {nx}x{tq}"
+
+                def run(fn, keep_=keep):
+                    if kv:
+                        return fwd_bwd(lambda a_, b_: fn(a_, b_, b_, valid, kind == "self", keep_, 0.9),
+                                       leaves(qx, kx), dox)
+                    return fwd_bwd(lambda a_, b_, c_: fn(a_, b_, c_, valid, kind == "self", keep_, 0.9),
+                                   leaves(qx, kx, vx), dox)
+
+                (ko,), kgx = run(k14.decoder_attention)
+                (po,), pgx = run(k14.decoder_attention_plain)
+                # fault: the keep-mask left out (train), else the key mask
+                if train:
+                    (fo,), _ = run(k14.decoder_attention_plain, None)
+                else:
+                    fo = k14.decoder_attention_plain(qx, kx, kx if kv else vx, None, False, None, 0.9)
+                err = compare(tag, ko, po, rms(kx if kv else vx), fault=fo)
+                if kv and train:
+                    errs["fwd"] = max(errs["fwd"], err)
+                for i, nm in enumerate(("dq", "dkv") if kv else ("dq", "dk", "dv")):
+                    err = compare(f"{tag} {nm}", kgx[i], pgx[i], pgx[i].float().abs().max().item())
+                    if kv and train:
+                        errs["bwd"] = max(errs["bwd"], err)
+                    bits(f"{tag} {nm}", kgx[i], pgx[i], K15_SHARE_LIMIT, K15_FAR_LIMIT)
+                bits(f"{tag} out", ko, po, K14_SHARE_LIMIT, K14_FAR_LIMIT)
+                del qx, kx, vx, dox, ko, kgx, po, pgx, fo
+    if dtype == torch.bfloat16:
+        ok &= smem_agrees("decoder_attention_bwd", "sct_decoder_attention_bwd_smem",
+                          lambda dk_, *shape: k14.bf16_backward_smem(*shape, dk=dk_),
+                          [(dk, tq, tq, 1), (dk, tq, r, SEQ_PER_IMG), (dk, tq, r, SCST_SAMPLES), (dk, 64, 64, 8),
+                           (dk, 64, 64, 9)])
+        ok &= smem_agrees("decoder_attention", "sct_decoder_attention_smem",
+                          lambda dk_, *shape: k14.bf16_forward_smem(*shape, dk=dk_),
+                          [(dk, tq, tq, 1, 1), (dk, tq, r, SEQ_PER_IMG, 1), (dk, tq, r, SCST_SAMPLES, 0),
+                           (dk, 64, 64, 24, 1), (dk, 64, 64, 25, 1)])
+    if not timing:
+        return ok
+
+    # times: one decoder slot's pair of calls at ACORT-small's XE shape, the one tensor as k and v
+    bx, nx = TRAIN_BIG_BATCH, TRAIN_BIG_BATCH * SEQ_PER_IMG
+    pair = []
+    for kind in ("self", "cross"):
+        nk, tk = (nx, tq) if kind == "self" else (bx, r)
+        valid = (torch.arange(tq, device=dev)[None] < torch.randint(2, tq + 1, (nx, 1), generator=gen, device=dev)
+                 if kind == "self" else random_region_mask(gen, bx, r, dev))
+        keep = torch.rand(nx, h, tq, tk, generator=gen, device=dev) < 0.9
+        pair.append((rnd(nx, h, tq, dk), rnd(nk, h, tk, dk), valid, kind == "self", keep, rnd(nx, h, tq, dk)))
+
+    def library_args(q, kvx, valid, causal):
+        g = q.shape[0] // kvx.shape[0]
+        m = valid.repeat_interleave(g, 0)[:, None, None, :]
+        if causal:
+            m = m & torch.tril(torch.ones(tq, tq, dtype=torch.bool, device=dev))
+        return q, kvx.repeat_interleave(g, 0), m
+
+    graphs = {"kernel": [], "plain": [], "library": []}
+    for q, kvx, valid, causal, keep, dout in pair:
+        for impl, fn in (("kernel", k14.decoder_attention), ("plain", k14.decoder_attention_plain)):
+            ins = leaves(q, kvx)
+            graphs[impl].append((fn(ins[0], ins[1], ins[1], valid, causal, keep, 0.9), ins, dout))
+        lq, lkv, lm = library_args(q, kvx, valid, causal)
+        ins = leaves(lq, lkv)
+        graphs["library"].append((F.scaled_dot_product_attention(ins[0], ins[1], ins[1], attn_mask=lm), ins, dout))
+    lib_in = [library_args(q, kvx, valid, causal) for q, kvx, valid, causal, _, _ in pair]
+
+    def forward(fn):
+        for q, kvx, valid, causal, keep, _ in pair:
+            fn(q, kvx, kvx, valid, causal, keep, 0.9)
+
+    def backward(impl):
+        for out, ins, dout in graphs[impl]:
+            torch.autograd.grad(out, ins, dout, retain_graph=True)
+
+    with torch.no_grad():
+        fwd = turns_ms(lambda: forward(k14.decoder_attention), lambda: forward(k14.decoder_attention_plain),
+                       lambda: [F.scaled_dot_product_attention(lq, lkv, lkv, attn_mask=lm) for lq, lkv, lm in lib_in])
+    bwd = turns_ms(lambda: backward("kernel"), lambda: backward("plain"), lambda: backward("library"))
+    shapes = [(nx, nx, tq), (nx, bx, r)]
+    for key, times, nbytes, ops, err in (
+            ("decoder_attention dk32", fwd, sum(k14_bytes(nq, nk, tk, dtype, tq=tq, dk=dk, kv=True)
+                                                for nq, nk, tk in shapes),
+             sum(decoder_attention_flops(nq, tk, tq=tq, dk=dk) for nq, _, tk in shapes), errs["fwd"]),
+            ("decoder_attention_bwd dk32", bwd, sum(k15_bytes(nq, nk, tk, dtype, tq=tq, dk=dk, kv=True)
+                                                    for nq, nk, tk in shapes),
+             sum(decoder_attention_flops(nq, tk, backward=True, tq=tq, dk=dk) for nq, _, tk in shapes),
+             errs["bwd"])):
+        record(key, err, times, nbytes, flops((dtype, ops)), "SDPA, bool mask, K/V repeated")
+    del pair, graphs, lib_in
+    torch.cuda.empty_cache()
+    return ok
+
+
+def check_radix_reward(results: dict, timing: bool = True) -> bool:
+    """K10's radix mode (ACORT's digit rows, regrouped into words in the
+    kernel's prologue) at ACORT-small's SCST shape, 64 images x 15 samples of
+    25 digits against 5 refs each: bit-equal to K10's word mode run on the
+    plain regroup's word ids (`radix_to_word`), and within the reward bounds
+    of the plain version; rows with eos first and last, pad and bos mid-row,
+    a one-digit tail, words at and past the <unk> slot, and refs' own digits
+    (rewards far from 0). Planted fault: the word mode on a regroup that does
+    not stop at eos. With `timing`: the radix mode, the word mode on the
+    same rows' words, and the plain version (regroup + reward), in held turns."""
+    from sparse_caption_tpu_torch.kernels import cider_reward as k10
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device="cpu").manual_seed(SEED + 10)
+    with tempfile.TemporaryDirectory() as log_dir:
+        tok, _ = acort_tokenizer(log_dir, ACORT_SMALL_FLAGS)
+    b, steps = SCST_BATCHES[-1], ACORT_LEN - 1
+    reward, pack = scst_reward_setup(b, dev, tok=tok)
+    spec = reward.regroup
+    base, eos, bos = spec.base, spec.base + 2, spec.base + 1
+    rows = b * SCST_SAMPLES
+    ids = torch.randint(1, base + 1, (rows, steps), generator=gen, dtype=torch.int32)
+    for i in range(0, rows, 4):  # every fourth row: digits of one of its image's refs (then eos)
+        digits = tok.encode(f"w{(i * 7) % 196 + 4} w{(i * 3) % 196 + 4} w{i % 196 + 4}", max_seq_length=ACORT_LEN)[1:]
+        ids[i, : len(digits)] = torch.tensor(digits[:steps], dtype=torch.int32)
+    eos_at = torch.randint(1, steps + 3, (rows, 1), generator=gen)
+    ids = torch.where((torch.arange(steps)[None] == eos_at) & (torch.arange(rows)[:, None] % 4 != 0),
+                      torch.full_like(ids, eos), ids)
+    ids[1, 0], ids[2, -1] = eos, eos
+    ids[3::9, 3], ids[5::11, 6] = 0, bos
+    ids[6, :] = 0
+    ids[6, :2] = torch.tensor([bos, 2])  # a one-digit tail
+    ids[7, :4] = torch.tensor([spec.n_words // base + 1, spec.n_words % base, base, base])  # the <unk> slot, past it
+    ids = ids.to(dev)
+    img = torch.arange(b, device=dev, dtype=torch.int32).repeat_interleave(SCST_SAMPLES)
+    tbl = reward.table.to(dev)
+    tensors = {"hi": tbl.hi, "lo": tbl.lo, "val": tbl.val}
+    kw = dict(probe=reward.table.probe, ref_len=reward.table.ref_len, bleu_weight=SCST_BLEU)
+    words = k10.radix_to_word(ids, spec)
+    got = k10.cider_reward(ids, img, tensors, pack, radix=spec, **kw)
+    word_mode = k10.cider_reward(words, img, tensors, pack, **kw)
+    ref = k10.cider_reward_plain(words.cpu(), img.cpu(), {k: v.cpu() for k, v in tensors.items()},
+                                 {k: v.cpu() for k, v in pack.items()}, **kw).to(dev)
+    equal = bool(torch.equal(got, word_mode))
+    err = (got - ref).abs()
+    within = bool((err <= REWARD_RTOL * ref.abs() + REWARD_ATOL).all())
+    no_eos = torch.where(ids == eos, torch.ones_like(ids), ids)  # the fault: digits past eos kept
+    fault = k10.cider_reward(k10.radix_to_word(no_eos, spec), img, tensors, pack, **kw)
+    caught = not torch.equal(fault, got)
+    log(f"[kernel] cider_reward radix: {rows} rows of {steps} digits ({words.shape[1]} word slots), rewards in "
+        f"[{ref.min().item():.4f}, {ref.max().item():.4f}], {int((ref > 0.01).sum())} above 0.01; bit-equal to the "
+        f"word mode on the plain regroup's words={equal}; max_abs_err vs the plain version {err.max().item():.3e} "
+        f"(rtol {REWARD_RTOL}, atol {REWARD_ATOL}) {'ok' if equal and within else 'FAIL'}")
+    log(f"[fault] cider_reward radix without the eos truncation: {'caught' if caught else 'MISSED'}")
+    ok = equal and within and caught and int((ref > 0.01).sum()) > 0
+    if timing:
+        t_r, t_w, t_p = turns_ms(lambda: k10.cider_reward(ids, img, tensors, pack, radix=spec, **kw),
+                                 lambda: k10.cider_reward(words, img, tensors, pack, **kw),
+                                 lambda: k10.cider_reward_plain(k10.radix_to_word(ids, spec), img, tensors, pack, **kw))
+        ghi, glo, _, _, _ = k10.grams(words, 3, 0, 2)
+        slots = ((k10.mix(ghi, glo) & (reward.table.size - 1))[..., None]
+                 + torch.arange(reward.table.probe, device=dev)) % reward.table.size
+        pack_bytes = sum(v[torch.unique(img.long())].numel() * v.element_size() for v in pack.values())
+        bnd, by = bound_ms(ids.numel() * 4 + img.numel() * 4 + pack_bytes + torch.unique(slots).numel() * 12
+                           + rows * 4, {})
+        log(f"[kernel] cider_reward radix: ms={t_r:.4f} word_mode_ms={t_w:.4f} (the same rows' words) "
+            f"plain_ms={t_p:.4f} library_ms=null bound_ms={bnd:.4f} ({by}; held windows in turns)")
+        results["cider_reward radix"] = dict(max_abs_err=err.max().item(), ms=t_r, word_mode_ms=t_w, plain_ms=t_p,
+                                             library_ms=None, bound_ms=bnd, bound_by=by)
+    return ok
+
+
 def check_decoder_attention_kernels(gen, results: dict, timing: bool = True) -> bool:
     """K14 and K15 against the plain version with autograd: at the ORT XE
     step's shape (256 images x 5 captions) in f32 and bf16 and at the SCST
@@ -1669,11 +2075,14 @@ def check_decoder_attention_kernels(gen, results: dict, timing: bool = True) -> 
             if dtype == torch.bfloat16:
                 ok &= p_agreement(label, args)
             del args, dout, kout, kg, pout, pg
-    ok &= smem_agrees("decoder_attention_bwd", "sct_decoder_attention_bwd_smem", k14.bf16_backward_smem,
-                      [(tq, tq, 1), (tq, r, SEQ_PER_IMG), (tq, r, SCST_SAMPLES), (64, 64, 5), (64, 64, 6)])
-    ok &= smem_agrees("decoder_attention", "sct_decoder_attention_smem", k14.bf16_forward_smem,
-                      [(tq, tq, 1, 1), (tq, r, SEQ_PER_IMG, 1), (tq, r, SCST_SAMPLES, 0), (tq, r, SCST_SAMPLES, 1),
-                       (64, 64, 16, 1), (64, 64, 17, 1), (20, 64, 3, 1)])
+    ok &= smem_agrees("decoder_attention_bwd", "sct_decoder_attention_bwd_smem",
+                      lambda dk_, *shape: k14.bf16_backward_smem(*shape, dk=dk_),
+                      [(64, tq, tq, 1), (64, tq, r, SEQ_PER_IMG), (64, tq, r, SCST_SAMPLES), (64, 64, 64, 5),
+                       (64, 64, 64, 6)])
+    ok &= smem_agrees("decoder_attention", "sct_decoder_attention_smem",
+                      lambda dk_, *shape: k14.bf16_forward_smem(*shape, dk=dk_),
+                      [(64, tq, tq, 1, 1), (64, tq, r, SEQ_PER_IMG, 1), (64, tq, r, SCST_SAMPLES, 0),
+                       (64, tq, r, SCST_SAMPLES, 1), (64, 64, 64, 16, 1), (64, 64, 64, 17, 1), (64, 20, 64, 3, 1)])
     if not timing:
         return ok
 
@@ -2272,13 +2681,14 @@ def check_scst_kernels(gen, results: dict) -> bool:
     return ok
 
 
-def scst_reward_setup(b: int, device, seed: int = 2, gts=None):
+def scst_reward_setup(b: int, device, seed: int = 2, gts=None, tok=None):
     """(df table, ref pack on `device`) of b images with 5 synthetic refs
     each (token ids as words, bench.py:354-362), or the given `gts`, and the
-    df of those refs."""
+    df of those refs. With `tok` (ACORT's radix tokenizer): (the run's
+    DeviceReward, its ref pack), the reward regrouping digits in K10."""
     from sparse_caption_tpu_torch.kernels import _build
     from sparse_caption_tpu_torch.metrics.cider import build_df_pickle, load_df_pickle
-    from sparse_caption_tpu_torch.scst.device_reward import DfTable, scst_ref_pack
+    from sparse_caption_tpu_torch.scst.device_reward import DeviceReward, DfTable, scst_ref_pack
 
     rng = np.random.default_rng(seed)
     if gts is None:
@@ -2288,6 +2698,9 @@ def scst_reward_setup(b: int, device, seed: int = 2, gts=None):
     path.parent.mkdir(parents=True, exist_ok=True)
     build_df_pickle(gts, str(path))
     df, ref_len = load_df_pickle(str(path))
+    if tok is not None:
+        reward = DeviceReward(tok, df, ref_len, {"scst_bleu_weight": list(SCST_BLEU)})
+        return reward, reward.ref_pack(gts, device)
     tok2id = {w: i for i, w in enumerate(["<pad>", "<unk>", "<bos>", "<eos>"])}
     tok2id.update({f"w{i}": i for i in range(4, PAPER["vocab_size"])})
     table = DfTable.build(df, ref_len, tok2id)
@@ -2333,17 +2746,19 @@ def build_updown_scst(seed: int):
     return freeze_masks(model, gen, UPDOWN_SCST_SPARSITY, "updown scst")
 
 
-def make_scst(model, table, samples: int = SCST_SAMPLES):
+def make_scst(model, table, samples: int = SCST_SAMPLES, config=SCST_CONFIG):
+    """The SCST step of `model` with the reward of `table` (a DfTable, or an
+    ACORT run's DeviceReward)."""
     from sparse_caption_tpu_torch.engine.optim import build_mask_optimizer, build_weight_optimizer, make_schedule
     from sparse_caption_tpu_torch.engine.training import make_scst_step
     from sparse_caption_tpu_torch.ops.masked import split_params
-    from sparse_caption_tpu_torch.scst.device_reward import make_reward_fn
+    from sparse_caption_tpu_torch.scst.device_reward import DeviceReward, make_reward_fn
 
-    config = dict(SCST_CONFIG, scst_num_samples=samples)
+    config = dict(config, scst_num_samples=samples)
     params, masks = split_params(model)
     opt_w = build_weight_optimizer(params.values(), config, make_schedule(config))
     opt_m = build_mask_optimizer(masks.values(), config, trainable=False)
-    reward_fn = make_reward_fn(table, bleu_weight=SCST_BLEU)
+    reward_fn = table.fn if isinstance(table, DeviceReward) else make_reward_fn(table, bleu_weight=SCST_BLEU)
     step = make_scst_step(model, opt_w, opt_m, config, reward_fn)
     step.reward = reward_fn
     return step
@@ -2393,15 +2808,17 @@ def updown_scst_batch(gen, b, pack):
     return dict(att_feats=att, att_masks=mask, fc_feats=fc, ref_pack=pack)
 
 
-def run_scst_phase(model, gen, b, expected, samples=SCST_SAMPLES, make=scst_batch, label="scst") -> tuple:
+def run_scst_phase(model, gen, b, expected, samples=SCST_SAMPLES, make=scst_batch, label="scst", tok=None,
+                   config=SCST_CONFIG) -> tuple:
     """1 warm-up + SCST_STEPS steps at b x samples; every step's launches
     must equal `expected`, and the plain scaled_dot_attention never runs.
+    `tok`: ACORT's radix tokenizer, whose device reward scores the digits.
     Returns (counts per step, step, state, batch)."""
     from sparse_caption_tpu_torch.engine.training import TrainState
     from sparse_caption_tpu_torch.kernels import launch_counts, reset_launch_counts
 
-    table, pack = scst_reward_setup(b, "cuda")
-    step = make_scst(model, table, samples)
+    table, pack = scst_reward_setup(b, "cuda", tok=tok)
+    step = make_scst(model, table, samples, config)
     batch = make(gen, b, pack)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -2425,7 +2842,7 @@ def run_scst_phase(model, gen, b, expected, samples=SCST_SAMPLES, make=scst_batc
     return expected, step, state, batch
 
 
-def replay_check(model, gen, make=make_batch, samples=SCST_SAMPLES, label="replay") -> bool:
+def replay_check(model, gen, make=make_batch, samples=SCST_SAMPLES, label="replay", max_len=MAX_LEN) -> bool:
     """At 5 x samples with dropout on: the replay's log-probs at non-pad
     positions equal the sampling decode's (ORT: K14 over the sequence vs
     K2/K3 over the cache; Up-Down: the same unrolled steps with and without
@@ -2434,25 +2851,27 @@ def replay_check(model, gen, make=make_batch, samples=SCST_SAMPLES, label="repla
     from sparse_caption_tpu_torch.ops.rng import KeyedStream, decode_train_keys
 
     batch = make(gen, SCST_BATCHES[0], torch.float32)
-    opt = {"num_random_sample": samples, "beam_size": 0, "max_seq_length": MAX_LEN, "decode_train": True}
+    opt = {"num_random_sample": samples, "beam_size": 0, "max_seq_length": max_len, "decode_train": True}
     with torch.no_grad():
         memory = model.encode(*batch, train=True, rng=KeyedStream(11))
         seq, seq_lp = generate(model, memory, opt, rng=12)
-        flat = seq.reshape(-1, MAX_LEN).long()
+        flat = seq.reshape(-1, max_len).long()
         seqs_in = torch.cat([torch.full((flat.shape[0], 1), model.bos_id, device=flat.device), flat], 1)
         lp = model.decode_teacher_forced(memory, seqs_in, train=True, rng=KeyedStream(decode_train_keys(12).dropout))
         at = lp.gather(2, flat[..., None])[..., 0]
     valid = flat != model.pad_id
-    gap = (at - seq_lp.reshape(-1, MAX_LEN))[valid].abs().max().item()
+    gap = (at - seq_lp.reshape(-1, max_len))[valid].abs().max().item()
     log(f"[{label}] f32 {SCST_BATCHES[0]}x{samples}: {int(valid.sum())} non-pad positions, worst |replay - "
         f"sampling| log-prob {gap:.3e} (tol {REPLAY_LP_TOL}) {'ok' if gap <= REPLAY_LP_TOL else 'FAIL'}")
     return gap <= REPLAY_LP_TOL
 
 
-def scst_whole_step_check(seed: int, gen, build=build_scst_model, make=make_batch, label="scst-step") -> bool:
+def scst_whole_step_check(seed: int, gen, build=build_scst_model, make=make_batch, label="scst-step", tok=None,
+                          config=SCST_CONFIG, max_len=MAX_LEN) -> bool:
     """One f32 SCST step at 2 x 3 with dropout on, on the card and on the CPU
     from the same weights and seed (`build`; inputs from `make` in the
-    model's COLLATE_FIELDS order); the card's tokens feed both replays."""
+    model's COLLATE_FIELDS order); the card's tokens feed both replays.
+    `tok`: ACORT's radix tokenizer (its device reward; refs from its decode)."""
     from sparse_caption_tpu_torch.engine.training import TrainState
 
     from sparse_caption_tpu_torch.scst.device_reward import DfTable
@@ -2465,22 +2884,25 @@ def scst_whole_step_check(seed: int, gen, build=build_scst_model, make=make_batc
     # that the leave-one-out rewards, and with them the gradients, are far
     # from 0 (the near-uniform policy's loss stays near 0: lp is ~ -log V at
     # every token and the rewards of an image sum to 0)
-    res = make_scst(model_gpu, DfTable.build({}, 0.0, {}), SCST_CHECK_SAMPLES).sample_fn(TrainState(), inputs)
+    res = make_scst(model_gpu, DfTable.build({}, 0.0, {}), SCST_CHECK_SAMPLES, config).sample_fn(TrainState(), inputs)
     rng = np.random.default_rng(seed)
     gts = []
     for rows in res["sample"].cpu().tolist():
-        first = rows[0][:rows[0].index(3)] if 3 in rows[0] else rows[0]
-        gts.append([" ".join(f"w{i}" for j, i in enumerate(first) if j % 3 != 2 and i > 3)]
-                   + [" ".join(f"w{i}" for i in rng.integers(4, 200, 10)) for _ in range(4)])
-    table, pack = scst_reward_setup(SCST_CHECK_BATCH, "cuda", gts=gts)
+        if tok is None:
+            first = rows[0][:rows[0].index(3)] if 3 in rows[0] else rows[0]
+            ref0 = " ".join(f"w{i}" for j, i in enumerate(first) if j % 3 != 2 and i > 3)
+        else:  # the radix digits decoded to words
+            ref0 = " ".join(w for j, w in enumerate(tok.decode(rows[0]).split()) if j % 3 != 2 and w != "<unk>")
+        gts.append([ref0] + [" ".join(f"w{i}" for i in rng.integers(4, 200, 10)) for _ in range(4)])
+    table, pack = scst_reward_setup(SCST_CHECK_BATCH, "cuda", gts=gts, tok=tok)
     batch_gpu = dict(inputs, ref_pack=pack)
     batch_cpu = {k: ({kk: vv.cpu() for kk, vv in v.items()} if isinstance(v, dict) else v.cpu())
                  for k, v in batch_gpu.items()}
-    step_gpu = make_scst(model_gpu, table, SCST_CHECK_SAMPLES)
-    step_cpu = make_scst(model_cpu, table, SCST_CHECK_SAMPLES)
+    step_gpu = make_scst(model_gpu, table, SCST_CHECK_SAMPLES, config)
+    step_cpu = make_scst(model_cpu, table, SCST_CHECK_SAMPLES, config)
     res_cpu = step_cpu.sample_fn(TrainState(), batch_cpu)
     n_tok = int((res["sample"].cpu() != res_cpu["sample"]).sum())
-    flat = res["sample"].reshape(-1, MAX_LEN)
+    flat = res["sample"].reshape(-1, max_len)
     img = torch.arange(SCST_CHECK_BATCH, device="cuda", dtype=torch.int32).repeat_interleave(SCST_CHECK_SAMPLES)
     r_gpu = step_gpu.reward(flat, img, pack).cpu()
     r_cpu = step_cpu.reward(flat.cpu(), img.cpu(), batch_cpu["ref_pack"])
@@ -3215,8 +3637,8 @@ def run_prune_phase(gen, results: dict, expected_step: dict) -> tuple:
 
 
 # --------------------------------------------------------------- ACORT path
-def acort_tokenizer(log_dir: str):
-    """(the radix tokenizer, the run config it completed): ACORT_FLAGS over a
+def acort_tokenizer(log_dir: str, flags=ACORT_FLAGS):
+    """(the radix tokenizer, the run config it completed): `flags` over a
     synthetic word vocabulary of ACORT_WORDS words written into `log_dir`
     (the artifact the word tokenizer reads); the tokenizer writes the vocab
     size and the special ids into the config, as in a training run."""
@@ -3227,7 +3649,7 @@ def acort_tokenizer(log_dir: str):
     os.makedirs(os.path.join(log_dir, "tokenizer"), exist_ok=True)
     with open(os.path.join(log_dir, "tokenizer", "word.vocab.json"), "w") as f:
         json.dump({"model_type": "word", "vocab": words}, f)
-    config = Config(log_dir=log_dir, **ACORT_FLAGS)
+    config = Config(log_dir=log_dir, **flags)
     tok = get_tokenizer(config.tokenizer)(config)
     got = dict(vocab_size=config.vocab_size, pad_id=config.pad_token_id, bos_id=config.bos_token_id,
                eos_id=config.eos_token_id, unk_id=1)
@@ -3236,8 +3658,9 @@ def acort_tokenizer(log_dir: str):
 
 
 def build_acort(config, seed: int, dropout: bool = True):
-    """ACORT-base in f32 on the card through the model's ``from_config``,
-    random weights from the seed (dense: the recipe prunes nothing)."""
+    """ACORT (base or small, as `config` says) in f32 on the card through the
+    model's ``from_config``, random weights from the seed (dense: the recipe
+    prunes nothing)."""
     from sparse_caption_tpu_torch.config import Config
     from sparse_caption_tpu_torch.models import get_model
 
@@ -3334,6 +3757,99 @@ def run_acort_phase(gen) -> tuple:
     return good, serve_counts, train_counts
 
 
+def acort_scst_launches(names) -> dict:
+    """Launches of one ACORT SCST step: `scst_launches` over its 6 slots and
+    25 sampled steps, dense (no K5), through the kv modes of K1, K7, K2 and
+    K3."""
+    counts = scst_launches(ACORT_SLOTS, ACORT_LEN - 1, 0, names)
+    counts.update(supermask=0, supermask_bwd=0)
+    for name in ("box_attention_train", "box_attention_bwd", "ancestry_self_attention", "grouped_cross_attention"):
+        counts[f"{name}_kv"], counts[name] = counts[name], 0
+    return counts
+
+
+def favour_word_digits(model):
+    """`model` with its generator's bias raised by 4 on digits 1..13: a pair
+    of digits then mostly decodes to one of the first 169 x 13 words of the
+    vocabulary (a random model's pairs are <unk>, a value past the 10,000
+    words, 98% of the time), so that sampled captions differ in words and
+    the SCST rewards, and with them the gradients, are far from 0."""
+    with torch.no_grad():
+        model.generator.proj.bias[1:14] += 4.0
+    return model
+
+
+def run_acort_small_phase(gen) -> tuple:
+    """ACORT-small (d256 over 8 heads: the dk 32 kernels) on the recipe's
+    three paths at full width. Beam-5 serving in bf16 at batch 50 and 2048
+    with the launch counts asserted, a profile at 2048, the f32 batch-8
+    card-vs-CPU decode; the dense XE step (noam, dropout 0.1 / 0.5) in bf16
+    at 15 x 5 and 256 x 5, counts asserted, the card-vs-CPU f32 step at 2 x
+    5; the SCST stage (drop_prob_src 0.1, 15 random samples, the sample
+    baseline, CIDEr-D + BLEU-4 of the digits regrouped in K10's radix mode,
+    f32) at 5 x 15 and 64 x 15, counts asserted, a profile at 64 x 15, the
+    replay at 5 x 15 and the card-vs-CPU step at 2 x 3 with dropout on.
+    Returns (ok, serving counts, XE counts, SCST counts)."""
+    from sparse_caption_tpu_torch.config import Config
+    from sparse_caption_tpu_torch.kernels import KERNELS
+
+    with tempfile.TemporaryDirectory() as log_dir:
+        tok, config = acort_tokenizer(log_dir, ACORT_SMALL_FLAGS)
+    slots, steps = ACORT_SLOTS, ACORT_LEN
+    model = build_acort(config, SEED)
+    assert model.d_model // model.num_heads == DK_SMALL
+    model_bf16 = copy.deepcopy(model).to(torch.bfloat16)
+    serve = {name: 0 for name in KERNELS}
+    serve.update(box_attention_kv=slots, ancestry_self_attention_kv=slots * steps,
+                 grouped_cross_attention_kv=slots * steps, beam_topk=steps,
+                 add_ref_layernorm=(1 + 2 * slots) + steps * (1 + 3 * slots))
+    torch.cuda.reset_peak_memory_stats()
+    for b in (EVAL_BATCH, BIG_BATCH):
+        serve_counts = run_main_path(model_bf16, gen, b, serve, label="acort-small")
+    log(f"[acort-small] peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    batch = make_batch(gen, BIG_BATCH, torch.bfloat16)
+    profile_window(f"ACORT-small encode + decode, bf16 batch {BIG_BATCH}", lambda: caption(model_bf16, batch))
+    del model_bf16, batch
+    if not whole_path_check(model, gen, label="acort-small whole-path"):
+        return False, None, None, None
+    del model
+    torch.cuda.empty_cache()
+
+    train = {name: 0 for name in KERNELS}
+    train.update(box_attention_train_kv=slots, box_attention_bwd_kv=slots,
+                 add_ref_layernorm=(1 + 2 * slots) + (1 + 3 * slots),
+                 add_ref_layernorm_bwd=(1 + 2 * slots) + (1 + 3 * slots), vocab_log_softmax=1,
+                 vocab_log_softmax_bwd=1, decoder_attention=2 * slots, decoder_attention_bwd=2 * slots)
+    train_model = build_acort(config, SEED)
+    for b in (TRAIN_BATCH, TRAIN_BIG_BATCH):
+        train_counts = run_train_phase(train_model, gen, b, "bf16", train, ACORT_SMALL_CONFIG, make_acort_train_batch,
+                                       "acort-small train")
+    del train_model
+    torch.cuda.empty_cache()
+    if not whole_step_check(SEED, gen, lambda: build_acort(config, SEED, dropout=False), make_acort_train_batch,
+                            ACORT_SMALL_CONFIG, "acort-small whole-step"):
+        return False, None, None, None
+
+    # SCST: the recipe's fine-tune of ACORT-small
+    scst_config = Config(**dict(config.to_dict(), drop_prob_src=ACORT_SMALL_SCST_DROP_SRC))
+    build_scst = lambda seed: favour_word_digits(build_acort(scst_config, seed))  # noqa: E731
+    scst_model = build_scst(SEED)
+    expected = acort_scst_launches(KERNELS)
+    for b in SCST_BATCHES:
+        scst_counts, step, state, batch = run_scst_phase(scst_model, gen, b, expected, label="acort-small scst",
+                                                         tok=tok, config=ACORT_SMALL_SCST_CONFIG)
+    held = [state]
+    profile_window(f"ACORT-small SCST step, f32 batch {SCST_BATCHES[-1]}x{SCST_SAMPLES}",
+                   lambda: held.append(step(held.pop(), batch)[0]))
+    del step, batch, held
+    good = replay_check(scst_model, gen, label="acort-small replay", max_len=steps - 1)
+    del scst_model
+    torch.cuda.empty_cache()
+    good &= scst_whole_step_check(SEED, gen, build_scst, make_batch, "acort-small scst-step", tok=tok,
+                                  config=ACORT_SMALL_SCST_CONFIG, max_len=steps - 1)
+    return good, serve_counts, train_counts, scst_counts
+
+
 def card_line() -> str:
     out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True)
@@ -3377,6 +3893,11 @@ def main() -> int:
     for dtype in (torch.float32, torch.bfloat16):
         ok &= check_acort_kernels(g12, dtype, results)
         torch.cuda.empty_cache()
+    g32 = torch.Generator(device="cuda").manual_seed(SEED + 32)
+    for dtype in (torch.float32, torch.bfloat16):
+        ok &= check_acort_small_kernels(g32, dtype, results)
+        torch.cuda.empty_cache()
+    ok &= check_radix_reward(results)
     if not ok:
         log("[kernel] a kernel disagrees with its plain version")
         return 1
@@ -3499,10 +4020,17 @@ def main() -> int:
     if not good:
         return 1
 
+    # ACORT-small: serving, XE and the SCST stage through the dk 32 kernels and K10's radix mode
+    good, small_serve, small_train, small_scst = run_acort_small_phase(
+        torch.Generator(device="cuda").manual_seed(SEED + 33))
+    if not good:
+        return 1
+
     paths = {"serve": serve_counts, "train_step": train_counts, "scst_step": scst_counts,
              "updown_serve": ud_serve_counts, "updown_train_step": ud_train_counts,
              "updown_scst_step": ud_scst_counts, "prune_update": prune_counts, "acort_serve": acort_serve_counts,
              "acort_train_step": acort_train_counts}
+    paths.update(zip(ACORT_SMALL_PATHS, (small_serve, small_train, small_scst)))
     kernels = []
     for name in _build.SOURCES:
         entries = [e for e, k in KERNELS.items() if k.library_name == name]
@@ -3514,6 +4042,13 @@ def main() -> int:
     # the kv modes and the radix vocabulary's width: their own entries, launches on ACORT's paths
     for mode, library, entries, replaces in ACORT_MODES:
         by_path = {path: sum(paths[path][e] for e in entries) for path in ("acort_serve", "acort_train_step")}
+        src = _build.CSRC / f"{library}.cu"
+        kernels.append(dict(name=mode, route="cuda", source=str(src.relative_to(_build.CSRC.parents[2])),
+                            replaces=replaces, launches=sum(by_path.values()), launches_by_path=by_path,
+                            **results[mode]))
+    # ACORT-small's instances (head width 32) and K10's radix mode: their own entries, launches on its paths
+    for mode, library, entries, replaces in ACORT_SMALL_MODES:
+        by_path = {path: sum(paths[path][e] for e in entries) for path in ACORT_SMALL_PATHS}
         src = _build.CSRC / f"{library}.cu"
         kernels.append(dict(name=mode, route="cuda", source=str(src.relative_to(_build.CSRC.parents[2])),
                             replaces=replaces, launches=sum(by_path.values()), launches_by_path=by_path,

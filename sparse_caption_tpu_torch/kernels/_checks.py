@@ -23,6 +23,17 @@ def check_tensor(t: torch.Tensor, name: str, shape, dtype) -> None:
         raise ValueError(f"{name}: expected a contiguous tensor")
 
 
+# the head widths the attention kernels (K1, K7, K2, K3, K14, K15) are built
+# for: 64 (d_model 512 over 8 heads) and 32 (ACORT-small's and ORT-small's
+# d_model 256 over 8 heads)
+HEAD_WIDTHS = (32, 64)
+
+
+def check_head_width(dk: int, kernel: str) -> None:
+    if dk not in HEAD_WIDTHS:
+        raise ValueError(f"{kernel} kernels take head widths {HEAD_WIDTHS}; got dk={dk}")
+
+
 def check_same_device(*tensors) -> None:
     devices = {t.device for t in tensors if t is not None}
     if len(devices) != 1:

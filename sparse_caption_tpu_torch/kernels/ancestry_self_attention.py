@@ -16,15 +16,15 @@ from typing import Optional
 import torch
 
 from sparse_caption_tpu_torch.kernels import _build
-from sparse_caption_tpu_torch.kernels._checks import check_float, check_same_device, check_tensor
+from sparse_caption_tpu_torch.kernels._checks import check_float, check_head_width, check_same_device, check_tensor
 
 KERNEL = _build.CudaKernel("ancestry_self_attention", "sct_ancestry_self_attention", [
-    _build.I, _build.P, _build.P, _build.P, _build.P, _build.P,
+    _build.I, _build.I, _build.P, _build.P, _build.P, _build.P, _build.P,
     _build.I, _build.I, _build.I, _build.I, _build.I, _build.F32, _build.P,
 ])
 # the kv mode: one cache array, read as K and V
 KERNEL_KV = _build.CudaKernel("ancestry_self_attention", "sct_ancestry_self_attention_kv", [
-    _build.I, _build.P, _build.P, _build.P, _build.P,
+    _build.I, _build.I, _build.P, _build.P, _build.P, _build.P,
     _build.I, _build.I, _build.I, _build.I, _build.I, _build.F32, _build.P,
 ])
 # cache slots the kernel takes: the rows PyTorch's warp softmax takes, whose
@@ -79,15 +79,16 @@ def ancestry_self_attention(q, cache_k, cache_v: Optional[torch.Tensor], ancestr
     check_same_device(q, cache_k, cache_v, ancestry)
     if q.device.type == "cpu":
         return ancestry_self_attention_plain(q, cache_k, cache_v, ancestry, t)
-    if dk != 64 or h > 32 or t_max > MAX_SLOTS:
-        raise ValueError(f"ancestry_self_attention kernel takes dk == 64, h <= 32, T_max <= {MAX_SLOTS}; "
-                         f"got dk={dk} h={h} T_max={t_max}")
+    check_head_width(dk, "ancestry_self_attention")
+    if h > 32 or t_max > MAX_SLOTS:
+        raise ValueError(f"ancestry_self_attention kernel takes h <= 32, T_max <= {MAX_SLOTS}; got h={h} "
+                         f"T_max={t_max}")
     out = torch.empty_like(q)
     if cache_v is None:
-        KERNEL_KV.launch(_build.dtype_code(q), q.data_ptr(), cache_k.data_ptr(), _build.ptr(ancestry),
+        KERNEL_KV.launch(_build.dtype_code(q), dk, q.data_ptr(), cache_k.data_ptr(), _build.ptr(ancestry),
                          out.data_ptr(), n, h, t_max, kb, t, 1.0 / math.sqrt(dk), _build.stream_handle(q))
         return out
-    KERNEL.launch(_build.dtype_code(q), q.data_ptr(), cache_k.data_ptr(), cache_v.data_ptr(),
+    KERNEL.launch(_build.dtype_code(q), dk, q.data_ptr(), cache_k.data_ptr(), cache_v.data_ptr(),
                   _build.ptr(ancestry), out.data_ptr(), n, h, t_max, kb, t, 1.0 / math.sqrt(dk),
                   _build.stream_handle(q))
     return out

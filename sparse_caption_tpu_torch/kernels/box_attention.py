@@ -15,25 +15,26 @@ import torch
 import torch.nn.functional as F
 
 from sparse_caption_tpu_torch.kernels import _build
-from sparse_caption_tpu_torch.kernels._checks import check_float, check_same_device, check_tensor
+from sparse_caption_tpu_torch.kernels._checks import check_float, check_head_width, check_same_device, check_tensor
 from sparse_caption_tpu_torch.ops.attention import box_relational_embedding, geometry_frequencies, scaled_dot_attention
 
 KERNEL = _build.CudaKernel("box_attention", "sct_box_attention", [
-    _build.I, _build.P, _build.P, _build.P, _build.P, _build.P, _build.P, _build.P, _build.P, _build.P, _build.P,
+    _build.I, _build.I, _build.P, _build.P, _build.P, _build.P, _build.P, _build.P, _build.P, _build.P, _build.P,
+    _build.P,
     _build.I, _build.I, _build.I, _build.F32, _build.P,
 ])
 # the train variant: dropout keep-mask on the probabilities
 KERNEL_TRAIN = _build.CudaKernel("box_attention", "sct_box_attention_train", [
-    _build.I, _build.P, _build.P, _build.P, _build.P, _build.P, _build.P, _build.P, _build.P, _build.P,
+    _build.I, _build.I, _build.P, _build.P, _build.P, _build.P, _build.P, _build.P, _build.P, _build.P, _build.P,
     _build.F32, _build.P, _build.I, _build.I, _build.I, _build.F32, _build.P,
 ])
 # the kv modes (V is K): the same entry points without a v
 KERNEL_KV = _build.CudaKernel("box_attention", "sct_box_attention_kv", [
-    _build.I, _build.P, _build.P, _build.P, _build.P, _build.P, _build.P, _build.P, _build.P, _build.P,
+    _build.I, _build.I, _build.P, _build.P, _build.P, _build.P, _build.P, _build.P, _build.P, _build.P, _build.P,
     _build.I, _build.I, _build.I, _build.F32, _build.P,
 ])
 KERNEL_TRAIN_KV = _build.CudaKernel("box_attention", "sct_box_attention_train_kv", [
-    _build.I, _build.P, _build.P, _build.P, _build.P, _build.P, _build.P, _build.P, _build.P,
+    _build.I, _build.I, _build.P, _build.P, _build.P, _build.P, _build.P, _build.P, _build.P, _build.P,
     _build.F32, _build.P, _build.I, _build.I, _build.I, _build.F32, _build.P,
 ])
 DIM_G = 64
@@ -78,8 +79,10 @@ def check_args(q, k, v, boxes, wg_weight, wg_bias, mask, keep=None):
     if keep is not None:
         check_tensor(keep, "keep", (b, h, r, r), torch.bool)
     check_same_device(q, k, v, boxes, wg_weight, wg_bias, mask, keep)
-    if q.device.type == "cuda" and (dk != 64 or r > 64 or h > 16):
-        raise ValueError(f"box_attention kernels take dk == 64, R <= 64, h <= 16; got dk={dk} R={r} h={h}")
+    if q.device.type == "cuda":
+        check_head_width(dk, "box_attention")
+        if r > 64 or h > 16:
+            raise ValueError(f"box_attention kernels take R <= 64, h <= 16; got R={r} h={h}")
     return b, h, r, dk
 
 
@@ -104,7 +107,7 @@ def box_attention(q, k, v, boxes, wg_weight, wg_bias, mask, bias_out=None):
     tail = (boxes.data_ptr(), wg_weight.data_ptr(), wg_bias.data_ptr(), freq.data_ptr(), mask.data_ptr(),
             out.data_ptr(), _build.ptr(bias_out), b, h, r, 1.0 / math.sqrt(dk), _build.stream_handle(q))
     if v is None:
-        KERNEL_KV.launch(_build.dtype_code(q), q.data_ptr(), k.data_ptr(), *tail)
+        KERNEL_KV.launch(_build.dtype_code(q), dk, q.data_ptr(), k.data_ptr(), *tail)
     else:
-        KERNEL.launch(_build.dtype_code(q), q.data_ptr(), k.data_ptr(), v.data_ptr(), *tail)
+        KERNEL.launch(_build.dtype_code(q), dk, q.data_ptr(), k.data_ptr(), v.data_ptr(), *tail)
     return out

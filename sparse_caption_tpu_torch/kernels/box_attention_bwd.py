@@ -33,13 +33,14 @@ from sparse_caption_tpu_torch.ops.keep import keep_divisor
 
 HEAD_GROUP = 4  # heads per block of the kernel (csrc/box_attention_bwd.cu kGroupHeads)
 KERNEL = _build.CudaKernel("box_attention_bwd", "sct_box_attention_bwd", [
-    _build.I, _build.P, _build.P, _build.P, _build.P, _build.P, _build.P, _build.P, _build.P, _build.P, _build.P,
+    _build.I, _build.I, _build.P, _build.P, _build.P, _build.P, _build.P, _build.P, _build.P, _build.P, _build.P,
+    _build.P,
     _build.F32, _build.P, _build.P, _build.P, _build.P, _build.P, _build.P,
     _build.I, _build.I, _build.I, _build.F32, _build.P,
 ])
 # the kv mode: no v in, one gradient dkv out
 KERNEL_KV = _build.CudaKernel("box_attention_bwd", "sct_box_attention_bwd_kv", [
-    _build.I, _build.P, _build.P, _build.P, _build.P, _build.P, _build.P, _build.P, _build.P, _build.P,
+    _build.I, _build.I, _build.P, _build.P, _build.P, _build.P, _build.P, _build.P, _build.P, _build.P, _build.P,
     _build.F32, _build.P, _build.P, _build.P, _build.P, _build.P,
     _build.I, _build.I, _build.I, _build.F32, _build.P,
 ])
@@ -54,9 +55,9 @@ class _BoxAttentionFn(torch.autograd.Function):
         tail = (boxes.data_ptr(), wg_weight.data_ptr(), wg_bias.data_ptr(), freq.data_ptr(), mask.data_ptr(),
                 _build.ptr(keep), keep_prob, out.data_ptr(), b, h, r, 1.0 / math.sqrt(dk), _build.stream_handle(q))
         if v is None:
-            KERNEL_TRAIN_KV.launch(_build.dtype_code(q), q.data_ptr(), k.data_ptr(), *tail)
+            KERNEL_TRAIN_KV.launch(_build.dtype_code(q), dk, q.data_ptr(), k.data_ptr(), *tail)
         else:
-            KERNEL_TRAIN.launch(_build.dtype_code(q), q.data_ptr(), k.data_ptr(), v.data_ptr(), *tail)
+            KERNEL_TRAIN.launch(_build.dtype_code(q), dk, q.data_ptr(), k.data_ptr(), v.data_ptr(), *tail)
         ctx.keep_prob = keep_prob
         ctx.save_for_backward(q, k, v, boxes, wg_weight, wg_bias, mask, keep, freq)
         return out
@@ -75,10 +76,10 @@ class _BoxAttentionFn(torch.autograd.Function):
         tail = (dwg_w.data_ptr(), dwg_b.data_ptr(), partial.data_ptr(), b, h, r, 1.0 / math.sqrt(dk),
                 _build.stream_handle(q))
         if v is None:  # dk_ is d(k as K) + d(k as V)
-            KERNEL_KV.launch(_build.dtype_code(q), q.data_ptr(), k.data_ptr(), *inputs, *tail)
+            KERNEL_KV.launch(_build.dtype_code(q), dk, q.data_ptr(), k.data_ptr(), *inputs, *tail)
             return dq, dk_, None, None, dwg_w, dwg_b, None, None, None
         dv = torch.empty_like(v)
-        KERNEL.launch(_build.dtype_code(q), q.data_ptr(), k.data_ptr(), v.data_ptr(), *inputs, dv.data_ptr(), *tail)
+        KERNEL.launch(_build.dtype_code(q), dk, q.data_ptr(), k.data_ptr(), v.data_ptr(), *inputs, dv.data_ptr(), *tail)
         return dq, dk_, dv, None, dwg_w, dwg_b, None, None, None
 
 

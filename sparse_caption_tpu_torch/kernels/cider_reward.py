@@ -15,11 +15,18 @@ the JAX device function is. Nothing else falls back.
 
 uint32 keys travel as int32 tensors holding the same bits; the plain
 version widens them to int64 and wraps its arithmetic mod 2^32.
+
+Radix mode (``radix=RadixSpec(...)``, ACORT's digit ids): each row of digits
+is first regrouped into word ids (``radix_to_word``, the plain version, a
+port of ``make_radix_to_word_fn``, ``sparse_caption_tpu/scst/
+device_reward.py:235-280``), which are then scored as word rows with the
+word-level eos / pad / bos ids 3 / 0 / 2. On the card the kernel does the
+regroup in its prologue, in the same launch.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Sequence
+from typing import Dict, NamedTuple, Optional, Sequence
 
 import torch
 
@@ -30,13 +37,66 @@ KERNEL = _build.CudaKernel("cider_reward", "sct_cider_reward", [
     _build.P, _build.I, _build.I, _build.P, _build.P, _build.P, _build.P, _build.I, _build.I,
     _build.P, _build.P, _build.P, _build.P, _build.P, _build.P, _build.P, _build.P, _build.P, _build.I, _build.I,
     _build.F32, _build.I, _build.I, _build.I, _build.F32, _build.F32, _build.F32, _build.F32, _build.F32, _build.I,
-    _build.P, _build.P,
+    _build.I, _build.I, _build.I, _build.P, _build.P,
 ])
 N_GRAMS = 4
 SIGMA = 6.0
 M32 = 0xFFFFFFFF
 MAX_T, MAX_R = 32, 32  # the kernel's G = 4T <= 128 gram slots (one per thread) and refs per image
 PACK_KEYS = ("hi", "lo", "val", "cnt", "norms", "lens", "wlens", "ref_valid", "n_refs")
+WORD_EOS, WORD_PAD, WORD_BOS, WORD_UNK = 3, 0, 2, 1  # the word-level ids of a regrouped row
+
+
+class RadixSpec(NamedTuple):
+    """ACORT's radix code: ``tokens_per_word`` base-``base`` digits a word over
+    a word vocabulary of ``word_vocab_size`` entries (pad, unk, bos, eos and
+    the words; the last word slot is <unk>'s)."""
+
+    base: int
+    tokens_per_word: int
+    word_vocab_size: int
+
+    @property
+    def n_words(self) -> int:
+        return self.word_vocab_size - 3  # <unk> shares the last word slot
+
+    def word_slots(self, t: int) -> int:
+        """Word slots of a row of ``t`` digits: ceil(t / tokens_per_word)."""
+        return -(-t // self.tokens_per_word)
+
+
+def check_radix(spec: RadixSpec) -> RadixSpec:
+    spec = RadixSpec(int(spec.base), int(spec.tokens_per_word), int(spec.word_vocab_size))
+    if spec.base < 2 or spec.tokens_per_word < 1 or spec.n_words < 1:
+        raise ValueError(f"bad radix spec {spec}")
+    assert spec.base ** spec.tokens_per_word < 2 ** 31, "radix word values overflow int32"
+    return spec
+
+
+def radix_to_word(ids: torch.Tensor, spec: RadixSpec) -> torch.Tensor:
+    """(N, T) radix digit ids -> (N, ceil(T / tpw)) int32 word ids (the plain
+    version of K10's radix mode): truncate at the first radix <eos>, drop
+    pad and bos digits anywhere, group the rest by ``tokens_per_word`` (a
+    short tail filled with digit 1), value = sum of max(d - 1, 0) base^(tpw -
+    1 - k), word v + 4 for v < n_words - 1 and <unk> 1 otherwise, word pad
+    0 after the last word."""
+    spec = check_radix(spec)
+    base, tpw = spec.base, spec.tokens_per_word
+    n, t = ids.shape
+    ids = ids.long()
+    is_eos = ids == base + 2
+    keep = ((torch.cumsum(is_eos, 1) - is_eos.long()) == 0) & (ids != 0) & (ids != base + 1) & ~is_eos
+    pos = torch.cumsum(keep, 1) - 1
+    n_digits = keep.sum(1)
+    t_w = spec.word_slots(t)
+    d = torch.ones((n, t_w * tpw + 1), dtype=torch.long, device=ids.device)  # the fill digit 1; the last column a sink
+    d.scatter_(1, torch.where(keep, pos, torch.full_like(pos, t_w * tpw)), ids)
+    d = torch.clamp(d[:, : t_w * tpw] - 1, min=0).reshape(n, t_w, tpw)
+    powers = torch.tensor([base ** (tpw - 1 - j) for j in range(tpw)], dtype=torch.long, device=ids.device)
+    v = (d * powers).sum(2)
+    wid = torch.where(v < spec.n_words - 1, v + 4, torch.full_like(v, WORD_UNK))
+    valid = torch.arange(t_w, device=ids.device)[None, :] < -(-n_digits[:, None] // tpw)
+    return torch.where(valid, wid, torch.full_like(wid, WORD_PAD)).to(torch.int32)
 
 
 def _u32(x: torch.Tensor) -> torch.Tensor:
@@ -167,26 +227,34 @@ def _check(ids, img_idx, table, pack):
 
 def cider_reward(ids, img_idx, table: Dict[str, torch.Tensor], pack: Dict[str, torch.Tensor], *, probe: int,
                  ref_len: float, eos_id: int = 3, pad_id: int = 0, bos_id: int = 2, cider_weight: float = 1.0,
-                 bleu_weight: Sequence[float] = (0.0, 0.0, 0.0, 0.0)):
+                 bleu_weight: Sequence[float] = (0.0, 0.0, 0.0, 0.0), radix: Optional[RadixSpec] = None):
     """ids: (N, T) int32 sampled captions; img_idx: (N,) int32, each row's
     image in the pack; table: df hash table {hi, lo (size,) int32 bits, val
     (size,) f32}, ``probe`` its probe depth; pack: the batch's reference
     pack (``scst.device_reward.build_ref_pack`` on the device); ``ref_len``:
     log of the df corpus's image count. Returns (N,) f32
-    ``cider_weight * CIDEr-D * 10 + sum_n bleu_weight[n] * BLEU-(n+1)``."""
+    ``cider_weight * CIDEr-D * 10 + sum_n bleu_weight[n] * BLEU-(n+1)``.
+    With ``radix`` the rows are radix digits, regrouped into words first
+    (eos / pad / bos then name word ids, 3 / 0 / 2 for ACORT)."""
     n, t, b, r, length, size = _check(ids, img_idx, table, pack)
     bleu_weight = [float(w) for w in bleu_weight]
     if len(bleu_weight) != N_GRAMS:
         raise ValueError(f"bleu_weight needs {N_GRAMS} entries, got {len(bleu_weight)}")
     kw = dict(probe=probe, ref_len=ref_len, eos_id=eos_id, pad_id=pad_id, bos_id=bos_id, cider_weight=cider_weight,
               bleu_weight=bleu_weight)
+    if radix is not None:
+        radix = check_radix(radix)
     if ids.device.type == "cpu":
+        if radix is not None:
+            ids = radix_to_word(ids, radix)
         return cider_reward_plain(ids, img_idx, table, pack, **kw)
-    if t > MAX_T or r > MAX_R:
-        raise ValueError(f"cider_reward kernel takes T <= {MAX_T} and R <= {MAX_R}; got T={t} R={r}")
+    words = t if radix is None else radix.word_slots(t)
+    if words > MAX_T or r > MAX_R:
+        raise ValueError(f"cider_reward kernel takes T <= {MAX_T} words and R <= {MAX_R}; got T={words} R={r}")
+    base, tpw, n_words = (0, 0, 0) if radix is None else (radix.base, radix.tokens_per_word, radix.n_words)
     out = torch.empty((n,), dtype=torch.float32, device=ids.device)
     KERNEL.launch(ids.data_ptr(), n, t, img_idx.data_ptr(), table["hi"].data_ptr(), table["lo"].data_ptr(),
                   table["val"].data_ptr(), size, probe, *(pack[k].data_ptr() for k in PACK_KEYS), r, length,
                   ref_len, eos_id, pad_id, bos_id, cider_weight, *bleu_weight, int(max(bleu_weight) > 0),
-                  out.data_ptr(), _build.stream_handle(ids))
+                  base, tpw, n_words, out.data_ptr(), _build.stream_handle(ids))
     return out

@@ -10,14 +10,15 @@
 //   out[n,h]  = sum_t' softmax(score)[t'] * cache_v[b*K + anc[b,k,t'], h, t']
 // anc == nullptr means the identity map (row n reads itself).
 //
-// Bound on the H100 (beam 5, 8 heads, dk 64, T_max 17): bytes. At step t it
+// Bound on the H100 (beam 5, 8 heads, dk 64, T_max 17; at dk 32 half the bytes): bytes. At step t it
 // must read the (t + 1) cached key and value slots of every row: at
 // B = 2048 and t = 16, 356 MB of bf16 (0.11 ms at 3.35 TB/s), plus 21 MB of
 // q and out. Slots t' > t are never read (the reference masks them to -1e9,
 // whose softmax weight is exactly 0).
 //
 // Design: one warp per (row, head), one block per row (all heads). Each lane
-// holds 2 of the 64 dims, and S = ceil(T_max / 32) slots of the row: slot
+// holds DK / 32 of the DK dims (2 at DK = 64, 1 at DK = 32: ACORT-small's
+// d256 over 8 heads), and S = ceil(T_max / 32) slots of the row: slot
 // j*32 + lane in its register j, with that slot's cache row (its ancestor,
 // one load per lane instead of a one-hot contraction). The warp walks the
 // slots t' = 0..t twice: first the keys, each score reduced across the warp
@@ -45,16 +46,40 @@
 
 namespace sct {
 
+// A lane's DK / 32 dims of a head row: 2 neighbours (one 4- or 8-byte
+// access) at DK = 64, one at DK = 32.
+template <int DK, typename T>
+struct LaneDims {
+  float2 v;
+  __device__ __forceinline__ void load(const T* p) { v = load2(p); }
+  __device__ __forceinline__ float dot(const LaneDims& o) const { return v.x * o.v.x + v.y * o.v.y; }
+  __device__ __forceinline__ void add(float p, const LaneDims& o) {
+    v.x += p * o.v.x;
+    v.y += p * o.v.y;
+  }
+  __device__ __forceinline__ void store(T* p) const { store2(p, v); }
+};
+template <typename T>
+struct LaneDims<32, T> {
+  float v;
+  __device__ __forceinline__ void load(const T* p) { v = to_f(*p); }
+  __device__ __forceinline__ float dot(const LaneDims& o) const { return v * o.v; }
+  __device__ __forceinline__ void add(float p, const LaneDims& o) { v += p * o.v; }
+  __device__ __forceinline__ void store(T* p) const { *p = from_f<T>(v); }
+};
+
 // cache_v == nullptr: the kv mode, V read from the K cache
-template <typename T, int S>
+template <int DK, typename T, int S>
 __global__ void ancestry_self_attention_kernel(const T* __restrict__ q, const T* __restrict__ cache_k,
                                                const T* __restrict__ cache_v, const int* __restrict__ anc,
                                                T* __restrict__ out, int H, int t_max, int K, int t,
                                                float scale) {
+  constexpr int PL = DK / 32;  // dims a lane holds
   const T* __restrict__ vals = cache_v != nullptr ? cache_v : cache_k;
   const int n = blockIdx.x, h = threadIdx.x / 32, lane = threadIdx.x & 31;
-  const size_t qo = ((size_t)n * H + h) * kHeadDim + 2 * lane;
-  const float2 qv = load2(q + qo);
+  const size_t qo = ((size_t)n * H + h) * DK + PL * lane;
+  LaneDims<DK, T> qv;
+  qv.load(q + qo);
   const int b = n / K;
   // anc (B, K, T_max), row n = b*K + k; lane l's register j <= t holds slot j*32 + l's cache row
   int my_row[S];
@@ -65,14 +90,15 @@ __global__ void ancestry_self_attention_kernel(const T* __restrict__ q, const T*
     my_row[j] = anc != nullptr && slot <= t ? b * K + anc[(size_t)n * t_max + slot] : n;
     my_score[j] = -INFINITY;
   }
-  const size_t head = (size_t)h * t_max * kHeadDim + 2 * lane;
+  const size_t head = (size_t)h * t_max * DK + PL * lane;
 #pragma unroll
   for (int j = 0; j < S; ++j) {
     for (int l = 0; l < 32 && j * 32 + l <= t; ++l) {
       const int s = j * 32 + l;
       const int r = __shfl_sync(0xffffffffu, my_row[j], l);
-      const float2 kv = load2(cache_k + (size_t)r * H * t_max * kHeadDim + head + (size_t)s * kHeadDim);
-      const float sc = round_to<T>(round_to<T>(warp_sum(qv.x * kv.x + qv.y * kv.y)) * scale);
+      LaneDims<DK, T> kv;
+      kv.load(cache_k + (size_t)r * H * t_max * DK + head + (size_t)s * DK);
+      const float sc = round_to<T>(round_to<T>(warp_sum(qv.dot(kv))) * scale);
       if (lane == l) my_score[j] = sc;
     }
   }
@@ -90,67 +116,72 @@ __global__ void ancestry_self_attention_kernel(const T* __restrict__ q, const T*
   float p[S];
 #pragma unroll
   for (int j = 0; j < S; ++j) p[j] = round_to<T>(e[j] / sum);
-  float2 acc = make_float2(0.f, 0.f);
+  LaneDims<DK, T> acc{};
 #pragma unroll
   for (int j = 0; j < S; ++j) {
     for (int l = 0; l < 32 && j * 32 + l <= t; ++l) {
       const int s = j * 32 + l;
       const int r = __shfl_sync(0xffffffffu, my_row[j], l);
       const float ps = __shfl_sync(0xffffffffu, p[j], l);
-      const float2 vv = load2(vals + (size_t)r * H * t_max * kHeadDim + head + (size_t)s * kHeadDim);
-      acc.x += ps * vv.x;
-      acc.y += ps * vv.y;
+      LaneDims<DK, T> vv;
+      vv.load(vals + (size_t)r * H * t_max * DK + head + (size_t)s * DK);
+      acc.add(ps, vv);
     }
   }
-  store2(out + qo, acc);
+  acc.store(out + qo);
 }
 
-template <typename T, int S>
+template <int DK, typename T, int S>
 cudaError_t launch(const void* q, const void* ck, const void* cv, const void* anc, void* out, int N, int H,
                    int t_max, int K, int t, float scale, cudaStream_t stream) {
-  ancestry_self_attention_kernel<T, S><<<N, H * 32, 0, stream>>>(
+  ancestry_self_attention_kernel<DK, T, S><<<N, H * 32, 0, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(ck), static_cast<const T*>(cv),
       static_cast<const int*>(anc), static_cast<T*>(out), H, t_max, K, t, scale);
   return cudaGetLastError();
 }
 
 // the smallest S of 1, 2, 4, .., 32 with 32 S >= T_max
-template <typename T>
+template <int DK, typename T>
 cudaError_t dispatch(const void* q, const void* ck, const void* cv, const void* anc, void* out, int N, int H,
                      int t_max, int K, int t, float scale, cudaStream_t stream) {
-  if (t_max <= 32) return launch<T, 1>(q, ck, cv, anc, out, N, H, t_max, K, t, scale, stream);
-  if (t_max <= 64) return launch<T, 2>(q, ck, cv, anc, out, N, H, t_max, K, t, scale, stream);
-  if (t_max <= 128) return launch<T, 4>(q, ck, cv, anc, out, N, H, t_max, K, t, scale, stream);
-  if (t_max <= 256) return launch<T, 8>(q, ck, cv, anc, out, N, H, t_max, K, t, scale, stream);
-  if (t_max <= 512) return launch<T, 16>(q, ck, cv, anc, out, N, H, t_max, K, t, scale, stream);
-  return launch<T, 32>(q, ck, cv, anc, out, N, H, t_max, K, t, scale, stream);
+  if (t_max <= 32) return launch<DK, T, 1>(q, ck, cv, anc, out, N, H, t_max, K, t, scale, stream);
+  if (t_max <= 64) return launch<DK, T, 2>(q, ck, cv, anc, out, N, H, t_max, K, t, scale, stream);
+  if (t_max <= 128) return launch<DK, T, 4>(q, ck, cv, anc, out, N, H, t_max, K, t, scale, stream);
+  if (t_max <= 256) return launch<DK, T, 8>(q, ck, cv, anc, out, N, H, t_max, K, t, scale, stream);
+  if (t_max <= 512) return launch<DK, T, 16>(q, ck, cv, anc, out, N, H, t_max, K, t, scale, stream);
+  return launch<DK, T, 32>(q, ck, cv, anc, out, N, H, t_max, K, t, scale, stream);
+}
+
+int entry(int dtype, int dk, const void* q, const void* ck, const void* cv, const void* anc, void* out, int N,
+          int H, int t_max, int K, int t, float scale, void* stream) {
+  if (H < 1 || H > 32 || K < 1 || N % K != 0 || t < 0 || t >= t_max || t_max > 1024)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define SCT_K2(DK, T) (int)dispatch<DK, T>(q, ck, cv, anc, out, N, H, t_max, K, t, scale, s)
+  if (dk == 64 && dtype == 0) return SCT_K2(64, float);
+  if (dk == 64 && dtype == 1) return SCT_K2(64, __nv_bfloat16);
+  if (dk == 32 && dtype == 0) return SCT_K2(32, float);
+  if (dk == 32 && dtype == 1) return SCT_K2(32, __nv_bfloat16);
+#undef SCT_K2
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace sct
 
-// dtype: 0 = float32, 1 = bfloat16. q/out (N, H, 64); cache_k/v (N, H, T_max, 64), T_max <= 1024;
-// anc (N / K, K, T_max) int32 or null; 0 <= t < T_max.
-extern "C" int sct_ancestry_self_attention(int dtype, const void* q, const void* cache_k, const void* cache_v,
+// dtype: 0 = float32, 1 = bfloat16; dk: 64 or 32. q/out (N, H, dk); cache_k/v
+// (N, H, T_max, dk), T_max <= 1024; anc (N / K, K, T_max) int32 or null; 0 <= t < T_max.
+extern "C" int sct_ancestry_self_attention(int dtype, int dk, const void* q, const void* cache_k, const void* cache_v,
                                            const void* anc, void* out, int N, int H, int t_max, int K, int t,
                                            float scale, void* stream) {
-  if (H < 1 || H > 32 || K < 1 || N % K != 0 || t < 0 || t >= t_max || t_max > 1024 || cache_v == nullptr)
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return (int)sct::dispatch<float>(q, cache_k, cache_v, anc, out, N, H, t_max, K, t, scale, s);
-  if (dtype == 1)
-    return (int)sct::dispatch<__nv_bfloat16>(q, cache_k, cache_v, anc, out, N, H, t_max, K, t, scale, s);
-  return (int)cudaErrorInvalidValue;
+  if (cache_v == nullptr) return (int)cudaErrorInvalidValue;
+  return sct::entry(dtype, dk, q, cache_k, cache_v, anc, out, N, H, t_max, K, t, scale, stream);
 }
 
-// kv mode: cache (N, H, T_max, 64) is both K and V.
-extern "C" int sct_ancestry_self_attention_kv(int dtype, const void* q, const void* cache, const void* anc, void* out,
-                                              int N, int H, int t_max, int K, int t, float scale, void* stream) {
-  if (H < 1 || H > 32 || K < 1 || N % K != 0 || t < 0 || t >= t_max || t_max > 1024)
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return (int)sct::dispatch<float>(q, cache, nullptr, anc, out, N, H, t_max, K, t, scale, s);
-  if (dtype == 1) return (int)sct::dispatch<__nv_bfloat16>(q, cache, nullptr, anc, out, N, H, t_max, K, t, scale, s);
-  return (int)cudaErrorInvalidValue;
+// kv mode: cache (N, H, T_max, dk) is both K and V.
+extern "C" int sct_ancestry_self_attention_kv(int dtype, int dk, const void* q, const void* cache, const void* anc,
+                                              void* out, int N, int H, int t_max, int K, int t, float scale,
+                                              void* stream) {
+  return sct::entry(dtype, dk, q, cache, nullptr, anc, out, N, H, t_max, K, t, scale, stream);
 }
 
 extern "C" const char* sct_error_string(int err) { return cudaGetErrorString(static_cast<cudaError_t>(err)); }

@@ -80,32 +80,36 @@ using bf16 = __nv_bfloat16;
 constexpr int kMmaWarps = 8;
 constexpr int kMmaThreads = 32 * kMmaWarps;
 constexpr int kStages = 3;  // heads in flight: 3 x ceil(36 / 16) = 9 query tiles for the 8 warps
-constexpr int kLd = kHeadDim + 8;  // staged row stride in bf16 (144 B)
+// staged row stride in bf16 at head width DK (144 B at 64, 80 B at 32: the 8
+// rows of a fragment or ldmatrix load in distinct banks; 16-byte aligned for TMA)
+template <int DK> constexpr int kLd = DK + 8;
 
 inline int padded_rows(int R) { return 16 * ((R + 15) / 16); }
 
 // dynamic shared memory: 2 mbarriers per head | kStages x (q, k, v) x R rows
 // ((q, k) in the kv mode) | a zero row (every padded row reads it) | bias |
 // boxes | wg_b | mask
-inline size_t mma_smem_bytes(int H, int R, bool kv) {
-  const size_t tiles = (kStages * (kv ? 2 : 3) * (size_t)R + 1) * kLd * sizeof(bf16);
+inline size_t mma_smem_bytes(int dk, int H, int R, bool kv) {
+  const size_t tiles = (kStages * (kv ? 2 : 3) * (size_t)R + 1) * (dk + 8) * sizeof(bf16);
   const size_t bias = (((size_t)H * R * R + 7) / 8) * 8 * sizeof(bf16);
   return 2 * kMaxHeads * sizeof(uint64_t) + tiles + bias + (size_t)R * 4 * sizeof(float) +
          kMaxHeads * sizeof(float) + R;
 }
 
 // row r of a staged tile, or the zero row for the padding rows r >= R
+template <int DK>
 __device__ __forceinline__ const bf16* tile_row(const bf16* tile, int r, int R, const bf16* zero) {
-  return r < R ? tile + r * kLd : zero;
+  return r < R ? tile + r * kLd<DK> : zero;
 }
 
-template <int RP>
+template <int DK, int RP>
 __device__ __forceinline__ void attend_tile_bf16(bf16* qs, const bf16* ks, const bf16* vs, const bf16* zero,
                                                  const bf16* bias_h, const unsigned char* mask_s,
                                                  const unsigned char* __restrict__ keep_h, float keep_prob,
                                                  bf16* __restrict__ out_h, int R, int mt, float scale) {
   constexpr int KS = RP / 16;  // key k-steps of P.V
   constexpr int NS = 2 * KS;   // key n-tiles of S
+  constexpr int LD = kLd<DK>, ND = DK / 8;  // ND: output n-tiles over d
   const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
   const int rows[2] = {16 * mt + g, 16 * mt + g + 8};
   const int nsv = (R + 7) / 8;  // key n-tiles that hold keys; the rest of S stays 0 and P 0
@@ -114,15 +118,15 @@ __device__ __forceinline__ void attend_tile_bf16(bf16* qs, const bf16* ks, const
 #pragma unroll
   for (int nt = 0; nt < NS; ++nt) sacc[nt][0] = sacc[nt][1] = sacc[nt][2] = sacc[nt][3] = 0.f;
 #pragma unroll
-  for (int kd = 0; kd < kHeadDim / 16; ++kd) {
+  for (int kd = 0; kd < DK / 16; ++kd) {
     const int col = 16 * kd + 2 * t;
-    const bf16* q0 = tile_row(qs, rows[0], R, zero) + col;
-    const bf16* q1 = tile_row(qs, rows[1], R, zero) + col;
+    const bf16* q0 = tile_row<DK>(qs, rows[0], R, zero) + col;
+    const bf16* q1 = tile_row<DK>(qs, rows[1], R, zero) + col;
     const uint32_t a[4] = {lds_u32(q0), lds_u32(q1), lds_u32(q0 + 8), lds_u32(q1 + 8)};
 #pragma unroll
     for (int nt = 0; nt < NS; ++nt) {
       if (nt < nsv) {
-        const bf16* kr = tile_row(ks, 8 * nt + g, R, zero) + col;
+        const bf16* kr = tile_row<DK>(ks, 8 * nt + g, R, zero) + col;
         const uint32_t b[2] = {lds_u32(kr), lds_u32(kr + 8)};
         mma_bf16(sacc[nt], a, b);
       }
@@ -181,18 +185,18 @@ __device__ __forceinline__ void attend_tile_bf16(bf16* qs, const bf16* ks, const
   }
 
   // P.V: P's accumulators are the A fragments; V's B fragments by ldmatrix.trans
-  float oacc[8][4];
+  float oacc[ND][4];
 #pragma unroll
-  for (int nt = 0; nt < 8; ++nt) oacc[nt][0] = oacc[nt][1] = oacc[nt][2] = oacc[nt][3] = 0.f;
+  for (int nt = 0; nt < ND; ++nt) oacc[nt][0] = oacc[nt][1] = oacc[nt][2] = oacc[nt][3] = 0.f;
 #pragma unroll
   for (int kk = 0; kk < KS; ++kk) {
     const uint32_t a[4] = {pack_bf16(sacc[2 * kk][0], sacc[2 * kk][1]), pack_bf16(sacc[2 * kk][2], sacc[2 * kk][3]),
                            pack_bf16(sacc[2 * kk + 1][0], sacc[2 * kk + 1][1]),
                            pack_bf16(sacc[2 * kk + 1][2], sacc[2 * kk + 1][3])};
 #pragma unroll
-    for (int jn = 0; jn < 4; ++jn) {
+    for (int jn = 0; jn < DK / 16; ++jn) {
       uint32_t r[4];
-      ldmatrix_x4_trans(r, tile_row(vs, 16 * kk + (lane & 15), R, zero) + 16 * jn + (lane >> 4) * 8);
+      ldmatrix_x4_trans(r, tile_row<DK>(vs, 16 * kk + (lane & 15), R, zero) + 16 * jn + (lane >> 4) * 8);
       const uint32_t b0[2] = {r[0], r[1]}, b1[2] = {r[2], r[3]};
       mma_bf16(oacc[2 * jn], a, b0);
       mma_bf16(oacc[2 * jn + 1], a, b1);
@@ -202,23 +206,23 @@ __device__ __forceinline__ void attend_tile_bf16(bf16* qs, const bf16* ks, const
   // out: through this warp's own 16 rows of the q tile, then 16-byte stores
   __syncwarp();  // every lane is done reading those q rows
 #pragma unroll
-  for (int nt = 0; nt < 8; ++nt) {
+  for (int nt = 0; nt < ND; ++nt) {
     const int col = 8 * nt + 2 * t;
-    if (rows[0] < R) *reinterpret_cast<uint32_t*>(qs + rows[0] * kLd + col) = pack_bf16(oacc[nt][0], oacc[nt][1]);
-    if (rows[1] < R) *reinterpret_cast<uint32_t*>(qs + rows[1] * kLd + col) = pack_bf16(oacc[nt][2], oacc[nt][3]);
+    if (rows[0] < R) *reinterpret_cast<uint32_t*>(qs + rows[0] * LD + col) = pack_bf16(oacc[nt][0], oacc[nt][1]);
+    if (rows[1] < R) *reinterpret_cast<uint32_t*>(qs + rows[1] * LD + col) = pack_bf16(oacc[nt][2], oacc[nt][3]);
   }
   __syncwarp();
-  for (int c = lane; c < 16 * (kHeadDim / 8); c += 32) {
-    const int row = 16 * mt + c / (kHeadDim / 8), col = 8 * (c % (kHeadDim / 8));
+  for (int c = lane; c < 16 * (DK / 8); c += 32) {
+    const int row = 16 * mt + c / (DK / 8), col = 8 * (c % (DK / 8));
     if (row < R) {
-      *reinterpret_cast<uint4*>(out_h + row * kHeadDim + col) = *reinterpret_cast<const uint4*>(qs + row * kLd + col);
+      *reinterpret_cast<uint4*>(out_h + row * DK + col) = *reinterpret_cast<const uint4*>(qs + row * LD + col);
     }
   }
 }
 
 // three blocks an SM: at most 85 registers a thread (the kv mode took 91,
 // and two blocks an SM, when left free)
-template <int RP, bool KV>
+template <int DK, int RP, bool KV>
 __global__ void __launch_bounds__(kMmaThreads, 3)
 box_attention_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
                          const float* __restrict__ boxes, const bf16* __restrict__ wg_w,
@@ -230,17 +234,18 @@ box_attention_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   uint64_t* full = reinterpret_cast<uint64_t*>(smem);  // per head: its tiles have landed
   uint64_t* empty = full + kMaxHeads;                  // per head: its query tiles are done
   constexpr int NT = KV ? 2 : 3;  // tiles a stage: q, k and, but in the kv mode, v
-  bf16* tiles = reinterpret_cast<bf16*>(empty + kMaxHeads);  // [stage][q, k, v][R][kLd]
+  constexpr int LD = kLd<DK>;
+  bf16* tiles = reinterpret_cast<bf16*>(empty + kMaxHeads);  // [stage][q, k, v][R][LD]
   const int P = R * R, MT = RP / 16;
-  bf16* zero = tiles + kStages * NT * R * kLd;  // kLd zeros
-  bf16* bias_s = zero + kLd;             // [H][R][R]
+  bf16* zero = tiles + kStages * NT * R * LD;  // LD zeros
+  bf16* bias_s = zero + LD;             // [H][R][R]
   float* box_s = reinterpret_cast<float*>(bias_s + ((H * P + 7) / 8) * 8);
   float* wb_s = box_s + R * 4;
   unsigned char* mask_s = reinterpret_cast<unsigned char*>(wb_s + kMaxHeads);
   const int warp = threadIdx.x / 32, lane = threadIdx.x & 31, t = lane & 3, g = lane >> 2;
   const int b = blockIdx.x;
   // tile 2, V, is the k tile in the kv mode
-  auto tile = [&](int stage, int which) { return tiles + (stage * NT + (which < NT ? which : 1)) * R * kLd; };
+  auto tile = [&](int stage, int which) { return tiles + (stage * NT + (which < NT ? which : 1)) * R * LD; };
 
   if (threadIdx.x == 0) {
     for (int h = 0; h < H; ++h) {
@@ -249,22 +254,22 @@ box_attention_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     }
     mbar_fence_init();
   }
-  for (int e = threadIdx.x; e < kLd; e += blockDim.x) zero[e] = __float2bfloat16_rn(0.f);
+  for (int e = threadIdx.x; e < LD; e += blockDim.x) zero[e] = __float2bfloat16_rn(0.f);
   for (int e = threadIdx.x; e < R * 4; e += blockDim.x) box_s[e] = boxes[(size_t)b * R * 4 + e];
   for (int e = threadIdx.x; e < kMaxHeads; e += blockDim.x) wb_s[e] = e < H ? __bfloat162float(wg_b[e]) : 0.f;
   for (int e = threadIdx.x; e < R; e += blockDim.x) mask_s[e] = mask[(size_t)b * R + e];
   __syncthreads();
 
-  const size_t head_elems = (size_t)R * kHeadDim;
+  const size_t head_elems = (size_t)R * DK;
   auto load_head = [&](int h) {  // one warp: head h's q, k, v (q, k) into stage h % kStages, one copy per row
     const int s = h % kStages;
-    if (lane == 0) mbar_arrive_expect_tx(&full[h], (unsigned)NT * R * kHeadDim * sizeof(bf16));
+    if (lane == 0) mbar_arrive_expect_tx(&full[h], (unsigned)NT * R * DK * sizeof(bf16));
     __syncwarp();
     const size_t base = ((size_t)b * H + h) * head_elems;
     for (int r = lane; r < R; r += 32) {
-      tma_load_1d(tile(s, 0) + r * kLd, q + base + r * kHeadDim, kHeadDim * sizeof(bf16), &full[h]);
-      tma_load_1d(tile(s, 1) + r * kLd, k + base + r * kHeadDim, kHeadDim * sizeof(bf16), &full[h]);
-      if (!KV) tma_load_1d(tile(s, 2) + r * kLd, v + base + r * kHeadDim, kHeadDim * sizeof(bf16), &full[h]);
+      tma_load_1d(tile(s, 0) + r * LD, q + base + r * DK, DK * sizeof(bf16), &full[h]);
+      tma_load_1d(tile(s, 1) + r * LD, k + base + r * DK, DK * sizeof(bf16), &full[h]);
+      if (!KV) tma_load_1d(tile(s, 2) + r * LD, v + base + r * DK, DK * sizeof(bf16), &full[h]);
     }
   };
   if (warp < kStages && warp < H) load_head(warp);
@@ -301,8 +306,8 @@ box_attention_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const int h = u / MT, mt = u - (u / MT) * MT, s = h % kStages;
     mbar_wait(&full[h], 0);
     const size_t row0 = ((size_t)b * H + h) * R;
-    attend_tile_bf16<RP>(tile(s, 0), tile(s, 1), tile(s, 2), zero, bias_s + h * P, mask_s,
-                         keep == nullptr ? nullptr : keep + row0 * R, keep_prob, out + row0 * kHeadDim, R, mt, scale);
+    attend_tile_bf16<DK, RP>(tile(s, 0), tile(s, 1), tile(s, 2), zero, bias_s + h * P, mask_s,
+                             keep == nullptr ? nullptr : keep + row0 * R, keep_prob, out + row0 * DK, R, mt, scale);
     fence_proxy_async();  // the output staging wrote into the stage that a later copy overwrites
     __syncwarp();
     if (lane == 0) mbar_arrive(&empty[h]);
@@ -317,18 +322,19 @@ box_attention_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 constexpr int kF32Threads = 256;
 constexpr int kF32Warps = kF32Threads / 32;
 constexpr int kRowsPerWarp = 4;          // query rows sharing each key load
-constexpr int kKeyLd = kHeadDim + 4;     // f32 key row stride: 128-bit loads of 8 lanes hit distinct banks
+// f32 key row stride (68 / 36 floats): 128-bit loads of 8 lanes hit distinct banks
+template <int DK> constexpr int kKeyLd = DK + 4;
 
 // the f32 bias region, rounded up so that the tiles after it take 16-byte loads
 __host__ __device__ inline int bias_floats(int H, int R) { return ((H * R * R + 3) / 4) * 4; }
 
-inline size_t f32_smem_bytes(int H, int R, bool kv) {
-  const size_t floats = bias_floats(H, R) + (size_t)R * kKeyLd + (kv ? 1 : 2) * (size_t)R * kHeadDim +
+inline size_t f32_smem_bytes(int dk, int H, int R, bool kv) {
+  const size_t floats = bias_floats(H, R) + (size_t)R * (dk + 4) + (kv ? 1 : 2) * (size_t)R * dk +
                         (size_t)kF32Warps * 64 * kRowsPerWarp + (size_t)R * 4 + (size_t)H * 64 + H + kFreqs;
   return floats * sizeof(float) + R;
 }
 
-template <bool KV>
+template <int DK, bool KV>
 __global__ void __launch_bounds__(kF32Threads)
 box_attention_f32_kernel(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
                          const float* __restrict__ boxes, const float* __restrict__ wg_w,
@@ -338,12 +344,13 @@ box_attention_f32_kernel(const float* __restrict__ q, const float* __restrict__ 
                          float scale) {
   extern __shared__ __align__(16) float smem_f[];
   const int warp = threadIdx.x / 32, lane = threadIdx.x & 31;
+  constexpr int KLD = kKeyLd<DK>;
   float* bias_s = smem_f;                  // H * R * R
-  float* q_s = bias_s + bias_floats(H, R);  // R * 64
-  float* k_s = q_s + R * kHeadDim;         // R * kKeyLd
-  float* v_s = KV ? k_s : k_s + R * kKeyLd;  // R * 64; the key tile in the kv mode
-  constexpr int vld = KV ? kKeyLd : kHeadDim;  // its row stride
-  float* p_s = k_s + R * kKeyLd + (KV ? 0 : R * kHeadDim);  // per warp 64 keys x 4 rows
+  float* q_s = bias_s + bias_floats(H, R);  // R * DK
+  float* k_s = q_s + R * DK;               // R * KLD
+  float* v_s = KV ? k_s : k_s + R * KLD;   // R * DK; the key tile in the kv mode
+  constexpr int vld = KV ? KLD : DK;       // its row stride
+  float* p_s = k_s + R * KLD + (KV ? 0 : R * DK);  // per warp 64 keys x 4 rows
   float* box_s = p_s + kF32Warps * 64 * kRowsPerWarp;
   float* w_s = box_s + R * 4;              // H * 64
   float* wb_s = w_s + H * 64;              // H
@@ -373,15 +380,15 @@ box_attention_f32_kernel(const float* __restrict__ q, const float* __restrict__ 
 
   float* pw = p_s + warp * 64 * kRowsPerWarp;  // [key][row]
   for (int hh = 0; hh < H; ++hh) {
-    const size_t base = ((size_t)b * H + hh) * R * kHeadDim;
+    const size_t base = ((size_t)b * H + hh) * R * DK;
     __syncthreads();  // bias done / the previous head's tiles no longer read
-    for (int e = threadIdx.x; e < R * (kHeadDim / 4); e += blockDim.x) {
-      const int r = e / (kHeadDim / 4), c = 4 * (e % (kHeadDim / 4));
-      const float4 qv = *reinterpret_cast<const float4*>(q + base + r * kHeadDim + c);
-      const float4 kv = *reinterpret_cast<const float4*>(k + base + r * kHeadDim + c);
-      *reinterpret_cast<float4*>(q_s + r * kHeadDim + c) = qv;
-      *reinterpret_cast<float4*>(k_s + r * kKeyLd + c) = kv;
-      if (!KV) *reinterpret_cast<float4*>(v_s + r * kHeadDim + c) = *reinterpret_cast<const float4*>(v + base + r * kHeadDim + c);
+    for (int e = threadIdx.x; e < R * (DK / 4); e += blockDim.x) {
+      const int r = e / (DK / 4), c = 4 * (e % (DK / 4));
+      const float4 qv = *reinterpret_cast<const float4*>(q + base + r * DK + c);
+      const float4 kv = *reinterpret_cast<const float4*>(k + base + r * DK + c);
+      *reinterpret_cast<float4*>(q_s + r * DK + c) = qv;
+      *reinterpret_cast<float4*>(k_s + r * KLD + c) = kv;
+      if (!KV) *reinterpret_cast<float4*>(v_s + r * DK + c) = *reinterpret_cast<const float4*>(v + base + r * DK + c);
     }
     __syncthreads();
     const float* bias_h = bias_s + hh * R * R;
@@ -391,13 +398,13 @@ box_attention_f32_kernel(const float* __restrict__ q, const float* __restrict__ 
       for (int r = 0; r < kRowsPerWarp; ++r) acc[r][0] = acc[r][1] = 0.f;
       const int j0 = lane < R ? lane : 0, j1 = lane + 32 < R ? lane + 32 : 0;
 #pragma unroll 4
-      for (int d = 0; d < kHeadDim; d += 4) {
-        const float4 k0 = *reinterpret_cast<const float4*>(k_s + j0 * kKeyLd + d);
-        const float4 k1 = *reinterpret_cast<const float4*>(k_s + j1 * kKeyLd + d);
+      for (int d = 0; d < DK; d += 4) {
+        const float4 k0 = *reinterpret_cast<const float4*>(k_s + j0 * KLD + d);
+        const float4 k1 = *reinterpret_cast<const float4*>(k_s + j1 * KLD + d);
 #pragma unroll
         for (int r = 0; r < kRowsPerWarp; ++r) {
           const int i = min(i0 + r, R - 1);
-          const float4 qv = *reinterpret_cast<const float4*>(q_s + i * kHeadDim + d);  // broadcast
+          const float4 qv = *reinterpret_cast<const float4*>(q_s + i * DK + d);  // broadcast
           acc[r][0] = fmaf(qv.x, k0.x, acc[r][0]);
           acc[r][0] = fmaf(qv.y, k0.y, acc[r][0]);
           acc[r][0] = fmaf(qv.z, k0.z, acc[r][0]);
@@ -436,6 +443,10 @@ box_attention_f32_kernel(const float* __restrict__ q, const float* __restrict__ 
         pw[(lane + 32) * kRowsPerWarp + r] = p1;
       }
       __syncwarp();
+      if (!owns_cols<DK>(lane)) {  // lane owns output columns 2 lane, 2 lane + 1
+        __syncwarp();
+        continue;
+      }
       float2 o[kRowsPerWarp];
 #pragma unroll
       for (int r = 0; r < kRowsPerWarp; ++r) o[r] = make_float2(0.f, 0.f);
@@ -451,14 +462,14 @@ box_attention_f32_kernel(const float* __restrict__ q, const float* __restrict__ 
       }
 #pragma unroll
       for (int r = 0; r < kRowsPerWarp; ++r) {
-        if (i0 + r < R) *reinterpret_cast<float2*>(out + base + (i0 + r) * kHeadDim + 2 * lane) = o[r];
+        if (i0 + r < R) *reinterpret_cast<float2*>(out + base + (i0 + r) * DK + 2 * lane) = o[r];
       }
       __syncwarp();  // pw is rewritten by the next rows
     }
   }
 }
 
-template <bool KV>
+template <int DK, bool KV>
 int dispatch(int dtype, const void* q, const void* k, const void* v, const void* boxes, const void* wg_w,
              const void* wg_b, const void* freq, const void* mask, const void* keep, float keep_prob, void* out,
              void* bias_out, int B, int H, int R, float scale, void* stream) {
@@ -467,12 +478,12 @@ int dispatch(int dtype, const void* q, const void* k, const void* v, const void*
   const unsigned char* mk = static_cast<const unsigned char*>(mask);
   const unsigned char* kp = static_cast<const unsigned char*>(keep);
   if (dtype == 0) {
-    const size_t smem = f32_smem_bytes(H, R, KV);
+    const size_t smem = f32_smem_bytes(DK, H, R, KV);
     if (smem > 232448) return (int)cudaErrorInvalidValue;
-    cudaError_t err = cudaFuncSetAttribute(box_attention_f32_kernel<KV>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                           (int)smem);
+    cudaError_t err = cudaFuncSetAttribute(box_attention_f32_kernel<DK, KV>,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
-    box_attention_f32_kernel<KV><<<B, kF32Threads, smem, s>>>(
+    box_attention_f32_kernel<DK, KV><<<B, kF32Threads, smem, s>>>(
         static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
         static_cast<const float*>(boxes), static_cast<const float*>(wg_w), static_cast<const float*>(wg_b),
         static_cast<const float*>(freq), mk, kp, keep_prob, static_cast<float*>(out), static_cast<float*>(bias_out),
@@ -480,13 +491,13 @@ int dispatch(int dtype, const void* q, const void* k, const void* v, const void*
     return (int)cudaGetLastError();
   }
   if (dtype != 1) return (int)cudaErrorInvalidValue;
-  const size_t smem = mma_smem_bytes(H, R, KV);
+  const size_t smem = mma_smem_bytes(DK, H, R, KV);
   if (smem > 232448) return (int)cudaErrorInvalidValue;
   const int rp = padded_rows(R);
-  auto kernel = rp == 16 ? box_attention_mma_kernel<16, KV>
-                : rp == 32 ? box_attention_mma_kernel<32, KV>
-                : rp == 48 ? box_attention_mma_kernel<48, KV>
-                           : box_attention_mma_kernel<64, KV>;
+  auto kernel = rp == 16 ? box_attention_mma_kernel<DK, 16, KV>
+                : rp == 32 ? box_attention_mma_kernel<DK, 32, KV>
+                : rp == 48 ? box_attention_mma_kernel<DK, 48, KV>
+                           : box_attention_mma_kernel<DK, 64, KV>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   kernel<<<B, kMmaThreads, smem, s>>>(static_cast<const bf16*>(q), static_cast<const bf16*>(k),
@@ -497,42 +508,58 @@ int dispatch(int dtype, const void* q, const void* k, const void* v, const void*
   return (int)cudaGetLastError();
 }
 
+// the instance of head width dk (64 or 32)
+template <bool KV>
+int dispatch_dk(int dtype, int dk, const void* q, const void* k, const void* v, const void* boxes, const void* wg_w,
+                const void* wg_b, const void* freq, const void* mask, const void* keep, float keep_prob, void* out,
+                void* bias_out, int B, int H, int R, float scale, void* stream) {
+  if (dk == 64) {
+    return dispatch<64, KV>(dtype, q, k, v, boxes, wg_w, wg_b, freq, mask, keep, keep_prob, out, bias_out, B, H, R,
+                            scale, stream);
+  }
+  if (dk == 32) {
+    return dispatch<32, KV>(dtype, q, k, v, boxes, wg_w, wg_b, freq, mask, keep, keep_prob, out, bias_out, B, H, R,
+                            scale, stream);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
 }  // namespace sct
 
-// dtype: 0 = float32, 1 = bfloat16. q/k/v/out (B, H, R, 64); boxes (B, R, 4) f32;
+// dtype: 0 = float32, 1 = bfloat16; dk: the head width, 64 or 32. q/k/v/out (B, H, R, dk); boxes (B, R, 4) f32;
 // wg_w (H, 64) and wg_b (H,) in the compute dtype; freq (8,) f32; mask (B, R) bool;
 // bias_out (B, H, R, R) in the compute dtype, or null: the log-bias added, for the check.
-extern "C" int sct_box_attention(int dtype, const void* q, const void* k, const void* v, const void* boxes,
+extern "C" int sct_box_attention(int dtype, int dk, const void* q, const void* k, const void* v, const void* boxes,
                                  const void* wg_w, const void* wg_b, const void* freq, const void* mask,
                                  void* out, void* bias_out, int B, int H, int R, float scale, void* stream) {
-  return sct::dispatch<false>(dtype, q, k, v, boxes, wg_w, wg_b, freq, mask, nullptr, 1.f, out, bias_out, B, H, R,
-                              scale, stream);
+  return sct::dispatch_dk<false>(dtype, dk, q, k, v, boxes, wg_w, wg_b, freq, mask, nullptr, 1.f, out, bias_out, B,
+                                 H, R, scale, stream);
 }
 
 // Train variant: as above, plus keep (B, H, R, R) bool or null (no dropout)
 // with keep_prob (the divisor, already rounded to the compute dtype).
-extern "C" int sct_box_attention_train(int dtype, const void* q, const void* k, const void* v, const void* boxes,
-                                       const void* wg_w, const void* wg_b, const void* freq, const void* mask,
-                                       const void* keep, float keep_prob, void* out, int B, int H, int R,
-                                       float scale, void* stream) {
-  return sct::dispatch<false>(dtype, q, k, v, boxes, wg_w, wg_b, freq, mask, keep, keep_prob, out, nullptr, B, H, R,
-                              scale, stream);
+extern "C" int sct_box_attention_train(int dtype, int dk, const void* q, const void* k, const void* v,
+                                       const void* boxes, const void* wg_w, const void* wg_b, const void* freq,
+                                       const void* mask, const void* keep, float keep_prob, void* out, int B, int H,
+                                       int R, float scale, void* stream) {
+  return sct::dispatch_dk<false>(dtype, dk, q, k, v, boxes, wg_w, wg_b, freq, mask, keep, keep_prob, out, nullptr, B,
+                                 H, R, scale, stream);
 }
 
-// kv modes of both: k (B, H, R, 64) is also V.
-extern "C" int sct_box_attention_kv(int dtype, const void* q, const void* k, const void* boxes, const void* wg_w,
-                                    const void* wg_b, const void* freq, const void* mask, void* out, void* bias_out,
-                                    int B, int H, int R, float scale, void* stream) {
-  return sct::dispatch<true>(dtype, q, k, k, boxes, wg_w, wg_b, freq, mask, nullptr, 1.f, out, bias_out, B, H, R,
-                             scale, stream);
+// kv modes of both: k (B, H, R, dk) is also V.
+extern "C" int sct_box_attention_kv(int dtype, int dk, const void* q, const void* k, const void* boxes,
+                                    const void* wg_w, const void* wg_b, const void* freq, const void* mask, void* out,
+                                    void* bias_out, int B, int H, int R, float scale, void* stream) {
+  return sct::dispatch_dk<true>(dtype, dk, q, k, k, boxes, wg_w, wg_b, freq, mask, nullptr, 1.f, out, bias_out, B, H,
+                                R, scale, stream);
 }
 
-extern "C" int sct_box_attention_train_kv(int dtype, const void* q, const void* k, const void* boxes,
+extern "C" int sct_box_attention_train_kv(int dtype, int dk, const void* q, const void* k, const void* boxes,
                                           const void* wg_w, const void* wg_b, const void* freq, const void* mask,
                                           const void* keep, float keep_prob, void* out, int B, int H, int R,
                                           float scale, void* stream) {
-  return sct::dispatch<true>(dtype, q, k, k, boxes, wg_w, wg_b, freq, mask, keep, keep_prob, out, nullptr, B, H, R,
-                             scale, stream);
+  return sct::dispatch_dk<true>(dtype, dk, q, k, k, boxes, wg_w, wg_b, freq, mask, keep, keep_prob, out, nullptr, B,
+                                H, R, scale, stream);
 }
 
 extern "C" const char* sct_error_string(int err) { return cudaGetErrorString(static_cast<cudaError_t>(err)); }

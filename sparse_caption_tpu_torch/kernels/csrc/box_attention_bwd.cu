@@ -83,8 +83,9 @@ using bf16 = __nv_bfloat16;
 constexpr int kGroupHeads = 4;  // heads per block
 constexpr int kBwdWarps = 4;
 constexpr int kBwdThreads = 32 * kBwdWarps;
-constexpr int kLd = kHeadDim + 8;  // staged row stride in bf16 (144 B)
-constexpr int kWgCols = kHeadDim + 1;  // a partial row: 64 features, then the bias
+// staged row stride in bf16 at head width DK (144 B at 64, 80 B at 32)
+template <int DK> constexpr int kLd = DK + 8;
+constexpr int kWgCols = 64 + 1;  // a partial row: the 64 geometry features (dim_g, not dk), then the bias
 
 inline int padded_rows(int R) { return 16 * ((R + 15) / 16); }
 
@@ -93,10 +94,10 @@ inline int padded_rows(int R) { return 16 * ((R + 15) / 16); }
 // P~^T (RP x (RP + 8) bf16 each) | boxes | wg_b | mask; at the end the fold of
 // the d wg partials (kBwdWarps x kMaxHeads x 72 f32) reuses it from the stages
 // on, so at small R it sets the size
-inline size_t bwd_mma_smem_bytes(int R, bool kv) {
+inline size_t bwd_mma_smem_bytes(int dk, int R, bool kv) {
   const int rp = padded_rows(R);
   const size_t bars = 3 * kGroupHeads * sizeof(uint64_t);
-  const size_t parts = (2 * (kv ? 3 : 4) * (size_t)R + 1) * kLd * sizeof(bf16) +
+  const size_t parts = (2 * (kv ? 3 : 4) * (size_t)R + 1) * (dk + 8) * sizeof(bf16) +
                        ((kGroupHeads * (size_t)R * R + 7) / 8) * 8 * sizeof(bf16) +
                        2 * 2 * (size_t)rp * (rp + 8) * sizeof(bf16) + (size_t)R * 4 * sizeof(float) +
                        kMaxHeads * sizeof(float) + R;
@@ -104,30 +105,32 @@ inline size_t bwd_mma_smem_bytes(int R, bool kv) {
   return bars + (parts > fold ? parts : fold);
 }
 
+template <int DK>
 __device__ __forceinline__ const bf16* tile_row(const bf16* tile, int r, int R, const bf16* zero) {
-  return r < R ? tile + r * kLd : zero;
+  return r < R ? tile + r * kLd<DK> : zero;
 }
 
-// 16 rows of 64 (C fragments of 8 n-tiles, rows row0 + g and + 8) to global memory; rows >= R dropped
-__device__ __forceinline__ void store_rows_bf16(const float acc[8][4], bf16* __restrict__ dst, int row0, int R) {
+// 16 rows of DK (C fragments of DK / 8 n-tiles, rows row0 + g and + 8) to global memory; rows >= R dropped
+template <int DK>
+__device__ __forceinline__ void store_rows_bf16(const float acc[DK / 8][4], bf16* __restrict__ dst, int row0, int R) {
   const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
 #pragma unroll
-  for (int nt = 0; nt < 8; ++nt) {
+  for (int nt = 0; nt < DK / 8; ++nt) {
     const int col = 8 * nt + 2 * t;
-    if (row0 + g < R) *reinterpret_cast<uint32_t*>(dst + (row0 + g) * kHeadDim + col) = pack_bf16(acc[nt][0], acc[nt][1]);
+    if (row0 + g < R) *reinterpret_cast<uint32_t*>(dst + (row0 + g) * DK + col) = pack_bf16(acc[nt][0], acc[nt][1]);
     if (row0 + g + 8 < R) {
-      *reinterpret_cast<uint32_t*>(dst + (row0 + g + 8) * kHeadDim + col) = pack_bf16(acc[nt][2], acc[nt][3]);
+      *reinterpret_cast<uint32_t*>(dst + (row0 + g + 8) * DK + col) = pack_bf16(acc[nt][2], acc[nt][3]);
     }
   }
 }
 
 // query side of one head for query tile mt: dS, dz (into wz), dQ, and dS^T / P~^T into shared memory
-template <int RP>
+template <int DK, int RP>
 __device__ __forceinline__ void query_tile_bf16(const bf16* qs, const bf16* ks, const bf16* vs, const bf16* dos,
                                                 const bf16* zero, bf16* wz, bf16* dsT, bf16* pT,
                                                 const unsigned char* mask_s, const unsigned char* __restrict__ keep_h,
                                                 float keep_prob, bf16* __restrict__ dq_h, int R, int mt, float scale) {
-  constexpr int KS = RP / 16, NS = 2 * KS, LDT = RP + 8;
+  constexpr int KS = RP / 16, NS = 2 * KS, LDT = RP + 8, ND = DK / 8;  // ND: dQ's n-tiles over d
   const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
   const int rows[2] = {16 * mt + g, 16 * mt + g + 8};
   const int nsv = (R + 7) / 8;  // key n-tiles that hold keys; the rest of S stays 0 and P 0
@@ -138,19 +141,19 @@ __device__ __forceinline__ void query_tile_bf16(const bf16* qs, const bf16* ks, 
     for (int e = 0; e < 4; ++e) sacc[nt][e] = dacc[nt][e] = 0.f;
   }
 #pragma unroll
-  for (int kd = 0; kd < kHeadDim / 16; ++kd) {
+  for (int kd = 0; kd < DK / 16; ++kd) {
     const int col = 16 * kd + 2 * t;
-    const bf16* q0 = tile_row(qs, rows[0], R, zero) + col;
-    const bf16* q1 = tile_row(qs, rows[1], R, zero) + col;
-    const bf16* d0 = tile_row(dos, rows[0], R, zero) + col;
-    const bf16* d1 = tile_row(dos, rows[1], R, zero) + col;
+    const bf16* q0 = tile_row<DK>(qs, rows[0], R, zero) + col;
+    const bf16* q1 = tile_row<DK>(qs, rows[1], R, zero) + col;
+    const bf16* d0 = tile_row<DK>(dos, rows[0], R, zero) + col;
+    const bf16* d1 = tile_row<DK>(dos, rows[1], R, zero) + col;
     const uint32_t aq[4] = {lds_u32(q0), lds_u32(q1), lds_u32(q0 + 8), lds_u32(q1 + 8)};
     const uint32_t ad[4] = {lds_u32(d0), lds_u32(d1), lds_u32(d0 + 8), lds_u32(d1 + 8)};
 #pragma unroll
     for (int nt = 0; nt < NS; ++nt) {
       if (nt < nsv) {
-        const bf16* kr = tile_row(ks, 8 * nt + g, R, zero) + col;
-        const bf16* vr = tile_row(vs, 8 * nt + g, R, zero) + col;
+        const bf16* kr = tile_row<DK>(ks, 8 * nt + g, R, zero) + col;
+        const bf16* vr = tile_row<DK>(vs, 8 * nt + g, R, zero) + col;
         const uint32_t bk[2] = {lds_u32(kr), lds_u32(kr + 8)};
         const uint32_t bv[2] = {lds_u32(vr), lds_u32(vr + 8)};
         mma_bf16(sacc[nt], aq, bk);
@@ -242,38 +245,38 @@ __device__ __forceinline__ void query_tile_bf16(const bf16* qs, const bf16* ks, 
     }
   }
   // dQ = dS K: dS's accumulators as A, K's B fragments by ldmatrix.trans
-  float qacc[8][4];
+  float qacc[ND][4];
 #pragma unroll
-  for (int nt = 0; nt < 8; ++nt) qacc[nt][0] = qacc[nt][1] = qacc[nt][2] = qacc[nt][3] = 0.f;
+  for (int nt = 0; nt < ND; ++nt) qacc[nt][0] = qacc[nt][1] = qacc[nt][2] = qacc[nt][3] = 0.f;
 #pragma unroll
   for (int kk = 0; kk < KS; ++kk) {
     const uint32_t a[4] = {pack_bf16(sacc[2 * kk][0], sacc[2 * kk][1]), pack_bf16(sacc[2 * kk][2], sacc[2 * kk][3]),
                            pack_bf16(sacc[2 * kk + 1][0], sacc[2 * kk + 1][1]),
                            pack_bf16(sacc[2 * kk + 1][2], sacc[2 * kk + 1][3])};
 #pragma unroll
-    for (int jn = 0; jn < 4; ++jn) {
+    for (int jn = 0; jn < DK / 16; ++jn) {
       uint32_t r[4];
-      ldmatrix_x4_trans(r, tile_row(ks, 16 * kk + (lane & 15), R, zero) + 16 * jn + (lane >> 4) * 8);
+      ldmatrix_x4_trans(r, tile_row<DK>(ks, 16 * kk + (lane & 15), R, zero) + 16 * jn + (lane >> 4) * 8);
       const uint32_t b0[2] = {r[0], r[1]}, b1[2] = {r[2], r[3]};
       mma_bf16(qacc[2 * jn], a, b0);
       mma_bf16(qacc[2 * jn + 1], a, b1);
     }
   }
-  store_rows_bf16(qacc, dq_h, 16 * mt, R);
+  store_rows_bf16<DK>(qacc, dq_h, 16 * mt, R);
 }
 
 // key side of one head for key tile mk: dK = dS^T Q and dV = P~^T dO (the kv
 // mode: their sum, each rounded first, into dk_h)
-template <int RP, bool KV>
+template <int DK, int RP, bool KV>
 __device__ __forceinline__ void key_tile_bf16(const bf16* qs, const bf16* dos, const bf16* zero, const bf16* dsT,
                                               const bf16* pT, bf16* __restrict__ dk_h, bf16* __restrict__ dv_h, int R,
                                               int mk) {
-  constexpr int KS = RP / 16, LDT = RP + 8;
+  constexpr int KS = RP / 16, LDT = RP + 8, ND = DK / 8;  // ND: n-tiles over d
   const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
   const int keys[2] = {16 * mk + g, 16 * mk + g + 8};
-  float kacc[8][4], vacc[8][4];
+  float kacc[ND][4], vacc[ND][4];
 #pragma unroll
-  for (int nt = 0; nt < 8; ++nt) {
+  for (int nt = 0; nt < ND; ++nt) {
 #pragma unroll
     for (int e = 0; e < 4; ++e) kacc[nt][e] = vacc[nt][e] = 0.f;
   }
@@ -286,10 +289,10 @@ __device__ __forceinline__ void key_tile_bf16(const bf16* qs, const bf16* dos, c
                             lds_u32(pT + keys[0] * LDT + col + 8), lds_u32(pT + keys[1] * LDT + col + 8)};
     const int row = 16 * kk + (lane & 15), coff = (lane >> 4) * 8;
 #pragma unroll
-    for (int jn = 0; jn < 4; ++jn) {
+    for (int jn = 0; jn < DK / 16; ++jn) {
       uint32_t rq[4], rd[4];
-      ldmatrix_x4_trans(rq, tile_row(qs, row, R, zero) + 16 * jn + coff);
-      ldmatrix_x4_trans(rd, tile_row(dos, row, R, zero) + 16 * jn + coff);
+      ldmatrix_x4_trans(rq, tile_row<DK>(qs, row, R, zero) + 16 * jn + coff);
+      ldmatrix_x4_trans(rd, tile_row<DK>(dos, row, R, zero) + 16 * jn + coff);
       const uint32_t bq0[2] = {rq[0], rq[1]}, bq1[2] = {rq[2], rq[3]};
       const uint32_t bd0[2] = {rd[0], rd[1]}, bd1[2] = {rd[2], rd[3]};
       mma_bf16(kacc[2 * jn], as, bq0);
@@ -300,18 +303,18 @@ __device__ __forceinline__ void key_tile_bf16(const bf16* qs, const bf16* dos, c
   }
   if (KV) {
 #pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
+    for (int nt = 0; nt < ND; ++nt) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) kacc[nt][e] = round_to<bf16>(round_to<bf16>(kacc[nt][e]) + round_to<bf16>(vacc[nt][e]));
     }
-    store_rows_bf16(kacc, dk_h, 16 * mk, R);
+    store_rows_bf16<DK>(kacc, dk_h, 16 * mk, R);
     return;
   }
-  store_rows_bf16(kacc, dk_h, 16 * mk, R);
-  store_rows_bf16(vacc, dv_h, 16 * mk, R);
+  store_rows_bf16<DK>(kacc, dk_h, 16 * mk, R);
+  store_rows_bf16<DK>(vacc, dv_h, 16 * mk, R);
 }
 
-template <int RP, bool KV>
+template <int DK, int RP, bool KV>
 __global__ void __launch_bounds__(kBwdThreads)
 box_attention_bwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
                              const bf16* __restrict__ dout, const float* __restrict__ boxes,
@@ -326,10 +329,11 @@ box_attention_bwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict_
   uint64_t* qdone = full + kGroupHeads;                // its query tiles are done (dS^T, P~^T written)
   uint64_t* kdone = qdone + kGroupHeads;               // its key tiles are done (the stage is free)
   constexpr int NT = KV ? 3 : 4;  // tiles a stage: q, k, v (not in the kv mode), dO
-  bf16* tiles = reinterpret_cast<bf16*>(kdone + kGroupHeads);  // [stage][q, k, v, dO][R][kLd]
+  constexpr int LD = kLd<DK>;
+  bf16* tiles = reinterpret_cast<bf16*>(kdone + kGroupHeads);  // [stage][q, k, v, dO][R][LD]
   const int P = R * R;
-  bf16* zero = tiles + 2 * NT * R * kLd;
-  bf16* wz_s = zero + kLd;  // [group head][P]: w_g, then dz
+  bf16* zero = tiles + 2 * NT * R * LD;
+  bf16* wz_s = zero + LD;  // [group head][P]: w_g, then dz
   bf16* ds_s = wz_s + ((kGroupHeads * P + 7) / 8) * 8;  // [stage][dS^T, P~^T][RP][LDT]
   float* box_s = reinterpret_cast<float*>(ds_s + 2 * 2 * RP * LDT);
   float* wb_s = box_s + R * 4;
@@ -340,7 +344,7 @@ box_attention_bwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict_
   const int b = blockIdx.x, h0 = kGroupHeads * rank, G = min(kGroupHeads, H - h0);
   // which: 0 q, 1 k, 2 v, 3 dO; the kv mode reads the k tile as v
   auto tile = [&](int stage, int which) {
-    return tiles + (stage * NT + (!KV ? which : which == 3 ? 2 : which == 2 ? 1 : which)) * R * kLd;
+    return tiles + (stage * NT + (!KV ? which : which == 3 ? 2 : which == 2 ? 1 : which)) * R * LD;
   };
 
   if (threadIdx.x == 0) {
@@ -351,24 +355,24 @@ box_attention_bwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict_
     }
     mbar_fence_init();
   }
-  for (int e = threadIdx.x; e < kLd; e += blockDim.x) zero[e] = __float2bfloat16_rn(0.f);
+  for (int e = threadIdx.x; e < LD; e += blockDim.x) zero[e] = __float2bfloat16_rn(0.f);
   for (int e = threadIdx.x; e < 2 * 2 * RP * LDT; e += blockDim.x) ds_s[e] = __float2bfloat16_rn(0.f);
   for (int e = threadIdx.x; e < R * 4; e += blockDim.x) box_s[e] = boxes[(size_t)b * R * 4 + e];
   for (int e = threadIdx.x; e < kMaxHeads; e += blockDim.x) wb_s[e] = e < H ? __bfloat162float(wg_b[e]) : 0.f;
   for (int e = threadIdx.x; e < R; e += blockDim.x) mask_s[e] = mask[(size_t)b * R + e];
   cluster.sync();  // every block of the image has started: its shared memory may be written
 
-  const size_t head_elems = (size_t)R * kHeadDim;
+  const size_t head_elems = (size_t)R * DK;
   auto load_head = [&](int hl) {  // one warp: head h0 + hl's q, k, v (not in the kv mode), dO into stage hl % 2
     const int s = hl & 1;
-    if (lane == 0) mbar_arrive_expect_tx(&full[hl], (unsigned)NT * R * kHeadDim * sizeof(bf16));
+    if (lane == 0) mbar_arrive_expect_tx(&full[hl], (unsigned)NT * R * DK * sizeof(bf16));
     __syncwarp();
     const size_t base = ((size_t)b * H + h0 + hl) * head_elems;
     for (int r = lane; r < R; r += 32) {
-      tma_load_1d(tile(s, 0) + r * kLd, q + base + r * kHeadDim, kHeadDim * sizeof(bf16), &full[hl]);
-      tma_load_1d(tile(s, 1) + r * kLd, k + base + r * kHeadDim, kHeadDim * sizeof(bf16), &full[hl]);
-      if (!KV) tma_load_1d(tile(s, 2) + r * kLd, v + base + r * kHeadDim, kHeadDim * sizeof(bf16), &full[hl]);
-      tma_load_1d(tile(s, 3) + r * kLd, dout + base + r * kHeadDim, kHeadDim * sizeof(bf16), &full[hl]);
+      tma_load_1d(tile(s, 0) + r * LD, q + base + r * DK, DK * sizeof(bf16), &full[hl]);
+      tma_load_1d(tile(s, 1) + r * LD, k + base + r * DK, DK * sizeof(bf16), &full[hl]);
+      if (!KV) tma_load_1d(tile(s, 2) + r * LD, v + base + r * DK, DK * sizeof(bf16), &full[hl]);
+      tma_load_1d(tile(s, 3) + r * LD, dout + base + r * DK, DK * sizeof(bf16), &full[hl]);
     }
   };
   if (warp == 0) load_head(0);
@@ -408,15 +412,15 @@ box_attention_bwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict_
     const size_t row0 = ((size_t)b * H + h0 + hl) * R;
     if (part < MT) {
       mbar_wait(&full[hl], 0);
-      query_tile_bf16<RP>(tile(s, 0), tile(s, 1), tile(s, 2), tile(s, 3), zero, wz_s + hl * P, dsT, pT, mask_s,
-                          keep == nullptr ? nullptr : keep + row0 * R, keep_prob, dq + row0 * kHeadDim, R, part,
-                          scale);
+      query_tile_bf16<DK, RP>(tile(s, 0), tile(s, 1), tile(s, 2), tile(s, 3), zero, wz_s + hl * P, dsT, pT, mask_s,
+                              keep == nullptr ? nullptr : keep + row0 * R, keep_prob, dq + row0 * DK, R, part,
+                              scale);
       __syncwarp();
       if (lane == 0) mbar_arrive(&qdone[hl]);
     } else {
       mbar_wait(&qdone[hl], 0);
-      key_tile_bf16<RP, KV>(tile(s, 0), tile(s, 3), zero, dsT, pT, dk + row0 * kHeadDim,
-                            KV ? nullptr : dv + row0 * kHeadDim, R, part - MT);
+      key_tile_bf16<DK, RP, KV>(tile(s, 0), tile(s, 3), zero, dsT, pT, dk + row0 * DK,
+                                KV ? nullptr : dv + row0 * DK, R, part - MT);
       __syncwarp();
       if (lane == 0) mbar_arrive(&kdone[hl]);
       if (part == 2 * MT - 1 && hl + 2 < G) {
@@ -512,15 +516,17 @@ box_attention_bwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict_
 constexpr int kF32Warps = 8;
 constexpr int kF32Threads = 32 * kF32Warps;
 constexpr int kRows = 4;               // query (key) rows a warp takes at once, sharing each load
-constexpr int kRowLd = kHeadDim + 4;   // f32 row stride: 128-bit loads of 8 lanes hit distinct banks
+// f32 row stride (68 / 36 floats): 128-bit loads of 8 lanes hit distinct banks
+template <int DK> constexpr int kRowLd = DK + 4;
 
-inline size_t bwd_f32_smem_bytes(int R, bool kv) {
-  const size_t floats = ((kGroupHeads * (size_t)R * R + 3) / 4) * 4 + (kv ? 3 : 4) * (size_t)R * kRowLd + 2 * (size_t)R * R +
+inline size_t bwd_f32_smem_bytes(int dk, int R, bool kv) {
+  const size_t floats = ((kGroupHeads * (size_t)R * R + 3) / 4) * 4 + (kv ? 3 : 4) * (size_t)R * (dk + 4) +
+                        2 * (size_t)R * R +
                         (size_t)R * 4 + (size_t)kMaxHeads * 64 + kMaxHeads + kFreqs;
   return floats * sizeof(float) + R;
 }
 
-template <bool KV>
+template <int DK, bool KV>
 __global__ void __launch_bounds__(kF32Threads)
 box_attention_bwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
                              const float* __restrict__ dout, const float* __restrict__ boxes,
@@ -530,14 +536,15 @@ box_attention_bwd_f32_kernel(const float* __restrict__ q, const float* __restric
                              float* __restrict__ dk, float* __restrict__ dv, float* __restrict__ wg_partial, int H,
                              int R, float scale) {
   extern __shared__ __align__(16) float smem_f[];
+  constexpr int RLD = kRowLd<DK>;
   const int warp = threadIdx.x / 32, lane = threadIdx.x & 31;
   const int b = blockIdx.x, h0 = kGroupHeads * blockIdx.y, G = min(kGroupHeads, H - h0);
   float* wz_s = smem_f;                                          // G * R * R: w_g, then dz
-  float* q_s = wz_s + ((kGroupHeads * R * R + 3) / 4) * 4;       // R * kRowLd
-  float* k_s = q_s + R * kRowLd;
-  float* v_s = KV ? k_s : k_s + R * kRowLd;  // the kv mode reads the k rows as v
-  float* do_s = v_s + R * kRowLd;
-  float* ds_s = do_s + R * kRowLd;  // R * R: dS * scale, masked keys zeroed
+  float* q_s = wz_s + ((kGroupHeads * R * R + 3) / 4) * 4;       // R * RLD
+  float* k_s = q_s + R * RLD;
+  float* v_s = KV ? k_s : k_s + R * RLD;  // the kv mode reads the k rows as v
+  float* do_s = v_s + R * RLD;
+  float* ds_s = do_s + R * RLD;  // R * R: dS * scale, masked keys zeroed
   float* pd_s = ds_s + R * R;       // R * R: P~
   float* box_s = pd_s + R * R;
   float* w_s = box_s + R * 4;       // H * 64
@@ -564,15 +571,15 @@ box_attention_bwd_f32_kernel(const float* __restrict__ q, const float* __restric
   const float min_wg = 1e-6f;
   const int j0 = lane < R ? lane : 0, j1 = lane + 32 < R ? lane + 32 : 0;  // this lane's keys (clamped)
   for (int hl = 0; hl < G; ++hl) {
-    const size_t base = ((size_t)b * H + h0 + hl) * R * kHeadDim;
+    const size_t base = ((size_t)b * H + h0 + hl) * R * DK;
     __syncthreads();  // w_g done / the previous head's tiles no longer read
-    for (int e = threadIdx.x; e < R * (kHeadDim / 4); e += blockDim.x) {
-      const int r = e / (kHeadDim / 4), c = 4 * (e % (kHeadDim / 4));
-      *reinterpret_cast<float4*>(q_s + r * kRowLd + c) = *reinterpret_cast<const float4*>(q + base + r * kHeadDim + c);
-      *reinterpret_cast<float4*>(k_s + r * kRowLd + c) = *reinterpret_cast<const float4*>(k + base + r * kHeadDim + c);
-      if (!KV) *reinterpret_cast<float4*>(v_s + r * kRowLd + c) = *reinterpret_cast<const float4*>(v + base + r * kHeadDim + c);
-      *reinterpret_cast<float4*>(do_s + r * kRowLd + c) =
-          *reinterpret_cast<const float4*>(dout + base + r * kHeadDim + c);
+    for (int e = threadIdx.x; e < R * (DK / 4); e += blockDim.x) {
+      const int r = e / (DK / 4), c = 4 * (e % (DK / 4));
+      *reinterpret_cast<float4*>(q_s + r * RLD + c) = *reinterpret_cast<const float4*>(q + base + r * DK + c);
+      *reinterpret_cast<float4*>(k_s + r * RLD + c) = *reinterpret_cast<const float4*>(k + base + r * DK + c);
+      if (!KV) *reinterpret_cast<float4*>(v_s + r * RLD + c) = *reinterpret_cast<const float4*>(v + base + r * DK + c);
+      *reinterpret_cast<float4*>(do_s + r * RLD + c) =
+          *reinterpret_cast<const float4*>(dout + base + r * DK + c);
     }
     __syncthreads();
     float* wz = wz_s + hl * R * R;
@@ -582,16 +589,16 @@ box_attention_bwd_f32_kernel(const float* __restrict__ q, const float* __restric
 #pragma unroll
       for (int r = 0; r < kRows; ++r) qk[r][0] = qk[r][1] = pv[r][0] = pv[r][1] = 0.f;
 #pragma unroll 4
-      for (int d = 0; d < kHeadDim; d += 4) {
-        const float4 k0 = *reinterpret_cast<const float4*>(k_s + j0 * kRowLd + d);
-        const float4 k1 = *reinterpret_cast<const float4*>(k_s + j1 * kRowLd + d);
-        const float4 v0 = *reinterpret_cast<const float4*>(v_s + j0 * kRowLd + d);
-        const float4 v1 = *reinterpret_cast<const float4*>(v_s + j1 * kRowLd + d);
+      for (int d = 0; d < DK; d += 4) {
+        const float4 k0 = *reinterpret_cast<const float4*>(k_s + j0 * RLD + d);
+        const float4 k1 = *reinterpret_cast<const float4*>(k_s + j1 * RLD + d);
+        const float4 v0 = *reinterpret_cast<const float4*>(v_s + j0 * RLD + d);
+        const float4 v1 = *reinterpret_cast<const float4*>(v_s + j1 * RLD + d);
 #pragma unroll
         for (int r = 0; r < kRows; ++r) {
           const int i = min(i0 + r, R - 1);
-          const float4 qv = *reinterpret_cast<const float4*>(q_s + i * kRowLd + d);   // broadcast
-          const float4 dov = *reinterpret_cast<const float4*>(do_s + i * kRowLd + d);  // broadcast
+          const float4 qv = *reinterpret_cast<const float4*>(q_s + i * RLD + d);   // broadcast
+          const float4 dov = *reinterpret_cast<const float4*>(do_s + i * RLD + d);  // broadcast
           qk[r][0] = fmaf(qv.w, k0.w, fmaf(qv.z, k0.z, fmaf(qv.y, k0.y, fmaf(qv.x, k0.x, qk[r][0]))));
           qk[r][1] = fmaf(qv.w, k1.w, fmaf(qv.z, k1.z, fmaf(qv.y, k1.y, fmaf(qv.x, k1.x, qk[r][1]))));
           pv[r][0] = fmaf(dov.w, v0.w, fmaf(dov.z, v0.z, fmaf(dov.y, v0.y, fmaf(dov.x, v0.x, pv[r][0]))));
@@ -636,33 +643,35 @@ box_attention_bwd_f32_kernel(const float* __restrict__ q, const float* __restric
         }
       }
       __syncwarp();
-      // dq of the 4 rows: lane = a pair of columns, one k load for the 4 rows
-      float2 acc[kRows];
+      // dq of the 4 rows: lane = a pair of columns (owns_cols), one k load for the 4 rows
+      if (owns_cols<DK>(lane)) {
+        float2 acc[kRows];
 #pragma unroll
-      for (int r = 0; r < kRows; ++r) acc[r] = make_float2(0.f, 0.f);
-      for (int j = 0; j < R; ++j) {
-        const float2 kv = *reinterpret_cast<const float2*>(k_s + j * kRowLd + 2 * lane);
+        for (int r = 0; r < kRows; ++r) acc[r] = make_float2(0.f, 0.f);
+        for (int j = 0; j < R; ++j) {
+          const float2 kv = *reinterpret_cast<const float2*>(k_s + j * RLD + 2 * lane);
+#pragma unroll
+          for (int r = 0; r < kRows; ++r) {
+            const float ds = ds_s[min(i0 + r, R - 1) * R + j];
+            acc[r].x = fmaf(ds, kv.x, acc[r].x);
+            acc[r].y = fmaf(ds, kv.y, acc[r].y);
+          }
+        }
 #pragma unroll
         for (int r = 0; r < kRows; ++r) {
-          const float ds = ds_s[min(i0 + r, R - 1) * R + j];
-          acc[r].x = fmaf(ds, kv.x, acc[r].x);
-          acc[r].y = fmaf(ds, kv.y, acc[r].y);
+          if (i0 + r < R) store2(dq + base + (size_t)(i0 + r) * DK + 2 * lane, acc[r]);
         }
-      }
-#pragma unroll
-      for (int r = 0; r < kRows; ++r) {
-        if (i0 + r < R) store2(dq + base + (size_t)(i0 + r) * kHeadDim + 2 * lane, acc[r]);
       }
     }
     __syncthreads();
     // key side, 4 key rows a warp: dk and dv, one q / dO load for the 4 rows
-    for (int jb = kRows * warp; jb < R; jb += kRows * kF32Warps) {
+    for (int jb = kRows * warp; jb < R && owns_cols<DK>(lane); jb += kRows * kF32Warps) {
       float2 ak[kRows], av[kRows];
 #pragma unroll
       for (int r = 0; r < kRows; ++r) ak[r] = av[r] = make_float2(0.f, 0.f);
       for (int i = 0; i < R; ++i) {
-        const float2 qv = *reinterpret_cast<const float2*>(q_s + i * kRowLd + 2 * lane);
-        const float2 dov = *reinterpret_cast<const float2*>(do_s + i * kRowLd + 2 * lane);
+        const float2 qv = *reinterpret_cast<const float2*>(q_s + i * RLD + 2 * lane);
+        const float2 dov = *reinterpret_cast<const float2*>(do_s + i * RLD + 2 * lane);
 #pragma unroll
         for (int r = 0; r < kRows; ++r) {
           const int j = min(jb + r, R - 1);
@@ -676,10 +685,10 @@ box_attention_bwd_f32_kernel(const float* __restrict__ q, const float* __restric
 #pragma unroll
       for (int r = 0; r < kRows; ++r) {
         if (jb + r < R && KV) {  // d(k as K) + d(k as V)
-          store2(dk + base + (size_t)(jb + r) * kHeadDim + 2 * lane, make_float2(ak[r].x + av[r].x, ak[r].y + av[r].y));
+          store2(dk + base + (size_t)(jb + r) * DK + 2 * lane, make_float2(ak[r].x + av[r].x, ak[r].y + av[r].y));
         } else if (jb + r < R) {
-          store2(dk + base + (size_t)(jb + r) * kHeadDim + 2 * lane, ak[r]);
-          store2(dv + base + (size_t)(jb + r) * kHeadDim + 2 * lane, av[r]);
+          store2(dk + base + (size_t)(jb + r) * DK + 2 * lane, ak[r]);
+          store2(dv + base + (size_t)(jb + r) * DK + 2 * lane, av[r]);
         }
       }
     }
@@ -746,7 +755,7 @@ cudaError_t launch_reduce(void* partial, int B, int Y, int H, void* dwg_w, void*
   return cudaGetLastError();
 }
 
-template <bool KV>
+template <int DK, bool KV>
 int bwd_entry(int dtype, const void* q, const void* k, const void* v, const void* dout, const void* boxes,
               const void* wg_w, const void* wg_b, const void* freq, const void* mask, const void* keep,
               float keep_prob, void* dq, void* dk, void* dv, void* dwg_w, void* dwg_b, void* partial, int B, int H,
@@ -758,12 +767,12 @@ int bwd_entry(int dtype, const void* q, const void* k, const void* v, const void
   const unsigned char* kp = static_cast<const unsigned char*>(keep);
   float* part = static_cast<float*>(partial);
   if (dtype == 0) {
-    const size_t smem = bwd_f32_smem_bytes(R, KV);
+    const size_t smem = bwd_f32_smem_bytes(DK, R, KV);
     if (smem > 232448) return (int)cudaErrorInvalidValue;
-    cudaError_t err = cudaFuncSetAttribute(box_attention_bwd_f32_kernel<KV>,
+    cudaError_t err = cudaFuncSetAttribute(box_attention_bwd_f32_kernel<DK, KV>,
                                            cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
-    box_attention_bwd_f32_kernel<KV><<<grid, kF32Threads, smem, s>>>(
+    box_attention_bwd_f32_kernel<DK, KV><<<grid, kF32Threads, smem, s>>>(
         static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
         static_cast<const float*>(dout), static_cast<const float*>(boxes), static_cast<const float*>(wg_w),
         static_cast<const float*>(wg_b), static_cast<const float*>(freq), mk, kp, keep_prob, static_cast<float*>(dq),
@@ -773,13 +782,13 @@ int bwd_entry(int dtype, const void* q, const void* k, const void* v, const void
     return (int)launch_reduce<float>(partial, B, 1, H, dwg_w, dwg_b, s);
   }
   if (dtype != 1) return (int)cudaErrorInvalidValue;
-  const size_t smem = bwd_mma_smem_bytes(R, KV);
+  const size_t smem = bwd_mma_smem_bytes(DK, R, KV);
   if (smem > 232448) return (int)cudaErrorInvalidValue;
   const int rp = padded_rows(R);
-  auto kernel = rp == 16 ? box_attention_bwd_mma_kernel<16, KV>
-                : rp == 32 ? box_attention_bwd_mma_kernel<32, KV>
-                : rp == 48 ? box_attention_bwd_mma_kernel<48, KV>
-                           : box_attention_bwd_mma_kernel<64, KV>;
+  auto kernel = rp == 16 ? box_attention_bwd_mma_kernel<DK, 16, KV>
+                : rp == 32 ? box_attention_bwd_mma_kernel<DK, 32, KV>
+                : rp == 48 ? box_attention_bwd_mma_kernel<DK, 48, KV>
+                           : box_attention_bwd_mma_kernel<DK, 64, KV>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   cudaLaunchConfig_t config = {};
@@ -803,29 +812,46 @@ int bwd_entry(int dtype, const void* q, const void* k, const void* v, const void
   return (int)launch_reduce<bf16>(partial, B, grid.y, H, dwg_w, dwg_b, s);
 }
 
+// the instance of head width dk (64 or 32)
+template <bool KV>
+int bwd_entry_dk(int dtype, int dk_width, const void* q, const void* k, const void* v, const void* dout,
+                 const void* boxes, const void* wg_w, const void* wg_b, const void* freq, const void* mask,
+                 const void* keep, float keep_prob, void* dq, void* dk, void* dv, void* dwg_w, void* dwg_b,
+                 void* partial, int B, int H, int R, float scale, void* stream) {
+  if (dk_width == 64) {
+    return bwd_entry<64, KV>(dtype, q, k, v, dout, boxes, wg_w, wg_b, freq, mask, keep, keep_prob, dq, dk, dv, dwg_w,
+                             dwg_b, partial, B, H, R, scale, stream);
+  }
+  if (dk_width == 32) {
+    return bwd_entry<32, KV>(dtype, q, k, v, dout, boxes, wg_w, wg_b, freq, mask, keep, keep_prob, dq, dk, dv, dwg_w,
+                             dwg_b, partial, B, H, R, scale, stream);
+  }
+  return (int)cudaErrorInvalidValue;
+}
 
 }  // namespace sct
 
-// dtype: 0 = float32, 1 = bfloat16. q, k, v, dout, dq, dk, dv (B, H, R, 64);
+// dtype: 0 = float32, 1 = bfloat16; dk_width: the head width, 64 or 32. q, k, v, dout, dq, dk, dv (B, H, R, dk);
 // boxes (B, R, 4) f32; wg_w (H, 64), wg_b (H,), dwg_w, dwg_b in the compute
 // dtype; freq (8,) f32; mask (B, R) bool; keep (B, H, R, R) bool or null with
 // keep_prob (the divisor, rounded to the compute dtype); partial (B, H, 65) f32 scratch.
-extern "C" int sct_box_attention_bwd(int dtype, const void* q, const void* k, const void* v, const void* dout,
-                                     const void* boxes, const void* wg_w, const void* wg_b, const void* freq,
-                                     const void* mask, const void* keep, float keep_prob, void* dq, void* dk, void* dv,
-                                     void* dwg_w, void* dwg_b, void* partial, int B, int H, int R, float scale,
-                                     void* stream) {
-  return sct::bwd_entry<false>(dtype, q, k, v, dout, boxes, wg_w, wg_b, freq, mask, keep, keep_prob, dq, dk, dv,
-                               dwg_w, dwg_b, partial, B, H, R, scale, stream);
+extern "C" int sct_box_attention_bwd(int dtype, int dk_width, const void* q, const void* k, const void* v,
+                                     const void* dout, const void* boxes, const void* wg_w, const void* wg_b,
+                                     const void* freq, const void* mask, const void* keep, float keep_prob, void* dq,
+                                     void* dk, void* dv, void* dwg_w, void* dwg_b, void* partial, int B, int H, int R,
+                                     float scale, void* stream) {
+  return sct::bwd_entry_dk<false>(dtype, dk_width, q, k, v, dout, boxes, wg_w, wg_b, freq, mask, keep, keep_prob, dq,
+                                  dk, dv, dwg_w, dwg_b, partial, B, H, R, scale, stream);
 }
 
-// kv mode: k is also V; dkv (B, H, R, 64) receives its one gradient.
-extern "C" int sct_box_attention_bwd_kv(int dtype, const void* q, const void* k, const void* dout, const void* boxes,
-                                        const void* wg_w, const void* wg_b, const void* freq, const void* mask,
-                                        const void* keep, float keep_prob, void* dq, void* dkv, void* dwg_w,
-                                        void* dwg_b, void* partial, int B, int H, int R, float scale, void* stream) {
-  return sct::bwd_entry<true>(dtype, q, k, k, dout, boxes, wg_w, wg_b, freq, mask, keep, keep_prob, dq, dkv, nullptr,
-                              dwg_w, dwg_b, partial, B, H, R, scale, stream);
+// kv mode: k is also V; dkv (B, H, R, dk) receives its one gradient.
+extern "C" int sct_box_attention_bwd_kv(int dtype, int dk_width, const void* q, const void* k, const void* dout,
+                                        const void* boxes, const void* wg_w, const void* wg_b, const void* freq,
+                                        const void* mask, const void* keep, float keep_prob, void* dq, void* dkv,
+                                        void* dwg_w, void* dwg_b, void* partial, int B, int H, int R, float scale,
+                                        void* stream) {
+  return sct::bwd_entry_dk<true>(dtype, dk_width, q, k, k, dout, boxes, wg_w, wg_b, freq, mask, keep, keep_prob, dq,
+                                 dkv, nullptr, dwg_w, dwg_b, partial, B, H, R, scale, stream);
 }
 
 extern "C" const char* sct_error_string(int err) { return cudaGetErrorString(static_cast<cudaError_t>(err)); }

@@ -25,6 +25,18 @@
 //   out    = cider_weight * cider + sum_n bleu_weight[n] * BLEU-(n+1) * penalty
 // uint32 arithmetic wraps as in the JAX package's `_mix`; floats are f32.
 //
+// Radix mode (tpw > 0; ACORT's digit ids, scst/device_reward.py:235-280
+// make_radix_to_word_fn, which the JAX package applies per row inside the
+// jitted scorer): the row holds T radix digits (pad 0, digits 1..base,
+// bos base + 1, eos base + 2). The prologue regroups them into word ids
+// first: digits before the first eos with pad and bos dropped, grouped by
+// tpw (a short tail filled with digit 1), each group's value sum of
+// max(d - 1, 0) base^(tpw - 1 - k); value v < n_words - 1 becomes word v + 4,
+// any other <unk> 1. The word row then takes the gram path above with the
+// word-level eos / pad / bos ids the caller passes (3, 0, 2): its
+// ceil(T / tpw) slots hold the words, then word pad 0, so the compaction
+// keeps every regrouped word in order.
+//
 // Bound on the H100: data-dependent integer work, no floating-point peak
 // applies. Per caption the G x G equality and the G x R x L match are
 // 68 * 68 + 68 * 5 * 64 = 26.4k key compares (T = 17, 5 refs, L = 64);
@@ -63,7 +75,7 @@ cider_reward_kernel(const int* __restrict__ ids, int T, const int* __restrict__ 
                     const float* __restrict__ rnorms, const float* __restrict__ rlens, const int* __restrict__ rwlens,
                     const float* __restrict__ rvalid, const float* __restrict__ nrefs, int R, int L, float ref_len,
                     int eos_id, int pad_id, int bos_id, float cider_w, float bw0, float bw1, float bw2, float bw3,
-                    int with_bleu, float* __restrict__ out) {
+                    int with_bleu, int radix_base, int tpw, int n_words, float* __restrict__ out) {
   __shared__ uint32_t words[kMaxTok + 3];
   __shared__ int s_len;
   __shared__ uint32_t ghi[kMaxSlots], glo[kMaxSlots];
@@ -71,18 +83,43 @@ cider_reward_kernel(const int* __restrict__ ids, int T, const int* __restrict__ 
   __shared__ float gvals[kMaxSlots], gfirst[kMaxSlots], gcorrect[kMaxSlots];
   __shared__ float per_gr[kMaxSlots][kMaxRefs];
   __shared__ float num[kMaxRefs][4];
-  const int row = blockIdx.x, G = 4 * T;
-  const int* seq = ids + (size_t)row * T;
+  const int row = blockIdx.x, T_in = T;  // T_in: the row's ids (digits in the radix mode)
+  const int* seq = ids + (size_t)row * T_in;
   const int img = img_idx[row];
+  if (tpw > 0) T = (T_in + tpw - 1) / tpw;  // the radix row's word slots: the gram layout's T from here on
+  const int G = 4 * T;
 
   // compact the words: stop at the first EOS, skip pad / bos anywhere
   if (threadIdx.x == 0) {
     int len = 0;
     for (int i = 0; i < kMaxTok + 3; ++i) words[i] = 0u;
-    for (int i = 0; i < T; ++i) {
-      const int id = seq[i];
-      if (id == eos_id) break;
-      if (id != pad_id && id != bos_id) words[len++] = (uint32_t)(id + 1);
+    if (tpw > 0) {
+      // radix mode: regroup the digits into word ids, which need no further
+      // compaction (no regrouped word is the word pad, bos or eos)
+      const int eos_r = radix_base + 2, bos_r = radix_base + 1;
+      uint32_t v = 0u;
+      int k = 0;
+      for (int i = 0; i < T_in; ++i) {
+        const int d = seq[i];
+        if (d == eos_r) break;
+        if (d == 0 || d == bos_r) continue;
+        v = v * (uint32_t)radix_base + (uint32_t)(d > 1 ? d - 1 : 0);
+        if (++k == tpw) {
+          words[len++] = (v < (uint32_t)(n_words - 1) ? v + 4u : 1u) + 1u;
+          v = 0u;
+          k = 0;
+        }
+      }
+      if (k > 0) {  // the short tail, filled with digit 1 (value 0)
+        for (; k < tpw; ++k) v *= (uint32_t)radix_base;
+        words[len++] = (v < (uint32_t)(n_words - 1) ? v + 4u : 1u) + 1u;
+      }
+    } else {
+      for (int i = 0; i < T; ++i) {
+        const int id = seq[i];
+        if (id == eos_id) break;
+        if (id != pad_id && id != bos_id) words[len++] = (uint32_t)(id + 1);
+      }
     }
     s_len = len;
   }
@@ -213,15 +250,19 @@ cider_reward_kernel(const int* __restrict__ ids, int T, const int* __restrict__ 
 // ids (N, T) int32; img_idx (N,) int32; table hi/lo (size,) uint32, val (size,)
 // f32; pack hi/lo (B, R, L) uint32, val/cnt (B, R, L) f32, norms (B, R, 4) f32,
 // lens (B, R) f32, wlens (B, R) int32, ref_valid (B, R) f32, n_refs (B,) f32.
-// Output: (N,) f32.
+// Radix mode: tpw > 0 digits a word in base radix_base over a word vocabulary
+// of n_words + 3 entries (ids then T digits, ceil(T / tpw) <= 32 words);
+// tpw = 0: word ids. Output: (N,) f32.
 extern "C" int sct_cider_reward(const void* ids, int N, int T, const void* img_idx, const void* tbl_hi,
                                 const void* tbl_lo, const void* tbl_val, int tbl_size, int probe, const void* rhi,
                                 const void* rlo, const void* rval, const void* rcnt, const void* rnorms,
                                 const void* rlens, const void* rwlens, const void* rvalid, const void* nrefs, int R,
                                 int L, float ref_len, int eos_id, int pad_id, int bos_id, float cider_w, float bw0,
-                                float bw1, float bw2, float bw3, int with_bleu, void* out, void* stream) {
-  if (N <= 0 || T <= 0 || T > sct::kMaxTok || R <= 0 || R > sct::kMaxRefs || L <= 0 || tbl_size <= 0 ||
-      (tbl_size & (tbl_size - 1)) != 0)
+                                float bw1, float bw2, float bw3, int with_bleu, int radix_base, int tpw, int n_words,
+                                void* out, void* stream) {
+  const int word_slots = tpw > 0 ? (T + tpw - 1) / tpw : T;
+  if (N <= 0 || T <= 0 || word_slots > sct::kMaxTok || R <= 0 || R > sct::kMaxRefs || L <= 0 || tbl_size <= 0 ||
+      (tbl_size & (tbl_size - 1)) != 0 || tpw < 0 || (tpw > 0 && (radix_base < 2 || n_words < 1)))
     return (int)cudaErrorInvalidValue;
   sct::cider_reward_kernel<<<N, sct::kRewardThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int*>(ids), T, static_cast<const int*>(img_idx), static_cast<const uint32_t*>(tbl_hi),
@@ -229,7 +270,8 @@ extern "C" int sct_cider_reward(const void* ids, int N, int T, const void* img_i
       static_cast<const uint32_t*>(rhi), static_cast<const uint32_t*>(rlo), static_cast<const float*>(rval),
       static_cast<const float*>(rcnt), static_cast<const float*>(rnorms), static_cast<const float*>(rlens),
       static_cast<const int*>(rwlens), static_cast<const float*>(rvalid), static_cast<const float*>(nrefs), R, L,
-      ref_len, eos_id, pad_id, bos_id, cider_w, bw0, bw1, bw2, bw3, with_bleu, static_cast<float*>(out));
+      ref_len, eos_id, pad_id, bos_id, cider_w, bw0, bw1, bw2, bw3, with_bleu, radix_base, tpw, n_words,
+      static_cast<float*>(out));
   return (int)cudaGetLastError();
 }
 

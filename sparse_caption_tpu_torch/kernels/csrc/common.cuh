@@ -2,8 +2,10 @@
 //
 // Inputs are f32 or bf16; all arithmetic runs in f32. `round_to<T>` marks the
 // points where the JAX reference rounds an intermediate to the compute dtype
-// (a no-op for f32). Every kernel here assumes a head width of 64 (d_model 512,
-// 8 heads), which the Python wrappers check before launching.
+// (a no-op for f32). The attention kernels take the head width DK as a template
+// parameter, instantiated for 64 (d_model 512, 8 heads: the ORT, ACORT-base)
+// and 32 (d_model 256, 8 heads: ACORT-small and ORT-small); the Python
+// wrappers check dk before launching.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -12,7 +14,6 @@
 
 namespace sct {
 
-constexpr int kHeadDim = 64;
 constexpr float kNegInf = -1e9f;  // the masked-score fill (layers.py NEG_INF)
 constexpr int kBlockSmemLimit = 232448;  // dynamic shared memory a block may use on the H100
 
@@ -82,15 +83,20 @@ __device__ __forceinline__ bool ranks_above(float va, int ia, float vb, int ib) 
 
 // Shared-memory row strides of a key tile (odd: lane j reading row j hits bank
 // (j + d) % 32, no conflicts) and of a value tile (lane reads 2 neighbours).
-constexpr int kKeyStride = kHeadDim + 1;
-constexpr int kValStride = kHeadDim;
+template <int DK> constexpr int kKeyStride = DK + 1;
+template <int DK> constexpr int kValStride = DK;
 
-// Copy `rows` rows of 64 elements from global memory into f32 shared memory.
-template <typename T>
+// A lane's columns of a DK-wide row in the f32 layouts where lane l owns
+// columns 2 l and 2 l + 1: every lane at DK = 64, lanes 0-15 at DK = 32 (the
+// others skip the row's loads and stores).
+template <int DK> __device__ __forceinline__ bool owns_cols(int lane) { return DK == 64 || 2 * lane < DK; }
+
+// Copy `rows` rows of DK elements from global memory into f32 shared memory.
+template <int DK, typename T>
 __device__ __forceinline__ void load_tile(float* dst, const T* __restrict__ src, int rows, int stride) {
-  for (int e = threadIdx.x; e < rows * (kHeadDim / 2); e += blockDim.x) {
-    const int r = e / (kHeadDim / 2), c = (e % (kHeadDim / 2)) * 2;
-    const float2 v = load2(src + r * kHeadDim + c);
+  for (int e = threadIdx.x; e < rows * (DK / 2); e += blockDim.x) {
+    const int r = e / (DK / 2), c = (e % (DK / 2)) * 2;
+    const float2 v = load2(src + r * DK + c);
     dst[r * stride + c] = v.x;
     dst[r * stride + c + 1] = v.y;
   }
@@ -98,19 +104,19 @@ __device__ __forceinline__ void load_tile(float* dst, const T* __restrict__ src,
 
 // One warp attends one query row to R <= 64 keys held in shared memory:
 // scores q.k * scale, the -1e9 fill where mask == 0, an optional additive
-// bias AFTER the fill, softmax, then P.V written to `out` (64 elements).
-// q_s: 64 f32; k_s: R rows of kKeyStride; v_s: R rows of kValStride;
+// bias AFTER the fill, softmax, then P.V written to `out` (DK elements).
+// q_s: DK f32; k_s: R rows of kKeyStride; v_s: R rows of kValStride;
 // p_s: 64 f32 of scratch owned by this warp. Optional (training): `keep`, the
 // row's R dropout flags, turns p into p * keep / keep_prob before P.V, and
 // `lse` receives the row's log-sum-exp of the scores (f32). `v_stride`: the
 // value rows' stride (kKeyStride where the key tile serves as V).
-template <typename T>
+template <int DK, typename T>
 __device__ __forceinline__ void warp_attend_row(const float* q_s, const float* k_s, const float* v_s,
                                                 const unsigned char* mask_s, const float* bias, int R,
                                                 float scale, float* p_s, T* __restrict__ out,
                                                 const unsigned char* __restrict__ keep = nullptr,
                                                 float keep_prob = 1.f, float* __restrict__ lse = nullptr,
-                                                int v_stride = kValStride) {
+                                                int v_stride = kValStride<DK>) {
   const int lane = threadIdx.x & 31;
   float s[2];
 #pragma unroll
@@ -118,10 +124,10 @@ __device__ __forceinline__ void warp_attend_row(const float* q_s, const float* k
     const int j = lane + 32 * c;
     float v = -INFINITY;
     if (j < R) {
-      const float* kr = k_s + j * kKeyStride;
+      const float* kr = k_s + j * kKeyStride<DK>;
       float acc = 0.f;
 #pragma unroll 16
-      for (int d = 0; d < kHeadDim; ++d) acc = fmaf(q_s[d], kr[d], acc);
+      for (int d = 0; d < DK; ++d) acc = fmaf(q_s[d], kr[d], acc);
       v = acc * scale;
       if (mask_s != nullptr && mask_s[j] == 0) v = kNegInf;
       if (bias != nullptr) v += bias[j];
@@ -142,14 +148,16 @@ __device__ __forceinline__ void warp_attend_row(const float* q_s, const float* k
   if (lane + 32 < R) p_s[lane + 32] = p1;
   if (lse != nullptr && lane == 0) *lse = m + logf(sum);
   __syncwarp();
-  float2 acc = make_float2(0.f, 0.f);
-  for (int j = 0; j < R; ++j) {
-    const float p = p_s[j];
-    const float* vr = v_s + j * v_stride + 2 * lane;
-    acc.x = fmaf(p, vr[0], acc.x);
-    acc.y = fmaf(p, vr[1], acc.y);
+  if (owns_cols<DK>(lane)) {
+    float2 acc = make_float2(0.f, 0.f);
+    for (int j = 0; j < R; ++j) {
+      const float p = p_s[j];
+      const float* vr = v_s + j * v_stride + 2 * lane;
+      acc.x = fmaf(p, vr[0], acc.x);
+      acc.y = fmaf(p, vr[1], acc.y);
+    }
+    store2(out + 2 * lane, acc);
   }
-  store2(out + 2 * lane, acc);
   __syncwarp();  // p_s and the caller's q_s are rewritten for the next row
 }
 

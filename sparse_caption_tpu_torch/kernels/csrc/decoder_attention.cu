@@ -54,30 +54,30 @@ constexpr int kMaxTeam = 8;  // warps of a block
 // a member's keep flags (Tq x Tk bytes) in a region of this pitch, at the
 // offset that keeps them congruent to their global address mod 16
 __host__ __device__ inline int keep_pitch(int Tq, int Tk) { return 16 * ((Tq * Tk + 15 + 15) / 16); }
-// the unit's stage: K (Tk rows), V (Tk), Q (group * Tq) | keep flags (group regions)
-__host__ __device__ inline int fwd_stage_bytes(int Tq, int Tk, int group, int keep) {
-  return (2 * Tk + group * Tq) * kLd * (int)sizeof(bf16) + (keep ? group * keep_pitch(Tq, Tk) : 0);
+// the unit's stage at head width dk: K (Tk rows), V (Tk), Q (group * Tq) | keep flags (group regions)
+__host__ __device__ inline int fwd_stage_bytes(int dk, int Tq, int Tk, int group, int keep) {
+  return (2 * Tk + group * Tq) * (dk + 8) * (int)sizeof(bf16) + (keep ? group * keep_pitch(Tq, Tk) : 0);
 }
 // stages | a zero row
-inline size_t fwd_smem_bytes(int Tq, int Tk, int group, int keep, int stages) {
-  return (size_t)stages * fwd_stage_bytes(Tq, Tk, group, keep) + kLd * sizeof(bf16);
+inline size_t fwd_smem_bytes(int dk, int Tq, int Tk, int group, int keep, int stages) {
+  return (size_t)stages * fwd_stage_bytes(dk, Tq, Tk, group, keep) + (dk + 8) * sizeof(bf16);
 }
 // the stages that fit (2, else 1; 0: none)
-inline int fwd_stages(int Tq, int Tk, int group, int keep) {
-  if (fwd_smem_bytes(Tq, Tk, group, keep, 2) <= (size_t)kBlockSmemLimit) return 2;
-  return fwd_smem_bytes(Tq, Tk, group, keep, 1) <= (size_t)kBlockSmemLimit ? 1 : 0;
+inline int fwd_stages(int dk, int Tq, int Tk, int group, int keep) {
+  if (fwd_smem_bytes(dk, Tq, Tk, group, keep, 2) <= (size_t)kBlockSmemLimit) return 2;
+  return fwd_smem_bytes(dk, Tq, Tk, group, keep, 1) <= (size_t)kBlockSmemLimit ? 1 : 0;
 }
 
 // One 16-row tile mt of the unit's stacked rows: S, P, P~ on the
 // accumulators, O = P~ V, written through the tile's own q rows.
-template <int KT>
+template <int DK, int KT>
 __device__ __forceinline__ void fwd_query_tile(const bf16* ks, const bf16* vs, bf16* qs, const bf16* zero,
                                                const unsigned char* keep_s,
                                                const unsigned char* __restrict__ valid_b,
                                                const unsigned char* __restrict__ keep, float keep_prob,
                                                bf16* __restrict__ out, int b, int h, int H, int Tq, int Tk, int group,
                                                int causal, float scale, int mt) {
-  constexpr int NS = 2 * KT;
+  constexpr int NS = 2 * KT, LD = kLd<DK>, ND = DK / 8;  // ND: output n-tiles over d
   const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
   const int rows = group * Tq, kp = keep_pitch(Tq, Tk);
   bool live[2];
@@ -90,7 +90,7 @@ __device__ __forceinline__ void fwd_query_tile(const bf16* ks, const bf16* vs, b
     live[r] = sr < rows;
     const int m = live[r] ? sr / Tq : 0;
     pos[r] = live[r] ? sr - m * Tq : 0;
-    qr[r] = live[r] ? qs + sr * kLd : zero;
+    qr[r] = live[r] ? qs + sr * LD : zero;
     const size_t base = (((size_t)b * group + m) * H + h) * Tq * Tk;  // the member's keep flags
     krow[r] = keep_s == nullptr ? nullptr
                                 : keep_s + m * kp + (reinterpret_cast<uintptr_t>(keep + base) & 15) + pos[r] * Tk;
@@ -98,7 +98,7 @@ __device__ __forceinline__ void fwd_query_tile(const bf16* ks, const bf16* vs, b
   const uint32_t vbits = dec_key_bits<NS>(valid_b, Tk);
   const uint32_t kbits = keep_s == nullptr ? 0xffffffffu : dec_keep_bits<NS>(krow, live, Tk);
   float sacc[NS][4];
-  dec_scores_mma<KT>(qr, ks, zero, Tk, sacc);
+  dec_scores_mma<DK, KT>(qr, ks, zero, Tk, sacc);
   dec_softmax_mma<KT>(sacc, vbits, pos, live, Tk, causal, scale);
   const float inv_kp = 1.f / keep_prob;
 #pragma unroll
@@ -109,18 +109,18 @@ __device__ __forceinline__ void fwd_query_tile(const bf16* ks, const bf16* vs, b
     }
   }
   // O = P~ V: P~'s accumulators as A, V's B fragments by ldmatrix.trans
-  float oacc[8][4];
+  float oacc[ND][4];
 #pragma unroll
-  for (int nt = 0; nt < 8; ++nt) oacc[nt][0] = oacc[nt][1] = oacc[nt][2] = oacc[nt][3] = 0.f;
+  for (int nt = 0; nt < ND; ++nt) oacc[nt][0] = oacc[nt][1] = oacc[nt][2] = oacc[nt][3] = 0.f;
 #pragma unroll
   for (int kk = 0; kk < KT; ++kk) {
     const uint32_t a[4] = {pack_bf16(sacc[2 * kk][0], sacc[2 * kk][1]), pack_bf16(sacc[2 * kk][2], sacc[2 * kk][3]),
                            pack_bf16(sacc[2 * kk + 1][0], sacc[2 * kk + 1][1]),
                            pack_bf16(sacc[2 * kk + 1][2], sacc[2 * kk + 1][3])};
     const int j = 16 * kk + (lane & 15);
-    const bf16* vr = (j < Tk ? vs + j * kLd : zero) + (lane >> 4) * 8;
+    const bf16* vr = (j < Tk ? vs + j * LD : zero) + (lane >> 4) * 8;
 #pragma unroll
-    for (int jn = 0; jn < 4; ++jn) {
+    for (int jn = 0; jn < DK / 16; ++jn) {
       uint32_t rr[4];
       ldmatrix_x4_trans(rr, vr + 16 * jn);
       const uint32_t b0[2] = {rr[0], rr[1]}, b1[2] = {rr[2], rr[3]};
@@ -131,52 +131,54 @@ __device__ __forceinline__ void fwd_query_tile(const bf16* ks, const bf16* vs, b
   // the tile's q rows are read: O rounded to bf16 into them, then out by 16-byte row stores
   __syncwarp();
 #pragma unroll
-  for (int nt = 0; nt < 8; ++nt) {
+  for (int nt = 0; nt < ND; ++nt) {
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       if (live[r]) {
-        *reinterpret_cast<uint32_t*>(qs + (16 * mt + g + 8 * r) * kLd + 8 * nt + 2 * t) =
+        *reinterpret_cast<uint32_t*>(qs + (16 * mt + g + 8 * r) * LD + 8 * nt + 2 * t) =
             pack_bf16(oacc[nt][2 * r], oacc[nt][2 * r + 1]);
       }
     }
   }
   __syncwarp();
+  constexpr int RC = DK / 8;  // 16-byte chunks of a row
 #pragma unroll
-  for (int x = lane; x < 16 * 8; x += 32) {
-    const int sr = 16 * mt + (x >> 3), part = (x & 7) * 8;
+  for (int x = lane; x < 16 * RC; x += 32) {
+    const int sr = 16 * mt + x / RC, part = (x % RC) * 8;
     if (sr < rows) {
       const int m = sr / Tq, i = sr - (sr / Tq) * Tq;
-      st16(out + ((((size_t)b * group + m) * H + h) * Tq + i) * kHeadDim + part, ld16(qs + sr * kLd + part));
+      st16(out + ((((size_t)b * group + m) * H + h) * Tq + i) * DK + part, ld16(qs + sr * LD + part));
     }
   }
 }
 
-template <int KT>
+template <int DK, int KT>
 __global__ void __launch_bounds__(32 * kMaxTeam)
 decoder_attention_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
                              const unsigned char* __restrict__ key_valid, const unsigned char* __restrict__ keep,
                              float keep_prob, bf16* __restrict__ out, int units, int H, int Tq, int Tk, int group,
                              int causal, float scale, int stages) {
   extern __shared__ __align__(128) unsigned char smem_raw[];
-  const int rows = group * Tq, sb = fwd_stage_bytes(Tq, Tk, group, keep != nullptr), kp = keep_pitch(Tq, Tk);
-  const int row_bytes = (2 * Tk + rows) * kLd * (int)sizeof(bf16);  // K, V, Q of a stage; its keep flags follow
+  constexpr int LD = kLd<DK>, RC = DK / 8;  // RC: 16-byte chunks of a row
+  const int rows = group * Tq, sb = fwd_stage_bytes(DK, Tq, Tk, group, keep != nullptr), kp = keep_pitch(Tq, Tk);
+  const int row_bytes = (2 * Tk + rows) * LD * (int)sizeof(bf16);  // K, V, Q of a stage; its keep flags follow
   bf16* zero = reinterpret_cast<bf16*>(smem_raw + (size_t)stages * sb);
   const int team = blockDim.x / 32, warp = threadIdx.x / 32;
-  for (int e = threadIdx.x; e < kLd; e += blockDim.x) zero[e] = __float2bfloat16_rn(0.f);
+  for (int e = threadIdx.x; e < LD; e += blockDim.x) zero[e] = __float2bfloat16_rn(0.f);
 
   auto issue = [&](int u, int s) {  // unit u into stage s, 16 bytes a copy
     const int b = u / H, h = u - (u / H) * H;
     bf16* st = reinterpret_cast<bf16*>(smem_raw + (size_t)s * sb);
-    for (int c = threadIdx.x; c < (2 * Tk + rows) * 8; c += blockDim.x) {
-      const int r = c >> 3, part = (c & 7) * 8;
+    for (int c = threadIdx.x; c < (2 * Tk + rows) * RC; c += blockDim.x) {
+      const int r = c / RC, part = (c % RC) * 8;
       const bf16* src;
       if (r < 2 * Tk) {
-        src = (r < Tk ? k : v) + (((size_t)b * H + h) * Tk + (r < Tk ? r : r - Tk)) * kHeadDim;
+        src = (r < Tk ? k : v) + (((size_t)b * H + h) * Tk + (r < Tk ? r : r - Tk)) * DK;
       } else {
         const int sr = r - 2 * Tk, m = sr / Tq, i = sr - (sr / Tq) * Tq;
-        src = q + ((((size_t)b * group + m) * H + h) * Tq + i) * kHeadDim;
+        src = q + ((((size_t)b * group + m) * H + h) * Tq + i) * DK;
       }
-      cp_async<16>(st + r * kLd + part, src + part);
+      cp_async<16>(st + r * LD + part, src + part);
     }
     if (keep == nullptr) return;
     const int n = Tq * Tk;
@@ -218,26 +220,26 @@ decoder_attention_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict_
     const int b = u / H, h = u - (u / H) * H;
     unsigned char* st = smem_raw + (size_t)s * sb;
     const bf16* ks = reinterpret_cast<const bf16*>(st);
-    const bf16* vs = ks + Tk * kLd;
-    bf16* qs = reinterpret_cast<bf16*>(st) + 2 * Tk * kLd;
+    const bf16* vs = ks + Tk * LD;
+    bf16* qs = reinterpret_cast<bf16*>(st) + 2 * Tk * LD;
     const unsigned char* keep_s = keep == nullptr ? nullptr : st + row_bytes;
     for (int mt = warp; 16 * mt < rows; mt += team) {
-      fwd_query_tile<KT>(ks, vs, qs, zero, keep_s, key_valid == nullptr ? nullptr : key_valid + (size_t)b * Tk, keep,
-                         keep_prob, out, b, h, H, Tq, Tk, group, causal, scale, mt);
+      fwd_query_tile<DK, KT>(ks, vs, qs, zero, keep_s, key_valid == nullptr ? nullptr : key_valid + (size_t)b * Tk,
+                             keep, keep_prob, out, b, h, H, Tq, Tk, group, causal, scale, mt);
     }
     __syncthreads();  // the stage may be overwritten
   }
   cp_async_wait<0>();
 }
 
-template <int KT>
+template <int DK, int KT>
 cudaError_t launch_fwd_mma(const void* q, const void* k, const void* v, const void* key_valid, const void* keep,
                            float keep_prob, void* out, int Nk, int H, int Tq, int Tk, int group, int causal,
                            float scale, cudaStream_t stream) {
-  const int stages = fwd_stages(Tq, Tk, group, keep != nullptr);
+  const int stages = fwd_stages(DK, Tq, Tk, group, keep != nullptr);
   if (stages == 0) return cudaErrorInvalidValue;
-  const size_t smem = fwd_smem_bytes(Tq, Tk, group, keep != nullptr, stages);
-  auto kernel = decoder_attention_mma_kernel<KT>;
+  const size_t smem = fwd_smem_bytes(DK, Tq, Tk, group, keep != nullptr, stages);
+  auto kernel = decoder_attention_mma_kernel<DK, KT>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const int mtiles = (group * Tq + 15) / 16;
@@ -256,30 +258,32 @@ cudaError_t launch_fwd_mma(const void* q, const void* k, const void* v, const vo
 
 // ------------------------------------------------------------ f32: CUDA cores
 // k_s, v_s (Tk rows) | q_s (chunk rows) | pd_s (chunk rows x Tk padded to 4)
+template <int DK>
 inline size_t f32_fwd_smem_bytes(int Tq, int Tk, int group) {
   const int cr = f32_chunk_members(Tq, group) * Tq;
-  return ((size_t)(2 * Tk + cr) * kF32Ld + (size_t)cr * f32_tk_pad(Tk)) * sizeof(float);
+  return ((size_t)(2 * Tk + cr) * kF32Ld<DK> + (size_t)cr * f32_tk_pad(Tk)) * sizeof(float);
 }
 
 // kRowTile: query rows a warp takes at a time (4, or 1 for chunks of fewer
 // than 32 rows, so that all 8 warps share them)
-template <int kRowTile>
+template <int DK, int kRowTile>
 __global__ void __launch_bounds__(kF32Threads, kRowTile == 1 ? 4 : 2)
 decoder_attention_f32_kernel(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
                              const unsigned char* __restrict__ key_valid, const unsigned char* __restrict__ keep,
                              float keep_prob, float* __restrict__ out, int H, int Tq, int Tk, int group, int causal,
                              float scale) {
   extern __shared__ __align__(16) float fsm[];
+  constexpr int LDF = kF32Ld<DK>;
   const int cm = f32_chunk_members(Tq, group), cr_max = cm * Tq, tkp = f32_tk_pad(Tk);
   float* k_s = fsm;
-  float* v_s = k_s + Tk * kF32Ld;
-  float* q_s = v_s + Tk * kF32Ld;
-  float* pd_s = q_s + cr_max * kF32Ld;  // P~; columns past Tk 0
+  float* v_s = k_s + Tk * LDF;
+  float* q_s = v_s + Tk * LDF;
+  float* pd_s = q_s + cr_max * LDF;  // P~; columns past Tk 0
   const int warp = threadIdx.x / 32, lane = threadIdx.x & 31;
   const int b = blockIdx.x / H, h = blockIdx.x - (blockIdx.x / H) * H;
-  const size_t kv0 = ((size_t)b * H + h) * Tk * kHeadDim;
-  stage_rows_f32(k_s, k + kv0, Tk);
-  stage_rows_f32(v_s, v + kv0, Tk);
+  const size_t kv0 = ((size_t)b * H + h) * Tk * DK;
+  stage_rows_f32<DK>(k_s, k + kv0, Tk);
+  stage_rows_f32<DK>(v_s, v + kv0, Tk);
   const bool v0 = lane < Tk && (key_valid == nullptr || key_valid[(size_t)b * Tk + lane] != 0);
   const bool v1 = lane + 32 < Tk && (key_valid == nullptr || key_valid[(size_t)b * Tk + lane + 32] != 0);
 
@@ -287,7 +291,7 @@ decoder_attention_f32_kernel(const float* __restrict__ q, const float* __restric
     const int members = group - m0 < cm ? group - m0 : cm, cr = members * Tq;
     __syncthreads();  // the previous chunk's rows are no longer read
     for (int m = 0; m < members; ++m) {
-      stage_rows_f32(q_s + m * Tq * kF32Ld, q + (((size_t)b * group + m0 + m) * H + h) * Tq * kHeadDim, Tq);
+      stage_rows_f32<DK>(q_s + m * Tq * LDF, q + (((size_t)b * group + m0 + m) * H + h) * Tq * DK, Tq);
     }
     __syncthreads();
     for (int r0 = kRowTile * warp; r0 < cr; r0 += kRowTile * kF32Warps) {
@@ -295,16 +299,16 @@ decoder_attention_f32_kernel(const float* __restrict__ q, const float* __restric
 #pragma unroll
       for (int rr = 0; rr < kRowTile; ++rr) s[rr][0] = s[rr][1] = 0.f;
       const int r_last = cr - 1;
-      const float* kr0 = k_s + (lane < Tk ? lane : 0) * kF32Ld;
-      const float* kr1 = k_s + (lane + 32 < Tk ? lane + 32 : 0) * kF32Ld;
+      const float* kr0 = k_s + (lane < Tk ? lane : 0) * LDF;
+      const float* kr1 = k_s + (lane + 32 < Tk ? lane + 32 : 0) * LDF;
       const bool two = Tk > 32;
 #pragma unroll 4
-      for (int d = 0; d < kHeadDim; d += 4) {
+      for (int d = 0; d < DK; d += 4) {
         const float4 k0 = lds4(kr0 + d);
         const float4 k1 = two ? lds4(kr1 + d) : k0;
 #pragma unroll
         for (int rr = 0; rr < kRowTile; ++rr) {
-          const float4 qv = lds4(q_s + (r0 + rr < cr ? r0 + rr : r_last) * kF32Ld + d);
+          const float4 qv = lds4(q_s + (r0 + rr < cr ? r0 + rr : r_last) * LDF + d);
           s[rr][0] = dot4(qv, k0, s[rr][0]);
           if (two) s[rr][1] = dot4(qv, k1, s[rr][1]);
         }
@@ -328,7 +332,8 @@ decoder_attention_f32_kernel(const float* __restrict__ q, const float* __restric
         }
       }
       __syncwarp();
-      // O for the rows: lane owns columns 2 lane, 2 lane + 1; keys in order
+      // O for the rows: lane owns columns 2 lane, 2 lane + 1 (owns_cols); keys in order
+      if (!owns_cols<DK>(lane)) continue;
       float2 acc[kRowTile];
 #pragma unroll
       for (int rr = 0; rr < kRowTile; ++rr) acc[rr] = make_float2(0.f, 0.f);
@@ -336,7 +341,7 @@ decoder_attention_f32_kernel(const float* __restrict__ q, const float* __restric
         float2 vc[4];
 #pragma unroll
         for (int x = 0; x < 4; ++x) {
-          vc[x] = j + x < Tk ? *reinterpret_cast<const float2*>(v_s + (j + x) * kF32Ld + 2 * lane) : make_float2(0.f, 0.f);
+          vc[x] = j + x < Tk ? *reinterpret_cast<const float2*>(v_s + (j + x) * LDF + 2 * lane) : make_float2(0.f, 0.f);
         }
 #pragma unroll
         for (int rr = 0; rr < kRowTile; ++rr) {
@@ -351,20 +356,21 @@ decoder_attention_f32_kernel(const float* __restrict__ q, const float* __restric
         if (row < cr) {
           const int m = row / Tq, i = row - (row / Tq) * Tq;
           const size_t grow = (((size_t)b * group + m0 + m) * H + h) * Tq + i;
-          *reinterpret_cast<float2*>(out + grow * kHeadDim + 2 * lane) = acc[rr];
+          *reinterpret_cast<float2*>(out + grow * DK + 2 * lane) = acc[rr];
         }
       }
     }
   }
 }
 
+template <int DK>
 cudaError_t launch_f32(const void* q, const void* k, const void* v, const void* key_valid, const void* keep,
                        float keep_prob, void* out, int Nk, int H, int Tq, int Tk, int group, int causal, float scale,
                        cudaStream_t stream) {
-  const size_t smem = f32_fwd_smem_bytes(Tq, Tk, group);
+  const size_t smem = f32_fwd_smem_bytes<DK>(Tq, Tk, group);
   if (smem > (size_t)kBlockSmemLimit) return cudaErrorInvalidValue;
-  auto kernel = f32_chunk_members(Tq, group) * Tq >= kWideRows ? decoder_attention_f32_kernel<4>
-                                                               : decoder_attention_f32_kernel<1>;
+  auto kernel = f32_chunk_members(Tq, group) * Tq >= kWideRows ? decoder_attention_f32_kernel<DK, 4>
+                                                               : decoder_attention_f32_kernel<DK, 1>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   kernel<<<Nk * H, kF32Threads, smem, stream>>>(
@@ -374,30 +380,16 @@ cudaError_t launch_f32(const void* q, const void* k, const void* v, const void* 
   return cudaGetLastError();
 }
 
-}  // namespace sct
-
-// dtype: 0 = float32, 1 = bfloat16. q/out (Nk * group, H, Tq, 64); k/v (Nk, H,
-// Tk, 64), every one 16-byte aligned; key_valid (Nk, Tk) bool or null (every
-// key valid); keep (Nk * group, H, Tq, Tk) bool or null (no dropout) with
-// keep_prob (rounded to the compute dtype by the caller); causal: query
-// position i attends keys j <= i.
-extern "C" int sct_decoder_attention(int dtype, const void* q, const void* k, const void* v, const void* key_valid,
-                                     const void* keep, float keep_prob, void* out, int Nk, int H, int Tq, int Tk,
-                                     int group, int causal, float scale, void* stream) {
-  if (Nk < 1 || H < 1 || Tq < 1 || Tq > sct::kDecMaxLen || Tk < 1 || Tk > sct::kDecMaxLen || group < 1) {
-    return (int)cudaErrorInvalidValue;
-  }
-  const void* ptrs[] = {q, k, v, out};
-  for (const void* p : ptrs) {
-    if (!sct::aligned_to(p, 16)) return (int)cudaErrorInvalidValue;
-  }
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
+template <int DK>
+int entry(int dtype, const void* q, const void* k, const void* v, const void* key_valid, const void* keep,
+          float keep_prob, void* out, int Nk, int H, int Tq, int Tk, int group, int causal, float scale,
+          cudaStream_t s) {
   if (dtype == 0) {
-    return (int)sct::launch_f32(q, k, v, key_valid, keep, keep_prob, out, Nk, H, Tq, Tk, group, causal, scale, s);
+    return (int)launch_f32<DK>(q, k, v, key_valid, keep, keep_prob, out, Nk, H, Tq, Tk, group, causal, scale, s);
   }
   if (dtype == 1) {
 #define SCT_FWD(KT) \
-  sct::launch_fwd_mma<KT>(q, k, v, key_valid, keep, keep_prob, out, Nk, H, Tq, Tk, group, causal, scale, s)
+  launch_fwd_mma<DK, KT>(q, k, v, key_valid, keep, keep_prob, out, Nk, H, Tq, Tk, group, causal, scale, s)
     if (Tk <= 16) return (int)SCT_FWD(1);
     if (Tk <= 32) return (int)SCT_FWD(2);
     if (Tk <= 48) return (int)SCT_FWD(3);
@@ -407,10 +399,37 @@ extern "C" int sct_decoder_attention(int dtype, const void* q, const void* k, co
   return (int)cudaErrorInvalidValue;
 }
 
-// the bf16 kernel's shared memory for (Tq, Tk, group, keep-mask given) at its stage count; 0 if none fits
-extern "C" long long sct_decoder_attention_smem(int Tq, int Tk, int group, int keep) {
-  const int stages = sct::fwd_stages(Tq, Tk, group, keep);
-  return stages == 0 ? 0 : (long long)sct::fwd_smem_bytes(Tq, Tk, group, keep, stages);
+}  // namespace sct
+
+// dtype: 0 = float32, 1 = bfloat16; dk: 64 or 32. q/out (Nk * group, H, Tq,
+// dk); k/v (Nk, H, Tk, dk), every one 16-byte aligned; key_valid (Nk, Tk) bool
+// or null (every key valid); keep (Nk * group, H, Tq, Tk) bool or null (no
+// dropout) with keep_prob (rounded to the compute dtype by the caller);
+// causal: query position i attends keys j <= i.
+extern "C" int sct_decoder_attention(int dtype, int dk, const void* q, const void* k, const void* v,
+                                     const void* key_valid, const void* keep, float keep_prob, void* out, int Nk,
+                                     int H, int Tq, int Tk, int group, int causal, float scale, void* stream) {
+  if (Nk < 1 || H < 1 || Tq < 1 || Tq > sct::kDecMaxLen || Tk < 1 || Tk > sct::kDecMaxLen || group < 1) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const void* ptrs[] = {q, k, v, out};
+  for (const void* p : ptrs) {
+    if (!sct::aligned_to(p, 16)) return (int)cudaErrorInvalidValue;
+  }
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define SCT_DK(DK) \
+  sct::entry<DK>(dtype, q, k, v, key_valid, keep, keep_prob, out, Nk, H, Tq, Tk, group, causal, scale, s)
+  if (dk == 64) return SCT_DK(64);
+  if (dk == 32) return SCT_DK(32);
+#undef SCT_DK
+  return (int)cudaErrorInvalidValue;
+}
+
+// the bf16 kernel's shared memory at head width dk for (Tq, Tk, group,
+// keep-mask given) at its stage count; 0 if none fits
+extern "C" long long sct_decoder_attention_smem(int dk, int Tq, int Tk, int group, int keep) {
+  const int stages = sct::fwd_stages(dk, Tq, Tk, group, keep);
+  return stages == 0 ? 0 : (long long)sct::fwd_smem_bytes(dk, Tq, Tk, group, keep, stages);
 }
 
 extern "C" const char* sct_error_string(int err) { return cudaGetErrorString(static_cast<cudaError_t>(err)); }

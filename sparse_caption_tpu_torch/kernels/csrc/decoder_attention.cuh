@@ -19,7 +19,9 @@ namespace sct {
 using bf16 = __nv_bfloat16;
 
 constexpr int kDecMaxLen = 64;     // keys and query positions
-constexpr int kLd = kHeadDim + 8;  // staged bf16 row pitch (144 B: ldmatrix rows in distinct banks)
+// staged bf16 row pitch at head width DK (144 B at 64, 80 B at 32: the 8 rows
+// of an ldmatrix or fragment load in distinct banks either way)
+template <int DK> constexpr int kLd = DK + 8;
 
 // ------------------------------------------------------------ bf16: tensor cores
 // Fragment rows of the tile (lane g = lane / 4, t = lane % 4): rows g and
@@ -67,7 +69,7 @@ __device__ __forceinline__ bool key_attended(uint32_t vbits, int c, int j, int i
 // S = Q K^T of the tile on the tensor cores: qr[r] the staged rows g and
 // g + 8 (the zero row for a padding row), ks the Tk key rows; sacc[nt] the
 // accumulators of keys 8 nt .. 8 nt + 7 (n-tiles with no key stay 0).
-template <int KT>
+template <int DK, int KT>
 __device__ __forceinline__ void dec_scores_mma(const bf16* const qr[2], const bf16* ks, const bf16* zero, int Tk,
                                                float sacc[2 * KT][4]) {
   constexpr int NS = 2 * KT;
@@ -76,7 +78,7 @@ __device__ __forceinline__ void dec_scores_mma(const bf16* const qr[2], const bf
 #pragma unroll
   for (int nt = 0; nt < NS; ++nt) sacc[nt][0] = sacc[nt][1] = sacc[nt][2] = sacc[nt][3] = 0.f;
 #pragma unroll
-  for (int kd = 0; kd < kHeadDim / 16; ++kd) {
+  for (int kd = 0; kd < DK / 16; ++kd) {
     const int col = 16 * kd + 2 * t;
     const uint32_t a[4] = {lds_u32(qr[0] + col), lds_u32(qr[1] + col), lds_u32(qr[0] + col + 8),
                            lds_u32(qr[1] + col + 8)};
@@ -84,7 +86,7 @@ __device__ __forceinline__ void dec_scores_mma(const bf16* const qr[2], const bf
     for (int nt = 0; nt < NS; ++nt) {
       if (nt < nsv) {
         const int j = 8 * nt + g;
-        const bf16* kr = (j < Tk ? ks + j * kLd : zero) + col;
+        const bf16* kr = (j < Tk ? ks + j * kLd<DK> : zero) + col;
         const uint32_t b[2] = {lds_u32(kr), lds_u32(kr + 8)};
         mma_bf16(sacc[nt], a, b);
       }
@@ -167,7 +169,8 @@ __device__ __forceinline__ float dec_dropped(float x, bool kept, bool dropout, f
 // ------------------------------------------------------------ f32: CUDA cores
 constexpr int kF32Threads = 256;
 constexpr int kF32Warps = kF32Threads / 32;
-constexpr int kF32Ld = kHeadDim + 4;  // 68 floats: 16-byte rows; 8 lanes reading 8 rows hit distinct banks
+// f32 row pitch (68 floats at DK = 64, 36 at 32): 16-byte rows; 8 lanes reading 8 rows hit distinct banks
+template <int DK> constexpr int kF32Ld = DK + 4;
 constexpr int kWideRows = 32;         // chunks of at least this many rows take 4 query rows a warp at a time
 constexpr int kChunkRows = 64;        // query rows staged at a time (whole members)
 
@@ -182,11 +185,13 @@ __device__ __forceinline__ float dot4(float4 a, float4 b, float acc) {
   return fmaf(a.w, b.w, fmaf(a.z, b.z, fmaf(a.y, b.y, fmaf(a.x, b.x, acc))));
 }
 
-// rows of 64 f32 from global into rows of kF32Ld, 16 bytes a copy
+// rows of DK f32 from global into rows of kF32Ld, 16 bytes a copy
+template <int DK>
 __device__ __forceinline__ void stage_rows_f32(float* dst, const float* __restrict__ src, int rows) {
-  for (int e = threadIdx.x; e < rows * 16; e += blockDim.x) {
-    const int r = e >> 4, c = (e & 15) * 4;
-    *reinterpret_cast<float4*>(dst + r * kF32Ld + c) = *reinterpret_cast<const float4*>(src + r * kHeadDim + c);
+  constexpr int C = DK / 4;  // 16-byte chunks of a row
+  for (int e = threadIdx.x; e < rows * C; e += blockDim.x) {
+    const int r = e / C, c = (e % C) * 4;
+    *reinterpret_cast<float4*>(dst + r * kF32Ld<DK> + c) = *reinterpret_cast<const float4*>(src + r * DK + c);
   }
 }
 

@@ -62,28 +62,31 @@ namespace sct {
 // ------------------------------------------------------------ bf16: tensor cores
 constexpr int kMaxTeam = 8;  // warps of a block
 
-// the unit's stage: K (Tk rows), V (Tk), Q (group * Tq), dO (group * Tq)
-__host__ __device__ inline int stage_elems(int Tq, int Tk, int group) { return (2 * Tk + 2 * group * Tq) * kLd; }
+// the unit's stage at head width dk: K (Tk rows), V (Tk), Q (group * Tq), dO (group * Tq)
+__host__ __device__ inline int stage_elems(int dk, int Tq, int Tk, int group) {
+  return (2 * Tk + 2 * group * Tq) * (dk + 8);
+}
 __host__ __device__ inline int member_cols(int Tq) { return 16 * ((Tq + 15) / 16); }
 __host__ __device__ inline int ds_ld(int Tk) { return 16 * ((Tk + 15) / 16) + 8; }  // keys padded to 16, + 8
 
 // stages | a zero row | dS and P~ (group x member_cols rows of ds_ld each)
-inline size_t mma_smem_bytes(int Tq, int Tk, int group, int stages) {
-  return ((size_t)stages * stage_elems(Tq, Tk, group) + kLd + 2 * (size_t)group * member_cols(Tq) * ds_ld(Tk)) *
+inline size_t mma_smem_bytes(int dk, int Tq, int Tk, int group, int stages) {
+  return ((size_t)stages * stage_elems(dk, Tq, Tk, group) + (dk + 8) +
+          2 * (size_t)group * member_cols(Tq) * ds_ld(Tk)) *
          sizeof(bf16);
 }
 
 // Query side of one 16-row tile mt of the unit's stacked rows (row sr is
 // member sr / Tq, position sr % Tq): dS and P~ into dS_s / P_s (row
 // member * qp + position, keys along the row), dQ to global.
-template <int KT>
+template <int DK, int KT>
 __device__ __forceinline__ void query_tile_mma(const bf16* ks, const bf16* vs, const bf16* qs, const bf16* dos,
                                                const bf16* zero, bf16* ds_s, bf16* p_s, int qp,
                                                const unsigned char* __restrict__ valid_b,
                                                const unsigned char* __restrict__ keep, float keep_prob,
                                                bf16* __restrict__ dq, int b, int h, int H, int Tq, int Tk, int group,
                                                int causal, float scale, int mt) {
-  constexpr int NS = 2 * KT;
+  constexpr int NS = 2 * KT, LD = kLd<DK>, ND = DK / 8;  // ND: dQ's n-tiles over d
   const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
   const int rows = group * Tq;
   bool live[2];
@@ -98,8 +101,8 @@ __device__ __forceinline__ void query_tile_mma(const bf16* ks, const bf16* vs, c
     mem[r] = live[r] ? sr / Tq : 0;
     pos[r] = live[r] ? sr - mem[r] * Tq : 0;
     grow[r] = (((size_t)b * group + mem[r]) * H + h) * Tq + pos[r];
-    qr[r] = live[r] ? qs + sr * kLd : zero;
-    dr[r] = live[r] ? dos + sr * kLd : zero;
+    qr[r] = live[r] ? qs + sr * LD : zero;
+    dr[r] = live[r] ? dos + sr * LD : zero;
   }
   // rows g + 8 of the tile hold a live row (warp-uniform); else their elementwise work is skipped
   const bool half1 = 16 * mt + 8 < rows;
@@ -113,12 +116,12 @@ __device__ __forceinline__ void query_tile_mma(const bf16* ks, const bf16* vs, c
   const int nsv = (Tk + 7) / 8;  // key n-tiles that hold keys; the rest of S stays 0 and P 0
   // K14's scores and softmax (decoder_attention.cuh): p in sacc
   float sacc[NS][4], dacc[NS][4];
-  dec_scores_mma<KT>(qr, ks, zero, Tk, sacc);
+  dec_scores_mma<DK, KT>(qr, ks, zero, Tk, sacc);
   // dPd = dO V^T
 #pragma unroll
   for (int nt = 0; nt < NS; ++nt) dacc[nt][0] = dacc[nt][1] = dacc[nt][2] = dacc[nt][3] = 0.f;
 #pragma unroll
-  for (int kd = 0; kd < kHeadDim / 16; ++kd) {
+  for (int kd = 0; kd < DK / 16; ++kd) {
     const int col = 16 * kd + 2 * t;
     const uint32_t ad[4] = {lds_u32(dr[0] + col), lds_u32(dr[1] + col), lds_u32(dr[0] + col + 8),
                             lds_u32(dr[1] + col + 8)};
@@ -126,7 +129,7 @@ __device__ __forceinline__ void query_tile_mma(const bf16* ks, const bf16* vs, c
     for (int nt = 0; nt < NS; ++nt) {
       if (nt < nsv) {
         const int j = 8 * nt + g;
-        const bf16* vr = (j < Tk ? vs + j * kLd : zero) + col;
+        const bf16* vr = (j < Tk ? vs + j * LD : zero) + col;
         const uint32_t bv[2] = {lds_u32(vr), lds_u32(vr + 8)};
         mma_bf16(dacc[nt], ad, bv);
       }
@@ -188,18 +191,18 @@ __device__ __forceinline__ void query_tile_mma(const bf16* ks, const bf16* vs, c
     }
   }
   // dQ = dS K: dS's accumulators as A, K's B fragments by ldmatrix.trans
-  float qacc[8][4];
+  float qacc[ND][4];
 #pragma unroll
-  for (int nt = 0; nt < 8; ++nt) qacc[nt][0] = qacc[nt][1] = qacc[nt][2] = qacc[nt][3] = 0.f;
+  for (int nt = 0; nt < ND; ++nt) qacc[nt][0] = qacc[nt][1] = qacc[nt][2] = qacc[nt][3] = 0.f;
 #pragma unroll
   for (int kk = 0; kk < KT; ++kk) {
     const uint32_t a[4] = {pack_bf16(sacc[2 * kk][0], sacc[2 * kk][1]), pack_bf16(sacc[2 * kk][2], sacc[2 * kk][3]),
                            pack_bf16(sacc[2 * kk + 1][0], sacc[2 * kk + 1][1]),
                            pack_bf16(sacc[2 * kk + 1][2], sacc[2 * kk + 1][3])};
     const int j = 16 * kk + (lane & 15);
-    const bf16* kr = (j < Tk ? ks + j * kLd : zero) + (lane >> 4) * 8;
+    const bf16* kr = (j < Tk ? ks + j * LD : zero) + (lane >> 4) * 8;
 #pragma unroll
-    for (int jn = 0; jn < 4; ++jn) {
+    for (int jn = 0; jn < DK / 16; ++jn) {
       uint32_t rr[4];
       ldmatrix_x4_trans(rr, kr + 16 * jn);
       const uint32_t b0[2] = {rr[0], rr[1]}, b1[2] = {rr[2], rr[3]};
@@ -208,12 +211,12 @@ __device__ __forceinline__ void query_tile_mma(const bf16* ks, const bf16* vs, c
     }
   }
 #pragma unroll
-  for (int nt = 0; nt < 8; ++nt) {
+  for (int nt = 0; nt < ND; ++nt) {
     const int col = 8 * nt + 2 * t;
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       if (live[r]) {
-        *reinterpret_cast<uint32_t*>(dq + grow[r] * kHeadDim + col) = pack_bf16(qacc[nt][2 * r], qacc[nt][2 * r + 1]);
+        *reinterpret_cast<uint32_t*>(dq + grow[r] * DK + col) = pack_bf16(qacc[nt][2 * r], qacc[nt][2 * r + 1]);
       }
     }
   }
@@ -223,26 +226,28 @@ __device__ __forceinline__ void query_tile_mma(const bf16* ks, const bf16* vs, c
 // the unit, each member's product over its own rows rounded to bf16 and
 // added in member order to f32 sums, written once, rounded. A's fragments
 // come from dS_s / P_s (query rows by keys) by ldmatrix.trans.
+template <int DK>
 __device__ __forceinline__ void key_tile_mma(const bf16* as, const bf16* bs, const bf16* zero, int ldk, int qp,
                                              bf16* __restrict__ dst, int Tq, int Tk, int group, int km) {
   const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  constexpr int LD = kLd<DK>, ND = DK / 8;  // ND: n-tiles over d
   const int keys[2] = {16 * km + g, 16 * km + g + 8};
-  float tot[8][4];
+  float tot[ND][4];
 #pragma unroll
-  for (int nt = 0; nt < 8; ++nt) tot[nt][0] = tot[nt][1] = tot[nt][2] = tot[nt][3] = 0.f;
+  for (int nt = 0; nt < ND; ++nt) tot[nt][0] = tot[nt][1] = tot[nt][2] = tot[nt][3] = 0.f;
   for (int m = 0; m < group; ++m) {
-    float acc[8][4];
+    float acc[ND][4];
 #pragma unroll
-    for (int nt = 0; nt < 8; ++nt) acc[nt][0] = acc[nt][1] = acc[nt][2] = acc[nt][3] = 0.f;
+    for (int nt = 0; nt < ND; ++nt) acc[nt][0] = acc[nt][1] = acc[nt][2] = acc[nt][3] = 0.f;
     for (int kk = 0; kk < qp / 16; ++kk) {
       // matrix l / 8 of A: query rows + 8 (l / 16), keys + 8 (l / 8 % 2)
       uint32_t a[4];
       ldmatrix_x4_trans(a, as + (m * qp + 16 * kk + (lane & 7) + 8 * ((lane >> 4) & 1)) * ldk + 16 * km +
                                8 * ((lane >> 3) & 1));
       const int i = 16 * kk + (lane & 15);
-      const bf16* br = (i < Tq ? bs + (m * Tq + i) * kLd : zero) + (lane >> 4) * 8;
+      const bf16* br = (i < Tq ? bs + (m * Tq + i) * LD : zero) + (lane >> 4) * 8;
 #pragma unroll
-      for (int jn = 0; jn < 4; ++jn) {
+      for (int jn = 0; jn < DK / 16; ++jn) {
         uint32_t rr[4];
         ldmatrix_x4_trans(rr, br + 16 * jn);
         const uint32_t b0[2] = {rr[0], rr[1]}, b1[2] = {rr[2], rr[3]};
@@ -251,24 +256,24 @@ __device__ __forceinline__ void key_tile_mma(const bf16* as, const bf16* bs, con
       }
     }
 #pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
+    for (int nt = 0; nt < ND; ++nt) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) tot[nt][e] += round_to<bf16>(acc[nt][e]);
     }
   }
 #pragma unroll
-  for (int nt = 0; nt < 8; ++nt) {
+  for (int nt = 0; nt < ND; ++nt) {
     const int col = 8 * nt + 2 * t;
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       if (keys[r] < Tk) {
-        *reinterpret_cast<uint32_t*>(dst + keys[r] * kHeadDim + col) = pack_bf16(tot[nt][2 * r], tot[nt][2 * r + 1]);
+        *reinterpret_cast<uint32_t*>(dst + keys[r] * DK + col) = pack_bf16(tot[nt][2 * r], tot[nt][2 * r + 1]);
       }
     }
   }
 }
 
-template <int KT>
+template <int DK, int KT>
 __global__ void __launch_bounds__(32 * kMaxTeam)
 decoder_attention_bwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
                                  const bf16* __restrict__ dout, const unsigned char* __restrict__ key_valid,
@@ -277,29 +282,30 @@ decoder_attention_bwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restr
                                  int group, int causal, float scale, int stages) {
   extern __shared__ __align__(128) unsigned char smem_raw[];
   bf16* smem = reinterpret_cast<bf16*>(smem_raw);
-  const int rows = group * Tq, se = stage_elems(Tq, Tk, group), qp = member_cols(Tq), ldk = ds_ld(Tk);
+  constexpr int LD = kLd<DK>, RC = DK / 8;  // RC: 16-byte chunks of a row
+  const int rows = group * Tq, se = stage_elems(DK, Tq, Tk, group), qp = member_cols(Tq), ldk = ds_ld(Tk);
   bf16* zero = smem + stages * se;
-  bf16* ds_s = zero + kLd;
+  bf16* ds_s = zero + LD;
   bf16* p_s = ds_s + group * qp * ldk;
   const int team = blockDim.x / 32, warp = threadIdx.x / 32;
   // the zero row, and dS_s / P_s whose padding rows and keys are never written
-  for (int e = threadIdx.x; e < kLd + 2 * group * qp * ldk; e += blockDim.x) zero[e] = __float2bfloat16_rn(0.f);
+  for (int e = threadIdx.x; e < LD + 2 * group * qp * ldk; e += blockDim.x) zero[e] = __float2bfloat16_rn(0.f);
 
   auto issue = [&](int u, int s) {  // unit u's rows into stage s, 16 bytes a copy
     const int b = u / H, h = u - (u / H) * H;
     bf16* st = smem + s * se;
-    const int chunks = (2 * Tk + 2 * rows) * 8;
+    const int chunks = (2 * Tk + 2 * rows) * RC;
     for (int c = threadIdx.x; c < chunks; c += blockDim.x) {
-      const int r = c >> 3, part = (c & 7) * 8;
+      const int r = c / RC, part = (c % RC) * 8;
       const bf16* src;
       if (r < 2 * Tk) {
-        src = (r < Tk ? k : v) + (((size_t)b * H + h) * Tk + (r < Tk ? r : r - Tk)) * kHeadDim;
+        src = (r < Tk ? k : v) + (((size_t)b * H + h) * Tk + (r < Tk ? r : r - Tk)) * DK;
       } else {
         const int sr = r - 2 * Tk, qr = sr < rows ? sr : sr - rows;
         const int m = qr / Tq, i = qr - (qr / Tq) * Tq;
-        src = (sr < rows ? q : dout) + ((((size_t)b * group + m) * H + h) * Tq + i) * kHeadDim;
+        src = (sr < rows ? q : dout) + ((((size_t)b * group + m) * H + h) * Tq + i) * DK;
       }
-      cp_async<16>(st + r * kLd + part, src + part);
+      cp_async<16>(st + r * LD + part, src + part);
     }
   };
 
@@ -321,19 +327,19 @@ decoder_attention_bwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restr
     __syncthreads();  // every thread's copies of this unit have landed
     const int b = u / H, h = u - (u / H) * H;
     const bf16* ks = smem + s * se;
-    const bf16* vs = ks + Tk * kLd;
-    const bf16* qs = vs + Tk * kLd;
-    const bf16* dos = qs + rows * kLd;
+    const bf16* vs = ks + Tk * LD;
+    const bf16* qs = vs + Tk * LD;
+    const bf16* dos = qs + rows * LD;
     for (int mt = warp; 16 * mt < rows; mt += team) {
-      query_tile_mma<KT>(ks, vs, qs, dos, zero, ds_s, p_s, qp,
+      query_tile_mma<DK, KT>(ks, vs, qs, dos, zero, ds_s, p_s, qp,
                          key_valid == nullptr ? nullptr : key_valid + (size_t)b * Tk, keep, keep_prob, dq, b, h, H, Tq,
                          Tk, group, causal, scale, mt);
     }
     __syncthreads();  // dS_s and P_s complete
-    const size_t kv0 = ((size_t)b * H + h) * Tk * kHeadDim;
+    const size_t kv0 = ((size_t)b * H + h) * Tk * DK;
     for (int item = warp; item < 2 * KT; item += team) {
       const bool is_v = item >= KT;
-      key_tile_mma(is_v ? p_s : ds_s, is_v ? dos : qs, zero, ldk, qp, (is_v ? dv : dk) + kv0, Tq, Tk, group,
+      key_tile_mma<DK>(is_v ? p_s : ds_s, is_v ? dos : qs, zero, ldk, qp, (is_v ? dv : dk) + kv0, Tq, Tk, group,
                    is_v ? item - KT : item);
     }
     __syncthreads();  // the stage and dS_s / P_s may be overwritten
@@ -342,19 +348,19 @@ decoder_attention_bwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restr
 }
 
 // the stages that fit (2, else 1; 0: none)
-inline int mma_stages(int Tq, int Tk, int group) {
-  if (mma_smem_bytes(Tq, Tk, group, 2) <= (size_t)kBlockSmemLimit) return 2;
-  return mma_smem_bytes(Tq, Tk, group, 1) <= (size_t)kBlockSmemLimit ? 1 : 0;
+inline int mma_stages(int dk, int Tq, int Tk, int group) {
+  if (mma_smem_bytes(dk, Tq, Tk, group, 2) <= (size_t)kBlockSmemLimit) return 2;
+  return mma_smem_bytes(dk, Tq, Tk, group, 1) <= (size_t)kBlockSmemLimit ? 1 : 0;
 }
 
-template <int KT>
+template <int DK, int KT>
 cudaError_t launch_bwd_mma(const void* q, const void* k, const void* v, const void* dout, const void* key_valid,
                            const void* keep, float keep_prob, void* dq, void* dk, void* dv, int Nk, int H, int Tq,
                            int Tk, int group, int causal, float scale, cudaStream_t stream) {
-  const int stages = mma_stages(Tq, Tk, group);
+  const int stages = mma_stages(DK, Tq, Tk, group);
   if (stages == 0) return cudaErrorInvalidValue;
-  const size_t smem = mma_smem_bytes(Tq, Tk, group, stages);
-  auto kernel = decoder_attention_bwd_mma_kernel<KT>;
+  const size_t smem = mma_smem_bytes(DK, Tq, Tk, group, stages);
+  auto kernel = decoder_attention_bwd_mma_kernel<DK, KT>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const int mtiles = (group * Tq + 15) / 16;
@@ -378,15 +384,16 @@ cudaError_t launch_bwd_mma(const void* q, const void* k, const void* v, const vo
 constexpr int kOwn = 2;  // (2 keys x 4 columns) items a thread owns, of dK and of dV
 
 // k_s, v_s (Tk rows) | q_s, do_s (chunk rows) | ds_s, pd_s (chunk rows x Tk padded to 4)
+template <int DK>
 inline size_t f32_smem_bytes(int Tq, int Tk, int group) {
   const int cr = f32_chunk_members(Tq, group) * Tq;
-  return ((size_t)(2 * Tk + 2 * cr) * kF32Ld + 2 * (size_t)cr * f32_tk_pad(Tk)) * sizeof(float);
+  return ((size_t)(2 * Tk + 2 * cr) * kF32Ld<DK> + 2 * (size_t)cr * f32_tk_pad(Tk)) * sizeof(float);
 }
 
 // kRowTile: query rows a warp takes at a time. With one row, at most 64
 // registers, so that 4 blocks share an SM: the self call's many small blocks
 // (one caption each) are bound by how many are in flight.
-template <int kRowTile>
+template <int DK, int kRowTile>
 __global__ void __launch_bounds__(kF32Threads, kRowTile == 1 ? 4 : 2)
 decoder_attention_bwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
                                  const float* __restrict__ dout, const unsigned char* __restrict__ key_valid,
@@ -394,18 +401,19 @@ decoder_attention_bwd_f32_kernel(const float* __restrict__ q, const float* __res
                                  float* __restrict__ dk, float* __restrict__ dv, int H, int Tq, int Tk, int group,
                                  int causal, float scale) {
   extern __shared__ __align__(16) float fsm[];
+  constexpr int LDF = kF32Ld<DK>, CG = DK / 4;  // CG: 4-column groups of a row
   const int cm = f32_chunk_members(Tq, group), cr_max = cm * Tq, tkp = f32_tk_pad(Tk);
   float* k_s = fsm;
-  float* v_s = k_s + Tk * kF32Ld;
-  float* q_s = v_s + Tk * kF32Ld;
-  float* do_s = q_s + cr_max * kF32Ld;
-  float* ds_s = do_s + cr_max * kF32Ld;  // scale * dS, masked keys 0; columns past Tk 0
+  float* v_s = k_s + Tk * LDF;
+  float* q_s = v_s + Tk * LDF;
+  float* do_s = q_s + cr_max * LDF;
+  float* ds_s = do_s + cr_max * LDF;  // scale * dS, masked keys 0; columns past Tk 0
   float* pd_s = ds_s + cr_max * tkp;     // P~
   const int warp = threadIdx.x / 32, lane = threadIdx.x & 31;
   const int b = blockIdx.x / H, h = blockIdx.x - (blockIdx.x / H) * H;
-  const size_t kv0 = ((size_t)b * H + h) * Tk * kHeadDim;
-  stage_rows_f32(k_s, k + kv0, Tk);
-  stage_rows_f32(v_s, v + kv0, Tk);
+  const size_t kv0 = ((size_t)b * H + h) * Tk * DK;
+  stage_rows_f32<DK>(k_s, k + kv0, Tk);
+  stage_rows_f32<DK>(v_s, v + kv0, Tk);
   const bool v0 = lane < Tk && (key_valid == nullptr || key_valid[(size_t)b * Tk + lane] != 0);
   const bool v1 = lane + 32 < Tk && (key_valid == nullptr || key_valid[(size_t)b * Tk + lane + 32] != 0);
   const int kpairs = (Tk + 1) / 2;
@@ -424,8 +432,8 @@ decoder_attention_bwd_f32_kernel(const float* __restrict__ q, const float* __res
     __syncthreads();  // the previous chunk's tiles are no longer read
     for (int m = 0; m < members; ++m) {
       const size_t row0 = (((size_t)b * group + m0 + m) * H + h) * Tq;
-      stage_rows_f32(q_s + m * Tq * kF32Ld, q + row0 * kHeadDim, Tq);
-      stage_rows_f32(do_s + m * Tq * kF32Ld, dout + row0 * kHeadDim, Tq);
+      stage_rows_f32<DK>(q_s + m * Tq * LDF, q + row0 * DK, Tq);
+      stage_rows_f32<DK>(do_s + m * Tq * LDF, dout + row0 * DK, Tq);
     }
     __syncthreads();
     // query side: 4 rows at a time per warp; lane owns keys lane and lane + 32
@@ -434,19 +442,19 @@ decoder_attention_bwd_f32_kernel(const float* __restrict__ q, const float* __res
 #pragma unroll
       for (int rr = 0; rr < kRowTile; ++rr) s[rr][0] = s[rr][1] = dp[rr][0] = dp[rr][1] = 0.f;
       const int r_last = cr - 1;
-      const float* kr0 = k_s + (lane < Tk ? lane : 0) * kF32Ld;
-      const float* kr1 = k_s + (lane + 32 < Tk ? lane + 32 : 0) * kF32Ld;
-      const float* vr0 = v_s + (lane < Tk ? lane : 0) * kF32Ld;
-      const float* vr1 = v_s + (lane + 32 < Tk ? lane + 32 : 0) * kF32Ld;
+      const float* kr0 = k_s + (lane < Tk ? lane : 0) * LDF;
+      const float* kr1 = k_s + (lane + 32 < Tk ? lane + 32 : 0) * LDF;
+      const float* vr0 = v_s + (lane < Tk ? lane : 0) * LDF;
+      const float* vr1 = v_s + (lane + 32 < Tk ? lane + 32 : 0) * LDF;
       const bool two = Tk > 32;
 #pragma unroll 4
-      for (int d = 0; d < kHeadDim; d += 4) {
+      for (int d = 0; d < DK; d += 4) {
         const float4 k0 = lds4(kr0 + d), w0 = lds4(vr0 + d);
         const float4 k1 = two ? lds4(kr1 + d) : k0, w1 = two ? lds4(vr1 + d) : w0;
 #pragma unroll
         for (int rr = 0; rr < kRowTile; ++rr) {
           const int row = r0 + rr < cr ? r0 + rr : r_last;
-          const float4 qv = lds4(q_s + row * kF32Ld + d), dv4 = lds4(do_s + row * kF32Ld + d);
+          const float4 qv = lds4(q_s + row * LDF + d), dv4 = lds4(do_s + row * LDF + d);
           s[rr][0] = dot4(qv, k0, s[rr][0]);
           dp[rr][0] = dot4(dv4, w0, dp[rr][0]);
           if (two) {
@@ -488,7 +496,8 @@ decoder_attention_bwd_f32_kernel(const float* __restrict__ q, const float* __res
         }
       }
       __syncwarp();
-      // dQ for the 4 rows: lane owns columns 2 lane, 2 lane + 1
+      // dQ for the 4 rows: lane owns columns 2 lane, 2 lane + 1 (owns_cols)
+      if (!owns_cols<DK>(lane)) continue;
       float2 acc[kRowTile];
 #pragma unroll
       for (int rr = 0; rr < kRowTile; ++rr) acc[rr] = make_float2(0.f, 0.f);
@@ -496,7 +505,7 @@ decoder_attention_bwd_f32_kernel(const float* __restrict__ q, const float* __res
         float2 kc[4];
 #pragma unroll
         for (int x = 0; x < 4; ++x) {
-          kc[x] = j + x < Tk ? *reinterpret_cast<const float2*>(k_s + (j + x) * kF32Ld + 2 * lane) : make_float2(0.f, 0.f);
+          kc[x] = j + x < Tk ? *reinterpret_cast<const float2*>(k_s + (j + x) * LDF + 2 * lane) : make_float2(0.f, 0.f);
         }
 #pragma unroll
         for (int rr = 0; rr < kRowTile; ++rr) {
@@ -512,7 +521,7 @@ decoder_attention_bwd_f32_kernel(const float* __restrict__ q, const float* __res
         if (row < cr) {
           const int m = row / Tq, i = row - (row / Tq) * Tq;
           const size_t grow = (((size_t)b * group + m0 + m) * H + h) * Tq + i;
-          *reinterpret_cast<float2*>(dq + grow * kHeadDim + 2 * lane) = acc[rr];
+          *reinterpret_cast<float2*>(dq + grow * DK + 2 * lane) = acc[rr];
         }
       }
     }
@@ -521,10 +530,10 @@ decoder_attention_bwd_f32_kernel(const float* __restrict__ q, const float* __res
 #pragma unroll
     for (int o = 0; o < kOwn; ++o) {
       const int item = threadIdx.x + o * kF32Threads;
-      const int kp = item >> 4, c4 = (item & 15) * 4;
+      const int kp = item / CG, c4 = (item % CG) * 4;
       if (kp < kpairs) {
         for (int row = 0; row < cr; ++row) {
-          const float4 qv = lds4(q_s + row * kF32Ld + c4), dv4 = lds4(do_s + row * kF32Ld + c4);
+          const float4 qv = lds4(q_s + row * LDF + c4), dv4 = lds4(do_s + row * LDF + c4);
           const float2 ds2 = *reinterpret_cast<const float2*>(ds_s + row * tkp + 2 * kp);
           const float2 pd2 = *reinterpret_cast<const float2*>(pd_s + row * tkp + 2 * kp);
           const float qa[4] = {qv.x, qv.y, qv.z, qv.w}, da[4] = {dv4.x, dv4.y, dv4.z, dv4.w};
@@ -542,28 +551,29 @@ decoder_attention_bwd_f32_kernel(const float* __restrict__ q, const float* __res
 #pragma unroll
   for (int o = 0; o < kOwn; ++o) {
     const int item = threadIdx.x + o * kF32Threads;
-    const int kp = item >> 4, c4 = (item & 15) * 4;
+    const int kp = item / CG, c4 = (item % CG) * 4;
 #pragma unroll
     for (int x = 0; x < 2; ++x) {
       const int j = 2 * kp + x;
       if (kp < kpairs && j < Tk) {
-        *reinterpret_cast<float4*>(dk + kv0 + j * kHeadDim + c4) =
+        *reinterpret_cast<float4*>(dk + kv0 + j * DK + c4) =
             make_float4(ak[o][x][0], ak[o][x][1], ak[o][x][2], ak[o][x][3]);
-        *reinterpret_cast<float4*>(dv + kv0 + j * kHeadDim + c4) =
+        *reinterpret_cast<float4*>(dv + kv0 + j * DK + c4) =
             make_float4(av[o][x][0], av[o][x][1], av[o][x][2], av[o][x][3]);
       }
     }
   }
 }
 
+template <int DK>
 cudaError_t launch_bwd_f32(const void* q, const void* k, const void* v, const void* dout, const void* key_valid,
                            const void* keep, float keep_prob, void* dq, void* dk, void* dv, int Nk, int H, int Tq,
                            int Tk, int group, int causal, float scale, cudaStream_t stream) {
-  const size_t smem = f32_smem_bytes(Tq, Tk, group);
-  if (smem > (size_t)kBlockSmemLimit || 16 * ((Tk + 1) / 2) > kOwn * kF32Threads) return cudaErrorInvalidValue;
+  const size_t smem = f32_smem_bytes<DK>(Tq, Tk, group);
+  if (smem > (size_t)kBlockSmemLimit || (DK / 4) * ((Tk + 1) / 2) > kOwn * kF32Threads) return cudaErrorInvalidValue;
   // a chunk of fewer rows (the self call's one caption) spreads them one a warp over all 8 warps
-  auto kernel = f32_chunk_members(Tq, group) * Tq >= kWideRows ? decoder_attention_bwd_f32_kernel<4>
-                                                               : decoder_attention_bwd_f32_kernel<1>;
+  auto kernel = f32_chunk_members(Tq, group) * Tq >= kWideRows ? decoder_attention_bwd_f32_kernel<DK, 4>
+                                                               : decoder_attention_bwd_f32_kernel<DK, 1>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   kernel<<<Nk * H, kF32Threads, smem, stream>>>(
@@ -574,30 +584,17 @@ cudaError_t launch_bwd_f32(const void* q, const void* k, const void* v, const vo
   return cudaGetLastError();
 }
 
-}  // namespace sct
-
-// dtype: 0 = float32, 1 = bfloat16. q, dout, dq (Nk * group, H, Tq, 64); k, v,
-// dk, dv (Nk, H, Tk, 64), every pointer 16-byte aligned; key_valid, keep,
-// keep_prob, causal and scale as sct_decoder_attention took them.
-extern "C" int sct_decoder_attention_bwd(int dtype, const void* q, const void* k, const void* v, const void* dout,
-                                         const void* key_valid, const void* keep, float keep_prob, void* dq,
-                                         void* dk, void* dv, int Nk, int H, int Tq, int Tk, int group, int causal,
-                                         float scale, void* stream) {
-  if (Nk < 1 || H < 1 || Tq < 1 || Tq > sct::kDecMaxLen || Tk < 1 || Tk > sct::kDecMaxLen || group < 1) {
-    return (int)cudaErrorInvalidValue;
-  }
-  const void* ptrs[] = {q, k, v, dout, dq, dk, dv};
-  for (const void* p : ptrs) {
-    if (!sct::aligned_to(p, 16)) return (int)cudaErrorInvalidValue;
-  }
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
+template <int DK>
+int entry(int dtype, const void* q, const void* k, const void* v, const void* dout, const void* key_valid,
+          const void* keep, float keep_prob, void* dq, void* dk, void* dv, int Nk, int H, int Tq, int Tk, int group,
+          int causal, float scale, cudaStream_t s) {
   if (dtype == 0) {
-    return (int)sct::launch_bwd_f32(q, k, v, dout, key_valid, keep, keep_prob, dq, dk, dv, Nk, H, Tq, Tk, group,
-                                    causal, scale, s);
+    return (int)launch_bwd_f32<DK>(q, k, v, dout, key_valid, keep, keep_prob, dq, dk, dv, Nk, H, Tq, Tk, group,
+                                   causal, scale, s);
   }
   if (dtype == 1) {
 #define SCT_BWD(KT) \
-  sct::launch_bwd_mma<KT>(q, k, v, dout, key_valid, keep, keep_prob, dq, dk, dv, Nk, H, Tq, Tk, group, causal, scale, s)
+  launch_bwd_mma<DK, KT>(q, k, v, dout, key_valid, keep, keep_prob, dq, dk, dv, Nk, H, Tq, Tk, group, causal, scale, s)
     if (Tk <= 16) return (int)SCT_BWD(1);
     if (Tk <= 32) return (int)SCT_BWD(2);
     if (Tk <= 48) return (int)SCT_BWD(3);
@@ -607,10 +604,38 @@ extern "C" int sct_decoder_attention_bwd(int dtype, const void* q, const void* k
   return (int)cudaErrorInvalidValue;
 }
 
-// the bf16 kernel's shared memory for (Tq, Tk, group) at its stage count; 0 if none fits
-extern "C" long long sct_decoder_attention_bwd_smem(int Tq, int Tk, int group) {
-  const int stages = sct::mma_stages(Tq, Tk, group);
-  return stages == 0 ? 0 : (long long)sct::mma_smem_bytes(Tq, Tk, group, stages);
+}  // namespace sct
+
+// dtype: 0 = float32, 1 = bfloat16; dk: 64 or 32. q, dout, dq (Nk * group, H,
+// Tq, dk); k, v, dk, dv (Nk, H, Tk, dk), every pointer 16-byte aligned;
+// key_valid, keep, keep_prob, causal and scale as sct_decoder_attention took them.
+extern "C" int sct_decoder_attention_bwd(int dtype, int dk_width, const void* q, const void* k, const void* v,
+                                         const void* dout, const void* key_valid, const void* keep, float keep_prob,
+                                         void* dq, void* dk, void* dv, int Nk, int H, int Tq, int Tk, int group,
+                                         int causal, float scale, void* stream) {
+  if (Nk < 1 || H < 1 || Tq < 1 || Tq > sct::kDecMaxLen || Tk < 1 || Tk > sct::kDecMaxLen || group < 1) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const void* ptrs[] = {q, k, v, dout, dq, dk, dv};
+  for (const void* p : ptrs) {
+    if (!sct::aligned_to(p, 16)) return (int)cudaErrorInvalidValue;
+  }
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dk_width == 64) {
+    return sct::entry<64>(dtype, q, k, v, dout, key_valid, keep, keep_prob, dq, dk, dv, Nk, H, Tq, Tk, group, causal,
+                          scale, s);
+  }
+  if (dk_width == 32) {
+    return sct::entry<32>(dtype, q, k, v, dout, key_valid, keep, keep_prob, dq, dk, dv, Nk, H, Tq, Tk, group, causal,
+                          scale, s);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+// the bf16 kernel's shared memory at head width dk for (Tq, Tk, group) at its stage count; 0 if none fits
+extern "C" long long sct_decoder_attention_bwd_smem(int dk, int Tq, int Tk, int group) {
+  const int stages = sct::mma_stages(dk, Tq, Tk, group);
+  return stages == 0 ? 0 : (long long)sct::mma_smem_bytes(dk, Tq, Tk, group, stages);
 }
 
 extern "C" const char* sct_error_string(int err) { return cudaGetErrorString(static_cast<cudaError_t>(err)); }

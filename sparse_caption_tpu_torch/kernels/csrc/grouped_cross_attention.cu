@@ -49,7 +49,7 @@ using bf16 = __nv_bfloat16;
 // ------------------------------------------------------------ bf16: tensor cores
 constexpr int kXMaxWarps = 8;
 constexpr int kXHeads = 2;          // heads of an image a unit takes
-constexpr int kXLd = kHeadDim + 8;  // staged row pitch in bf16 (144 B)
+template <int DK> constexpr int kXLd = DK + 8;  // staged row pitch in bf16 (144 B at DK = 64, 80 B at 32)
 
 // rows of one unit's stage: K and V of its kXHeads heads (kXHeads * S each),
 // its q rows (rep beams x kXHeads heads, beam-major), and a row that holds the
@@ -59,24 +59,24 @@ __host__ __device__ inline int cross_stage_rows(int S, int rep, bool kv) {
 }
 
 // `stages` stages and a zero row
-inline size_t cross_smem_bytes(int S, int rep, int stages, bool kv) {
-  return (stages * (size_t)cross_stage_rows(S, rep, kv) + 1) * kXLd * sizeof(bf16);
+inline size_t cross_smem_bytes(int dk, int S, int rep, int stages, bool kv) {
+  return (stages * (size_t)cross_stage_rows(S, rep, kv) + 1) * (dk + 8) * sizeof(bf16);
 }
 
 // the stages that fit (2, else 1; 0: none)
-inline int cross_stages(int S, int rep, bool kv) {
-  if (cross_smem_bytes(S, rep, 2, kv) <= (size_t)kBlockSmemLimit) return 2;
-  return cross_smem_bytes(S, rep, 1, kv) <= (size_t)kBlockSmemLimit ? 1 : 0;
+inline int cross_stages(int dk, int S, int rep, bool kv) {
+  if (cross_smem_bytes(dk, S, rep, 2, kv) <= (size_t)kBlockSmemLimit) return 2;
+  return cross_smem_bytes(dk, S, rep, 1, kv) <= (size_t)kBlockSmemLimit ? 1 : 0;
 }
 
 // one (head, 16 query rows) tile of image b: beams mt * 16 + g and + 8, beam
 // r's q at qs + r * qstride rows
-template <int KT>
+template <int DK, int KT>
 __device__ __forceinline__ void cross_tile_bf16(const bf16* qs, int qstride, const bf16* ks, const bf16* vs,
                                                 const bf16* zero, const unsigned char* mask_b,
                                                 bf16* __restrict__ out, int b, int h, int H, int S, int rep, int mt,
                                                 float scale) {
-  constexpr int NS = 2 * KT;
+  constexpr int NS = 2 * KT, LD = kXLd<DK>, ND = DK / 8;  // ND: output n-tiles over d
   const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
   const int rows[2] = {16 * mt + g, 16 * mt + g + 8};
   const bool half1 = 16 * mt + 8 < rep;  // warp-uniform: rows g + 8 hold a beam
@@ -91,13 +91,13 @@ __device__ __forceinline__ void cross_tile_bf16(const bf16* qs, int qstride, con
   }
   const bf16* qr[2];
 #pragma unroll
-  for (int r = 0; r < 2; ++r) qr[r] = rows[r] < rep ? qs + rows[r] * qstride * kXLd : zero;
+  for (int r = 0; r < 2; ++r) qr[r] = rows[r] < rep ? qs + rows[r] * qstride * LD : zero;
   const int nsv = (S + 7) / 8;
   float sacc[NS][4];
 #pragma unroll
   for (int nt = 0; nt < NS; ++nt) sacc[nt][0] = sacc[nt][1] = sacc[nt][2] = sacc[nt][3] = 0.f;
 #pragma unroll
-  for (int kd = 0; kd < 4; ++kd) {
+  for (int kd = 0; kd < DK / 16; ++kd) {
     const int col = 16 * kd + 2 * t;
     const uint32_t aq[4] = {lds_u32(qr[0] + col), lds_u32(qr[1] + col), lds_u32(qr[0] + col + 8),
                             lds_u32(qr[1] + col + 8)};
@@ -105,7 +105,7 @@ __device__ __forceinline__ void cross_tile_bf16(const bf16* qs, int qstride, con
     for (int nt = 0; nt < NS; ++nt) {
       if (nt < nsv) {
         const int j = 8 * nt + g;
-        const bf16* kr = (j < S ? ks + j * kXLd : zero) + col;
+        const bf16* kr = (j < S ? ks + j * LD : zero) + col;
         const uint32_t bk[2] = {lds_u32(kr), lds_u32(kr + 8)};
         mma_bf16(sacc[nt], aq, bk);
       }
@@ -150,9 +150,9 @@ __device__ __forceinline__ void cross_tile_bf16(const bf16* qs, int qstride, con
     inv[r] = 1.f / sum[r];
   }
   // P V: P (e / sum, the IEEE quotient by div_by, rounded to bf16) as A, V's B fragments by ldmatrix.trans
-  float oacc[8][4];
+  float oacc[ND][4];
 #pragma unroll
-  for (int nt = 0; nt < 8; ++nt) oacc[nt][0] = oacc[nt][1] = oacc[nt][2] = oacc[nt][3] = 0.f;
+  for (int nt = 0; nt < ND; ++nt) oacc[nt][0] = oacc[nt][1] = oacc[nt][2] = oacc[nt][3] = 0.f;
 #pragma unroll
   for (int kk = 0; kk < KT; ++kk) {
     float p[2][4];
@@ -166,9 +166,9 @@ __device__ __forceinline__ void cross_tile_bf16(const bf16* qs, int qstride, con
     const uint32_t a[4] = {pack_bf16(p[0][0], p[0][1]), pack_bf16(p[0][2], p[0][3]), pack_bf16(p[1][0], p[1][1]),
                            pack_bf16(p[1][2], p[1][3])};
     const int j = 16 * kk + (lane & 15);
-    const bf16* vr = (j < S ? vs + j * kXLd : zero) + (lane >> 4) * 8;
+    const bf16* vr = (j < S ? vs + j * LD : zero) + (lane >> 4) * 8;
 #pragma unroll
-    for (int jn = 0; jn < 4; ++jn) {
+    for (int jn = 0; jn < DK / 16; ++jn) {
       uint32_t rr[4];
       ldmatrix_x4_trans(rr, vr + 16 * jn);
       const uint32_t b0[2] = {rr[0], rr[1]}, b1[2] = {rr[2], rr[3]};
@@ -179,54 +179,55 @@ __device__ __forceinline__ void cross_tile_bf16(const bf16* qs, int qstride, con
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     if (rows[r] < rep) {
-      bf16* dst = out + (((size_t)b * rep + rows[r]) * H + h) * kHeadDim + 2 * t;
+      bf16* dst = out + (((size_t)b * rep + rows[r]) * H + h) * DK + 2 * t;
 #pragma unroll
-      for (int nt = 0; nt < 8; ++nt) {
+      for (int nt = 0; nt < ND; ++nt) {
         *reinterpret_cast<uint32_t*>(dst + 8 * nt) = pack_bf16(oacc[nt][2 * r], oacc[nt][2 * r + 1]);
       }
     }
   }
 }
 
-template <int KT, bool KV>
+template <int DK, int KT, bool KV>
 __global__ void __launch_bounds__(32 * kXMaxWarps)
 grouped_cross_attention_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ mem_k,
                                     const bf16* __restrict__ mem_v, const unsigned char* __restrict__ mask,
                                     bf16* __restrict__ out, int B, int H, int S, int rep, float scale, int stages) {
   extern __shared__ __align__(128) unsigned char smem_raw[];
-  // [stage][K: kXHeads x S, V: kXHeads x S (not in the kv mode), q: rep x kXHeads][kXLd]
+  // [stage][K: kXHeads x S, V: kXHeads x S (not in the kv mode), q: rep x kXHeads][LD]
   bf16* tiles = reinterpret_cast<bf16*>(smem_raw);
   constexpr int NKV = KV ? 1 : 2;  // staged memory arrays
+  constexpr int LD = kXLd<DK>, RC = DK / 8;  // RC: 16-byte chunks of a row
   const int stage_rows = cross_stage_rows(S, rep, KV), groups = (H + kXHeads - 1) / kXHeads, units = B * groups;
-  bf16* zero = tiles + stages * stage_rows * kXLd;
+  bf16* zero = tiles + stages * stage_rows * LD;
   const int warp = threadIdx.x / 32, nwarps = blockDim.x / 32;
-  for (int e = threadIdx.x; e < kXLd; e += blockDim.x) zero[e] = __float2bfloat16_rn(0.f);
+  for (int e = threadIdx.x; e < LD; e += blockDim.x) zero[e] = __float2bfloat16_rn(0.f);
 
   // unit u: image u / groups, heads h0 .. h0 + hn - 1; K, V rows contiguous, q rows hn to a beam
   auto issue = [&](int u, int s) {
     const int b = u / groups, h0 = (u - b * groups) * kXHeads, hn = min(kXHeads, H - h0);
-    bf16* st = tiles + s * stage_rows * kXLd;
+    bf16* st = tiles + s * stage_rows * LD;
     const int kv_rows = hn * S;
-    const size_t kv0 = ((size_t)b * H + h0) * S * kHeadDim;
-    const int chunks = (NKV * kv_rows + rep * hn) * 8;
+    const size_t kv0 = ((size_t)b * H + h0) * S * DK;
+    const int chunks = (NKV * kv_rows + rep * hn) * RC;
     for (int c = threadIdx.x; c < chunks + (S % 4 == 0 ? S / 4 : 0); c += blockDim.x) {
       if (c >= chunks) {  // the region flags, 4 a copy (then read from shared memory)
-        cp_async<4>(reinterpret_cast<unsigned char*>(st + (stage_rows - 1) * kXLd) + 4 * (c - chunks),
+        cp_async<4>(reinterpret_cast<unsigned char*>(st + (stage_rows - 1) * LD) + 4 * (c - chunks),
                     mask + (size_t)b * S + 4 * (c - chunks));
         continue;
       }
-      const int r = c >> 3, part = (c & 7) * 8;
+      const int r = c / RC, part = (c % RC) * 8;
       const bf16* src;
       int dst;
       if (r < NKV * kv_rows) {
-        src = (r < kv_rows ? mem_k : mem_v) + kv0 + (size_t)(r < kv_rows ? r : r - kv_rows) * kHeadDim;
+        src = (r < kv_rows ? mem_k : mem_v) + kv0 + (size_t)(r < kv_rows ? r : r - kv_rows) * DK;
         dst = r < kv_rows ? r : kXHeads * S + r - kv_rows;
       } else {
         const int qr = r - NKV * kv_rows, beam = qr / hn, hl = qr - beam * hn;
-        src = q + (((size_t)b * rep + beam) * H + h0 + hl) * kHeadDim;
+        src = q + (((size_t)b * rep + beam) * H + h0 + hl) * DK;
         dst = NKV * kXHeads * S + qr;
       }
-      cp_async<16>(st + dst * kXLd + part, src + part);
+      cp_async<16>(st + dst * LD + part, src + part);
     }
   };
   if (stages == 2 && (int)blockIdx.x < units) issue(blockIdx.x, 0);
@@ -247,13 +248,13 @@ grouped_cross_attention_bf16_kernel(const bf16* __restrict__ q, const bf16* __re
     }
     __syncthreads();  // every thread's copies of unit u have landed
     const int b = u / groups, h0 = (u - b * groups) * kXHeads, hn = min(kXHeads, H - h0);
-    const bf16* st = tiles + s * stage_rows * kXLd;
-    const unsigned char* mask_b = S % 4 == 0 ? reinterpret_cast<const unsigned char*>(st + (stage_rows - 1) * kXLd)
+    const bf16* st = tiles + s * stage_rows * LD;
+    const unsigned char* mask_b = S % 4 == 0 ? reinterpret_cast<const unsigned char*>(st + (stage_rows - 1) * LD)
                                               : mask + (size_t)b * S;
     for (int item = warp; item < hn * mtiles; item += nwarps) {
       const int hl = item / mtiles, mt = item - hl * mtiles;
-      const bf16* ks = st + hl * S * kXLd;  // the kv mode reads these rows as V too
-      cross_tile_bf16<KT>(st + (NKV * kXHeads * S + hl) * kXLd, hn, ks, KV ? ks : st + (kXHeads * S + hl * S) * kXLd,
+      const bf16* ks = st + hl * S * LD;  // the kv mode reads these rows as V too
+      cross_tile_bf16<DK, KT>(st + (NKV * kXHeads * S + hl) * LD, hn, ks, KV ? ks : st + (kXHeads * S + hl * S) * LD,
                           zero, mask_b, out, b, h0 + hl, H, S, rep, mt, scale);
     }
     __syncthreads();  // the stage may be refilled
@@ -261,13 +262,13 @@ grouped_cross_attention_bf16_kernel(const bf16* __restrict__ q, const bf16* __re
   cp_async_wait<0>();
 }
 
-template <int KT, bool KV>
+template <int DK, int KT, bool KV>
 cudaError_t launch_bf16(const void* q, const void* mk, const void* mv, const void* mask, void* out, int B, int H,
                         int S, int rep, float scale, cudaStream_t stream) {
-  const int stages = cross_stages(S, rep, KV);
+  const int stages = cross_stages(DK, S, rep, KV);
   if (stages == 0) return cudaErrorInvalidValue;
-  const size_t smem = cross_smem_bytes(S, rep, stages, KV);
-  auto kernel = grouped_cross_attention_bf16_kernel<KT, KV>;
+  const size_t smem = cross_smem_bytes(DK, S, rep, stages, KV);
+  auto kernel = grouped_cross_attention_bf16_kernel<DK, KT, KV>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const int items = kXHeads * ((rep + 15) / 16), warps = items < kXMaxWarps ? items : kXMaxWarps;
@@ -285,91 +286,102 @@ cudaError_t launch_bf16(const void* q, const void* mk, const void* mv, const voi
 // ------------------------------------------------------------ f32: CUDA cores
 constexpr int kCrossThreads = 128;
 
-template <bool KV>
+template <int DK, bool KV>
 __global__ void __launch_bounds__(kCrossThreads)
 grouped_cross_attention_f32_kernel(const float* __restrict__ q, const float* __restrict__ mem_k,
                                    const float* __restrict__ mem_v, const unsigned char* __restrict__ mask,
                                    float* __restrict__ out, int H, int S, int rep, float scale) {
   extern __shared__ float smem[];
   const int nwarps = blockDim.x / 32, warp = threadIdx.x / 32, lane = threadIdx.x & 31;
-  float* k_s = smem;                                 // S * kKeyStride
-  float* v_s = KV ? k_s : k_s + S * kKeyStride;      // S * kValStride, the K tile in the kv mode
-  float* q_s = k_s + S * (kKeyStride + (KV ? 0 : kValStride));  // nwarps * 64
-  float* p_s = q_s + nwarps * kHeadDim;     // nwarps * 64
-  unsigned char* mask_s = reinterpret_cast<unsigned char*>(p_s + nwarps * kHeadDim);  // S
+  constexpr int KS = kKeyStride<DK>, VS = kValStride<DK>;
+  float* k_s = smem;                                 // S * KS
+  float* v_s = KV ? k_s : k_s + S * KS;              // S * VS, the K tile in the kv mode
+  float* q_s = k_s + S * (KS + (KV ? 0 : VS));       // nwarps * DK
+  float* p_s = q_s + nwarps * DK;                    // nwarps * 64 (a row's keys)
+  unsigned char* mask_s = reinterpret_cast<unsigned char*>(p_s + nwarps * 64);  // S
 
   const int b = blockIdx.x / H, h = blockIdx.x - (blockIdx.x / H) * H;
-  const size_t base = ((size_t)b * H + h) * S * kHeadDim;
-  load_tile(k_s, mem_k + base, S, kKeyStride);
-  if (!KV) load_tile(v_s, mem_v + base, S, kValStride);
+  const size_t base = ((size_t)b * H + h) * S * DK;
+  load_tile<DK>(k_s, mem_k + base, S, KS);
+  if (!KV) load_tile<DK>(v_s, mem_v + base, S, VS);
   for (int e = threadIdx.x; e < S; e += blockDim.x) mask_s[e] = mask[(size_t)b * S + e];
   __syncthreads();
 
-  float* qw = q_s + warp * kHeadDim;
+  float* qw = q_s + warp * DK;
   for (int r = warp; r < rep; r += nwarps) {
-    const size_t qo = ((size_t)(b * rep + r) * H + h) * kHeadDim;
-    const float2 qv = load2(q + qo + 2 * lane);
-    qw[2 * lane] = qv.x;
-    qw[2 * lane + 1] = qv.y;
+    const size_t qo = ((size_t)(b * rep + r) * H + h) * DK;
+    if (owns_cols<DK>(lane)) {
+      const float2 qv = load2(q + qo + 2 * lane);
+      qw[2 * lane] = qv.x;
+      qw[2 * lane + 1] = qv.y;
+    }
     __syncwarp();
-    warp_attend_row<float>(qw, k_s, v_s, mask_s, nullptr, S, scale, p_s + warp * kHeadDim, out + qo, nullptr, 1.f,
-                           nullptr, KV ? kKeyStride : kValStride);
+    warp_attend_row<DK, float>(qw, k_s, v_s, mask_s, nullptr, S, scale, p_s + warp * 64, out + qo, nullptr, 1.f,
+                               nullptr, KV ? KS : VS);
   }
 }
 
-template <bool KV>
+template <int DK, bool KV>
 cudaError_t launch_f32(const void* q, const void* mk, const void* mv, const void* mask, void* out, int B, int H,
                        int S, int rep, float scale, cudaStream_t stream) {
   const int nwarps = kCrossThreads / 32;
   const size_t smem =
-      ((size_t)S * (kKeyStride + (KV ? 0 : kValStride)) + 2 * (size_t)nwarps * kHeadDim) * sizeof(float) + S;
-  grouped_cross_attention_f32_kernel<KV><<<B * H, kCrossThreads, smem, stream>>>(
+      ((size_t)S * (kKeyStride<DK> + (KV ? 0 : kValStride<DK>)) + (size_t)nwarps * (DK + 64)) * sizeof(float) + S;
+  grouped_cross_attention_f32_kernel<DK, KV><<<B * H, kCrossThreads, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(mk), static_cast<const float*>(mv),
       static_cast<const unsigned char*>(mask), static_cast<float*>(out), H, S, rep, scale);
   return cudaGetLastError();
 }
 
-template <bool KV>
-int entry(int dtype, const void* q, const void* mem_k, const void* mem_v, const void* mask, void* out, int B, int H,
-          int S, int rep, float scale, void* stream) {
-  if (H < 1 || S < 1 || S > 64 || rep < 1) return (int)cudaErrorInvalidValue;
-  if (B == 0) return 0;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return (int)launch_f32<KV>(q, mem_k, mem_v, mask, out, B, H, S, rep, scale, s);
+template <int DK, bool KV>
+int entry_dk(int dtype, const void* q, const void* mem_k, const void* mem_v, const void* mask, void* out, int B,
+             int H, int S, int rep, float scale, cudaStream_t s) {
+  if (dtype == 0) return (int)launch_f32<DK, KV>(q, mem_k, mem_v, mask, out, B, H, S, rep, scale, s);
   if (dtype == 1) {
     const void* ptrs[] = {q, mem_k, KV ? mem_k : mem_v, out};
     for (const void* p : ptrs) {
       if ((reinterpret_cast<uintptr_t>(p) & 15) != 0) return (int)cudaErrorInvalidValue;
     }
-    if (S <= 16) return (int)launch_bf16<1, KV>(q, mem_k, mem_v, mask, out, B, H, S, rep, scale, s);
-    if (S <= 32) return (int)launch_bf16<2, KV>(q, mem_k, mem_v, mask, out, B, H, S, rep, scale, s);
-    if (S <= 48) return (int)launch_bf16<3, KV>(q, mem_k, mem_v, mask, out, B, H, S, rep, scale, s);
-    return (int)launch_bf16<4, KV>(q, mem_k, mem_v, mask, out, B, H, S, rep, scale, s);
+    if (S <= 16) return (int)launch_bf16<DK, 1, KV>(q, mem_k, mem_v, mask, out, B, H, S, rep, scale, s);
+    if (S <= 32) return (int)launch_bf16<DK, 2, KV>(q, mem_k, mem_v, mask, out, B, H, S, rep, scale, s);
+    if (S <= 48) return (int)launch_bf16<DK, 3, KV>(q, mem_k, mem_v, mask, out, B, H, S, rep, scale, s);
+    return (int)launch_bf16<DK, 4, KV>(q, mem_k, mem_v, mask, out, B, H, S, rep, scale, s);
   }
+  return (int)cudaErrorInvalidValue;
+}
+
+template <bool KV>
+int entry(int dtype, int dk, const void* q, const void* mem_k, const void* mem_v, const void* mask, void* out, int B,
+          int H, int S, int rep, float scale, void* stream) {
+  if (H < 1 || S < 1 || S > 64 || rep < 1) return (int)cudaErrorInvalidValue;
+  if (B == 0) return 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dk == 64) return entry_dk<64, KV>(dtype, q, mem_k, mem_v, mask, out, B, H, S, rep, scale, s);
+  if (dk == 32) return entry_dk<32, KV>(dtype, q, mem_k, mem_v, mask, out, B, H, S, rep, scale, s);
   return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace sct
 
-// dtype: 0 = float32, 1 = bfloat16. q/out (B * rep, H, 64); mem_k/mem_v (B, H, S, 64),
-// 16-byte aligned in bf16; mask (B, S) bool.
-extern "C" int sct_grouped_cross_attention(int dtype, const void* q, const void* mem_k, const void* mem_v,
+// dtype: 0 = float32, 1 = bfloat16; dk: 64 or 32. q/out (B * rep, H, dk); mem_k/mem_v
+// (B, H, S, dk), 16-byte aligned in bf16; mask (B, S) bool.
+extern "C" int sct_grouped_cross_attention(int dtype, int dk, const void* q, const void* mem_k, const void* mem_v,
                                            const void* mask, void* out, int B, int H, int S, int rep,
                                            float scale, void* stream) {
-  return sct::entry<false>(dtype, q, mem_k, mem_v, mask, out, B, H, S, rep, scale, stream);
+  return sct::entry<false>(dtype, dk, q, mem_k, mem_v, mask, out, B, H, S, rep, scale, stream);
 }
 
-// kv mode: mem (B, H, S, 64) is both K and V, staged once.
-extern "C" int sct_grouped_cross_attention_kv(int dtype, const void* q, const void* mem, const void* mask, void* out,
-                                              int B, int H, int S, int rep, float scale, void* stream) {
-  return sct::entry<true>(dtype, q, mem, nullptr, mask, out, B, H, S, rep, scale, stream);
+// kv mode: mem (B, H, S, dk) is both K and V, staged once.
+extern "C" int sct_grouped_cross_attention_kv(int dtype, int dk, const void* q, const void* mem, const void* mask,
+                                              void* out, int B, int H, int S, int rep, float scale, void* stream) {
+  return sct::entry<true>(dtype, dk, q, mem, nullptr, mask, out, B, H, S, rep, scale, stream);
 }
 
-// the bf16 kernel's shared memory for S regions and rep rows an image (kv: the
-// kv mode), at its stage count; 0 if none fits
-extern "C" long long sct_grouped_cross_attention_smem(int S, int rep, int kv) {
-  const int stages = sct::cross_stages(S, rep, kv != 0);
-  return stages == 0 ? 0 : (long long)sct::cross_smem_bytes(S, rep, stages, kv != 0);
+// the bf16 kernel's shared memory at head width dk for S regions and rep rows
+// an image (kv: the kv mode), at its stage count; 0 if none fits
+extern "C" long long sct_grouped_cross_attention_smem(int dk, int S, int rep, int kv) {
+  const int stages = sct::cross_stages(dk, S, rep, kv != 0);
+  return stages == 0 ? 0 : (long long)sct::cross_smem_bytes(dk, S, rep, stages, kv != 0);
 }
 
 extern "C" const char* sct_error_string(int err) { return cudaGetErrorString(static_cast<cudaError_t>(err)); }

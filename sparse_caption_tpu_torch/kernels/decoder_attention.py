@@ -25,46 +25,53 @@ from typing import Optional
 import torch
 
 from sparse_caption_tpu_torch.kernels import _build
-from sparse_caption_tpu_torch.kernels._checks import check_float, check_same_device, check_tensor
+from sparse_caption_tpu_torch.kernels._checks import check_float, check_head_width, check_same_device, check_tensor
 from sparse_caption_tpu_torch.ops.attention import scaled_dot_attention
 from sparse_caption_tpu_torch.ops.keep import keep_divisor
 
 KERNEL = _build.CudaKernel("decoder_attention", "sct_decoder_attention", [
-    _build.I, _build.P, _build.P, _build.P, _build.P, _build.P, _build.F32, _build.P,
+    _build.I, _build.I, _build.P, _build.P, _build.P, _build.P, _build.P, _build.F32, _build.P,
     _build.I, _build.I, _build.I, _build.I, _build.I, _build.I, _build.F32, _build.P,
 ])
 KERNEL_BWD = _build.CudaKernel("decoder_attention_bwd", "sct_decoder_attention_bwd", [
-    _build.I, _build.P, _build.P, _build.P, _build.P, _build.P, _build.P, _build.F32, _build.P, _build.P, _build.P,
+    _build.I, _build.I, _build.P, _build.P, _build.P, _build.P, _build.P, _build.P, _build.F32,
+    _build.P, _build.P, _build.P,
     _build.I, _build.I, _build.I, _build.I, _build.I, _build.I, _build.F32, _build.P,
 ])
 MAX_LEN = 64  # the kernels' limit on keys and query positions
-ROW_PITCH = 72  # the staged bf16 rows of K14 and K15 (csrc/decoder_attention.cuh kLd)
 
 
-def bf16_forward_smem(tq: int, tk: int, group: int, keep: bool) -> int:
+def row_pitch(dk: int) -> int:
+    """The staged bf16 rows of K14 and K15 in elements (csrc/decoder_attention.cuh kLd): 72 at dk 64, 40 at 32."""
+    return dk + 8
+
+
+def bf16_forward_smem(tq: int, tk: int, group: int, keep: bool, dk: int = 64) -> int:
     """Shared memory of K14's bf16 kernel (``fwd_smem_bytes``) for a K/V row
     whose group of ``group`` query rows has ``tq`` positions each: two stages
-    of (K, V, the group's q rows in rows of 144 bytes and, with a keep-mask,
-    each member's tq x tk flags in a region rounded up to 16 bytes with 15
-    to spare) if they fit, else one, plus a zero row. 0 when even one stage
-    does not fit."""
+    of (K, V, the group's q rows in rows of 2 (dk + 8) bytes and, with a
+    keep-mask, each member's tq x tk flags in a region rounded up to 16 bytes
+    with 15 to spare) if they fit, else one, plus a zero row. 0 when even one
+    stage does not fit."""
+    pitch = row_pitch(dk)
     keep_pitch = 16 * -(-(tq * tk + 15) // 16)
-    stage = 2 * (2 * tk + group * tq) * ROW_PITCH + (group * keep_pitch if keep else 0)
+    stage = 2 * (2 * tk + group * tq) * pitch + (group * keep_pitch if keep else 0)
     for stages in (2, 1):
-        if stages * stage + 2 * ROW_PITCH <= _build.BLOCK_SMEM_LIMIT:
-            return stages * stage + 2 * ROW_PITCH
+        if stages * stage + 2 * pitch <= _build.BLOCK_SMEM_LIMIT:
+            return stages * stage + 2 * pitch
     return 0
 
 
-def bf16_backward_smem(tq: int, tk: int, group: int) -> int:
+def bf16_backward_smem(tq: int, tk: int, group: int, dk: int = 64) -> int:
     """Shared memory of K15's bf16 kernel (``mma_smem_bytes``) for a K/V row
     whose group of ``group`` query rows has ``tq`` positions each: two stages
     of (K, V, the group's q and dO rows) if they fit, else one, plus a zero
     row and dS, P~ (each member's positions padded to 16 x the keys padded to
     16, + 8). 0 when even one stage does not fit."""
+    pitch = row_pitch(dk)
     kp, qp = 16 * -(-tk // 16), 16 * -(-tq // 16)
     for stages in (2, 1):
-        elems = stages * (2 * tk + 2 * group * tq) * ROW_PITCH + ROW_PITCH + 2 * group * qp * (kp + 8)
+        elems = stages * (2 * tk + 2 * group * tq) * pitch + pitch + 2 * group * qp * (kp + 8)
         if 2 * elems <= _build.BLOCK_SMEM_LIMIT:
             return 2 * elems
     return 0
@@ -83,7 +90,7 @@ class _DecoderAttentionFn(torch.autograd.Function):
         nk, tk = k.shape[0], k.shape[2]
         q, k, v = (_build.aligned16(t) for t in (q, k, v))
         out = torch.empty_like(q)
-        KERNEL.launch(_build.dtype_code(q), q.data_ptr(), k.data_ptr(), v.data_ptr(), _build.ptr(key_valid),
+        KERNEL.launch(_build.dtype_code(q), dk, q.data_ptr(), k.data_ptr(), v.data_ptr(), _build.ptr(key_valid),
                       _build.ptr(keep), keep_prob, out.data_ptr(), nk, h, tq, tk, n // nk, int(causal),
                       1.0 / math.sqrt(dk), _build.stream_handle(q))
         ctx.causal, ctx.keep_prob = causal, keep_prob
@@ -97,7 +104,7 @@ class _DecoderAttentionFn(torch.autograd.Function):
         nk, tk = k.shape[0], k.shape[2]
         q, k, v, dout = (_build.aligned16(t) for t in (q, k, v, dout.contiguous()))
         dq, dk_, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-        KERNEL_BWD.launch(_build.dtype_code(q), q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
+        KERNEL_BWD.launch(_build.dtype_code(q), dk, q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
                           _build.ptr(key_valid), _build.ptr(keep), ctx.keep_prob, dq.data_ptr(), dk_.data_ptr(),
                           dv.data_ptr(), nk, h, tq, tk, n // nk, int(ctx.causal), 1.0 / math.sqrt(dk),
                           _build.stream_handle(q))
@@ -129,13 +136,13 @@ def decoder_attention(q, k, v, key_valid: Optional[torch.Tensor] = None, causal:
     check_same_device(q, k, v, key_valid, keep)
     if q.device.type == "cpu":
         return decoder_attention_plain(q, k, v, key_valid, causal, keep, keep_prob)
-    if dk != 64 or tq > MAX_LEN or tk > MAX_LEN:
-        raise ValueError(f"decoder_attention kernels take dk == 64, Tq and Tk <= {MAX_LEN}; got dk={dk} Tq={tq} "
-                         f"Tk={tk}")
-    if q.dtype == torch.bfloat16 and bf16_forward_smem(tq, tk, n // nk, keep is not None) == 0:
+    check_head_width(dk, "decoder_attention")
+    if tq > MAX_LEN or tk > MAX_LEN:
+        raise ValueError(f"decoder_attention kernels take Tq and Tk <= {MAX_LEN}; got Tq={tq} Tk={tk}")
+    if q.dtype == torch.bfloat16 and bf16_forward_smem(tq, tk, n // nk, keep is not None, dk) == 0:
         raise ValueError(f"decoder_attention's bf16 forward holds a K/V row's {n // nk} x {tq} query rows in shared "
                          f"memory; they do not fit with Tk={tk}")
-    if q.dtype == torch.bfloat16 and bf16_backward_smem(tq, tk, n // nk) == 0 and torch.is_grad_enabled() and any(
+    if q.dtype == torch.bfloat16 and bf16_backward_smem(tq, tk, n // nk, dk) == 0 and torch.is_grad_enabled() and any(
             t.requires_grad for t in (q, k, v)):
         raise ValueError(f"decoder_attention's bf16 backward holds a K/V row's {n // nk} x {tq} query rows in shared "
                          f"memory; they do not fit with Tk={tk}")

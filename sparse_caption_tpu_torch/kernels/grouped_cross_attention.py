@@ -18,29 +18,29 @@ from typing import Optional
 import torch
 
 from sparse_caption_tpu_torch.kernels import _build
-from sparse_caption_tpu_torch.kernels._checks import check_float, check_same_device, check_tensor
+from sparse_caption_tpu_torch.kernels._checks import check_float, check_head_width, check_same_device, check_tensor
 from sparse_caption_tpu_torch.ops.attention import NEG_INF
 
 KERNEL = _build.CudaKernel("grouped_cross_attention", "sct_grouped_cross_attention", [
-    _build.I, _build.P, _build.P, _build.P, _build.P, _build.P,
+    _build.I, _build.I, _build.P, _build.P, _build.P, _build.P, _build.P,
     _build.I, _build.I, _build.I, _build.I, _build.F32, _build.P,
 ])
 # the kv mode: one memory array, read as K and V
 KERNEL_KV = _build.CudaKernel("grouped_cross_attention", "sct_grouped_cross_attention_kv", [
-    _build.I, _build.P, _build.P, _build.P, _build.P,
+    _build.I, _build.I, _build.P, _build.P, _build.P, _build.P,
     _build.I, _build.I, _build.I, _build.I, _build.F32, _build.P,
 ])
 UNIT_HEADS = 2  # heads of an image one unit of the bf16 kernel takes (csrc kXHeads)
 
 
-def bf16_smem(regions: int, rep: int, kv: bool = False) -> int:
+def bf16_smem(regions: int, rep: int, kv: bool = False, dk: int = 64) -> int:
     """Shared memory of the bf16 kernel (``cross_smem_bytes``): two stages of
     a unit's rows if they fit, else one (K and V of its 2 heads, regions rows
     each, K alone in the kv mode, its rep x 2 q rows and a row of region
-    flags), and a zero row, each row 144 bytes. 0 when even one stage does
-    not fit."""
+    flags), and a zero row, each row 2 (dk + 8) bytes (144 at dk 64, 80 at
+    32). 0 when even one stage does not fit."""
     for stages in (2, 1):
-        nbytes = (stages * (((1 if kv else 2) * regions + rep) * UNIT_HEADS + 1) + 1) * 144
+        nbytes = (stages * (((1 if kv else 2) * regions + rep) * UNIT_HEADS + 1) + 1) * 2 * (dk + 8)
         if nbytes <= _build.BLOCK_SMEM_LIMIT:
             return nbytes
     return 0
@@ -75,18 +75,19 @@ def grouped_cross_attention(q, mem_k, mem_v: Optional[torch.Tensor], mask):
     check_same_device(q, mem_k, mem_v, mask)
     if q.device.type == "cpu":
         return grouped_cross_attention_plain(q, mem_k, mem_v, mask)
-    if dk != 64 or s > 64:
-        raise ValueError(f"grouped_cross_attention kernel takes dk == 64, S <= 64; got dk={dk} S={s}")
-    if q.dtype == torch.bfloat16 and bf16_smem(s, n // b, mem_v is None) == 0:
+    check_head_width(dk, "grouped_cross_attention")
+    if s > 64:
+        raise ValueError(f"grouped_cross_attention kernel takes S <= 64; got S={s}")
+    if q.dtype == torch.bfloat16 and bf16_smem(s, n // b, mem_v is None, dk) == 0:
         raise ValueError(f"grouped_cross_attention's bf16 kernel holds 2 heads' K, V and q rows in shared memory; "
                          f"{s} regions and {n // b} rows an image do not fit")
     q, mem_k = _build.aligned16(q), _build.aligned16(mem_k)
     out = torch.empty_like(q)
     if mem_v is None:
-        KERNEL_KV.launch(_build.dtype_code(q), q.data_ptr(), mem_k.data_ptr(), mask.data_ptr(), out.data_ptr(),
+        KERNEL_KV.launch(_build.dtype_code(q), dk, q.data_ptr(), mem_k.data_ptr(), mask.data_ptr(), out.data_ptr(),
                          b, h, s, n // b, 1.0 / math.sqrt(dk), _build.stream_handle(q))
         return out
     mem_v = _build.aligned16(mem_v)
-    KERNEL.launch(_build.dtype_code(q), q.data_ptr(), mem_k.data_ptr(), mem_v.data_ptr(), mask.data_ptr(),
+    KERNEL.launch(_build.dtype_code(q), dk, q.data_ptr(), mem_k.data_ptr(), mem_v.data_ptr(), mask.data_ptr(),
                   out.data_ptr(), b, h, s, n // b, 1.0 / math.sqrt(dk), _build.stream_handle(q))
     return out

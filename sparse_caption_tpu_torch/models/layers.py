@@ -16,7 +16,9 @@ Train mode: a forward given ``rng`` (an ``ops.rng.TrainRandom`` or
 ``rng=None`` is eval. Every module that draws dropout holds a ``site`` id
 (``assign_dropout_sites``) that keys a ``KeyedStream``'s draws: with one, the
 decode draws in step mode at ``t`` and the teacher-forced replay draws all t
-at once (kernel K8), and the two agree bit for bit.
+at once (kernel K8), and the two agree bit for bit. A layer called at several
+slots of a ``share_layer`` plan gets the stream's slot view at each
+(``ops.rng.slot_rng``), so each slot draws under its own site.
 The residual add of sublayer i and the norm of sublayer i+1 run fused in
 kernel K6 (``prenorm_stack``); the ORT encoder's attention in K1 (eval) or
 K1's train variant with its backward K7; masked weights in K5; the
@@ -131,17 +133,18 @@ class SublayerConnection(nn.Module, DropoutSite):
         self.norm = RefLayerNorm(d_model, device=device, dtype=dtype)
 
 
-Step = Tuple[SublayerConnection, Callable]
+# (sublayer, f, the random source its residual dropout draws from: its slot's)
+Step = Tuple[SublayerConnection, Callable, object]
 
 
-def prenorm_stack(x, steps: Sequence[Step], final_norm: RefLayerNorm, rng=None):
-    """``x = x + dropout(f(norm(x)))`` for every (sublayer, f) in order, then
-    ``final_norm(x)``. Sublayer i's residual add (with its dropout) runs fused
-    with the norm of sublayer i+1, or with the final norm, in kernel K6:
-    1 + len(steps) launches."""
+def prenorm_stack(x, steps: Sequence[Step], final_norm: RefLayerNorm):
+    """``x = x + dropout(f(norm(x)))`` for every (sublayer, f, rng) in order,
+    then ``final_norm(x)``. Sublayer i's residual add (with its dropout) runs
+    fused with the norm of sublayer i+1, or with the final norm, in kernel
+    K6: 1 + len(steps) launches."""
     first = steps[0][0].norm
     n = add_ref_layernorm(x, None, first.weight, first.bias, eps=first.eps)
-    for i, (sub, fn) in enumerate(steps):
+    for i, (sub, fn, rng) in enumerate(steps):
         y = fn(n)
         nxt = steps[i + 1][0].norm if i + 1 < len(steps) else final_norm
         keep = keep_mask(y.shape, sub.dropout_rate, rng, y.device, sub.site)

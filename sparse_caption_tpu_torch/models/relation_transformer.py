@@ -26,9 +26,9 @@ from sparse_caption_tpu_torch.models.layers import (
     SublayerConnection,
     prenorm_stack,
 )
-from sparse_caption_tpu_torch.models.transformer import Transformer, _unique_layer_plan
+from sparse_caption_tpu_torch.models.transformer import Transformer, _unique_layer_plan, plan_slots
 from sparse_caption_tpu_torch.ops.masked import MaskedLinear, mask_set, masked_call_order
-from sparse_caption_tpu_torch.ops.rng import dropout
+from sparse_caption_tpu_torch.ops.rng import dropout, slot_rng
 
 
 class BoxEncoderLayer(nn.Module):
@@ -43,8 +43,8 @@ class BoxEncoderLayer(nn.Module):
         self.sub1 = SublayerConnection(d_model, dropout_rate, **factory)
 
     def steps(self, boxes, mask, rng=None) -> List[Step]:
-        return [(self.sub0, lambda y: self.self_attn(y, boxes, mask, rng)),
-                (self.sub1, lambda y: self.feed_forward(y, rng))]
+        return [(self.sub0, lambda y: self.self_attn(y, boxes, mask, rng), rng),
+                (self.sub1, lambda y: self.feed_forward(y, rng), rng)]
 
 
 @register_model("relation_transformer")
@@ -78,8 +78,9 @@ class RelationTransformer(Transformer):
             x = dropout(torch.relu(self.att_embed(att_feats, rng)), self.drop_prob_src, rng, self.site)
             mask = (att_masks != 0).contiguous()
             boxes = boxes.float().contiguous()
-            steps = [s for i in self.box_enc_plan for s in self.box_encoder_layers[i].steps(boxes, mask, rng)]
-            return {"memory": prenorm_stack(x, steps, self.box_encoder_norm, rng), "mask": att_masks}
+            steps = [s for i, k in plan_slots(self.box_enc_plan)
+                     for s in self.box_encoder_layers[i].steps(boxes, mask, slot_rng(rng, k))]
+            return {"memory": prenorm_stack(x, steps, self.box_encoder_norm), "mask": att_masks}
 
     @classmethod
     def from_config(cls, config, mask_cfg=None, **factory):

@@ -11,8 +11,9 @@ K/V at ``B`` rows (one per image, shared by its beams or samples), and, for
 beam search, a ``(B, K, T_max)`` ancestor map so beams reorder without
 touching the K/V cache. A train-mode decode step draws its dropout from a
 ``KeyedStream`` at ``t``; ``decode_teacher_forced(train=True)`` replays every
-step's draws in one pass. ``share_att_*`` / ``share_layer_*`` (ACORT) raise
-until their slice.
+step's draws in one pass. ``share_att_*`` / ``share_layer_*`` (ACORT) are
+ported: each slot of a shared layer draws its keyed dropout under its own
+site (``ops.rng.slot_rng``); a training supermask over shared layers raises.
 """
 
 from __future__ import annotations
@@ -40,7 +41,7 @@ from sparse_caption_tpu_torch.models.layers import (
     prenorm_stack,
 )
 from sparse_caption_tpu_torch.ops.masked import MaskConfig, MaskedEmbedding, MaskedLinear, mask_set, masked_call_order
-from sparse_caption_tpu_torch.ops.rng import KeyedStream, dropout
+from sparse_caption_tpu_torch.ops.rng import dropout, slot_rng
 
 
 def _unique_layer_plan(num_layers: int, share_layer: Optional[Sequence[int]]) -> Tuple[int, Tuple[int, ...]]:
@@ -54,6 +55,17 @@ def _unique_layer_plan(num_layers: int, share_layer: Optional[Sequence[int]]) ->
         assert set(share_layer) == set(range(n_unique)), f"share_layer must use indices 0..{n_unique - 1}"
         return n_unique, share_layer
     return num_layers, tuple(range(num_layers))
+
+
+def plan_slots(plan) -> List[Tuple[int, int]]:
+    """(layer, slot) for each position of a layer plan: slot k is the
+    layer's k-th call in the pass (its dropout site, ``ops.rng.slot_rng``)."""
+    seen: Dict[int, int] = {}
+    out = []
+    for i in plan:
+        out.append((i, seen.get(i, 0)))
+        seen[i] = seen.get(i, 0) + 1
+    return out
 
 
 def train_rng(train: bool, rng):
@@ -76,8 +88,8 @@ class EncoderLayer(nn.Module):
 
     def steps(self, key_valid, rng=None) -> List[Step]:
         """The layer's two pre-norm sublayers for ``prenorm_stack``; key_valid: (B, S) bool."""
-        return [(self.sub0, lambda y: self.self_attn(y, y, y, key_valid, rng=rng)),
-                (self.sub1, lambda y: self.feed_forward(y, rng))]
+        return [(self.sub0, lambda y: self.self_attn(y, y, y, key_valid, rng=rng), rng),
+                (self.sub1, lambda y: self.feed_forward(y, rng), rng)]
 
 
 class DecoderLayer(nn.Module):
@@ -99,9 +111,9 @@ class DecoderLayer(nn.Module):
         (N, T) bool, or None for all) and cross-attention over the memory
         (B, S, D), one row per image for its N / B captions (``mem_valid`` (B,
         S) bool)."""
-        return [(self.sub0, lambda y: self.self_attn(y, y, y, tgt_valid, True, rng, attn_dropout)),
-                (self.sub1, lambda y: self.src_attn(y, memory, memory, mem_valid, False, rng, attn_dropout)),
-                (self.sub2, lambda y: self.feed_forward(y, rng))]
+        return [(self.sub0, lambda y: self.self_attn(y, y, y, tgt_valid, True, rng, attn_dropout), rng),
+                (self.sub1, lambda y: self.src_attn(y, memory, memory, mem_valid, False, rng, attn_dropout), rng),
+                (self.sub2, lambda y: self.feed_forward(y, rng), rng)]
 
     def decode_steps(self, layer_cache: Dict, cross: Dict, t: int, mem_mask, ancestry=None, rng=None) -> List[Step]:
         """One decode step's sublayers. layer_cache: {self_k, self_v} (written
@@ -109,10 +121,10 @@ class DecoderLayer(nn.Module):
         cross_v under kv); mem_mask: (B, S) bool;
         rng: the train-mode step stream (no attention-prob dropout here)."""
         return [(self.sub0, lambda y: self.self_attn.decode_self(
-                    y, layer_cache["self_k"], layer_cache.get("self_v"), t, ancestry)),
+                    y, layer_cache["self_k"], layer_cache.get("self_v"), t, ancestry), rng),
                 (self.sub1, lambda y: self.src_attn.decode_cross(
-                    y, cross["cross_k"], cross.get("cross_v"), mem_mask)),
-                (self.sub2, lambda y: self.feed_forward(y, rng))]
+                    y, cross["cross_k"], cross.get("cross_v"), mem_mask), rng),
+                (self.sub2, lambda y: self.feed_forward(y, rng), rng)]
 
 
 @register_model("transformer")
@@ -178,17 +190,14 @@ class Transformer(nn.Module, DropoutSite):
 
     def _train_rng(self, train: bool, rng):
         """``train_rng``, refusing what shared layers cannot do yet: the JAX
-        package draws a fresh supermask sample and fresh dropout for each
-        slot of a shared layer, and a ``KeyedStream`` keys dropout by the
-        module's site, which the slots share."""
+        package draws a fresh supermask sample for each slot of a shared
+        layer. (Fresh dropout per slot holds: a call-order source draws
+        anew at each call, a keyed stream under each slot's site.)"""
         rng = train_rng(train, rng)
         shared = any(len(set(plan)) < len(plan) for plan in self._plans())
         if rng is not None and shared and self.mask_cfg is not None and self.mask_cfg.is_supermask:
             raise NotImplementedError("a training supermask with share_layer (a fresh sample per slot) "
                                       "lands in a later slice")
-        if isinstance(rng, KeyedStream) and shared and self.dropout_rate > 0:
-            raise NotImplementedError("keyed dropout with share_layer (a site per slot, ACORT SCST) lands in a "
-                                      "later slice")
         return rng
 
     # ------------------------------------------------------ masked products
@@ -211,9 +220,9 @@ class Transformer(nn.Module, DropoutSite):
         rng = self._train_rng(train, rng)
         with torch.set_grad_enabled(train and torch.is_grad_enabled()), mask_set(self._encoder_masked(), rng):
             x = dropout(torch.relu(self.src_proj(att_feats, rng)), self.drop_prob_src, rng, self.site)
-            steps = [s for i in self.enc_plan
-                     for s in self.encoder_layers[i].steps((att_masks != 0).contiguous(), rng)]
-            return {"memory": prenorm_stack(x, steps, self.encoder_norm, rng), "mask": att_masks}
+            steps = [s for i, k in plan_slots(self.enc_plan)
+                     for s in self.encoder_layers[i].steps((att_masks != 0).contiguous(), slot_rng(rng, k))]
+            return {"memory": prenorm_stack(x, steps, self.encoder_norm), "mask": att_masks}
 
     # ----------------------------------------------------- XE teacher force
     def _decode_full(self, tgt, memory, mem_mask, rng=None, replay: bool = False):
@@ -225,9 +234,10 @@ class Transformer(nn.Module, DropoutSite):
         tgt_valid = None if replay else (tgt != self.pad_id).contiguous()
         mem_valid = (mem_mask != 0).contiguous()
         x = self.pos_enc(self.tgt_embed(tgt, rng), rng=rng)
-        steps = [s for i in self.dec_plan
-                 for s in self.decoder_layers[i].steps(memory, mem_valid, tgt_valid, rng, attn_dropout=not replay)]
-        return prenorm_stack(x, steps, self.decoder_norm, rng)
+        steps = [s for i, k in plan_slots(self.dec_plan)
+                 for s in self.decoder_layers[i].steps(memory, mem_valid, tgt_valid, slot_rng(rng, k),
+                                                       attn_dropout=not replay)]
+        return prenorm_stack(x, steps, self.decoder_norm)
 
     def forward(self, att_feats, att_masks, seqs, boxes=None, train: bool = False, rng=None):
         """XE log-probs (N, T-1, V) of seqs[:, 1:] (decoder input seqs[:, :-1]).
@@ -267,10 +277,10 @@ class Transformer(nn.Module, DropoutSite):
         t_max = int(max_steps or (self.max_seq_length + 1))
         dk = self.d_model // self.num_heads
         layers, cross, proj = [], [], {}
-        for i in self.dec_plan:
+        for i, k in plan_slots(self.dec_plan):
             layer = self.decoder_layers[i]
             if train:
-                ck, cv = layer.src_attn.project_memory_kv(memory, rng=rng)
+                ck, cv = layer.src_attn.project_memory_kv(memory, rng=slot_rng(rng, k))
             else:
                 if i not in proj:
                     proj[i] = layer.src_attn.project_memory_kv(memory)
@@ -302,9 +312,9 @@ class Transformer(nn.Module, DropoutSite):
         if ancestry is not None:
             ancestry = ancestry.clone()
             ancestry[:, :, t] = torch.arange(ancestry.shape[1], dtype=ancestry.dtype, device=ancestry.device)
-        steps = [s for j, i in enumerate(self.dec_plan) for s in self.decoder_layers[i].decode_steps(
-            cache["layers"][j], cache["static"]["cross"][j], t, mem_mask, ancestry, rng)]
-        logits = self.generator.logits(prenorm_stack(x, steps, self.decoder_norm, rng)[:, 0], rng)
+        steps = [s for j, (i, k) in enumerate(plan_slots(self.dec_plan)) for s in self.decoder_layers[i].decode_steps(
+            cache["layers"][j], cache["static"]["cross"][j], t, mem_mask, ancestry, slot_rng(rng, k))]
+        logits = self.generator.logits(prenorm_stack(x, steps, self.decoder_norm)[:, 0], rng)
         if train:
             logits = logits.float()
         new_cache = {"layers": cache["layers"], "static": cache["static"]}

@@ -18,7 +18,13 @@ place means eval.
   tensor at step t. Both give the same bits for the same (site, t, row,
   column), which is what makes the SCST teacher-forced replay equal the
   sampling decode. Sites are 32-bit ids from the module's qualified name
-  (``site_id``). Supermask draws are not keyed: ``mask_uniform`` raises.
+  (``site_id``). A layer that a ``share_layer`` plan calls at several slots
+  draws at each slot under a site of its own: ``stream.for_slot(k)`` views
+  the stream at slot k, whose draws use ``slot_site(site, k)`` (slot 0 and
+  every unshared layer keep the module's site), so the JAX package's fresh
+  dropout per call of a shared layer holds, and the decode and the replay
+  derive the same site for the same slot. Supermask draws are not keyed:
+  ``mask_uniform`` raises.
 
 Both divide a kept value by the keep probability rounded to its dtype, as
 the JAX package does (``ops/keep.py``).
@@ -63,6 +69,12 @@ def site_id(name: str) -> int:
     return zlib.crc32(name.encode())
 
 
+def slot_site(site: int, slot: int) -> int:
+    """The site of a module's draws at slot ``slot`` of a layer plan: the
+    module's own at slot 0, a 32-bit id derived from it and the slot after."""
+    return int(site) if slot == 0 else zlib.crc32(b"slot %d" % slot, int(site))
+
+
 def splitmix64(x: int) -> int:
     x = (x + 0x9E3779B97F4A7C15) & M64
     x = ((x ^ (x >> 30)) * 0xBF58476D1CE4E5B9) & M64
@@ -79,13 +91,18 @@ def derive_key(seed: int, *tags: int) -> int:
 
 
 class KeyedStream:
-    def __init__(self, key: int, t: Optional[int] = None):
+    def __init__(self, key: int, t: Optional[int] = None, slot: int = 0):
         self.key = int(key) & M64
         self.t = t
+        self.slot = int(slot)
 
     def at(self, t: int) -> "KeyedStream":
         """The step view at decode step ``t``."""
-        return KeyedStream(self.key, int(t))
+        return KeyedStream(self.key, int(t), self.slot)
+
+    def for_slot(self, slot: int) -> "KeyedStream":
+        """The view for the ``slot``-th call of a shared layer in one pass."""
+        return KeyedStream(self.key, self.t, slot)
 
     def _layout(self, shape):
         n, d = int(shape[0]), int(shape[-1])
@@ -94,11 +111,10 @@ class KeyedStream:
             raise ValueError(f"a step view draws (N, 1, D); got shape {tuple(shape)}")
         return n, tl, d, 0 if self.t is None else self.t
 
-    @staticmethod
-    def _site(site: Optional[int]) -> int:
+    def _site(self, site: Optional[int]) -> int:
         if site is None:
             raise ValueError("a keyed draw needs its dropout site id")
-        return int(site)
+        return slot_site(site, self.slot)
 
     def keep_mask(self, shape, keep_prob: float, device, site: Optional[int] = None) -> torch.Tensor:
         n, tl, d, t0 = self._layout(shape)
@@ -129,6 +145,13 @@ def decode_train_keys(seed: int) -> DecodeKeys:
     package's ``decoding/api.py decode_train_keys``). The SCST gradient pass
     derives the same dropout key to replay the decode."""
     return DecodeKeys(derive_key(seed, 1), derive_key(seed, 2), derive_key(seed, 3))
+
+
+def slot_rng(rng, slot: int):
+    """``rng`` as the layer at slot ``slot`` of a plan draws from it: a keyed
+    stream's slot view; call-order sources (``TrainRandom``) and eval's None
+    as they are."""
+    return rng.for_slot(slot) if isinstance(rng, KeyedStream) else rng
 
 
 def dropout(x: torch.Tensor, rate: float, rng, site: Optional[int] = None) -> torch.Tensor:

@@ -9,19 +9,32 @@ batch become a pack of tf-idf vectors, norms and lengths
 (``build_ref_pack``, ``scst_ref_pack``). OOV reference words get per-image
 ids above the vocabulary, so they never match a sampled token. Device half:
 ``make_reward_fn`` scores sampled ids in kernel K10
-(``kernels/cider_reward.py``), and ``leave_one_out_baseline`` is the
-sample-mean baseline.
+(``kernels/cider_reward.py``; ACORT's radix digits through its radix mode,
+which regroups them into words in the same launch), and
+``leave_one_out_baseline`` is the sample-mean baseline. ``DeviceReward``
+builds the scorer, df table and ref packs of a run from its tokenizer
+(``engine/training.py _init_device_reward`` and ``_scst_ref_pack`` of the
+JAX package, 261-331).
 """
 
 from __future__ import annotations
 
 import math
-from typing import Dict, List, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
-from sparse_caption_tpu_torch.kernels.cider_reward import N_GRAMS, PACK_KEYS, cider_reward
+from sparse_caption_tpu_torch.kernels.cider_reward import (
+    N_GRAMS,
+    PACK_KEYS,
+    WORD_BOS,
+    WORD_EOS,
+    WORD_PAD,
+    RadixSpec,
+    check_radix,
+    cider_reward,
+)
 from sparse_caption_tpu_torch.metrics.cider import load_df_pickle
 
 
@@ -185,14 +198,18 @@ def scst_ref_pack(gts: List[List[str]], df: Dict, table: DfTable, token_to_id: D
 
 # ------------------------------------------------------------ device scorer
 def make_reward_fn(table: DfTable, eos_id: int = 3, pad_id: int = 0, bos_id: int = 2, cider_weight: float = 1.0,
-                   bleu_weight: Sequence[float] = (0.0, 0.0, 0.0, 0.0), regroup=None):
+                   bleu_weight: Sequence[float] = (0.0, 0.0, 0.0, 0.0), regroup: Optional[RadixSpec] = None):
     """``score(ids (N, T) int32, img_idx (N,) int32, pack) -> (N,) f32``:
     CIDEr-D x 10 x ``cider_weight`` + BLEU-1..4 x ``bleu_weight`` on the
     ids' device (kernel K10 there, its plain version on the CPU); ``pack`` is
-    a ref pack on that device (``scst_ref_pack``). ``regroup`` (the radix
-    tokenizer's digit-to-word transform of ACORT) is not ported yet."""
+    a ref pack on that device (``scst_ref_pack``). ``regroup``: a
+    ``RadixSpec`` (base, tokens per word, word vocabulary size) when the ids
+    are ACORT's radix digits (the JAX package's ``make_radix_to_word_fn``);
+    eos / pad / bos then name the regrouped row's word ids (3 / 0 / 2)."""
     if regroup is not None:
-        raise NotImplementedError("the radix regroup (ACORT) lands in a later slice")
+        if not isinstance(regroup, RadixSpec):
+            raise TypeError(f"regroup takes a RadixSpec (base, tokens per word, word vocab size), got {regroup!r}")
+        regroup = check_radix(regroup)
     bleu_weight = tuple(float(w) for w in bleu_weight)
     assert len(bleu_weight) == N_GRAMS
     on_device: Dict[torch.device, DfTable] = {}
@@ -203,9 +220,52 @@ def make_reward_fn(table: DfTable, eos_id: int = 3, pad_id: int = 0, bos_id: int
             tbl = on_device[ids.device] = table.to(ids.device)
         return cider_reward(ids, img_idx, {"hi": tbl.hi, "lo": tbl.lo, "val": tbl.val}, pack, probe=tbl.probe,
                             ref_len=tbl.ref_len, eos_id=eos_id, pad_id=pad_id, bos_id=bos_id,
-                            cider_weight=cider_weight, bleu_weight=bleu_weight)
+                            cider_weight=cider_weight, bleu_weight=bleu_weight, radix=regroup)
 
     return score
+
+
+class DeviceReward:
+    """The device reward of a run (``--scst_reward device``): the df table,
+    the scorer and the batches' ref packs, built from the run's tokenizer,
+    its df (``load_df_pickle``) and its config, as the JAX package's
+    ``TrainingModule._init_device_reward`` / ``_scst_ref_pack`` do
+    (``engine/training.py:261-331``). Word and radix tokenizers only: the
+    scoring vocabulary is the WORD vocabulary, radix digits are regrouped
+    into word ids inside K10. ``fn`` is ``make_reward_fn``'s scorer."""
+
+    def __init__(self, tokenizer, df: Dict, ref_len: float, config):
+        from sparse_caption_tpu_torch.tokenizers.radix import RadixTokenizer
+        from sparse_caption_tpu_torch.tokenizers.word import WordTokenizer
+
+        is_radix = isinstance(tokenizer, RadixTokenizer)
+        assert type(tokenizer) is WordTokenizer or is_radix, (
+            "--scst_reward device requires word or radix tokenization (sampled ids are words / regroupable "
+            "digits); char/bpe captions score on decoded word strings -> use --scst_reward host")
+        self.df = df
+        self.tok2id = dict(tokenizer._token_to_id)
+        # private OOV ref ids must clear every (regrouped) WORD id
+        self.vocab_size = len(tokenizer.vocab)
+        self.table = DfTable.build(df, ref_len, self.tok2id)
+        regroup = None
+        eos, pad, bos = tokenizer.eos_token_id, tokenizer.pad_token_id, tokenizer.bos_token_id
+        if is_radix:
+            regroup = RadixSpec(tokenizer.radix_base, tokenizer.tokens_per_word, len(tokenizer.vocab))
+            eos, pad, bos = WORD_EOS, WORD_PAD, WORD_BOS  # regrouped ids use WORD conventions
+        self.regroup = regroup
+        self.fn = make_reward_fn(self.table, eos_id=eos, pad_id=pad, bos_id=bos,
+                                 cider_weight=float(config.get("scst_cider_weight", 1.0)),
+                                 bleu_weight=[float(x) for x in config.get("scst_bleu_weight", [0.0] * N_GRAMS)],
+                                 regroup=regroup)
+
+    @classmethod
+    def from_pickle(cls, tokenizer, df_path: str, config) -> "DeviceReward":
+        df, ref_len = load_df_pickle(df_path)
+        return cls(tokenizer, df, ref_len, config)
+
+    def ref_pack(self, gts: List[List[str]], device) -> Dict[str, torch.Tensor]:
+        """A batch's ref pack on ``device`` (``scst_ref_pack``)."""
+        return scst_ref_pack(gts, self.df, self.table, self.tok2id, self.vocab_size, device)
 
 
 def leave_one_out_baseline(sc: torch.Tensor, spi: int) -> torch.Tensor:

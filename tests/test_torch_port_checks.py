@@ -255,3 +255,39 @@ def test_f32_quantile_index_agrees_with_the_wrapper(n, q):
 
     lo, hi, lw, hw = chip_smoke.f32_quantile_index(n, q)
     assert (lo, hi, lw.item(), hw.item()) == quantile_index(n, q)
+
+
+@pytest.mark.parametrize("kv", [False, True])
+def test_dk32_bytes_count_the_shared_tensor_once(kv):
+    """The bounds of ACORT-small's instances: rows of 32 elements, and with the
+    one tensor as k and v (K14 / K15, K3's kv mode) that tensor read once
+    and, in K15, its one gradient written once. XE shape: 1280 captions of
+    26 positions over 256 images of 36 regions, bf16, 8 heads."""
+    n, b, t, r, h, dk = 1280, 256, 26, 36, 8, 32
+    rows14 = 2 * n * t + (1 if kv else 2) * b * r  # q, out; k and v (or the one tensor)
+    assert chip_smoke.k14_bytes(n, b, r, torch.bfloat16, tq=t, dk=dk, kv=kv) == \
+        rows14 * h * dk * 2 + n * h * t * r + b * r
+    rows15 = 3 * n * t + (2 if kv else 4) * b * r  # q, dO, dq; k, v, dk, dv (or the tensor and its gradient)
+    assert chip_smoke.k15_bytes(n, b, r, torch.bfloat16, tq=t, dk=dk, kv=kv) == \
+        rows15 * h * dk * 2 + n * h * t * r + b * r
+    assert chip_smoke.decoder_attention_flops(n, r, tq=t, dk=dk) == 4 * n * h * t * r * dk
+    assert chip_smoke.k3_bytes(2048, 5, torch.bfloat16, kv=kv, dk=dk) == \
+        ((1 if kv else 2) * 2048 * 36 + 2 * 2048 * 5) * h * dk * 2 + 2048 * 36
+
+
+def test_acort_scst_launches_by_hand():
+    """One ACORT SCST step's launches (6 slots, 25 sampled digits, dense,
+    the kv modes): the sampling encode and the replay's each run K1's train
+    variant once a slot, K7 once a slot, K2 and K3 once a slot and step, K6
+    13 a pass of the encoder and 19 of the decoder (each step of the 25, and
+    the replay), the keep-masks 3 a slot of every pass, the applied dropouts
+    (PE or the source projection, and one FFN a slot) of every pass and of
+    the replay's two backward passes, one sampling step a step, one reward."""
+    from sparse_caption_tpu_torch.kernels import KERNELS
+
+    counts = chip_smoke.acort_scst_launches(KERNELS)
+    want = dict(box_attention_train_kv=12, box_attention_bwd_kv=6, ancestry_self_attention_kv=150,
+                grouped_cross_attention_kv=150, add_ref_layernorm=13 + 25 * 19 + 13 + 19, add_ref_layernorm_bwd=32,
+                keyed_keep_mask=3 * 6 * 28, keyed_dropout=7 * 30, sample_step=25, cider_reward=1,
+                vocab_log_softmax=1, vocab_log_softmax_bwd=1, decoder_attention=12, decoder_attention_bwd=12)
+    assert {k: v for k, v in counts.items() if v} == want

@@ -446,7 +446,8 @@ def test_unported_scst_paths_raise(reward_setup):
                                                     mask_cfg=MaskConfig("supermask", 5.0, keep_masks=True))
     with pytest.raises(NotImplementedError, match="supermask SCST"):
         make_scst_step(model, None, None, CFG, None)
-    for fn in (make_scst_pipelined_step, make_scst_fused_step,
-               lambda: port_devr.make_reward_fn(None, regroup=lambda ids: ids)):
+    for fn in (make_scst_pipelined_step, make_scst_fused_step):
         with pytest.raises(NotImplementedError, match="later slice"):
             fn()
+    with pytest.raises(TypeError, match="RadixSpec"):  # the radix regroup is ported; it takes its spec, not a function
+        port_devr.make_reward_fn(None, regroup=lambda ids: ids)
