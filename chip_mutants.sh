@@ -5,9 +5,10 @@
 # log-softmax), K14 / K15 (the decoder attention, forward and backward), K3
 # (grouped cross-attention), K4 (beam log-softmax + top-K), K12 (additive
 # attention), K5 (the supermask sets), K2 (ancestry self-attention), K11 (the
-# LSTM cell), K16 (the magnitude threshold), the kv modes of K1, K7, K2 and
-# K3 (ACORT's kv-shared layers), the head width 32 instances (ACORT-small) and
-# K10's radix mode. Each mutant is a copy of the
+# LSTM cell), K16 (the magnitude threshold), the kv modes of K1, K7, K2, K3,
+# K14 and K15 (ACORT's kv-shared layers), the head width 32 instances
+# (ACORT-small), the head width 13 instances (ORT-xsmall) and K10's radix
+# mode. Each mutant is a copy of the
 # port under build/mutants/<name>/ with sed edits to one CUDA source (or,
 # with run_mutant_cmd, any shell edit run in its csrc/, the wrappers beside
 # it included), reusing the unmutated
@@ -23,8 +24,8 @@
 # check_kernels, for K11 check_updown_kernels, for K16
 # check_magnitude_kernels, for the kv modes check_acort_kernels (each kv mode
 # against its plain version and bit-equal to the unshared kernel given the
-# one tensor twice), for the dk 32 instances check_acort_small_kernels and
-# for K10's radix mode check_radix_reward (bit-equal to the word mode on the
+# one tensor twice), for the dk 32 instances check_acort_small_kernels, for
+# the dk 13 instances check_xsmall_kernels and for K10's radix mode check_radix_reward (bit-equal to the word mode on the
 # plain regroup's words), all without their timings. A mutant whose checks
 # pass is one they cannot see; each verdict line ends "caught" (a kernel that
 # raises is caught too) or "checks pass", and the last line counts the
@@ -36,8 +37,9 @@
 # points that remain in f32 arithmetic. K14 and K15 share their scores and
 # softmax (decoder_attention.cuh), so a mutant there moves both: the
 # dropout quotient left unrounded shows only in K15's dP (K14 packs P~ to
-# bf16 either way), and the score's rounding before its exact 1/8 scaling
-# is no rounding point at all, so that mutant leaves the score unrounded.
+# bf16 either way), and the score's rounding before its division by
+# sqrt(dk) (exact at dk 64: by 8) is no rounding point there, so that mutant
+# leaves the score and its quotient unrounded.
 #
 #     bash chip_mutants.sh          # on a machine with one H100, from the repo root
 #     bash chip_mutants.sh 'k2_|k16_'   # only the mutants whose names match the regex
@@ -58,6 +60,7 @@ K16="c.check_magnitude_kernels(g, results, timing=False)"
 KV="c.check_acort_kernels(g, dt, results, timing=False)"
 K32="c.check_acort_small_kernels(g, dt, results, timing=False)"
 K10R="c.check_radix_reward(results, timing=False)"
+K13W="c.check_xsmall_kernels(g, dt, results, timing=False)"
 ONLY=${1:-}
 picked() { [[ -z "$ONLY" || $1 =~ $ONLY ]]; }
 run_mutant() {  # name file sed-expression dtypes checks
@@ -68,7 +71,7 @@ run_mutant() {  # name file sed-expression dtypes checks
   if cmp -s "sparse_caption_tpu_torch/kernels/csrc/$file" "$dir/sparse_caption_tpu_torch/kernels/csrc/$file"; then
     echo "[mutant] $name: sed changed nothing" | tee -a "$VERDICTS"; return
   fi
-  echo "[mutant] $name: $(diff "sparse_caption_tpu_torch/kernels/csrc/$file" "$dir/sparse_caption_tpu_torch/kernels/csrc/$file" | grep '^>' | head -2 | tr '\n' ' ')"
+  echo "[mutant] $name: $(diff "sparse_caption_tpu_torch/kernels/csrc/$file" "$dir/sparse_caption_tpu_torch/kernels/csrc/$file" | grep '^>' | head -2 | tr '\n' ' ')" | tee -a "$VERDICTS"
   check_mutant "$name" "$4" "$5"
 }
 run_mutant_cmd() {  # name shell-command (run in the mutant's csrc/) dtypes checks
@@ -79,7 +82,7 @@ run_mutant_cmd() {  # name shell-command (run in the mutant's csrc/) dtypes chec
   if diff -rq -x __pycache__ sparse_caption_tpu_torch "$dir/sparse_caption_tpu_torch" > /dev/null; then
     echo "[mutant] $name: the edit changed nothing" | tee -a "$VERDICTS"; return
   fi
-  echo "[mutant] $name: $(diff -r -x __pycache__ sparse_caption_tpu_torch "$dir/sparse_caption_tpu_torch" | grep '^>' | head -2 | tr '\n' ' ')"
+  echo "[mutant] $name: $(diff -r -x __pycache__ sparse_caption_tpu_torch "$dir/sparse_caption_tpu_torch" | grep '^>' | head -2 | tr '\n' ' ')" | tee -a "$VERDICTS"
   check_mutant "$name" "$3" "$4"
 }
 prepare() {  # a copy of the port and of the built libraries under build/mutants/<name>/
@@ -102,7 +105,7 @@ for dt in ($dtypes):
     except RuntimeError as e:  # a kernel that fails to launch or faults fails chip_smoke.py too
         verdict = 'caught (raised: ' + str(e).splitlines()[0][:120] + ')'
     print('[mutant] $name', str(dt).split('.')[-1], verdict, flush=True)
-" 2>&1 | grep -E "^\[mutant\]|FAIL|MISSED|Error|error" | head -40) | tee -a "$VERDICTS"
+" 2>&1 | grep -E "^\[mutant\]|FAIL|MISSED|Error|error" | awk '/^\[mutant\]/ || n++ < 40') | tee -a "$VERDICTS"
 }
 run_mutant bias_dropped box_attention.cu 's/if (row < R) s = round_to<bf16>(s + __bfloat162float(bias_h\[row \* R + j\]));/;/; s/s\[c\] += bias_h\[i \* R + j\];/;/' "torch.float32, torch.bfloat16" "$K17"
 run_mutant logbias_unrounded box_attention_bwd.cu 's/round_to<bf16>(logf(__bfloat162float(wz\[row \* R + j\])))/logf(__bfloat162float(wz[row * R + j]))/' "torch.bfloat16," "$K17"
@@ -135,7 +138,7 @@ run_mutant k12_tanh_input_unrounded additive_attention.cu 's/const uint32_t tr =
 run_mutant k12_mask_ignored_in_renorm additive_attention.cu 's/const float q0 = in0 \&\& mask_b\[lane\] ? p0 : 0.f;/const float q0 = in0 ? p0 : 0.f;/; s/const float q1 = in1 \&\& mask_b\[lane + 32\] ? p1 : 0.f;/const float q1 = in1 ? p1 : 0.f;/' "torch.float32, torch.bfloat16" "$K12"
 run_mutant k12_last_region_skipped additive_attention.cu 's/for (int r = 0; r < R; ++r) {  \/\/ the weighted sum over regions/for (int r = 0; r < R - 1; ++r) {  \/\/ the weighted sum over regions/' "torch.float32, torch.bfloat16" "$K12"
 run_mutant k12_tanh_table_left_out_of_smem_check additive_attention.cu 's/ + sizeof(unsigned short) \* kTanhEntries;/;/' "torch.bfloat16," "$K12"
-run_mutant k14_score_unrounded decoder_attention.cuh 's/? round_to<bf16>(round_to<bf16>(sacc\[nt\]\[e\]) \* scale)/? sacc[nt][e] * scale/' "torch.bfloat16," "$K14"
+run_mutant k14_score_unrounded decoder_attention.cuh 's/? round_to<bf16>(div_score(round_to<bf16>(sacc\[nt\]\[e\]), sqrt_dk))/? div_score(sacc[nt][e], sqrt_dk)/' "torch.bfloat16," "$K14"
 run_mutant k14_padding_keys_filled decoder_attention.cuh 's/      float s = -INFINITY;/      float s = fill;/' "torch.bfloat16," "$K14"
 run_mutant k14_dropout_quotient_unrounded decoder_attention.cuh 's/!dropout ? x : round_to<bf16>(div_by(x, keep_prob, inv_kp));/!dropout ? x : div_by(x, keep_prob, inv_kp);/' "torch.bfloat16," "$K14"
 run_mutant k14_last_member_skipped decoder_attention.cu 's/    live\[r\] = sr < rows;/    live[r] = sr < rows - Tq;/' "torch.bfloat16," "$K14"
@@ -154,9 +157,14 @@ run_mutant k7_kv_dkv_summed_in_f32 box_attention_bwd.cu 's/kacc\[nt\]\[e\] = rou
 run_mutant k1_kv_v_from_q_tile box_attention.cu 's/(which < NT ? which : 1)/(which < NT ? which : 0)/' "torch.bfloat16," "$KV"
 run_mutant k10_radix_tail_filled_with_0 cider_reward.cu 's/      if (k > 0) {  \/\/ the short tail/      if (false) {  \/\/ the short tail/' "torch.float32," "$K10R"
 run_mutant k10_radix_bos_kept cider_reward.cu 's/if (d == 0 || d == bos_r) continue;/if (d == 0) continue;/' "torch.float32," "$K10R"
-run_mutant k1_dk32_q_rows_strided_by_64 box_attention.cu 's/(q_s + i \* DK + d);  \/\/ broadcast/(q_s + i * 64 + d);  \/\/ broadcast/' "torch.float32," "$K32"
-run_mutant k2_dk32_lane_pairs ancestry_self_attention.cu 's/constexpr int PL = DK \/ 32;  \/\/ dims a lane holds/constexpr int PL = 2;  \/\/ dims a lane holds/' "torch.float32, torch.bfloat16" "$K32"
-# a mutant is caught when every verdict line it printed says so
-awk '/^\[mutant\] [^ :]+ [a-z0-9]+ / { n[$2]++; if ($0 ~ / caught/) c[$2]++ }
+run_mutant k1_dk32_q_rows_strided_by_64 box_attention.cu 's/(q_s + i \* DP + d);  \/\/ broadcast/(q_s + i * 64 + d);  \/\/ broadcast/' "torch.float32," "$K32"
+run_mutant k2_dk32_lane_pairs ancestry_self_attention.cu 's/constexpr int PL = kLaneDims<DK>;  \/\/ dims a lane holds/constexpr int PL = 2;  \/\/ dims a lane holds/' "torch.float32, torch.bfloat16" "$K32"
+run_mutant dk13_pad_columns_unzeroed common.cuh 's/  return c < DK ? src\[c\] : from_f<T>(0.f);/  return src[c];/' "torch.float32, torch.bfloat16" "$K13W"
+run_mutant k15_kv_dkv_summed_before_rounding decoder_attention_bwd.cu 's/tot\[nt\]\[e\] = round_to<bf16>(round_to<bf16>(tot\[nt\]\[e\]) + round_to<bf16>(tv\[nt\]\[e\]));/tot[nt][e] = tot[nt][e] + tv[nt][e];/' "torch.bfloat16," "$KV"
+run_mutant k14_kv_v_through_second_pointer decoder_attention.cu 's/decoder_attention_entry(dtype, dk, q, kv, nullptr, key_valid,/decoder_attention_entry(dtype, dk, q, kv, q, key_valid,/' "torch.float32, torch.bfloat16" "$KV"
+# a mutant is caught when it printed a verdict line and every one says so
+awk '/^\[mutant\] [^ ]+: / { name = $2; sub(":", "", name); seen[name] = 1 }
+     /^\[mutant\] [^ :]+ [a-z0-9]+ / { seen[$2] = 1; n[$2]++; if ($0 ~ / caught/) c[$2]++ }
      /^\[mutant\] [^ ]+: (sed changed nothing|the edit)/ { name = $2; sub(":", "", name); n[name]++ }
-     END { t = 0; k = 0; for (m in n) { t++; if (c[m] == n[m]) k++ } print "[mutants] " k " of " t " caught" }' "$VERDICTS"
+     END { t = 0; k = 0; for (m in seen) { t++; if (n[m] > 0 && c[m] == n[m]) k++ }
+           print "[mutants] " k " of " t " caught" }' "$VERDICTS"

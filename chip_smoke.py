@@ -107,10 +107,24 @@ Phases:
    2048, two captions decoded to words, the f32 batch-8 card-vs-CPU check;
    the dense XE step (noam, dropout on) in bf16 at 15 x 5 and 256 x 5 with
    the launch counts asserted (the kv modes of K1's train variant and K7,
-   K13 at V = 771, K14 / K15 with the one tensor as k and v) and a profile
+   K13 at V = 771, the kv modes of K14 / K15) and a profile
    at 256 x 5, the card-vs-CPU f32 step at 2 x 5; then a 2-layer qk-shared
    ORT's card-vs-CPU decode and step (the unshared kernels, q's projection
-   as k).
+   as k);
+8. ACORT-small (``run_acort_small_phase``, heads of 32): serving, XE and the
+   recipe's SCST stage (K10's radix mode), with their card-vs-CPU checks;
+9. ORT-xsmall (``run_ort_xsmall_phase``; ``commands_acort.sh:57-70``: d104 /
+   ff416, 8 heads of 13, word tokens, dense): beam-5 serving in bf16 at
+   batch 50 and 2048 and the dense XE step (noam, dropout 0.1 / 0.5, clip
+   0.1) in bf16 at 15 x 5 and 256 x 5, the launch counts asserted (the dk
+   13 instances of K1, K1 train, K7, K2, K3, K14 and K15), a profile at
+   2048, the f32 batch-8 card-vs-CPU decode and the card-vs-CPU f32 step
+   at 2 x 5; then the same two card-vs-CPU checks, untimed, for ORT-small
+   (d256, dk 32 unshared) and ACORT-base-AL (kv, one layer in all six
+   slots a side). Its kernel checks (``check_xsmall_kernels``: the dk 13
+   instances, unshared at ORT-xsmall's shapes and kv at ACORT's) run with
+   the others, and the K14 / K15 kv modes (``check_decoder_kv``: bit-equal
+   to the unshared kernels given the tensor twice) at dk 64, 32 and 13.
 
 The ORT XE and SCST steps run the decoder's full-sequence attention through
 K14/K15 (12 + 12 launches per step, asserted), and the plain
@@ -188,7 +202,7 @@ K11_SHARE_LIMIT, K11_FAR_LIMIT = 0.01, 1e-4
 # an f32 rounding of the sum is several bf16 ulps of the element)
 K6_SHARE_LIMIT, K6_FAR_LIMIT = 0.01, 1e-4
 K13_SHARE_LIMIT, K13_FAR_LIMIT = 0.01, 1e-4
-K6_OFF_WIDTHS, K13_OFF_WIDTHS, OFF_ROWS = (37, 500), (37, 9999), 333  # scalar paths and vector tails
+K6_OFF_WIDTHS, K13_OFF_WIDTHS, OFF_ROWS = (37, 104, 500), (37, 9999), 333  # scalar paths, vector tails, ORT-xsmall
 # K4's raw log-probs in bf16 against torch.log_softmax at the kernel's
 # indices, and its values where no penalty touched either side's entry, bit
 # by bit with K13's limits (the log-prob is K13's computation). Ties go to the
@@ -242,6 +256,9 @@ ACORT_MODES = (
     ("beam_topk V=771", "beam_topk", ("beam_topk",), "sparse_caption_tpu/models/layers.py:458"),
     ("vocab_log_softmax V=771", "vocab_log_softmax", ("vocab_log_softmax", "vocab_log_softmax_bwd"),
      "sparse_caption_tpu/models/layers.py:465"),
+    ("decoder_attention kv", "decoder_attention", ("decoder_attention_kv",), "sparse_caption_tpu/models/layers.py:205"),
+    ("decoder_attention_bwd kv", "decoder_attention_bwd", ("decoder_attention_bwd_kv",),
+     "sparse_caption_tpu/models/layers.py:205"),
 )
 # the supermask XE train step (bench.py:230-292): 15 images x 5 captions of 18
 # tokens, and the throughput point at 256 images; supermask logits start at 5.0
@@ -344,12 +361,46 @@ ACORT_SMALL_MODES = (
      "sparse_caption_tpu/models/layers.py:296"),
     ("grouped_cross_attention kv dk32", "grouped_cross_attention", ("grouped_cross_attention_kv",),
      "sparse_caption_tpu/models/layers.py:244"),
-    ("decoder_attention dk32", "decoder_attention", ("decoder_attention",), "sparse_caption_tpu/models/layers.py:158"),
-    ("decoder_attention_bwd dk32", "decoder_attention_bwd", ("decoder_attention_bwd",),
-     "sparse_caption_tpu/models/layers.py:158"),
+    ("decoder_attention kv dk32", "decoder_attention", ("decoder_attention_kv",),
+     "sparse_caption_tpu/models/layers.py:205"),
+    ("decoder_attention_bwd kv dk32", "decoder_attention_bwd", ("decoder_attention_bwd_kv",),
+     "sparse_caption_tpu/models/layers.py:205"),
     ("cider_reward radix", "cider_reward", ("cider_reward",), "sparse_caption_tpu/scst/device_reward.py:235"),
 )
 ACORT_SMALL_PATHS = ("acort_small_serve", "acort_small_train_step", "acort_small_scst_step")
+# ORT-xsmall (resources/commands_acort.sh:57-70, its speed test :129-141): the
+# recipe's smallest ORT baseline, a dense relation_transformer at d104 /
+# ff416, 8 heads of 13 (the kernels' padded dk 13 instances), 6 + 6 layers,
+# word tokens (vocab 10,000, 17 positions), 36 regions x 2048 features;
+# beam-5 serving and the dense XE step as the ORT's TRAIN_CONFIG (noam at
+# d104, dropout 0.1 / 0.5, clip 0.1). Nothing cut. Beside it, checked on the
+# card against the CPU and not timed: ORT-small (the same at d256 / ff1024,
+# dk 32 unshared) and ACORT-base-AL (:100-104: ACORT-base with one layer in
+# all six slots a side).
+ORT_XSMALL_FLAGS = dict(caption_model="relation_transformer", vocab_size=PAPER["vocab_size"], d_model=104,
+                        dim_feedforward=416, num_layers=PAPER["num_layers"], num_heads=HEADS,
+                        att_feat_size=PAPER["att_feat_size"], max_seq_length=MAX_LEN, pad_token_id=0, bos_token_id=2,
+                        eos_token_id=3)
+DK_XSMALL = ORT_XSMALL_FLAGS["d_model"] // ORT_XSMALL_FLAGS["num_heads"]
+ORT_XSMALL_CONFIG = dict(TRAIN_CONFIG, d_model=ORT_XSMALL_FLAGS["d_model"], caption_model="relation_transformer")
+ORT_SMALL_FLAGS = dict(ORT_XSMALL_FLAGS, d_model=256, dim_feedforward=1024)
+ORT_SMALL_CONFIG = dict(ORT_XSMALL_CONFIG, d_model=ORT_SMALL_FLAGS["d_model"])
+ACORT_BASE_AL_FLAGS = dict(ACORT_FLAGS, share_layer_encoder="(0, 0, 0, 0, 0, 0)",
+                           share_layer_decoder="(0, 0, 0, 0, 0, 0)")
+# the dk 13 rows of the kernels line (ORT-xsmall's instances, unshared): (name, library, entry points, JAX site)
+XSMALL_MODES = (
+    ("box_attention dk13", "box_attention", ("box_attention", "box_attention_train"),
+     "sparse_caption_tpu/models/layers.py:406"),
+    ("box_attention_bwd dk13", "box_attention_bwd", ("box_attention_bwd",), "sparse_caption_tpu/models/layers.py:406"),
+    ("ancestry_self_attention dk13", "ancestry_self_attention", ("ancestry_self_attention",),
+     "sparse_caption_tpu/models/layers.py:280"),
+    ("grouped_cross_attention dk13", "grouped_cross_attention", ("grouped_cross_attention",),
+     "sparse_caption_tpu/models/layers.py:236"),
+    ("decoder_attention dk13", "decoder_attention", ("decoder_attention",), "sparse_caption_tpu/models/layers.py:158"),
+    ("decoder_attention_bwd dk13", "decoder_attention_bwd", ("decoder_attention_bwd",),
+     "sparse_caption_tpu/models/layers.py:158"),
+)
+XSMALL_PATHS = ("ort_xsmall_serve", "ort_xsmall_train_step")
 
 
 def log(msg: str) -> None:
@@ -1275,16 +1326,16 @@ def check_acort_kernels(gen, dtype, results: dict, timing: bool = True) -> bool:
     against the wrapper's; each with a planted fault. K4 at V = 771 (the
     radix vocabulary: not whole 16-byte vectors, eos 770, unk 1, a digit) and
     K13 at V = 771 over the XE rows, as in check_kernels and
-    check_norm_softmax_kernels; K14 / K15 at ACORT's XE shape (26 positions:
-    two 16-row tiles, the second part padding) with the one tensor as k and
-    v. With `timing`, the bf16 times: each kv mode, the unshared kernel on
-    the tensor passed twice, the plain version and one library call, in held
-    turns, beside the bound with the shared rows counted once."""
+    check_norm_softmax_kernels; K14 / K15's kv modes at ACORT's XE shape (26
+    positions: two 16-row tiles, the second part padding) by
+    `check_decoder_kv`. With `timing`, the bf16 times: each kv mode, the
+    unshared kernel on the tensor passed twice, the plain version and one
+    library call, in held turns, beside the bound with the shared rows
+    counted once."""
     from sparse_caption_tpu_torch.kernels import ancestry_self_attention as k2
     from sparse_caption_tpu_torch.kernels import beam_topk as k4
     from sparse_caption_tpu_torch.kernels import box_attention as k1
     from sparse_caption_tpu_torch.kernels import box_attention_bwd as k7
-    from sparse_caption_tpu_torch.kernels import decoder_attention as k14
     from sparse_caption_tpu_torch.kernels import grouped_cross_attention as k3
     from sparse_caption_tpu_torch.kernels import vocab_log_softmax as k13
     from sparse_caption_tpu_torch.ops.attention import NEG_INF, box_relational_embedding
@@ -1483,29 +1534,8 @@ def check_acort_kernels(gen, dtype, results: dict, timing: bool = True) -> bool:
            flops((dtype, 4 * n * h * r * dk)), "SDPA, the memory as K and V")
     del q, mem, out3, ref3, qg
 
-    # K14 / K15 at ACORT's XE shape, the one tensor as k and v (autograd adds the two gradients)
-    tq, bx = ACORT_LEN, TRAIN_BIG_BATCH
-    for kind in ("self", "cross"):
-        nx = bx * SEQ_PER_IMG
-        nk, tk = (nx, tq) if kind == "self" else (bx, r)
-        qx, kvx, dox = rnd(nx, h, tq, dk), rnd(nk, h, tk, dk), rnd(nx, h, tq, dk)
-        if kind == "self":
-            valid = torch.arange(tq, device=dev)[None] < torch.randint(2, tq + 1, (nx, 1), generator=gen, device=dev)
-        else:
-            valid = random_region_mask(gen, bx, r, dev)
-        keep = torch.rand(nx, h, tq, tk, generator=gen, device=dev) < 0.9
-
-        (ko,), kgx = fwd_bwd(lambda a_, b_: k14.decoder_attention(a_, b_, b_, valid, kind == "self", keep, 0.9),
-                             leaves(qx, kvx), dox)
-        (po,), pgx = fwd_bwd(lambda a_, b_: k14.decoder_attention_plain(a_, b_, b_, valid, kind == "self", keep, 0.9),
-                             leaves(qx, kvx), dox)
-        compare(f"decoder_attention kv {kind} T={tq}", ko, po, rms(kvx))
-        compare(f"decoder_attention_bwd kv {kind} T={tq} dq", kgx[0], pgx[0], pgx[0].float().abs().max().item())
-        compare(f"decoder_attention_bwd kv {kind} T={tq} dkv", kgx[1], pgx[1], pgx[1].float().abs().max().item())
-        bits(f"decoder_attention kv {kind} T={tq} out", ko, po, K14_SHARE_LIMIT, K14_FAR_LIMIT)
-        bits(f"decoder_attention_bwd kv {kind} T={tq} dq", kgx[0], pgx[0], K15_SHARE_LIMIT, K15_FAR_LIMIT)
-        bits(f"decoder_attention_bwd kv {kind} T={tq} dkv", kgx[1], pgx[1], K15_SHARE_LIMIT, K15_FAR_LIMIT)
-        del qx, kvx, dox, keep, ko, kgx, po, pgx
+    # K14 / K15's kv modes at ACORT's XE shape
+    ok &= check_decoder_kv(gen, dtype, results, dk, timing)
 
     # K4 at V = 771 (the radix vocabulary), every constraint on, eos 770 and unk 1 (a digit)
     logits = rnd(n, vocab)
@@ -1560,18 +1590,21 @@ def check_acort_kernels(gen, dtype, results: dict, timing: bool = True) -> bool:
     return ok
 
 
-def check_acort_small_kernels(gen, dtype, results: dict, timing: bool = True) -> bool:
-    """Head width 32 (ACORT-small's and ORT-small's d256 over 8 heads): K1
-    (eval and train variant), K7, K2, K3, K14 and K15 at dk 32, unshared and
-    in their kv modes (K14 / K15: k and v apart, and the one tensor as both),
-    against their plain versions at ACORT-small's shapes (serving: B = 2048
-    images x beam 5, 36 regions, a 26-slot cache; XE: 256 x 5 captions of 26
+def check_width_kernels(gen, dtype, results: dict, dk: int, positions: dict, timed_kv: bool,
+                        timing: bool = True) -> bool:
+    """The attention kernels' head-width-`dk` instances: K1 (eval and train
+    variant), K7, K2, K3, K14 and K15, unshared and in their kv modes,
+    against their plain versions at the shapes of the models of that width
+    (serving: B = 2048 images x beam 5, 36 regions, a cache of
+    `positions[kv]` slots; XE: 256 x 5 captions of `positions[kv]`
     positions; the SCST group: 64 images x 15 samples), element-wise, and in
-    bf16 bit by bit (`rounding_share`), each with a planted fault; K3's, K14's
-    and K15's shared memory at dk 32 against their wrappers'. With `timing`,
-    the bf16 times of ACORT-small's instances (the kv modes, K14 / K15 with
-    the one tensor): kernel, plain version and one library call (SDPA at dk
-    32), in held turns, beside the bound."""
+    bf16 bit by bit (`rounding_share`), each with a planted fault; K14 /
+    K15's kv modes at ACORT's XE shape by `check_decoder_kv`; K3's, K14's and
+    K15's shared memory at `dk` against their wrappers'. With `timing`, the
+    bf16 times of the instances the width's main path runs (`timed_kv`: the
+    kv modes, else the unshared kernels): kernel, plain version and one
+    library call (SDPA at `dk`), in held turns, beside the bound; the rows
+    are named "<kernel>[ kv] dk<dk>"."""
     from sparse_caption_tpu_torch.kernels import ancestry_self_attention as k2
     from sparse_caption_tpu_torch.kernels import box_attention as k1
     from sparse_caption_tpu_torch.kernels import box_attention_bwd as k7
@@ -1582,8 +1615,7 @@ def check_acort_small_kernels(gen, dtype, results: dict, timing: bool = True) ->
     dev = torch.device("cuda")
     es = ESIZE[dtype]
     dname = str(dtype).split(".")[-1]
-    b, n, r, h, dk = BIG_BATCH, BIG_BATCH * BEAM, REGIONS, HEADS, DK_SMALL
-    t_max = ACORT_LEN
+    b, n, r, h = BIG_BATCH, BIG_BATCH * BEAM, REGIONS, HEADS
     rnd = lambda *shape: torch.randn(*shape, generator=gen, device=dev).to(dtype)  # noqa: E731
     turns = turns_ms if timing else no_turns
     ok = True
@@ -1605,8 +1637,11 @@ def check_acort_small_kernels(gen, dtype, results: dict, timing: bool = True) ->
         if dtype == torch.bfloat16:
             ok &= rounding_share(f"{name} dk{dk}", out, ref, share, far)
 
+    def timed(kv, name):  # the kernels-line row of this instance, if it is one
+        return timing and kv == timed_kv and f"{name}{' kv' if kv else ''} dk{dk}"
+
     def record(key, err, times, nbytes, ops, lib_note):
-        if not timing:
+        if not key:
             return
         ms, plain_ms, lib_ms = times
         bnd, by = bound_ms(nbytes, ops)
@@ -1616,7 +1651,7 @@ def check_acort_small_kernels(gen, dtype, results: dict, timing: bool = True) ->
             results[key] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bnd,
                                 bound_by=by)
 
-    # K1 at ACORT-small serving, unshared (ORT-small) and kv (ACORT-small)
+    # K1 at serving, unshared and kv
     boxes = random_boxes(gen, b, r, dev)
     wg_w, wg_b = bounded_wg(gen, h, dtype)
     mask = random_region_mask(gen, b, r, dev)
@@ -1629,14 +1664,16 @@ def check_acort_small_kernels(gen, dtype, results: dict, timing: bool = True) ->
         err = compare(tag, out, ref, rms(k if kv else v),
                       fault=k1.box_attention_plain(q, k, q, boxes, wg_w, wg_b, mask))  # V read from another tensor
         bits(f"{tag} out", out, ref, K1_SHARE_LIMIT, K1_FAR_LIMIT)
-        if kv:
+        key = timed(kv, "box_attention")
+        if key:
             bias = k1.box_log_bias_plain(boxes, wg_w, wg_b, dtype)
             float_mask = bias.masked_fill(~mask[:, None, None, :], NEG_INF).to(dtype).contiguous()
-            record("box_attention kv dk32", err,
-                   turns(lambda: k1.box_attention(q, k, None, boxes, wg_w, wg_b, mask),
-                         lambda: k1.box_attention_plain(q, k, None, boxes, wg_w, wg_b, mask),
-                         lambda: F.scaled_dot_product_attention(q, k, k, attn_mask=float_mask)),
-                   3 * b * h * r * dk * es + b * r * 4 * 4 + b * r + h * 65 * es,
+            vt = k if kv else v
+            record(key, err,
+                   turns(lambda: k1.box_attention(q, k, v_in, boxes, wg_w, wg_b, mask),
+                         lambda: k1.box_attention_plain(q, k, v_in, boxes, wg_w, wg_b, mask),
+                         lambda: F.scaled_dot_product_attention(q, k, vt, attn_mask=float_mask)),
+                   (3 if kv else 4) * b * h * r * dk * es + b * r * 4 * 4 + b * r + h * 65 * es,
                    flops((dtype, 4 * b * h * r * r * dk), (torch.float32, 2 * b * r * r * 64 * h)),
                    "SDPA, float bias given")
             del bias, float_mask
@@ -1670,34 +1707,39 @@ def check_acort_small_kernels(gen, dtype, results: dict, timing: bool = True) ->
             if not nm.startswith("d wg"):
                 bits(f"{tag} {nm}", kg[i], pg[i], K7_SHARE_LIMIT, K7_FAR_LIMIT)
         bits(f"{tag} train fwd", kout, pout, K1_SHARE_LIMIT, K1_FAR_LIMIT)
-        if kv:
+        key = timed(kv, "box_attention_bwd")
+        if key:
             geo = box_relational_embedding(boxes)
             log_bias = torch.log(torch.clamp(torch.relu(F.linear(geo.to(dtype), wg_w, wg_b)), min=1e-6))
             float_mask = log_bias.permute(0, 3, 1, 2).masked_fill(~mask[:, None, None, :], NEG_INF).to(dtype)
             graphs = []
             for fn in (k7.box_attention_train, k1.box_attention_plain):
-                ins = leaves(q, k, wg_w, wg_b)
-                graphs.append((fn(ins[0], ins[1], None, boxes, ins[2], ins[3], mask, keep, 0.9), ins))
-            ins_l = leaves(q, k)
-            graphs.append((F.scaled_dot_product_attention(ins_l[0], ins_l[1], ins_l[1],
+                ins = leaves(q, k, wg_w, wg_b) if kv else leaves(q, k, wg_w, wg_b, v)
+                graphs.append((fn(ins[0], ins[1], None if kv else ins[4], boxes, ins[2], ins[3], mask, keep, 0.9),
+                               ins))
+            ins_l = leaves(q, k) if kv else leaves(q, k, v)
+            graphs.append((F.scaled_dot_product_attention(ins_l[0], ins_l[1], ins_l[1] if kv else ins_l[2],
                                                           attn_mask=float_mask.contiguous()), ins_l))
-            record("box_attention_bwd kv dk32", err,
+            record(key, err,
                    turns(*(lambda o=o, i=i: torch.autograd.grad(o, i, dout, retain_graph=True) for o, i in graphs)),
-                   5 * bt * h * r * dk * es + bt * h * r * r + bt * r * 16 + bt * r + 2 * h * 65 * es,
+                   (5 if kv else 7) * bt * h * r * dk * es + bt * h * r * r + bt * r * 16 + bt * r + 2 * h * 65 * es,
                    flops((dtype, 5 * 2 * bt * h * r * r * dk), (torch.float32, 2 * 2 * bt * r * r * 64 * h)),
                    "SDPA backward, float bias given")
-            if timing and dtype == torch.bfloat16:
+            if dtype == torch.bfloat16:
                 with torch.no_grad():
-                    fwd = turns_ms(lambda: k7.box_attention_train(q, k, None, boxes, wg_w, wg_b, mask, keep, 0.9))
-                results["box_attention_bwd kv dk32"].update(train_fwd_ms=fwd[0])
-                log(f"[kernel] box_attention train kv dk32 fwd {dname}: ms={fwd[0]:.4f} (held windows)")
+                    fwd = turns_ms(lambda: k7.box_attention_train(q, k, None if kv else v, boxes, wg_w, wg_b, mask,
+                                                                  keep, 0.9))
+                results[key].update(train_fwd_ms=fwd[0])
+                log(f"[kernel] box_attention train{' kv' if kv else ''} dk{dk} fwd {dname}: ms={fwd[0]:.4f} "
+                    f"(held windows)")
             del graphs, ins_l, float_mask, log_bias, geo
         del q, k, v, dout, kg, pg, fg
     del keep
 
-    # K2 at ACORT-small serving's cache: steps 5 and 25 of 26, unshared and kv
-    anc = torch.randint(0, BEAM, (b, BEAM, t_max), generator=gen, device=dev, dtype=torch.int32)
+    # K2 at serving's cache: steps 5 and the last, unshared and kv
     for kv in (False, True):
+        t_max = positions[kv]
+        anc = torch.randint(0, BEAM, (b, BEAM, t_max), generator=gen, device=dev, dtype=torch.int32)
         q, ck, cv = rnd(n, h, dk), rnd(n, h, t_max, dk), rnd(n, h, t_max, dk)
         cv_in, tag = (None, "ancestry_self_attention kv") if kv else (cv, "ancestry_self_attention")
         for step in (5, t_max - 1):
@@ -1708,22 +1750,25 @@ def check_acort_small_kernels(gen, dtype, results: dict, timing: bool = True) ->
             err = compare(f"{tag} t={step}", out2, ref2, rms(ck if kv else cv),
                           fault=k2.ancestry_self_attention_plain(q, ck, cv_in, None, step))  # ancestry ignored
             bits(f"{tag} t={step} out", out2, ref2, K2_SHARE_LIMIT, K2_FAR_LIMIT)
-        if kv:
+        key = timed(kv, "ancestry_self_attention")
+        if key:
             rows = (anc_t.long() + torch.arange(b, device=dev)[:, None, None] * BEAM).reshape(n, t_max)
             slots = torch.arange(t_max, device=dev)
             kg_ = ck.transpose(1, 2)[rows, slots].transpose(1, 2).contiguous()  # the physically reordered cache
+            vg_ = kg_ if kv else cv.transpose(1, 2)[rows, slots].transpose(1, 2).contiguous()
             touched = torch.unique(rows * t_max + slots).numel()
             q4 = q[:, :, None]
-            record("ancestry_self_attention kv dk32", err,
-                   turns(lambda: k2.ancestry_self_attention(q, ck, None, anc_t, t_max - 1),
-                         lambda: k2.ancestry_self_attention_plain(q, ck, None, anc_t, t_max - 1),
-                         lambda: F.scaled_dot_product_attention(q4, kg_, kg_)),
-                   touched * h * dk * es + 2 * n * h * dk * es + n * t_max * 4,
-                   flops((dtype, 4 * n * h * t_max * dk)), "SDPA on the gathered cache as K and V")
-            del kg_, q4
+            record(key, err,
+                   turns(lambda: k2.ancestry_self_attention(q, ck, cv_in, anc_t, t_max - 1),
+                         lambda: k2.ancestry_self_attention_plain(q, ck, cv_in, anc_t, t_max - 1),
+                         lambda: F.scaled_dot_product_attention(q4, kg_, vg_)),
+                   (1 if kv else 2) * touched * h * dk * es + 2 * n * h * dk * es + n * t_max * 4,
+                   flops((dtype, 4 * n * h * t_max * dk)),
+                   f"SDPA on the gathered cache{' as K and V' if kv else ''}")
+            del kg_, vg_, q4
         del q, ck, cv
 
-    # K3 at ACORT-small serving and at the SCST sampling group (64 x 15), unshared and kv
+    # K3 at serving and at the SCST sampling group (64 x 15), unshared and kv
     for kv in (False, True):
         tag = "grouped_cross_attention kv" if kv else "grouped_cross_attention"
         for bx, rep_ in ((b, BEAM), (SCST_BATCHES[-1], SCST_SAMPLES)):
@@ -1735,16 +1780,18 @@ def check_acort_small_kernels(gen, dtype, results: dict, timing: bool = True) ->
             err = compare(f"{tag} {bx}x{rep_}", out3, ref3, rms(mk if kv else mv),
                           fault=k3.grouped_cross_attention_plain(q, mk, mv_in, torch.ones_like(valid)))
             bits(f"{tag} {bx}x{rep_} out", out3, ref3, K3_SHARE_LIMIT, K3_FAR_LIMIT)
-            if kv and bx == b:
+            key = timed(kv, "grouped_cross_attention")
+            if key and bx == b:
                 qg = q.reshape(b, BEAM, h, dk).transpose(1, 2)
                 cross_mask = torch.zeros(b, 1, 1, r, device=dev, dtype=dtype).masked_fill(~valid[:, None, None, :],
                                                                                          NEG_INF)
-                record("grouped_cross_attention kv dk32", err,
-                       turns(lambda: k3.grouped_cross_attention(q, mk, None, valid),
-                             lambda: k3.grouped_cross_attention_plain(q, mk, None, valid),
-                             lambda: F.scaled_dot_product_attention(qg, mk, mk, attn_mask=cross_mask)),
-                       k3_bytes(b, BEAM, dtype, kv=True, dk=dk), flops((dtype, 4 * n * h * r * dk)),
-                       "SDPA, the memory as K and V")
+                vt = mk if kv else mv
+                record(key, err,
+                       turns(lambda: k3.grouped_cross_attention(q, mk, mv_in, valid),
+                             lambda: k3.grouped_cross_attention_plain(q, mk, mv_in, valid),
+                             lambda: F.scaled_dot_product_attention(qg, mk, vt, attn_mask=cross_mask)),
+                       k3_bytes(b, BEAM, dtype, kv=kv, dk=dk), flops((dtype, 4 * n * h * r * dk)),
+                       f"SDPA, the memory{' as K and V' if kv else ''}")
                 del qg, cross_mask
             del q, mk, mv, out3, ref3
     if dtype == torch.bfloat16:
@@ -1753,27 +1800,28 @@ def check_acort_small_kernels(gen, dtype, results: dict, timing: bool = True) ->
                           [(dk, r, BEAM, 0), (dk, r, BEAM, 1), (dk, r, SCST_SAMPLES, 1), (dk, 64, 500, 0),
                            (dk, 64, 700, 1), (dk, r, 1400, 0)])
 
-    # K14 / K15 at ACORT-small's XE shape (256 x 5 captions of 26 positions, dropout 0.1) and at the
-    # SCST replay's (64 x 15 samples, causal-only self, no dropout); k and v apart, then the one tensor
-    tq = t_max
-    errs = {"fwd": 0.0, "bwd": 0.0}  # ACORT-small's XE calls (the one tensor as k and v), for the kernels line
+    # K14 / K15 with k and v apart at the XE shape (256 x 5 captions, dropout 0.1) and at the SCST replay's (64 x
+    # 15 samples, causal-only self, no dropout), then the kv modes at the replay's shape; the kv modes at the XE
+    # shape in check_decoder_kv
+    errs = {"fwd": 0.0, "bwd": 0.0}  # the XE calls with k and v apart, for the kernels line
     for bx, group, train in ((TRAIN_BIG_BATCH, SEQ_PER_IMG, True), (SCST_BATCHES[-1], SCST_SAMPLES, False)):
         nx = bx * group
-        for kind in ("self", "cross"):
-            nk, tk = (nx, tq) if kind == "self" else (bx, r)
-            if kind == "self":
-                valid = None if not train else (torch.arange(tq, device=dev)[None]
-                                                < torch.randint(2, tq + 1, (nx, 1), generator=gen, device=dev))
-            else:
-                valid = random_region_mask(gen, bx, r, dev)
-            keep = torch.rand(nx, h, tq, tk, generator=gen, device=dev) < 0.9 if train else None
-            for kv in (False, True):
+        for kv in ((False,) if train else (False, True)):
+            tq = positions[kv]
+            for kind in ("self", "cross"):
+                nk, tk = (nx, tq) if kind == "self" else (bx, r)
+                if kind == "self":
+                    valid = None if not train else (torch.arange(tq, device=dev)[None]
+                                                    < torch.randint(2, tq + 1, (nx, 1), generator=gen, device=dev))
+                else:
+                    valid = random_region_mask(gen, bx, r, dev)
+                keep = torch.rand(nx, h, tq, tk, generator=gen, device=dev) < 0.9 if train else None
                 qx, kx, vx, dox = rnd(nx, h, tq, dk), rnd(nk, h, tk, dk), rnd(nk, h, tk, dk), rnd(nx, h, tq, dk)
                 tag = f"decoder_attention{' kv' if kv else ''} {kind} {nx}x{tq}"
 
                 def run(fn, keep_=keep):
                     if kv:
-                        return fwd_bwd(lambda a_, b_: fn(a_, b_, b_, valid, kind == "self", keep_, 0.9),
+                        return fwd_bwd(lambda a_, b_: fn(a_, b_, None, valid, kind == "self", keep_, 0.9),
                                        leaves(qx, kx), dox)
                     return fwd_bwd(lambda a_, b_, c_: fn(a_, b_, c_, valid, kind == "self", keep_, 0.9),
                                    leaves(qx, kx, vx), dox)
@@ -1784,81 +1832,212 @@ def check_acort_small_kernels(gen, dtype, results: dict, timing: bool = True) ->
                 if train:
                     (fo,), _ = run(k14.decoder_attention_plain, None)
                 else:
-                    fo = k14.decoder_attention_plain(qx, kx, kx if kv else vx, None, False, None, 0.9)
+                    fo = k14.decoder_attention_plain(qx, kx, None if kv else vx, None, False, None, 0.9)
                 err = compare(tag, ko, po, rms(kx if kv else vx), fault=fo)
-                if kv and train:
+                if train:
                     errs["fwd"] = max(errs["fwd"], err)
                 for i, nm in enumerate(("dq", "dkv") if kv else ("dq", "dk", "dv")):
                     err = compare(f"{tag} {nm}", kgx[i], pgx[i], pgx[i].float().abs().max().item())
-                    if kv and train:
+                    if train:
                         errs["bwd"] = max(errs["bwd"], err)
                     bits(f"{tag} {nm}", kgx[i], pgx[i], K15_SHARE_LIMIT, K15_FAR_LIMIT)
                 bits(f"{tag} out", ko, po, K14_SHARE_LIMIT, K14_FAR_LIMIT)
                 del qx, kx, vx, dox, ko, kgx, po, pgx, fo
+    ok &= check_decoder_kv(gen, dtype, results, dk, timing=timing and timed_kv, key=f"decoder_attention kv dk{dk}")
     if dtype == torch.bfloat16:
+        tq, tqk = positions[False], positions[True]
         ok &= smem_agrees("decoder_attention_bwd", "sct_decoder_attention_bwd_smem",
-                          lambda dk_, *shape: k14.bf16_backward_smem(*shape, dk=dk_),
-                          [(dk, tq, tq, 1), (dk, tq, r, SEQ_PER_IMG), (dk, tq, r, SCST_SAMPLES), (dk, 64, 64, 8),
-                           (dk, 64, 64, 9)])
+                          lambda dk_, tq_, tk_, g_, kv_: k14.bf16_backward_smem(tq_, tk_, g_, dk_, bool(kv_)),
+                          [(dk, tq, tq, 1, 0), (dk, tq, r, SEQ_PER_IMG, 0), (dk, tq, r, SCST_SAMPLES, 0),
+                           (dk, tqk, r, SCST_SAMPLES, 1), (dk, tqk, tqk, 1, 1), (dk, 64, 64, 8, 0), (dk, 64, 64, 9, 0),
+                           (dk, 64, 64, 9, 1)])
         ok &= smem_agrees("decoder_attention", "sct_decoder_attention_smem",
-                          lambda dk_, *shape: k14.bf16_forward_smem(*shape, dk=dk_),
-                          [(dk, tq, tq, 1, 1), (dk, tq, r, SEQ_PER_IMG, 1), (dk, tq, r, SCST_SAMPLES, 0),
-                           (dk, 64, 64, 24, 1), (dk, 64, 64, 25, 1)])
-    if not timing:
+                          lambda dk_, tq_, tk_, g_, keep_, kv_: k14.bf16_forward_smem(tq_, tk_, g_, bool(keep_), dk_,
+                                                                                    bool(kv_)),
+                          [(dk, tq, tq, 1, 1, 0), (dk, tq, r, SEQ_PER_IMG, 1, 0), (dk, tq, r, SCST_SAMPLES, 0, 0),
+                           (dk, tqk, r, SEQ_PER_IMG, 1, 1), (dk, 64, 64, 24, 1, 0), (dk, 64, 64, 25, 1, 0),
+                           (dk, 64, 64, 30, 1, 1)])
+    if not (timing and not timed_kv):
         return ok
 
-    # times: one decoder slot's pair of calls at ACORT-small's XE shape, the one tensor as k and v
-    bx, nx = TRAIN_BIG_BATCH, TRAIN_BIG_BATCH * SEQ_PER_IMG
+    # times of the unshared pair (one decoder layer's self + cross calls) at the XE shape, k and v apart
+    tq, bx, nx = positions[False], TRAIN_BIG_BATCH, TRAIN_BIG_BATCH * SEQ_PER_IMG
     pair = []
     for kind in ("self", "cross"):
         nk, tk = (nx, tq) if kind == "self" else (bx, r)
         valid = (torch.arange(tq, device=dev)[None] < torch.randint(2, tq + 1, (nx, 1), generator=gen, device=dev)
                  if kind == "self" else random_region_mask(gen, bx, r, dev))
         keep = torch.rand(nx, h, tq, tk, generator=gen, device=dev) < 0.9
-        pair.append((rnd(nx, h, tq, dk), rnd(nk, h, tk, dk), valid, kind == "self", keep, rnd(nx, h, tq, dk)))
+        pair.append((rnd(nx, h, tq, dk), rnd(nk, h, tk, dk), rnd(nk, h, tk, dk), valid, kind == "self", keep,
+                     rnd(nx, h, tq, dk)))
+    fwd, bwd = decoder_pair_times(pair, tq)
+    shapes = [(nx, nx, tq), (nx, bx, r)]
+    for key, times, nbytes, ops, err in (
+            (f"decoder_attention dk{dk}", fwd, sum(k14_bytes(nq, nk, tk, dtype, tq=tq, dk=dk) for nq, nk, tk in shapes),
+             sum(decoder_attention_flops(nq, tk, tq=tq, dk=dk) for nq, _, tk in shapes), errs["fwd"]),
+            (f"decoder_attention_bwd dk{dk}", bwd, sum(k15_bytes(nq, nk, tk, dtype, tq=tq, dk=dk)
+                                                       for nq, nk, tk in shapes),
+             sum(decoder_attention_flops(nq, tk, backward=True, tq=tq, dk=dk) for nq, _, tk in shapes), errs["bwd"])):
+        record(key, err, times, nbytes, flops((dtype, ops)), "SDPA, bool mask, K/V repeated")
+    del pair
+    torch.cuda.empty_cache()
+    return ok
 
-    def library_args(q, kvx, valid, causal):
-        g = q.shape[0] // kvx.shape[0]
+
+def decoder_pair_times(pair, tq: int, kv: bool = False):
+    """Held turns of one decoder slot's pair of calls (self + cross; each
+    (q, k, v, key_valid, causal, keep, dout)) in bf16: forward, then
+    backward, each [kernel, plain version, SDPA with K/V repeated and a bool
+    mask] and, with `kv` (v is k; the kv modes timed), the unshared kernel on
+    the tensor passed twice last."""
+    from sparse_caption_tpu_torch.kernels import decoder_attention as k14
+
+    def library_args(q, k, v, valid, causal):
+        g = q.shape[0] // k.shape[0]
         m = valid.repeat_interleave(g, 0)[:, None, None, :]
         if causal:
-            m = m & torch.tril(torch.ones(tq, tq, dtype=torch.bool, device=dev))
-        return q, kvx.repeat_interleave(g, 0), m
+            m = m & torch.tril(torch.ones(tq, tq, dtype=torch.bool, device=q.device))
+        return q, k.repeat_interleave(g, 0), v.repeat_interleave(g, 0), m
 
-    graphs = {"kernel": [], "plain": [], "library": []}
-    for q, kvx, valid, causal, keep, dout in pair:
-        for impl, fn in (("kernel", k14.decoder_attention), ("plain", k14.decoder_attention_plain)):
-            ins = leaves(q, kvx)
-            graphs[impl].append((fn(ins[0], ins[1], ins[1], valid, causal, keep, 0.9), ins, dout))
-        lq, lkv, lm = library_args(q, kvx, valid, causal)
-        ins = leaves(lq, lkv)
-        graphs["library"].append((F.scaled_dot_product_attention(ins[0], ins[1], ins[1], attn_mask=lm), ins, dout))
-    lib_in = [library_args(q, kvx, valid, causal) for q, kvx, valid, causal, _, _ in pair]
+    kernel = lambda q, k, v, *a: k14.decoder_attention(q, k, None if kv else v, *a)  # noqa: E731
+    impls = [("kernel", kernel), ("plain", k14.decoder_attention_plain)]
+    if kv:
+        impls.append(("before", k14.decoder_attention))
+    graphs = {name: [] for name in ("kernel", "plain", "library", "before")}
+    for q, k, v, valid, causal, keep, dout in pair:
+        for impl, fn in impls:
+            ins = leaves(q, k) if kv else leaves(q, k, v)
+            graphs[impl].append((fn(ins[0], ins[1], ins[-1], valid, causal, keep, 0.9), ins, dout))
+        lq, lk, lv, lm = library_args(q, k, v, valid, causal)
+        ins = leaves(lq, lk) if kv else leaves(lq, lk, lv)
+        graphs["library"].append((F.scaled_dot_product_attention(ins[0], ins[1], ins[-1], attn_mask=lm), ins, dout))
+    lib_in = [library_args(q, k, v, valid, causal) for q, k, v, valid, causal, _, _ in pair]
 
     def forward(fn):
-        for q, kvx, valid, causal, keep, _ in pair:
-            fn(q, kvx, kvx, valid, causal, keep, 0.9)
+        for q, k, v, valid, causal, keep, _ in pair:
+            fn(q, k, v, valid, causal, keep, 0.9)
 
     def backward(impl):
         for out, ins, dout in graphs[impl]:
             torch.autograd.grad(out, ins, dout, retain_graph=True)
 
+    fwd_fns = [lambda: forward(kernel), lambda: forward(k14.decoder_attention_plain),
+               lambda: [F.scaled_dot_product_attention(lq, lk, lv, attn_mask=lm) for lq, lk, lv, lm in lib_in]]
+    bwd_fns = [lambda: backward("kernel"), lambda: backward("plain"), lambda: backward("library")]
+    if kv:
+        fwd_fns.append(lambda: forward(k14.decoder_attention))
+        bwd_fns.append(lambda: backward("before"))
     with torch.no_grad():
-        fwd = turns_ms(lambda: forward(k14.decoder_attention), lambda: forward(k14.decoder_attention_plain),
-                       lambda: [F.scaled_dot_product_attention(lq, lkv, lkv, attn_mask=lm) for lq, lkv, lm in lib_in])
-    bwd = turns_ms(lambda: backward("kernel"), lambda: backward("plain"), lambda: backward("library"))
-    shapes = [(nx, nx, tq), (nx, bx, r)]
-    for key, times, nbytes, ops, err in (
-            ("decoder_attention dk32", fwd, sum(k14_bytes(nq, nk, tk, dtype, tq=tq, dk=dk, kv=True)
+        fwd = turns_ms(*fwd_fns)
+    bwd = turns_ms(*bwd_fns)
+    del graphs, lib_in
+    return fwd, bwd
+
+
+def check_decoder_kv(gen, dtype, results: dict, dk: int, timing: bool = True,
+                     key: str = "decoder_attention kv") -> bool:
+    """K14 / K15's kv modes (v=None: an ACORT kv-shared decoder layer, one
+    tensor is K and V) at ACORT's XE shape (256 x 5 captions of 26
+    positions, dropout 0.1; the self call with pad keys, the cross call over
+    36 regions read once per image) at head width `dk`: element-wise and in
+    bf16 bit by bit (`rounding_share`) against the plain version given the
+    tensor as k and v, and bit-equal to the unshared kernels given it twice
+    (the same arithmetic; autograd adds their dK and dV in the dtype, as
+    K15's kv mode does), with a planted fault (V read one key row on). With
+    `timing`, the bf16 times of the pair of calls, forward and backward: the
+    kv modes, the unshared kernels on the tensor passed twice (`before_ms`),
+    the plain version and SDPA, beside the bound with the shared tensor
+    counted once, as rows `key` and `key` with "_bwd" after the kernel's
+    name."""
+    from sparse_caption_tpu_torch.kernels import decoder_attention as k14
+
+    dev = torch.device("cuda")
+    dname = str(dtype).split(".")[-1]
+    h, r, tq, bx = HEADS, REGIONS, ACORT_LEN, TRAIN_BIG_BATCH
+    nx = bx * SEQ_PER_IMG
+    rnd = lambda *shape: torch.randn(*shape, generator=gen, device=dev).to(dtype)  # noqa: E731
+    ok = True
+    errs = {"fwd": 0.0, "bwd": 0.0}
+    pair = []
+
+    def held(name, out, ref, scale, fault=None):
+        nonlocal ok
+        err, good, worst = close(out, ref, out.dtype, scale)
+        log(f"[kernel] {name} dk{dk} {dname}: max_abs_err={err:.3e} worst err/allowed={worst:.3f} "
+            f"{'ok' if good else 'FAIL'}")
+        ok &= good
+        if fault is not None:
+            ok &= fault_caught(f"{name} dk{dk}", fault, ref, out.dtype, scale)
+        if dtype == torch.bfloat16:
+            ok &= rounding_share(f"{name} dk{dk}", out, ref, *((K14_SHARE_LIMIT, K14_FAR_LIMIT) if name.endswith(
+                "out") else (K15_SHARE_LIMIT, K15_FAR_LIMIT)))
+        return err
+
+    for kind in ("self", "cross"):
+        nk, tk = (nx, tq) if kind == "self" else (bx, r)
+        if kind == "self":
+            valid = torch.arange(tq, device=dev)[None] < torch.randint(2, tq + 1, (nx, 1), generator=gen, device=dev)
+        else:
+            valid = random_region_mask(gen, bx, r, dev)
+        keep = torch.rand(nx, h, tq, tk, generator=gen, device=dev) < 0.9
+        qx, kvx, dox = rnd(nx, h, tq, dk), rnd(nk, h, tk, dk), rnd(nx, h, tq, dk)
+        causal = kind == "self"
+
+        def run(fn, v_of):
+            return fwd_bwd(lambda a_, b_: fn(a_, b_, v_of(b_), valid, causal, keep, 0.9), leaves(qx, kvx), dox)
+
+        (ko,), kg = run(k14.decoder_attention, lambda b_: None)
+        (to,), tg = run(k14.decoder_attention, lambda b_: b_)  # the unshared kernels, the tensor twice
+        (po,), pg = run(k14.decoder_attention_plain, lambda b_: None)
+        (fo,), fg = run(k14.decoder_attention_plain, lambda b_: b_.roll(1, 2))  # fault: V one key row on
+        tag = f"decoder_attention kv {kind} T={tq}"
+        errs["fwd"] = max(errs["fwd"], held(f"{tag} out", ko, po, rms(kvx), fault=fo))
+        for i, nm in enumerate(("dq", "dkv")):
+            errs["bwd"] = max(errs["bwd"], held(f"{tag} {nm}", kg[i], pg[i], pg[i].float().abs().max().item(),
+                                                fault=fg[i] if nm == "dkv" else None))
+        same = [int((a != b_).sum()) for a, b_ in ((ko, to), (kg[0], tg[0]), (kg[1], tg[1]))]
+        good = not any(same)
+        log(f"[kernel] {tag} dk{dk} {dname}: the kv modes vs the unshared kernels given the tensor twice, bit for "
+            f"bit (out, dq, dkv differing elements {same}) {'ok' if good else 'FAIL'}")
+        ok &= good
+        pair.append((qx, kvx, kvx, valid, causal, keep, dox))
+        del ko, kg, to, tg, po, pg, fo, fg
+    if timing and dtype == torch.bfloat16:
+        fwd, bwd = decoder_pair_times(pair, tq, kv=True)
+        shapes = [(nx, nx, tq), (nx, bx, r)]
+        name, tail = key.split(" ", 1)
+        for row, times, nbytes, ops, err in (
+                (key, fwd, sum(k14_bytes(nq, nk, tk, dtype, tq=tq, dk=dk, kv=True) for nq, nk, tk in shapes),
+                 sum(decoder_attention_flops(nq, tk, tq=tq, dk=dk) for nq, _, tk in shapes), errs["fwd"]),
+                (f"{name}_bwd {tail}", bwd, sum(k15_bytes(nq, nk, tk, dtype, tq=tq, dk=dk, kv=True)
                                                 for nq, nk, tk in shapes),
-             sum(decoder_attention_flops(nq, tk, tq=tq, dk=dk) for nq, _, tk in shapes), errs["fwd"]),
-            ("decoder_attention_bwd dk32", bwd, sum(k15_bytes(nq, nk, tk, dtype, tq=tq, dk=dk, kv=True)
-                                                    for nq, nk, tk in shapes),
-             sum(decoder_attention_flops(nq, tk, backward=True, tq=tq, dk=dk) for nq, _, tk in shapes),
-             errs["bwd"])):
-        record(key, err, times, nbytes, flops((dtype, ops)), "SDPA, bool mask, K/V repeated")
-    del pair, graphs, lib_in
+                 sum(decoder_attention_flops(nq, tk, backward=True, tq=tq, dk=dk) for nq, _, tk in shapes),
+                 errs["bwd"])):
+            ms, plain_ms, lib_ms, before_ms = times
+            bnd, by = bound_ms(nbytes, flops((dtype, ops)))
+            log(f"[kernel] {row} {dname}: ms={ms:.4f} before_ms={before_ms:.4f} (the unshared kernel, the tensor "
+                f"twice) plain_ms={plain_ms:.4f} library_ms={lib_ms:.4f} (SDPA, bool mask, K/V repeated) "
+                f"bound_ms={bnd:.4f} ({by}; held windows in turns)")
+            results[row] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bnd, bound_by=by,
+                                before_ms=before_ms)
+    del pair
     torch.cuda.empty_cache()
     return ok
+
+
+def check_acort_small_kernels(gen, dtype, results: dict, timing: bool = True) -> bool:
+    """Head width 32 (ACORT-small's and ORT-small's d256 over 8 heads) at
+    ACORT-small's shapes (26 positions): `check_width_kernels`, the kv modes
+    timed."""
+    return check_width_kernels(gen, dtype, results, DK_SMALL, {False: ACORT_LEN, True: ACORT_LEN}, True, timing)
+
+
+def check_xsmall_kernels(gen, dtype, results: dict, timing: bool = True) -> bool:
+    """Head width 13 (ORT-xsmall's d104 over 8 heads; the kernels' padded
+    instance, staged at 16): `check_width_kernels` at ORT-xsmall's shapes (17
+    positions) and the kv modes at ACORT's (26), the unshared kernels (the
+    ones ORT-xsmall runs) timed."""
+    return check_width_kernels(gen, dtype, results, DK_XSMALL, {False: MAX_LEN, True: ACORT_LEN}, False, timing)
 
 
 def check_radix_reward(results: dict, timing: bool = True) -> bool:
@@ -2076,13 +2255,15 @@ def check_decoder_attention_kernels(gen, results: dict, timing: bool = True) -> 
                 ok &= p_agreement(label, args)
             del args, dout, kout, kg, pout, pg
     ok &= smem_agrees("decoder_attention_bwd", "sct_decoder_attention_bwd_smem",
-                      lambda dk_, *shape: k14.bf16_backward_smem(*shape, dk=dk_),
-                      [(64, tq, tq, 1), (64, tq, r, SEQ_PER_IMG), (64, tq, r, SCST_SAMPLES), (64, 64, 64, 5),
-                       (64, 64, 64, 6)])
+                      lambda dk_, tq_, tk_, g_, kv_: k14.bf16_backward_smem(tq_, tk_, g_, dk_, bool(kv_)),
+                      [(64, tq, tq, 1, 0), (64, tq, r, SEQ_PER_IMG, 0), (64, tq, r, SCST_SAMPLES, 0),
+                       (64, 64, 64, 5, 0), (64, 64, 64, 6, 0), (64, 64, 64, 6, 1), (64, tq, r, SCST_SAMPLES, 1)])
     ok &= smem_agrees("decoder_attention", "sct_decoder_attention_smem",
-                      lambda dk_, *shape: k14.bf16_forward_smem(*shape, dk=dk_),
-                      [(64, tq, tq, 1, 1), (64, tq, r, SEQ_PER_IMG, 1), (64, tq, r, SCST_SAMPLES, 0),
-                       (64, tq, r, SCST_SAMPLES, 1), (64, 64, 64, 16, 1), (64, 64, 64, 17, 1), (64, 20, 64, 3, 1)])
+                      lambda dk_, tq_, tk_, g_, keep_, kv_: k14.bf16_forward_smem(tq_, tk_, g_, bool(keep_), dk_,
+                                                                                bool(kv_)),
+                      [(64, tq, tq, 1, 1, 0), (64, tq, r, SEQ_PER_IMG, 1, 0), (64, tq, r, SCST_SAMPLES, 0, 0),
+                       (64, tq, r, SCST_SAMPLES, 1, 0), (64, 64, 64, 16, 1, 0), (64, 64, 64, 17, 1, 0),
+                       (64, 20, 64, 3, 1, 0), (64, 64, 64, 17, 1, 1), (64, tq, r, SEQ_PER_IMG, 1, 1)])
     if not timing:
         return ok
 
@@ -3657,10 +3838,10 @@ def acort_tokenizer(log_dir: str, flags=ACORT_FLAGS):
     return tok, config
 
 
-def build_acort(config, seed: int, dropout: bool = True):
-    """ACORT (base or small, as `config` says) in f32 on the card through the
-    model's ``from_config``, random weights from the seed (dense: the recipe
-    prunes nothing)."""
+def build_acort(config, seed: int, dropout: bool = True, unique: int = 2):
+    """ACORT (base, base-AL or small, as `config` says; `unique` layers a
+    side) in f32 on the card through the model's ``from_config``, random
+    weights from the seed (dense: the recipe prunes nothing)."""
     from sparse_caption_tpu_torch.config import Config
     from sparse_caption_tpu_torch.models import get_model
 
@@ -3669,8 +3850,21 @@ def build_acort(config, seed: int, dropout: bool = True):
     if not dropout:
         config = Config(**dict(config.to_dict(), drop_prob_src=0.0))
     model = get_model(config.caption_model).from_config(config, device="cuda", generator=gen, **extra)
-    assert len(model.box_encoder_layers) == len(model.decoder_layers) == 2, "2 unique layers a side"
+    assert len(model.box_encoder_layers) == len(model.decoder_layers) == unique, f"{unique} unique layers a side"
     return model
+
+
+def build_ort(flags: dict, seed: int, dropout: bool = True):
+    """One of the recipe's dense ORT baselines (`flags`: ORT-xsmall's or
+    ORT-small's) in f32 on the card through ``from_config``, random weights
+    from the seed."""
+    from sparse_caption_tpu_torch.config import Config
+    from sparse_caption_tpu_torch.models import get_model
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    config = Config(**(flags if dropout else dict(flags, drop_prob_src=0.0)))
+    extra = {} if dropout else dict(dropout_rate=0.0)
+    return get_model(config.caption_model).from_config(config, device="cuda", generator=gen, **extra)
 
 
 def build_qk_ort(seed: int, dropout: bool = True):
@@ -3732,7 +3926,7 @@ def run_acort_phase(gen) -> tuple:
     train.update(box_attention_train_kv=slots, box_attention_bwd_kv=slots,
                  add_ref_layernorm=(1 + 2 * slots) + (1 + 3 * slots),
                  add_ref_layernorm_bwd=(1 + 2 * slots) + (1 + 3 * slots), vocab_log_softmax=1,
-                 vocab_log_softmax_bwd=1, decoder_attention=2 * slots, decoder_attention_bwd=2 * slots)
+                 vocab_log_softmax_bwd=1, decoder_attention_kv=2 * slots, decoder_attention_bwd_kv=2 * slots)
     train_model = build_acort(config, SEED)
     for b in (TRAIN_BATCH, TRAIN_BIG_BATCH):
         train_counts = run_train_phase(train_model, gen, b, "bf16", train, ACORT_CONFIG, make_acort_train_batch,
@@ -3759,11 +3953,12 @@ def run_acort_phase(gen) -> tuple:
 
 def acort_scst_launches(names) -> dict:
     """Launches of one ACORT SCST step: `scst_launches` over its 6 slots and
-    25 sampled steps, dense (no K5), through the kv modes of K1, K7, K2 and
-    K3."""
+    25 sampled steps, dense (no K5), through the kv modes of K1, K7, K2, K3,
+    K14 and K15."""
     counts = scst_launches(ACORT_SLOTS, ACORT_LEN - 1, 0, names)
     counts.update(supermask=0, supermask_bwd=0)
-    for name in ("box_attention_train", "box_attention_bwd", "ancestry_self_attention", "grouped_cross_attention"):
+    for name in ("box_attention_train", "box_attention_bwd", "ancestry_self_attention", "grouped_cross_attention",
+                 "decoder_attention", "decoder_attention_bwd"):
         counts[f"{name}_kv"], counts[name] = counts[name], 0
     return counts
 
@@ -3819,7 +4014,7 @@ def run_acort_small_phase(gen) -> tuple:
     train.update(box_attention_train_kv=slots, box_attention_bwd_kv=slots,
                  add_ref_layernorm=(1 + 2 * slots) + (1 + 3 * slots),
                  add_ref_layernorm_bwd=(1 + 2 * slots) + (1 + 3 * slots), vocab_log_softmax=1,
-                 vocab_log_softmax_bwd=1, decoder_attention=2 * slots, decoder_attention_bwd=2 * slots)
+                 vocab_log_softmax_bwd=1, decoder_attention_kv=2 * slots, decoder_attention_bwd_kv=2 * slots)
     train_model = build_acort(config, SEED)
     for b in (TRAIN_BATCH, TRAIN_BIG_BATCH):
         train_counts = run_train_phase(train_model, gen, b, "bf16", train, ACORT_SMALL_CONFIG, make_acort_train_batch,
@@ -3848,6 +4043,69 @@ def run_acort_small_phase(gen) -> tuple:
     good &= scst_whole_step_check(SEED, gen, build_scst, make_batch, "acort-small scst-step", tok=tok,
                                   config=ACORT_SMALL_SCST_CONFIG, max_len=steps - 1)
     return good, serve_counts, train_counts, scst_counts
+
+
+def run_ort_xsmall_phase(gen) -> tuple:
+    """ORT-xsmall (d104 over 8 heads: the dk 13 kernels) through its normal
+    entry points at the recipe's width: beam-5 serving in bf16 at batch 50
+    and 2048 with the launch counts asserted and a profile at 2048, the f32
+    batch-8 card-vs-CPU decode; the dense XE step (noam, dropout 0.1 / 0.5,
+    clip 0.1) in bf16 at 15 x 5 and 256 x 5 with the counts asserted, the
+    card-vs-CPU f32 step at 2 x 5 without dropout. Then, untimed, the same
+    two card-vs-CPU checks for ORT-small (dk 32, unshared) and ACORT-base-AL
+    (kv, one layer in all six slots). Returns (ok, serving counts, XE
+    counts)."""
+    from sparse_caption_tpu_torch.kernels import KERNELS
+
+    layers, steps = ORT_XSMALL_FLAGS["num_layers"], MAX_LEN
+    model = build_ort(ORT_XSMALL_FLAGS, SEED)
+    assert model.d_model // model.num_heads == DK_XSMALL
+    model_bf16 = copy.deepcopy(model).to(torch.bfloat16)
+    serve = {name: 0 for name in KERNELS}
+    serve.update(box_attention=layers, ancestry_self_attention=layers * steps,
+                 grouped_cross_attention=layers * steps, beam_topk=steps,
+                 add_ref_layernorm=(1 + 2 * layers) + steps * (1 + 3 * layers))
+    torch.cuda.reset_peak_memory_stats()
+    for b in (EVAL_BATCH, BIG_BATCH):
+        serve_counts = run_main_path(model_bf16, gen, b, serve, label="ort-xsmall")
+    log(f"[ort-xsmall] peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    batch = make_batch(gen, BIG_BATCH, torch.bfloat16)
+    profile_window(f"ORT-xsmall encode + decode, bf16 batch {BIG_BATCH}", lambda: caption(model_bf16, batch))
+    del model_bf16, batch
+    if not whole_path_check(model, gen, label="ort-xsmall whole-path"):
+        return False, None, None
+    del model
+    torch.cuda.empty_cache()
+
+    train = {name: 0 for name in KERNELS}
+    train.update(box_attention_train=layers, box_attention_bwd=layers,
+                 add_ref_layernorm=(1 + 2 * layers) + (1 + 3 * layers),
+                 add_ref_layernorm_bwd=(1 + 2 * layers) + (1 + 3 * layers), vocab_log_softmax=1,
+                 vocab_log_softmax_bwd=1, decoder_attention=2 * layers, decoder_attention_bwd=2 * layers)
+    train_model = build_ort(ORT_XSMALL_FLAGS, SEED)
+    for b in (TRAIN_BATCH, TRAIN_BIG_BATCH):
+        train_counts = run_train_phase(train_model, gen, b, "bf16", train, ORT_XSMALL_CONFIG, make_train_batch,
+                                       "ort-xsmall train")
+    del train_model
+    torch.cuda.empty_cache()
+    good = whole_step_check(SEED, gen, lambda: build_ort(ORT_XSMALL_FLAGS, SEED, dropout=False), make_train_batch,
+                            ORT_XSMALL_CONFIG, "ort-xsmall whole-step")
+
+    # ORT-small (dk 32, unshared) and ACORT-base-AL (kv, one layer a side): the card against the CPU
+    small = build_ort(ORT_SMALL_FLAGS, SEED)
+    good &= whole_path_check(small, gen, label="ort-small whole-path")
+    del small
+    good &= whole_step_check(SEED, gen, lambda: build_ort(ORT_SMALL_FLAGS, SEED, dropout=False), make_train_batch,
+                             ORT_SMALL_CONFIG, "ort-small whole-step")
+    with tempfile.TemporaryDirectory() as log_dir:
+        _, al_config = acort_tokenizer(log_dir, ACORT_BASE_AL_FLAGS)
+    al = build_acort(al_config, SEED, unique=1)
+    good &= whole_path_check(al, gen, label="acort-base-al whole-path")
+    del al
+    good &= whole_step_check(SEED, gen, lambda: build_acort(al_config, SEED, dropout=False, unique=1),
+                             make_acort_train_batch, ACORT_CONFIG, "acort-base-al whole-step")
+    torch.cuda.empty_cache()
+    return good, serve_counts, train_counts
 
 
 def card_line() -> str:
@@ -3896,6 +4154,10 @@ def main() -> int:
     g32 = torch.Generator(device="cuda").manual_seed(SEED + 32)
     for dtype in (torch.float32, torch.bfloat16):
         ok &= check_acort_small_kernels(g32, dtype, results)
+        torch.cuda.empty_cache()
+    g13 = torch.Generator(device="cuda").manual_seed(SEED + 34)
+    for dtype in (torch.float32, torch.bfloat16):
+        ok &= check_xsmall_kernels(g13, dtype, results)
         torch.cuda.empty_cache()
     ok &= check_radix_reward(results)
     if not ok:
@@ -4026,11 +4288,17 @@ def main() -> int:
     if not good:
         return 1
 
+    # ORT-xsmall: serving and the dense XE step through the dk 13 kernels; ORT-small's and ACORT-base-AL's checks
+    good, xsmall_serve, xsmall_train = run_ort_xsmall_phase(torch.Generator(device="cuda").manual_seed(SEED + 35))
+    if not good:
+        return 1
+
     paths = {"serve": serve_counts, "train_step": train_counts, "scst_step": scst_counts,
              "updown_serve": ud_serve_counts, "updown_train_step": ud_train_counts,
              "updown_scst_step": ud_scst_counts, "prune_update": prune_counts, "acort_serve": acort_serve_counts,
              "acort_train_step": acort_train_counts}
     paths.update(zip(ACORT_SMALL_PATHS, (small_serve, small_train, small_scst)))
+    paths.update(zip(XSMALL_PATHS, (xsmall_serve, xsmall_train)))
     kernels = []
     for name in _build.SOURCES:
         entries = [e for e, k in KERNELS.items() if k.library_name == name]
@@ -4046,13 +4314,15 @@ def main() -> int:
         kernels.append(dict(name=mode, route="cuda", source=str(src.relative_to(_build.CSRC.parents[2])),
                             replaces=replaces, launches=sum(by_path.values()), launches_by_path=by_path,
                             **results[mode]))
-    # ACORT-small's instances (head width 32) and K10's radix mode: their own entries, launches on its paths
-    for mode, library, entries, replaces in ACORT_SMALL_MODES:
-        by_path = {path: sum(paths[path][e] for e in entries) for path in ACORT_SMALL_PATHS}
-        src = _build.CSRC / f"{library}.cu"
-        kernels.append(dict(name=mode, route="cuda", source=str(src.relative_to(_build.CSRC.parents[2])),
-                            replaces=replaces, launches=sum(by_path.values()), launches_by_path=by_path,
-                            **results[mode]))
+    # ACORT-small's instances (head width 32), K10's radix mode and ORT-xsmall's instances (head width 13):
+    # their own entries, launches on their model's paths
+    for modes, model_paths in ((ACORT_SMALL_MODES, ACORT_SMALL_PATHS), (XSMALL_MODES, XSMALL_PATHS)):
+        for mode, library, entries, replaces in modes:
+            by_path = {path: sum(paths[path][e] for e in entries) for path in model_paths}
+            src = _build.CSRC / f"{library}.cu"
+            kernels.append(dict(name=mode, route="cuda", source=str(src.relative_to(_build.CSRC.parents[2])),
+                                replaces=replaces, launches=sum(by_path.values()), launches_by_path=by_path,
+                                **results[mode]))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -24,8 +24,10 @@ magnitude_masks (K16)           csrc/magnitude_threshold.cu         pruning/engi
 
 A wrapper given CPU tensors runs the plain version; given CUDA tensors it
 launches its kernel (built at first use, see ``_build``) or raises. K1, K2,
-K3 and K7 have kv modes (``*_kv`` entry points, their own launch counts):
-an ACORT kv-shared layer passes one tensor as K and V. K5, K6,
+K3, K7, K14 and K15 have kv modes (``*_kv`` entry points, their own launch
+counts): an ACORT kv-shared layer passes one tensor as K and V. The six
+attention kernels take head widths 64, 32 and 13 (``_checks.HEAD_WIDTHS``;
+13 staged at 16). K5, K6,
 K1/K7, K8's apply variant, K11-K13 and K14/K15 are autograd Functions whose
 backward is a kernel too.
 """
@@ -75,7 +77,9 @@ KERNELS = {
     "vocab_log_softmax": _k13.KERNEL,
     "vocab_log_softmax_bwd": _k13.KERNEL_BWD,
     "decoder_attention": _k14.KERNEL,
+    "decoder_attention_kv": _k14.KERNEL_KV,
     "decoder_attention_bwd": _k14.KERNEL_BWD,
+    "decoder_attention_bwd_kv": _k14.KERNEL_BWD_KV,
     "magnitude_threshold": _k16.KERNEL,
 }
 

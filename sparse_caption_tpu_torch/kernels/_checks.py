@@ -24,9 +24,17 @@ def check_tensor(t: torch.Tensor, name: str, shape, dtype) -> None:
 
 
 # the head widths the attention kernels (K1, K7, K2, K3, K14, K15) are built
-# for: 64 (d_model 512 over 8 heads) and 32 (ACORT-small's and ORT-small's
-# d_model 256 over 8 heads)
-HEAD_WIDTHS = (32, 64)
+# for: 64 (d_model 512 over 8 heads), 32 (ACORT-small's and ORT-small's
+# d_model 256 over 8 heads) and 13 (ORT-xsmall's d_model 104 over 8 heads,
+# staged at width 16: ``padded_width``)
+HEAD_WIDTHS = (13, 32, 64)
+
+
+def padded_width(dk: int) -> int:
+    """The width the kernels stage and compute a head row at (csrc/common.cuh
+    kPad): dk rounded up to the mma k-step of 16; 16 at dk 13, whose columns
+    13-15 are zeros."""
+    return 16 * -(-dk // 16)
 
 
 def check_head_width(dk: int, kernel: str) -> None:

@@ -10,13 +10,13 @@ for both the scores and the output.
 
 from __future__ import annotations
 
-import math
 from typing import Optional
 
 import torch
 
 from sparse_caption_tpu_torch.kernels import _build
 from sparse_caption_tpu_torch.kernels._checks import check_float, check_head_width, check_same_device, check_tensor
+from sparse_caption_tpu_torch.ops.attention import divide_scores, score_divisor
 
 KERNEL = _build.CudaKernel("ancestry_self_attention", "sct_ancestry_self_attention", [
     _build.I, _build.I, _build.P, _build.P, _build.P, _build.P, _build.P,
@@ -40,8 +40,8 @@ def ancestry_self_attention_plain(q, cache_k, cache_v: Optional[torch.Tensor], a
 
     The reference scores every slot and masks t' > t with -1e9; those
     softmax weights are exactly 0, so reading slots 0..t only is the same.
-    In bf16 the score, the scaled score and the softmax weights round to
-    bf16, the points the kernel rounds at."""
+    In bf16 the score, its quotient by sqrt(dk) (``divide_scores``) and the
+    softmax weights round to bf16, the points the kernel rounds at."""
     if cache_v is None:
         cache_v = cache_k
     n, h, dk = q.shape
@@ -53,7 +53,7 @@ def ancestry_self_attention_plain(q, cache_k, cache_v: Optional[torch.Tensor], a
         slots = torch.arange(t + 1, device=q.device)
         keys = cache_k.transpose(1, 2)[rows, slots].transpose(1, 2)  # (N, h, t+1, dk)
         vals = cache_v.transpose(1, 2)[rows, slots].transpose(1, 2)
-    scores = torch.einsum("nhd,nhtd->nht", q, keys) / math.sqrt(dk)
+    scores = divide_scores(torch.einsum("nhd,nhtd->nht", q, keys), dk)
     return torch.einsum("nht,nhtd->nhd", torch.softmax(scores, dim=-1), vals)
 
 
@@ -86,9 +86,9 @@ def ancestry_self_attention(q, cache_k, cache_v: Optional[torch.Tensor], ancestr
     out = torch.empty_like(q)
     if cache_v is None:
         KERNEL_KV.launch(_build.dtype_code(q), dk, q.data_ptr(), cache_k.data_ptr(), _build.ptr(ancestry),
-                         out.data_ptr(), n, h, t_max, kb, t, 1.0 / math.sqrt(dk), _build.stream_handle(q))
+                         out.data_ptr(), n, h, t_max, kb, t, score_divisor(dk, q.dtype), _build.stream_handle(q))
         return out
     KERNEL.launch(_build.dtype_code(q), dk, q.data_ptr(), cache_k.data_ptr(), cache_v.data_ptr(),
-                  _build.ptr(ancestry), out.data_ptr(), n, h, t_max, kb, t, 1.0 / math.sqrt(dk),
+                  _build.ptr(ancestry), out.data_ptr(), n, h, t_max, kb, t, score_divisor(dk, q.dtype),
                   _build.stream_handle(q))
     return out

@@ -9,14 +9,17 @@ products.
 
 from __future__ import annotations
 
-import math
-
 import torch
 import torch.nn.functional as F
 
 from sparse_caption_tpu_torch.kernels import _build
 from sparse_caption_tpu_torch.kernels._checks import check_float, check_head_width, check_same_device, check_tensor
-from sparse_caption_tpu_torch.ops.attention import box_relational_embedding, geometry_frequencies, scaled_dot_attention
+from sparse_caption_tpu_torch.ops.attention import (
+    box_relational_embedding,
+    geometry_frequencies,
+    scaled_dot_attention,
+    score_divisor,
+)
 
 KERNEL = _build.CudaKernel("box_attention", "sct_box_attention", [
     _build.I, _build.I, _build.P, _build.P, _build.P, _build.P, _build.P, _build.P, _build.P, _build.P, _build.P,
@@ -105,7 +108,7 @@ def box_attention(q, k, v, boxes, wg_weight, wg_bias, mask, bias_out=None):
     out = torch.empty_like(q)
     freq = geometry_frequencies(DIM_G, device=q.device)
     tail = (boxes.data_ptr(), wg_weight.data_ptr(), wg_bias.data_ptr(), freq.data_ptr(), mask.data_ptr(),
-            out.data_ptr(), _build.ptr(bias_out), b, h, r, 1.0 / math.sqrt(dk), _build.stream_handle(q))
+            out.data_ptr(), _build.ptr(bias_out), b, h, r, score_divisor(dk, q.dtype), _build.stream_handle(q))
     if v is None:
         KERNEL_KV.launch(_build.dtype_code(q), dk, q.data_ptr(), k.data_ptr(), *tail)
     else:

@@ -15,7 +15,6 @@ there, as the plain version's autograd adds the two uses of k.
 
 from __future__ import annotations
 
-import math
 from typing import Optional
 
 import torch
@@ -28,7 +27,7 @@ from sparse_caption_tpu_torch.kernels.box_attention import (
     box_attention_plain,
     check_args,
 )
-from sparse_caption_tpu_torch.ops.attention import geometry_frequencies
+from sparse_caption_tpu_torch.ops.attention import geometry_frequencies, score_divisor
 from sparse_caption_tpu_torch.ops.keep import keep_divisor
 
 HEAD_GROUP = 4  # heads per block of the kernel (csrc/box_attention_bwd.cu kGroupHeads)
@@ -53,7 +52,8 @@ class _BoxAttentionFn(torch.autograd.Function):
         out = torch.empty_like(q)
         freq = geometry_frequencies(DIM_G, device=q.device)
         tail = (boxes.data_ptr(), wg_weight.data_ptr(), wg_bias.data_ptr(), freq.data_ptr(), mask.data_ptr(),
-                _build.ptr(keep), keep_prob, out.data_ptr(), b, h, r, 1.0 / math.sqrt(dk), _build.stream_handle(q))
+                _build.ptr(keep), keep_prob, out.data_ptr(), b, h, r, score_divisor(dk, q.dtype),
+                _build.stream_handle(q))
         if v is None:
             KERNEL_TRAIN_KV.launch(_build.dtype_code(q), dk, q.data_ptr(), k.data_ptr(), *tail)
         else:
@@ -73,7 +73,7 @@ class _BoxAttentionFn(torch.autograd.Function):
         partial = torch.empty(b, -(-h // HEAD_GROUP), h, DIM_G + 1, device=q.device, dtype=torch.float32)
         inputs = (dout.data_ptr(), boxes.data_ptr(), wg_weight.data_ptr(), wg_bias.data_ptr(), freq.data_ptr(),
                   mask.data_ptr(), _build.ptr(keep), ctx.keep_prob, dq.data_ptr(), dk_.data_ptr())
-        tail = (dwg_w.data_ptr(), dwg_b.data_ptr(), partial.data_ptr(), b, h, r, 1.0 / math.sqrt(dk),
+        tail = (dwg_w.data_ptr(), dwg_b.data_ptr(), partial.data_ptr(), b, h, r, score_divisor(dk, q.dtype),
                 _build.stream_handle(q))
         if v is None:  # dk_ is d(k as K) + d(k as V)
             KERNEL_KV.launch(_build.dtype_code(q), dk, q.data_ptr(), k.data_ptr(), *inputs, *tail)

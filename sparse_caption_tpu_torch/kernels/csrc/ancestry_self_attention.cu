@@ -18,14 +18,15 @@
 //
 // Design: one warp per (row, head), one block per row (all heads). Each lane
 // holds DK / 32 of the DK dims (2 at DK = 64, 1 at DK = 32: ACORT-small's
-// d256 over 8 heads), and S = ceil(T_max / 32) slots of the row: slot
+// d256 over 8 heads; at DK = 13, ORT-xsmall's d104 over 8 heads, lanes 0-12
+// one dim each and lanes 13-31 idle, SIMT as at 32), and S = ceil(T_max / 32) slots of the row: slot
 // j*32 + lane in its register j, with that slot's cache row (its ancestor,
 // one load per lane instead of a one-hot contraction). The warp walks the
 // slots t' = 0..t twice: first the keys, each score reduced across the warp
 // and kept by the lane of its slot, then the values. The softmax between the
 // two passes is the plain version's, rounding point for rounding point: the
-// score rounded to T (the product q k^T in T), scaled by 1/8 and rounded
-// again; then PyTorch's warp softmax over the row (rows up to 1024), in its
+// score rounded to T (the product q k^T in T), divided by sqrt(dk) in T
+// (common.cuh div_score) and rounded again; then PyTorch's warp softmax over the row (rows up to 1024), in its
 // layout: each lane's max over its slots, the butterfly max, e = exp(score -
 // max), each lane's sum of its e in slot order, the butterfly sum, p = e /
 // sum rounded to T; the output sums p v in f32 and rounds once. The row's
@@ -46,26 +47,30 @@
 
 namespace sct {
 
-// A lane's DK / 32 dims of a head row: 2 neighbours (one 4- or 8-byte
-// access) at DK = 64, one at DK = 32.
+// A lane's dims of a head row, at p = the row + kLaneDims<DK> x lane: 2
+// neighbours (one 4- or 8-byte access) at DK = 64; one at DK = 32 and 13,
+// where the lanes past DK hold 0 and touch no memory.
+template <int DK> constexpr int kLaneDims = DK == 64 ? 2 : 1;
 template <int DK, typename T>
 struct LaneDims {
+  float v;
+  __device__ __forceinline__ void load(const T* p, int lane) { v = lane < DK ? to_f(*p) : 0.f; }
+  __device__ __forceinline__ float dot(const LaneDims& o) const { return v * o.v; }
+  __device__ __forceinline__ void add(float p, const LaneDims& o) { v += p * o.v; }
+  __device__ __forceinline__ void store(T* p, int lane) const {
+    if (lane < DK) *p = from_f<T>(v);
+  }
+};
+template <typename T>
+struct LaneDims<64, T> {
   float2 v;
-  __device__ __forceinline__ void load(const T* p) { v = load2(p); }
+  __device__ __forceinline__ void load(const T* p, int) { v = load2(p); }
   __device__ __forceinline__ float dot(const LaneDims& o) const { return v.x * o.v.x + v.y * o.v.y; }
   __device__ __forceinline__ void add(float p, const LaneDims& o) {
     v.x += p * o.v.x;
     v.y += p * o.v.y;
   }
-  __device__ __forceinline__ void store(T* p) const { store2(p, v); }
-};
-template <typename T>
-struct LaneDims<32, T> {
-  float v;
-  __device__ __forceinline__ void load(const T* p) { v = to_f(*p); }
-  __device__ __forceinline__ float dot(const LaneDims& o) const { return v * o.v; }
-  __device__ __forceinline__ void add(float p, const LaneDims& o) { v += p * o.v; }
-  __device__ __forceinline__ void store(T* p) const { *p = from_f<T>(v); }
+  __device__ __forceinline__ void store(T* p, int) const { store2(p, v); }
 };
 
 // cache_v == nullptr: the kv mode, V read from the K cache
@@ -73,13 +78,13 @@ template <int DK, typename T, int S>
 __global__ void ancestry_self_attention_kernel(const T* __restrict__ q, const T* __restrict__ cache_k,
                                                const T* __restrict__ cache_v, const int* __restrict__ anc,
                                                T* __restrict__ out, int H, int t_max, int K, int t,
-                                               float scale) {
-  constexpr int PL = DK / 32;  // dims a lane holds
+                                               float sqrt_dk) {
+  constexpr int PL = kLaneDims<DK>;  // dims a lane holds
   const T* __restrict__ vals = cache_v != nullptr ? cache_v : cache_k;
   const int n = blockIdx.x, h = threadIdx.x / 32, lane = threadIdx.x & 31;
   const size_t qo = ((size_t)n * H + h) * DK + PL * lane;
   LaneDims<DK, T> qv;
-  qv.load(q + qo);
+  qv.load(q + qo, lane);
   const int b = n / K;
   // anc (B, K, T_max), row n = b*K + k; lane l's register j <= t holds slot j*32 + l's cache row
   int my_row[S];
@@ -97,8 +102,8 @@ __global__ void ancestry_self_attention_kernel(const T* __restrict__ q, const T*
       const int s = j * 32 + l;
       const int r = __shfl_sync(0xffffffffu, my_row[j], l);
       LaneDims<DK, T> kv;
-      kv.load(cache_k + (size_t)r * H * t_max * DK + head + (size_t)s * DK);
-      const float sc = round_to<T>(round_to<T>(warp_sum(qv.dot(kv))) * scale);
+      kv.load(cache_k + (size_t)r * H * t_max * DK + head + (size_t)s * DK, lane);
+      const float sc = round_to<T>(div_score(round_to<T>(warp_sum(qv.dot(kv))), sqrt_dk));
       if (lane == l) my_score[j] = sc;
     }
   }
@@ -124,64 +129,67 @@ __global__ void ancestry_self_attention_kernel(const T* __restrict__ q, const T*
       const int r = __shfl_sync(0xffffffffu, my_row[j], l);
       const float ps = __shfl_sync(0xffffffffu, p[j], l);
       LaneDims<DK, T> vv;
-      vv.load(vals + (size_t)r * H * t_max * DK + head + (size_t)s * DK);
+      vv.load(vals + (size_t)r * H * t_max * DK + head + (size_t)s * DK, lane);
       acc.add(ps, vv);
     }
   }
-  acc.store(out + qo);
+  acc.store(out + qo, lane);
 }
 
 template <int DK, typename T, int S>
 cudaError_t launch(const void* q, const void* ck, const void* cv, const void* anc, void* out, int N, int H,
-                   int t_max, int K, int t, float scale, cudaStream_t stream) {
+                   int t_max, int K, int t, float sqrt_dk, cudaStream_t stream) {
   ancestry_self_attention_kernel<DK, T, S><<<N, H * 32, 0, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(ck), static_cast<const T*>(cv),
-      static_cast<const int*>(anc), static_cast<T*>(out), H, t_max, K, t, scale);
+      static_cast<const int*>(anc), static_cast<T*>(out), H, t_max, K, t, sqrt_dk);
   return cudaGetLastError();
 }
 
 // the smallest S of 1, 2, 4, .., 32 with 32 S >= T_max
 template <int DK, typename T>
 cudaError_t dispatch(const void* q, const void* ck, const void* cv, const void* anc, void* out, int N, int H,
-                     int t_max, int K, int t, float scale, cudaStream_t stream) {
-  if (t_max <= 32) return launch<DK, T, 1>(q, ck, cv, anc, out, N, H, t_max, K, t, scale, stream);
-  if (t_max <= 64) return launch<DK, T, 2>(q, ck, cv, anc, out, N, H, t_max, K, t, scale, stream);
-  if (t_max <= 128) return launch<DK, T, 4>(q, ck, cv, anc, out, N, H, t_max, K, t, scale, stream);
-  if (t_max <= 256) return launch<DK, T, 8>(q, ck, cv, anc, out, N, H, t_max, K, t, scale, stream);
-  if (t_max <= 512) return launch<DK, T, 16>(q, ck, cv, anc, out, N, H, t_max, K, t, scale, stream);
-  return launch<DK, T, 32>(q, ck, cv, anc, out, N, H, t_max, K, t, scale, stream);
+                     int t_max, int K, int t, float sqrt_dk, cudaStream_t stream) {
+  if (t_max <= 32) return launch<DK, T, 1>(q, ck, cv, anc, out, N, H, t_max, K, t, sqrt_dk, stream);
+  if (t_max <= 64) return launch<DK, T, 2>(q, ck, cv, anc, out, N, H, t_max, K, t, sqrt_dk, stream);
+  if (t_max <= 128) return launch<DK, T, 4>(q, ck, cv, anc, out, N, H, t_max, K, t, sqrt_dk, stream);
+  if (t_max <= 256) return launch<DK, T, 8>(q, ck, cv, anc, out, N, H, t_max, K, t, sqrt_dk, stream);
+  if (t_max <= 512) return launch<DK, T, 16>(q, ck, cv, anc, out, N, H, t_max, K, t, sqrt_dk, stream);
+  return launch<DK, T, 32>(q, ck, cv, anc, out, N, H, t_max, K, t, sqrt_dk, stream);
 }
 
 int entry(int dtype, int dk, const void* q, const void* ck, const void* cv, const void* anc, void* out, int N,
-          int H, int t_max, int K, int t, float scale, void* stream) {
+          int H, int t_max, int K, int t, float sqrt_dk, void* stream) {
   if (H < 1 || H > 32 || K < 1 || N % K != 0 || t < 0 || t >= t_max || t_max > 1024)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define SCT_K2(DK, T) (int)dispatch<DK, T>(q, ck, cv, anc, out, N, H, t_max, K, t, scale, s)
+#define SCT_K2(DK, T) (int)dispatch<DK, T>(q, ck, cv, anc, out, N, H, t_max, K, t, sqrt_dk, s)
   if (dk == 64 && dtype == 0) return SCT_K2(64, float);
   if (dk == 64 && dtype == 1) return SCT_K2(64, __nv_bfloat16);
   if (dk == 32 && dtype == 0) return SCT_K2(32, float);
   if (dk == 32 && dtype == 1) return SCT_K2(32, __nv_bfloat16);
+  if (dk == 13 && dtype == 0) return SCT_K2(13, float);
+  if (dk == 13 && dtype == 1) return SCT_K2(13, __nv_bfloat16);
 #undef SCT_K2
   return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace sct
 
-// dtype: 0 = float32, 1 = bfloat16; dk: 64 or 32. q/out (N, H, dk); cache_k/v
-// (N, H, T_max, dk), T_max <= 1024; anc (N / K, K, T_max) int32 or null; 0 <= t < T_max.
+// dtype: 0 = float32, 1 = bfloat16; dk: 64, 32 or 13. q/out (N, H, dk); cache_k/v
+// (N, H, T_max, dk), T_max <= 1024; anc (N / K, K, T_max) int32 or null; 0 <= t < T_max;
+// sqrt_dk: the scores' divisor, sqrt(dk) rounded to the compute dtype.
 extern "C" int sct_ancestry_self_attention(int dtype, int dk, const void* q, const void* cache_k, const void* cache_v,
                                            const void* anc, void* out, int N, int H, int t_max, int K, int t,
-                                           float scale, void* stream) {
+                                           float sqrt_dk, void* stream) {
   if (cache_v == nullptr) return (int)cudaErrorInvalidValue;
-  return sct::entry(dtype, dk, q, cache_k, cache_v, anc, out, N, H, t_max, K, t, scale, stream);
+  return sct::entry(dtype, dk, q, cache_k, cache_v, anc, out, N, H, t_max, K, t, sqrt_dk, stream);
 }
 
 // kv mode: cache (N, H, T_max, dk) is both K and V.
 extern "C" int sct_ancestry_self_attention_kv(int dtype, int dk, const void* q, const void* cache, const void* anc,
-                                              void* out, int N, int H, int t_max, int K, int t, float scale,
+                                              void* out, int N, int H, int t_max, int K, int t, float sqrt_dk,
                                               void* stream) {
-  return sct::entry(dtype, dk, q, cache, nullptr, anc, out, N, H, t_max, K, t, scale, stream);
+  return sct::entry(dtype, dk, q, cache, nullptr, anc, out, N, H, t_max, K, t, sqrt_dk, stream);
 }
 
 extern "C" const char* sct_error_string(int err) { return cudaGetErrorString(static_cast<cudaError_t>(err)); }

@@ -9,7 +9,7 @@
 //   geo[i,j]   = sin/cos(100 * log-delta(box_i, box_j) * freq)      (f32 trig, rounded to T)
 //   w_g[i,j,h] = max(relu(round(round(geo . wg[h]) + wg_b[h])), 1e-6)
 //   bias       = round(log(w_g))
-//   s          = round(fill(round(round(q.k) * scale), mask, -1e9) + bias)
+//   s          = round(fill(round(round(q.k) / sqrt_dk), mask, -1e9) + bias)   (sqrt_dk = sqrt(dk) in T)
 //   p          = round(softmax(s))    (f32 max, exp and sum)
 //   out        = round(p . v)
 // where round() is the rounding to the compute dtype T (a no-op in f32).
@@ -37,7 +37,7 @@
 // - Attention: the (head, 16-row query tile) units, H * ceil(R / 16) of them,
 //   go to the 8 warps in turn (R padded to RP = 16 * ceil(R / 16)). S = QK^T
 //   (4 k-steps over d = 64, 2 RP / 16
-//   n-tiles of keys) stays in the accumulators; the scale, fill, bias and
+//   n-tiles of keys) stays in the accumulators; the division, fill, bias and
 //   the f32 softmax (row max and sum over the quad by shuffles) run there;
 //   P is rounded to bf16 and reused in registers as the A operand of P.V
 //   (V's B fragments by ldmatrix.trans, 8 n-tiles over d); the result goes
@@ -70,6 +70,11 @@
 // from the k rows); the f32 kernel stages k once and reads its rows as V.
 // Bytes at ACORT's serving shape (B = 2048, 8 heads, R = 36): 226 MB instead
 // of 302.
+// Head width 13 (ORT-xsmall's d104 over 8 heads): the tiles are staged at
+// width 16 with columns 13-15 zero (common.cuh kPad), one mma k-step over d;
+// its 26-byte rows take no TMA, so the loading warp copies them element by
+// element and arrives on the head's mbarrier itself; only the 13 real
+// columns of out are written.
 #include "box_geometry.cuh"
 
 namespace sct {
@@ -80,9 +85,10 @@ using bf16 = __nv_bfloat16;
 constexpr int kMmaWarps = 8;
 constexpr int kMmaThreads = 32 * kMmaWarps;
 constexpr int kStages = 3;  // heads in flight: 3 x ceil(36 / 16) = 9 query tiles for the 8 warps
-// staged row stride in bf16 at head width DK (144 B at 64, 80 B at 32: the 8
-// rows of a fragment or ldmatrix load in distinct banks; 16-byte aligned for TMA)
-template <int DK> constexpr int kLd = DK + 8;
+// staged row stride in bf16 at head width DK (144 B at 64, 80 B at 32, 48 B
+// at 13: the 8 rows of a fragment or ldmatrix load in distinct banks; 16-byte
+// aligned for TMA)
+template <int DK> constexpr int kLd = kPad<DK> + 8;
 
 inline int padded_rows(int R) { return 16 * ((R + 15) / 16); }
 
@@ -90,7 +96,7 @@ inline int padded_rows(int R) { return 16 * ((R + 15) / 16); }
 // ((q, k) in the kv mode) | a zero row (every padded row reads it) | bias |
 // boxes | wg_b | mask
 inline size_t mma_smem_bytes(int dk, int H, int R, bool kv) {
-  const size_t tiles = (kStages * (kv ? 2 : 3) * (size_t)R + 1) * (dk + 8) * sizeof(bf16);
+  const size_t tiles = (kStages * (kv ? 2 : 3) * (size_t)R + 1) * (padded_width(dk) + 8) * sizeof(bf16);
   const size_t bias = (((size_t)H * R * R + 7) / 8) * 8 * sizeof(bf16);
   return 2 * kMaxHeads * sizeof(uint64_t) + tiles + bias + (size_t)R * 4 * sizeof(float) +
          kMaxHeads * sizeof(float) + R;
@@ -106,10 +112,10 @@ template <int DK, int RP>
 __device__ __forceinline__ void attend_tile_bf16(bf16* qs, const bf16* ks, const bf16* vs, const bf16* zero,
                                                  const bf16* bias_h, const unsigned char* mask_s,
                                                  const unsigned char* __restrict__ keep_h, float keep_prob,
-                                                 bf16* __restrict__ out_h, int R, int mt, float scale) {
+                                                 bf16* __restrict__ out_h, int R, int mt, float sqrt_dk) {
   constexpr int KS = RP / 16;  // key k-steps of P.V
   constexpr int NS = 2 * KS;   // key n-tiles of S
-  constexpr int LD = kLd<DK>, ND = DK / 8;  // ND: output n-tiles over d
+  constexpr int LD = kLd<DK>, ND = kPad<DK> / 8;  // ND: output n-tiles over d
   const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
   const int rows[2] = {16 * mt + g, 16 * mt + g + 8};
   const int nsv = (R + 7) / 8;  // key n-tiles that hold keys; the rest of S stays 0 and P 0
@@ -118,7 +124,7 @@ __device__ __forceinline__ void attend_tile_bf16(bf16* qs, const bf16* ks, const
 #pragma unroll
   for (int nt = 0; nt < NS; ++nt) sacc[nt][0] = sacc[nt][1] = sacc[nt][2] = sacc[nt][3] = 0.f;
 #pragma unroll
-  for (int kd = 0; kd < DK / 16; ++kd) {
+  for (int kd = 0; kd < kPad<DK> / 16; ++kd) {
     const int col = 16 * kd + 2 * t;
     const bf16* q0 = tile_row<DK>(qs, rows[0], R, zero) + col;
     const bf16* q1 = tile_row<DK>(qs, rows[1], R, zero) + col;
@@ -143,7 +149,7 @@ __device__ __forceinline__ void attend_tile_bf16(bf16* qs, const bf16* ks, const
       const int j = 8 * nt + 2 * t + (e & 1), row = rows[e >> 1];
       float s = -INFINITY;
       if (j < R) {
-        s = round_to<bf16>(round_to<bf16>(sacc[nt][e]) * scale);
+        s = round_to<bf16>(div_score(round_to<bf16>(sacc[nt][e]), sqrt_dk));
         if (mask_s[j] == 0) s = fill;
         if (row < R) s = round_to<bf16>(s + __bfloat162float(bias_h[row * R + j]));
       }
@@ -194,7 +200,7 @@ __device__ __forceinline__ void attend_tile_bf16(bf16* qs, const bf16* ks, const
                            pack_bf16(sacc[2 * kk + 1][0], sacc[2 * kk + 1][1]),
                            pack_bf16(sacc[2 * kk + 1][2], sacc[2 * kk + 1][3])};
 #pragma unroll
-    for (int jn = 0; jn < DK / 16; ++jn) {
+    for (int jn = 0; jn < kPad<DK> / 16; ++jn) {
       uint32_t r[4];
       ldmatrix_x4_trans(r, tile_row<DK>(vs, 16 * kk + (lane & 15), R, zero) + 16 * jn + (lane >> 4) * 8);
       const uint32_t b0[2] = {r[0], r[1]}, b1[2] = {r[2], r[3]};
@@ -212,10 +218,15 @@ __device__ __forceinline__ void attend_tile_bf16(bf16* qs, const bf16* ks, const
     if (rows[1] < R) *reinterpret_cast<uint32_t*>(qs + rows[1] * LD + col) = pack_bf16(oacc[nt][2], oacc[nt][3]);
   }
   __syncwarp();
-  for (int c = lane; c < 16 * (DK / 8); c += 32) {
-    const int row = 16 * mt + c / (DK / 8), col = 8 * (c % (DK / 8));
-    if (row < R) {
-      *reinterpret_cast<uint4*>(out_h + row * DK + col) = *reinterpret_cast<const uint4*>(qs + row * LD + col);
+  if constexpr (kNarrow<DK>) {  // the real columns, one element a store
+    const int live = R - 16 * mt < 16 ? R - 16 * mt : 16;
+    store_unpadded<DK>(out_h + 16 * mt * DK, qs + 16 * mt * LD, LD, live, lane, 32);
+  } else {
+    for (int c = lane; c < 16 * (DK / 8); c += 32) {
+      const int row = 16 * mt + c / (DK / 8), col = 8 * (c % (DK / 8));
+      if (row < R) {
+        *reinterpret_cast<uint4*>(out_h + row * DK + col) = *reinterpret_cast<const uint4*>(qs + row * LD + col);
+      }
     }
   }
 }
@@ -229,7 +240,7 @@ box_attention_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                          const bf16* __restrict__ wg_b, const float* __restrict__ freq,
                          const unsigned char* __restrict__ mask, const unsigned char* __restrict__ keep,
                          float keep_prob, bf16* __restrict__ out, bf16* __restrict__ bias_out, int H, int R,
-                         float scale) {
+                         float sqrt_dk) {
   extern __shared__ __align__(128) unsigned char smem[];
   uint64_t* full = reinterpret_cast<uint64_t*>(smem);  // per head: its tiles have landed
   uint64_t* empty = full + kMaxHeads;                  // per head: its query tiles are done
@@ -263,13 +274,21 @@ box_attention_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const size_t head_elems = (size_t)R * DK;
   auto load_head = [&](int h) {  // one warp: head h's q, k, v (q, k) into stage h % kStages, one copy per row
     const int s = h % kStages;
-    if (lane == 0) mbar_arrive_expect_tx(&full[h], (unsigned)NT * R * DK * sizeof(bf16));
-    __syncwarp();
     const size_t base = ((size_t)b * H + h) * head_elems;
-    for (int r = lane; r < R; r += 32) {
-      tma_load_1d(tile(s, 0) + r * LD, q + base + r * DK, DK * sizeof(bf16), &full[h]);
-      tma_load_1d(tile(s, 1) + r * LD, k + base + r * DK, DK * sizeof(bf16), &full[h]);
-      if (!KV) tma_load_1d(tile(s, 2) + r * LD, v + base + r * DK, DK * sizeof(bf16), &full[h]);
+    if constexpr (kNarrow<DK>) {  // 26-byte rows: the warp's own element copies, then its arrival
+      stage_padded<DK>(tile(s, 0), LD, q + base, R, lane, 32);
+      stage_padded<DK>(tile(s, 1), LD, k + base, R, lane, 32);
+      if (!KV) stage_padded<DK>(tile(s, 2), LD, v + base, R, lane, 32);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&full[h]);
+    } else {
+      if (lane == 0) mbar_arrive_expect_tx(&full[h], (unsigned)NT * R * DK * sizeof(bf16));
+      __syncwarp();
+      for (int r = lane; r < R; r += 32) {
+        tma_load_1d(tile(s, 0) + r * LD, q + base + r * DK, DK * sizeof(bf16), &full[h]);
+        tma_load_1d(tile(s, 1) + r * LD, k + base + r * DK, DK * sizeof(bf16), &full[h]);
+        if (!KV) tma_load_1d(tile(s, 2) + r * LD, v + base + r * DK, DK * sizeof(bf16), &full[h]);
+      }
     }
   };
   if (warp < kStages && warp < H) load_head(warp);
@@ -307,7 +326,7 @@ box_attention_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     mbar_wait(&full[h], 0);
     const size_t row0 = ((size_t)b * H + h) * R;
     attend_tile_bf16<DK, RP>(tile(s, 0), tile(s, 1), tile(s, 2), zero, bias_s + h * P, mask_s,
-                             keep == nullptr ? nullptr : keep + row0 * R, keep_prob, out + row0 * DK, R, mt, scale);
+                             keep == nullptr ? nullptr : keep + row0 * R, keep_prob, out + row0 * DK, R, mt, sqrt_dk);
     fence_proxy_async();  // the output staging wrote into the stage that a later copy overwrites
     __syncwarp();
     if (lane == 0) mbar_arrive(&empty[h]);
@@ -322,14 +341,14 @@ box_attention_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 constexpr int kF32Threads = 256;
 constexpr int kF32Warps = kF32Threads / 32;
 constexpr int kRowsPerWarp = 4;          // query rows sharing each key load
-// f32 key row stride (68 / 36 floats): 128-bit loads of 8 lanes hit distinct banks
-template <int DK> constexpr int kKeyLd = DK + 4;
+// f32 key row stride (68 / 36 / 20 floats): 128-bit loads of 8 lanes hit distinct banks
+template <int DK> constexpr int kKeyLd = kPad<DK> + 4;
 
 // the f32 bias region, rounded up so that the tiles after it take 16-byte loads
 __host__ __device__ inline int bias_floats(int H, int R) { return ((H * R * R + 3) / 4) * 4; }
 
 inline size_t f32_smem_bytes(int dk, int H, int R, bool kv) {
-  const size_t floats = bias_floats(H, R) + (size_t)R * (dk + 4) + (kv ? 1 : 2) * (size_t)R * dk +
+  const size_t floats = bias_floats(H, R) + (size_t)R * (padded_width(dk) + 4) + (kv ? 1 : 2) * (size_t)R * padded_width(dk) +
                         (size_t)kF32Warps * 64 * kRowsPerWarp + (size_t)R * 4 + (size_t)H * 64 + H + kFreqs;
   return floats * sizeof(float) + R;
 }
@@ -341,16 +360,16 @@ box_attention_f32_kernel(const float* __restrict__ q, const float* __restrict__ 
                          const float* __restrict__ wg_b, const float* __restrict__ freq,
                          const unsigned char* __restrict__ mask, const unsigned char* __restrict__ keep,
                          float keep_prob, float* __restrict__ out, float* __restrict__ bias_out, int H, int R,
-                         float scale) {
+                         float sqrt_dk) {
   extern __shared__ __align__(16) float smem_f[];
   const int warp = threadIdx.x / 32, lane = threadIdx.x & 31;
-  constexpr int KLD = kKeyLd<DK>;
+  constexpr int KLD = kKeyLd<DK>, DP = kPad<DK>;  // DP: the staged (padded) width
   float* bias_s = smem_f;                  // H * R * R
-  float* q_s = bias_s + bias_floats(H, R);  // R * DK
-  float* k_s = q_s + R * DK;               // R * KLD
-  float* v_s = KV ? k_s : k_s + R * KLD;   // R * DK; the key tile in the kv mode
-  constexpr int vld = KV ? KLD : DK;       // its row stride
-  float* p_s = k_s + R * KLD + (KV ? 0 : R * DK);  // per warp 64 keys x 4 rows
+  float* q_s = bias_s + bias_floats(H, R);  // R * DP
+  float* k_s = q_s + R * DP;               // R * KLD
+  float* v_s = KV ? k_s : k_s + R * KLD;   // R * DP; the key tile in the kv mode
+  constexpr int vld = KV ? KLD : DP;       // its row stride
+  float* p_s = k_s + R * KLD + (KV ? 0 : R * DP);  // per warp 64 keys x 4 rows
   float* box_s = p_s + kF32Warps * 64 * kRowsPerWarp;
   float* w_s = box_s + R * 4;              // H * 64
   float* wb_s = w_s + H * 64;              // H
@@ -382,13 +401,19 @@ box_attention_f32_kernel(const float* __restrict__ q, const float* __restrict__ 
   for (int hh = 0; hh < H; ++hh) {
     const size_t base = ((size_t)b * H + hh) * R * DK;
     __syncthreads();  // bias done / the previous head's tiles no longer read
-    for (int e = threadIdx.x; e < R * (DK / 4); e += blockDim.x) {
-      const int r = e / (DK / 4), c = 4 * (e % (DK / 4));
-      const float4 qv = *reinterpret_cast<const float4*>(q + base + r * DK + c);
-      const float4 kv = *reinterpret_cast<const float4*>(k + base + r * DK + c);
-      *reinterpret_cast<float4*>(q_s + r * DK + c) = qv;
-      *reinterpret_cast<float4*>(k_s + r * KLD + c) = kv;
-      if (!KV) *reinterpret_cast<float4*>(v_s + r * DK + c) = *reinterpret_cast<const float4*>(v + base + r * DK + c);
+    if constexpr (kNarrow<DK>) {
+      stage_padded<DK>(q_s, DP, q + base, R, threadIdx.x, blockDim.x);
+      stage_padded<DK>(k_s, KLD, k + base, R, threadIdx.x, blockDim.x);
+      if (!KV) stage_padded<DK>(v_s, DP, v + base, R, threadIdx.x, blockDim.x);
+    } else {
+      for (int e = threadIdx.x; e < R * (DK / 4); e += blockDim.x) {
+        const int r = e / (DK / 4), c = 4 * (e % (DK / 4));
+        const float4 qv = *reinterpret_cast<const float4*>(q + base + r * DK + c);
+        const float4 kv = *reinterpret_cast<const float4*>(k + base + r * DK + c);
+        *reinterpret_cast<float4*>(q_s + r * DK + c) = qv;
+        *reinterpret_cast<float4*>(k_s + r * KLD + c) = kv;
+        if (!KV) *reinterpret_cast<float4*>(v_s + r * DK + c) = *reinterpret_cast<const float4*>(v + base + r * DK + c);
+      }
     }
     __syncthreads();
     const float* bias_h = bias_s + hh * R * R;
@@ -398,13 +423,13 @@ box_attention_f32_kernel(const float* __restrict__ q, const float* __restrict__ 
       for (int r = 0; r < kRowsPerWarp; ++r) acc[r][0] = acc[r][1] = 0.f;
       const int j0 = lane < R ? lane : 0, j1 = lane + 32 < R ? lane + 32 : 0;
 #pragma unroll 4
-      for (int d = 0; d < DK; d += 4) {
+      for (int d = 0; d < DP; d += 4) {
         const float4 k0 = *reinterpret_cast<const float4*>(k_s + j0 * KLD + d);
         const float4 k1 = *reinterpret_cast<const float4*>(k_s + j1 * KLD + d);
 #pragma unroll
         for (int r = 0; r < kRowsPerWarp; ++r) {
           const int i = min(i0 + r, R - 1);
-          const float4 qv = *reinterpret_cast<const float4*>(q_s + i * DK + d);  // broadcast
+          const float4 qv = *reinterpret_cast<const float4*>(q_s + i * DP + d);  // broadcast
           acc[r][0] = fmaf(qv.x, k0.x, acc[r][0]);
           acc[r][0] = fmaf(qv.y, k0.y, acc[r][0]);
           acc[r][0] = fmaf(qv.z, k0.z, acc[r][0]);
@@ -424,7 +449,7 @@ box_attention_f32_kernel(const float* __restrict__ q, const float* __restrict__ 
           const int j = lane + 32 * c;
           s[c] = -INFINITY;
           if (j < R) {
-            s[c] = acc[r][c] * scale;
+            s[c] = div_score(acc[r][c], sqrt_dk);
             if (mask_s[j] == 0) s[c] = kNegInf;
             s[c] += bias_h[i * R + j];
           }
@@ -462,7 +487,7 @@ box_attention_f32_kernel(const float* __restrict__ q, const float* __restrict__ 
       }
 #pragma unroll
       for (int r = 0; r < kRowsPerWarp; ++r) {
-        if (i0 + r < R) *reinterpret_cast<float2*>(out + base + (i0 + r) * DK + 2 * lane) = o[r];
+        if (i0 + r < R) store_col_pair<DK>(out + base + (i0 + r) * DK, 2 * lane, o[r]);
       }
       __syncwarp();  // pw is rewritten by the next rows
     }
@@ -472,7 +497,7 @@ box_attention_f32_kernel(const float* __restrict__ q, const float* __restrict__ 
 template <int DK, bool KV>
 int dispatch(int dtype, const void* q, const void* k, const void* v, const void* boxes, const void* wg_w,
              const void* wg_b, const void* freq, const void* mask, const void* keep, float keep_prob, void* out,
-             void* bias_out, int B, int H, int R, float scale, void* stream) {
+             void* bias_out, int B, int H, int R, float sqrt_dk, void* stream) {
   if (H < 1 || H > kMaxHeads || R < 1 || R > 64 || B < 1) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const unsigned char* mk = static_cast<const unsigned char*>(mask);
@@ -487,7 +512,7 @@ int dispatch(int dtype, const void* q, const void* k, const void* v, const void*
         static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
         static_cast<const float*>(boxes), static_cast<const float*>(wg_w), static_cast<const float*>(wg_b),
         static_cast<const float*>(freq), mk, kp, keep_prob, static_cast<float*>(out), static_cast<float*>(bias_out),
-        H, R, scale);
+        H, R, sqrt_dk);
     return (int)cudaGetLastError();
   }
   if (dtype != 1) return (int)cudaErrorInvalidValue;
@@ -504,36 +529,35 @@ int dispatch(int dtype, const void* q, const void* k, const void* v, const void*
                                       static_cast<const bf16*>(v), static_cast<const float*>(boxes),
                                       static_cast<const bf16*>(wg_w), static_cast<const bf16*>(wg_b),
                                       static_cast<const float*>(freq), mk, kp, keep_prob, static_cast<bf16*>(out),
-                                      static_cast<bf16*>(bias_out), H, R, scale);
+                                      static_cast<bf16*>(bias_out), H, R, sqrt_dk);
   return (int)cudaGetLastError();
 }
 
-// the instance of head width dk (64 or 32)
+// the instance of head width dk (64, 32 or 13)
 template <bool KV>
 int dispatch_dk(int dtype, int dk, const void* q, const void* k, const void* v, const void* boxes, const void* wg_w,
                 const void* wg_b, const void* freq, const void* mask, const void* keep, float keep_prob, void* out,
-                void* bias_out, int B, int H, int R, float scale, void* stream) {
-  if (dk == 64) {
-    return dispatch<64, KV>(dtype, q, k, v, boxes, wg_w, wg_b, freq, mask, keep, keep_prob, out, bias_out, B, H, R,
-                            scale, stream);
-  }
-  if (dk == 32) {
-    return dispatch<32, KV>(dtype, q, k, v, boxes, wg_w, wg_b, freq, mask, keep, keep_prob, out, bias_out, B, H, R,
-                            scale, stream);
-  }
+                void* bias_out, int B, int H, int R, float sqrt_dk, void* stream) {
+#define SCT_DK(DK) \
+  dispatch<DK, KV>(dtype, q, k, v, boxes, wg_w, wg_b, freq, mask, keep, keep_prob, out, bias_out, B, H, R, sqrt_dk, stream)
+  if (dk == 64) return SCT_DK(64);
+  if (dk == 32) return SCT_DK(32);
+  if (dk == 13) return SCT_DK(13);
+#undef SCT_DK
   return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace sct
 
-// dtype: 0 = float32, 1 = bfloat16; dk: the head width, 64 or 32. q/k/v/out (B, H, R, dk); boxes (B, R, 4) f32;
+// dtype: 0 = float32, 1 = bfloat16; dk: the head width, 64, 32 or 13. q/k/v/out (B, H, R, dk); boxes (B, R, 4) f32;
 // wg_w (H, 64) and wg_b (H,) in the compute dtype; freq (8,) f32; mask (B, R) bool;
-// bias_out (B, H, R, R) in the compute dtype, or null: the log-bias added, for the check.
+// bias_out (B, H, R, R) in the compute dtype, or null: the log-bias added, for the check;
+// sqrt_dk: the scores' divisor, sqrt(dk) rounded to the compute dtype.
 extern "C" int sct_box_attention(int dtype, int dk, const void* q, const void* k, const void* v, const void* boxes,
                                  const void* wg_w, const void* wg_b, const void* freq, const void* mask,
-                                 void* out, void* bias_out, int B, int H, int R, float scale, void* stream) {
+                                 void* out, void* bias_out, int B, int H, int R, float sqrt_dk, void* stream) {
   return sct::dispatch_dk<false>(dtype, dk, q, k, v, boxes, wg_w, wg_b, freq, mask, nullptr, 1.f, out, bias_out, B,
-                                 H, R, scale, stream);
+                                 H, R, sqrt_dk, stream);
 }
 
 // Train variant: as above, plus keep (B, H, R, R) bool or null (no dropout)
@@ -541,25 +565,25 @@ extern "C" int sct_box_attention(int dtype, int dk, const void* q, const void* k
 extern "C" int sct_box_attention_train(int dtype, int dk, const void* q, const void* k, const void* v,
                                        const void* boxes, const void* wg_w, const void* wg_b, const void* freq,
                                        const void* mask, const void* keep, float keep_prob, void* out, int B, int H,
-                                       int R, float scale, void* stream) {
+                                       int R, float sqrt_dk, void* stream) {
   return sct::dispatch_dk<false>(dtype, dk, q, k, v, boxes, wg_w, wg_b, freq, mask, keep, keep_prob, out, nullptr, B,
-                                 H, R, scale, stream);
+                                 H, R, sqrt_dk, stream);
 }
 
 // kv modes of both: k (B, H, R, dk) is also V.
 extern "C" int sct_box_attention_kv(int dtype, int dk, const void* q, const void* k, const void* boxes,
                                     const void* wg_w, const void* wg_b, const void* freq, const void* mask, void* out,
-                                    void* bias_out, int B, int H, int R, float scale, void* stream) {
+                                    void* bias_out, int B, int H, int R, float sqrt_dk, void* stream) {
   return sct::dispatch_dk<true>(dtype, dk, q, k, k, boxes, wg_w, wg_b, freq, mask, nullptr, 1.f, out, bias_out, B, H,
-                                R, scale, stream);
+                                R, sqrt_dk, stream);
 }
 
 extern "C" int sct_box_attention_train_kv(int dtype, int dk, const void* q, const void* k, const void* boxes,
                                           const void* wg_w, const void* wg_b, const void* freq, const void* mask,
                                           const void* keep, float keep_prob, void* out, int B, int H, int R,
-                                          float scale, void* stream) {
+                                          float sqrt_dk, void* stream) {
   return sct::dispatch_dk<true>(dtype, dk, q, k, k, boxes, wg_w, wg_b, freq, mask, keep, keep_prob, out, nullptr, B,
-                                H, R, scale, stream);
+                                H, R, sqrt_dk, stream);
 }
 
 extern "C" const char* sct_error_string(int err) { return cudaGetErrorString(static_cast<cudaError_t>(err)); }

@@ -10,7 +10,7 @@
 //   dV  = round(P~^T dO);  dP = round(dO V^T);  dP~ = round(dP * keep / keep_prob)
 //   g = round(dP~ p);  D_i = sum_j g_ij;  dS = round(g - p D)   (PyTorch's CUDA softmax
 //   backward: the product rounded to T first, then f32)
-//   dQ  = round(round(dS_unmasked * scale) K);  dK = round(round(dS_unmasked * scale)^T Q)
+//   dQ  = round(round(dS_unmasked / sqrt_dk) K);  dK = round(round(dS_unmasked / sqrt_dk)^T Q)
 //   d log(w_g) = dS;  dz = round(dS / w_g) where w_g = relu(z) > 1e-6, else 0
 //   d wg_w[h, g] = round(sum over images and pairs of dz[h] geo[g]); d wg_b[h] = round(sum dz[h])
 // The gradient of log(max(relu(z), 1e-6)) is 1/z above the clamp: as
@@ -70,6 +70,10 @@
 // dKV = round(round(dK) + round(dV)): the plain version's autograd rounds
 // each use's product to T and then adds the two in T (in f32, dK + dV).
 // Adding in f32 and rounding once differs in the last bit.
+// Head width 13 (ORT-xsmall): tiles staged at width 16 with columns 13-15
+// zero (common.cuh kPad), by the loading warp's element copies and its own
+// arrival (26-byte rows take no TMA); only the 13 real columns of dq, dk, dv
+// (dkv) written.
 #include <cooperative_groups.h>
 
 #include "box_geometry.cuh"
@@ -83,8 +87,8 @@ using bf16 = __nv_bfloat16;
 constexpr int kGroupHeads = 4;  // heads per block
 constexpr int kBwdWarps = 4;
 constexpr int kBwdThreads = 32 * kBwdWarps;
-// staged row stride in bf16 at head width DK (144 B at 64, 80 B at 32)
-template <int DK> constexpr int kLd = DK + 8;
+// staged row stride in bf16 at head width DK (144 B at 64, 80 B at 32, 48 B at 13)
+template <int DK> constexpr int kLd = kPad<DK> + 8;
 constexpr int kWgCols = 64 + 1;  // a partial row: the 64 geometry features (dim_g, not dk), then the bias
 
 inline int padded_rows(int R) { return 16 * ((R + 15) / 16); }
@@ -97,7 +101,7 @@ inline int padded_rows(int R) { return 16 * ((R + 15) / 16); }
 inline size_t bwd_mma_smem_bytes(int dk, int R, bool kv) {
   const int rp = padded_rows(R);
   const size_t bars = 3 * kGroupHeads * sizeof(uint64_t);
-  const size_t parts = (2 * (kv ? 3 : 4) * (size_t)R + 1) * (dk + 8) * sizeof(bf16) +
+  const size_t parts = (2 * (kv ? 3 : 4) * (size_t)R + 1) * (padded_width(dk) + 8) * sizeof(bf16) +
                        ((kGroupHeads * (size_t)R * R + 7) / 8) * 8 * sizeof(bf16) +
                        2 * 2 * (size_t)rp * (rp + 8) * sizeof(bf16) + (size_t)R * 4 * sizeof(float) +
                        kMaxHeads * sizeof(float) + R;
@@ -110,17 +114,17 @@ __device__ __forceinline__ const bf16* tile_row(const bf16* tile, int r, int R, 
   return r < R ? tile + r * kLd<DK> : zero;
 }
 
-// 16 rows of DK (C fragments of DK / 8 n-tiles, rows row0 + g and + 8) to global memory; rows >= R dropped
+// 16 rows of DK (C fragments of kPad / 8 n-tiles, rows row0 + g and + 8) to global memory; rows >= R and
+// the pad columns dropped
 template <int DK>
-__device__ __forceinline__ void store_rows_bf16(const float acc[DK / 8][4], bf16* __restrict__ dst, int row0, int R) {
+__device__ __forceinline__ void store_rows_bf16(const float acc[kPad<DK> / 8][4], bf16* __restrict__ dst, int row0,
+                                                int R) {
   const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
 #pragma unroll
-  for (int nt = 0; nt < DK / 8; ++nt) {
+  for (int nt = 0; nt < kPad<DK> / 8; ++nt) {
     const int col = 8 * nt + 2 * t;
-    if (row0 + g < R) *reinterpret_cast<uint32_t*>(dst + (row0 + g) * DK + col) = pack_bf16(acc[nt][0], acc[nt][1]);
-    if (row0 + g + 8 < R) {
-      *reinterpret_cast<uint32_t*>(dst + (row0 + g + 8) * DK + col) = pack_bf16(acc[nt][2], acc[nt][3]);
-    }
+    if (row0 + g < R) store_col_pair<DK>(dst + (row0 + g) * DK, col, make_float2(acc[nt][0], acc[nt][1]));
+    if (row0 + g + 8 < R) store_col_pair<DK>(dst + (row0 + g + 8) * DK, col, make_float2(acc[nt][2], acc[nt][3]));
   }
 }
 
@@ -129,8 +133,8 @@ template <int DK, int RP>
 __device__ __forceinline__ void query_tile_bf16(const bf16* qs, const bf16* ks, const bf16* vs, const bf16* dos,
                                                 const bf16* zero, bf16* wz, bf16* dsT, bf16* pT,
                                                 const unsigned char* mask_s, const unsigned char* __restrict__ keep_h,
-                                                float keep_prob, bf16* __restrict__ dq_h, int R, int mt, float scale) {
-  constexpr int KS = RP / 16, NS = 2 * KS, LDT = RP + 8, ND = DK / 8;  // ND: dQ's n-tiles over d
+                                                float keep_prob, bf16* __restrict__ dq_h, int R, int mt, float sqrt_dk) {
+  constexpr int KS = RP / 16, NS = 2 * KS, LDT = RP + 8, ND = kPad<DK> / 8;  // ND: dQ's n-tiles over d
   const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
   const int rows[2] = {16 * mt + g, 16 * mt + g + 8};
   const int nsv = (R + 7) / 8;  // key n-tiles that hold keys; the rest of S stays 0 and P 0
@@ -141,7 +145,7 @@ __device__ __forceinline__ void query_tile_bf16(const bf16* qs, const bf16* ks, 
     for (int e = 0; e < 4; ++e) sacc[nt][e] = dacc[nt][e] = 0.f;
   }
 #pragma unroll
-  for (int kd = 0; kd < DK / 16; ++kd) {
+  for (int kd = 0; kd < kPad<DK> / 16; ++kd) {
     const int col = 16 * kd + 2 * t;
     const bf16* q0 = tile_row<DK>(qs, rows[0], R, zero) + col;
     const bf16* q1 = tile_row<DK>(qs, rows[1], R, zero) + col;
@@ -171,7 +175,7 @@ __device__ __forceinline__ void query_tile_bf16(const bf16* qs, const bf16* ks, 
       const int j = 8 * nt + 2 * t + (e & 1), row = rows[e >> 1];
       float s = -INFINITY;
       if (j < R) {
-        s = round_to<bf16>(round_to<bf16>(sacc[nt][e]) * scale);
+        s = round_to<bf16>(div_score(round_to<bf16>(sacc[nt][e]), sqrt_dk));
         if (mask_s[j] == 0) s = fill;
         if (row < R) s = round_to<bf16>(s + round_to<bf16>(logf(__bfloat162float(wz[row * R + j]))));
       }
@@ -226,7 +230,7 @@ __device__ __forceinline__ void query_tile_bf16(const bf16* qs, const bf16* ks, 
     dsum[r] += __shfl_xor_sync(0xffffffffu, dsum[r], 1);
     dsum[r] += __shfl_xor_sync(0xffffffffu, dsum[r], 2);
   }
-  // dS, dz, and dS * scale with masked keys zeroed (in sacc, the A operand of dQ)
+  // dS, dz, and dS / sqrt_dk with masked keys zeroed (in sacc, the A operand of dQ)
   const float min_wg = round_to<bf16>(1e-6f);
 #pragma unroll
   for (int nt = 0; nt < NS; ++nt) {
@@ -239,7 +243,7 @@ __device__ __forceinline__ void query_tile_bf16(const bf16* qs, const bf16* ks, 
         const float w = __bfloat162float(wz[row * R + j]);
         wz[row * R + j] = __float2bfloat16_rn(w > min_wg ? ds / w : 0.f);
       }
-      const float dsm = real && mask_s[j] != 0 ? round_to<bf16>(ds * scale) : 0.f;
+      const float dsm = real && mask_s[j] != 0 ? round_to<bf16>(div_score(ds, sqrt_dk)) : 0.f;
       dsT[j * LDT + row] = __float2bfloat16_rn(dsm);
       sacc[nt][e] = dsm;
     }
@@ -254,7 +258,7 @@ __device__ __forceinline__ void query_tile_bf16(const bf16* qs, const bf16* ks, 
                            pack_bf16(sacc[2 * kk + 1][0], sacc[2 * kk + 1][1]),
                            pack_bf16(sacc[2 * kk + 1][2], sacc[2 * kk + 1][3])};
 #pragma unroll
-    for (int jn = 0; jn < DK / 16; ++jn) {
+    for (int jn = 0; jn < kPad<DK> / 16; ++jn) {
       uint32_t r[4];
       ldmatrix_x4_trans(r, tile_row<DK>(ks, 16 * kk + (lane & 15), R, zero) + 16 * jn + (lane >> 4) * 8);
       const uint32_t b0[2] = {r[0], r[1]}, b1[2] = {r[2], r[3]};
@@ -271,7 +275,7 @@ template <int DK, int RP, bool KV>
 __device__ __forceinline__ void key_tile_bf16(const bf16* qs, const bf16* dos, const bf16* zero, const bf16* dsT,
                                               const bf16* pT, bf16* __restrict__ dk_h, bf16* __restrict__ dv_h, int R,
                                               int mk) {
-  constexpr int KS = RP / 16, LDT = RP + 8, ND = DK / 8;  // ND: n-tiles over d
+  constexpr int KS = RP / 16, LDT = RP + 8, ND = kPad<DK> / 8;  // ND: n-tiles over d
   const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
   const int keys[2] = {16 * mk + g, 16 * mk + g + 8};
   float kacc[ND][4], vacc[ND][4];
@@ -289,7 +293,7 @@ __device__ __forceinline__ void key_tile_bf16(const bf16* qs, const bf16* dos, c
                             lds_u32(pT + keys[0] * LDT + col + 8), lds_u32(pT + keys[1] * LDT + col + 8)};
     const int row = 16 * kk + (lane & 15), coff = (lane >> 4) * 8;
 #pragma unroll
-    for (int jn = 0; jn < DK / 16; ++jn) {
+    for (int jn = 0; jn < kPad<DK> / 16; ++jn) {
       uint32_t rq[4], rd[4];
       ldmatrix_x4_trans(rq, tile_row<DK>(qs, row, R, zero) + 16 * jn + coff);
       ldmatrix_x4_trans(rd, tile_row<DK>(dos, row, R, zero) + 16 * jn + coff);
@@ -322,7 +326,7 @@ box_attention_bwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict_
                              const float* __restrict__ freq, const unsigned char* __restrict__ mask,
                              const unsigned char* __restrict__ keep, float keep_prob, bf16* __restrict__ dq,
                              bf16* __restrict__ dk, bf16* __restrict__ dv, float* __restrict__ wg_partial, int H,
-                             int R, float scale) {
+                             int R, float sqrt_dk) {
   constexpr int LDT = RP + 8, MT = RP / 16;
   extern __shared__ __align__(128) unsigned char smem[];
   uint64_t* full = reinterpret_cast<uint64_t*>(smem);  // per group head: its tiles have landed
@@ -365,14 +369,23 @@ box_attention_bwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict_
   const size_t head_elems = (size_t)R * DK;
   auto load_head = [&](int hl) {  // one warp: head h0 + hl's q, k, v (not in the kv mode), dO into stage hl % 2
     const int s = hl & 1;
-    if (lane == 0) mbar_arrive_expect_tx(&full[hl], (unsigned)NT * R * DK * sizeof(bf16));
-    __syncwarp();
     const size_t base = ((size_t)b * H + h0 + hl) * head_elems;
-    for (int r = lane; r < R; r += 32) {
-      tma_load_1d(tile(s, 0) + r * LD, q + base + r * DK, DK * sizeof(bf16), &full[hl]);
-      tma_load_1d(tile(s, 1) + r * LD, k + base + r * DK, DK * sizeof(bf16), &full[hl]);
-      if (!KV) tma_load_1d(tile(s, 2) + r * LD, v + base + r * DK, DK * sizeof(bf16), &full[hl]);
-      tma_load_1d(tile(s, 3) + r * LD, dout + base + r * DK, DK * sizeof(bf16), &full[hl]);
+    if constexpr (kNarrow<DK>) {  // 26-byte rows: the warp's own element copies, then its arrival
+      stage_padded<DK>(tile(s, 0), LD, q + base, R, lane, 32);
+      stage_padded<DK>(tile(s, 1), LD, k + base, R, lane, 32);
+      if (!KV) stage_padded<DK>(tile(s, 2), LD, v + base, R, lane, 32);
+      stage_padded<DK>(tile(s, 3), LD, dout + base, R, lane, 32);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&full[hl]);
+    } else {
+      if (lane == 0) mbar_arrive_expect_tx(&full[hl], (unsigned)NT * R * DK * sizeof(bf16));
+      __syncwarp();
+      for (int r = lane; r < R; r += 32) {
+        tma_load_1d(tile(s, 0) + r * LD, q + base + r * DK, DK * sizeof(bf16), &full[hl]);
+        tma_load_1d(tile(s, 1) + r * LD, k + base + r * DK, DK * sizeof(bf16), &full[hl]);
+        if (!KV) tma_load_1d(tile(s, 2) + r * LD, v + base + r * DK, DK * sizeof(bf16), &full[hl]);
+        tma_load_1d(tile(s, 3) + r * LD, dout + base + r * DK, DK * sizeof(bf16), &full[hl]);
+      }
     }
   };
   if (warp == 0) load_head(0);
@@ -414,7 +427,7 @@ box_attention_bwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict_
       mbar_wait(&full[hl], 0);
       query_tile_bf16<DK, RP>(tile(s, 0), tile(s, 1), tile(s, 2), tile(s, 3), zero, wz_s + hl * P, dsT, pT, mask_s,
                               keep == nullptr ? nullptr : keep + row0 * R, keep_prob, dq + row0 * DK, R, part,
-                              scale);
+                              sqrt_dk);
       __syncwarp();
       if (lane == 0) mbar_arrive(&qdone[hl]);
     } else {
@@ -516,11 +529,11 @@ box_attention_bwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict_
 constexpr int kF32Warps = 8;
 constexpr int kF32Threads = 32 * kF32Warps;
 constexpr int kRows = 4;               // query (key) rows a warp takes at once, sharing each load
-// f32 row stride (68 / 36 floats): 128-bit loads of 8 lanes hit distinct banks
-template <int DK> constexpr int kRowLd = DK + 4;
+// f32 row stride (68 / 36 / 20 floats): 128-bit loads of 8 lanes hit distinct banks
+template <int DK> constexpr int kRowLd = kPad<DK> + 4;
 
 inline size_t bwd_f32_smem_bytes(int dk, int R, bool kv) {
-  const size_t floats = ((kGroupHeads * (size_t)R * R + 3) / 4) * 4 + (kv ? 3 : 4) * (size_t)R * (dk + 4) +
+  const size_t floats = ((kGroupHeads * (size_t)R * R + 3) / 4) * 4 + (kv ? 3 : 4) * (size_t)R * (padded_width(dk) + 4) +
                         2 * (size_t)R * R +
                         (size_t)R * 4 + (size_t)kMaxHeads * 64 + kMaxHeads + kFreqs;
   return floats * sizeof(float) + R;
@@ -534,7 +547,7 @@ box_attention_bwd_f32_kernel(const float* __restrict__ q, const float* __restric
                              const float* __restrict__ freq, const unsigned char* __restrict__ mask,
                              const unsigned char* __restrict__ keep, float keep_prob, float* __restrict__ dq,
                              float* __restrict__ dk, float* __restrict__ dv, float* __restrict__ wg_partial, int H,
-                             int R, float scale) {
+                             int R, float sqrt_dk) {
   extern __shared__ __align__(16) float smem_f[];
   constexpr int RLD = kRowLd<DK>;
   const int warp = threadIdx.x / 32, lane = threadIdx.x & 31;
@@ -544,7 +557,7 @@ box_attention_bwd_f32_kernel(const float* __restrict__ q, const float* __restric
   float* k_s = q_s + R * RLD;
   float* v_s = KV ? k_s : k_s + R * RLD;  // the kv mode reads the k rows as v
   float* do_s = v_s + R * RLD;
-  float* ds_s = do_s + R * RLD;  // R * R: dS * scale, masked keys zeroed
+  float* ds_s = do_s + R * RLD;  // R * R: dS / sqrt_dk, masked keys zeroed
   float* pd_s = ds_s + R * R;       // R * R: P~
   float* box_s = pd_s + R * R;
   float* w_s = box_s + R * 4;       // H * 64
@@ -573,13 +586,20 @@ box_attention_bwd_f32_kernel(const float* __restrict__ q, const float* __restric
   for (int hl = 0; hl < G; ++hl) {
     const size_t base = ((size_t)b * H + h0 + hl) * R * DK;
     __syncthreads();  // w_g done / the previous head's tiles no longer read
-    for (int e = threadIdx.x; e < R * (DK / 4); e += blockDim.x) {
-      const int r = e / (DK / 4), c = 4 * (e % (DK / 4));
-      *reinterpret_cast<float4*>(q_s + r * RLD + c) = *reinterpret_cast<const float4*>(q + base + r * DK + c);
-      *reinterpret_cast<float4*>(k_s + r * RLD + c) = *reinterpret_cast<const float4*>(k + base + r * DK + c);
-      if (!KV) *reinterpret_cast<float4*>(v_s + r * RLD + c) = *reinterpret_cast<const float4*>(v + base + r * DK + c);
-      *reinterpret_cast<float4*>(do_s + r * RLD + c) =
-          *reinterpret_cast<const float4*>(dout + base + r * DK + c);
+    if constexpr (kNarrow<DK>) {
+      stage_padded<DK>(q_s, RLD, q + base, R, threadIdx.x, blockDim.x);
+      stage_padded<DK>(k_s, RLD, k + base, R, threadIdx.x, blockDim.x);
+      if (!KV) stage_padded<DK>(v_s, RLD, v + base, R, threadIdx.x, blockDim.x);
+      stage_padded<DK>(do_s, RLD, dout + base, R, threadIdx.x, blockDim.x);
+    } else {
+      for (int e = threadIdx.x; e < R * (DK / 4); e += blockDim.x) {
+        const int r = e / (DK / 4), c = 4 * (e % (DK / 4));
+        *reinterpret_cast<float4*>(q_s + r * RLD + c) = *reinterpret_cast<const float4*>(q + base + r * DK + c);
+        *reinterpret_cast<float4*>(k_s + r * RLD + c) = *reinterpret_cast<const float4*>(k + base + r * DK + c);
+        if (!KV) *reinterpret_cast<float4*>(v_s + r * RLD + c) = *reinterpret_cast<const float4*>(v + base + r * DK + c);
+        *reinterpret_cast<float4*>(do_s + r * RLD + c) =
+            *reinterpret_cast<const float4*>(dout + base + r * DK + c);
+      }
     }
     __syncthreads();
     float* wz = wz_s + hl * R * R;
@@ -589,7 +609,7 @@ box_attention_bwd_f32_kernel(const float* __restrict__ q, const float* __restric
 #pragma unroll
       for (int r = 0; r < kRows; ++r) qk[r][0] = qk[r][1] = pv[r][0] = pv[r][1] = 0.f;
 #pragma unroll 4
-      for (int d = 0; d < DK; d += 4) {
+      for (int d = 0; d < kPad<DK>; d += 4) {
         const float4 k0 = *reinterpret_cast<const float4*>(k_s + j0 * RLD + d);
         const float4 k1 = *reinterpret_cast<const float4*>(k_s + j1 * RLD + d);
         const float4 v0 = *reinterpret_cast<const float4*>(v_s + j0 * RLD + d);
@@ -617,7 +637,7 @@ box_attention_bwd_f32_kernel(const float* __restrict__ q, const float* __restric
           s[c] = -INFINITY;
           dpk[c] = 0.f;
           if (j < R) {
-            s[c] = qk[r][c] * scale;
+            s[c] = div_score(qk[r][c], sqrt_dk);
             if (mask_s[j] == 0) s[c] = kNegInf;
             s[c] += logf(wz[i * R + j]);
             dpk[c] = kr == nullptr ? pv[r][c] : kr[j] ? pv[r][c] / keep_prob : 0.f;
@@ -636,7 +656,7 @@ box_attention_bwd_f32_kernel(const float* __restrict__ q, const float* __restric
           if (j < R) {
             const float ds = fmaf(-p[c], di, gp[c]);
             pd_s[i * R + j] = kr == nullptr ? p[c] : kr[j] ? p[c] / keep_prob : 0.f;
-            ds_s[i * R + j] = mask_s[j] ? ds * scale : 0.f;
+            ds_s[i * R + j] = mask_s[j] ? div_score(ds, sqrt_dk) : 0.f;
             const float w = wz[i * R + j];
             wz[i * R + j] = w > min_wg ? ds / w : 0.f;
           }
@@ -659,7 +679,7 @@ box_attention_bwd_f32_kernel(const float* __restrict__ q, const float* __restric
         }
 #pragma unroll
         for (int r = 0; r < kRows; ++r) {
-          if (i0 + r < R) store2(dq + base + (size_t)(i0 + r) * DK + 2 * lane, acc[r]);
+          if (i0 + r < R) store_col_pair<DK>(dq + base + (size_t)(i0 + r) * DK, 2 * lane, acc[r]);
         }
       }
     }
@@ -685,10 +705,11 @@ box_attention_bwd_f32_kernel(const float* __restrict__ q, const float* __restric
 #pragma unroll
       for (int r = 0; r < kRows; ++r) {
         if (jb + r < R && KV) {  // d(k as K) + d(k as V)
-          store2(dk + base + (size_t)(jb + r) * DK + 2 * lane, make_float2(ak[r].x + av[r].x, ak[r].y + av[r].y));
+          store_col_pair<DK>(dk + base + (size_t)(jb + r) * DK, 2 * lane,
+                             make_float2(ak[r].x + av[r].x, ak[r].y + av[r].y));
         } else if (jb + r < R) {
-          store2(dk + base + (size_t)(jb + r) * DK + 2 * lane, ak[r]);
-          store2(dv + base + (size_t)(jb + r) * DK + 2 * lane, av[r]);
+          store_col_pair<DK>(dk + base + (size_t)(jb + r) * DK, 2 * lane, ak[r]);
+          store_col_pair<DK>(dv + base + (size_t)(jb + r) * DK, 2 * lane, av[r]);
         }
       }
     }
@@ -759,7 +780,7 @@ template <int DK, bool KV>
 int bwd_entry(int dtype, const void* q, const void* k, const void* v, const void* dout, const void* boxes,
               const void* wg_w, const void* wg_b, const void* freq, const void* mask, const void* keep,
               float keep_prob, void* dq, void* dk, void* dv, void* dwg_w, void* dwg_b, void* partial, int B, int H,
-              int R, float scale, void* stream) {
+              int R, float sqrt_dk, void* stream) {
   if (H < 1 || H > kMaxHeads || R < 1 || R > 64 || B < 1) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const dim3 grid(B, (H + kGroupHeads - 1) / kGroupHeads);
@@ -776,7 +797,7 @@ int bwd_entry(int dtype, const void* q, const void* k, const void* v, const void
         static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
         static_cast<const float*>(dout), static_cast<const float*>(boxes), static_cast<const float*>(wg_w),
         static_cast<const float*>(wg_b), static_cast<const float*>(freq), mk, kp, keep_prob, static_cast<float*>(dq),
-        static_cast<float*>(dk), static_cast<float*>(dv), part, H, R, scale);
+        static_cast<float*>(dk), static_cast<float*>(dv), part, H, R, sqrt_dk);
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
     return (int)launch_reduce<float>(partial, B, 1, H, dwg_w, dwg_b, s);
@@ -807,51 +828,52 @@ int bwd_entry(int dtype, const void* q, const void* k, const void* v, const void
                            static_cast<const bf16*>(v), static_cast<const bf16*>(dout),
                            static_cast<const float*>(boxes), static_cast<const bf16*>(wg_w),
                            static_cast<const bf16*>(wg_b), static_cast<const float*>(freq), mk, kp, keep_prob,
-                           static_cast<bf16*>(dq), static_cast<bf16*>(dk), static_cast<bf16*>(dv), part, H, R, scale);
+                           static_cast<bf16*>(dq), static_cast<bf16*>(dk), static_cast<bf16*>(dv), part, H, R,
+                           sqrt_dk);
   if (err != cudaSuccess) return (int)err;
   return (int)launch_reduce<bf16>(partial, B, grid.y, H, dwg_w, dwg_b, s);
 }
 
-// the instance of head width dk (64 or 32)
+// the instance of head width dk (64, 32 or 13)
 template <bool KV>
 int bwd_entry_dk(int dtype, int dk_width, const void* q, const void* k, const void* v, const void* dout,
                  const void* boxes, const void* wg_w, const void* wg_b, const void* freq, const void* mask,
                  const void* keep, float keep_prob, void* dq, void* dk, void* dv, void* dwg_w, void* dwg_b,
-                 void* partial, int B, int H, int R, float scale, void* stream) {
-  if (dk_width == 64) {
-    return bwd_entry<64, KV>(dtype, q, k, v, dout, boxes, wg_w, wg_b, freq, mask, keep, keep_prob, dq, dk, dv, dwg_w,
-                             dwg_b, partial, B, H, R, scale, stream);
-  }
-  if (dk_width == 32) {
-    return bwd_entry<32, KV>(dtype, q, k, v, dout, boxes, wg_w, wg_b, freq, mask, keep, keep_prob, dq, dk, dv, dwg_w,
-                             dwg_b, partial, B, H, R, scale, stream);
-  }
+                 void* partial, int B, int H, int R, float sqrt_dk, void* stream) {
+#define SCT_DK(DK)                                                                                                   \
+  bwd_entry<DK, KV>(dtype, q, k, v, dout, boxes, wg_w, wg_b, freq, mask, keep, keep_prob, dq, dk, dv, dwg_w, dwg_b, \
+                    partial, B, H, R, sqrt_dk, stream)
+  if (dk_width == 64) return SCT_DK(64);
+  if (dk_width == 32) return SCT_DK(32);
+  if (dk_width == 13) return SCT_DK(13);
+#undef SCT_DK
   return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace sct
 
-// dtype: 0 = float32, 1 = bfloat16; dk_width: the head width, 64 or 32. q, k, v, dout, dq, dk, dv (B, H, R, dk);
+// dtype: 0 = float32, 1 = bfloat16; dk_width: the head width, 64, 32 or 13. q, k, v, dout, dq, dk, dv (B, H, R, dk);
 // boxes (B, R, 4) f32; wg_w (H, 64), wg_b (H,), dwg_w, dwg_b in the compute
 // dtype; freq (8,) f32; mask (B, R) bool; keep (B, H, R, R) bool or null with
-// keep_prob (the divisor, rounded to the compute dtype); partial (B, H, 65) f32 scratch.
+// keep_prob (the divisor, rounded to the compute dtype); partial (B, H, 65) f32 scratch;
+// sqrt_dk as sct_box_attention took it.
 extern "C" int sct_box_attention_bwd(int dtype, int dk_width, const void* q, const void* k, const void* v,
                                      const void* dout, const void* boxes, const void* wg_w, const void* wg_b,
                                      const void* freq, const void* mask, const void* keep, float keep_prob, void* dq,
                                      void* dk, void* dv, void* dwg_w, void* dwg_b, void* partial, int B, int H, int R,
-                                     float scale, void* stream) {
+                                     float sqrt_dk, void* stream) {
   return sct::bwd_entry_dk<false>(dtype, dk_width, q, k, v, dout, boxes, wg_w, wg_b, freq, mask, keep, keep_prob, dq,
-                                  dk, dv, dwg_w, dwg_b, partial, B, H, R, scale, stream);
+                                  dk, dv, dwg_w, dwg_b, partial, B, H, R, sqrt_dk, stream);
 }
 
 // kv mode: k is also V; dkv (B, H, R, dk) receives its one gradient.
 extern "C" int sct_box_attention_bwd_kv(int dtype, int dk_width, const void* q, const void* k, const void* dout,
                                         const void* boxes, const void* wg_w, const void* wg_b, const void* freq,
                                         const void* mask, const void* keep, float keep_prob, void* dq, void* dkv,
-                                        void* dwg_w, void* dwg_b, void* partial, int B, int H, int R, float scale,
+                                        void* dwg_w, void* dwg_b, void* partial, int B, int H, int R, float sqrt_dk,
                                         void* stream) {
   return sct::bwd_entry_dk<true>(dtype, dk_width, q, k, k, dout, boxes, wg_w, wg_b, freq, mask, keep, keep_prob, dq,
-                                 dkv, nullptr, dwg_w, dwg_b, partial, B, H, R, scale, stream);
+                                 dkv, nullptr, dwg_w, dwg_b, partial, B, H, R, sqrt_dk, stream);
 }
 
 extern "C" const char* sct_error_string(int err) { return cudaGetErrorString(static_cast<cudaError_t>(err)); }

@@ -43,6 +43,13 @@
 // than 32 rows), so every 16-byte load of a key row feeds 16 FMAs; the
 // weighted sum of V reads P~ by 16-byte loads. Each row's dot products and
 // sums run in the order of K15's f32 variant.
+//
+// kv mode (sct_decoder_attention_kv; ACORT's kv-shared decoder layers, where
+// V is the K tensor): both kernels stage the one tensor's rows once and read
+// them for S = Q K^T and for O = P~ V (the bf16 stage is Tk + group x Tq rows
+// instead of 2 Tk + group x Tq).
+// Head width 13 (ORT-xsmall): rows staged element by element at width 16,
+// columns 13-15 zero (common.cuh kPad), and only the 13 real columns written.
 #include "decoder_attention.cuh"
 #include "vec.cuh"
 
@@ -54,18 +61,20 @@ constexpr int kMaxTeam = 8;  // warps of a block
 // a member's keep flags (Tq x Tk bytes) in a region of this pitch, at the
 // offset that keeps them congruent to their global address mod 16
 __host__ __device__ inline int keep_pitch(int Tq, int Tk) { return 16 * ((Tq * Tk + 15 + 15) / 16); }
-// the unit's stage at head width dk: K (Tk rows), V (Tk), Q (group * Tq) | keep flags (group regions)
-__host__ __device__ inline int fwd_stage_bytes(int dk, int Tq, int Tk, int group, int keep) {
-  return (2 * Tk + group * Tq) * (dk + 8) * (int)sizeof(bf16) + (keep ? group * keep_pitch(Tq, Tk) : 0);
+// the unit's stage at head width dk (rows of padded_width(dk) + 8): K (Tk
+// rows), V (Tk; not in the kv mode), Q (group * Tq) | keep flags (group regions)
+__host__ __device__ inline int fwd_stage_bytes(int dk, int Tq, int Tk, int group, int keep, int kv) {
+  return ((kv ? 1 : 2) * Tk + group * Tq) * (padded_width(dk) + 8) * (int)sizeof(bf16) +
+         (keep ? group * keep_pitch(Tq, Tk) : 0);
 }
 // stages | a zero row
-inline size_t fwd_smem_bytes(int dk, int Tq, int Tk, int group, int keep, int stages) {
-  return (size_t)stages * fwd_stage_bytes(dk, Tq, Tk, group, keep) + (dk + 8) * sizeof(bf16);
+inline size_t fwd_smem_bytes(int dk, int Tq, int Tk, int group, int keep, int kv, int stages) {
+  return (size_t)stages * fwd_stage_bytes(dk, Tq, Tk, group, keep, kv) + (padded_width(dk) + 8) * sizeof(bf16);
 }
 // the stages that fit (2, else 1; 0: none)
-inline int fwd_stages(int dk, int Tq, int Tk, int group, int keep) {
-  if (fwd_smem_bytes(dk, Tq, Tk, group, keep, 2) <= (size_t)kBlockSmemLimit) return 2;
-  return fwd_smem_bytes(dk, Tq, Tk, group, keep, 1) <= (size_t)kBlockSmemLimit ? 1 : 0;
+inline int fwd_stages(int dk, int Tq, int Tk, int group, int keep, int kv) {
+  if (fwd_smem_bytes(dk, Tq, Tk, group, keep, kv, 2) <= (size_t)kBlockSmemLimit) return 2;
+  return fwd_smem_bytes(dk, Tq, Tk, group, keep, kv, 1) <= (size_t)kBlockSmemLimit ? 1 : 0;
 }
 
 // One 16-row tile mt of the unit's stacked rows: S, P, P~ on the
@@ -76,8 +85,8 @@ __device__ __forceinline__ void fwd_query_tile(const bf16* ks, const bf16* vs, b
                                                const unsigned char* __restrict__ valid_b,
                                                const unsigned char* __restrict__ keep, float keep_prob,
                                                bf16* __restrict__ out, int b, int h, int H, int Tq, int Tk, int group,
-                                               int causal, float scale, int mt) {
-  constexpr int NS = 2 * KT, LD = kLd<DK>, ND = DK / 8;  // ND: output n-tiles over d
+                                               int causal, float sqrt_dk, int mt) {
+  constexpr int NS = 2 * KT, LD = kLd<DK>, ND = kPad<DK> / 8;  // ND: output n-tiles over d
   const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
   const int rows = group * Tq, kp = keep_pitch(Tq, Tk);
   bool live[2];
@@ -99,7 +108,7 @@ __device__ __forceinline__ void fwd_query_tile(const bf16* ks, const bf16* vs, b
   const uint32_t kbits = keep_s == nullptr ? 0xffffffffu : dec_keep_bits<NS>(krow, live, Tk);
   float sacc[NS][4];
   dec_scores_mma<DK, KT>(qr, ks, zero, Tk, sacc);
-  dec_softmax_mma<KT>(sacc, vbits, pos, live, Tk, causal, scale);
+  dec_softmax_mma<KT>(sacc, vbits, pos, live, Tk, causal, sqrt_dk);
   const float inv_kp = 1.f / keep_prob;
 #pragma unroll
   for (int nt = 0; nt < NS; ++nt) {
@@ -120,7 +129,7 @@ __device__ __forceinline__ void fwd_query_tile(const bf16* ks, const bf16* vs, b
     const int j = 16 * kk + (lane & 15);
     const bf16* vr = (j < Tk ? vs + j * LD : zero) + (lane >> 4) * 8;
 #pragma unroll
-    for (int jn = 0; jn < DK / 16; ++jn) {
+    for (int jn = 0; jn < kPad<DK> / 16; ++jn) {
       uint32_t rr[4];
       ldmatrix_x4_trans(rr, vr + 16 * jn);
       const uint32_t b0[2] = {rr[0], rr[1]}, b1[2] = {rr[2], rr[3]};
@@ -141,13 +150,23 @@ __device__ __forceinline__ void fwd_query_tile(const bf16* ks, const bf16* vs, b
     }
   }
   __syncwarp();
-  constexpr int RC = DK / 8;  // 16-byte chunks of a row
+  if constexpr (kNarrow<DK>) {  // the real columns, one element a store
+    for (int x = lane; x < 16 * DK; x += 32) {
+      const int sr = 16 * mt + x / DK, c = x % DK;
+      if (sr < rows) {
+        const int m = sr / Tq, i = sr - (sr / Tq) * Tq;
+        out[((((size_t)b * group + m) * H + h) * Tq + i) * DK + c] = qs[sr * LD + c];
+      }
+    }
+  } else {
+    constexpr int RC = DK / 8;  // 16-byte chunks of a row
 #pragma unroll
-  for (int x = lane; x < 16 * RC; x += 32) {
-    const int sr = 16 * mt + x / RC, part = (x % RC) * 8;
-    if (sr < rows) {
-      const int m = sr / Tq, i = sr - (sr / Tq) * Tq;
-      st16(out + ((((size_t)b * group + m) * H + h) * Tq + i) * DK + part, ld16(qs + sr * LD + part));
+    for (int x = lane; x < 16 * RC; x += 32) {
+      const int sr = 16 * mt + x / RC, part = (x % RC) * 8;
+      if (sr < rows) {
+        const int m = sr / Tq, i = sr - (sr / Tq) * Tq;
+        st16(out + ((((size_t)b * group + m) * H + h) * Tq + i) * DK + part, ld16(qs + sr * LD + part));
+      }
     }
   }
 }
@@ -157,28 +176,34 @@ __global__ void __launch_bounds__(32 * kMaxTeam)
 decoder_attention_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
                              const unsigned char* __restrict__ key_valid, const unsigned char* __restrict__ keep,
                              float keep_prob, bf16* __restrict__ out, int units, int H, int Tq, int Tk, int group,
-                             int causal, float scale, int stages) {
+                             int causal, float sqrt_dk, int stages) {
   extern __shared__ __align__(128) unsigned char smem_raw[];
-  constexpr int LD = kLd<DK>, RC = DK / 8;  // RC: 16-byte chunks of a row
-  const int rows = group * Tq, sb = fwd_stage_bytes(DK, Tq, Tk, group, keep != nullptr), kp = keep_pitch(Tq, Tk);
-  const int row_bytes = (2 * Tk + rows) * LD * (int)sizeof(bf16);  // K, V, Q of a stage; its keep flags follow
+  constexpr int LD = kLd<DK>, RC = DK / 8, P = kPad<DK>;  // RC: 16-byte chunks of a row
+  const int kv = v == nullptr, nkv = kv ? 1 : 2;  // the kv mode stages K alone and reads it as V
+  const int rows = group * Tq, sb = fwd_stage_bytes(DK, Tq, Tk, group, keep != nullptr, kv), kp = keep_pitch(Tq, Tk);
+  const int row_bytes = (nkv * Tk + rows) * LD * (int)sizeof(bf16);  // K, V, Q of a stage; its keep flags follow
   bf16* zero = reinterpret_cast<bf16*>(smem_raw + (size_t)stages * sb);
   const int team = blockDim.x / 32, warp = threadIdx.x / 32;
   for (int e = threadIdx.x; e < LD; e += blockDim.x) zero[e] = __float2bfloat16_rn(0.f);
 
-  auto issue = [&](int u, int s) {  // unit u into stage s, 16 bytes a copy
+  auto issue = [&](int u, int s) {  // unit u into stage s, 16 bytes a copy (the narrow instance: one element a thread)
     const int b = u / H, h = u - (u / H) * H;
     bf16* st = reinterpret_cast<bf16*>(smem_raw + (size_t)s * sb);
-    for (int c = threadIdx.x; c < (2 * Tk + rows) * RC; c += blockDim.x) {
-      const int r = c / RC, part = (c % RC) * 8;
-      const bf16* src;
-      if (r < 2 * Tk) {
-        src = (r < Tk ? k : v) + (((size_t)b * H + h) * Tk + (r < Tk ? r : r - Tk)) * DK;
-      } else {
-        const int sr = r - 2 * Tk, m = sr / Tq, i = sr - (sr / Tq) * Tq;
-        src = q + ((((size_t)b * group + m) * H + h) * Tq + i) * DK;
+    auto row_src = [&](int r) -> const bf16* {  // staged row r: K, V (not in the kv mode), then the group's q rows
+      if (r < nkv * Tk) return (r < Tk ? k : v) + (((size_t)b * H + h) * Tk + (r < Tk ? r : r - Tk)) * DK;
+      const int sr = r - nkv * Tk, m = sr / Tq, i = sr - (sr / Tq) * Tq;
+      return q + ((((size_t)b * group + m) * H + h) * Tq + i) * DK;
+    };
+    if constexpr (kNarrow<DK>) {
+      for (int e = threadIdx.x; e < (nkv * Tk + rows) * P; e += blockDim.x) {
+        const int r = e / P, c = e - (e / P) * P;
+        st[r * LD + c] = padded_elem<DK>(row_src(r), c);
       }
-      cp_async<16>(st + r * LD + part, src + part);
+    } else {
+      for (int c = threadIdx.x; c < (nkv * Tk + rows) * RC; c += blockDim.x) {
+        const int r = c / RC, part = (c % RC) * 8;
+        cp_async<16>(st + r * LD + part, row_src(r) + part);
+      }
     }
     if (keep == nullptr) return;
     const int n = Tq * Tk;
@@ -220,12 +245,12 @@ decoder_attention_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict_
     const int b = u / H, h = u - (u / H) * H;
     unsigned char* st = smem_raw + (size_t)s * sb;
     const bf16* ks = reinterpret_cast<const bf16*>(st);
-    const bf16* vs = ks + Tk * LD;
-    bf16* qs = reinterpret_cast<bf16*>(st) + 2 * Tk * LD;
+    const bf16* vs = kv ? ks : ks + Tk * LD;
+    bf16* qs = reinterpret_cast<bf16*>(st) + nkv * Tk * LD;
     const unsigned char* keep_s = keep == nullptr ? nullptr : st + row_bytes;
     for (int mt = warp; 16 * mt < rows; mt += team) {
       fwd_query_tile<DK, KT>(ks, vs, qs, zero, keep_s, key_valid == nullptr ? nullptr : key_valid + (size_t)b * Tk,
-                             keep, keep_prob, out, b, h, H, Tq, Tk, group, causal, scale, mt);
+                             keep, keep_prob, out, b, h, H, Tq, Tk, group, causal, sqrt_dk, mt);
     }
     __syncthreads();  // the stage may be overwritten
   }
@@ -235,10 +260,11 @@ decoder_attention_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict_
 template <int DK, int KT>
 cudaError_t launch_fwd_mma(const void* q, const void* k, const void* v, const void* key_valid, const void* keep,
                            float keep_prob, void* out, int Nk, int H, int Tq, int Tk, int group, int causal,
-                           float scale, cudaStream_t stream) {
-  const int stages = fwd_stages(DK, Tq, Tk, group, keep != nullptr);
+                           float sqrt_dk, cudaStream_t stream) {
+  const int kv = v == nullptr;
+  const int stages = fwd_stages(DK, Tq, Tk, group, keep != nullptr, kv);
   if (stages == 0) return cudaErrorInvalidValue;
-  const size_t smem = fwd_smem_bytes(DK, Tq, Tk, group, keep != nullptr, stages);
+  const size_t smem = fwd_smem_bytes(DK, Tq, Tk, group, keep != nullptr, kv, stages);
   auto kernel = decoder_attention_mma_kernel<DK, KT>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
@@ -252,16 +278,16 @@ cudaError_t launch_fwd_mma(const void* q, const void* k, const void* v, const vo
   kernel<<<units < cap ? units : cap, 32 * team, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
       static_cast<const unsigned char*>(key_valid), static_cast<const unsigned char*>(keep), keep_prob,
-      static_cast<bf16*>(out), units, H, Tq, Tk, group, causal, scale, stages);
+      static_cast<bf16*>(out), units, H, Tq, Tk, group, causal, sqrt_dk, stages);
   return cudaGetLastError();
 }
 
 // ------------------------------------------------------------ f32: CUDA cores
-// k_s, v_s (Tk rows) | q_s (chunk rows) | pd_s (chunk rows x Tk padded to 4)
+// k_s, v_s (Tk rows; not in the kv mode) | q_s (chunk rows) | pd_s (chunk rows x Tk padded to 4)
 template <int DK>
-inline size_t f32_fwd_smem_bytes(int Tq, int Tk, int group) {
+inline size_t f32_fwd_smem_bytes(int Tq, int Tk, int group, int kv) {
   const int cr = f32_chunk_members(Tq, group) * Tq;
-  return ((size_t)(2 * Tk + cr) * kF32Ld<DK> + (size_t)cr * f32_tk_pad(Tk)) * sizeof(float);
+  return ((size_t)((kv ? 1 : 2) * Tk + cr) * kF32Ld<DK> + (size_t)cr * f32_tk_pad(Tk)) * sizeof(float);
 }
 
 // kRowTile: query rows a warp takes at a time (4, or 1 for chunks of fewer
@@ -271,19 +297,19 @@ __global__ void __launch_bounds__(kF32Threads, kRowTile == 1 ? 4 : 2)
 decoder_attention_f32_kernel(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
                              const unsigned char* __restrict__ key_valid, const unsigned char* __restrict__ keep,
                              float keep_prob, float* __restrict__ out, int H, int Tq, int Tk, int group, int causal,
-                             float scale) {
+                             float sqrt_dk) {
   extern __shared__ __align__(16) float fsm[];
   constexpr int LDF = kF32Ld<DK>;
   const int cm = f32_chunk_members(Tq, group), cr_max = cm * Tq, tkp = f32_tk_pad(Tk);
   float* k_s = fsm;
-  float* v_s = k_s + Tk * LDF;
+  float* v_s = v == nullptr ? k_s : k_s + Tk * LDF;  // the kv mode reads the K rows as V
   float* q_s = v_s + Tk * LDF;
   float* pd_s = q_s + cr_max * LDF;  // P~; columns past Tk 0
   const int warp = threadIdx.x / 32, lane = threadIdx.x & 31;
   const int b = blockIdx.x / H, h = blockIdx.x - (blockIdx.x / H) * H;
   const size_t kv0 = ((size_t)b * H + h) * Tk * DK;
   stage_rows_f32<DK>(k_s, k + kv0, Tk);
-  stage_rows_f32<DK>(v_s, v + kv0, Tk);
+  if (v != nullptr) stage_rows_f32<DK>(v_s, v + kv0, Tk);
   const bool v0 = lane < Tk && (key_valid == nullptr || key_valid[(size_t)b * Tk + lane] != 0);
   const bool v1 = lane + 32 < Tk && (key_valid == nullptr || key_valid[(size_t)b * Tk + lane + 32] != 0);
 
@@ -303,7 +329,7 @@ decoder_attention_f32_kernel(const float* __restrict__ q, const float* __restric
       const float* kr1 = k_s + (lane + 32 < Tk ? lane + 32 : 0) * LDF;
       const bool two = Tk > 32;
 #pragma unroll 4
-      for (int d = 0; d < DK; d += 4) {
+      for (int d = 0; d < kPad<DK>; d += 4) {
         const float4 k0 = lds4(kr0 + d);
         const float4 k1 = two ? lds4(kr1 + d) : k0;
 #pragma unroll
@@ -320,8 +346,8 @@ decoder_attention_f32_kernel(const float* __restrict__ q, const float* __restric
         const int m = row / Tq, i = row - (row / Tq) * Tq;
         const size_t grow = (((size_t)b * group + m0 + m) * H + h) * Tq + i;
         const bool ok0 = v0 && (!causal || lane <= i), ok1 = v1 && (!causal || lane + 32 <= i);
-        const float sv[2] = {lane < Tk ? (ok0 ? s[rr][0] * scale : kNegInf) : -INFINITY,
-                             lane + 32 < Tk ? (ok1 ? s[rr][1] * scale : kNegInf) : -INFINITY};
+        const float sv[2] = {lane < Tk ? (ok0 ? div_score(s[rr][0], sqrt_dk) : kNegInf) : -INFINITY,
+                             lane + 32 < Tk ? (ok1 ? div_score(s[rr][1], sqrt_dk) : kNegInf) : -INFINITY};
         float p[2];
         dec_softmax(sv, Tk, p);
 #pragma unroll
@@ -356,7 +382,7 @@ decoder_attention_f32_kernel(const float* __restrict__ q, const float* __restric
         if (row < cr) {
           const int m = row / Tq, i = row - (row / Tq) * Tq;
           const size_t grow = (((size_t)b * group + m0 + m) * H + h) * Tq + i;
-          *reinterpret_cast<float2*>(out + grow * DK + 2 * lane) = acc[rr];
+          store_col_pair<DK>(out + grow * DK, 2 * lane, acc[rr]);
         }
       }
     }
@@ -365,9 +391,9 @@ decoder_attention_f32_kernel(const float* __restrict__ q, const float* __restric
 
 template <int DK>
 cudaError_t launch_f32(const void* q, const void* k, const void* v, const void* key_valid, const void* keep,
-                       float keep_prob, void* out, int Nk, int H, int Tq, int Tk, int group, int causal, float scale,
+                       float keep_prob, void* out, int Nk, int H, int Tq, int Tk, int group, int causal, float sqrt_dk,
                        cudaStream_t stream) {
-  const size_t smem = f32_fwd_smem_bytes<DK>(Tq, Tk, group);
+  const size_t smem = f32_fwd_smem_bytes<DK>(Tq, Tk, group, v == nullptr);
   if (smem > (size_t)kBlockSmemLimit) return cudaErrorInvalidValue;
   auto kernel = f32_chunk_members(Tq, group) * Tq >= kWideRows ? decoder_attention_f32_kernel<DK, 4>
                                                                : decoder_attention_f32_kernel<DK, 1>;
@@ -376,20 +402,20 @@ cudaError_t launch_f32(const void* q, const void* k, const void* v, const void* 
   kernel<<<Nk * H, kF32Threads, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
       static_cast<const unsigned char*>(key_valid), static_cast<const unsigned char*>(keep), keep_prob,
-      static_cast<float*>(out), H, Tq, Tk, group, causal, scale);
+      static_cast<float*>(out), H, Tq, Tk, group, causal, sqrt_dk);
   return cudaGetLastError();
 }
 
 template <int DK>
 int entry(int dtype, const void* q, const void* k, const void* v, const void* key_valid, const void* keep,
-          float keep_prob, void* out, int Nk, int H, int Tq, int Tk, int group, int causal, float scale,
+          float keep_prob, void* out, int Nk, int H, int Tq, int Tk, int group, int causal, float sqrt_dk,
           cudaStream_t s) {
   if (dtype == 0) {
-    return (int)launch_f32<DK>(q, k, v, key_valid, keep, keep_prob, out, Nk, H, Tq, Tk, group, causal, scale, s);
+    return (int)launch_f32<DK>(q, k, v, key_valid, keep, keep_prob, out, Nk, H, Tq, Tk, group, causal, sqrt_dk, s);
   }
   if (dtype == 1) {
 #define SCT_FWD(KT) \
-  launch_fwd_mma<DK, KT>(q, k, v, key_valid, keep, keep_prob, out, Nk, H, Tq, Tk, group, causal, scale, s)
+  launch_fwd_mma<DK, KT>(q, k, v, key_valid, keep, keep_prob, out, Nk, H, Tq, Tk, group, causal, sqrt_dk, s)
     if (Tk <= 16) return (int)SCT_FWD(1);
     if (Tk <= 32) return (int)SCT_FWD(2);
     if (Tk <= 48) return (int)SCT_FWD(3);
@@ -401,35 +427,54 @@ int entry(int dtype, const void* q, const void* k, const void* v, const void* ke
 
 }  // namespace sct
 
-// dtype: 0 = float32, 1 = bfloat16; dk: 64 or 32. q/out (Nk * group, H, Tq,
-// dk); k/v (Nk, H, Tk, dk), every one 16-byte aligned; key_valid (Nk, Tk) bool
-// or null (every key valid); keep (Nk * group, H, Tq, Tk) bool or null (no
-// dropout) with keep_prob (rounded to the compute dtype by the caller);
-// causal: query position i attends keys j <= i.
-extern "C" int sct_decoder_attention(int dtype, int dk, const void* q, const void* k, const void* v,
-                                     const void* key_valid, const void* keep, float keep_prob, void* out, int Nk,
-                                     int H, int Tq, int Tk, int group, int causal, float scale, void* stream) {
-  if (Nk < 1 || H < 1 || Tq < 1 || Tq > sct::kDecMaxLen || Tk < 1 || Tk > sct::kDecMaxLen || group < 1) {
+// dtype: 0 = float32, 1 = bfloat16; dk: 64, 32 or 13. q/out (Nk * group, H,
+// Tq, dk); k/v (Nk, H, Tk, dk), every one 16-byte aligned; key_valid (Nk,
+// Tk) bool or null (every key valid); keep (Nk * group, H, Tq, Tk) bool or
+// null (no dropout) with keep_prob (rounded to the compute dtype by the
+// caller); causal: query position i attends keys j <= i; sqrt_dk: the
+// scores' divisor, sqrt(dk) rounded to the compute dtype.
+namespace sct {
+int decoder_attention_entry(int dtype, int dk, const void* q, const void* k, const void* v, const void* key_valid,
+                            const void* keep, float keep_prob, void* out, int Nk, int H, int Tq, int Tk, int group,
+                            int causal, float sqrt_dk, void* stream) {
+  if (Nk < 1 || H < 1 || Tq < 1 || Tq > kDecMaxLen || Tk < 1 || Tk > kDecMaxLen || group < 1) {
     return (int)cudaErrorInvalidValue;
   }
-  const void* ptrs[] = {q, k, v, out};
+  const void* ptrs[] = {q, k, v == nullptr ? k : v, out};
   for (const void* p : ptrs) {
-    if (!sct::aligned_to(p, 16)) return (int)cudaErrorInvalidValue;
+    if (!aligned_to(p, 16)) return (int)cudaErrorInvalidValue;
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define SCT_DK(DK) \
-  sct::entry<DK>(dtype, q, k, v, key_valid, keep, keep_prob, out, Nk, H, Tq, Tk, group, causal, scale, s)
+#define SCT_DK(DK) entry<DK>(dtype, q, k, v, key_valid, keep, keep_prob, out, Nk, H, Tq, Tk, group, causal, sqrt_dk, s)
   if (dk == 64) return SCT_DK(64);
   if (dk == 32) return SCT_DK(32);
+  if (dk == 13) return SCT_DK(13);
 #undef SCT_DK
   return (int)cudaErrorInvalidValue;
 }
+}  // namespace sct
+
+extern "C" int sct_decoder_attention(int dtype, int dk, const void* q, const void* k, const void* v,
+                                     const void* key_valid, const void* keep, float keep_prob, void* out, int Nk,
+                                     int H, int Tq, int Tk, int group, int causal, float sqrt_dk, void* stream) {
+  if (v == nullptr) return (int)cudaErrorInvalidValue;
+  return sct::decoder_attention_entry(dtype, dk, q, k, v, key_valid, keep, keep_prob, out, Nk, H, Tq, Tk, group,
+                                      causal, sqrt_dk, stream);
+}
+
+// kv mode: kv (Nk, H, Tk, dk) is both K and V, staged once.
+extern "C" int sct_decoder_attention_kv(int dtype, int dk, const void* q, const void* kv, const void* key_valid,
+                                        const void* keep, float keep_prob, void* out, int Nk, int H, int Tq, int Tk,
+                                        int group, int causal, float sqrt_dk, void* stream) {
+  return sct::decoder_attention_entry(dtype, dk, q, kv, nullptr, key_valid, keep, keep_prob, out, Nk, H, Tq, Tk,
+                                      group, causal, sqrt_dk, stream);
+}
 
 // the bf16 kernel's shared memory at head width dk for (Tq, Tk, group,
-// keep-mask given) at its stage count; 0 if none fits
-extern "C" long long sct_decoder_attention_smem(int dk, int Tq, int Tk, int group, int keep) {
-  const int stages = sct::fwd_stages(dk, Tq, Tk, group, keep);
-  return stages == 0 ? 0 : (long long)sct::fwd_smem_bytes(dk, Tq, Tk, group, keep, stages);
+// keep-mask given, kv mode) at its stage count; 0 if none fits
+extern "C" long long sct_decoder_attention_smem(int dk, int Tq, int Tk, int group, int keep, int kv) {
+  const int stages = sct::fwd_stages(dk, Tq, Tk, group, keep, kv);
+  return stages == 0 ? 0 : (long long)sct::fwd_smem_bytes(dk, Tq, Tk, group, keep, kv, stages);
 }
 
 extern "C" const char* sct_error_string(int err) { return cudaGetErrorString(static_cast<cudaError_t>(err)); }

@@ -19,9 +19,10 @@ namespace sct {
 using bf16 = __nv_bfloat16;
 
 constexpr int kDecMaxLen = 64;     // keys and query positions
-// staged bf16 row pitch at head width DK (144 B at 64, 80 B at 32: the 8 rows
-// of an ldmatrix or fragment load in distinct banks either way)
-template <int DK> constexpr int kLd = DK + 8;
+// staged bf16 row pitch at head width DK (144 B at 64, 80 B at 32, 48 B at
+// 13, staged at 16: the 8 rows of an ldmatrix or fragment load in distinct
+// banks each way)
+template <int DK> constexpr int kLd = kPad<DK> + 8;
 
 // ------------------------------------------------------------ bf16: tensor cores
 // Fragment rows of the tile (lane g = lane / 4, t = lane % 4): rows g and
@@ -78,7 +79,7 @@ __device__ __forceinline__ void dec_scores_mma(const bf16* const qr[2], const bf
 #pragma unroll
   for (int nt = 0; nt < NS; ++nt) sacc[nt][0] = sacc[nt][1] = sacc[nt][2] = sacc[nt][3] = 0.f;
 #pragma unroll
-  for (int kd = 0; kd < DK / 16; ++kd) {
+  for (int kd = 0; kd < kPad<DK> / 16; ++kd) {
     const int col = 16 * kd + 2 * t;
     const uint32_t a[4] = {lds_u32(qr[0] + col), lds_u32(qr[1] + col), lds_u32(qr[0] + col + 8),
                            lds_u32(qr[1] + col + 8)};
@@ -95,7 +96,7 @@ __device__ __forceinline__ void dec_scores_mma(const bf16* const qr[2], const bf
 }
 
 // The softmax on the accumulators, rounded where the plain version rounds:
-// the product and its scaling to bf16 (the scaling exact for 1/8), -1e9 (in
+// the product and its division by sqrt_dk to bf16 (`div_score`), -1e9 (in
 // bf16) where the key may not be attended (vbits, the causal rule at the
 // rows' positions pos), -inf for padding keys (j >= Tk), which take no part;
 // then p = round(e / sum) with e = exp(s - max), each thread's sum in n-tile
@@ -104,7 +105,7 @@ __device__ __forceinline__ void dec_scores_mma(const bf16* const qr[2], const bf
 // 1 / Tk: every score is the same -1e9.
 template <int KT>
 __device__ __forceinline__ void dec_softmax_mma(float sacc[2 * KT][4], uint32_t vbits, const int pos[2],
-                                                const bool live[2], int Tk, int causal, float scale) {
+                                                const bool live[2], int Tk, int causal, float sqrt_dk) {
   constexpr int NS = 2 * KT;
   const int t = threadIdx.x & 3;
   const int nsv = (Tk + 7) / 8;
@@ -118,8 +119,9 @@ __device__ __forceinline__ void dec_softmax_mma(float sacc[2 * KT][4], uint32_t 
       const int c = e & 1, j = 8 * nt + 2 * t + c, r = e >> 1;
       float s = -INFINITY;
       if (j < Tk) {
-        s = key_attended(vbits, 2 * nt + c, j, pos[r], causal) ? round_to<bf16>(round_to<bf16>(sacc[nt][e]) * scale)
-                                                                : fill;
+        s = key_attended(vbits, 2 * nt + c, j, pos[r], causal)
+                ? round_to<bf16>(div_score(round_to<bf16>(sacc[nt][e]), sqrt_dk))
+                : fill;
       }
       sacc[nt][e] = s;
       mx[r] = fmaxf(mx[r], s);
@@ -169,8 +171,8 @@ __device__ __forceinline__ float dec_dropped(float x, bool kept, bool dropout, f
 // ------------------------------------------------------------ f32: CUDA cores
 constexpr int kF32Threads = 256;
 constexpr int kF32Warps = kF32Threads / 32;
-// f32 row pitch (68 floats at DK = 64, 36 at 32): 16-byte rows; 8 lanes reading 8 rows hit distinct banks
-template <int DK> constexpr int kF32Ld = DK + 4;
+// f32 row pitch (68 floats at DK = 64, 36 at 32, 20 at 13): 16-byte rows; 8 lanes reading 8 rows hit distinct banks
+template <int DK> constexpr int kF32Ld = kPad<DK> + 4;
 constexpr int kWideRows = 32;         // chunks of at least this many rows take 4 query rows a warp at a time
 constexpr int kChunkRows = 64;        // query rows staged at a time (whole members)
 
@@ -185,13 +187,18 @@ __device__ __forceinline__ float dot4(float4 a, float4 b, float acc) {
   return fmaf(a.w, b.w, fmaf(a.z, b.z, fmaf(a.y, b.y, fmaf(a.x, b.x, acc))));
 }
 
-// rows of DK f32 from global into rows of kF32Ld, 16 bytes a copy
+// rows of DK f32 from global into rows of kF32Ld, 16 bytes a copy (the
+// narrow instance element by element, padded with zeros)
 template <int DK>
 __device__ __forceinline__ void stage_rows_f32(float* dst, const float* __restrict__ src, int rows) {
-  constexpr int C = DK / 4;  // 16-byte chunks of a row
-  for (int e = threadIdx.x; e < rows * C; e += blockDim.x) {
-    const int r = e / C, c = (e % C) * 4;
-    *reinterpret_cast<float4*>(dst + r * kF32Ld<DK> + c) = *reinterpret_cast<const float4*>(src + r * DK + c);
+  if constexpr (kNarrow<DK>) {
+    stage_padded<DK>(dst, kF32Ld<DK>, src, rows, threadIdx.x, blockDim.x);
+  } else {
+    constexpr int C = DK / 4;  // 16-byte chunks of a row
+    for (int e = threadIdx.x; e < rows * C; e += blockDim.x) {
+      const int r = e / C, c = (e % C) * 4;
+      *reinterpret_cast<float4*>(dst + r * kF32Ld<DK> + c) = *reinterpret_cast<const float4*>(src + r * DK + c);
+    }
   }
 }
 

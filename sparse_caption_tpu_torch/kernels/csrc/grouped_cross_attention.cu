@@ -38,6 +38,9 @@
 // ldmatrix.trans, P V's); a bf16 unit's stage is (S + rep) x 2 + 1 rows
 // instead of (2 S + rep) x 2 + 1. Bytes at ACORT serving (B = 2048, 36
 // regions, 8 heads): 75.5 MB of memory rows instead of 151.
+// Head width 13 (ORT-xsmall): rows staged element by element at width 16,
+// columns 13-15 zero (common.cuh kPad), one mma k-step over d; only the 13
+// real columns of out written.
 #include "common.cuh"
 #include "mma.cuh"
 #include "vec.cuh"
@@ -49,7 +52,7 @@ using bf16 = __nv_bfloat16;
 // ------------------------------------------------------------ bf16: tensor cores
 constexpr int kXMaxWarps = 8;
 constexpr int kXHeads = 2;          // heads of an image a unit takes
-template <int DK> constexpr int kXLd = DK + 8;  // staged row pitch in bf16 (144 B at DK = 64, 80 B at 32)
+template <int DK> constexpr int kXLd = kPad<DK> + 8;  // staged row pitch in bf16 (144 B at DK = 64, 80 B at 32, 48 B at 13)
 
 // rows of one unit's stage: K and V of its kXHeads heads (kXHeads * S each),
 // its q rows (rep beams x kXHeads heads, beam-major), and a row that holds the
@@ -60,7 +63,7 @@ __host__ __device__ inline int cross_stage_rows(int S, int rep, bool kv) {
 
 // `stages` stages and a zero row
 inline size_t cross_smem_bytes(int dk, int S, int rep, int stages, bool kv) {
-  return (stages * (size_t)cross_stage_rows(S, rep, kv) + 1) * (dk + 8) * sizeof(bf16);
+  return (stages * (size_t)cross_stage_rows(S, rep, kv) + 1) * (padded_width(dk) + 8) * sizeof(bf16);
 }
 
 // the stages that fit (2, else 1; 0: none)
@@ -75,8 +78,8 @@ template <int DK, int KT>
 __device__ __forceinline__ void cross_tile_bf16(const bf16* qs, int qstride, const bf16* ks, const bf16* vs,
                                                 const bf16* zero, const unsigned char* mask_b,
                                                 bf16* __restrict__ out, int b, int h, int H, int S, int rep, int mt,
-                                                float scale) {
-  constexpr int NS = 2 * KT, LD = kXLd<DK>, ND = DK / 8;  // ND: output n-tiles over d
+                                                float sqrt_dk) {
+  constexpr int NS = 2 * KT, LD = kXLd<DK>, ND = kPad<DK> / 8;  // ND: output n-tiles over d
   const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
   const int rows[2] = {16 * mt + g, 16 * mt + g + 8};
   const bool half1 = 16 * mt + 8 < rep;  // warp-uniform: rows g + 8 hold a beam
@@ -97,7 +100,7 @@ __device__ __forceinline__ void cross_tile_bf16(const bf16* qs, int qstride, con
 #pragma unroll
   for (int nt = 0; nt < NS; ++nt) sacc[nt][0] = sacc[nt][1] = sacc[nt][2] = sacc[nt][3] = 0.f;
 #pragma unroll
-  for (int kd = 0; kd < DK / 16; ++kd) {
+  for (int kd = 0; kd < kPad<DK> / 16; ++kd) {
     const int col = 16 * kd + 2 * t;
     const uint32_t aq[4] = {lds_u32(qr[0] + col), lds_u32(qr[1] + col), lds_u32(qr[0] + col + 8),
                             lds_u32(qr[1] + col + 8)};
@@ -111,7 +114,7 @@ __device__ __forceinline__ void cross_tile_bf16(const bf16* qs, int qstride, con
       }
     }
   }
-  // the plain version: scores rounded, scaled (rounded), -1e9 (bf16) where padded, softmax rounded
+  // the plain version: scores rounded, divided by sqrt_dk (rounded), -1e9 (bf16) where padded, softmax rounded
   const float fill = round_to<bf16>(kNegInf);
   float mx[2] = {-INFINITY, -INFINITY};
 #pragma unroll
@@ -121,7 +124,9 @@ __device__ __forceinline__ void cross_tile_bf16(const bf16* qs, int qstride, con
       const int c = e & 1, j = 8 * nt + 2 * t + c;
       if ((e >> 1) == 1 && !half1) continue;
       float s = -INFINITY;
-      if (j < S) s = ((vbits >> (2 * nt + c)) & 1u) ? round_to<bf16>(round_to<bf16>(sacc[nt][e]) * scale) : fill;
+      if (j < S) {
+        s = ((vbits >> (2 * nt + c)) & 1u) ? round_to<bf16>(div_score(round_to<bf16>(sacc[nt][e]), sqrt_dk)) : fill;
+      }
       sacc[nt][e] = s;
       mx[e >> 1] = fmaxf(mx[e >> 1], s);
     }
@@ -168,7 +173,7 @@ __device__ __forceinline__ void cross_tile_bf16(const bf16* qs, int qstride, con
     const int j = 16 * kk + (lane & 15);
     const bf16* vr = (j < S ? vs + j * LD : zero) + (lane >> 4) * 8;
 #pragma unroll
-    for (int jn = 0; jn < DK / 16; ++jn) {
+    for (int jn = 0; jn < kPad<DK> / 16; ++jn) {
       uint32_t rr[4];
       ldmatrix_x4_trans(rr, vr + 16 * jn);
       const uint32_t b0[2] = {rr[0], rr[1]}, b1[2] = {rr[2], rr[3]};
@@ -179,10 +184,10 @@ __device__ __forceinline__ void cross_tile_bf16(const bf16* qs, int qstride, con
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     if (rows[r] < rep) {
-      bf16* dst = out + (((size_t)b * rep + rows[r]) * H + h) * DK + 2 * t;
+      bf16* dst = out + (((size_t)b * rep + rows[r]) * H + h) * DK;
 #pragma unroll
       for (int nt = 0; nt < ND; ++nt) {
-        *reinterpret_cast<uint32_t*>(dst + 8 * nt) = pack_bf16(oacc[nt][2 * r], oacc[nt][2 * r + 1]);
+        store_col_pair<DK>(dst, 8 * nt + 2 * t, make_float2(oacc[nt][2 * r], oacc[nt][2 * r + 1]));
       }
     }
   }
@@ -192,13 +197,16 @@ template <int DK, int KT, bool KV>
 __global__ void __launch_bounds__(32 * kXMaxWarps)
 grouped_cross_attention_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ mem_k,
                                     const bf16* __restrict__ mem_v, const unsigned char* __restrict__ mask,
-                                    bf16* __restrict__ out, int B, int H, int S, int rep, float scale, int stages) {
+                                    bf16* __restrict__ out, int B, int H, int S, int rep, float sqrt_dk, int stages) {
   extern __shared__ __align__(128) unsigned char smem_raw[];
   // [stage][K: kXHeads x S, V: kXHeads x S (not in the kv mode), q: rep x kXHeads][LD]
   bf16* tiles = reinterpret_cast<bf16*>(smem_raw);
   constexpr int NKV = KV ? 1 : 2;  // staged memory arrays
-  constexpr int LD = kXLd<DK>, RC = DK / 8;  // RC: 16-byte chunks of a row
+  constexpr int LD = kXLd<DK>, RC = DK / 8, P = kPad<DK>;  // RC: 16-byte chunks of a row
   const int stage_rows = cross_stage_rows(S, rep, KV), groups = (H + kXHeads - 1) / kXHeads, units = B * groups;
+  // the region flags go to the stage's last row when they are whole 4-byte copies that fit in it (2 LD bytes:
+  // 48 at dk 13), else they are read from global memory
+  const bool flags_staged = S % 4 == 0 && S <= 2 * LD;
   bf16* zero = tiles + stages * stage_rows * LD;
   const int warp = threadIdx.x / 32, nwarps = blockDim.x / 32;
   for (int e = threadIdx.x; e < LD; e += blockDim.x) zero[e] = __float2bfloat16_rn(0.f);
@@ -209,16 +217,8 @@ grouped_cross_attention_bf16_kernel(const bf16* __restrict__ q, const bf16* __re
     bf16* st = tiles + s * stage_rows * LD;
     const int kv_rows = hn * S;
     const size_t kv0 = ((size_t)b * H + h0) * S * DK;
-    const int chunks = (NKV * kv_rows + rep * hn) * RC;
-    for (int c = threadIdx.x; c < chunks + (S % 4 == 0 ? S / 4 : 0); c += blockDim.x) {
-      if (c >= chunks) {  // the region flags, 4 a copy (then read from shared memory)
-        cp_async<4>(reinterpret_cast<unsigned char*>(st + (stage_rows - 1) * LD) + 4 * (c - chunks),
-                    mask + (size_t)b * S + 4 * (c - chunks));
-        continue;
-      }
-      const int r = c / RC, part = (c % RC) * 8;
-      const bf16* src;
-      int dst;
+    // row r of the unit (K, V, then the q rows): its source and its staged row
+    auto row_of = [&](int r, const bf16*& src, int& dst) {
       if (r < NKV * kv_rows) {
         src = (r < kv_rows ? mem_k : mem_v) + kv0 + (size_t)(r < kv_rows ? r : r - kv_rows) * DK;
         dst = r < kv_rows ? r : kXHeads * S + r - kv_rows;
@@ -227,6 +227,28 @@ grouped_cross_attention_bf16_kernel(const bf16* __restrict__ q, const bf16* __re
         src = q + (((size_t)b * rep + beam) * H + h0 + hl) * DK;
         dst = NKV * kXHeads * S + qr;
       }
+    };
+    const int unit_rows = NKV * kv_rows + rep * hn;
+    const int chunks = kNarrow<DK> ? 0 : unit_rows * RC;
+    if constexpr (kNarrow<DK>) {  // one element a thread
+      for (int e = threadIdx.x; e < unit_rows * P; e += blockDim.x) {
+        const int r = e / P, c = e - (e / P) * P;
+        const bf16* src;
+        int dst;
+        row_of(r, src, dst);
+        st[dst * LD + c] = padded_elem<DK>(src, c);
+      }
+    }
+    for (int c = threadIdx.x; c < chunks + (flags_staged ? S / 4 : 0); c += blockDim.x) {
+      if (c >= chunks) {  // the region flags, 4 a copy (then read from shared memory)
+        cp_async<4>(reinterpret_cast<unsigned char*>(st + (stage_rows - 1) * LD) + 4 * (c - chunks),
+                    mask + (size_t)b * S + 4 * (c - chunks));
+        continue;
+      }
+      const int r = c / RC, part = (c % RC) * 8;
+      const bf16* src;
+      int dst;
+      row_of(r, src, dst);
       cp_async<16>(st + dst * LD + part, src + part);
     }
   };
@@ -249,13 +271,13 @@ grouped_cross_attention_bf16_kernel(const bf16* __restrict__ q, const bf16* __re
     __syncthreads();  // every thread's copies of unit u have landed
     const int b = u / groups, h0 = (u - b * groups) * kXHeads, hn = min(kXHeads, H - h0);
     const bf16* st = tiles + s * stage_rows * LD;
-    const unsigned char* mask_b = S % 4 == 0 ? reinterpret_cast<const unsigned char*>(st + (stage_rows - 1) * LD)
+    const unsigned char* mask_b = flags_staged ? reinterpret_cast<const unsigned char*>(st + (stage_rows - 1) * LD)
                                               : mask + (size_t)b * S;
     for (int item = warp; item < hn * mtiles; item += nwarps) {
       const int hl = item / mtiles, mt = item - hl * mtiles;
       const bf16* ks = st + hl * S * LD;  // the kv mode reads these rows as V too
       cross_tile_bf16<DK, KT>(st + (NKV * kXHeads * S + hl) * LD, hn, ks, KV ? ks : st + (kXHeads * S + hl * S) * LD,
-                          zero, mask_b, out, b, h0 + hl, H, S, rep, mt, scale);
+                          zero, mask_b, out, b, h0 + hl, H, S, rep, mt, sqrt_dk);
     }
     __syncthreads();  // the stage may be refilled
   }
@@ -264,7 +286,7 @@ grouped_cross_attention_bf16_kernel(const bf16* __restrict__ q, const bf16* __re
 
 template <int DK, int KT, bool KV>
 cudaError_t launch_bf16(const void* q, const void* mk, const void* mv, const void* mask, void* out, int B, int H,
-                        int S, int rep, float scale, cudaStream_t stream) {
+                        int S, int rep, float sqrt_dk, cudaStream_t stream) {
   const int stages = cross_stages(DK, S, rep, KV);
   if (stages == 0) return cudaErrorInvalidValue;
   const size_t smem = cross_smem_bytes(DK, S, rep, stages, KV);
@@ -279,7 +301,7 @@ cudaError_t launch_bf16(const void* q, const void* mk, const void* mv, const voi
   const int units = B * ((H + kXHeads - 1) / kXHeads), cap = sm_count() * per_sm;
   kernel<<<units < cap ? units : cap, 32 * warps, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(mk), static_cast<const bf16*>(mv),
-      static_cast<const unsigned char*>(mask), static_cast<bf16*>(out), B, H, S, rep, scale, stages);
+      static_cast<const unsigned char*>(mask), static_cast<bf16*>(out), B, H, S, rep, sqrt_dk, stages);
   return cudaGetLastError();
 }
 
@@ -290,14 +312,14 @@ template <int DK, bool KV>
 __global__ void __launch_bounds__(kCrossThreads)
 grouped_cross_attention_f32_kernel(const float* __restrict__ q, const float* __restrict__ mem_k,
                                    const float* __restrict__ mem_v, const unsigned char* __restrict__ mask,
-                                   float* __restrict__ out, int H, int S, int rep, float scale) {
+                                   float* __restrict__ out, int H, int S, int rep, float sqrt_dk) {
   extern __shared__ float smem[];
   const int nwarps = blockDim.x / 32, warp = threadIdx.x / 32, lane = threadIdx.x & 31;
-  constexpr int KS = kKeyStride<DK>, VS = kValStride<DK>;
+  constexpr int KS = kKeyStride<DK>, VS = kValStride<DK>, DP = kPad<DK>;
   float* k_s = smem;                                 // S * KS
   float* v_s = KV ? k_s : k_s + S * KS;              // S * VS, the K tile in the kv mode
-  float* q_s = k_s + S * (KS + (KV ? 0 : VS));       // nwarps * DK
-  float* p_s = q_s + nwarps * DK;                    // nwarps * 64 (a row's keys)
+  float* q_s = k_s + S * (KS + (KV ? 0 : VS));       // nwarps * DP
+  float* p_s = q_s + nwarps * DP;                    // nwarps * 64 (a row's keys)
   unsigned char* mask_s = reinterpret_cast<unsigned char*>(p_s + nwarps * 64);  // S
 
   const int b = blockIdx.x / H, h = blockIdx.x - (blockIdx.x / H) * H;
@@ -307,74 +329,76 @@ grouped_cross_attention_f32_kernel(const float* __restrict__ q, const float* __r
   for (int e = threadIdx.x; e < S; e += blockDim.x) mask_s[e] = mask[(size_t)b * S + e];
   __syncthreads();
 
-  float* qw = q_s + warp * DK;
+  float* qw = q_s + warp * DP;
   for (int r = warp; r < rep; r += nwarps) {
     const size_t qo = ((size_t)(b * rep + r) * H + h) * DK;
     if (owns_cols<DK>(lane)) {
-      const float2 qv = load2(q + qo + 2 * lane);
+      const float2 qv = load_col_pair<DK>(q + qo, 2 * lane);
       qw[2 * lane] = qv.x;
       qw[2 * lane + 1] = qv.y;
     }
     __syncwarp();
-    warp_attend_row<DK, float>(qw, k_s, v_s, mask_s, nullptr, S, scale, p_s + warp * 64, out + qo, nullptr, 1.f,
+    warp_attend_row<DK, float>(qw, k_s, v_s, mask_s, nullptr, S, sqrt_dk, p_s + warp * 64, out + qo, nullptr, 1.f,
                                nullptr, KV ? KS : VS);
   }
 }
 
 template <int DK, bool KV>
 cudaError_t launch_f32(const void* q, const void* mk, const void* mv, const void* mask, void* out, int B, int H,
-                       int S, int rep, float scale, cudaStream_t stream) {
+                       int S, int rep, float sqrt_dk, cudaStream_t stream) {
   const int nwarps = kCrossThreads / 32;
   const size_t smem =
-      ((size_t)S * (kKeyStride<DK> + (KV ? 0 : kValStride<DK>)) + (size_t)nwarps * (DK + 64)) * sizeof(float) + S;
+      ((size_t)S * (kKeyStride<DK> + (KV ? 0 : kValStride<DK>)) + (size_t)nwarps * (kPad<DK> + 64)) * sizeof(float) + S;
   grouped_cross_attention_f32_kernel<DK, KV><<<B * H, kCrossThreads, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(mk), static_cast<const float*>(mv),
-      static_cast<const unsigned char*>(mask), static_cast<float*>(out), H, S, rep, scale);
+      static_cast<const unsigned char*>(mask), static_cast<float*>(out), H, S, rep, sqrt_dk);
   return cudaGetLastError();
 }
 
 template <int DK, bool KV>
 int entry_dk(int dtype, const void* q, const void* mem_k, const void* mem_v, const void* mask, void* out, int B,
-             int H, int S, int rep, float scale, cudaStream_t s) {
-  if (dtype == 0) return (int)launch_f32<DK, KV>(q, mem_k, mem_v, mask, out, B, H, S, rep, scale, s);
+             int H, int S, int rep, float sqrt_dk, cudaStream_t s) {
+  if (dtype == 0) return (int)launch_f32<DK, KV>(q, mem_k, mem_v, mask, out, B, H, S, rep, sqrt_dk, s);
   if (dtype == 1) {
     const void* ptrs[] = {q, mem_k, KV ? mem_k : mem_v, out};
     for (const void* p : ptrs) {
       if ((reinterpret_cast<uintptr_t>(p) & 15) != 0) return (int)cudaErrorInvalidValue;
     }
-    if (S <= 16) return (int)launch_bf16<DK, 1, KV>(q, mem_k, mem_v, mask, out, B, H, S, rep, scale, s);
-    if (S <= 32) return (int)launch_bf16<DK, 2, KV>(q, mem_k, mem_v, mask, out, B, H, S, rep, scale, s);
-    if (S <= 48) return (int)launch_bf16<DK, 3, KV>(q, mem_k, mem_v, mask, out, B, H, S, rep, scale, s);
-    return (int)launch_bf16<DK, 4, KV>(q, mem_k, mem_v, mask, out, B, H, S, rep, scale, s);
+    if (S <= 16) return (int)launch_bf16<DK, 1, KV>(q, mem_k, mem_v, mask, out, B, H, S, rep, sqrt_dk, s);
+    if (S <= 32) return (int)launch_bf16<DK, 2, KV>(q, mem_k, mem_v, mask, out, B, H, S, rep, sqrt_dk, s);
+    if (S <= 48) return (int)launch_bf16<DK, 3, KV>(q, mem_k, mem_v, mask, out, B, H, S, rep, sqrt_dk, s);
+    return (int)launch_bf16<DK, 4, KV>(q, mem_k, mem_v, mask, out, B, H, S, rep, sqrt_dk, s);
   }
   return (int)cudaErrorInvalidValue;
 }
 
 template <bool KV>
 int entry(int dtype, int dk, const void* q, const void* mem_k, const void* mem_v, const void* mask, void* out, int B,
-          int H, int S, int rep, float scale, void* stream) {
+          int H, int S, int rep, float sqrt_dk, void* stream) {
   if (H < 1 || S < 1 || S > 64 || rep < 1) return (int)cudaErrorInvalidValue;
   if (B == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dk == 64) return entry_dk<64, KV>(dtype, q, mem_k, mem_v, mask, out, B, H, S, rep, scale, s);
-  if (dk == 32) return entry_dk<32, KV>(dtype, q, mem_k, mem_v, mask, out, B, H, S, rep, scale, s);
+  if (dk == 64) return entry_dk<64, KV>(dtype, q, mem_k, mem_v, mask, out, B, H, S, rep, sqrt_dk, s);
+  if (dk == 32) return entry_dk<32, KV>(dtype, q, mem_k, mem_v, mask, out, B, H, S, rep, sqrt_dk, s);
+  if (dk == 13) return entry_dk<13, KV>(dtype, q, mem_k, mem_v, mask, out, B, H, S, rep, sqrt_dk, s);
   return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace sct
 
-// dtype: 0 = float32, 1 = bfloat16; dk: 64 or 32. q/out (B * rep, H, dk); mem_k/mem_v
-// (B, H, S, dk), 16-byte aligned in bf16; mask (B, S) bool.
+// dtype: 0 = float32, 1 = bfloat16; dk: 64, 32 or 13. q/out (B * rep, H, dk); mem_k/mem_v
+// (B, H, S, dk), 16-byte aligned in bf16; mask (B, S) bool; sqrt_dk: the
+// scores' divisor, sqrt(dk) rounded to the compute dtype.
 extern "C" int sct_grouped_cross_attention(int dtype, int dk, const void* q, const void* mem_k, const void* mem_v,
                                            const void* mask, void* out, int B, int H, int S, int rep,
-                                           float scale, void* stream) {
-  return sct::entry<false>(dtype, dk, q, mem_k, mem_v, mask, out, B, H, S, rep, scale, stream);
+                                           float sqrt_dk, void* stream) {
+  return sct::entry<false>(dtype, dk, q, mem_k, mem_v, mask, out, B, H, S, rep, sqrt_dk, stream);
 }
 
 // kv mode: mem (B, H, S, dk) is both K and V, staged once.
 extern "C" int sct_grouped_cross_attention_kv(int dtype, int dk, const void* q, const void* mem, const void* mask,
-                                              void* out, int B, int H, int S, int rep, float scale, void* stream) {
-  return sct::entry<true>(dtype, dk, q, mem, nullptr, mask, out, B, H, S, rep, scale, stream);
+                                              void* out, int B, int H, int S, int rep, float sqrt_dk, void* stream) {
+  return sct::entry<true>(dtype, dk, q, mem, nullptr, mask, out, B, H, S, rep, sqrt_dk, stream);
 }
 
 // the bf16 kernel's shared memory at head width dk for S regions and rep rows

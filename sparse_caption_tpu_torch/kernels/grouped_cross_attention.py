@@ -12,14 +12,19 @@ bounds regions and rows an image (``bf16_smem``).
 
 from __future__ import annotations
 
-import math
 from typing import Optional
 
 import torch
 
 from sparse_caption_tpu_torch.kernels import _build
-from sparse_caption_tpu_torch.kernels._checks import check_float, check_head_width, check_same_device, check_tensor
-from sparse_caption_tpu_torch.ops.attention import NEG_INF
+from sparse_caption_tpu_torch.kernels._checks import (
+    check_float,
+    check_head_width,
+    check_same_device,
+    check_tensor,
+    padded_width,
+)
+from sparse_caption_tpu_torch.ops.attention import NEG_INF, divide_scores, score_divisor
 
 KERNEL = _build.CudaKernel("grouped_cross_attention", "sct_grouped_cross_attention", [
     _build.I, _build.I, _build.P, _build.P, _build.P, _build.P, _build.P,
@@ -37,10 +42,10 @@ def bf16_smem(regions: int, rep: int, kv: bool = False, dk: int = 64) -> int:
     """Shared memory of the bf16 kernel (``cross_smem_bytes``): two stages of
     a unit's rows if they fit, else one (K and V of its 2 heads, regions rows
     each, K alone in the kv mode, its rep x 2 q rows and a row of region
-    flags), and a zero row, each row 2 (dk + 8) bytes (144 at dk 64, 80 at
-    32). 0 when even one stage does not fit."""
+    flags), and a zero row, each row 2 (padded_width(dk) + 8) bytes (144 at
+    dk 64, 80 at 32, 48 at 13). 0 when even one stage does not fit."""
     for stages in (2, 1):
-        nbytes = (stages * (((1 if kv else 2) * regions + rep) * UNIT_HEADS + 1) + 1) * 2 * (dk + 8)
+        nbytes = (stages * (((1 if kv else 2) * regions + rep) * UNIT_HEADS + 1) + 1) * 2 * (padded_width(dk) + 8)
         if nbytes <= _build.BLOCK_SMEM_LIMIT:
             return nbytes
     return 0
@@ -53,7 +58,7 @@ def grouped_cross_attention_plain(q, mem_k, mem_v: Optional[torch.Tensor], mask)
     n, h, dk = q.shape
     b = mem_k.shape[0]
     qg = q.reshape(b, n // b, h, dk)
-    scores = torch.einsum("bkhd,bhsd->bkhs", qg, mem_k) / math.sqrt(dk)
+    scores = divide_scores(torch.einsum("bkhd,bhsd->bkhs", qg, mem_k), dk)
     scores = scores.masked_fill(~mask[:, None, None, :], NEG_INF)
     out = torch.einsum("bkhs,bhsd->bkhd", torch.softmax(scores, dim=-1), mem_v)
     return out.reshape(n, h, dk)
@@ -85,9 +90,9 @@ def grouped_cross_attention(q, mem_k, mem_v: Optional[torch.Tensor], mask):
     out = torch.empty_like(q)
     if mem_v is None:
         KERNEL_KV.launch(_build.dtype_code(q), dk, q.data_ptr(), mem_k.data_ptr(), mask.data_ptr(), out.data_ptr(),
-                         b, h, s, n // b, 1.0 / math.sqrt(dk), _build.stream_handle(q))
+                         b, h, s, n // b, score_divisor(dk, q.dtype), _build.stream_handle(q))
         return out
     mem_v = _build.aligned16(mem_v)
     KERNEL.launch(_build.dtype_code(q), dk, q.data_ptr(), mem_k.data_ptr(), mem_v.data_ptr(), mask.data_ptr(),
-                  out.data_ptr(), b, h, s, n // b, 1.0 / math.sqrt(dk), _build.stream_handle(q))
+                  out.data_ptr(), b, h, s, n // b, score_divisor(dk, q.dtype), _build.stream_handle(q))
     return out

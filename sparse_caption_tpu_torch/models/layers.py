@@ -184,8 +184,8 @@ class MultiHeadAttention(nn.Module, DropoutSite):
     and out projections), "kv" (q, a shared kv projection whose output is
     both K and V, out) or "qk" (K from ``q_proj``, v, out). Under "kv" a
     decode cache holds one array, K, and the kernels K2 and K3 run their kv
-    modes, which read each cached row once for both products; the
-    full-sequence attention (K14 / K15) gets the one tensor as k and v."""
+    modes, which read each cached row once for both products, and so does
+    the full-sequence attention (K14 / K15's kv modes)."""
 
     def __init__(self, num_heads: int, d_model: int, dropout_rate: float = 0.1, share_att: Optional[str] = None,
                  mask_cfg: Optional[MaskConfig] = None, device=None, dtype=None):
@@ -212,7 +212,7 @@ class MultiHeadAttention(nn.Module, DropoutSite):
         k, v = self.project_memory_kv(key, value, rng)
         keep = keep_mask((q.shape[0], h, q.shape[2], k.shape[2]), self.dropout_rate, rng if attn_dropout else None,
                          q.device, self.site)
-        out = decoder_attention(q, k, k if v is None else v, key_valid, causal, keep, 1.0 - self.dropout_rate)
+        out = decoder_attention(q, k, v, key_valid, causal, keep, 1.0 - self.dropout_rate)
         return self.out_proj(_merge_heads(out), rng)
 
     def project_memory_kv(self, key, value=None, rng=None):

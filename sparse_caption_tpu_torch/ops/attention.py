@@ -16,6 +16,23 @@ from sparse_caption_tpu_torch.ops.keep import apply_keep
 NEG_INF = -1e9
 
 
+def score_divisor(dk: int, dtype: torch.dtype) -> float:
+    """sqrt(dk) rounded to ``dtype``: what the attention scores are divided by.
+    The JAX package writes ``scores / math.sqrt(dk)``, and weak typing rounds
+    the Python float to the scores' dtype first (bf16(sqrt(13)) = 3.609375);
+    the division is a true one. The plain versions divide by it as a 0-dim
+    tensor on the scores' device (``divide_scores``: PyTorch's CUDA ``x /
+    python_float`` multiplies by the reciprocal instead, which differs from
+    the quotient unless sqrt(dk) is a power of 2), and the kernels take it and
+    divide by it."""
+    return float(torch.tensor(math.sqrt(dk), dtype=dtype))
+
+
+def divide_scores(scores: torch.Tensor, dk: int) -> torch.Tensor:
+    """``scores / sqrt(dk)`` as ``score_divisor`` describes it."""
+    return scores / torch.full((), math.sqrt(dk), dtype=scores.dtype, device=scores.device)
+
+
 def scaled_dot_attention(q, k, v, key_valid: Optional[torch.Tensor] = None, causal: bool = False,
                          bias: Optional[torch.Tensor] = None, keep: Optional[torch.Tensor] = None,
                          keep_prob: float = 1.0):
@@ -31,7 +48,7 @@ def scaled_dot_attention(q, k, v, key_valid: Optional[torch.Tensor] = None, caus
     if group > 1:
         k, v = k.repeat_interleave(group, dim=0), v.repeat_interleave(group, dim=0)
         key_valid = None if key_valid is None else key_valid.repeat_interleave(group, dim=0)
-    scores = torch.matmul(q, k.transpose(-1, -2)) / math.sqrt(q.shape[-1])
+    scores = divide_scores(torch.matmul(q, k.transpose(-1, -2)), q.shape[-1])
     if key_valid is not None or causal:
         valid = torch.ones(scores.shape[-2:], dtype=torch.bool, device=q.device)
         if causal:

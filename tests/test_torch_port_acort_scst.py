@@ -409,12 +409,12 @@ def test_scst_step_runs_with_dropout_over_shared_layers(radix_setup):
 
 # ------------------------------------------------------------ head width 32
 def test_head_widths_and_shared_memory_at_dk32():
-    """The attention wrappers take dk 32 and 64 and refuse the rest (ORT-xsmall's
-    13); the bf16 kernels' shared memory at dk 32 counted by hand: rows of 2
-    (dk + 8) = 80 bytes."""
-    for dk in (32, 64):
+    """The attention wrappers take dk 13 (ORT-xsmall's, staged at 16), 32 and
+    64 and refuse the rest; the bf16 kernels' shared memory at dk 32 counted
+    by hand: rows of 2 (dk + 8) = 80 bytes."""
+    for dk in (13, 32, 64):
         _checks.check_head_width(dk, "box_attention")
-    for dk in (13, 16, 128):
+    for dk in (12, 16, 128):
         with pytest.raises(ValueError, match="head widths"):
             _checks.check_head_width(dk, "box_attention")
     # K3: (stages x ((2 or 1) x regions + rep) x 2 heads + 1 flag row) + a zero row

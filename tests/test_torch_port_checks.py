@@ -278,7 +278,8 @@ def test_dk32_bytes_count_the_shared_tensor_once(kv):
 def test_acort_scst_launches_by_hand():
     """One ACORT SCST step's launches (6 slots, 25 sampled digits, dense,
     the kv modes): the sampling encode and the replay's each run K1's train
-    variant once a slot, K7 once a slot, K2 and K3 once a slot and step, K6
+    variant once a slot, K7 once a slot, K2 and K3 once a slot and step,
+    the replay's K14 and K15 twice a slot (all in their kv modes), K6
     13 a pass of the encoder and 19 of the decoder (each step of the 25, and
     the replay), the keep-masks 3 a slot of every pass, the applied dropouts
     (PE or the source projection, and one FFN a slot) of every pass and of
@@ -289,5 +290,5 @@ def test_acort_scst_launches_by_hand():
     want = dict(box_attention_train_kv=12, box_attention_bwd_kv=6, ancestry_self_attention_kv=150,
                 grouped_cross_attention_kv=150, add_ref_layernorm=13 + 25 * 19 + 13 + 19, add_ref_layernorm_bwd=32,
                 keyed_keep_mask=3 * 6 * 28, keyed_dropout=7 * 30, sample_step=25, cider_reward=1,
-                vocab_log_softmax=1, vocab_log_softmax_bwd=1, decoder_attention=12, decoder_attention_bwd=12)
+                vocab_log_softmax=1, vocab_log_softmax_bwd=1, decoder_attention_kv=12, decoder_attention_bwd_kv=12)
     assert {k: v for k, v in counts.items() if v} == want

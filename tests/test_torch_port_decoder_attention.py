@@ -41,7 +41,7 @@ from sparse_caption_tpu_torch.kernels.decoder_attention import (
     decoder_attention,
 )
 from sparse_caption_tpu_torch.models import layers as pl
-from sparse_caption_tpu_torch.ops.attention import NEG_INF
+from sparse_caption_tpu_torch.ops.attention import NEG_INF, divide_scores
 from sparse_caption_tpu_torch.ops.keep import apply_keep, keep_divisor
 from sparse_caption_tpu_torch.utils.convert_jax import convert_jax_variables
 
@@ -259,7 +259,7 @@ def test_identity_readouts_give_p_exactly(kind, with_keep):
     # P~ as the plain version forms it, K/V repeated to the query rows
     kr, vr = k.repeat_interleave(n // nk, 0), valid.repeat_interleave(n // nk, 0)
     mask = vr[:, None, None, :] & (torch.tril(torch.ones(tq, tk, dtype=torch.bool)) if causal else True)
-    scores = (torch.matmul(q, kr.transpose(-1, -2)) / math.sqrt(DK)).masked_fill(~mask, NEG_INF)
+    scores = divide_scores(torch.matmul(q, kr.transpose(-1, -2)), DK).masked_fill(~mask, NEG_INF)
     p = torch.softmax(scores, dim=-1)
     p = apply_keep(p, keep, keep_divisor(0.9, dt)) if with_keep else p
     eye = torch.eye(DK, dtype=dt)
