@@ -7,7 +7,8 @@
 # attention), K5 (the supermask sets), K2 (ancestry self-attention), K11 (the
 # LSTM cell), K16 (the magnitude threshold), the kv modes of K1, K7, K2, K3,
 # K14 and K15 (ACORT's kv-shared layers), the head width 32 instances
-# (ACORT-small), the head width 13 instances (ORT-xsmall) and K10's radix
+# (ACORT-small), the head width 13 instances (ORT-xsmall), K10's radix
+# mode, and supermask SCST's kernels: K2's and K3's backward and K5's keyed
 # mode. Each mutant is a copy of the
 # port under build/mutants/<name>/ with sed edits to one CUDA source (or,
 # with run_mutant_cmd, any shell edit run in its csrc/, the wrappers beside
@@ -25,8 +26,11 @@
 # check_magnitude_kernels, for the kv modes check_acort_kernels (each kv mode
 # against its plain version and bit-equal to the unshared kernel given the
 # one tensor twice), for the dk 32 instances check_acort_small_kernels, for
-# the dk 13 instances check_xsmall_kernels and for K10's radix mode check_radix_reward (bit-equal to the word mode on the
-# plain regroup's words), all without their timings. A mutant whose checks
+# the dk 13 instances check_xsmall_kernels, for K10's radix mode check_radix_reward (bit-equal to the word mode on the
+# plain regroup's words) and for K2's and K3's backward
+# check_decode_backward_kernels (K2's with a cache gradient the later steps
+# left, and 17 steps with the cache threaded under autograd), all without
+# their timings. A mutant whose checks
 # pass is one they cannot see; each verdict line ends "caught" (a kernel that
 # raises is caught too) or "checks pass", and the last line counts the
 # mutants caught (every verdict line of the mutant "caught") of all run.
@@ -61,6 +65,7 @@ KV="c.check_acort_kernels(g, dt, results, timing=False)"
 K32="c.check_acort_small_kernels(g, dt, results, timing=False)"
 K10R="c.check_radix_reward(results, timing=False)"
 K13W="c.check_xsmall_kernels(g, dt, results, timing=False)"
+KBWD="c.check_decode_backward_kernels(g, results, timing=False)"
 ONLY=${1:-}
 picked() { [[ -z "$ONLY" || $1 =~ $ONLY ]]; }
 run_mutant() {  # name file sed-expression dtypes checks
@@ -162,6 +167,10 @@ run_mutant k2_dk32_lane_pairs ancestry_self_attention.cu 's/constexpr int PL = k
 run_mutant dk13_pad_columns_unzeroed common.cuh 's/  return c < DK ? src\[c\] : from_f<T>(0.f);/  return src[c];/' "torch.float32, torch.bfloat16" "$K13W"
 run_mutant k15_kv_dkv_summed_before_rounding decoder_attention_bwd.cu 's/tot\[nt\]\[e\] = round_to<bf16>(round_to<bf16>(tot\[nt\]\[e\]) + round_to<bf16>(tv\[nt\]\[e\]));/tot[nt][e] = tot[nt][e] + tv[nt][e];/' "torch.bfloat16," "$KV"
 run_mutant k14_kv_v_through_second_pointer decoder_attention.cu 's/decoder_attention_entry(dtype, dk, q, kv, nullptr, key_valid,/decoder_attention_entry(dtype, dk, q, kv, q, key_valid,/' "torch.float32, torch.bfloat16" "$KV"
+run_mutant k2_bwd_own_slot_dropped ancestry_self_attention_bwd.cu 's/store2(dk_t + qo, make_float2(ck.x + dkv.x, ck.y + dkv.y));/store2(dk_t + qo, make_float2(ck.x, ck.y));/; s/store2(dv_t + qo, make_float2(cv.x + dvv.x, cv.y + dvv.y));/store2(dv_t + qo, make_float2(cv.x, cv.y));/' "torch.float32," "$KBWD"
+run_mutant k2_bwd_cache_grad_order ancestry_self_attention_bwd.cu 's/store2(dk_t + qo, make_float2(ck.x + dkv.x, ck.y + dkv.y));/store2(dk_t + qo, make_float2(dkv.x, dkv.y));/; s/store2(dv_t + qo, make_float2(cv.x + dvv.x, cv.y + dvv.y));/store2(dv_t + qo, make_float2(dvv.x, dvv.y));/' "torch.float32," "$KBWD"
+run_mutant k3_bwd_first_row_only grouped_cross_attention_bwd.cu 's/    for (int r = 0; r < rep; ++r) {/    for (int r = 0; r < 1; ++r) {/' "torch.float32," "$KBWD"
+run_mutant k5_keyed_ignores_t supermask.cu 's/Philox4{d.site, d.t, (uint32_t)e4, 0u}/Philox4{d.site, 0u, (uint32_t)e4, 0u}/' "torch.float32," "$K5"
 # a mutant is caught when it printed a verdict line and every one says so
 awk '/^\[mutant\] [^ ]+: / { name = $2; sub(":", "", name); seen[name] = 1 }
      /^\[mutant\] [^ :]+ [a-z0-9]+ / { seen[$2] = 1; n[$2]++; if ($0 ~ / caught/) c[$2]++ }

@@ -243,6 +243,8 @@ REPLACES = {
     "decoder_attention": "sparse_caption_tpu/models/layers.py:158",
     "decoder_attention_bwd": "sparse_caption_tpu/models/layers.py:158",
     "magnitude_threshold": "sparse_caption_tpu/pruning/engine.py:210",
+    "ancestry_self_attention_bwd": "sparse_caption_tpu/models/layers.py:317",
+    "grouped_cross_attention_bwd": "sparse_caption_tpu/models/layers.py:249",
 }
 # the ACORT rows of the kernels line: (name, library, entry points, JAX site)
 ACORT_MODES = (
@@ -286,6 +288,15 @@ SCST_SPARSITY, SCST_SAMPLES, SCST_BATCHES, SCST_STEPS, SCST_BLEU = 0.9875, 15, (
 SCST_CONFIG = dict(lr_scheduler="step", learning_rate=5e-5, optim="adam", grad_clip=0.1, scst_sample="random",
                    scst_baseline="sample", scst_reward="device", max_seq_length=MAX_LEN + 1, seed=SEED)
 SCST_CHECK_BATCH, SCST_CHECK_SAMPLES = 2, 3
+# supermask SCST: the ORT and Up-Down at paper width with
+# MaskConfig("supermask", 5.0), the mask logits drawn N(0, 1) from the seed
+# (samples vary from step to step), trained by the mask Adam (lr 100, eps
+# 1e-2); steps timed after a warm-up at each batch of SCST_BATCHES /
+# UPDOWN_SCST_BATCHES
+SUPERMASK_LOGIT_STD, SUPERMASK_SCST_STEPS = 1.0, 3
+# K2's backward at the SCST gradient pass (960 rows, 17 slots): the first,
+# a middle and the last step
+K2_BWD_STEPS = (0, 8, MAX_LEN - 1)
 # replay vs sampling decode (f32, plain full-sequence attention vs K2/K3 over
 # the cache: rounding only); K10 vs its plain version (summation order); the
 # card-vs-CPU step: rewards relative (plus the kernel's absolute floor), loss
@@ -401,6 +412,11 @@ XSMALL_MODES = (
      "sparse_caption_tpu/models/layers.py:158"),
 )
 XSMALL_PATHS = ("ort_xsmall_serve", "ort_xsmall_train_step")
+# supermask SCST: K5's keyed mode, its own row on the kernels line
+SUPERMASK_MODES = (
+    ("supermask keyed", "supermask", ("supermask_keyed",), "sparse_caption_tpu/decoding/api.py:83"),
+)
+SUPERMASK_PATHS = ("supermask_scst_step", "updown_supermask_scst_step")
 
 
 def log(msg: str) -> None:
@@ -454,10 +470,10 @@ def k5_bytes(n_weights: int, dtype, bits: bool = True, mode: str = "sample", byp
     with `bits` the sample out, one bit a weight. Backward: g and w in, dw
     and dm out; the sample from its bits (mode sample with `bits`), else
     from u and m again; m for sigmoid' unless `bypass` (and for the sample
-    of the other modes)."""
-    es, sample = ESIZE[dtype], mode == "sample"
+    of the other modes). Mode keyed: as sample, without u (made in the kernel)."""
+    es, sample = ESIZE[dtype], mode in ("sample", "keyed")
     bit_bytes = -(-n_weights // 8) if sample and bits else 0
-    fwd = n_weights * (2 * es + 4 + (4 if sample else 0)) + bit_bytes
+    fwd = n_weights * (2 * es + 4 + (4 if mode == "sample" else 0)) + bit_bytes
     need_m = not (sample and bits and bypass)
     bwd = n_weights * (3 * es + 4 + (4 if need_m else 0) + (4 if sample and not bits else 0)) + bit_bytes
     return fwd + bwd
@@ -990,6 +1006,14 @@ def updown_masked_shapes() -> tuple:
     return enc, step
 
 
+def ort_step_shapes(layers: int = PAPER["num_layers"]) -> list:
+    """(out, in) shapes of the masked tensors one decode step of the
+    paper-width ORT draws (the embedding, each layer's q, k, v, out and the
+    cross q, out, its FFN, the generator): 50 tensors, 32,260,096 weights."""
+    d, ff, v = PAPER["d_model"], PAPER["dim_feedforward"], PAPER["vocab_size"]
+    return [(v, d)] + ([(d, d)] * 6 + [(ff, d), (d, ff)]) * layers + [(v, d)]
+
+
 def leaves(*ts):
     return [t.detach().clone().requires_grad_() for t in ts]
 
@@ -1004,7 +1028,14 @@ def check_supermask_kernels(gen, dtype, results: dict, timing: bool = True) -> b
     dm element-wise, a planted fault (the round mode in place of the
     sample). With `timing`: the set, the same tensors one set each, and the
     plain version in held turns, and the Up-Down XE step's K5 time (17 step
-    sets and 1 encode set) against its bound."""
+    sets and 1 encode set) against its bound. The keyed mode (supermask
+    SCST) on the ORT's decode-step set (50 tensors) and Up-Down's
+    step set (8) of their own generator: w_eff, dw and dm bit for bit against
+    the plain version (the same Philox in int64 torch arithmetic, then the
+    sample mode's plain arithmetic), the same (key, site, t) twice the same
+    samples, two steps different samples, and a planted fault (the step
+    ignored: t = 0 for t = 3) caught; timed against the sample mode given
+    the same uniforms as tensors."""
     from sparse_caption_tpu_torch.kernels import supermask as k5
 
     dev = torch.device("cuda")
@@ -1034,7 +1065,7 @@ def check_supermask_kernels(gen, dtype, results: dict, timing: bool = True) -> b
         the last output, whose w and m then get no gradient (None)."""
         wl = [w.detach().requires_grad_() for w in ws]  # views keep their storage offset
         ml = [m.detach().requires_grad_() for m in ms]
-        outs = fn(wl, ml, us if mode == "sample" else None, mode, bypass)
+        outs = fn(wl, ml, us if mode in ("sample", "keyed") else None, mode, bypass)
         used = len(outs) - 1 if unused_last else len(outs)
         grads = torch.autograd.grad(outs[:used], wl + ml, gs[:used], allow_unused=True)
         return [o.detach() for o in outs], grads[:len(ws)], grads[len(ws):]
@@ -1144,6 +1175,76 @@ def check_supermask_kernels(gen, dtype, results: dict, timing: bool = True) -> b
             mm = [(m > 0).float() for m in sm] if mode == "multiply" else sm
             held(f"off shapes {mode}{' bypass' if bypass else ''}", sw, mm, su, sg, fault=mode == "sample",
                  mode=mode, bypass=bypass, unused_last=True)
+    ok &= check_keyed_supermask(dtype, results, timing, run, plain_set, flat, draw)
+    return ok
+
+
+def check_keyed_supermask(dtype, results: dict, timing: bool, run, plain_set, flat, draw) -> bool:
+    """K5's keyed mode (see check_supermask_kernels), with its helpers."""
+    from sparse_caption_tpu_torch.kernels import supermask as k5
+    from sparse_caption_tpu_torch.ops.rng import site_id
+
+    dev = torch.device("cuda")
+    dname = str(dtype).split(".")[-1]
+    ok = True
+    gk = torch.Generator(device=dev).manual_seed(SEED + 15)
+    key = 0xC0FFEE0123456789
+    for tag, set_shapes in (("ORT decode-step", ort_step_shapes()), ("Up-Down step", updown_masked_shapes()[1])):
+        sw, sm, _, sg = draw(gk, set_shapes)
+        sites = [site_id(f"{tag}.{i}") for i in range(len(set_shapes))]
+
+        def draws(t):
+            return [k5.KeyedDraw(key, site, t) for site in sites]
+
+        ko, kdw, kdm = run(k5.supermask_weights, sw, sm, draws(3), sg, mode="keyed")
+        po, pdw, pdm = run(plain_set, sw, sm, draws(3), sg, mode="keyed")
+        for nm, kt, pt in (("w_eff", ko, po), ("dw", kdw, pdw), ("dm", kdm, pdm)):
+            kt, pt = flat(kt), flat(pt)
+            same = bool(torch.equal(kt, pt))
+            log(f"[kernel] supermask keyed {tag} set {nm} {dname}: {'exact' if same else 'DIFFERS'} "
+                f"({int((kt != pt).sum())} of {pt.numel()} elements differ)")
+            ok &= same
+        again = flat(run(k5.supermask_weights, sw, sm, draws(3), sg, mode="keyed")[0])
+        nxt = flat(run(k5.supermask_weights, sw, sm, draws(4), sg, mode="keyed")[0])
+        fault = flat(run(plain_set, sw, sm, draws(0), sg, mode="keyed")[0])  # the step ignored
+        ko = flat(ko)
+        same_t, moved, caught = bool(torch.equal(again, ko)), float((nxt != ko).float().mean()), bool(
+            (fault != ko).any())
+        log(f"[kernel] supermask keyed {tag} set {dname}: {len(set_shapes)} tensors, kept share "
+            f"{float(ko.ne(0).float().mean()):.3f}; the same (key, site, t) again "
+            f"{'the same samples' if same_t else 'OTHER SAMPLES'}; step 4 against step 3: {moved:.3f} of the "
+            f"weights differ {'ok' if moved > 0.1 else 'FAIL'}")
+        log(f"[fault] supermask keyed {tag} {dname}, the step ignored: {'caught' if caught else 'MISSED'}")
+        ok &= same_t and moved > 0.1 and caught
+        if timing and tag.startswith("ORT"):
+            n_set = sum(a * b for a, b in set_shapes)
+            us = [d.uniform(sh, dev) for d, sh in zip(draws(3), set_shapes)]
+            bit_units = k5.unit_offsets([w.numel() for w in sw])[:-1]
+
+            def keyed():
+                _, bits = k5.launch_forward(sw, sm, draws(3), k5.MODES["keyed"])
+                k5.launch_backward(sg, sw, sm, bits, bit_units, k5.MODES["keyed"], False)
+
+            def sampled():  # the sample mode, given the same uniforms as tensors
+                _, bits = k5.launch_forward(sw, sm, us, k5.MODES["sample"])
+                k5.launch_backward(sg, sw, sm, bits, bit_units, k5.MODES["sample"], False)
+
+            plain_leaves = [leaves(w, m) for w, m in zip(sw, sm)]
+
+            def plain():
+                for (w, m), d, g, sh in zip(plain_leaves, draws(3), sg, set_shapes):
+                    torch.autograd.grad(k5.supermask_weight_plain(w, m, d, "keyed"), (w, m), g)
+
+            t_keyed, t_sample, t_plain = turns_ms(keyed, sampled, plain)
+            bnd, by = bound_ms(k5_bytes(n_set, dtype, mode="keyed"), {})
+            log(f"[kernel] supermask keyed {dname} {tag} set ({n_set} weights, fwd + bwd): ms={t_keyed:.4f} "
+                f"(sample mode on the uniforms as tensors: {t_sample:.4f}, bound {bound_ms(k5_bytes(n_set, dtype), {})[0]:.4f}) "
+                f"plain_ms={t_plain:.4f} library_ms=null bound_ms={bnd:.4f} ({by}; held windows in turns)")
+            if dtype == torch.float32:  # supermask SCST runs in f32
+                results["supermask keyed"] = dict(max_abs_err=0.0, ms=t_keyed, plain_ms=t_plain, library_ms=None,
+                                                  bound_ms=bnd, bound_by=by, sample_mode_ms=t_sample)
+            del us, plain_leaves
+        del sw, sm, sg
     return ok
 
 
@@ -2510,20 +2611,28 @@ def profile_window(label: str, fn) -> None:
 @contextlib.contextmanager
 def plain_attention_calls():
     """Counts, while inside, the calls of the plain ``scaled_dot_attention``
-    through every module of the port that holds it (yields a 1-list)."""
+    through every module of the port that holds it, and of K2's and K3's
+    plain backward versions (yields a 1-list)."""
+    import sparse_caption_tpu_torch.kernels.ancestry_self_attention as k2
+    import sparse_caption_tpu_torch.kernels.grouped_cross_attention as k3
     import sparse_caption_tpu_torch.ops.attention as attention
 
-    original, calls = attention.scaled_dot_attention, [0]
+    calls = [0]
 
-    def counting(*args, **kwargs):
-        calls[0] += 1
-        return original(*args, **kwargs)
+    def counting(original):
+        def fn(*args, **kwargs):
+            calls[0] += 1
+            return original(*args, **kwargs)
+        return fn
 
+    original = attention.scaled_dot_attention
     holders = [m for name, m in list(sys.modules.items())
                if name.startswith("sparse_caption_tpu_torch") and getattr(m, "scaled_dot_attention", None) is original]
     with contextlib.ExitStack() as stack:
         for m in holders:
-            stack.enter_context(mock.patch.object(m, "scaled_dot_attention", counting))
+            stack.enter_context(mock.patch.object(m, "scaled_dot_attention", counting(original)))
+        for m, name in ((k2, "ancestry_self_attention_backward_plain"), (k3, "grouped_cross_attention_backward_plain")):
+            stack.enter_context(mock.patch.object(m, name, counting(getattr(m, name))))
         yield calls
 
 
@@ -2720,6 +2829,172 @@ def whole_step_check(seed: int, gen, build=None, make=make_train_batch, config=T
 
 
 # --------------------------------------------------------------- SCST path
+def k2_bwd_bytes(n: int, t: int, h: int = HEADS, dk: int = DK) -> int:
+    """Bytes K2's backward must move at step t (f32): q and dout in; the (t +
+    1) slots of the K and V caches in, of both gradient buffers in and out;
+    dq, dk_t and dv_t out."""
+    return 4 * n * h * dk * (5 + 6 * (t + 1))
+
+
+def k3_bwd_bytes(images: int, rep: int, regions: int = REGIONS, h: int = HEADS, dk: int = DK) -> int:
+    """Bytes K3's backward must move (f32): q, dout in and dq out (a row
+    each); the memory K, V in and dK, dV out (an image each); the mask."""
+    return 4 * (3 * images * rep * h * dk + 4 * images * h * regions * dk) + images * regions
+
+
+def check_decode_backward_kernels(gen, results: dict, timing: bool = True) -> bool:
+    """K2's and K3's backward kernels (supermask SCST's gradient pass, f32,
+    heads of 64) against their plain versions (the autograd of the plain
+    forwards) at the pass's shapes, element by element within F32_TOL, each
+    element's bound widened by its tensor's rms (a sum of t + 1 slots, or of
+    an image's 15 rows, taken in another order; an element that cancels to
+    near 0 is held to its tensor's scale):
+    - K2 at 960 rows (64 x 15), 8 heads, T_max 17, steps 0, 8 and 16, the
+      cache gradient the later steps left random: dq, dk_t, dv_t and the
+      buffer after (slots < t added to, slot t zeroed, the rest untouched);
+      faults planted: slot t's own contribution left out, and the later
+      steps' sum left out of dk_t (the order of the cache's gradients);
+      then 17 steps of ``decode_self_attention`` with gradients, the cache
+      threaded through each step, against the same steps written out of
+      place (each attends a fresh stack of its slots) under autograd;
+    - K3 at 64 images x 15 rows, 36 regions, padded regions and image 0
+      with none valid: dq, dK, dV; masked regions' dK exactly 0, image 0's
+      dV its rows' mean dout; fault planted: each image's dK / dV from its
+      first row alone.
+    With `timing`: kernel, plain version and SDPA's forward + backward on
+    the gathered cache (K2) or with the memory as K/V (K3), in held turns."""
+    from sparse_caption_tpu_torch.kernels import KERNELS
+    from sparse_caption_tpu_torch.kernels import ancestry_self_attention as k2
+    from sparse_caption_tpu_torch.kernels import grouped_cross_attention as k3
+    from sparse_caption_tpu_torch.ops.attention import NEG_INF
+
+    dev, dt = torch.device("cuda"), torch.float32
+    n, h, dk, t_max = SCST_BATCHES[-1] * SCST_SAMPLES, HEADS, DK, MAX_LEN
+    ok = True
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=gen, device=dev)
+
+    def held(name, got, ref, fault=None):
+        nonlocal ok
+        err, good, worst = close(got, ref, dt, sum_scale=rms(ref))
+        log(f"[kernel] {name} f32: max_abs_err={err:.3e} worst err/allowed={worst:.3f} {'ok' if good else 'FAIL'}")
+        ok &= good
+        if fault is not None:
+            ok &= fault_caught(name, fault, ref, dt, 0.0, rms(ref))
+        return err
+
+    # K2's backward, one step at a time
+    q, ck, cv, dout = rnd(n, h, dk), rnd(n, h, t_max, dk), rnd(n, h, t_max, dk), rnd(n, h, dk)
+    dck0, dcv0 = rnd(n, h, t_max, dk), rnd(n, h, t_max, dk)  # the later steps' contributions
+
+    def k2_run(fn, t):
+        dck, dcv = dck0.clone(), dcv0.clone()
+        return (*fn(q, ck, cv, dout, dck, dcv, t), dck, dcv)
+
+    errs = []
+    for t in K2_BWD_STEPS:
+        got, ref = k2_run(k2.ancestry_self_attention_backward, t), k2_run(k2.ancestry_self_attention_backward_plain, t)
+        errs.append(held(f"ancestry_self_attention_bwd t={t} dq", got[0], ref[0]))
+        own_k = ref[1] - dck0[:, :, t]  # slot t's own dK (0 at t = 0: one slot, whose score gradient is 0)
+        errs.append(held(f"ancestry_self_attention_bwd t={t} dk_t", got[1], ref[1], fault=dck0[:, :, t] if t else None))
+        if t == t_max - 1:
+            ok &= fault_caught(f"ancestry_self_attention_bwd t={t} dk_t without the later steps' sum", own_k, ref[1],
+                               dt, 0.0, rms(ref[1]))
+        errs.append(held(f"ancestry_self_attention_bwd t={t} dv_t", got[2], ref[2], fault=dcv0[:, :, t]))
+        errs.append(held(f"ancestry_self_attention_bwd t={t} dcache_k", got[3], ref[3]))
+        errs.append(held(f"ancestry_self_attention_bwd t={t} dcache_v", got[4], ref[4]))
+        untouched = bool(torch.equal(got[3][:, :, t + 1:], dck0[:, :, t + 1:])) and not got[3][:, :, t].any()
+        log(f"[kernel] ancestry_self_attention_bwd t={t}: slot t zeroed, slots past t untouched "
+            f"{'ok' if untouched else 'FAIL'}")
+        ok &= untouched
+        del got, ref, own_k
+
+    # 17 steps through the cache threaded under autograd, against the out-of-place steps
+    g17 = torch.Generator(device=dev).manual_seed(SEED + 17 * 17)
+    qs, ks, vs, gs = ([torch.randn(n, h, dk, generator=g17, device=dev).requires_grad_(i < 3) for _ in range(t_max)]
+                      for i in range(4))
+    cache_k, cache_v = torch.zeros(n, h, t_max, dk, device=dev), torch.zeros(n, h, t_max, dk, device=dev)
+    before = KERNELS["ancestry_self_attention_bwd"].launches
+    outs = [k2.decode_self_attention(qs[t], ks[t], vs[t], cache_k, cache_v, None, t) for t in range(t_max)]
+    got = torch.autograd.grad(outs, qs + ks + vs, gs)
+    launched = KERNELS["ancestry_self_attention_bwd"].launches - before
+    ref_outs = [k2.ancestry_self_attention_plain(qs[t], torch.stack(ks[: t + 1], 2), torch.stack(vs[: t + 1], 2),
+                                                 None, t) for t in range(t_max)]
+    want = torch.autograd.grad(ref_outs, qs + ks + vs, gs)
+    for name, a, b in (("dq", torch.stack(got[:t_max]), torch.stack(want[:t_max])),
+                       ("dk", torch.stack(got[t_max:2 * t_max]), torch.stack(want[t_max:2 * t_max])),
+                       ("dv", torch.stack(got[2 * t_max:]), torch.stack(want[2 * t_max:]))):
+        errs.append(held(f"decode_self_attention {t_max} steps, the cache threaded: {name}", a, b))
+    log(f"[kernel] decode_self_attention {t_max} steps: {launched} K2 backward launches "
+        f"{'ok' if launched == t_max else 'FAIL'}")
+    ok &= launched == t_max
+    del qs, ks, vs, gs, outs, got, ref_outs, want, cache_k, cache_v
+
+    times = {}
+    if timing:
+        for t in K2_BWD_STEPS:
+            q4 = q[:, :, None].clone().requires_grad_()
+            kg = ck[:, :, : t + 1].contiguous().requires_grad_()
+            vg = cv[:, :, : t + 1].contiguous().requires_grad_()
+            d4 = dout[:, :, None]
+            dck, dcv = dck0.clone(), dcv0.clone()
+            times[t] = turns_ms(lambda: k2.ancestry_self_attention_backward(q, ck, cv, dout, dck, dcv, t),
+                                lambda: k2.ancestry_self_attention_backward_plain(q, ck, cv, dout, dck, dcv, t),
+                                lambda: torch.autograd.grad(F.scaled_dot_product_attention(q4, kg, vg), (q4, kg, vg),
+                                                            d4))
+            bnd = bound_ms(k2_bwd_bytes(n, t), {})[0]
+            log(f"[kernel] ancestry_self_attention_bwd f32 {n} rows t={t}: ms={times[t][0]:.4f} "
+                f"plain_ms={times[t][1]:.4f} library_ms={times[t][2]:.4f} (SDPA fwd + bwd, gathered cache) "
+                f"bound_ms={bnd:.4f} (bytes; held windows in turns)")
+        last = K2_BWD_STEPS[-1]
+        bnd, by = bound_ms(k2_bwd_bytes(n, last), {})
+        results["ancestry_self_attention_bwd"] = dict(
+            max_abs_err=max(errs), ms=times[last][0], plain_ms=times[last][1], library_ms=times[last][2],
+            bound_ms=bnd, bound_by=by, **{f"t{t}_{k}": v for t in K2_BWD_STEPS
+                                          for k, v in zip(("ms", "plain_ms", "library_ms"), times[t])})
+    del q, ck, cv, dout, dck0, dcv0
+
+    # K3's backward: one image's rows summed in the kernel in a fixed order
+    b, rep = SCST_BATCHES[-1], SCST_SAMPLES
+    q, dout = rnd(b * rep, h, dk), rnd(b * rep, h, dk)
+    mk, mv = rnd(b, h, REGIONS, dk), rnd(b, h, REGIONS, dk)
+    mask = random_region_mask(gen, b, REGIONS, dev)
+    mask[0] = False  # no valid region: the fill gives every region the same weight
+    got = k3.grouped_cross_attention_backward(q, mk, mv, mask, dout)
+    ref = k3.grouped_cross_attention_backward_plain(q, mk, mv, mask, dout)
+    first = dout.reshape(b, rep, h, dk).clone()
+    first[:, 1:] = 0  # each image's first row alone
+    fault = k3.grouped_cross_attention_backward_plain(q, mk, mv, mask, first.reshape(b * rep, h, dk))
+    errs = [held("grouped_cross_attention_bwd dq", got[0], ref[0]),
+            held("grouped_cross_attention_bwd dK", got[1], ref[1], fault=fault[1]),
+            held("grouped_cross_attention_bwd dV", got[2], ref[2], fault=fault[2])]
+    dropped = ~mask[:, None, :, None].expand_as(got[1])
+    zero_dk = not got[1][dropped].any()
+    mean_dv = dout[:rep].sum(0)[:, None, :].expand(h, REGIONS, dk) / REGIONS
+    err0, good0, _ = close(got[2][0], mean_dv, dt, sum_scale=rms(mean_dv))
+    log(f"[kernel] grouped_cross_attention_bwd: masked regions' dK exactly 0 {'ok' if zero_dk else 'FAIL'}; "
+        f"image 0 (no valid region) dV - its rows' mean dout max {err0:.3e} {'ok' if good0 else 'FAIL'}; "
+        f"{int(mask.sum())} of {mask.numel()} regions valid")
+    ok &= zero_dk and good0
+    del got, ref, fault, first
+    if timing:
+        qg = q.reshape(b, rep, h, dk).transpose(1, 2).contiguous().requires_grad_()  # (B, h, rep, dk)
+        kl, vl = mk.clone().requires_grad_(), mv.clone().requires_grad_()
+        fill = torch.zeros(b, 1, 1, REGIONS, device=dev).masked_fill(~mask[:, None, None, :], NEG_INF)
+        dg = dout.reshape(b, rep, h, dk).transpose(1, 2).contiguous()
+        t_k, t_p, t_l = turns_ms(lambda: k3.grouped_cross_attention_backward(q, mk, mv, mask, dout),
+                                 lambda: k3.grouped_cross_attention_backward_plain(q, mk, mv, mask, dout),
+                                 lambda: torch.autograd.grad(F.scaled_dot_product_attention(qg, kl, vl, fill),
+                                                             (qg, kl, vl), dg))
+        bnd, by = bound_ms(k3_bwd_bytes(b, rep), {})
+        log(f"[kernel] grouped_cross_attention_bwd f32 {b}x{rep}: ms={t_k:.4f} plain_ms={t_p:.4f} library_ms={t_l:.4f} "
+            f"(SDPA fwd + bwd, float mask) bound_ms={bnd:.4f} ({by}; held windows in turns)")
+        results["grouped_cross_attention_bwd"] = dict(max_abs_err=max(errs), ms=t_k, plain_ms=t_p, library_ms=t_l,
+                                                      bound_ms=bnd, bound_by=by)
+    return ok
+
+
 def check_scst_kernels(gen, results: dict) -> bool:
     """K8, K9 and K10 against their plain versions at the SCST path's shapes
     (f32, its dtype), each with a planted fault; timings."""
@@ -2927,6 +3202,78 @@ def build_updown_scst(seed: int):
     return freeze_masks(model, gen, UPDOWN_SCST_SPARSITY, "updown scst")
 
 
+def is_supermask(model) -> bool:
+    return model.mask_cfg is not None and model.mask_cfg.is_supermask
+
+
+def supermask_logits(model, gen, label: str):
+    """The supermask logits drawn N(0, SUPERMASK_LOGIT_STD) from `gen`, so
+    that the Bernoulli samples vary from step to step."""
+    from sparse_caption_tpu_torch.ops.masked import split_params
+
+    _, masks = split_params(model)
+    with torch.no_grad():
+        for m in masks.values():
+            m.copy_(torch.randn(m.shape, generator=gen, device="cuda") * SUPERMASK_LOGIT_STD)
+    n = sum(m.numel() for m in masks.values())
+    kept = sum(float(torch.sigmoid(m).sum()) for m in masks.values()) / n
+    log(f"[{label}] supermask: {len(masks)} masks, {n} logits N(0, {SUPERMASK_LOGIT_STD}), expected kept share "
+        f"{kept:.4f}")
+    return model
+
+
+def build_supermask_scst(seed: int):
+    """Paper-width relation_transformer_prune in f32 on the card, a training
+    supermask (MaskConfig("supermask", 5.0), masks kept), random weights and
+    mask logits from the seed, dropout on (0.1, the source 0.5)."""
+    from sparse_caption_tpu_torch.models import get_model
+    from sparse_caption_tpu_torch.ops.masked import MaskConfig
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    model = get_model("relation_transformer_prune")(
+        **PAPER, mask_cfg=MaskConfig("supermask", 5.0, keep_masks=True), device="cuda", generator=gen)
+    return supermask_logits(model, gen, "supermask scst")
+
+
+def build_supermask_updown(seed: int):
+    """Paper-width up_down_lstm_prune in f32 on the card, a training
+    supermask, random weights and mask logits from the seed, dropout 0.1."""
+    from sparse_caption_tpu_torch.models import get_model
+    from sparse_caption_tpu_torch.ops.masked import MaskConfig
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    model = get_model("up_down_lstm_prune")(**UPDOWN, drop_prob_lm=UPDOWN_DROP, device="cuda", generator=gen,
+                                            mask_cfg=MaskConfig("supermask", 5.0, keep_masks=True))
+    return supermask_logits(model, gen, "updown supermask scst")
+
+
+def supermask_scst_launches(layers: int, steps: int, names) -> dict:
+    """Launches of one supermask ORT SCST step: the sampling phase (a
+    train-mode encode and `steps` decode steps, no gradients) and the
+    gradient pass (the same encode, cache and steps with gradients, their
+    backward), the reward between. Each phase draws K5 keyed sets: the
+    encode's, the cross K/V projection's and one a step."""
+    enc_k6, dec_k6 = 1 + 2 * layers, 1 + 3 * layers
+    sets = 2 + steps
+    counts = {name: 0 for name in names}
+    counts.update(box_attention_train=2 * layers, box_attention_bwd=layers, ancestry_self_attention=2 * layers * steps,
+                  ancestry_self_attention_bwd=layers * steps, grouped_cross_attention=2 * layers * steps,
+                  grouped_cross_attention_bwd=layers * steps, supermask_keyed=2 * sets, supermask_bwd=sets,
+                  add_ref_layernorm=2 * (enc_k6 + steps * dec_k6), add_ref_layernorm_bwd=enc_k6 + steps * dec_k6,
+                  keyed_keep_mask=2 * 3 * layers * (steps + 1), keyed_dropout=3 * (1 + layers) * (steps + 1),
+                  sample_step=steps, cider_reward=1, vocab_log_softmax=steps, vocab_log_softmax_bwd=steps)
+    return counts
+
+
+def supermask_updown_scst_launches(steps: int, names) -> dict:
+    """Launches of one supermask Up-Down SCST step: the mask_freeze step's
+    (``updown_scst_launches``) but every masked product drawn as a keyed set
+    in both phases (the encode's and one a step), none cached."""
+    counts = updown_scst_launches(steps, names)
+    counts.update(supermask=0, supermask_keyed=2 * (1 + steps))
+    return counts
+
+
 def make_scst(model, table, samples: int = SCST_SAMPLES, config=SCST_CONFIG):
     """The SCST step of `model` with the reward of `table` (a DfTable, or an
     ACORT run's DeviceReward)."""
@@ -2938,7 +3285,8 @@ def make_scst(model, table, samples: int = SCST_SAMPLES, config=SCST_CONFIG):
     config = dict(config, scst_num_samples=samples)
     params, masks = split_params(model)
     opt_w = build_weight_optimizer(params.values(), config, make_schedule(config))
-    opt_m = build_mask_optimizer(masks.values(), config, trainable=False)
+    # the mask Adam (lr 100, eps 1e-2) trains a supermask; mask_freeze's masks stay
+    opt_m = build_mask_optimizer(masks.values(), config, trainable=is_supermask(model))
     reward_fn = table.fn if isinstance(table, DeviceReward) else make_reward_fn(table, bleu_weight=SCST_BLEU)
     step = make_scst_step(model, opt_w, opt_m, config, reward_fn)
     step.reward = reward_fn
@@ -2990,11 +3338,11 @@ def updown_scst_batch(gen, b, pack):
 
 
 def run_scst_phase(model, gen, b, expected, samples=SCST_SAMPLES, make=scst_batch, label="scst", tok=None,
-                   config=SCST_CONFIG) -> tuple:
-    """1 warm-up + SCST_STEPS steps at b x samples; every step's launches
-    must equal `expected`, and the plain scaled_dot_attention never runs.
-    `tok`: ACORT's radix tokenizer, whose device reward scores the digits.
-    Returns (counts per step, step, state, batch)."""
+                   config=SCST_CONFIG, steps=SCST_STEPS) -> tuple:
+    """1 warm-up + `steps` steps at b x samples; every step's launches must
+    equal `expected`, and the plain scaled_dot_attention (and K2's and K3's
+    plain backward) never runs. `tok`: ACORT's radix tokenizer, whose device
+    reward scores the digits. Returns (counts per step, step, state, batch)."""
     from sparse_caption_tpu_torch.engine.training import TrainState
     from sparse_caption_tpu_torch.kernels import launch_counts, reset_launch_counts
 
@@ -3008,16 +3356,16 @@ def run_scst_phase(model, gen, b, expected, samples=SCST_SAMPLES, make=scst_batc
     reset_launch_counts()
     t0 = time.perf_counter()
     with plain_attention_calls() as plain:
-        for _ in range(SCST_STEPS):
+        for _ in range(steps):
             state, loss, aux = step(state, batch)
         torch.cuda.synchronize()
-    per_step = (time.perf_counter() - t0) / SCST_STEPS
+    per_step = (time.perf_counter() - t0) / steps
     counts = launch_counts()
-    assert counts == {k: SCST_STEPS * v for k, v in expected.items()}, f"{label} launch counts {counts} != 5 x {expected}"
-    assert plain[0] == 0, f"the plain scaled_dot_attention ran {plain[0]} times in {SCST_STEPS} {label} steps"
-    assert math.isfinite(float(loss)) and state.step == SCST_STEPS + 1
+    assert counts == {k: steps * v for k, v in expected.items()}, f"{label} launch counts {counts} != {steps} x {expected}"
+    assert plain[0] == 0, f"the plain attention versions ran {plain[0]} times in {steps} {label} steps"
+    assert math.isfinite(float(loss)) and state.step == steps + 1
     log(f"[{label}] f32 batch {b}x{samples}: {1 / per_step:.3f} steps/s, {b * samples / per_step:.1f} "
-        f"samples/s ({per_step * 1e3:.1f} ms per step, mean of {SCST_STEPS}); loss {float(loss):.5f}, avg_sample "
+        f"samples/s ({per_step * 1e3:.1f} ms per step, mean of {steps}); loss {float(loss):.5f}, avg_sample "
         f"{float(aux['avg_sample']):.5f}, avg_reward {float(aux['avg_reward']):.3e}; peak device memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; launches per step {expected}")
     return expected, step, state, batch
@@ -3026,9 +3374,11 @@ def run_scst_phase(model, gen, b, expected, samples=SCST_SAMPLES, make=scst_batc
 def replay_check(model, gen, make=make_batch, samples=SCST_SAMPLES, label="replay", max_len=MAX_LEN) -> bool:
     """At 5 x samples with dropout on: the replay's log-probs at non-pad
     positions equal the sampling decode's (ORT: K14 over the sequence vs
-    K2/K3 over the cache; Up-Down: the same unrolled steps with and without
-    gradients)."""
+    K2/K3 over the cache; a supermask ORT: the decode run again with
+    gradients, K13 against K9; Up-Down: the same unrolled steps with and
+    without gradients)."""
     from sparse_caption_tpu_torch.decoding import generate
+    from sparse_caption_tpu_torch.engine.training import scan_log_probs
     from sparse_caption_tpu_torch.ops.rng import KeyedStream, decode_train_keys
 
     batch = make(gen, SCST_BATCHES[0], torch.float32)
@@ -3038,8 +3388,14 @@ def replay_check(model, gen, make=make_batch, samples=SCST_SAMPLES, label="repla
         seq, seq_lp = generate(model, memory, opt, rng=12)
         flat = seq.reshape(-1, max_len).long()
         seqs_in = torch.cat([torch.full((flat.shape[0], 1), model.bos_id, device=flat.device), flat], 1)
-        lp = model.decode_teacher_forced(memory, seqs_in, train=True, rng=KeyedStream(decode_train_keys(12).dropout))
-        at = lp.gather(2, flat[..., None])[..., 0]
+    if is_supermask(model) and not getattr(model, "STEPWISE_REPLAY", False):
+        # supermask ORT: the gradient pass re-runs the decode with gradients (K2's and K3's backward ready)
+        at = scan_log_probs(model, model.encode(*batch, train=True, rng=KeyedStream(11)), flat, 12).detach()
+    else:
+        with torch.no_grad():
+            lp = model.decode_teacher_forced(memory, seqs_in, train=True,
+                                             rng=KeyedStream(decode_train_keys(12).dropout))
+            at = lp.gather(2, flat[..., None])[..., 0]
     valid = flat != model.pad_id
     gap = (at - seq_lp.reshape(-1, max_len))[valid].abs().max().item()
     log(f"[{label}] f32 {SCST_BATCHES[0]}x{samples}: {int(valid.sum())} non-pad positions, worst |replay - "
@@ -3059,6 +3415,8 @@ def scst_whole_step_check(seed: int, gen, build=build_scst_model, make=make_batc
 
     model_gpu = build(seed)
     model_cpu = copy.deepcopy(model_gpu).to("cpu")
+    if is_supermask(model_cpu):
+        sample_flips(model_gpu, model_cpu, label)
     inputs = dict(zip(model_gpu.COLLATE_FIELDS, make(gen, SCST_CHECK_BATCH, torch.float32)))
     # the sampling phase reads no reference; each image's refs are then its
     # first sample (every third word dropped) and four unrelated captions, so
@@ -3095,19 +3453,43 @@ def scst_whole_step_check(seed: int, gen, build=build_scst_model, make=make_batc
     ref = {n: p.grad for n, p in model_cpu.named_parameters()}
     got = {n: p.grad.cpu() for n, p in model_gpu.named_parameters()}
     top = max(g.abs().max().item() for g in ref.values())
-    worst, elementwise_ok = 0.0, 0
+    worst, worst_name, elementwise_ok = 0.0, "", 0
     for n, g_ref in ref.items():
         diff = got[n] - g_ref
         elementwise_ok += bool((diff.abs() <= STEP_GRAD_TOL * g_ref.abs().max().item() + STEP_GRAD_FLOOR * top).all())
-        worst = max(worst, (diff.norm() / (STEP_GRAD_NORM_TOL * g_ref.norm()
-                                           + STEP_GRAD_FLOOR * top * g_ref.numel() ** 0.5)).item())
+        ratio = (diff.norm() / (STEP_GRAD_NORM_TOL * g_ref.norm() + STEP_GRAD_FLOOR * top * g_ref.numel() ** 0.5)).item()
+        if ratio > worst:
+            worst, worst_name = ratio, n
     log(f"[{label}] f32 {SCST_CHECK_BATCH}x{SCST_CHECK_SAMPLES}, dropout on: sampled tokens differing card vs CPU "
         f"{n_tok}/{flat.numel()}; rewards {[round(x, 4) for x in r_cpu.tolist()]}, largest gradient {top:.3e}; "
         f"rewards max_abs_err {r_err.max().item():.3e} (rtol {REWARD_RTOL}, atol "
         f"{REWARD_ATOL}) {'ok' if r_ok else 'FAIL'}; loss card {float(loss_g):.7f} cpu {float(loss_c):.7f} "
         f"{'ok' if loss_ok else 'FAIL'}; gradients: {elementwise_ok} of {len(ref)} tensors within the element-wise "
-        f"bound, worst norm-wise err/allowed {worst:.3f} {'ok' if worst <= 1 else 'FAIL'}")
+        f"bound, worst norm-wise err/allowed {worst:.3f} ({worst_name}) {'ok' if worst <= 1 else 'FAIL'}")
     return r_ok and loss_ok and worst <= 1
+
+
+def sample_flips(model_gpu, model_cpu, label: str) -> int:
+    """Supermask samples [u < sigmoid(m)] that differ card vs CPU in one
+    keyed draw of every mask from the same bits: the card's sigmoid (K5's,
+    equal to torch's CUDA sigmoid bit for bit) and the CPU's may differ by an
+    ulp, and a uniform on the 2^-24 grid between the two flips the sample.
+    The count a draw shows the card-vs-CPU step's gradients that a flipped
+    weight, not rounding, moves. Logged, not a pass condition."""
+    from sparse_caption_tpu_torch.ops.masked import _Prunable
+    from sparse_caption_tpu_torch.ops.rng import KeyedStream
+
+    stream, flips, total = KeyedStream(SEED + 15).at(0), 0, 0
+    for mg, mc in zip(model_gpu.modules(), model_cpu.modules()):
+        if isinstance(mg, _Prunable) and mg.mask is not None:
+            draw = stream.mask_draw(mg, mg.mask.shape, "cpu")
+            u = draw.uniform(mg.mask.shape, "cpu")
+            on_card = (u.cuda() < torch.sigmoid(mg.mask.detach())).cpu()
+            flips += int((on_card != (u < torch.sigmoid(mc.mask.detach()))).sum())
+            total += u.numel()
+    log(f"[{label}] one keyed draw of every mask: {flips} of {total} samples differ card vs CPU (the sigmoids' "
+        f"last bits)")
+    return flips
 
 
 # ----------------------------------------------------------- Up-Down path
@@ -4108,6 +4490,55 @@ def run_ort_xsmall_phase(gen) -> tuple:
     return good, serve_counts, train_counts
 
 
+def run_supermask_scst_phase(gen) -> tuple:
+    """Supermask SCST: the paper-width ORT (5 x 15 and 64 x 15) and
+    Up-Down (5 x 60 and 16 x 60) with a training supermask, every decode
+    step drawing fresh keyed masks (K5's keyed mode) in the sampling phase
+    and again in the gradient pass (the ORT's: the decode run again with
+    gradients through K2's and K3's backward; Up-Down's: its unrolled
+    replay), f32, dropout on, the mask Adam: 1 warm-up + SUPERMASK_SCST_STEPS
+    steps at each batch with the launch counts asserted (fixed from step to
+    step; no plain attention or plain K2 / K3 backward), steps/s, samples/s,
+    peak memory, a profile of one step at the larger batch; the gradient
+    pass's log-probs against the sampling decode's at the smaller batch; one
+    step at 2 x 3 card against CPU (the same keyed bits on both). Returns
+    (all held, ORT launches a step, Up-Down launches a step)."""
+    from sparse_caption_tpu_torch.kernels import KERNELS
+
+    good = True
+    model = build_supermask_scst(SEED + 15)
+    expected = supermask_scst_launches(PAPER["num_layers"], MAX_LEN, KERNELS)
+    for b in SCST_BATCHES:
+        ort_counts, step, state, batch = run_scst_phase(model, gen, b, expected, label="supermask scst",
+                                                        steps=SUPERMASK_SCST_STEPS)
+    held = [state]
+    profile_window(f"supermask SCST step, f32 batch {SCST_BATCHES[-1]}x{SCST_SAMPLES}",
+                   lambda: held.append(step(held.pop(), batch)[0]))
+    del step, batch, held, state
+    good &= replay_check(model, gen, label="supermask replay")
+    del model
+    torch.cuda.empty_cache()
+    good &= scst_whole_step_check(SEED + 15, gen, build_supermask_scst, label="supermask scst-step")
+    torch.cuda.empty_cache()
+
+    ud = build_supermask_updown(SEED + 15)
+    expected = supermask_updown_scst_launches(MAX_LEN, KERNELS)
+    for b in UPDOWN_SCST_BATCHES:
+        ud_counts, step, state, batch = run_scst_phase(ud, gen, b, expected, UPDOWN_SCST_SAMPLES, updown_scst_batch,
+                                                       "updown supermask scst", steps=SUPERMASK_SCST_STEPS)
+    held = [state]
+    profile_window(f"Up-Down supermask SCST step, f32 batch {UPDOWN_SCST_BATCHES[-1]}x{UPDOWN_SCST_SAMPLES}",
+                   lambda: held.append(step(held.pop(), batch)[0]))
+    del step, batch, held, state
+    good &= replay_check(ud, gen, make_updown_batch, UPDOWN_SCST_SAMPLES, "updown supermask replay")
+    del ud
+    torch.cuda.empty_cache()
+    good &= scst_whole_step_check(SEED + 15, gen, build_supermask_updown, make_updown_batch,
+                                  "updown supermask scst-step")
+    torch.cuda.empty_cache()
+    return good, ort_counts, ud_counts
+
+
 def card_line() -> str:
     out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True)
@@ -4144,6 +4575,8 @@ def main() -> int:
     ok &= check_decoder_attention_kernels(torch.Generator(device="cuda").manual_seed(SEED + 14), results)
     torch.cuda.empty_cache()
     ok &= check_scst_kernels(gen, results)
+    torch.cuda.empty_cache()
+    ok &= check_decode_backward_kernels(torch.Generator(device="cuda").manual_seed(SEED + 15), results)
     torch.cuda.empty_cache()
     ok &= check_magnitude_kernels(torch.Generator(device="cuda").manual_seed(SEED + 16), results)
     torch.cuda.empty_cache()
@@ -4293,12 +4726,18 @@ def main() -> int:
     if not good:
         return 1
 
+    # supermask SCST: fresh keyed masks at every decode step, the ORT's gradient pass through K2's and K3's backward
+    good, sm_scst, ud_sm_scst = run_supermask_scst_phase(torch.Generator(device="cuda").manual_seed(SEED + 15))
+    if not good:
+        return 1
+
     paths = {"serve": serve_counts, "train_step": train_counts, "scst_step": scst_counts,
              "updown_serve": ud_serve_counts, "updown_train_step": ud_train_counts,
              "updown_scst_step": ud_scst_counts, "prune_update": prune_counts, "acort_serve": acort_serve_counts,
              "acort_train_step": acort_train_counts}
     paths.update(zip(ACORT_SMALL_PATHS, (small_serve, small_train, small_scst)))
     paths.update(zip(XSMALL_PATHS, (xsmall_serve, xsmall_train)))
+    paths.update(zip(SUPERMASK_PATHS, (sm_scst, ud_sm_scst)))
     kernels = []
     for name in _build.SOURCES:
         entries = [e for e, k in KERNELS.items() if k.library_name == name]
@@ -4316,7 +4755,8 @@ def main() -> int:
                             **results[mode]))
     # ACORT-small's instances (head width 32), K10's radix mode and ORT-xsmall's instances (head width 13):
     # their own entries, launches on their model's paths
-    for modes, model_paths in ((ACORT_SMALL_MODES, ACORT_SMALL_PATHS), (XSMALL_MODES, XSMALL_PATHS)):
+    for modes, model_paths in ((ACORT_SMALL_MODES, ACORT_SMALL_PATHS), (XSMALL_MODES, XSMALL_PATHS),
+                               (SUPERMASK_MODES, SUPERMASK_PATHS)):
         for mode, library, entries, replaces in modes:
             by_path = {path: sum(paths[path][e] for e in entries) for path in model_paths}
             src = _build.CSRC / f"{library}.cu"

@@ -20,7 +20,8 @@ params stay f32 and the forward runs on a differentiable bf16 cast of them
 compute dtype, as the JAX package's do).
 
 SCST (the two-phase step with the device reward, ``scst_reward device``;
-mask_freeze or dense models of either family, ``scst_sample random``):
+supermask, mask_freeze or dense models of either family, ``scst_sample
+random``):
 
     reward_fn = make_reward_fn(DfTable.from_pickle(df_path, tok2id), bleu_weight=(0, 0, 0, 1))
     step = make_scst_step(model, opt_w, opt_m, config, reward_fn)
@@ -41,6 +42,7 @@ from torch import nn
 from sparse_caption_tpu_torch.decoding.api import generate
 from sparse_caption_tpu_torch.engine import losses as losses_mod
 from sparse_caption_tpu_torch.engine.optim import Optimizer
+from sparse_caption_tpu_torch.kernels.vocab_log_softmax import vocab_log_softmax
 from sparse_caption_tpu_torch.ops.masked import MaskConfig, split_params
 from sparse_caption_tpu_torch.ops.rng import KeyedStream, TrainRandom, decode_train_keys, derive_key
 from sparse_caption_tpu_torch.pruning.engine import compute_sparsity_loss
@@ -126,6 +128,28 @@ def make_xe_step(model: nn.Module, opt_w: Optimizer, opt_m: Optimizer, config):
     return xe_step
 
 
+def scan_log_probs(model: nn.Module, memory: Dict, flat: torch.Tensor, dec_seed: int) -> torch.Tensor:
+    """The train-mode sampling decode of ``decoding.generate(...,
+    decode_train=True, rng=dec_seed)`` run again, step by step, with
+    gradients, feeding it the tokens it sampled (``flat`` (N, T), pad after
+    EOS): its cache under the cache stream, step t under the dropout
+    stream's step view, so every dropout and supermask draw is the decode's.
+    Returns each step's log-prob of its token (N, T), f32, through kernel K13
+    (the JAX package's differentiable scan on the same tokens,
+    ``engine/training.py:693-703,769``)."""
+    keys = decode_train_keys(dec_seed)
+    n, steps = flat.shape
+    cache = model.init_cache(memory, steps, n // memory["mask"].shape[0], train=True, rng=KeyedStream(keys.cache))
+    step_rng = KeyedStream(keys.dropout)
+    it = torch.full((n,), model.bos_id, dtype=flat.dtype, device=flat.device)
+    out = []
+    for t in range(steps):
+        logits, cache = model.decode_step_logits(it, cache, t, memory, True, step_rng)
+        out.append(torch.gather(vocab_log_softmax(logits), 1, flat[:, t: t + 1].long())[:, 0])
+        it = flat[:, t]
+    return torch.stack(out, dim=1)
+
+
 def make_scst_step(model: nn.Module, opt_w: Optimizer, opt_m: Optimizer, config, reward_fn):
     """-> ``scst_step(state, batch) -> (state, loss, aux)``, the two-phase SCST
     step with the device reward (``reward_fn``: ``scst.device_reward.make_reward_fn``).
@@ -148,14 +172,19 @@ def make_scst_step(model: nn.Module, opt_w: Optimizer, opt_m: Optimizer, config,
        one parallel pass; Up-Down through its unrolled steps, step t under
        the step view at t, which is the JAX package's differentiable scan
        on the same tokens), the REINFORCE loss, its backward and the
-       optimizer update.
+       optimizer update of weights and masks.
+
+    A supermask model draws fresh masks at every decode step (keyed, so the
+    gradient pass draws the same ones: ``ops/rng.py``). One parallel pass
+    cannot reproduce that, so the ORT's gradient pass re-encodes and runs
+    the decode again step by step with gradients (``scan_log_probs``, K2's
+    and K3's backward kernels); Up-Down's unrolled replay is that scan
+    already (``STEPWISE_REPLAY``).
 
     ``config["scst_reward"]`` must be ``"device"``: the host reward, the JAX
     package's default when the key is absent, raises ``NotImplementedError``
-    until it is ported. The replay is exact only when the masks are
-    deterministic: a supermask model (a fresh Bernoulli draw per step),
-    beam-sample SCST and the pipelined and fused steps raise
-    ``NotImplementedError`` too."""
+    until it is ported. Beam-sample SCST and the pipelined and fused steps
+    raise ``NotImplementedError`` too."""
     num_samples = int(config.get("scst_num_samples", 15))
     sample_mode = str(config.get("scst_sample", "random"))
     baseline_mode = str(config.get("scst_baseline", "greedy"))
@@ -165,9 +194,8 @@ def make_scst_step(model: nn.Module, opt_w: Optimizer, opt_m: Optimizer, config,
         raise ValueError(f"bad scst_sample `{sample_mode}` or scst_baseline `{baseline_mode}`")
     if str(config.get("scst_reward", "host")) != "device":  # the JAX package's default is the host reward
         raise NotImplementedError("the host reward path and its scorer land in a later slice")
-    if model.mask_cfg is not None and model.mask_cfg.is_supermask:
-        raise NotImplementedError("supermask SCST (the differentiable scan through per-step Bernoulli draws) "
-                                  "lands in a later slice")
+    scan = (model.mask_cfg is not None and model.mask_cfg.is_supermask
+            and not getattr(model, "STEPWISE_REPLAY", False))
     max_len = int(config.get("max_seq_length", 18)) - 1
     sample_opt = {"num_random_sample": num_samples, "beam_size": 0, "max_seq_length": max_len,
                   "temperature": float(config.get("scst_temperature", 1.0)), "decode_train": True}
@@ -210,12 +238,16 @@ def make_scst_step(model: nn.Module, opt_w: Optimizer, opt_m: Optimizer, config,
         opt_w.zero_grad()
         opt_m.zero_grad()
         enc_rng = KeyedStream(enc_key)
-        with model.mask_set(enc_rng):  # the replay's masked products: one K5 set (ORT), or the encode's (Up-Down)
-            memory = encode(batch, enc_rng)
-            seqs_in = torch.cat([torch.full((b * s, 1), model.bos_id, dtype=flat.dtype, device=flat.device), flat], 1)
-            lp = model.decode_teacher_forced(memory, seqs_in, train=True,
-                                             rng=KeyedStream(decode_train_keys(dec_seed).dropout))
-        seq_lp = torch.gather(lp, 2, flat.long()[..., None])[..., 0]
+        if scan:  # the decode itself, with gradients: its encode, its cache and its steps
+            seq_lp = scan_log_probs(model, encode(batch, enc_rng), flat, dec_seed)
+        else:
+            with model.mask_set(enc_rng):  # the replay's masked products: one K5 set (ORT), or the encode's (Up-Down)
+                memory = encode(batch, enc_rng)
+                seqs_in = torch.cat([torch.full((b * s, 1), model.bos_id, dtype=flat.dtype, device=flat.device), flat],
+                                    1)
+                lp = model.decode_teacher_forced(memory, seqs_in, train=True,
+                                                 rng=KeyedStream(decode_train_keys(dec_seed).dropout))
+            seq_lp = torch.gather(lp, 2, flat.long()[..., None])[..., 0]
         loss = losses_mod.reward_loss(seq_lp, flat != model.pad_id, rewards)
         loss.backward()
         aux = {"avg_reward": rewards.mean(), "avg_sample": sc_s.mean(), "avg_baseline": sc_b.mean()}

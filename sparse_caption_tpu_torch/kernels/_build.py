@@ -27,7 +27,7 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 SOURCES = ("box_attention", "ancestry_self_attention", "grouped_cross_attention", "beam_topk", "supermask",
            "add_ref_layernorm", "box_attention_bwd", "keyed_dropout", "sample_step", "cider_reward", "lstm_cell",
            "additive_attention", "vocab_log_softmax", "decoder_attention", "decoder_attention_bwd",
-           "magnitude_threshold")
+           "magnitude_threshold", "ancestry_self_attention_bwd", "grouped_cross_attention_bwd")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

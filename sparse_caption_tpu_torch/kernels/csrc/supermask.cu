@@ -9,6 +9,7 @@
 //   forward   s     = [u < sigmoid(m)]   (mode 0, train: a Bernoulli draw)
 //                   = [0.5 < sigmoid(m)] (mode 1, eval: round(sigmoid(m)))
 //                   = m                  (mode 2, a 0/1 mask of another type)
+//                   = [u < sigmoid(m)]   (mode 3, keyed: u from Philox, below)
 //             w_eff = w * s, written in w's dtype (exact: s is 0 or 1)
 //   backward  dw    = g * s                                  (w's dtype)
 //             dm    = (g * w) * sigmoid(m) (1 - sigmoid(m))   (f32; mode 0/1)
@@ -19,6 +20,21 @@
 // Modes 1 and 2 recompute s from m. sigmoid is 1 / (1 + expf(-m)), the
 // expression PyTorch's CUDA sigmoid evaluates, so the sample equals the
 // plain version's bit for bit.
+//
+// Mode 3 (keyed; supermask SCST, whose gradient pass must redraw the masks
+// of every decode step) is mode 0 with u made in registers, never read or
+// written: element e of an entry draws Philox4x32-10 (philox.cuh) under the
+// entry's 64-bit key with counter (site, t, e / 4, 0), word e % 4, and u =
+// (word >> 8) * 2^-24, the uniform `keep_bit` compares. The entry carries
+// site | t << 32 in place of u's pointer and the key in its unused fifth
+// word. Replaces: sparse_caption_tpu/decoding/api.py:78-87 (the per-step
+// `fold_in(mask_key, t)` of a train-mode decode, each layer's Bernoulli
+// under it; threefry bits on the TPU). The plain version is
+// kernels/supermask.py keyed_uniform_plain; the two agree bit for bit.
+// Bound: bytes, as mode 0 less u's 4 bytes a weight (8.125 B a weight in f32
+// forward: w, m, w_eff, the bits); two Philox calls a unit of 8 weights, 20
+// integer multiplies each, far below the card's integer rate. An ORT decode
+// step's set (32.7M weights, f32): 0.27 GB, 0.08 ms at 3.35 TB/s.
 //
 // Bound on the H100: bytes. The ORT's set carries 55.3M masked weights: in
 // bf16 the forward reads w, m, u and writes w_eff and the bits (12.125 B per
@@ -41,6 +57,7 @@
 #include <string.h>
 
 #include "common.cuh"
+#include "philox.cuh"
 #include "vec.cuh"
 
 namespace sct {
@@ -48,8 +65,8 @@ namespace sct {
 constexpr int kMaskThreads = 256;
 constexpr int kUnit = 8;  // weights a thread takes at a time
 
-// One tensor of a set. Forward p = {w, m, u, w_eff, -}; backward p = {g, w,
-// m, dw, dm}. n weights; unit0: its first unit in the launch's index space;
+// One tensor of a set. Forward p = {w, m, u, w_eff, -} (mode 3: {w, m,
+// site | t << 32, w_eff, key}); backward p = {g, w, m, dw, dm}. n weights; unit0: its first unit in the launch's index space;
 // bit0: its first unit in the set's bit array (the forward's index space).
 struct MaskEntry {
   const void* p[5];
@@ -62,18 +79,35 @@ struct MaskSet {
 
 __device__ __forceinline__ float sigmoid_of(float m) { return 1.f / (1.f + expf(-m)); }
 
-// s of one weight: mode 0 from u, 1 from m's sigmoid, 2 m itself
+// s of one weight: modes 0 and 3 from u, 1 from m's sigmoid, 2 m itself
 __device__ __forceinline__ float mask_sample(int mode, float m, float u) {
   if (mode == 2) return m;
   const float p = sigmoid_of(m);
-  return (mode == 0 ? u < p : 0.5f < p) ? 1.f : 0.f;
+  return (mode == 1 ? 0.5f < p : u < p) ? 1.f : 0.f;
 }
 
-// every pointer of the entry (the first `count`; null ones aside) 16-byte aligned
-__device__ __forceinline__ bool vectors_fit(const MaskEntry& e, int count) {
+// every pointer of the entry (the first `count`, but word 2 when it holds a
+// keyed draw; null ones aside) 16-byte aligned
+__device__ __forceinline__ bool vectors_fit(const MaskEntry& e, int count, bool keyed = false) {
   bool ok = true;
-  for (int i = 0; i < count; ++i) ok &= aligned_to(e.p[i], 16);
+  for (int i = 0; i < count; ++i) ok &= (keyed && i == 2) || aligned_to(e.p[i], 16);
   return ok;
+}
+
+// a keyed entry's draw: the key's words, its site and step
+struct KeyedDraw {
+  uint32_t k0, k1, site, t;
+};
+__device__ __forceinline__ KeyedDraw draw_of(const MaskEntry& e) {
+  const unsigned long long st = reinterpret_cast<unsigned long long>(e.p[2]);
+  const unsigned long long key = reinterpret_cast<unsigned long long>(e.p[4]);
+  return KeyedDraw{(uint32_t)key, (uint32_t)(key >> 32), (uint32_t)st, (uint32_t)(st >> 32)};
+}
+
+// the uniform of element e from word e % 4 of Philox (site, t, e / 4, 0)
+__device__ __forceinline__ float keyed_u(const Philox4& r, int j) { return (float)(philox_word(r, j) >> 8) * 0x1p-24f; }
+__device__ __forceinline__ Philox4 keyed_block(const KeyedDraw& d, long long e4) {
+  return philox4x32_10(Philox4{d.site, d.t, (uint32_t)e4, 0u}, d.k0, d.k1);
 }
 
 // the first unit of entry i + 1 (past the last entry: `units`)
@@ -96,7 +130,7 @@ supermask_fwd_kernel(const __grid_constant__ MaskSet set, int count, long long u
         next0 = next_unit0(set, ++ti, count, units);
       } while (unit >= next0);
       ent = set.e[ti];
-      vec = vectors_fit(ent, 4);
+      vec = vectors_fit(ent, 4, mode == 3);
     }
     const T* w = static_cast<const T*>(ent.p[0]);
     const float* m = static_cast<const float*>(ent.p[1]);
@@ -104,6 +138,17 @@ supermask_fwd_kernel(const __grid_constant__ MaskSet set, int count, long long u
     T* out = static_cast<T*>(const_cast<void*>(ent.p[3]));
     const long long e0 = (unit - ent.unit0) * kUnit;
     unsigned int byte = 0;
+    // the unit's 8 uniforms of the keyed mode: two Philox blocks (elements e0 .. e0 + 7)
+    float ku[kUnit];
+    if (mode == 3) {
+      const KeyedDraw d = draw_of(ent);
+#pragma unroll
+      for (int b = 0; b < kUnit / 4; ++b) {
+        const Philox4 r = keyed_block(d, e0 / 4 + b);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) ku[4 * b + j] = keyed_u(r, j);
+      }
+    }
     if (vec && e0 + kUnit <= ent.n) {
       float wv[kUnit], mv[kUnit], uv[kUnit];
       load_n<kUnit>(w + e0, wv);
@@ -111,7 +156,7 @@ supermask_fwd_kernel(const __grid_constant__ MaskSet set, int count, long long u
       if (mode == 0) load_n<kUnit>(u + e0, uv);
 #pragma unroll
       for (int i = 0; i < kUnit; ++i) {
-        const float s = mask_sample(mode, mv[i], mode == 0 ? uv[i] : 0.f);
+        const float s = mask_sample(mode, mv[i], mode == 0 ? uv[i] : mode == 3 ? ku[i] : 0.f);
         wv[i] *= s;
         byte |= (s != 0.f ? 1u : 0u) << i;
       }
@@ -119,12 +164,12 @@ supermask_fwd_kernel(const __grid_constant__ MaskSet set, int count, long long u
     } else {  // scalar tail
       const int cnt = (int)(ent.n - e0 < kUnit ? ent.n - e0 : kUnit);
       for (int i = 0; i < cnt; ++i) {
-        const float s = mask_sample(mode, m[e0 + i], mode == 0 ? u[e0 + i] : 0.f);
+        const float s = mask_sample(mode, m[e0 + i], mode == 0 ? u[e0 + i] : mode == 3 ? ku[i] : 0.f);
         out[e0 + i] = from_f<T>(to_f(w[e0 + i]) * s);
         byte |= (s != 0.f ? 1u : 0u) << i;
       }
     }
-    if (mode == 0) bits[ent.bit0 + (unit - ent.unit0)] = (unsigned char)byte;
+    if (mode == 0 || mode == 3) bits[ent.bit0 + (unit - ent.unit0)] = (unsigned char)byte;
   }
 }
 
@@ -229,7 +274,7 @@ cudaError_t launch_bwd(const void* table, int count, long long units, const void
 
 inline bool bad_args(int dtype, const void* table, int count, long long units, const void* bits, int mode) {
   return dtype < 0 || dtype > 1 || table == nullptr || count < 1 || count > kMaxEntries || units < 1 || mode < 0 ||
-         mode > 2 || (mode == 0 && (bits == nullptr || !aligned_to(bits, 4)));
+         mode > 3 || ((mode == 0 || mode == 3) && (bits == nullptr || !aligned_to(bits, 4)));
 }
 
 }  // namespace sct
@@ -237,8 +282,8 @@ inline bool bad_args(int dtype, const void* table, int count, long long units, c
 // dtype: 0 = float32, 1 = bfloat16 (w, w_eff, g, dw); m, u, dm f32. table:
 // `count` <= 128 entries (MaskEntry, 64 bytes each, in host memory) whose units (8
 // weights, the last of a tensor maybe fewer) number `units` in all; bits:
-// the set's sample bits (mode 0: one byte a unit, 4-byte aligned; else
-// null).
+// the set's sample bits (modes 0 and 3: one byte a unit, 4-byte aligned;
+// else null). The backward takes modes 0-2 (the keyed mode's is mode 0's).
 extern "C" int sct_supermask(int dtype, const void* table, int count, long long units, void* bits, int mode,
                              void* stream) {
   if (sct::bad_args(dtype, table, count, units, bits, mode)) return (int)cudaErrorInvalidValue;

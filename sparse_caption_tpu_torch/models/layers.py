@@ -32,7 +32,13 @@ tensor as k and v in K14 / K15) and "qk" (K from ``q_proj``; the unshared
 kernels with q's projection as k).
 
 Decode caches are explicit tensors ``(N, h, T_max, dk)``; ``decode_self``
-writes slot ``t`` IN PLACE (the JAX package returns an updated copy).
+writes slot ``t`` IN PLACE (the JAX package returns an updated copy). A
+decode step runs with gradients where the caller asks (supermask SCST's
+gradient pass, the JAX package's differentiable decode scan): the slot's
+write and K2 then run as one autograd Function that threads the cache
+(``kernels/ancestry_self_attention.py decode_self_attention``), K3 as one
+whose backward is K3's backward, and a training supermask's q, k and v
+products are the step's own K5 samples (not the cached fused projection).
 Parameter names follow the flax leaf paths (``q_proj.weight`` <-
 ``q_proj/kernel``; see ``utils/convert_jax.py``).
 """
@@ -47,7 +53,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from sparse_caption_tpu_torch.kernels.add_ref_layernorm import add_ref_layernorm
-from sparse_caption_tpu_torch.kernels.ancestry_self_attention import ancestry_self_attention
+from sparse_caption_tpu_torch.kernels.ancestry_self_attention import decode_self_attention
 from sparse_caption_tpu_torch.kernels.box_attention import DIM_G, box_attention
 from sparse_caption_tpu_torch.kernels.box_attention_bwd import box_attention_train
 from sparse_caption_tpu_torch.kernels.decoder_attention import decoder_attention
@@ -225,14 +231,19 @@ class MultiHeadAttention(nn.Module, DropoutSite):
         k_proj = self.q_proj if self.share_att == "qk" else self.k_proj
         return _split_heads(k_proj(key, rng), h), _split_heads(self.v_proj(value, rng), h)
 
-    def decode_cross(self, x_t, mem_k, mem_v, mem_mask):
+    def masked_kv(self) -> list:
+        """The masked projections ``project_memory_kv`` calls, in order."""
+        return [getattr(self, name) for name in CALL_ORDER[self.share_att][1:]]
+
+    def decode_cross(self, x_t, mem_k, mem_v, mem_mask, rng=None):
         """x_t: (N, 1, D); mem_k/v: (B, h, S, dk), B dividing N (each image's
         beam rows share its memory row); mem_v=None means V is K (kernel K3's
-        kv mode); mem_mask: (B, S) bool. Runs kernel K3."""
+        kv mode); mem_mask: (B, S) bool; rng: the train-mode step stream
+        (a training supermask's q and out products). Runs kernel K3."""
         n = x_t.shape[0]
-        q = self.q_proj(x_t).reshape(n, self.num_heads, -1)
+        q = self.q_proj(x_t, rng).reshape(n, self.num_heads, -1)
         out = grouped_cross_attention(q, mem_k, mem_v, mem_mask)
-        return self.out_proj(out.reshape(n, 1, -1))
+        return self.out_proj(out.reshape(n, 1, -1), rng)
 
     def _fused_qkv(self):
         """The concatenated effective weight (P D, D) (a kept mask applied)
@@ -263,20 +274,33 @@ class MultiHeadAttention(nn.Module, DropoutSite):
             return q, q, out[:, 1]
         return q, out[:, 1], out[:, 2]
 
-    def decode_self(self, x_t, cache_k, cache_v, t: int, ancestry: Optional[torch.Tensor] = None):
+    def _step_qkv(self, x_t, rng=None):
+        """q, k and v of one decode step, as ``_fused_qkv_step`` gives them.
+        Where the products are drawn or differentiated on every call (a
+        training supermask's step samples, or gradients asked for), each
+        projection runs on its own product, as the JAX package's non-fused
+        path calls them ("qk": ``q_proj`` twice, a product each)."""
+        if not torch.is_grad_enabled() and self.q_proj._per_call_mode(rng) is None:
+            return self._fused_qkv_step(x_t)
+        n, h = x_t.shape[0], self.num_heads
+        q = self.q_proj(x_t, rng).reshape(n, h, -1)
+        if self.share_att == "kv":
+            return q, self.kv_proj(x_t, rng).reshape(n, h, -1), None
+        k_t = (self.q_proj if self.share_att == "qk" else self.k_proj)(x_t, rng).reshape(n, h, -1)
+        return q, k_t, self.v_proj(x_t, rng).reshape(n, h, -1)
+
+    def decode_self(self, x_t, cache_k, cache_v, t: int, ancestry: Optional[torch.Tensor] = None, rng=None):
         """One causal step. x_t: (N, 1, D); cache_k/v: (N, h, T_max, dk), slot t
         written IN PLACE; cache_v=None under "kv" (one array, read as K and V:
         kernel K2's kv mode); ancestry: (B, K, T_max) int32 ancestor map (row
-        b*K + k reads slot t' of row b*K + ancestry[b, k, t']) or None.
-        Runs kernel K2."""
+        b*K + k reads slot t' of row b*K + ancestry[b, k, t']) or None; rng:
+        the train-mode step stream. Runs kernel K2 (and, with gradients, its
+        backward: ``decode_self_attention``)."""
         if (cache_v is None) != (self.share_att == "kv"):
             raise ValueError("a kv-shared layer caches one array (cache_v=None); every other layer two")
-        q, k_t, v_t = self._fused_qkv_step(x_t)
-        cache_k[:, :, t] = k_t
-        if cache_v is not None:
-            cache_v[:, :, t] = v_t
-        out = ancestry_self_attention(q, cache_k, cache_v, ancestry, t)
-        return self.out_proj(out.reshape(x_t.shape[0], 1, -1))
+        q, k_t, v_t = self._step_qkv(x_t, rng)
+        out = decode_self_attention(q, k_t, v_t, cache_k, cache_v, ancestry, t)
+        return self.out_proj(out.reshape(x_t.shape[0], 1, -1), rng)
 
 
 class BoxMultiHeadAttention(nn.Module, DropoutSite):

@@ -14,6 +14,16 @@ touching the K/V cache. A train-mode decode step draws its dropout from a
 step's draws in one pass. ``share_att_*`` / ``share_layer_*`` (ACORT) are
 ported: each slot of a shared layer draws its keyed dropout under its own
 site (``ops.rng.slot_rng``); a training supermask over shared layers raises.
+
+A training supermask draws fresh masks at every decode step, so one
+teacher-forced pass cannot replay its decode: supermask SCST's gradient pass
+re-runs the decode itself with gradients (``engine/training.py
+scan_log_probs``). ``init_cache(train=True)`` and ``decode_step_logits`` run
+with gradients where the caller has them enabled (the JAX package's
+``differentiable=True``); the cross K/V projection draws its masks once,
+under the cache's stream, and every step its own K5 set under the step view
+(keyed draws, K5's keyed mode), so the sampling pass and the gradient pass
+draw the same masks.
 """
 
 from __future__ import annotations
@@ -40,7 +50,14 @@ from sparse_caption_tpu_torch.models.layers import (
     assign_dropout_sites,
     prenorm_stack,
 )
-from sparse_caption_tpu_torch.ops.masked import MaskConfig, MaskedEmbedding, MaskedLinear, mask_set, masked_call_order
+from sparse_caption_tpu_torch.ops.masked import (
+    MaskConfig,
+    MaskedEmbedding,
+    MaskedLinear,
+    assign_mask_sites,
+    mask_set,
+    masked_call_order,
+)
 from sparse_caption_tpu_torch.ops.rng import dropout, slot_rng
 
 
@@ -121,10 +138,16 @@ class DecoderLayer(nn.Module):
         cross_v under kv); mem_mask: (B, S) bool;
         rng: the train-mode step stream (no attention-prob dropout here)."""
         return [(self.sub0, lambda y: self.self_attn.decode_self(
-                    y, layer_cache["self_k"], layer_cache.get("self_v"), t, ancestry), rng),
+                    y, layer_cache["self_k"], layer_cache.get("self_v"), t, ancestry, rng), rng),
                 (self.sub1, lambda y: self.src_attn.decode_cross(
-                    y, cross["cross_k"], cross.get("cross_v"), mem_mask), rng),
+                    y, cross["cross_k"], cross.get("cross_v"), mem_mask, rng), rng),
                 (self.sub2, lambda y: self.feed_forward(y, rng), rng)]
+
+    def decode_masked(self) -> list:
+        """The masked layers one decode step calls, in order (the cross K/V
+        projections are the cache's)."""
+        return (masked_call_order(self.self_attn) + [self.src_attn.q_proj, self.src_attn.out_proj]
+                + masked_call_order(self.feed_forward))
 
 
 @register_model("transformer")
@@ -166,6 +189,7 @@ class Transformer(nn.Module, DropoutSite):
         self._build_encoder(att_feat_size, dim_feedforward, share_att_encoder, factory)
         self.reset_parameters(generator)
         assign_dropout_sites(self)
+        assign_mask_sites(self)
         self.eval()
 
     def _build_encoder(self, att_feat_size, dim_feedforward, share_att, factory):
@@ -208,6 +232,16 @@ class Transformer(nn.Module, DropoutSite):
     def _decoder_masked(self) -> list:
         """The masked layers of a teacher-forced decoder pass and the generator, in call order."""
         return masked_call_order(self.tgt_embed, *(self.decoder_layers[i] for i in self.dec_plan), self.generator)
+
+    def _decode_step_masked(self) -> list:
+        """The masked layers of one decode step and the generator, in call order."""
+        return masked_call_order(self.tgt_embed) + [
+            m for i in self.dec_plan for m in self.decoder_layers[i].decode_masked()] + masked_call_order(
+            self.generator)
+
+    def _cross_masked(self) -> list:
+        """The cross K/V projections of ``init_cache(train=True)``, slot by slot."""
+        return [m for i in self.dec_plan for m in self.decoder_layers[i].src_attn.masked_kv()]
 
     def mask_set(self, rng=None):
         """One K5 set (``ops/masked.py mask_set``) for the masked products of
@@ -261,16 +295,22 @@ class Transformer(nn.Module, DropoutSite):
             return self.generator(out, rng)
 
     # ------------------------------------------------------------- decode
-    @torch.no_grad()
     def init_cache(self, memory_pytree: Dict[str, Any], max_steps: Optional[int] = None, rows_per_image: int = 1,
                    beam_ancestry: bool = False, train: bool = False, rng=None) -> Dict[str, Any]:
         """Static-shape decode cache: self K/V zeros at ``B * rows_per_image``
         rows (``self_k`` only in a kv-shared layer), projected cross K/V at B
         rows (``cross_k`` only under kv; in eval once per unique layer, shared
         by its slots; with ``train`` once per slot, under the train policy's
-        masks, ``rng`` its random source), and with ``beam_ancestry`` an
-        identity ancestor map (B, rows_per_image, T_max) int32."""
+        masks, ``rng`` its random source: a training supermask's projections
+        as one K5 set), and with ``beam_ancestry`` an identity ancestor map
+        (B, rows_per_image, T_max) int32. With ``train`` and gradients
+        enabled, the cross K/V carry them."""
         rng = self._train_rng(train, rng)
+        with torch.set_grad_enabled(train and torch.is_grad_enabled()), \
+                mask_set(self._cross_masked() if train else [], rng):
+            return self._init_cache(memory_pytree, max_steps, rows_per_image, beam_ancestry, train, rng)
+
+    def _init_cache(self, memory_pytree, max_steps, rows_per_image, beam_ancestry, train, rng):
         memory = memory_pytree["memory"]
         b = memory.shape[0]
         rows = b * int(rows_per_image)
@@ -295,17 +335,22 @@ class Transformer(nn.Module, DropoutSite):
                 None, :, None].repeat(b, 1, t_max)
         return cache
 
-    @torch.no_grad()
     def decode_step_logits(self, it, cache: Dict[str, Any], t: int, memory_pytree: Dict[str, Any],
                            train: bool = False, rng=None):
         """it: (N,) current tokens; t: step index. Returns (logits (N, V), cache);
-        in train mode (``rng`` the decode's ``KeyedStream``) dropout draws at t
-        and the logits are f32.
+        in train mode (``rng`` the decode's ``KeyedStream``) dropout and a
+        training supermask's samples (one K5 set) draw at t, the logits are
+        f32, and gradients flow where the caller has them enabled.
 
         The self K/V caches are written in place; the returned cache holds the
         ancestor map with slot t set to identity (each row wrote slot t itself)."""
         rng = self._train_rng(train, rng)
         rng = None if rng is None else rng.at(t)
+        with torch.set_grad_enabled(train and torch.is_grad_enabled()), \
+                mask_set(self._decode_step_masked() if train else [], rng):
+            return self._decode_step_logits(it, cache, t, memory_pytree, train, rng)
+
+    def _decode_step_logits(self, it, cache, t, memory_pytree, train, rng):
         mem_mask = memory_pytree["mask"] != 0
         x = self.pos_enc(self.tgt_embed(it[:, None], rng), t=t, rng=rng)  # (N, 1, D)
         ancestry = cache.get("ancestry")

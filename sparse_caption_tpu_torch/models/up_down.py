@@ -43,7 +43,14 @@ from sparse_caption_tpu_torch.kernels.lstm_cell import lstm_cell
 from sparse_caption_tpu_torch.kernels.vocab_log_softmax import vocab_log_softmax
 from sparse_caption_tpu_torch.models import register_model
 from sparse_caption_tpu_torch.models.transformer import train_rng
-from sparse_caption_tpu_torch.ops.masked import MaskConfig, MaskedEmbedding, MaskedLinear, mask_set, masked_call_order
+from sparse_caption_tpu_torch.ops.masked import (
+    MaskConfig,
+    MaskedEmbedding,
+    MaskedLinear,
+    assign_mask_sites,
+    mask_set,
+    masked_call_order,
+)
 from sparse_caption_tpu_torch.ops.rng import dropout, site_id
 
 STATE = ("h_att", "c_att", "h_lang", "c_lang")
@@ -92,6 +99,9 @@ class UpDownModel(nn.Module):
     (xavier-uniform matrices, zero biases) from ``generator``."""
 
     COLLATE_FIELDS = ("att_feats", "att_masks", "fc_feats")
+    # decode_teacher_forced(train=True) runs the decode's own steps under
+    # their step views, so it replays a training supermask's per-step draws too
+    STEPWISE_REPLAY = True
 
     def __init__(self, vocab_size: int, rnn_size: int = 1000, input_encoding_size: int = 1000,
                  att_hid_size: int = 512, fc_feat_size: int = 2048, att_feat_size: int = 2048, logit_layers: int = 1,
@@ -120,6 +130,7 @@ class UpDownModel(nn.Module):
         # the masked layers of one unrolled step, in call order (one K5 set a step)
         self._step_masked = masked_call_order(self.embed, self.att_lstm, self.attention, self.lang_lstm, self.logit[0])
         self.reset_parameters(generator)
+        assign_mask_sites(self)
         self.eval()
 
     def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:

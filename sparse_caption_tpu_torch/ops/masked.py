@@ -16,6 +16,11 @@ the weight's layout (the JAX package's ``"masks"`` collection), and the
 product runs in kernel K5 (``kernels/supermask.py``) on every forward. A
 model's forward runs the products of the layers it calls as one set
 (``mask_set``): one K5 launch each way for all of them.
+
+A training supermask draws its sample from the forward's random source
+(``rng.mask_draw``): uniforms from a ``TrainRandom`` (XE, K5's sample
+mode), or a ``KeyedDraw`` from a ``KeyedStream`` (SCST, K5's keyed mode,
+which makes the uniforms in the kernel from the layer's ``mask_site``).
 """
 
 from __future__ import annotations
@@ -28,7 +33,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from sparse_caption_tpu_torch.kernels.supermask import MAX_SET, supermask_weight, supermask_weights
+from sparse_caption_tpu_torch.kernels.supermask import MAX_SET, KeyedDraw, supermask_weight, supermask_weights
 from sparse_caption_tpu_torch.pruning import SUPER_MASKS, VALID_MASKS
 
 
@@ -72,8 +77,18 @@ def xavier_uniform_(w: torch.Tensor, generator: Optional[torch.Generator] = None
         return w.uniform_(-bound, bound, generator=generator)
 
 
+def sample_mode(draws) -> str:
+    """The K5 mode of a training supermask's draws: "keyed" for
+    ``KeyedDraw``s, "sample" for uniform tensors (one kind a set)."""
+    keyed = {isinstance(d, KeyedDraw) for d in draws}
+    if len(keyed) > 1:
+        raise ValueError("a set takes keyed draws or uniform tensors, not both")
+    return "keyed" if keyed.pop() else "sample"
+
+
 class _Prunable(nn.Module):
     mask_cfg: Optional[MaskConfig]
+    mask_site: Optional[int] = None  # the 32-bit site of its keyed supermask draws (assign_mask_sites)
 
     def _init_mask(self) -> None:
         cfg = self.mask_cfg
@@ -136,7 +151,8 @@ class _Prunable(nn.Module):
             return self.weight
         mode = self._per_call_mode(rng)
         if mode is not None:
-            u = rng.mask_uniform(self, self.weight.shape, self.weight.device) if mode == "sample" else None
+            u = rng.mask_draw(self, self.weight.shape, self.weight.device) if mode == "sample" else None
+            mode = sample_mode([u]) if mode == "sample" else mode
             return supermask_weight(self.weight, self.mask, u, mode, cfg.bypass_sigmoid_grad)
         mode = "round" if cfg.is_supermask else "multiply"
         key = (self.weight.data_ptr(), self.weight._version, self.mask.data_ptr(), self.mask._version)
@@ -144,6 +160,15 @@ class _Prunable(nn.Module):
             self._w_eff = supermask_weight(self.weight, self.mask, None, mode, cfg.bypass_sigmoid_grad)
             self._w_eff_key = key
         return self._w_eff
+
+
+def assign_mask_sites(model: nn.Module) -> None:
+    """Set every masked layer's ``mask_site``: the ``site_id`` of its qualified name."""
+    from sparse_caption_tpu_torch.ops.rng import site_id
+
+    for name, m in model.named_modules():
+        if isinstance(m, _Prunable):
+            m.mask_site = site_id(name)
 
 
 def masked_call_order(*modules) -> list:
@@ -185,8 +210,10 @@ def mask_set(layers: Iterable[_Prunable], rng=None):
     try:
         if todo:
             mode = modes[todo[0]]
-            entries = todo if mode == "sample" else list(calls)
-            us = [rng.mask_uniform(m, m.weight.shape, m.weight.device) for m in entries] if mode == "sample" else None
+            sampled = mode == "sample"
+            entries = todo if sampled else list(calls)
+            us = [rng.mask_draw(m, m.weight.shape, m.weight.device) for m in entries] if sampled else None
+            mode = sample_mode(us) if sampled else mode
             products = {m: [] for m in calls}
             for i in range(0, len(entries), MAX_SET):  # sets of more than MAX_SET products: one launch a chunk
                 chunk = entries[i:i + MAX_SET]
@@ -197,7 +224,7 @@ def mask_set(layers: Iterable[_Prunable], rng=None):
                     products[m].append(w)
             del us
             for m, ws in products.items():
-                m._set_w_eff = ws if mode == "sample" else ws * calls[m]
+                m._set_w_eff = ws if sampled else ws * calls[m]
         yield
     finally:
         for m in calls:

@@ -8,6 +8,8 @@ place means eval.
   in call order: ``mask_uniform`` gives the uniforms ``u`` of a supermask
   sample ``[u < sigmoid(m)]``, ``keep_mask`` a dropout keep-mask
   ``u < keep_prob``. Tests subclass it to replay the JAX side's uniforms.
+  A masked layer asks for its sample's draw by ``mask_draw``, which is
+  ``mask_uniform`` here.
 * ``KeyedStream`` (SCST): a counter-based stream, so a draw does not depend
   on call order or device. A dropout site's keep-mask is a pure function of
   (key, site, t, row, column): Philox4x32-10 (kernel K8) keyed by the
@@ -23,8 +25,18 @@ place means eval.
   the stream at slot k, whose draws use ``slot_site(site, k)`` (slot 0 and
   every unshared layer keep the module's site), so the JAX package's fresh
   dropout per call of a shared layer holds, and the decode and the replay
-  derive the same site for the same slot. Supermask draws are not keyed:
-  ``mask_uniform`` raises.
+  derive the same site for the same slot. A supermask sample is keyed too
+  (supermask SCST: the gradient pass redraws every decode step's masks):
+  ``mask_draw`` gives a layer's ``KeyedDraw`` (key, site, t), which kernel
+  K5's keyed mode turns into uniforms in registers: element e of the
+  weight, in the port's (out, in) layout, draws Philox4x32-10 under the key
+  with counter (site, t, e // 4, 0). The site is the layer's ``mask_site``
+  (``ops/masked.py assign_mask_sites``: ``site_id`` of its qualified name),
+  under ``slot_site`` at a slot view; t is the step view's, 0 outside one
+  (the encode, and the cross K/V projection of ``init_cache(train=True)``,
+  each under a key of its own). ``mask_uniform`` gives the same uniforms as
+  a tensor (the plain Philox); tests subclass the stream and override
+  ``mask_draw`` to hand in the JAX side's uniforms.
 
 Both divide a kept value by the keep probability rounded to its dtype, as
 the JAX package does (``ops/keep.py``).
@@ -32,6 +44,7 @@ the JAX package does (``ops/keep.py``).
 
 from __future__ import annotations
 
+import copy
 import math
 import zlib
 from typing import NamedTuple, Optional
@@ -40,6 +53,7 @@ import torch
 from torch import nn
 
 from sparse_caption_tpu_torch.kernels.keyed_dropout import keyed_dropout, keyed_keep_mask
+from sparse_caption_tpu_torch.kernels.supermask import KeyedDraw
 from sparse_caption_tpu_torch.ops.keep import apply_keep
 
 M64 = (1 << 64) - 1
@@ -56,6 +70,10 @@ class TrainRandom:
     def mask_uniform(self, layer: nn.Module, shape, device) -> torch.Tensor:
         """f32 uniforms in [0, 1) for ``layer``'s mask (the weight's layout)."""
         return self._uniform(shape, device)
+
+    def mask_draw(self, layer: nn.Module, shape, device) -> torch.Tensor:
+        """The draw of ``layer``'s supermask sample: its uniforms, in call order."""
+        return self.mask_uniform(layer, shape, device)
 
     def keep_mask(self, shape, keep_prob: float, device, site: Optional[int] = None) -> torch.Tensor:
         return self._uniform(shape, device) < keep_prob
@@ -96,13 +114,18 @@ class KeyedStream:
         self.t = t
         self.slot = int(slot)
 
+    def _view(self, t: Optional[int], slot: int) -> "KeyedStream":
+        view = copy.copy(self)  # a subclass's own state comes along
+        view.t, view.slot = t, int(slot)
+        return view
+
     def at(self, t: int) -> "KeyedStream":
         """The step view at decode step ``t``."""
-        return KeyedStream(self.key, int(t), self.slot)
+        return self._view(int(t), self.slot)
 
     def for_slot(self, slot: int) -> "KeyedStream":
         """The view for the ``slot``-th call of a shared layer in one pass."""
-        return KeyedStream(self.key, self.t, slot)
+        return self._view(self.t, slot)
 
     def _layout(self, shape):
         n, d = int(shape[0]), int(shape[-1])
@@ -126,9 +149,16 @@ class KeyedStream:
         out = keyed_dropout(x.reshape(n, tl, d).contiguous(), self.key, self._site(site), t0, keep_prob)
         return out.reshape(x.shape)
 
+    def mask_draw(self, layer: nn.Module, shape, device) -> KeyedDraw:
+        """``layer``'s supermask draw: (key, its site at this view's slot, t)."""
+        site = getattr(layer, "mask_site", None)
+        if site is None:
+            raise ValueError("a keyed mask draw needs the layer's mask_site (ops/masked.py assign_mask_sites)")
+        return KeyedDraw(self.key, slot_site(site, self.slot), 0 if self.t is None else self.t)
+
     def mask_uniform(self, layer: nn.Module, shape, device) -> torch.Tensor:
-        raise NotImplementedError("supermask SCST (per-step Bernoulli draws through the differentiable "
-                                  "scan) lands in a later slice")
+        """The uniforms of ``layer``'s keyed draw as a tensor (the plain Philox)."""
+        return KeyedStream.mask_draw(self, layer, shape, device).uniform(shape, device)
 
 
 class DecodeKeys(NamedTuple):

@@ -292,3 +292,41 @@ def test_acort_scst_launches_by_hand():
                 keyed_keep_mask=3 * 6 * 28, keyed_dropout=7 * 30, sample_step=25, cider_reward=1,
                 vocab_log_softmax=1, vocab_log_softmax_bwd=1, decoder_attention_kv=12, decoder_attention_bwd_kv=12)
     assert {k: v for k, v in counts.items() if v} == want
+
+
+@pytest.mark.parametrize("t, slots", [(0, 1), (8, 9), (16, 17)])
+def test_k2_bwd_bytes_count_each_slot_once(t, slots):
+    """K2's backward at step t (f32, 960 rows, 8 heads of 64): q, dout in;
+    dq, dk_t, dv_t out; the t + 1 slots of K and V in, of dK and dV in and
+    out."""
+    row = 960 * 8 * 64 * 4
+    assert chip_smoke.k2_bwd_bytes(960, t) == row * (2 + 3 + 2 * slots + 2 * slots + 2 * slots)
+
+
+def test_k3_bwd_bytes_read_one_memory_row_per_image():
+    """K3's backward (f32, 64 images x 15 rows, 8 heads of 64, 36 regions):
+    q, dout in and dq out a row; K, V in and dK, dV out an image; the mask."""
+    assert chip_smoke.k3_bwd_bytes(64, 15) == (3 * 960 * 8 * 64 + 4 * 64 * 8 * 36 * 64) * 4 + 64 * 36
+
+
+def test_supermask_scst_launches_by_hand():
+    """One supermask ORT SCST step's launches (6 layers, 17 steps): each of
+    the two phases runs the encode (K1's train variant a layer; one keyed
+    K5 set), the cross K/V projection (a keyed set) and 17 decode steps (K2
+    and K3 a layer, one keyed set, K6 19 a step); the gradient pass's
+    backward runs K7 a layer, K2's and K3's backward a layer and step, the
+    sets' backward (19), K6's 13 + 17 x 19, K13's 17 and the applied
+    dropouts again; one sampling step a step, one reward. Up-Down's is the
+    mask_freeze step's with every product keyed: 18 sets a phase."""
+    from sparse_caption_tpu_torch.kernels import KERNELS
+
+    counts = chip_smoke.supermask_scst_launches(6, 17, KERNELS)
+    want = dict(box_attention_train=12, box_attention_bwd=6, ancestry_self_attention=204,
+                ancestry_self_attention_bwd=102, grouped_cross_attention=204, grouped_cross_attention_bwd=102,
+                supermask_keyed=38, supermask_bwd=19, add_ref_layernorm=2 * (13 + 17 * 19),
+                add_ref_layernorm_bwd=13 + 17 * 19, keyed_keep_mask=2 * 18 * 18, keyed_dropout=3 * 7 * 18,
+                sample_step=17, cider_reward=1, vocab_log_softmax=17, vocab_log_softmax_bwd=17)
+    assert {k: v for k, v in counts.items() if v} == want
+    ud = chip_smoke.supermask_updown_scst_launches(17, KERNELS)
+    assert ud["supermask"] == 0 and ud["supermask_keyed"] == 36 and ud["supermask_bwd"] == 18
+    assert ud["lstm_cell"] == 68 and ud["vocab_log_softmax"] == 1

@@ -358,7 +358,8 @@ def test_kernel_table_names_sources():
                             "sample_step", "cider_reward", "lstm_cell", "lstm_cell_bwd", "additive_attention",
                             "additive_attention_bwd", "vocab_log_softmax", "vocab_log_softmax_bwd",
                             "decoder_attention", "decoder_attention_bwd", "decoder_attention_kv",
-                            "decoder_attention_bwd_kv", "magnitude_threshold"}
+                            "decoder_attention_bwd_kv", "magnitude_threshold", "supermask_keyed",
+                            "ancestry_self_attention_bwd", "grouped_cross_attention_bwd"}
     from sparse_caption_tpu_torch.kernels._build import CSRC, SOURCES
 
     assert {k.library_name for k in KERNELS.values()} == set(SOURCES)

@@ -108,7 +108,7 @@ def test_keyed_step_and_replay_draws_are_identical():
         stream.keep_mask(shape, 0.9, "cpu")
     with pytest.raises(ValueError, match="step view"):
         stream.at(3).keep_mask(shape, 0.9, "cpu", site)
-    with pytest.raises(NotImplementedError, match="supermask"):
+    with pytest.raises(ValueError, match="mask_site"):  # a supermask draw is keyed by its layer's site
         stream.mask_uniform(None, (2, 2), "cpu")
 
 
@@ -439,13 +439,22 @@ def test_scst_reward_defaults_to_host():
 
 
 def test_unported_scst_paths_raise(reward_setup):
+    """Beam-sample SCST, the host reward and the pipelined and fused steps
+    raise; supermask SCST (ported) runs: one step with dropout on updates
+    weights and masks."""
     for cfg in (dict(scst_sample="beam_search"), dict(scst_reward="host")):
         with pytest.raises(NotImplementedError, match="later slice"):
             _scst_setup(reward_setup, **cfg)
-    model = get_model("relation_transformer_prune")(**KW, device="cpu",
+    _, _, _, _, (_, _, _, reward_fn), _, batch = _scst_setup(reward_setup)
+    model = get_model("relation_transformer_prune")(**KW, dropout_rate=0.1, drop_prob_src=0.1, device="cpu",
                                                     mask_cfg=MaskConfig("supermask", 5.0, keep_masks=True))
-    with pytest.raises(NotImplementedError, match="supermask SCST"):
-        make_scst_step(model, None, None, CFG, None)
+    params, masks = split_params(model)
+    before = {n: m.detach().clone() for n, m in masks.items()}
+    opt_w = port_optim.build_weight_optimizer(params.values(), CFG, port_optim.make_schedule(CFG))
+    opt_m = port_optim.build_mask_optimizer(masks.values(), CFG, trainable=True)
+    state, loss, _ = make_scst_step(model, opt_w, opt_m, CFG, reward_fn)(TrainState(), batch)
+    assert state.step == 1 and np.isfinite(float(loss))
+    assert all(not torch.equal(m, before[n]) for n, m in masks.items())
     for fn in (make_scst_pipelined_step, make_scst_fused_step):
         with pytest.raises(NotImplementedError, match="later slice"):
             fn()

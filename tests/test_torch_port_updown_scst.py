@@ -290,7 +290,8 @@ def test_scst_step_matches_jax_differentiable_scan(reward_table):
 def test_scst_step_runs_with_dropout_and_greedy_baseline(reward_table):
     """The Up-Down step with dropout 0.1 and the greedy baseline: the baseline
     is the greedy caption's reward, and a second step draws new samples.
-    Supermask Up-Down SCST still raises."""
+    Supermask Up-Down SCST (ported) runs too: its step updates weights and
+    masks."""
     _, _, port, step, reward_fn, batch = _scst_setup(reward_table, drop=0.1, sparsity=0.5, scst_baseline="greedy")
     res = step.sample_fn(TrainState(), batch)
     assert res["sample"].shape == (2, 3, L) and res["greedy"].shape == (2, 1, L)
@@ -299,7 +300,13 @@ def test_scst_step_runs_with_dropout_and_greedy_baseline(reward_table):
     sc_greedy = reward_fn(res["greedy"].reshape(2, L), torch.arange(2, dtype=torch.int32), batch["ref_pack"])
     np.testing.assert_allclose(float(aux["avg_baseline"]), float(sc_greedy.mean()), rtol=1e-6, atol=1e-7)
     assert not torch.equal(step.sample_fn(state, batch)["sample"], res["sample"])
-    supermask = get_model("up_down_lstm_prune")(**KW, device="cpu",
+    supermask = get_model("up_down_lstm_prune")(**KW, drop_prob_lm=0.1, device="cpu",
                                                 mask_cfg=MaskConfig("supermask", 5.0, keep_masks=True))
-    with pytest.raises(NotImplementedError, match="supermask SCST"):
-        make_scst_step(supermask, None, None, CFG, None)
+    params, masks = split_params(supermask)
+    before = {n: m.detach().clone() for n, m in masks.items()}
+    config = dict(CFG, scst_baseline="greedy")
+    opt_w = port_optim.build_weight_optimizer(params.values(), config, port_optim.make_schedule(config))
+    opt_m = port_optim.build_mask_optimizer(masks.values(), config, trainable=True)
+    state, loss, _ = make_scst_step(supermask, opt_w, opt_m, config, reward_fn)(TrainState(), batch)
+    assert state.step == 1 and np.isfinite(float(loss))
+    assert all(not torch.equal(m, before[n]) for n, m in masks.items())
