@@ -8,8 +8,9 @@
 # LSTM cell), K16 (the magnitude threshold), the kv modes of K1, K7, K2, K3,
 # K14 and K15 (ACORT's kv-shared layers), the head width 32 instances
 # (ACORT-small), the head width 13 instances (ORT-xsmall), K10's radix
-# mode, and supermask SCST's kernels: K2's and K3's backward and K5's keyed
-# mode. Each mutant is a copy of the
+# mode, supermask SCST's kernels: K2's and K3's backward and K5's keyed
+# mode, and the decode variants: K9's top-k, nucleus and Gumbel modes, K4's
+# diverse-beam penalty and K1's raw 4-wide geometry. Each mutant is a copy of the
 # port under build/mutants/<name>/ with sed edits to one CUDA source (or,
 # with run_mutant_cmd, any shell edit run in its csrc/, the wrappers beside
 # it included), reusing the unmutated
@@ -27,10 +28,11 @@
 # against its plain version and bit-equal to the unshared kernel given the
 # one tensor twice), for the dk 32 instances check_acort_small_kernels, for
 # the dk 13 instances check_xsmall_kernels, for K10's radix mode check_radix_reward (bit-equal to the word mode on the
-# plain regroup's words) and for K2's and K3's backward
+# plain regroup's words), for K2's and K3's backward
 # check_decode_backward_kernels (K2's with a cache gradient the later steps
-# left, and 17 steps with the cache threaded under autograd), all without
-# their timings. A mutant whose checks
+# left, and 17 steps with the cache threaded under autograd), for K9's modes
+# check_sample_modes, for K4's diverse-beam penalty check_diverse_topk and
+# for the raw geometry check_raw_geometry_kernels, all without their timings. A mutant whose checks
 # pass is one they cannot see; each verdict line ends "caught" (a kernel that
 # raises is caught too) or "checks pass", and the last line counts the
 # mutants caught (every verdict line of the mutant "caught") of all run.
@@ -66,6 +68,9 @@ K32="c.check_acort_small_kernels(g, dt, results, timing=False)"
 K10R="c.check_radix_reward(results, timing=False)"
 K13W="c.check_xsmall_kernels(g, dt, results, timing=False)"
 KBWD="c.check_decode_backward_kernels(g, results, timing=False)"
+K9M="c.check_sample_modes(g, results, timing=False)"
+K4D="c.check_diverse_topk(g, results, timing=False)"
+KRAW="c.check_raw_geometry_kernels(g, dt, results, timing=False)"
 ONLY=${1:-}
 picked() { [[ -z "$ONLY" || $1 =~ $ONLY ]]; }
 run_mutant() {  # name file sed-expression dtypes checks
@@ -171,6 +176,11 @@ run_mutant k2_bwd_own_slot_dropped ancestry_self_attention_bwd.cu 's/store2(dk_t
 run_mutant k2_bwd_cache_grad_order ancestry_self_attention_bwd.cu 's/store2(dk_t + qo, make_float2(ck.x + dkv.x, ck.y + dkv.y));/store2(dk_t + qo, make_float2(dkv.x, dkv.y));/; s/store2(dv_t + qo, make_float2(cv.x + dvv.x, cv.y + dvv.y));/store2(dv_t + qo, make_float2(dvv.x, dvv.y));/' "torch.float32," "$KBWD"
 run_mutant k3_bwd_first_row_only grouped_cross_attention_bwd.cu 's/    for (int r = 0; r < rep; ++r) {/    for (int r = 0; r < 1; ++r) {/' "torch.float32," "$KBWD"
 run_mutant k5_keyed_ignores_t supermask.cu 's/Philox4{d.site, d.t, (uint32_t)e4, 0u}/Philox4{d.site, 0u, (uint32_t)e4, 0u}/' "torch.float32," "$K5"
+run_mutant k9_topk_ties_dropped sample_step.cu 's/    if (!(sv\[i\] >= kth)) sv\[i\] = kFiltered;/    if (!(sv[i] > kth)) sv[i] = kFiltered;/' "torch.float32," "$K9M"
+run_mutant k9_nucleus_cutoff_le sample_step.cu 's/if (j <= V - 2 \&\& run < top_p) ++below;/if (j <= V - 2 \&\& run <= top_p) ++below;/' "torch.float32," "$K9M"
+run_mutant k9_gumbel_tempered sample_step.cu 's/        z = logprob(i) + gumbel_eps(philox_word(r, q));/        z = logprob(i) \/ temperature + gumbel_eps(philox_word(r, q));/' "torch.float32," "$K9M"
+run_mutant k4_diversity_once_per_occurrence beam_topk.cu 's/  return count > 0 ? c - (float)count \* lambda : c;/  for (int j = 0; j < P; ++j) c = div_s[j] == i ? c - lambda : c; return c;/' "torch.float32," "$K4D"
+run_mutant k1_raw_geometry_unrounded box_geometry.cuh 's/  for (int c = 0; c < kRawG; ++c) pos\[c\] = round_to<T>(pair_delta(bi, bj, c));/  for (int c = 0; c < kRawG; ++c) pos[c] = pair_delta(bi, bj, c);/' "torch.bfloat16," "$KRAW"
 # a mutant is caught when it printed a verdict line and every one says so
 awk '/^\[mutant\] [^ ]+: / { name = $2; sub(":", "", name); seen[name] = 1 }
      /^\[mutant\] [^ :]+ [a-z0-9]+ / { seen[$2] = 1; n[$2]++; if ($0 ~ / caught/) c[$2]++ }

@@ -124,7 +124,21 @@ Phases:
    slots a side). Its kernel checks (``check_xsmall_kernels``: the dk 13
    instances, unshared at ORT-xsmall's shapes and kv at ACORT's) run with
    the others, and the K14 / K15 kv modes (``check_decoder_kv``: bit-equal
-   to the unshared kernels given the tensor twice) at dk 64, 32 and 13.
+   to the unshared kernels given the tensor twice) at dk 64, 32 and 13;
+10. supermask SCST (``run_supermask_scst_phase``): the ORT and Up-Down with
+   a training supermask, each decode step drawing fresh keyed masks, and
+   their card-vs-CPU steps (the CPU taking the card's samples, every keyed
+   set's flips counted);
+11. decode variants (``run_decode_variants_phase``; their kernel checks,
+   ``check_decode_variant_kernels``, run with the others: K9's top-k,
+   nucleus and Gumbel modes, K4's diverse-beam penalty, K1 / K7 on the raw
+   4-wide geometry at every instance): sampling serve (5 samples an image by
+   top3, top0.9 at T 0.7 and gumbel) and diverse beam (6 in 3 groups) on
+   the paper ORT in bf16 at batch 50 and 2048 with the launch counts
+   asserted, profiles at 2048, their card-vs-CPU checks at f32 batch 8; the
+   raw-geometry ORT (``no_box_trigonometric_embedding``): beam-5 serving,
+   the XE step (15 x 5 f32 and bf16, 256 x 5 bf16) and its card-vs-CPU
+   decode and step.
 
 The ORT XE and SCST steps run the decoder's full-sequence attention through
 K14/K15 (12 + 12 launches per step, asserted), and the plain
@@ -417,6 +431,46 @@ SUPERMASK_MODES = (
     ("supermask keyed", "supermask", ("supermask_keyed",), "sparse_caption_tpu/decoding/api.py:83"),
 )
 SUPERMASK_PATHS = ("supermask_scst_step", "updown_supermask_scst_step")
+# the decode variants (decoding/sample.py:29-90, decoding/beam.py:176-184) and
+# the raw 4-wide geometry (--no_box_trigonometric_embedding) on the paper ORT:
+# sampling serve with 5 samples an image (method, temperature), diverse beam
+# serve (beam 6 in 3 groups), and the raw-geometry ORT built by from_config
+# (dense, the ORT's TRAIN_CONFIG for its XE step). Nothing cut.
+SAMPLE_METHODS, SAMPLE_ROWS = (("top3", 1.0), ("top0.9", 0.7), ("gumbel", 1.0)), 5
+DIVERSE = dict(beam_size=6, group_size=3, diversity_lambda=0.5)
+RAW_FLAGS = dict(ORT_XSMALL_FLAGS, d_model=PAPER["d_model"], dim_feedforward=PAPER["dim_feedforward"],
+                 no_box_trigonometric_embedding=True)
+RAW_CONFIG = dict(ORT_XSMALL_CONFIG, d_model=PAPER["d_model"])
+# K9's modes against their plain versions: tokens equal but for near-ties of
+# the Gumbel-max (as K9's random mode) and, in the nucleus mode, rows whose
+# cutoff prefix sum lies within NUCLEUS_NEAR_ULPS ulps of p (the kernel's block
+# scan and torch.cumsum round apart; counted and reported apart); chosen
+# log-probs within K9_LP_TOL (1 + |lp|)
+K9_LP_TOL, NUCLEUS_NEAR_ULPS = 1e-6, 4
+# The whole sampling path on the card against the CPU: a nucleus sample whose
+# tokens differ passes as a near-tie when a cutoff sum of the CPU's step lies
+# within NUCLEUS_PATH_TIE of p. The two sides' log-probs there come from two
+# models' arithmetic (up to WHOLE_PATH_LP_TOL apart, not from one kernel's
+# scan), which moves a cutoff sum by far more than a few ulps (1e-5 is about
+# 170 f32 ulps at 0.9).
+NUCLEUS_PATH_TIE = 1e-5
+K9_MODE_CASES = (("top3", 1.0, False), ("top3", 0.7, True), ("top40", 1.0, False), ("top0.9", 0.7, False),
+                 ("top0.5", 1.0, True), ("gumbel", 1.0, False), ("gumbel", 0.7, True))
+DIVERSE_LAMBDA_CHECK = 0.3  # K4's kernel check: a lambda whose multiples round apart from repeated subtraction
+# the decode variants' rows of the kernels line: (name, library, entry points, JAX site)
+VARIANT_MODES = (
+    ("sample_step gumbel", "sample_step", ("sample_step_gumbel",), "sparse_caption_tpu/decoding/sample.py:69"),
+    ("sample_step top-k", "sample_step", ("sample_step_topk",), "sparse_caption_tpu/decoding/sample.py:29"),
+    ("sample_step nucleus", "sample_step", ("sample_step_nucleus",), "sparse_caption_tpu/decoding/sample.py:29"),
+    ("beam_topk diverse", "beam_topk", ("beam_topk_diverse",), "sparse_caption_tpu/decoding/beam.py:176"),
+    ("box_attention raw geometry", "box_attention",
+     ("box_attention_raw", "box_attention_train_raw", "box_attention_kv_raw", "box_attention_train_kv_raw"),
+     "sparse_caption_tpu/models/layers.py:338"),
+    ("box_attention_bwd raw geometry", "box_attention_bwd", ("box_attention_bwd_raw", "box_attention_bwd_kv_raw"),
+     "sparse_caption_tpu/models/layers.py:338"),
+)
+VARIANT_PATHS = tuple(f"sample_serve_{m}" for m, _ in SAMPLE_METHODS) + ("diverse_serve", "raw_serve",
+                                                                         "raw_train_step")
 
 
 def log(msg: str) -> None:
@@ -520,11 +574,34 @@ def k3_bytes(images: int, beams: int, dtype, regions: int = REGIONS, kv: bool = 
     return ((1 if kv else 2) * images * regions + 2 * images * beams) * HEADS * dk * ESIZE[dtype] + images * regions
 
 
-def k4_bytes(n: int, vocab: int, k: int, dtype) -> int:
+def k4_bytes(n: int, vocab: int, k: int, dtype, div_p: int = 0) -> int:
     """Bytes K4 must move: the (n, vocab) logits read once, each row's banned
     token (int32) and bad-ending flag (one byte), the k values, indices and
-    raw log-probs written (4 bytes each)."""
-    return n * vocab * ESIZE[dtype] + n * 5 + 3 * n * k * 4
+    raw log-probs written (4 bytes each); with the diverse-beam penalty, each
+    image's (n / k rows) div_p earlier-group tokens (int32) read once."""
+    return n * vocab * ESIZE[dtype] + n * 5 + 3 * n * k * 4 + n // k * div_p * 4
+
+
+def k9_bytes(n: int, vocab: int, dtype) -> int:
+    """Bytes K9 must move for one step, in every mode (the filters work in
+    shared memory): the (n, vocab) logits read once; per row the fed token
+    (int32) and the unfinished flag (one byte) read, the token written to seq
+    and to next (int32 each), the chosen log-prob (f32) and the flag written."""
+    return n * vocab * ESIZE[dtype] + n * (4 + 1 + 4 + 4 + 4 + 1)
+
+
+def k1_bytes(b: int, h: int, r: int, dk: int, dtype, dim_g: int = 64) -> int:
+    """Bytes K1 must move: q, k, v read and out written, (B, h, R, dk) each;
+    the f32 boxes (16 bytes a region) and the region mask (one byte a region);
+    wg (h, dim_g) and its bias in the compute dtype."""
+    return 4 * b * h * r * dk * ESIZE[dtype] + b * r * 16 + b * r + h * (dim_g + 1) * ESIZE[dtype]
+
+
+def k7_bytes(b: int, h: int, r: int, dk: int, dtype, dim_g: int = 64) -> int:
+    """Bytes K7 must move: q, k, v and dO read, dq, dk and dv written (B, h,
+    R, dk each); the keep-mask (one byte a (head, pair)), the boxes and the
+    region mask; wg and its bias read, their gradients written."""
+    return 7 * b * h * r * dk * ESIZE[dtype] + b * h * r * r + b * r * 16 + b * r + 2 * h * (dim_g + 1) * ESIZE[dtype]
 
 
 def k12_bytes(images: int, rows: int, regions: int, a: int, d: int, dtype, backward: bool = False) -> int:
@@ -701,16 +778,16 @@ def k4_midpoint_counts(vocab: int, top: float = K4_MIDPOINT_TOP) -> list:
     return counts
 
 
-def check_beam_topk(logits, kw: dict, dtype, tag: str = "") -> tuple:
-    """K4 against its plain version at every width of BEAM_WIDTHS: values and
+def check_beam_topk(logits, kw: dict, dtype, tag: str = "", widths=BEAM_WIDTHS) -> tuple:
+    """K4 against its plain version at every width of `widths`: values and
     raw log-probs element-wise; indices equal but for near-ties (tie-aware),
     and equal outright in rows whose values agree bit for bit (ties to the
     lower index); the raw log-probs equal K13's output at the kernel's
     indices bit for bit up to width 32 (K4's held path and its scalar path
     share K13's reduction order; the radix-select variant beyond 32 keeps an
-    online one); in bf16 the raw log-probs and the untouched values by
-    `rounding_share`. Returns (every check passed, the serving width's worst
-    element error)."""
+    online one, and so do the diverse-beam rows: `kw` with div_tokens); in
+    bf16 the raw log-probs and the untouched values by `rounding_share`.
+    Returns (every check passed, the first width's worst element error)."""
     from sparse_caption_tpu_torch.kernels import beam_topk as k4
     from sparse_caption_tpu_torch.kernels import vocab_log_softmax as k13
 
@@ -720,10 +797,15 @@ def check_beam_topk(logits, kw: dict, dtype, tag: str = "") -> tuple:
     y13 = k13.vocab_log_softmax(logits).float()
     ban, ban_eos, eos_id, unk_id = kw["ban_token"].long()[:, None], kw["ban_eos"][:, None], kw["eos_id"], kw["unk_id"]
 
-    def touched(idx):  # entries a penalty moved
-        return (idx == ban) | (ban_eos & (idx == eos_id)) | (idx == unk_id)
+    div = kw.get("div_tokens")
+    counts = None if div is None else k4.diversity_counts(div, logits.shape[1]).repeat_interleave(
+        logits.shape[0] // div.shape[0], 0)
 
-    for width in BEAM_WIDTHS:
+    def touched(idx):  # entries a penalty moved
+        out = (idx == ban) | (ban_eos & (idx == eos_id)) | (idx == unk_id)
+        return out if counts is None else out | (counts.gather(1, idx) > 0)
+
+    for width in widths:
         vals, idx, raw = k4.beam_topk(logits, width, **kw)
         pvals, pidx, _ = k4.beam_topk_plain(logits, width, **kw)
         ik = idx.long()
@@ -743,14 +825,14 @@ def check_beam_topk(logits, kw: dict, dtype, tag: str = "") -> tuple:
         log(f"[kernel] {name}: indices differing {int(differ.sum())}/{differ.numel()} (near-ties ok={tie_ok}); "
             f"rows with bit-equal values but other indices {swapped:.5f} (limit {K4_INDEX_SHARE_LIMIT}) "
             f"{'ok' if swapped <= K4_INDEX_SHARE_LIMIT else 'FAIL'}; raw log-probs equal K13's bit for bit={k13_same}")
-        ok &= tie_ok and swapped <= K4_INDEX_SHARE_LIMIT and (k13_same or width > k4.REGISTER_K)
+        ok &= tie_ok and swapped <= K4_INDEX_SHARE_LIMIT and (k13_same or width > k4.REGISTER_K or div is not None)
         if dtype == torch.bfloat16:
             ok &= rounding_share(f"{name} raw log-probs", raw, torch.log_softmax(logits, dim=-1).gather(1, ik),
                                  K13_SHARE_LIMIT, K13_FAR_LIMIT)
             plain_rank = ~(touched(ik) | touched(pidx.long()))
             ok &= rounding_share(f"{name} untouched values", vals[plain_rank], pvals[plain_rank], K13_SHARE_LIMIT,
                                  K13_FAR_LIMIT)
-        if width == BEAM:
+        if width == widths[0]:
             err_k = max(err_v, err_r)
     return ok, err_k
 
@@ -846,7 +928,7 @@ def check_kernels(gen, dtype, results: dict, timing: bool = True) -> bool:
                                              lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=float_mask),
                                              build_bias)
     record("box_attention", err, ms, plain_ms, lib_ms,
-           4 * b * h * r * dk * es + b * r * 4 * 4 + b * r + h * 65 * es,
+           k1_bytes(b, h, r, dk, dtype),
            flops((dtype, 4 * b * h * r * r * dk), (torch.float32, 2 * b * r * r * 64 * h)))
     log(f"[kernel] box_attention {dname}: bias build (geometry + linear + relu + clamp + log + fill) "
         f"ms={bias_ms:.4f} (in the same turns)")
@@ -1168,7 +1250,8 @@ def check_supermask_kernels(gen, dtype, results: dict, timing: bool = True) -> b
             results["supermask"].update({f"updown_{tag}_{key}": val for tag, vals in ud.items()
                                          for key, val in zip(("ms", "per_tensor_ms", "plain_ms", "bound_ms"), vals)})
             results["supermask"].update({f"updown_xe_step_{key}": val for key, val in total.items()})
-    off = [(HEADS, 64), (1, UPDOWN["att_hid_size"]), (7, 13), (64, 64)]  # wg's and alpha_net's shapes unaligned
+    # wg's and alpha_net's shapes unaligned; the raw geometry's (h, 4) wg
+    off = [(HEADS, 64), (1, UPDOWN["att_hid_size"]), (7, 13), (HEADS, 4), (64, 64)]
     sw, sm, su, sg = draw(g5, off, unaligned=(0, 1))
     for mode in ("sample", "round", "multiply"):
         for bypass in (False, True):
@@ -1372,7 +1455,7 @@ def check_train_kernels(gen, dtype, results: dict) -> bool:
            *turns_ms(lambda: torch.autograd.grad(out_k, ins_k, dout, retain_graph=True),
                      lambda: torch.autograd.grad(out_p, ins_p, dout, retain_graph=True),
                      lambda: torch.autograd.grad(out_l, ins_l, dout, retain_graph=True)),
-           7 * b * h * r * dk * es + b * h * r * r + b * r * 16 + b * r + 2 * h * 65 * es,
+           k7_bytes(b, h, r, dk, dtype),
            flops((dtype, 5 * 2 * b * h * r * r * dk), (torch.float32, 2 * 2 * b * r * r * 64 * h)))
     if dtype == torch.bfloat16:
         results["box_attention"]["train_fwd_ms"] = fwd_ms
@@ -2490,33 +2573,40 @@ def make_batch(gen, b, dtype, device="cuda"):
     return att, mask, boxes
 
 
-def caption(model, batch):
+def caption(model, batch, opt=None):
+    """``encode`` + ``generate`` with ``opt`` (default: beam 5)."""
     from sparse_caption_tpu_torch.decoding import generate
 
     memory = model.encode(*batch)
-    return generate(model, memory, {"beam_size": BEAM, "max_seq_length": model.max_seq_length})
+    return generate(model, memory, dict(opt or {"beam_size": BEAM}, max_seq_length=model.max_seq_length))
 
 
-def run_main_path(model_bf16, gen, b, expected, make=make_batch, label="main") -> dict:
+def captions_per_image(opt=None) -> int:
+    opt = opt or {"beam_size": BEAM}
+    return int(opt.get("num_random_sample", 0)) or int(opt["beam_size"])
+
+
+def run_main_path(model_bf16, gen, b, expected, make=make_batch, label="main", opt=None) -> dict:
     from sparse_caption_tpu_torch.kernels import launch_counts, reset_launch_counts
 
     batch = make(gen, b, torch.bfloat16)
-    seq, lp = caption(model_bf16, batch)  # warm-up
+    seq, lp = caption(model_bf16, batch, opt)  # warm-up
     torch.cuda.synchronize()
     reset_launch_counts()
-    seq, lp = caption(model_bf16, batch)
+    seq, lp = caption(model_bf16, batch, opt)
     torch.cuda.synchronize()
     counts = launch_counts()
     assert counts == expected, f"launch counts {counts} != {expected}"
     steps = model_bf16.max_seq_length
-    assert seq.shape == (b, BEAM, steps) and lp.shape == (b, BEAM, steps)
+    rows = captions_per_image(opt)
+    assert seq.shape == (b, rows, steps) and lp.shape == (b, rows, steps)
     assert bool(torch.isfinite(lp).all()), "non-finite log-probs"
     assert int(seq.min()) >= 0 and int(seq.max()) < model_bf16.vocab_size
     best = float("inf")
     for _ in range(3):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        caption(model_bf16, batch)
+        caption(model_bf16, batch, opt)
         torch.cuda.synchronize()
         best = min(best, time.perf_counter() - t0)
     enc_ms = time_ms(lambda: model_bf16.encode(*batch), iters=3, warmup=1)
@@ -2675,14 +2765,15 @@ def tie_aware_match(seq_card, lp_card, seq_cpu, lp_cpu, rescore, eos_id: int, to
     return err <= tol and bool(ties.all()), int(ties.sum()), max(err, token_err.max().item())
 
 
-def whole_path_check(model_f32, gen, make=make_batch, label="whole-path") -> bool:
+def whole_path_check(model_f32, gen, make=make_batch, label="whole-path", opt=None) -> bool:
     """f32 on the card (kernels) vs the CPU (plain versions) on the same
-    weights: identical captions but for near-ties (``tie_aware_match``)."""
+    weights: identical captions but for near-ties (``tie_aware_match``);
+    ``opt``: the beam search's (default beam 5; diverse groups too)."""
     batch = make(gen, CHECK_BATCH, torch.float32)
-    seq_gpu, lp_gpu = caption(model_f32, batch)
+    seq_gpu, lp_gpu = caption(model_f32, batch, opt)
     model_cpu = copy.deepcopy(model_f32).to("cpu")
     batch_cpu = tuple(x.cpu() for x in batch)
-    seq_cpu, lp_cpu = caption(model_cpu, batch_cpu)
+    seq_cpu, lp_cpu = caption(model_cpu, batch_cpu, opt)
     memory = model_cpu.encode(*batch_cpu)
     good, n_ties, err = tie_aware_match(seq_gpu, lp_gpu, seq_cpu, lp_cpu,
                                         lambda seq: teacher_forced_logprobs(model_cpu, memory, seq), model_cpu.eos_id)
@@ -3095,7 +3186,7 @@ def check_scst_kernels(gen, results: dict) -> bool:
     record("sample_step", k9_err,
            *turns_ms(lambda: k9.sample_step(logits, prev, u, seq, lp, step, key=key, site=SAMPLE_SITE),
                      lambda: k9.sample_step_plain(logits, prev, u, seq, lp, step, key=key, site=SAMPLE_SITE),
-                     library), n * vocab * 4 + n * (4 + 1 + 4 + 4 + 4 + 1), flops((torch.float32, 8 * n * vocab)))
+                     library), k9_bytes(n, vocab, torch.float32), flops((torch.float32, 8 * n * vocab)))
 
     # K10: 64 images x 15 captions of 17 tokens against 5 refs each
     b = 64
@@ -3408,22 +3499,30 @@ def scst_whole_step_check(seed: int, gen, build=build_scst_model, make=make_batc
     """One f32 SCST step at 2 x 3 with dropout on, on the card and on the CPU
     from the same weights and seed (`build`; inputs from `make` in the
     model's COLLATE_FIELDS order); the card's tokens feed both replays.
-    `tok`: ACORT's radix tokenizer (its device reward; refs from its decode)."""
+    `tok`: ACORT's radix tokenizer (its device reward; refs from its decode).
+    A training supermask's keyed draws: the flips of every set the card draws
+    are counted (``keyed_flip_counts``), and the CPU takes the card's samples
+    (``card_sample_bits``): a flipped sample is a different weight, not
+    rounding, and the bound holds rounding."""
     from sparse_caption_tpu_torch.engine.training import TrainState
 
     from sparse_caption_tpu_torch.scst.device_reward import DfTable
 
     model_gpu = build(seed)
     model_cpu = copy.deepcopy(model_gpu).to("cpu")
-    if is_supermask(model_cpu):
-        sample_flips(model_gpu, model_cpu, label)
+    supermask, flips = is_supermask(model_cpu), []
+    counting = (lambda: keyed_flip_counts(flips)) if supermask else contextlib.nullcontext
+    card_p = card_sigmoids(model_gpu, model_cpu) if supermask else None
+    on_cpu = (lambda: card_sample_bits(card_p)) if supermask else contextlib.nullcontext
     inputs = dict(zip(model_gpu.COLLATE_FIELDS, make(gen, SCST_CHECK_BATCH, torch.float32)))
     # the sampling phase reads no reference; each image's refs are then its
     # first sample (every third word dropped) and four unrelated captions, so
     # that the leave-one-out rewards, and with them the gradients, are far
     # from 0 (the near-uniform policy's loss stays near 0: lp is ~ -log V at
     # every token and the rewards of an image sum to 0)
-    res = make_scst(model_gpu, DfTable.build({}, 0.0, {}), SCST_CHECK_SAMPLES, config).sample_fn(TrainState(), inputs)
+    with counting():
+        res = make_scst(model_gpu, DfTable.build({}, 0.0, {}), SCST_CHECK_SAMPLES, config).sample_fn(TrainState(),
+                                                                                                   inputs)
     rng = np.random.default_rng(seed)
     gts = []
     for rows in res["sample"].cpu().tolist():
@@ -3439,7 +3538,8 @@ def scst_whole_step_check(seed: int, gen, build=build_scst_model, make=make_batc
                  for k, v in batch_gpu.items()}
     step_gpu = make_scst(model_gpu, table, SCST_CHECK_SAMPLES, config)
     step_cpu = make_scst(model_cpu, table, SCST_CHECK_SAMPLES, config)
-    res_cpu = step_cpu.sample_fn(TrainState(), batch_cpu)
+    with on_cpu():
+        res_cpu = step_cpu.sample_fn(TrainState(), batch_cpu)
     n_tok = int((res["sample"].cpu() != res_cpu["sample"]).sum())
     flat = res["sample"].reshape(-1, max_len)
     img = torch.arange(SCST_CHECK_BATCH, device="cuda", dtype=torch.int32).repeat_interleave(SCST_CHECK_SAMPLES)
@@ -3447,19 +3547,28 @@ def scst_whole_step_check(seed: int, gen, build=build_scst_model, make=make_batc
     r_cpu = step_cpu.reward(flat.cpu(), img.cpu(), batch_cpu["ref_pack"])
     r_err = (r_gpu - r_cpu).abs()
     r_ok = bool((r_err <= REWARD_RTOL * r_cpu.abs() + REWARD_ATOL).all())
-    _, loss_g, _ = step_gpu.grad_fn(TrainState(), batch_gpu, res)
-    _, loss_c, _ = step_cpu.grad_fn(TrainState(), batch_cpu, {"sample": res["sample"].cpu()})
+    with counting():
+        _, loss_g, _ = step_gpu.grad_fn(TrainState(), batch_gpu, res)
+    with on_cpu():
+        _, loss_c, _ = step_cpu.grad_fn(TrainState(), batch_cpu, {"sample": res["sample"].cpu()})
+    if supermask:
+        log_flips(label, flips)
     loss_ok = abs(float(loss_g) - float(loss_c)) <= SCST_LOSS_TOL
     ref = {n: p.grad for n, p in model_cpu.named_parameters()}
     got = {n: p.grad.cpu() for n, p in model_gpu.named_parameters()}
     top = max(g.abs().max().item() for g in ref.values())
-    worst, worst_name, elementwise_ok = 0.0, "", 0
+    worst, worst_name, elementwise_ok, by_tensor = 0.0, "", 0, []
     for n, g_ref in ref.items():
         diff = got[n] - g_ref
-        elementwise_ok += bool((diff.abs() <= STEP_GRAD_TOL * g_ref.abs().max().item() + STEP_GRAD_FLOOR * top).all())
+        out = diff.abs() > STEP_GRAD_TOL * g_ref.abs().max().item() + STEP_GRAD_FLOOR * top
+        elementwise_ok += not bool(out.any())
         ratio = (diff.norm() / (STEP_GRAD_NORM_TOL * g_ref.norm() + STEP_GRAD_FLOOR * top * g_ref.numel() ** 0.5)).item()
+        by_tensor.append((ratio, n, int(out.sum()), int(out.reshape(out.shape[0], -1).any(1).sum()), out.shape[0]))
         if ratio > worst:
             worst, worst_name = ratio, n
+    for ratio, n, n_out, rows, n_rows in sorted(by_tensor, reverse=True)[:5]:
+        log(f"[{label}]   gradient {n}: norm-wise err/allowed {ratio:.3f} ({n_out} elements in {rows} of {n_rows} rows "
+            f"outside the element-wise bound)")
     log(f"[{label}] f32 {SCST_CHECK_BATCH}x{SCST_CHECK_SAMPLES}, dropout on: sampled tokens differing card vs CPU "
         f"{n_tok}/{flat.numel()}; rewards {[round(x, 4) for x in r_cpu.tolist()]}, largest gradient {top:.3e}; "
         f"rewards max_abs_err {r_err.max().item():.3e} (rtol {REWARD_RTOL}, atol "
@@ -3469,27 +3578,105 @@ def scst_whole_step_check(seed: int, gen, build=build_scst_model, make=make_batc
     return r_ok and loss_ok and worst <= 1
 
 
-def sample_flips(model_gpu, model_cpu, label: str) -> int:
-    """Supermask samples [u < sigmoid(m)] that differ card vs CPU in one
-    keyed draw of every mask from the same bits: the card's sigmoid (K5's,
-    equal to torch's CUDA sigmoid bit for bit) and the CPU's may differ by an
-    ulp, and a uniform on the 2^-24 grid between the two flips the sample.
-    The count a draw shows the card-vs-CPU step's gradients that a flipped
-    weight, not rounding, moves. Logged, not a pass condition."""
-    from sparse_caption_tpu_torch.ops.masked import _Prunable
-    from sparse_caption_tpu_torch.ops.rng import KeyedStream
+def keyed_uniform_at(draw, idx: torch.Tensor) -> torch.Tensor:
+    """The keyed supermask uniforms of ``draw`` at the flat weight indices
+    ``idx`` (int64): ``KeyedDraw.uniform`` evaluated at those elements only."""
+    from sparse_caption_tpu_torch.kernels.keyed_dropout import philox4x32_10
 
-    stream, flips, total = KeyedStream(SEED + 15).at(0), 0, 0
-    for mg, mc in zip(model_gpu.modules(), model_cpu.modules()):
-        if isinstance(mg, _Prunable) and mg.mask is not None:
-            draw = stream.mask_draw(mg, mg.mask.shape, "cpu")
-            u = draw.uniform(mg.mask.shape, "cpu")
-            on_card = (u.cuda() < torch.sigmoid(mg.mask.detach())).cpu()
-            flips += int((on_card != (u < torch.sigmoid(mc.mask.detach()))).sum())
-            total += u.numel()
-    log(f"[{label}] one keyed draw of every mask: {flips} of {total} samples differ card vs CPU (the sigmoids' "
-        f"last bits)")
-    return flips
+    c = idx // 4
+    words = torch.stack(philox4x32_10(torch.full_like(c, draw.site), torch.full_like(c, draw.t), c,
+                                      torch.zeros_like(c), draw.key), dim=-1)
+    return (words.gather(1, (idx % 4)[:, None])[:, 0] >> 8).to(torch.float32) * 2.0 ** -24
+
+
+@contextlib.contextmanager
+def keyed_flip_counts(counts: list):
+    """Inside the context, every keyed supermask set the card draws appends
+    (t, flips, samples) to ``counts``: the samples [u < sigmoid(m)] of the set
+    that differ between the card's sigmoid (K5's, torch's CUDA sigmoid bit for
+    bit) and the CPU's on the same mask logits and the same keyed u. The
+    sigmoids differ in the last bit at some elements; a u on the 2^-24 grid
+    between the two flips that element's sample."""
+    import sparse_caption_tpu_torch.ops.masked as masked
+
+    differ = {}  # (data_ptr, version) -> (indices, the card's sigmoid there, the CPU's)
+
+    def where_differ(m):
+        key = (m.data_ptr(), m._version)
+        if key not in differ:
+            sg = torch.sigmoid(m.detach()).flatten()
+            sc = torch.sigmoid(m.detach().cpu()).flatten().to(m.device)
+            idx = (sg != sc).nonzero()[:, 0]
+            differ[key] = (idx, sg[idx], sc[idx])
+        return differ[key]
+
+    def count(ms, draws):
+        flips = samples = 0
+        for m, draw in zip(ms, draws):
+            idx, sg, sc = where_differ(m)
+            u = keyed_uniform_at(draw, idx)
+            flips += int(((u < sg) != (u < sc)).sum())
+            samples += m.numel()
+        counts.append((draws[0].t, flips, samples))
+
+    set_fn, one_fn = masked.supermask_weights, masked.supermask_weight
+
+    def weights(ws, ms, us=None, mode="sample", bypass=False):
+        if mode == "keyed" and ms[0].is_cuda:
+            count(list(ms), list(us))
+        return set_fn(ws, ms, us, mode, bypass)
+
+    def weight(w, m, u=None, mode="sample", bypass=False):
+        if mode == "keyed" and m.is_cuda:
+            count([m], [u])
+        return one_fn(w, m, u, mode, bypass)
+
+    with mock.patch.object(masked, "supermask_weights", weights), mock.patch.object(masked, "supermask_weight", weight):
+        yield counts
+
+
+def card_sigmoids(model_gpu, model_cpu) -> dict:
+    """{id of a CPU mask: the card's sigmoid of the same logits (on the CPU)}
+    for ``card_sample_bits``, taken before either side updates its masks.
+    ``model_cpu`` is a copy of ``model_gpu`` (its masks the same values, any
+    weight dtype)."""
+    from sparse_caption_tpu_torch.ops.masked import _Prunable
+
+    return {id(mc.mask): torch.sigmoid(mg.mask.detach()).cpu()
+            for mg, mc in zip(model_gpu.modules(), model_cpu.modules())
+            if isinstance(mg, _Prunable) and mg.mask is not None}
+
+
+@contextlib.contextmanager
+def card_sample_bits(card_p: dict):
+    """The CPU model's keyed supermask draws take the card's samples: each
+    mask's threshold is the card's sigmoid of the same logits
+    (``card_sigmoids``), so that the same keyed u gives the card's sample on
+    both sides (the CPU's own sigmoid still gives the straight-through
+    gradient). The plain version's u is integer arithmetic, so the card
+    computes it for the CPU (the same bits, in a fraction of the time)."""
+    from sparse_caption_tpu_torch.kernels import supermask as k5
+
+    plain = k5.supermask_weight_plain
+    dev = "cuda" if torch.cuda.is_available() else "cpu"
+
+    def shared(w, m, u=None, mode="sample", bypass=False):
+        if mode == "keyed" and id(m) in card_p:
+            # -1 < sigmoid and 2 > sigmoid: the card's sample under the CPU's comparison
+            u = torch.where(u.uniform(w.shape, dev).cpu() < card_p[id(m)], -1.0, 2.0).to(w.device)
+            mode = "sample"
+        return plain(w, m, u, mode, bypass)
+
+    with mock.patch.object(k5, "supermask_weight_plain", shared):
+        yield
+
+
+def log_flips(label: str, counts: list) -> int:
+    """Logs the keyed sets' flips in call order; returns their sum."""
+    total = sum(f for _, f, _ in counts)
+    log(f"[{label}] supermask sample flips card vs CPU in each of the {len(counts)} keyed sets (t: flips), in call "
+        f"order: {', '.join(f'{t}: {f}' for t, f, _ in counts)}; {total} of {sum(n for _, _, n in counts)} samples")
+    return total
 
 
 # ----------------------------------------------------------- Up-Down path
@@ -4539,6 +4726,507 @@ def run_supermask_scst_phase(gen) -> tuple:
     return good, ort_counts, ud_counts
 
 
+# ------------------------------------------------- decode variants, raw geometry
+def bounded_raw_wg(gen, h: int, dtype):
+    """A raw-geometry wg projection (h, 4) with +-0.04 on the x / y log-deltas
+    (|.| <= 6.91 on random_boxes) and +-0.05 on the w / h ones (|.| <= 3.0)
+    and a bias of 1: w_g = relu(wg . geo + 1) lies in [0.15, 1.85], away from
+    relu's kink (see check_kernels)."""
+    dev = torch.device("cuda")
+    signs = torch.randint(0, 2, (h, 4), generator=gen, device=dev).float() * 2 - 1
+    return ((signs * torch.tensor([0.04, 0.04, 0.05, 0.05], device=dev)).to(dtype),
+            torch.ones(h, device=dev).to(dtype))
+
+
+def nucleus_cutoff_sums(c, method: str, temperature: float):
+    """(N, 2) the plain version's prefix sums (``torch.cumsum`` of the sorted
+    probabilities) just before and at its last kept entry of each row: the
+    nucleus keeps entries while the sum before them stays below p."""
+    from sparse_caption_tpu_torch.decoding.sample import divide_by_temperature, modified_sample_logits
+
+    probs = torch.softmax(divide_by_temperature(c, temperature), dim=-1)
+    csum = torch.cumsum(torch.sort(probs, dim=-1, descending=True, stable=True).values, dim=-1)
+    n_keep = (modified_sample_logits(c, method, temperature) > -1e29).sum(-1, keepdim=True)
+    before = torch.where(n_keep > 1, csum.gather(1, (n_keep - 2).clamp(min=0)), torch.zeros_like(n_keep).float())
+    return torch.cat([before, csum.gather(1, n_keep - 1)], dim=1)
+
+
+def near_p(sums, p: float):
+    """Rows whose cutoff sums lie within NUCLEUS_NEAR_ULPS f32 ulps of p."""
+    return ((sums - p).abs() <= NUCLEUS_NEAR_ULPS * float(np.spacing(np.float32(p)))).any(-1)
+
+
+def sample_z(c, method: str, temperature: float, noise):
+    """What K9 takes the argmax of, from the plain version's pieces: c the
+    (banned) log-probs, noise the Gumbel noise (the uniforms for ``gumbel``)."""
+    from sparse_caption_tpu_torch.decoding.sample import divide_by_temperature, modified_sample_logits
+
+    if method == "gumbel":
+        return c + -torch.log(-torch.log(noise + 1e-20) + 1e-20)
+    if method == "random":
+        return divide_by_temperature(c, temperature) + noise
+    return modified_sample_logits(c, method, temperature) + noise
+
+
+def check_sample_modes(gen, results: dict, timing: bool = True) -> bool:
+    """K9's Gumbel, top-k and nucleus modes against their plain versions on
+    the card, drawing the same keyed bits: f32 at the SCST sampling shape (64
+    x 15 rows) and bf16 at the sampling-serve shape (2048 x 5), each case of
+    K9_MODE_CASES (the register top-k path at k 3, the radix select at k 40;
+    a row of equal logits, a row whose top-3 value ties, and a row of four
+    probabilities of 1/4 whose cutoff sum at p = 0.5 is p exactly); tokens equal
+    but for near-ties of the draw and nucleus rows next to p; chosen
+    log-probs within K9_LP_TOL (1 + |lp|); a planted fault each (top-k ties
+    dropped, the nucleus's log-probs not renormalised, the Gumbel method
+    tempered). Times in bf16 at 2048 x 5."""
+    from sparse_caption_tpu_torch.decoding.sample import divide_by_temperature, modified_sample_logits
+    from sparse_caption_tpu_torch.kernels import sample_step as k9
+    from sparse_caption_tpu_torch.ops.rng import SAMPLE_SITE
+
+    dev, ok = torch.device("cuda"), True
+    vocab, t_max, step, key = PAPER["vocab_size"], MAX_LEN, 5, 0x5EED5EED12345
+    lp_errs = {"gumbel": 0.0, "topk": 0.0, "nucleus": 0.0}  # the largest chosen log-prob error of each mode
+    for dtype, n in ((torch.float32, SCST_BATCHES[-1] * SCST_SAMPLES), (torch.bfloat16, BIG_BATCH * SAMPLE_ROWS)):
+        dname = str(dtype).split(".")[-1]
+        logits = (torch.randn(n, vocab, generator=gen, device=dev) * 3.0).to(dtype)
+        logits[0] = 0  # every entry ties
+        logits[1, :8] = 12  # eight equal top logits: top-3's k-th value ties
+        logits[2] = -1000  # four equal logits carry the row: probabilities of 1/4 exactly, and at p = 0.5 the
+        logits[2, :4] = 10  # cutoff sum 0.5 equals p (the nucleus keeps while the sum before stays below p)
+        prev = torch.randint(4, vocab, (n,), generator=gen, device=dev, dtype=torch.int32)
+        unfinished = torch.rand(n, generator=gen, device=dev) < 0.8
+        for method, temperature, ban in K9_MODE_CASES:
+            kw = dict(key=key, site=SAMPLE_SITE, temperature=temperature, ban_prev=ban, sample_method=method)
+            outs = {}
+            for impl, fn in (("kernel", k9.sample_step), ("plain", k9.sample_step_plain)):
+                u = unfinished.clone()
+                seq = torch.zeros(n, t_max, dtype=torch.int32, device=dev)
+                lp = torch.zeros(n, t_max, device=dev)
+                nxt = fn(logits, prev, u, seq, lp, step, **kw)
+                outs[impl] = (nxt, u, seq, lp)
+            (kn, ku, ks, kl), (pn, pu, ps, pl) = outs["kernel"], outs["plain"]
+            c = k9.sample_logprobs(logits, prev, ban)
+            draw = k9.keyed_uniform if method == "gumbel" else k9.gumbel_noise
+            noise = draw(key, SAMPLE_SITE, step, n, vocab, dev)
+            z = sample_z(c, method, temperature, noise)
+            differ = kn != pn
+            z_max = z.max(1).values
+            tie = (z_max - z.gather(1, kn.long()[:, None])[:, 0]).abs() <= allowed(z_max, torch.float32)
+            mode = k9.parse_sample_method(method)[0]
+            near = near_p(nucleus_cutoff_sums(c, method, temperature), k9.parse_sample_method(method)[1]) \
+                if mode == "nucleus" else torch.zeros_like(differ)
+            tokens_ok = bool((tie | near)[differ].all())
+            same = ~differ
+            lp_err = (kl[:, step] - pl[:, step]).abs()[same]
+            lp_ref = pl[:, step].abs()[same]
+            ratio = lp_err / (K9_LP_TOL * (1 + lp_ref))
+            lp_ok = bool((ratio <= 1).all())
+            worst = int(lp_err.argmax())
+            lp_errs[mode] = max(lp_errs[mode], lp_err[worst].item())
+            rest = bool(torch.equal(ku[same], pu[same]) and torch.equal(ks[same], ps[same]))
+            name = f"sample_step {method} T={temperature}{' ban' if ban else ''}"
+            log(f"[kernel] {name} {dname}: tokens differing {int(differ.sum())}/{n} (near-ties or rows next to p: "
+                f"ok={tokens_ok}); nucleus rows with a cutoff sum within {NUCLEUS_NEAR_ULPS} ulps of p "
+                f"{int(near.sum())} (tokens differing among them {int((differ & near).sum())}); chosen log-prob "
+                f"max_abs_err={lp_err[worst].item():.3e} at |lp| {lp_ref[worst].item():.3f}, worst err/allowed "
+                f"{ratio.max().item():.3f} (tol {K9_LP_TOL} (1 + |lp|)) {'ok' if lp_ok else 'FAIL'}; "
+                f"latch and seq equal={rest}")
+            ok &= tokens_ok and lp_ok and rest
+            if (method, temperature, ban) == ("top3", 1.0, False):  # fault: ties at the k-th value dropped
+                scaled = divide_by_temperature(c, temperature)
+                kth = torch.topk(scaled, 3, dim=-1).values[:, -1:]
+                w_f = torch.argmax(torch.where(scaled > kth, scaled, -1e30) + noise, dim=-1)
+                n_f = int((w_f != pn.long()).sum())
+                log(f"[fault] sample_step top-k with ties dropped {dname}: {n_f} tokens differ "
+                    f"{'caught' if n_f else 'MISSED'}")
+                ok &= n_f > 0
+            if (method, temperature, ban) == ("top0.9", 0.7, False):  # fault: the kept log-probs not renormalised
+                probs = torch.softmax(divide_by_temperature(c, temperature), dim=-1)
+                fault = torch.log(probs.gather(1, pn.long()[:, None]))[:, 0]
+                n_f = int(((fault - pl[:, step]).abs() > K9_LP_TOL * (1 + pl[:, step].abs())).sum())
+                log(f"[fault] sample_step nucleus log-probs not renormalised {dname}: {n_f} chosen log-probs outside "
+                    f"the tolerance {'caught' if n_f else 'MISSED'}")
+                ok &= n_f > 0
+            if (method, temperature, ban) == ("gumbel", 0.7, True):  # fault: the Gumbel method tempered
+                w_f = torch.argmax(divide_by_temperature(c, temperature) - torch.log(-torch.log(noise + 1e-20) + 1e-20),
+                                   dim=-1)
+                n_f = int((w_f != pn.long()).sum())
+                log(f"[fault] sample_step gumbel tempered {dname}: {n_f} tokens differ {'caught' if n_f else 'MISSED'}")
+                ok &= n_f > 0
+        if not timing or dtype != torch.bfloat16:
+            continue
+        seq, lp = torch.zeros(n, t_max, dtype=torch.int32, device=dev), torch.zeros(n, t_max, device=dev)
+        u = unfinished.clone()
+        # the Gumbel method's noise with sample.py's eps, formed once outside the timed call (as the random
+        # mode's library yardstick takes its g)
+        g_eps = -torch.log(-torch.log(k9.keyed_uniform(key, SAMPLE_SITE, step, n, vocab, dev) + 1e-20) + 1e-20)
+
+        def gumbel_library():
+            lps = torch.log_softmax(logits, dim=-1)
+            return lps.gather(1, torch.argmax(lps + g_eps, dim=-1, keepdim=True))
+
+        libraries = {
+            "top-k": lambda: torch.multinomial(torch.softmax(torch.topk(torch.log_softmax(logits, dim=-1), 3).values
+                                                             .float(), dim=-1), 1),
+            "nucleus": lambda: nucleus_library(logits, 0.9, 0.7),
+            "gumbel": gumbel_library,
+        }
+        for label, mode, method, temperature in (("gumbel", "gumbel", "gumbel", 1.0), ("top-k", "topk", "top3", 1.0),
+                                                 ("nucleus", "nucleus", "top0.9", 0.7)):
+            kw = dict(key=key, site=SAMPLE_SITE, temperature=temperature, sample_method=method)
+            ms, plain_ms, lib_ms = turns_ms(lambda kw=kw: k9.sample_step(logits, prev, u, seq, lp, step, **kw),
+                                            lambda kw=kw: k9.sample_step_plain(logits, prev, u, seq, lp, step, **kw),
+                                            libraries[label])
+            bnd, by = bound_ms(k9_bytes(n, vocab, dtype), flops((torch.float32, 8 * n * vocab)))
+            log(f"[kernel] sample_step {label} {dname} at {n} rows: ms={ms:.4f} plain_ms={plain_ms:.4f} "
+                f"library_ms={lib_ms:.4f} bound_ms={bnd:.4f} ({by}; held windows in turns)")
+            results[f"sample_step {label}"] = dict(max_abs_err=lp_errs[mode], ms=ms, plain_ms=plain_ms,
+                                                   library_ms=lib_ms, bound_ms=bnd, bound_by=by)
+        del g_eps
+    return ok
+
+
+def nucleus_library(logits, p: float, temperature: float):
+    """The nucleus draw as PyTorch calls: softmax, ``torch.sort``, cumsum, the
+    kept prefix, ``torch.multinomial`` (the library yardstick of K9's nucleus mode)."""
+    probs = torch.softmax(torch.log_softmax(logits.float(), dim=-1) / temperature, dim=-1)
+    sorted_p, order = torch.sort(probs, dim=-1, descending=True)
+    keep = torch.cumsum(sorted_p, dim=-1) - sorted_p < p
+    return order.gather(1, torch.multinomial(sorted_p * keep, 1))
+
+
+def check_diverse_topk(gen, results: dict, timing: bool = True) -> bool:
+    """K4 with the diverse-beam penalty against its plain version on the
+    card: 2048 images x 2 rows (the third group of a beam-6 / 3-group
+    search, 4 earlier-group tokens an image, one of them repeated) at k 2
+    (the register path) and 100 images x 40 rows at k 40 (the radix select),
+    f32 and bf16, every other penalty on, lambda DIVERSE_LAMBDA_CHECK
+    (``check_beam_topk``, the penalised entries as touched ones); the
+    penalised winners' values equal raw - count x lambda bit for bit (the
+    count first; lambda subtracted once an occurrence rounds apart, counted
+    as the planted fault). Times in bf16 at 2048 x 2."""
+    from sparse_caption_tpu_torch.kernels import beam_topk as k4
+
+    dev, ok, vocab, lam = torch.device("cuda"), True, PAPER["vocab_size"], DIVERSE_LAMBDA_CHECK
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).split(".")[-1]
+        for images, width, p in ((BIG_BATCH, DIVERSE["beam_size"] // DIVERSE["group_size"], 4), (100, 40, 6)):
+            n = images * width
+            logits = torch.randn(n, vocab, generator=gen, device=dev).to(dtype)
+            toks = torch.randint(4, vocab, (images, p), generator=gen, device=dev, dtype=torch.int32)
+            toks[:, 1] = toks[:, 0]  # a word that two earlier beams chose
+            toks[::2, 2] = toks[::2, 0]  # and three, in every other image
+            # the repeated words lead their rows, so that penalised entries are among the winners
+            rows = torch.arange(n, device=dev)
+            logits[rows, toks.repeat_interleave(width, 0)[:, 0].long()] = 6.0
+            kw = dict(k4_constraints(gen, n, vocab), div_tokens=toks, div_lambda=lam)
+            good, err = check_beam_topk(logits, kw, dtype, " diverse", widths=(width,))
+            ok &= good
+            vals, idx, raw = k4.beam_topk(logits, width, **kw)
+            counts = k4.diversity_counts(toks, vocab).repeat_interleave(width, 0).gather(1, idx.long())
+            other = (idx == kw["ban_token"][:, None]) | (kw["ban_eos"][:, None] & (idx == kw["eos_id"])) | \
+                (idx == kw["unk_id"])
+            pen = (counts > 0) & ~other
+            want = raw - counts * lam
+            once = raw.clone()
+            for _ in range(int(counts.max().item())):
+                once = torch.where(counts > _, once - lam, once)
+            exact = bool(torch.equal(vals[pen], want[pen]))
+            apart = int((once[pen] != want[pen]).sum())
+            log(f"[kernel] beam_topk diverse k={width} {dname}: {int(pen.sum())} penalised winners, values = raw - "
+                f"count x lambda bit for bit={exact}; lambda subtracted once an occurrence differs at {apart} of them "
+                f"{'caught' if apart else 'MISSED'}")
+            ok &= exact and apart > 0
+            if timing and dtype == torch.bfloat16 and width <= k4.REGISTER_K:
+                ms, plain_ms, lib_ms = turns_ms(lambda: k4.beam_topk(logits, width, **kw),
+                                                lambda: k4.beam_topk_plain(logits, width, **kw),
+                                                lambda: torch.topk(torch.log_softmax(logits, dim=-1), width))
+                bnd, by = bound_ms(k4_bytes(n, vocab, width, dtype, p), flops((torch.float32, 4 * n * vocab)))
+                log(f"[kernel] beam_topk diverse {dname} at {n} rows: ms={ms:.4f} plain_ms={plain_ms:.4f} "
+                    f"library_ms={lib_ms:.4f} bound_ms={bnd:.4f} ({by}; held windows in turns)")
+                results["beam_topk diverse"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                                                    bound_ms=bnd, bound_by=by)
+    return ok
+
+
+def check_raw_geometry_kernels(gen, dtype, results: dict, timing: bool = True) -> bool:
+    """K1 and K7 on the raw 4-wide geometry against their plain versions:
+    K1 at the serving shape (2048 images, dk 64) with its log-bias, K1's
+    train variant and K7 at the XE shape (256 images, dropout keep-mask),
+    element-wise and in bf16 by ``rounding_share``, an image with no valid
+    region, a planted fault each (the bias dropped, the wg gradient dropped);
+    then every instance (dk 64, 32, 13, unshared and kv) at 64 images; the
+    geometry weights bounded (``bounded_raw_wg``). Times of the dk 64
+    unshared instances in bf16."""
+    from sparse_caption_tpu_torch.kernels import box_attention as k1
+    from sparse_caption_tpu_torch.kernels import box_attention_bwd as k7
+    from sparse_caption_tpu_torch.ops.attention import NEG_INF, scaled_dot_attention
+
+    dev, ok = torch.device("cuda"), True
+    dname = str(dtype).split(".")[-1]
+    h, r = HEADS, REGIONS
+    rnd = lambda *shape: torch.randn(*shape, generator=gen, device=dev).to(dtype)  # noqa: E731
+
+    def compare(name, out, ref, scale=0.0, sum_scale=0.0, fault=None):
+        nonlocal ok
+        err, good, worst = close(out, ref, dtype, scale, sum_scale)
+        log(f"[kernel] {name} raw geometry {dname}: max_abs_err={err:.3e} worst err/allowed={worst:.3f} "
+            f"{'ok' if good else 'FAIL'}")
+        ok &= good
+        if fault is not None:
+            ok &= fault_caught(f"{name} raw geometry", fault, ref, dtype, scale, sum_scale)
+        return err
+
+    def inputs(b, dk, kv):
+        q, k = rnd(b, h, r, dk), rnd(b, h, r, dk)
+        v = None if kv else rnd(b, h, r, dk)
+        boxes = random_boxes(gen, b, r, dev)
+        mask = random_region_mask(gen, b, r, dev)
+        mask[0] = False
+        return q, k, v, boxes, mask
+
+    def bias_build(boxes, wg_w, wg_b, mask):  # the torch ops that make SDPA's float bias
+        return k1.box_log_bias_plain(boxes, wg_w, wg_b, dtype).masked_fill(~mask[:, None, None, :], NEG_INF)
+
+    # K1 at the serving shape
+    wg_w, wg_b = bounded_raw_wg(gen, h, dtype)
+    q, k, v, boxes, mask = inputs(BIG_BATCH, DK, False)
+    args = (q, k, v, boxes, wg_w, wg_b, mask)
+    bias = k1.box_log_bias_plain(boxes, wg_w, wg_b, dtype)
+    bias_k = torch.empty(BIG_BATCH, h, r, r, device=dev, dtype=dtype)
+    out = k1.box_attention(*args, bias_out=bias_k)
+    ref = k1.box_attention_plain(*args)
+    err1 = compare("box_attention", out, ref, rms(v), fault=scaled_dot_attention(q, k, v, mask))  # bias dropped
+    if dtype == torch.bfloat16:
+        ok &= rounding_share("box_attention raw geometry log-bias", bias_k, bias, BIAS_SHARE_LIMIT)
+        ok &= rounding_share("box_attention raw geometry out", out, ref, K1_SHARE_LIMIT, K1_FAR_LIMIT)
+    else:
+        compare("box_attention log-bias", bias_k, bias)
+    if timing and dtype == torch.bfloat16:
+        float_mask = bias_build(boxes, wg_w, wg_b, mask).to(dtype).contiguous()
+        ms, plain_ms, lib_ms = turns_ms(lambda: k1.box_attention(*args), lambda: k1.box_attention_plain(*args),
+                                        lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=float_mask))
+        nb = BIG_BATCH
+        bnd, by = bound_ms(k1_bytes(nb, h, r, DK, dtype, 4),
+                           flops((dtype, 4 * nb * h * r * r * DK), (torch.float32, 2 * nb * r * r * 4 * h)))
+        log(f"[kernel] box_attention raw geometry {dname}: ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms={lib_ms:.4f} "
+            f"bound_ms={bnd:.4f} ({by}; held windows in turns)")
+        results["box_attention raw geometry"] = dict(max_abs_err=err1, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                                                     bound_ms=bnd, bound_by=by)
+    del q, k, v, out, ref, bias, bias_k
+
+    # K1's train variant and K7 at the XE shape
+    b = TRAIN_BIG_BATCH
+    q, k, v, boxes, mask = inputs(b, DK, False)
+    dout = rnd(b, h, r, DK)
+    keep = torch.rand(b, h, r, r, generator=gen, device=dev) < 0.9
+
+    def k7_run(fn, keep_, q=q, k=k, v=v, boxes=boxes, mask=mask, dout=dout, wg_w=wg_w, wg_b=wg_b):
+        ins = leaves(*(x for x in (q, k, v) if x is not None), wg_w, wg_b)
+        vv = ins[2] if v is not None else None
+        out = fn(ins[0], ins[1], vv, boxes, ins[-2], ins[-1], mask, keep_, 0.9)
+        return out.detach(), torch.autograd.grad(out, ins, dout)
+
+    kout, kg = k7_run(k7.box_attention_train, keep)
+    pout, pg = k7_run(k1.box_attention_plain, keep)
+    compare("box_attention train fwd", kout, pout, rms(v))
+    err7 = 0.0
+    for i, nm in enumerate(("dq", "dk", "dv")):
+        err7 = max(err7, compare(f"box_attention_bwd {nm}", kg[i], pg[i], pg[i].float().abs().max().item()))
+    for i, nm in ((3, "d wg_w"), (4, "d wg_b")):
+        err7 = max(err7, compare(f"box_attention_bwd {nm}", kg[i], pg[i], sum_scale=pg[i].float().abs().max().item(),
+                                 fault=torch.zeros_like(pg[i]) if nm == "d wg_w" else None))
+    if dtype == torch.bfloat16:
+        ok &= rounding_share("box_attention raw geometry train fwd", kout, pout, K1_SHARE_LIMIT, K1_FAR_LIMIT)
+        for i, nm in enumerate(("dq", "dk", "dv")):
+            ok &= rounding_share(f"box_attention_bwd raw geometry {nm}", kg[i], pg[i], K7_SHARE_LIMIT, K7_FAR_LIMIT)
+    if timing and dtype == torch.bfloat16:
+        ins_k, ins_p = leaves(q, k, v, wg_w, wg_b), leaves(q, k, v, wg_w, wg_b)
+        out_k = k7.box_attention_train(ins_k[0], ins_k[1], ins_k[2], boxes, ins_k[3], ins_k[4], mask, keep, 0.9)
+        out_p = k1.box_attention_plain(ins_p[0], ins_p[1], ins_p[2], boxes, ins_p[3], ins_p[4], mask, keep, 0.9)
+        ins_l = leaves(q, k, v)
+        out_l = F.scaled_dot_product_attention(*ins_l, attn_mask=bias_build(boxes, wg_w, wg_b, mask).to(dtype))
+        ms, plain_ms, lib_ms = turns_ms(lambda: torch.autograd.grad(out_k, ins_k, dout, retain_graph=True),
+                                        lambda: torch.autograd.grad(out_p, ins_p, dout, retain_graph=True),
+                                        lambda: torch.autograd.grad(out_l, ins_l, dout, retain_graph=True))
+        bnd, by = bound_ms(k7_bytes(b, h, r, DK, dtype, 4),
+                           flops((dtype, 10 * b * h * r * r * DK), (torch.float32, 4 * b * r * r * 4 * h)))
+        log(f"[kernel] box_attention_bwd raw geometry {dname}: ms={ms:.4f} plain_ms={plain_ms:.4f} "
+            f"library_ms={lib_ms:.4f} bound_ms={bnd:.4f} ({by}; held windows in turns)")
+        results["box_attention_bwd raw geometry"] = dict(max_abs_err=err7, ms=ms, plain_ms=plain_ms,
+                                                         library_ms=lib_ms, bound_ms=bnd, bound_by=by)
+    del q, k, v, dout, keep, kout, kg, pout, pg
+
+    # every instance: head widths 64, 32, 13, unshared and kv, at 64 images
+    for dk in (DK, DK_SMALL, DK_XSMALL):
+        for kv in (False, True):
+            tag = f"dk{dk}{' kv' if kv else ''}"
+            q, k, v, boxes, mask = inputs(64, dk, kv)
+            dout = rnd(64, h, r, dk)
+            keep = torch.rand(64, h, r, r, generator=gen, device=dev) < 0.9
+            scale = rms(k if kv else v)
+            compare(f"box_attention {tag}", k1.box_attention(q, k, v, boxes, wg_w, wg_b, mask),
+                    k1.box_attention_plain(q, k, v, boxes, wg_w, wg_b, mask), scale)
+            run = lambda fn: k7_run(fn, keep, q, k, v, boxes, mask, dout)  # noqa: E731
+            (kout, kg), (pout, pg) = run(k7.box_attention_train), run(k1.box_attention_plain)
+            compare(f"box_attention train fwd {tag}", kout, pout, scale)
+            names = ("dq", "dkv") if kv else ("dq", "dk", "dv")
+            for i, nm in enumerate(names):
+                compare(f"box_attention_bwd {nm} {tag}", kg[i], pg[i], pg[i].float().abs().max().item())
+            for i, nm in ((-2, "d wg_w"), (-1, "d wg_b")):
+                compare(f"box_attention_bwd {nm} {tag}", kg[i], pg[i], sum_scale=pg[i].float().abs().max().item())
+    return ok
+
+
+def check_decode_variant_kernels(gen, results: dict, timing: bool = True) -> bool:
+    """The decode variants' kernel modes: K9's sample methods, K4's
+    diverse-beam penalty, K1 / K7 on the raw geometry (f32 and bf16)."""
+    ok = check_sample_modes(gen, results, timing)
+    ok &= check_diverse_topk(gen, results, timing)
+    for dtype in (torch.float32, torch.bfloat16):
+        ok &= check_raw_geometry_kernels(gen, dtype, results, timing)
+        torch.cuda.empty_cache()
+    return ok
+
+
+def sample_path_check(model_f32, gen, method: str, temperature: float, label: str) -> bool:
+    """Sampling (5 samples an image) f32 on the card against the CPU at batch
+    8, the same weights and the same keyed noise: each sample's tokens equal,
+    and its log-probs within WHOLE_PATH_LP_TOL up to its first EOS; a sample
+    whose tokens differ passes only at a near-tie of its first differing
+    draw: the CPU's argmax value there (its own log-probs of the common
+    prefix, teacher-forced, filtered, plus the noise) within
+    WHOLE_PATH_LP_TOL (1 + |z|) of the card token's, or, in the nucleus
+    mode, a cutoff sum within NUCLEUS_PATH_TIE of p (the card's log-probs
+    move it by rounding)."""
+    from sparse_caption_tpu_torch.kernels import sample_step as k9
+    from sparse_caption_tpu_torch.ops.rng import SAMPLE_SITE
+
+    opt = {"num_random_sample": SAMPLE_ROWS, "beam_size": 0, "sample_method": method, "temperature": temperature}
+    batch = make_batch(gen, CHECK_BATCH, torch.float32)
+    seq_gpu, lp_gpu = (x.cpu() for x in caption(model_f32, batch, opt))
+    model_cpu = copy.deepcopy(model_f32).to("cpu")
+    batch_cpu = tuple(x.cpu() for x in batch)
+    seq_cpu, lp_cpu = caption(model_cpu, batch_cpu, opt)
+    n, t_len = CHECK_BATCH * SAMPLE_ROWS, seq_cpu.shape[-1]
+    sg, sc = seq_gpu.reshape(n, t_len), seq_cpu.reshape(n, t_len)
+    is_eos = (sc == model_cpu.eos_id).long()
+    upto = (is_eos.cumsum(-1) - is_eos) == 0
+    differ = (sg != sc).any(-1)
+    err = (lp_gpu.reshape(n, t_len) - lp_cpu.reshape(n, t_len)).abs()[~differ][upto[~differ]].max().item()
+    ties, good = 0, err <= WHOLE_PATH_LP_TOL
+    if bool(differ.any()):
+        memory = model_cpu.encode(*batch_cpu)
+        tokens = torch.cat([torch.full((n, 1), model_cpu.bos_id, dtype=sc.dtype), sc], dim=1)
+        with torch.no_grad():
+            lps = torch.log_softmax(model_cpu.decode_teacher_forced(memory, tokens).float(), dim=-1)  # (N, T + 1, V)
+        for row in differ.nonzero()[:, 0].tolist():
+            t = int((sg[row] != sc[row]).nonzero()[0, 0])
+            c = lps[row: row + 1, t]
+            noise = (k9.keyed_uniform if method == "gumbel" else k9.gumbel_noise)(0, SAMPLE_SITE, t, n, c.shape[1],
+                                                                                  "cpu")[row: row + 1]
+            z = sample_z(c, method, temperature, noise)[0]
+            z_gap = (z[sg[row, t]] - z[sc[row, t]]).abs().item()
+            tie = z_gap <= WHOLE_PATH_LP_TOL * (1 + z[sc[row, t]].abs().item())
+            mode, top = k9.parse_sample_method(method)
+            if mode == "nucleus":
+                tie |= bool(((nucleus_cutoff_sums(c, method, temperature) - top).abs() <= NUCLEUS_PATH_TIE).any())
+            log(f"[{label}] sample {row} first differs at step {t}: card {int(sg[row, t])} cpu {int(sc[row, t])}, "
+                f"CPU draw values apart by {z_gap:.3e} {'(a near-tie)' if tie else 'FAIL'}")
+            ties += tie
+            good &= tie
+    log(f"[{label}] f32 batch {CHECK_BATCH} x {SAMPLE_ROWS} samples, {method} T={temperature}: tokens identical="
+        f"{not bool(differ.any())}, samples accepted as near-ties {ties}; log-prob max_abs_err={err:.3e} "
+        f"(tol {WHOLE_PATH_LP_TOL}) {'ok' if good else 'FAIL'}")
+    return good
+
+
+def bound_raw_geometry(model, seed: int):
+    """``model`` with every encoder layer's raw-geometry wg bounded
+    (``bounded_raw_wg``): last-bit differences at relu's kink would turn into
+    gradient differences (the card-vs-CPU checks)."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    with torch.no_grad():
+        for layer in model.box_encoder_layers:
+            w, bias = bounded_raw_wg(g, model.num_heads, torch.float32)
+            layer.self_attn.wg.weight.copy_(w)
+            layer.self_attn.wg.bias.copy_(bias)
+    return model
+
+
+def run_decode_variants_phase(gen) -> tuple:
+    """The decode variants and the raw geometry at the paper ORT's width,
+    through ``encode`` + ``generate`` and ``make_xe_step``: sampling serve (5
+    samples an image, SAMPLE_METHODS) and diverse beam serve (DIVERSE) on the
+    paper ORT (masks folded, bf16, batch 50 and 2048, the launch counts
+    asserted), each checked card against CPU at f32 batch 8; the raw-geometry
+    ORT (RAW_FLAGS, ``from_config``): beam-5 serving (bf16, 50 and 2048) and
+    the dense XE step (15 x 5 f32 and bf16, 256 x 5 bf16), its card-vs-CPU
+    decode and step (geometry weights bounded). Returns (ok, {path: launch
+    counts})."""
+    from sparse_caption_tpu_torch.kernels import KERNELS
+    from sparse_caption_tpu_torch.kernels.sample_step import parse_sample_method
+
+    layers, steps, paths, good = PAPER["num_layers"], MAX_LEN, {}, True
+    model = build_model(SEED)
+    model_bf16 = copy.deepcopy(model).to(torch.bfloat16)
+    base = {name: 0 for name in KERNELS}
+    base.update(box_attention=layers, ancestry_self_attention=layers * steps, grouped_cross_attention=layers * steps,
+                add_ref_layernorm=(1 + 2 * layers) + steps * (1 + 3 * layers))
+    for method, temperature in SAMPLE_METHODS:
+        expected = dict(base, **{f"sample_step_{parse_sample_method(method)[0]}": steps})
+        opt = {"num_random_sample": SAMPLE_ROWS, "beam_size": 0, "sample_method": method, "temperature": temperature}
+        for b in (EVAL_BATCH, BIG_BATCH):
+            paths[f"sample_serve_{method}"] = run_main_path(model_bf16, gen, b, expected,
+                                                            label=f"sample serve {method} T={temperature}", opt=opt)
+    batch = make_batch(gen, BIG_BATCH, torch.bfloat16)
+    nucleus = {"num_random_sample": SAMPLE_ROWS, "beam_size": 0, "sample_method": "top0.9", "temperature": 0.7}
+    profile_window(f"encode + nucleus sampling, bf16 batch {BIG_BATCH}x{SAMPLE_ROWS}",
+                   lambda: caption(model_bf16, batch, nucleus))
+    groups = DIVERSE["group_size"]
+    expected = dict(base, ancestry_self_attention=groups * layers * steps,
+                    grouped_cross_attention=groups * layers * steps, beam_topk=steps,
+                    beam_topk_diverse=(groups - 1) * steps,
+                    add_ref_layernorm=(1 + 2 * layers) + groups * steps * (1 + 3 * layers))
+    for b in (EVAL_BATCH, BIG_BATCH):
+        paths["diverse_serve"] = run_main_path(model_bf16, gen, b, expected, label="diverse beam serve",
+                                               opt=dict(DIVERSE))
+    profile_window(f"encode + diverse beam {DIVERSE['beam_size']} / {groups} groups, bf16 batch {BIG_BATCH}",
+                   lambda: caption(model_bf16, batch, dict(DIVERSE)))
+    del model_bf16, batch
+    for method, temperature in SAMPLE_METHODS:
+        good &= sample_path_check(model, gen, method, temperature, f"sample {method} whole-path")
+    good &= whole_path_check(model, gen, label="diverse beam whole-path", opt=dict(DIVERSE))
+    del model
+    torch.cuda.empty_cache()
+
+    raw = build_ort(RAW_FLAGS, SEED)
+    assert raw.box_encoder_layers[0].self_attn.wg.weight.shape == (HEADS, 4)
+    raw_bf16 = copy.deepcopy(raw).to(torch.bfloat16)
+    serve = dict(base, box_attention=0, box_attention_raw=layers, beam_topk=steps)
+    for b in (EVAL_BATCH, BIG_BATCH):
+        paths["raw_serve"] = run_main_path(raw_bf16, gen, b, serve, label="raw-geometry serve")
+    del raw_bf16
+    good &= whole_path_check(bound_raw_geometry(raw, SEED + 1), gen, label="raw-geometry whole-path")
+    del raw
+    torch.cuda.empty_cache()
+    train = {name: 0 for name in KERNELS}
+    train.update(box_attention_train_raw=layers, box_attention_bwd_raw=layers,
+                 add_ref_layernorm=(1 + 2 * layers) + (1 + 3 * layers),
+                 add_ref_layernorm_bwd=(1 + 2 * layers) + (1 + 3 * layers), vocab_log_softmax=1,
+                 vocab_log_softmax_bwd=1, decoder_attention=2 * layers, decoder_attention_bwd=2 * layers)
+    train_model = build_ort(RAW_FLAGS, SEED)
+    for b, precision in ((TRAIN_BATCH, "fp32"), (TRAIN_BATCH, "bf16"), (TRAIN_BIG_BATCH, "bf16")):
+        paths["raw_train_step"] = run_train_phase(train_model, gen, b, precision, train, RAW_CONFIG, make_train_batch,
+                                                  "raw-geometry train")
+    del train_model
+    torch.cuda.empty_cache()
+    good &= whole_step_check(SEED, gen, lambda: bound_raw_geometry(build_ort(RAW_FLAGS, SEED, dropout=False), SEED + 1),
+                             make_train_batch, RAW_CONFIG, "raw-geometry whole-step")
+    torch.cuda.empty_cache()
+    return good, paths
+
+
 def card_line() -> str:
     out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True)
@@ -4593,10 +5281,13 @@ def main() -> int:
         ok &= check_xsmall_kernels(g13, dtype, results)
         torch.cuda.empty_cache()
     ok &= check_radix_reward(results)
+    ok &= check_decode_variant_kernels(torch.Generator(device="cuda").manual_seed(SEED + 36), results)
+    torch.cuda.empty_cache()
     if not ok:
         log("[kernel] a kernel disagrees with its plain version")
         return 1
 
+    log(f"[time] {time.perf_counter() - t0:.1f}s since the build began")
     # serving: encode + beam-5 generate
     model = build_model(SEED)
     model_bf16 = copy.deepcopy(model).to(torch.bfloat16)
@@ -4616,6 +5307,7 @@ def main() -> int:
     del model
     torch.cuda.empty_cache()
 
+    log(f"[time] {time.perf_counter() - t0:.1f}s since the build began")
     # training: the supermask XE step
     n_masked = len(masked_shapes())
     train = {name: 0 for name in KERNELS}
@@ -4635,12 +5327,14 @@ def main() -> int:
     if not whole_step_check(SEED, gen):
         return 1
 
+    log(f"[time] {time.perf_counter() - t0:.1f}s since the build began")
     # pruning: gradual magnitude (K16 in the hook), then one-shot, SNIP and the lottery rewind
     good, prune_counts = run_prune_phase(torch.Generator(device="cuda").manual_seed(SEED + 17), results, train)
     torch.cuda.empty_cache()
     if not good:
         return 1
 
+    log(f"[time] {time.perf_counter() - t0:.1f}s since the build began")
     # SCST: the paper's sparse self-critical step
     scst_model = build_scst_model(SEED)
     scst = scst_launches(layers, MAX_LEN, n_masked, KERNELS)
@@ -4657,6 +5351,7 @@ def main() -> int:
     if not scst_whole_step_check(SEED, gen):
         return 1
 
+    log(f"[time] {time.perf_counter() - t0:.1f}s since the build began")
     # Up-Down: beam-5 serving (K11, K12, K4) and the supermask XE step
     updown = build_updown(SEED)
     updown_bf16 = copy.deepcopy(updown).to(torch.bfloat16)
@@ -4693,6 +5388,7 @@ def main() -> int:
                             make_updown_train_batch, UPDOWN_CONFIG, "updown whole-step"):
         return 1
 
+    log(f"[time] {time.perf_counter() - t0:.1f}s since the build began")
     # Up-Down sparse SCST: the paper's recipe through the sampling decode and the unrolled replay
     ud_scst_model = build_updown_scst(SEED)
     ud_scst = updown_scst_launches(MAX_LEN, KERNELS)
@@ -4710,27 +5406,38 @@ def main() -> int:
     if not scst_whole_step_check(SEED, gen, build_updown_scst, make_updown_batch, "updown scst-step"):
         return 1
 
+    log(f"[time] {time.perf_counter() - t0:.1f}s since the build began")
     # ACORT-base: serving and the dense XE step through the kv modes, and the qk ORT
     good, acort_serve_counts, acort_train_counts = run_acort_phase(torch.Generator(device="cuda").manual_seed(SEED + 13))
     if not good:
         return 1
 
+    log(f"[time] {time.perf_counter() - t0:.1f}s since the build began")
     # ACORT-small: serving, XE and the SCST stage through the dk 32 kernels and K10's radix mode
     good, small_serve, small_train, small_scst = run_acort_small_phase(
         torch.Generator(device="cuda").manual_seed(SEED + 33))
     if not good:
         return 1
 
+    log(f"[time] {time.perf_counter() - t0:.1f}s since the build began")
     # ORT-xsmall: serving and the dense XE step through the dk 13 kernels; ORT-small's and ACORT-base-AL's checks
     good, xsmall_serve, xsmall_train = run_ort_xsmall_phase(torch.Generator(device="cuda").manual_seed(SEED + 35))
     if not good:
         return 1
 
+    log(f"[time] {time.perf_counter() - t0:.1f}s since the build began")
     # supermask SCST: fresh keyed masks at every decode step, the ORT's gradient pass through K2's and K3's backward
     good, sm_scst, ud_sm_scst = run_supermask_scst_phase(torch.Generator(device="cuda").manual_seed(SEED + 15))
     if not good:
         return 1
 
+    log(f"[time] {time.perf_counter() - t0:.1f}s since the build began")
+    # the decode variants (sampling methods, diverse beam) and the raw 4-wide geometry at the paper ORT's width
+    good, variant_paths = run_decode_variants_phase(torch.Generator(device="cuda").manual_seed(SEED + 37))
+    if not good:
+        return 1
+
+    log(f"[time] {time.perf_counter() - t0:.1f}s since the build began")
     paths = {"serve": serve_counts, "train_step": train_counts, "scst_step": scst_counts,
              "updown_serve": ud_serve_counts, "updown_train_step": ud_train_counts,
              "updown_scst_step": ud_scst_counts, "prune_update": prune_counts, "acort_serve": acort_serve_counts,
@@ -4738,6 +5445,7 @@ def main() -> int:
     paths.update(zip(ACORT_SMALL_PATHS, (small_serve, small_train, small_scst)))
     paths.update(zip(XSMALL_PATHS, (xsmall_serve, xsmall_train)))
     paths.update(zip(SUPERMASK_PATHS, (sm_scst, ud_sm_scst)))
+    paths.update(variant_paths)
     kernels = []
     for name in _build.SOURCES:
         entries = [e for e, k in KERNELS.items() if k.library_name == name]
@@ -4756,7 +5464,7 @@ def main() -> int:
     # ACORT-small's instances (head width 32), K10's radix mode and ORT-xsmall's instances (head width 13):
     # their own entries, launches on their model's paths
     for modes, model_paths in ((ACORT_SMALL_MODES, ACORT_SMALL_PATHS), (XSMALL_MODES, XSMALL_PATHS),
-                               (SUPERMASK_MODES, SUPERMASK_PATHS)):
+                               (SUPERMASK_MODES, SUPERMASK_PATHS), (VARIANT_MODES, VARIANT_PATHS)):
         for mode, library, entries, replaces in modes:
             by_path = {path: sum(paths[path][e] for e in entries) for path in model_paths}
             src = _build.CSRC / f"{library}.cu"

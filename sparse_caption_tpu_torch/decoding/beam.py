@@ -1,5 +1,5 @@
 """Batched beam search with beam-ancestry caches (port of
-``sparse_caption_tpu/decoding/beam.py``, group size 1, eval).
+``sparse_caption_tpu/decoding/beam.py``, eval).
 
 Semantics kept from the reference:
 * candidates = beam score + log-prob, as a two-level top-K: the per-beam
@@ -19,6 +19,11 @@ Semantics kept from the reference:
   by parent row (an exact gather; Up-Down's LSTM states), except the
   top-level ``"static"`` subtree, whose rows an image's beams share
 * every top-K breaks ties to the lower index, as ``lax.top_k``
+* diverse groups (``decoding/api.py``): a group's search subtracts
+  ``diversity_lambda`` x the count of the tokens earlier groups chose at its
+  local time (``diversity_penalty_tokens``, kernel K4's prologue) and returns
+  its live beams' sequences after every step (``return_seq_snapshots``),
+  from which later groups read their staggered view
 """
 
 from __future__ import annotations
@@ -86,14 +91,22 @@ def beam_search(
     decoding_constraint: int = 0,
     suppress_unk: int = 0,
     bad_ending_ids: Optional[Sequence[int]] = None,
-) -> Tuple[torch.Tensor, torch.Tensor]:
+    diversity_penalty_tokens: Optional[torch.Tensor] = None,
+    diversity_lambda: float = 0.5,
+    return_seq_snapshots: bool = False,
+) -> Tuple[torch.Tensor, ...]:
     """Beam search over ``step_fn(it, cache, t) -> (logits (B*K, V), cache)``.
 
     ``init_cache`` is a dict, with a beam-ancestry map (B, K, T) int32 or
     with (B*K, ...) tensors to reorder (see the module notes); rows are
     interleaved (image i owns rows i*K..(i+1)*K-1). Returns (seq (B, K,
     max_len) int64, seq_logprobs (B, K, max_len) f32), sorted by penalized
-    score per image, descending."""
+    score per image, descending; with ``return_seq_snapshots`` also the live
+    beams' sequences after each step (max_len, B, K, max_len).
+    ``diversity_penalty_tokens``: (B, P, max_len), the tokens that earlier
+    groups' P beams chose at each local time (diverse beam search), each
+    lowering that word by ``diversity_lambda`` a time in every beam of its
+    image."""
     k = beam_size
     b = batch_size
     dev = next(_leaves(init_cache)).device
@@ -108,13 +121,17 @@ def beam_search(
     done_score = torch.full((b, k), NEG_BIG, device=dev)
     done_seq = seq.clone()
     done_seq_lp = seq_lp.clone()
+    div = None if diversity_penalty_tokens is None else diversity_penalty_tokens.to(torch.int32)
+    snapshots = []
 
     for t in range(max_len):
         logits, cache = step_fn(tokens, cache, t)  # (B*K, V)
         ban_token = tokens if (decoding_constraint and t > 0) else None
         ban_eos = torch.isin(tokens, bad_ids) if (bad_ids is not None and t > 0) else None
         row_lp, row_tok, row_raw = beam_topk(logits, k, ban_token=ban_token, ban_eos=ban_eos, eos_id=eos_id,
-                                             unk_id=unk_id if suppress_unk else None)  # (B*K, K) each
+                                             unk_id=unk_id if suppress_unk else None,
+                                             div_tokens=None if div is None else div[:, :, t].contiguous(),
+                                             div_lambda=diversity_lambda)  # (B*K, K) each
         cand = sum_lp[..., None] + row_lp.reshape(b, k, k)
         top_scores, flat_ix = topk_lower_index(cand.reshape(b, k * k), k)  # (B, K)
         beam_ix = flat_ix // k  # parent beam
@@ -128,6 +145,8 @@ def beam_search(
         seq[:, :, t] = tok_ix
         seq_lp[:, :, t] = chosen_lp
         sum_lp = top_scores
+        if return_seq_snapshots:
+            snapshots.append(seq)
 
         is_end = (tok_ix == eos_id) | (t == max_len - 1)
         fin_score = torch.where(is_end, penalty(t + 1.0, sum_lp), NEG_BIG)
@@ -138,4 +157,6 @@ def beam_search(
 
         sum_lp = torch.where(is_end, sum_lp - 1000.0, sum_lp)
         tokens = tok_ix.reshape(-1).int()
+    if return_seq_snapshots:
+        return done_seq, done_seq_lp, torch.stack(snapshots)
     return done_seq, done_seq_lp

@@ -23,6 +23,11 @@ magnitude_masks (K16)             csrc/magnitude_threshold.cu          pruning/e
 ancestry_self_attention (K2 bwd)  csrc/ancestry_self_attention_bwd.cu  gradient of layers.py:317-320
 grouped_cross_attention (K3 bwd)  csrc/grouped_cross_attention_bwd.cu  gradient of layers.py:249-264
 supermask_weights (K5 keyed)      csrc/supermask.cu                    decoding/api.py:78-87 (mask draws)
+sample_step (K9 gumbel, top-k,    csrc/sample_step.cu                  decoding/sample.py:29-90
+nucleus modes)
+beam_topk (K4 diverse)            csrc/beam_topk.cu                    decoding/beam.py:176-184
+box_attention[_train] raw (K1)    csrc/box_attention.cu                models/layers.py:338-365 (raw geometry)
+box_attention_bwd raw (K7)        csrc/box_attention_bwd.cu            gradients of the same
 ================================  ===================================  =============================================
 
 A wrapper given CPU tensors runs the plain version; given CUDA tensors it
@@ -35,6 +40,10 @@ K1/K7, K8's apply variant, K11-K13 and K14/K15 are autograd Functions whose
 backward is a kernel too, and so are K2 and K3 where gradients are asked
 for (supermask SCST's gradient pass; f32, unshared, head width 64). K5's
 keyed mode draws its uniforms in the kernel from Philox (supermask SCST).
+K9's sample methods (Gumbel, top-k, nucleus), K4's diverse-beam penalty and
+K1 / K7 on the raw 4-wide geometry (``--no_box_trigonometric_embedding``)
+are modes of the same entry points with launch counts of their own
+(``sample_step_*``, ``beam_topk_diverse``, ``*_raw``).
 """
 
 from sparse_caption_tpu_torch.kernels import add_ref_layernorm as _k6
@@ -60,6 +69,10 @@ KERNELS = {
     "box_attention_train": _k1.KERNEL_TRAIN,
     "box_attention_kv": _k1.KERNEL_KV,
     "box_attention_train_kv": _k1.KERNEL_TRAIN_KV,
+    "box_attention_raw": _k1.KERNEL_RAW,
+    "box_attention_train_raw": _k1.KERNEL_TRAIN_RAW,
+    "box_attention_kv_raw": _k1.KERNEL_KV_RAW,
+    "box_attention_train_kv_raw": _k1.KERNEL_TRAIN_KV_RAW,
     "ancestry_self_attention": _k2.KERNEL,
     "ancestry_self_attention_kv": _k2.KERNEL_KV,
     "ancestry_self_attention_bwd": _k2.KERNEL_BWD,
@@ -67,6 +80,7 @@ KERNELS = {
     "grouped_cross_attention_kv": _k3.KERNEL_KV,
     "grouped_cross_attention_bwd": _k3.KERNEL_BWD,
     "beam_topk": _k4.KERNEL,
+    "beam_topk_diverse": _k4.KERNEL_DIVERSE,
     "supermask": _k5.KERNEL,
     "supermask_keyed": _k5.KERNEL_KEYED,
     "supermask_bwd": _k5.KERNEL_BWD,
@@ -74,9 +88,14 @@ KERNELS = {
     "add_ref_layernorm_bwd": _k6.KERNEL_BWD,
     "box_attention_bwd": _k7.KERNEL,
     "box_attention_bwd_kv": _k7.KERNEL_KV,
+    "box_attention_bwd_raw": _k7.KERNEL_RAW,
+    "box_attention_bwd_kv_raw": _k7.KERNEL_KV_RAW,
     "keyed_keep_mask": _k8.KERNEL,
     "keyed_dropout": _k8.KERNEL_APPLY,
     "sample_step": _k9.KERNEL,
+    "sample_step_gumbel": _k9.KERNEL_GUMBEL,
+    "sample_step_topk": _k9.KERNEL_TOPK,
+    "sample_step_nucleus": _k9.KERNEL_NUCLEUS,
     "cider_reward": _k10.KERNEL,
     "lstm_cell": _k11.KERNEL,
     "lstm_cell_bwd": _k11.KERNEL_BWD,

@@ -22,30 +22,45 @@ from sparse_caption_tpu_torch.ops.attention import (
 )
 
 KERNEL = _build.CudaKernel("box_attention", "sct_box_attention", [
-    _build.I, _build.I, _build.P, _build.P, _build.P, _build.P, _build.P, _build.P, _build.P, _build.P, _build.P,
-    _build.P,
-    _build.I, _build.I, _build.I, _build.F32, _build.P,
+    _build.I, _build.I, _build.I, *[_build.P] * 10, _build.I, _build.I, _build.I, _build.F32, _build.P,
 ])
 # the train variant: dropout keep-mask on the probabilities
 KERNEL_TRAIN = _build.CudaKernel("box_attention", "sct_box_attention_train", [
-    _build.I, _build.I, _build.P, _build.P, _build.P, _build.P, _build.P, _build.P, _build.P, _build.P, _build.P,
-    _build.F32, _build.P, _build.I, _build.I, _build.I, _build.F32, _build.P,
+    _build.I, _build.I, _build.I, *[_build.P] * 9, _build.F32, _build.P, _build.I, _build.I, _build.I, _build.F32,
+    _build.P,
 ])
 # the kv modes (V is K): the same entry points without a v
 KERNEL_KV = _build.CudaKernel("box_attention", "sct_box_attention_kv", [
-    _build.I, _build.I, _build.P, _build.P, _build.P, _build.P, _build.P, _build.P, _build.P, _build.P, _build.P,
-    _build.I, _build.I, _build.I, _build.F32, _build.P,
+    _build.I, _build.I, _build.I, *[_build.P] * 9, _build.I, _build.I, _build.I, _build.F32, _build.P,
 ])
 KERNEL_TRAIN_KV = _build.CudaKernel("box_attention", "sct_box_attention_train_kv", [
-    _build.I, _build.I, _build.P, _build.P, _build.P, _build.P, _build.P, _build.P, _build.P, _build.P,
-    _build.F32, _build.P, _build.I, _build.I, _build.I, _build.F32, _build.P,
+    _build.I, _build.I, _build.I, *[_build.P] * 8, _build.F32, _build.P, _build.I, _build.I, _build.I, _build.F32,
+    _build.P,
 ])
-DIM_G = 64
+# the raw geometry (dim_g 4): the same entry points, each counted apart
+KERNEL_RAW = _build.CudaKernel("box_attention", "sct_box_attention", KERNEL.argtypes)
+KERNEL_TRAIN_RAW = _build.CudaKernel("box_attention", "sct_box_attention_train", KERNEL_TRAIN.argtypes)
+KERNEL_KV_RAW = _build.CudaKernel("box_attention", "sct_box_attention_kv", KERNEL_KV.argtypes)
+KERNEL_TRAIN_KV_RAW = _build.CudaKernel("box_attention", "sct_box_attention_train_kv", KERNEL_TRAIN_KV.argtypes)
+DIM_G, RAW_DIM_G = 64, 4  # the geometry's widths: trig features, the raw log-deltas
+
+
+def geometry_width(trigonometric: bool) -> int:
+    """dim_g of the geometry (``BoxMultiHeadAttention.dim_g`` of the JAX package)."""
+    return DIM_G if trigonometric else RAW_DIM_G
+
+
+def forward_kernel(train: bool, kv: bool, dim_g: int) -> _build.CudaKernel:
+    """The entry point (and launch count) of a K1 call."""
+    raw = dim_g == RAW_DIM_G
+    if train:
+        return (KERNEL_TRAIN_KV_RAW if raw else KERNEL_TRAIN_KV) if kv else (KERNEL_TRAIN_RAW if raw else KERNEL_TRAIN)
+    return (KERNEL_KV_RAW if raw else KERNEL_KV) if kv else (KERNEL_RAW if raw else KERNEL)
 
 
 def log_bias_from_geometry(geo, wg_weight, wg_bias, dtype):
     """The (B, h, R, R) log-bias ``log(max(relu(geo . wg + wg_b), 1e-6))`` of
-    the f32 geometry (B, R, R, 64) in ``dtype``, with the JAX layer's cast
+    the f32 geometry (B, R, R, dim_g) in ``dtype``, with the JAX layer's cast
     points: the geometry cast to ``dtype``, the product rounded before the
     bias is added (``MaskedDense`` adds it after the dot), relu, the clamp and
     the log in ``dtype``."""
@@ -54,8 +69,11 @@ def log_bias_from_geometry(geo, wg_weight, wg_bias, dtype):
 
 
 def box_log_bias_plain(boxes, wg_weight, wg_bias, dtype):
-    """K1's log-bias: ``log_bias_from_geometry`` of the boxes' f32 geometry."""
-    return log_bias_from_geometry(box_relational_embedding(boxes.float(), dim_g=DIM_G), wg_weight, wg_bias, dtype)
+    """K1's log-bias: ``log_bias_from_geometry`` of the boxes' f32 geometry,
+    the trig features or (a (h, 4) ``wg_weight``) the raw log-deltas."""
+    dim_g = wg_weight.shape[1]
+    geo = box_relational_embedding(boxes.float(), dim_g=dim_g, trigonometric=dim_g != RAW_DIM_G)
+    return log_bias_from_geometry(geo, wg_weight, wg_bias, dtype)
 
 
 def box_attention_plain(q, k, v, boxes, wg_weight, wg_bias, mask, keep=None, keep_prob: float = 1.0):
@@ -76,7 +94,9 @@ def check_args(q, k, v, boxes, wg_weight, wg_bias, mask, keep=None):
         if t is not None or name == "k":
             check_tensor(t, name, (b, h, r, dk), q.dtype)
     check_tensor(boxes, "boxes", (b, r, 4), torch.float32)
-    check_tensor(wg_weight, "wg_weight", (h, DIM_G), q.dtype)
+    if wg_weight.dim() != 2 or wg_weight.shape[1] not in (DIM_G, RAW_DIM_G):
+        raise ValueError(f"wg_weight: expected (h, {DIM_G}) or (h, {RAW_DIM_G}), got {tuple(wg_weight.shape)}")
+    check_tensor(wg_weight, "wg_weight", (h, wg_weight.shape[1]), q.dtype)
     check_tensor(wg_bias, "wg_bias", (h,), q.dtype)
     check_tensor(mask, "mask", (b, r), torch.bool)
     if keep is not None:
@@ -91,7 +111,8 @@ def check_args(q, k, v, boxes, wg_weight, wg_bias, mask, keep=None):
 
 def box_attention(q, k, v, boxes, wg_weight, wg_bias, mask, bias_out=None):
     """q, k, v: (B, h, R, dk) f32 or bf16, v=None for V = K; boxes: (B, R, 4) f32; wg_weight: (h, 64)
-    (the Linear layout of the (64, h) projection) and wg_bias: (h,) in the
+    (the Linear layout of the (64, h) projection of the trig features) or (h,
+    4) (the raw log-deltas, ``--no_box_trigonometric_embedding``) and wg_bias: (h,) in the
     compute dtype; mask: (B, R) bool, False = padded region. Returns (B, h, R, dk).
     ``bias_out``, a (B, h, R, R) tensor in the compute dtype or None (the main
     path), receives the log-bias the call added: the check of K1's geometry
@@ -109,8 +130,8 @@ def box_attention(q, k, v, boxes, wg_weight, wg_bias, mask, bias_out=None):
     freq = geometry_frequencies(DIM_G, device=q.device)
     tail = (boxes.data_ptr(), wg_weight.data_ptr(), wg_bias.data_ptr(), freq.data_ptr(), mask.data_ptr(),
             out.data_ptr(), _build.ptr(bias_out), b, h, r, score_divisor(dk, q.dtype), _build.stream_handle(q))
-    if v is None:
-        KERNEL_KV.launch(_build.dtype_code(q), dk, q.data_ptr(), k.data_ptr(), *tail)
-    else:
-        KERNEL.launch(_build.dtype_code(q), dk, q.data_ptr(), k.data_ptr(), v.data_ptr(), *tail)
+    dg = wg_weight.shape[1]
+    kernel = forward_kernel(False, v is None, dg)
+    kernel.launch(_build.dtype_code(q), dk, dg, q.data_ptr(), k.data_ptr(), *(() if v is None else (v.data_ptr(),)),
+                  *tail)
     return out

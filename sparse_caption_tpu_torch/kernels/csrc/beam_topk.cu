@@ -11,8 +11,13 @@
 //   c[v]  = f32(lp[v]) + -1e18 if v == ban_token[n]           (decoding_constraint, t > 0)
 //                      + -1e18 if ban_eos[n] and v == eos_id  (bad ending, t > 0)
 //                      + -1000 if v == unk_id                 (suppress_UNK)
+//   c[v]  = c[v] - f32(count[v] * lambda)                     (diverse beam search)
+//           count[v]: how many of the P tokens that earlier groups chose at
+//           this step for the row's image (div_tokens, row n / div_group) are v;
+//           the product is formed once, count first (beam.py:176-184), not
+//           lambda subtracted once per occurrence
 //   out   = top-k of c (ties to the lower index, as lax.top_k), their indices,
-//           and the raw f32(lp) at those indices.
+//           and the raw f32(lp) at those indices (no penalty).
 //
 // Bound on the H100 (beam 5, vocab 10000): bytes. The logits are read once:
 // at B = 2048 (N = 10240 rows) 205 MB of bf16, 0.06 ms at 3.35 TB/s.
@@ -50,10 +55,14 @@
 // in one uint64) orders them. Rows off the held path with k <= 32 (V not whole
 // vectors, unaligned, or too long) take a scalar kernel: an online max / sum,
 // then a second pass that rereads the row into per-thread lists of 8, 16 or
-// 32 and k rounds of a block-wide argmax.
-#include <climits>
-
+// 32 and k rounds of a block-wide argmax. The diverse-beam penalty (up to
+// 256 earlier-group tokens an image, staged in shared memory in the
+// prologue) runs on the scalar kernel (k <= 32) and the radix select (k >
+// 32); the held path's threshold assumes at most three penalised entries, so
+// it takes no diverse rows. The register lists, the radix select and the
+// bitonic sort are row_topk.cuh's, shared with K9's top-k filter.
 #include "row_softmax.cuh"
+#include "row_topk.cuh"
 
 namespace sct {
 
@@ -61,40 +70,7 @@ constexpr int kTopkThreads = 256;
 constexpr int kRegisterK = 32;  // largest k kept in per-thread register lists
 constexpr int kTopkHeldMaxThreads = 320;  // the held path's largest block (V <= 10,240)
 constexpr float kNegBig = -1e18f;  // beam.py NEG_BIG
-
-// Row statistics of pass 1: the max and log(sum exp(x - max)) of one row of
-// V logits, merged across the block (every thread returns them).
-template <typename T>
-__device__ __forceinline__ void row_logsumexp(const T* __restrict__ x, int V, float* red_a, float* red_b, float& mx,
-                                              float& logsum) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x / 32, nwarps = blockDim.x / 32;
-  float m = -INFINITY, s = 0.f;
-  for (int i = threadIdx.x; i < V; i += blockDim.x) {
-    const float xi = to_f(x[i]);
-    if (xi > m) {
-      s = s * expf(m - xi) + 1.f;
-      m = xi;
-    } else {
-      s += expf(xi - m);
-    }
-  }
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) {
-    const float om = __shfl_xor_sync(0xffffffffu, m, o), os = __shfl_xor_sync(0xffffffffu, s, o);
-    merge_max_sum(m, s, om, os);
-  }
-  if (lane == 0) {
-    red_a[warp] = m;
-    red_b[warp] = s;
-  }
-  __syncthreads();
-  m = -INFINITY;
-  s = 0.f;
-  for (int w = 0; w < nwarps; ++w) merge_max_sum(m, s, red_a[w], red_b[w]);
-  mx = m;
-  logsum = logf(s);
-  __syncthreads();  // red_a / red_b are reused by the caller
-}
+constexpr int kMaxDiversity = 256;  // earlier-group tokens an image's rows read (diverse beam search)
 
 // The penalties of the module notes, added in f32 to the log-prob lp of index i.
 __device__ __forceinline__ float penalize(float c, int i, int ban, bool no_eos, int eos_id, int unk_id) {
@@ -108,17 +84,29 @@ __device__ __forceinline__ bool penalized(int i, int ban, bool no_eos, int eos_i
   return i == ban || (no_eos && i == eos_id) || i == unk_id;
 }
 
+// The diverse-beam penalty of the module notes: count (the row's image's
+// earlier-group tokens equal to i, div_s[0..P)) times lambda, formed once in
+// f32 with the count first, then subtracted
+__device__ __forceinline__ float diversify(float c, int i, const int* div_s, int P, float lambda) {
+  int count = 0;
+  for (int j = 0; j < P; ++j) count += div_s[j] == i;
+  return count > 0 ? c - (float)count * lambda : c;
+}
+
 // The constrained value c[i] of the module notes.
 template <typename T>
 __device__ __forceinline__ float constrained(const T* __restrict__ x, int i, float mx, float logsum, int ban,
-                                             bool no_eos, int eos_id, int unk_id) {
-  return penalize(round_to<T>((to_f(x[i]) - mx) - logsum), i, ban, no_eos, eos_id, unk_id);
+                                             bool no_eos, int eos_id, int unk_id, const int* div_s, int P,
+                                             float lambda) {
+  return diversify(penalize(round_to<T>((to_f(x[i]) - mx) - logsum), i, ban, no_eos, eos_id, unk_id), i, div_s, P,
+                   lambda);
 }
 
-// order-preserving uint32 key of a float (larger float, larger key; -0 as +0)
-__device__ __forceinline__ unsigned int order_key(float f) {
-  const unsigned int u = __float_as_uint(f == 0.f ? 0.f : f);
-  return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
+// the row's image's P earlier-group tokens (diverse beam search) into div_s
+__device__ __forceinline__ void stage_diversity(const int* __restrict__ div_tokens, int P, int group, int row,
+                                                int* div_s) {
+  for (int j = threadIdx.x; j < P; j += blockDim.x) div_s[j] = div_tokens[(size_t)(row / group) * P + j];
+  __syncthreads();
 }
 
 // (value, index) as one key: a larger value ranks above, and of equal values
@@ -127,10 +115,6 @@ __device__ __forceinline__ unsigned long long topk_key(float v, int i) {
   return ((unsigned long long)order_key(v) << 32) | (0xFFFFFFFFu - (unsigned int)i);
 }
 __device__ __forceinline__ int key_index(unsigned long long key) { return (int)(0xFFFFFFFFu - (unsigned int)key); }
-// the float of an order_key
-__device__ __forceinline__ float order_value(unsigned int u) {
-  return __uint_as_float((u & 0x80000000u) ? (u & 0x7FFFFFFFu) : ~u);
-}
 __device__ __forceinline__ float key_value(unsigned long long key) { return order_value((unsigned int)(key >> 32)); }
 
 // the warp's largest key: the largest value half, then the largest index half among it
@@ -281,100 +265,43 @@ beam_topk_held_kernel(const T* __restrict__ logits, int V, int k, const int* __r
   }
 }
 
-// Rows off the held path with k <= kRegisterK: a scalar kernel of 256 threads a row.
+// Rows off the held path with k <= kRegisterK (and every row under the
+// diverse-beam penalty): a scalar kernel of 256 threads a row, the shared
+// register path (row_topk.cuh).
 template <typename T, int KMAX>
 __global__ void __launch_bounds__(kTopkThreads)
 beam_topk_kernel(const T* __restrict__ logits, int V, int k, const int* __restrict__ ban_token,
-                 const unsigned char* __restrict__ ban_eos, int eos_id, int unk_id, float* __restrict__ out_val,
-                 int* __restrict__ out_idx, float* __restrict__ out_raw) {
+                 const unsigned char* __restrict__ ban_eos, int eos_id, int unk_id,
+                 const int* __restrict__ div_tokens, int div_p, int div_group, float div_lambda,
+                 float* __restrict__ out_val, int* __restrict__ out_idx, float* __restrict__ out_raw) {
   __shared__ float red_a[32];
   __shared__ float red_b[32];
   __shared__ int red_i[32];
   __shared__ int winner;
-  const int row = blockIdx.x, lane = threadIdx.x & 31, warp = threadIdx.x / 32, nwarps = blockDim.x / 32;
+  __shared__ int div_s[kMaxDiversity];
+  const int row = blockIdx.x;
   const T* x = logits + (size_t)row * V;
+  stage_diversity(div_tokens, div_p, div_group, row, div_s);
   float mx, logsum;
   row_logsumexp(x, V, red_a, red_b, mx, logsum);
 
   // pass 2: constrained log-probs, sorted per-thread top-k
   const int ban = ban_token != nullptr ? ban_token[row] : -1;
   const bool no_eos = ban_eos != nullptr && ban_eos[row] != 0;
-  float tv[KMAX];
+  float tv[KMAX], thr;
   int ti[KMAX];
-#pragma unroll
-  for (int j = 0; j < KMAX; ++j) {
-    tv[j] = -INFINITY;
-    ti[j] = INT_MAX;
-  }
-  float thr = -INFINITY;  // tv[k - 1]
-  for (int i = threadIdx.x; i < V; i += blockDim.x) {
-    const float c = constrained(x, i, mx, logsum, ban, no_eos, eos_id, unk_id);
-    if (c > thr) {  // i grows within a thread, so an equal value never displaces a lower index
-      bool placed = false;
-#pragma unroll
-      for (int j = KMAX - 1; j > 0; --j) {
-        if (j < k && !placed) {
-          if (c > tv[j - 1]) {
-            tv[j] = tv[j - 1];
-            ti[j] = ti[j - 1];
-          } else {
-            tv[j] = c;
-            ti[j] = i;
-            placed = true;
-          }
-        }
-      }
-      if (!placed) {
-        tv[0] = c;
-        ti[0] = i;
-      }
-#pragma unroll
-      for (int j = 0; j < KMAX; ++j)
-        if (j == k - 1) thr = tv[j];
-    }
-  }
+  topk_init(tv, ti, thr);
+  for (int i = threadIdx.x; i < V; i += blockDim.x)
+    topk_insert(constrained(x, i, mx, logsum, ban, no_eos, eos_id, unk_id, div_s, div_p, div_lambda), i, k, tv, ti,
+                thr);
 
   // merge: k rounds of a block-wide argmax over each thread's best remaining entry
-  int head = 0;
-  for (int r = 0; r < k; ++r) {
-    float cv = -INFINITY;
-    int ci = INT_MAX;
-#pragma unroll
-    for (int j = 0; j < KMAX; ++j)
-      if (j == head) {
-        cv = tv[j];
-        ci = ti[j];
-      }
-    const int mine = ci;
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) {
-      const float ov = __shfl_xor_sync(0xffffffffu, cv, o);
-      const int oi = __shfl_xor_sync(0xffffffffu, ci, o);
-      if (ranks_above(ov, oi, cv, ci)) {
-        cv = ov;
-        ci = oi;
-      }
-    }
-    if (lane == 0) {
-      red_a[warp] = cv;
-      red_i[warp] = ci;
-    }
-    __syncthreads();
-    if (threadIdx.x == 0) {
-      for (int w = 1; w < nwarps; ++w)
-        if (ranks_above(red_a[w], red_i[w], cv, ci)) {
-          cv = red_a[w];
-          ci = red_i[w];
-        }
-      const size_t o = (size_t)row * k + r;
-      out_val[o] = cv;
-      out_idx[o] = ci;
-      out_raw[o] = round_to<T>((to_f(x[ci]) - mx) - logsum);
-      winner = ci;
-    }
-    __syncthreads();
-    if (mine == winner) ++head;
-  }
+  topk_merge(tv, ti, k, red_a, red_i, &winner, [&](int r, float cv, int ci) {
+    const size_t o = (size_t)row * k + r;
+    out_val[o] = cv;
+    out_idx[o] = ci;
+    out_raw[o] = round_to<T>((to_f(x[ci]) - mx) - logsum);
+  });
 }
 
 // k > kRegisterK: radix select over the row's constrained values in shared
@@ -384,6 +311,7 @@ template <typename T>
 __global__ void __launch_bounds__(kTopkThreads)
 beam_topk_select_kernel(const T* __restrict__ logits, int V, int k, int cap, const int* __restrict__ ban_token,
                         const unsigned char* __restrict__ ban_eos, int eos_id, int unk_id,
+                        const int* __restrict__ div_tokens, int div_p, int div_group, float div_lambda,
                         float* __restrict__ out_val, int* __restrict__ out_idx, float* __restrict__ out_raw) {
   extern __shared__ __align__(16) unsigned char topk_smem[];
   unsigned long long* cand = reinterpret_cast<unsigned long long*>(topk_smem);  // cap
@@ -394,40 +322,22 @@ beam_topk_select_kernel(const T* __restrict__ logits, int V, int k, int cap, con
   __shared__ int warp_count[32];
   __shared__ unsigned int prefix_s;
   __shared__ int remaining_s, n_cand;
+  __shared__ int div_s[kMaxDiversity];
   const int row = blockIdx.x, lane = threadIdx.x & 31, warp = threadIdx.x / 32, nwarps = blockDim.x / 32;
   const T* x = logits + (size_t)row * V;
+  stage_diversity(div_tokens, div_p, div_group, row, div_s);
   float mx, logsum;
   row_logsumexp(x, V, red_a, red_b, mx, logsum);
   const int ban = ban_token != nullptr ? ban_token[row] : -1;
   const bool no_eos = ban_eos != nullptr && ban_eos[row] != 0;
-  for (int i = threadIdx.x; i < V; i += blockDim.x) c_s[i] = constrained(x, i, mx, logsum, ban, no_eos, eos_id, unk_id);
-  if (threadIdx.x == 0) {
-    prefix_s = 0u;
-    remaining_s = k;
-    n_cand = 0;
-  }
-  // radix select of the k-th largest key, 8 bits a pass from the top
-  unsigned int mask = 0u;
-  for (int shift = 24; shift >= 0; shift -= 8) {
-    for (int d = threadIdx.x; d < 256; d += blockDim.x) hist[d] = 0;
-    __syncthreads();
-    const unsigned int prefix = prefix_s;
-    for (int i = threadIdx.x; i < V; i += blockDim.x) {
-      const unsigned int key = order_key(c_s[i]);
-      if ((key & mask) == prefix) atomicAdd(&hist[(key >> shift) & 0xFFu], 1);
-    }
-    __syncthreads();
-    if (threadIdx.x == 0) {
-      int above = 0, d = 255;
-      for (; d > 0 && above + hist[d] < remaining_s; --d) above += hist[d];
-      remaining_s -= above;  // entries of the chosen digit still needed
-      prefix_s = prefix | ((unsigned int)d << shift);
-    }
-    mask |= 0xFFu << shift;
-    __syncthreads();
-  }
-  const unsigned int kth = prefix_s;
-  const int need_eq = remaining_s;  // values equal to the k-th taken, lowest indices first
+  for (int i = threadIdx.x; i < V; i += blockDim.x)
+    c_s[i] = constrained(x, i, mx, logsum, ban, no_eos, eos_id, unk_id, div_s, div_p, div_lambda);
+  if (threadIdx.x == 0) n_cand = 0;
+  __syncthreads();
+  // radix select of the k-th largest key (row_topk.cuh)
+  unsigned int kth;
+  int need_eq;  // values equal to the k-th taken, lowest indices first
+  radix_select_kth(c_s, V, k, hist, &prefix_s, &remaining_s, kth, need_eq);
   // gather: every value above the k-th, then the first need_eq equal ones in index order
   for (int i = threadIdx.x; i < V; i += blockDim.x) {
     const unsigned int key = order_key(c_s[i]);
@@ -453,22 +363,7 @@ beam_topk_select_kernel(const T* __restrict__ logits, int V, int k, int cap, con
   }
   for (int e = k + threadIdx.x; e < cap; e += blockDim.x) cand[e] = 0ull;  // below every real entry
   __syncthreads();
-  // bitonic sort, descending
-  for (int size = 2; size <= cap; size <<= 1) {
-    for (int stride = size >> 1; stride > 0; stride >>= 1) {
-      for (int e = threadIdx.x; e < cap / 2; e += blockDim.x) {
-        const int lo = 2 * e - (e & (stride - 1));
-        const int hi = lo + stride;
-        const bool desc = (lo & size) == 0;
-        const unsigned long long a = cand[lo], b = cand[hi];
-        if ((a < b) == desc) {
-          cand[lo] = b;
-          cand[hi] = a;
-        }
-      }
-      __syncthreads();
-    }
-  }
+  bitonic_sort_desc(cand, cap);
   for (int r = threadIdx.x; r < k; r += blockDim.x) {
     const int i = (int)(0xFFFFFFFFu - (unsigned int)(cand[r] & 0xFFFFFFFFull));
     const size_t o = (size_t)row * k + r;
@@ -490,22 +385,25 @@ inline size_t select_smem_bytes(int V, int k) {
 
 template <typename T>
 cudaError_t launch(const void* logits, int N, int V, int k, const void* ban_token, const void* ban_eos, int eos_id,
-                   int unk_id, void* out_val, void* out_idx, void* out_raw, cudaStream_t stream) {
+                   int unk_id, const void* div_tokens, int div_p, int div_group, float div_lambda, void* out_val,
+                   void* out_idx, void* out_raw, cudaStream_t stream) {
   const T* lg = static_cast<const T*>(logits);
   const int* bt = static_cast<const int*>(ban_token);
   const unsigned char* be = static_cast<const unsigned char*>(ban_eos);
+  const int* dt = static_cast<const int*>(div_tokens);
   float* ov = static_cast<float*>(out_val);
   int* oi = static_cast<int*>(out_idx);
   float* orw = static_cast<float*>(out_raw);
-  const int held = aligned_to(logits, 16) ? held_row_threads<T>(V, kTopkHeldMaxThreads) : 0;
+  const int held = aligned_to(logits, 16) && div_p == 0 ? held_row_threads<T>(V, kTopkHeldMaxThreads) : 0;
+#define SCT_DIV dt, div_p, div_group, div_lambda
   if (held > 0 && k <= kRegisterK) {
     beam_topk_held_kernel<T><<<N, held, 0, stream>>>(lg, V, k, bt, be, eos_id, unk_id, ov, oi, orw);
   } else if (k <= 8) {
-    beam_topk_kernel<T, 8><<<N, kTopkThreads, 0, stream>>>(lg, V, k, bt, be, eos_id, unk_id, ov, oi, orw);
+    beam_topk_kernel<T, 8><<<N, kTopkThreads, 0, stream>>>(lg, V, k, bt, be, eos_id, unk_id, SCT_DIV, ov, oi, orw);
   } else if (k <= 16) {
-    beam_topk_kernel<T, 16><<<N, kTopkThreads, 0, stream>>>(lg, V, k, bt, be, eos_id, unk_id, ov, oi, orw);
+    beam_topk_kernel<T, 16><<<N, kTopkThreads, 0, stream>>>(lg, V, k, bt, be, eos_id, unk_id, SCT_DIV, ov, oi, orw);
   } else if (k <= kRegisterK) {
-    beam_topk_kernel<T, 32><<<N, kTopkThreads, 0, stream>>>(lg, V, k, bt, be, eos_id, unk_id, ov, oi, orw);
+    beam_topk_kernel<T, 32><<<N, kTopkThreads, 0, stream>>>(lg, V, k, bt, be, eos_id, unk_id, SCT_DIV, ov, oi, orw);
   } else {
     const size_t smem = select_smem_bytes(V, k);
     if (smem > 232448 - 4096) return cudaErrorInvalidValue;  // the static shared arrays need the rest
@@ -513,8 +411,9 @@ cudaError_t launch(const void* logits, int N, int V, int k, const void* ban_toke
                                            (int)smem);
     if (err != cudaSuccess) return err;
     beam_topk_select_kernel<T><<<N, kTopkThreads, smem, stream>>>(lg, V, k, select_capacity(k), bt, be, eos_id,
-                                                                 unk_id, ov, oi, orw);
+                                                                 unk_id, SCT_DIV, ov, oi, orw);
   }
+#undef SCT_DIV
   return cudaGetLastError();
 }
 
@@ -523,18 +422,24 @@ cudaError_t launch(const void* logits, int N, int V, int k, const void* ban_toke
 // dtype: 0 = float32, 1 = bfloat16. logits (N, V); ban_token (N,) int32 or null;
 // ban_eos (N,) bool or null; unk_id < 0 disables the UNK penalty; 1 <= k <= V
 // (k > 32: 8 * pow2ceil(k) + 4 * V bytes of shared memory, at most 223 KB).
+// div_tokens (N / div_group, div_p) int32 or null (div_p 0): the earlier
+// groups' tokens of each image at this step (row n reads row n / div_group),
+// 0 <= div_p <= 256; div_lambda: the diverse-beam penalty's weight.
 // Outputs: values (N, k) f32, indices (N, k) int32, raw log-probs (N, k) f32.
 extern "C" int sct_beam_topk(int dtype, const void* logits, int N, int V, int k, const void* ban_token,
-                             const void* ban_eos, int eos_id, int unk_id, void* out_val, void* out_idx,
-                             void* out_raw, void* stream) {
-  if (k < 1 || V < k) return (int)cudaErrorInvalidValue;
+                             const void* ban_eos, int eos_id, int unk_id, const void* div_tokens, int div_p,
+                             int div_group, float div_lambda, void* out_val, void* out_idx, void* out_raw,
+                             void* stream) {
+  if (k < 1 || V < k || div_p < 0 || div_p > sct::kMaxDiversity || (div_p > 0 && (div_tokens == nullptr ||
+                                                                                   div_group < 1)))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return (int)sct::launch<float>(logits, N, V, k, ban_token, ban_eos, eos_id, unk_id, out_val, out_idx, out_raw,
-                                   s);
+    return (int)sct::launch<float>(logits, N, V, k, ban_token, ban_eos, eos_id, unk_id, div_tokens, div_p, div_group,
+                                   div_lambda, out_val, out_idx, out_raw, s);
   if (dtype == 1)
-    return (int)sct::launch<__nv_bfloat16>(logits, N, V, k, ban_token, ban_eos, eos_id, unk_id, out_val, out_idx,
-                                           out_raw, s);
+    return (int)sct::launch<__nv_bfloat16>(logits, N, V, k, ban_token, ban_eos, eos_id, unk_id, div_tokens, div_p,
+                                           div_group, div_lambda, out_val, out_idx, out_raw, s);
   return (int)cudaErrorInvalidValue;
 }
 

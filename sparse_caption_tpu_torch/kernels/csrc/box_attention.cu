@@ -75,6 +75,14 @@
 // its 26-byte rows take no TMA, so the loading warp copies them element by
 // element and arrives on the head's mbarrier itself; only the 13 real
 // columns of out are written.
+// Raw geometry (dg = 4, --no_box_trigonometric_embedding; a run-time
+// argument, every instance above takes it): geo[i,j] is the four log-deltas
+// rounded to T, and w_g[i,j,h] = max(relu(round(round(geo . wg[h]) +
+// wg_b[h])), 1e-6) with the dot as four FMAs in coordinate order
+// (box_geometry.cuh pair_wg_raw), pair by pair over the block's threads in
+// both dtypes (no trig, no product on the tensor cores; in bf16 a function
+// of its own, raw_log_bias, so that the trig path's code stays as it was);
+// the attention is unchanged. wg_w is then (H, 4).
 #include "box_geometry.cuh"
 
 namespace sct {
@@ -240,7 +248,7 @@ box_attention_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                          const bf16* __restrict__ wg_b, const float* __restrict__ freq,
                          const unsigned char* __restrict__ mask, const unsigned char* __restrict__ keep,
                          float keep_prob, bf16* __restrict__ out, bf16* __restrict__ bias_out, int H, int R,
-                         float sqrt_dk) {
+                         float sqrt_dk, int dg) {
   extern __shared__ __align__(128) unsigned char smem[];
   uint64_t* full = reinterpret_cast<uint64_t*>(smem);  // per head: its tiles have landed
   uint64_t* empty = full + kMaxHeads;                  // per head: its query tiles are done
@@ -293,8 +301,11 @@ box_attention_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   };
   if (warp < kStages && warp < H) load_head(warp);
 
-  // geometry log-bias of every (head, pair): tiles of 16 pairs on the tensor cores
-  {
+  // geometry log-bias of every (head, pair): the raw geometry pair by pair
+  // (four FMAs a head), the trig features in tiles of 16 pairs on the tensor cores
+  if (dg == kRawG) {
+    raw_log_bias<bf16>(box_s, wg_w, wb_s, H, R, bias_s, bias_out == nullptr ? nullptr : bias_out + (size_t)b * H * P);
+  } else {
     uint32_t wfrag[kHeadTiles][4][2];
     load_wg_frags(wg_w, H, wfrag);
     const float fq[2] = {freq[2 * t], freq[2 * t + 1]};
@@ -360,7 +371,7 @@ box_attention_f32_kernel(const float* __restrict__ q, const float* __restrict__ 
                          const float* __restrict__ wg_b, const float* __restrict__ freq,
                          const unsigned char* __restrict__ mask, const unsigned char* __restrict__ keep,
                          float keep_prob, float* __restrict__ out, float* __restrict__ bias_out, int H, int R,
-                         float sqrt_dk) {
+                         float sqrt_dk, int dg) {
   extern __shared__ __align__(16) float smem_f[];
   const int warp = threadIdx.x / 32, lane = threadIdx.x & 31;
   constexpr int KLD = kKeyLd<DK>, DP = kPad<DK>;  // DP: the staged (padded) width
@@ -371,13 +382,13 @@ box_attention_f32_kernel(const float* __restrict__ q, const float* __restrict__ 
   constexpr int vld = KV ? KLD : DP;       // its row stride
   float* p_s = k_s + R * KLD + (KV ? 0 : R * DP);  // per warp 64 keys x 4 rows
   float* box_s = p_s + kF32Warps * 64 * kRowsPerWarp;
-  float* w_s = box_s + R * 4;              // H * 64
+  float* w_s = box_s + R * 4;              // H * dg (room for H * 64)
   float* wb_s = w_s + H * 64;              // H
   float* freq_s = wb_s + H;                // kFreqs
   unsigned char* mask_s = reinterpret_cast<unsigned char*>(freq_s + kFreqs);
   const int b = blockIdx.x;
   for (int e = threadIdx.x; e < R * 4; e += blockDim.x) box_s[e] = boxes[(size_t)b * R * 4 + e];
-  for (int e = threadIdx.x; e < H * 64; e += blockDim.x) w_s[e] = wg_w[e];
+  for (int e = threadIdx.x; e < H * dg; e += blockDim.x) w_s[e] = wg_w[e];
   for (int e = threadIdx.x; e < H; e += blockDim.x) wb_s[e] = wg_b[e];
   for (int e = threadIdx.x; e < kFreqs; e += blockDim.x) freq_s[e] = freq[e];
   for (int e = threadIdx.x; e < R; e += blockDim.x) mask_s[e] = mask[(size_t)b * R + e];
@@ -386,7 +397,11 @@ box_attention_f32_kernel(const float* __restrict__ q, const float* __restrict__ 
   for (int p = threadIdx.x; p < R * R; p += blockDim.x) {
     const int i = p / R, j = p - (p / R) * R;
     float wg[kMaxHeads];
-    pair_wg<float>(box_s + 4 * i, box_s + 4 * j, w_s, wb_s, freq_s, H, wg);
+    if (dg == kRawG) {
+      pair_wg_raw<float>(box_s + 4 * i, box_s + 4 * j, w_s, wb_s, H, wg);
+    } else {
+      pair_wg<float>(box_s + 4 * i, box_s + 4 * j, w_s, wb_s, freq_s, H, wg);
+    }
 #pragma unroll
     for (int hh = 0; hh < kMaxHeads; ++hh) {
       if (hh < H) {
@@ -497,8 +512,9 @@ box_attention_f32_kernel(const float* __restrict__ q, const float* __restrict__ 
 template <int DK, bool KV>
 int dispatch(int dtype, const void* q, const void* k, const void* v, const void* boxes, const void* wg_w,
              const void* wg_b, const void* freq, const void* mask, const void* keep, float keep_prob, void* out,
-             void* bias_out, int B, int H, int R, float sqrt_dk, void* stream) {
-  if (H < 1 || H > kMaxHeads || R < 1 || R > 64 || B < 1) return (int)cudaErrorInvalidValue;
+             void* bias_out, int B, int H, int R, float sqrt_dk, int dg, void* stream) {
+  if (H < 1 || H > kMaxHeads || R < 1 || R > 64 || B < 1 || (dg != kTrigG && dg != kRawG))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const unsigned char* mk = static_cast<const unsigned char*>(mask);
   const unsigned char* kp = static_cast<const unsigned char*>(keep);
@@ -512,7 +528,7 @@ int dispatch(int dtype, const void* q, const void* k, const void* v, const void*
         static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
         static_cast<const float*>(boxes), static_cast<const float*>(wg_w), static_cast<const float*>(wg_b),
         static_cast<const float*>(freq), mk, kp, keep_prob, static_cast<float*>(out), static_cast<float*>(bias_out),
-        H, R, sqrt_dk);
+        H, R, sqrt_dk, dg);
     return (int)cudaGetLastError();
   }
   if (dtype != 1) return (int)cudaErrorInvalidValue;
@@ -529,17 +545,18 @@ int dispatch(int dtype, const void* q, const void* k, const void* v, const void*
                                       static_cast<const bf16*>(v), static_cast<const float*>(boxes),
                                       static_cast<const bf16*>(wg_w), static_cast<const bf16*>(wg_b),
                                       static_cast<const float*>(freq), mk, kp, keep_prob, static_cast<bf16*>(out),
-                                      static_cast<bf16*>(bias_out), H, R, sqrt_dk);
+                                      static_cast<bf16*>(bias_out), H, R, sqrt_dk, dg);
   return (int)cudaGetLastError();
 }
 
 // the instance of head width dk (64, 32 or 13)
 template <bool KV>
-int dispatch_dk(int dtype, int dk, const void* q, const void* k, const void* v, const void* boxes, const void* wg_w,
-                const void* wg_b, const void* freq, const void* mask, const void* keep, float keep_prob, void* out,
-                void* bias_out, int B, int H, int R, float sqrt_dk, void* stream) {
-#define SCT_DK(DK) \
-  dispatch<DK, KV>(dtype, q, k, v, boxes, wg_w, wg_b, freq, mask, keep, keep_prob, out, bias_out, B, H, R, sqrt_dk, stream)
+int dispatch_dk(int dtype, int dk, int dg, const void* q, const void* k, const void* v, const void* boxes,
+                const void* wg_w, const void* wg_b, const void* freq, const void* mask, const void* keep,
+                float keep_prob, void* out, void* bias_out, int B, int H, int R, float sqrt_dk, void* stream) {
+#define SCT_DK(DK)                                                                                                 \
+  dispatch<DK, KV>(dtype, q, k, v, boxes, wg_w, wg_b, freq, mask, keep, keep_prob, out, bias_out, B, H, R, sqrt_dk, \
+                   dg, stream)
   if (dk == 64) return SCT_DK(64);
   if (dk == 32) return SCT_DK(32);
   if (dk == 13) return SCT_DK(13);
@@ -549,41 +566,43 @@ int dispatch_dk(int dtype, int dk, const void* q, const void* k, const void* v, 
 
 }  // namespace sct
 
-// dtype: 0 = float32, 1 = bfloat16; dk: the head width, 64, 32 or 13. q/k/v/out (B, H, R, dk); boxes (B, R, 4) f32;
-// wg_w (H, 64) and wg_b (H,) in the compute dtype; freq (8,) f32; mask (B, R) bool;
+// dtype: 0 = float32, 1 = bfloat16; dk: the head width, 64, 32 or 13; dg: the geometry's width, 64 (trig
+// features) or 4 (the raw log-deltas). q/k/v/out (B, H, R, dk); boxes (B, R, 4) f32;
+// wg_w (H, dg) and wg_b (H,) in the compute dtype; freq (8,) f32 (read at dg 64); mask (B, R) bool;
 // bias_out (B, H, R, R) in the compute dtype, or null: the log-bias added, for the check;
 // sqrt_dk: the scores' divisor, sqrt(dk) rounded to the compute dtype.
-extern "C" int sct_box_attention(int dtype, int dk, const void* q, const void* k, const void* v, const void* boxes,
-                                 const void* wg_w, const void* wg_b, const void* freq, const void* mask,
-                                 void* out, void* bias_out, int B, int H, int R, float sqrt_dk, void* stream) {
-  return sct::dispatch_dk<false>(dtype, dk, q, k, v, boxes, wg_w, wg_b, freq, mask, nullptr, 1.f, out, bias_out, B,
-                                 H, R, sqrt_dk, stream);
+extern "C" int sct_box_attention(int dtype, int dk, int dg, const void* q, const void* k, const void* v,
+                                 const void* boxes, const void* wg_w, const void* wg_b, const void* freq,
+                                 const void* mask, void* out, void* bias_out, int B, int H, int R, float sqrt_dk,
+                                 void* stream) {
+  return sct::dispatch_dk<false>(dtype, dk, dg, q, k, v, boxes, wg_w, wg_b, freq, mask, nullptr, 1.f, out, bias_out,
+                                 B, H, R, sqrt_dk, stream);
 }
 
 // Train variant: as above, plus keep (B, H, R, R) bool or null (no dropout)
 // with keep_prob (the divisor, already rounded to the compute dtype).
-extern "C" int sct_box_attention_train(int dtype, int dk, const void* q, const void* k, const void* v,
+extern "C" int sct_box_attention_train(int dtype, int dk, int dg, const void* q, const void* k, const void* v,
                                        const void* boxes, const void* wg_w, const void* wg_b, const void* freq,
                                        const void* mask, const void* keep, float keep_prob, void* out, int B, int H,
                                        int R, float sqrt_dk, void* stream) {
-  return sct::dispatch_dk<false>(dtype, dk, q, k, v, boxes, wg_w, wg_b, freq, mask, keep, keep_prob, out, nullptr, B,
-                                 H, R, sqrt_dk, stream);
+  return sct::dispatch_dk<false>(dtype, dk, dg, q, k, v, boxes, wg_w, wg_b, freq, mask, keep, keep_prob, out, nullptr,
+                                 B, H, R, sqrt_dk, stream);
 }
 
 // kv modes of both: k (B, H, R, dk) is also V.
-extern "C" int sct_box_attention_kv(int dtype, int dk, const void* q, const void* k, const void* boxes,
+extern "C" int sct_box_attention_kv(int dtype, int dk, int dg, const void* q, const void* k, const void* boxes,
                                     const void* wg_w, const void* wg_b, const void* freq, const void* mask, void* out,
                                     void* bias_out, int B, int H, int R, float sqrt_dk, void* stream) {
-  return sct::dispatch_dk<true>(dtype, dk, q, k, k, boxes, wg_w, wg_b, freq, mask, nullptr, 1.f, out, bias_out, B, H,
-                                R, sqrt_dk, stream);
+  return sct::dispatch_dk<true>(dtype, dk, dg, q, k, k, boxes, wg_w, wg_b, freq, mask, nullptr, 1.f, out, bias_out, B,
+                                H, R, sqrt_dk, stream);
 }
 
-extern "C" int sct_box_attention_train_kv(int dtype, int dk, const void* q, const void* k, const void* boxes,
+extern "C" int sct_box_attention_train_kv(int dtype, int dk, int dg, const void* q, const void* k, const void* boxes,
                                           const void* wg_w, const void* wg_b, const void* freq, const void* mask,
                                           const void* keep, float keep_prob, void* out, int B, int H, int R,
                                           float sqrt_dk, void* stream) {
-  return sct::dispatch_dk<true>(dtype, dk, q, k, k, boxes, wg_w, wg_b, freq, mask, keep, keep_prob, out, nullptr, B,
-                                H, R, sqrt_dk, stream);
+  return sct::dispatch_dk<true>(dtype, dk, dg, q, k, k, boxes, wg_w, wg_b, freq, mask, keep, keep_prob, out, nullptr,
+                                B, H, R, sqrt_dk, stream);
 }
 
 extern "C" const char* sct_error_string(int err) { return cudaGetErrorString(static_cast<cudaError_t>(err)); }

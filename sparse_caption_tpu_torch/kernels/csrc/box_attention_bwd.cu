@@ -74,6 +74,17 @@
 // zero (common.cuh kPad), by the loading warp's element copies and its own
 // arrival (26-byte rows take no TMA); only the 13 real columns of dq, dk, dv
 // (dkv) written.
+// Raw geometry (dg = 4, a run-time argument of every instance): phase A
+// computes w_g pair by pair (box_geometry.cuh pair_wg_raw) over the image's
+// blocks; d wg_w[h, c] = round(sum dz[h] geo_c) and d wg_b[h] = round(sum
+// dz[h]) over the pairs, geo_c the log-delta rounded to T: in bf16 each
+// block's threads take (head, column, run of the block's pairs), reading dz
+// from its group's block (DSMEM), and fold the runs in order; in f32 lanes
+// 0-3 take the four log-deltas in the trig fold's place. The bf16 raw
+// phases are functions of their own (raw_wg_to_groups, raw_wg_partials), so
+// that the trig path's code stays as it was. The partial rows
+// keep their 65 columns (4 used, then the bias at 64); the second pass sums
+// them in the same fixed order.
 #include <cooperative_groups.h>
 
 #include "box_geometry.cuh"
@@ -318,6 +329,59 @@ __device__ __forceinline__ void key_tile_bf16(const bf16* qs, const bf16* dos, c
   store_rows_bf16<DK>(vacc, dv_h, 16 * mk, R);
 }
 
+// The raw geometry's phase A (module notes): w_g of every head for this
+// block's share of the pairs, each value into the block of its head's group.
+__device__ __noinline__ void raw_wg_to_groups(const float* box_s, const bf16* wg_w, const float* wb_s, int H, int R,
+                                              bf16* wz_s) {
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank(), groups = (int)cluster.num_blocks(), P = R * R;
+  for (int p = rank * kBwdThreads + threadIdx.x; p < P; p += groups * kBwdThreads) {
+    const int i = p / R, j = p - (p / R) * R;
+    float wgr[kMaxHeads];
+    pair_wg_raw<bf16>(box_s + 4 * i, box_s + 4 * j, wg_w, wb_s, H, wgr);
+#pragma unroll
+    for (int hh = 0; hh < kMaxHeads; ++hh) {
+      if (hh < H) {
+        bf16* dst = cluster.map_shared_rank(wz_s, hh / kGroupHeads);
+        dst[(hh % kGroupHeads) * P + p] = __float2bfloat16_rn(wgr[hh]);
+      }
+    }
+  }
+}
+
+// The raw geometry's d wg partials: combo (head hh, column c) sums dz of head
+// hh times log-delta c (rounded to bf16; the bias's column: 1) over this
+// block's pairs (rank, rank + groups, ...), each of `parts` threads a
+// contiguous run of them in order, then the runs folded in order (fold:
+// kBwdThreads floats of shared memory).
+__device__ __noinline__ void raw_wg_partials(const float* box_s, const bf16* wz_s, float* fold, float* wg_partial,
+                                             int H, int R) {
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank(), groups = (int)cluster.num_blocks(), P = R * R, b = blockIdx.x;
+  const int combos = H * (kRawG + 1), parts = kBwdThreads / combos;
+  const int e = threadIdx.x, combo = e % combos, part = e / combos;
+  const int hh = combo / (kRawG + 1), c = combo - hh * (kRawG + 1);
+  const int nq = (P - rank + groups - 1) / groups, len = (nq + parts - 1) / parts;
+  if (part < parts) {
+    const bf16* dz = cluster.map_shared_rank(wz_s, hh / kGroupHeads) + (hh % kGroupHeads) * P;
+    float acc = 0.f;
+    const int q1 = min((part + 1) * len, nq);
+#pragma unroll 4
+    for (int qq = part * len; qq < q1; ++qq) {
+      const int p = rank + groups * qq, i = p / R, j = p - (p / R) * R;
+      const float f = c < kRawG ? round_to<bf16>(pair_delta(box_s + 4 * i, box_s + 4 * j, c)) : 1.f;
+      acc = fmaf(__bfloat162float(dz[p]), f, acc);
+    }
+    fold[part * combos + combo] = acc;
+  }
+  __syncthreads();
+  if (e < combos) {
+    float sum = 0.f;
+    for (int k = 0; k < parts; ++k) sum += fold[k * combos + e];
+    wg_partial[(((size_t)b * groups + rank) * H + hh) * kWgCols + (c < kRawG ? c : 64)] = sum;
+  }
+}
+
 template <int DK, int RP, bool KV>
 __global__ void __launch_bounds__(kBwdThreads)
 box_attention_bwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
@@ -326,7 +390,7 @@ box_attention_bwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict_
                              const float* __restrict__ freq, const unsigned char* __restrict__ mask,
                              const unsigned char* __restrict__ keep, float keep_prob, bf16* __restrict__ dq,
                              bf16* __restrict__ dk, bf16* __restrict__ dv, float* __restrict__ wg_partial, int H,
-                             int R, float sqrt_dk) {
+                             int R, float sqrt_dk, int dg) {
   constexpr int LDT = RP + 8, MT = RP / 16;
   extern __shared__ __align__(128) unsigned char smem[];
   uint64_t* full = reinterpret_cast<uint64_t*>(smem);  // per group head: its tiles have landed
@@ -391,9 +455,12 @@ box_attention_bwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict_
   if (warp == 0) load_head(0);
   if (warp == 1 && G > 1) load_head(1);
 
-  // phase A: clamped w_g of every head, the pair tiles shared out over the
-  // image's blocks; each value goes to the block of its head's group
-  {
+  // phase A: clamped w_g of every head, the pairs (raw geometry) or pair
+  // tiles (trig features) shared out over the image's blocks; each value goes
+  // to the block of its head's group
+  if (dg == kRawG) {
+    raw_wg_to_groups(box_s, wg_w, wb_s, H, R, wz_s);
+  } else {
     uint32_t wfrag[kHeadTiles][4][2];
     load_wg_frags(wg_w, H, wfrag);
     const float fq[2] = {freq[2 * t], freq[2 * t + 1]};
@@ -443,6 +510,12 @@ box_attention_bwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict_
     }
   }
   cluster.sync();  // every group's dz is final
+
+  if (dg == kRawG) {
+    raw_wg_partials(box_s, wz_s, reinterpret_cast<float*>(ds_s), wg_partial, H, R);  // ds_s is free since phase B
+    cluster.sync();  // no block leaves while another still reads its dz
+    return;
+  }
 
   // phase C: d wg partials = dz (heads x pairs) . [geo | 1] (pairs x 65), k-steps
   // of 16 pairs shared out over the image's blocks, every head's dz read from
@@ -547,7 +620,7 @@ box_attention_bwd_f32_kernel(const float* __restrict__ q, const float* __restric
                              const float* __restrict__ freq, const unsigned char* __restrict__ mask,
                              const unsigned char* __restrict__ keep, float keep_prob, float* __restrict__ dq,
                              float* __restrict__ dk, float* __restrict__ dv, float* __restrict__ wg_partial, int H,
-                             int R, float sqrt_dk) {
+                             int R, float sqrt_dk, int dg) {
   extern __shared__ __align__(16) float smem_f[];
   constexpr int RLD = kRowLd<DK>;
   const int warp = threadIdx.x / 32, lane = threadIdx.x & 31;
@@ -560,12 +633,12 @@ box_attention_bwd_f32_kernel(const float* __restrict__ q, const float* __restric
   float* ds_s = do_s + R * RLD;  // R * R: dS / sqrt_dk, masked keys zeroed
   float* pd_s = ds_s + R * R;       // R * R: P~
   float* box_s = pd_s + R * R;
-  float* w_s = box_s + R * 4;       // H * 64
+  float* w_s = box_s + R * 4;       // H * dg (room for 16 * 64)
   float* wb_s = w_s + kMaxHeads * 64;
   float* freq_s = wb_s + kMaxHeads;
   unsigned char* mask_s = reinterpret_cast<unsigned char*>(freq_s + kFreqs);
   for (int e = threadIdx.x; e < R * 4; e += blockDim.x) box_s[e] = boxes[(size_t)b * R * 4 + e];
-  for (int e = threadIdx.x; e < H * 64; e += blockDim.x) w_s[e] = wg_w[e];
+  for (int e = threadIdx.x; e < H * dg; e += blockDim.x) w_s[e] = wg_w[e];
   for (int e = threadIdx.x; e < H; e += blockDim.x) wb_s[e] = wg_b[e];
   for (int e = threadIdx.x; e < kFreqs; e += blockDim.x) freq_s[e] = freq[e];
   for (int e = threadIdx.x; e < R; e += blockDim.x) mask_s[e] = mask[(size_t)b * R + e];
@@ -574,7 +647,11 @@ box_attention_bwd_f32_kernel(const float* __restrict__ q, const float* __restric
   for (int p = threadIdx.x; p < R * R; p += blockDim.x) {
     const int i = p / R, j = p - (p / R) * R;
     float wg[kMaxHeads];
-    pair_wg<float>(box_s + 4 * i, box_s + 4 * j, w_s, wb_s, freq_s, H, wg);
+    if (dg == kRawG) {
+      pair_wg_raw<float>(box_s + 4 * i, box_s + 4 * j, w_s, wb_s, H, wg);
+    } else {
+      pair_wg<float>(box_s + 4 * i, box_s + 4 * j, w_s, wb_s, freq_s, H, wg);
+    }
 #pragma unroll
     for (int hh = 0; hh < kMaxHeads; ++hh) {
       if (hh >= h0 && hh < h0 + G) wz_s[(hh - h0) * R * R + p] = wg[hh];
@@ -716,22 +793,38 @@ box_attention_bwd_f32_kernel(const float* __restrict__ q, const float* __restric
   }
   __syncthreads();
 
-  // d wg partials. Lane = (coordinate c, frequency f); warp = pair slice.
+  // d wg partials. Lane = (coordinate c, frequency f); warp = pair slice. The
+  // raw geometry: lane c < 4 takes log-delta c (column c), the other lanes 0.
   const int c = lane / kFreqs, f = lane % kFreqs;
   float acc_s[kGroupHeads], acc_c[kGroupHeads], acc_b[kGroupHeads];
 #pragma unroll
   for (int hl = 0; hl < kGroupHeads; ++hl) acc_s[hl] = acc_c[hl] = acc_b[hl] = 0.f;
-  for (int p = warp; p < R * R; p += kF32Warps) {
-    const int i = p / R, j = p - (p / R) * R;
-    float sn, cs;
-    trig_feature<float>(pair_delta(box_s + 4 * i, box_s + 4 * j, c), freq_s[f], sn, cs);
+  if (dg == kRawG) {
+    for (int p = warp; p < R * R; p += kF32Warps) {
+      const int i = p / R, j = p - (p / R) * R;
+      const float sn = lane < kRawG ? pair_delta(box_s + 4 * i, box_s + 4 * j, lane) : 0.f;
 #pragma unroll
-    for (int hl = 0; hl < kGroupHeads; ++hl) {
-      if (hl < G) {
-        const float dz = wz_s[hl * R * R + p];
-        acc_s[hl] = fmaf(dz, sn, acc_s[hl]);
-        acc_c[hl] = fmaf(dz, cs, acc_c[hl]);
-        acc_b[hl] += dz;
+      for (int hl = 0; hl < kGroupHeads; ++hl) {
+        if (hl < G) {
+          const float dz = wz_s[hl * R * R + p];
+          acc_s[hl] = fmaf(dz, sn, acc_s[hl]);
+          acc_b[hl] += dz;
+        }
+      }
+    }
+  } else {
+    for (int p = warp; p < R * R; p += kF32Warps) {
+      const int i = p / R, j = p - (p / R) * R;
+      float sn, cs;
+      trig_feature<float>(pair_delta(box_s + 4 * i, box_s + 4 * j, c), freq_s[f], sn, cs);
+#pragma unroll
+      for (int hl = 0; hl < kGroupHeads; ++hl) {
+        if (hl < G) {
+          const float dz = wz_s[hl * R * R + p];
+          acc_s[hl] = fmaf(dz, sn, acc_s[hl]);
+          acc_c[hl] = fmaf(dz, cs, acc_c[hl]);
+          acc_b[hl] += dz;
+        }
       }
     }
   }
@@ -756,22 +849,24 @@ box_attention_bwd_f32_kernel(const float* __restrict__ q, const float* __restric
   }
 }
 
-// d wg_w (H, 64) and d wg_b (H,): sums of the partials (B, Y, H, 65), in order
+// d wg_w (H, dg) and d wg_b (H,): sums of the partials (B, Y, H, 65), in
+// order; at dg 4 a partial row's columns 4..63 are not read
 template <typename T>
-__global__ void wg_reduce_kernel(const float* __restrict__ partial, int B, int Y, int H, T* __restrict__ dwg_w,
-                                 T* __restrict__ dwg_b) {
+__global__ void wg_reduce_kernel(const float* __restrict__ partial, int B, int Y, int H, int dg,
+                                 T* __restrict__ dwg_w, T* __restrict__ dwg_b) {
   const int e = blockIdx.x * blockDim.x + threadIdx.x;
   if (e >= H * kWgCols) return;
+  const int hh = e / kWgCols, g = e - hh * kWgCols;
+  if (g >= dg && g < 64) return;
   float acc = 0.f;
   for (int by = 0; by < B * Y; ++by) acc += partial[(size_t)by * H * kWgCols + e];
-  const int hh = e / kWgCols, g = e - hh * kWgCols;
-  if (g < 64) dwg_w[hh * 64 + g] = from_f<T>(acc);
+  if (g < 64) dwg_w[hh * dg + g] = from_f<T>(acc);
   else dwg_b[hh] = from_f<T>(acc);
 }
 
 template <typename T>
-cudaError_t launch_reduce(void* partial, int B, int Y, int H, void* dwg_w, void* dwg_b, cudaStream_t stream) {
-  wg_reduce_kernel<T><<<(H * kWgCols + 255) / 256, 256, 0, stream>>>(static_cast<const float*>(partial), B, Y, H,
+cudaError_t launch_reduce(void* partial, int B, int Y, int H, int dg, void* dwg_w, void* dwg_b, cudaStream_t stream) {
+  wg_reduce_kernel<T><<<(H * kWgCols + 255) / 256, 256, 0, stream>>>(static_cast<const float*>(partial), B, Y, H, dg,
                                                                      static_cast<T*>(dwg_w), static_cast<T*>(dwg_b));
   return cudaGetLastError();
 }
@@ -780,8 +875,9 @@ template <int DK, bool KV>
 int bwd_entry(int dtype, const void* q, const void* k, const void* v, const void* dout, const void* boxes,
               const void* wg_w, const void* wg_b, const void* freq, const void* mask, const void* keep,
               float keep_prob, void* dq, void* dk, void* dv, void* dwg_w, void* dwg_b, void* partial, int B, int H,
-              int R, float sqrt_dk, void* stream) {
-  if (H < 1 || H > kMaxHeads || R < 1 || R > 64 || B < 1) return (int)cudaErrorInvalidValue;
+              int R, float sqrt_dk, int dg, void* stream) {
+  if (H < 1 || H > kMaxHeads || R < 1 || R > 64 || B < 1 || (dg != kTrigG && dg != kRawG))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const dim3 grid(B, (H + kGroupHeads - 1) / kGroupHeads);
   const unsigned char* mk = static_cast<const unsigned char*>(mask);
@@ -797,10 +893,10 @@ int bwd_entry(int dtype, const void* q, const void* k, const void* v, const void
         static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
         static_cast<const float*>(dout), static_cast<const float*>(boxes), static_cast<const float*>(wg_w),
         static_cast<const float*>(wg_b), static_cast<const float*>(freq), mk, kp, keep_prob, static_cast<float*>(dq),
-        static_cast<float*>(dk), static_cast<float*>(dv), part, H, R, sqrt_dk);
+        static_cast<float*>(dk), static_cast<float*>(dv), part, H, R, sqrt_dk, dg);
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
-    return (int)launch_reduce<float>(partial, B, 1, H, dwg_w, dwg_b, s);
+    return (int)launch_reduce<float>(partial, B, 1, H, dg, dwg_w, dwg_b, s);
   }
   if (dtype != 1) return (int)cudaErrorInvalidValue;
   const size_t smem = bwd_mma_smem_bytes(DK, R, KV);
@@ -829,20 +925,20 @@ int bwd_entry(int dtype, const void* q, const void* k, const void* v, const void
                            static_cast<const float*>(boxes), static_cast<const bf16*>(wg_w),
                            static_cast<const bf16*>(wg_b), static_cast<const float*>(freq), mk, kp, keep_prob,
                            static_cast<bf16*>(dq), static_cast<bf16*>(dk), static_cast<bf16*>(dv), part, H, R,
-                           sqrt_dk);
+                           sqrt_dk, dg);
   if (err != cudaSuccess) return (int)err;
-  return (int)launch_reduce<bf16>(partial, B, grid.y, H, dwg_w, dwg_b, s);
+  return (int)launch_reduce<bf16>(partial, B, grid.y, H, dg, dwg_w, dwg_b, s);
 }
 
 // the instance of head width dk (64, 32 or 13)
 template <bool KV>
-int bwd_entry_dk(int dtype, int dk_width, const void* q, const void* k, const void* v, const void* dout,
+int bwd_entry_dk(int dtype, int dk_width, int dg, const void* q, const void* k, const void* v, const void* dout,
                  const void* boxes, const void* wg_w, const void* wg_b, const void* freq, const void* mask,
                  const void* keep, float keep_prob, void* dq, void* dk, void* dv, void* dwg_w, void* dwg_b,
                  void* partial, int B, int H, int R, float sqrt_dk, void* stream) {
 #define SCT_DK(DK)                                                                                                   \
   bwd_entry<DK, KV>(dtype, q, k, v, dout, boxes, wg_w, wg_b, freq, mask, keep, keep_prob, dq, dk, dv, dwg_w, dwg_b, \
-                    partial, B, H, R, sqrt_dk, stream)
+                    partial, B, H, R, sqrt_dk, dg, stream)
   if (dk_width == 64) return SCT_DK(64);
   if (dk_width == 32) return SCT_DK(32);
   if (dk_width == 13) return SCT_DK(13);
@@ -852,28 +948,28 @@ int bwd_entry_dk(int dtype, int dk_width, const void* q, const void* k, const vo
 
 }  // namespace sct
 
-// dtype: 0 = float32, 1 = bfloat16; dk_width: the head width, 64, 32 or 13. q, k, v, dout, dq, dk, dv (B, H, R, dk);
-// boxes (B, R, 4) f32; wg_w (H, 64), wg_b (H,), dwg_w, dwg_b in the compute
-// dtype; freq (8,) f32; mask (B, R) bool; keep (B, H, R, R) bool or null with
-// keep_prob (the divisor, rounded to the compute dtype); partial (B, H, 65) f32 scratch;
+// dtype: 0 = float32, 1 = bfloat16; dk_width: the head width, 64, 32 or 13; dg: the geometry's width, 64 or 4.
+// q, k, v, dout, dq, dk, dv (B, H, R, dk); boxes (B, R, 4) f32; wg_w (H, dg), wg_b (H,), dwg_w, dwg_b in the
+// compute dtype; freq (8,) f32 (read at dg 64); mask (B, R) bool; keep (B, H, R, R) bool or null with
+// keep_prob (the divisor, rounded to the compute dtype); partial (B, ceil(H / 4), H, 65) f32 scratch;
 // sqrt_dk as sct_box_attention took it.
-extern "C" int sct_box_attention_bwd(int dtype, int dk_width, const void* q, const void* k, const void* v,
+extern "C" int sct_box_attention_bwd(int dtype, int dk_width, int dg, const void* q, const void* k, const void* v,
                                      const void* dout, const void* boxes, const void* wg_w, const void* wg_b,
                                      const void* freq, const void* mask, const void* keep, float keep_prob, void* dq,
                                      void* dk, void* dv, void* dwg_w, void* dwg_b, void* partial, int B, int H, int R,
                                      float sqrt_dk, void* stream) {
-  return sct::bwd_entry_dk<false>(dtype, dk_width, q, k, v, dout, boxes, wg_w, wg_b, freq, mask, keep, keep_prob, dq,
-                                  dk, dv, dwg_w, dwg_b, partial, B, H, R, sqrt_dk, stream);
+  return sct::bwd_entry_dk<false>(dtype, dk_width, dg, q, k, v, dout, boxes, wg_w, wg_b, freq, mask, keep, keep_prob,
+                                  dq, dk, dv, dwg_w, dwg_b, partial, B, H, R, sqrt_dk, stream);
 }
 
 // kv mode: k is also V; dkv (B, H, R, dk) receives its one gradient.
-extern "C" int sct_box_attention_bwd_kv(int dtype, int dk_width, const void* q, const void* k, const void* dout,
-                                        const void* boxes, const void* wg_w, const void* wg_b, const void* freq,
-                                        const void* mask, const void* keep, float keep_prob, void* dq, void* dkv,
-                                        void* dwg_w, void* dwg_b, void* partial, int B, int H, int R, float sqrt_dk,
-                                        void* stream) {
-  return sct::bwd_entry_dk<true>(dtype, dk_width, q, k, k, dout, boxes, wg_w, wg_b, freq, mask, keep, keep_prob, dq,
-                                 dkv, nullptr, dwg_w, dwg_b, partial, B, H, R, sqrt_dk, stream);
+extern "C" int sct_box_attention_bwd_kv(int dtype, int dk_width, int dg, const void* q, const void* k,
+                                        const void* dout, const void* boxes, const void* wg_w, const void* wg_b,
+                                        const void* freq, const void* mask, const void* keep, float keep_prob,
+                                        void* dq, void* dkv, void* dwg_w, void* dwg_b, void* partial, int B, int H,
+                                        int R, float sqrt_dk, void* stream) {
+  return sct::bwd_entry_dk<true>(dtype, dk_width, dg, q, k, k, dout, boxes, wg_w, wg_b, freq, mask, keep, keep_prob,
+                                 dq, dkv, nullptr, dwg_w, dwg_b, partial, B, H, R, sqrt_dk, stream);
 }
 
 extern "C" const char* sct_error_string(int err) { return cudaGetErrorString(static_cast<cudaError_t>(err)); }

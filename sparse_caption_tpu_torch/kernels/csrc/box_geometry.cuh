@@ -5,6 +5,10 @@
 // sin/cos(100 * delta_c * freq_f) (c = 0..3, f = 0..7; sin at c * 8 + f, cos
 // at 32 + c * 8 + f), in f32 with full sincosf (the arguments reach 691 rad),
 // each feature rounded to the compute dtype T before the wg projection.
+// The raw geometry (dim_g 4, --no_box_trigonometric_embedding,
+// layers.py:358-360): the four log-deltas themselves, rounded to T, are the
+// features; the projection is four FMAs a head in coordinate order. dim_g is
+// a run-time argument of the kernels (64 or kRawG), not a template axis.
 #pragma once
 
 #include "common.cuh"
@@ -14,6 +18,8 @@ namespace sct {
 
 constexpr int kMaxHeads = 16;
 constexpr int kFreqs = 8;  // dim_g 64 = 4 coords x 8 freqs x (sin, cos)
+constexpr int kTrigG = 64;
+constexpr int kRawG = 4;  // dim_g of the raw geometry: the four log-deltas
 
 // Log-delta c of the pair (i, j) (layers.py:338-365): c = 0, 1 the clamped
 // log |center offset| over box i's width / height, c = 2, 3 the log of the
@@ -42,6 +48,54 @@ __device__ __forceinline__ void trig_feature(float delta_c, float freq_f, float&
   cs = r.y;
   sn = round_to<T>(sn);
   cs = round_to<T>(cs);
+}
+
+// The raw geometry's clamped w_g of every head for pair (i, j): the log-deltas
+// rounded to T, then max(relu(round(round(geo . wg_h) + wg_b_h)), round(1e-6))
+// with the product summed in coordinate order (F.linear's rounding: the
+// product, then the bias add). w: H x 4 (Linear layout) in f32 or T, wb_s: H.
+template <typename T, typename W>
+__device__ __forceinline__ void pair_wg_raw(const float* bi, const float* bj, const W* w, const float* wb_s, int H,
+                                            float out[kMaxHeads]) {
+  float pos[kRawG];
+#pragma unroll
+  for (int c = 0; c < kRawG; ++c) pos[c] = round_to<T>(pair_delta(bi, bj, c));
+  const float min_wg = round_to<T>(1e-6f);
+#pragma unroll
+  for (int hh = 0; hh < kMaxHeads; ++hh) {
+    if (hh < H) {
+      float acc = 0.f;
+#pragma unroll
+      for (int c = 0; c < kRawG; ++c) acc = fmaf(pos[c], to_f(w[hh * kRawG + c]), acc);
+      const float wg = round_to<T>(round_to<T>(acc) + wb_s[hh]);
+      out[hh] = fmaxf(fmaxf(wg, 0.f), min_wg);  // relu, then the 1e-6 clamp
+    }
+  }
+}
+
+// The raw geometry's log-bias log(w_g) of one image's every (head, pair),
+// pair by pair over the block's threads, into bias_s (H x R x R) and, when
+// not null, bias_out (the image's H x R x R). A function of its own (not
+// inlined) for the bf16 kernels, whose trig path then keeps the code it had
+// before the raw geometry came; the f32 kernels branch pair by pair (a call
+// there costs them registers, and a loop of each kind more time).
+template <typename T, typename W>
+__device__ __noinline__ void raw_log_bias(const float* box_s, const W* w, const float* wb_s, int H, int R, T* bias_s,
+                                          T* bias_out) {
+  const int P = R * R;
+  for (int p = threadIdx.x; p < P; p += blockDim.x) {
+    const int i = p / R, j = p - (p / R) * R;
+    float wg[kMaxHeads];
+    pair_wg_raw<T>(box_s + 4 * i, box_s + 4 * j, w, wb_s, H, wg);
+#pragma unroll
+    for (int hh = 0; hh < kMaxHeads; ++hh) {
+      if (hh < H) {
+        const T lb = from_f<T>(logf(wg[hh]));
+        bias_s[hh * P + p] = lb;
+        if (bias_out != nullptr) bias_out[hh * P + p] = lb;
+      }
+    }
+  }
 }
 
 // Clamped geometry weight w_g = max(relu(round(round(geo . wg_h) + wg_b_h)), 1e-6)

@@ -1,18 +1,23 @@
 """K9: one sampling-decode step (``csrc/sample_step.cu``).
 
 ``sample_step`` turns one step's logits into the next tokens: log_softmax,
-the previous-token ban, temperature, a Gumbel-max sample keyed by
-(key, site, t, row, column) (or the greedy argmax), the chosen log-prob from
-the un-tempered log-probs, and the ``unfinished`` latch. It writes column t
-of ``seq`` / ``seq_lp`` and updates ``unfinished`` IN PLACE (the JAX package
-carries them through its loop). CUDA tensors launch the kernel; CPU tensors
-run ``sample_step_plain``, which alone accepts explicit Gumbel noise (the CPU
-tests feed the JAX package's draws through it). Nothing else falls back.
+the previous-token ban, then the ``sample_method`` (``random``: temperature
+and a Gumbel-max sample; ``top<k>`` / ``top<p>``: temperature, the top-k or
+nucleus filter, a Gumbel-max sample over the filtered values; ``gumbel``:
+the Gumbel method on the un-tempered log-probs), all keyed by (key, site,
+t, row, column) (or the greedy argmax), the chosen log-prob (un-tempered
+for ``random`` and ``gumbel``, the filtered value for ``top*``), and the
+``unfinished`` latch. It writes column t of ``seq`` / ``seq_lp`` and updates
+``unfinished`` IN PLACE (the JAX package carries them through its loop).
+CUDA tensors launch the kernel; CPU tensors run ``sample_step_plain``
+(``decoding/sample.py``'s ``modified_sample_logits`` / ``sample_next_word``),
+which alone accepts explicit noise (the CPU tests feed the JAX package's
+draws through it). Nothing else falls back.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -20,19 +25,45 @@ from sparse_caption_tpu_torch.kernels import _build
 from sparse_caption_tpu_torch.kernels._checks import check_float, check_same_device, check_tensor
 from sparse_caption_tpu_torch.kernels.keyed_dropout import M32, keyed_bits
 
-KERNEL = _build.CudaKernel("sample_step", "sct_sample_step", [
+ARGS = [
     _build.I, _build.P, _build.I, _build.I, _build.P, _build.P, _build.P, _build.P, _build.P, _build.I, _build.I,
-    _build.U32, _build.U32, _build.U32, _build.I, _build.F32, _build.I, _build.I, _build.I, _build.P,
-])
+    _build.U32, _build.U32, _build.U32, _build.I, _build.F32, _build.I, _build.I, _build.I, _build.I, _build.I,
+    _build.F32, _build.P,
+]
+KERNEL = _build.CudaKernel("sample_step", "sct_sample_step", ARGS)  # random and greedy
+# the sample methods' modes: the same entry point, each counted apart
+KERNEL_GUMBEL = _build.CudaKernel("sample_step", "sct_sample_step", ARGS)
+KERNEL_TOPK = _build.CudaKernel("sample_step", "sct_sample_step", ARGS)
+KERNEL_NUCLEUS = _build.CudaKernel("sample_step", "sct_sample_step", ARGS)
 BAN_PREV = -1e30  # decoding/sample.py: nan_to_num(one_hot * -inf, neginf=-1e30)
+MODES = {"random": 0, "gumbel": 1, "topk": 2, "nucleus": 3}  # csrc/sample_step.cu SampleMode
+NUCLEUS_MAX_VOCAB = 16384  # the nucleus mode sorts a row of pow2ceil(V) keys in shared memory
+
+
+def parse_sample_method(method: str) -> Tuple[str, float]:
+    """(mode, top) of a ``sample_method``: ``random``, ``gumbel``, ``greedy``,
+    ``top<k>`` (k >= 1, the top-k filter) or ``top<p>`` (0 < p < 1, nucleus)."""
+    if method in ("random", "gumbel", "greedy"):
+        return method, 0.0
+    if method.startswith("top"):
+        top = float(method[3:])
+        if 0 < top < 1:
+            return "nucleus", top
+        if top >= 1:
+            return "topk", float(int(top))
+    raise ValueError(f"unknown sample_method `{method}`")
+
+
+def keyed_uniform(key: int, site: int, t: int, n: int, vocab: int, device) -> torch.Tensor:
+    """(n, vocab) f32 ``u = ((bits >> 9) * 2 + 1) * 2**-24`` in (0, 1) from the
+    keyed Philox bits at (site, t, row, column)."""
+    bits = keyed_bits(key, site, torch.full((1,), t, device=device), torch.arange(n, device=device), vocab)
+    return ((bits >> 9) * 2 + 1).to(torch.float32) * 2.0 ** -24
 
 
 def gumbel_noise(key: int, site: int, t: int, n: int, vocab: int, device) -> torch.Tensor:
-    """(n, vocab) f32 ``-log(-log(u))``, ``u = ((bits >> 9) * 2 + 1) * 2**-24``
-    from the keyed Philox bits at (site, t, row, column)."""
-    bits = keyed_bits(key, site, torch.full((1,), t, device=device), torch.arange(n, device=device), vocab)
-    u = ((bits >> 9) * 2 + 1).to(torch.float32) * 2.0 ** -24
-    return -torch.log(-torch.log(u))
+    """(n, vocab) f32 ``-log(-log(u))`` of ``keyed_uniform``."""
+    return -torch.log(-torch.log(keyed_uniform(key, site, t, n, vocab, device)))
 
 
 def sample_logprobs(logits, prev, ban_prev: bool):
@@ -46,29 +77,38 @@ def sample_logprobs(logits, prev, ban_prev: bool):
 
 def sample_step_plain(logits, prev, unfinished, seq, seq_lp, t: int, key: int = 0, site: int = 0,
                       greedy: bool = False, temperature: float = 1.0, ban_prev: bool = False, eos_id: int = 3,
-                      pad_id: int = 0, noise: Optional[torch.Tensor] = None):
+                      pad_id: int = 0, noise: Optional[torch.Tensor] = None, sample_method: str = "random"):
+    from sparse_caption_tpu_torch.decoding.sample import divide_by_temperature, sample_next_word
+
     c = sample_logprobs(logits, prev, ban_prev)
-    if greedy:
-        z = c
+    if greedy or sample_method == "greedy":
+        w, chosen = sample_next_word(c, "greedy", temperature, None)
     else:
         if noise is None:
-            noise = gumbel_noise(key, site, t, c.shape[0], c.shape[1], c.device)
-        z = c / temperature + noise
-    w = torch.argmax(z, dim=-1)  # first maximal index
+            draw = keyed_uniform if sample_method == "gumbel" else gumbel_noise
+            noise = draw(key, site, t, c.shape[0], c.shape[1], c.device)
+        if sample_method == "random":  # the decode loop's own branch: the chosen log-prob un-tempered
+            w = torch.argmax(divide_by_temperature(c, temperature) + noise, dim=-1)  # first maximal index
+            chosen = c.gather(1, w[:, None])[:, 0]
+        else:
+            w, chosen = sample_next_word(c, sample_method, temperature, noise)
     tok = torch.where(unfinished, w, torch.full_like(w, pad_id)).to(torch.int32)
     seq[:, t] = tok
-    seq_lp[:, t] = c.gather(1, w[:, None])[:, 0]
+    seq_lp[:, t] = chosen
     unfinished &= w != eos_id
     return tok
 
 
 def sample_step(logits, prev, unfinished, seq, seq_lp, t: int, key: int = 0, site: int = 0, greedy: bool = False,
                 temperature: float = 1.0, ban_prev: bool = False, eos_id: int = 3, pad_id: int = 0,
-                noise: Optional[torch.Tensor] = None):
+                noise: Optional[torch.Tensor] = None, sample_method: str = "random"):
     """logits: (N, V) f32 or bf16; prev: (N,) int32, the tokens fed at this
     step (banned when ``ban_prev``); unfinished: (N,) bool, updated in place;
     seq: (N, T_max) int32 and seq_lp: (N, T_max) f32, column t written;
-    key, site: the sampling stream (a 64-bit key and a 32-bit site id).
+    key, site: the sampling stream (a 64-bit key and a 32-bit site id);
+    sample_method: ``random``, ``gumbel``, ``top<k>`` or ``top<p>``
+    (``parse_sample_method``; ``greedy`` overrides it); noise (CPU only): the
+    (N, V) Gumbel noise, or for ``gumbel`` the uniforms u.
     Returns the next tokens (N,) int32 (pad after a row's EOS)."""
     check_float(logits, "logits")
     n, vocab = logits.shape
@@ -84,13 +124,22 @@ def sample_step(logits, prev, unfinished, seq, seq_lp, t: int, key: int = 0, sit
         raise ValueError(f"temperature must be > 0, got {temperature}")
     if not 0 <= key < 2 ** 64 or not 0 <= site < 2 ** 32:
         raise ValueError(f"key or site out of range: {key}, {site}")
+    mode, top = parse_sample_method(sample_method)
+    if mode == "topk" and top > vocab:
+        raise ValueError(f"sample_method {sample_method}: k over the vocabulary of {vocab}")
     if logits.device.type == "cpu":
         return sample_step_plain(logits, prev, unfinished, seq, seq_lp, t, key, site, greedy, temperature, ban_prev,
-                                 eos_id, pad_id, noise)
+                                 eos_id, pad_id, noise, sample_method)
     if noise is not None:
         raise ValueError("explicit noise is taken by the plain version only (CPU tensors)")
+    greedy = greedy or mode == "greedy"
+    if mode == "nucleus" and not greedy and vocab > NUCLEUS_MAX_VOCAB:
+        raise ValueError(f"the nucleus kernel sorts rows of at most {NUCLEUS_MAX_VOCAB} entries; V={vocab}")
     nxt = torch.empty_like(prev)
-    KERNEL.launch(_build.dtype_code(logits), logits.data_ptr(), n, vocab, prev.data_ptr(), unfinished.data_ptr(),
+    kernel = KERNEL if greedy else {"gumbel": KERNEL_GUMBEL, "topk": KERNEL_TOPK, "nucleus": KERNEL_NUCLEUS}.get(mode,
+                                                                                                               KERNEL)
+    kernel.launch(_build.dtype_code(logits), logits.data_ptr(), n, vocab, prev.data_ptr(), unfinished.data_ptr(),
                   seq.data_ptr(), seq_lp.data_ptr(), nxt.data_ptr(), t, t_max, key & M32, key >> 32, site, int(greedy),
-                  temperature, int(ban_prev), eos_id, pad_id, _build.stream_handle(logits))
+                  temperature, int(ban_prev), eos_id, pad_id, MODES.get(mode, 0), int(top) if mode == "topk" else 0,
+                  top if mode == "nucleus" else 0.0, _build.stream_handle(logits))
     return nxt

@@ -54,7 +54,7 @@ from torch import nn
 
 from sparse_caption_tpu_torch.kernels.add_ref_layernorm import add_ref_layernorm
 from sparse_caption_tpu_torch.kernels.ancestry_self_attention import decode_self_attention
-from sparse_caption_tpu_torch.kernels.box_attention import DIM_G, box_attention
+from sparse_caption_tpu_torch.kernels.box_attention import box_attention, geometry_width
 from sparse_caption_tpu_torch.kernels.box_attention_bwd import box_attention_train
 from sparse_caption_tpu_torch.kernels.decoder_attention import decoder_attention
 from sparse_caption_tpu_torch.kernels.grouped_cross_attention import grouped_cross_attention
@@ -305,24 +305,28 @@ class MultiHeadAttention(nn.Module, DropoutSite):
 
 class BoxMultiHeadAttention(nn.Module, DropoutSite):
     """Geometry-biased self-attention of the ORT encoder: ``softmax(log(clamp(
-    relu(wg . geo), 1e-6)) + fill(qk / sqrt(d)))`` with one (64 -> h) ``wg``
-    projection (the trigonometric geometry; the 4-wide raw one is not
-    ported). The attention runs in kernel K1, or with gradients in K1's train
-    variant and K7; ``share_att`` as ``MultiHeadAttention``'s, "kv" through
+    relu(wg . geo), 1e-6)) + fill(qk / sqrt(d)))`` with one (dim_g -> h)
+    ``wg`` projection: dim_g 64, the trigonometric geometry, or with
+    ``trigonometric_embedding=False`` dim_g 4, the raw log-deltas
+    (``--no_box_trigonometric_embedding``). The attention runs in kernel
+    K1, or with gradients in K1's train variant and K7; ``share_att`` as ``MultiHeadAttention``'s, "kv" through
     the kv modes of K1 and K7 (V is the K tensor; one gradient for it)."""
 
     def __init__(self, num_heads: int, d_model: int, dropout_rate: float = 0.1, share_att: Optional[str] = None,
-                 mask_cfg: Optional[MaskConfig] = None, device=None, dtype=None):
+                 mask_cfg: Optional[MaskConfig] = None, trigonometric_embedding: bool = True, device=None,
+                 dtype=None):
         super().__init__()
         assert d_model % num_heads == 0
         _check_share_att(share_att)
         self.num_heads = num_heads
+        self.trigonometric_embedding = trigonometric_embedding
         self.dropout_rate = dropout_rate
         self.share_att = share_att
         self.MASKED_CALL_ORDER = CALL_ORDER[share_att] + ("wg", "out_proj")
         for name in PROJECTIONS[share_att] + ("out_proj",):
             setattr(self, name, MaskedLinear(d_model, d_model, mask_cfg=mask_cfg, device=device, dtype=dtype))
-        self.wg = MaskedLinear(DIM_G, num_heads, mask_cfg=mask_cfg, device=device, dtype=dtype)
+        self.wg = MaskedLinear(geometry_width(trigonometric_embedding), num_heads, mask_cfg=mask_cfg, device=device,
+                               dtype=dtype)
 
     def forward(self, x, boxes, mask, rng=None):
         """x: (B, R, D); boxes: (B, R, 4) f32; mask: (B, R) bool, False = padded."""

@@ -6,8 +6,9 @@ self-attention layers (kernel K1; in training K1's train variant and K7)
 over the region features; decoder, PE, generator and caching are the
 caption Transformer's. ACORT is this model with the radix tokenizer,
 ``share_att_*="kv"`` and ``share_layer_*`` plans
-(``resources/commands_acort.sh``); the box encoder runs its own plan. The
-4-wide raw geometry (``no_box_trigonometric_embedding``) is not ported.
+(``resources/commands_acort.sh``); the box encoder runs its own plan.
+``box_trigonometric_embedding=False`` (``--no_box_trigonometric_embedding``)
+gives every box attention the 4-wide raw geometry.
 """
 
 from __future__ import annotations
@@ -35,9 +36,10 @@ class BoxEncoderLayer(nn.Module):
     MASKED_CALL_ORDER = ("self_attn", "feed_forward")
 
     def __init__(self, d_model: int, num_heads: int, d_ff: int, dropout_rate: float = 0.1, share_att=None,
-                 mask_cfg=None, **factory):
+                 mask_cfg=None, trigonometric_embedding: bool = True, **factory):
         super().__init__()
-        self.self_attn = BoxMultiHeadAttention(num_heads, d_model, dropout_rate, share_att, mask_cfg, **factory)
+        self.self_attn = BoxMultiHeadAttention(num_heads, d_model, dropout_rate, share_att, mask_cfg,
+                                               trigonometric_embedding, **factory)
         self.feed_forward = PositionwiseFeedForward(d_model, d_ff, dropout_rate, mask_cfg, **factory)
         self.sub0 = SublayerConnection(d_model, dropout_rate, **factory)
         self.sub1 = SublayerConnection(d_model, dropout_rate, **factory)
@@ -54,11 +56,15 @@ class RelationTransformer(Transformer):
 
     COLLATE_FIELDS = ("att_feats", "att_masks", "boxes")
 
+    def __init__(self, *args, box_trigonometric_embedding: bool = True, **kwargs):
+        self.box_trigonometric_embedding = box_trigonometric_embedding  # _build_encoder (Transformer.__init__) reads it
+        super().__init__(*args, **kwargs)
+
     def _build_encoder(self, att_feat_size, dim_feedforward, share_att, factory):
         n_enc, self.box_enc_plan = _unique_layer_plan(self.num_layers, self.share_layer_encoder)
         self.box_encoder_layers = nn.ModuleList(
             BoxEncoderLayer(self.d_model, self.num_heads, dim_feedforward, self.dropout_rate, share_att,
-                            self.mask_cfg, **factory)
+                            self.mask_cfg, self.box_trigonometric_embedding, **factory)
             for _ in range(n_enc))
         self.att_embed = MaskedLinear(att_feat_size, self.d_model, mask_cfg=self.mask_cfg, **factory)
         self.box_encoder_norm = RefLayerNorm(self.d_model, **factory)
@@ -84,7 +90,5 @@ class RelationTransformer(Transformer):
 
     @classmethod
     def from_config(cls, config, mask_cfg=None, **factory):
-        if config.get("no_box_trigonometric_embedding", False):
-            raise NotImplementedError("the 4-wide raw box geometry (no_box_trigonometric_embedding) lands in a "
-                                      "later slice")
-        return super().from_config(config, mask_cfg, **factory)
+        return super().from_config(config, mask_cfg, **factory,
+                                   box_trigonometric_embedding=not config.get("no_box_trigonometric_embedding", False))

@@ -73,10 +73,11 @@ def geometry_frequencies(dim_g: int = 64, device=None) -> torch.Tensor:
     return 1.0 / (WAVE_LEN ** (torch.arange(n_freq, dtype=torch.float32, device=device) / n_freq))
 
 
-def box_relational_embedding(boxes: torch.Tensor, dim_g: int = 64) -> torch.Tensor:
+def box_relational_embedding(boxes: torch.Tensor, dim_g: int = 64, trigonometric: bool = True) -> torch.Tensor:
     """Pairwise log-delta (cx, cy, w, h) box geometry expanded to sin/cos
     features at x100 scaling. boxes: (B, R, 4) as (x_min, y_min, x_max,
-    y_max). Returns (B, R, R, dim_g)."""
+    y_max). Returns (B, R, R, dim_g), or with ``trigonometric=False`` the
+    four raw log-deltas (B, R, R, 4) (``--no_box_trigonometric_embedding``)."""
     x_min, y_min, x_max, y_max = boxes.split(1, dim=-1)  # (B, R, 1)
     cx = (x_min + x_max) * 0.5
     cy = (y_min + y_max) * 0.5
@@ -88,6 +89,8 @@ def box_relational_embedding(boxes: torch.Tensor, dim_g: int = 64) -> torch.Tens
     delta_w = torch.log(w / w.transpose(1, 2))
     delta_h = torch.log(h / h.transpose(1, 2))
     position_mat = torch.stack([delta_x, delta_y, delta_w, delta_h], dim=-1)  # (B, R, R, 4)
+    if not trigonometric:
+        return position_mat
     dim_mat = geometry_frequencies(dim_g, boxes.device)
     mul = 100.0 * position_mat[..., None] * dim_mat  # (B, R, R, 4, n_freq)
     b, r = boxes.shape[0], boxes.shape[1]

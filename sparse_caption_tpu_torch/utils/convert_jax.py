@@ -8,7 +8,8 @@ Flax leaf paths become parameter names:
   (``*_layers_N`` lists, and Up-Down's ``logit_N`` setup list, become
   ModuleList indices)
 * Dense ``kernel`` (in, out) -> ``weight`` (out, in), transposed here, once;
-  ``wg`` stays one (64, h) projection, i.e. a (h, 64) weight
+  ``wg`` stays one (dim_g, h) projection, i.e. a (h, 64) weight, or (h, 4) for
+  the raw geometry (``--no_box_trigonometric_embedding``)
 * ``embedding`` -> ``weight``; RefLayerNorm ``scale`` -> ``weight``; ``bias`` -> ``bias``
 * masks (same paths, leaf ``mask``) are folded into their weights with the
   eval semantics of ``ops/masked.py`` and do not appear in the result (serving);

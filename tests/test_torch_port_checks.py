@@ -330,3 +330,55 @@ def test_supermask_scst_launches_by_hand():
     ud = chip_smoke.supermask_updown_scst_launches(17, KERNELS)
     assert ud["supermask"] == 0 and ud["supermask_keyed"] == 36 and ud["supermask_bwd"] == 18
     assert ud["lstm_cell"] == 68 and ud["vocab_log_softmax"] == 1
+
+
+@pytest.mark.parametrize("dtype,rows", [(torch.float32, 64 * 15), (torch.bfloat16, 2048 * 5)])
+def test_k9_bytes_read_the_logits_once(dtype, rows):
+    """K9 in every mode (its filters work in shared memory): the logits in;
+    per row the fed token (int32) and the unfinished flag (one byte) in, the
+    token into seq and into next (int32 each), the chosen log-prob (f32)
+    and the flag out."""
+    es = 2 if dtype == torch.bfloat16 else 4
+    assert chip_smoke.k9_bytes(rows, VOCAB, dtype) == rows * VOCAB * es + rows * (4 + 1 + 4 + 4 + 4 + 1)
+    if dtype == torch.float32:  # 38.4 MB at the SCST sampling shape (the kernel's note)
+        assert round(chip_smoke.k9_bytes(rows, VOCAB, dtype) / 1e6, 1) == 38.4
+
+
+def test_k4_bytes_with_the_diverse_beam_penalty():
+    """K4 with the diversity prologue: as without it, plus each image's
+    earlier-group tokens (int32) read once: 2048 images x 2 rows (the third
+    group of beam 6 in 3 groups), 4 tokens an image."""
+    rows, k, p = 2048 * 2, 2, 4
+    want = rows * VOCAB * 2 + rows * (4 + 1) + rows * k * (4 + 4 + 4) + 2048 * p * 4
+    assert chip_smoke.k4_bytes(rows, VOCAB, k, torch.bfloat16, p) == want
+    assert chip_smoke.k4_bytes(rows, VOCAB, k, torch.bfloat16) == want - 2048 * p * 4
+
+
+@pytest.mark.parametrize("dim_g", [64, 4])
+def test_k1_k7_bytes_by_geometry_width(dim_g):
+    """K1 (2048 images) and K7 (256 images), bf16, 8 heads of 64, 36
+    regions: q, k, v in and out out (K7: q, k, v, dO in, dq, dk, dv out,
+    the keep-mask a byte a (head, pair)); boxes 16 bytes and the mask a
+    byte a region; wg (h, dim_g) and its bias (K7: and their gradients)."""
+    b, h, r, dk = 2048, 8, 36, 64
+    assert chip_smoke.k1_bytes(b, h, r, dk, torch.bfloat16, dim_g) == (
+        4 * b * h * r * dk * 2 + b * r * 16 + b * r + h * (dim_g + 1) * 2)
+    b = 256
+    assert chip_smoke.k7_bytes(b, h, r, dk, torch.bfloat16, dim_g) == (
+        7 * b * h * r * dk * 2 + b * h * r * r + b * r * 16 + b * r + 2 * h * (dim_g + 1) * 2)
+    # the raw geometry's wg is 4 wide: 60 columns fewer a head, once (K1) and twice (K7)
+    if dim_g == 4:
+        assert chip_smoke.k1_bytes(2048, h, r, dk, torch.bfloat16) - chip_smoke.k1_bytes(
+            2048, h, r, dk, torch.bfloat16, 4) == h * 60 * 2
+
+
+def test_nucleus_cutoff_sums_and_near_rows():
+    """The nucleus check's cutoff sums on a row of four probabilities of 1/4
+    (prefix sums 0.25, 0.5, 0.75, 1 exactly) at p = 0.5: the entry whose sum
+    before it is 0.5 is not kept, so the sums around the cut are 0.25 and
+    0.5, which lie within 4 ulps of p; at p = 0.6 they are 0.5 and 0.75."""
+    c = torch.log_softmax(torch.tensor([[10.0, 10.0, 10.0, 10.0] + [-1000.0] * 6]), dim=-1)
+    sums = chip_smoke.nucleus_cutoff_sums(c, "top0.5", 1.0)
+    assert sums.tolist() == [[0.25, 0.5]] and bool(chip_smoke.near_p(sums, 0.5))
+    sums = chip_smoke.nucleus_cutoff_sums(c, "top0.6", 1.0)
+    assert sums.tolist() == [[0.5, 0.75]] and not bool(chip_smoke.near_p(sums, 0.6))

@@ -359,7 +359,10 @@ def test_kernel_table_names_sources():
                             "additive_attention_bwd", "vocab_log_softmax", "vocab_log_softmax_bwd",
                             "decoder_attention", "decoder_attention_bwd", "decoder_attention_kv",
                             "decoder_attention_bwd_kv", "magnitude_threshold", "supermask_keyed",
-                            "ancestry_self_attention_bwd", "grouped_cross_attention_bwd"}
+                            "ancestry_self_attention_bwd", "grouped_cross_attention_bwd", "box_attention_raw",
+                            "box_attention_train_raw", "box_attention_kv_raw", "box_attention_train_kv_raw",
+                            "box_attention_bwd_raw", "box_attention_bwd_kv_raw", "beam_topk_diverse",
+                            "sample_step_gumbel", "sample_step_topk", "sample_step_nucleus"}
     from sparse_caption_tpu_torch.kernels._build import CSRC, SOURCES
 
     assert {k.library_name for k in KERNELS.values()} == set(SOURCES)

@@ -106,8 +106,8 @@ def test_layer_plan_registry_and_unported_options():
     assert len(shared.decoder_layers) == 1 and shared.dec_plan == (0, 0) and len(shared.box_encoder_layers) == 2
     with pytest.raises(ValueError):  # no such layout
         cls(**KW, share_att_encoder="vk", device="cpu")
-    with pytest.raises(NotImplementedError):  # the 4-wide raw geometry is not ported
-        cls.from_config(dict(KW, no_box_trigonometric_embedding=True), device="cpu")
+    raw = cls.from_config(dict(KW, no_box_trigonometric_embedding=True), device="cpu")  # the 4-wide raw geometry
+    assert not raw.box_trigonometric_embedding and raw.box_encoder_layers[0].self_attn.wg.weight.shape[1] == 4
     port = cls(**KW, device="cpu")
     a, m, s, b = _port_args(make_inputs())
     with pytest.raises(ValueError, match="rng"):  # a train-mode decode needs its random source
