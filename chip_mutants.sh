@@ -10,7 +10,8 @@
 # (ACORT-small), the head width 13 instances (ORT-xsmall), K10's radix
 # mode, supermask SCST's kernels: K2's and K3's backward and K5's keyed
 # mode, and the decode variants: K9's top-k, nucleus and Gumbel modes, K4's
-# diverse-beam penalty and K1's raw 4-wide geometry. Each mutant is a copy of the
+# diverse-beam penalty and K1's raw 4-wide geometry, and K9's scheduled-sampling
+# mode and K2's backward through the beam-ancestry map. Each mutant is a copy of the
 # port under build/mutants/<name>/ with sed edits to one CUDA source (or,
 # with run_mutant_cmd, any shell edit run in its csrc/, the wrappers beside
 # it included), reusing the unmutated
@@ -31,8 +32,12 @@
 # plain regroup's words), for K2's and K3's backward
 # check_decode_backward_kernels (K2's with a cache gradient the later steps
 # left, and 17 steps with the cache threaded under autograd), for K9's modes
-# check_sample_modes, for K4's diverse-beam penalty check_diverse_topk and
-# for the raw geometry check_raw_geometry_kernels, all without their timings. A mutant whose checks
+# check_sample_modes, for K4's diverse-beam penalty check_diverse_topk,
+# for the raw geometry check_raw_geometry_kernels, for K9's ss mode
+# check_ss_kernels (its bf16 rows built so that the draw hinges on the
+# noise's rounding) and for K2's ancestry-mode backward
+# check_k2_bwd_anc_kernels (three maps, one of every beam from beam 0), all
+# without their timings. A mutant whose checks
 # pass is one they cannot see; each verdict line ends "caught" (a kernel that
 # raises is caught too) or "checks pass", and the last line counts the
 # mutants caught (every verdict line of the mutant "caught") of all run.
@@ -71,6 +76,8 @@ KBWD="c.check_decode_backward_kernels(g, results, timing=False)"
 K9M="c.check_sample_modes(g, results, timing=False)"
 K4D="c.check_diverse_topk(g, results, timing=False)"
 KRAW="c.check_raw_geometry_kernels(g, dt, results, timing=False)"
+K9SS="c.check_ss_kernels(g, results, timing=False)"
+K2A="c.check_k2_bwd_anc_kernels(g, results, timing=False)"
 ONLY=${1:-}
 picked() { [[ -z "$ONLY" || $1 =~ $ONLY ]]; }
 run_mutant() {  # name file sed-expression dtypes checks
@@ -181,6 +188,10 @@ run_mutant k9_nucleus_cutoff_le sample_step.cu 's/if (j <= V - 2 \&\& run < top_
 run_mutant k9_gumbel_tempered sample_step.cu 's/        z = logprob(i) + gumbel_eps(philox_word(r, q));/        z = logprob(i) \/ temperature + gumbel_eps(philox_word(r, q));/' "torch.float32," "$K9M"
 run_mutant k4_diversity_once_per_occurrence beam_topk.cu 's/  return count > 0 ? c - (float)count \* lambda : c;/  for (int j = 0; j < P; ++j) c = div_s[j] == i ? c - lambda : c; return c;/' "torch.float32," "$K4D"
 run_mutant k1_raw_geometry_unrounded box_geometry.cuh 's/  for (int c = 0; c < kRawG; ++c) pos\[c\] = round_to<T>(pair_delta(bi, bj, c));/  for (int c = 0; c < kRawG; ++c) pos[c] = pair_delta(bi, bj, c);/' "torch.bfloat16," "$KRAW"
+run_mutant k9_ss_coin_inverted sample_step.cu 's/  if (!(static_cast<float>(coin_bits >> 8) \* 0x1p-24f < ss_prob)) {/  if (static_cast<float>(coin_bits >> 8) * 0x1p-24f < ss_prob) {/' "torch.float32," "$K9SS"
+run_mutant k9_ss_noise_in_f32_under_bf16 sample_step.cu 's/  return -round_to<__nv_bfloat16>(logf(-round_to<__nv_bfloat16>(logf(u))));/  return -logf(-logf(u));/' "torch.float32," "$K9SS"
+run_mutant k2_bwd_anc_identity_map ancestry_self_attention_bwd.cu 's/    map_s\[i\] = anc\[((size_t)b \* K + i \/ T1) \* t_max + i % T1\];/    map_s[i] = i \/ T1;/' "torch.float32," "$K2A"
+run_mutant k2_bwd_anc_last_writer_wins ancestry_self_attention_bwd.cu 's/        dkv.x += dss \* q_s/        dkv.x = dss * q_s/; s/        dkv.y += dss \* q_s/        dkv.y = dss * q_s/; s/        dvv.x += ps \* g_s/        dvv.x = ps * g_s/; s/        dvv.y += ps \* g_s/        dvv.y = ps * g_s/' "torch.float32," "$K2A"
 # a mutant is caught when it printed a verdict line and every one says so
 awk '/^\[mutant\] [^ ]+: / { name = $2; sub(":", "", name); seen[name] = 1 }
      /^\[mutant\] [^ :]+ [a-z0-9]+ / { seen[$2] = 1; n[$2]++; if ($0 ~ / caught/) c[$2]++ }

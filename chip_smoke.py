@@ -139,6 +139,15 @@ Phases:
    raw-geometry ORT (``no_box_trigonometric_embedding``): beam-5 serving,
    the XE step (15 x 5 f32 and bf16, 256 x 5 bf16) and its card-vs-CPU
    decode and step.
+12. scheduled sampling and beam-sample SCST (``run_ss_beam_phase``; their
+   kernel checks, ``check_ss_beam_kernels``, run with the others: K9's ss
+   mode bit for bit, K2's backward through three ancestry maps): the Up-Down
+   XE cell at ss_prob 0.25 and 2 logit layers (15 x 5 f32 and bf16, 256 x 5
+   bf16) and its card-vs-CPU step (the CPU taking the card's scheduled
+   samples); beam-sample SCST of the mask_freeze ORT (beam 15; 5 x 15, 64 x
+   15) and Up-Down (beam 60; 5 x 60, 16 x 60), the launch counts asserted,
+   the gradient pass's forced search against the sampling search, and the
+   card-vs-CPU steps on the card's search decisions.
 
 The ORT XE and SCST steps run the decoder's full-sequence attention through
 K14/K15 (12 + 12 launches per step, asserted), and the plain
@@ -471,6 +480,23 @@ VARIANT_MODES = (
 )
 VARIANT_PATHS = tuple(f"sample_serve_{m}" for m, _ in SAMPLE_METHODS) + ("diverse_serve", "raw_serve",
                                                                          "raw_train_step")
+# Up-Down with scheduled sampling and two logit layers (sparse_caption_tpu/opts.py:107 --ss_prob,
+# models/up_down.py --logit_layers): the paper Up-Down supermask XE cell's model and steps at ss_prob 0.25 and
+# logit_layers 2; beam-sample SCST (--scst_sample beam_search, engine/training.py:467-468, beam width =
+# scst_num_samples): the paper ORT's and Up-Down's sparse SCST cells (mask_freeze 0.9875 / 0.991, f32, dropout
+# on) with the search in place of the random samples. Nothing cut.
+SS_PROB, SS_LOGIT_LAYERS = 0.25, 2
+SS_CHECK_ROWS = TRAIN_BIG_BATCH * SEQ_PER_IMG  # K9's ss mode at the 256 x 5 XE step's rows
+SS_HINGE_ROWS = 256  # bf16 rows whose draw hinges on the noise's rounding (``ss_rounding_rows``)
+BEAM_SCST_CONFIG = dict(SCST_CONFIG, scst_sample="beam_search")
+BEAM_SCST_STEPS = 2  # timed steps after the warm-up, at each batch
+K2_ANC_MAPS = ("identity", "from_beam_0", "random")  # K2's backward, ancestry mode: the maps it is held on
+SS_BEAM_MODES = (
+    ("scheduled_sample", "sample_step", ("scheduled_sample",), "sparse_caption_tpu/models/up_down.py:170"),
+    ("ancestry_self_attention_bwd ancestry", "ancestry_self_attention_bwd", ("ancestry_self_attention_bwd_anc",),
+     "sparse_caption_tpu/models/layers.py:320"),
+)
+SS_BEAM_PATHS = ("updown_ss_train_step", "ort_beam_scst_step", "updown_beam_scst_step")
 
 
 def log(msg: str) -> None:
@@ -2862,11 +2888,13 @@ def run_train_phase(model, gen, b, precision, expected, config=TRAIN_CONFIG, mak
 
 
 def whole_step_check(seed: int, gen, build=None, make=make_train_batch, config=TRAIN_CONFIG,
-                     label="whole-step") -> bool:
+                     label="whole-step", context=contextlib.nullcontext) -> bool:
     """One f32 XE step at 2 images x 5, dropout 0, the same mask uniforms, on
     the card (kernels) and on the CPU (plain versions), from the same
     weights: loss, every gradient, every param and mask after the update.
-    `build` makes the model without dropout (default: the ORT's)."""
+    `build` makes the model without dropout (default: the ORT's); both steps
+    run inside `context()` (``card_ss_tokens``: the CPU takes the card's
+    scheduled samples)."""
     from sparse_caption_tpu_torch.engine.optim import make_schedule
     from sparse_caption_tpu_torch.engine.training import TrainState
     from sparse_caption_tpu_torch.ops.rng import TrainRandom
@@ -2875,12 +2903,13 @@ def whole_step_check(seed: int, gen, build=None, make=make_train_batch, config=T
     model_cpu = copy.deepcopy(model_gpu).to("cpu")
     batch = make(gen, WHOLE_STEP_BATCH)
     results = {}
-    for name, model in (("cuda", model_gpu), ("cpu", model_cpu)):
-        dev = next(model.parameters()).device
-        step = make_train_step(model, "fp32", config)
-        rng = TrainRandom(torch.Generator().manual_seed(seed + 7))  # uniforms drawn on the CPU, then moved
-        _, loss, _ = step(TrainState(), {k: v.to(dev) for k, v in batch.items()}, rng)
-        results[name] = (float(loss), {n: (p.grad.cpu(), p.detach().cpu()) for n, p in model.named_parameters()})
+    with context():
+        for name, model in (("cuda", model_gpu), ("cpu", model_cpu)):
+            dev = next(model.parameters()).device
+            step = make_train_step(model, "fp32", config)
+            rng = TrainRandom(torch.Generator().manual_seed(seed + 7))  # uniforms drawn on the CPU, then moved
+            _, loss, _ = step(TrainState(), {k: v.to(dev) for k, v in batch.items()}, rng)
+            results[name] = (float(loss), {n: (p.grad.cpu(), p.detach().cpu()) for n, p in model.named_parameters()})
     (loss_g, got), (loss_c, ref) = results["cuda"], results["cpu"]
     ok = abs(loss_g - loss_c) <= STEP_LOSS_RTOL * abs(loss_c)
     log(f"[{label}] f32 batch {WHOLE_STEP_BATCH}x{SEQ_PER_IMG}: loss card {loss_g:.7f} cpu {loss_c:.7f} "
@@ -3498,7 +3527,8 @@ def scst_whole_step_check(seed: int, gen, build=build_scst_model, make=make_batc
                           config=SCST_CONFIG, max_len=MAX_LEN) -> bool:
     """One f32 SCST step at 2 x 3 with dropout on, on the card and on the CPU
     from the same weights and seed (`build`; inputs from `make` in the
-    model's COLLATE_FIELDS order); the card's tokens feed both replays.
+    model's COLLATE_FIELDS order); the card's tokens feed both replays (and
+    under beam-sample SCST the card's search decisions both gradient passes).
     `tok`: ACORT's radix tokenizer (its device reward; refs from its decode).
     A training supermask's keyed draws: the flips of every set the card draws
     are counted (``keyed_flip_counts``), and the CPU takes the card's samples
@@ -3550,7 +3580,10 @@ def scst_whole_step_check(seed: int, gen, build=build_scst_model, make=make_batc
     with counting():
         _, loss_g, _ = step_gpu.grad_fn(TrainState(), batch_gpu, res)
     with on_cpu():
-        _, loss_c, _ = step_cpu.grad_fn(TrainState(), batch_cpu, {"sample": res["sample"].cpu()})
+        card = {"sample": res["sample"].cpu()}
+        if "decisions" in res:  # beam-sample SCST: the card's search decisions, replayed on both
+            card["decisions"] = res["decisions"].to("cpu")
+        _, loss_c, _ = step_cpu.grad_fn(TrainState(), batch_cpu, card)
     if supermask:
         log_flips(label, flips)
     loss_ok = abs(float(loss_g) - float(loss_c)) <= SCST_LOSS_TOL
@@ -5227,6 +5260,455 @@ def run_decode_variants_phase(gen) -> tuple:
     return good, paths
 
 
+# ------------------------------------- scheduled sampling, beam-sample SCST
+def k9_ss_bytes(sampled: int, n: int, vocab: int, dtype) -> int:
+    """Bytes K9's ss mode must move: the log-prob rows of the `sampled` rows
+    whose coin came up, read once (a row whose coin fails reads none); every
+    row's teacher token read and its input token written (int32 each)."""
+    return sampled * vocab * ESIZE[dtype] + n * 8
+
+
+def k2_bwd_anc_bytes(anc: torch.Tensor, t: int, h: int = HEADS, dk: int = DK) -> int:
+    """Bytes K2's backward must move at step t through the map `anc` (B, K,
+    T_max), f32: q and dout in and dq, dk_t, dv_t out a row; each distinct
+    (row, slot) pair the map names over slots 0..t once: its K and V slots
+    in, both gradient buffers' slots in and out (slot t: each row's own,
+    read and zeroed); the map's columns 0..t (int32)."""
+    b, k, _ = anc.shape
+    rows = anc[:, :, : t + 1].long() + torch.arange(b, device=anc.device)[:, None, None] * k
+    pairs = int(torch.unique(rows * (t + 1) + torch.arange(t + 1, device=anc.device)).numel())
+    return 4 * h * dk * (5 * b * k + 6 * pairs) + 4 * b * k * (t + 1)
+
+
+def anc_map(kind: str, b: int, k: int, t_max: int, t: int, gen=None, device="cuda") -> torch.Tensor:
+    """A (B, K, T_max) int32 ancestry map as beam search leaves it at step t
+    (slot t the identity: each row wrote it itself): `identity`,
+    `from_beam_0` (every earlier slot read from beam 0, the collision of step
+    0's choice) or `random` (each earlier slot from a random beam of the image)."""
+    ident = torch.arange(k, device=device, dtype=torch.int32)[None, :, None].expand(b, k, t_max)
+    if kind == "identity":
+        anc = ident.clone()
+    elif kind == "from_beam_0":
+        anc = torch.zeros(b, k, t_max, dtype=torch.int32, device=device)
+    else:
+        anc = torch.randint(0, k, (b, k, t_max), generator=gen, device=device, dtype=torch.int32)
+    anc[:, :, t] = ident[:, :, t]
+    return anc.contiguous()
+
+
+def ss_rounding_rows(lp, draw, rows: slice):
+    """``lp`` (bf16) with the rows `rows` rewritten so that their draw hinges
+    on the noise's rounding to bf16: each such row's columns a (its largest
+    noise) and b (its largest noise below a's) hold log-probs 0 and v, the
+    rest -30, v a bf16 value near g_a - g_b at which the winner of the two
+    under JAX's bf16 noise differs from the winner under the same noise
+    unrounded (f32). Returns (lp, rows rewritten); a row with no such v
+    nearby keeps its values."""
+    from sparse_caption_tpu_torch.kernels import sample_step as k9
+
+    dev, vocab = lp.device, lp.shape[1]
+    idx = torch.arange(lp.shape[0], device=dev)[rows]
+    bits = k9.keyed_bits(draw.key, k9.SS_NOISE_SITE, torch.full((1,), draw.t, device=dev), idx, vocab)
+    g_f32 = -torch.log(-torch.log(((bits >> 25) * 2 + 1).to(torch.float32) * 2.0 ** -8))
+    g_b16 = draw.noise(lp.shape[0], vocab, torch.bfloat16, dev)[rows].float()
+    a = g_b16.argmax(1)
+    col_b = torch.where(g_b16 < g_b16.gather(1, a[:, None]), g_b16, -1e9).argmax(1)
+    (ba, bb), (fa, fb) = ((g.gather(1, a[:, None]), g.gather(1, col_b[:, None])) for g in (g_b16, g_f32))
+    # candidates: the 33 bf16 values around g_a - g_b (consecutive bit patterns)
+    near = (ba - bb).to(torch.bfloat16).view(torch.int16).to(torch.int32) + torch.arange(-16, 17, device=dev)
+    v = near.to(torch.int16).view(torch.bfloat16).float()
+    a_first = (a < col_b)[:, None]
+    wins = [torch.where(a_first, (v + gb).to(torch.bfloat16) > ga.to(torch.bfloat16),
+                        (v + gb).to(torch.bfloat16) >= ga.to(torch.bfloat16)) for ga, gb in ((ba, bb), (fa, fb))]
+    hinge = wins[0] != wins[1]
+    found = hinge.any(1)
+    pick = v.gather(1, hinge.float().argmax(1)[:, None])[:, 0]
+    out = lp.clone()
+    r = idx[found]
+    out[r] = -30.0
+    out[r, a[found]] = 0.0
+    out[r, col_b[found]] = pick[found].to(torch.bfloat16)
+    return out, int(found.sum())
+
+
+def check_ss_kernels(gen, results: dict, timing: bool = True) -> bool:
+    """K9's ss mode (Up-Down's scheduled sampling) against its plain version
+    on the card, on the same keyed draws, at the 256 x 5 XE step's rows and
+    the vocabulary of 10,000, f32 and bf16 (a row of equal log-probs, where
+    the first index must win): the tokens bit for bit at ss_prob 0.25 (the
+    path's) and 1.0 (every row sampled); faults planted: the coin inverted,
+    and in bf16 the noise formed in f32 (JAX's categorical forms it in the
+    log-probs' dtype), which rows 1-256 are built to show
+    (``ss_rounding_rows``). Times (bf16, and f32 beside) in held turns against the
+    plain version and the library composition log_softmax + noise + argmax +
+    where."""
+    from sparse_caption_tpu_torch.kernels import sample_step as k9
+
+    dev, ok = torch.device("cuda"), True
+    n, vocab, step = SS_CHECK_ROWS, UPDOWN["vocab_size"], 5
+    worst = 0
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).split(".")[-1]
+        lp = torch.log_softmax(torch.randn(n, vocab, generator=gen, device=dev) * 3.0, dim=-1).to(dtype)
+        lp[0] = lp[0, 0]  # every entry ties
+        teacher = torch.randint(4, vocab, (n,), generator=gen, device=dev, dtype=torch.int32)
+        draw = k9.SSDraw(0x55EED0000 + ESIZE[dtype], step)
+        if dtype == torch.bfloat16:
+            lp, hinged = ss_rounding_rows(lp, draw, slice(1, 1 + SS_HINGE_ROWS))
+            log(f"[kernel] scheduled_sample bf16: {hinged} of rows 1-{SS_HINGE_ROWS} rewritten so that their draw "
+                f"hinges on the noise's rounding to bf16")
+        u = draw.coin_uniform(n, dev)
+        for ss_prob in (SS_PROB, 1.0):
+            got = k9.scheduled_sample(lp, teacher, ss_prob, draw)
+            ref = k9.scheduled_sample_plain(lp, teacher, ss_prob, draw)
+            coin = u < ss_prob
+            differ = int((got != ref).sum())
+            worst = max(worst, int((got.long() - ref.long()).abs().max()))
+            good = differ == 0 and bool(torch.equal(got[~coin], teacher[~coin]))
+            log(f"[kernel] scheduled_sample {dname} ss_prob={ss_prob} {n} rows: {int(coin.sum())} sampled, tokens "
+                f"differing from the plain version {differ} (row 0, all tied: {int(got[0])} plain {int(ref[0])}) "
+                f"{'ok' if good else 'FAIL'}")
+            ok &= good
+            if ss_prob == SS_PROB:  # fault: the coin inverted
+                full = k9.scheduled_sample_plain(lp, teacher, 1.0, draw)
+                n_f = int((torch.where(~coin, full, teacher) != got).sum())
+                log(f"[fault] scheduled_sample coin inverted {dname}: {n_f} tokens differ "
+                    f"{'caught' if n_f else 'MISSED'}")
+                ok &= n_f > 0
+            elif dtype == torch.bfloat16:  # fault: the noise formed in f32, not rounded through bf16
+                bits = k9.keyed_bits(draw.key, k9.SS_NOISE_SITE, torch.full((1,), step, device=dev),
+                                     torch.arange(n, device=dev), vocab)
+                uf = ((bits >> 25) * 2 + 1).to(torch.float32) * 2.0 ** -8
+                z = (lp.float() - torch.log(-torch.log(uf))).to(torch.bfloat16)
+                n_f = int((torch.argmax(z, dim=-1).to(torch.int32) != got).sum())
+                log(f"[fault] scheduled_sample noise in f32 under bf16: {n_f} tokens differ "
+                    f"{'caught' if n_f else 'MISSED'}")
+                ok &= n_f > 0
+                del bits, uf, z
+        if not timing:
+            continue
+        coin = u < SS_PROB
+        g = draw.noise(n, vocab, dtype, dev)
+        ms, plain_ms, lib_ms = turns_ms(
+            lambda: k9.scheduled_sample(lp, teacher, SS_PROB, draw),
+            lambda: k9.scheduled_sample_plain(lp, teacher, SS_PROB, draw),
+            lambda: torch.where(coin, torch.argmax(torch.log_softmax(lp, dim=-1) + g, dim=-1).to(torch.int32),
+                                teacher))
+        bnd, by = bound_ms(k9_ss_bytes(int(coin.sum()), n, vocab, dtype), {})
+        log(f"[kernel] scheduled_sample {dname} {n} rows at ss_prob {SS_PROB}: ms={ms:.4f} plain_ms={plain_ms:.4f} "
+            f"library_ms={lib_ms:.4f} (log_softmax + noise + argmax + where) bound_ms={bnd:.4f} ({by}; held windows "
+            f"in turns)")
+        entry = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bnd, bound_by=by)
+        if dtype == torch.bfloat16:
+            results["scheduled_sample"] = dict(max_abs_err=float(worst), **entry,
+                                               **{f"f32_{k}": v for k, v in results.pop("_ss_f32").items()})
+        else:
+            results["_ss_f32"] = {k: v for k, v in entry.items() if k != "bound_by"}
+        del g
+    return ok
+
+
+def check_k2_bwd_anc_kernels(gen, results: dict, timing: bool = True) -> bool:
+    """K2's backward in the ancestry mode (beam-sample SCST's gradient pass:
+    64 images x 15 beams, 8 heads of 64, T_max 17, f32) against its plain
+    version (the autograd of the plain forward through the map), element by
+    element within F32_TOL widened by each tensor's rms, at steps 0, 8 and 16
+    and on three maps (K2_ANC_MAPS: the identity; every earlier slot from beam
+    0, where one slot takes 15 beams' shares; a random map), the cache
+    gradient the later steps left random: dq, dk_t, dv_t and the buffer
+    after (slots < t added to, slot t zeroed, later slots untouched); under
+    the identity map also against the identity kernel; fault planted:
+    the map ignored (the identity kernel's buffer on the other maps). Then 17
+    steps of ``decode_self_attention`` with gradients through maps that
+    change every step, the cache threaded, against the same steps written out
+    of place; the shared memory against the wrapper's formula. Times at the
+    random map, each step: the kernel, the plain version, SDPA's forward +
+    backward on the gathered cache and the identity kernel on the same
+    inputs, in held turns."""
+    from sparse_caption_tpu_torch.kernels import KERNELS
+    from sparse_caption_tpu_torch.kernels import ancestry_self_attention as k2
+
+    dev, dt = torch.device("cuda"), torch.float32
+    b, kb = SCST_BATCHES[-1], SCST_SAMPLES
+    n, h, dk, t_max = b * kb, HEADS, DK, MAX_LEN
+    ok = smem_agrees("ancestry_self_attention_bwd", "sct_ancestry_self_attention_bwd_anc_smem",
+                     k2.anc_bwd_smem_bytes, [(kb, 0), (kb, t_max - 1), (60, 16), (32, 1023)])
+
+    def rnd(*shape, g=gen):
+        return torch.randn(*shape, generator=g, device=dev)
+
+    def held(name, got, ref, fault=None):
+        nonlocal ok
+        err, good, worst = close(got, ref, dt, sum_scale=rms(ref))
+        log(f"[kernel] {name} f32: max_abs_err={err:.3e} worst err/allowed={worst:.3f} {'ok' if good else 'FAIL'}")
+        ok &= good
+        if fault is not None:
+            ok &= fault_caught(name, fault, ref, dt, 0.0, rms(ref))
+        return err
+
+    q, ck, cv, dout = rnd(n, h, dk), rnd(n, h, t_max, dk), rnd(n, h, t_max, dk), rnd(n, h, dk)
+    dck0, dcv0 = rnd(n, h, t_max, dk), rnd(n, h, t_max, dk)
+
+    def run(fn, t, anc):
+        dck, dcv = dck0.clone(), dcv0.clone()
+        return (*fn(q, ck, cv, dout, dck, dcv, t, anc), dck, dcv)
+
+    errs, maps = [], {}
+    for t in K2_BWD_STEPS:
+        for kind in K2_ANC_MAPS:
+            anc = maps[(kind, t)] = anc_map(kind, b, kb, t_max, t, gen)
+            got = run(k2.ancestry_self_attention_backward, t, anc)
+            ref = run(k2.ancestry_self_attention_backward_plain, t, anc)
+            ident = run(k2.ancestry_self_attention_backward, t, None)  # the map ignored
+            tag = f"ancestry_self_attention_bwd ancestry {kind} t={t}"
+            faulty = kind != "identity" and t > 0
+            for i, part in enumerate(("dq", "dk_t", "dv_t", "dcache_k", "dcache_v")):
+                errs.append(held(f"{tag} {part}", got[i], ref[i],
+                                 fault=ident[i] if faulty and part == "dcache_k" else None))
+            if kind == "identity":  # the identity kernel's results, but for the order of its sums
+                for i, part in enumerate(("dq", "dk_t", "dv_t", "dcache_k", "dcache_v")):
+                    errs.append(held(f"{tag} {part} against the identity kernel", got[i], ident[i]))
+            untouched = bool(torch.equal(got[3][:, :, t + 1:], dck0[:, :, t + 1:])) and not got[3][:, :, t].any()
+            ok &= untouched
+            if not untouched:
+                log(f"[kernel] {tag}: slot t not zeroed or slots past t touched FAIL")
+            del got, ref, ident
+
+    # 17 steps through maps that change every step, the cache threaded under autograd
+    g17 = torch.Generator(device=dev).manual_seed(SEED + 38 * 17)
+    qs, ks, vs, gs = ([rnd(n, h, dk, g=g17).requires_grad_(i < 3) for _ in range(t_max)] for i in range(4))
+    cache_k, cache_v = torch.zeros(n, h, t_max, dk, device=dev), torch.zeros(n, h, t_max, dk, device=dev)
+    anc = anc_map("identity", b, kb, t_max, 0)
+    steps_maps, outs = [], []
+    before = KERNELS["ancestry_self_attention_bwd_anc"].launches
+    for t in range(t_max):
+        anc = anc.clone()
+        anc[:, :, t] = torch.arange(kb, device=dev, dtype=torch.int32)
+        steps_maps.append(anc)
+        outs.append(k2.decode_self_attention(qs[t], ks[t], vs[t], cache_k, cache_v, anc, t))
+        parents = torch.randint(0, kb, (b, kb), generator=g17, device=dev) if t else torch.zeros(
+            b, kb, dtype=torch.long, device=dev)
+        anc = anc.gather(1, parents[..., None].expand(-1, -1, t_max)).contiguous()
+    got = torch.autograd.grad(outs, qs + ks + vs, gs)
+    launched = KERNELS["ancestry_self_attention_bwd_anc"].launches - before
+    ref_outs = [k2.ancestry_self_attention_plain(qs[t], torch.stack(ks[: t + 1], 2), torch.stack(vs[: t + 1], 2),
+                                                 steps_maps[t][:, :, : t + 1].contiguous(), t) for t in range(t_max)]
+    want = torch.autograd.grad(ref_outs, qs + ks + vs, gs)
+    for name, a, c in (("dq", torch.stack(got[:t_max]), torch.stack(want[:t_max])),
+                       ("dk", torch.stack(got[t_max:2 * t_max]), torch.stack(want[t_max:2 * t_max])),
+                       ("dv", torch.stack(got[2 * t_max:]), torch.stack(want[2 * t_max:]))):
+        errs.append(held(f"decode_self_attention {t_max} steps through changing maps, the cache threaded: {name}", a,
+                         c))
+    log(f"[kernel] decode_self_attention {t_max} steps through changing maps: {launched} K2 backward ancestry "
+        f"launches {'ok' if launched == t_max else 'FAIL'}")
+    ok &= launched == t_max
+    del qs, ks, vs, gs, outs, got, ref_outs, want, cache_k, cache_v
+
+    if timing:
+        times = {}
+        for t in K2_BWD_STEPS:
+            anc = maps[("random", t)]
+            base = torch.arange(b, device=dev)[:, None, None] * kb
+            rows = (anc[:, :, : t + 1].long() + base).reshape(n, t + 1)
+            slots = torch.arange(t + 1, device=dev)
+            kg = ck.transpose(1, 2)[rows, slots].transpose(1, 2).contiguous().requires_grad_()
+            vg = cv.transpose(1, 2)[rows, slots].transpose(1, 2).contiguous().requires_grad_()
+            q4, d4 = q[:, :, None].clone().requires_grad_(), dout[:, :, None]
+            dck, dcv = dck0.clone(), dcv0.clone()
+            times[t] = turns_ms(
+                lambda: k2.ancestry_self_attention_backward(q, ck, cv, dout, dck, dcv, t, anc),
+                lambda: k2.ancestry_self_attention_backward_plain(q, ck, cv, dout, dck, dcv, t, anc),
+                lambda: torch.autograd.grad(F.scaled_dot_product_attention(q4, kg, vg), (q4, kg, vg), d4),
+                lambda: k2.ancestry_self_attention_backward(q, ck, cv, dout, dck, dcv, t, None))
+            bnd = bound_ms(k2_bwd_anc_bytes(anc, t), {})[0]
+            log(f"[kernel] ancestry_self_attention_bwd ancestry f32 {n} rows t={t} (random map): "
+                f"ms={times[t][0]:.4f} plain_ms={times[t][1]:.4f} library_ms={times[t][2]:.4f} (SDPA fwd + bwd, "
+                f"gathered cache) identity-kernel ms={times[t][3]:.4f} bound_ms={bnd:.4f} (bytes; held windows in "
+                f"turns)")
+        last = K2_BWD_STEPS[-1]
+        bnd, by = bound_ms(k2_bwd_anc_bytes(maps[("random", last)], last), {})
+        results["ancestry_self_attention_bwd ancestry"] = dict(
+            max_abs_err=max(errs), ms=times[last][0], plain_ms=times[last][1], library_ms=times[last][2],
+            bound_ms=bnd, bound_by=by, identity_ms=times[last][3],
+            **{f"t{t}_{k}": v for t in K2_BWD_STEPS
+               for k, v in zip(("ms", "plain_ms", "library_ms", "identity_ms"), times[t])})
+    return ok
+
+
+def check_ss_beam_kernels(gen, results: dict, timing: bool = True) -> bool:
+    """This slice's kernel modes: K9's ss mode and K2's backward through the map."""
+    ok = check_ss_kernels(gen, results, timing)
+    torch.cuda.empty_cache()
+    ok &= check_k2_bwd_anc_kernels(gen, results, timing)
+    torch.cuda.empty_cache()
+    return ok
+
+
+def build_updown_ss(seed: int, dropout: bool = True):
+    """The Up-Down XE cell's model (``build_updown(train=True)``) with
+    scheduled sampling at SS_PROB and SS_LOGIT_LAYERS logit layers."""
+    from sparse_caption_tpu_torch.models import get_model
+    from sparse_caption_tpu_torch.ops.masked import MaskConfig
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    return get_model("up_down_lstm_prune")(**UPDOWN, drop_prob_lm=UPDOWN_DROP if dropout else 0.0,
+                                           logit_layers=SS_LOGIT_LAYERS, ss_prob=SS_PROB, device="cuda",
+                                           mask_cfg=MaskConfig("supermask", MASK_INIT, keep_masks=True),
+                                           generator=gen)
+
+
+@contextlib.contextmanager
+def card_ss_tokens(flips: list):
+    """The card's scheduled samples for the CPU: the card's step inputs are
+    kept, and the CPU's step t takes the card's (its own differ only where a
+    coin or a draw lies within rounding of a tie); each CPU step appends its
+    count of differing tokens to `flips`."""
+    from sparse_caption_tpu_torch.models import up_down as pud
+
+    real, kept = pud.scheduled_sample, []
+
+    def shared(prev, teacher, ss_prob, draw):
+        out = real(prev, teacher, ss_prob, draw)
+        if prev.is_cuda:
+            kept.append(out.cpu())
+            return out
+        card = kept.pop(0)
+        flips.append(int((card != out).sum()))
+        return card.to(out.device)
+
+    with mock.patch.object(pud, "scheduled_sample", shared):
+        yield
+
+
+def ort_beam_scst_launches(layers: int, steps: int, n_masked: int, names) -> dict:
+    """Launches of one beam-sample SCST step of the mask_freeze ORT: the
+    sampling phase (a train-mode encode and a beam search of `steps` steps:
+    K2 through the map, K3 and K4 each step; masked weights multiplied one
+    tensor a launch, kept until the update), the reward, then the gradient
+    pass: the same encode, cache and steps with gradients on the recorded
+    decisions (one K5 set for the encode, one for the cross K/V, one a step;
+    K13 a step), and their backward (K2's in the ancestry mode)."""
+    counts = supermask_scst_launches(layers, steps, names)
+    counts.update(supermask_keyed=0, supermask=n_masked + 2 + steps, ancestry_self_attention_bwd=0,
+                  ancestry_self_attention_bwd_anc=layers * steps, sample_step=0, beam_topk=steps)
+    return counts
+
+
+def updown_beam_scst_launches(steps: int, names) -> dict:
+    """Launches of one beam-sample SCST step of the mask_freeze Up-Down: the
+    random-sample step's (``updown_scst_launches``) with K4 a step in the
+    sampling phase and, in the gradient pass (the search run again with
+    gradients), K13 a step and its backward."""
+    counts = updown_scst_launches(steps, names)
+    counts.update(sample_step=0, beam_topk=steps, vocab_log_softmax=steps, vocab_log_softmax_bwd=steps)
+    return counts
+
+
+def beam_replay_check(model, gen, make=make_batch, beams=SCST_SAMPLES, label="beam replay") -> bool:
+    """At 5 x beams with dropout on: the gradient pass's forced search
+    (``beam_log_probs``: the decode again with gradients, K13 a step, on the
+    sampling search's decisions) gives the sampling search's beams, and its
+    chosen log-probs the sampling search's (K4's) at every non-pad position."""
+    from sparse_caption_tpu_torch.decoding import generate
+    from sparse_caption_tpu_torch.engine.training import beam_log_probs
+    from sparse_caption_tpu_torch.ops.rng import KeyedStream
+
+    batch = make(gen, SCST_BATCHES[0], torch.float32)
+    opt = {"beam_size": beams, "max_seq_length": MAX_LEN, "decode_train": True}
+    with torch.no_grad():
+        memory = model.encode(*batch, train=True, rng=KeyedStream(11))
+        seq, seq_lp, decisions = generate(model, memory, opt, rng=12, return_decisions=True)
+    seq2, lp2 = beam_log_probs(model, model.encode(*batch, train=True, rng=KeyedStream(11)), decisions, 12)
+    same = bool(torch.equal(seq2, seq))
+    valid = seq != model.pad_id
+    gap = (lp2.detach() - seq_lp)[valid].abs().max().item()
+    good = same and gap <= REPLAY_LP_TOL
+    log(f"[{label}] f32 {SCST_BATCHES[0]}x{beams}: forced search's beams equal the sampling search's {same}; "
+        f"{int(valid.sum())} non-pad positions, worst |gradient pass - sampling| log-prob {gap:.3e} (tol "
+        f"{REPLAY_LP_TOL}) {'ok' if good else 'FAIL'}")
+    return good
+
+
+def run_ss_beam_phase(gen, t0: float) -> tuple:
+    """Up-Down's scheduled sampling and beam-sample SCST at paper width:
+    - ``updown_ss_train_step``: the Up-Down supermask XE step at ss_prob 0.25
+      and 2 logit layers (dropout 0.1; 15 x 5 f32 and bf16, 256 x 5 bf16; 1
+      warm-up + 10 steps each, the launch counts asserted: K9's ss mode a
+      step from t = 1, K13 a step), a profile at 256 x 5, and the f32 step
+      at 2 x 5 without dropout card against CPU, the CPU taking the card's
+      scheduled samples (its own differing ones counted);
+    - ``ort_beam_scst_step``: the paper ORT's sparse SCST (mask_freeze at
+      0.9875) with beam search of width 15 in place of 15 random samples, at
+      5 x 15 and 64 x 15 (1 warm-up + BEAM_SCST_STEPS steps, the counts
+      asserted: K4 a step, K2's backward through the map), a profile at 64 x
+      15, the gradient pass's log-probs against the sampling search's, one
+      step at 2 x 3 beams card against CPU (the card's decisions on both);
+    - ``updown_beam_scst_step``: the same for Up-Down (mask_freeze 0.991,
+      beam 60) at 5 x 60 and 16 x 60.
+    `t0`: the build's start, for the ``[time]`` lines. Returns (ok, {path:
+    launch counts})."""
+    from sparse_caption_tpu_torch.engine.training import TrainState
+    from sparse_caption_tpu_torch.kernels import KERNELS
+
+    good, paths, steps = True, {}, MAX_LEN
+    expected = {name: 0 for name in KERNELS}
+    expected.update(supermask=1 + steps, supermask_bwd=1 + steps, lstm_cell=2 * steps, lstm_cell_bwd=2 * steps,
+                    additive_attention=steps, additive_attention_bwd=steps, vocab_log_softmax=steps,
+                    vocab_log_softmax_bwd=steps, scheduled_sample=steps - 1)
+    ud = build_updown_ss(SEED + 38)
+    for b, precision in ((TRAIN_BATCH, "fp32"), (TRAIN_BATCH, "bf16"), (TRAIN_BIG_BATCH, "bf16")):
+        paths["updown_ss_train_step"] = run_train_phase(ud, gen, b, precision, expected, UPDOWN_CONFIG,
+                                                        make_updown_train_batch, "updown ss train")
+    step, state = make_train_step(ud, "bf16", UPDOWN_CONFIG), [TrainState()]
+    batch = make_updown_train_batch(gen, TRAIN_BIG_BATCH)
+    profile_window(f"Up-Down XE step with scheduled sampling, bf16 batch {TRAIN_BIG_BATCH}x{SEQ_PER_IMG}",
+                   lambda: state.append(step(state.pop(), batch)[0]))
+    del ud, step, state, batch
+    torch.cuda.empty_cache()
+    flips: list = []
+    good &= whole_step_check(SEED, gen, lambda: build_updown_ss(SEED + 38, dropout=False), make_updown_train_batch,
+                             UPDOWN_CONFIG, "updown ss whole-step", context=lambda: card_ss_tokens(flips))
+    log(f"[updown ss whole-step] scheduled-sample tokens of the CPU differing from the card's, step by step: {flips} "
+        f"(the CPU took the card's)")
+    good &= len(flips) == steps - 1
+    torch.cuda.empty_cache()
+
+    log(f"[time] {time.perf_counter() - t0:.1f}s since the build began (ORT beam-sample SCST)")
+    model = build_scst_model(SEED + 39)
+    expected = ort_beam_scst_launches(PAPER["num_layers"], steps, len(masked_shapes()), KERNELS)
+    for b in SCST_BATCHES:
+        paths["ort_beam_scst_step"], step, state, batch = run_scst_phase(
+            model, gen, b, expected, label="ort beam scst", config=BEAM_SCST_CONFIG, steps=BEAM_SCST_STEPS)
+    held = [state]
+    profile_window(f"ORT beam-sample SCST step, f32 batch {SCST_BATCHES[-1]}x{SCST_SAMPLES}",
+                   lambda: held.append(step(held.pop(), batch)[0]))
+    del step, batch, held, state
+    good &= beam_replay_check(model, gen, label="ort beam replay")
+    del model
+    torch.cuda.empty_cache()
+    good &= scst_whole_step_check(SEED + 39, gen, label="ort beam scst-step", config=BEAM_SCST_CONFIG)
+    torch.cuda.empty_cache()
+
+    log(f"[time] {time.perf_counter() - t0:.1f}s since the build began (Up-Down beam-sample SCST)")
+    ud = build_updown_scst(SEED + 39)
+    expected = updown_beam_scst_launches(steps, KERNELS)
+    for b in UPDOWN_SCST_BATCHES:
+        paths["updown_beam_scst_step"], step, state, batch = run_scst_phase(
+            ud, gen, b, expected, UPDOWN_SCST_SAMPLES, updown_scst_batch, "updown beam scst", config=BEAM_SCST_CONFIG,
+            steps=BEAM_SCST_STEPS)
+    held = [state]
+    profile_window(f"Up-Down beam-sample SCST step, f32 batch {UPDOWN_SCST_BATCHES[-1]}x{UPDOWN_SCST_SAMPLES}",
+                   lambda: held.append(step(held.pop(), batch)[0]))
+    del step, batch, held, state
+    good &= beam_replay_check(ud, gen, make_updown_batch, UPDOWN_SCST_SAMPLES, "updown beam replay")
+    del ud
+    torch.cuda.empty_cache()
+    good &= scst_whole_step_check(SEED + 39, gen, build_updown_scst, make_updown_batch, "updown beam scst-step",
+                                  config=BEAM_SCST_CONFIG)
+    torch.cuda.empty_cache()
+    return good, paths
+
+
 def card_line() -> str:
     out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True)
@@ -5283,6 +5765,7 @@ def main() -> int:
     ok &= check_radix_reward(results)
     ok &= check_decode_variant_kernels(torch.Generator(device="cuda").manual_seed(SEED + 36), results)
     torch.cuda.empty_cache()
+    ok &= check_ss_beam_kernels(torch.Generator(device="cuda").manual_seed(SEED + 38), results)
     if not ok:
         log("[kernel] a kernel disagrees with its plain version")
         return 1
@@ -5438,6 +5921,12 @@ def main() -> int:
         return 1
 
     log(f"[time] {time.perf_counter() - t0:.1f}s since the build began")
+    # Up-Down's scheduled sampling (K9's ss mode) and beam-sample SCST (K2's backward through the map)
+    good, ss_beam_paths = run_ss_beam_phase(torch.Generator(device="cuda").manual_seed(SEED + 39), t0)
+    if not good:
+        return 1
+
+    log(f"[time] {time.perf_counter() - t0:.1f}s since the build began")
     paths = {"serve": serve_counts, "train_step": train_counts, "scst_step": scst_counts,
              "updown_serve": ud_serve_counts, "updown_train_step": ud_train_counts,
              "updown_scst_step": ud_scst_counts, "prune_update": prune_counts, "acort_serve": acort_serve_counts,
@@ -5446,6 +5935,7 @@ def main() -> int:
     paths.update(zip(XSMALL_PATHS, (xsmall_serve, xsmall_train)))
     paths.update(zip(SUPERMASK_PATHS, (sm_scst, ud_sm_scst)))
     paths.update(variant_paths)
+    paths.update(ss_beam_paths)
     kernels = []
     for name in _build.SOURCES:
         entries = [e for e, k in KERNELS.items() if k.library_name == name]
@@ -5464,7 +5954,8 @@ def main() -> int:
     # ACORT-small's instances (head width 32), K10's radix mode and ORT-xsmall's instances (head width 13):
     # their own entries, launches on their model's paths
     for modes, model_paths in ((ACORT_SMALL_MODES, ACORT_SMALL_PATHS), (XSMALL_MODES, XSMALL_PATHS),
-                               (SUPERMASK_MODES, SUPERMASK_PATHS), (VARIANT_MODES, VARIANT_PATHS)):
+                               (SUPERMASK_MODES, SUPERMASK_PATHS), (VARIANT_MODES, VARIANT_PATHS),
+                               (SS_BEAM_MODES, SS_BEAM_PATHS)):
         for mode, library, entries, replaces in modes:
             by_path = {path: sum(paths[path][e] for e in entries) for path in model_paths}
             src = _build.CSRC / f"{library}.cu"

@@ -11,11 +11,13 @@ Dispatch on the opt dict as the JAX package does:
 * else: greedy
 
 ``decode_train=True`` decodes under the train policy (the SCST sampling
-phase): dropout keyed per step from the ``rng`` seed's streams
-(``ops.rng.decode_train_keys``), masks applied as in training, f32 logits.
-Beam search under the train policy raises ``NotImplementedError`` until its
-slice. Memory stays one row per image for every model: the beam or sample
-rows of an image read its row.
+phase; beam search too, for beam-sample SCST): dropout keyed per step from
+the ``rng`` seed's streams (``ops.rng.decode_train_keys``), masks applied as
+in training (the cross K/V projection's drawn once under the cache stream),
+f32 logits. ``generate(..., return_decisions=True)`` also returns a beam
+search's decisions (``decoding.beam.BeamDecisions``), which the SCST
+gradient pass replays. Memory stays one row per image for every model: the
+beam or sample rows of an image read its row.
 """
 
 from __future__ import annotations
@@ -41,14 +43,15 @@ def staggered_tokens(snap: torch.Tensor, off: int) -> torch.Tensor:
 
 @torch.no_grad()
 def generate(model, memory: Dict[str, Any], opt: Optional[Dict[str, Any]] = None, rng: Optional[int] = None,
-             noise=None):
+             noise=None, return_decisions: bool = False):
     """Captions from an encoded memory dict (``model.encode``), on the
     memory's device. ``rng``: the seed of the decode's random streams
     (required with ``decode_train``; sampling otherwise defaults to 0);
     ``noise``: explicit per-step noise for the CPU plain version
     (``decoding.sample.sample_decode``). Returns (seq (B, K, max_len),
     seq_logprobs (B, K, max_len)); beam search puts the best beam first (of
-    each group, the groups in order)."""
+    each group, the groups in order), and with ``return_decisions`` (one
+    group only) also returns its ``BeamDecisions``."""
     opt = opt or {}
     num_random_sample = int(opt.get("num_random_sample", 0))
     beam_size = int(opt.get("beam_size", 1))
@@ -56,18 +59,25 @@ def generate(model, memory: Dict[str, Any], opt: Optional[Dict[str, Any]] = None
     max_len = int(opt.get("max_seq_length", model.max_seq_length))
     decoding_constraint = int(opt.get("decoding_constraint", 0))
     b = memory["mask"].shape[0]  # every model's memory carries its (B, R) region mask
+    cache_rng = step_rng = None
+    if decode_train:
+        if rng is None:
+            raise ValueError("decode_train needs an rng seed")
+        keys = decode_train_keys(int(rng))
+        step_rng, cache_rng = KeyedStream(keys.dropout), KeyedStream(keys.cache)
 
     if beam_size > 1 and num_random_sample <= 0:
-        if decode_train:
-            raise NotImplementedError("beam search under the train policy (beam-sample SCST) lands in a later slice")
         common = dict(bos_id=model.bos_id, eos_id=model.eos_id, pad_id=model.pad_id, unk_id=model.unk_id,
                       length_penalty=str(opt.get("length_penalty", "")), decoding_constraint=decoding_constraint,
                       suppress_unk=int(opt.get("suppress_UNK", 0)), bad_ending_ids=opt.get("bad_ending_ids"))
-        step = lambda it, cache, t: model.decode_step_logits(it, cache, t, memory)  # noqa: E731
+        step = lambda it, cache, t: model.decode_step_logits(it, cache, t, memory, decode_train, step_rng)  # noqa: E731
         group_size = int(opt.get("group_size", 1))
         if group_size <= 1:
-            cache = model.init_cache(memory, max_len, beam_size, beam_ancestry=True)
-            return beam_search(step, cache, b, beam_size, max_len, **common)
+            cache = model.init_cache(memory, max_len, beam_size, beam_ancestry=True, train=decode_train,
+                                     rng=cache_rng)
+            return beam_search(step, cache, b, beam_size, max_len, return_decisions=return_decisions, **common)
+        if return_decisions:
+            raise ValueError("diverse beam search returns no decisions")
         # diverse beam search: the groups as sequential searches; group g at
         # local time t reads earlier group p's live beams' token at t as of
         # p's step t + (g - p) (its snapshots)
@@ -77,7 +87,7 @@ def generate(model, memory: Dict[str, Any], opt: Optional[Dict[str, Any]] = None
         seqs, lps, snaps = [], [], []
         for divm in range(group_size):
             prev = torch.cat([staggered_tokens(snaps[p], divm - p) for p in range(divm)], dim=1) if divm else None
-            cache = model.init_cache(memory, max_len, bdash, beam_ancestry=True)
+            cache = model.init_cache(memory, max_len, bdash, beam_ancestry=True, train=decode_train, rng=cache_rng)
             seq_g, lp_g, snap_g = beam_search(step, cache, b, bdash, max_len, diversity_penalty_tokens=prev,
                                               diversity_lambda=lam, return_seq_snapshots=True, **common)
             seqs.append(seq_g)
@@ -91,13 +101,9 @@ def generate(model, memory: Dict[str, Any], opt: Optional[Dict[str, Any]] = None
             raise ValueError(f"beam_size must be < 1 for random sampling, got {beam_size}")
         method = str(opt.get("sample_method", "random"))
         rows = num_random_sample
-    sample_key = 0 if rng is None else int(rng)
-    cache_rng = step_rng = None
-    if decode_train:
-        if rng is None:
-            raise ValueError("decode_train needs an rng seed")
-        keys = decode_train_keys(int(rng))
-        sample_key, step_rng, cache_rng = keys.sample, KeyedStream(keys.dropout), KeyedStream(keys.cache)
+    if return_decisions:
+        raise ValueError("only beam search returns decisions")
+    sample_key = keys.sample if decode_train else (0 if rng is None else int(rng))
     cache = model.init_cache(memory, max_len, rows, train=decode_train, rng=cache_rng)
 
     def step_fn(it, cache, t):

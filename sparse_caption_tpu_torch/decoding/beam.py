@@ -24,16 +24,41 @@ Semantics kept from the reference:
   local time (``diversity_penalty_tokens``, kernel K4's prologue) and returns
   its live beams' sequences after every step (``return_seq_snapshots``),
   from which later groups read their staggered view
+* beam-sample SCST: the search returns its decisions (``BeamDecisions``:
+  each step's parent beams, chosen tokens and finished-merge picks) and takes
+  them back in a forced mode, which applies them in place of K4's top-K and
+  the score merges but keeps every gather, so that ``done_seq_lp`` is a
+  differentiable function of the steps' log-probs (kernel K13, f32). The
+  JAX package differentiates its search itself; the port's gradient pass
+  runs other code (autograd Functions), whose last bits may differ, and a
+  re-decided search could turn at one near-tie. With gradients, the gathers
+  of the log-probs and of a reordered cache (Up-Down's LSTM states) sum each
+  source's picks in their backward by a one-hot product in f64 (the JAX
+  package's one-hot einsum; deterministic, no atomics), not through
+  ``gather`` / ``index_select``'s CUDA backward
 """
 
 from __future__ import annotations
 
-from typing import Callable, Optional, Sequence, Tuple
+from typing import Callable, NamedTuple, Optional, Sequence, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from sparse_caption_tpu_torch.decoding.penalties import penalty_fn
 from sparse_caption_tpu_torch.kernels.beam_topk import NEG_BIG, beam_topk, topk_lower_index
+from sparse_caption_tpu_torch.kernels.vocab_log_softmax import vocab_log_softmax
+
+
+class BeamDecisions(NamedTuple):
+    """What a search decided at each step, (max_len, B, K) int64 each."""
+
+    beam_ix: torch.Tensor  # the parent beam of each new live beam
+    tokens: torch.Tensor  # the token each new live beam appended
+    best_ix: torch.Tensor  # the finished-merge picks: of [done set, live beams], the K kept
+
+    def to(self, device) -> "BeamDecisions":
+        return BeamDecisions(*(x.to(device) for x in self))
 
 
 def _pick(grid, beam_ix, rank_ix):
@@ -48,6 +73,34 @@ def _gather_beams(x, beam_ix):
     return x.gather(1, idx.expand(*beam_ix.shape, *x.shape[2:]))
 
 
+class _BeamGather(torch.autograd.Function):
+    """``_gather_beams`` whose backward sums each source row's picks by a
+    one-hot product in f64 (exact to well below an f32 ulp whatever the
+    order, deterministic: no atomics)."""
+
+    @staticmethod
+    def forward(ctx, x, beam_ix):
+        ctx.save_for_backward(beam_ix)
+        ctx.sources = x.shape[1]
+        return _gather_beams(x, beam_ix)
+
+    @staticmethod
+    def backward(ctx, grad):
+        (beam_ix,) = ctx.saved_tensors
+        b, k = beam_ix.shape
+        onehot = F.one_hot(beam_ix, ctx.sources).to(torch.float64)  # (B, K, M)
+        dx = torch.bmm(onehot.transpose(1, 2), grad.reshape(b, k, -1).to(torch.float64))
+        return dx.to(grad.dtype).reshape(b, ctx.sources, *grad.shape[2:]), None
+
+
+def gather_beams(x, beam_ix):
+    """x (B, M, ...) -> (B, K, ...): x[b, beam_ix[b, j]]; with gradients
+    through ``_BeamGather``."""
+    if torch.is_grad_enabled() and x.requires_grad:
+        return _BeamGather.apply(x, beam_ix)
+    return _gather_beams(x, beam_ix)
+
+
 def _leaves(tree):
     if isinstance(tree, torch.Tensor):
         yield tree
@@ -56,14 +109,19 @@ def _leaves(tree):
             yield from _leaves(v)
 
 
-def _reorder_rows(tree, rows):
-    """Every tensor of ``tree`` gathered along its first axis by ``rows``."""
+def _reorder_rows(tree, beam_ix, rows):
+    """Every tensor of ``tree`` (B*K, ...) gathered along its first axis by
+    parent beam: ``rows`` the flat parent rows; with gradients by
+    ``gather_beams`` on the (B, K, ...) view."""
     if isinstance(tree, torch.Tensor):
+        if torch.is_grad_enabled() and tree.requires_grad:
+            b, k = beam_ix.shape
+            return gather_beams(tree.reshape(b, k, *tree.shape[1:]), beam_ix).reshape(tree.shape)
         return tree.index_select(0, rows)
     if isinstance(tree, dict):
-        return {k: _reorder_rows(v, rows) for k, v in tree.items()}
+        return {k: _reorder_rows(v, beam_ix, rows) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
-        return type(tree)(_reorder_rows(v, rows) for v in tree)
+        return type(tree)(_reorder_rows(v, beam_ix, rows) for v in tree)
     return tree
 
 
@@ -73,7 +131,7 @@ def _reorder_cache(cache, beam_ix):
         return dict(cache, ancestry=_gather_beams(cache["ancestry"], beam_ix))
     b, k = beam_ix.shape
     rows = (beam_ix + torch.arange(b, device=beam_ix.device)[:, None] * k).reshape(-1)
-    return {key: v if key == "static" else _reorder_rows(v, rows) for key, v in cache.items()}
+    return {key: v if key == "static" else _reorder_rows(v, beam_ix, rows) for key, v in cache.items()}
 
 
 def beam_search(
@@ -94,6 +152,8 @@ def beam_search(
     diversity_penalty_tokens: Optional[torch.Tensor] = None,
     diversity_lambda: float = 0.5,
     return_seq_snapshots: bool = False,
+    return_decisions: bool = False,
+    forced: Optional[BeamDecisions] = None,
 ) -> Tuple[torch.Tensor, ...]:
     """Beam search over ``step_fn(it, cache, t) -> (logits (B*K, V), cache)``.
 
@@ -106,7 +166,13 @@ def beam_search(
     ``diversity_penalty_tokens``: (B, P, max_len), the tokens that earlier
     groups' P beams chose at each local time (diverse beam search), each
     lowering that word by ``diversity_lambda`` a time in every beam of its
-    image."""
+    image. ``return_decisions``: also the search's ``BeamDecisions`` (last).
+    ``forced``: the decisions of an earlier search, applied in place of the
+    top-K and the merges (the constraints and the length penalty then play no
+    part); each step's log-probs come from K13 over its logits, with
+    gradients where the step's logits carry them."""
+    if forced is not None:
+        return _forced_search(step_fn, init_cache, batch_size, beam_size, max_len, bos_id, pad_id, forced)
     k = beam_size
     b = batch_size
     dev = next(_leaves(init_cache)).device
@@ -122,7 +188,7 @@ def beam_search(
     done_seq = seq.clone()
     done_seq_lp = seq_lp.clone()
     div = None if diversity_penalty_tokens is None else diversity_penalty_tokens.to(torch.int32)
-    snapshots = []
+    snapshots, decided = [], []
 
     for t in range(max_len):
         logits, cache = step_fn(tokens, cache, t)  # (B*K, V)
@@ -157,6 +223,42 @@ def beam_search(
 
         sum_lp = torch.where(is_end, sum_lp - 1000.0, sum_lp)
         tokens = tok_ix.reshape(-1).int()
+        if return_decisions:
+            decided.append((beam_ix, tok_ix, best_ix))
+    out = (done_seq, done_seq_lp)
     if return_seq_snapshots:
-        return done_seq, done_seq_lp, torch.stack(snapshots)
+        out += (torch.stack(snapshots),)
+    if return_decisions:
+        out += (BeamDecisions(*(torch.stack(x) for x in zip(*decided))),)
+    return out
+
+
+def _forced_search(step_fn, cache, b: int, k: int, max_len: int, bos_id: int, pad_id: int,
+                   forced: BeamDecisions):
+    """``beam_search`` replaying ``forced``: the same reorders and merges, the
+    chosen log-probs gathered from each step's K13 log-softmax (f32)."""
+    if tuple(forced.tokens.shape) != (max_len, b, k):
+        raise ValueError(f"forced decisions of shape {tuple(forced.tokens.shape)} for ({max_len}, {b}, {k})")
+    dev = next(_leaves(cache)).device
+    tokens = torch.full((b * k,), bos_id, dtype=torch.int32, device=dev)
+    seq = torch.full((b, k, max_len), pad_id, dtype=torch.long, device=dev)
+    seq_lp = torch.zeros((b, k, max_len), device=dev)
+    done_seq, done_seq_lp = seq.clone(), seq_lp.clone()
+    column = torch.arange(max_len, device=dev)
+    for t in range(max_len):
+        logits, cache = step_fn(tokens, cache, t)  # (B*K, V)
+        lp = vocab_log_softmax(logits, torch.float32)
+        vocab = lp.shape[1]
+        beam_ix, tok_ix, best_ix = forced.beam_ix[t], forced.tokens[t], forced.best_ix[t]
+        # (parent, token) pairs are distinct within an image: the gather's backward has no collisions
+        chosen_lp = lp.reshape(b, k * vocab).gather(1, beam_ix * vocab + tok_ix)
+        seq = _gather_beams(seq, beam_ix)
+        seq_lp = gather_beams(seq_lp, beam_ix)
+        cache = _reorder_cache(cache, beam_ix)
+        at_t = column == t
+        seq = torch.where(at_t, tok_ix[..., None], seq)
+        seq_lp = torch.where(at_t, chosen_lp[..., None], seq_lp)
+        done_seq = _gather_beams(torch.cat([done_seq, seq], dim=1), best_ix)
+        done_seq_lp = gather_beams(torch.cat([done_seq_lp, seq_lp], dim=1), best_ix)
+        tokens = tok_ix.reshape(-1).int()
     return done_seq, done_seq_lp

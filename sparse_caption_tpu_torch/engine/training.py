@@ -21,7 +21,7 @@ compute dtype, as the JAX package's do).
 
 SCST (the two-phase step with the device reward, ``scst_reward device``;
 supermask, mask_freeze or dense models of either family, ``scst_sample
-random``):
+random`` or ``beam_search``):
 
     reward_fn = make_reward_fn(DfTable.from_pickle(df_path, tok2id), bleu_weight=(0, 0, 0, 1))
     step = make_scst_step(model, opt_w, opt_m, config, reward_fn)
@@ -40,6 +40,7 @@ import torch
 from torch import nn
 
 from sparse_caption_tpu_torch.decoding.api import generate
+from sparse_caption_tpu_torch.decoding.beam import BeamDecisions, beam_search
 from sparse_caption_tpu_torch.engine import losses as losses_mod
 from sparse_caption_tpu_torch.engine.optim import Optimizer
 from sparse_caption_tpu_torch.kernels.vocab_log_softmax import vocab_log_softmax
@@ -150,6 +151,27 @@ def scan_log_probs(model: nn.Module, memory: Dict, flat: torch.Tensor, dec_seed:
     return torch.stack(out, dim=1)
 
 
+def beam_log_probs(model: nn.Module, memory: Dict, decisions: BeamDecisions, dec_seed: int) -> Tuple:
+    """The train-mode beam search of ``decoding.generate(..., decode_train=True,
+    rng=dec_seed, return_decisions=True)`` run again, step by step, with
+    gradients, applying its ``decisions`` (``beam_search``'s forced mode):
+    its cache under the cache stream, step t under the dropout stream's step
+    view, each step's log-probs through kernel K13 and the chosen entries
+    through the search's gathers. Returns (done_seq (B, K, T), done_seq_lp
+    (B, K, T) f32), the second differentiable (the JAX package's beam search
+    differentiated whole, ``engine/training.py:738-742,768-770``)."""
+    keys = decode_train_keys(dec_seed)
+    steps, b, k = decisions.tokens.shape
+    cache = model.init_cache(memory, steps, k, beam_ancestry=True, train=True, rng=KeyedStream(keys.cache))
+    step_rng = KeyedStream(keys.dropout)
+
+    def step(it, cache, t):
+        return model.decode_step_logits(it, cache, t, memory, True, step_rng)
+
+    return beam_search(step, cache, b, k, steps, bos_id=model.bos_id, eos_id=model.eos_id, pad_id=model.pad_id,
+                       forced=decisions)
+
+
 def make_scst_step(model: nn.Module, opt_w: Optimizer, opt_m: Optimizer, config, reward_fn):
     """-> ``scst_step(state, batch) -> (state, loss, aux)``, the two-phase SCST
     step with the device reward (``reward_fn``: ``scst.device_reward.make_reward_fn``).
@@ -163,8 +185,10 @@ def make_scst_step(model: nn.Module, opt_w: Optimizer, opt_m: Optimizer, config,
 
     1. ``scst_step.sample_fn(state, batch)``, under ``torch.no_grad``: a
        train-mode encode and ``scst_num_samples`` sampled captions per image
-       under the train policy (keyed dropout per step), and with
-       ``scst_baseline greedy`` an eval-mode greedy caption;
+       under the train policy (keyed dropout per step; with ``scst_sample
+       beam_search`` the beams of a train-mode beam search of that width,
+       and its decisions), and with ``scst_baseline greedy`` an eval-mode
+       greedy caption;
     2. ``scst_step.grad_fn(state, batch, res)``: rewards of the samples (K10)
        minus the baseline (the other samples' mean, or the greedy caption's
        reward), then ONE teacher-forced forward in replay mode under the same
@@ -179,26 +203,34 @@ def make_scst_step(model: nn.Module, opt_w: Optimizer, opt_m: Optimizer, config,
     cannot reproduce that, so the ORT's gradient pass re-encodes and runs
     the decode again step by step with gradients (``scan_log_probs``, K2's
     and K3's backward kernels); Up-Down's unrolled replay is that scan
-    already (``STEPWISE_REPLAY``).
+    already (``STEPWISE_REPLAY``). Under beam search no teacher-forced pass
+    can replay the decode (a surviving beam's activations came from its
+    ancestor's row, under that row's draws; Up-Down's states are reordered
+    every step), so the gradient pass of every model re-encodes and runs the
+    search again with gradients, applying the sampling pass's decisions
+    (``beam_log_probs``: the ORT through K2's backward in its ancestry mode,
+    Up-Down through the states' reorders).
 
     ``config["scst_reward"]`` must be ``"device"``: the host reward, the JAX
     package's default when the key is absent, raises ``NotImplementedError``
-    until it is ported. Beam-sample SCST and the pipelined and fused steps
-    raise ``NotImplementedError`` too."""
+    until it is ported. The pipelined and fused steps raise
+    ``NotImplementedError`` too."""
     num_samples = int(config.get("scst_num_samples", 15))
     sample_mode = str(config.get("scst_sample", "random"))
     baseline_mode = str(config.get("scst_baseline", "greedy"))
-    if sample_mode == "beam_search":
-        raise NotImplementedError("beam-sample SCST lands in a later slice")
-    if sample_mode != "random" or baseline_mode not in ("greedy", "sample"):
+    if sample_mode not in ("random", "beam_search") or baseline_mode not in ("greedy", "sample"):
         raise ValueError(f"bad scst_sample `{sample_mode}` or scst_baseline `{baseline_mode}`")
     if str(config.get("scst_reward", "host")) != "device":  # the JAX package's default is the host reward
         raise NotImplementedError("the host reward path and its scorer land in a later slice")
     scan = (model.mask_cfg is not None and model.mask_cfg.is_supermask
             and not getattr(model, "STEPWISE_REPLAY", False))
+    beams = sample_mode == "beam_search"
     max_len = int(config.get("max_seq_length", 18)) - 1
-    sample_opt = {"num_random_sample": num_samples, "beam_size": 0, "max_seq_length": max_len,
-                  "temperature": float(config.get("scst_temperature", 1.0)), "decode_train": True}
+    if beams:
+        sample_opt = {"beam_size": num_samples, "max_seq_length": max_len, "decode_train": True}
+    else:
+        sample_opt = {"num_random_sample": num_samples, "beam_size": 0, "max_seq_length": max_len,
+                      "temperature": float(config.get("scst_temperature", 1.0)), "decode_train": True}
     greedy_opt = {"beam_size": 1, "max_seq_length": max_len}
     base_seed = derive_key(int(config.get("seed", 8888)) + 1, 0x5C57)
 
@@ -217,7 +249,11 @@ def make_scst_step(model: nn.Module, opt_w: Optimizer, opt_m: Optimizer, config,
     def sample_fn(state: TrainState, batch: Dict) -> Dict:
         enc_key, dec_seed = seeds(state)
         memory = encode(batch, KeyedStream(enc_key))
-        out = {"sample": generate(model, memory, sample_opt, rng=dec_seed)[0]}
+        if beams:
+            seq, _, decisions = generate(model, memory, sample_opt, rng=dec_seed, return_decisions=True)
+            out = {"sample": seq.to(torch.int32), "decisions": decisions}
+        else:
+            out = {"sample": generate(model, memory, sample_opt, rng=dec_seed)[0]}
         if baseline_mode == "greedy":
             out["greedy"] = generate(model, encode(batch), greedy_opt)[0]
         return out
@@ -238,7 +274,12 @@ def make_scst_step(model: nn.Module, opt_w: Optimizer, opt_m: Optimizer, config,
         opt_w.zero_grad()
         opt_m.zero_grad()
         enc_rng = KeyedStream(enc_key)
-        if scan:  # the decode itself, with gradients: its encode, its cache and its steps
+        if beams:  # the search itself, with gradients, on the sampling pass's decisions
+            seq, seq_lp = beam_log_probs(model, encode(batch, enc_rng), res["decisions"], dec_seed)
+            if not torch.equal(seq, sample.to(seq.dtype)):
+                raise ValueError("the decisions do not give the sampled beams")
+            seq_lp = seq_lp.reshape(b * s, t)
+        elif scan:  # the decode itself, with gradients: its encode, its cache and its steps
             seq_lp = scan_log_probs(model, encode(batch, enc_rng), flat, dec_seed)
         else:
             with model.mask_set(enc_rng):  # the replay's masked products: one K5 set (ORT), or the encode's (Up-Down)

@@ -28,6 +28,9 @@ nucleus modes)
 beam_topk (K4 diverse)            csrc/beam_topk.cu                    decoding/beam.py:176-184
 box_attention[_train] raw (K1)    csrc/box_attention.cu                models/layers.py:338-365 (raw geometry)
 box_attention_bwd raw (K7)        csrc/box_attention_bwd.cu            gradients of the same
+ancestry_self_attention (K2 bwd,  csrc/ancestry_self_attention_bwd.cu  gradient of layers.py:320-333
+ancestry mode)                                                         (through ancestry_onehot)
+scheduled_sample (K9 ss mode)     csrc/sample_step.cu                  models/up_down.py:170-183
 ================================  ===================================  =============================================
 
 A wrapper given CPU tensors runs the plain version; given CUDA tensors it
@@ -43,7 +46,10 @@ keyed mode draws its uniforms in the kernel from Philox (supermask SCST).
 K9's sample methods (Gumbel, top-k, nucleus), K4's diverse-beam penalty and
 K1 / K7 on the raw 4-wide geometry (``--no_box_trigonometric_embedding``)
 are modes of the same entry points with launch counts of their own
-(``sample_step_*``, ``beam_topk_diverse``, ``*_raw``).
+(``sample_step_*``, ``beam_topk_diverse``, ``*_raw``). K2's backward through
+the beam-ancestry map (beam-sample SCST) and K9's scheduled-sampling mode
+(Up-Down's XE forward with ``ss_prob > 0``) are entry points of their own
+(``ancestry_self_attention_bwd_anc``, ``scheduled_sample``).
 """
 
 from sparse_caption_tpu_torch.kernels import add_ref_layernorm as _k6
@@ -76,6 +82,7 @@ KERNELS = {
     "ancestry_self_attention": _k2.KERNEL,
     "ancestry_self_attention_kv": _k2.KERNEL_KV,
     "ancestry_self_attention_bwd": _k2.KERNEL_BWD,
+    "ancestry_self_attention_bwd_anc": _k2.KERNEL_BWD_ANC,
     "grouped_cross_attention": _k3.KERNEL,
     "grouped_cross_attention_kv": _k3.KERNEL_KV,
     "grouped_cross_attention_bwd": _k3.KERNEL_BWD,
@@ -96,6 +103,7 @@ KERNELS = {
     "sample_step_gumbel": _k9.KERNEL_GUMBEL,
     "sample_step_topk": _k9.KERNEL_TOPK,
     "sample_step_nucleus": _k9.KERNEL_NUCLEUS,
+    "scheduled_sample": _k9.KERNEL_SS,
     "cider_reward": _k10.KERNEL,
     "lstm_cell": _k11.KERNEL,
     "lstm_cell_bwd": _k11.KERNEL_BWD,

@@ -7,16 +7,18 @@ With ``cache_v=None`` (a kv-shared layer, ACORT: one cache array read as K
 and V) it launches the kernel's kv mode, which reads each cached slot once
 for both the scores and the output.
 
-The backward (supermask SCST: the gradient pass runs the decode itself,
-step by step, with gradients) is ``decode_self_attention``: the step's
-write of slot t and K2, as one autograd Function (``DecodeSelfStep``)
-whose backward is kernel K2's backward (``csrc/ancestry_self_attention_bwd.cu``;
-``ancestry_self_attention_backward``, plain version
-``ancestry_self_attention_backward_plain``, the autograd of the plain
-forward). It is ported for the identity map, unshared K and V, f32; the
-ancestry map (beam-sample SCST), the kv mode and bf16 raise
-``NotImplementedError`` on every device, and the kernel takes head width
-64 only.
+The backward (supermask and beam-sample SCST: the gradient pass runs the
+decode itself, step by step, with gradients) is ``decode_self_attention``:
+the step's write of slot t and K2, as one autograd Function
+(``DecodeSelfStep``) whose backward is kernel K2's backward
+(``csrc/ancestry_self_attention_bwd.cu``; ``ancestry_self_attention_backward``,
+plain version ``ancestry_self_attention_backward_plain``, the autograd of
+the plain forward). It is ported for unshared K and V in f32, for the
+identity map (the sampling decode) and through the beam-ancestry map (the
+ancestry mode, its own entry point and launch count: slot t' of row j
+receives the sum over the image's beams that read it, in beam order); the
+kv mode and bf16 raise ``NotImplementedError`` on every device, and the
+kernel takes head width 64 only.
 
 The cache is written in place at every step, and autograd would give no
 order in which the steps' backwards run if each of them added to one
@@ -28,7 +30,9 @@ backward runs after every later step's and receives the cache's gradient
 contributions already added. It adds its own for slots 0..t-1 into that
 buffer, returns slot t's total (the buffer's slot t plus its own) as the
 gradient of k_t and v_t, zeroes slot t (the input cache's slot t was
-overwritten) and hands the buffer on to step t - 1. A design that restacked
+overwritten) and hands the buffer on to step t - 1. Under beam search the
+cache rows never move; the map changes every step (the search gathers a
+new one), so each step saves its own (B, K, T) copy. A design that restacked
 the cache from the per-step k_t, v_t at every step would need no order,
 but copies O(T^2) bytes and keeps every step's stacked copy for the
 backward: at 64 x 15 samples, 17 steps and 6 layers about 3.6 GB of f32,
@@ -60,6 +64,11 @@ KERNEL_KV = _build.CudaKernel("ancestry_self_attention", "sct_ancestry_self_atte
 KERNEL_BWD = _build.CudaKernel("ancestry_self_attention_bwd", "sct_ancestry_self_attention_bwd", [
     _build.I, _build.P, _build.P, _build.P, _build.P, _build.P, _build.P, _build.P, _build.P, _build.P,
     _build.I, _build.I, _build.I, _build.I, _build.F32, _build.P,
+])
+# the ancestry mode: slot t' of row j gets the sum over the image's rows r with ancestry[r, t'] == j
+KERNEL_BWD_ANC = _build.CudaKernel("ancestry_self_attention_bwd", "sct_ancestry_self_attention_bwd_anc", [
+    _build.I, _build.P, _build.P, _build.P, _build.P, _build.P, _build.P, _build.P, _build.P, _build.P, _build.P,
+    _build.I, _build.I, _build.I, _build.I, _build.I, _build.F32, _build.P,
 ])
 BWD_HEAD_WIDTHS = (64,)  # the backward kernel's instances (f32)
 # cache slots the kernel takes: the rows PyTorch's warp softmax takes, whose
@@ -130,27 +139,32 @@ def ancestry_self_attention(q, cache_k, cache_v: Optional[torch.Tensor], ancestr
 
 
 # ------------------------------------------------------------------ backward
-def check_backward_supported(q, cache_v: Optional[torch.Tensor], ancestry: Optional[torch.Tensor]) -> None:
+def check_backward_supported(q, cache_v: Optional[torch.Tensor]) -> None:
     """What the backward does not take yet, on every device."""
-    if ancestry is not None:
-        raise NotImplementedError("K2's backward through the ancestry map (beam-sample SCST) lands in a later slice")
     if cache_v is None:
         raise NotImplementedError("K2's backward in the kv mode lands in a later slice")
     if q.dtype != torch.float32:
         raise NotImplementedError(f"K2's backward is ported in f32 (bf16 SCST lands in a later slice); got {q.dtype}")
 
 
-def ancestry_self_attention_backward_plain(q, cache_k, cache_v, dout, dcache_k, dcache_v, t: int):
+def anc_bwd_smem_bytes(beams: int, t: int, dk: int = 64) -> int:
+    """Shared memory of one block of the ancestry mode (``csrc`` ``anc_bwd_smem_bytes``):
+    p, ds and the map's slots 0..t of the image's beams, and their q and dout."""
+    return 4 * beams * (3 * (t + 1) + 2 * dk)
+
+
+def ancestry_self_attention_backward_plain(q, cache_k, cache_v, dout, dcache_k, dcache_v, t: int,
+                                           ancestry: Optional[torch.Tensor] = None):
     """The plain version: the autograd of ``ancestry_self_attention_plain``
-    (identity map) over slots 0..t; its dK / dV of slots 0..t-1 are added
-    into ``dcache_k`` / ``dcache_v`` in place and slot t of both is zeroed.
-    Returns (dq, dk_t, dv_t), dk_t = dcache_k[:, :, t] (as received) + slot
-    t's own dK."""
+    (through ``ancestry`` (B, K, T_max), or the identity map) over slots
+    0..t; its dK / dV of slots 0..t-1 are added into ``dcache_k`` /
+    ``dcache_v`` in place and slot t of both is zeroed. Returns (dq, dk_t,
+    dv_t), dk_t = dcache_k[:, :, t] (as received) + slot t's own dK."""
     with torch.enable_grad():
         qq = q.detach().requires_grad_()
         kk = cache_k[:, :, : t + 1].detach().requires_grad_()
         vv = cache_v[:, :, : t + 1].detach().requires_grad_()
-        out = ancestry_self_attention_plain(qq, kk, vv, None, t)
+        out = ancestry_self_attention_plain(qq, kk, vv, ancestry, t)
         dq, dk, dv = torch.autograd.grad(out, (qq, kk, vv), dout)
     dk_t = dcache_k[:, :, t] + dk[:, :, t]
     dv_t = dcache_v[:, :, t] + dv[:, :, t]
@@ -161,28 +175,46 @@ def ancestry_self_attention_backward_plain(q, cache_k, cache_v, dout, dcache_k, 
     return dq, dk_t, dv_t
 
 
-def ancestry_self_attention_backward(q, cache_k, cache_v, dout, dcache_k, dcache_v, t: int):
-    """The backward of one decode step's K2 (identity map, unshared, f32).
-    q, dout: (N, h, dk); cache_k/v: (N, h, T_max, dk), slots 0..t as the
-    forward read them; dcache_k/v: (N, h, T_max, dk), the caches' gradient
-    from the later steps, updated in place (slots < t += this step's dK /
-    dV, slot t zeroed). Returns (dq, dk_t, dv_t), each (N, h, dk)."""
-    check_backward_supported(q, cache_v, None)
+def ancestry_self_attention_backward(q, cache_k, cache_v, dout, dcache_k, dcache_v, t: int,
+                                     ancestry: Optional[torch.Tensor] = None):
+    """The backward of one decode step's K2 (unshared, f32). q, dout: (N, h,
+    dk); cache_k/v: (N, h, T_max, dk), slots 0..t as the forward read them;
+    dcache_k/v: (N, h, T_max, dk), the caches' gradient from the later
+    steps, updated in place (slots < t += this step's dK / dV, slot t
+    zeroed); ancestry: the step's map (B, K, T_max) int32, N = B*K (the
+    ancestry mode: slot t' of row j gets the sum over the image's rows r with
+    ancestry[b, r, t'] == j), or None for the identity map. Returns (dq,
+    dk_t, dv_t), each (N, h, dk)."""
+    check_backward_supported(q, cache_v)
     n, h, dk = q.shape
     t_max = cache_k.shape[2]
     check_tensor(dout, "dout", (n, h, dk), q.dtype)
     for name, c in (("cache_k", cache_k), ("cache_v", cache_v), ("dcache_k", dcache_k), ("dcache_v", dcache_v)):
         check_tensor(c, name, (n, h, t_max, dk), q.dtype)
+    kb = 1
+    if ancestry is not None:
+        kb = ancestry.shape[1] if ancestry.dim() == 3 else 0
+        if kb == 0 or ancestry.shape[0] * kb != n:
+            raise ValueError(f"ancestry: expected (B, K, {t_max}) with B*K == {n}, got {tuple(ancestry.shape)}")
+        check_tensor(ancestry, "ancestry", (n // kb, kb, t_max), torch.int32)
     if not 0 <= t < t_max:
         raise ValueError(f"t={t} outside the cache of {t_max} slots")
-    check_same_device(q, cache_k, cache_v, dout, dcache_k, dcache_v)
+    check_same_device(q, cache_k, cache_v, dout, dcache_k, dcache_v, ancestry)
     if q.device.type == "cpu":
-        return ancestry_self_attention_backward_plain(q, cache_k, cache_v, dout, dcache_k, dcache_v, t)
+        return ancestry_self_attention_backward_plain(q, cache_k, cache_v, dout, dcache_k, dcache_v, t, ancestry)
     if dk not in BWD_HEAD_WIDTHS:
         raise NotImplementedError(f"K2's backward kernel takes head width {BWD_HEAD_WIDTHS}; got dk={dk}")
     if h > 32 or t_max > MAX_SLOTS:
         raise ValueError(f"K2's backward kernel takes h <= 32, T_max <= {MAX_SLOTS}; got h={h} T_max={t_max}")
     dq, dk_t, dv_t = torch.empty_like(q), torch.empty_like(q), torch.empty_like(q)
+    if ancestry is not None:
+        if anc_bwd_smem_bytes(kb, t, dk) > _build.BLOCK_SMEM_LIMIT:
+            raise ValueError(f"K2's backward ancestry mode: {kb} beams at t={t} exceed a block's shared memory")
+        KERNEL_BWD_ANC.launch(dk, q.data_ptr(), cache_k.data_ptr(), cache_v.data_ptr(), dout.data_ptr(),
+                              ancestry.data_ptr(), dq.data_ptr(), dcache_k.data_ptr(), dcache_v.data_ptr(),
+                              dk_t.data_ptr(), dv_t.data_ptr(), n, h, kb, t_max, t, score_divisor(dk, q.dtype),
+                              _build.stream_handle(q))
+        return dq, dk_t, dv_t
     KERNEL_BWD.launch(dk, q.data_ptr(), cache_k.data_ptr(), cache_v.data_ptr(), dout.data_ptr(), dq.data_ptr(),
                       dcache_k.data_ptr(), dcache_v.data_ptr(), dk_t.data_ptr(), dv_t.data_ptr(), n, h, t_max, t,
                       score_divisor(dk, q.dtype), _build.stream_handle(q))
@@ -191,18 +223,20 @@ def ancestry_self_attention_backward(q, cache_k, cache_v, dout, dcache_k, dcache
 
 class DecodeSelfStep(torch.autograd.Function):
     """One decode step's self-attention with gradients: write k_t, v_t into
-    slot t of the caches (in place, ``mark_dirty``), K2 over slots 0..t.
-    The caches go in and come out, which orders the steps' backwards (see
-    the module's docstring)."""
+    slot t of the caches (in place, ``mark_dirty``), K2 over slots 0..t
+    through the step's ancestry map (or the identity). The caches go in and
+    come out, which orders the steps' backwards (see the module's
+    docstring)."""
 
     @staticmethod
-    def forward(ctx, q, k_t, v_t, cache_k, cache_v, t: int):
+    def forward(ctx, q, k_t, v_t, cache_k, cache_v, ancestry, t: int):
         cache_k[:, :, t] = k_t
         cache_v[:, :, t] = v_t
-        out = ancestry_self_attention(q, cache_k, cache_v, None, t)
+        out = ancestry_self_attention(q, cache_k, cache_v, ancestry, t)
         ctx.mark_dirty(cache_k, cache_v)
         ctx.save_for_backward(q)
         ctx.caches = (cache_k.detach(), cache_v.detach())  # aliases: later steps write slots > t only
+        ctx.ancestry = None if ancestry is None else ancestry.clone()  # the step's map
         ctx.t = t
         ctx.set_materialize_grads(False)
         return out, cache_k, cache_v
@@ -214,8 +248,9 @@ class DecodeSelfStep(torch.autograd.Function):
         dcache_k = torch.zeros_like(cache_k) if dcache_k is None else dcache_k.contiguous()
         dcache_v = torch.zeros_like(cache_v) if dcache_v is None else dcache_v.contiguous()
         dout = torch.zeros_like(q) if dout is None else dout.contiguous()
-        dq, dk_t, dv_t = ancestry_self_attention_backward(q, cache_k, cache_v, dout, dcache_k, dcache_v, ctx.t)
-        return dq, dk_t, dv_t, dcache_k, dcache_v, None
+        dq, dk_t, dv_t = ancestry_self_attention_backward(q, cache_k, cache_v, dout, dcache_k, dcache_v, ctx.t,
+                                                          ctx.ancestry)
+        return dq, dk_t, dv_t, dcache_k, dcache_v, None, None
 
 
 def decode_self_attention(q, k_t, v_t, cache_k, cache_v: Optional[torch.Tensor], ancestry: Optional[torch.Tensor],
@@ -223,11 +258,12 @@ def decode_self_attention(q, k_t, v_t, cache_k, cache_v: Optional[torch.Tensor],
     """One decode step of self-attention: k_t, v_t (N, h, dk) written into
     slot t of cache_k / cache_v (in place; cache_v=None under kv, where k_t
     is the one array's row), then K2 over slots 0..t. Where gradients are
-    asked for (supermask SCST's gradient pass), the two run as
-    ``DecodeSelfStep``, whose backward is K2's backward. Returns (N, h, dk)."""
+    asked for (the SCST gradient pass that runs the decode again), the two
+    run as ``DecodeSelfStep``, whose backward is K2's backward (through the
+    ancestry map under beam search). Returns (N, h, dk)."""
     if torch.is_grad_enabled() and any(x is not None and x.requires_grad for x in (q, k_t, v_t, cache_k, cache_v)):
-        check_backward_supported(q, cache_v, ancestry)
-        out, _, _ = DecodeSelfStep.apply(q, k_t, v_t, cache_k, cache_v, t)
+        check_backward_supported(q, cache_v)
+        out, _, _ = DecodeSelfStep.apply(q, k_t, v_t, cache_k, cache_v, ancestry, t)
         return out
     cache_k[:, :, t] = k_t
     if cache_v is not None:

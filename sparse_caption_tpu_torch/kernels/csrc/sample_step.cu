@@ -9,6 +9,10 @@
 // top-k and nucleus filters) and :69-90 sample_next_word (the Gumbel method),
 // together with the train-mode generator's f32 log_softmax
 // (sparse_caption_tpu/models/layers.py:465-472). Left to XLA on the TPU.
+// The ss mode (sct_scheduled_sample) replaces the scheduled sampling of the
+// Up-Down XE forward, sparse_caption_tpu/models/up_down.py:170-183 (a coin a
+// row against ss_prob, then jax.random.categorical on step t-1's
+// log-probs); left to XLA on the TPU too.
 //
 // For each row n of logits (N, V) in the compute dtype T:
 //   lp[v] = T((x[v] - max) - log(sum exp(x - max)))        (log_softmax, f32 stats)
@@ -41,6 +45,19 @@
 // and XLA's cumsum round in their own orders, so a row whose cutoff sum
 // lies within a few ulps of top_p may keep one entry more or less.
 //
+// The ss mode, for row n of step t-1's log-probs lp (N, V) in the compute
+// dtype T and the teacher token teacher[n] of step t:
+//   coin  = u_c < ss_prob,  u_c = (bits >> 8) 2^-24, bits: Philox (key, coin
+//           site), counter (coin site, t, n, 0), word 0 (f32, as JAX's coin)
+//   u[v]  = T: f32 ((bits >> 9) 2 + 1) 2^-24, bf16 ((bits >> 25) 2 + 1) 2^-8
+//           (exact in bf16, in (0, 1)); bits: counter (noise site, t, n,
+//           v / 4), word v % 4
+//   g[v]  = -T(log(-T(log(u[v]))))          (jax.random.gumbel in T: each
+//                                             log rounded to T)
+//   z[v]  = T(lp[v] + g[v]);  w = argmax z (ties to the lower index)
+//   out[n] = coin ? w : teacher[n]
+// A row whose coin fails reads nothing of lp.
+//
 // Bound on the H100 (N = 960 samples, V = 10000, f32): bytes. The logits are
 // read once (38.4 MB, 11.5 us at 3.35 TB/s); the 2.4M Philox calls and 19M
 // logf are below the card's integer and SFU rates. The nucleus's sort of the
@@ -61,6 +78,8 @@
 // still one launch a step: the random instance (greedy too) holds no filter
 // code, no top-k registers and no filter scratch in shared memory, so it
 // keeps the registers and occupancy it had before the filter modes came.
+// The ss mode is a kernel of its own (one block of 256 threads a row, the
+// last pass of the random mode on the given log-probs), one instance a dtype.
 #include <climits>
 #include <stdint.h>
 
@@ -296,6 +315,74 @@ sample_step_kernel(const T* __restrict__ logits, int V, const int* __restrict__ 
   }
 }
 
+
+// the ss mode's noise: a uniform with T's precision (exact in T), then
+// -log(-log(u)) with each log rounded to T, as jax.random.gumbel in T
+template <typename T>
+__device__ __forceinline__ float ss_gumbel(uint32_t bits);
+template <>
+__device__ __forceinline__ float ss_gumbel<float>(uint32_t bits) {
+  return -logf(-logf(uniform_of(bits)));
+}
+template <>
+__device__ __forceinline__ float ss_gumbel<__nv_bfloat16>(uint32_t bits) {
+  const float u = static_cast<float>((bits >> 25) * 2u + 1u) * 0x1p-8f;
+  return -round_to<__nv_bfloat16>(logf(-round_to<__nv_bfloat16>(logf(u))));
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kSampleThreads)
+scheduled_sample_kernel(const T* __restrict__ lp, int V, const int* __restrict__ teacher, int* __restrict__ out,
+                        int t, uint32_t k0, uint32_t k1, uint32_t coin_site, uint32_t noise_site, float ss_prob) {
+  __shared__ float red_a[32];
+  __shared__ int red_i[32];
+  const int row = blockIdx.x, lane = threadIdx.x & 31, warp = threadIdx.x / 32, nwarps = blockDim.x / 32;
+  const uint32_t coin_bits = philox4x32_10(Philox4{coin_site, (uint32_t)t, (uint32_t)row, 0u}, k0, k1).x;
+  if (!(static_cast<float>(coin_bits >> 8) * 0x1p-24f < ss_prob)) {  // the teacher's token
+    if (threadIdx.x == 0) out[row] = teacher[row];
+    return;
+  }
+  const T* x = lp + (size_t)row * V;
+  float best = -INFINITY;
+  int best_i = INT_MAX;
+  const int groups = (V + 3) / 4;
+  for (int c4 = threadIdx.x; c4 < groups; c4 += blockDim.x) {
+    const Philox4 r = philox4x32_10(Philox4{noise_site, (uint32_t)t, (uint32_t)row, (uint32_t)c4}, k0, k1);
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int i = 4 * c4 + q;
+      if (i >= V) break;
+      const float z = round_to<T>(to_f(x[i]) + ss_gumbel<T>(philox_word(r, q)));
+      if (z > best) {  // i grows within a thread, so a tie keeps the lower index
+        best = z;
+        best_i = i;
+      }
+    }
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    const float ov = __shfl_xor_sync(0xffffffffu, best, o);
+    const int oi = __shfl_xor_sync(0xffffffffu, best_i, o);
+    if (ranks_above(ov, oi, best, best_i)) {
+      best = ov;
+      best_i = oi;
+    }
+  }
+  if (lane == 0) {
+    red_a[warp] = best;
+    red_i[warp] = best_i;
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    for (int w = 1; w < nwarps; ++w)
+      if (ranks_above(red_a[w], red_i[w], best, best_i)) {
+        best = red_a[w];
+        best_i = red_i[w];
+      }
+    out[row] = best_i >= V ? 0 : best_i;  // every z NaN or -inf: argmax's first index
+  }
+}
+
 template <typename T, int kMode>
 cudaError_t launch_mode(const void* logits, int N, int V, const void* prev, void* unfinished, void* seq,
                         void* seq_lp, void* next, int t, int t_max, uint32_t k0, uint32_t k1, uint32_t site,
@@ -352,6 +439,27 @@ extern "C" int sct_sample_step(int dtype, const void* logits, int N, int V, cons
     return (int)sct::launch<__nv_bfloat16>(logits, N, V, prev, unfinished, seq, seq_lp, next, t, t_max, k0, k1, site,
                                            greedy, temperature, ban_prev, eos_id, pad_id, mode, top_k, top_p, s);
   return (int)cudaErrorInvalidValue;
+}
+
+// The ss mode. dtype: 0 = float32, 1 = bfloat16. lp (N, V), step t-1's
+// log-probs; teacher (N,) int32, step t's teacher tokens; out (N,) int32,
+// step t's input tokens; (k0, k1) the 64-bit key; 0 <= ss_prob <= 1.
+extern "C" int sct_scheduled_sample(int dtype, const void* lp, int N, int V, const void* teacher, void* out, int t,
+                                    uint32_t k0, uint32_t k1, uint32_t coin_site, uint32_t noise_site, float ss_prob,
+                                    void* stream) {
+  if (N <= 0 || V <= 0 || t < 0 || !(ss_prob >= 0.f && ss_prob <= 1.f)) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    sct::scheduled_sample_kernel<float><<<N, sct::kSampleThreads, 0, s>>>(
+        static_cast<const float*>(lp), V, static_cast<const int*>(teacher), static_cast<int*>(out), t, k0, k1,
+        coin_site, noise_site, ss_prob);
+  else if (dtype == 1)
+    sct::scheduled_sample_kernel<__nv_bfloat16><<<N, sct::kSampleThreads, 0, s>>>(
+        static_cast<const __nv_bfloat16*>(lp), V, static_cast<const int*>(teacher), static_cast<int*>(out), t, k0,
+        k1, coin_site, noise_site, ss_prob);
+  else
+    return (int)cudaErrorInvalidValue;
+  return (int)cudaGetLastError();
 }
 
 extern "C" const char* sct_error_string(int err) { return cudaGetErrorString(static_cast<cudaError_t>(err)); }

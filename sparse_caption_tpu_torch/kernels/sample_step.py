@@ -13,11 +13,21 @@ CUDA tensors launch the kernel; CPU tensors run ``sample_step_plain``
 (``decoding/sample.py``'s ``modified_sample_logits`` / ``sample_next_word``),
 which alone accepts explicit noise (the CPU tests feed the JAX package's
 draws through it). Nothing else falls back.
+
+``scheduled_sample`` is K9's ``ss`` mode (``sct_scheduled_sample``, its own
+launch count): the Up-Down XE forward's scheduled sampling at step t >= 1.
+Each row flips a keyed coin against ``ss_prob``; where it comes up, the
+step's input token is a categorical draw from step t-1's log-probs (in the
+compute dtype: argmax of the log-probs plus Gumbel noise formed in that
+dtype, as ``jax.random.categorical``), else the teacher's token. The draws
+are an ``SSDraw`` (key, t), keyed Philox as K9's random mode, or on the CPU
+explicit (coin uniforms, noise) (``scheduled_sample_plain``; the tests feed
+the JAX package's draws through it).
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple, Union
 
 import torch
 
@@ -35,6 +45,13 @@ KERNEL = _build.CudaKernel("sample_step", "sct_sample_step", ARGS)  # random and
 KERNEL_GUMBEL = _build.CudaKernel("sample_step", "sct_sample_step", ARGS)
 KERNEL_TOPK = _build.CudaKernel("sample_step", "sct_sample_step", ARGS)
 KERNEL_NUCLEUS = _build.CudaKernel("sample_step", "sct_sample_step", ARGS)
+# the ss mode (scheduled sampling)
+KERNEL_SS = _build.CudaKernel("sample_step", "sct_scheduled_sample", [
+    _build.I, _build.P, _build.I, _build.I, _build.P, _build.P, _build.I, _build.U32, _build.U32, _build.U32,
+    _build.U32, _build.F32, _build.P,
+])
+SS_COIN_SITE = 0x55C01A  # the ss mode's sites under its stream's key: the coins and the noise
+SS_NOISE_SITE = 0x55A015
 BAN_PREV = -1e30  # decoding/sample.py: nan_to_num(one_hot * -inf, neginf=-1e30)
 MODES = {"random": 0, "gumbel": 1, "topk": 2, "nucleus": 3}  # csrc/sample_step.cu SampleMode
 NUCLEUS_MAX_VOCAB = 16384  # the nucleus mode sorts a row of pow2ceil(V) keys in shared memory
@@ -143,3 +160,74 @@ def sample_step(logits, prev, unfinished, seq, seq_lp, t: int, key: int = 0, sit
                   temperature, int(ban_prev), eos_id, pad_id, MODES.get(mode, 0), int(top) if mode == "topk" else 0,
                   top if mode == "nucleus" else 0.0, _build.stream_handle(logits))
     return nxt
+
+
+# ------------------------------------------------------ scheduled sampling
+class SSDraw(NamedTuple):
+    """The keyed draws of scheduled sampling at step ``t`` under ``key``."""
+
+    key: int
+    t: int
+
+    def coin_uniform(self, n: int, device) -> torch.Tensor:
+        """(n,) f32 ``(bits >> 8) * 2**-24``, word 0 of Philox (SS_COIN_SITE, t, row, 0)."""
+        bits = keyed_bits(self.key, SS_COIN_SITE, torch.full((1,), self.t, device=device),
+                          torch.arange(n, device=device), 1)[:, 0]
+        return (bits >> 8).to(torch.float32) * 2.0 ** -24
+
+    def noise(self, n: int, vocab: int, dtype, device) -> torch.Tensor:
+        """(n, vocab) Gumbel noise in ``dtype``: a uniform with the dtype's
+        precision (f32 ``((bits >> 9) * 2 + 1) * 2**-24``, bf16 ``((bits >> 25) *
+        2 + 1) * 2**-8``, exact in it) at (SS_NOISE_SITE, t, row, column), then
+        ``-log(-log(u))`` with each log rounded to the dtype."""
+        bits = keyed_bits(self.key, SS_NOISE_SITE, torch.full((1,), self.t, device=device),
+                          torch.arange(n, device=device), vocab)
+        if dtype == torch.bfloat16:
+            u = (((bits >> 25) * 2 + 1).to(torch.float32) * 2.0 ** -8).to(dtype)
+        else:
+            u = ((bits >> 9) * 2 + 1).to(torch.float32) * 2.0 ** -24
+        return -torch.log(-torch.log(u))
+
+
+SSDraws = Union[SSDraw, Tuple[torch.Tensor, torch.Tensor]]
+
+
+def scheduled_sample_plain(prev_lp, teacher, ss_prob: float, draw: SSDraws):
+    """The plain version: ``draw`` an ``SSDraw`` or explicit (coin uniforms
+    (N,) f32, noise (N, V) in prev_lp's dtype). ``argmax(noise + prev_lp)``
+    in the log-probs' dtype (the first maximal index), where ``u < ss_prob``."""
+    n, vocab = prev_lp.shape
+    if isinstance(draw, SSDraw):
+        coin_u, noise = draw.coin_uniform(n, prev_lp.device), draw.noise(n, vocab, prev_lp.dtype, prev_lp.device)
+    else:
+        coin_u, noise = draw
+    coin = coin_u < torch.tensor(ss_prob, dtype=torch.float32)
+    sampled = torch.argmax(noise.to(prev_lp.dtype) + prev_lp, dim=-1)
+    return torch.where(coin, sampled.to(teacher.dtype), teacher)
+
+
+def scheduled_sample(prev_lp, teacher, ss_prob: float, draw: SSDraws):
+    """prev_lp: (N, V) f32 or bf16, step t-1's log-probs (no gradient flows:
+    the draw is JAX's stop-gradient sample); teacher: (N,) int, step t's
+    teacher tokens; draw: an ``SSDraw``, or (CPU only) explicit draws.
+    Returns step t's input tokens (N,) in teacher's dtype."""
+    check_float(prev_lp, "prev_lp")
+    n, vocab = prev_lp.shape
+    check_tensor(teacher, "teacher", (n,), teacher.dtype)
+    check_same_device(prev_lp, teacher)
+    if not 0.0 <= ss_prob <= 1.0:
+        raise ValueError(f"ss_prob must be in [0, 1], got {ss_prob}")
+    prev_lp = prev_lp.detach()
+    if prev_lp.device.type == "cpu":
+        return scheduled_sample_plain(prev_lp, teacher, ss_prob, draw)
+    if not isinstance(draw, SSDraw):
+        raise ValueError("explicit draws are taken by the plain version only (CPU tensors)")
+    if not 0 <= draw.key < 2 ** 64 or not 0 <= draw.t < 2 ** 31:
+        raise ValueError(f"key or t out of range: {draw.key}, {draw.t}")
+    prev_lp = prev_lp.contiguous()
+    teacher_i = teacher.to(torch.int32).contiguous()
+    out = torch.empty_like(teacher_i)
+    KERNEL_SS.launch(_build.dtype_code(prev_lp), prev_lp.data_ptr(), n, vocab, teacher_i.data_ptr(), out.data_ptr(),
+                     draw.t, draw.key & M32, draw.key >> 32, SS_COIN_SITE, SS_NOISE_SITE, ss_prob,
+                     _build.stream_handle(prev_lp))
+    return out.to(teacher.dtype)

@@ -6,7 +6,9 @@
 * two LSTM cells per step: the attention LSTM reads ``[h_lang, fc, x_t]``;
   additive attention over the regions with masked renormalisation (softmax
   over every region, then mask and renormalise); the language LSTM reads
-  ``[attended, h_att]``; dropout, then the logit layer
+  ``[attended, h_att]``; dropout, then the logit layers: ``logit_layers - 1``
+  masked (rnn -> rnn) layers, each followed by ReLU and dropout, then (rnn
+  -> V)
 * the cells keep torch gate order (i, f, g, o) and their two masked
   projections ``ih`` / ``hh`` as GEMMs; the gate nonlinearities run in
   kernel K11, the attention after ``h2att`` in K12, the teacher-forced
@@ -22,12 +24,21 @@ reorders by parent beam each step (no ancestor map), plus a ``"static"``
 subtree it leaves alone. A train-mode decode step (the SCST sampling policy)
 draws its dropout from the decode's ``KeyedStream`` at ``t`` and returns f32
 logits; ``decode_teacher_forced(train=True)`` replays the same unrolled steps
-under the same step views, so its log-probs are the sampling decode's. Each
-of the four dropout calls (``fc``, ``att``, the token embedding and the
-output) has its own site, so keyed draws at one step are independent, as
-flax's fresh key per call makes them. Scheduled sampling (``ss_prob > 0``)
-and more than one logit layer raise ``NotImplementedError`` until their
-slice.
+under the same step views, so its log-probs are the sampling decode's. A
+train-mode decode step and ``init_cache`` carry gradients where the caller
+has them enabled (the beam-sample SCST gradient pass runs the search again;
+the search reorders the states with gradients). Each dropout call (``fc``,
+``att``, the token embedding, the output and each hidden logit layer's) has
+its own site, so keyed draws at one step are independent, as flax's fresh
+key per call makes them.
+
+Scheduled sampling (``ss_prob > 0``) runs in the train-mode XE forward only,
+as the JAX package's ``use_ss = train and ss_prob > 0``: from step 1 each
+row's input token is, where a keyed coin comes up, a categorical draw from
+step t-1's log-probs (kernel K9's ss mode), else the teacher's. Those
+log-probs come from K13 a step (row-wise, the same bits as one K13 over the
+stacked steps), in the compute dtype; the draws from the random source's
+``ss_stream``. The decode and ``decode_teacher_forced`` never draw.
 """
 
 from __future__ import annotations
@@ -40,6 +51,7 @@ from torch import nn
 from sparse_caption_tpu_torch import resolve_device
 from sparse_caption_tpu_torch.kernels.additive_attention import additive_attention
 from sparse_caption_tpu_torch.kernels.lstm_cell import lstm_cell
+from sparse_caption_tpu_torch.kernels.sample_step import scheduled_sample
 from sparse_caption_tpu_torch.kernels.vocab_log_softmax import vocab_log_softmax
 from sparse_caption_tpu_torch.models import register_model
 from sparse_caption_tpu_torch.models.transformer import train_rng
@@ -54,8 +66,16 @@ from sparse_caption_tpu_torch.ops.masked import (
 from sparse_caption_tpu_torch.ops.rng import dropout, site_id
 
 STATE = ("h_att", "c_att", "h_lang", "c_lang")
-# the keyed dropout site of each of the model's four dropout calls
+# the keyed dropout site of each of the model's dropout calls: the four of
+# every model, then the hidden logit layers' (``logit_site``)
 SITES = {name: site_id(f"up_down.{name}") for name in ("fc", "att", "embed", "out")}
+
+
+def logit_site(i: int) -> str:
+    """The ``SITES`` key of hidden logit layer i's dropout (entered on first use)."""
+    name = f"logit.{i}"
+    SITES.setdefault(name, site_id(f"up_down.{name}"))
+    return name
 
 
 class MaskedLSTMCell(nn.Module):
@@ -109,11 +129,12 @@ class UpDownModel(nn.Module):
                  eos_id: int = 3, unk_id: int = 1, ss_prob: float = 0.0, mask_cfg: Optional[MaskConfig] = None,
                  *, device="cuda", dtype=torch.float32, generator: Optional[torch.Generator] = None):
         super().__init__()
-        if ss_prob > 0:
-            raise NotImplementedError("scheduled sampling (ss_prob > 0) lands in a later slice")
-        if logit_layers != 1:
-            raise NotImplementedError("logit_layers > 1 lands in a later slice")
+        if logit_layers < 1:
+            raise ValueError(f"logit_layers must be >= 1, got {logit_layers}")
+        if not 0.0 <= ss_prob <= 1.0:
+            raise ValueError(f"ss_prob must be in [0, 1], got {ss_prob}")
         self.vocab_size, self.rnn_size = vocab_size, rnn_size
+        self.ss_prob = float(ss_prob)
         self.drop_prob_lm = drop_prob_lm
         self.max_seq_length = max_seq_length
         self.pad_id, self.bos_id, self.eos_id, self.unk_id = pad_id, bos_id, eos_id, unk_id
@@ -126,9 +147,12 @@ class UpDownModel(nn.Module):
         self.att_lstm = MaskedLSTMCell(2 * rnn_size + input_encoding_size, rnn_size, mask_cfg, **factory)
         self.lang_lstm = MaskedLSTMCell(2 * rnn_size, rnn_size, mask_cfg, **factory)
         self.attention = AdditiveAttention(rnn_size, att_hid_size, mask_cfg, **factory)
-        self.logit = nn.ModuleList([MaskedLinear(rnn_size, vocab_size, mask_cfg=mask_cfg, **factory)])
+        self.logit = nn.ModuleList(
+            [MaskedLinear(rnn_size, rnn_size, mask_cfg=mask_cfg, **factory) for _ in range(logit_layers - 1)]
+            + [MaskedLinear(rnn_size, vocab_size, mask_cfg=mask_cfg, **factory)])
+        self._logit_sites = [logit_site(i) for i in range(logit_layers - 1)]
         # the masked layers of one unrolled step, in call order (one K5 set a step)
-        self._step_masked = masked_call_order(self.embed, self.att_lstm, self.attention, self.lang_lstm, self.logit[0])
+        self._step_masked = masked_call_order(self.embed, self.att_lstm, self.attention, self.lang_lstm, *self.logit)
         self.reset_parameters(generator)
         assign_mask_sites(self)
         self.eval()
@@ -175,34 +199,48 @@ class UpDownModel(nn.Module):
             att_res = self.attention(h_att, memory["att"], memory["p_att"], memory["mask"], rng)
             h_lang, c_lang = self.lang_lstm(torch.cat([att_res, h_att], dim=1), state["h_lang"], state["c_lang"],
                                             rng)
-            logits = self.logit[0](self._drop(h_lang, rng, "out"), rng)
+            x = self._drop(h_lang, rng, "out")
+            for layer, site in zip(self.logit[:-1], self._logit_sites):
+                x = self._drop(torch.relu(layer(x, rng)), rng, site)
+            logits = self.logit[-1](x, rng)
         return logits, {"h_att": h_att, "c_att": c_att, "h_lang": h_lang, "c_lang": c_lang}
 
-    def _unroll(self, memory: Dict[str, Any], seqs, rng, step_views: bool):
+    def _unroll(self, memory: Dict[str, Any], seqs, rng, step_views: bool, ss=None):
         """The stacked logits (N, T-1, V) of feeding seqs[:, :-1] from zero
         states; ``step_views``: step t draws from ``rng.at(t)`` (a keyed
         stream replaying a decode), else every step from ``rng`` in call
-        order."""
+        order. With ``ss`` (a ``ScheduledSampling`` stream) the stacked
+        log-probs instead (K13 a step, the compute dtype), step t >= 1 fed
+        by ``scheduled_sample`` on step t-1's."""
         b, n = memory["fc"].shape[0], seqs.shape[0]
         if n % b:
             raise ValueError(f"{n} caption rows for {b} images")
         fc_rows = memory["fc"].repeat_interleave(n // b, dim=0)
         zeros = torch.zeros((n, self.rnn_size), dtype=fc_rows.dtype, device=fc_rows.device)
         state = dict.fromkeys(STATE, zeros)
-        logits = []
+        outs = []
         for t in range(seqs.shape[1] - 1):
             step_rng = rng.at(t) if step_views and rng is not None else rng
-            step_logits, state = self._core_step(seqs[:, t], state, fc_rows, memory, step_rng)
-            logits.append(step_logits)
-        return torch.stack(logits, dim=1)
+            it = seqs[:, t]
+            if ss is not None and t >= 1:
+                prev = outs[-1]
+                it = scheduled_sample(prev, it.contiguous(), self.ss_prob,
+                                      ss.draw(t, n, prev.shape[1], prev.dtype, prev.device))
+            step_logits, state = self._core_step(it, state, fc_rows, memory, step_rng)
+            outs.append(step_logits if ss is None else vocab_log_softmax(step_logits))
+        return torch.stack(outs, dim=1)
 
     # ------------------------------------------------------------ XE path
     def forward(self, att_feats, att_masks, seqs, fc_feats=None, boxes=None, train: bool = False, rng=None):
         """Teacher-forced log-probs (N, T-1, V) of seqs[:, 1:] in the compute
-        dtype; N a multiple of the batch (rows of one image share its memory)."""
+        dtype; N a multiple of the batch (rows of one image share its memory).
+        In train mode with ``ss_prob > 0`` the inputs from step 1 are
+        scheduled samples (``rng.ss_stream()``)."""
         rng = train_rng(train, rng)
         with torch.set_grad_enabled(train):
             memory = self.encode(att_feats, att_masks, fc_feats, boxes, train, rng)
+            if train and self.ss_prob > 0:
+                return self._unroll(memory, seqs, rng, step_views=False, ss=rng.ss_stream())
             return vocab_log_softmax(self._unroll(memory, seqs, rng, step_views=False))
 
     # --------------------------------------------- SCST teacher-forced replay
@@ -220,28 +258,29 @@ class UpDownModel(nn.Module):
             return vocab_log_softmax(logits, torch.float32 if train else logits.dtype)
 
     # ------------------------------------------------------------- decode
-    @torch.no_grad()
     def init_cache(self, memory_pytree: Dict[str, Any], max_steps: Optional[int] = None, rows_per_image: int = 1,
                    beam_ancestry: bool = False, train: bool = False, rng=None) -> Dict[str, Any]:
         """Zero LSTM states at ``B * rows_per_image`` rows and, under
         ``"static"``, the fc projection repeated to those rows. There is no
         per-step history and no cached projection, so ``max_steps``,
-        ``beam_ancestry``, ``train`` and ``rng`` change nothing: beam search
-        reorders the state rows themselves."""
-        del max_steps, beam_ancestry, train, rng
-        fc_rows = memory_pytree["fc"].repeat_interleave(int(rows_per_image), dim=0)
+        ``beam_ancestry`` and ``rng`` change nothing: beam search reorders the
+        state rows themselves. In train mode the fc rows carry the memory's
+        gradient where the caller has gradients enabled."""
+        del max_steps, beam_ancestry, rng
+        with torch.set_grad_enabled(train and torch.is_grad_enabled()):
+            fc_rows = memory_pytree["fc"].repeat_interleave(int(rows_per_image), dim=0)
         zeros = torch.zeros_like(fc_rows)
         return dict(dict.fromkeys(STATE, zeros), static={"fc": fc_rows})
 
-    @torch.no_grad()
     def decode_step_logits(self, it, cache: Dict[str, Any], t: int, memory_pytree: Dict[str, Any],
                            train: bool = False, rng=None):
         """it: (N,) current tokens. Returns (logits (N, V), cache); in train
-        mode (``rng`` the decode's ``KeyedStream``) dropout draws at t and the
-        logits are f32."""
+        mode (``rng`` the decode's ``KeyedStream``) dropout draws at t, the
+        logits are f32, and gradients flow where the caller has them enabled."""
         rng = train_rng(train, rng)
         rng = None if rng is None else rng.at(t)
-        logits, state = self._core_step(it, cache, cache["static"]["fc"], memory_pytree, rng)
+        with torch.set_grad_enabled(train and torch.is_grad_enabled()):
+            logits, state = self._core_step(it, cache, cache["static"]["fc"], memory_pytree, rng)
         return (logits.float() if train else logits), dict(state, static=cache["static"])
 
     @torch.no_grad()

@@ -9,7 +9,11 @@ place means eval.
   sample ``[u < sigmoid(m)]``, ``keep_mask`` a dropout keep-mask
   ``u < keep_prob``. Tests subclass it to replay the JAX side's uniforms.
   A masked layer asks for its sample's draw by ``mask_draw``, which is
-  ``mask_uniform`` here.
+  ``mask_uniform`` here. ``ss_stream`` is the forward's scheduled-sampling
+  stream (the JAX package's ``"ss"`` rng): a key drawn once from the
+  generator, step t's coins and noise keyed Philox under it
+  (``ScheduledSampling``, drawn in kernel K9's ss mode); tests override it
+  to hand in the JAX side's draws.
 * ``KeyedStream`` (SCST): a counter-based stream, so a draw does not depend
   on call order or device. A dropout site's keep-mask is a pure function of
   (key, site, t, row, column): Philox4x32-10 (kernel K8) keyed by the
@@ -53,10 +57,26 @@ import torch
 from torch import nn
 
 from sparse_caption_tpu_torch.kernels.keyed_dropout import keyed_dropout, keyed_keep_mask
+from sparse_caption_tpu_torch.kernels.sample_step import SSDraw
 from sparse_caption_tpu_torch.kernels.supermask import KeyedDraw
 from sparse_caption_tpu_torch.ops.keep import apply_keep
 
 M64 = (1 << 64) - 1
+SS_TAG = 0x55  # a keyed stream's scheduled-sampling key: derive_key(its key, SS_TAG)
+
+
+class ScheduledSampling:
+    """The scheduled-sampling stream of one forward: step t's draws
+    (``draw``) are ``SSDraw(key, t)``, the keyed coins and noise of kernel
+    K9's ss mode."""
+
+    def __init__(self, key: int):
+        self.key = int(key) & M64
+
+    def draw(self, t: int, n: int, vocab: int, dtype, device):
+        """Step t's draws for (n, vocab) log-probs in ``dtype``."""
+        del n, vocab, dtype, device
+        return SSDraw(self.key, int(t))
 
 
 class TrainRandom:
@@ -80,6 +100,11 @@ class TrainRandom:
 
     def dropout(self, x: torch.Tensor, keep_prob: float, site: Optional[int] = None) -> torch.Tensor:
         return apply_keep(x, self.keep_mask(x.shape, keep_prob, x.device, site), keep_prob)
+
+    def ss_stream(self) -> ScheduledSampling:
+        """The forward's scheduled-sampling stream, its key drawn from the generator."""
+        key = torch.randint(0, 2 ** 62, (1,), generator=self.generator, device=self.generator.device)
+        return ScheduledSampling(int(key))
 
 
 def site_id(name: str) -> int:
@@ -159,6 +184,10 @@ class KeyedStream:
     def mask_uniform(self, layer: nn.Module, shape, device) -> torch.Tensor:
         """The uniforms of ``layer``'s keyed draw as a tensor (the plain Philox)."""
         return KeyedStream.mask_draw(self, layer, shape, device).uniform(shape, device)
+
+    def ss_stream(self) -> ScheduledSampling:
+        """The scheduled-sampling stream under ``derive_key(key, SS_TAG)``."""
+        return ScheduledSampling(derive_key(self.key, SS_TAG))
 
 
 class DecodeKeys(NamedTuple):

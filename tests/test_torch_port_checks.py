@@ -382,3 +382,50 @@ def test_nucleus_cutoff_sums_and_near_rows():
     assert sums.tolist() == [[0.25, 0.5]] and bool(chip_smoke.near_p(sums, 0.5))
     sums = chip_smoke.nucleus_cutoff_sums(c, "top0.6", 1.0)
     assert sums.tolist() == [[0.5, 0.75]] and not bool(chip_smoke.near_p(sums, 0.6))
+
+
+@pytest.mark.parametrize("t", [0, 8, 16])
+def test_k2_bwd_anc_bytes_count_each_named_slot_once(t):
+    """K2's backward through the map (f32, 64 images x 15 beams, 8 heads of
+    64): the identity map names every row's t + 1 slots, as the identity
+    mode's count, plus the map's columns; with every earlier slot read from
+    beam 0, an image's slots < t are one row's, and slot t every row's own."""
+    b, k, t_max = 64, 15, 17
+    ident = chip_smoke.anc_map("identity", b, k, t_max, t, device="cpu")
+    assert chip_smoke.k2_bwd_anc_bytes(ident, t) == chip_smoke.k2_bwd_bytes(b * k, t) + 4 * b * k * (t + 1)
+    beam0 = chip_smoke.anc_map("from_beam_0", b, k, t_max, t, device="cpu")
+    assert beam0[:, :, :t].eq(0).all() and torch.equal(beam0[:, :, t], ident[:, :, t])
+    pairs = b * (t + k)  # t slots of beam 0 an image, then slot t of each beam
+    assert chip_smoke.k2_bwd_anc_bytes(beam0, t) == 4 * 8 * 64 * (5 * b * k + 6 * pairs) + 4 * b * k * (t + 1)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k9_ss_bytes_read_the_sampled_rows_once(dtype):
+    """K9's ss mode at 1,280 rows x 10,000: the log-prob rows of the 320
+    sampled rows in, a teacher token in and an input token out (int32) a row."""
+    assert chip_smoke.k9_ss_bytes(320, 1280, 10000, dtype) == 320 * 10000 * (4 if dtype == torch.float32 else 2) + \
+        1280 * 8
+
+
+def test_beam_scst_launches_by_hand():
+    """One beam-sample SCST step of the mask_freeze ORT (6 layers, 17 steps,
+    105 masked tensors): the sampling phase's encode and beam search (K1's
+    train variant a layer, K2 and K3 a layer and step, K4 a step, the 105
+    products once a tensor), the gradient pass's encode, cross K/V and 17
+    steps with gradients (K5 sets 1 + 1 + 17, K13 a step, K2's backward in
+    the ancestry mode a layer and step, K3's a layer and step, K7 a layer),
+    the dropouts of both phases and their backward, one reward; of Up-Down
+    (17 steps): the random-sample step's with K4 a step for K9's, and K13
+    and its backward a step."""
+    from sparse_caption_tpu_torch.kernels import KERNELS
+
+    counts = chip_smoke.ort_beam_scst_launches(6, 17, 105, KERNELS)
+    want = dict(box_attention_train=12, box_attention_bwd=6, ancestry_self_attention=204,
+                ancestry_self_attention_bwd_anc=102, grouped_cross_attention=204, grouped_cross_attention_bwd=102,
+                supermask=105 + 19, supermask_bwd=19, add_ref_layernorm=2 * (13 + 17 * 19),
+                add_ref_layernorm_bwd=13 + 17 * 19, keyed_keep_mask=2 * 18 * 18, keyed_dropout=3 * 7 * 18,
+                beam_topk=17, cider_reward=1, vocab_log_softmax=17, vocab_log_softmax_bwd=17)
+    assert {k: v for k, v in counts.items() if v} == want
+    ud = chip_smoke.updown_beam_scst_launches(17, KERNELS)
+    assert ud["sample_step"] == 0 and ud["beam_topk"] == 17 and ud["vocab_log_softmax"] == 17
+    assert ud["vocab_log_softmax_bwd"] == 17 and ud["supermask"] == 11 + 18 and ud["lstm_cell"] == 68

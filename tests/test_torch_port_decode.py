@@ -2,6 +2,7 @@
 JAX side uses its exact f32 top-k there (``decoding/beam.py:61-63``), so the
 token sequences must be identical and the sequence log-probs within 1e-4."""
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -95,10 +96,30 @@ def test_beam_search_reorders_only_the_ancestry():
 
 @pytest.mark.parametrize("opt", [{"beam_size": 3, "decode_train": True}])
 def test_unported_decode_modes_raise(opt):
-    port = port_model("relation_transformer", jax_variables(JaxORT(**KW), make_inputs()))
-    att, amask, boxes, _ = make_inputs()
-    with pytest.raises(NotImplementedError, match="later slice"):
-        generate(port, port.encode(t(att), t(amask), t(boxes)), opt)
+    """Beam search under the train policy (beam-sample SCST's sampling pass),
+    once refused, against the JAX package's at dropout 0 (the train-mode
+    cache and steps, f32 log-probs): identical tokens, log-probs within 1e-4;
+    its decisions give the same beams when replayed."""
+    from sparse_caption_tpu_torch.engine.training import beam_log_probs
+
+    inputs = make_inputs()
+    att, amask, boxes, _ = inputs
+    jm = JaxORT(**KW, dropout_rate=0.0, drop_prob_src=0.0)
+    variables = jax_variables(jm, inputs)
+    opt = dict(opt, max_seq_length=KW["max_seq_length"])
+    memory = jm.apply(variables, jnp.asarray(att), jnp.asarray(amask), jnp.asarray(boxes), method="encode")
+    ref_seq, ref_lp = (np.asarray(x) for x in jax_generate(jm, variables, memory, opt, rng=jax.random.PRNGKey(4)))
+    port = load_jax_variables(get_model("relation_transformer")(**KW, dropout_rate=0.0, drop_prob_src=0.0,
+                                                                device="cpu"), variables)
+    mem = port.encode(t(att), t(amask), t(boxes))
+    seq, lp, decisions = generate(port, mem, opt, rng=4, return_decisions=True)
+    np.testing.assert_array_equal(seq.numpy(), ref_seq)
+    np.testing.assert_allclose(lp.numpy(), ref_lp, rtol=1e-4, atol=1e-4)
+    with torch.no_grad():
+        seq2, lp2 = beam_log_probs(port, mem, decisions, 4)
+    assert torch.equal(seq2, seq) and torch.equal(lp2, lp)
+    with pytest.raises(ValueError, match="decode_train needs an rng"):
+        generate(port, mem, opt)
 
 
 def test_beam5_generate_with_kept_masks_matches_jax():

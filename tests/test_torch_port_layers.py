@@ -362,7 +362,8 @@ def test_kernel_table_names_sources():
                             "ancestry_self_attention_bwd", "grouped_cross_attention_bwd", "box_attention_raw",
                             "box_attention_train_raw", "box_attention_kv_raw", "box_attention_train_kv_raw",
                             "box_attention_bwd_raw", "box_attention_bwd_kv_raw", "beam_topk_diverse",
-                            "sample_step_gumbel", "sample_step_topk", "sample_step_nucleus"}
+                            "sample_step_gumbel", "sample_step_topk", "sample_step_nucleus",
+                            "ancestry_self_attention_bwd_anc", "scheduled_sample"}
     from sparse_caption_tpu_torch.kernels._build import CSRC, SOURCES
 
     assert {k.library_name for k in KERNELS.values()} == set(SOURCES)

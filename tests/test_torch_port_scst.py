@@ -439,12 +439,21 @@ def test_scst_reward_defaults_to_host():
 
 
 def test_unported_scst_paths_raise(reward_setup):
-    """Beam-sample SCST, the host reward and the pipelined and fused steps
-    raise; supermask SCST (ported) runs: one step with dropout on updates
-    weights and masks."""
-    for cfg in (dict(scst_sample="beam_search"), dict(scst_reward="host")):
-        with pytest.raises(NotImplementedError, match="later slice"):
-            _scst_setup(reward_setup, **cfg)
+    """The host reward and the pipelined and fused steps raise; beam-sample
+    SCST (ported) samples the beams of the train-mode beam search, which at
+    dropout 0 are the JAX package's, and its step runs; supermask SCST
+    (ported) runs: one step with dropout on updates weights and masks."""
+    with pytest.raises(NotImplementedError, match="later slice"):
+        _scst_setup(reward_setup, scst_reward="host")
+    jm, variables, port, inputs, _, step, batch = _scst_setup(reward_setup, scst_sample="beam_search")
+    res = step.sample_fn(TrainState(), batch)
+    att, amask, boxes, _ = inputs
+    memory = jm.apply(variables, jnp.asarray(att), jnp.asarray(amask), jnp.asarray(boxes), method="encode")
+    ref_seq, _ = jax_generate(jm, variables, memory, {"beam_size": 3, "max_seq_length": L, "decode_train": True},
+                              rng=jax.random.PRNGKey(0))
+    np.testing.assert_array_equal(res["sample"].numpy(), np.asarray(ref_seq))
+    state, loss, _ = step.grad_fn(TrainState(), batch, res)
+    assert state.step == 1 and np.isfinite(float(loss))
     _, _, _, _, (_, _, _, reward_fn), _, batch = _scst_setup(reward_setup)
     model = get_model("relation_transformer_prune")(**KW, dropout_rate=0.1, drop_prob_src=0.1, device="cpu",
                                                     mask_cfg=MaskConfig("supermask", 5.0, keep_masks=True))

@@ -216,13 +216,23 @@ def test_k3_backward_plain_matches_jax_vjp():
 
 
 def test_unported_backwards_raise():
-    """K2's backward through the ancestry map, in the kv mode or in bf16, and
-    K3's in the kv mode or in bf16, raise on every device."""
+    """K2's backward in the kv mode or in bf16, and K3's in the kv mode or in
+    bf16, raise on every device; K2's backward through the ancestry map
+    (ported) gives the autograd of the plain forward through the map."""
     q = torch.randn(4, 2, 8, requires_grad=True)
     cache = torch.zeros(4, 2, 5, 8)
     anc = torch.zeros(2, 2, 5, dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="ancestry"):
-        k2.decode_self_attention(q, q, q, cache, cache.clone(), anc, 0)
+    anc[:, :, 1] = torch.arange(2, dtype=torch.int32)  # step 1 reads slot 0 of beam 0, slot 1 of its own row
+    k0 = torch.randn(4, 2, 8)
+    ck, cv = cache.clone(), cache.clone()
+    ck[:, :, 0], cv[:, :, 0] = k0, 2 * k0
+    out = k2.decode_self_attention(q, q, q, ck, cv, anc, 1)
+    (got,) = torch.autograd.grad(out.sum(), q)
+    ref = k2.ancestry_self_attention_plain(q, torch.stack([k0, q], 2), torch.stack([2 * k0, q], 2),
+                                           anc[:, :, :2].contiguous(), 1)
+    (want,) = torch.autograd.grad(ref.sum(), q)
+    torch.testing.assert_close(out, ref, rtol=0, atol=1e-6)
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-6)
     with pytest.raises(NotImplementedError, match="kv mode"):
         k2.decode_self_attention(q, q, None, cache, None, None, 0)
     qb = q.detach().bfloat16().requires_grad_()
@@ -245,7 +255,7 @@ def _port_name(path) -> str:
 
 class _Recorder:
     """Records the JAX side's supermask uniforms by (port layer name, decode
-    step); the step is the sampling loop's ``t`` (decoding/sample.py), none
+    step); the step is the decode loop's ``t`` (decoding/sample.py or beam.py), none
     outside it (the encode, the cross K/V projection of ``init_cache``).
     Inside the traced scan the keys and t are abstract, so each draw reaches
     the host by ``jax.debug.callback`` when the step runs."""
@@ -253,7 +263,7 @@ class _Recorder:
     def __init__(self, monkeypatch):
         self.uniforms = {}
         real = jax_masked.sample_mask
-        sample_py = os.path.join("decoding", "sample.py")
+        loops = (os.path.join("decoding", "sample.py"), os.path.join("decoding", "beam.py"))
 
         def store(name, u, step=None):
             key = (name, None if step is None else int(step))
@@ -266,7 +276,7 @@ class _Recorder:
                 name = _port_name(sys._getframe(1).f_locals["self"].path)
                 frame, step = sys._getframe(1), None
                 while frame is not None:
-                    if frame.f_code.co_name == "body" and frame.f_code.co_filename.endswith(sample_py):
+                    if frame.f_code.co_name == "body" and frame.f_code.co_filename.endswith(loops):
                         step = frame.f_locals["t"]
                         break
                     frame = frame.f_back

@@ -369,13 +369,26 @@ def test_xe_step_matches_jax(monkeypatch):
     assert state.step == N_STEPS and ref["aux"]["anneal_rate"] < 1  # the sparsity term acted in step 2
 
 
-# ------------------------------------------------------ unported options
+# ------------------------------------------------------ Up-Down options
 def test_unported_updown_options_raise():
-    _, variables, inputs = jax_setup()
+    """The options once refused: ``logit_layers`` 2 (a hidden rnn -> rnn
+    layer with ReLU and dropout before the output layer) and ``ss_prob`` 0.25
+    (scheduled sampling, train-mode XE only) build, and their eval
+    teacher-forced log-probs and beam-5 tokens match the JAX package's;
+    encode still needs ``fc_feats``."""
     for kw in (dict(ss_prob=0.25), dict(logit_layers=2)):
-        with pytest.raises(NotImplementedError, match="later slice"):
-            get_model("up_down_lstm")(**KW, **kw, device="cpu")
-    port = port_model(variables)
-    att, amask, fc, _ = inputs
+        jm = jud.UpDownModel(**KW, **kw, drop_prob_lm=0.5)
+        att, amask, fc, seqs = make_inputs()
+        variables = to_numpy(jm.init({"params": jax.random.PRNGKey(0)}, jnp.asarray(att), jnp.asarray(amask),
+                                     jnp.asarray(seqs), fc_feats=jnp.asarray(fc)))
+        port = load_jax_variables(get_model("up_down_lstm")(**KW, **kw, device="cpu"), variables)
+        assert len(port.logit) == kw.get("logit_layers", 1) and port.ss_prob == kw.get("ss_prob", 0.0)
+        ref = jm.apply(variables, jnp.asarray(att), jnp.asarray(amask), jnp.asarray(seqs), fc_feats=jnp.asarray(fc))
+        _close(port(t(att), t(amask), t(seqs).long(), fc_feats=t(fc)), ref)
+        opt = {"beam_size": 5, "max_seq_length": KW["max_seq_length"]}
+        memory = jm.apply(variables, jnp.asarray(att), jnp.asarray(amask), fc_feats=jnp.asarray(fc), method="encode")
+        ref_seq, _ = jax_generate(jm, variables, memory, opt)
+        seq, _ = generate(port, port.encode(t(att), t(amask), t(fc)), opt)
+        np.testing.assert_array_equal(seq.numpy(), np.asarray(ref_seq))
     with pytest.raises(ValueError, match="fc_feats"):
         port.encode(t(att), t(amask))

@@ -155,7 +155,7 @@ def test_dropout_calls_draw_from_distinct_sites(monkeypatch):
         port.decode_step_logits(torch.full((4,), 2, dtype=torch.int32), cache, 3, memory, True, stream)
     embed, out = kept[2:]
     assert embed.shape == out.shape == (4, RNN) and not torch.equal(embed, out)
-    assert len(set(pud.SITES.values())) == 4
+    assert len(set(pud.SITES.values())) == len(pud.SITES) >= 4
 
 
 # ------------------------------------------------------------------ replay
