@@ -11,12 +11,15 @@
 # mode, supermask SCST's kernels: K2's and K3's backward and K5's keyed
 # mode, and the decode variants: K9's top-k, nucleus and Gumbel modes, K4's
 # diverse-beam penalty and K1's raw 4-wide geometry, and K9's scheduled-sampling
-# mode and K2's backward through the beam-ancestry map. Each mutant is a copy of the
+# mode and K2's backward through the beam-ancestry map, K2's and K3's backward
+# at head widths 32 and 13 and in the kv mode, and the keyed draw of each slot
+# of a shared layer. Each mutant is a copy of the
 # port under build/mutants/<name>/ with sed edits to one CUDA source (or,
 # with run_mutant_cmd, any shell edit run in its csrc/, the wrappers beside
 # it included), reusing the unmutated
 # libraries already built (a library's file name carries a hash of its
-# sources; an edited or added .cuh header rebuilds them all); its kernel
+# source and of the headers it includes; an edited header rebuilds the
+# libraries that include it); its kernel
 # checks then run at paper shapes and at the small or off-width shapes: for
 # K1/K7 check_kernels (K1 serving with its log-bias check) and
 # check_train_kernels (K1's train variant and K7), for K6/K13
@@ -36,8 +39,11 @@
 # for the raw geometry check_raw_geometry_kernels, for K9's ss mode
 # check_ss_kernels (its bf16 rows built so that the draw hinges on the
 # noise's rounding) and for K2's ancestry-mode backward
-# check_k2_bwd_anc_kernels (three maps, one of every beam from beam 0), all
-# without their timings. A mutant whose checks
+# check_k2_bwd_anc_kernels (three maps, one of every beam from beam 0), for
+# K2's and K3's backward at head widths 32 and 13 and in their kv modes
+# check_k2_bwd_width_kernels and check_k3_bwd_width_kernels, and for the keyed
+# draws of a shared layer's slots (ops/rng.py mask_draws) check_slot_draws,
+# all without their timings. A mutant whose checks
 # pass is one they cannot see; each verdict line ends "caught" (a kernel that
 # raises is caught too) or "checks pass", and the last line counts the
 # mutants caught (every verdict line of the mutant "caught") of all run.
@@ -78,6 +84,8 @@ K4D="c.check_diverse_topk(g, results, timing=False)"
 KRAW="c.check_raw_geometry_kernels(g, dt, results, timing=False)"
 K9SS="c.check_ss_kernels(g, results, timing=False)"
 K2A="c.check_k2_bwd_anc_kernels(g, results, timing=False)"
+KSW="c.check_k2_bwd_width_kernels(g, results, timing=False) & c.check_k3_bwd_width_kernels(g, results, timing=False)"
+KSLOT="c.check_slot_draws(g, results, timing=False)"
 ONLY=${1:-}
 picked() { [[ -z "$ONLY" || $1 =~ $ONLY ]]; }
 run_mutant() {  # name file sed-expression dtypes checks
@@ -179,8 +187,8 @@ run_mutant k2_dk32_lane_pairs ancestry_self_attention.cu 's/constexpr int PL = k
 run_mutant dk13_pad_columns_unzeroed common.cuh 's/  return c < DK ? src\[c\] : from_f<T>(0.f);/  return src[c];/' "torch.float32, torch.bfloat16" "$K13W"
 run_mutant k15_kv_dkv_summed_before_rounding decoder_attention_bwd.cu 's/tot\[nt\]\[e\] = round_to<bf16>(round_to<bf16>(tot\[nt\]\[e\]) + round_to<bf16>(tv\[nt\]\[e\]));/tot[nt][e] = tot[nt][e] + tv[nt][e];/' "torch.bfloat16," "$KV"
 run_mutant k14_kv_v_through_second_pointer decoder_attention.cu 's/decoder_attention_entry(dtype, dk, q, kv, nullptr, key_valid,/decoder_attention_entry(dtype, dk, q, kv, q, key_valid,/' "torch.float32, torch.bfloat16" "$KV"
-run_mutant k2_bwd_own_slot_dropped ancestry_self_attention_bwd.cu 's/store2(dk_t + qo, make_float2(ck.x + dkv.x, ck.y + dkv.y));/store2(dk_t + qo, make_float2(ck.x, ck.y));/; s/store2(dv_t + qo, make_float2(cv.x + dvv.x, cv.y + dvv.y));/store2(dv_t + qo, make_float2(cv.x, cv.y));/' "torch.float32," "$KBWD"
-run_mutant k2_bwd_cache_grad_order ancestry_self_attention_bwd.cu 's/store2(dk_t + qo, make_float2(ck.x + dkv.x, ck.y + dkv.y));/store2(dk_t + qo, make_float2(dkv.x, dkv.y));/; s/store2(dv_t + qo, make_float2(cv.x + dvv.x, cv.y + dvv.y));/store2(dv_t + qo, make_float2(dvv.x, dvv.y));/' "torch.float32," "$KBWD"
+run_mutant k2_bwd_own_slot_dropped ancestry_self_attention_bwd.cuh 's/    tk.store(dk_t + to, lane);/    ck.store(dk_t + to, lane);/; s/    tv.store(dv_t + to, lane);/    cv.store(dv_t + to, lane);/' "torch.float32," "$KBWD"
+run_mutant k2_bwd_cache_grad_order ancestry_self_attention_bwd.cuh 's/    tk.store(dk_t + to, lane);/    dkv.store(dk_t + to, lane);/; s/    tv.store(dv_t + to, lane);/    dvv.store(dv_t + to, lane);/' "torch.float32," "$KBWD"
 run_mutant k3_bwd_first_row_only grouped_cross_attention_bwd.cu 's/    for (int r = 0; r < rep; ++r) {/    for (int r = 0; r < 1; ++r) {/' "torch.float32," "$KBWD"
 run_mutant k5_keyed_ignores_t supermask.cu 's/Philox4{d.site, d.t, (uint32_t)e4, 0u}/Philox4{d.site, 0u, (uint32_t)e4, 0u}/' "torch.float32," "$K5"
 run_mutant k9_topk_ties_dropped sample_step.cu 's/    if (!(sv\[i\] >= kth)) sv\[i\] = kFiltered;/    if (!(sv[i] > kth)) sv[i] = kFiltered;/' "torch.float32," "$K9M"
@@ -190,8 +198,13 @@ run_mutant k4_diversity_once_per_occurrence beam_topk.cu 's/  return count > 0 ?
 run_mutant k1_raw_geometry_unrounded box_geometry.cuh 's/  for (int c = 0; c < kRawG; ++c) pos\[c\] = round_to<T>(pair_delta(bi, bj, c));/  for (int c = 0; c < kRawG; ++c) pos[c] = pair_delta(bi, bj, c);/' "torch.bfloat16," "$KRAW"
 run_mutant k9_ss_coin_inverted sample_step.cu 's/  if (!(static_cast<float>(coin_bits >> 8) \* 0x1p-24f < ss_prob)) {/  if (static_cast<float>(coin_bits >> 8) * 0x1p-24f < ss_prob) {/' "torch.float32," "$K9SS"
 run_mutant k9_ss_noise_in_f32_under_bf16 sample_step.cu 's/  return -round_to<__nv_bfloat16>(logf(-round_to<__nv_bfloat16>(logf(u))));/  return -logf(-logf(u));/' "torch.float32," "$K9SS"
-run_mutant k2_bwd_anc_identity_map ancestry_self_attention_bwd.cu 's/    map_s\[i\] = anc\[((size_t)b \* K + i \/ T1) \* t_max + i % T1\];/    map_s[i] = i \/ T1;/' "torch.float32," "$K2A"
-run_mutant k2_bwd_anc_last_writer_wins ancestry_self_attention_bwd.cu 's/        dkv.x += dss \* q_s/        dkv.x = dss * q_s/; s/        dkv.y += dss \* q_s/        dkv.y = dss * q_s/; s/        dvv.x += ps \* g_s/        dvv.x = ps * g_s/; s/        dvv.y += ps \* g_s/        dvv.y = ps * g_s/' "torch.float32," "$K2A"
+run_mutant k2_bwd_anc_identity_map ancestry_self_attention_bwd_anc.cu 's/    map_s\[i\] = anc\[((size_t)b \* K + i \/ T1) \* t_max + i % T1\];/    map_s[i] = i \/ T1;/' "torch.float32," "$K2A"
+run_mutant k2_bwd_anc_last_writer_wins ancestry_self_attention_bwd_anc.cu 's/        dkv.add(ds_s\[r \* T1 + s\], qr);/        dkv = qr.times(ds_s[r * T1 + s]);/; s/        dvv.add(p_s\[r \* T1 + s\], gr);/        dvv = gr.times(p_s[r * T1 + s]);/' "torch.float32," "$K2A"
+run_mutant k2_bwd_kv_v_term_dropped ancestry_self_attention_bwd.cuh 's/    const L tot = ck.plus(dkv.plus(dvv));/    const L tot = ck.plus(dkv);/' "torch.float32," "$KSW"
+run_mutant k2_bwd_kv_score_term_dropped ancestry_self_attention_bwd.cuh 's/    const L tot = ck.plus(dkv.plus(dvv));/    const L tot = ck.plus(dvv);/' "torch.float32," "$KSW"
+run_mutant k2_bwd_dk13_reads_pad_lanes common.cuh 's/  __device__ __forceinline__ void load(const T\* p, int lane) { v = lane < DK ? to_f(\*p) : 0.f; }/  __device__ __forceinline__ void load(const T* p, int lane) { v = lane < kPad<DK> ? to_f(*p) : 0.f; }/' "torch.float32," "$KSW"
+run_mutant k3_bwd_kv_stages_k_twice grouped_cross_attention_bwd.cu 's/  if (!kv) load_tile<DK>(v_s, v_src + base, S, KS);/  load_tile<DK>(v_s, v_src + base, S, kValStride<DK>);/' "torch.float32," "$KSW"
+run_mutant_cmd k5_keyed_shared_slot_reuses_slot0 'sed -i "s/        draws.append(slot_rng(rng, k).mask_draw(m, m.weight.shape, m.weight.device))/        draws.append(slot_rng(rng, 0).mask_draw(m, m.weight.shape, m.weight.device))/" ../../ops/rng.py' "torch.float32," "$KSLOT"
 # a mutant is caught when it printed a verdict line and every one says so
 awk '/^\[mutant\] [^ ]+: / { name = $2; sub(":", "", name); seen[name] = 1 }
      /^\[mutant\] [^ :]+ [a-z0-9]+ / { seen[$2] = 1; n[$2]++; if ($0 ~ / caught/) c[$2]++ }

@@ -144,10 +144,22 @@ Phases:
    mode bit for bit, K2's backward through three ancestry maps): the Up-Down
    XE cell at ss_prob 0.25 and 2 logit layers (15 x 5 f32 and bf16, 256 x 5
    bf16) and its card-vs-CPU step (the CPU taking the card's scheduled
-   samples); beam-sample SCST of the mask_freeze ORT (beam 15; 5 x 15, 64 x
-   15) and Up-Down (beam 60; 5 x 60, 16 x 60), the launch counts asserted,
+   samples); beam-sample SCST of the mask_freeze ORT (beam 15; 64 x 15) and
+   Up-Down (beam 60; 16 x 60), the launch counts asserted,
    the gradient pass's forced search against the sampling search, and the
    card-vs-CPU steps on the card's search decisions.
+13. supermask and beam-sample SCST at ACORT's and ORT-xsmall's widths
+   (``run_shared_width_scst_phase``; its kernel checks,
+   ``check_shared_width_kernels``, run with the others: K2's backward in
+   the kv mode and at head widths 32 and 13 in both its modes, K3's
+   backward likewise, each against its plain version, and the keyed draws
+   of a shared layer's slots bit for bit): ACORT-small's SCST stage with
+   beam search of width 15 and under a training supermask (5 x 15, 64 x 15),
+   ORT-xsmall's supermask and beam-sample SCST (64 x 15), the launch counts
+   asserted, profiles, the replays and the card-vs-CPU steps; ACORT-base's
+   supermask XE step (bf16, 15 x 5 and 256 x 5; its card-vs-CPU f32 step)
+   and its supermask SCST step card against CPU, the card's launches
+   counted.
 
 The ORT XE and SCST steps run the decoder's full-sequence attention through
 K14/K15 (12 + 12 launches per step, asserted), and the plain
@@ -244,7 +256,10 @@ K12_BWD_SHARE_LIMIT, K12_BWD_FAR_LIMIT = 0.05, 0.005
 # shared memory) and the next A, which takes the general forward
 K12_OFF_SHAPES = ((20, 512, 1000, BEAM), (36, 512, 1001, BEAM), (64, 1384, 1000, 16), (64, 1392, 1000, 16))
 SERVE_ROWS = BIG_BATCH * BEAM  # the serving decode step's rows
-HOLD_CYCLES = 100_000_000  # ~55 ms of the card's clock: longer than the host takes to enqueue a timed window
+HOLD_CYCLES = 100_000_000  # ~55 ms of the card's clock: the longest hold of a timed window
+CYCLES_PER_S = HOLD_CYCLES / 0.055
+HOLD_MIN_CYCLES = HOLD_CYCLES // 10  # the shortest hold, ~5.5 ms
+WINDOW_S = 0.1  # a timed window's calls of a function slower than 5 ms a call (a plain version) take about this
 BEAM_WIDTHS = (BEAM, 10, 15, 40)  # K4: the serving beam, then wider ones (any width up to the vocabulary)
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}  # dense bf16 tensor core / f32 CUDA cores
@@ -268,6 +283,7 @@ REPLACES = {
     "magnitude_threshold": "sparse_caption_tpu/pruning/engine.py:210",
     "ancestry_self_attention_bwd": "sparse_caption_tpu/models/layers.py:317",
     "grouped_cross_attention_bwd": "sparse_caption_tpu/models/layers.py:249",
+    "ancestry_self_attention_bwd_anc": "sparse_caption_tpu/models/layers.py:320",
 }
 # the ACORT rows of the kernels line: (name, library, entry points, JAX site)
 ACORT_MODES = (
@@ -493,19 +509,61 @@ BEAM_SCST_STEPS = 2  # timed steps after the warm-up, at each batch
 K2_ANC_MAPS = ("identity", "from_beam_0", "random")  # K2's backward, ancestry mode: the maps it is held on
 SS_BEAM_MODES = (
     ("scheduled_sample", "sample_step", ("scheduled_sample",), "sparse_caption_tpu/models/up_down.py:170"),
-    ("ancestry_self_attention_bwd ancestry", "ancestry_self_attention_bwd", ("ancestry_self_attention_bwd_anc",),
+    ("ancestry_self_attention_bwd ancestry", "ancestry_self_attention_bwd_anc", ("ancestry_self_attention_bwd_anc",),
      "sparse_caption_tpu/models/layers.py:320"),
 )
 SS_BEAM_PATHS = ("updown_ss_train_step", "ort_beam_scst_step", "updown_beam_scst_step")
+# Supermask and beam-sample SCST at ACORT's and ORT-xsmall's widths (resources/commands_acort.sh:41-98, opts.py:68
+# --scst_sample beam_search; sparse_caption_tpu/models/relation_transformer.py:61-62 registers
+# relation_transformer_prune with every ACORT flag): ACORT-small's SCST stage (drop_prob_src 0.1, 15 samples, the
+# sample baseline, the radix reward, f32) with beam search of width 15 (dense, as the recipe trains it) and under a
+# training supermask (logits N(0, 1)); ORT-xsmall's (d104, dk 13) supermask and beam-sample SCST at the paper SCST
+# cell's settings; ACORT-base's supermask XE (logits at 5.0, noam, dropout on) and its supermask SCST step card
+# against CPU (the kv dk 64 instances). Nothing cut.
+ACORT_SMALL_BEAM_CONFIG = dict(ACORT_SMALL_SCST_CONFIG, scst_sample="beam_search")
+ACORT_BASE_SCST_CONFIG = dict(SCST_CONFIG, max_seq_length=ACORT_LEN)
+# K2's and K3's backward instances of this slice, held on the card at the paths' shapes (960 rows, 8 heads, the
+# decode's T_max): (row tag, head width, kv, T_max); the first three are on the paths (ACORT-small, ORT-xsmall,
+# ACORT-base) and timed, the last two are the other instances of the same templates (timed with
+# ``check_k2_bwd_width_kernels(..., timed=len(BWD_WIDTH_CASES))`` and its K3 twin)
+BWD_WIDTH_CASES = (("kv dk32", DK_SMALL, True, ACORT_LEN - 1), ("dk13", DK_XSMALL, False, MAX_LEN),
+                   ("kv", DK, True, ACORT_LEN - 1), ("dk32", DK_SMALL, False, MAX_LEN),
+                   ("kv dk13", DK_XSMALL, True, MAX_LEN))
+BWD_TIMED_CASES = 3
+BWD_ANC_MAPS = ("from_beam_0", "random")  # the ancestry mode's maps at the new widths (the identity is the kernel's)
+SHARED_WIDTH_PATHS = ("acort_small_beam_scst_step", "acort_small_supermask_scst_step", "ort_xsmall_supermask_scst_step",
+                      "ort_xsmall_beam_scst_step", "acort_base_supermask_train_step", "acort_base_supermask_scst_step")
+# the kernels line's rows of this slice: (name, library, entry points, JAX site, the paths of its instance)
+SHARED_WIDTH_MODES = (
+    ("ancestry_self_attention_bwd kv dk32", "ancestry_self_attention_bwd", ("ancestry_self_attention_bwd_kv",),
+     "sparse_caption_tpu/models/layers.py:305", ("acort_small_supermask_scst_step",)),
+    ("ancestry_self_attention_bwd ancestry kv dk32", "ancestry_self_attention_bwd_anc",
+     ("ancestry_self_attention_bwd_anc_kv",), "sparse_caption_tpu/models/layers.py:320",
+     ("acort_small_beam_scst_step",)),
+    ("ancestry_self_attention_bwd dk13", "ancestry_self_attention_bwd", ("ancestry_self_attention_bwd",),
+     "sparse_caption_tpu/models/layers.py:317", ("ort_xsmall_supermask_scst_step",)),
+    ("ancestry_self_attention_bwd ancestry dk13", "ancestry_self_attention_bwd_anc",
+     ("ancestry_self_attention_bwd_anc",), "sparse_caption_tpu/models/layers.py:320", ("ort_xsmall_beam_scst_step",)),
+    ("ancestry_self_attention_bwd kv", "ancestry_self_attention_bwd", ("ancestry_self_attention_bwd_kv",),
+     "sparse_caption_tpu/models/layers.py:305", ("acort_base_supermask_scst_step",)),
+    ("grouped_cross_attention_bwd kv dk32", "grouped_cross_attention_bwd", ("grouped_cross_attention_bwd_kv",),
+     "sparse_caption_tpu/models/layers.py:244", ("acort_small_beam_scst_step", "acort_small_supermask_scst_step")),
+    ("grouped_cross_attention_bwd dk13", "grouped_cross_attention_bwd", ("grouped_cross_attention_bwd",),
+     "sparse_caption_tpu/models/layers.py:249", ("ort_xsmall_supermask_scst_step", "ort_xsmall_beam_scst_step")),
+    ("grouped_cross_attention_bwd kv", "grouped_cross_attention_bwd", ("grouped_cross_attention_bwd_kv",),
+     "sparse_caption_tpu/models/layers.py:244", ("acort_base_supermask_scst_step",)),
+    ("supermask keyed slots", "supermask", ("supermask_keyed",), "sparse_caption_tpu/models/transformer.py:300",
+     ("acort_small_supermask_scst_step", "acort_base_supermask_scst_step")),
+)
 
 
 def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def time_ms(fn, iters: int = 20, warmup: int = 3, hold: bool = False) -> float:
+def time_ms(fn, iters: int = 20, warmup: int = 3, hold: bool = False, hold_cycles: int = HOLD_CYCLES) -> float:
     """Mean device time of one call, from CUDA events around `iters` calls.
-    With `hold` the card first spins for HOLD_CYCLES while the host enqueues
+    With `hold` the card first spins for `hold_cycles` while the host enqueues
     the whole window, so that the host's time per call (autograd, the
     launches) does not show: the time of the work on the device alone."""
     for _ in range(warmup):
@@ -513,7 +571,7 @@ def time_ms(fn, iters: int = 20, warmup: int = 3, hold: bool = False) -> float:
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
     if hold:
-        torch.cuda._sleep(HOLD_CYCLES)
+        torch.cuda._sleep(hold_cycles)
     start.record()
     for _ in range(iters):
         fn()
@@ -523,13 +581,27 @@ def time_ms(fn, iters: int = 20, warmup: int = 3, hold: bool = False) -> float:
 
 
 def turns_ms(*fns) -> list:
-    """For each of `fns`, the median of 5 held `time_ms` windows of 20 calls
-    (device time alone), the functions taking turns window by window (kernel,
-    plain, library, kernel, ...) so that a slow stretch of the card falls on all."""
+    """For each of `fns`, the median of 5 held `time_ms` windows (device
+    time alone), the functions taking turns window by window (kernel, plain,
+    library, kernel, ...) so that a slow stretch of the card falls on all.
+    Two warm-up calls size each function's window: 20 calls, fewer for one
+    slower than WINDOW_S / 20 a call (the plain versions: about WINDOW_S of
+    calls, at least one), and a hold of twice the host's time to enqueue the
+    window (between HOLD_MIN_CYCLES and HOLD_CYCLES)."""
+    plans = []
+    for fn in fns:
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        enqueue = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        iters = max(1, min(20, int(WINDOW_S / (time.perf_counter() - t0))))
+        plans.append((iters, int(min(HOLD_CYCLES, max(HOLD_MIN_CYCLES, 2 * iters * enqueue * CYCLES_PER_S)))))
     times = [[] for _ in fns]
     for w in range(5):
-        for fn, t in zip(fns, times):
-            t.append(time_ms(fn, warmup=3 if w == 0 else 0, hold=True))
+        for fn, t, (iters, cycles) in zip(fns, times, plans):
+            t.append(time_ms(fn, iters=iters, warmup=1 if w == 0 else 0, hold=True, hold_cycles=cycles))
     return [sorted(t)[len(t) // 2] for t in times]
 
 
@@ -2686,9 +2758,8 @@ def profile_window(label: str, fn) -> None:
     device's busy share of that same window's wall time."""
     from torch.profiler import ProfilerActivity, profile, schedule
 
-    fn()
-    torch.cuda.synchronize()
-    # step 1 warms the profiler up (its start-up costs seconds of host time);
+    # `fn` has run before (each caller's timed steps); step 1 warms the
+    # profiler up (its start-up costs seconds of host time);
     # step 2 is the recorded window, timed on the host around the same calls
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
                  schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
@@ -2949,17 +3020,20 @@ def whole_step_check(seed: int, gen, build=None, make=make_train_batch, config=T
 
 
 # --------------------------------------------------------------- SCST path
-def k2_bwd_bytes(n: int, t: int, h: int = HEADS, dk: int = DK) -> int:
+def k2_bwd_bytes(n: int, t: int, h: int = HEADS, dk: int = DK, kv: bool = False) -> int:
     """Bytes K2's backward must move at step t (f32): q and dout in; the (t +
     1) slots of the K and V caches in, of both gradient buffers in and out;
-    dq, dk_t and dv_t out."""
-    return 4 * n * h * dk * (5 + 6 * (t + 1))
+    dq, dk_t and dv_t out. The kv mode: one cache in, one gradient buffer in
+    and out, no dv_t."""
+    return 4 * n * h * dk * ((4 + 3 * (t + 1)) if kv else (5 + 6 * (t + 1)))
 
 
-def k3_bwd_bytes(images: int, rep: int, regions: int = REGIONS, h: int = HEADS, dk: int = DK) -> int:
+def k3_bwd_bytes(images: int, rep: int, regions: int = REGIONS, h: int = HEADS, dk: int = DK,
+                 kv: bool = False) -> int:
     """Bytes K3's backward must move (f32): q, dout in and dq out (a row
-    each); the memory K, V in and dK, dV out (an image each); the mask."""
-    return 4 * (3 * images * rep * h * dk + 4 * images * h * regions * dk) + images * regions
+    each); the memory K, V in and dK, dV out (an image each; the kv mode:
+    one memory in, its one gradient out); the mask."""
+    return 4 * (3 * images * rep * h * dk + (2 if kv else 4) * images * h * regions * dk) + images * regions
 
 
 def check_decode_backward_kernels(gen, results: dict, timing: bool = True) -> bool:
@@ -4559,10 +4633,7 @@ def acort_scst_launches(names) -> dict:
     K14 and K15."""
     counts = scst_launches(ACORT_SLOTS, ACORT_LEN - 1, 0, names)
     counts.update(supermask=0, supermask_bwd=0)
-    for name in ("box_attention_train", "box_attention_bwd", "ancestry_self_attention", "grouped_cross_attention",
-                 "decoder_attention", "decoder_attention_bwd"):
-        counts[f"{name}_kv"], counts[name] = counts[name], 0
-    return counts
+    return to_kv(counts)
 
 
 def favour_word_digits(model):
@@ -4711,8 +4782,9 @@ def run_ort_xsmall_phase(gen) -> tuple:
 
 
 def run_supermask_scst_phase(gen) -> tuple:
-    """Supermask SCST: the paper-width ORT (5 x 15 and 64 x 15) and
-    Up-Down (5 x 60 and 16 x 60) with a training supermask, every decode
+    """Supermask SCST: the paper-width ORT (64 x 15; the 5 x 15 timing is
+    cut for the run's time limit) and Up-Down (16 x 60; 5 x 60 likewise)
+    with a training supermask, every decode
     step drawing fresh keyed masks (K5's keyed mode) in the sampling phase
     and again in the gradient pass (the ORT's: the decode run again with
     gradients through K2's and K3's backward; Up-Down's: its unrolled
@@ -4728,7 +4800,7 @@ def run_supermask_scst_phase(gen) -> tuple:
     good = True
     model = build_supermask_scst(SEED + 15)
     expected = supermask_scst_launches(PAPER["num_layers"], MAX_LEN, KERNELS)
-    for b in SCST_BATCHES:
+    for b in SCST_BATCHES[-1:]:  # the larger batch only (the run's time limit)
         ort_counts, step, state, batch = run_scst_phase(model, gen, b, expected, label="supermask scst",
                                                         steps=SUPERMASK_SCST_STEPS)
     held = [state]
@@ -4743,7 +4815,7 @@ def run_supermask_scst_phase(gen) -> tuple:
 
     ud = build_supermask_updown(SEED + 15)
     expected = supermask_updown_scst_launches(MAX_LEN, KERNELS)
-    for b in UPDOWN_SCST_BATCHES:
+    for b in UPDOWN_SCST_BATCHES[-1:]:  # the larger batch only (the run's time limit)
         ud_counts, step, state, batch = run_scst_phase(ud, gen, b, expected, UPDOWN_SCST_SAMPLES, updown_scst_batch,
                                                        "updown supermask scst", steps=SUPERMASK_SCST_STEPS)
     held = [state]
@@ -5268,16 +5340,17 @@ def k9_ss_bytes(sampled: int, n: int, vocab: int, dtype) -> int:
     return sampled * vocab * ESIZE[dtype] + n * 8
 
 
-def k2_bwd_anc_bytes(anc: torch.Tensor, t: int, h: int = HEADS, dk: int = DK) -> int:
+def k2_bwd_anc_bytes(anc: torch.Tensor, t: int, h: int = HEADS, dk: int = DK, kv: bool = False) -> int:
     """Bytes K2's backward must move at step t through the map `anc` (B, K,
     T_max), f32: q and dout in and dq, dk_t, dv_t out a row; each distinct
     (row, slot) pair the map names over slots 0..t once: its K and V slots
     in, both gradient buffers' slots in and out (slot t: each row's own,
-    read and zeroed); the map's columns 0..t (int32)."""
+    read and zeroed); the map's columns 0..t (int32). The kv mode: one cache
+    and one gradient buffer, no dv_t."""
     b, k, _ = anc.shape
     rows = anc[:, :, : t + 1].long() + torch.arange(b, device=anc.device)[:, None, None] * k
     pairs = int(torch.unique(rows * (t + 1) + torch.arange(t + 1, device=anc.device)).numel())
-    return 4 * h * dk * (5 * b * k + 6 * pairs) + 4 * b * k * (t + 1)
+    return 4 * h * dk * ((4 if kv else 5) * b * k + (3 if kv else 6) * pairs) + 4 * b * k * (t + 1)
 
 
 def anc_map(kind: str, b: int, k: int, t_max: int, t: int, gen=None, device="cuda") -> torch.Tensor:
@@ -5431,8 +5504,8 @@ def check_k2_bwd_anc_kernels(gen, results: dict, timing: bool = True) -> bool:
     dev, dt = torch.device("cuda"), torch.float32
     b, kb = SCST_BATCHES[-1], SCST_SAMPLES
     n, h, dk, t_max = b * kb, HEADS, DK, MAX_LEN
-    ok = smem_agrees("ancestry_self_attention_bwd", "sct_ancestry_self_attention_bwd_anc_smem",
-                     k2.anc_bwd_smem_bytes, [(kb, 0), (kb, t_max - 1), (60, 16), (32, 1023)])
+    ok = smem_agrees("ancestry_self_attention_bwd_anc", "sct_ancestry_self_attention_bwd_anc_smem",
+                     k2.anc_bwd_smem_bytes, [(dk, kb, 0), (dk, kb, t_max - 1), (dk, 60, 16), (dk, 32, 1023)])
 
     def rnd(*shape, g=gen):
         return torch.randn(*shape, generator=g, device=dev)
@@ -5527,7 +5600,7 @@ def check_k2_bwd_anc_kernels(gen, results: dict, timing: bool = True) -> bool:
                 f"turns)")
         last = K2_BWD_STEPS[-1]
         bnd, by = bound_ms(k2_bwd_anc_bytes(maps[("random", last)], last), {})
-        results["ancestry_self_attention_bwd ancestry"] = dict(
+        results["ancestry_self_attention_bwd ancestry"] = results["ancestry_self_attention_bwd_anc"] = dict(
             max_abs_err=max(errs), ms=times[last][0], plain_ms=times[last][1], library_ms=times[last][2],
             bound_ms=bnd, bound_by=by, identity_ms=times[last][3],
             **{f"t{t}_{k}": v for t in K2_BWD_STEPS
@@ -5604,7 +5677,7 @@ def updown_beam_scst_launches(steps: int, names) -> dict:
     return counts
 
 
-def beam_replay_check(model, gen, make=make_batch, beams=SCST_SAMPLES, label="beam replay") -> bool:
+def beam_replay_check(model, gen, make=make_batch, beams=SCST_SAMPLES, label="beam replay", max_len=MAX_LEN) -> bool:
     """At 5 x beams with dropout on: the gradient pass's forced search
     (``beam_log_probs``: the decode again with gradients, K13 a step, on the
     sampling search's decisions) gives the sampling search's beams, and its
@@ -5614,7 +5687,7 @@ def beam_replay_check(model, gen, make=make_batch, beams=SCST_SAMPLES, label="be
     from sparse_caption_tpu_torch.ops.rng import KeyedStream
 
     batch = make(gen, SCST_BATCHES[0], torch.float32)
-    opt = {"beam_size": beams, "max_seq_length": MAX_LEN, "decode_train": True}
+    opt = {"beam_size": beams, "max_seq_length": max_len, "decode_train": True}
     with torch.no_grad():
         memory = model.encode(*batch, train=True, rng=KeyedStream(11))
         seq, seq_lp, decisions = generate(model, memory, opt, rng=12, return_decisions=True)
@@ -5639,12 +5712,12 @@ def run_ss_beam_phase(gen, t0: float) -> tuple:
       scheduled samples (its own differing ones counted);
     - ``ort_beam_scst_step``: the paper ORT's sparse SCST (mask_freeze at
       0.9875) with beam search of width 15 in place of 15 random samples, at
-      5 x 15 and 64 x 15 (1 warm-up + BEAM_SCST_STEPS steps, the counts
+      64 x 15 (the 5 x 15 timing cut for the time limit; 1 warm-up + BEAM_SCST_STEPS steps, the counts
       asserted: K4 a step, K2's backward through the map), a profile at 64 x
       15, the gradient pass's log-probs against the sampling search's, one
       step at 2 x 3 beams card against CPU (the card's decisions on both);
     - ``updown_beam_scst_step``: the same for Up-Down (mask_freeze 0.991,
-      beam 60) at 5 x 60 and 16 x 60.
+      beam 60) at 16 x 60.
     `t0`: the build's start, for the ``[time]`` lines. Returns (ok, {path:
     launch counts})."""
     from sparse_caption_tpu_torch.engine.training import TrainState
@@ -5676,7 +5749,7 @@ def run_ss_beam_phase(gen, t0: float) -> tuple:
     log(f"[time] {time.perf_counter() - t0:.1f}s since the build began (ORT beam-sample SCST)")
     model = build_scst_model(SEED + 39)
     expected = ort_beam_scst_launches(PAPER["num_layers"], steps, len(masked_shapes()), KERNELS)
-    for b in SCST_BATCHES:
+    for b in SCST_BATCHES[-1:]:  # the larger batch only (the run's time limit)
         paths["ort_beam_scst_step"], step, state, batch = run_scst_phase(
             model, gen, b, expected, label="ort beam scst", config=BEAM_SCST_CONFIG, steps=BEAM_SCST_STEPS)
     held = [state]
@@ -5692,7 +5765,7 @@ def run_ss_beam_phase(gen, t0: float) -> tuple:
     log(f"[time] {time.perf_counter() - t0:.1f}s since the build began (Up-Down beam-sample SCST)")
     ud = build_updown_scst(SEED + 39)
     expected = updown_beam_scst_launches(steps, KERNELS)
-    for b in UPDOWN_SCST_BATCHES:
+    for b in UPDOWN_SCST_BATCHES[-1:]:  # the larger batch only (the run's time limit)
         paths["updown_beam_scst_step"], step, state, batch = run_scst_phase(
             ud, gen, b, expected, UPDOWN_SCST_SAMPLES, updown_scst_batch, "updown beam scst", config=BEAM_SCST_CONFIG,
             steps=BEAM_SCST_STEPS)
@@ -5705,6 +5778,523 @@ def run_ss_beam_phase(gen, t0: float) -> tuple:
     torch.cuda.empty_cache()
     good &= scst_whole_step_check(SEED + 39, gen, build_updown_scst, make_updown_batch, "updown beam scst-step",
                                   config=BEAM_SCST_CONFIG)
+    torch.cuda.empty_cache()
+    return good, paths
+
+
+# ------------------------------------------- supermask and beam-sample SCST at ACORT's and ORT-xsmall's widths
+def check_k2_bwd_width_kernels(gen, results: dict, timing: bool = True, timed: int = BWD_TIMED_CASES) -> bool:
+    """K2's backward at the instances of BWD_WIDTH_CASES (the kv mode at dk
+    64 / 32 / 13, the unshared mode at 32 / 13; f32) against its plain
+    version at the SCST gradient pass's shapes (64 images x 15 rows, 8
+    heads, the decode's T_max), element by element within F32_TOL widened by
+    each tensor's rms: the identity kernel and the ancestry mode on the maps
+    BWD_ANC_MAPS, at the first, a middle and the last step, the cache
+    gradient the later steps left random: dq, dk_t (, dv_t) and the buffers
+    after (slots < t added to, slot t zeroed, later slots untouched). Faults
+    planted in the kv mode: the V term left out of the one buffer, and the
+    score term left out. Then 25 steps of ``decode_self_attention`` in the kv
+    mode at ACORT-small's width, through maps that change every step and
+    through the identity, the one cache threaded under autograd, against
+    the same steps written out of place; the ancestry mode's shared memory
+    against the wrapper's formula. Timed (the first `timed` cases: by
+    default the path instances; the last step, both modes): the kernel, the
+    plain version and SDPA's forward + backward on the gathered cache (one
+    tensor as K and V under kv), in held turns."""
+    from sparse_caption_tpu_torch.kernels import KERNELS
+    from sparse_caption_tpu_torch.kernels import ancestry_self_attention as k2
+
+    dev, dt = torch.device("cuda"), torch.float32
+    b, kb = SCST_BATCHES[-1], SCST_SAMPLES
+    n, h = b * kb, HEADS
+    ok = smem_agrees("ancestry_self_attention_bwd_anc", "sct_ancestry_self_attention_bwd_anc_smem",
+                     k2.anc_bwd_smem_bytes, [(dk, kb, t) for dk in (64, 32, 13) for t in (0, ACORT_LEN - 2)])
+
+    def rnd(*shape, g=gen):
+        return torch.randn(*shape, generator=g, device=dev)
+
+    def held(name, got, ref, fault=None):
+        nonlocal ok
+        err, good, worst = close(got, ref, dt, sum_scale=rms(ref))
+        if not good:
+            log(f"[kernel] {name} f32: max_abs_err={err:.3e} worst err/allowed={worst:.3f} FAIL")
+        ok &= good
+        if fault is not None:
+            ok &= fault_caught(name, fault, ref, dt, 0.0, rms(ref))
+        return err
+
+    for case, (tag, dk, kv, t_max) in enumerate(BWD_WIDTH_CASES):
+        q, dout = rnd(n, h, dk), rnd(n, h, dk)
+        caches = [rnd(n, h, t_max, dk) for _ in range(1 if kv else 2)]
+        dc0 = [rnd(n, h, t_max, dk) for _ in caches]
+        parts = ("dq", "dk_t", "dcache") if kv else ("dq", "dk_t", "dv_t", "dcache_k", "dcache_v")
+
+        def run(fn, t, anc, cs=caches, d0=dc0):
+            dcs = [c.clone() for c in d0]
+            out = fn(q, cs[0], cs[1] if len(cs) == 2 else None, dout, dcs[0], dcs[1] if len(dcs) == 2 else None,
+                     t, anc)
+            return [x for x in out if x is not None] + dcs
+
+        errs = {"identity": [], "ancestry": []}
+        maps = {}
+        for t in (0, t_max // 2, t_max - 1):
+            for kind in ("identity",) + BWD_ANC_MAPS:
+                anc = None if kind == "identity" else anc_map(kind, b, kb, t_max, t, gen)
+                maps[(kind, t)] = anc
+                got = run(k2.ancestry_self_attention_backward, t, anc)
+                ref = run(k2.ancestry_self_attention_backward_plain, t, anc)
+                mode = "identity" if anc is None else "ancestry"
+                name = f"ancestry_self_attention_bwd {tag} {kind} t={t}"
+                if kv and t == t_max - 1:
+                    # the unshared plain version given the one cache twice: its dcache_k holds the score term
+                    # alone (the V term left out), its dcache_v the V term alone (the score term left out)
+                    alone = run(k2.ancestry_self_attention_backward_plain, t, anc, caches * 2, dc0 * 2)
+                    ok &= fault_caught(f"{name} dcache, the V term left out", alone[3], ref[2], dt, 0.0, rms(ref[2]))
+                    ok &= fault_caught(f"{name} dcache, the score term left out", alone[4], ref[2], dt, 0.0,
+                                       rms(ref[2]))
+                    del alone
+                for i, part in enumerate(parts):
+                    errs[mode].append(held(f"{name} {part}", got[i], ref[i]))
+                buf = got[len(parts) - len(caches)]
+                untouched = bool(torch.equal(buf[:, :, t + 1:], dc0[0][:, :, t + 1:])) and not buf[:, :, t].any()
+                ok &= untouched
+                if not untouched:
+                    log(f"[kernel] {name}: slot t not zeroed or slots past t touched FAIL")
+                del got, ref
+        log(f"[kernel] ancestry_self_attention_bwd {tag} f32 {n} rows T_max {t_max}: identity max_abs_err="
+            f"{max(errs['identity']):.3e}, ancestry ({', '.join(BWD_ANC_MAPS)}) max_abs_err="
+            f"{max(errs['ancestry']):.3e} at steps 0, {t_max // 2}, {t_max - 1} {'ok' if ok else 'FAIL'}")
+        if timing and case < timed:
+            last = t_max - 1
+            for mode, anc in (("", None), ("ancestry ", maps[("random", last)])):
+                rows_ = None if anc is None else (anc[:, :, : last + 1].long() + torch.arange(
+                    b, device=dev)[:, None, None] * kb).reshape(n, last + 1)
+                slots = torch.arange(last + 1, device=dev)
+
+                def gathered(c):
+                    if rows_ is None:
+                        return c[:, :, : last + 1].contiguous().requires_grad_()
+                    return c.transpose(1, 2)[rows_, slots].transpose(1, 2).contiguous().requires_grad_()
+
+                kg = gathered(caches[0])
+                vg = kg if kv else gathered(caches[1])
+                q4, d4 = q[:, :, None].clone().requires_grad_(), dout[:, :, None]
+                dcs = [c.clone() for c in dc0]
+                cv, dcv = (None, None) if kv else (caches[1], dcs[1])
+                wrt = (q4, kg) if kv else (q4, kg, vg)
+                t_k, t_p, t_l = turns_ms(
+                    lambda: k2.ancestry_self_attention_backward(q, caches[0], cv, dout, dcs[0], dcv, last, anc),
+                    lambda: k2.ancestry_self_attention_backward_plain(q, caches[0], cv, dout, dcs[0], dcv, last, anc),
+                    lambda: torch.autograd.grad(F.scaled_dot_product_attention(q4, kg, vg), wrt, d4))
+                nbytes = k2_bwd_bytes(n, last, h, dk, kv) if anc is None else k2_bwd_anc_bytes(anc, last, h, dk, kv)
+                bnd, by = bound_ms(nbytes, {})
+                row = f"ancestry_self_attention_bwd {mode}{tag}"
+                log(f"[kernel] {row} f32 {n} rows t={last}{' (random map)' if anc is not None else ''}: ms={t_k:.4f} "
+                    f"plain_ms={t_p:.4f} library_ms={t_l:.4f} (SDPA fwd + bwd, gathered cache) bound_ms={bnd:.4f} "
+                    f"({by}; held windows in turns)")
+                results[row] = dict(max_abs_err=max(errs["identity" if anc is None else "ancestry"]), ms=t_k,
+                                    plain_ms=t_p, library_ms=t_l, bound_ms=bnd, bound_by=by)
+                del kg, vg, q4, dcs
+        del q, dout, caches, dc0
+    torch.cuda.empty_cache()
+
+    # 25 steps in the kv mode at ACORT-small's width, the one cache threaded under autograd
+    dk, t_max = DK_SMALL, ACORT_LEN - 1
+    g25 = torch.Generator(device=dev).manual_seed(SEED + 40 * 25)
+    for changing in (True, False):
+        qs, ks, gs = ([rnd(n, h, dk, g=g25).requires_grad_(i < 2) for _ in range(t_max)] for i in range(3))
+        cache = torch.zeros(n, h, t_max, dk, device=dev)
+        anc = anc_map("identity", b, kb, t_max, 0)
+        step_maps, outs = [], []
+        entry = "ancestry_self_attention_bwd_anc_kv" if changing else "ancestry_self_attention_bwd_kv"
+        before = KERNELS[entry].launches
+        for t in range(t_max):
+            anc = anc.clone()
+            anc[:, :, t] = torch.arange(kb, device=dev, dtype=torch.int32)
+            step_maps.append(anc if changing else None)
+            outs.append(k2.decode_self_attention(qs[t], ks[t], None, cache, None, step_maps[-1], t))
+            parents = torch.randint(0, kb, (b, kb), generator=g25, device=dev) if t else torch.zeros(
+                b, kb, dtype=torch.long, device=dev)
+            anc = anc.gather(1, parents[..., None].expand(-1, -1, t_max)).contiguous()
+        got = torch.autograd.grad(outs, qs + ks, gs)
+        launched = KERNELS[entry].launches - before
+        ref_outs = [k2.ancestry_self_attention_plain(qs[t], torch.stack(ks[: t + 1], 2), None,
+                                                     None if m is None else m[:, :, : t + 1].contiguous(), t)
+                    for t, m in enumerate(step_maps)]
+        want = torch.autograd.grad(ref_outs, qs + ks, gs)
+        how = "through changing maps" if changing else "identity"
+        for name, a, c in (("dq", torch.stack(got[:t_max]), torch.stack(want[:t_max])),
+                           ("dk", torch.stack(got[t_max:]), torch.stack(want[t_max:]))):
+            err = held(f"decode_self_attention kv dk32 {t_max} steps {how}, the cache threaded: {name}", a, c)
+            log(f"[kernel] decode_self_attention kv dk32 {t_max} steps {how}, the one cache threaded: {name} "
+                f"max_abs_err={err:.3e}")
+        log(f"[kernel] decode_self_attention kv dk32 {t_max} steps {how}: {launched} {entry} launches "
+            f"{'ok' if launched == t_max else 'FAIL'}")
+        ok &= launched == t_max
+        del qs, ks, gs, outs, got, ref_outs, want, cache
+    return ok
+
+
+def check_k3_bwd_width_kernels(gen, results: dict, timing: bool = True, timed: int = BWD_TIMED_CASES) -> bool:
+    """K3's backward at the instances of BWD_WIDTH_CASES against its plain
+    version at 64 images x 15 rows, 36 regions, padded regions and image 0
+    with none valid, element by element within F32_TOL widened by each
+    tensor's rms: dq, dK and dV (the kv mode: dq and the one memory's
+    gradient dK + dV); masked regions' dK exactly 0 (unshared); image 0's dV
+    (kv: its dmem) its rows' mean dout. Faults planted: each image's memory
+    gradient from its first row alone; in the kv mode, the V term left out.
+    The shared memory against the wrapper's formula. Timed (the first
+    `timed` cases: by default the path instances): the kernel, the plain
+    version and SDPA's forward + backward with the memory as K and V."""
+    from sparse_caption_tpu_torch.kernels import grouped_cross_attention as k3
+    from sparse_caption_tpu_torch.ops.attention import NEG_INF
+
+    dev, dt = torch.device("cuda"), torch.float32
+    b, rep, h = SCST_BATCHES[-1], SCST_SAMPLES, HEADS
+    ok = smem_agrees("grouped_cross_attention_bwd", "sct_grouped_cross_attention_bwd_smem", k3.bwd_smem,
+                     [(dk, REGIONS, rep, kv) for dk in (64, 32, 13) for kv in (0, 1)] + [(13, 64, 60, 1)])
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=gen, device=dev)
+
+    for case, (tag, dk, kv, _) in enumerate(BWD_WIDTH_CASES):
+        q, dout = rnd(b * rep, h, dk), rnd(b * rep, h, dk)
+        mems = [rnd(b, h, REGIONS, dk) for _ in range(1 if kv else 2)]
+        mv = None if kv else mems[1]
+        mask = random_region_mask(gen, b, REGIONS, dev)
+        mask[0] = False  # no valid region: the fill gives every region the same weight
+        got = [x for x in k3.grouped_cross_attention_backward(q, mems[0], mv, mask, dout) if x is not None]
+        ref = [x for x in k3.grouped_cross_attention_backward_plain(q, mems[0], mv, mask, dout) if x is not None]
+        first = dout.reshape(b, rep, h, dk).clone()
+        first[:, 1:] = 0  # each image's first row alone
+        fault = k3.grouped_cross_attention_backward_plain(q, mems[0], mv, mask, first.reshape(b * rep, h, dk))
+        name = f"grouped_cross_attention_bwd {tag}"
+        errs, good = [], True
+        for i, part in enumerate(("dq", "dmem") if kv else ("dq", "dK", "dV")):
+            err, fine, worst = close(got[i], ref[i], dt, sum_scale=rms(ref[i]))
+            errs.append(err)
+            good &= fine
+            if i:
+                good &= fault_caught(f"{name} {part}, the first row alone", fault[i], ref[i], dt, 0.0, rms(ref[i]))
+        if kv:  # the V term left out: the unshared plain version's dK on the one memory
+            alone = k3.grouped_cross_attention_backward_plain(q, mems[0], mems[0], mask, dout)
+            good &= fault_caught(f"{name} dmem, the V term left out", alone[1], ref[1], dt, 0.0, rms(ref[1]))
+        dropped = ~mask[:, None, :, None].expand_as(got[1])
+        zero_dk = kv or not got[1][dropped].any()
+        mean_dv = dout[:rep].sum(0)[:, None, :].expand(h, REGIONS, dk) / REGIONS
+        err0, good0, _ = close(got[-1][0], mean_dv, dt, sum_scale=rms(mean_dv))
+        good &= zero_dk and good0
+        log(f"[kernel] {name} f32 {b}x{rep}: max_abs_err={max(errs):.3e}; masked regions' dK exactly 0 "
+            f"{'ok' if zero_dk else 'FAIL'}{' (unshared)' if not kv else ''}; image 0 (no valid region) "
+            f"{'dmem' if kv else 'dV'} - its rows' mean dout max {err0:.3e} {'ok' if good else 'FAIL'}")
+        ok &= good
+        del got, ref, fault, first
+        if timing and case < timed:
+            qg = q.reshape(b, rep, h, dk).transpose(1, 2).contiguous().requires_grad_()
+            kl = mems[0].clone().requires_grad_()
+            vl = kl if kv else mems[1].clone().requires_grad_()
+            fill = torch.zeros(b, 1, 1, REGIONS, device=dev).masked_fill(~mask[:, None, None, :], NEG_INF)
+            dg = dout.reshape(b, rep, h, dk).transpose(1, 2).contiguous()
+            wrt = (qg, kl) if kv else (qg, kl, vl)
+            t_k, t_p, t_l = turns_ms(lambda: k3.grouped_cross_attention_backward(q, mems[0], mv, mask, dout),
+                                     lambda: k3.grouped_cross_attention_backward_plain(q, mems[0], mv, mask, dout),
+                                     lambda: torch.autograd.grad(F.scaled_dot_product_attention(qg, kl, vl, fill),
+                                                                 wrt, dg))
+            bnd, by = bound_ms(k3_bwd_bytes(b, rep, REGIONS, h, dk, kv), {})
+            log(f"[kernel] {name} f32 {b}x{rep}: ms={t_k:.4f} plain_ms={t_p:.4f} library_ms={t_l:.4f} (SDPA fwd + "
+                f"bwd, float mask) bound_ms={bnd:.4f} ({by}; held windows in turns)")
+            results[name] = dict(max_abs_err=max(errs), ms=t_k, plain_ms=t_p, library_ms=t_l, bound_ms=bnd,
+                                 bound_by=by)
+        del q, dout, mems, mv
+    return ok
+
+
+def slot_set_layers(gen):
+    """ACORT-small's masked layers of one decode step (kv, the plan (0, 0, 0,
+    1, 1, 1)) in call order, each shared layer once per slot, as
+    ``Transformer._decode_step_masked`` lists them: a supermask model on the
+    card (logits N(0, 1)), and the list."""
+    from sparse_caption_tpu_torch.models import get_model
+    from sparse_caption_tpu_torch.ops.masked import MaskConfig
+
+    flags = {k: v for k, v in ACORT_SMALL_FLAGS.items() if k not in ("caption_model", "tokenizer", "radix_base")}
+    flags.update(vocab_size=ACORT_BASE["vocab_size"], share_layer_encoder=(0, 0, 0, 1, 1, 1),
+                 share_layer_decoder=(0, 0, 0, 1, 1, 1), dropout_rate=0.0, drop_prob_src=0.0)
+    model = get_model("relation_transformer_prune")(**flags, mask_cfg=MaskConfig("supermask", 5.0, keep_masks=True),
+                                                    device="cuda", generator=gen)
+    return supermask_logits(model, gen, "slot draws"), model._decode_step_masked()
+
+
+def check_slot_draws(gen, results: dict, timing: bool = True) -> bool:
+    """The keyed draws of a shared layer's slots (``ops/rng.py mask_draws``):
+    ACORT-small's decode-step set (44 products, the shared layers once per
+    slot) through ``mask_set`` under a step view, one K5 keyed launch each
+    way; each call's product against the plain sample of its own draw
+    (``slot_site(site, k)`` at the layer's k-th call) bit for bit, the
+    slots' products differing; the shared weights' and logits' gradients
+    (each the sum over its calls) against the plain version's autograd.
+    Fault planted: every slot under slot 0's draw. Timed: the keyed set, fwd
+    + bwd, against the plain version."""
+    from sparse_caption_tpu_torch.kernels import KERNELS
+    from sparse_caption_tpu_torch.kernels import supermask as k5
+    from sparse_caption_tpu_torch.ops.masked import mask_set
+    from sparse_caption_tpu_torch.ops.rng import KeyedStream
+
+    model, calls = slot_set_layers(gen)
+    stream = KeyedStream(0x5107_5EED_0000_0001).at(7)
+    seen, plain_ws, fault_ws = {}, [], []
+    for m in calls:
+        k = seen.get(m, 0)
+        seen[m] = k + 1
+        u = stream.for_slot(k).mask_uniform(m, m.weight.shape, "cuda")
+        plain_ws.append(k5.supermask_weight_plain(m.weight, m.mask, u, "sample"))
+        fault_ws.append(k5.supermask_weight_plain(m.weight, m.mask, stream.mask_uniform(m, m.weight.shape, "cuda"),
+                                                  "sample"))
+    before = KERNELS["supermask_keyed"].launches
+    with mask_set(calls, stream):
+        got = [m.effective_weight(stream) for m in calls]
+    launched = KERNELS["supermask_keyed"].launches - before
+    exact = all(torch.equal(a, p) for a, p in zip(got, plain_ws))
+    shared = [i for i, m in enumerate(calls) if seen[m] > 1]
+    first = {}
+    differ = True
+    for i in shared:
+        m = calls[i]
+        if m in first:
+            differ &= not torch.equal(got[i], got[first[m]])
+        else:
+            first[m] = i
+    caught = any(not torch.equal(a, f) for a, f in zip(got, fault_ws))
+    gs = [torch.randn(w.shape, generator=gen, device="cuda") for w in got]
+    params = [p for m in seen for p in (m.weight, m.mask)]
+    g_got = torch.autograd.grad(got, params, gs)
+    g_ref = torch.autograd.grad(plain_ws, params, gs)
+    err = max((a - r).abs().max().item() for a, r in zip(g_got, g_ref))
+    grads_ok = all(close(a, r, torch.float32)[1] for a, r in zip(g_got, g_ref))
+    ok = exact and differ and caught and grads_ok and launched == 1
+    log(f"[kernel] supermask keyed slots: ACORT-small's decode-step set, {len(calls)} products of {len(seen)} layers "
+        f"({len(shared)} calls of shared layers), {launched} K5 keyed launch; each call's product against the plain "
+        f"sample of its slot's draw {'exact' if exact else 'DIFFERS'}; a shared layer's slots differ "
+        f"{'ok' if differ else 'FAIL'}; gradients summed over the calls max_abs_err={err:.3e} "
+        f"{'ok' if grads_ok else 'FAIL'}")
+    log(f"[fault] supermask keyed slots, every slot under slot 0's draw: {'caught' if caught else 'MISSED'}")
+    if timing:
+        draws = []
+        seen = {}
+        for m in calls:
+            k = seen.get(m, 0)
+            seen[m] = k + 1
+            draws.append(stream.for_slot(k).mask_draw(m, m.weight.shape, "cuda"))
+        ws, ms = [m.weight for m in calls], [m.mask for m in calls]
+
+        def keyed():
+            torch.autograd.grad(k5.supermask_weights(ws, ms, draws, "keyed"), params, gs)
+
+        def plain():
+            torch.autograd.grad([k5.supermask_weight_plain(w, m, d, "keyed") for w, m, d in zip(ws, ms, draws)],
+                                params, gs)
+
+        t_k, t_p = turns_ms(keyed, plain)
+        n_set = sum(w.numel() for w in ws)
+        bnd, by = bound_ms(k5_bytes(n_set, torch.float32, mode="keyed"), {})
+        log(f"[kernel] supermask keyed slots f32 ({n_set} weights, fwd + bwd): ms={t_k:.4f} plain_ms={t_p:.4f} "
+            f"library_ms=null bound_ms={bnd:.4f} ({by}; held windows in turns)")
+        results["supermask keyed slots"] = dict(max_abs_err=err, ms=t_k, plain_ms=t_p, library_ms=None, bound_ms=bnd,
+                                                bound_by=by)
+    del model, calls, got, plain_ws, fault_ws
+    return ok
+
+
+def check_shared_width_kernels(gen, results: dict, timing: bool = True) -> bool:
+    """This slice's kernel instances: K2's and K3's backward at dk 32 / 13
+    and in the kv mode, and the keyed draws of a shared layer's slots."""
+    ok = check_k2_bwd_width_kernels(gen, results, timing)
+    torch.cuda.empty_cache()
+    ok &= check_k3_bwd_width_kernels(gen, results, timing)
+    torch.cuda.empty_cache()
+    ok &= check_slot_draws(gen, results, timing)
+    torch.cuda.empty_cache()
+    return ok
+
+
+def to_kv(counts: dict) -> dict:
+    """Launch counts of a kv-shared model: the attention kernels' launches
+    moved to their kv entry points."""
+    for name in ("box_attention_train", "box_attention_bwd", "ancestry_self_attention", "ancestry_self_attention_bwd",
+                 "ancestry_self_attention_bwd_anc", "grouped_cross_attention", "grouped_cross_attention_bwd",
+                 "decoder_attention", "decoder_attention_bwd"):
+        counts[f"{name}_kv"], counts[name] = counts[name], 0
+    return counts
+
+
+def dense_beam_scst_launches(layers: int, steps: int, names) -> dict:
+    """Launches of one beam-sample SCST step of a dense ORT (no K5):
+    ``ort_beam_scst_launches`` without the masked products."""
+    counts = ort_beam_scst_launches(layers, steps, 0, names)
+    counts.update(supermask=0, supermask_bwd=0)
+    return counts
+
+
+def build_acort_prune(config, seed: int, label: str, scst: bool = True, dropout: bool = True):
+    """ACORT (`config`: base or small, 2 unique layers a side) as
+    relation_transformer_prune under a training supermask (masks kept) in f32
+    on the card through ``from_config``, random weights from the seed; the
+    mask logits N(0, SUPERMASK_LOGIT_STD) with `scst` (the supermask SCST
+    phases'), else at MASK_INIT (the XE cells')."""
+    from sparse_caption_tpu_torch.config import Config
+    from sparse_caption_tpu_torch.models import get_model
+    from sparse_caption_tpu_torch.ops.masked import MaskConfig
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    extra = {} if dropout else dict(dropout_rate=0.0)
+    if not dropout:
+        config = Config(**dict(config.to_dict(), drop_prob_src=0.0))
+    model = get_model("relation_transformer_prune").from_config(
+        config, MaskConfig("supermask", MASK_INIT, keep_masks=True), device="cuda", generator=gen, **extra)
+    assert len(model.box_encoder_layers) == len(model.decoder_layers) == 2
+    return supermask_logits(model, gen, label) if scst else model
+
+
+def build_xsmall_supermask(seed: int):
+    """ORT-xsmall (ORT_XSMALL_FLAGS) as relation_transformer_prune under a
+    training supermask in f32 on the card through ``from_config``, random
+    weights and mask logits N(0, 1) from the seed, dropout on."""
+    from sparse_caption_tpu_torch.config import Config
+    from sparse_caption_tpu_torch.models import get_model
+    from sparse_caption_tpu_torch.ops.masked import MaskConfig
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    model = get_model("relation_transformer_prune").from_config(
+        Config(**ORT_XSMALL_FLAGS), MaskConfig("supermask", MASK_INIT, keep_masks=True), device="cuda", generator=gen)
+    return supermask_logits(model, gen, "ort-xsmall supermask scst")
+
+
+def timed_scst(model, gen, batches, expected, label: str, steps: int, **kw) -> tuple:
+    """``run_scst_phase`` at each of `batches`, then a profile of one step at
+    the last (its busy share). Returns the launches of a step."""
+    for b in batches:
+        counts, step, state, batch = run_scst_phase(model, gen, b, expected, label=label, steps=steps, **kw)
+    held = [state]
+    samples = kw.get("samples", SCST_SAMPLES)
+    profile_window(f"{label} step, f32 batch {batches[-1]}x{samples}", lambda: held.append(step(held.pop(), batch)[0]))
+    del step, batch, held, state
+    return counts
+
+
+def run_shared_width_scst_phase(gen, t0: float) -> tuple:
+    """Supermask and beam-sample SCST at ACORT's and ORT-xsmall's widths, f32,
+    dropout on, each timed path 1 warm-up + its steps with the launch
+    counts asserted, steps/s, peak memory and a profile (busy share):
+    - ``acort_small_beam_scst_step``: ACORT-small's SCST stage (dense, kv,
+      shared layers, dk 32, the radix reward) with beam search of width 15
+      at 5 x 15 and 64 x 15 (K2's backward through the map in the kv mode,
+      K3's kv backward), the forced search's beams and log-probs against
+      the sampling search's, one step at 2 x 3 card against CPU;
+    - ``acort_small_supermask_scst_step``: the same model as
+      relation_transformer_prune under a training supermask (logits N(0,
+      1)), random samples, at 5 x 15 and 64 x 15 (every slot of a shared
+      layer its own keyed draw, K2's and K3's kv backward), the replay, one
+      step at 2 x 3 card against CPU (the CPU taking the card's samples);
+    - ``ort_xsmall_supermask_scst_step`` and ``ort_xsmall_beam_scst_step``:
+      ORT-xsmall (dk 13) under a training supermask with random samples, and
+      dense with beam search, each at 64 x 15 and card against CPU at 2 x 3;
+    - ``acort_base_supermask_train_step``: ACORT-base under a training
+      supermask (logits 5.0), the XE step in bf16 at 15 x 5 and 256 x 5, a
+      profile at 256 x 5, the f32 step at 2 x 5 card against CPU;
+    - ``acort_base_supermask_scst_step``: its supermask SCST step at 2 x 3
+      card against CPU, the card's launches counted (the kv dk 64
+      instances).
+    `t0`: the build's start, for the ``[time]`` lines. Returns (ok, {path:
+    launch counts})."""
+    from sparse_caption_tpu_torch.config import Config
+    from sparse_caption_tpu_torch.engine.training import TrainState
+    from sparse_caption_tpu_torch.kernels import KERNELS, launch_counts, reset_launch_counts
+
+    good, paths = True, {}
+    with tempfile.TemporaryDirectory() as log_dir:
+        tok, config = acort_tokenizer(log_dir, ACORT_SMALL_FLAGS)
+        _, base_config = acort_tokenizer(log_dir, ACORT_FLAGS)
+    scst_config = Config(**dict(config.to_dict(), drop_prob_src=ACORT_SMALL_SCST_DROP_SRC))
+    steps = ACORT_LEN - 1
+
+    log(f"[time] {time.perf_counter() - t0:.1f}s since the build began (ACORT-small beam-sample SCST)")
+    build_beam = lambda seed: favour_word_digits(build_acort(scst_config, seed))  # noqa: E731
+    model = build_beam(SEED + 41)
+    paths["acort_small_beam_scst_step"] = timed_scst(
+        model, gen, SCST_BATCHES, to_kv(dense_beam_scst_launches(ACORT_SLOTS, steps, KERNELS)),
+        "acort-small beam scst", BEAM_SCST_STEPS, tok=tok, config=ACORT_SMALL_BEAM_CONFIG)
+    good &= beam_replay_check(model, gen, label="acort-small beam replay", max_len=steps)
+    del model
+    torch.cuda.empty_cache()
+    good &= scst_whole_step_check(SEED + 41, gen, build_beam, make_batch, "acort-small beam scst-step", tok=tok,
+                                  config=ACORT_SMALL_BEAM_CONFIG, max_len=steps)
+    torch.cuda.empty_cache()
+
+    log(f"[time] {time.perf_counter() - t0:.1f}s since the build began (ACORT-small supermask SCST)")
+    build_sm = lambda seed: favour_word_digits(  # noqa: E731
+        build_acort_prune(scst_config, seed, "acort-small supermask scst"))
+    model = build_sm(SEED + 41)
+    paths["acort_small_supermask_scst_step"] = timed_scst(
+        model, gen, SCST_BATCHES, to_kv(supermask_scst_launches(ACORT_SLOTS, steps, KERNELS)),
+        "acort-small supermask scst", SUPERMASK_SCST_STEPS, tok=tok, config=ACORT_SMALL_SCST_CONFIG)
+    good &= replay_check(model, gen, label="acort-small supermask replay", max_len=steps)
+    del model
+    torch.cuda.empty_cache()
+    good &= scst_whole_step_check(SEED + 41, gen, build_sm, make_batch, "acort-small supermask scst-step", tok=tok,
+                                  config=ACORT_SMALL_SCST_CONFIG, max_len=steps)
+    torch.cuda.empty_cache()
+
+    log(f"[time] {time.perf_counter() - t0:.1f}s since the build began (ORT-xsmall supermask and beam-sample SCST)")
+    model = build_xsmall_supermask(SEED + 41)
+    paths["ort_xsmall_supermask_scst_step"] = timed_scst(
+        model, gen, SCST_BATCHES[-1:], supermask_scst_launches(PAPER["num_layers"], MAX_LEN, KERNELS),
+        "ort-xsmall supermask scst", SUPERMASK_SCST_STEPS)
+    del model
+    torch.cuda.empty_cache()
+    good &= scst_whole_step_check(SEED + 41, gen, build_xsmall_supermask, label="ort-xsmall supermask scst-step")
+    build_xs = lambda seed: build_ort(ORT_XSMALL_FLAGS, seed)  # noqa: E731
+    model = build_xs(SEED + 41)
+    paths["ort_xsmall_beam_scst_step"] = timed_scst(
+        model, gen, SCST_BATCHES[-1:], dense_beam_scst_launches(PAPER["num_layers"], MAX_LEN, KERNELS),
+        "ort-xsmall beam scst", BEAM_SCST_STEPS, config=BEAM_SCST_CONFIG)
+    del model
+    torch.cuda.empty_cache()
+    good &= scst_whole_step_check(SEED + 41, gen, build_xs, label="ort-xsmall beam scst-step",
+                                  config=BEAM_SCST_CONFIG)
+    torch.cuda.empty_cache()
+
+    log(f"[time] {time.perf_counter() - t0:.1f}s since the build began (ACORT-base supermask XE and SCST)")
+    slots = ACORT_SLOTS
+    train = {name: 0 for name in KERNELS}
+    train.update(box_attention_train_kv=slots, box_attention_bwd_kv=slots, supermask=1, supermask_bwd=1,
+                 add_ref_layernorm=(1 + 2 * slots) + (1 + 3 * slots),
+                 add_ref_layernorm_bwd=(1 + 2 * slots) + (1 + 3 * slots), vocab_log_softmax=1,
+                 vocab_log_softmax_bwd=1, decoder_attention_kv=2 * slots, decoder_attention_bwd_kv=2 * slots)
+    xe_model = build_acort_prune(base_config, SEED + 41, "acort-base supermask train", scst=False)
+    for b in (TRAIN_BATCH, TRAIN_BIG_BATCH):
+        paths["acort_base_supermask_train_step"] = run_train_phase(
+            xe_model, gen, b, "bf16", train, ACORT_CONFIG, make_acort_train_batch, "acort-base supermask train")
+    step, state = make_train_step(xe_model, "bf16", ACORT_CONFIG), [TrainState()]
+    batch = make_acort_train_batch(gen, TRAIN_BIG_BATCH)
+    profile_window(f"ACORT-base supermask XE step, bf16 batch {TRAIN_BIG_BATCH}x{SEQ_PER_IMG}",
+                   lambda: state.append(step(state.pop(), batch)[0]))
+    del xe_model, step, state, batch
+    torch.cuda.empty_cache()
+    good &= whole_step_check(SEED, gen, lambda: build_acort_prune(base_config, SEED + 41, "", scst=False,
+                                                                  dropout=False),
+                             make_acort_train_batch, ACORT_CONFIG, "acort-base supermask whole-step")
+    torch.cuda.empty_cache()
+    expected = to_kv(supermask_scst_launches(slots, steps, KERNELS))
+    expected["cider_reward"] = 2  # the check scores the card's samples once more, beside the step's own reward
+    reset_launch_counts()
+    good &= scst_whole_step_check(SEED + 41, gen, lambda seed: favour_word_digits(
+        build_acort_prune(base_config, seed, "acort-base supermask scst")), make_batch,
+        "acort-base supermask scst-step", tok=tok, config=ACORT_BASE_SCST_CONFIG, max_len=steps)
+    counts = launch_counts()
+    assert counts == expected, f"acort-base supermask scst-step launch counts {counts} != {expected}"
+    log(f"[acort-base supermask scst-step] the card's launches (one sampling pass, one gradient pass, two rewards): "
+        f"{counts}")
+    paths["acort_base_supermask_scst_step"] = counts
     torch.cuda.empty_cache()
     return good, paths
 
@@ -5766,6 +6356,8 @@ def main() -> int:
     ok &= check_decode_variant_kernels(torch.Generator(device="cuda").manual_seed(SEED + 36), results)
     torch.cuda.empty_cache()
     ok &= check_ss_beam_kernels(torch.Generator(device="cuda").manual_seed(SEED + 38), results)
+    torch.cuda.empty_cache()
+    ok &= check_shared_width_kernels(torch.Generator(device="cuda").manual_seed(SEED + 40), results)
     if not ok:
         log("[kernel] a kernel disagrees with its plain version")
         return 1
@@ -5926,6 +6518,12 @@ def main() -> int:
     if not good:
         return 1
 
+    # supermask and beam-sample SCST at ACORT's and ORT-xsmall's widths (K2's and K3's backward at dk 32 / 13 and
+    # in the kv mode, a fresh keyed draw for each slot of a shared layer), ACORT-base's supermask XE
+    good, shared_width_paths = run_shared_width_scst_phase(torch.Generator(device="cuda").manual_seed(SEED + 41), t0)
+    if not good:
+        return 1
+
     log(f"[time] {time.perf_counter() - t0:.1f}s since the build began")
     paths = {"serve": serve_counts, "train_step": train_counts, "scst_step": scst_counts,
              "updown_serve": ud_serve_counts, "updown_train_step": ud_train_counts,
@@ -5936,6 +6534,7 @@ def main() -> int:
     paths.update(zip(SUPERMASK_PATHS, (sm_scst, ud_sm_scst)))
     paths.update(variant_paths)
     paths.update(ss_beam_paths)
+    paths.update(shared_width_paths)
     kernels = []
     for name in _build.SOURCES:
         entries = [e for e, k in KERNELS.items() if k.library_name == name]
@@ -5962,6 +6561,13 @@ def main() -> int:
             kernels.append(dict(name=mode, route="cuda", source=str(src.relative_to(_build.CSRC.parents[2])),
                                 replaces=replaces, launches=sum(by_path.values()), launches_by_path=by_path,
                                 **results[mode]))
+    # this slice's instances: their own entries, launches on the paths of their width
+    for mode, library, entries, replaces, model_paths in SHARED_WIDTH_MODES:
+        by_path = {path: sum(paths[path][e] for e in entries) for path in model_paths}
+        src = _build.CSRC / f"{library}.cu"
+        kernels.append(dict(name=mode, route="cuda", source=str(src.relative_to(_build.CSRC.parents[2])),
+                            replaces=replaces, launches=sum(by_path.values()), launches_by_path=by_path,
+                            **results[mode]))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

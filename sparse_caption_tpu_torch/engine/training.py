@@ -20,7 +20,8 @@ params stay f32 and the forward runs on a differentiable bf16 cast of them
 compute dtype, as the JAX package's do).
 
 SCST (the two-phase step with the device reward, ``scst_reward device``;
-supermask, mask_freeze or dense models of either family, ``scst_sample
+supermask, mask_freeze or dense models of either family, ACORT's kv-shared
+attention and shared layers and every head width included, ``scst_sample
 random`` or ``beam_search``):
 
     reward_fn = make_reward_fn(DfTable.from_pickle(df_path, tok2id), bleu_weight=(0, 0, 0, 1))
@@ -200,9 +201,11 @@ def make_scst_step(model: nn.Module, opt_w: Optimizer, opt_m: Optimizer, config,
 
     A supermask model draws fresh masks at every decode step (keyed, so the
     gradient pass draws the same ones: ``ops/rng.py``). One parallel pass
-    cannot reproduce that, so the ORT's gradient pass re-encodes and runs
-    the decode again step by step with gradients (``scan_log_probs``, K2's
-    and K3's backward kernels); Up-Down's unrolled replay is that scan
+    cannot reproduce that, so the ORT's gradient pass (ACORT's too: each slot
+    of a shared layer draws its own keyed sample) re-encodes and runs the
+    decode again step by step with gradients (``scan_log_probs``, K2's and
+    K3's backward kernels, their kv modes under kv sharing); Up-Down's
+    unrolled replay is that scan
     already (``STEPWISE_REPLAY``). Under beam search no teacher-forced pass
     can replay the decode (a surviving beam's activations came from its
     ancestor's row, under that row's draws; Up-Down's states are reordered

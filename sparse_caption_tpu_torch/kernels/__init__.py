@@ -28,9 +28,13 @@ nucleus modes)
 beam_topk (K4 diverse)            csrc/beam_topk.cu                    decoding/beam.py:176-184
 box_attention[_train] raw (K1)    csrc/box_attention.cu                models/layers.py:338-365 (raw geometry)
 box_attention_bwd raw (K7)        csrc/box_attention_bwd.cu            gradients of the same
-ancestry_self_attention (K2 bwd,  csrc/ancestry_self_attention_bwd.cu  gradient of layers.py:320-333
-ancestry mode)                                                         (through ancestry_onehot)
+ancestry_self_attention (K2 bwd,  csrc/ancestry_self_attention_bwd    gradient of layers.py:320-333
+ancestry mode)                    _anc.cu                              (through ancestry_onehot)
 scheduled_sample (K9 ss mode)     csrc/sample_step.cu                  models/up_down.py:170-183
+ancestry_self_attention (K2 bwd,  csrc/ancestry_self_attention_bwd.cu  gradient of layers.py:296,305-310
+kv modes; dk 32, 13)                                                   (one cache read as K and V)
+grouped_cross_attention (K3 bwd,  csrc/grouped_cross_attention_bwd.cu  gradient of layers.py:244-248
+kv mode; dk 32, 13)                                                    (mem_v=None)
 ================================  ===================================  =============================================
 
 A wrapper given CPU tensors runs the plain version; given CUDA tensors it
@@ -41,7 +45,9 @@ attention kernels take head widths 64, 32 and 13 (``_checks.HEAD_WIDTHS``;
 13 staged at 16). K5, K6,
 K1/K7, K8's apply variant, K11-K13 and K14/K15 are autograd Functions whose
 backward is a kernel too, and so are K2 and K3 where gradients are asked
-for (supermask SCST's gradient pass; f32, unshared, head width 64). K5's
+for (supermask and beam-sample SCST's gradient pass; f32, head widths 64,
+32 and 13, unshared or in their kv modes: ``*_bwd_kv`` entry points with
+launch counts of their own). K5's
 keyed mode draws its uniforms in the kernel from Philox (supermask SCST).
 K9's sample methods (Gumbel, top-k, nucleus), K4's diverse-beam penalty and
 K1 / K7 on the raw 4-wide geometry (``--no_box_trigonometric_embedding``)
@@ -83,9 +89,12 @@ KERNELS = {
     "ancestry_self_attention_kv": _k2.KERNEL_KV,
     "ancestry_self_attention_bwd": _k2.KERNEL_BWD,
     "ancestry_self_attention_bwd_anc": _k2.KERNEL_BWD_ANC,
+    "ancestry_self_attention_bwd_kv": _k2.KERNEL_BWD_KV,
+    "ancestry_self_attention_bwd_anc_kv": _k2.KERNEL_BWD_ANC_KV,
     "grouped_cross_attention": _k3.KERNEL,
     "grouped_cross_attention_kv": _k3.KERNEL_KV,
     "grouped_cross_attention_bwd": _k3.KERNEL_BWD,
+    "grouped_cross_attention_bwd_kv": _k3.KERNEL_BWD_KV,
     "beam_topk": _k4.KERNEL,
     "beam_topk_diverse": _k4.KERNEL_DIVERSE,
     "supermask": _k5.KERNEL,

@@ -5,7 +5,8 @@ interface, compiled for ``sm_90a`` into ``build/torch_kernels/`` at the repo
 root (listed in ``.gitignore``). All libraries build in parallel, one
 ``nvcc`` each, the first time any kernel launches (or when
 ``build_all()`` is called). A library's file name carries a hash of its
-sources and flags, so an edited source is rebuilt.
+source, the headers it includes and the flags, so an edited source or
+header rebuilds the libraries that include it.
 """
 
 from __future__ import annotations
@@ -27,7 +28,8 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 SOURCES = ("box_attention", "ancestry_self_attention", "grouped_cross_attention", "beam_topk", "supermask",
            "add_ref_layernorm", "box_attention_bwd", "keyed_dropout", "sample_step", "cider_reward", "lstm_cell",
            "additive_attention", "vocab_log_softmax", "decoder_attention", "decoder_attention_bwd",
-           "magnitude_threshold", "ancestry_self_attention_bwd", "grouped_cross_attention_bwd")
+           "magnitude_threshold", "ancestry_self_attention_bwd", "grouped_cross_attention_bwd",
+           "ancestry_self_attention_bwd_anc")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -46,11 +48,24 @@ def _nvcc() -> str:
     return str(path)
 
 
+def _local_sources(name: str) -> List[Path]:
+    """``csrc/<name>`` and the ``csrc`` headers it includes, directly or through others."""
+    seen, todo = [], [CSRC / name]
+    while todo:
+        path = todo.pop()
+        if path in seen:
+            continue
+        seen.append(path)
+        for line in path.read_text().splitlines():
+            if line.startswith('#include "'):
+                todo.append(CSRC / line.split('"')[1])
+    return sorted(seen)
+
+
 def _library_path(name: str) -> Path:
     h = hashlib.sha1(" ".join(NVCC_FLAGS).encode())
-    h.update((CSRC / f"{name}.cu").read_bytes())
-    for header in sorted(CSRC.glob("*.cuh")):
-        h.update(header.read_bytes())
+    for src in _local_sources(f"{name}.cu"):
+        h.update(src.read_bytes())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
 
 

@@ -11,14 +11,17 @@ The backward (supermask and beam-sample SCST: the gradient pass runs the
 decode itself, step by step, with gradients) is ``decode_self_attention``:
 the step's write of slot t and K2, as one autograd Function
 (``DecodeSelfStep``) whose backward is kernel K2's backward
-(``csrc/ancestry_self_attention_bwd.cu``; ``ancestry_self_attention_backward``,
+(``csrc/ancestry_self_attention_bwd.cu``, the ancestry mode
+``csrc/ancestry_self_attention_bwd_anc.cu``; ``ancestry_self_attention_backward``,
 plain version ``ancestry_self_attention_backward_plain``, the autograd of
-the plain forward). It is ported for unshared K and V in f32, for the
-identity map (the sampling decode) and through the beam-ancestry map (the
-ancestry mode, its own entry point and launch count: slot t' of row j
-receives the sum over the image's beams that read it, in beam order); the
-kv mode and bf16 raise ``NotImplementedError`` on every device, and the
-kernel takes head width 64 only.
+the plain forward). It is ported in f32 at head widths 64, 32 and 13, for
+the identity map (the sampling decode) and through the beam-ancestry map
+(the ancestry mode, its own entry point and launch count: slot t' of row j
+receives the sum over the image's beams that read it, in beam order), each
+with unshared K and V or in the kv mode (one cache, whose slot t' takes
+both the score term and the value term, its own entry points and launch
+counts); bf16 raises ``NotImplementedError`` on every device (the JAX
+package's SCST step runs in the parameters' dtype, f32).
 
 The cache is written in place at every step, and autograd would give no
 order in which the steps' backwards run if each of them added to one
@@ -26,7 +29,7 @@ gradient buffer of the cache. So the order is made explicit by threading
 the cache through each step's Function as an input and an output
 (``mark_dirty``): step t's output cache is step t + 1's input, so step t's
 backward runs after every later step's and receives the cache's gradient
-(``dcache``, one (N, h, T_max, dk) buffer a layer) with their
+(``dcache``, one (N, h, T_max, dk) buffer a cache array) with their
 contributions already added. It adds its own for slots 0..t-1 into that
 buffer, returns slot t's total (the buffer's slot t plus its own) as the
 gradient of k_t and v_t, zeroes slot t (the input cache's slot t was
@@ -37,7 +40,7 @@ the cache from the per-step k_t, v_t at every step would need no order,
 but copies O(T^2) bytes and keeps every step's stacked copy for the
 backward: at 64 x 15 samples, 17 steps and 6 layers about 3.6 GB of f32,
 against one buffer a layer here. The step saves its q and aliases of the
-two caches; later steps write slots > t only, so slots 0..t are still the
+caches; later steps write slots > t only, so slots 0..t are still the
 step's when its backward reads them.
 """
 
@@ -66,11 +69,20 @@ KERNEL_BWD = _build.CudaKernel("ancestry_self_attention_bwd", "sct_ancestry_self
     _build.I, _build.I, _build.I, _build.I, _build.F32, _build.P,
 ])
 # the ancestry mode: slot t' of row j gets the sum over the image's rows r with ancestry[r, t'] == j
-KERNEL_BWD_ANC = _build.CudaKernel("ancestry_self_attention_bwd", "sct_ancestry_self_attention_bwd_anc", [
+KERNEL_BWD_ANC = _build.CudaKernel("ancestry_self_attention_bwd_anc", "sct_ancestry_self_attention_bwd_anc", [
     _build.I, _build.P, _build.P, _build.P, _build.P, _build.P, _build.P, _build.P, _build.P, _build.P, _build.P,
     _build.I, _build.I, _build.I, _build.I, _build.I, _build.F32, _build.P,
 ])
-BWD_HEAD_WIDTHS = (64,)  # the backward kernel's instances (f32)
+# the kv modes of both: one cache (K and V) and its one gradient buffer
+KERNEL_BWD_KV = _build.CudaKernel("ancestry_self_attention_bwd", "sct_ancestry_self_attention_bwd_kv", [
+    _build.I, _build.P, _build.P, _build.P, _build.P, _build.P, _build.P,
+    _build.I, _build.I, _build.I, _build.I, _build.F32, _build.P,
+])
+KERNEL_BWD_ANC_KV = _build.CudaKernel("ancestry_self_attention_bwd_anc", "sct_ancestry_self_attention_bwd_anc_kv", [
+    _build.I, _build.P, _build.P, _build.P, _build.P, _build.P, _build.P, _build.P,
+    _build.I, _build.I, _build.I, _build.I, _build.I, _build.F32, _build.P,
+])
+BWD_HEAD_WIDTHS = (64, 32, 13)  # the backward kernel's instances (f32)
 # cache slots the kernel takes: the rows PyTorch's warp softmax takes, whose
 # layout the kernel follows (csrc: 32 lanes, at most 32 slots each)
 MAX_SLOTS = 1024
@@ -139,58 +151,71 @@ def ancestry_self_attention(q, cache_k, cache_v: Optional[torch.Tensor], ancestr
 
 
 # ------------------------------------------------------------------ backward
-def check_backward_supported(q, cache_v: Optional[torch.Tensor]) -> None:
-    """What the backward does not take yet, on every device."""
-    if cache_v is None:
-        raise NotImplementedError("K2's backward in the kv mode lands in a later slice")
+def check_backward_supported(q) -> None:
+    """What the backward does not take, on every device: bf16 (the JAX
+    package's SCST step runs in f32)."""
     if q.dtype != torch.float32:
-        raise NotImplementedError(f"K2's backward is ported in f32 (bf16 SCST lands in a later slice); got {q.dtype}")
+        raise NotImplementedError(f"K2's backward is ported in f32 (the JAX package's SCST step runs in f32); "
+                                  f"got {q.dtype}")
 
 
-def anc_bwd_smem_bytes(beams: int, t: int, dk: int = 64) -> int:
+def anc_bwd_smem_bytes(dk: int, beams: int, t: int) -> int:
     """Shared memory of one block of the ancestry mode (``csrc`` ``anc_bwd_smem_bytes``):
-    p, ds and the map's slots 0..t of the image's beams, and their q and dout."""
-    return 4 * beams * (3 * (t + 1) + 2 * dk)
+    the image's beams' q and dout, then p, ds and the map's slots 0..t."""
+    return 4 * beams * (2 * dk + 3 * (t + 1))
 
 
-def ancestry_self_attention_backward_plain(q, cache_k, cache_v, dout, dcache_k, dcache_v, t: int,
+def ancestry_self_attention_backward_plain(q, cache_k, cache_v: Optional[torch.Tensor], dout, dcache_k,
+                                           dcache_v: Optional[torch.Tensor], t: int,
                                            ancestry: Optional[torch.Tensor] = None):
     """The plain version: the autograd of ``ancestry_self_attention_plain``
     (through ``ancestry`` (B, K, T_max), or the identity map) over slots
     0..t; its dK / dV of slots 0..t-1 are added into ``dcache_k`` /
     ``dcache_v`` in place and slot t of both is zeroed. Returns (dq, dk_t,
-    dv_t), dk_t = dcache_k[:, :, t] (as received) + slot t's own dK."""
+    dv_t), dk_t = dcache_k[:, :, t] (as received) + slot t's own dK. Under
+    kv (``cache_v`` and ``dcache_v`` None) the one cache's gradient is the
+    two uses' sum, and dv_t is None."""
+    kv = cache_v is None
     with torch.enable_grad():
         qq = q.detach().requires_grad_()
         kk = cache_k[:, :, : t + 1].detach().requires_grad_()
-        vv = cache_v[:, :, : t + 1].detach().requires_grad_()
+        vv = None if kv else cache_v[:, :, : t + 1].detach().requires_grad_()
         out = ancestry_self_attention_plain(qq, kk, vv, ancestry, t)
-        dq, dk, dv = torch.autograd.grad(out, (qq, kk, vv), dout)
-    dk_t = dcache_k[:, :, t] + dk[:, :, t]
-    dv_t = dcache_v[:, :, t] + dv[:, :, t]
-    dcache_k[:, :, :t] += dk[:, :, :t]
-    dcache_v[:, :, :t] += dv[:, :, :t]
+        grads = torch.autograd.grad(out, (qq, kk) if kv else (qq, kk, vv), dout)
+    dq, dk_t = grads[0], dcache_k[:, :, t] + grads[1][:, :, t]
+    dcache_k[:, :, :t] += grads[1][:, :, :t]
     dcache_k[:, :, t] = 0
+    if kv:
+        return dq, dk_t, None
+    dv_t = dcache_v[:, :, t] + grads[2][:, :, t]
+    dcache_v[:, :, :t] += grads[2][:, :, :t]
     dcache_v[:, :, t] = 0
     return dq, dk_t, dv_t
 
 
-def ancestry_self_attention_backward(q, cache_k, cache_v, dout, dcache_k, dcache_v, t: int,
+def ancestry_self_attention_backward(q, cache_k, cache_v: Optional[torch.Tensor], dout, dcache_k,
+                                     dcache_v: Optional[torch.Tensor], t: int,
                                      ancestry: Optional[torch.Tensor] = None):
-    """The backward of one decode step's K2 (unshared, f32). q, dout: (N, h,
-    dk); cache_k/v: (N, h, T_max, dk), slots 0..t as the forward read them;
+    """The backward of one decode step's K2 (f32). q, dout: (N, h, dk);
+    cache_k/v: (N, h, T_max, dk), slots 0..t as the forward read them;
     dcache_k/v: (N, h, T_max, dk), the caches' gradient from the later
     steps, updated in place (slots < t += this step's dK / dV, slot t
-    zeroed); ancestry: the step's map (B, K, T_max) int32, N = B*K (the
-    ancestry mode: slot t' of row j gets the sum over the image's rows r with
-    ancestry[b, r, t'] == j), or None for the identity map. Returns (dq,
-    dk_t, dv_t), each (N, h, dk)."""
-    check_backward_supported(q, cache_v)
+    zeroed); cache_v and dcache_v None in the kv mode (one cache read as K
+    and V; its gradient takes both terms); ancestry: the step's map (B, K,
+    T_max) int32, N = B*K (the ancestry mode: slot t' of row j gets the sum
+    over the image's rows r with ancestry[b, r, t'] == j), or None for the
+    identity map. Returns (dq, dk_t, dv_t), each (N, h, dk); dv_t is None
+    under kv."""
+    check_backward_supported(q)
+    kv = cache_v is None
+    if kv != (dcache_v is None):
+        raise ValueError("the kv mode takes one cache and one gradient buffer (cache_v and dcache_v both None)")
     n, h, dk = q.shape
     t_max = cache_k.shape[2]
     check_tensor(dout, "dout", (n, h, dk), q.dtype)
     for name, c in (("cache_k", cache_k), ("cache_v", cache_v), ("dcache_k", dcache_k), ("dcache_v", dcache_v)):
-        check_tensor(c, name, (n, h, t_max, dk), q.dtype)
+        if c is not None:
+            check_tensor(c, name, (n, h, t_max, dk), q.dtype)
     kb = 1
     if ancestry is not None:
         kb = ancestry.shape[1] if ancestry.dim() == 3 else 0
@@ -203,68 +228,81 @@ def ancestry_self_attention_backward(q, cache_k, cache_v, dout, dcache_k, dcache
     if q.device.type == "cpu":
         return ancestry_self_attention_backward_plain(q, cache_k, cache_v, dout, dcache_k, dcache_v, t, ancestry)
     if dk not in BWD_HEAD_WIDTHS:
-        raise NotImplementedError(f"K2's backward kernel takes head width {BWD_HEAD_WIDTHS}; got dk={dk}")
+        raise ValueError(f"K2's backward kernel takes head widths {BWD_HEAD_WIDTHS}; got dk={dk}")
     if h > 32 or t_max > MAX_SLOTS:
         raise ValueError(f"K2's backward kernel takes h <= 32, T_max <= {MAX_SLOTS}; got h={h} T_max={t_max}")
-    dq, dk_t, dv_t = torch.empty_like(q), torch.empty_like(q), torch.empty_like(q)
+    dq, dk_t = torch.empty_like(q), torch.empty_like(q)
+    dv_t = None if kv else torch.empty_like(q)
+    sqrt_dk, stream = score_divisor(dk, q.dtype), _build.stream_handle(q)
     if ancestry is not None:
-        if anc_bwd_smem_bytes(kb, t, dk) > _build.BLOCK_SMEM_LIMIT:
+        if anc_bwd_smem_bytes(dk, kb, t) > _build.BLOCK_SMEM_LIMIT:
             raise ValueError(f"K2's backward ancestry mode: {kb} beams at t={t} exceed a block's shared memory")
-        KERNEL_BWD_ANC.launch(dk, q.data_ptr(), cache_k.data_ptr(), cache_v.data_ptr(), dout.data_ptr(),
-                              ancestry.data_ptr(), dq.data_ptr(), dcache_k.data_ptr(), dcache_v.data_ptr(),
-                              dk_t.data_ptr(), dv_t.data_ptr(), n, h, kb, t_max, t, score_divisor(dk, q.dtype),
-                              _build.stream_handle(q))
-        return dq, dk_t, dv_t
-    KERNEL_BWD.launch(dk, q.data_ptr(), cache_k.data_ptr(), cache_v.data_ptr(), dout.data_ptr(), dq.data_ptr(),
-                      dcache_k.data_ptr(), dcache_v.data_ptr(), dk_t.data_ptr(), dv_t.data_ptr(), n, h, t_max, t,
-                      score_divisor(dk, q.dtype), _build.stream_handle(q))
+        if kv:
+            KERNEL_BWD_ANC_KV.launch(dk, q.data_ptr(), cache_k.data_ptr(), dout.data_ptr(), ancestry.data_ptr(),
+                                     dq.data_ptr(), dcache_k.data_ptr(), dk_t.data_ptr(), n, h, kb, t_max, t, sqrt_dk,
+                                     stream)
+        else:
+            KERNEL_BWD_ANC.launch(dk, q.data_ptr(), cache_k.data_ptr(), cache_v.data_ptr(), dout.data_ptr(),
+                                  ancestry.data_ptr(), dq.data_ptr(), dcache_k.data_ptr(), dcache_v.data_ptr(),
+                                  dk_t.data_ptr(), dv_t.data_ptr(), n, h, kb, t_max, t, sqrt_dk, stream)
+    elif kv:
+        KERNEL_BWD_KV.launch(dk, q.data_ptr(), cache_k.data_ptr(), dout.data_ptr(), dq.data_ptr(),
+                             dcache_k.data_ptr(), dk_t.data_ptr(), n, h, t_max, t, sqrt_dk, stream)
+    else:
+        KERNEL_BWD.launch(dk, q.data_ptr(), cache_k.data_ptr(), cache_v.data_ptr(), dout.data_ptr(), dq.data_ptr(),
+                          dcache_k.data_ptr(), dcache_v.data_ptr(), dk_t.data_ptr(), dv_t.data_ptr(), n, h, t_max, t,
+                          sqrt_dk, stream)
     return dq, dk_t, dv_t
 
 
 class DecodeSelfStep(torch.autograd.Function):
-    """One decode step's self-attention with gradients: write k_t, v_t into
-    slot t of the caches (in place, ``mark_dirty``), K2 over slots 0..t
+    """One decode step's self-attention with gradients: write k_t (and v_t)
+    into slot t of the caches (in place, ``mark_dirty``), K2 over slots 0..t
     through the step's ancestry map (or the identity). The caches go in and
     come out, which orders the steps' backwards (see the module's
-    docstring)."""
+    docstring). Under kv there is one cache, v_t and cache_v are None, and
+    the Function returns (out, cache)."""
 
     @staticmethod
     def forward(ctx, q, k_t, v_t, cache_k, cache_v, ancestry, t: int):
+        caches = (cache_k,) if cache_v is None else (cache_k, cache_v)
         cache_k[:, :, t] = k_t
-        cache_v[:, :, t] = v_t
+        if cache_v is not None:
+            cache_v[:, :, t] = v_t
         out = ancestry_self_attention(q, cache_k, cache_v, ancestry, t)
-        ctx.mark_dirty(cache_k, cache_v)
+        ctx.mark_dirty(*caches)
         ctx.save_for_backward(q)
-        ctx.caches = (cache_k.detach(), cache_v.detach())  # aliases: later steps write slots > t only
+        ctx.caches = tuple(c.detach() for c in caches)  # aliases: later steps write slots > t only
         ctx.ancestry = None if ancestry is None else ancestry.clone()  # the step's map
         ctx.t = t
         ctx.set_materialize_grads(False)
-        return out, cache_k, cache_v
+        return (out, *caches)
 
     @staticmethod
-    def backward(ctx, dout, dcache_k, dcache_v):
+    def backward(ctx, dout, *dcaches):
         (q,) = ctx.saved_tensors
-        cache_k, cache_v = ctx.caches
-        dcache_k = torch.zeros_like(cache_k) if dcache_k is None else dcache_k.contiguous()
-        dcache_v = torch.zeros_like(cache_v) if dcache_v is None else dcache_v.contiguous()
+        dcaches = [torch.zeros_like(c) if d is None else d.contiguous() for c, d in zip(ctx.caches, dcaches)]
         dout = torch.zeros_like(q) if dout is None else dout.contiguous()
-        dq, dk_t, dv_t = ancestry_self_attention_backward(q, cache_k, cache_v, dout, dcache_k, dcache_v, ctx.t,
-                                                          ctx.ancestry)
-        return dq, dk_t, dv_t, dcache_k, dcache_v, None, None
+        cache_v, dcache_v = (ctx.caches[1], dcaches[1]) if len(dcaches) == 2 else (None, None)
+        dq, dk_t, dv_t = ancestry_self_attention_backward(q, ctx.caches[0], cache_v, dout, dcaches[0], dcache_v,
+                                                          ctx.t, ctx.ancestry)
+        return (dq, dk_t, dv_t, *dcaches, *([None] * (2 - len(dcaches))), None, None)
 
 
 def decode_self_attention(q, k_t, v_t, cache_k, cache_v: Optional[torch.Tensor], ancestry: Optional[torch.Tensor],
                           t: int):
     """One decode step of self-attention: k_t, v_t (N, h, dk) written into
     slot t of cache_k / cache_v (in place; cache_v=None under kv, where k_t
-    is the one array's row), then K2 over slots 0..t. Where gradients are
-    asked for (the SCST gradient pass that runs the decode again), the two
-    run as ``DecodeSelfStep``, whose backward is K2's backward (through the
-    ancestry map under beam search). Returns (N, h, dk)."""
+    is the one array's row and v_t is not read), then K2 over slots 0..t.
+    Where gradients are asked for (the SCST gradient pass that runs the
+    decode again), the two run as ``DecodeSelfStep``, whose backward is K2's
+    backward (through the ancestry map under beam search; the kv mode under
+    kv). Returns (N, h, dk)."""
+    if cache_v is None:
+        v_t = None
     if torch.is_grad_enabled() and any(x is not None and x.requires_grad for x in (q, k_t, v_t, cache_k, cache_v)):
-        check_backward_supported(q, cache_v)
-        out, _, _ = DecodeSelfStep.apply(q, k_t, v_t, cache_k, cache_v, ancestry, t)
-        return out
+        check_backward_supported(q)
+        return DecodeSelfStep.apply(q, k_t, v_t, cache_k, cache_v, ancestry, t)[0]
     cache_k[:, :, t] = k_t
     if cache_v is not None:
         cache_v[:, :, t] = v_t

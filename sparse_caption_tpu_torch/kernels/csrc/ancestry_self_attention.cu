@@ -47,32 +47,6 @@
 
 namespace sct {
 
-// A lane's dims of a head row, at p = the row + kLaneDims<DK> x lane: 2
-// neighbours (one 4- or 8-byte access) at DK = 64; one at DK = 32 and 13,
-// where the lanes past DK hold 0 and touch no memory.
-template <int DK> constexpr int kLaneDims = DK == 64 ? 2 : 1;
-template <int DK, typename T>
-struct LaneDims {
-  float v;
-  __device__ __forceinline__ void load(const T* p, int lane) { v = lane < DK ? to_f(*p) : 0.f; }
-  __device__ __forceinline__ float dot(const LaneDims& o) const { return v * o.v; }
-  __device__ __forceinline__ void add(float p, const LaneDims& o) { v += p * o.v; }
-  __device__ __forceinline__ void store(T* p, int lane) const {
-    if (lane < DK) *p = from_f<T>(v);
-  }
-};
-template <typename T>
-struct LaneDims<64, T> {
-  float2 v;
-  __device__ __forceinline__ void load(const T* p, int) { v = load2(p); }
-  __device__ __forceinline__ float dot(const LaneDims& o) const { return v.x * o.v.x + v.y * o.v.y; }
-  __device__ __forceinline__ void add(float p, const LaneDims& o) {
-    v.x += p * o.v.x;
-    v.y += p * o.v.y;
-  }
-  __device__ __forceinline__ void store(T* p, int) const { store2(p, v); }
-};
-
 // cache_v == nullptr: the kv mode, V read from the K cache
 template <int DK, typename T, int S>
 __global__ void ancestry_self_attention_kernel(const T* __restrict__ q, const T* __restrict__ cache_k,

@@ -1,8 +1,12 @@
 // K2's backward: the gradient of one decode step of causal self-attention
-// against the K/V cache, f32, head width 64, for the identity map (each row
-// reads its own cache row; the sampling decode) and, in the ancestry mode,
-// through the beam-ancestry map (beam search: row r of image b reads slot t'
-// of row b K + anc[b, r, t']).
+// against the K/V cache, f32, head widths 64, 32 and 13, for the identity
+// map (each row reads its own cache row; the sampling decode) and, in the
+// ancestry mode (ancestry_self_attention_bwd_anc.cu, its own library),
+// through the beam-ancestry map (beam search: row r of image b reads slot
+// t' of row b K + anc[b, r, t']); each with unshared K and V or in the kv
+// mode (ACORT's kv-shared layers: one cache array read as K and V,
+// sparse_caption_tpu/models/layers.py:296,305-310). The code the modes
+// share is in ancestry_self_attention_bwd.cuh.
 //
 // Replaces: the gradient of sparse_caption_tpu/models/layers.py:317-320
 // MultiHeadAttention.decode_self (scaled_dot_attention over the cache with
@@ -30,6 +34,11 @@
 // division by sqrt(dk) is the plain version's true division (common.cuh
 // div_score) of the scores' gradient.
 //
+// The kv mode: the one cache is K and V, so slot t' of its gradient takes
+// both terms, ds_t' q + p_t' dout (summed as dk_t' + dv_t', the plain
+// version's autograd adding the two uses of the one tensor), and the step's
+// d(k_t) is slot t's total; there is no dcache_v and no dv_t.
+//
 // Bound on the H100: bytes. At step t it must read q and dout, the (t + 1)
 // cached key and value slots of every row, the (t + 1) slots of both
 // gradient buffers, write them back and write dq, dk_t, dv_t: at the SCST
@@ -40,7 +49,9 @@
 // k2_bwd_anc_bytes counts them on the run's map).
 //
 // Design: as the forward, one block per row (all heads), one warp per
-// (row, head), each lane holding 2 of the 64 dims, and the slot t' = j * 32 +
+// (row, head), each lane holding its dims of the row (common.cuh LaneDims:
+// 2 of 64, 1 of 32; at dk 13 lanes 0-12 one each, lanes 13-31 hold 0 and
+// touch no memory), and the slot t' = j * 32 +
 // lane's score, dout . v and probability in its register j (S = ceil(T_max /
 // 32) registers). Pass 1 walks the slots for the scores and dout . v (one
 // warp reduction each), then the softmax (the forward's order) and the sum
@@ -49,303 +60,89 @@
 // gradient buffers. A slot's row belongs to one warp, so there are no
 // atomics and the result does not change from run to run.
 //
-// The ancestry mode: one block per (image, head), a warp per beam row (rows
-// past 32 taken in turn). Phase 1 is pass 1 and dq of the identity kernel
-// for each row r, reading slot t' from row anc[r, t'], and leaves the row's
-// q, dout, p and ds in shared memory. Phase 2 gives each destination row j
-// to a warp, which walks the slots and, for each, the image's rows in order,
-// summing ds q and p dout of those whose map names j, then updates j's
-// gradient buffers as the identity kernel does.
-#include "common.cuh"
+// The ancestry mode: ancestry_self_attention_bwd_anc.cu.
+#include "ancestry_self_attention_bwd.cuh"
 
 namespace sct {
 
-template <int S>
+// cache_v, dcache_v, dv_t == nullptr: the kv mode
+template <int DK, int S>
 __global__ void ancestry_self_attention_bwd_kernel(const float* __restrict__ q, const float* __restrict__ cache_k,
                                                    const float* __restrict__ cache_v, const float* __restrict__ dout,
                                                    float* __restrict__ dq, float* __restrict__ dcache_k,
                                                    float* __restrict__ dcache_v, float* __restrict__ dk_t,
                                                    float* __restrict__ dv_t, int H, int t_max, int t,
                                                    float sqrt_dk) {
-  constexpr int DK = 64;
+  using L = LaneDims<DK, float>;
+  constexpr int PL = kLaneDims<DK>;  // dims a lane holds
+  const float* __restrict__ vals = cache_v != nullptr ? cache_v : cache_k;
   const int n = blockIdx.x, h = threadIdx.x / 32, lane = threadIdx.x & 31;
-  const size_t qo = ((size_t)n * H + h) * DK + 2 * lane;
-  const float2 qv = load2(q + qo), gv = load2(dout + qo);
-  const size_t head = ((size_t)n * H + h) * t_max * DK + 2 * lane;  // slot 0 of this lane's dims
-  float my_score[S], my_dp[S];
+  const size_t qo = ((size_t)n * H + h) * DK + PL * lane;
+  L qv, gv;
+  qv.load(q + qo, lane);
+  gv.load(dout + qo, lane);
+  const size_t head = ((size_t)n * H + h) * t_max * DK + PL * lane;  // slot 0 of this lane's dims
+  float p[S], ds[S];
+  slot_softmax_grad<DK, S>(qv, gv, cache_k, vals, [&](int s) { return head + (size_t)s * DK; }, lane, t, sqrt_dk,
+                           p, ds);
+  L dqa{};
 #pragma unroll
   for (int j = 0; j < S; ++j) {
-    my_score[j] = -INFINITY;
-    my_dp[j] = 0.f;
-  }
-#pragma unroll
-  for (int j = 0; j < S; ++j) {
-    for (int l = 0; l < 32 && j * 32 + l <= t; ++l) {
-      const size_t so = head + (size_t)(j * 32 + l) * DK;
-      const float2 kv = load2(cache_k + so), vv = load2(cache_v + so);
-      const float sc = div_score(warp_sum(qv.x * kv.x + qv.y * kv.y), sqrt_dk);
-      const float dp = warp_sum(gv.x * vv.x + gv.y * vv.y);
-      if (lane == l) {
-        my_score[j] = sc;
-        my_dp[j] = dp;
-      }
-    }
-  }
-  float m = my_score[0];
-#pragma unroll
-  for (int j = 1; j < S; ++j) m = fmaxf(m, my_score[j]);
-  m = warp_max(m);
-  float e[S], sum = 0.f;
-#pragma unroll
-  for (int j = 0; j < S; ++j) {
-    e[j] = j * 32 + lane <= t ? expf(my_score[j] - m) : 0.f;
-    sum += e[j];
-  }
-  sum = warp_sum(sum);
-  float p[S], pdp = 0.f;
-#pragma unroll
-  for (int j = 0; j < S; ++j) {
-    p[j] = e[j] / sum;
-    pdp += p[j] * my_dp[j];
-  }
-  const float dsum = warp_sum(pdp);
-  float ds[S];
-#pragma unroll
-  for (int j = 0; j < S; ++j) ds[j] = div_score(p[j] * (my_dp[j] - dsum), sqrt_dk);
-  float2 dqa = make_float2(0.f, 0.f);
-#pragma unroll
-  for (int j = 0; j < S; ++j) {
+#pragma unroll 4
     for (int l = 0; l < 32 && j * 32 + l <= t; ++l) {
       const int s = j * 32 + l;
       const float dss = __shfl_sync(0xffffffffu, ds[j], l);
       const float ps = __shfl_sync(0xffffffffu, p[j], l);
       const size_t so = head + (size_t)s * DK;
-      const float2 kv = load2(cache_k + so);
-      dqa.x += dss * kv.x;
-      dqa.y += dss * kv.y;
-      const float2 dkv = make_float2(dss * qv.x, dss * qv.y), dvv = make_float2(ps * gv.x, ps * gv.y);
-      const float2 ck = load2(dcache_k + so), cv = load2(dcache_v + so);
-      if (s < t) {
-        store2(dcache_k + so, make_float2(ck.x + dkv.x, ck.y + dkv.y));
-        store2(dcache_v + so, make_float2(cv.x + dvv.x, cv.y + dvv.y));
-      } else {  // slot t: the later steps' sum plus this step's, to k_t / v_t; the slot is zeroed
-        store2(dk_t + qo, make_float2(ck.x + dkv.x, ck.y + dkv.y));
-        store2(dv_t + qo, make_float2(cv.x + dvv.x, cv.y + dvv.y));
-        store2(dcache_k + so, make_float2(0.f, 0.f));
-        store2(dcache_v + so, make_float2(0.f, 0.f));
-      }
+      L kk;
+      kk.load(cache_k + so, lane);
+      dqa.add(dss, kk);
+      update_slot<DK>(dcache_k, dcache_v, dk_t, dv_t, so, qo, s == t, qv.times(dss), gv.times(ps), lane);
     }
   }
-  store2(dq + qo, dqa);
+  dqa.store(dq + qo, lane);
 }
 
-template <int S>
+template <int DK, int S>
 cudaError_t launch(const void* q, const void* ck, const void* cv, const void* dout, void* dq, void* dck, void* dcv,
                    void* dkt, void* dvt, int N, int H, int t_max, int t, float sqrt_dk, cudaStream_t stream) {
-  ancestry_self_attention_bwd_kernel<S><<<N, H * 32, 0, stream>>>(
+  ancestry_self_attention_bwd_kernel<DK, S><<<N, H * 32, 0, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(ck), static_cast<const float*>(cv),
       static_cast<const float*>(dout), static_cast<float*>(dq), static_cast<float*>(dck), static_cast<float*>(dcv),
       static_cast<float*>(dkt), static_cast<float*>(dvt), H, t_max, t, sqrt_dk);
   return cudaGetLastError();
 }
 
-
-// dynamic shared memory of the ancestry mode: p, ds and the map's columns
-// 0..t of the image's K rows, then their q and dout
-__host__ __device__ inline size_t anc_bwd_smem_bytes(int K, int t) {
-  return (size_t)K * (t + 1) * 3 * sizeof(float) + (size_t)K * 2 * 64 * sizeof(float);
-}
-
-template <int S>
-__global__ void ancestry_self_attention_bwd_anc_kernel(
-    const float* __restrict__ q, const float* __restrict__ cache_k, const float* __restrict__ cache_v,
-    const float* __restrict__ dout, const int* __restrict__ anc, float* __restrict__ dq,
-    float* __restrict__ dcache_k, float* __restrict__ dcache_v, float* __restrict__ dk_t, float* __restrict__ dv_t,
-    int H, int K, int t_max, int t, float sqrt_dk) {
-  constexpr int DK = 64;
-  extern __shared__ __align__(16) float anc_smem[];
-  const int T1 = t + 1;
-  float* p_s = anc_smem;
-  float* ds_s = p_s + K * T1;
-  int* map_s = reinterpret_cast<int*>(ds_s + K * T1);
-  float* q_s = reinterpret_cast<float*>(map_s + K * T1);
-  float* g_s = q_s + K * DK;
-  const int h = blockIdx.x, b = blockIdx.y, warp = threadIdx.x / 32, lane = threadIdx.x & 31;
-  const int nwarps = blockDim.x / 32;
-  for (int i = threadIdx.x; i < K * T1; i += blockDim.x)
-    map_s[i] = anc[((size_t)b * K + i / T1) * t_max + i % T1];
-  __syncthreads();
-
-  // phase 1: each row's softmax, ds and dq, reading slot t' of row anc[r, t']
-  for (int r = warp; r < K; r += nwarps) {
-    const size_t qo = (((size_t)b * K + r) * H + h) * DK + 2 * lane;
-    const float2 qv = load2(q + qo), gv = load2(dout + qo);
-    q_s[r * DK + 2 * lane] = qv.x;
-    q_s[r * DK + 2 * lane + 1] = qv.y;
-    g_s[r * DK + 2 * lane] = gv.x;
-    g_s[r * DK + 2 * lane + 1] = gv.y;
-    auto slot = [&](int s) {  // slot s of the row the map names, this lane's dims
-      return (((size_t)b * K + map_s[r * T1 + s]) * H + h) * t_max * DK + (size_t)s * DK + 2 * lane;
-    };
-    float my_score[S], my_dp[S];
-#pragma unroll
-    for (int j = 0; j < S; ++j) {
-      my_score[j] = -INFINITY;
-      my_dp[j] = 0.f;
-    }
-#pragma unroll
-    for (int j = 0; j < S; ++j) {
-      for (int l = 0; l < 32 && j * 32 + l <= t; ++l) {
-        const size_t so = slot(j * 32 + l);
-        const float2 kv = load2(cache_k + so), vv = load2(cache_v + so);
-        const float sc = div_score(warp_sum(qv.x * kv.x + qv.y * kv.y), sqrt_dk);
-        const float dp = warp_sum(gv.x * vv.x + gv.y * vv.y);
-        if (lane == l) {
-          my_score[j] = sc;
-          my_dp[j] = dp;
-        }
-      }
-    }
-    float m = my_score[0];
-#pragma unroll
-    for (int j = 1; j < S; ++j) m = fmaxf(m, my_score[j]);
-    m = warp_max(m);
-    float e[S], sum = 0.f;
-#pragma unroll
-    for (int j = 0; j < S; ++j) {
-      e[j] = j * 32 + lane <= t ? expf(my_score[j] - m) : 0.f;
-      sum += e[j];
-    }
-    sum = warp_sum(sum);
-    float p[S], pdp = 0.f;
-#pragma unroll
-    for (int j = 0; j < S; ++j) {
-      p[j] = e[j] / sum;
-      pdp += p[j] * my_dp[j];
-    }
-    const float dsum = warp_sum(pdp);
-    float ds[S];
-#pragma unroll
-    for (int j = 0; j < S; ++j) {
-      ds[j] = div_score(p[j] * (my_dp[j] - dsum), sqrt_dk);
-      if (j * 32 + lane <= t) {
-        p_s[r * T1 + j * 32 + lane] = p[j];
-        ds_s[r * T1 + j * 32 + lane] = ds[j];
-      }
-    }
-    float2 dqa = make_float2(0.f, 0.f);
-#pragma unroll
-    for (int j = 0; j < S; ++j) {
-      for (int l = 0; l < 32 && j * 32 + l <= t; ++l) {
-        const float dss = __shfl_sync(0xffffffffu, ds[j], l);
-        const float2 kv = load2(cache_k + slot(j * 32 + l));
-        dqa.x += dss * kv.x;
-        dqa.y += dss * kv.y;
-      }
-    }
-    store2(dq + qo, dqa);
-  }
-  __syncthreads();
-
-  // phase 2: each destination row's slots, the readers summed in row order
-  for (int jr = warp; jr < K; jr += nwarps) {
-    const size_t head = (((size_t)b * K + jr) * H + h) * t_max * DK + 2 * lane;
-    for (int s = 0; s <= t; ++s) {
-      float2 dkv = make_float2(0.f, 0.f), dvv = make_float2(0.f, 0.f);
-      bool read = false;
-      for (int r = 0; r < K; ++r) {
-        if (map_s[r * T1 + s] != jr) continue;
-        read = true;
-        const float dss = ds_s[r * T1 + s], ps = p_s[r * T1 + s];
-        dkv.x += dss * q_s[r * DK + 2 * lane];
-        dkv.y += dss * q_s[r * DK + 2 * lane + 1];
-        dvv.x += ps * g_s[r * DK + 2 * lane];
-        dvv.y += ps * g_s[r * DK + 2 * lane + 1];
-      }
-      const size_t so = head + (size_t)s * DK;
-      if (s < t) {
-        if (!read) continue;  // no row read this slot: its gradient is unchanged
-        const float2 ck = load2(dcache_k + so), cv = load2(dcache_v + so);
-        store2(dcache_k + so, make_float2(ck.x + dkv.x, ck.y + dkv.y));
-        store2(dcache_v + so, make_float2(cv.x + dvv.x, cv.y + dvv.y));
-      } else {  // slot t: the later steps' sum plus this step's, to k_t / v_t; the slot is zeroed
-        const size_t to = (((size_t)b * K + jr) * H + h) * DK + 2 * lane;
-        const float2 ck = load2(dcache_k + so), cv = load2(dcache_v + so);
-        store2(dk_t + to, make_float2(ck.x + dkv.x, ck.y + dkv.y));
-        store2(dv_t + to, make_float2(cv.x + dvv.x, cv.y + dvv.y));
-        store2(dcache_k + so, make_float2(0.f, 0.f));
-        store2(dcache_v + so, make_float2(0.f, 0.f));
-      }
-    }
-  }
-}
-
-template <int S>
-cudaError_t launch_anc(const void* q, const void* ck, const void* cv, const void* dout, const void* anc, void* dq,
-                       void* dck, void* dcv, void* dkt, void* dvt, int N, int H, int K, int t_max, int t,
-                       float sqrt_dk, cudaStream_t stream) {
-  const size_t smem = anc_bwd_smem_bytes(K, t);
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(ancestry_self_attention_bwd_anc_kernel<S>,
-                                                 cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return err;
-  }
-  const int threads = 32 * (K < 32 ? K : 32);
-  ancestry_self_attention_bwd_anc_kernel<S><<<dim3(H, N / K), threads, smem, stream>>>(
-      static_cast<const float*>(q), static_cast<const float*>(ck), static_cast<const float*>(cv),
-      static_cast<const float*>(dout), static_cast<const int*>(anc), static_cast<float*>(dq),
-      static_cast<float*>(dck), static_cast<float*>(dcv), static_cast<float*>(dkt), static_cast<float*>(dvt), H, K,
-      t_max, t, sqrt_dk);
-  return cudaGetLastError();
+// cv == nullptr: the kv mode (dcv, dvt null too)
+int entry(int dk, const void* q, const void* ck, const void* cv, const void* dout, void* dq, void* dck, void* dcv,
+          void* dkt, void* dvt, int N, int H, int t_max, int t, float sqrt_dk, void* stream) {
+  if (!k2_bwd_args_ok(dk, cv, dcv, dvt, nullptr, N, H, 1, t_max, t)) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define SCT_K2B_LAUNCH(DK, S) launch<DK, S>(q, ck, cv, dout, dq, dck, dcv, dkt, dvt, N, H, t_max, t, sqrt_dk, s)
+  SCT_K2B_DISPATCH(dk, t_max, SCT_K2B_LAUNCH)
+#undef SCT_K2B_LAUNCH
 }
 
 }  // namespace sct
 
-// dk: 64 (f32). q, dout, dq, dk_t, dv_t (N, H, dk); cache_k/v and their
-// gradients dcache_k/v (N, H, T_max, dk), T_max <= 1024, the gradients
-// updated in place; 0 <= t < T_max; sqrt_dk: the scores' divisor.
+// dk: 64, 32 or 13 (f32). q, dout, dq, dk_t, dv_t (N, H, dk); cache_k/v and
+// their gradients dcache_k/v (N, H, T_max, dk), T_max <= 1024, H <= 32, the
+// gradients updated in place; 0 <= t < T_max; sqrt_dk: the scores' divisor.
 extern "C" int sct_ancestry_self_attention_bwd(int dk, const void* q, const void* cache_k, const void* cache_v,
                                                const void* dout, void* dq, void* dcache_k, void* dcache_v,
                                                void* dk_t, void* dv_t, int N, int H, int t_max, int t,
                                                float sqrt_dk, void* stream) {
-  if (dk != 64 || N < 1 || H < 1 || H > 32 || t < 0 || t >= t_max || t_max > 1024) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define SCT_K2B(S) (int)sct::launch<S>(q, cache_k, cache_v, dout, dq, dcache_k, dcache_v, dk_t, dv_t, N, H, t_max, t, \
-                                       sqrt_dk, s)
-  if (t_max <= 32) return SCT_K2B(1);
-  if (t_max <= 64) return SCT_K2B(2);
-  if (t_max <= 128) return SCT_K2B(4);
-  if (t_max <= 256) return SCT_K2B(8);
-  if (t_max <= 512) return SCT_K2B(16);
-  return SCT_K2B(32);
-#undef SCT_K2B
+  if (cache_v == nullptr) return (int)cudaErrorInvalidValue;
+  return sct::entry(dk, q, cache_k, cache_v, dout, dq, dcache_k, dcache_v, dk_t, dv_t, N, H, t_max, t, sqrt_dk,
+                    stream);
 }
 
-// The ancestry mode: as sct_ancestry_self_attention_bwd, with anc (B, K,
-// T_max) int32, N = B K, K >= 1, and the block's shared memory
-// (anc_bwd_smem_bytes) within the H100's 227 KB.
-extern "C" int sct_ancestry_self_attention_bwd_anc(int dk, const void* q, const void* cache_k, const void* cache_v,
-                                                   const void* dout, const void* anc, void* dq, void* dcache_k,
-                                                   void* dcache_v, void* dk_t, void* dv_t, int N, int H, int K,
-                                                   int t_max, int t, float sqrt_dk, void* stream) {
-  if (dk != 64 || K < 1 || N < K || N % K != 0 || H < 1 || t < 0 || t >= t_max || t_max > 1024 ||
-      sct::anc_bwd_smem_bytes(K, t) > 232448)
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define SCT_K2BA(S) (int)sct::launch_anc<S>(q, cache_k, cache_v, dout, anc, dq, dcache_k, dcache_v, dk_t, dv_t, N, H, \
-                                            K, t_max, t, sqrt_dk, s)
-  if (t_max <= 32) return SCT_K2BA(1);
-  if (t_max <= 64) return SCT_K2BA(2);
-  if (t_max <= 128) return SCT_K2BA(4);
-  if (t_max <= 256) return SCT_K2BA(8);
-  if (t_max <= 512) return SCT_K2BA(16);
-  return SCT_K2BA(32);
-#undef SCT_K2BA
-}
-
-// the ancestry mode's shared memory a block (bytes) at K beams and step t
-extern "C" long long sct_ancestry_self_attention_bwd_anc_smem(int K, int t) {
-  return (long long)sct::anc_bwd_smem_bytes(K, t);
+// The kv mode: cache (N, H, T_max, dk) is K and V; dcache its gradient; dk_t
+// the gradient of the step's one row.
+extern "C" int sct_ancestry_self_attention_bwd_kv(int dk, const void* q, const void* cache, const void* dout,
+                                                  void* dq, void* dcache, void* dk_t, int N, int H, int t_max, int t,
+                                                  float sqrt_dk, void* stream) {
+  return sct::entry(dk, q, cache, nullptr, dout, dq, dcache, nullptr, dk_t, nullptr, N, H, t_max, t, sqrt_dk, stream);
 }
 
 extern "C" const char* sct_error_string(int err) { return cudaGetErrorString(static_cast<cudaError_t>(err)); }

@@ -127,6 +127,36 @@ __device__ __forceinline__ void store_col_pair(T* row, int c, float2 v) {
   }
 }
 
+// A lane's dims of a head row, at p = the row + kLaneDims<DK> x lane: 2
+// neighbours (one 4- or 8-byte access) at DK = 64; one at DK = 32 and 13,
+// where the lanes past DK hold 0 and touch no memory (K2 and its backward).
+template <int DK> constexpr int kLaneDims = DK == 64 ? 2 : 1;
+template <int DK, typename T>
+struct LaneDims {
+  float v;
+  __device__ __forceinline__ void load(const T* p, int lane) { v = lane < DK ? to_f(*p) : 0.f; }
+  __device__ __forceinline__ float dot(const LaneDims& o) const { return v * o.v; }
+  __device__ __forceinline__ void add(float p, const LaneDims& o) { v += p * o.v; }
+  __device__ __forceinline__ LaneDims times(float p) const { return {p * v}; }
+  __device__ __forceinline__ LaneDims plus(const LaneDims& o) const { return {v + o.v}; }
+  __device__ __forceinline__ void store(T* p, int lane) const {
+    if (lane < DK) *p = from_f<T>(v);
+  }
+};
+template <typename T>
+struct LaneDims<64, T> {
+  float2 v;
+  __device__ __forceinline__ void load(const T* p, int) { v = load2(p); }
+  __device__ __forceinline__ float dot(const LaneDims& o) const { return v.x * o.v.x + v.y * o.v.y; }
+  __device__ __forceinline__ void add(float p, const LaneDims& o) {
+    v.x += p * o.v.x;
+    v.y += p * o.v.y;
+  }
+  __device__ __forceinline__ LaneDims times(float p) const { return {make_float2(p * v.x, p * v.y)}; }
+  __device__ __forceinline__ LaneDims plus(const LaneDims& o) const { return {make_float2(v.x + o.v.x, v.y + o.v.y)}; }
+  __device__ __forceinline__ void store(T* p, int) const { store2(p, v); }
+};
+
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);

@@ -15,10 +15,12 @@ kernel K3's backward (``csrc/grouped_cross_attention_bwd.cu``;
 ``grouped_cross_attention_backward``, plain version
 ``grouped_cross_attention_backward_plain``, the autograd of the plain
 forward): dq for every row, and each image's dK, dV summed over its ``rep``
-rows in a fixed order. Ported for unshared K and V in f32; the kv mode and
-bf16 raise ``NotImplementedError`` on every device, and the kernel takes
-head width 64 only (``bwd_smem`` bounds regions and rows an image). The 17
-steps' dK / dV of the one cross K/V are summed by autograd.
+rows in a fixed order. Ported in f32 at head widths 64, 32 and 13, for
+unshared K and V and in the kv mode (one memory array, staged once; its
+gradient dK + dV, its own entry point and launch count); bf16 raises
+``NotImplementedError`` on every device (the JAX package's SCST step runs
+in f32). ``bwd_smem`` bounds regions and rows an image. The steps' dK / dV
+of the one cross K/V are summed by autograd.
 """
 
 from __future__ import annotations
@@ -51,7 +53,12 @@ KERNEL_BWD = _build.CudaKernel("grouped_cross_attention_bwd", "sct_grouped_cross
     _build.I, _build.P, _build.P, _build.P, _build.P, _build.P, _build.P, _build.P, _build.P,
     _build.I, _build.I, _build.I, _build.I, _build.F32, _build.P,
 ])
-BWD_HEAD_WIDTHS = (64,)  # the backward kernel's instances (f32)
+# the kv mode: one memory array and its one gradient, dK + dV
+KERNEL_BWD_KV = _build.CudaKernel("grouped_cross_attention_bwd", "sct_grouped_cross_attention_bwd_kv", [
+    _build.I, _build.P, _build.P, _build.P, _build.P, _build.P, _build.P,
+    _build.I, _build.I, _build.I, _build.I, _build.F32, _build.P,
+])
+BWD_HEAD_WIDTHS = (64, 32, 13)  # the backward kernel's instances (f32)
 UNIT_HEADS = 2  # heads of an image one unit of the bf16 kernel takes (csrc kXHeads)
 
 
@@ -68,12 +75,14 @@ def bf16_smem(regions: int, rep: int, kv: bool = False, dk: int = 64) -> int:
     return 0
 
 
-def bwd_smem(regions: int, rep: int, dk: int = 64) -> int:
+def bwd_smem(dk: int, regions: int, rep: int, kv: bool = False) -> int:
     """Shared memory of the backward kernel (``cross_bwd_smem_bytes``): K and
-    V of one (image, head) at row stride dk + 1, every row's q, dout (dk
-    each), probabilities and score gradients (a region each), f32, and the
-    region flags."""
-    return (2 * (dk + 1) * regions + rep * (2 * dk + 2 * regions)) * 4 + regions
+    V of one (image, head) (K alone in the kv mode) at row stride
+    padded_width(dk) + 1, every row's q, dout (padded_width(dk) each),
+    probabilities and score gradients (a region each), f32, and the region
+    flags."""
+    p = padded_width(dk)
+    return ((1 if kv else 2) * (p + 1) * regions + rep * (2 * p + 2 * regions)) * 4 + regions
 
 
 def grouped_cross_attention_plain(q, mem_k, mem_v: Optional[torch.Tensor], mask):
@@ -95,7 +104,7 @@ def grouped_cross_attention(q, mem_k, mem_v: Optional[torch.Tensor], mask):
     mask: (B, S) bool, False = padded region. Returns (N, h, dk); with
     gradients through K3's backward where they are asked for."""
     if torch.is_grad_enabled() and any(x is not None and x.requires_grad for x in (q, mem_k, mem_v)):
-        check_backward_supported(q, mem_v)
+        check_backward_supported(q)
         return GroupedCrossStep.apply(q, mem_k, mem_v, mask)
     return _forward(q, mem_k, mem_v, mask)
 
@@ -132,65 +141,80 @@ def _forward(q, mem_k, mem_v: Optional[torch.Tensor], mask):
 
 
 # ------------------------------------------------------------------ backward
-def check_backward_supported(q, mem_v: Optional[torch.Tensor]) -> None:
-    """What the backward does not take yet, on every device."""
-    if mem_v is None:
-        raise NotImplementedError("K3's backward in the kv mode lands in a later slice")
+def check_backward_supported(q) -> None:
+    """What the backward does not take, on every device: bf16 (the JAX
+    package's SCST step runs in f32)."""
     if q.dtype != torch.float32:
-        raise NotImplementedError(f"K3's backward is ported in f32 (bf16 SCST lands in a later slice); got {q.dtype}")
+        raise NotImplementedError(f"K3's backward is ported in f32 (the JAX package's SCST step runs in f32); "
+                                  f"got {q.dtype}")
 
 
-def grouped_cross_attention_backward_plain(q, mem_k, mem_v, mask, dout):
+def grouped_cross_attention_backward_plain(q, mem_k, mem_v: Optional[torch.Tensor], mask, dout):
     """The plain version: the autograd of ``grouped_cross_attention_plain``.
-    Returns (dq (N, h, dk), dK, dV (B, h, S, dk))."""
+    Returns (dq (N, h, dk), dK, dV (B, h, S, dk)); under kv (``mem_v=None``)
+    (dq, dmem, None), dmem the one memory's gradient, dK + dV."""
     with torch.enable_grad():
-        qq, kk, vv = (x.detach().requires_grad_() for x in (q, mem_k, mem_v))
-        out = grouped_cross_attention_plain(qq, kk, vv, mask)
-        return torch.autograd.grad(out, (qq, kk, vv), dout)
+        mems = (mem_k,) if mem_v is None else (mem_k, mem_v)
+        qq, *mm = (x.detach().requires_grad_() for x in (q, *mems))
+        out = grouped_cross_attention_plain(qq, mm[0], None if mem_v is None else mm[1], mask)
+        grads = torch.autograd.grad(out, (qq, *mm), dout)
+    return grads if mem_v is not None else (*grads, None)
 
 
-def grouped_cross_attention_backward(q, mem_k, mem_v, mask, dout):
-    """The backward of one decode step's K3 (unshared, f32): q, dout (N, h,
-    dk); mem_k, mem_v (B, h, S, dk); mask (B, S) bool. Returns (dq, dK, dV),
-    dK and dV each image's sum over its N / B rows; regions the mask drops
-    get dK = 0 (their scores were filled), and dV = p dout as every region
-    (an image with no valid region attends all S uniformly)."""
-    check_backward_supported(q, mem_v)
+def grouped_cross_attention_backward(q, mem_k, mem_v: Optional[torch.Tensor], mask, dout):
+    """The backward of one decode step's K3 (f32): q, dout (N, h, dk); mem_k,
+    mem_v (B, h, S, dk), mem_v=None in the kv mode; mask (B, S) bool.
+    Returns (dq, dK, dV), dK and dV each image's sum over its N / B rows;
+    regions the mask drops get dK = 0 (their scores were filled), and dV = p
+    dout as every region (an image with no valid region attends all S
+    uniformly). Under kv (dq, dmem, None), dmem = dK + dV."""
+    check_backward_supported(q)
+    kv = mem_v is None
     n, h, dk = q.shape
     b, s = mem_k.shape[0], mem_k.shape[2]
     if b < 1 or n % b != 0:
         raise ValueError(f"{n} query rows do not split over {b} images")
     check_tensor(dout, "dout", (n, h, dk), q.dtype)
     check_tensor(mem_k, "mem_k", (b, h, s, dk), q.dtype)
-    check_tensor(mem_v, "mem_v", (b, h, s, dk), q.dtype)
+    if not kv:
+        check_tensor(mem_v, "mem_v", (b, h, s, dk), q.dtype)
     check_tensor(mask, "mask", (b, s), torch.bool)
     check_same_device(q, mem_k, mem_v, mask, dout)
     if q.device.type == "cpu":
         return grouped_cross_attention_backward_plain(q, mem_k, mem_v, mask, dout)
     if dk not in BWD_HEAD_WIDTHS:
-        raise NotImplementedError(f"K3's backward kernel takes head width {BWD_HEAD_WIDTHS}; got dk={dk}")
-    if s > 64 or bwd_smem(s, n // b, dk) > _build.BLOCK_SMEM_LIMIT:
-        raise ValueError(f"K3's backward kernel holds an (image, head)'s K, V and its {n // b} rows in shared "
+        raise ValueError(f"K3's backward kernel takes head widths {BWD_HEAD_WIDTHS}; got dk={dk}")
+    if s > 64 or bwd_smem(dk, s, n // b, kv) > _build.BLOCK_SMEM_LIMIT:
+        raise ValueError(f"K3's backward kernel holds an (image, head)'s memory and its {n // b} rows in shared "
                          f"memory and takes S <= 64; {s} regions do not fit")
-    dq, dmk, dmv = torch.empty_like(q), torch.empty_like(mem_k), torch.empty_like(mem_v)
+    mem_k = _build.aligned16(mem_k)
+    dq, dmk = torch.empty_like(q), torch.empty_like(mem_k)
+    sqrt_dk, stream = score_divisor(dk, q.dtype), _build.stream_handle(q)
+    if kv:
+        KERNEL_BWD_KV.launch(dk, q.data_ptr(), mem_k.data_ptr(), mask.data_ptr(), dout.data_ptr(), dq.data_ptr(),
+                             dmk.data_ptr(), b, h, s, n // b, sqrt_dk, stream)
+        return dq, dmk, None
+    mem_v = _build.aligned16(mem_v)
+    dmv = torch.empty_like(mem_v)
     KERNEL_BWD.launch(dk, q.data_ptr(), mem_k.data_ptr(), mem_v.data_ptr(), mask.data_ptr(), dout.data_ptr(),
-                      dq.data_ptr(), dmk.data_ptr(), dmv.data_ptr(), b, h, s, n // b, score_divisor(dk, q.dtype),
-                      _build.stream_handle(q))
+                      dq.data_ptr(), dmk.data_ptr(), dmv.data_ptr(), b, h, s, n // b, sqrt_dk, stream)
     return dq, dmk, dmv
 
 
 class GroupedCrossStep(torch.autograd.Function):
     """One decode step's cross-attention with gradients: K3 forward, K3's
     backward. Saves q and the memory (no probabilities: the backward
-    recomputes them)."""
+    recomputes them); under kv (mem_v=None) one memory and one gradient."""
 
     @staticmethod
     def forward(ctx, q, mem_k, mem_v, mask):
-        ctx.save_for_backward(q, mem_k, mem_v, mask)
+        ctx.kv = mem_v is None
+        ctx.save_for_backward(q, mem_k, mask, *(() if ctx.kv else (mem_v,)))
         return _forward(q, mem_k, mem_v, mask)
 
     @staticmethod
     def backward(ctx, dout):
-        q, mem_k, mem_v, mask = ctx.saved_tensors
-        dq, dmk, dmv = grouped_cross_attention_backward(q, mem_k, mem_v, mask, dout.contiguous())
+        q, mem_k, mask, *mem_v = ctx.saved_tensors
+        dq, dmk, dmv = grouped_cross_attention_backward(q, mem_k, None if ctx.kv else mem_v[0], mask,
+                                                        dout.contiguous())
         return dq, dmk, dmv, None

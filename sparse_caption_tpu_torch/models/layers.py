@@ -239,7 +239,8 @@ class MultiHeadAttention(nn.Module, DropoutSite):
         """x_t: (N, 1, D); mem_k/v: (B, h, S, dk), B dividing N (each image's
         beam rows share its memory row); mem_v=None means V is K (kernel K3's
         kv mode); mem_mask: (B, S) bool; rng: the train-mode step stream
-        (a training supermask's q and out products). Runs kernel K3."""
+        (a training supermask's q and out products). Runs kernel K3 (and,
+        with gradients, its backward; in the kv mode when mem_v is None)."""
         n = x_t.shape[0]
         q = self.q_proj(x_t, rng).reshape(n, self.num_heads, -1)
         out = grouped_cross_attention(q, mem_k, mem_v, mem_mask)
@@ -295,7 +296,7 @@ class MultiHeadAttention(nn.Module, DropoutSite):
         kernel K2's kv mode); ancestry: (B, K, T_max) int32 ancestor map (row
         b*K + k reads slot t' of row b*K + ancestry[b, k, t']) or None; rng:
         the train-mode step stream. Runs kernel K2 (and, with gradients, its
-        backward: ``decode_self_attention``)."""
+        backward: ``decode_self_attention``; in the kv mode under "kv")."""
         if (cache_v is None) != (self.share_att == "kv"):
             raise ValueError("a kv-shared layer caches one array (cache_v=None); every other layer two")
         q, k_t, v_t = self._step_qkv(x_t, rng)

@@ -6,7 +6,10 @@ self-attention layers (kernel K1; in training K1's train variant and K7)
 over the region features; decoder, PE, generator and caching are the
 caption Transformer's. ACORT is this model with the radix tokenizer,
 ``share_att_*="kv"`` and ``share_layer_*`` plans
-(``resources/commands_acort.sh``); the box encoder runs its own plan.
+(``resources/commands_acort.sh``); the box encoder runs its own plan, and
+under a training supermask each of its slots draws its own sample (its K5
+set names a shared layer once per slot, as the JAX package's
+``box_enc_plan`` calls it).
 ``box_trigonometric_embedding=False`` (``--no_box_trigonometric_embedding``)
 gives every box attention the 4-wide raw geometry.
 """
@@ -27,7 +30,7 @@ from sparse_caption_tpu_torch.models.layers import (
     SublayerConnection,
     prenorm_stack,
 )
-from sparse_caption_tpu_torch.models.transformer import Transformer, _unique_layer_plan, plan_slots
+from sparse_caption_tpu_torch.models.transformer import Transformer, _unique_layer_plan, plan_slots, train_rng
 from sparse_caption_tpu_torch.ops.masked import MaskedLinear, mask_set, masked_call_order
 from sparse_caption_tpu_torch.ops.rng import dropout, slot_rng
 
@@ -69,9 +72,6 @@ class RelationTransformer(Transformer):
         self.att_embed = MaskedLinear(att_feat_size, self.d_model, mask_cfg=self.mask_cfg, **factory)
         self.box_encoder_norm = RefLayerNorm(self.d_model, **factory)
 
-    def _plans(self):
-        return self.box_enc_plan, self.dec_plan
-
     def _encoder_masked(self) -> list:
         return masked_call_order(self.att_embed, *(self.box_encoder_layers[i] for i in self.box_enc_plan))
 
@@ -79,7 +79,7 @@ class RelationTransformer(Transformer):
         """att_feats: (B, R, F); att_masks: (B, R), 0 = padded; boxes: (B, R, 4)."""
         if boxes is None:
             raise ValueError("relation_transformer requires boxes")
-        rng = self._train_rng(train, rng)
+        rng = train_rng(train, rng)
         with torch.set_grad_enabled(train and torch.is_grad_enabled()), mask_set(self._encoder_masked(), rng):
             x = dropout(torch.relu(self.att_embed(att_feats, rng)), self.drop_prob_src, rng, self.site)
             mask = (att_masks != 0).contiguous()

@@ -13,7 +13,14 @@ touching the K/V cache. A train-mode decode step draws its dropout from a
 ``KeyedStream`` at ``t``; ``decode_teacher_forced(train=True)`` replays every
 step's draws in one pass. ``share_att_*`` / ``share_layer_*`` (ACORT) are
 ported: each slot of a shared layer draws its keyed dropout under its own
-site (``ops.rng.slot_rng``); a training supermask over shared layers raises.
+site (``ops.rng.slot_rng``), and a training supermask draws a fresh sample
+for each slot, as the JAX package's modules draw at every call: the
+encoder's, the decoder's, a decode step's and ``init_cache(train=True)``'s
+cross projections name a shared layer once per slot in their K5 set, and
+its k-th call draws as slot k (``ops.rng.mask_draws``: under a
+``KeyedStream`` at ``slot_site(site, k)``, from a call-order source in
+turn). The shared weights' and logits' gradients are the sums over their
+calls.
 
 A training supermask draws fresh masks at every decode step, so one
 teacher-forced pass cannot replay its decode: supermask SCST's gradient pass
@@ -209,21 +216,6 @@ class Transformer(nn.Module, DropoutSite):
                 nn.init.ones_(m.weight)
                 nn.init.zeros_(m.bias)
 
-    def _plans(self):
-        return self.enc_plan, self.dec_plan
-
-    def _train_rng(self, train: bool, rng):
-        """``train_rng``, refusing what shared layers cannot do yet: the JAX
-        package draws a fresh supermask sample for each slot of a shared
-        layer. (Fresh dropout per slot holds: a call-order source draws
-        anew at each call, a keyed stream under each slot's site.)"""
-        rng = train_rng(train, rng)
-        shared = any(len(set(plan)) < len(plan) for plan in self._plans())
-        if rng is not None and shared and self.mask_cfg is not None and self.mask_cfg.is_supermask:
-            raise NotImplementedError("a training supermask with share_layer (a fresh sample per slot) "
-                                      "lands in a later slice")
-        return rng
-
     # ------------------------------------------------------ masked products
     def _encoder_masked(self) -> list:
         """The encoder's masked layers in the order ``encode`` calls them."""
@@ -251,7 +243,7 @@ class Transformer(nn.Module, DropoutSite):
     # ----------------------------------------------------------- encoding
     def encode(self, att_feats, att_masks, boxes=None, train: bool = False, rng=None) -> Dict[str, Any]:
         """att_feats: (B, S, F); att_masks: (B, S), 0 = padded. Returns the memory dict."""
-        rng = self._train_rng(train, rng)
+        rng = train_rng(train, rng)
         with torch.set_grad_enabled(train and torch.is_grad_enabled()), mask_set(self._encoder_masked(), rng):
             x = dropout(torch.relu(self.src_proj(att_feats, rng)), self.drop_prob_src, rng, self.site)
             steps = [s for i, k in plan_slots(self.enc_plan)
@@ -276,7 +268,7 @@ class Transformer(nn.Module, DropoutSite):
     def forward(self, att_feats, att_masks, seqs, boxes=None, train: bool = False, rng=None):
         """XE log-probs (N, T-1, V) of seqs[:, 1:] (decoder input seqs[:, :-1]).
         ``train=True`` (with ``rng``) runs the train-mode forward with gradients."""
-        rng = self._train_rng(train, rng)
+        rng = train_rng(train, rng)
         with torch.set_grad_enabled(train), self.mask_set(rng):
             enc = self.encode(att_feats, att_masks, boxes, train, rng)
             return self.generator(self._decode_full(seqs[:, :-1], enc["memory"], enc["mask"], rng), rng)
@@ -289,7 +281,7 @@ class Transformer(nn.Module, DropoutSite):
         the result equals that decode's per-step log-probs at every position
         up to its EOS (the replay of ``TimeDropout``); gradients flow unless
         the caller disabled them."""
-        rng = self._train_rng(train, rng)
+        rng = train_rng(train, rng)
         with torch.set_grad_enabled(train and torch.is_grad_enabled()), mask_set(self._decoder_masked(), rng):
             out = self._decode_full(seqs[:, :-1], memory_pytree["memory"], memory_pytree["mask"], rng, replay=train)
             return self.generator(out, rng)
@@ -305,7 +297,7 @@ class Transformer(nn.Module, DropoutSite):
         as one K5 set), and with ``beam_ancestry`` an identity ancestor map
         (B, rows_per_image, T_max) int32. With ``train`` and gradients
         enabled, the cross K/V carry them."""
-        rng = self._train_rng(train, rng)
+        rng = train_rng(train, rng)
         with torch.set_grad_enabled(train and torch.is_grad_enabled()), \
                 mask_set(self._cross_masked() if train else [], rng):
             return self._init_cache(memory_pytree, max_steps, rows_per_image, beam_ancestry, train, rng)
@@ -344,7 +336,7 @@ class Transformer(nn.Module, DropoutSite):
 
         The self K/V caches are written in place; the returned cache holds the
         ancestor map with slot t set to identity (each row wrote slot t itself)."""
-        rng = self._train_rng(train, rng)
+        rng = train_rng(train, rng)
         rng = None if rng is None else rng.at(t)
         with torch.set_grad_enabled(train and torch.is_grad_enabled()), \
                 mask_set(self._decode_step_masked() if train else [], rng):

@@ -189,13 +189,18 @@ def mask_set(layers: Iterable[_Prunable], rng=None):
     """Run the masked products of ``layers`` as one set: one K5 launch each
     way (``supermask_weights``) in place of one a layer. ``layers`` in the
     order the forward calls them, a layer once per call (a shared layer's
-    slots, a "qk" layer's ``q_proj``): a training supermask draws each call's
-    uniforms from ``rng`` in that order, as the layers' own calls would, and
-    the calls of one layer take its products in turn; a deterministic sample
-    is computed once a layer and serves all its calls. Inside the context
+    slots, a "qk" layer's ``q_proj``): a training supermask draws one sample
+    per call (``ops.rng.mask_draws``: from a call-order source in that order,
+    as the layers' own calls would; under a ``KeyedStream`` a layer's k-th
+    call under ``slot_site(site, k)``), and the calls of one layer take its
+    products in turn, so a shared layer's weight and logits get the sum of
+    its calls' gradients; a deterministic sample is computed once a layer
+    and serves all its calls. Inside the context
     each layer's next ``effective_weight`` returns its product from the set;
     layers already in an open set, and layers whose product would be cached
     or folded (``_per_call_mode``), are left out."""
+    from sparse_caption_tpu_torch.ops.rng import mask_draws
+
     if rng is None and not torch.is_grad_enabled():  # eval: every product is cached or folded
         yield
         return
@@ -212,7 +217,7 @@ def mask_set(layers: Iterable[_Prunable], rng=None):
             mode = modes[todo[0]]
             sampled = mode == "sample"
             entries = todo if sampled else list(calls)
-            us = [rng.mask_draw(m, m.weight.shape, m.weight.device) for m in entries] if sampled else None
+            us = mask_draws(rng, entries) if sampled else None
             mode = sample_mode(us) if sampled else mode
             products = {m: [] for m in calls}
             for i in range(0, len(entries), MAX_SET):  # sets of more than MAX_SET products: one launch a chunk

@@ -36,7 +36,9 @@ place means eval.
   weight, in the port's (out, in) layout, draws Philox4x32-10 under the key
   with counter (site, t, e // 4, 0). The site is the layer's ``mask_site``
   (``ops/masked.py assign_mask_sites``: ``site_id`` of its qualified name),
-  under ``slot_site`` at a slot view; t is the step view's, 0 outside one
+  under ``slot_site`` at a slot view (``mask_draws``: a set's k-th call of
+  a layer, such as slot k of a shared layer, draws at slot k); t is the
+  step view's, 0 outside one
   (the encode, and the cross K/V projection of ``init_cache(train=True)``,
   each under a key of its own). ``mask_uniform`` gives the same uniforms as
   a tensor (the plain Philox); tests subclass the stream and override
@@ -211,6 +213,23 @@ def slot_rng(rng, slot: int):
     stream's slot view; call-order sources (``TrainRandom``) and eval's None
     as they are."""
     return rng.for_slot(slot) if isinstance(rng, KeyedStream) else rng
+
+
+def mask_draws(rng, layers) -> list:
+    """The supermask draws of a set's masked ``layers`` (in call order, a
+    layer once per call): a layer's k-th call draws as its slot k
+    (``slot_rng``), so each slot of a shared layer samples afresh, as the
+    JAX package's module does at every call: a ``KeyedStream`` under
+    ``slot_site(site, k)`` (slot 0 the layer's own site; the sampling pass
+    and the gradient pass name the same calls, so they draw the same bits),
+    a call-order source (``TrainRandom``) in turn."""
+    calls: dict = {}
+    draws = []
+    for m in layers:
+        k = calls.get(m, 0)
+        calls[m] = k + 1
+        draws.append(slot_rng(rng, k).mask_draw(m, m.weight.shape, m.weight.device))
+    return draws
 
 
 def dropout(x: torch.Tensor, rate: float, rng, site: Optional[int] = None) -> torch.Tensor:

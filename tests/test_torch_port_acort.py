@@ -498,16 +498,35 @@ def test_kept_masks_over_shared_layers_match_jax():
 
 
 def test_training_supermask_with_share_layer_raises():
-    """A training supermask over a shared layer needs a fresh sample for each
-    slot (the JAX package's per-call draws): it raises until its slice.
-    Keyed dropout (the SCST decode) over shared layers runs, a site for each
-    slot (``tests/test_torch_port_acort_scst.py`` holds the sites)."""
+    """A training supermask over shared layers (once refused) draws a fresh
+    sample for each slot, as the JAX package's modules draw at every call:
+    the XE forward asks a call-order source for one draw a call (the encoder
+    and decoder layers of the plan (0, 0, 1) once per slot), the output is
+    finite, and every mask logit tensor, shared ones included, gets a
+    gradient. Keyed dropout (the SCST decode) over shared layers runs, a site
+    for each slot (``tests/test_torch_port_acort_scst.py`` holds the sites);
+    ``tests/test_torch_port_shared_width_scst.py`` holds the step against JAX."""
     att, amask, boxes, seqs = _radix_inputs(13)
     port = get_model("relation_transformer_prune")(**_small_kw("kv"), mask_cfg=MaskConfig("supermask", 5.0,
                                                                                         keep_masks=True),
                                                    device="cpu")
-    with pytest.raises(NotImplementedError):
-        port(t(att), t(amask), t(seqs).long(), t(boxes), train=True, rng=TrainRandom(torch.Generator()))
+    drawn = []
+
+    class Counting(TrainRandom):
+        def mask_uniform(self, layer, shape, device):
+            drawn.append(layer)
+            return super().mask_uniform(layer, shape, device)
+
+    out = port(t(att), t(amask), t(seqs).long(), t(boxes), train=True, rng=Counting(torch.Generator()))
+    assert torch.isfinite(out).all()
+    ffn = port.decoder_layers[0].feed_forward.w_1
+    assert sum(m is ffn for m in drawn) == 2  # slots 0 and 1 of the plan (0, 0, 1)
+    per_layer = sum(1 for m in port.modules() if hasattr(m, "mask_site"))
+    assert len(drawn) > per_layer
+    out.sum().backward()
+    for name, p in port.named_parameters():
+        if name.endswith(".mask"):
+            assert p.grad is not None and torch.isfinite(p.grad).all() and p.grad.abs().max() > 0, name
     dense = get_model("relation_transformer")(**_small_kw("kv"), device="cpu")
     with torch.no_grad():
         memory = dense.encode(t(att), t(amask), t(boxes), train=True, rng=KeyedStream(3))["memory"]

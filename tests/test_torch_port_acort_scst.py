@@ -49,7 +49,7 @@ from sparse_caption_tpu_torch.models import get_model
 from sparse_caption_tpu_torch.models import layers as pl
 from sparse_caption_tpu_torch.ops import rng as port_rng
 from sparse_caption_tpu_torch.ops.masked import MaskConfig, split_params
-from sparse_caption_tpu_torch.ops.rng import KeyedStream, TrainRandom, decode_train_keys, site_id
+from sparse_caption_tpu_torch.ops.rng import KeyedStream, decode_train_keys, site_id
 from sparse_caption_tpu_torch.scst import device_reward as port_devr
 from sparse_caption_tpu_torch.tokenizers import get_tokenizer
 from sparse_caption_tpu_torch.utils.convert_jax import convert_jax_variables, load_jax_variables
@@ -430,11 +430,42 @@ def test_head_widths_and_shared_memory_at_dk32():
     assert bf16_backward_smem(25, 36, 15) == 2 * ((2 * 36 + 2 * 15 * 25) * 72 + 72 + 2 * 15 * 32 * 56)
 
 
-def test_training_supermask_with_share_layer_still_raises():
+def test_training_supermask_with_share_layer_still_raises(radix_setup):
+    """A supermask SCST step of the ACORT-shaped model (kv, plan (0, 0, 1),
+    dropout 0.1; once refused) runs: the gradient pass re-runs the decode
+    through K2's and K3's kv backward (plain versions here), every slot of a
+    shared layer draws its own keyed sample, the loss is finite, and the mask
+    Adam moves every mask logit tensor (the generator's bias favours the
+    words' first digits, so that samples decode to words and rewards
+    differ)."""
+    tok, _, df_path, gts, _, _ = radix_setup
     att, amask, boxes, _ = make_inputs(seed=1)
-    seqs = torch.full((2, LEN), PAD, dtype=torch.long)
-    seqs[:, :3] = torch.tensor([BOS, 4, EOS])
     port = get_model("relation_transformer_prune")(**_acort_kw(0.1), device="cpu",
                                                    mask_cfg=MaskConfig("supermask", 5.0, keep_masks=True))
-    with pytest.raises(NotImplementedError, match="supermask"):
-        port(t(att), t(amask), seqs, t(boxes), train=True, rng=TrainRandom(torch.Generator()))
+    params, masks = split_params(port)
+    g = torch.Generator().manual_seed(3)
+    with torch.no_grad():
+        for m in masks.values():
+            m.copy_(torch.randn(m.shape, generator=g))
+        port.generator.proj.bias[1:4] += 3.0  # first digits of the 56 words: samples that decode to words
+        port.generator.proj.bias[EOS] -= 2.0
+    before = {n: m.detach().clone() for n, m in masks.items()}
+    reward = port_devr.DeviceReward.from_pickle(tok, df_path, CFG)
+    opt_w = port_optim.build_weight_optimizer(params.values(), CFG, port_optim.make_schedule(CFG))
+    opt_m = port_optim.build_mask_optimizer(masks.values(), CFG, trainable=True)
+    step = make_scst_step(port, opt_w, opt_m, CFG, reward.fn)
+    batch = dict(att_feats=t(att), att_masks=t(amask), boxes=t(boxes), ref_pack=reward.ref_pack(gts[:2], "cpu"))
+    sites = []
+    real = KeyedStream.mask_draw
+
+    def logged(self, layer, shape, device):
+        sites.append((layer.mask_site, self.slot))
+        return real(self, layer, shape, device)
+
+    with mock.patch.object(KeyedStream, "mask_draw", logged):
+        state, loss, _ = step(TrainState(), batch)
+    assert state.step == 1 and np.isfinite(float(loss))
+    shared = port.decoder_layers[0].feed_forward.w_1.mask_site
+    assert {slot for site, slot in sites if site == shared} == {0, 1}  # slots 0 and 1 of decoder layer 0
+    for name, m in masks.items():
+        assert not torch.equal(m.detach(), before[name]), name

@@ -363,7 +363,8 @@ def test_kernel_table_names_sources():
                             "box_attention_train_raw", "box_attention_kv_raw", "box_attention_train_kv_raw",
                             "box_attention_bwd_raw", "box_attention_bwd_kv_raw", "beam_topk_diverse",
                             "sample_step_gumbel", "sample_step_topk", "sample_step_nucleus",
-                            "ancestry_self_attention_bwd_anc", "scheduled_sample"}
+                            "ancestry_self_attention_bwd_anc", "scheduled_sample", "ancestry_self_attention_bwd_kv",
+                            "ancestry_self_attention_bwd_anc_kv", "grouped_cross_attention_bwd_kv"}
     from sparse_caption_tpu_torch.kernels._build import CSRC, SOURCES
 
     assert {k.library_name for k in KERNELS.values()} == set(SOURCES)

@@ -216,9 +216,10 @@ def test_k3_backward_plain_matches_jax_vjp():
 
 
 def test_unported_backwards_raise():
-    """K2's backward in the kv mode or in bf16, and K3's in the kv mode or in
-    bf16, raise on every device; K2's backward through the ancestry map
-    (ported) gives the autograd of the plain forward through the map."""
+    """K2's and K3's backward in bf16 raise on every device (the JAX
+    package's SCST step runs in f32); their kv modes (once refused) and K2's
+    backward through the ancestry map give the autograd of the plain forward
+    (the one cache or memory read as K and V gets both terms)."""
     q = torch.randn(4, 2, 8, requires_grad=True)
     cache = torch.zeros(4, 2, 5, 8)
     anc = torch.zeros(2, 2, 5, dtype=torch.int32)
@@ -233,19 +234,34 @@ def test_unported_backwards_raise():
     (want,) = torch.autograd.grad(ref.sum(), q)
     torch.testing.assert_close(out, ref, rtol=0, atol=1e-6)
     torch.testing.assert_close(got, want, rtol=0, atol=1e-6)
-    with pytest.raises(NotImplementedError, match="kv mode"):
-        k2.decode_self_attention(q, q, None, cache, None, None, 0)
+    for m in (anc, None):  # the kv mode: slot 1 is q itself, read as K and V
+        kv_cache = cache.clone()
+        kv_cache[:, :, 0] = k0
+        out = k2.decode_self_attention(q, q, None, kv_cache, None, m, 1)
+        (got,) = torch.autograd.grad(out.sum(), q)
+        stack = torch.stack([k0, q], 2)
+        ref = k2.ancestry_self_attention_plain(q, stack, None, None if m is None else m[:, :, :2].contiguous(), 1)
+        (want,) = torch.autograd.grad(ref.sum(), q)
+        torch.testing.assert_close(out, ref, rtol=0, atol=1e-6)
+        torch.testing.assert_close(got, want, rtol=0, atol=1e-6)
     qb = q.detach().bfloat16().requires_grad_()
     with pytest.raises(NotImplementedError, match="f32"):
         k2.decode_self_attention(qb, qb, qb, cache.bfloat16(), cache.bfloat16(), None, 0)
-    mem = torch.randn(2, 2, 3, 8)
+    with pytest.raises(NotImplementedError, match="f32"):
+        k2.decode_self_attention(qb, qb, None, cache.bfloat16(), None, None, 0)
+    mem = torch.randn(2, 2, 3, 8, requires_grad=True)
     mask = torch.ones(2, 3, dtype=torch.bool)
-    with pytest.raises(NotImplementedError, match="kv mode"):
-        k3.grouped_cross_attention(q, mem, None, mask)
+    out = k3.grouped_cross_attention(q, mem, None, mask)
+    got = torch.autograd.grad(out.sum(), (q, mem))
+    want = torch.autograd.grad(k3.grouped_cross_attention_plain(q, mem, mem, mask).sum(), (q, mem))
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, rtol=0, atol=1e-6)
     with pytest.raises(NotImplementedError, match="f32"):
         k3.grouped_cross_attention(qb, mem.bfloat16(), mem.bfloat16(), mask)
+    with pytest.raises(NotImplementedError, match="f32"):
+        k3.grouped_cross_attention(qb, mem.bfloat16(), None, mask)
     with torch.no_grad():  # without gradients the forward takes them all
-        assert k3.grouped_cross_attention(q, mem, None, mask).shape == q.shape
+        assert k3.grouped_cross_attention(qb, mem.bfloat16(), None, mask).shape == q.shape
 
 
 # --------------------------------------------------- whole step against JAX
