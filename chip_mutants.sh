@@ -12,8 +12,10 @@
 # mode, and the decode variants: K9's top-k, nucleus and Gumbel modes, K4's
 # diverse-beam penalty and K1's raw 4-wide geometry, and K9's scheduled-sampling
 # mode and K2's backward through the beam-ancestry map, K2's and K3's backward
-# at head widths 32 and 13 and in the kv mode, and the keyed draw of each slot
-# of a shared layer. Each mutant is a copy of the
+# at head widths 32 and 13 and in the kv mode, the keyed draw of each slot
+# of a shared layer, and K9's top-k candidates and nucleus cut (ties at the
+# k-th, the ban among the candidates, the cut's comparison, the equal-p group
+# taken by index, the noise of a kept group). Each mutant is a copy of the
 # port under build/mutants/<name>/ with sed edits to one CUDA source (or,
 # with run_mutant_cmd, any shell edit run in its csrc/, the wrappers beside
 # it included), reusing the unmutated
@@ -191,8 +193,11 @@ run_mutant k2_bwd_own_slot_dropped ancestry_self_attention_bwd.cuh 's/    tk.sto
 run_mutant k2_bwd_cache_grad_order ancestry_self_attention_bwd.cuh 's/    tk.store(dk_t + to, lane);/    dkv.store(dk_t + to, lane);/; s/    tv.store(dv_t + to, lane);/    dvv.store(dv_t + to, lane);/' "torch.float32," "$KBWD"
 run_mutant k3_bwd_first_row_only grouped_cross_attention_bwd.cu 's/    for (int r = 0; r < rep; ++r) {/    for (int r = 0; r < 1; ++r) {/' "torch.float32," "$KBWD"
 run_mutant k5_keyed_ignores_t supermask.cu 's/Philox4{d.site, d.t, (uint32_t)e4, 0u}/Philox4{d.site, 0u, (uint32_t)e4, 0u}/' "torch.float32," "$K5"
-run_mutant k9_topk_ties_dropped sample_step.cu 's/    if (!(sv\[i\] >= kth)) sv\[i\] = kFiltered;/    if (!(sv[i] > kth)) sv[i] = kFiltered;/' "torch.float32," "$K9M"
-run_mutant k9_nucleus_cutoff_le sample_step.cu 's/if (j <= V - 2 \&\& run < top_p) ++below;/if (j <= V - 2 \&\& run <= top_p) ++below;/' "torch.float32," "$K9M"
+run_mutant k9_topk_ties_dropped sample_step.cu 's/s >= kth/s > kth/g' "torch.float32," "$K9M"
+run_mutant k9_nucleus_cutoff_le sample_step.cu 's/    if (m >= top) {/    if (m > top) {/; s/  if (total < top) return/  if (total <= top) return/; s/(top - base + pf - 1ull) \/ pf - 1ull;/(top - base) \/ pf;/' "torch.float32," "$K9M"
+run_mutant k9_nucleus_equal_p_reverse_index sample_step.cu 's/  int need = (int)jstar;/  int need = (int)(cnt - 1u - jstar);/; s/(key != c.keq || i <= c.icut)/(key != c.keq || i >= c.icut)/' "torch.float32," "$K9M"
+run_mutant k9_kept_group_skips_noise sample_step.cu 's/      if (any) r = philox4x32_10(/      if (false) r = philox4x32_10(/' "torch.float32," "$K9M"
+run_mutant k9_topk_ban_among_candidates sample_step.cu 's/    if (xi > thr \&\& i != ban) cand_insert(xi, k, tv, thr);/    if (xi > thr) cand_insert(xi, k, tv, thr);/; s/if (v\[q\] > thr \&\& u \* UE + q != ban) cand_insert/if (v[q] > thr) cand_insert/' "torch.float32," "$K9M"
 run_mutant k9_gumbel_tempered sample_step.cu 's/        z = logprob(i) + gumbel_eps(philox_word(r, q));/        z = logprob(i) \/ temperature + gumbel_eps(philox_word(r, q));/' "torch.float32," "$K9M"
 run_mutant k4_diversity_once_per_occurrence beam_topk.cu 's/  return count > 0 ? c - (float)count \* lambda : c;/  for (int j = 0; j < P; ++j) c = div_s[j] == i ? c - lambda : c; return c;/' "torch.float32," "$K4D"
 run_mutant k1_raw_geometry_unrounded box_geometry.cuh 's/  for (int c = 0; c < kRawG; ++c) pos\[c\] = round_to<T>(pair_delta(bi, bj, c));/  for (int c = 0; c < kRawG; ++c) pos[c] = pair_delta(bi, bj, c);/' "torch.bfloat16," "$KRAW"

@@ -468,9 +468,10 @@ RAW_FLAGS = dict(ORT_XSMALL_FLAGS, d_model=PAPER["d_model"], dim_feedforward=PAP
 RAW_CONFIG = dict(ORT_XSMALL_CONFIG, d_model=PAPER["d_model"])
 # K9's modes against their plain versions: tokens equal but for near-ties of
 # the Gumbel-max (as K9's random mode) and, in the nucleus mode, rows whose
-# cutoff prefix sum lies within NUCLEUS_NEAR_ULPS ulps of p (the kernel's block
-# scan and torch.cumsum round apart; counted and reported apart); chosen
-# log-probs within K9_LP_TOL (1 + |lp|)
+# cutoff prefix sum lies within NUCLEUS_NEAR_ULPS ulps of p (the kernel's exact
+# sums and torch.cumsum's rounding may keep one entry apart; counted and
+# reported apart); chosen log-probs within K9_LP_TOL (1 + |lp|), on such a row
+# of the plain version's with its kept set, or one entry fewer or more
 K9_LP_TOL, NUCLEUS_NEAR_ULPS = 1e-6, 4
 # The whole sampling path on the card against the CPU: a nucleus sample whose
 # tokens differ passes as a near-tie when a cutoff sum of the CPU's step lies
@@ -479,8 +480,9 @@ K9_LP_TOL, NUCLEUS_NEAR_ULPS = 1e-6, 4
 # scan), which moves a cutoff sum by far more than a few ulps (1e-5 is about
 # 170 f32 ulps at 0.9).
 NUCLEUS_PATH_TIE = 1e-5
-K9_MODE_CASES = (("top3", 1.0, False), ("top3", 0.7, True), ("top40", 1.0, False), ("top0.9", 0.7, False),
-                 ("top0.5", 1.0, True), ("gumbel", 1.0, False), ("gumbel", 0.7, True))
+K9_MODE_CASES = (("top3", 1.0, False), ("top3", 0.7, True), ("top1", 1.0, True), ("top20", 0.7, True),
+                 ("top40", 1.0, False), ("top0.9", 0.7, False), ("top0.9", 0.7, True), ("top0.5", 1.0, True),
+                 ("gumbel", 1.0, False), ("gumbel", 0.7, True))
 DIVERSE_LAMBDA_CHECK = 0.3  # K4's kernel check: a lambda whose multiples round apart from repeated subtraction
 # the decode variants' rows of the kernels line: (name, library, entry points, JAX site)
 VARIANT_MODES = (
@@ -2322,18 +2324,11 @@ def check_xsmall_kernels(gen, dtype, results: dict, timing: bool = True) -> bool
     return check_width_kernels(gen, dtype, results, DK_XSMALL, {False: MAX_LEN, True: ACORT_LEN}, False, timing)
 
 
-def check_radix_reward(results: dict, timing: bool = True) -> bool:
-    """K10's radix mode (ACORT's digit rows, regrouped into words in the
-    kernel's prologue) at ACORT-small's SCST shape, 64 images x 15 samples of
-    25 digits against 5 refs each: bit-equal to K10's word mode run on the
-    plain regroup's word ids (`radix_to_word`), and within the reward bounds
-    of the plain version; rows with eos first and last, pad and bos mid-row,
-    a one-digit tail, words at and past the <unk> slot, and refs' own digits
-    (rewards far from 0). Planted fault: the word mode on a regroup that does
-    not stop at eos. With `timing`: the radix mode, the word mode on the
-    same rows' words, and the plain version (regroup + reward), in held turns."""
-    from sparse_caption_tpu_torch.kernels import cider_reward as k10
-
+def radix_reward_inputs() -> dict:
+    """K10's radix check's inputs at ACORT-small's SCST shape (64 images x 15
+    samples of 25 digits against 5 refs each), all from seeded generators:
+    ids (on the card), img, the df table's tensors, the ref pack, the radix
+    spec, the reward's keyword arguments and the DeviceReward."""
     dev = torch.device("cuda")
     gen = torch.Generator(device="cpu").manual_seed(SEED + 10)
     with tempfile.TemporaryDirectory() as log_dir:
@@ -2355,19 +2350,54 @@ def check_radix_reward(results: dict, timing: bool = True) -> bool:
     ids[6, :] = 0
     ids[6, :2] = torch.tensor([bos, 2])  # a one-digit tail
     ids[7, :4] = torch.tensor([spec.n_words // base + 1, spec.n_words % base, base, base])  # the <unk> slot, past it
-    ids = ids.to(dev)
-    img = torch.arange(b, device=dev, dtype=torch.int32).repeat_interleave(SCST_SAMPLES)
     tbl = reward.table.to(dev)
-    tensors = {"hi": tbl.hi, "lo": tbl.lo, "val": tbl.val}
-    kw = dict(probe=reward.table.probe, ref_len=reward.table.ref_len, bleu_weight=SCST_BLEU)
-    words = k10.radix_to_word(ids, spec)
-    got = k10.cider_reward(ids, img, tensors, pack, radix=spec, **kw)
+    return dict(ids=ids.to(dev), img=torch.arange(b, device=dev, dtype=torch.int32).repeat_interleave(SCST_SAMPLES),
+                tensors={"hi": tbl.hi, "lo": tbl.lo, "val": tbl.val}, pack=pack, spec=spec, reward=reward,
+                kw=dict(probe=reward.table.probe, ref_len=reward.table.ref_len, bleu_weight=SCST_BLEU))
+
+
+def radix_reward_sides(inp: dict) -> tuple:
+    """(radix mode, word mode on the plain regroup's words, the CPU plain
+    version on those words) of K10 on `radix_reward_inputs`."""
+    from sparse_caption_tpu_torch.kernels import cider_reward as k10
+
+    ids, img, tensors, pack, kw = inp["ids"], inp["img"], inp["tensors"], inp["pack"], inp["kw"]
+    words = k10.radix_to_word(ids, inp["spec"])
+    got = k10.cider_reward(ids, img, tensors, pack, radix=inp["spec"], **kw)
     word_mode = k10.cider_reward(words, img, tensors, pack, **kw)
     ref = k10.cider_reward_plain(words.cpu(), img.cpu(), {k: v.cpu() for k, v in tensors.items()},
-                                 {k: v.cpu() for k, v in pack.items()}, **kw).to(dev)
+                                 {k: v.cpu() for k, v in pack.items()}, **kw).to(ids.device)
+    return got, word_mode, ref
+
+
+def check_radix_reward(results: dict, timing: bool = True) -> bool:
+    """K10's radix mode (ACORT's digit rows, regrouped into words in the
+    kernel's prologue) at ACORT-small's SCST shape, 64 images x 15 samples of
+    25 digits against 5 refs each: bit-equal to K10's word mode run on the
+    plain regroup's word ids (`radix_to_word`), and within the reward bounds
+    of the plain version; rows with eos first and last, pad and bos mid-row,
+    a one-digit tail, words at and past the <unk> slot, and refs' own digits
+    (rewards far from 0). A row outside the bound is logged with its digits,
+    words, image and both rewards. Planted fault: the word mode on a regroup
+    that does not stop at eos. With `timing`: the radix mode, the word mode on
+    the same rows' words, and the plain version (regroup + reward), in held
+    turns."""
+    from sparse_caption_tpu_torch.kernels import cider_reward as k10
+
+    inp = radix_reward_inputs()
+    ids, img, tensors, pack, kw, spec, reward = (inp[k] for k in ("ids", "img", "tensors", "pack", "kw", "spec",
+                                                                  "reward"))
+    dev, rows, steps, eos = ids.device, ids.shape[0], ids.shape[1], spec.base + 2
+    words = k10.radix_to_word(ids, spec)
+    got, word_mode, ref = radix_reward_sides(inp)
     equal = bool(torch.equal(got, word_mode))
     err = (got - ref).abs()
-    within = bool((err <= REWARD_RTOL * ref.abs() + REWARD_ATOL).all())
+    outside = err > REWARD_RTOL * ref.abs() + REWARD_ATOL
+    within = not bool(outside.any())
+    for r in torch.nonzero(outside).flatten().tolist()[:8]:
+        log(f"[kernel] cider_reward radix row {r} outside the bound: image {int(img[r])}, digits {ids[r].tolist()}, "
+            f"words {words[r].tolist()}, kernel {got[r].item():.9e} word mode {word_mode[r].item():.9e} "
+            f"plain {ref[r].item():.9e}")
     no_eos = torch.where(ids == eos, torch.ones_like(ids), ids)  # the fault: digits past eos kept
     fault = k10.cider_reward(k10.radix_to_word(no_eos, spec), img, tensors, pack, **kw)
     caught = not torch.equal(fault, got)
@@ -4843,22 +4873,35 @@ def bounded_raw_wg(gen, h: int, dtype):
             torch.ones(h, device=dev).to(dtype))
 
 
-def nucleus_cutoff_sums(c, method: str, temperature: float):
+def nucleus_cutoff_sums(c, method: str, temperature: float, exact: bool = False):
     """(N, 2) the plain version's prefix sums (``torch.cumsum`` of the sorted
     probabilities) just before and at its last kept entry of each row: the
-    nucleus keeps entries while the sum before them stays below p."""
+    nucleus keeps entries while the sum before them stays below p. With
+    `exact`, (N, 4): then the same two prefixes summed in f64 (exact for the
+    f32 probabilities, as the kernel's fixed-point sums are)."""
     from sparse_caption_tpu_torch.decoding.sample import divide_by_temperature, modified_sample_logits
 
     probs = torch.softmax(divide_by_temperature(c, temperature), dim=-1)
-    csum = torch.cumsum(torch.sort(probs, dim=-1, descending=True, stable=True).values, dim=-1)
+    sorted_p = torch.sort(probs, dim=-1, descending=True, stable=True).values
     n_keep = (modified_sample_logits(c, method, temperature) > -1e29).sum(-1, keepdim=True)
-    before = torch.where(n_keep > 1, csum.gather(1, (n_keep - 2).clamp(min=0)), torch.zeros_like(n_keep).float())
-    return torch.cat([before, csum.gather(1, n_keep - 1)], dim=1)
+    sums = []
+    for csum in (torch.cumsum(sorted_p, dim=-1), torch.cumsum(sorted_p.double(), dim=-1))[:2 if exact else 1]:
+        before = torch.where(n_keep > 1, csum.gather(1, (n_keep - 2).clamp(min=0)), torch.zeros_like(csum[:, :1]))
+        sums.append(torch.cat([before, csum.gather(1, n_keep - 1)], dim=1))
+    return torch.cat([x.double() for x in sums], dim=1) if exact else sums[0]
 
 
 def near_p(sums, p: float):
-    """Rows whose cutoff sums lie within NUCLEUS_NEAR_ULPS f32 ulps of p."""
-    return ((sums - p).abs() <= NUCLEUS_NEAR_ULPS * float(np.spacing(np.float32(p)))).any(-1)
+    """Rows whose cutoff sums lie within NUCLEUS_NEAR_ULPS f32 ulps of p; with
+    the exact sums beside them (``nucleus_cutoff_sums(..., exact=True)``),
+    also rows where either lies within them, or where the plain version's
+    rounding alone put a cutoff sum on the other side of p than its exact
+    value (the kernel sums exactly)."""
+    p32 = float(np.float32(p))
+    near = ((sums - p32).abs() <= NUCLEUS_NEAR_ULPS * float(np.spacing(np.float32(p)))).any(-1)
+    if sums.shape[1] == 4:
+        near |= ((sums[:, :2] < p32) != (sums[:, 2:] < p32)).any(-1)
+    return near
 
 
 def sample_z(c, method: str, temperature: float, noise):
@@ -4873,91 +4916,190 @@ def sample_z(c, method: str, temperature: float, noise):
     return modified_sample_logits(c, method, temperature) + noise
 
 
-def check_sample_modes(gen, results: dict, timing: bool = True) -> bool:
-    """K9's Gumbel, top-k and nucleus modes against their plain versions on
-    the card, drawing the same keyed bits: f32 at the SCST sampling shape (64
-    x 15 rows) and bf16 at the sampling-serve shape (2048 x 5), each case of
-    K9_MODE_CASES (the register top-k path at k 3, the radix select at k 40;
-    a row of equal logits, a row whose top-3 value ties, and a row of four
-    probabilities of 1/4 whose cutoff sum at p = 0.5 is p exactly); tokens equal
-    but for near-ties of the draw and nucleus rows next to p; chosen
-    log-probs within K9_LP_TOL (1 + |lp|); a planted fault each (top-k ties
-    dropped, the nucleus's log-probs not renormalised, the Gumbel method
-    tempered). Times in bf16 at 2048 x 5."""
-    from sparse_caption_tpu_torch.decoding.sample import divide_by_temperature, modified_sample_logits
+def sample_mode_cases(logits, prev, unfinished, cases, lp_errs: dict, label: str, faults: bool = False) -> bool:
+    """K9's wrapper against its plain version on one set of rows, each case
+    (method, temperature, ban) of `cases` drawing the same keyed bits: tokens
+    equal but for near-ties of the draw and nucleus rows next to p; chosen
+    log-probs within K9_LP_TOL (1 + |lp|); the latch and seq equal. With
+    `faults`, the planted faults (top-k ties dropped, the nucleus's log-probs
+    not renormalised, the Gumbel method tempered). lp_errs: each mode's
+    largest chosen log-prob error, updated."""
+    from sparse_caption_tpu_torch.decoding.sample import divide_by_temperature
     from sparse_caption_tpu_torch.kernels import sample_step as k9
     from sparse_caption_tpu_torch.ops.rng import SAMPLE_SITE
 
-    dev, ok = torch.device("cuda"), True
+    dev, ok = logits.device, True
+    (n, vocab), t_max, step, key = logits.shape, MAX_LEN, 5, 0x5EED5EED12345
+    for method, temperature, ban in cases:
+        kw = dict(key=key, site=SAMPLE_SITE, temperature=temperature, ban_prev=ban, sample_method=method)
+        outs = {}
+        for impl, fn in (("kernel", k9.sample_step), ("plain", k9.sample_step_plain)):
+            u = unfinished.clone()
+            seq = torch.zeros(n, t_max, dtype=torch.int32, device=dev)
+            lp = torch.zeros(n, t_max, device=dev)
+            nxt = fn(logits, prev, u, seq, lp, step, **kw)
+            outs[impl] = (nxt, u, seq, lp)
+        (kn, ku, ks, kl), (pn, pu, ps, pl) = outs["kernel"], outs["plain"]
+        c = k9.sample_logprobs(logits, prev, ban)
+        draw = k9.keyed_uniform if method == "gumbel" else k9.gumbel_noise
+        noise = draw(key, SAMPLE_SITE, step, n, vocab, dev)
+        z = sample_z(c, method, temperature, noise)
+        differ = kn != pn
+        z_max = z.max(1).values
+        tie = (z_max - z.gather(1, kn.long()[:, None])[:, 0]).abs() <= allowed(z_max, torch.float32)
+        mode, top = k9.parse_sample_method(method)
+        near = near_p(nucleus_cutoff_sums(c, method, temperature, exact=True), top) if mode == "nucleus" \
+            else torch.zeros_like(differ)
+        tokens_ok = bool((tie | near)[differ].all())
+        same = ~differ
+        lp_all = (kl[:, step] - pl[:, step]).abs()
+        apart = torch.zeros_like(differ)
+        if mode == "nucleus":  # a row next to p: the plain version's log-prob with one entry fewer or more kept,
+            # but where its cutoff sum is p without rounding (four quarters at 0.5): there the rule is exact
+            alt = (kl[:, step, None] - nucleus_lp_apart(c, method, temperature, kn)).abs().min(-1).values
+            rounded = near & ~nucleus_exact_at_p(c, method, temperature, top)
+            apart = rounded & (alt < lp_all)
+            lp_all = torch.where(rounded, torch.minimum(lp_all, alt), lp_all)
+        lp_err = lp_all[same]
+        lp_ref = pl[:, step].abs()[same]
+        ratio = lp_err / (K9_LP_TOL * (1 + lp_ref))
+        lp_ok = bool((ratio <= 1).all())
+        worst = int(lp_err.argmax())
+        lp_errs[mode] = max(lp_errs.get(mode, 0.0), lp_err[worst].item())
+        rest = bool(torch.equal(ku[same], pu[same]) and torch.equal(ks[same], ps[same]))
+        kept = (modified_kept(c, method, temperature) if mode in ("topk", "nucleus") else None)
+        shape = f", kept a row {kept.min().item()}..{kept.max().item()}" if kept is not None else ""
+        name = f"sample_step {method} T={temperature}{' ban' if ban else ''}"
+        log(f"[kernel] {name} {label}: tokens differing {int(differ.sum())}/{n} (near-ties or rows next to p: "
+            f"ok={tokens_ok}){shape}; nucleus rows with a cutoff sum within {NUCLEUS_NEAR_ULPS} ulps of p "
+            f"{int(near.sum())} (tokens differing among them {int((differ & near).sum())}, kept sets one entry "
+            f"apart {int((apart & same).sum())}); chosen log-prob "
+            f"max_abs_err={lp_err[worst].item():.3e} at |lp| {lp_ref[worst].item():.3f}, worst err/allowed "
+            f"{ratio.max().item():.3f} (tol {K9_LP_TOL} (1 + |lp|)) {'ok' if lp_ok else 'FAIL'}; "
+            f"latch and seq equal={rest}")
+        ok &= tokens_ok and lp_ok and rest
+        if not faults:
+            continue
+        if (method, temperature, ban) == ("top3", 1.0, False):  # fault: ties at the k-th value dropped
+            scaled = divide_by_temperature(c, temperature)
+            kth = torch.topk(scaled, 3, dim=-1).values[:, -1:]
+            w_f = torch.argmax(torch.where(scaled > kth, scaled, -1e30) + noise, dim=-1)
+            n_f = int((w_f != pn.long()).sum())
+            log(f"[fault] sample_step top-k with ties dropped {label}: {n_f} tokens differ "
+                f"{'caught' if n_f else 'MISSED'}")
+            ok &= n_f > 0
+        if (method, temperature, ban) == ("top0.9", 0.7, False):  # fault: the kept log-probs not renormalised
+            probs = torch.softmax(divide_by_temperature(c, temperature), dim=-1)
+            fault = torch.log(probs.gather(1, pn.long()[:, None]))[:, 0]
+            n_f = int(((fault - pl[:, step]).abs() > K9_LP_TOL * (1 + pl[:, step].abs())).sum())
+            log(f"[fault] sample_step nucleus log-probs not renormalised {label}: {n_f} chosen log-probs outside "
+                f"the tolerance {'caught' if n_f else 'MISSED'}")
+            ok &= n_f > 0
+        if (method, temperature, ban) == ("gumbel", 0.7, True):  # fault: the Gumbel method tempered
+            w_f = torch.argmax(divide_by_temperature(c, temperature) - torch.log(-torch.log(noise + 1e-20) + 1e-20),
+                               dim=-1)
+            n_f = int((w_f != pn.long()).sum())
+            log(f"[fault] sample_step gumbel tempered {label}: {n_f} tokens differ {'caught' if n_f else 'MISSED'}")
+            ok &= n_f > 0
+    return ok
+
+
+def nucleus_exact_at_p(c, method: str, temperature: float, p: float):
+    """(N,) rows where a cutoff sum of the plain version (``nucleus_cutoff_sums``)
+    equals p and equals the same prefix summed in f64: no rounding decides them."""
+    sums, p32 = nucleus_cutoff_sums(c, method, temperature, exact=True), float(np.float32(p))
+    return ((sums[:, :2] == p32) & (sums[:, :2] == sums[:, 2:])).any(-1)
+
+
+def nucleus_lp_apart(c, method: str, temperature: float, tokens):
+    """(N, 2) the plain nucleus's log-prob of `tokens` with one entry fewer and
+    one more kept (in its stable descending order; -1e30 where the token is
+    not kept): on a row whose cutoff sum lies next to p, exact prefix sums and
+    ``torch.cumsum``'s rounding may keep one entry apart, and the kept mass,
+    the denominator, with it."""
+    from sparse_caption_tpu_torch.decoding.sample import divide_by_temperature
+
+    scaled = divide_by_temperature(c, temperature)
+    unnormalized = torch.exp(scaled - scaled.max(dim=-1, keepdim=True).values)
+    probs = unnormalized / unnormalized.sum(dim=-1, keepdim=True)
+    order = torch.sort(probs, dim=-1, descending=True, stable=True).indices
+    ranks = torch.empty_like(order).scatter_(1, order, torch.arange(order.shape[1], device=order.device)
+                                             .expand_as(order).contiguous())
+    n_keep = modified_kept(c, method, temperature)[:, None]
+    tok = tokens.long()[:, None]
+    out = []
+    for delta in (-1, 1):
+        keep = ranks < (n_keep + delta).clamp(1, probs.shape[1])
+        denom = torch.where(keep, probs, 0.0).sum(dim=-1, keepdim=True)
+        out.append(torch.where(keep.gather(1, tok), torch.log(probs.gather(1, tok) / denom), -1e30)[:, 0])
+    return torch.stack(out, dim=-1)
+
+
+def modified_kept(c, method: str, temperature: float):
+    """(N,) the plain filter's kept entries a row."""
+    from sparse_caption_tpu_torch.decoding.sample import modified_sample_logits
+
+    return (modified_sample_logits(c, method, temperature) > -1e29).sum(-1)
+
+
+def sample_rows(gen, n: int, vocab: int, dtype):
+    """(logits, prev, unfinished) for K9's checks: logits at scale 3, a row of
+    equal logits (every entry ties), a row of eight equal top logits (top-3's
+    k-th value ties), a row of four equal logits carrying the row
+    (probabilities of 1/4 exactly, and at p = 0.5 the cutoff sum 0.5 equals p),
+    a flat row (scale 0.05: the nucleus at p = 0.9 keeps about 90%), a row
+    whose banned token is its largest logit and one whose banned token is its
+    second (a ban inside the top k); the other fed tokens at random."""
+    dev = torch.device("cuda")
+    logits = torch.randn(n, vocab, generator=gen, device=dev) * 3.0
+    logits[0] = 0
+    logits[1, :8] = 12
+    logits[2] = -1000
+    logits[2, :4] = 10
+    logits[3] *= 0.05 / 3.0
+    prev = torch.randint(min(4, vocab - 1), vocab, (n,), generator=gen, device=dev, dtype=torch.int32)
+    top2 = torch.topk(logits[4:6], 2, dim=-1).indices
+    prev[4], prev[5] = top2[0, 0], top2[1, 1]
+    unfinished = torch.rand(n, generator=gen, device=dev) < 0.8
+    return logits.to(dtype), prev, unfinished
+
+
+def check_sample_modes(gen, results: dict, timing: bool = True) -> bool:
+    """K9's Gumbel, top-k and nucleus modes against their plain versions on
+    the card, drawing the same keyed bits (``sample_mode_cases``): f32 at the
+    SCST sampling shape (64 x 15 rows) and bf16 at the sampling-serve shape
+    (2048 x 5), each case of K9_MODE_CASES (top-k's three instances: k 1 and
+    3 (4 candidates a thread), 20 (32), 40 and k = V (the radix select); the
+    nucleus at p 0.9 and 0.5) on ``sample_rows`` (ties everywhere, ties at the
+    k-th, four quarters at p = 0.5, a flat row, a ban inside the top k); then
+    ACORT's radix vocabulary (V = 771, f32 and bf16, every case with k = 771)
+    and the nucleus and top-k at V = NUCLEUS_MAX_VOCAB (f32, 256 rows: the
+    most shared memory a row may take). A planted fault each at V = 10,000
+    (top-k ties dropped, the nucleus's log-probs not renormalised, the Gumbel
+    method tempered). The kernel's shared-memory sizes against the wrapper's.
+    Times in bf16 at 2048 x 5."""
+    from sparse_caption_tpu_torch.kernels import sample_step as k9
+    from sparse_caption_tpu_torch.ops.rng import SAMPLE_SITE
+
+    dev = torch.device("cuda")
     vocab, t_max, step, key = PAPER["vocab_size"], MAX_LEN, 5, 0x5EED5EED12345
     lp_errs = {"gumbel": 0.0, "topk": 0.0, "nucleus": 0.0}  # the largest chosen log-prob error of each mode
+    modes = k9.MODES
+    ok = smem_agrees("sample_step", "sct_sample_smem", k9.sample_smem,
+                     [(vocab, modes["nucleus"], 0), (vocab, modes["topk"], 3), (vocab, modes["topk"], 33),
+                      (k9.NUCLEUS_MAX_VOCAB, modes["nucleus"], 0), (vocab, modes["gumbel"], 0)])
+    for dtype, v, n in ((torch.float32, 771, 960), (torch.bfloat16, 771, 960),
+                        (torch.float32, k9.NUCLEUS_MAX_VOCAB, 256)):
+        logits, prev, unfinished = sample_rows(gen, n, v, dtype)
+        cases = K9_MODE_CASES + ((f"top{v}", 1.0, True),) if v == 771 else \
+            (("top0.9", 0.7, True), ("top0.5", 1.0, False), ("top3", 1.0, True), ("top40", 0.7, True))
+        ok &= sample_mode_cases(logits, prev, unfinished, cases, {}, f"{str(dtype).split('.')[-1]} V={v}")
+        del logits
     for dtype, n in ((torch.float32, SCST_BATCHES[-1] * SCST_SAMPLES), (torch.bfloat16, BIG_BATCH * SAMPLE_ROWS)):
         dname = str(dtype).split(".")[-1]
-        logits = (torch.randn(n, vocab, generator=gen, device=dev) * 3.0).to(dtype)
-        logits[0] = 0  # every entry ties
-        logits[1, :8] = 12  # eight equal top logits: top-3's k-th value ties
-        logits[2] = -1000  # four equal logits carry the row: probabilities of 1/4 exactly, and at p = 0.5 the
-        logits[2, :4] = 10  # cutoff sum 0.5 equals p (the nucleus keeps while the sum before stays below p)
-        prev = torch.randint(4, vocab, (n,), generator=gen, device=dev, dtype=torch.int32)
-        unfinished = torch.rand(n, generator=gen, device=dev) < 0.8
-        for method, temperature, ban in K9_MODE_CASES:
-            kw = dict(key=key, site=SAMPLE_SITE, temperature=temperature, ban_prev=ban, sample_method=method)
-            outs = {}
-            for impl, fn in (("kernel", k9.sample_step), ("plain", k9.sample_step_plain)):
-                u = unfinished.clone()
-                seq = torch.zeros(n, t_max, dtype=torch.int32, device=dev)
-                lp = torch.zeros(n, t_max, device=dev)
-                nxt = fn(logits, prev, u, seq, lp, step, **kw)
-                outs[impl] = (nxt, u, seq, lp)
-            (kn, ku, ks, kl), (pn, pu, ps, pl) = outs["kernel"], outs["plain"]
-            c = k9.sample_logprobs(logits, prev, ban)
-            draw = k9.keyed_uniform if method == "gumbel" else k9.gumbel_noise
-            noise = draw(key, SAMPLE_SITE, step, n, vocab, dev)
-            z = sample_z(c, method, temperature, noise)
-            differ = kn != pn
-            z_max = z.max(1).values
-            tie = (z_max - z.gather(1, kn.long()[:, None])[:, 0]).abs() <= allowed(z_max, torch.float32)
-            mode = k9.parse_sample_method(method)[0]
-            near = near_p(nucleus_cutoff_sums(c, method, temperature), k9.parse_sample_method(method)[1]) \
-                if mode == "nucleus" else torch.zeros_like(differ)
-            tokens_ok = bool((tie | near)[differ].all())
-            same = ~differ
-            lp_err = (kl[:, step] - pl[:, step]).abs()[same]
-            lp_ref = pl[:, step].abs()[same]
-            ratio = lp_err / (K9_LP_TOL * (1 + lp_ref))
-            lp_ok = bool((ratio <= 1).all())
-            worst = int(lp_err.argmax())
-            lp_errs[mode] = max(lp_errs[mode], lp_err[worst].item())
-            rest = bool(torch.equal(ku[same], pu[same]) and torch.equal(ks[same], ps[same]))
-            name = f"sample_step {method} T={temperature}{' ban' if ban else ''}"
-            log(f"[kernel] {name} {dname}: tokens differing {int(differ.sum())}/{n} (near-ties or rows next to p: "
-                f"ok={tokens_ok}); nucleus rows with a cutoff sum within {NUCLEUS_NEAR_ULPS} ulps of p "
-                f"{int(near.sum())} (tokens differing among them {int((differ & near).sum())}); chosen log-prob "
-                f"max_abs_err={lp_err[worst].item():.3e} at |lp| {lp_ref[worst].item():.3f}, worst err/allowed "
-                f"{ratio.max().item():.3f} (tol {K9_LP_TOL} (1 + |lp|)) {'ok' if lp_ok else 'FAIL'}; "
-                f"latch and seq equal={rest}")
-            ok &= tokens_ok and lp_ok and rest
-            if (method, temperature, ban) == ("top3", 1.0, False):  # fault: ties at the k-th value dropped
-                scaled = divide_by_temperature(c, temperature)
-                kth = torch.topk(scaled, 3, dim=-1).values[:, -1:]
-                w_f = torch.argmax(torch.where(scaled > kth, scaled, -1e30) + noise, dim=-1)
-                n_f = int((w_f != pn.long()).sum())
-                log(f"[fault] sample_step top-k with ties dropped {dname}: {n_f} tokens differ "
-                    f"{'caught' if n_f else 'MISSED'}")
-                ok &= n_f > 0
-            if (method, temperature, ban) == ("top0.9", 0.7, False):  # fault: the kept log-probs not renormalised
-                probs = torch.softmax(divide_by_temperature(c, temperature), dim=-1)
-                fault = torch.log(probs.gather(1, pn.long()[:, None]))[:, 0]
-                n_f = int(((fault - pl[:, step]).abs() > K9_LP_TOL * (1 + pl[:, step].abs())).sum())
-                log(f"[fault] sample_step nucleus log-probs not renormalised {dname}: {n_f} chosen log-probs outside "
-                    f"the tolerance {'caught' if n_f else 'MISSED'}")
-                ok &= n_f > 0
-            if (method, temperature, ban) == ("gumbel", 0.7, True):  # fault: the Gumbel method tempered
-                w_f = torch.argmax(divide_by_temperature(c, temperature) - torch.log(-torch.log(noise + 1e-20) + 1e-20),
-                                   dim=-1)
-                n_f = int((w_f != pn.long()).sum())
-                log(f"[fault] sample_step gumbel tempered {dname}: {n_f} tokens differ {'caught' if n_f else 'MISSED'}")
-                ok &= n_f > 0
+        logits, prev, unfinished = sample_rows(gen, n, vocab, dtype)
+        ok &= sample_mode_cases(logits, prev, unfinished, K9_MODE_CASES + ((f"top{vocab}", 1.0, True),), lp_errs,
+                                dname, faults=True)
         if not timing or dtype != torch.bfloat16:
             continue
         seq, lp = torch.zeros(n, t_max, dtype=torch.int32, device=dev), torch.zeros(n, t_max, device=dev)

@@ -1,18 +1,23 @@
-"""Device times of K9's random / greedy modes and of K1, K1's train variant
+"""Device times of K9's modes (random, greedy, Gumbel, top-k at k 3 and 20,
+nucleus at p 0.9 / T 0.7, scheduled sampling) and of K1, K1's train variant
 and K7 on the trig geometry, in the tree of the working directory, so that
 two commits can be timed on one card in one run (NVIDIA H100; imports no JAX).
 
-    python3 kernel_ab_times.py build <tag>   # build the three libraries (ptxas report)
-    python3 kernel_ab_times.py time <tag>    # one JSON line of device ms
+    python3 kernel_ab_times.py build <tag> [k9]          # build the libraries (ptxas report)
+    python3 kernel_ab_times.py time <tag> [k9 [regex]]   # one JSON line of device ms
 
-Run it from the root of each tree (for the parent: `git archive` unpacked
-into an ignored directory, e.g. build/parent, and `python3
-../../kernel_ab_times.py ...` from there), in the order parent, change,
-change, parent. Times are chip_smoke.turns_ms medians (5 held windows of 20
-calls); K9 at 960 x 10,000 f32 and 10,240 x 10,000 bf16, K1 at 2048 images,
-K1 train and K7 (autograd) at 256, 8 heads, 36 regions, dk 64.
+With `k9` only K9's library is built and timed (with a regex, only the
+K9 modes whose names match it: random, greedy, gumbel, top3, top20, top0.9,
+ss). Run it from the root of
+each tree (for the parent: `git archive` unpacked into an ignored
+directory, e.g. build/parent, and `python3 ../../kernel_ab_times.py ...`
+from there), in the order parent, change, change, parent. Times are
+chip_smoke.turns_ms medians (5 held windows of 20 calls); K9 at 960 x
+10,000 f32 and 10,240 x 10,000 bf16 (logits at scale 3), K1 at 2048
+images, K1 train and K7 (autograd) at 256, 8 heads, 36 regions, dk 64.
 """
 import json
+import re
 import subprocess
 import sys
 
@@ -22,8 +27,10 @@ import torch  # noqa: E402
 import chip_smoke as c  # noqa: E402
 from sparse_caption_tpu_torch.kernels import _build  # noqa: E402
 
-_build.SOURCES = ("sample_step", "box_attention", "box_attention_bwd")
 what, tag = sys.argv[1], sys.argv[2]
+k9_only = sys.argv[3:4] == ["k9"]
+pick = re.compile(sys.argv[4] if len(sys.argv) > 4 else "")
+_build.SOURCES = ("sample_step",) if k9_only else ("sample_step", "box_attention", "box_attention_bwd")
 if what == "build":
     _build.build_all(verbose=True)
     sys.exit(0)
@@ -44,9 +51,17 @@ for dtype, n in ((torch.float32, 960), (torch.bfloat16, 10240)):
     prev = torch.randint(4, 10000, (n,), generator=g, device=dev, dtype=torch.int32)
     unf = torch.rand(n, generator=g, device=dev) < 0.8
     seq, lp = torch.zeros(n, 17, dtype=torch.int32, device=dev), torch.zeros(n, 17, device=dev)
-    r, gr = c.turns_ms(lambda: k9.sample_step(logits, prev, unf, seq, lp, 5, key=12345, site=3),
-                       lambda: k9.sample_step(logits, prev, unf, seq, lp, 5, key=12345, site=3, greedy=True))
-    res[f"K9 random {dn} {n}"], res[f"K9 greedy {dn} {n}"] = r, gr
+    step = lambda **kw: lambda: k9.sample_step(logits, prev, unf, seq, lp, 5, key=12345, site=3, **kw)  # noqa: E731
+    variants = {"random": step(), "greedy": step(greedy=True), "gumbel": step(sample_method="gumbel"),
+                "top3": step(sample_method="top3"), "top20": step(sample_method="top20"),
+                "top0.9 T0.7": step(sample_method="top0.9", temperature=0.7),
+                "ss": lambda: k9.scheduled_sample(logits, prev, 0.25, k9.SSDraw(12345, 3))}
+    variants = {name: fn for name, fn in variants.items() if pick.search(name)}
+    for name, ms in zip(variants, c.turns_ms(*variants.values())):
+        res[f"K9 {name} {dn} {n}"] = ms
+if k9_only:
+    print(json.dumps(res), flush=True)
+    sys.exit(0)
 h, rr, dk = 8, 36, 64
 for dtype in (torch.bfloat16, torch.float32):
     dn = str(dtype).split(".")[-1]

@@ -37,13 +37,12 @@
 //   next[n] = tok;  unfinished[n] &= (w != eos)
 // The chosen log-prob is the un-tempered c for random and gumbel
 // (sample.py:85,150) and the filtered m for top-k and nucleus (:89).
-// The nucleus's prefix sums are taken in this order: thread j of the block
-// (256) sums the sorted entries [j L, (j + 1) L), L = ceil(V / 256), one
-// after another; thread 0 adds those 256 chunk sums one after another into
-// each chunk's base; csum of an entry is its chunk's base plus the chunk's
-// entries up to it, one after another. torch.cumsum (the plain version)
-// and XLA's cumsum round in their own orders, so a row whose cutoff sum
-// lies within a few ulps of top_p may keep one entry more or less.
+// The nucleus's prefix sums are exact: each p as a 62-bit fixed-point
+// integer (exact for p >= 2^-39), summed with integer adds, compared with
+// top_p rounded up to the same grid; the denominator is the exact sum of the
+// kept p rounded once to f32. torch.cumsum (the plain version) and XLA's
+// cumsum round in their own orders, so a row whose cutoff sum lies within a
+// few ulps of top_p may keep one entry more or less.
 //
 // The ss mode, for row n of step t-1's log-probs lp (N, V) in the compute
 // dtype T and the teacher token teacher[n] of step t:
@@ -60,24 +59,39 @@
 //
 // Bound on the H100 (N = 960 samples, V = 10000, f32): bytes. The logits are
 // read once (38.4 MB, 11.5 us at 3.35 TB/s); the 2.4M Philox calls and 19M
-// logf are below the card's integer and SFU rates. The nucleus's sort of the
-// row (one bitonic sort of 16,384 keys a row in shared memory) is no part of
-// the bound.
+// logf are below the card's integer and SFU rates.
 //
-// Design: one block of 256 threads per row, as K4's scalar path. Pass 1
-// keeps an online max/sum per thread and merges them across the block
-// (row_topk.cuh row_logsumexp); the filter modes then write the row's
-// tempered values into shared memory (40 KB at V = 10000) and filter them
-// there: top-k through K4's per-row top-k code (row_topk.cuh: the register
-// path for k <= 32, the radix select above); nucleus by a block-wide bitonic
-// sort of packed (p, index) keys (128 KB at V = 10000), the prefix sums above
-// and a rewrite of the row as m. The last pass reads the row (the logits
-// again, from L2, or the filtered row), each thread taking 4 consecutive
-// columns per Philox call, and keeps its best (z, index); a block-wide
-// argmax merges them. The mode is a template parameter, one instance each,
-// still one launch a step: the random instance (greedy too) holds no filter
-// code, no top-k registers and no filter scratch in shared memory, so it
-// keeps the registers and occupancy it had before the filter modes came.
+// Design: one block of 256 threads per row, as K4's scalar path.
+// - Pass 1 keeps an online max/sum per thread and merges them across the
+//   block (random, Gumbel, greedy and the radix top-k: row_topk.cuh
+//   row_logsumexp, an entry at a time). The register top-k (k <= 4 and k <=
+//   32, one instance each) and the nucleus read the row (the k <= 4 top-k and
+//   the nucleus as 16-byte vectors where V is whole vectors and the logits
+//   aligned; else an entry at a time), and keep each thread's k largest logits
+//   other than the banned one in registers (the nucleus: the largest); a
+//   butterfly of bitonic merges joins them across the warp, the warps' lists
+//   meet once in shared memory. c and s = c / T are non-decreasing in x, so
+//   the k-th largest s is s of the k-th largest logit; the banned entry is
+//   merged in on its own (its c is f32(lp) - 1e30). No row is held: the last
+//   pass reads the logits again (from L2, as vectors) and forms s. Above k =
+//   32 the tempered row goes to shared memory and row_topk.cuh's radix
+//   select finds the k-th.
+// - The nucleus takes max s from the largest logit not banned, then reads the
+//   row again for e = exp(s - max s) into shared memory (40 KB at V = 10000),
+//   their sum and the masses of e above four levels (a prefilter: entries far
+//   below the cut take no part), gathers the taken entries' p bits, and
+//   finds the cut by a search over those bits with exact fixed-point masses
+//   (nucleus_cut, no sort, no atomics on the sums). Its last pass reads the
+//   p from shared memory.
+// - The last pass takes 4 consecutive columns per Philox call and keeps each
+//   thread's best (z, index); a block-wide argmax merges them. The filter
+//   modes draw the Philox words and logs only for a group of 4 with a kept
+//   entry: a filtered entry's z = -1e30 + g rounds to -1e30 for every g the
+//   noise gives (|g| < 17, half an ulp of 1e30 is 3.8e22).
+// The mode is a template parameter, one instance each (top-k three), still
+// one launch a step: the random instance (greedy too) holds no filter code,
+// no candidate registers and no filter scratch in shared memory, so it keeps
+// the registers and occupancy it had before the filter modes came.
 // The ss mode is a kernel of its own (one block of 256 threads a row, the
 // last pass of the random mode on the given log-probs), one instance a dtype.
 #include <climits>
@@ -91,9 +105,14 @@
 namespace sct {
 
 constexpr int kSampleThreads = 256;
-constexpr int kTopkRegister = 32;  // largest k of the register path
+constexpr int kSampleWarps = kSampleThreads / 32;
+constexpr int kTopkFew = 4;        // largest k of the 4-candidate top-k instance
+constexpr int kTopkRegister = 32;  // largest k of the register paths; the radix select above
+// the dynamic shared memory a block may take: the card's opt-in limit less room for the static arrays
+constexpr int kSampleMaxDynamicSmem = 232448 - 8192;
 constexpr float kBanPrev = -1e30f;  // sample.py: nan_to_num(one_hot * -inf, neginf=-1e30)
 constexpr float kFiltered = -1e30f;  // sample.py NEG_INF: a filtered-out entry
+constexpr unsigned int kNoKey = 0xFFFFFFFFu;  // above the bits of every p (p <= 1)
 enum SampleMode { kRandom = 0, kGumbel = 1, kTopK = 2, kNucleus = 3 };
 
 __device__ __forceinline__ float uniform_of(uint32_t bits) {
@@ -107,180 +126,502 @@ __device__ __forceinline__ float gumbel_eps(uint32_t bits) {
   return -logf(-logf(uniform_of(bits) + 1e-20f) + 1e-20f);
 }
 
-__device__ __forceinline__ int block_sum_int(int v, int* red) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x / 32;
+// ---------------------------------------------------------------- top-k
+// A thread's KC largest logits, sorted descending, repeats kept (-inf where
+// empty): v (> thr, the k-th) takes its place among the first k and the k-th
+// drops out; the entries from k on stay -inf.
+template <int KC>
+__device__ __forceinline__ void cand_insert(float v, int k, float (&tv)[KC], float& thr) {
 #pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  if (lane == 0) red[warp] = v;
-  __syncthreads();
-  int r = 0;
-  for (int w = 0; w < (int)blockDim.x / 32; ++w) r += red[w];
-  __syncthreads();
-  return r;
+  for (int j = KC - 1; j > 0; --j)
+    if (j < k) tv[j] = v > tv[j - 1] ? tv[j - 1] : fmaxf(tv[j], v);
+  tv[0] = fmaxf(tv[0], v);
+#pragma unroll
+  for (int j = 0; j < KC; ++j)
+    if (j == k - 1) thr = tv[j];
 }
 
-// top-k filter of the row sv[0..V) in place: entries below the k-th largest
-// become -1e30
-__device__ __forceinline__ void topk_filter(float* sv, int V, int k, float* red_a, int* red_i) {
-  __shared__ int winner;
-  __shared__ int hist[256];
-  __shared__ unsigned int prefix_s;
-  __shared__ int remaining_s;
-  __shared__ float kth_s;
-  if (k <= kTopkRegister) {
-    float tv[kTopkRegister], thr;
-    int ti[kTopkRegister];
-    topk_init(tv, ti, thr);
-    for (int i = threadIdx.x; i < V; i += blockDim.x) topk_insert(sv[i], i, k, tv, ti, thr);
-    topk_merge(tv, ti, k, red_a, red_i, &winner, [&](int r, float cv, int) {
-      if (r == k - 1) kth_s = cv;
-    });
-  } else {
-    unsigned int key;
-    int need_eq;
-    radix_select_kth(sv, V, k, hist, &prefix_s, &remaining_s, key, need_eq);
-    if (threadIdx.x == 0) kth_s = order_value(key);
-    __syncthreads();
+// The KC largest of the lists of WIDTH lanes, in each of them: a butterfly;
+// each round keeps the top KC of two sorted lists (the larger of a[j] and
+// b[KC - 1 - j], a bitonic sequence) and sorts them again (KC a power of two).
+template <int KC, int WIDTH>
+__device__ __forceinline__ void cand_merge(float (&tv)[KC]) {
+#pragma unroll
+  for (int o = 1; o < WIDTH; o <<= 1) {
+    float b[KC];
+#pragma unroll
+    for (int j = 0; j < KC; ++j) b[j] = __shfl_xor_sync(0xffffffffu, tv[j], o);
+#pragma unroll
+    for (int j = 0; j < KC; ++j) tv[j] = fmaxf(tv[j], b[KC - 1 - j]);
+#pragma unroll
+    for (int h = KC / 2; h > 0; h >>= 1)
+#pragma unroll
+      for (int j = 0; j < KC; ++j)
+        if ((j & h) == 0) {
+          const float hi = fmaxf(tv[j], tv[j + h]), lo = fminf(tv[j], tv[j + h]);
+          tv[j] = hi;
+          tv[j + h] = lo;
+        }
   }
-  const float kth = kth_s;
-  for (int i = threadIdx.x; i < V; i += blockDim.x)
-    if (!(sv[i] >= kth)) sv[i] = kFiltered;
-  __syncthreads();
 }
 
-// nucleus filter of the row sv[0..V) in place (module notes); keys: cap
-// uint64 of shared memory (cap = pow2ceil(V))
-__device__ __forceinline__ void nucleus_filter(float* sv, int V, float top_p, unsigned long long* keys, int cap,
-                                               float* red_a, float* red_b, int* red_i) {
-  __shared__ float part_s[kSampleThreads];
-  const int tid = threadIdx.x, nt = blockDim.x;
-  // softmax: the row's max, then the sum of exp(s - max), each in a fixed order
-  float m = -INFINITY;
-  for (int i = tid; i < V; i += nt) m = fmaxf(m, sv[i]);
-  m = block_max(m, red_a);
-  float s = 0.f;
-  for (int i = tid; i < V; i += nt) s += expf(sv[i] - m);
-  s = block_sum(s, red_b);
-  for (int i = tid; i < cap; i += nt)
-    keys[i] = i < V ? ((unsigned long long)order_key(expf(sv[i] - m) / s) << 32) | (0xFFFFFFFFu - (unsigned int)i)
-                    : 0ull;
+// The filter modes read the row as 16-byte vectors of kUnit<T> entries
+// where V is whole vectors and the logits are 16-byte aligned (`vec`, the
+// same for every row), else an entry at a time; thread t takes vectors t,
+// t + nt, ..., so each thread meets its entries in index order.
+template <typename T> constexpr int kUnit = 16 / sizeof(T);
+
+template <typename T>
+__device__ __forceinline__ bool row_vectors(const T* logits, int V) {
+  return V % kUnit<T> == 0 && (reinterpret_cast<uintptr_t>(logits) & 15u) == 0;
+}
+
+// Pass 1 of the register top-k and the nucleus: the row's max and
+// log(sum exp(x - max)) (an online max / sum per thread, rescaled once a
+// vector; merged across the block in a fixed order) and the row's KC largest
+// logits other than the banned one (the first k exact, sorted descending,
+// repeats kept), in lane 0 of every warp. One __syncthreads for both merges.
+// cand: KC x the block's warps of shared memory; red_a, red_b, cand free on
+// return.
+template <typename T, int KC>
+__device__ __forceinline__ void row_stats_candidates(const T* __restrict__ x, int V, bool vec, int ban, int k,
+                                                     float* red_a, float* red_b, float* cand, float& mx,
+                                                     float& logsum, float (&tv)[KC]) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x / 32, nwarps = blockDim.x / 32;
+  float m = -INFINITY, s = 0.f, thr = -INFINITY;
+#pragma unroll
+  for (int j = 0; j < KC; ++j) tv[j] = -INFINITY;
+  if (vec) {
+    constexpr int UE = kUnit<T>;
+#pragma unroll 2
+    for (int u = threadIdx.x; u < V / UE; u += blockDim.x) {
+      float v[UE];
+      unpack16<T>(ld16(x + (size_t)u * UE), v);
+      float vm = v[0];
+#pragma unroll
+      for (int q = 1; q < UE; ++q) vm = fmaxf(vm, v[q]);
+      if (vm > m) {
+        s *= expf(m - vm);
+        m = vm;
+      }
+#pragma unroll
+      for (int q = 0; q < UE; ++q) {
+        s += expf(v[q] - m);
+        if (v[q] > thr && u * UE + q != ban) cand_insert(v[q], k, tv, thr);
+      }
+    }
+  } else {
+    for (int i = threadIdx.x; i < V; i += blockDim.x) {
+      const float xi = to_f(x[i]);
+      if (xi > m) {
+        s = s * expf(m - xi) + 1.f;
+        m = xi;
+      } else {
+        s += expf(xi - m);
+      }
+      if (xi > thr && i != ban) cand_insert(xi, k, tv, thr);
+    }
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    const float om = __shfl_xor_sync(0xffffffffu, m, o), os = __shfl_xor_sync(0xffffffffu, s, o);
+    merge_max_sum(m, s, om, os);
+  }
+  cand_merge<KC, 32>(tv);
+  if (lane == 0) {
+    red_a[warp] = m;
+    red_b[warp] = s;
+#pragma unroll
+    for (int j = 0; j < KC; ++j) cand[warp * KC + j] = tv[j];
+  }
   __syncthreads();
-  bitonic_sort_desc(keys, cap);  // p descending, equal p by the lower index
-  // prefix sums of the sorted p: each thread's chunk, the chunk sums in order
-  const int len = (V + nt - 1) / nt, lo = min(tid * len, V), hi = min(lo + len, V);
-  float chunk = 0.f;
-  for (int j = lo; j < hi; ++j) chunk += order_value((unsigned int)(keys[j] >> 32));
-  part_s[tid] = chunk;
+  m = -INFINITY;
+  s = 0.f;
+  for (int w = 0; w < nwarps; ++w) merge_max_sum(m, s, red_a[w], red_b[w]);
+  mx = m;
+  logsum = logf(s);
+#pragma unroll
+  for (int j = 0; j < KC; ++j) tv[j] = lane < nwarps ? cand[lane * KC + j] : -INFINITY;
+  cand_merge<KC, kSampleWarps>(tv);
+  __syncthreads();  // red_a / red_b / cand are reused by the caller
+}
+
+// entry j (a run-time index) of a register array, -inf outside it
+template <int KC>
+__device__ __forceinline__ float entry(const float (&tv)[KC], int j) {
+  float v = -INFINITY;
+#pragma unroll
+  for (int q = 0; q < KC; ++q)
+    if (q == j) v = tv[q];
+  return v;
+}
+
+// -------------------------------------------------------------- nucleus
+// 62-bit fixed point of a p in [0, 1] (its bits `key`): exact for p >= 2^-39,
+// truncated below by less than 2^-62. Sums of them are exact and their order
+// does not matter.
+__device__ __forceinline__ unsigned long long p_fixed(unsigned int key) {
+  return __float2ull_rz(__uint_as_float(key) * 0x1p62f);
+}
+
+constexpr int kMassLevels = 4;  // the prefilter's levels of exp(s - max): 2^-6, 2^-12, 2^-18, 2^-24
+constexpr float kMassMargin = 0x1p-12f;  // above the f32 mass estimate's error (< 100 x 2^-24 relative)
+constexpr int kCompact = 1024;  // the taken keys gathered into a list up to this many (4 KB)
+constexpr int kHeldKeys = kCompact / kSampleThreads;  // a thread's share of the list, in registers
+static_assert(kCompact % kSampleThreads == 0, "the gathered list splits evenly over the block");
+
+struct NucleusCut {
+  unsigned int klo, keq;  // kept: key >= klo, and key != keq or the index <= icut
+  int icut;
+  float denom;            // the kept p's exact sum, rounded once
+};
+
+__device__ __forceinline__ bool nucleus_kept(const NucleusCut& c, unsigned int key, int i) {
+  return key >= c.klo && (key != c.keq || i <= c.icut);
+}
+
+// The nucleus cut of a row (module notes) without a sort. s_of(i, x): entry
+// i's tempered value from its logit x; max_s: the row's largest.
+// - Pass 2 reads the row (from L2) and writes e = exp(s - max) to shared
+//   memory, with their sum and the masses of e at or above each prefilter
+//   level. The highest level whose mass is above top_p by kMassMargin bounds
+//   the cut: the entries at or above it hold top_p of the exact mass, so the
+//   crossing entry has p >= fl(level / sum), and an entry whose e lies below
+//   level (1 - 2^-21) has a smaller p (the gap is wider than two ulps); those
+//   take no part (key 0), and no p is formed for them.
+// - The others' p = e / sum replace them as their bits (the order key of p
+//   >= 0), and up to kCompact of them are gathered into a list (else the
+//   whole row is the list).
+// - With M(K) the exact mass of the keys >= K (62-bit fixed point, integer
+//   adds; a warp's by REDUX on 16-bit parts, the block's through shared
+//   memory, one barrier each), the crossing entry's key is K* = max{K : M(K)
+//   >= top_p}: a bisection between the taken keys' bounds, the gathered keys
+//   held in registers (4 a thread). The entries with keys above K* hold
+//   base = M(K* + 1); the g = (M(K*) - base) / p entries of p =
+//   K*'s value come in index order (the stable sort's), the j-th ending the
+//   prefix base + (j + 1) p, so the crossing one is the j* = ceil((top_p -
+//   base) / p) - 1-th by index. The kept entries are those up to and
+//   including the crossing one: n_keep = 1 + #{j <= V - 2 : csum[j] < top_p}
+//   (the rule of sample.py, the first entry always kept; a row whose total
+//   stays below top_p keeps all).
+template <typename T, typename SFn>
+__device__ NucleusCut nucleus_cut(const T* __restrict__ x, int V, bool vec, SFn s_of, float max_s, float top_p,
+                                  unsigned int* keys) {
+  __shared__ unsigned int compact[kCompact];
+  __shared__ unsigned long long wsum[2][kSampleWarps];
+  __shared__ float wred[kMassLevels + 1][kSampleWarps];
+  __shared__ unsigned int wcnt[kSampleWarps];
+  __shared__ unsigned int taken_s;
+  __shared__ int icut_s;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid / 32, nt = blockDim.x;
+  float* ev = reinterpret_cast<float*>(keys);
+  float acc[kMassLevels + 1] = {};  // the sum, then the masses of e >= 2^-6, 2^-12, 2^-18, 2^-24
+  auto take = [&](float e) {
+    acc[0] += e;
+#pragma unroll
+    for (int j = 0; j < kMassLevels; ++j)
+      if (e >= __uint_as_float((127u - 6u * (j + 1)) << 23)) acc[j + 1] += e;
+  };
+  if (vec) {
+    constexpr int UE = kUnit<T>;
+#pragma unroll 2
+    for (int u = tid; u < V / UE; u += nt) {
+      float v[UE];
+      unpack16<T>(ld16(x + (size_t)u * UE), v);
+#pragma unroll
+      for (int q = 0; q < UE; ++q) {
+        v[q] = expf(s_of(u * UE + q, v[q]) - max_s);
+        take(v[q]);
+      }
+#pragma unroll
+      for (int h = 0; h < UE / 4; ++h)
+        reinterpret_cast<float4*>(ev + (size_t)u * UE)[h] = make_float4(v[4 * h], v[4 * h + 1], v[4 * h + 2], v[4 * h + 3]);
+    }
+  } else {
+    for (int i = tid; i < V; i += nt) {
+      const float e = expf(s_of(i, to_f(x[i])) - max_s);
+      ev[i] = e;
+      take(e);
+    }
+  }
+#pragma unroll
+  for (int j = 0; j <= kMassLevels; ++j) {
+    const float w = warp_sum(acc[j]);
+    if (lane == 0) wred[j][warp] = w;
+  }
+  if (tid == 0) taken_s = 0u;
   __syncthreads();
-  if (tid == 0) {
-    float base = 0.f;
-    for (int w = 0; w < nt; ++w) {
-      const float c = part_s[w];
-      part_s[w] = base;
-      base += c;
+#pragma unroll
+  for (int j = 0; j <= kMassLevels; ++j) {
+    acc[j] = 0.f;
+    for (int w = 0; w < nt / 32; ++w) acc[j] += wred[j][w];
+  }
+  const float sum = acc[0];
+  float e_lo = 0.f;  // the prefilter: entries with e below it take no part
+  for (int j = 0; j < kMassLevels; ++j)
+    if (acc[j + 1] >= (top_p + kMassMargin) * sum) {
+      e_lo = __uint_as_float((127u - 6u * (j + 1)) << 23) * (1.f - 0x1p-21f);
+      break;
+    }
+  // the keys: p's bits where the prefilter takes the entry, else 0; the taken ones gathered
+  for (int b0 = warp * 32; b0 < V; b0 += nt) {  // entry b0 + lane: each thread's own entries
+    const int i = b0 + lane;
+    const float e = i < V ? ev[i] : -1.f;
+    const bool taken = e >= e_lo;
+    const unsigned int key = taken ? __float_as_uint(e / sum) : 0u;
+    if (i < V) keys[i] = key;
+    const unsigned int bal = __ballot_sync(0xffffffffu, taken);
+    if (bal == 0u) continue;
+    unsigned int at = 0u;
+    if (lane == 0) at = atomicAdd(&taken_s, (unsigned int)__popc(bal));
+    at = __shfl_sync(0xffffffffu, at, 0) + __popc(bal & ((1u << lane) - 1u));
+    if (taken && at < (unsigned int)kCompact) compact[at] = key;
+  }
+  __syncthreads();
+  const bool gathered = taken_s <= (unsigned int)kCompact;
+  unsigned int hk[kHeldKeys];  // a gathered list: each thread holds its entries and their fixed-point p
+  unsigned long long hf[kHeldKeys];
+#pragma unroll
+  for (int r = 0; r < kHeldKeys; ++r) {
+    const int j = tid + r * nt;
+    hk[r] = gathered && j < (int)taken_s ? compact[j] : 0u;
+    hf[r] = p_fixed(hk[r]);
+  }
+  int buf = 0;
+  // M(k) in every thread: each thread's share, the warps' by REDUX on 16-bit parts (exact), the block's through
+  // shared memory (two buffers: one barrier a call)
+  auto mass = [&](unsigned int k) {
+    unsigned long long part = 0ull;
+    if (gathered) {
+#pragma unroll
+      for (int r = 0; r < kHeldKeys; ++r)
+        if (hk[r] >= k) part += hf[r];
+    } else {
+      for (int i = tid; i < V; i += nt) {
+        const unsigned int key = keys[i];
+        if (key >= k) part += p_fixed(key);
+      }
+    }
+    unsigned long long w = 0ull;
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+      w += (unsigned long long)__reduce_add_sync(0xffffffffu, (unsigned int)(part >> (16 * q)) & 0xFFFFu) << (16 * q);
+    if (lane == 0) wsum[buf][warp] = w;
+    __syncthreads();
+    unsigned long long m = 0ull;
+    for (int v = 0; v < nt / 32; ++v) m += wsum[buf][v];
+    buf ^= 1;
+    return m;
+  };
+  const unsigned long long top = __float2ull_ru(top_p * 0x1p62f);
+  const unsigned long long total = mass(0u);
+  if (total < top) return NucleusCut{0u, kNoKey, INT_MAX, __ull2float_rn(total) * 0x1p-62f};  // all kept
+  // K* = max{K : M(K) >= top}: a bisection with M(lo) >= top > M(hi); every taken key lies in [p of e_lo,
+  // p of e = 1] (the largest entry's e is exp(0))
+  unsigned int lo = __float_as_uint(e_lo / sum), hi = __float_as_uint(1.f / sum) + 1u;
+  unsigned long long m_lo = total, m_hi = 0ull;
+  while (hi - lo > 1u) {
+    const unsigned int mid = lo + (hi - lo) / 2u;
+    const unsigned long long m = mass(mid);
+    if (m >= top) {
+      lo = mid;
+      m_lo = m;
+    } else {
+      hi = mid;
+      m_hi = m;
+    }
+  }
+  // K* = lo: base = M(K* + 1), g entries of p = K*'s value; the crossing one is the j*-th of them by index
+  const unsigned long long pf = p_fixed(lo), base = m_hi;  // pf > 0: M(K*) > M(K* + 1)
+  const unsigned long long cnt = (m_lo - base) / pf;
+  const unsigned long long jstar = (top - base + pf - 1ull) / pf - 1ull;
+  const float denom = __ull2float_rn(base + (jstar + 1ull) * pf) * 0x1p-62f;
+  if (jstar + 1ull >= cnt) return NucleusCut{lo, kNoKey, INT_MAX, denom};
+  const unsigned int prefix = lo;
+  // the j*-th equal entry by index: warp w counts the equal keys of its span of the row, then the warp whose
+  // span holds it finds it
+  const int span = (V + nt - 1) / nt * 32, first = warp * span, last = min(first + span, V);
+  int count = 0;
+  for (int b0 = first; b0 < last; b0 += 32) {
+    const int i = b0 + lane;
+    count += __popc(__ballot_sync(0xffffffffu, i < last && keys[i] == prefix));
+  }
+  if (lane == 0) wcnt[warp] = (unsigned int)count;
+  __syncthreads();
+  int need = (int)jstar;
+  for (int w = 0; w < warp; ++w) need -= (int)wcnt[w];
+  if (need >= 0 && need < count) {
+    for (int b0 = first; b0 < last; b0 += 32) {
+      const int i = b0 + lane;
+      const bool eq = i < last && keys[i] == prefix;
+      const unsigned int bal = __ballot_sync(0xffffffffu, eq);
+      if (need < __popc(bal)) {
+        if (eq && __popc(bal & ((1u << lane) - 1u)) == need) icut_s = i;
+        break;
+      }
+      need -= __popc(bal);
     }
   }
   __syncthreads();
-  float run = part_s[tid];
-  int below = 0;  // entries j <= V - 2 of this chunk with csum[j] < top_p
-  for (int j = lo; j < hi; ++j) {
-    run += order_value((unsigned int)(keys[j] >> 32));
-    if (j <= V - 2 && run < top_p) ++below;
-  }
-  const int n_keep = 1 + block_sum_int(below, red_i);
-  // the denominator: the kept p, each thread's share of them in order, then the threads' in order
-  float kept = 0.f;
-  for (int j = lo; j < hi && j < n_keep; ++j) kept += order_value((unsigned int)(keys[j] >> 32));
-  part_s[tid] = kept;
-  __syncthreads();
-  if (tid == 0) {
-    float d = 0.f;
-    for (int w = 0; w < nt; ++w) d += part_s[w];
-    part_s[0] = d;
-  }
-  __syncthreads();
-  const float denom = part_s[0];
-  for (int j = tid; j < V; j += nt) {
-    const int i = (int)(0xFFFFFFFFu - (unsigned int)keys[j]);
-    sv[i] = j < n_keep ? logf(order_value((unsigned int)(keys[j] >> 32)) / denom) : kFiltered;
-  }
-  __syncthreads();
+  return NucleusCut{prefix, prefix, icut_s, denom};
 }
 
-__host__ __device__ inline int pow2_at_least(int n) {
-  int c = 1;
-  while (c < n) c <<= 1;
-  return c;
+// dynamic shared memory of a mode: the tempered row (top-k's radix select)
+// or the row's p (nucleus), 4 bytes an entry
+__host__ __device__ inline size_t sample_smem_bytes(int V, int mode, int top_k) {
+  const bool row = mode == kNucleus || (mode == kTopK && top_k > kTopkRegister);
+  return row ? (size_t)V * sizeof(float) : 0;
 }
 
-// dynamic shared memory of a mode: the nucleus's keys, then the row
-inline size_t sample_smem_bytes(int V, int mode) {
-  if (mode != kTopK && mode != kNucleus) return 0;
-  return (mode == kNucleus ? (size_t)pow2_at_least(V) * sizeof(unsigned long long) : 0) + (size_t)V * sizeof(float);
-}
-
-// kMode: a SampleMode. The random instance (greedy too) carries none of the
-// filter code, its registers or its shared memory.
-template <typename T, int kMode>
+// kMode: a SampleMode. KC: top-k's candidates a thread (kTopkFew or
+// kTopkRegister; 0 the radix select), the nucleus's 1 (the largest logit
+// not banned); 0 for the others. The random instance (greedy too) carries
+// none of the filter code, its registers or its shared memory.
+template <typename T, int kMode, int KC>
 __global__ void __launch_bounds__(kSampleThreads)
 sample_step_kernel(const T* __restrict__ logits, int V, const int* __restrict__ prev,
                    unsigned char* __restrict__ unfinished, int* __restrict__ seq, float* __restrict__ seq_lp,
                    int* __restrict__ next, int t, int t_max, uint32_t k0, uint32_t k1, uint32_t site, int greedy,
                    float temperature, int ban_prev, int eos_id, int pad_id, int top_k, float top_p) {
   constexpr bool filtered = kMode == kTopK || kMode == kNucleus;
+  constexpr bool radix_topk = kMode == kTopK && KC == 0;
   __shared__ float red_a[32];
   __shared__ float red_b[32];
   __shared__ int red_i[32];
   const int row = blockIdx.x, lane = threadIdx.x & 31, warp = threadIdx.x / 32, nwarps = blockDim.x / 32;
   const T* x = logits + (size_t)row * V;
-
-  // pass 1: log-sum-exp
-  float mx, logsum;
-  row_logsumexp(x, V, red_a, red_b, mx, logsum);
   const int ban = ban_prev ? prev[row] : -1;
+  float mx, logsum;
   auto logprob = [&](int i) {  // c[i] of the module notes
     float c = round_to<T>((to_f(x[i]) - mx) - logsum);
     if (i == ban) c += kBanPrev;
     return c;
   };
+  auto tempered_logit = [&](float xv) { return round_to<T>((xv - mx) - logsum) / temperature; };  // s, not banned
+  auto tempered = [&](int i, float xv) {  // s[i] of the module notes from its logit xv
+    float c = round_to<T>((xv - mx) - logsum);
+    if (i == ban) c += kBanPrev;
+    return c / temperature;
+  };
+  // vector loads for the 4-candidate top-k and the nucleus; the 32-candidate top-k reads an entry at a time
+  // (unrolled over a vector of 8 bf16 entries, its 32-entry insertion spills to local memory)
+  const bool vec = filtered && KC > 0 && KC <= kTopkFew && row_vectors(logits, V);
 
-  // the filter modes: the tempered row in shared memory, filtered in place
-  float* sv = nullptr;
-  if constexpr (filtered) {
-    extern __shared__ __align__(16) unsigned char sample_smem[];
-    const int cap = kMode == kNucleus ? pow2_at_least(V) : 0;
-    unsigned long long* keys = reinterpret_cast<unsigned long long*>(sample_smem);
-    sv = reinterpret_cast<float*>(keys + cap);
-    for (int i = threadIdx.x; i < V; i += blockDim.x) sv[i] = logprob(i) / temperature;
-    __syncthreads();
-    if constexpr (kMode == kTopK) topk_filter(sv, V, top_k, red_a, red_i);
-    else nucleus_filter(sv, V, top_p, keys, cap, red_a, red_b, red_i);
+  extern __shared__ __align__(16) unsigned char sample_smem[];
+  float* sv = reinterpret_cast<float*>(sample_smem);  // top-k's radix select: the tempered row
+  unsigned int* keys = reinterpret_cast<unsigned int*>(sample_smem);  // nucleus: the row's p as bits
+  float kth = 0.f;  // top-k: the k-th largest s (with repeats)
+  NucleusCut cut{0u, kNoKey, INT_MAX, 1.f};
+
+  // pass 1: log-sum-exp (and the register top-k's candidates, the nucleus's largest logit not banned)
+  if constexpr (kMode == kTopK && KC > 0) {
+    __shared__ float cand[kSampleWarps * (KC > 0 ? KC : 1)];
+    float tv[KC > 0 ? KC : 1];
+    row_stats_candidates<T>(x, V, vec, ban, top_k, red_a, red_b, cand, mx, logsum, tv);
+    // the k-th largest s is s of the k-th largest logit (s is non-decreasing in x), the banned entry merged in
+    const float xk = __shfl_sync(0xffffffffu, entry(tv, top_k - 1), 0);
+    const float xk1 = __shfl_sync(0xffffffffu, entry(tv, top_k - 2), 0);
+    kth = tempered_logit(xk);
+    if (ban >= 0) {
+      const float sb = logprob(ban) / temperature;
+      if (sb > kth) kth = top_k == 1 ? sb : fminf(sb, tempered_logit(xk1));
+    }
+  } else if constexpr (kMode == kNucleus) {
+    __shared__ float cand[kSampleWarps];
+    float tv[1];
+    row_stats_candidates<T>(x, V, vec, ban, 1, red_a, red_b, cand, mx, logsum, tv);
+    float max_s = tempered_logit(__shfl_sync(0xffffffffu, tv[0], 0));
+    if (ban >= 0) max_s = fmaxf(max_s, logprob(ban) / temperature);
+    cut = nucleus_cut(x, V, vec, tempered, max_s, top_p, keys);
+  } else {
+    row_logsumexp(x, V, red_a, red_b, mx, logsum);
+    if constexpr (radix_topk) {  // the row's s in shared memory, the radix select of the k-th
+      __shared__ int hist[256];
+      __shared__ unsigned int prefix_s;
+      __shared__ int remaining_s;
+      for (int i = threadIdx.x; i < V; i += blockDim.x) sv[i] = logprob(i) / temperature;
+      __syncthreads();
+      unsigned int key;
+      int need_eq;
+      radix_select_kth(sv, V, top_k, hist, &prefix_s, &remaining_s, key, need_eq);
+      kth = order_value(key);
+    }
   }
 
-  // last pass: noise, per-thread argmax over 4 columns a call
+  // last pass: noise, per-thread argmax over 4 columns a call; the filter modes draw noise only for a group
+  // with a kept entry (a filtered entry's z = -1e30 + g rounds to -1e30 for every g the noise gives)
   float best = -INFINITY;
   int best_i = INT_MAX;
   const int groups = (V + 3) / 4;
-  for (int c4 = threadIdx.x; c4 < groups; c4 += blockDim.x) {
-    Philox4 r{0u, 0u, 0u, 0u};
-    if (!greedy) r = philox4x32_10(Philox4{site, (uint32_t)t, (uint32_t)row, (uint32_t)c4}, k0, k1);
+  if constexpr (filtered) {
+    // group c4's filtered values m (kFiltered where not kept): the noise only if one is kept
+    auto draw_group = [&](int c4, const float (&m)[4]) {
+      const bool any = m[0] != kFiltered || m[1] != kFiltered || m[2] != kFiltered || m[3] != kFiltered;
+      Philox4 r{0u, 0u, 0u, 0u};
+      if (any) r = philox4x32_10(Philox4{site, (uint32_t)t, (uint32_t)row, (uint32_t)c4}, k0, k1);
 #pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      const int i = 4 * c4 + q;
-      if (i >= V) break;
-      float z;
-      if (greedy) {
-        z = logprob(i);
-      } else if (filtered) {
-        z = sv[i] + gumbel(philox_word(r, q));
-      } else if (kMode == kGumbel) {
-        z = logprob(i) + gumbel_eps(philox_word(r, q));
-      } else {
-        z = logprob(i) / temperature + gumbel(philox_word(r, q));
+      for (int q = 0; q < 4; ++q) {
+        const int i = 4 * c4 + q;
+        if (i >= V) break;
+        const float z = m[q] == kFiltered ? kFiltered : m[q] + gumbel(philox_word(r, q));
+        if (z > best) {  // i grows within a thread, so a tie keeps the lower index
+          best = z;
+          best_i = i;
+        }
       }
-      if (z > best) {  // i grows within a thread, so a tie keeps the lower index
-        best = z;
-        best_i = i;
+    };
+    auto topk_value = [&](float s) { return s >= kth ? s : kFiltered; };
+    if (kMode == kTopK && KC > 0 && vec) {  // the logits again (from L2), a vector at a time
+      constexpr int UE = kUnit<T>;
+      for (int u = threadIdx.x; u < V / UE; u += blockDim.x) {
+        float v[UE];
+        unpack16<T>(ld16(x + (size_t)u * UE), v);
+#pragma unroll
+        for (int h = 0; h < UE / 4; ++h) {
+          float m[4];
+#pragma unroll
+          for (int q = 0; q < 4; ++q) m[q] = topk_value(tempered(u * UE + 4 * h + q, v[4 * h + q]));
+          draw_group(u * (UE / 4) + h, m);
+        }
+      }
+    } else {
+      for (int c4 = threadIdx.x; c4 < groups; c4 += blockDim.x) {
+        float m[4];
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const int i = 4 * c4 + q;
+          m[q] = kFiltered;
+          if (i >= V) continue;
+          if constexpr (kMode == kNucleus) {
+            const unsigned int key = keys[i];
+            if (nucleus_kept(cut, key, i)) m[q] = logf(__uint_as_float(key) / cut.denom);
+          } else {
+            m[q] = topk_value(radix_topk ? sv[i] : logprob(i) / temperature);
+          }
+        }
+        draw_group(c4, m);
+      }
+    }
+  } else {
+    for (int c4 = threadIdx.x; c4 < groups; c4 += blockDim.x) {
+      Philox4 r{0u, 0u, 0u, 0u};
+      if (!greedy) r = philox4x32_10(Philox4{site, (uint32_t)t, (uint32_t)row, (uint32_t)c4}, k0, k1);
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const int i = 4 * c4 + q;
+        if (i >= V) break;
+        float z;
+        if (greedy) {
+          z = logprob(i);
+        } else if (kMode == kGumbel) {
+          z = logprob(i) + gumbel_eps(philox_word(r, q));
+        } else {
+          z = logprob(i) / temperature + gumbel(philox_word(r, q));
+        }
+        if (z > best) {  // i grows within a thread, so a tie keeps the lower index
+          best = z;
+          best_i = i;
+        }
       }
     }
   }
@@ -305,7 +646,16 @@ sample_step_kernel(const T* __restrict__ logits, int V, const int* __restrict__ 
         best_i = red_i[w];
       }
     if (best_i >= V) best_i = 0;  // every z was -inf: argmax's first index
-    const float chosen = filtered ? sv[best_i] : logprob(best_i);
+    float chosen;
+    if constexpr (kMode == kNucleus) {
+      const unsigned int key = keys[best_i];
+      chosen = nucleus_kept(cut, key, best_i) ? logf(__uint_as_float(key) / cut.denom) : kFiltered;
+    } else if constexpr (kMode == kTopK) {
+      const float s = radix_topk ? sv[best_i] : logprob(best_i) / temperature;
+      chosen = s >= kth ? s : kFiltered;
+    } else {
+      chosen = logprob(best_i);
+    }
     const bool live = unfinished[row] != 0;
     const int tok = live ? best_i : pad_id;
     seq[(size_t)row * t_max + t] = tok;
@@ -383,19 +733,19 @@ scheduled_sample_kernel(const T* __restrict__ lp, int V, const int* __restrict__
   }
 }
 
-template <typename T, int kMode>
+template <typename T, int kMode, int KC>
 cudaError_t launch_mode(const void* logits, int N, int V, const void* prev, void* unfinished, void* seq,
                         void* seq_lp, void* next, int t, int t_max, uint32_t k0, uint32_t k1, uint32_t site,
                         int greedy, float temperature, int ban_prev, int eos_id, int pad_id, int top_k, float top_p,
                         cudaStream_t stream) {
-  const size_t smem = sample_smem_bytes(V, kMode);
+  const size_t smem = sample_smem_bytes(V, kMode, top_k);
+  if (smem > (size_t)kSampleMaxDynamicSmem) return cudaErrorInvalidValue;
   if (smem > 48 * 1024) {
-    if (smem > 232448 - 8192) return cudaErrorInvalidValue;  // the static shared arrays need the rest
-    const cudaError_t err = cudaFuncSetAttribute(sample_step_kernel<T, kMode>,
+    const cudaError_t err = cudaFuncSetAttribute(sample_step_kernel<T, kMode, KC>,
                                                  cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
   }
-  sample_step_kernel<T, kMode><<<N, kSampleThreads, smem, stream>>>(
+  sample_step_kernel<T, kMode, KC><<<N, kSampleThreads, smem, stream>>>(
       static_cast<const T*>(logits), V, static_cast<const int*>(prev), static_cast<unsigned char*>(unfinished),
       static_cast<int*>(seq), static_cast<float*>(seq_lp), static_cast<int*>(next), t, t_max, k0, k1, site, greedy,
       temperature, ban_prev, eos_id, pad_id, top_k, top_p);
@@ -407,13 +757,17 @@ cudaError_t launch(const void* logits, int N, int V, const void* prev, void* unf
                    void* next, int t, int t_max, uint32_t k0, uint32_t k1, uint32_t site, int greedy,
                    float temperature, int ban_prev, int eos_id, int pad_id, int mode, int top_k, float top_p,
                    cudaStream_t stream) {
-#define SCT_MODE(M)                                                                                                 \
-  launch_mode<T, M>(logits, N, V, prev, unfinished, seq, seq_lp, next, t, t_max, k0, k1, site, greedy, temperature, \
-                    ban_prev, eos_id, pad_id, top_k, top_p, stream)
-  if (greedy || mode == kRandom) return SCT_MODE(kRandom);
-  if (mode == kGumbel) return SCT_MODE(kGumbel);
-  if (mode == kTopK) return SCT_MODE(kTopK);
-  return SCT_MODE(kNucleus);
+#define SCT_MODE(M, KC)                                                                                          \
+  launch_mode<T, M, KC>(logits, N, V, prev, unfinished, seq, seq_lp, next, t, t_max, k0, k1, site, greedy,     \
+                        temperature, ban_prev, eos_id, pad_id, top_k, top_p, stream)
+  if (greedy || mode == kRandom) return SCT_MODE(kRandom, 0);
+  if (mode == kGumbel) return SCT_MODE(kGumbel, 0);
+  if (mode == kTopK) {
+    if (top_k <= kTopkFew) return SCT_MODE(kTopK, kTopkFew);
+    if (top_k <= kTopkRegister) return SCT_MODE(kTopK, kTopkRegister);
+    return SCT_MODE(kTopK, 0);
+  }
+  return SCT_MODE(kNucleus, 1);
 #undef SCT_MODE
 }
 
@@ -422,7 +776,9 @@ cudaError_t launch(const void* logits, int N, int V, const void* prev, void* unf
 // dtype: 0 = float32, 1 = bfloat16. logits (N, V); prev (N,) int32; unfinished
 // (N,) bool, updated in place; seq (N, t_max) int32 and seq_lp (N, t_max) f32,
 // column t written; next (N,) int32. mode: 0 random, 1 gumbel, 2 top-k (top_k
-// in 1..V), 3 nucleus (top_p in (0, 1); V <= 16384); greedy overrides it.
+// in 1..V), 3 nucleus (top_p in (0, 1)); greedy overrides it. The nucleus and
+// top-k above 32 hold 4 bytes an entry in shared memory: sct_sample_smem(V,
+// mode, top_k) at most kSampleMaxDynamicSmem, so V <= 56064.
 extern "C" int sct_sample_step(int dtype, const void* logits, int N, int V, const void* prev, void* unfinished,
                                void* seq, void* seq_lp, void* next, int t, int t_max, uint32_t k0, uint32_t k1,
                                uint32_t site, int greedy, float temperature, int ban_prev, int eos_id, int pad_id,
@@ -460,6 +816,11 @@ extern "C" int sct_scheduled_sample(int dtype, const void* lp, int N, int V, con
   else
     return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();
+}
+
+// the dynamic shared memory of a launch (greedy aside), bytes
+extern "C" long long sct_sample_smem(int V, int mode, int top_k) {
+  return (long long)sct::sample_smem_bytes(V, mode, top_k);
 }
 
 extern "C" const char* sct_error_string(int err) { return cudaGetErrorString(static_cast<cudaError_t>(err)); }

@@ -54,7 +54,19 @@ SS_COIN_SITE = 0x55C01A  # the ss mode's sites under its stream's key: the coins
 SS_NOISE_SITE = 0x55A015
 BAN_PREV = -1e30  # decoding/sample.py: nan_to_num(one_hot * -inf, neginf=-1e30)
 MODES = {"random": 0, "gumbel": 1, "topk": 2, "nucleus": 3}  # csrc/sample_step.cu SampleMode
-NUCLEUS_MAX_VOCAB = 16384  # the nucleus mode sorts a row of pow2ceil(V) keys in shared memory
+TOPK_REGISTER = 32  # csrc/sample_step.cu kTopkRegister: the largest k kept in registers; the radix select above
+MAX_DYNAMIC_SMEM = 232448 - 8192  # kSampleMaxDynamicSmem: the opt-in block limit less the static arrays' room
+
+
+def sample_smem(vocab: int, mode: int, top_k: int) -> int:
+    """Dynamic shared memory of a K9 launch (``sct_sample_smem``): 4 bytes an
+    entry of the row for the nucleus (its p) and for top-k above
+    TOPK_REGISTER (the tempered row), else none."""
+    held = mode == MODES["nucleus"] or (mode == MODES["topk"] and top_k > TOPK_REGISTER)
+    return 4 * vocab if held else 0
+
+
+NUCLEUS_MAX_VOCAB = MAX_DYNAMIC_SMEM // sample_smem(1, MODES["nucleus"], 0)  # 56,064
 
 
 def parse_sample_method(method: str) -> Tuple[str, float]:
@@ -150,8 +162,9 @@ def sample_step(logits, prev, unfinished, seq, seq_lp, t: int, key: int = 0, sit
     if noise is not None:
         raise ValueError("explicit noise is taken by the plain version only (CPU tensors)")
     greedy = greedy or mode == "greedy"
-    if mode == "nucleus" and not greedy and vocab > NUCLEUS_MAX_VOCAB:
-        raise ValueError(f"the nucleus kernel sorts rows of at most {NUCLEUS_MAX_VOCAB} entries; V={vocab}")
+    if not greedy and sample_smem(vocab, MODES.get(mode, 0), int(top)) > MAX_DYNAMIC_SMEM:
+        raise ValueError(f"sample_method {sample_method} holds the row in shared memory: at most "
+                         f"{NUCLEUS_MAX_VOCAB} entries; V={vocab}")
     nxt = torch.empty_like(prev)
     kernel = KERNEL if greedy else {"gumbel": KERNEL_GUMBEL, "topk": KERNEL_TOPK, "nucleus": KERNEL_NUCLEUS}.get(mode,
                                                                                                                KERNEL)

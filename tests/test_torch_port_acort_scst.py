@@ -430,18 +430,22 @@ def test_head_widths_and_shared_memory_at_dk32():
     assert bf16_backward_smem(25, 36, 15) == 2 * ((2 * 36 + 2 * 15 * 25) * 72 + 72 + 2 * 15 * 32 * 56)
 
 
-def test_training_supermask_with_share_layer_still_raises(radix_setup):
+def test_supermask_scst_over_shared_layers_draws_per_slot_and_moves_every_mask(radix_setup):
     """A supermask SCST step of the ACORT-shaped model (kv, plan (0, 0, 1),
     dropout 0.1; once refused) runs: the gradient pass re-runs the decode
     through K2's and K3's kv backward (plain versions here), every slot of a
-    shared layer draws its own keyed sample, the loss is finite, and the mask
-    Adam moves every mask logit tensor (the generator's bias favours the
-    words' first digits, so that samples decode to words and rewards
-    differ)."""
+    shared layer draws its own keyed sample, the loss is finite and not 0
+    (the sampled rewards differ within an image), and the mask Adam moves
+    every mask logit tensor (the generator's bias favours the words' first
+    digits, so that samples decode to words). The weights come from a seeded
+    generator: drawn from torch's global one, they depended on the tests that
+    ran before in the process; where every sample of an image gets the same
+    reward, no gradient flows and no mask moves."""
     tok, _, df_path, gts, _, _ = radix_setup
     att, amask, boxes, _ = make_inputs(seed=1)
     port = get_model("relation_transformer_prune")(**_acort_kw(0.1), device="cpu",
-                                                   mask_cfg=MaskConfig("supermask", 5.0, keep_masks=True))
+                                                   mask_cfg=MaskConfig("supermask", 5.0, keep_masks=True),
+                                                   generator=torch.Generator().manual_seed(5))
     params, masks = split_params(port)
     g = torch.Generator().manual_seed(3)
     with torch.no_grad():
@@ -464,7 +468,7 @@ def test_training_supermask_with_share_layer_still_raises(radix_setup):
 
     with mock.patch.object(KeyedStream, "mask_draw", logged):
         state, loss, _ = step(TrainState(), batch)
-    assert state.step == 1 and np.isfinite(float(loss))
+    assert state.step == 1 and np.isfinite(float(loss)) and float(loss) != 0.0
     shared = port.decoder_layers[0].feed_forward.w_1.mask_site
     assert {slot for site, slot in sites if site == shared} == {0, 1}  # slots 0 and 1 of decoder layer 0
     for name, m in masks.items():

@@ -3,6 +3,7 @@
 where the two tie to rounding under the CPU's own teacher-forced scores) and
 the byte counts that the kernels' bounds are computed from."""
 
+import numpy as np
 import pytest
 import torch
 
@@ -429,3 +430,50 @@ def test_beam_scst_launches_by_hand():
     ud = chip_smoke.updown_beam_scst_launches(17, KERNELS)
     assert ud["sample_step"] == 0 and ud["beam_topk"] == 17 and ud["vocab_log_softmax"] == 17
     assert ud["vocab_log_softmax_bwd"] == 17 and ud["supermask"] == 11 + 18 and ud["lstm_cell"] == 68
+
+
+def _nucleus_row(vocab: int, tops: list, level: float = -1000.0):
+    """(1, vocab) f32 log-probs of logits `level` with 10 at `tops`."""
+    x = torch.full((1, vocab), level)
+    x[0, tops] = 10.0
+    return torch.log_softmax(x, dim=-1)
+
+
+def test_nucleus_exact_at_p_only_where_no_rounding_decides():
+    """Four quarters at p = 0.5: the cutoff sum is 0.5 exactly (an exact
+    row); a row of 771 equal p at 0.9: 693 / 770-ish sums round (not exact);
+    a random row clear of p: not exact."""
+    quarters = _nucleus_row(20, [3, 6, 11, 17])
+    assert bool(chip_smoke.nucleus_exact_at_p(quarters, "top0.5", 1.0, 0.5)[0])
+    equal = torch.log_softmax(torch.zeros(1, 771), dim=-1)
+    assert not bool(chip_smoke.nucleus_exact_at_p(equal, "top0.9", 0.7, 0.9)[0])
+    rnd = torch.log_softmax(torch.randn(1, 300, generator=torch.Generator().manual_seed(4)) * 3, dim=-1)
+    assert not bool(chip_smoke.nucleus_exact_at_p(rnd, "top0.9", 0.7, 0.9)[0])
+
+
+def test_nucleus_lp_apart_keeps_one_entry_fewer_and_more():
+    """The four quarters at p = 0.5 keep two (1/4 / 1/2); one fewer kept
+    gives log(1/4 / 1/4) = 0 for the first, one more log(1/4 / 3/4); the
+    second quarter is not kept with one fewer (-1e30)."""
+    quarters = _nucleus_row(20, [3, 6, 11, 17])
+    assert int(chip_smoke.modified_kept(quarters, "top0.5", 1.0)[0]) == 2
+    got = chip_smoke.nucleus_lp_apart(quarters, "top0.5", 1.0, torch.tensor([3]))
+    torch.testing.assert_close(got, torch.tensor([[0.0, float(torch.log(torch.tensor(1 / 3)))]]))
+    second = chip_smoke.nucleus_lp_apart(quarters, "top0.5", 1.0, torch.tensor([6]))
+    assert second[0, 0] == -1e30 and torch.isclose(second[0, 1], torch.log(torch.tensor(1 / 3)))
+
+
+def test_near_p_counts_rows_the_plain_rounding_put_across_p():
+    """Cutoff sums (before, at; then their exact values): within 4 ulps of p
+    in either; or the rounded sum at the cut 10 ulps above p while its exact
+    value lies below (the plain version's rounding alone decided); a row
+    clear of p is not near."""
+    p, ulp = 0.9, float(np.spacing(np.float32(0.9)))
+    p32 = float(np.float32(p))
+    rows = torch.tensor([
+        [p32 - 0.01, p32 + 2 * ulp, p32 - 0.01, p32 + 2 * ulp],  # within 4 ulps
+        [p32 - 0.01, p32 + 10 * ulp, p32 - 0.01, p32 - 10 * ulp],  # rounding crossed p
+        [p32 - 0.01, p32 + 0.01, p32 - 0.01, p32 + 0.01],  # clear
+    ], dtype=torch.float64)
+    assert chip_smoke.near_p(rows, p).tolist() == [True, True, False]
+    assert chip_smoke.near_p(rows[:, :2], p).tolist() == [True, False, False]
