@@ -15,7 +15,10 @@
 # at head widths 32 and 13 and in the kv mode, the keyed draw of each slot
 # of a shared layer, and K9's top-k candidates and nucleus cut (ties at the
 # k-th, the ban among the candidates, the cut's comparison, the equal-p group
-# taken by index, the noise of a kept group). Each mutant is a copy of the
+# taken by index, the noise of a kept group), and K9's held-path entry rule
+# (its margin gone or unscaled, one u more skipped) and K4's held diverse
+# rows (a penalised entry in a thread's best, the last token unmarked). Each
+# mutant is a copy of the
 # port under build/mutants/<name>/ with sed edits to one CUDA source (or,
 # with run_mutant_cmd, any shell edit run in its csrc/, the wrappers beside
 # it included), reusing the unmutated
@@ -198,8 +201,13 @@ run_mutant k9_nucleus_cutoff_le sample_step.cu 's/    if (m >= top) {/    if (m 
 run_mutant k9_nucleus_equal_p_reverse_index sample_step.cu 's/  int need = (int)jstar;/  int need = (int)(cnt - 1u - jstar);/; s/(key != c.keq || i <= c.icut)/(key != c.keq || i >= c.icut)/' "torch.float32," "$K9M"
 run_mutant k9_kept_group_skips_noise sample_step.cu 's/      if (any) r = philox4x32_10(/      if (false) r = philox4x32_10(/' "torch.float32," "$K9M"
 run_mutant k9_topk_ban_among_candidates sample_step.cu 's/    if (xi > thr \&\& i != ban) cand_insert(xi, k, tv, thr);/    if (xi > thr) cand_insert(xi, k, tv, thr);/; s/if (v\[q\] > thr \&\& u \* UE + q != ban) cand_insert/if (v[q] > thr) cand_insert/' "torch.float32," "$K9M"
-run_mutant k9_gumbel_tempered sample_step.cu 's/        z = logprob(i) + gumbel_eps(philox_word(r, q));/        z = logprob(i) \/ temperature + gumbel_eps(philox_word(r, q));/' "torch.float32," "$K9M"
+run_mutant k9_gumbel_tempered sample_step.cu 's/  const bool tempered = kMode == kRandom \&\& !greedy \&\& temperature != 1.f;/  const bool tempered = !greedy \&\& temperature != 1.f;/; s/          z = logprob(i) + gumbel_eps(philox_word(r, q));/          z = logprob(i) \/ temperature + gumbel_eps(philox_word(r, q));/' "torch.float32," "$K9M"
+run_mutant k9_entry_bound_no_delta sample_step.cu 's/          __expf(amax - z_ref + (0x1p-17f + 0x1p-21f \* (fabsf(z_ref) + fabsf(amax)))) \* (1.f + 0x1p-14f);/          __expf(amax - z_ref) * (1.f + 0x1p-14f);/' "torch.float32," "$K9M"
+run_mutant k9_entry_bound_no_scale sample_step.cu 's/          __expf(amax - z_ref + (0x1p-17f + 0x1p-21f \* (fabsf(z_ref) + fabsf(amax)))) \* (1.f + 0x1p-14f);/          __expf(amax - z_ref + 0x1p-17f) * (1.f + 0x1p-14f);/' "torch.float32," "$K9M"
+run_mutant k9_entry_kmax_off_by_one sample_step.cu 's/ : 8388606 - (int)kf;/ : 8388607 - (int)kf;/' "torch.float32," "$K9M"
 run_mutant k4_diversity_once_per_occurrence beam_topk.cu 's/  return count > 0 ? c - (float)count \* lambda : c;/  for (int j = 0; j < P; ++j) c = div_s[j] == i ? c - lambda : c; return c;/' "torch.float32," "$K4D"
+run_mutant k4_diverse_penalised_in_threshold beam_topk.cu 's/          if (!((bits >> e) \& 1u)) xfree = fmaxf(xfree, v\[e\]);/          xfree = fmaxf(xfree, v[e]);/' "torch.float32," "$K4D"
+run_mutant k4_diverse_bitmap_misses_last beam_topk.cu 's/    for (int j = tid; j < div_p; j += nt) mark(div_s\[j\]);/    for (int j = tid; j < div_p - 1; j += nt) mark(div_s[j]);/' "torch.float32," "$K4D"
 run_mutant k1_raw_geometry_unrounded box_geometry.cuh 's/  for (int c = 0; c < kRawG; ++c) pos\[c\] = round_to<T>(pair_delta(bi, bj, c));/  for (int c = 0; c < kRawG; ++c) pos[c] = pair_delta(bi, bj, c);/' "torch.bfloat16," "$KRAW"
 run_mutant k9_ss_coin_inverted sample_step.cu 's/  if (!(static_cast<float>(coin_bits >> 8) \* 0x1p-24f < ss_prob)) {/  if (static_cast<float>(coin_bits >> 8) * 0x1p-24f < ss_prob) {/' "torch.float32," "$K9SS"
 run_mutant k9_ss_noise_in_f32_under_bf16 sample_step.cu 's/  return -round_to<__nv_bfloat16>(logf(-round_to<__nv_bfloat16>(logf(u))));/  return -logf(-logf(u));/' "torch.float32," "$K9SS"

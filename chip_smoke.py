@@ -482,7 +482,21 @@ K9_LP_TOL, NUCLEUS_NEAR_ULPS = 1e-6, 4
 NUCLEUS_PATH_TIE = 1e-5
 K9_MODE_CASES = (("top3", 1.0, False), ("top3", 0.7, True), ("top1", 1.0, True), ("top20", 0.7, True),
                  ("top40", 1.0, False), ("top0.9", 0.7, False), ("top0.9", 0.7, True), ("top0.5", 1.0, True),
-                 ("gumbel", 1.0, False), ("gumbel", 0.7, True))
+                 ("gumbel", 1.0, False), ("gumbel", 0.7, True), ("random", 1.0, False), ("random", 0.7, True),
+                 ("greedy", 1.0, True))
+# K9 at NUCLEUS_MAX_VOCAB (the streaming path for random, Gumbel and greedy)
+K9_LONG_CASES = (("top0.9", 0.7, True), ("top0.5", 1.0, False), ("top3", 1.0, True), ("top40", 0.7, True),
+                 ("random", 0.7, True), ("gumbel", 1.0, False), ("greedy", 1.0, True))
+# K9's held path on peaked rows too (logits at scale K9_PEAKED_SCALE)
+K9_HELD_CASES = (("random", 1.0, False), ("random", 0.7, True), ("gumbel", 1.0, False), ("greedy", 1.0, True))
+K9_PEAKED_SCALE = 10.0
+HELD_MAX_THREADS = 320  # csrc/row_softmax.cuh kTopkHeldMaxThreads: K4's and K9's held rows, V <= 320 x 32
+# K9's entry-rule rows (``entry_bound_rows``): a random step at this temperature makes |a| ~ 4,600, where the
+# add's rounding (2.4e-4) passes the rule's fixed margins; the case at T 1 (and Gumbel) tells its bits apart
+K9_BOUND_TEMPERATURE = 0.002
+# K9's operations (csrc/sample_step.cu notes): 40 32-bit multiplies a Philox4x32-10 call (10 rounds of two lo
+# and two hi), at 64 an SM a clock; logf and expf counted at the SFU's 16 an SM a clock (compute capability 9.0)
+PHILOX_MULS, IMUL_PER_SM_CLOCK, SFU_PER_SM_CLOCK = 40, 64, 16
 DIVERSE_LAMBDA_CHECK = 0.3  # K4's kernel check: a lambda whose multiples round apart from repeated subtraction
 # the decode variants' rows of the kernels line: (name, library, entry points, JAX site)
 VARIANT_MODES = (
@@ -751,8 +765,12 @@ def rounding_share(name, out, ref, share_limit: float, far_limit: float = 0.0) -
     the same points: the kernel may differ from it by one ulp on at most
     `share_limit` of the elements (summation order, and a rounding tie in an
     intermediate), and by more than one ulp on at most `far_limit`. A dropped or
-    moved rounding point moves a large share of the elements."""
+    moved rounding point moves a large share of the elements. An empty
+    selection (every rank touched by a penalty) has nothing to hold."""
     ulps = bf16_ulps(out, ref)
+    if ulps.numel() == 0:
+        log(f"[rounding] {name}: no elements")
+        return True
     differ = (ulps > 0).float().mean().item()
     far = (ulps > 1).float().mean().item()
     good = differ <= share_limit and far <= far_limit
@@ -792,6 +810,99 @@ def fault_caught(name, fault, ref, dtype, scale, sum_scale: float = 0.0) -> bool
     log(f"[fault] {name} {str(dtype).split('.')[-1]}: {frac:.3f} of elements outside the tolerance "
         f"(worst err/allowed {ratio.max().item():.1f}) {'caught' if frac > 0 else 'MISSED'}")
     return frac > 0
+
+
+def sm_clock_hz() -> float:
+    """The card's largest SM clock (``nvidia-smi clocks.max.sm``), Hz."""
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, check=True)
+    return float(out.stdout.strip().splitlines()[0]) * 1e6
+
+
+def k9_ops_ms(n: int, vocab: int, logged: int, clock_hz: float, sms: int) -> float:
+    """K9's least time for its operations (random and Gumbel modes, the held
+    path): a Philox call a group of 4 columns, PHILOX_MULS 32-bit multiplies
+    each at IMUL_PER_SM_CLOCK, or its SFU work at SFU_PER_SM_CLOCK (an expf
+    an entry for the log-sum, an __expf a group for its entries' bound, two
+    logf an entry that `logged`), whichever takes longer."""
+    groups = n * -(-vocab // 4)
+    t_mul = PHILOX_MULS * groups / (IMUL_PER_SM_CLOCK * sms * clock_hz)
+    t_sfu = (n * vocab + groups + 2 * logged) / (SFU_PER_SM_CLOCK * sms * clock_hz)
+    return max(t_mul, t_sfu) * 1e3
+
+
+def k9_bound(n: int, vocab: int, dtype, logged: int) -> tuple:
+    """(bound ms, by) of K9's random or Gumbel mode on the card: the larger of
+    its bytes (``k9_bytes``) over the memory rate and ``k9_ops_ms``."""
+    t_bytes = k9_bytes(n, vocab, dtype) / HBM_BYTES_PER_S * 1e3
+    t_ops = k9_ops_ms(n, vocab, logged, sm_clock_hz(),
+                      torch.cuda.get_device_properties(0).multi_processor_count)
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def held_block(units: int, ue: int) -> int:
+    """The threads of a held row of `units` 16-byte vectors of `ue` entries
+    each: 32 entries a thread, rounded up to whole warps."""
+    return -(-(-(-units // (32 // ue))) // 32) * 32
+
+
+def held_threads(vocab: int, esize: int, max_threads: int = HELD_MAX_THREADS) -> int:
+    """row_softmax.cuh held_row_threads: the block of a held row of `vocab`
+    entries of `esize` bytes (``held_block``), 0 if not held (K4's and K9's
+    held paths)."""
+    ue = 16 // esize
+    if vocab % ue:
+        return 0
+    threads = held_block(vocab // ue, ue)
+    return threads if threads <= max_threads else 0
+
+
+def k9_skip_model(logits, c, u, method: str, temperature: float, prev=None, fault: str = ""):
+    """K9's held-path entry rule (csrc/sample_step.cu sample_held_kernel) in
+    PyTorch, for a random or Gumbel step: each warp of the held block (thread
+    t holding 16-byte vectors t, t + nt, ...) draws the z of its largest
+    logit other than the banned one `prev` (the lowest lane's, that lane's
+    first), z_ref is the largest of those z; an entry takes the logs only
+    where 1 - u is not above its group's bound lim = exp(amax - z_ref +
+    delta) (1 + 2^-14), amax the group's largest a (a = c / T for random, c
+    for gumbel), delta = 2^-17 + 2^-21 (|z_ref| + |amax|) (torch.exp for the
+    card's __expf). c: the (banned) f32 log-probs; u: the uniforms (g =
+    -log(-log(u)) for random, as ``gumbel_noise``). `fault` plants one of the
+    mutants of ``chip_mutants.sh``: "no_delta" (delta 0), "no_scale" (delta
+    2^-17) or "kmax" (one more grid point of u skipped: 1 - u + 2^-23 >
+    lim). Returns (the token the rule picks, ties to the lower index; the
+    entries that take the logs, (N, V) bool)."""
+    from sparse_caption_tpu_torch.decoding.sample import divide_by_temperature
+
+    n, vocab = c.shape
+    esize = logits.element_size()
+    ue, nt = 16 // esize, held_threads(vocab, esize)
+    if nt == 0:
+        raise ValueError(f"V={vocab} in {logits.dtype} is not a held row")
+    a = c if method == "gumbel" else divide_by_temperature(c, temperature)
+    z = sample_z(c, method, temperature, u if method == "gumbel" else -torch.log(-torch.log(u)))
+    col = torch.arange(vocab, device=c.device)
+    tid = (col // ue) % nt
+    lane, warp = tid % 32, tid // 32
+    x = logits.float().clone()
+    if prev is not None:
+        x[torch.arange(n, device=c.device), prev.long()] = -float("inf")
+    idx = warp.expand(n, vocab)
+    wx = torch.full((n, nt // 32), -float("inf"), device=c.device).scatter_reduce(1, idx, x, "amax")
+    top = (x == wx.gather(1, idx)) & (x > -float("inf"))
+    order = torch.where(top, lane * vocab + col, vocab * 32)
+    first = torch.full((n, nt // 32), vocab * 32, device=c.device, dtype=order.dtype).scatter_reduce(
+        1, idx, order, "amin")
+    has = first < vocab * 32
+    zw = torch.where(has, z.gather(1, (first % vocab).clamp(max=vocab - 1)), -float("inf"))
+    z_ref = zw.max(1, keepdim=True).values
+    amax = a.view(n, vocab // 4, 4).amax(-1)
+    delta = {"no_delta": 0.0, "no_scale": 2.0 ** -17}.get(fault, 2.0 ** -17 + 2.0 ** -21 * (z_ref.abs() + amax.abs()))
+    lim = torch.exp(amax - z_ref + delta) * (1 + 2.0 ** -14)
+    one_less = 1 - u.double() + (2.0 ** -23 if fault == "kmax" else 0.0)
+    logged = ~(one_less > lim.repeat_interleave(4, 1))
+    token = torch.argmax(torch.where(logged, z, -float("inf")), dim=-1)
+    return token, logged
 
 
 def flops(*pairs) -> dict:
@@ -884,8 +995,8 @@ def check_beam_topk(logits, kw: dict, dtype, tag: str = "", widths=BEAM_WIDTHS) 
     and equal outright in rows whose values agree bit for bit (ties to the
     lower index); the raw log-probs equal K13's output at the kernel's
     indices bit for bit up to width 32 (K4's held path and its scalar path
-    share K13's reduction order; the radix-select variant beyond 32 keeps an
-    online one, and so do the diverse-beam rows: `kw` with div_tokens); in
+    share K13's reduction order, with or without the diverse-beam penalty;
+    the radix-select variant beyond 32 keeps an online one); in
     bf16 the raw log-probs and the untouched values by `rounding_share`.
     Returns (every check passed, the first width's worst element error)."""
     from sparse_caption_tpu_torch.kernels import beam_topk as k4
@@ -925,7 +1036,7 @@ def check_beam_topk(logits, kw: dict, dtype, tag: str = "", widths=BEAM_WIDTHS) 
         log(f"[kernel] {name}: indices differing {int(differ.sum())}/{differ.numel()} (near-ties ok={tie_ok}); "
             f"rows with bit-equal values but other indices {swapped:.5f} (limit {K4_INDEX_SHARE_LIMIT}) "
             f"{'ok' if swapped <= K4_INDEX_SHARE_LIMIT else 'FAIL'}; raw log-probs equal K13's bit for bit={k13_same}")
-        ok &= tie_ok and swapped <= K4_INDEX_SHARE_LIMIT and (k13_same or width > k4.REGISTER_K or div is not None)
+        ok &= tie_ok and swapped <= K4_INDEX_SHARE_LIMIT and (k13_same or width > k4.REGISTER_K)
         if dtype == torch.bfloat16:
             ok &= rounding_share(f"{name} raw log-probs", raw, torch.log_softmax(logits, dim=-1).gather(1, ik),
                                  K13_SHARE_LIMIT, K13_FAR_LIMIT)
@@ -2783,9 +2894,10 @@ def path_topk_times(model, batch, results: dict, label: str) -> None:
     del calls
 
 
-def profile_window(label: str, fn) -> None:
+def profile_window(label: str, fn) -> tuple:
     """Device time by kernel over one call of `fn` (torch.profiler), and the
-    device's busy share of that same window's wall time."""
+    device's busy share of that same window's wall time. Returns (device
+    ms, wall ms, {kernel: device ms})."""
     from torch.profiler import ProfilerActivity, profile, schedule
 
     # `fn` has run before (each caller's timed steps); step 1 warms the
@@ -2823,6 +2935,7 @@ def profile_window(label: str, fn) -> None:
     log(f"[profile] {label}: host self time {sum(e.self_cpu_time_total for e in host) / 1e3:.1f} ms, top ops:")
     for e in sorted(host, key=lambda e: -e.self_cpu_time_total)[:8]:
         log(f"[profile]   host {e.self_cpu_time_total / 1e3:9.2f} ms  x{e.count:<6d} {e.key[:80]}")
+    return total_ms, wall_ms, {e.key: dev_us(e) / 1e3 for e in events}
 
 
 @contextlib.contextmanager
@@ -3316,10 +3429,16 @@ def check_scst_kernels(gen, results: dict) -> bool:
         lps = torch.log_softmax(logits, dim=-1)
         return lps.gather(1, torch.argmax(lps + g, dim=-1, keepdim=True))
 
-    record("sample_step", k9_err,
-           *turns_ms(lambda: k9.sample_step(logits, prev, u, seq, lp, step, key=key, site=SAMPLE_SITE),
-                     lambda: k9.sample_step_plain(logits, prev, u, seq, lp, step, key=key, site=SAMPLE_SITE),
-                     library), k9_bytes(n, vocab, torch.float32), flops((torch.float32, 8 * n * vocab)))
+    k9_times = turns_ms(lambda: k9.sample_step(logits, prev, u, seq, lp, step, key=key, site=SAMPLE_SITE),
+                        lambda: k9.sample_step_plain(logits, prev, u, seq, lp, step, key=key, site=SAMPLE_SITE),
+                        library)
+    _, logged = k9_skip_model(logits, k9.sample_logprobs(logits, prev, False),
+                              k9.keyed_uniform(key, SAMPLE_SITE, step, n, vocab, dev), "random", 1.0)
+    bnd, by = k9_bound(n, vocab, torch.float32, int(logged.sum()))
+    log(f"[kernel] sample_step f32: ms={k9_times[0]:.4f} plain_ms={k9_times[1]:.4f} library_ms={k9_times[2]:.4f} "
+        f"bound_ms={bnd:.4f} ({by}: {int(logged.sum())} entries take the logs; held windows in turns)")
+    results["sample_step"] = dict(max_abs_err=k9_err, ms=k9_times[0], plain_ms=k9_times[1], library_ms=k9_times[2],
+                                  bound_ms=bnd, bound_by=by)
 
     # K10: 64 images x 15 captions of 17 tokens against 5 refs each
     b = 64
@@ -4911,19 +5030,27 @@ def sample_z(c, method: str, temperature: float, noise):
 
     if method == "gumbel":
         return c + -torch.log(-torch.log(noise + 1e-20) + 1e-20)
+    if method == "greedy":
+        return c
     if method == "random":
         return divide_by_temperature(c, temperature) + noise
     return modified_sample_logits(c, method, temperature) + noise
 
 
-def sample_mode_cases(logits, prev, unfinished, cases, lp_errs: dict, label: str, faults: bool = False) -> bool:
+def sample_mode_cases(logits, prev, unfinished, cases, lp_errs: dict, label: str, faults: bool = False,
+                      held_lp: bool = False) -> bool:
     """K9's wrapper against its plain version on one set of rows, each case
     (method, temperature, ban) of `cases` drawing the same keyed bits: tokens
     equal but for near-ties of the draw and nucleus rows next to p; chosen
     log-probs within K9_LP_TOL (1 + |lp|); the latch and seq equal. With
-    `faults`, the planted faults (top-k ties dropped, the nucleus's log-probs
-    not renormalised, the Gumbel method tempered). lp_errs: each mode's
-    largest chosen log-prob error, updated."""
+    `held_lp` (bf16 rows on the held path, whose log-probs are K13's: the
+    peaked rows, where a dominant entry's log-prob lies near 0 and sums of
+    its row's small terms in two orders round it apart by many bf16 ulps),
+    the chosen log-probs of the live rows equal K13's at their tokens bit for
+    bit, their distance from the plain version's logged. With `faults`, the
+    planted faults (top-k ties dropped, the
+    nucleus's log-probs not renormalised, the Gumbel method tempered).
+    lp_errs: each mode's largest chosen log-prob error, updated."""
     from sparse_caption_tpu_torch.decoding.sample import divide_by_temperature
     from sparse_caption_tpu_torch.kernels import sample_step as k9
     from sparse_caption_tpu_torch.ops.rng import SAMPLE_SITE
@@ -4964,6 +5091,18 @@ def sample_mode_cases(logits, prev, unfinished, cases, lp_errs: dict, label: str
         lp_ref = pl[:, step].abs()[same]
         ratio = lp_err / (K9_LP_TOL * (1 + lp_ref))
         lp_ok = bool((ratio <= 1).all())
+        rule = f"tol {K9_LP_TOL} (1 + |lp|)"
+        if held_lp and logits.dtype == torch.bfloat16:
+            rule = "K13's bits at the live rows' tokens"
+            from sparse_caption_tpu_torch.kernels import vocab_log_softmax as k13
+
+            y13 = k13.vocab_log_softmax(logits).float().gather(1, kn.long()[:, None])[:, 0]
+            lp_ok = bool(torch.equal(kl[unfinished, step], y13[unfinished]))
+            apart = same & (kl[:, step] != pl[:, step])
+            ulps = bf16_ulps(kl[apart, step], pl[apart, step]).max().item() if apart.any() else 0.0
+            log(f"[kernel] sample_step {method} {label}: chosen log-probs equal K13's bit for bit={lp_ok}; against "
+                f"the plain version's (torch.log_softmax's order) {int(apart.sum())} of {int(same.sum())} apart, "
+                f"by at most {lp_all[same].max().item():.3e} ({ulps:.0f} bf16 ulps)")
         worst = int(lp_err.argmax())
         lp_errs[mode] = max(lp_errs.get(mode, 0.0), lp_err[worst].item())
         rest = bool(torch.equal(ku[same], pu[same]) and torch.equal(ks[same], ps[same]))
@@ -4975,7 +5114,7 @@ def sample_mode_cases(logits, prev, unfinished, cases, lp_errs: dict, label: str
             f"{int(near.sum())} (tokens differing among them {int((differ & near).sum())}, kept sets one entry "
             f"apart {int((apart & same).sum())}); chosen log-prob "
             f"max_abs_err={lp_err[worst].item():.3e} at |lp| {lp_ref[worst].item():.3f}, worst err/allowed "
-            f"{ratio.max().item():.3f} (tol {K9_LP_TOL} (1 + |lp|)) {'ok' if lp_ok else 'FAIL'}; "
+            f"{ratio.max().item():.3f} ({rule}) {'ok' if lp_ok else 'FAIL'}; "
             f"latch and seq equal={rest}")
         ok &= tokens_ok and lp_ok and rest
         if not faults:
@@ -5042,8 +5181,8 @@ def modified_kept(c, method: str, temperature: float):
     return (modified_sample_logits(c, method, temperature) > -1e29).sum(-1)
 
 
-def sample_rows(gen, n: int, vocab: int, dtype):
-    """(logits, prev, unfinished) for K9's checks: logits at scale 3, a row of
+def sample_rows(gen, n: int, vocab: int, dtype, scale: float = 3.0):
+    """(logits, prev, unfinished) for K9's checks: logits at `scale`, a row of
     equal logits (every entry ties), a row of eight equal top logits (top-3's
     k-th value ties), a row of four equal logits carrying the row
     (probabilities of 1/4 exactly, and at p = 0.5 the cutoff sum 0.5 equals p),
@@ -5051,12 +5190,12 @@ def sample_rows(gen, n: int, vocab: int, dtype):
     whose banned token is its largest logit and one whose banned token is its
     second (a ban inside the top k); the other fed tokens at random."""
     dev = torch.device("cuda")
-    logits = torch.randn(n, vocab, generator=gen, device=dev) * 3.0
+    logits = torch.randn(n, vocab, generator=gen, device=dev) * scale
     logits[0] = 0
-    logits[1, :8] = 12
+    logits[1, :8] = 4 * scale
     logits[2] = -1000
     logits[2, :4] = 10
-    logits[3] *= 0.05 / 3.0
+    logits[3] *= 0.05 / scale
     prev = torch.randint(min(4, vocab - 1), vocab, (n,), generator=gen, device=dev, dtype=torch.int32)
     top2 = torch.topk(logits[4:6], 2, dim=-1).indices
     prev[4], prev[5] = top2[0, 0], top2[1, 1]
@@ -5064,20 +5203,87 @@ def sample_rows(gen, n: int, vocab: int, dtype):
     return logits.to(dtype), prev, unfinished
 
 
+def entry_bound_rows(n: int, vocab: int, dtype, key: int, site: int, t: int, bump: float) -> tuple:
+    """Rows on which K9's entry rule decides the token: each row's logits are
+    0 but `bump` at j, the column whose keyed u at step t lies nearest 1
+    (1 - u about 1e-4 over 10,000 columns, g about 9). j wins every row (at
+    bump 0.25 and T = K9_BOUND_TEMPERATURE its a lies 125 above the others',
+    with |a| about 4,500; at bump 25 and T 1, 25), its warp draws z_ref =
+    z_j, and its own bound lim lies within a few 1e-3 of its 1 - u: a margin
+    below the add's rounding at |a| 4,500, or one grid point of u more
+    skipped, skips the winner on some rows and moves the token. Returns
+    (logits (n, vocab) in dtype, j (n,))."""
+    from sparse_caption_tpu_torch.kernels import sample_step as k9
+
+    dev = torch.device("cuda")
+    j = torch.argmax(k9.keyed_uniform(key, site, t, n, vocab, dev), dim=1)
+    logits = torch.zeros(n, vocab, device=dev)
+    logits[torch.arange(n, device=dev), j] = bump
+    return logits.to(dtype), j
+
+
+def check_entry_bound(dtype) -> bool:
+    """K9's held path where its entry rule decides (``entry_bound_rows``):
+    random at T = K9_BOUND_TEMPERATURE (bump 0.25), random and Gumbel at T 1
+    (bump 25), 2,048 rows at V = 10,000 in `dtype`: the kernel's and the
+    plain version's tokens are j on every row. The rows must tell each
+    mutant of the rule apart: ``k9_skip_model`` with the fault planted (no
+    delta, no scaled term, one u more skipped) moves the token on some row
+    of some case (the counts logged)."""
+    from sparse_caption_tpu_torch.kernels import sample_step as k9
+    from sparse_caption_tpu_torch.ops.rng import SAMPLE_SITE
+
+    dev = torch.device("cuda")
+    n, vocab, key, t = 2048, PAPER["vocab_size"], 0x5EED5EED12345, 7
+    ok, moved = True, {f: 0 for f in ("no_delta", "no_scale", "kmax")}
+    prev = torch.zeros(n, dtype=torch.int32, device=dev)
+    u = k9.keyed_uniform(key, SAMPLE_SITE, t, n, vocab, dev)
+    for method, temperature, bump in (("random", K9_BOUND_TEMPERATURE, 0.25), ("random", 1.0, 25.0),
+                                      ("gumbel", 1.0, 25.0)):
+        logits, want = entry_bound_rows(n, vocab, dtype, key, SAMPLE_SITE, t, bump)
+        toks = {}
+        for impl, fn in (("kernel", k9.sample_step), ("plain", k9.sample_step_plain)):
+            seq = torch.zeros(n, MAX_LEN, dtype=torch.int32, device=dev)
+            toks[impl] = fn(logits, prev, torch.ones(n, dtype=torch.bool, device=dev), seq,
+                            torch.zeros(n, MAX_LEN, device=dev), t, key=key, site=SAMPLE_SITE,
+                            temperature=temperature, sample_method=method).long()
+        good = bool(torch.equal(toks["kernel"], want) and torch.equal(toks["plain"], want))
+        c = k9.sample_logprobs(logits, prev, False)
+        faults = {}
+        for f in moved:
+            token, _ = k9_skip_model(logits, c, u, method, temperature, fault=f)
+            faults[f] = int((token != want).sum())
+            moved[f] += faults[f]
+        log(f"[kernel] sample_step {method} T={temperature} {str(dtype).split('.')[-1]} entry-bound rows (step {t}, "
+            f"{n} rows, bump {bump}): kernel rows off j {int((toks['kernel'] != want).sum())}, plain "
+            f"{int((toks['plain'] != want).sum())}; rows a planted fault moves (model) {faults} "
+            f"{'ok' if good else 'FAIL'}")
+        ok &= good
+    powered = all(v > 0 for v in moved.values())
+    log(f"[kernel] sample_step entry-bound rows tell every planted fault apart: {powered} {moved}")
+    return ok and powered
+
+
 def check_sample_modes(gen, results: dict, timing: bool = True) -> bool:
-    """K9's Gumbel, top-k and nucleus modes against their plain versions on
-    the card, drawing the same keyed bits (``sample_mode_cases``): f32 at the
-    SCST sampling shape (64 x 15 rows) and bf16 at the sampling-serve shape
-    (2048 x 5), each case of K9_MODE_CASES (top-k's three instances: k 1 and
-    3 (4 candidates a thread), 20 (32), 40 and k = V (the radix select); the
-    nucleus at p 0.9 and 0.5) on ``sample_rows`` (ties everywhere, ties at the
-    k-th, four quarters at p = 0.5, a flat row, a ban inside the top k); then
-    ACORT's radix vocabulary (V = 771, f32 and bf16, every case with k = 771)
-    and the nucleus and top-k at V = NUCLEUS_MAX_VOCAB (f32, 256 rows: the
-    most shared memory a row may take). A planted fault each at V = 10,000
-    (top-k ties dropped, the nucleus's log-probs not renormalised, the Gumbel
-    method tempered). The kernel's shared-memory sizes against the wrapper's.
-    Times in bf16 at 2048 x 5."""
+    """K9's modes against their plain versions on the card, drawing the same
+    keyed bits (``sample_mode_cases``): f32 at the SCST sampling shape (64 x
+    15 rows) and bf16 at the sampling-serve shape (2048 x 5), each case of
+    K9_MODE_CASES (top-k's three instances: k 1 and 3 (4 candidates a
+    thread), 20 (32), 40 and k = V (the radix select); the nucleus at p 0.9
+    and 0.5; Gumbel, random and greedy on the held path) on ``sample_rows``
+    (ties everywhere, ties at the k-th, four quarters at p = 0.5, a flat row,
+    a ban inside the top k); the held path's cases K9_HELD_CASES on peaked
+    rows (scale K9_PEAKED_SCALE: few entries take the logs, the share logged
+    from ``k9_skip_model``) and on rows where its entry rule decides the
+    token (``check_entry_bound``); then ACORT's radix vocabulary (V = 771,
+    f32 and bf16, every case with k = 771: the streaming path) and V =
+    NUCLEUS_MAX_VOCAB (f32 and bf16, 256 rows, K9_LONG_CASES: the most
+    shared memory a row may take; random, Gumbel and greedy on the
+    streaming path). A planted fault each at V = 10,000 (top-k ties dropped,
+    the nucleus's log-probs not renormalised, the Gumbel method tempered).
+    The kernel's shared-memory sizes against the wrapper's. Times in bf16 at
+    2048 x 5; the Gumbel mode's bound counts its operations on this run's
+    rows (the entries the rule lets take the logs)."""
     from sparse_caption_tpu_torch.kernels import sample_step as k9
     from sparse_caption_tpu_torch.ops.rng import SAMPLE_SITE
 
@@ -5089,12 +5295,23 @@ def check_sample_modes(gen, results: dict, timing: bool = True) -> bool:
                      [(vocab, modes["nucleus"], 0), (vocab, modes["topk"], 3), (vocab, modes["topk"], 33),
                       (k9.NUCLEUS_MAX_VOCAB, modes["nucleus"], 0), (vocab, modes["gumbel"], 0)])
     for dtype, v, n in ((torch.float32, 771, 960), (torch.bfloat16, 771, 960),
-                        (torch.float32, k9.NUCLEUS_MAX_VOCAB, 256)):
+                        (torch.float32, k9.NUCLEUS_MAX_VOCAB, 256), (torch.bfloat16, k9.NUCLEUS_MAX_VOCAB, 256)):
         logits, prev, unfinished = sample_rows(gen, n, v, dtype)
-        cases = K9_MODE_CASES + ((f"top{v}", 1.0, True),) if v == 771 else \
-            (("top0.9", 0.7, True), ("top0.5", 1.0, False), ("top3", 1.0, True), ("top40", 0.7, True))
+        cases = K9_MODE_CASES + ((f"top{v}", 1.0, True),) if v == 771 else K9_LONG_CASES
         ok &= sample_mode_cases(logits, prev, unfinished, cases, {}, f"{str(dtype).split('.')[-1]} V={v}")
         del logits
+    for dtype, n in ((torch.float32, SCST_BATCHES[-1] * SCST_SAMPLES), (torch.bfloat16, BIG_BATCH * SAMPLE_ROWS)):
+        dname = str(dtype).split(".")[-1]
+        logits, prev, unfinished = sample_rows(gen, n, vocab, dtype, scale=K9_PEAKED_SCALE)
+        ok &= sample_mode_cases(logits, prev, unfinished, K9_HELD_CASES, {}, f"{dname} peaked", held_lp=True)
+        for method, temperature, ban in K9_HELD_CASES[:3]:
+            c = k9.sample_logprobs(logits, prev, ban)
+            _, logged = k9_skip_model(logits, c, k9.keyed_uniform(key, SAMPLE_SITE, step, n, vocab, dev),
+                                      method, temperature, prev if ban else None)
+            log(f"[kernel] sample_step {method} T={temperature}{' ban' if ban else ''} {dname} peaked: on the held "
+                f"path {logged.float().mean().item():.6f} of the entries take the logs")
+        del logits
+        ok &= check_entry_bound(dtype)
     for dtype, n in ((torch.float32, SCST_BATCHES[-1] * SCST_SAMPLES), (torch.bfloat16, BIG_BATCH * SAMPLE_ROWS)):
         dname = str(dtype).split(".")[-1]
         logits, prev, unfinished = sample_rows(gen, n, vocab, dtype)
@@ -5106,7 +5323,10 @@ def check_sample_modes(gen, results: dict, timing: bool = True) -> bool:
         u = unfinished.clone()
         # the Gumbel method's noise with sample.py's eps, formed once outside the timed call (as the random
         # mode's library yardstick takes its g)
-        g_eps = -torch.log(-torch.log(k9.keyed_uniform(key, SAMPLE_SITE, step, n, vocab, dev) + 1e-20) + 1e-20)
+        u_keyed = k9.keyed_uniform(key, SAMPLE_SITE, step, n, vocab, dev)
+        g_eps = -torch.log(-torch.log(u_keyed + 1e-20) + 1e-20)
+        _, logged = k9_skip_model(logits, k9.sample_logprobs(logits, prev, False), u_keyed, "gumbel", 1.0)
+        del u_keyed
 
         def gumbel_library():
             lps = torch.log_softmax(logits, dim=-1)
@@ -5124,12 +5344,15 @@ def check_sample_modes(gen, results: dict, timing: bool = True) -> bool:
             ms, plain_ms, lib_ms = turns_ms(lambda kw=kw: k9.sample_step(logits, prev, u, seq, lp, step, **kw),
                                             lambda kw=kw: k9.sample_step_plain(logits, prev, u, seq, lp, step, **kw),
                                             libraries[label])
-            bnd, by = bound_ms(k9_bytes(n, vocab, dtype), flops((torch.float32, 8 * n * vocab)))
+            if mode == "gumbel":
+                bnd, by = k9_bound(n, vocab, dtype, int(logged.sum()))
+            else:
+                bnd, by = bound_ms(k9_bytes(n, vocab, dtype), flops((torch.float32, 8 * n * vocab)))
             log(f"[kernel] sample_step {label} {dname} at {n} rows: ms={ms:.4f} plain_ms={plain_ms:.4f} "
                 f"library_ms={lib_ms:.4f} bound_ms={bnd:.4f} ({by}; held windows in turns)")
             results[f"sample_step {label}"] = dict(max_abs_err=lp_errs[mode], ms=ms, plain_ms=plain_ms,
                                                    library_ms=lib_ms, bound_ms=bnd, bound_by=by)
-        del g_eps
+        del g_eps, logged
     return ok
 
 
@@ -5142,35 +5365,60 @@ def nucleus_library(logits, p: float, temperature: float):
     return order.gather(1, torch.multinomial(sorted_p * keep, 1))
 
 
+def diverse_rows(gen, images: int, width: int, p: int, vocab: int, dtype) -> tuple:
+    """(logits, div_tokens) for K4's diverse checks: each image's p
+    earlier-group tokens, its first word chosen twice (three times in every
+    other image). Even images: the repeated word leads its rows (6.0) and the
+    last token follows (5.5), so that penalised entries win; odd images: every
+    token 0.1 above the row's largest logit, so that the penalties drop them
+    below unpenalised entries (a penalised value left in a thread's best, or
+    a token left unmarked, moves the threshold or the value)."""
+    dev = torch.device("cuda")
+    n = images * width
+    logits = torch.randn(n, vocab, generator=gen, device=dev)
+    toks = torch.randint(4, vocab, (images, p), generator=gen, device=dev, dtype=torch.int32)
+    toks[:, 1] = toks[:, 0]  # a word that two earlier beams chose
+    toks[::2, 2 % p] = toks[::2, 0]  # and three, in every other image
+    rows = torch.arange(n, device=dev)
+    per_row = toks.repeat_interleave(width, 0).long()
+    even = (rows // width) % 2 == 0
+    top = logits.max(1).values
+    for j in range(p):
+        logits[rows, per_row[:, j]] = torch.where(even, logits[rows, per_row[:, j]], top + 0.1)
+    logits[rows[even], per_row[even, p - 1]] = 5.5
+    logits[rows[even], per_row[even, 0]] = 6.0
+    return logits.to(dtype), toks
+
+
 def check_diverse_topk(gen, results: dict, timing: bool = True) -> bool:
     """K4 with the diverse-beam penalty against its plain version on the
-    card: 2048 images x 2 rows (the third group of a beam-6 / 3-group
-    search, 4 earlier-group tokens an image, one of them repeated) at k 2
-    (the register path) and 100 images x 40 rows at k 40 (the radix select),
-    f32 and bf16, every other penalty on, lambda DIVERSE_LAMBDA_CHECK
-    (``check_beam_topk``, the penalised entries as touched ones); the
-    penalised winners' values equal raw - count x lambda bit for bit (the
-    count first; lambda subtracted once an occurrence rounds apart, counted
-    as the planted fault). Times in bf16 at 2048 x 2."""
+    card, on ``diverse_rows``: 2048 images x 2 rows (the third group of a
+    beam-6 / 3-group search, 4 earlier-group tokens an image) at k 2 and 512
+    x 2 with 256 tokens an image (the held path), 256 x 2 at V = 771 (the
+    scalar path) and 100 images x 40 rows at k 40 (the radix select), f32
+    and bf16, every other penalty on, lambda DIVERSE_LAMBDA_CHECK
+    (``check_beam_topk``, the penalised entries as touched ones; the raw
+    log-probs K13's bit for bit up to k 32); the penalised winners' values
+    equal raw - count x lambda bit for bit (the count first; lambda
+    subtracted once an occurrence rounds apart, counted as the planted
+    fault). Times in bf16 at 2048 x 2."""
     from sparse_caption_tpu_torch.kernels import beam_topk as k4
 
-    dev, ok, vocab, lam = torch.device("cuda"), True, PAPER["vocab_size"], DIVERSE_LAMBDA_CHECK
+    ok, vocab, lam = True, PAPER["vocab_size"], DIVERSE_LAMBDA_CHECK
     for dtype in (torch.float32, torch.bfloat16):
         dname = str(dtype).split(".")[-1]
-        for images, width, p in ((BIG_BATCH, DIVERSE["beam_size"] // DIVERSE["group_size"], 4), (100, 40, 6)):
+        for images, width, p, v in ((BIG_BATCH, DIVERSE["beam_size"] // DIVERSE["group_size"], 4, vocab),
+                                    (512, 2, k4.MAX_DIVERSITY, vocab), (256, 2, 4, ACORT_BASE["vocab_size"]),
+                                    (100, 40, 6, vocab)):
             n = images * width
-            logits = torch.randn(n, vocab, generator=gen, device=dev).to(dtype)
-            toks = torch.randint(4, vocab, (images, p), generator=gen, device=dev, dtype=torch.int32)
-            toks[:, 1] = toks[:, 0]  # a word that two earlier beams chose
-            toks[::2, 2] = toks[::2, 0]  # and three, in every other image
-            # the repeated words lead their rows, so that penalised entries are among the winners
-            rows = torch.arange(n, device=dev)
-            logits[rows, toks.repeat_interleave(width, 0)[:, 0].long()] = 6.0
-            kw = dict(k4_constraints(gen, n, vocab), div_tokens=toks, div_lambda=lam)
-            good, err = check_beam_topk(logits, kw, dtype, " diverse", widths=(width,))
+            logits, toks = diverse_rows(gen, images, width, p, v, dtype)
+            kw = dict(k4_constraints(gen, n, v), div_tokens=toks, div_lambda=lam)
+            tag = f" diverse P={p}" + (f" V={v}" if v != vocab else "")
+            good, err = check_beam_topk(logits, kw, dtype, tag, widths=(width,))
             ok &= good
             vals, idx, raw = k4.beam_topk(logits, width, **kw)
-            counts = k4.diversity_counts(toks, vocab).repeat_interleave(width, 0).gather(1, idx.long())
+            pvals, pidx, _ = k4.beam_topk_plain(logits, width, **kw)
+            counts = k4.diversity_counts(toks, v).repeat_interleave(width, 0).gather(1, idx.long())
             other = (idx == kw["ban_token"][:, None]) | (kw["ban_eos"][:, None] & (idx == kw["eos_id"])) | \
                 (idx == kw["unk_id"])
             pen = (counts > 0) & ~other
@@ -5180,15 +5428,16 @@ def check_diverse_topk(gen, results: dict, timing: bool = True) -> bool:
                 once = torch.where(counts > _, once - lam, once)
             exact = bool(torch.equal(vals[pen], want[pen]))
             apart = int((once[pen] != want[pen]).sum())
-            log(f"[kernel] beam_topk diverse k={width} {dname}: {int(pen.sum())} penalised winners, values = raw - "
+            log(f"[kernel] beam_topk{tag} k={width} {dname}: {int(pen.sum())} penalised winners, values = raw - "
                 f"count x lambda bit for bit={exact}; lambda subtracted once an occurrence differs at {apart} of them "
-                f"{'caught' if apart else 'MISSED'}")
+                f"{'caught' if apart else 'MISSED'}; values and indices equal the plain version's bit for bit in "
+                f"{int(((vals == pvals) & (idx == pidx)).all(1).sum())} of {n} rows")
             ok &= exact and apart > 0
-            if timing and dtype == torch.bfloat16 and width <= k4.REGISTER_K:
+            if timing and dtype == torch.bfloat16 and width <= k4.REGISTER_K and p == 4 and v == vocab:
                 ms, plain_ms, lib_ms = turns_ms(lambda: k4.beam_topk(logits, width, **kw),
                                                 lambda: k4.beam_topk_plain(logits, width, **kw),
                                                 lambda: torch.topk(torch.log_softmax(logits, dim=-1), width))
-                bnd, by = bound_ms(k4_bytes(n, vocab, width, dtype, p), flops((torch.float32, 4 * n * vocab)))
+                bnd, by = bound_ms(k4_bytes(n, v, width, dtype, p), flops((torch.float32, 4 * n * v)))
                 log(f"[kernel] beam_topk diverse {dname} at {n} rows: ms={ms:.4f} plain_ms={plain_ms:.4f} "
                     f"library_ms={lib_ms:.4f} bound_ms={bnd:.4f} ({by}; held windows in turns)")
                 results["beam_topk diverse"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
@@ -6175,8 +6424,10 @@ def check_slot_draws(gen, results: dict, timing: bool = True) -> bool:
     (``slot_site(site, k)`` at the layer's k-th call) bit for bit, the
     slots' products differing; the shared weights' and logits' gradients
     (each the sum over its calls) against the plain version's autograd.
-    Fault planted: every slot under slot 0's draw. Timed: the keyed set, fwd
-    + bwd, against the plain version."""
+    Fault planted: every slot under slot 0's draw. Timed: the keyed set's
+    forward and backward launches alone, against the plain version's
+    autograd; beside them the set through autograd (which adds the sums of a
+    shared layer's gradients over its calls)."""
     from sparse_caption_tpu_torch.kernels import KERNELS
     from sparse_caption_tpu_torch.kernels import supermask as k5
     from sparse_caption_tpu_torch.ops.masked import mask_set
@@ -6229,20 +6480,35 @@ def check_slot_draws(gen, results: dict, timing: bool = True) -> bool:
             draws.append(stream.for_slot(k).mask_draw(m, m.weight.shape, "cuda"))
         ws, ms = [m.weight for m in calls], [m.mask for m in calls]
 
-        def keyed():
+        bit_units = k5.unit_offsets([w.numel() for w in ws])[:-1]
+
+        def launches():  # K5's keyed forward and backward launches alone, a gradient per call
+            _, bits = k5.launch_forward(ws, ms, draws, k5.MODES["keyed"])
+            k5.launch_backward(gs, ws, ms, bits, bit_units, k5.MODES["keyed"], False)
+
+        def keyed():  # through autograd, which also sums a shared layer's gradients over its calls
             torch.autograd.grad(k5.supermask_weights(ws, ms, draws, "keyed"), params, gs)
 
         def plain():
             torch.autograd.grad([k5.supermask_weight_plain(w, m, d, "keyed") for w, m, d in zip(ws, ms, draws)],
                                 params, gs)
 
-        t_k, t_p = turns_ms(keyed, plain)
+        t_k, t_auto, t_p = turns_ms(launches, keyed, plain)
         n_set = sum(w.numel() for w in ws)
         bnd, by = bound_ms(k5_bytes(n_set, torch.float32, mode="keyed"), {})
-        log(f"[kernel] supermask keyed slots f32 ({n_set} weights, fwd + bwd): ms={t_k:.4f} plain_ms={t_p:.4f} "
-            f"library_ms=null bound_ms={bnd:.4f} ({by}; held windows in turns)")
+        log(f"[kernel] supermask keyed slots f32 ({n_set} weights, fwd + bwd launches): ms={t_k:.4f} "
+            f"plain_ms={t_p:.4f} library_ms=null bound_ms={bnd:.4f} ({by}; held windows in turns); through "
+            f"autograd {t_auto:.4f} ms, {t_auto - t_k:.4f} ms more")
+        # where the set's time through autograd goes: its device kernels (K5's and the rest: autograd's sums of a
+        # shared layer's gradients, the Function's glue) against the wall time of the same profiled call
+        dev_ms, wall_ms, by_kernel = profile_window("supermask keyed slots through autograd, f32", keyed)
+        k5_ms = sum(ms for name, ms in by_kernel.items() if "supermask" in name)
+        log(f"[kernel] supermask keyed slots through autograd, one profiled call: device kernels {dev_ms:.4f} ms "
+            f"(K5 {k5_ms:.4f}, the rest {dev_ms - k5_ms:.4f} in {sum(1 for n in by_kernel if 'supermask' not in n)} "
+            f"kernel kinds) in {wall_ms:.4f} ms wall; the host's share {1 - dev_ms / wall_ms:.1%}")
         results["supermask keyed slots"] = dict(max_abs_err=err, ms=t_k, plain_ms=t_p, library_ms=None, bound_ms=bnd,
-                                                bound_by=by)
+                                                bound_by=by, autograd_ms=t_auto, autograd_device_ms=dev_ms,
+                                                autograd_k5_ms=k5_ms, autograd_wall_ms=wall_ms)
     del model, calls, got, plain_ws, fault_ws
     return ok
 

@@ -1,20 +1,24 @@
 """Device times of K9's modes (random, greedy, Gumbel, top-k at k 3 and 20,
-nucleus at p 0.9 / T 0.7, scheduled sampling) and of K1, K1's train variant
-and K7 on the trig geometry, in the tree of the working directory, so that
-two commits can be timed on one card in one run (NVIDIA H100; imports no JAX).
+nucleus at p 0.9 / T 0.7, scheduled sampling), of K4 on its held rows and
+its diverse rows, and of K1, K1's train variant and K7 on the trig
+geometry, in the tree of the working directory, so that two commits can be
+timed on one card in one run (NVIDIA H100; imports no JAX).
 
-    python3 kernel_ab_times.py build <tag> [k9]          # build the libraries (ptxas report)
-    python3 kernel_ab_times.py time <tag> [k9 [regex]]   # one JSON line of device ms
+    python3 kernel_ab_times.py build <tag> [k9|decode]          # build the libraries (ptxas report)
+    python3 kernel_ab_times.py time <tag> [k9|decode [regex]]   # one JSON line of device ms
 
-With `k9` only K9's library is built and timed (with a regex, only the
-K9 modes whose names match it: random, greedy, gumbel, top3, top20, top0.9,
-ss). Run it from the root of
+With `k9` only K9's library is built and timed, with `decode` K9's and
+K4's (with a regex, only the rows whose names match it: K9 random, greedy,
+gumbel, top3, top20, top0.9, ss; K4 held, diverse). Run it from the root of
 each tree (for the parent: `git archive` unpacked into an ignored
 directory, e.g. build/parent, and `python3 ../../kernel_ab_times.py ...`
 from there), in the order parent, change, change, parent. Times are
 chip_smoke.turns_ms medians (5 held windows of 20 calls); K9 at 960 x
-10,000 f32 and 10,240 x 10,000 bf16 (logits at scale 3), K1 at 2048
-images, K1 train and K7 (autograd) at 256, 8 heads, 36 regions, dk 64.
+10,000 f32 and 10,240 x 10,000 bf16 (logits at scale 3), K4 at 10,240 x
+10,000 bf16, k 5 (the serving step) and 2,048 images x 2 rows, 4
+earlier-group tokens an image, lambda 0.5 (the third group of diverse beam
+6 / 3), every constraint on; K1 at 2048 images, K1 train and K7 (autograd)
+at 256, 8 heads, 36 regions, dk 64.
 """
 import json
 import re
@@ -28,14 +32,16 @@ import chip_smoke as c  # noqa: E402
 from sparse_caption_tpu_torch.kernels import _build  # noqa: E402
 
 what, tag = sys.argv[1], sys.argv[2]
-k9_only = sys.argv[3:4] == ["k9"]
+only = sys.argv[3] if len(sys.argv) > 3 else ""
 pick = re.compile(sys.argv[4] if len(sys.argv) > 4 else "")
-_build.SOURCES = ("sample_step",) if k9_only else ("sample_step", "box_attention", "box_attention_bwd")
+_build.SOURCES = {"k9": ("sample_step",), "decode": ("sample_step", "beam_topk")}.get(
+    only, ("sample_step", "beam_topk", "box_attention", "box_attention_bwd"))
 if what == "build":
     _build.build_all(verbose=True)
     sys.exit(0)
 _build.build_all()
 torch.backends.cuda.matmul.allow_tf32 = False
+from sparse_caption_tpu_torch.kernels import beam_topk as k4  # noqa: E402
 from sparse_caption_tpu_torch.kernels import box_attention as k1  # noqa: E402
 from sparse_caption_tpu_torch.kernels import box_attention_bwd as k7  # noqa: E402
 from sparse_caption_tpu_torch.kernels import sample_step as k9  # noqa: E402
@@ -59,7 +65,22 @@ for dtype, n in ((torch.float32, 960), (torch.bfloat16, 10240)):
     variants = {name: fn for name, fn in variants.items() if pick.search(name)}
     for name, ms in zip(variants, c.turns_ms(*variants.values())):
         res[f"K9 {name} {dn} {n}"] = ms
-if k9_only:
+if only != "k9":
+    k4_rows = {}
+    logits = torch.randn(10240, 10000, generator=g, device=dev).to(torch.bfloat16)
+    kw = c.k4_constraints(g, 10240, 10000)
+    k4_rows["K4 held bf16 10240 k5"] = lambda: k4.beam_topk(logits, 5, **kw)
+    images, width = 2048, 2
+    dlogits = torch.randn(images * width, 10000, generator=g, device=dev).to(torch.bfloat16)
+    toks = torch.randint(4, 10000, (images, 4), generator=g, device=dev, dtype=torch.int32)
+    toks[:, 1] = toks[:, 0]
+    dkw = dict(c.k4_constraints(g, images * width, 10000), div_tokens=toks, div_lambda=0.5)
+    k4_rows["K4 diverse bf16 4096 k2 P4"] = lambda: k4.beam_topk(dlogits, width, **dkw)
+    k4_rows = {name: fn for name, fn in k4_rows.items() if pick.search(name)}
+    for name, ms in zip(k4_rows, c.turns_ms(*k4_rows.values())):
+        res[name] = ms
+    del logits, dlogits
+if only:
     print(json.dumps(res), flush=True)
     sys.exit(0)
 h, rr, dk = 8, 36, 64

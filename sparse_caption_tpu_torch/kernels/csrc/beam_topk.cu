@@ -46,6 +46,20 @@
 // 0). Four barriers a row in all (max, sum, threshold, lists). The raw
 // log-prob of a winner is its value unless a penalty touched it (then it is
 // recomputed from its logit).
+// Diverse rows (P > 0 earlier-group tokens) take the held path too: each
+// block stages its image's P tokens in shared memory and marks the penalised
+// columns (the P tokens, the ban, EOS under a bad ending, UNK) in a bitmap of
+// V bits (1.25 KB at V = 10,000). A penalty only lowers a value, so each
+// thread's best constrained value is the log-prob of its largest logit no
+// penalty touches, and the threshold is valid for every P: its k threads'
+// bests are k entries' exact values (where fewer than k threads hold an
+// unpenalised entry the threshold is -inf and every entry is inserted,
+// correct but slow; at V = 10,000 320 threads hold 32 entries each, so that
+// needs more than the 259 penalised entries a row can carry, and no row
+// leaves the held path for its P). A penalised entry whose logit reaches
+// x_lo enters the lists with its exact value (count first, then f32(count x
+// lambda) subtracted once, `diversify`), its raw log-prob recomputed from
+// its logit.
 // For k > 32 (any k <= V), one block of 256 threads per row writes the row's
 // constrained f32 values into shared memory (40 KB at V = 10000); a
 // block-wide radix select (four 8-bit passes of a shared histogram
@@ -58,9 +72,9 @@
 // 32 and k rounds of a block-wide argmax. The diverse-beam penalty (up to
 // 256 earlier-group tokens an image, staged in shared memory in the
 // prologue) runs on the scalar kernel (k <= 32) and the radix select (k >
-// 32); the held path's threshold assumes at most three penalised entries, so
-// it takes no diverse rows. The register lists, the radix select and the
-// bitonic sort are row_topk.cuh's, shared with K9's top-k filter.
+// 32) where the held path cannot take the row. The register lists, the radix
+// select and the bitonic sort are row_topk.cuh's, shared with K9's top-k
+// filter.
 #include "row_softmax.cuh"
 #include "row_topk.cuh"
 
@@ -68,7 +82,6 @@ namespace sct {
 
 constexpr int kTopkThreads = 256;
 constexpr int kRegisterK = 32;  // largest k kept in per-thread register lists
-constexpr int kTopkHeldMaxThreads = 320;  // the held path's largest block (V <= 10,240)
 constexpr float kNegBig = -1e18f;  // beam.py NEG_BIG
 constexpr int kMaxDiversity = 256;  // earlier-group tokens an image's rows read (diverse beam search)
 
@@ -102,6 +115,8 @@ __device__ __forceinline__ float constrained(const T* __restrict__ x, int i, flo
                    lambda);
 }
 
+constexpr int kHeldPenWords = kTopkHeldMaxThreads * kRowHeld / 32;  // the held path's bitmap of penalised columns
+
 // the row's image's P earlier-group tokens (diverse beam search) into div_s
 __device__ __forceinline__ void stage_diversity(const int* __restrict__ div_tokens, int P, int group, int row,
                                                 int* div_s) {
@@ -125,18 +140,22 @@ __device__ __forceinline__ unsigned long long warp_max_key(unsigned long long ke
 }
 
 // The held path: one block per row of `units` 16-byte vectors; thread t
-// holds vectors t, t + nt, ... (PER of them).
-template <typename T>
+// holds vectors t, t + nt, ... (PER of them). DIV: the diverse-beam penalty
+// (div_p > 0), the penalised columns marked in a bitmap.
+template <typename T, bool DIV>
 __global__ void __launch_bounds__(kTopkHeldMaxThreads, sizeof(T) == 2 ? 4 : 3)
 beam_topk_held_kernel(const T* __restrict__ logits, int V, int k, const int* __restrict__ ban_token,
-                      const unsigned char* __restrict__ ban_eos, int eos_id, int unk_id, float* __restrict__ out_val,
-                      int* __restrict__ out_idx, float* __restrict__ out_raw) {
+                      const unsigned char* __restrict__ ban_eos, int eos_id, int unk_id,
+                      const int* __restrict__ div_tokens, int div_p, int div_group, float div_lambda,
+                      float* __restrict__ out_val, int* __restrict__ out_idx, float* __restrict__ out_raw) {
   constexpr int UE = 16 / sizeof(T);
   constexpr int PER = kRowHeld / UE;
   constexpr unsigned kAll = 0xffffffffu;
   __shared__ float red[2][32];
   __shared__ unsigned long long cand[32 * kRegisterK];  // each warp's best k, best first
   __shared__ unsigned int wbest[32 * kRegisterK];  // each warp's k best of its threads' best values
+  __shared__ unsigned int pen_s[DIV ? kHeldPenWords : 1];  // DIV: bit i of the row's penalised columns
+  __shared__ int div_s[DIV ? kMaxDiversity : 1];  // DIV: the image's earlier-group tokens
   const int nt = blockDim.x, tid = threadIdx.x, lane = tid & 31, warp = tid / 32;
   const int units = V / UE;
   const int row = blockIdx.x;
@@ -149,15 +168,59 @@ beam_topk_held_kernel(const T* __restrict__ logits, int V, int k, const int* __r
   }
   const int ban = ban_token != nullptr ? ban_token[row] : -1;
   const bool no_eos = ban_eos != nullptr && ban_eos[row] != 0;
+  if constexpr (DIV) {  // the bitmap, while the loads are in flight
+    for (int w = tid; w < (V + 31) / 32; w += nt) pen_s[w] = 0u;
+    for (int j = tid; j < div_p; j += nt) div_s[j] = div_tokens[(size_t)(row / div_group) * div_p + j];
+    __syncthreads();
+    auto mark = [&](int i) {
+      if (i >= 0 && i < V) atomicOr(&pen_s[i >> 5], 1u << (i & 31));
+    };
+    for (int j = tid; j < div_p; j += nt) mark(div_s[j]);
+    if (tid == 0) {
+      mark(ban);
+      if (no_eos) mark(eos_id);
+      mark(unk_id);
+    }
+  }  // held_row_stats' barriers publish div_s and the marks
   float m, logsum, xmax;
   held_row_stats<T, PER>(raw, units, red[0], red[1], m, logsum, xmax);
 
-  // this thread's best constrained value: the log-prob of its largest logit
-  // (penalties only lower a value); a thread that holds a penalised entry (at
-  // most three a row) offers none
-  auto owns = [&](int i) { return i >= 0 && i < units * UE && (i / UE) % nt == tid; };
-  float cbest = xmax == -INFINITY ? -INFINITY : round_to<T>((xmax - m) - logsum);
-  if (owns(ban) || (no_eos && owns(eos_id)) || owns(unk_id)) cbest = -INFINITY;
+  // this thread's best constrained value (penalties only lower a value): the
+  // log-prob of its largest logit; a thread that holds a penalised entry (at
+  // most three a row) offers none. DIV: the log-prob of its largest logit no
+  // penalty touches (pen: bit j UE + e, value e of vector j is penalised)
+  float cbest;
+  unsigned pen = 0u;
+  if constexpr (DIV) {
+    float xfree = -INFINITY;
+#pragma unroll
+    for (int j = 0; j < PER; ++j) {
+      const int u = j * nt + tid;
+      if (u < units) {
+        const unsigned bits = (pen_s[(u * UE) >> 5] >> ((u * UE) & 31)) & ((1u << UE) - 1u);
+        pen |= bits << (j * UE);
+        float v[UE];
+        unpack16<T>(raw[j], v);
+#pragma unroll
+        for (int e = 0; e < UE; ++e)
+          if (!((bits >> e) & 1u)) xfree = fmaxf(xfree, v[e]);
+      }
+    }
+    cbest = xfree == -INFINITY ? -INFINITY : round_to<T>((xfree - m) - logsum);
+  } else {
+    auto owns = [&](int i) { return i >= 0 && i < units * UE && (i / UE) % nt == tid; };
+    cbest = xmax == -INFINITY ? -INFINITY : round_to<T>((xmax - m) - logsum);
+    if (owns(ban) || (no_eos && owns(eos_id)) || owns(unk_id)) cbest = -INFINITY;
+  }
+  // the constrained value of entry i (value e of this thread's vector j) from its log-prob
+  auto constrain = [&](float lp, int i, int j, int e) {
+    if constexpr (DIV)
+      return (pen >> (j * UE + e)) & 1u ? diversify(penalize(lp, i, ban, no_eos, eos_id, unk_id), i, div_s, div_p,
+                                                    div_lambda)
+                                        : lp;
+    else
+      return penalize(lp, i, ban, no_eos, eos_id, unk_id);
+  };
   // the row's threshold: the k-th largest of the threads' best values (k
   // entries of the row reach it, so every entry of the row's best k does):
   // k rounds of a warp argmax on order keys in each warp, then k over the warps'
@@ -225,8 +288,7 @@ beam_topk_held_kernel(const T* __restrict__ logits, int V, int k, const int* __r
         if (q == e) xv = v[q];
       const int i = (j * nt + tid) * UE + e;
       const float lp = round_to<T>((xv - m) - logsum);
-      const unsigned long long mine =
-          (reach >> (j * UE + e)) & 1u ? topk_key(penalize(lp, i, ban, no_eos, eos_id, unk_id), i) : 0ull;
+      const unsigned long long mine = (reach >> (j * UE + e)) & 1u ? topk_key(constrain(lp, i, j, e), i) : 0ull;
       // the lanes whose key beats the list's k-th entry, lowest lane first;
       // each insertion raises the k-th entry, and lanes it passes drop out
       // (many equal logits cost one ballot, not one insertion each)
@@ -261,13 +323,13 @@ beam_topk_held_kernel(const T* __restrict__ logits, int V, int k, const int* __r
     const size_t o = (size_t)row * k + lane;
     out_val[o] = val;
     out_idx[o] = i;
-    out_raw[o] = penalized(i, ban, no_eos, eos_id, unk_id) ? round_to<T>((to_f(x[i]) - m) - logsum) : val;
+    const bool touched = DIV ? (pen_s[i >> 5] >> (i & 31)) & 1u : penalized(i, ban, no_eos, eos_id, unk_id);
+    out_raw[o] = touched ? round_to<T>((to_f(x[i]) - m) - logsum) : val;
   }
 }
 
-// Rows off the held path with k <= kRegisterK (and every row under the
-// diverse-beam penalty): a scalar kernel of 256 threads a row, the shared
-// register path (row_topk.cuh).
+// Rows off the held path with k <= kRegisterK (diverse rows too): a scalar
+// kernel of 256 threads a row, the shared register path (row_topk.cuh).
 template <typename T, int KMAX>
 __global__ void __launch_bounds__(kTopkThreads)
 beam_topk_kernel(const T* __restrict__ logits, int V, int k, const int* __restrict__ ban_token,
@@ -394,10 +456,13 @@ cudaError_t launch(const void* logits, int N, int V, int k, const void* ban_toke
   float* ov = static_cast<float*>(out_val);
   int* oi = static_cast<int*>(out_idx);
   float* orw = static_cast<float*>(out_raw);
-  const int held = aligned_to(logits, 16) && div_p == 0 ? held_row_threads<T>(V, kTopkHeldMaxThreads) : 0;
+  const int held = aligned_to(logits, 16) ? held_row_threads<T>(V, kTopkHeldMaxThreads) : 0;
 #define SCT_DIV dt, div_p, div_group, div_lambda
   if (held > 0 && k <= kRegisterK) {
-    beam_topk_held_kernel<T><<<N, held, 0, stream>>>(lg, V, k, bt, be, eos_id, unk_id, ov, oi, orw);
+    if (div_p > 0)
+      beam_topk_held_kernel<T, true><<<N, held, 0, stream>>>(lg, V, k, bt, be, eos_id, unk_id, SCT_DIV, ov, oi, orw);
+    else
+      beam_topk_held_kernel<T, false><<<N, held, 0, stream>>>(lg, V, k, bt, be, eos_id, unk_id, SCT_DIV, ov, oi, orw);
   } else if (k <= 8) {
     beam_topk_kernel<T, 8><<<N, kTopkThreads, 0, stream>>>(lg, V, k, bt, be, eos_id, unk_id, SCT_DIV, ov, oi, orw);
   } else if (k <= 16) {

@@ -14,6 +14,8 @@
 namespace sct {
 
 constexpr int kRowHeld = 32;  // values a thread of a held row holds
+// the largest block of K4's and K9's held paths (V <= 320 x kRowHeld = 10,240)
+constexpr int kTopkHeldMaxThreads = 320;
 
 // threads of a held row of V elements of T: V / UE vectors, kRowHeld / UE a
 // thread, rounded up to whole warps; 0 if V is not whole 16-byte vectors or

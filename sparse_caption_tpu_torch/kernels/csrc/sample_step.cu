@@ -57,15 +57,45 @@
 //   out[n] = coin ? w : teacher[n]
 // A row whose coin fails reads nothing of lp.
 //
-// Bound on the H100 (N = 960 samples, V = 10000, f32): bytes. The logits are
-// read once (38.4 MB, 11.5 us at 3.35 TB/s); the 2.4M Philox calls and 19M
-// logf are below the card's integer and SFU rates.
+// Bound on the H100 (random and Gumbel): the larger of the bytes (the
+// logits read once: 38.4 MB at N = 960, V = 10000, f32, 11.5 us at 3.35
+// TB/s; 205 MB of bf16 at N = 10240, 61 us) and the operations: a
+// Philox4x32-10 call per 4 entries (40 32-bit multiplies, at 64 an SM a
+// clock; 61 us at N = 10240 and 1,980 MHz) and two logf and one expf an
+// entry (on the held path one expf an entry, one __expf a group and two
+// logf an entry that may win, counted at the SFU's 16 an SM a clock);
+// `chip_smoke.py k9_ops_ms` counts them.
 //
-// Design: one block of 256 threads per row, as K4's scalar path.
+// Design: random, greedy and Gumbel on the held path: where V is
+// whole 16-byte vectors, the logits 16-byte aligned and V <= 320 x 32, one
+// block per row sized to it (K4's and K13's held layout: thread t holds
+// vectors t, t + nt, ... as raw 16-byte vectors, every load issued before
+// any math). `held_row_stats` (row_softmax.cuh) gives the max and log-sum in
+// K13's order, so each lp is K13's bit for bit; z is formed from the
+// registers, no second read. The Philox calls align with the vectors (a
+// bf16 vector takes two, an f32 one one; the counter and the u grid are the
+// streaming path's). Logs only where a token can win: z_ref is the z of
+// some entry (each warp draws the noise of its largest logit not banned,
+// z_ref the largest of those), a lower bound on the winner's. Since -log u
+// >= 1 - u, an entry whose 1 - u exceeds exp(amax - z_ref + delta) (amax
+// the largest a of its group of 4; a = c / T for random, c for Gumbel)
+// has g < z_ref - a - delta, and delta lies above the logs' error and the
+// add's rounding, so fl(a + g) < z_ref: it cannot win, not even a tie to a
+// lower index. The bound is formed once a group (one __expf, its error
+// under a factor 1 + 2^-14) and compared with the bits exactly; such an
+// entry takes no log. On flat rows a few entries in ten thousand take the
+// two logf (`k9_skip_model`), so the step costs the read, the stats' expf
+// and the Philox calls. Greedy is z = c in the same instance. Rows off the
+// held path (V not whole vectors, unaligned, or longer) take the streaming
+// kernel below: the row read twice, an entry at a time, every group drawing
+// its noise.
+//
+// Design of the filter modes (and of the streaming kernel): one block of
+// 256 threads per row, as K4's scalar path.
 // - Pass 1 keeps an online max/sum per thread and merges them across the
-//   block (random, Gumbel, greedy and the radix top-k: row_topk.cuh
-//   row_logsumexp, an entry at a time). The register top-k (k <= 4 and k <=
-//   32, one instance each) and the nucleus read the row (the k <= 4 top-k and
+//   block (random, Gumbel and greedy off the held path, and the radix
+//   top-k: row_topk.cuh row_logsumexp, an entry at a time). The register
+//   top-k (k <= 4 and k <= 32, one instance each) and the nucleus read the row (the k <= 4 top-k and
 //   the nucleus as 16-byte vectors where V is whole vectors and the logits
 //   aligned; else an entry at a time), and keep each thread's k largest logits
 //   other than the banned one in registers (the nucleus: the largest); a
@@ -88,10 +118,10 @@
 //   modes draw the Philox words and logs only for a group of 4 with a kept
 //   entry: a filtered entry's z = -1e30 + g rounds to -1e30 for every g the
 //   noise gives (|g| < 17, half an ulp of 1e30 is 3.8e22).
-// The mode is a template parameter, one instance each (top-k three), still
-// one launch a step: the random instance (greedy too) holds no filter code,
-// no candidate registers and no filter scratch in shared memory, so it keeps
-// the registers and occupancy it had before the filter modes came.
+// The mode is a template parameter, one instance each (top-k three; random
+// and Gumbel a held and a streaming one), still one launch a step: the
+// random instances (greedy too) hold no filter code, no candidate registers
+// and no filter scratch in shared memory.
 // The ss mode is a kernel of its own (one block of 256 threads a row, the
 // last pass of the random mode on the given log-probs), one instance a dtype.
 #include <climits>
@@ -666,6 +696,159 @@ sample_step_kernel(const T* __restrict__ logits, int V, const int* __restrict__ 
 }
 
 
+// the noise of a word, out of line: on the held path few entries take the two logf, so one copy serves all
+template <int kMode>
+__device__ __noinline__ float held_noise(uint32_t bits) {
+  return kMode == kGumbel ? gumbel_eps(bits) : gumbel(bits);
+}
+
+// The held path of the random (greedy too) and Gumbel modes (module notes):
+// one block per row of `units` 16-byte vectors, thread t holding vectors t,
+// t + nt, ... (PER of them); z from the registers, Philox only for a group
+// and logf only for an entry that can win.
+template <typename T, int kMode>
+__global__ void __launch_bounds__(kTopkHeldMaxThreads, sizeof(T) == 2 ? 4 : 3)
+sample_held_kernel(const T* __restrict__ logits, int V, const int* __restrict__ prev,
+                   unsigned char* __restrict__ unfinished, int* __restrict__ seq, float* __restrict__ seq_lp,
+                   int* __restrict__ next, int t, int t_max, uint32_t k0, uint32_t k1, uint32_t site, int greedy,
+                   float temperature, int ban_prev, int eos_id, int pad_id) {
+  constexpr int UE = kUnit<T>;
+  constexpr int PER = kRowHeld / UE;
+  constexpr int GV = UE / 4;  // groups of 4 columns (a Philox call each) in a vector
+  constexpr unsigned kAll = 0xffffffffu;
+  __shared__ float red[2][32];
+  __shared__ float red_z[32];
+  __shared__ int red_i[32];
+  const int nt = blockDim.x, tid = threadIdx.x, lane = tid & 31, warp = tid / 32, nwarps = nt / 32;
+  const int units = V / UE, row = blockIdx.x;
+  const T* x = logits + (size_t)row * V;
+  uint4 raw[PER];  // kept packed: the whole row's loads in flight at once
+#pragma unroll
+  for (int j = 0; j < PER; ++j) {
+    const int u = j * nt + tid;
+    raw[j] = u < units ? ld16(x + (size_t)u * UE) : make_uint4(0u, 0u, 0u, 0u);
+  }
+  const int ban = ban_prev ? prev[row] : -1;
+  float m, logsum, xmax;
+  held_row_stats<T, PER>(raw, units, red[0], red[1], m, logsum, xmax);
+  auto logprob = [&](int i, float xv) {  // c[i] of the module notes from its logit xv
+    float c = round_to<T>((xv - m) - logsum);
+    if (i == ban) c += kBanPrev;
+    return c;
+  };
+  // a, what the noise is added to: c / T for random (c itself at T = 1), c for greedy and the Gumbel method
+  // (not tempered, sample.py:81-85)
+  const bool tempered = kMode == kRandom && !greedy && temperature != 1.f;
+  auto value = [&](float c) { return tempered ? c / temperature : c; };
+
+  // z_ref: each warp draws the noise of its largest logit not banned (one Philox call a warp), z_ref the
+  // largest of those z, a lower bound on the winner's
+  float z_ref = -INFINITY;
+  if (!greedy) {
+    float xb = -INFINITY;
+    int ib = -1;
+#pragma unroll
+    for (int j = 0; j < PER; ++j) {
+      const int u = j * nt + tid;
+      if (u < units) {
+        float v[UE];
+        unpack16<T>(raw[j], v);
+#pragma unroll
+        for (int e = 0; e < UE; ++e)
+          if (v[e] > xb && u * UE + e != ban) {
+            xb = v[e];
+            ib = u * UE + e;
+          }
+      }
+    }
+    const float wx = warp_max(xb);
+    const unsigned at = __ballot_sync(kAll, ib >= 0 && xb == wx);
+    float zw = -INFINITY;
+    if (at != 0u) {
+      const int iw = __shfl_sync(kAll, ib, __ffs(at) - 1);
+      const Philox4 r = philox4x32_10(Philox4{site, (uint32_t)t, (uint32_t)row, (uint32_t)(iw / 4)}, k0, k1);
+      zw = value(logprob(iw, wx)) + held_noise<kMode>(philox_word(r, iw % 4));
+    }
+    if (lane == 0) red_z[warp] = zw;
+    __syncthreads();
+    for (int w = 0; w < nwarps; ++w) z_ref = fmaxf(z_ref, red_z[w]);
+  }
+
+  // z from the registers, 4 columns a Philox call; each thread's best (z, index)
+  float best = -INFINITY;
+  int best_i = INT_MAX;
+  auto offer = [&](float z, int i) {
+    if (z > best) {  // i grows within a thread, so a tie keeps the lower index
+      best = z;
+      best_i = i;
+    }
+  };
+#pragma unroll
+  for (int j = 0; j < PER; ++j) {
+    const int u = j * nt + tid;
+    if (u >= units) continue;
+    float v[UE];
+    unpack16<T>(raw[j], v);
+#pragma unroll
+    for (int h = 0; h < GV; ++h) {
+      const int i0 = u * UE + 4 * h;
+      if (greedy) {
+#pragma unroll
+        for (int q = 0; q < 4; ++q) offer(logprob(i0 + q, v[4 * h + q]), i0 + q);
+        continue;
+      }
+      // a of the group's largest logit, which no entry of the group exceeds (c and a grow with the logit;
+      // the ban only lowers one)
+      const float amax =
+          value(round_to<T>((fmaxf(fmaxf(v[4 * h], v[4 * h + 1]), fmaxf(v[4 * h + 2], v[4 * h + 3])) - m) - logsum));
+      // an entry whose u cannot lift it to z_ref takes no log: 1 - u > lim = exp(amax - z_ref + delta) gives
+      // -log u > exp(a - z_ref + delta), so g < z_ref - a - delta and fl(a + g) < z_ref (delta above the
+      // logs' and the adds' rounding, the factor above __expf's error)
+      const float lim =
+          __expf(amax - z_ref + (0x1p-17f + 0x1p-21f * (fabsf(z_ref) + fabsf(amax)))) * (1.f + 0x1p-14f);
+      // on the bits, exactly: 1 - u = ((~bits >> 9) 2 + 1) 2^-24 > lim where bits >> 9 <= kmax (kf is exact)
+      const float kf = lim * 0x1p23f - 0.5f;
+      const int kmax = kf < 0.f ? 8388607 : !(kf < 8388607.f) ? -1 : 8388606 - (int)kf;
+      const Philox4 r = philox4x32_10(Philox4{site, (uint32_t)t, (uint32_t)row, (uint32_t)(u * GV + h)}, k0, k1);
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const uint32_t bits = philox_word(r, q);
+        if ((int)(bits >> 9) <= kmax) continue;  // 1 - u > lim
+        offer(value(logprob(i0 + q, v[4 * h + q])) + held_noise<kMode>(bits), i0 + q);
+      }
+    }
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    const float ov = __shfl_xor_sync(kAll, best, o);
+    const int oi = __shfl_xor_sync(kAll, best_i, o);
+    if (ranks_above(ov, oi, best, best_i)) {
+      best = ov;
+      best_i = oi;
+    }
+  }
+  if (lane == 0) {
+    red[0][warp] = best;
+    red_i[warp] = best_i;
+  }
+  __syncthreads();
+  if (tid == 0) {
+    for (int w = 1; w < nwarps; ++w)
+      if (ranks_above(red[0][w], red_i[w], best, best_i)) {
+        best = red[0][w];
+        best_i = red_i[w];
+      }
+    if (best_i >= V) best_i = 0;  // every z was -inf: argmax's first index
+    const float chosen = logprob(best_i, to_f(x[best_i]));
+    const bool live = unfinished[row] != 0;
+    const int tok = live ? best_i : pad_id;
+    seq[(size_t)row * t_max + t] = tok;
+    seq_lp[(size_t)row * t_max + t] = chosen;
+    next[row] = tok;
+    unfinished[row] = (live && best_i != eos_id) ? 1 : 0;
+  }
+}
+
 // the ss mode's noise: a uniform with T's precision (exact in T), then
 // -log(-log(u)) with each log rounded to T, as jax.random.gumbel in T
 template <typename T>
@@ -760,8 +943,22 @@ cudaError_t launch(const void* logits, int N, int V, const void* prev, void* unf
 #define SCT_MODE(M, KC)                                                                                          \
   launch_mode<T, M, KC>(logits, N, V, prev, unfinished, seq, seq_lp, next, t, t_max, k0, k1, site, greedy,     \
                         temperature, ban_prev, eos_id, pad_id, top_k, top_p, stream)
-  if (greedy || mode == kRandom) return SCT_MODE(kRandom, 0);
-  if (mode == kGumbel) return SCT_MODE(kGumbel, 0);
+  if (greedy || mode == kRandom || mode == kGumbel) {
+    const int held = aligned_to(logits, 16) ? held_row_threads<T>(V, kTopkHeldMaxThreads) : 0;
+    const bool gumbel_mode = !greedy && mode == kGumbel;
+    if (held > 0) {
+#define SCT_HELD(M)                                                                                               \
+  sample_held_kernel<T, M><<<N, held, 0, stream>>>(                                                              \
+      static_cast<const T*>(logits), V, static_cast<const int*>(prev), static_cast<unsigned char*>(unfinished),    \
+      static_cast<int*>(seq), static_cast<float*>(seq_lp), static_cast<int*>(next), t, t_max, k0, k1, site, greedy, \
+      temperature, ban_prev, eos_id, pad_id)
+      if (gumbel_mode) SCT_HELD(kGumbel);
+      else SCT_HELD(kRandom);
+#undef SCT_HELD
+      return cudaGetLastError();
+    }
+    return gumbel_mode ? SCT_MODE(kGumbel, 0) : SCT_MODE(kRandom, 0);
+  }
   if (mode == kTopK) {
     if (top_k <= kTopkFew) return SCT_MODE(kTopK, kTopkFew);
     if (top_k <= kTopkRegister) return SCT_MODE(kTopK, kTopkRegister);
