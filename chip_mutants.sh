@@ -17,7 +17,17 @@
 # k-th, the ban among the candidates, the cut's comparison, the equal-p group
 # taken by index, the noise of a kept group), and K9's held-path entry rule
 # (its margin gone or unscaled, one u more skipped) and K4's held diverse
-# rows (a penalised entry in a thread's best, the last token unmarked). Each
+# rows (a penalised entry in a thread's best, the last token unmarked), and
+# K2's forward (its walk of short rows: the softmax unrounded, the ancestor
+# row ignored, the kv mode's values read through the row's own; its staged
+# path: the ancestor row ignored, a beam reading its
+# neighbour's row, a slot's last 16-byte part not copied, one of the four
+# partial sums of a score dropped, a short row's last lane part of a score
+# dropped, the last slot left out of p v, a long
+# cache's earlier chunks dropped from p v, the softmax's sum over the first
+# 32 slots alone, the kv mode's values read from its unfilled V stage or its
+# stage read before the copies land, the dk 13 envelope's offset one element
+# off) and K3's dk 13 repack shifted by one column (bf16 and f32). Each
 # mutant is a copy of the
 # port under build/mutants/<name>/ with sed edits to one CUDA source (or,
 # with run_mutant_cmd, any shell edit run in its csrc/, the wrappers beside
@@ -175,20 +185,33 @@ run_mutant k14_last_member_skipped decoder_attention.cu 's/    live\[r\] = sr < 
 run_mutant_cmd k14_private_quad_sum 'cp decoder_attention.cuh decoder_attention_k14.cuh && sed -i "s/\"decoder_attention.cuh\"/\"decoder_attention_k14.cuh\"/" decoder_attention.cu && sed -i "s/sum\[r\], 1);/sum[r], 9);/; s/sum\[r\], 2);/sum[r], 1);/; s/sum\[r\], 9);/sum[r], 2);/" decoder_attention_k14.cuh' "torch.bfloat16," "$K14"
 run_mutant k5_scalar_tail_skipped supermask.cu 's/const int cnt = (int)(ent.n - e0 < kUnit ? ent.n - e0 : kUnit);/const int cnt = 0;/' "torch.float32, torch.bfloat16" "$K5"
 run_mutant k5_next_word_bit supermask.cu 's/byte = (bits\[bu >> 2\] >> (8 \* (bu \& 3))) \& 0xffu;/byte = (bits[(bu >> 2) + 1] >> (8 * (bu \& 3))) \& 0xffu;/' "torch.float32, torch.bfloat16" "$K5"
-run_mutant k2_softmax_unrounded ancestry_self_attention.cu 's/p\[j\] = round_to<T>(e\[j\] \/ sum);/p[j] = e[j] \/ sum;/' "torch.bfloat16," "$K2"
+run_mutant k2_softmax_unrounded ancestry_self_attention.cu 's/sc\[s\] = round_to<T>(sc\[s\] \/ sum);/sc[s] = sc[s] \/ sum;/' "torch.bfloat16," "$K2"
+run_mutant k2_walk_softmax_unrounded ancestry_self_attention.cu 's/  const float p = round_to<T>(e \/ warp_sum(e));/  const float p = e \/ warp_sum(e);/' "torch.bfloat16," "$K2"
+run_mutant k2_walk_ancestor_row_ignored ancestry_self_attention.cu 's/  const int my_row = anc != nullptr \&\& lane <= t ? b \* K + anc\[(size_t)n \* t_max + lane\] : n;/  const int my_row = n;/' "torch.bfloat16," "$K2"
+run_mutant k2_kv_values_through_own_row ancestry_self_attention.cu 's/    vv.load(vals + (size_t)r \* H/    vv.load(vals + (size_t)(cache_v != nullptr ? r : n) * H/' "torch.float32, torch.bfloat16" "$KV"
+run_mutant k2_ancestor_row_ignored ancestry_self_attention.cu 's/rows\[s\] = anc != nullptr ? b \* K + anc\[(size_t)n \* t_max + s\] : n;/rows[s] = n;/' "torch.bfloat16," "$K2"
+run_mutant k2_beam_reads_neighbour_row ancestry_self_attention.cu 's/b \* K + anc\[(size_t)n \* t_max + s\] : n;/b * K + (anc[(size_t)n * t_max + s] + 1) % K : n;/' "torch.bfloat16," "$K2"
+run_mutant k2_last_slot_part_not_copied ancestry_self_attention.cu 's/    for (int e = lane; e < (c1 - c0) \* NC; e += 32) {/    for (int e = lane; e < (c1 - c0) * NC - 1; e += 32) {/' "torch.bfloat16," "$K2"
+run_mutant k2_score_sums_one_dropped ancestry_self_attention.cu 's/    float dot = (acc\[0\] + acc\[1\]) + (acc\[2\] + acc\[3\]);/    float dot = (acc[0] + acc[1]) + acc[2];/' "torch.bfloat16," "$K2"
+run_mutant k2_short_row_lane_part_dropped ancestry_self_attention.cu 's/    for (int o = 1; o < LS; o <<= 1) dot += /    for (int o = 1; o < LS \/ 2; o <<= 1) dot += /' "torch.bfloat16," "$K13W"
+run_mutant k2_pv_last_slot_dropped ancestry_self_attention.cu 's/    for (int s = c0; s < c1; ++s) {/    for (int s = c0; s < c1 - 1; ++s) {/' "torch.bfloat16," "$K2"
+run_mutant k2_long_chunks_sum_restarted ancestry_self_attention.cu 's/    if (!one) {/    if (!one) { a0 = a1 = 0.f;/' "torch.float32," "$K2"
+run_mutant k2_softmax_first_32_slots_only ancestry_self_attention.cu 's/  for (int s = lane; s < T1; s += 32) {/  for (int s = lane; s < (T1 < 32 ? T1 : 32); s += 32) {/' "torch.float32," "$K2"
+run_mutant k2_kv_values_from_an_unfilled_stage ancestry_self_attention.cu 's/  const unsigned char\* vsrc = one \&\& cache_v == nullptr ? kst : vst;/  const unsigned char* vsrc = vst;/' "torch.bfloat16," "$KV"
+run_mutant k2_kv_stage_read_before_copy ancestry_self_attention.cu 's/^    cp_async_wait<0>();$/    \/\/ no wait/' "torch.bfloat16," "$KV"
+run_mutant k2_dk32_lane_pairs ancestry_self_attention.cu 's/  constexpr int PL = kLaneDims<DK>; /  constexpr int PL = 2; /' "torch.float32, torch.bfloat16" "$K32"
+run_mutant k2_dk13_envelope_offset_off_by_one ancestry_self_attention.cu 's/(kEnv ? envelope_offset(slot(cache_k, rows\[s\], s)) : 0);/(kEnv ? envelope_offset(slot(cache_k, rows[s], s)) + ES : 0);/' "torch.bfloat16," "$K13W"
 run_mutant k11_sigmoid_bwd_unrounded lstm_cell.cu 's/return round_to<T>(round_to<T>(g \* round_to<T>(1.f - s)) \* s);/return round_to<T>(g * (1.f - s) * s);/' "torch.bfloat16," "$K11"
 run_mutant_cmd k16_index_in_f64 'sed -i "0,/f32 = np.float32/s//f32 = np.float64/" ../magnitude_threshold.py' "torch.float32," "$K16"
 run_mutant k16_fma_interpolation magnitude_threshold.cu 's/th\[p\] = __fadd_rn(__fmul_rn(v_lo, lwhw\[2 \* p\]), __fmul_rn(v_hi, lwhw\[2 \* p + 1\]));/th[p] = fmaf(v_hi, lwhw[2 * p + 1], v_lo * lwhw[2 * p]);/' "torch.float32," "$K16"
 run_mutant k16_ge_in_place_of_gt magnitude_threshold.cu 's/mask\[i\] = criterion(w\[i\], stats, set.tensor0 + c.ti) > t ? 1.f : 0.f;/mask[i] = criterion(w[i], stats, set.tensor0 + c.ti) >= t ? 1.f : 0.f;/' "torch.float32," "$K16"
 run_mutant k16_last_radix_pass_dropped magnitude_threshold.cu 's/for (int pass = 0; pass < sct::kPasses; ++pass) {/for (int pass = 0; pass < sct::kPasses - 1; ++pass) {/' "torch.float32," "$K16"
-run_mutant k2_kv_values_through_own_row ancestry_self_attention.cu 's/      vv.load(vals + (size_t)r \* H/      vv.load(vals + (size_t)(cache_v != nullptr ? r : n) * H/' "torch.float32, torch.bfloat16" "$KV"
 run_mutant k3_kv_half_rows_staged grouped_cross_attention.cu 's/    const int kv_rows = hn \* S;/    const int kv_rows = KV ? hn * S \/ 2 : hn * S;/' "torch.bfloat16," "$KV"
 run_mutant k7_kv_dkv_summed_in_f32 box_attention_bwd.cu 's/kacc\[nt\]\[e\] = round_to<bf16>(round_to<bf16>(kacc\[nt\]\[e\]) + round_to<bf16>(vacc\[nt\]\[e\]));/kacc[nt][e] = kacc[nt][e] + vacc[nt][e];/' "torch.bfloat16," "$KV"
 run_mutant k1_kv_v_from_q_tile box_attention.cu 's/(which < NT ? which : 1)/(which < NT ? which : 0)/' "torch.bfloat16," "$KV"
 run_mutant k10_radix_tail_filled_with_0 cider_reward.cu 's/      if (k > 0) {  \/\/ the short tail/      if (false) {  \/\/ the short tail/' "torch.float32," "$K10R"
 run_mutant k10_radix_bos_kept cider_reward.cu 's/if (d == 0 || d == bos_r) continue;/if (d == 0) continue;/' "torch.float32," "$K10R"
 run_mutant k1_dk32_q_rows_strided_by_64 box_attention.cu 's/(q_s + i \* DP + d);  \/\/ broadcast/(q_s + i * 64 + d);  \/\/ broadcast/' "torch.float32," "$K32"
-run_mutant k2_dk32_lane_pairs ancestry_self_attention.cu 's/constexpr int PL = kLaneDims<DK>;  \/\/ dims a lane holds/constexpr int PL = 2;  \/\/ dims a lane holds/' "torch.float32, torch.bfloat16" "$K32"
 run_mutant dk13_pad_columns_unzeroed common.cuh 's/  return c < DK ? src\[c\] : from_f<T>(0.f);/  return src[c];/' "torch.float32, torch.bfloat16" "$K13W"
 run_mutant k15_kv_dkv_summed_before_rounding decoder_attention_bwd.cu 's/tot\[nt\]\[e\] = round_to<bf16>(round_to<bf16>(tot\[nt\]\[e\]) + round_to<bf16>(tv\[nt\]\[e\]));/tot[nt][e] = tot[nt][e] + tv[nt][e];/' "torch.bfloat16," "$KV"
 run_mutant k14_kv_v_through_second_pointer decoder_attention.cu 's/decoder_attention_entry(dtype, dk, q, kv, nullptr, key_valid,/decoder_attention_entry(dtype, dk, q, kv, q, key_valid,/' "torch.float32, torch.bfloat16" "$KV"
@@ -218,6 +241,8 @@ run_mutant k2_bwd_kv_score_term_dropped ancestry_self_attention_bwd.cuh 's/    c
 run_mutant k2_bwd_dk13_reads_pad_lanes common.cuh 's/  __device__ __forceinline__ void load(const T\* p, int lane) { v = lane < DK ? to_f(\*p) : 0.f; }/  __device__ __forceinline__ void load(const T* p, int lane) { v = lane < kPad<DK> ? to_f(*p) : 0.f; }/' "torch.float32," "$KSW"
 run_mutant k3_bwd_kv_stages_k_twice grouped_cross_attention_bwd.cu 's/  if (!kv) load_tile<DK>(v_s, v_src + base, S, KS);/  load_tile<DK>(v_s, v_src + base, S, kValStride<DK>);/' "torch.float32," "$KSW"
 run_mutant_cmd k5_keyed_shared_slot_reuses_slot0 'sed -i "s/        draws.append(slot_rng(rng, k).mask_draw(m, m.weight.shape, m.weight.device))/        draws.append(slot_rng(rng, 0).mask_draw(m, m.weight.shape, m.weight.device))/" ../../ops/rng.py' "torch.float32," "$KSLOT"
+run_mutant k3_dk13_repack_shifted grouped_cross_attention.cu 's/        const unsigned short\* bits = reinterpret_cast<const unsigned short\*>(row);/        const unsigned short* bits = reinterpret_cast<const unsigned short*>(row + 1);/' "torch.bfloat16," "$K13W"
+run_mutant k3_dk13_f32_repack_shifted grouped_cross_attention.cu 's/      stage_padded<DK>(a == 0 ? k_s : v_s, a == 0 ? KS : VS, row, S, threadIdx.x, blockDim.x);/      stage_padded<DK>(a == 0 ? k_s : v_s, a == 0 ? KS : VS, row + 1, S, threadIdx.x, blockDim.x);/' "torch.float32," "$K13W"
 # a mutant is caught when it printed a verdict line and every one says so
 awk '/^\[mutant\] [^ ]+: / { name = $2; sub(":", "", name); seen[name] = 1 }
      /^\[mutant\] [^ :]+ [a-z0-9]+ / { seen[$2] = 1; n[$2]++; if ($0 ~ / caught/) c[$2]++ }

@@ -224,8 +224,13 @@ K15_SHARE_LIMIT, K15_FAR_LIMIT = 0.05, 0.005
 # K3's and K2's bf16 outputs against the plain version, bit by bit as K1's
 K3_SHARE_LIMIT, K3_FAR_LIMIT = 0.02, 0.001
 K2_SHARE_LIMIT, K2_FAR_LIMIT = 0.02, 0.001
-# K2 beyond 32 cache slots: the character tokenizer's 60 (two slots a lane), then 8 a lane
+# K2 beyond 32 cache slots: the character tokenizer's 60 (two slots a lane), then 8 a lane (past a block's
+# stage at dk 64: slots walked in chunks), and at head widths 32 and 13 also MAX_SLOTS (chunks at dk 13)
 K2_LONG_CACHES, K2_LONG_IMAGES = (60, 250), 64
+# K2's forward is held on two maps: a uniform random one, and one collapsed as a real beam search leaves it
+K2_MAPS = ("uniform", "collapsed")
+K2_ODD_SPANS = (17, 26, 60)  # dk 13 caches whose (row, head) spans start at odd offsets: T_max x 26 bytes apart
+K2_WALK_STEP = 3  # a step where K2 walks the slots at every width (its staged path starts at 5 slots or more)
 # K11's bf16 h', c' and its backward's d gates, d c against the plain
 # version's autograd, bit by bit: the same rounding points and the same
 # transcendental functions, so only a rare 1-ulp difference of expf / tanhf
@@ -679,6 +684,106 @@ def decoder_attention_flops(n: int, tk: int, backward: bool = False, tq: int = M
     dQ = dS K, dK = dS^T Q, dV = P~^T dO) for n query rows: 2 n h tq tk dk
     a product."""
     return (10 if backward else 4) * n * HEADS * tq * tk * dk
+
+
+def k2_steps(t_max: int) -> tuple:
+    """The steps K2's forward is timed at on a cache of T_max slots: the
+    first, floor((T_max - 1) / 2) and the last."""
+    return (0, (t_max - 1) // 2, t_max - 1)
+
+
+def k2_check_steps(t_max: int) -> tuple:
+    """The steps K2's forward is checked at: ``k2_steps`` and K2_WALK_STEP,
+    where every width walks its slots (a map past slot 0 to read)."""
+    return tuple(sorted(set(k2_steps(t_max)) | {K2_WALK_STEP}))
+
+
+def k2_map(anc, kind: str, t: int, root=None):
+    """K2's (B, K, T_max) int32 map at step t, from a uniform random map
+    `anc`: slot t the identity (each row wrote it itself); `collapsed` as a
+    real beam search leaves it: every beam descends from beam root[b] over
+    the first floor(t / 2) slots."""
+    out = anc.clone()
+    if kind == "collapsed":
+        out[:, :, : t // 2] = root.to(anc.dtype)[:, None, None]
+    out[:, :, t] = torch.arange(anc.shape[1], device=anc.device, dtype=anc.dtype)
+    return out
+
+
+def k2_bytes(n: int, t: int, dtype, anc=None, h: int = HEADS, dk: int = DK, kv: bool = False) -> int:
+    """Bytes K2's forward must move at step t: each distinct (row, slot) pair
+    the map `anc` (B, K, T_max) names over slots 0..t once, K and V (the kv
+    mode: the one cache; no map: each of the n rows' own slots 0..t), q read
+    and out written a row, the map's columns 0..t (int32)."""
+    if anc is None:
+        pairs, map_bytes = n * (t + 1), 0
+    else:
+        b, k, _ = anc.shape
+        rows = anc[:, :, : t + 1].long() + torch.arange(b, device=anc.device)[:, None, None] * k
+        pairs = int(torch.unique(rows * (t + 1) + torch.arange(t + 1, device=anc.device)).numel())
+        map_bytes = 4 * n * (t + 1)
+    return ((1 if kv else 2) * pairs + 2 * n) * h * dk * ESIZE[dtype] + map_bytes
+
+
+def steps_loss(launches_per_step: int, steps: int, timed: dict) -> float:
+    """A decode kernel's loss on a path of `steps` steps (ms): the sum over
+    t = 0 .. steps - 1 of launches_per_step x (time(t) - bound(t)), both
+    linear in t between the timed steps (`timed`: {t: (ms, bound_ms)}, the
+    first and the last step among them)."""
+    ts = sorted(timed)
+    if ts[0] != 0 or ts[-1] != steps - 1:
+        raise ValueError(f"the timed steps {ts} must include 0 and {steps - 1}")
+    gap = {t: ms - bnd for t, (ms, bnd) in timed.items()}
+    total = 0.0
+    for t in range(steps):
+        hi = next(x for x in ts if x >= t)
+        lo = max(x for x in ts if x <= t)
+        total += gap[t] if lo == hi else gap[lo] + (gap[hi] - gap[lo]) * (t - lo) / (hi - lo)
+    return launches_per_step * total
+
+
+def k2_gen():
+    """K2's own generator for the inputs its checks added since its redesign
+    (the collapsed maps' roots, the identity-map case), so that the checks'
+    shared generators draw what they drew before."""
+    return torch.Generator(device="cuda").manual_seed(SEED + 42)
+
+
+def k2_roots(images: int, beams: int = BEAM):
+    """Each image's beam of K2's collapsed map."""
+    return torch.randint(0, beams, (images,), generator=k2_gen(), device="cuda", dtype=torch.int32)
+
+
+def check_k2_forward(tag: str, q, ck, cv, anc, root, compare, bits, same=None, steps=None) -> float:
+    """K2's forward (cv None: the kv mode) against its plain version at
+    `steps` (by default ``k2_check_steps``: both of its paths) on both K2_MAPS made from the uniform
+    random map `anc` (``k2_map``; `root`: each image's beam of the collapsed
+    map), or on the identity map where `anc` is None: `compare(name, out,
+    ref, scale, fault=)` element by element, with a planted fault (the plain
+    version with the ancestor row ignored, past step 0, whose slot 0 each row
+    wrote itself; on the identity map, every row reading its neighbour's
+    cache), `bits(name, out, ref, share, far)` bit by bit in bf16, and under
+    kv `same(name, a, b)`: bit-equal to the unshared kernel given the cache
+    twice. Returns the last compare's max abs error."""
+    from sparse_caption_tpu_torch.kernels import ancestry_self_attention as k2
+
+    plain = k2.ancestry_self_attention_plain
+    err, scale = 0.0, rms(ck if cv is None else cv)
+    for step in steps or k2_check_steps(ck.shape[2]):
+        for kind in K2_MAPS if anc is not None else ("identity",):
+            anc_t = None if anc is None else k2_map(anc, kind, step, root)
+            name = f"{tag} t={step} {kind}"
+            out, ref = k2.ancestry_self_attention(q, ck, cv, anc_t, step), plain(q, ck, cv, anc_t, step)
+            if anc is None:
+                fault = plain(q, ck.roll(1, 0), None if cv is None else cv.roll(1, 0), None, step)
+            else:
+                fault = plain(q, ck, cv, None, step) if step > 0 else None
+            err = compare(name, out, ref, scale, fault=fault)
+            bits(f"{name} out", out, ref, K2_SHARE_LIMIT, K2_FAR_LIMIT)
+            if same is not None and cv is None:
+                same(name, out, k2.ancestry_self_attention(q, ck, ck, anc_t, step))
+            del out, ref, fault
+    return err
 
 
 def k3_bytes(images: int, beams: int, dtype, regions: int = REGIONS, kv: bool = False, dk: int = DK) -> int:
@@ -1146,47 +1251,54 @@ def check_kernels(gen, dtype, results: dict, timing: bool = True) -> bool:
     if dtype == torch.bfloat16 and timing:
         results["box_attention"]["bias_build_ms"] = bias_ms
 
-    # K2 ancestry self-attention at step 5 and at the last step (full cache)
+    # K2 ancestry self-attention at the first, middle and last step (full cache), on a uniform and a collapsed
+    # map; bf16 bit by bit: the score, its scaling and P rounded as the plain version
     q = rnd(n, h, dk)
     ck, cv = rnd(n, h, t_max, dk), rnd(n, h, t_max, dk)
     anc = torch.randint(0, BEAM, (b, BEAM, t_max), generator=gen, device=dev, dtype=torch.int32)
-    for step in (5, t_max - 1):
-        anc_t = anc.clone()
-        anc_t[:, :, step] = torch.arange(BEAM, device=dev, dtype=torch.int32)
-        out2, ref2 = k2.ancestry_self_attention(q, ck, cv, anc_t, step), k2.ancestry_self_attention_plain(
-            q, ck, cv, anc_t, step)
-        err, _ = compare(f"ancestry_self_attention t={step}", out2, ref2, rms(cv),
-                         fault=k2.ancestry_self_attention_plain(q, ck, cv, None, step))  # ancestry ignored
-        if dtype == torch.bfloat16:  # bit by bit: the score, its scaling and P rounded as the plain version
-            ok &= rounding_share(f"ancestry_self_attention t={step} out", out2, ref2, K2_SHARE_LIMIT, K2_FAR_LIMIT)
-        del out2, ref2
-    for t_long in K2_LONG_CACHES:  # more slots than lanes: S = ceil(T_max / 32) a lane
+
+    def bits2(name, out, ref, share, far):
+        nonlocal ok
+        if dtype == torch.bfloat16:
+            ok &= rounding_share(name, out, ref, share, far)
+
+    compare2 = lambda *a, **kw: compare(*a, **kw)[0]  # noqa: E731
+    err = check_k2_forward("ancestry_self_attention", q, ck, cv, anc, k2_roots(b), compare2, bits2)
+    for t_long in K2_LONG_CACHES:  # more slots than lanes; at 250 more than a block stages at once
         nl = K2_LONG_IMAGES * BEAM
         ql, ckl, cvl = rnd(nl, h, dk), rnd(nl, h, t_long, dk), rnd(nl, h, t_long, dk)
         ancl = torch.randint(0, BEAM, (K2_LONG_IMAGES, BEAM, t_long), generator=gen, device=dev, dtype=torch.int32)
-        for step in (40, t_long - 1):
-            out2 = k2.ancestry_self_attention(ql, ckl, cvl, ancl, step)
-            ref2 = k2.ancestry_self_attention_plain(ql, ckl, cvl, ancl, step)
-            compare(f"ancestry_self_attention T_max={t_long} t={step}", out2, ref2, rms(cvl),
-                    fault=k2.ancestry_self_attention_plain(ql, ckl, cvl, None, step))
-            if dtype == torch.bfloat16:
-                ok &= rounding_share(f"ancestry_self_attention T_max={t_long} t={step} out", out2, ref2,
-                                     K2_SHARE_LIMIT, K2_FAR_LIMIT)
+        check_k2_forward(f"ancestry_self_attention T_max={t_long}", ql, ckl, cvl, ancl, k2_roots(K2_LONG_IMAGES),
+                         compare2, bits2, steps=(40, t_long - 1))
+    # the SCST sampling decode's instance: the identity map (each row its own cache), f32 there, 64 x 15 rows
+    ni = SCST_BATCHES[-1] * SCST_SAMPLES
+    gi = k2_gen()
+    qi, cki, cvi = (torch.randn(*shape, generator=gi, device=dev).to(dtype)
+                    for shape in ((ni, h, dk), (ni, h, t_max, dk), (ni, h, t_max, dk)))
+    check_k2_forward(f"ancestry_self_attention identity {ni}", qi, cki, cvi, None, None, compare2, bits2)
+    del qi, cki, cvi
+    # the block's shared memory (dk, bytes an element, t): the paths' caches, past a stage, the longest; and
+    # the step from which the kernel stages (dk, bytes an element, kv, t), by the wrapper's rule
+    ok &= smem_agrees("ancestry_self_attention", "sct_ancestry_self_attention_smem", k2.smem_bytes,
+                      [(dk_, es_, t_) for dk_ in (64, 32, 13) for es_ in (2, 4) for t_ in (0, 16, 25, 59, 1023)])
+    ok &= smem_agrees("ancestry_self_attention", "sct_ancestry_self_attention_staged",
+                      lambda dk_, es_, kv_, t_: int(k2.staged(dk_, es_, bool(kv_), t_)),
+                      [(dk_, es_, kv_, t_) for dk_ in (64, 32, 13) for es_ in (2, 4) for kv_ in (0, 1)
+                       for t_ in range(0, 40, 3)])
     step = t_max - 1
+    anc_t = k2_map(anc, "uniform", step)
     rows = (anc_t.long() + torch.arange(b, device=dev)[:, None, None] * BEAM).reshape(n, t_max)
     slots = torch.arange(t_max, device=dev)
     kg = ck.transpose(1, 2)[rows, slots].transpose(1, 2).contiguous()  # physically reordered cache
     vg = cv.transpose(1, 2)[rows, slots].transpose(1, 2).contiguous()
+    q4 = q[:, :, None]
     # beams of one image share ancestors: the cache slots this data needs are
     # the distinct (ancestor row, slot) pairs, not N * T_max
-    touched = torch.unique(rows * t_max + slots).numel()
-    q4 = q[:, :, None]
     record("ancestry_self_attention", err,
            *turns(lambda: k2.ancestry_self_attention(q, ck, cv, anc_t, step),
                   lambda: k2.ancestry_self_attention_plain(q, ck, cv, anc_t, step),
                   lambda: F.scaled_dot_product_attention(q4, kg, vg)),
-           2 * touched * h * dk * es + 2 * n * h * dk * es + n * t_max * 4,
-           flops((dtype, 4 * n * h * t_max * dk)))
+           k2_bytes(n, step, dtype, anc_t), flops((dtype, 4 * n * h * t_max * dk)))
 
     # K3 grouped cross-attention: beam rows share their image's memory K/V
     q = rnd(n, h, dk)
@@ -1857,44 +1969,31 @@ def check_acort_kernels(gen, dtype, results: dict, timing: bool = True) -> bool:
         results["box_attention_bwd kv"].update(train_fwd_ms=fwd[0], train_fwd_unshared_ms=fwd[1])
     del q, kv, dout, kg, ug, pg, fg, graphs, ins_l, keep
 
-    # K2 kv mode: one cache array, at step 5 and the last step of ACORT's 26, then the long caches
+    # K2 kv mode: one cache array, at the first, middle and last step of ACORT's 26 on both maps, then the long
+    # caches (at 250 bf16 slots more than a block stages at once)
     q = rnd(n, h, dk)
     cache = rnd(n, h, t_max, dk)
     anc = torch.randint(0, BEAM, (b, BEAM, t_max), generator=gen, device=dev, dtype=torch.int32)
-    for step in (5, t_max - 1):
-        anc_t = anc.clone()
-        anc_t[:, :, step] = torch.arange(BEAM, device=dev, dtype=torch.int32)
-        out2 = k2.ancestry_self_attention(q, cache, None, anc_t, step)
-        ref2 = k2.ancestry_self_attention_plain(q, cache, None, anc_t, step)
-        err = compare(f"ancestry_self_attention kv t={step}", out2, ref2, rms(cache),
-                      fault=k2.ancestry_self_attention_plain(q, cache, None, None, step))  # ancestry ignored
-        same(f"ancestry_self_attention kv t={step}", out2, k2.ancestry_self_attention(q, cache, cache, anc_t, step))
-        bits(f"ancestry_self_attention kv t={step} out", out2, ref2, K2_SHARE_LIMIT, K2_FAR_LIMIT)
-    for t_long in K2_LONG_CACHES:  # at 250 bf16 slots of 8 heads, more than the block's shared memory stages
+    err = check_k2_forward("ancestry_self_attention kv", q, cache, None, anc, k2_roots(b), compare, bits, same)
+    for t_long in K2_LONG_CACHES:
         nl = K2_LONG_IMAGES * BEAM
         ql, cl = rnd(nl, h, dk), rnd(nl, h, t_long, dk)
         ancl = torch.randint(0, BEAM, (K2_LONG_IMAGES, BEAM, t_long), generator=gen, device=dev, dtype=torch.int32)
-        for step in (40, t_long - 1):
-            out_l = k2.ancestry_self_attention(ql, cl, None, ancl, step)
-            ref_l = k2.ancestry_self_attention_plain(ql, cl, None, ancl, step)
-            compare(f"ancestry_self_attention kv T_max={t_long} t={step}", out_l, ref_l, rms(cl))
-            same(f"ancestry_self_attention kv T_max={t_long} t={step}", out_l,
-                 k2.ancestry_self_attention(ql, cl, cl, ancl, step))
-            bits(f"ancestry_self_attention kv T_max={t_long} t={step} out", out_l, ref_l, K2_SHARE_LIMIT,
-                 K2_FAR_LIMIT)
-    step = t_max - 1  # anc_t is the last step's map
+        check_k2_forward(f"ancestry_self_attention kv T_max={t_long}", ql, cl, None, ancl, k2_roots(K2_LONG_IMAGES),
+                         compare, bits, same, steps=(40, t_long - 1))
+    step = t_max - 1
+    anc_t = k2_map(anc, "uniform", step)
     rows = (anc_t.long() + torch.arange(b, device=dev)[:, None, None] * BEAM).reshape(n, t_max)
     slots = torch.arange(t_max, device=dev)
     kg_ = cache.transpose(1, 2)[rows, slots].transpose(1, 2).contiguous()  # the physically reordered cache
-    touched = torch.unique(rows * t_max + slots).numel()
     q4 = q[:, :, None]
     record("ancestry_self_attention kv", err,
            turns(lambda: k2.ancestry_self_attention(q, cache, None, anc_t, step),
                  lambda: k2.ancestry_self_attention(q, cache, cache, anc_t, step),
                  lambda: k2.ancestry_self_attention_plain(q, cache, None, anc_t, step),
                  lambda: F.scaled_dot_product_attention(q4, kg_, kg_)),
-           touched * h * dk * es + 2 * n * h * dk * es + n * t_max * 4,
-           flops((dtype, 4 * n * h * t_max * dk)), "SDPA on the gathered cache as K and V")
+           k2_bytes(n, step, dtype, anc_t, kv=True), flops((dtype, 4 * n * h * t_max * dk)),
+           "SDPA on the gathered cache as K and V")
     del q, cache, kg_, q4
 
     # K3 kv mode: one memory array an image, read once for both products
@@ -2131,37 +2230,40 @@ def check_width_kernels(gen, dtype, results: dict, dk: int, positions: dict, tim
         del q, k, v, dout, kg, pg, fg
     del keep
 
-    # K2 at serving's cache: steps 5 and the last, unshared and kv
+    # K2 at serving's cache: the first, middle and last step on both maps, unshared and kv
     for kv in (False, True):
         t_max = positions[kv]
         anc = torch.randint(0, BEAM, (b, BEAM, t_max), generator=gen, device=dev, dtype=torch.int32)
         q, ck, cv = rnd(n, h, dk), rnd(n, h, t_max, dk), rnd(n, h, t_max, dk)
         cv_in, tag = (None, "ancestry_self_attention kv") if kv else (cv, "ancestry_self_attention")
-        for step in (5, t_max - 1):
-            anc_t = anc.clone()
-            anc_t[:, :, step] = torch.arange(BEAM, device=dev, dtype=torch.int32)
-            out2 = k2.ancestry_self_attention(q, ck, cv_in, anc_t, step)
-            ref2 = k2.ancestry_self_attention_plain(q, ck, cv_in, anc_t, step)
-            err = compare(f"{tag} t={step}", out2, ref2, rms(ck if kv else cv),
-                          fault=k2.ancestry_self_attention_plain(q, ck, cv_in, None, step))  # ancestry ignored
-            bits(f"{tag} t={step} out", out2, ref2, K2_SHARE_LIMIT, K2_FAR_LIMIT)
+        err = check_k2_forward(tag, q, ck, cv_in, anc, k2_roots(b), compare, bits)
         key = timed(kv, "ancestry_self_attention")
         if key:
+            anc_t = k2_map(anc, "uniform", t_max - 1)
             rows = (anc_t.long() + torch.arange(b, device=dev)[:, None, None] * BEAM).reshape(n, t_max)
             slots = torch.arange(t_max, device=dev)
             kg_ = ck.transpose(1, 2)[rows, slots].transpose(1, 2).contiguous()  # the physically reordered cache
             vg_ = kg_ if kv else cv.transpose(1, 2)[rows, slots].transpose(1, 2).contiguous()
-            touched = torch.unique(rows * t_max + slots).numel()
             q4 = q[:, :, None]
             record(key, err,
                    turns(lambda: k2.ancestry_self_attention(q, ck, cv_in, anc_t, t_max - 1),
                          lambda: k2.ancestry_self_attention_plain(q, ck, cv_in, anc_t, t_max - 1),
                          lambda: F.scaled_dot_product_attention(q4, kg_, vg_)),
-                   (1 if kv else 2) * touched * h * dk * es + 2 * n * h * dk * es + n * t_max * 4,
-                   flops((dtype, 4 * n * h * t_max * dk)),
+                   k2_bytes(n, t_max - 1, dtype, anc_t, dk=dk, kv=kv), flops((dtype, 4 * n * h * t_max * dk)),
                    f"SDPA on the gathered cache{' as K and V' if kv else ''}")
             del kg_, vg_, q4
         del q, ck, cv
+    # spans at odd offsets (dk 13: a (row, head) span starts T_max x 26 bytes after the last) and the long
+    # caches (past a block's stage: slots walked in chunks), on K2's own generator
+    g2, nl = k2_gen(), K2_LONG_IMAGES * BEAM
+    for t_x in (K2_ODD_SPANS if dk == DK_XSMALL else ()) + K2_LONG_CACHES[1:] + (k2.MAX_SLOTS,):
+        for kv in (False, True):
+            ql, ckl, cvl = (torch.randn(*shape, generator=g2, device=dev).to(dtype)
+                            for shape in ((nl, h, dk), (nl, h, t_x, dk), (nl, h, t_x, dk)))
+            ancl = torch.randint(0, BEAM, (K2_LONG_IMAGES, BEAM, t_x), generator=g2, device=dev, dtype=torch.int32)
+            check_k2_forward(f"ancestry_self_attention{' kv' if kv else ''} T_max={t_x}", ql, ckl,
+                             None if kv else cvl, ancl, k2_roots(K2_LONG_IMAGES), compare, bits)
+            del ql, ckl, cvl
 
     # K3 at serving and at the SCST sampling group (64 x 15), unshared and kv
     for kv in (False, True):
@@ -2189,11 +2291,27 @@ def check_width_kernels(gen, dtype, results: dict, dk: int, positions: dict, tim
                        f"SDPA, the memory{' as K and V' if kv else ''}")
                 del qg, cross_mask
             del q, mk, mv, out3, ref3
+    # K3 at off shapes (33 or 20 regions, 3 or 7 rows an image, 5 heads: the last unit takes one; at dk 13 no
+    # span of the first is 16-byte aligned), on its own generator
+    g3 = torch.Generator(device="cuda").manual_seed(SEED + 43)
+    for bx, rep_, r_, h_ in ((64, 3, 33, 5), (32, 7, 20, HEADS)):
+        for kv in (False, True):
+            tag = f"grouped_cross_attention{' kv' if kv else ''} {bx}x{rep_} {r_} regions {h_} heads"
+            q, mk, mv = (torch.randn(*shape, generator=g3, device=dev).to(dtype)
+                         for shape in ((bx * rep_, h_, dk), (bx, h_, r_, dk), (bx, h_, r_, dk)))
+            mv_in = None if kv else mv
+            valid = random_region_mask(g3, bx, r_, dev)
+            out3 = k3.grouped_cross_attention(q, mk, mv_in, valid)
+            ref3 = k3.grouped_cross_attention_plain(q, mk, mv_in, valid)
+            compare(tag, out3, ref3, rms(mk if kv else mv),
+                    fault=k3.grouped_cross_attention_plain(q, mk, mv_in, torch.ones_like(valid)))
+            bits(f"{tag} out", out3, ref3, K3_SHARE_LIMIT, K3_FAR_LIMIT)
+            del q, mk, mv, out3, ref3
     if dtype == torch.bfloat16:
         ok &= smem_agrees("grouped_cross_attention", "sct_grouped_cross_attention_smem",
                           lambda dk_, s_, rep_, kv_: k3.bf16_smem(s_, rep_, bool(kv_), dk_),
                           [(dk, r, BEAM, 0), (dk, r, BEAM, 1), (dk, r, SCST_SAMPLES, 1), (dk, 64, 500, 0),
-                           (dk, 64, 700, 1), (dk, r, 1400, 0)])
+                           (dk, 64, 700, 1), (dk, r, 1400, 0), (dk, 33, 3, 0), (dk, 20, 7, 1)])
 
     # K14 / K15 with k and v apart at the XE shape (256 x 5 captions, dropout 0.1) and at the SCST replay's (64 x
     # 15 samples, causal-only self, no dropout), then the kv modes at the replay's shape; the kv modes at the XE
@@ -6727,7 +6845,11 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     t0 = time.perf_counter()
     per_lib = build_all(verbose=True)
-    log(f"[setup] kernels built in {time.perf_counter() - t0:.1f}s: {per_lib}")
+    log(f"[setup] kernels built in {time.perf_counter() - t0:.1f}s; each library's own compile seconds: "
+        f"{ {name: round(sec, 1) for name, sec in per_lib.items()} }")
+    if per_lib:
+        slowest = max(per_lib, key=per_lib.get)
+        log(f"[setup] the slowest library: {slowest}, {per_lib[slowest]:.1f}s")
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     results: dict = {}

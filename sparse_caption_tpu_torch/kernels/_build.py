@@ -72,43 +72,51 @@ def _library_path(name: str) -> Path:
 def build_all(verbose: bool = False) -> Dict[str, float]:
     """Compile every kernel library that is not built yet (in parallel) and load all.
 
-    Returns the wall seconds of this call per library ("cached" ones count 0).
-    With ``verbose`` the compiler's resource report (``-Xptxas -v``) is printed."""
+    Returns each library's own compile seconds, from its ``nvcc``'s start to
+    its exit (the processes are polled; "cached" ones count 0). With
+    ``verbose`` the compiler's resource report (``-Xptxas -v``) is printed."""
     with _lock:
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         nvcc = _nvcc()
-        t0 = time.perf_counter()
-        procs: List = []
+        jobs: Dict[str, tuple] = {}
+        seconds: Dict[str, float] = {}
         for name in SOURCES:
             if name in _libs:
                 continue
             out = _library_path(name)
             if out.exists():
-                procs.append((name, out, None))
+                seconds[name] = 0.0
                 continue
             tmp = out.with_suffix(f".{os.getpid()}.tmp")
-            cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-            procs.append((name, out, (tmp, subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                                            stderr=subprocess.STDOUT, text=True))))
-        seconds: Dict[str, float] = {}
+            log = out.with_suffix(f".{os.getpid()}.log")
+            with open(log, "w") as sink:  # a file, not a pipe: a full pipe would stall a compiler
+                proc = subprocess.Popen([nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")],
+                                        stdout=sink, stderr=subprocess.STDOUT)
+            jobs[name] = (out, tmp, log, proc, time.perf_counter())
+        running = dict(jobs)
+        while running:
+            for name, (_, _, _, proc, start) in list(running.items()):
+                if proc.poll() is not None:
+                    seconds[name] = time.perf_counter() - start
+                    del running[name]
+            if running:
+                time.sleep(0.05)
         failures = []
-        for name, out, job in procs:
-            if job is not None:
-                tmp, proc = job
-                log, _ = proc.communicate()
-                seconds[name] = time.perf_counter() - t0
-                if proc.returncode != 0:
-                    failures.append(f"--- {name} ---\n{log}")
-                    continue
-                os.replace(tmp, out)
-                if verbose:
-                    print(f"[build] {name}: {seconds[name]:.1f}s\n{log.strip()}", flush=True)
-            else:
-                seconds[name] = 0.0
-            _libs[name] = ctypes.CDLL(str(out))
+        for name, (out, tmp, log, proc, _) in jobs.items():
+            text = log.read_text()
+            log.unlink()
+            if proc.returncode != 0:
+                failures.append(f"--- {name} ---\n{text}")
+                continue
+            os.replace(tmp, out)
+            if verbose:
+                print(f"[build] {name}: {seconds[name]:.1f}s\n{text.strip()}", flush=True)
         if failures:
             raise RuntimeError("nvcc failed:\n" + "\n".join(failures))
-        return seconds
+        for name in SOURCES:
+            if name not in _libs:
+                _libs[name] = ctypes.CDLL(str(_library_path(name)))
+        return {name: seconds[name] for name in SOURCES if name in seconds}
 
 
 def library(name: str) -> ctypes.CDLL:

@@ -37,6 +37,13 @@ def padded_width(dk: int) -> int:
     return 16 * -(-dk // 16)
 
 
+def envelope_cap(nbytes: int) -> int:
+    """The most bytes the 16-byte envelope of a span of `nbytes` bytes takes
+    (csrc/vec.cuh envelope_cap: the aligned 16-byte blocks that hold a span
+    that starts at most 15 bytes into its first)."""
+    return (nbytes + 15) // 16 * 16 + 16
+
+
 def check_head_width(dk: int, kernel: str) -> None:
     if dk not in HEAD_WIDTHS:
         raise ValueError(f"{kernel} kernels take head widths {HEAD_WIDTHS}; got dk={dk}")

@@ -4,8 +4,11 @@
 ``ancestry_self_attention`` launches the kernel for CUDA tensors and runs
 ``ancestry_self_attention_plain`` for CPU tensors; nothing else falls back.
 With ``cache_v=None`` (a kv-shared layer, ACORT: one cache array read as K
-and V) it launches the kernel's kv mode, which reads each cached slot once
-for both the scores and the output.
+and V) it launches the kernel's kv mode, which reads the one cache for both
+the scores and the output. The kernel walks a short row's slots one at a
+time and stages a longer row's in shared memory; ``staged`` is its rule
+(the step, the head width, the dtype, the kv mode), ``smem_bytes`` the
+staged path's block.
 
 The backward (supermask and beam-sample SCST: the gradient pass runs the
 decode itself, step by step, with gradients) is ``decode_self_attention``:
@@ -51,7 +54,13 @@ from typing import Optional
 import torch
 
 from sparse_caption_tpu_torch.kernels import _build
-from sparse_caption_tpu_torch.kernels._checks import check_float, check_head_width, check_same_device, check_tensor
+from sparse_caption_tpu_torch.kernels._checks import (
+    check_float,
+    check_head_width,
+    check_same_device,
+    check_tensor,
+    envelope_cap,
+)
 from sparse_caption_tpu_torch.ops.attention import divide_scores, score_divisor
 
 KERNEL = _build.CudaKernel("ancestry_self_attention", "sct_ancestry_self_attention", [
@@ -86,6 +95,38 @@ BWD_HEAD_WIDTHS = (64, 32, 13)  # the backward kernel's instances (f32)
 # cache slots the kernel takes: the rows PyTorch's warp softmax takes, whose
 # layout the kernel follows (csrc: 32 lanes, at most 32 slots each)
 MAX_SLOTS = 1024
+CHUNK_SLOTS = 32  # slots a warp of the forward stages at once (csrc kK2ChunkSlots)
+# the forward's bf16 steps from which the staged path runs (t + 1 slots at least; csrc k2_staged): by head
+# width, (unshared, kv); the walk before them, and in f32 up to CHUNK_SLOTS slots
+STAGED_FROM = {64: (12, 10), 32: (7, 7), 13: (5, 5)}
+BLOCK_WARPS = 8  # (row, head) items a block of the forward takes, one warp each (csrc kK2BlockWarps)
+
+
+def staged(dk: int, esize: int, kv: bool, t: int) -> bool:
+    """Whether the forward at step t stages its slots (``csrc`` ``k2_staged``)
+    or walks them one at a time (short rows: the design it replaced)."""
+    if t + 1 > CHUNK_SLOTS:
+        return True
+    return esize == 2 and t + 1 >= STAGED_FROM[dk][int(kv)]
+
+
+def slot_pitch(dk: int, esize: int) -> int:
+    """Bytes a staged slot takes in the forward (``csrc`` ``k2_pitch``): dk
+    elements + 16 where they are whole 16-byte vectors (dk 64, 32), else the
+    16-byte envelope of a slot's row (dk 13: 48 bytes in bf16)."""
+    nbytes = dk * esize
+    return nbytes + 16 if nbytes % 16 == 0 else envelope_cap(nbytes)
+
+
+def smem_bytes(dk: int, esize: int, t: int) -> int:
+    """Shared memory of the forward's block at step t (``csrc``
+    ``k2_smem_bytes``): BLOCK_WARPS warps, each its key and value stages of
+    min(t + 1, CHUNK_SLOTS) slots, its row's t + 1 scores and cache rows and
+    its q (4 bytes each, rounded up to 4), and its slots' staged rows'
+    offsets (2 bytes each, rounded up to 8)."""
+    t1 = t + 1
+    return BLOCK_WARPS * (2 * min(t1, CHUNK_SLOTS) * slot_pitch(dk, esize) + 4 * (2 * -(-t1 // 4) * 4 + -(-dk // 4) * 4)
+                          + 2 * -(-t1 // 8) * 8)
 
 
 def ancestry_self_attention_plain(q, cache_k, cache_v: Optional[torch.Tensor], ancestry: Optional[torch.Tensor],
@@ -139,6 +180,9 @@ def ancestry_self_attention(q, cache_k, cache_v: Optional[torch.Tensor], ancestr
     if h > 32 or t_max > MAX_SLOTS:
         raise ValueError(f"ancestry_self_attention kernel takes h <= 32, T_max <= {MAX_SLOTS}; got h={h} "
                          f"T_max={t_max}")
+    if any(c is not None and c.data_ptr() % 16 for c in (cache_k, cache_v)):
+        raise ValueError("ancestry_self_attention: the kernel copies the caches' slots by 16-byte blocks from "
+                         "16-byte aligned data")
     out = torch.empty_like(q)
     if cache_v is None:
         KERNEL_KV.launch(_build.dtype_code(q), dk, q.data_ptr(), cache_k.data_ptr(), _build.ptr(ancestry),

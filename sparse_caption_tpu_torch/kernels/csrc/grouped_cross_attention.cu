@@ -38,9 +38,18 @@
 // ldmatrix.trans, P V's); a bf16 unit's stage is (S + rep) x 2 + 1 rows
 // instead of (2 S + rep) x 2 + 1. Bytes at ACORT serving (B = 2048, 36
 // regions, 8 heads): 75.5 MB of memory rows instead of 151.
-// Head width 13 (ORT-xsmall): rows staged element by element at width 16,
-// columns 13-15 zero (common.cuh kPad), one mma k-step over d; only the 13
-// real columns of out written.
+// Head width 13 (ORT-xsmall): rows of 26 bytes (52 in f32), 2-byte aligned,
+// so no 16-byte copy reaches a row alone. A unit's K rows (its heads' S rows
+// each) are one contiguous span, its V rows another, and each beam's q rows
+// for the unit's heads a third; each span lands whole by 16-byte cp.async
+// copies of its 16-byte envelope (vec.cuh envelope_*; at S = 36, H = 8 the
+// K and V spans, 1,872 bytes, are aligned and copied exactly), into a raw
+// stage (two units deep, as above), and is then repacked in shared memory
+// into the 16-wide rows the fragment loads read (columns 13-15 zero,
+// common.cuh kPad; one tile: the raw stage of the next unit lands while
+// this one computes). One mma k-step over d; only the 13 real columns of
+// out written. The f32 kernel copies its (image, head)'s K and V spans the
+// same way and repacks them into its key and value tiles.
 #include "common.cuh"
 #include "mma.cuh"
 #include "vec.cuh"
@@ -61,9 +70,18 @@ __host__ __device__ inline int cross_stage_rows(int S, int rep, bool kv) {
   return ((kv ? 1 : 2) * S + rep) * kXHeads + 1;
 }
 
-// `stages` stages and a zero row
+// head width 13: a raw stage of a unit, its envelopes (vec.cuh envelope_cap): the K span (kXHeads x S
+// rows), the V span (not in the kv mode), a q span a beam (kXHeads rows), then the S region flags
+__host__ __device__ inline int cross_raw_bytes(int dk, int S, int rep, bool kv) {
+  return (kv ? 1 : 2) * envelope_cap(kXHeads * S * dk * 2) + rep * envelope_cap(kXHeads * dk * 2) +
+         (S + 15) / 16 * 16;
+}
+
+// `stages` stages and a zero row; head width 13: one repacked stage, a zero row and `stages` raw stages
 inline size_t cross_smem_bytes(int dk, int S, int rep, int stages, bool kv) {
-  return (stages * (size_t)cross_stage_rows(S, rep, kv) + 1) * (padded_width(dk) + 8) * sizeof(bf16);
+  const size_t row = (padded_width(dk) + 8) * sizeof(bf16), rows = cross_stage_rows(S, rep, kv);
+  if (dk % 8 != 0) return (rows + 1) * row + stages * (size_t)cross_raw_bytes(dk, S, rep, kv);
+  return (stages * rows + 1) * row;
 }
 
 // the stages that fit (2, else 1; 0: none)
@@ -199,17 +217,32 @@ grouped_cross_attention_bf16_kernel(const bf16* __restrict__ q, const bf16* __re
                                     const bf16* __restrict__ mem_v, const unsigned char* __restrict__ mask,
                                     bf16* __restrict__ out, int B, int H, int S, int rep, float sqrt_dk, int stages) {
   extern __shared__ __align__(128) unsigned char smem_raw[];
-  // [stage][K: kXHeads x S, V: kXHeads x S (not in the kv mode), q: rep x kXHeads][LD]
+  // [stage][K: kXHeads x S, V: kXHeads x S (not in the kv mode), q: rep x kXHeads][LD]; head width 13: one
+  // such stage, the zero row, then the raw stages (cross_raw_bytes)
   bf16* tiles = reinterpret_cast<bf16*>(smem_raw);
   constexpr int NKV = KV ? 1 : 2;  // staged memory arrays
   constexpr int LD = kXLd<DK>, RC = DK / 8, P = kPad<DK>;  // RC: 16-byte chunks of a row
   const int stage_rows = cross_stage_rows(S, rep, KV), groups = (H + kXHeads - 1) / kXHeads, units = B * groups;
-  // the region flags go to the stage's last row when they are whole 4-byte copies that fit in it (2 LD bytes:
-  // 48 at dk 13), else they are read from global memory
+  // the region flags go to the stage's last row (the raw stage's end at dk 13) when they are whole 4-byte
+  // copies that fit in it (2 LD bytes), else they are read from global memory
   const bool flags_staged = S % 4 == 0 && S <= 2 * LD;
-  bf16* zero = tiles + stages * stage_rows * LD;
+  bf16* zero = tiles + (kNarrow<DK> ? 1 : stages) * stage_rows * LD;
+  // head width 13: the raw stages, each its K span, V span, the beams' q spans and the flags
+  const int kspan = envelope_cap(kXHeads * S * DK * 2), qspan = envelope_cap(kXHeads * DK * 2);
+  const int raw_bytes = cross_raw_bytes(DK, S, rep, KV), flags_at = NKV * kspan + rep * qspan;
+  unsigned char* raw = reinterpret_cast<unsigned char*>(zero + LD);
   const int warp = threadIdx.x / 32, nwarps = blockDim.x / 32;
   for (int e = threadIdx.x; e < LD; e += blockDim.x) zero[e] = __float2bfloat16_rn(0.f);
+  // head width 13: span i of unit u (K, V unless kv, then beam i - NKV's q rows) in global memory
+  auto narrow_span = [&](int u, int i, int& elems) -> const bf16* {
+    const int b = u / groups, h0 = (u - b * groups) * kXHeads, hn = min(kXHeads, H - h0);
+    if (i < NKV) {
+      elems = hn * S * DK;
+      return (i == 0 ? mem_k : mem_v) + ((size_t)b * H + h0) * S * DK;
+    }
+    elems = hn * DK;
+    return q + (((size_t)b * rep + i - NKV) * H + h0) * DK;
+  };
 
   // unit u: image u / groups, heads h0 .. h0 + hn - 1; K, V rows contiguous, q rows hn to a beam
   auto issue = [&](int u, int s) {
@@ -230,19 +263,23 @@ grouped_cross_attention_bf16_kernel(const bf16* __restrict__ q, const bf16* __re
     };
     const int unit_rows = NKV * kv_rows + rep * hn;
     const int chunks = kNarrow<DK> ? 0 : unit_rows * RC;
-    if constexpr (kNarrow<DK>) {  // one element a thread
-      for (int e = threadIdx.x; e < unit_rows * P; e += blockDim.x) {
-        const int r = e / P, c = e - (e / P) * P;
-        const bf16* src;
-        int dst;
-        row_of(r, src, dst);
-        st[dst * LD + c] = padded_elem<DK>(src, c);
+    unsigned char* flags_dst = reinterpret_cast<unsigned char*>(st + (stage_rows - 1) * LD);
+    if constexpr (kNarrow<DK>) {  // the unit's spans, each over its envelope, into raw stage s
+      unsigned char* rs = raw + s * raw_bytes;
+      const int pk = kspan / 16, pq = qspan / 16;
+      for (int e = threadIdx.x; e < NKV * pk + rep * pq; e += blockDim.x) {
+        const int i = e < NKV * pk ? e / pk : NKV + (e - NKV * pk) / pq;
+        const int c = e < NKV * pk ? e - i * pk : e - NKV * pk - (i - NKV) * pq;
+        int elems;
+        const bf16* src = narrow_span(u, i, elems);
+        unsigned char* dst = rs + (i < NKV ? i * kspan : NKV * kspan + (i - NKV) * qspan);
+        if (c < envelope_copies(src, elems * 2)) cp_async<16>(dst + 16 * c, envelope_lo(src) + 16 * c);
       }
+      flags_dst = rs + flags_at;
     }
     for (int c = threadIdx.x; c < chunks + (flags_staged ? S / 4 : 0); c += blockDim.x) {
       if (c >= chunks) {  // the region flags, 4 a copy (then read from shared memory)
-        cp_async<4>(reinterpret_cast<unsigned char*>(st + (stage_rows - 1) * LD) + 4 * (c - chunks),
-                    mask + (size_t)b * S + 4 * (c - chunks));
+        cp_async<4>(flags_dst + 4 * (c - chunks), mask + (size_t)b * S + 4 * (c - chunks));
         continue;
       }
       const int r = c / RC, part = (c % RC) * 8;
@@ -270,9 +307,40 @@ grouped_cross_attention_bf16_kernel(const bf16* __restrict__ q, const bf16* __re
     }
     __syncthreads();  // every thread's copies of unit u have landed
     const int b = u / groups, h0 = (u - b * groups) * kXHeads, hn = min(kXHeads, H - h0);
-    const bf16* st = tiles + s * stage_rows * LD;
+    const bf16* st = tiles + (kNarrow<DK> ? 0 : s) * stage_rows * LD;
     const unsigned char* mask_b = flags_staged ? reinterpret_cast<const unsigned char*>(st + (stage_rows - 1) * LD)
                                               : mask + (size_t)b * S;
+    if constexpr (kNarrow<DK>) {  // raw stage s repacked, a row a thread, into the 16-wide rows, columns 13-15 zero
+      const unsigned char* rs = raw + s * raw_bytes;
+      const int kv_rows = hn * S, unit_rows = NKV * kv_rows + rep * hn;
+      for (int r = threadIdx.x; r < unit_rows; r += blockDim.x) {
+        int i, idx, dst, elems;  // span, element of the row's first column in it, staged row
+        if (r < NKV * kv_rows) {
+          i = r < kv_rows ? 0 : 1;
+          idx = (r - i * kv_rows) * DK;
+          dst = r < kv_rows ? r : kXHeads * S + r - kv_rows;
+        } else {
+          const int qr = r - NKV * kv_rows, beam = qr / hn;
+          i = NKV + beam;
+          idx = (qr - beam * hn) * DK;
+          dst = NKV * kXHeads * S + qr;
+        }
+        const bf16* src = narrow_span(u, i, elems);
+        const unsigned char* span = rs + (i < NKV ? i * kspan : NKV * kspan + (i - NKV) * qspan);
+        const bf16* row = reinterpret_cast<const bf16*>(span + envelope_offset(src)) + idx;
+        const unsigned short* bits = reinterpret_cast<const unsigned short*>(row);
+        uint32_t w[P / 2];
+#pragma unroll
+        for (int c = 0; c < P / 2; ++c) {
+          w[c] = (2 * c < DK ? bits[2 * c] : 0u) | (2 * c + 1 < DK ? (uint32_t)bits[2 * c + 1] << 16 : 0u);
+        }
+        uint4* dst_row = reinterpret_cast<uint4*>(tiles + dst * LD);
+#pragma unroll
+        for (int c = 0; c < P / 8; ++c) dst_row[c] = make_uint4(w[4 * c], w[4 * c + 1], w[4 * c + 2], w[4 * c + 3]);
+      }
+      if (flags_staged) mask_b = rs + flags_at;
+      __syncthreads();
+    }
     for (int item = warp; item < hn * mtiles; item += nwarps) {
       const int hl = item / mtiles, mt = item - hl * mtiles;
       const bf16* ks = st + hl * S * LD;  // the kv mode reads these rows as V too
@@ -313,10 +381,13 @@ __global__ void __launch_bounds__(kCrossThreads)
 grouped_cross_attention_f32_kernel(const float* __restrict__ q, const float* __restrict__ mem_k,
                                    const float* __restrict__ mem_v, const unsigned char* __restrict__ mask,
                                    float* __restrict__ out, int H, int S, int rep, float sqrt_dk) {
-  extern __shared__ float smem[];
+  extern __shared__ __align__(16) float smem[];
   const int nwarps = blockDim.x / 32, warp = threadIdx.x / 32, lane = threadIdx.x & 31;
   constexpr int KS = kKeyStride<DK>, VS = kValStride<DK>, DP = kPad<DK>;
-  float* k_s = smem;                                 // S * KS
+  // head width 13: the K and V spans' envelopes first (raw, envelope_cap bytes each)
+  unsigned char* raw = reinterpret_cast<unsigned char*>(smem);
+  const int span = envelope_cap(S * DK * 4);
+  float* k_s = smem + (kNarrow<DK> ? (KV ? 1 : 2) * span / 4 : 0);  // S * KS
   float* v_s = KV ? k_s : k_s + S * KS;              // S * VS, the K tile in the kv mode
   float* q_s = k_s + S * (KS + (KV ? 0 : VS));       // nwarps * DP
   float* p_s = q_s + nwarps * DP;                    // nwarps * 64 (a row's keys)
@@ -324,8 +395,25 @@ grouped_cross_attention_f32_kernel(const float* __restrict__ q, const float* __r
 
   const int b = blockIdx.x / H, h = blockIdx.x - (blockIdx.x / H) * H;
   const size_t base = ((size_t)b * H + h) * S * DK;
-  load_tile<DK>(k_s, mem_k + base, S, KS);
-  if (!KV) load_tile<DK>(v_s, mem_v + base, S, VS);
+  if constexpr (kNarrow<DK>) {  // each span whole by 16-byte copies, then repacked at width 16
+    for (int a = 0; a < (KV ? 1 : 2); ++a) {
+      const float* src = (a == 0 ? mem_k : mem_v) + base;
+      for (int c = threadIdx.x; c < envelope_copies(src, S * DK * 4); c += blockDim.x) {
+        cp_async<16>(raw + a * span + 16 * c, envelope_lo(src) + 16 * c);
+      }
+    }
+    cp_async_commit();
+    cp_async_wait<0>();
+    __syncthreads();
+    for (int a = 0; a < (KV ? 1 : 2); ++a) {
+      const float* src = (a == 0 ? mem_k : mem_v) + base;
+      const float* row = reinterpret_cast<const float*>(raw + a * span + envelope_offset(src));
+      stage_padded<DK>(a == 0 ? k_s : v_s, a == 0 ? KS : VS, row, S, threadIdx.x, blockDim.x);
+    }
+  } else {
+    load_tile<DK>(k_s, mem_k + base, S, KS);
+    if (!KV) load_tile<DK>(v_s, mem_v + base, S, VS);
+  }
   for (int e = threadIdx.x; e < S; e += blockDim.x) mask_s[e] = mask[(size_t)b * S + e];
   __syncthreads();
 
@@ -347,8 +435,10 @@ template <int DK, bool KV>
 cudaError_t launch_f32(const void* q, const void* mk, const void* mv, const void* mask, void* out, int B, int H,
                        int S, int rep, float sqrt_dk, cudaStream_t stream) {
   const int nwarps = kCrossThreads / 32;
+  const size_t raw = kNarrow<DK> ? (KV ? 1 : 2) * (size_t)envelope_cap(S * DK * 4) : 0;  // head width 13's spans
   const size_t smem =
-      ((size_t)S * (kKeyStride<DK> + (KV ? 0 : kValStride<DK>)) + (size_t)nwarps * (kPad<DK> + 64)) * sizeof(float) + S;
+      ((size_t)S * (kKeyStride<DK> + (KV ? 0 : kValStride<DK>)) + (size_t)nwarps * (kPad<DK> + 64)) * sizeof(float) +
+      S + raw;
   grouped_cross_attention_f32_kernel<DK, KV><<<B * H, kCrossThreads, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(mk), static_cast<const float*>(mv),
       static_cast<const unsigned char*>(mask), static_cast<float*>(out), H, S, rep, sqrt_dk);

@@ -133,6 +133,23 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
+// A span of `bytes` bytes at p that starts anywhere (a 13-wide row is 26
+// bytes, 2-byte aligned) is copied whole by 16-byte cp.async copies of its
+// envelope, the aligned 16-byte blocks that hold it: `envelope_copies` of
+// them from `envelope_lo`, the span then `envelope_offset` bytes into the
+// copy. `envelope_cap`: the most bytes an envelope of such a span takes
+// (it starts at most 15 bytes into its first block).
+__host__ __device__ inline int envelope_cap(int bytes) { return (bytes + 15) / 16 * 16 + 16; }
+__device__ __forceinline__ int envelope_offset(const void* p) {
+  return (int)(reinterpret_cast<uintptr_t>(p) & 15);
+}
+__device__ __forceinline__ const unsigned char* envelope_lo(const void* p) {
+  return reinterpret_cast<const unsigned char*>(reinterpret_cast<uintptr_t>(p) & ~uintptr_t(15));
+}
+__device__ __forceinline__ int envelope_copies(const void* p, int bytes) {
+  return (envelope_offset(p) + bytes + 15) / 16;
+}
+
 // a null pointer counts as aligned (an absent operand)
 __host__ __device__ inline bool aligned_to(const void* p, uintptr_t bytes) {
   return p == nullptr || (reinterpret_cast<uintptr_t>(p) & (bytes - 1)) == 0;

@@ -35,6 +35,7 @@ from sparse_caption_tpu_torch.kernels._checks import (
     check_head_width,
     check_same_device,
     check_tensor,
+    envelope_cap,
     padded_width,
 )
 from sparse_caption_tpu_torch.ops.attention import NEG_INF, divide_scores, score_divisor
@@ -62,14 +63,28 @@ BWD_HEAD_WIDTHS = (64, 32, 13)  # the backward kernel's instances (f32)
 UNIT_HEADS = 2  # heads of an image one unit of the bf16 kernel takes (csrc kXHeads)
 
 
+def raw_stage_bytes(regions: int, rep: int, kv: bool = False, dk: int = 13) -> int:
+    """A raw stage of the bf16 kernel at head width 13 (``cross_raw_bytes``):
+    the envelopes of a unit's K span (its 2 heads' regions rows), V span (not
+    in the kv mode) and a q span a beam (2 rows), then the region flags."""
+    return ((1 if kv else 2) * envelope_cap(UNIT_HEADS * regions * dk * 2) + rep * envelope_cap(UNIT_HEADS * dk * 2)
+            + (regions + 15) // 16 * 16)
+
+
 def bf16_smem(regions: int, rep: int, kv: bool = False, dk: int = 64) -> int:
     """Shared memory of the bf16 kernel (``cross_smem_bytes``): two stages of
     a unit's rows if they fit, else one (K and V of its 2 heads, regions rows
     each, K alone in the kv mode, its rep x 2 q rows and a row of region
     flags), and a zero row, each row 2 (padded_width(dk) + 8) bytes (144 at
-    dk 64, 80 at 32, 48 at 13). 0 when even one stage does not fit."""
+    dk 64, 80 at 32, 48 at 13). At head width 13 the stages are raw
+    (``raw_stage_bytes``, copied whole) and repacked into one stage of rows.
+    0 when even one stage does not fit."""
+    row, rows = 2 * (padded_width(dk) + 8), ((1 if kv else 2) * regions + rep) * UNIT_HEADS + 1
     for stages in (2, 1):
-        nbytes = (stages * (((1 if kv else 2) * regions + rep) * UNIT_HEADS + 1) + 1) * 2 * (padded_width(dk) + 8)
+        if dk % 8:
+            nbytes = (rows + 1) * row + stages * raw_stage_bytes(regions, rep, kv, dk)
+        else:
+            nbytes = (stages * rows + 1) * row
         if nbytes <= _build.BLOCK_SMEM_LIMIT:
             return nbytes
     return 0

@@ -231,9 +231,11 @@ def test_dk13_shared_memory_counted_by_hand():
     positions: self over 17 keys, cross over 36 regions, 5 captions an image)
     and the kv modes at ACORT's 26 positions."""
     assert row_pitch(13) == 24 and row_pitch(32) == 40 and row_pitch(64) == 72
-    # K3: 2 stages of ((2 or 1) x regions + rep) x 2 heads + 1 flag row, and a zero row
-    assert k3_bf16_smem(36, 5, dk=13) == (2 * ((2 * 36 + 5) * 2 + 1) + 1) * 48 == 14_928
-    assert k3_bf16_smem(36, 5, kv=True, dk=13) == (2 * ((36 + 5) * 2 + 1) + 1) * 48
+    # K3: one stage of ((2 or 1) x regions + rep) x 2 heads + 1 flag row, a zero row, and 2 raw stages: the
+    # 16-byte envelopes of the K (and V) span, 2 x 36 x 13 x 2 = 1,872 bytes + 16, of each beam's q span, 2 x
+    # 13 x 2 = 52 bytes -> 64 + 16, and the 36 region flags -> 48
+    assert k3_bf16_smem(36, 5, dk=13) == ((2 * 36 + 5) * 2 + 2) * 48 + 2 * (2 * 1_888 + 5 * 80 + 48) == 15_936
+    assert k3_bf16_smem(36, 5, kv=True, dk=13) == ((36 + 5) * 2 + 2) * 48 + 2 * (1_888 + 5 * 80 + 48)
     # K14: 2 stages of (K, V, the group's q rows) and each member's keep flags, + a zero row
     kp = lambda tq, tk: 16 * -(-(tq * tk + 15) // 16)  # noqa: E731
     assert bf16_forward_smem(17, 17, 1, True, dk=13) == 2 * (2 * (2 * 17 + 17) * 24 + kp(17, 17)) + 48
