@@ -27,7 +27,15 @@
 # cache's earlier chunks dropped from p v, the softmax's sum over the first
 # 32 slots alone, the kv mode's values read from its unfilled V stage or its
 # stage read before the copies land, the dk 13 envelope's offset one element
-# off) and K3's dk 13 repack shifted by one column (bf16 and f32). Each
+# off) and K3's dk 13 repack shifted by one column (bf16 and f32), and the
+# bf16 log-softmax's log-sum left unrounded (K13, K4, K9 share it) and K4's
+# held threshold without its bf16 margin, and K2's ancestry-mode backward
+# (the map ignored, a pair's readers each overwriting the last, slot t's own
+# term dropped, the next readers dropped, a touched pair's last 16-byte copy
+# missing, a long cache's dq chunks overwriting each other, the kv mode's V
+# term dropped, dk 13 read from its envelope's start) and K3's backward (the
+# kv mode's values read past K, a slice of dq's regions dropped, the dk 13
+# repack shifted by one element). Each
 # mutant is a copy of the
 # port under build/mutants/<name>/ with sed edits to one CUDA source (or,
 # with run_mutant_cmd, any shell edit run in its csrc/, the wrappers beside
@@ -173,7 +181,9 @@ run_mutant k4_unk_penalty_dropped beam_topk.cu 's/  if (i == unk_id) c += -1000.
 run_mutant k4_ban_eos_ignored beam_topk.cu 's/  if (no_eos \&\& i == eos_id) c += kNegBig;/  ;/' "torch.float32, torch.bfloat16" "$K4"
 run_mutant k4_ties_to_higher_index beam_topk.cu 's/  return ((unsigned long long)order_key(v) << 32) | (0xFFFFFFFFu - (unsigned int)i);/  return ((unsigned long long)order_key(v) << 32) | (unsigned int)i;/; s/{ return (int)(0xFFFFFFFFu - (unsigned int)key); }/{ return (int)(unsigned int)key; }/' "torch.bfloat16," "$K4"
 run_mutant k4_last_vector_skipped beam_topk.cu 's/  const int units = V \/ UE;/  const int units = V \/ UE - 1;/' "torch.float32, torch.bfloat16" "$K4"
-run_mutant k4_logprob_reassociated beam_topk.cu 's/const float lp = round_to<T>((xv - m) - logsum);/const float lp = round_to<T>(xv - (m + logsum));/' "torch.float32, torch.bfloat16" "$K4"
+run_mutant k4_logprob_reassociated beam_topk.cu 's/const float lp = lsm_logprob<T>(xv, m, lse);/const float lp = round_to<T>(xv - (m + lse));/' "torch.float32, torch.bfloat16" "$K4"
+run_mutant lsm_lse_unrounded common.cuh 's/return round_to<R>(logf(round_to<R>(s)));/return logf(s);/' "torch.bfloat16," "$K613"
+run_mutant k4_threshold_margin_dropped beam_topk.cu 's/(sizeof(T) == 2 ? (2.f \* fabsf(thr) + fabsf(lse)) \* 0x1p-7f/(sizeof(T) == 2 ? 0.f/' "torch.bfloat16," "$K4"
 run_mutant k12_tanh_input_unrounded additive_attention.cu 's/const uint32_t tr = tanh_bits(xr \& 0xFFFFu, tab) | (tanh_bits(xr >> 16, tab) << 16);/const uint32_t tr = pack_bf16x2(tanhf(bf16_lo(pw[i]) + bf16_lo(hw[i])), tanhf(bf16_hi(pw[i]) + bf16_hi(hw[i])));/' "torch.bfloat16," "$K12"
 run_mutant k12_mask_ignored_in_renorm additive_attention.cu 's/const float q0 = in0 \&\& mask_b\[lane\] ? p0 : 0.f;/const float q0 = in0 ? p0 : 0.f;/; s/const float q1 = in1 \&\& mask_b\[lane + 32\] ? p1 : 0.f;/const float q1 = in1 ? p1 : 0.f;/' "torch.float32, torch.bfloat16" "$K12"
 run_mutant k12_last_region_skipped additive_attention.cu 's/for (int r = 0; r < R; ++r) {  \/\/ the weighted sum over regions/for (int r = 0; r < R - 1; ++r) {  \/\/ the weighted sum over regions/' "torch.float32, torch.bfloat16" "$K12"
@@ -215,8 +225,8 @@ run_mutant k1_dk32_q_rows_strided_by_64 box_attention.cu 's/(q_s + i \* DP + d);
 run_mutant dk13_pad_columns_unzeroed common.cuh 's/  return c < DK ? src\[c\] : from_f<T>(0.f);/  return src[c];/' "torch.float32, torch.bfloat16" "$K13W"
 run_mutant k15_kv_dkv_summed_before_rounding decoder_attention_bwd.cu 's/tot\[nt\]\[e\] = round_to<bf16>(round_to<bf16>(tot\[nt\]\[e\]) + round_to<bf16>(tv\[nt\]\[e\]));/tot[nt][e] = tot[nt][e] + tv[nt][e];/' "torch.bfloat16," "$KV"
 run_mutant k14_kv_v_through_second_pointer decoder_attention.cu 's/decoder_attention_entry(dtype, dk, q, kv, nullptr, key_valid,/decoder_attention_entry(dtype, dk, q, kv, q, key_valid,/' "torch.float32, torch.bfloat16" "$KV"
-run_mutant k2_bwd_own_slot_dropped ancestry_self_attention_bwd.cuh 's/    tk.store(dk_t + to, lane);/    ck.store(dk_t + to, lane);/; s/    tv.store(dv_t + to, lane);/    cv.store(dv_t + to, lane);/' "torch.float32," "$KBWD"
-run_mutant k2_bwd_cache_grad_order ancestry_self_attention_bwd.cuh 's/    tk.store(dk_t + to, lane);/    dkv.store(dk_t + to, lane);/; s/    tv.store(dv_t + to, lane);/    dvv.store(dv_t + to, lane);/' "torch.float32," "$KBWD"
+run_mutant k2_bwd_own_slot_dropped ancestry_self_attention_bwd.cu 's/    tk.store(dk_t + to, lane);/    ck.store(dk_t + to, lane);/; s/    tv.store(dv_t + to, lane);/    cv.store(dv_t + to, lane);/' "torch.float32," "$KBWD"
+run_mutant k2_bwd_cache_grad_order ancestry_self_attention_bwd.cu 's/    tk.store(dk_t + to, lane);/    dkv.store(dk_t + to, lane);/; s/    tv.store(dv_t + to, lane);/    dvv.store(dv_t + to, lane);/' "torch.float32," "$KBWD"
 run_mutant k3_bwd_first_row_only grouped_cross_attention_bwd.cu 's/    for (int r = 0; r < rep; ++r) {/    for (int r = 0; r < 1; ++r) {/' "torch.float32," "$KBWD"
 run_mutant k5_keyed_ignores_t supermask.cu 's/Philox4{d.site, d.t, (uint32_t)e4, 0u}/Philox4{d.site, 0u, (uint32_t)e4, 0u}/' "torch.float32," "$K5"
 run_mutant k9_topk_ties_dropped sample_step.cu 's/s >= kth/s > kth/g' "torch.float32," "$K9M"
@@ -234,12 +244,20 @@ run_mutant k4_diverse_bitmap_misses_last beam_topk.cu 's/    for (int j = tid; j
 run_mutant k1_raw_geometry_unrounded box_geometry.cuh 's/  for (int c = 0; c < kRawG; ++c) pos\[c\] = round_to<T>(pair_delta(bi, bj, c));/  for (int c = 0; c < kRawG; ++c) pos[c] = pair_delta(bi, bj, c);/' "torch.bfloat16," "$KRAW"
 run_mutant k9_ss_coin_inverted sample_step.cu 's/  if (!(static_cast<float>(coin_bits >> 8) \* 0x1p-24f < ss_prob)) {/  if (static_cast<float>(coin_bits >> 8) * 0x1p-24f < ss_prob) {/' "torch.float32," "$K9SS"
 run_mutant k9_ss_noise_in_f32_under_bf16 sample_step.cu 's/  return -round_to<__nv_bfloat16>(logf(-round_to<__nv_bfloat16>(logf(u))));/  return -logf(-logf(u));/' "torch.float32," "$K9SS"
-run_mutant k2_bwd_anc_identity_map ancestry_self_attention_bwd_anc.cu 's/    map_s\[i\] = anc\[((size_t)b \* K + i \/ T1) \* t_max + i % T1\];/    map_s[i] = i \/ T1;/' "torch.float32," "$K2A"
-run_mutant k2_bwd_anc_last_writer_wins ancestry_self_attention_bwd_anc.cu 's/        dkv.add(ds_s\[r \* T1 + s\], qr);/        dkv = qr.times(ds_s[r * T1 + s]);/; s/        dvv.add(p_s\[r \* T1 + s\], gr);/        dvv = gr.times(p_s[r * T1 + s]);/' "torch.float32," "$K2A"
-run_mutant k2_bwd_kv_v_term_dropped ancestry_self_attention_bwd.cuh 's/    const L tot = ck.plus(dkv.plus(dvv));/    const L tot = ck.plus(dkv);/' "torch.float32," "$KSW"
-run_mutant k2_bwd_kv_score_term_dropped ancestry_self_attention_bwd.cuh 's/    const L tot = ck.plus(dkv.plus(dvv));/    const L tot = ck.plus(dvv);/' "torch.float32," "$KSW"
+run_mutant k2_bwd_anc_identity_map ancestry_self_attention_bwd_anc.cu 's/__ldg(mp + (size_t)r \* t_max + s)/r/g; s/__ldg(mp + (size_t)o \* t_max + s)/o/g; s/__ldg(mp + (size_t)x \* t_max + s)/x/g' "torch.float32," "$K2A"
+run_mutant k2_bwd_anc_last_writer_wins ancestry_self_attention_bwd_anc.cu 's/        gk.fma(ds_s\[r \* T1 + s\], q_s + r \* DK + W \* g);/        gk.zero(); gk.fma(ds_s[r * T1 + s], q_s + r * DK + W * g);/; s/        gv.fma(p_s\[r \* T1 + s\], g_s + r \* DK + W \* g);/        gv.zero(); gv.fma(p_s[r * T1 + s], g_s + r * DK + W * g);/' "torch.float32," "$K2A"
+run_mutant k2_bwd_anc_own_slot_dropped ancestry_self_attention_bwd_anc.cu 's/        ck.plus(gk).store(dk_t + to);/        ck.store(dk_t + to);/; s/        cv.plus(gv).store(dv_t + to);/        cv.store(dv_t + to);/' "torch.float32," "$K2A"
+run_mutant k2_bwd_anc_next_reader_dropped ancestry_self_attention_bwd_anc.cu 's/    next_s\[i\] = (short)nx;/    next_s[i] = (short)-1;/' "torch.float32," "$K2A"
+run_mutant k2_bwd_anc_stage_misses_last_copy ancestry_self_attention_bwd_anc.cu 's/      for (int v = 0; v < NV; ++v) copy_vector(j, s, 0, v);/      for (int v = 0; v < NV - 1; ++v) copy_vector(j, s, 0, v);/' "torch.float32," "$K2A"
+run_mutant k2_bwd_anc_dq_chunk_overwrites ancestry_self_attention_bwd_anc.cu 's/        acc = before.plus(acc);/        before.zero(); acc = before.plus(acc);/' "torch.float32," "$K2A"
+run_mutant k2_bwd_anc_kv_v_term_dropped ancestry_self_attention_bwd_anc.cu 's/        ck.plus(gk.plus(gv)).store(/        ck.plus(gk).store(/' "torch.float32," "$KSW"
+run_mutant k2_bwd_anc_dk13_envelope_offset_ignored ancestry_self_attention_bwd_anc.cu 's/    const int off = DK % 4 == 0 ? 0 : (int)((reinterpret_cast<uintptr_t>(g) \& 15) >> 2);/    const int off = 0;/' "torch.float32," "$KSW"
+run_mutant k2_bwd_kv_v_term_dropped ancestry_self_attention_bwd.cu 's/    const L tot = ck.plus(dkv.plus(dvv));/    const L tot = ck.plus(dkv);/' "torch.float32," "$KSW"
+run_mutant k2_bwd_kv_score_term_dropped ancestry_self_attention_bwd.cu 's/    const L tot = ck.plus(dkv.plus(dvv));/    const L tot = ck.plus(dvv);/' "torch.float32," "$KSW"
 run_mutant k2_bwd_dk13_reads_pad_lanes common.cuh 's/  __device__ __forceinline__ void load(const T\* p, int lane) { v = lane < DK ? to_f(\*p) : 0.f; }/  __device__ __forceinline__ void load(const T* p, int lane) { v = lane < kPad<DK> ? to_f(*p) : 0.f; }/' "torch.float32," "$KSW"
-run_mutant k3_bwd_kv_stages_k_twice grouped_cross_attention_bwd.cu 's/  if (!kv) load_tile<DK>(v_s, v_src + base, S, KS);/  load_tile<DK>(v_s, v_src + base, S, kValStride<DK>);/' "torch.float32," "$KSW"
+run_mutant k3_bwd_kv_values_read_past_k grouped_cross_attention_bwd.cu 's/  float\* v_s = kv ? k_s : k_s + S \* PK; /  float* v_s = k_s + S * PK; /' "torch.float32," "$KSW"
+run_mutant k3_bwd_dq_slice_dropped grouped_cross_attention_bwd.cu 's/    for (int o = G; o < 32; o <<= 1) {/    for (int o = G; o < 16; o <<= 1) {/' "torch.float32," "$KSW"
+run_mutant k3_bwd_dk13_repack_shifted grouped_cross_attention_bwd.cu 's/      k_s\[j \* PK + d\] = d < DK ? raw\[ok + j \* DK + d\] : 0.f;/      k_s[j * PK + d] = d < DK ? raw[ok + j * DK + d + 1] : 0.f;/' "torch.float32," "$KSW"
 run_mutant_cmd k5_keyed_shared_slot_reuses_slot0 'sed -i "s/        draws.append(slot_rng(rng, k).mask_draw(m, m.weight.shape, m.weight.device))/        draws.append(slot_rng(rng, 0).mask_draw(m, m.weight.shape, m.weight.device))/" ../../ops/rng.py' "torch.float32," "$KSLOT"
 run_mutant k3_dk13_repack_shifted grouped_cross_attention.cu 's/        const unsigned short\* bits = reinterpret_cast<const unsigned short\*>(row);/        const unsigned short* bits = reinterpret_cast<const unsigned short*>(row + 1);/' "torch.bfloat16," "$K13W"
 run_mutant k3_dk13_f32_repack_shifted grouped_cross_attention.cu 's/      stage_padded<DK>(a == 0 ? k_s : v_s, a == 0 ? KS : VS, row, S, threadIdx.x, blockDim.x);/      stage_padded<DK>(a == 0 ? k_s : v_s, a == 0 ? KS : VS, row + 1, S, threadIdx.x, blockDim.x);/' "torch.float32," "$K13W"

@@ -243,8 +243,8 @@ K11_SHARE_LIMIT, K11_FAR_LIMIT = 0.01, 1e-4
 K6_SHARE_LIMIT, K6_FAR_LIMIT = 0.01, 1e-4
 K13_SHARE_LIMIT, K13_FAR_LIMIT = 0.01, 1e-4
 K6_OFF_WIDTHS, K13_OFF_WIDTHS, OFF_ROWS = (37, 104, 500), (37, 9999), 333  # scalar paths, vector tails, ORT-xsmall
-# K4's raw log-probs in bf16 against torch.log_softmax at the kernel's
-# indices, and its values where no penalty touched either side's entry, bit
+# K4's raw log-probs in bf16 against the plain rule (``rounded_log_softmax``,
+# the JAX package's rounding points) at the kernel's indices, and its values where no penalty touched either side's entry, bit
 # by bit with K13's limits (the log-prob is K13's computation). Ties go to the
 # lower index: a row whose k values equal the plain version's bit for bit
 # holds the plain indices, but for a near-tie of an element one ulp off (at
@@ -551,7 +551,13 @@ BWD_WIDTH_CASES = (("kv dk32", DK_SMALL, True, ACORT_LEN - 1), ("dk13", DK_XSMAL
                    ("kv", DK, True, ACORT_LEN - 1), ("dk32", DK_SMALL, False, MAX_LEN),
                    ("kv dk13", DK_XSMALL, True, MAX_LEN))
 BWD_TIMED_CASES = 3
-BWD_ANC_MAPS = ("from_beam_0", "random")  # the ancestry mode's maps at the new widths (the identity is the kernel's)
+BWD_ANC_MAPS = ("identity", "from_beam_0", "random")  # the ancestry mode's maps at the new widths
+# K2's ancestry-mode backward on long caches (2 images, a random map, the last and a middle step): (head width, kv,
+# beams, T_max); K's slots staged in chunks (9 at dk 64, 38 at dk 13) or, at 18 beams and dk 64, not at all
+K2_BWD_LONG_CASES = ((DK, False, SCST_SAMPLES, 1024), (DK_XSMALL, True, SCST_SAMPLES, 1024),
+                     (DK_SMALL, True, 18, 1024), (DK, False, 18, 1024))
+# K3's backward at off shapes (4 images, 8 heads, an image with no valid region): (regions, rows an image)
+K3_BWD_SHAPES = ((1, 1), (33, 5), (64, 16), (64, 60))
 SHARED_WIDTH_PATHS = ("acort_small_beam_scst_step", "acort_small_supermask_scst_step", "ort_xsmall_supermask_scst_step",
                       "ort_xsmall_beam_scst_step", "acort_base_supermask_train_step", "acort_base_supermask_scst_step")
 # the kernels line's rows of this slice: (name, library, entry points, JAX site, the paths of its instance)
@@ -1094,6 +1100,24 @@ def k4_midpoint_counts(vocab: int, top: float = K4_MIDPOINT_TOP) -> list:
     return counts
 
 
+def k4_margin_rows(n: int, vocab: int, device) -> torch.Tensor:
+    """bf16 rows (n, vocab) whose BEAM-th log-prob is a tie that the held
+    path's threshold finds only through its bf16 margin: logits 8, 7.5, 7
+    and 6.1875 over a floor of -20 give lse = bf16(log bf16(2.14)) =
+    0.76171875, and three logits -0.0100, 0 and 0.0078 (increasing indices,
+    each in a thread of its own) all round to sh = -8 and lp = bf16(-8.76) =
+    -8.75, above the unrounded -8.76: so each lies below the bare threshold
+    thr + m + lse = 0.0117, and the lowest index among them is the 5th
+    winner (csrc/beam_topk.cu x_lo; mutant k4_threshold_margin_dropped)."""
+    x = torch.full((n, vocab), -20.0, device=device)
+    for row in range(n):
+        base = 8 * (row % 16)
+        x[row, [base, base + 88, base + 184, base + 296]] = torch.tensor([8.0, 7.5, 7.0, 6.1875], device=device)
+        x[row, [base + 8 * (50 + 13 * j) for j in range(3)]] = torch.tensor([-0.010009765625, 0.0, 0.0078125],
+                                                                            device=device)
+    return x.to(torch.bfloat16)
+
+
 def check_beam_topk(logits, kw: dict, dtype, tag: str = "", widths=BEAM_WIDTHS) -> tuple:
     """K4 against its plain version at every width of `widths`: values and
     raw log-probs element-wise; indices equal but for near-ties (tie-aware),
@@ -1143,8 +1167,7 @@ def check_beam_topk(logits, kw: dict, dtype, tag: str = "", widths=BEAM_WIDTHS) 
             f"{'ok' if swapped <= K4_INDEX_SHARE_LIMIT else 'FAIL'}; raw log-probs equal K13's bit for bit={k13_same}")
         ok &= tie_ok and swapped <= K4_INDEX_SHARE_LIMIT and (k13_same or width > k4.REGISTER_K)
         if dtype == torch.bfloat16:
-            ok &= rounding_share(f"{name} raw log-probs", raw, torch.log_softmax(logits, dim=-1).gather(1, ik),
-                                 K13_SHARE_LIMIT, K13_FAR_LIMIT)
+            ok &= rounding_share(f"{name} raw log-probs", raw, lp.gather(1, ik), K13_SHARE_LIMIT, K13_FAR_LIMIT)
             plain_rank = ~(touched(ik) | touched(pidx.long()))
             ok &= rounding_share(f"{name} untouched values", vals[plain_rank], pvals[plain_rank], K13_SHARE_LIMIT,
                                  K13_FAR_LIMIT)
@@ -1369,6 +1392,14 @@ def check_kernels(gen, dtype, results: dict, timing: bool = True) -> bool:
         logits[row, torch.arange(count, device=dev) * (vocab // count)] = K4_MIDPOINT_TOP
     good, err_k = check_beam_topk(logits, kw, dtype)
     ok &= good
+    if dtype == torch.bfloat16:  # the held path's bf16 threshold margin: a tie below the bare threshold
+        margin = k4_margin_rows(64, vocab, dev)
+        got, want = k4.beam_topk(margin, BEAM), k4.beam_topk_plain(margin, BEAM)
+        same = all(torch.equal(a, b) for a, b in zip(got, want))
+        log(f"[kernel] beam_topk bf16, ties below the bare threshold (k4_margin_rows, 64 rows): values, indices and "
+            f"raw log-probs equal the plain version's {'ok' if same else 'FAIL'}")
+        ok &= same
+        del margin
     # the general paths: rows that are not 16-byte vectors (V = 9,999)
     g4 = torch.Generator(device=dev).manual_seed(SEED + 4)
     off = torch.randn(OFF_ROWS, K4_OFF_WIDTH, generator=g4, device=dev).to(dtype)
@@ -5217,10 +5248,12 @@ def sample_mode_cases(logits, prev, unfinished, cases, lp_errs: dict, label: str
             y13 = k13.vocab_log_softmax(logits).float().gather(1, kn.long()[:, None])[:, 0]
             lp_ok = bool(torch.equal(kl[unfinished, step], y13[unfinished]))
             apart = same & (kl[:, step] != pl[:, step])
-            ulps = bf16_ulps(kl[apart, step], pl[apart, step]).max().item() if apart.any() else 0.0
+            ulps = bf16_ulps(kl[apart, step], pl[apart, step]) if apart.any() else torch.zeros(1)
+            far = (ulps > 1).sum().item() / max(int(same.sum()), 1)
             log(f"[kernel] sample_step {method} {label}: chosen log-probs equal K13's bit for bit={lp_ok}; against "
-                f"the plain version's (torch.log_softmax's order) {int(apart.sum())} of {int(same.sum())} apart, "
-                f"by at most {lp_all[same].max().item():.3e} ({ulps:.0f} bf16 ulps)")
+                f"the plain rule (rounded_log_softmax) {int(apart.sum())} of {int(same.sum())} apart, by at most "
+                f"{lp_all[same].max().item():.3e} ({ulps.max().item():.0f} bf16 ulps); far share (> 1 ulp) "
+                f"{far:.6f}")
         worst = int(lp_err.argmax())
         lp_errs[mode] = max(lp_errs.get(mode, 0.0), lp_err[worst].item())
         rest = bool(torch.equal(ku[same], pu[same]) and torch.equal(ks[same], ps[same]))
@@ -6114,6 +6147,48 @@ def check_k2_bwd_anc_kernels(gen, results: dict, timing: bool = True) -> bool:
             bound_ms=bnd, bound_by=by, identity_ms=times[last][3],
             **{f"t{t}_{k}": v for t in K2_BWD_STEPS
                for k, v in zip(("ms", "plain_ms", "library_ms", "identity_ms"), times[t])})
+    return ok & check_k2_bwd_anc_long(torch.Generator(device=dev).manual_seed(SEED + 42))
+
+
+def check_k2_bwd_anc_long(gen) -> bool:
+    """K2's ancestry-mode backward on long caches (K2_BWD_LONG_CASES: T_max
+    1,024, 2 images, 8 heads, a random map) at a middle and the last step,
+    against its plain version within F32_TOL widened by each tensor's rms:
+    K's slots staged in chunks (``anc_bwd_chunk_slots``: 9 at dk 64 with 15
+    beams, 38 at dk 13) and, where the fixed part leaves no room for one
+    slot (18 beams at dk 64), read from global memory; the chunk rule's C
+    function against the wrapper's."""
+    from sparse_caption_tpu_torch.kernels import ancestry_self_attention as k2
+
+    dev, dt, h = torch.device("cuda"), torch.float32, HEADS
+    ok = smem_agrees("ancestry_self_attention_bwd_anc", "sct_ancestry_self_attention_bwd_anc_chunk_slots",
+                     k2.anc_bwd_chunk_slots, [(dk, kb, t) for dk, _, kb, t_max in K2_BWD_LONG_CASES
+                                              for t in (0, 16, t_max - 1)])
+    for dk, kv, kb, t_max in K2_BWD_LONG_CASES:
+        n = 2 * kb
+        q, dout = (torch.randn(n, h, dk, generator=gen, device=dev) for _ in range(2))
+        caches = [torch.randn(n, h, t_max, dk, generator=gen, device=dev) for _ in range(1 if kv else 2)]
+        dc0 = [torch.randn(n, h, t_max, dk, generator=gen, device=dev) for _ in caches]
+        for t in (t_max // 2, t_max - 1):
+            anc = anc_map("random", 2, kb, t_max, t, gen)
+
+            def run(fn):
+                dcs = [c.clone() for c in dc0]
+                out = fn(q, caches[0], None if kv else caches[1], dout, dcs[0], None if kv else dcs[1], t, anc)
+                return [x for x in out if x is not None] + dcs
+
+            got, ref = run(k2.ancestry_self_attention_backward), run(k2.ancestry_self_attention_backward_plain)
+            worst, good = 0.0, True
+            for a, c in zip(got, ref):
+                _, fine, w = close(a, c, dt, sum_scale=rms(c))
+                worst, good = max(worst, w), good and fine
+            cw = k2.anc_bwd_chunk_slots(dk, kb, t)
+            how = "read in place" if cw == 0 else f"{-(-(t + 1) // cw)} chunks"
+            log(f"[kernel] ancestry_self_attention_bwd ancestry{' kv' if kv else ''} dk{dk} {kb} beams T_max {t_max} "
+                f"t={t}: {cw} slots staged at once ({how}), worst err/allowed {worst:.3f} {'ok' if good else 'FAIL'}")
+            ok &= good
+            del got, ref
+        del q, dout, caches, dc0
     return ok
 
 
@@ -6298,7 +6373,8 @@ def check_k2_bwd_width_kernels(gen, results: dict, timing: bool = True, timed: i
     version at the SCST gradient pass's shapes (64 images x 15 rows, 8
     heads, the decode's T_max), element by element within F32_TOL widened by
     each tensor's rms: the identity kernel and the ancestry mode on the maps
-    BWD_ANC_MAPS, at the first, a middle and the last step, the cache
+    BWD_ANC_MAPS (the identity, every slot from beam 0, random), at the
+    first, a middle and the last step, the cache
     gradient the later steps left random: dq, dk_t (, dv_t) and the buffers
     after (slots < t added to, slot t zeroed, later slots untouched). Faults
     planted in the kv mode: the V term left out of the one buffer, and the
@@ -6347,8 +6423,8 @@ def check_k2_bwd_width_kernels(gen, results: dict, timing: bool = True, timed: i
         errs = {"identity": [], "ancestry": []}
         maps = {}
         for t in (0, t_max // 2, t_max - 1):
-            for kind in ("identity",) + BWD_ANC_MAPS:
-                anc = None if kind == "identity" else anc_map(kind, b, kb, t_max, t, gen)
+            for kind in ("none",) + BWD_ANC_MAPS:  # "none": the identity kernel; then the ancestry mode's maps
+                anc = None if kind == "none" else anc_map(kind, b, kb, t_max, t, gen)
                 maps[(kind, t)] = anc
                 got = run(k2.ancestry_self_attention_backward, t, anc)
                 ref = run(k2.ancestry_self_attention_backward_plain, t, anc)
@@ -6515,6 +6591,46 @@ def check_k3_bwd_width_kernels(gen, results: dict, timing: bool = True, timed: i
             results[name] = dict(max_abs_err=max(errs), ms=t_k, plain_ms=t_p, library_ms=t_l, bound_ms=bnd,
                                  bound_by=by)
         del q, dout, mems, mv
+    return ok & check_k3_bwd_shapes(torch.Generator(device=dev).manual_seed(SEED + 43))
+
+
+def check_k3_bwd_shapes(gen) -> bool:
+    """K3's backward at every head width, unshared and kv, at the off shapes
+    K3_BWD_SHAPES (1 region and 1 row; 33 regions, where no dk 13 span is
+    16-byte aligned; 64 regions and 16 rows, one round of the block's 16
+    warps past the 15 of the paths; 64 x 60, four rounds), 4 images, 8
+    heads, the last image with no valid region: against the plain version
+    within F32_TOL widened by each tensor's rms; masked regions' dK exactly 0
+    (unshared); the shared memory against the wrapper's formula."""
+    from sparse_caption_tpu_torch.kernels import grouped_cross_attention as k3
+
+    dev, dt, b, h = torch.device("cuda"), torch.float32, 4, HEADS
+    ok = smem_agrees("grouped_cross_attention_bwd", "sct_grouped_cross_attention_bwd_smem", k3.bwd_smem,
+                     [(dk, s, rep, kv) for dk in (64, 32, 13) for s, rep in K3_BWD_SHAPES for kv in (0, 1)])
+    for dk in (64, 32, 13):
+        for kv in (False, True):
+            for regions, rep in K3_BWD_SHAPES:
+                q, dout = (torch.randn(b * rep, h, dk, generator=gen, device=dev) for _ in range(2))
+                mems = [torch.randn(b, h, regions, dk, generator=gen, device=dev) for _ in range(1 if kv else 2)]
+                mv = None if kv else mems[1]
+                mask = torch.rand(b, regions, generator=gen, device=dev) < 0.7
+                mask[:, 0] = True
+                mask[-1] = False
+                got = [x for x in k3.grouped_cross_attention_backward(q, mems[0], mv, mask, dout) if x is not None]
+                ref = [x for x in k3.grouped_cross_attention_backward_plain(q, mems[0], mv, mask, dout)
+                       if x is not None]
+                worst, good = 0.0, True
+                for a, c in zip(got, ref):
+                    _, fine, w = close(a, c, dt, sum_scale=rms(c))
+                    worst, good = max(worst, w), good and fine
+                zero_dk = kv or not got[1][~mask[:, None, :, None].expand_as(got[1])].any()
+                if not (good and zero_dk):
+                    log(f"[kernel] grouped_cross_attention_bwd{' kv' if kv else ''} dk{dk} S={regions} rep={rep}: "
+                        f"worst err/allowed {worst:.3f}, masked dK exactly 0 {zero_dk} FAIL")
+                ok &= good and zero_dk
+                del q, dout, mems, mv, got, ref
+    log(f"[kernel] grouped_cross_attention_bwd at dk 64 / 32 / 13, unshared and kv, (S, rep) {K3_BWD_SHAPES}: "
+        f"{'ok' if ok else 'FAIL'}")
     return ok
 
 

@@ -1,6 +1,7 @@
 """Device times of K9's modes (random, greedy, Gumbel, top-k at k 3 and 20,
-nucleus at p 0.9 / T 0.7, scheduled sampling), of K4 on its held rows and
-its diverse rows, of K2's forward and K3 at head width 13, and of K1, K1's
+nucleus at p 0.9 / T 0.7, scheduled sampling), of K4 on its held rows, its
+scalar rows (V = 771) and its diverse rows, of K13 in bf16, of K2's forward
+and backward and K3 at head width 13 and K3's backward, and of K1, K1's
 train variant and K7 on the trig geometry, in the tree of the working
 directory, so that two commits can be timed on one card in one run (NVIDIA
 H100; imports no JAX).
@@ -9,10 +10,12 @@ H100; imports no JAX).
     python3 kernel_ab_times.py time <tag> [k9|decode|attention [regex]]   # one JSON line of device ms
     python3 kernel_ab_times.py losses <file of time lines>                # attention rows' losses (CPU)
 
-With `k9` only K9's library is built and timed, with `decode` K9's and
-K4's (with a regex, only the rows whose names match it: K9 random, greedy,
-gumbel, top3, top20, top0.9, ss; K4 held, diverse). With `attention` K2's
-and K3's: every K2 forward instance of a path at every step of its cache on
+With `k9` only K9's library is built and timed, with `decode` K9's, K4's
+and K13's (with a regex, only the rows whose names match it: K9 random,
+greedy, gumbel, top3, top20, top0.9, ss; K4 held, scalar V771, diverse;
+K13 bf16 fwd+bwd at the Up-Down XE step's 21,760 rows and fwd alone at
+10,240, bf16 -> f32 at ACORT's V = 771). With `attention` K2's and K3's
+(and both backwards): every K2 forward instance of a path at every step of its cache on
 a uniform random map (its bound, ``k2_bytes``, beside each time) and at the
 last step on the collapsed map: "K2 dk64" (the ORT's serving step, bf16, 2,048 x 5 rows, T_max 17),
 "K2 kv dk64" (ACORT-base, 26), "K2 dk32" and "K2 kv dk32" (ACORT-small,
@@ -22,10 +25,13 @@ middle and last step (``chip_smoke.k2_steps``; f32, 960 rows, 64 images x
 15, the identity or a random map: "K2
 bwd [anc ][kv ]dk<dk>" on the SCST gradient passes' caches, 17 or 25
 slots); K3 at dk 13 at ORT-xsmall's serving step (bf16, 2,048 x 5) and its
-SCST group (f32, 64 x 15), 36 regions; each row "<name> t=<t> [collapsed]"
-with "<row> bound" beside it. `losses` reads the lines of such runs and
-gives each K2 row's loss on its path (ATTENTION_PATHS) by the rule of
-``chip_smoke.steps_loss``, from the mean of each tag's runs.
+SCST group (f32, 64 x 15), 36 regions; K3's backward (f32, 64 x 15, 36
+regions, 8 heads: "K3 bwd [kv ]dk<dk>", the same at every step); each row
+"<name> t=<t> [collapsed]" (K3's backward "<name>") with "<row> bound"
+beside it. `losses` reads the lines of such runs and gives each row of
+ATTENTION_PATHS its loss on its path by the rule of
+``chip_smoke.steps_loss`` (a row timed once: the same time at every step),
+from the mean of each tag's runs.
 The helpers come from the chip_smoke.py beside this script, the kernels from
 the working directory's tree. Run it from the root of
 each tree (for the parent: `git archive` unpacked into an ignored
@@ -65,6 +71,10 @@ ATTENTION_PATHS = {
     "K2 bwd dk13": (6, 17),  # ORT-xsmall supermask SCST
     "K2 bwd anc dk13": (6, 17),  # ORT-xsmall beam-sample SCST
     "K2 bwd kv dk64": (6, 25),  # ACORT-base supermask SCST
+    "K3 bwd dk64": (6, 17),  # the ORT's supermask SCST
+    "K3 bwd kv dk64": (6, 25),  # ACORT-base supermask SCST
+    "K3 bwd kv dk32": (6, 25),  # ACORT-small supermask SCST (and its beam-sample SCST, the same again)
+    "K3 bwd dk13": (6, 17),  # ORT-xsmall supermask SCST (and its beam-sample SCST, the same again)
 }
 
 
@@ -78,13 +88,15 @@ def losses(path: str) -> None:
         by_tag.setdefault(r["tag"], []).append(r)
     report = {}
     for tag, rs in by_tag.items():
+        rs = [r for r in rs if any(key.startswith("K2 ") or key.startswith("K3 ") for key in r)]  # attention runs
         for row, (per_step, steps) in ATTENTION_PATHS.items():
             timed = {}
-            for key in rs[0]:
+            for key in rs[0] if rs else ():
                 m = re.fullmatch(re.escape(row) + r" t=(\d+)", key)
-                if m:
+                if m or key == row:
                     ms = sum(r[key] for r in rs) / len(rs)
-                    timed[int(m.group(1))] = (ms, rs[0][f"{key} bound"])
+                    for t in (int(m.group(1)),) if m else (0, steps - 1):
+                        timed[t] = (ms, rs[0][f"{key} bound"])
             if timed:
                 report[f"{tag} {row}"] = dict(
                     timed={t: (round(ms, 4), round(b, 4)) for t, (ms, b) in sorted(timed.items())},
@@ -98,9 +110,9 @@ if what == "losses":
     sys.exit(0)
 only = sys.argv[3] if len(sys.argv) > 3 else ""
 pick = re.compile(sys.argv[4] if len(sys.argv) > 4 else "")
-_build.SOURCES = {"k9": ("sample_step",), "decode": ("sample_step", "beam_topk"),
+_build.SOURCES = {"k9": ("sample_step",), "decode": ("sample_step", "beam_topk", "vocab_log_softmax"),
                   "attention": ("ancestry_self_attention", "grouped_cross_attention", "ancestry_self_attention_bwd",
-                                "ancestry_self_attention_bwd_anc")}.get(
+                                "ancestry_self_attention_bwd_anc", "grouped_cross_attention_bwd")}.get(
     only, ("sample_step", "beam_topk", "box_attention", "box_attention_bwd"))
 if what == "build":
     print(json.dumps({"tag": tag, "compile_s": _build.build_all(verbose=True)}), flush=True)
@@ -177,6 +189,20 @@ def attention_times(g) -> dict:
         valid = c.random_region_mask(g, b, 36, dev)
         (out[name],) = c.turns_ms(lambda: k3.grouped_cross_attention(q, mk, mv, valid))
         out[f"{name} bound"] = here.bound_ms(here.k3_bytes(b, rep, dtype, dk=13), {})[0]
+    # K3's backward (f32, 64 images x 15 rows, 36 regions, image 0 with none valid): the path instances, then the
+    # other two
+    b, rep = 64, 15
+    for name, dk, kv in (("K3 bwd dk64", 64, False), ("K3 bwd kv dk64", 64, True), ("K3 bwd kv dk32", 32, True),
+                         ("K3 bwd dk13", 13, False), ("K3 bwd dk32", 32, False), ("K3 bwd kv dk13", 13, True)):
+        if not pick.search(name):
+            continue
+        q, dout = (torch.randn(b * rep, h, dk, generator=g, device=dev) for _ in range(2))
+        mk, mv = (torch.randn(b, h, 36, dk, generator=g, device=dev) for _ in range(2))
+        mv = None if kv else mv
+        valid = c.random_region_mask(g, b, 36, dev)
+        valid[0] = False
+        (out[name],) = c.turns_ms(lambda: k3.grouped_cross_attention_backward(q, mk, mv, valid, dout))
+        out[f"{name} bound"] = here.bound_ms(here.k3_bwd_bytes(b, rep, 36, h, dk, kv), {})[0]
     return out
 
 
@@ -219,10 +245,32 @@ if only != "k9":
     toks[:, 1] = toks[:, 0]
     dkw = dict(c.k4_constraints(g, images * width, 10000), div_tokens=toks, div_lambda=0.5)
     k4_rows["K4 diverse bf16 4096 k2 P4"] = lambda: k4.beam_topk(dlogits, width, **dkw)
+    slogits = torch.randn(10240, 771, generator=g, device=dev).to(torch.bfloat16)
+    skw = c.k4_constraints(g, 10240, 771, eos_id=770, unk_id=1)
+    k4_rows["K4 scalar bf16 10240 V771 k5"] = lambda: k4.beam_topk(slogits, 5, **skw)
     k4_rows = {name: fn for name, fn in k4_rows.items() if pick.search(name)}
     for name, ms in zip(k4_rows, c.turns_ms(*k4_rows.values())):
         res[name] = ms
-    del logits, dlogits
+    del logits, dlogits, slogits
+    # K13: bf16 -> bf16 (the Up-Down XE step's rows, forward + backward; the eval forward alone), bf16 -> f32 at V = 771
+    from sparse_caption_tpu_torch.kernels import vocab_log_softmax as k13
+
+    k13_rows = {}
+    for name, rows, vocab, tout, backward in (("K13 bf16 fwd+bwd 21760x10000", 21760, 10000, torch.bfloat16, True),
+                                              ("K13 bf16 fwd 10240x10000", 10240, 10000, torch.bfloat16, False),
+                                              ("K13 bf16->f32 fwd+bwd 33280x771", 33280, 771, torch.float32, True)):
+        x = (torch.randn(rows, vocab, generator=g, device=dev) * 3).to(torch.bfloat16)
+        if backward:
+            xl = x.clone().requires_grad_()
+            dy = torch.randn(rows, vocab, generator=g, device=dev).to(tout)
+            k13_rows[name] = lambda xl=xl, dy=dy, tout=tout: c.fwd_bwd(lambda v: k13.vocab_log_softmax(v, tout), (xl,),
+                                                                       (dy,))
+        else:
+            k13_rows[name] = lambda x=x: k13.vocab_log_softmax(x)
+    k13_rows = {name: fn for name, fn in k13_rows.items() if pick.search(name)}
+    for name, ms in zip(k13_rows, c.turns_ms(*k13_rows.values())):
+        res[name] = ms
+    del k13_rows
 if only:
     print(json.dumps(res), flush=True)
     sys.exit(0)

@@ -204,9 +204,30 @@ def check_backward_supported(q) -> None:
 
 
 def anc_bwd_smem_bytes(dk: int, beams: int, t: int) -> int:
-    """Shared memory of one block of the ancestry mode (``csrc`` ``anc_bwd_smem_bytes``):
-    the image's beams' q and dout, then p, ds and the map's slots 0..t."""
+    """The fixed shared memory of one block of the ancestry mode (``csrc``
+    ``anc_bwd_smem_bytes``, the arguments' check): the image's beams' q and
+    dout, their p and ds over slots 0..t, and the inverted map (16 bits a
+    (row, slot) for its first reader and a (reader, slot) for the next)."""
     return 4 * beams * (2 * dk + 3 * (t + 1))
+
+
+def anc_bwd_stage_pitch(dk: int) -> int:
+    """Floats a staged slot takes in the ancestry mode (``csrc``
+    ``anc_stage_pitch``): dk + 4 at dk 64 and 32, 20 at dk 13 (the 16-byte
+    envelope of its 52 bytes, + 4)."""
+    return dk + 4 if dk % 4 == 0 else 20
+
+
+def anc_bwd_chunk_slots(dk: int, beams: int, t: int) -> int:
+    """Slots of K the ancestry mode stages at once (``csrc``
+    ``anc_bwd_chunk_slots``; V is read in place): all t + 1 where they fit
+    beside the fixed part (rounded up to 16 bytes) in a block's shared
+    memory, else as many as fit (the slots walked in chunks); 0 when not one
+    fits (read from global memory)."""
+    fixed = -(-anc_bwd_smem_bytes(dk, beams, t) // 16) * 16
+    if fixed >= _build.BLOCK_SMEM_LIMIT:
+        return 0
+    return min(t + 1, (_build.BLOCK_SMEM_LIMIT - fixed) // (4 * beams * anc_bwd_stage_pitch(dk)))
 
 
 def ancestry_self_attention_backward_plain(q, cache_k, cache_v: Optional[torch.Tensor], dout, dcache_k,
@@ -281,6 +302,13 @@ def ancestry_self_attention_backward(q, cache_k, cache_v: Optional[torch.Tensor]
     if ancestry is not None:
         if anc_bwd_smem_bytes(dk, kb, t) > _build.BLOCK_SMEM_LIMIT:
             raise ValueError(f"K2's backward ancestry mode: {kb} beams at t={t} exceed a block's shared memory")
+        if dk % 4 == 0:  # the ancestry mode moves 16-byte vectors at dk 64 and 32
+            q, dout = _build.aligned16(q), _build.aligned16(dout)
+            cache_k = _build.aligned16(cache_k)
+            cache_v = None if kv else _build.aligned16(cache_v)
+            if any(d is not None and d.data_ptr() % 16 for d in (dcache_k, dcache_v)):
+                raise ValueError("K2's backward ancestry mode updates the cache gradients in place as 16-byte "
+                                 "vectors: dcache_k / dcache_v must be 16-byte aligned")
         if kv:
             KERNEL_BWD_ANC_KV.launch(dk, q.data_ptr(), cache_k.data_ptr(), dout.data_ptr(), ancestry.data_ptr(),
                                      dq.data_ptr(), dcache_k.data_ptr(), dk_t.data_ptr(), n, h, kb, t_max, t, sqrt_dk,

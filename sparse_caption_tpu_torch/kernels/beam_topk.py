@@ -14,6 +14,7 @@ import torch
 
 from sparse_caption_tpu_torch.kernels import _build
 from sparse_caption_tpu_torch.kernels._checks import check_float, check_same_device, check_tensor
+from sparse_caption_tpu_torch.kernels.vocab_log_softmax import rounded_log_softmax
 
 ARGS = [
     _build.I, _build.P, _build.I, _build.I, _build.I, _build.P, _build.P, _build.I, _build.I,
@@ -44,10 +45,11 @@ def diversity_counts(div_tokens: torch.Tensor, vocab: int) -> torch.Tensor:
 def constrained_logprobs(logits, ban_token: Optional[torch.Tensor] = None, ban_eos: Optional[torch.Tensor] = None,
                          eos_id: int = 3, unk_id: Optional[int] = None, div_tokens: Optional[torch.Tensor] = None,
                          div_lambda: float = 0.5):
-    """(f32 log-probs rounded through the logits' dtype, f32 constrained log-probs), each (N, V).
+    """(f32 log-probs rounded through the logits' dtype at the JAX package's
+    points (``rounded_log_softmax``), f32 constrained log-probs), each (N, V).
     The diverse-beam penalty, last: count x lambda in f32, count first, for
     the N / B rows of each image of ``div_tokens`` (B, P)."""
-    lp = torch.log_softmax(logits, dim=-1).float()
+    lp = rounded_log_softmax(logits).float()
     c = lp.clone()
     if ban_token is not None:
         c[torch.arange(c.shape[0], device=c.device), ban_token.long()] += NEG_BIG

@@ -63,7 +63,116 @@
 // The ancestry mode: ancestry_self_attention_bwd_anc.cu.
 #include "ancestry_self_attention_bwd.cuh"
 
+// Statements that return, as an int, LAUNCH(DK, S) for the instance of
+// head width dk (64, 32, 13) whose S, the smallest of 1, 2, 4, .., 32 with
+// 32 S >= t_max, holds the slots, and cudaErrorInvalidValue for any other
+// width: the body of the entry after its argument checks.
+#define SCT_K2B_BY_S(DK, t_max, LAUNCH)               \
+  if ((t_max) <= 32) return (int)LAUNCH(DK, 1);       \
+  if ((t_max) <= 64) return (int)LAUNCH(DK, 2);       \
+  if ((t_max) <= 128) return (int)LAUNCH(DK, 4);      \
+  if ((t_max) <= 256) return (int)LAUNCH(DK, 8);      \
+  if ((t_max) <= 512) return (int)LAUNCH(DK, 16);     \
+  return (int)LAUNCH(DK, 32);
+#define SCT_K2B_DISPATCH(dk, t_max, LAUNCH)                \
+  if ((dk) == 64) { SCT_K2B_BY_S(64, t_max, LAUNCH) }      \
+  if ((dk) == 32) { SCT_K2B_BY_S(32, t_max, LAUNCH) }      \
+  if ((dk) == 13) { SCT_K2B_BY_S(13, t_max, LAUNCH) }      \
+  return (int)cudaErrorInvalidValue;
+
 namespace sct {
+
+// The walks over a register block's 32 slots (the inner loops over l)
+// unroll 4 deep, not whole: unrolled whole, an 18-instance library of them
+// took 340 s to compile on the card's host.
+
+// The (row, head)'s softmax over slots 0..t and its score gradients, from
+// the lanes' slots: `slot(s)` is the offset of slot s of the row the warp
+// reads (this lane's dims), `vals` the V cache (the K cache in the kv mode).
+// Leaves p and ds in the registers of the lane of each slot (register j: slot
+// j * 32 + lane).
+template <int DK, int S, typename SlotFn>
+__device__ __forceinline__ void slot_softmax_grad(const LaneDims<DK, float>& qv, const LaneDims<DK, float>& gv,
+                                                  const float* __restrict__ cache_k, const float* __restrict__ vals,
+                                                  SlotFn slot, int lane, int t, float sqrt_dk, float (&p)[S],
+                                                  float (&ds)[S]) {
+  float my_score[S], my_dp[S];
+#pragma unroll
+  for (int j = 0; j < S; ++j) {
+    my_score[j] = -INFINITY;
+    my_dp[j] = 0.f;
+  }
+#pragma unroll
+  for (int j = 0; j < S; ++j) {
+#pragma unroll 4
+    for (int l = 0; l < 32 && j * 32 + l <= t; ++l) {
+      const size_t so = slot(j * 32 + l);
+      LaneDims<DK, float> kk, vv;
+      kk.load(cache_k + so, lane);
+      vv.load(vals + so, lane);
+      const float sc = div_score(warp_sum(qv.dot(kk)), sqrt_dk);
+      const float dp = warp_sum(gv.dot(vv));
+      if (lane == l) {
+        my_score[j] = sc;
+        my_dp[j] = dp;
+      }
+    }
+  }
+  float m = my_score[0];
+#pragma unroll
+  for (int j = 1; j < S; ++j) m = fmaxf(m, my_score[j]);
+  m = warp_max(m);
+  float e[S], sum = 0.f;
+#pragma unroll
+  for (int j = 0; j < S; ++j) {
+    e[j] = j * 32 + lane <= t ? expf(my_score[j] - m) : 0.f;
+    sum += e[j];
+  }
+  sum = warp_sum(sum);
+  float pdp = 0.f;
+#pragma unroll
+  for (int j = 0; j < S; ++j) {
+    p[j] = e[j] / sum;
+    pdp += p[j] * my_dp[j];
+  }
+  const float dsum = warp_sum(pdp);
+#pragma unroll
+  for (int j = 0; j < S; ++j) ds[j] = div_score(p[j] * (my_dp[j] - dsum), sqrt_dk);
+}
+
+// Slot so of the gradient buffers takes this step's dK (dkv) and dV (dvv):
+// added where s < t; at slot t the total goes to the step's dk_t / dv_t (at
+// `to`) and the slot is zeroed. The kv mode (dcache_v == nullptr) adds both
+// terms to the one buffer and its slot t's total to dk_t.
+template <int DK>
+__device__ __forceinline__ void update_slot(float* __restrict__ dcache_k, float* __restrict__ dcache_v,
+                                            float* __restrict__ dk_t, float* __restrict__ dv_t, size_t so, size_t to,
+                                            bool last, const LaneDims<DK, float>& dkv,
+                                            const LaneDims<DK, float>& dvv, int lane) {
+  using L = LaneDims<DK, float>;
+  const L zero{};
+  L ck;
+  ck.load(dcache_k + so, lane);
+  if (dcache_v == nullptr) {  // the kv mode: one buffer, both terms
+    const L tot = ck.plus(dkv.plus(dvv));
+    tot.store(last ? dk_t + to : dcache_k + so, lane);
+    if (last) zero.store(dcache_k + so, lane);
+    return;
+  }
+  L cv;
+  cv.load(dcache_v + so, lane);
+  const L tk = ck.plus(dkv), tv = cv.plus(dvv);
+  if (!last) {
+    tk.store(dcache_k + so, lane);
+    tv.store(dcache_v + so, lane);
+  } else {  // slot t: the later steps' sum plus this step's, to k_t / v_t; the slot is zeroed
+    tk.store(dk_t + to, lane);
+    tv.store(dv_t + to, lane);
+    zero.store(dcache_k + so, lane);
+    zero.store(dcache_v + so, lane);
+  }
+}
+
 
 // cache_v, dcache_v, dv_t == nullptr: the kv mode
 template <int DK, int S>

@@ -7,7 +7,9 @@
 // top-K). Left to XLA on the TPU.
 //
 // For each row n of logits (N, V) in the compute dtype T:
-//   lp[v] = T((x[v] - max) - log(sum exp(x - max)))          (log_softmax, f32 stats)
+//   lp[v] = T(T(x[v] - max) - lse), lse = T(log(T(sum exp(T(x - max)))))
+//           (log_softmax, f32 sums, rounded where jax.nn.log_softmax rounds a
+//           T row: common.cuh lsm_*; no rounding in f32)
 //   c[v]  = f32(lp[v]) + -1e18 if v == ban_token[n]           (decoding_constraint, t > 0)
 //                      + -1e18 if ban_eos[n] and v == eos_id  (bad ending, t > 0)
 //                      + -1000 if v == unk_id                 (suppress_UNK)
@@ -108,10 +110,10 @@ __device__ __forceinline__ float diversify(float c, int i, const int* div_s, int
 
 // The constrained value c[i] of the module notes.
 template <typename T>
-__device__ __forceinline__ float constrained(const T* __restrict__ x, int i, float mx, float logsum, int ban,
+__device__ __forceinline__ float constrained(const T* __restrict__ x, int i, float mx, float lse, int ban,
                                              bool no_eos, int eos_id, int unk_id, const int* div_s, int P,
                                              float lambda) {
-  return diversify(penalize(round_to<T>((to_f(x[i]) - mx) - logsum), i, ban, no_eos, eos_id, unk_id), i, div_s, P,
+  return diversify(penalize(lsm_logprob<T>(to_f(x[i]), mx, lse), i, ban, no_eos, eos_id, unk_id), i, div_s, P,
                    lambda);
 }
 
@@ -182,8 +184,8 @@ beam_topk_held_kernel(const T* __restrict__ logits, int V, int k, const int* __r
       mark(unk_id);
     }
   }  // held_row_stats' barriers publish div_s and the marks
-  float m, logsum, xmax;
-  held_row_stats<T, PER>(raw, units, red[0], red[1], m, logsum, xmax);
+  float m, lse, xmax;
+  held_row_stats<T, PER>(raw, units, red[0], red[1], m, lse, xmax);
 
   // this thread's best constrained value (penalties only lower a value): the
   // log-prob of its largest logit; a thread that holds a penalised entry (at
@@ -206,10 +208,10 @@ beam_topk_held_kernel(const T* __restrict__ logits, int V, int k, const int* __r
           if (!((bits >> e) & 1u)) xfree = fmaxf(xfree, v[e]);
       }
     }
-    cbest = xfree == -INFINITY ? -INFINITY : round_to<T>((xfree - m) - logsum);
+    cbest = xfree == -INFINITY ? -INFINITY : lsm_logprob<T>(xfree, m, lse);
   } else {
     auto owns = [&](int i) { return i >= 0 && i < units * UE && (i / UE) % nt == tid; };
-    cbest = xmax == -INFINITY ? -INFINITY : round_to<T>((xmax - m) - logsum);
+    cbest = xmax == -INFINITY ? -INFINITY : lsm_logprob<T>(xmax, m, lse);
     if (owns(ban) || (no_eos && owns(eos_id)) || owns(unk_id)) cbest = -INFINITY;
   }
   // the constrained value of entry i (value e of this thread's vector j) from its log-prob
@@ -250,12 +252,17 @@ beam_topk_held_kernel(const T* __restrict__ logits, int V, int k, const int* __r
     }
   }
   const float thr = thr_key == 0u ? -INFINITY : order_value(thr_key);
-  // a logit below x_lo cannot round to a log-prob that reaches thr (a margin
-  // of one ulp of the log-prob's dtype at thr, and of f32's over the two
-  // subtractions)
+  // a logit below x_lo cannot round to a log-prob that reaches thr. f32:
+  // lp = (x - m) - lse, a margin of one ulp at thr. bf16: lp = R(sh - lse)
+  // >= thr needs sh - lse >= thr - ulp(thr), and sh = R(x - m) >= A = thr +
+  // lse - ulp(thr) needs x - m >= A - ulp(A); a bf16 ulp at v is at most
+  // |v| 2^-7 and |A| <= |thr| + lse, so the margin is (2 |thr| + lse) 2^-7.
+  // Both: f32's rounding over the subtractions, (|thr| + |m| + |lse|) 2^-20.
   const float x_lo = thr == -INFINITY ? -INFINITY
-                                      : (thr + m + logsum) - fabsf(thr) * (sizeof(T) == 2 ? 0x1p-7f : 0x1p-22f) -
-                                            (fabsf(thr) + fabsf(m) + fabsf(logsum)) * 0x1p-20f;
+                                      : (thr + m + lse) -
+                                            (sizeof(T) == 2 ? (2.f * fabsf(thr) + fabsf(lse)) * 0x1p-7f
+                                                            : fabsf(thr) * 0x1p-22f) -
+                                            (fabsf(thr) + fabsf(m) + fabsf(lse)) * 0x1p-20f;
 
   // the warp's best k, lane q holding entry q (descending keys; 0: empty):
   // the entries whose logit reaches x_lo (a few a row) are inserted one at a
@@ -287,7 +294,7 @@ beam_topk_held_kernel(const T* __restrict__ logits, int V, int k, const int* __r
       for (int q = 1; q < UE; ++q)
         if (q == e) xv = v[q];
       const int i = (j * nt + tid) * UE + e;
-      const float lp = round_to<T>((xv - m) - logsum);
+      const float lp = lsm_logprob<T>(xv, m, lse);
       const unsigned long long mine = (reach >> (j * UE + e)) & 1u ? topk_key(constrain(lp, i, j, e), i) : 0ull;
       // the lanes whose key beats the list's k-th entry, lowest lane first;
       // each insertion raises the k-th entry, and lanes it passes drop out
@@ -324,7 +331,7 @@ beam_topk_held_kernel(const T* __restrict__ logits, int V, int k, const int* __r
     out_val[o] = val;
     out_idx[o] = i;
     const bool touched = DIV ? (pen_s[i >> 5] >> (i & 31)) & 1u : penalized(i, ban, no_eos, eos_id, unk_id);
-    out_raw[o] = touched ? round_to<T>((to_f(x[i]) - m) - logsum) : val;
+    out_raw[o] = touched ? lsm_logprob<T>(to_f(x[i]), m, lse) : val;
   }
 }
 
@@ -344,8 +351,8 @@ beam_topk_kernel(const T* __restrict__ logits, int V, int k, const int* __restri
   const int row = blockIdx.x;
   const T* x = logits + (size_t)row * V;
   stage_diversity(div_tokens, div_p, div_group, row, div_s);
-  float mx, logsum;
-  row_logsumexp(x, V, red_a, red_b, mx, logsum);
+  float mx, lse;
+  row_logsumexp(x, V, red_a, red_b, mx, lse);
 
   // pass 2: constrained log-probs, sorted per-thread top-k
   const int ban = ban_token != nullptr ? ban_token[row] : -1;
@@ -354,7 +361,7 @@ beam_topk_kernel(const T* __restrict__ logits, int V, int k, const int* __restri
   int ti[KMAX];
   topk_init(tv, ti, thr);
   for (int i = threadIdx.x; i < V; i += blockDim.x)
-    topk_insert(constrained(x, i, mx, logsum, ban, no_eos, eos_id, unk_id, div_s, div_p, div_lambda), i, k, tv, ti,
+    topk_insert(constrained(x, i, mx, lse, ban, no_eos, eos_id, unk_id, div_s, div_p, div_lambda), i, k, tv, ti,
                 thr);
 
   // merge: k rounds of a block-wide argmax over each thread's best remaining entry
@@ -362,7 +369,7 @@ beam_topk_kernel(const T* __restrict__ logits, int V, int k, const int* __restri
     const size_t o = (size_t)row * k + r;
     out_val[o] = cv;
     out_idx[o] = ci;
-    out_raw[o] = round_to<T>((to_f(x[ci]) - mx) - logsum);
+    out_raw[o] = lsm_logprob<T>(to_f(x[ci]), mx, lse);
   });
 }
 
@@ -388,12 +395,12 @@ beam_topk_select_kernel(const T* __restrict__ logits, int V, int k, int cap, con
   const int row = blockIdx.x, lane = threadIdx.x & 31, warp = threadIdx.x / 32, nwarps = blockDim.x / 32;
   const T* x = logits + (size_t)row * V;
   stage_diversity(div_tokens, div_p, div_group, row, div_s);
-  float mx, logsum;
-  row_logsumexp(x, V, red_a, red_b, mx, logsum);
+  float mx, lse;
+  row_logsumexp(x, V, red_a, red_b, mx, lse);
   const int ban = ban_token != nullptr ? ban_token[row] : -1;
   const bool no_eos = ban_eos != nullptr && ban_eos[row] != 0;
   for (int i = threadIdx.x; i < V; i += blockDim.x)
-    c_s[i] = constrained(x, i, mx, logsum, ban, no_eos, eos_id, unk_id, div_s, div_p, div_lambda);
+    c_s[i] = constrained(x, i, mx, lse, ban, no_eos, eos_id, unk_id, div_s, div_p, div_lambda);
   if (threadIdx.x == 0) n_cand = 0;
   __syncthreads();
   // radix select of the k-th largest key (row_topk.cuh)
@@ -431,7 +438,7 @@ beam_topk_select_kernel(const T* __restrict__ logits, int V, int k, int cap, con
     const size_t o = (size_t)row * k + r;
     out_val[o] = c_s[i];
     out_idx[o] = i;
-    out_raw[o] = round_to<T>((to_f(x[i]) - mx) - logsum);
+    out_raw[o] = lsm_logprob<T>(to_f(x[i]), mx, lse);
   }
 }
 

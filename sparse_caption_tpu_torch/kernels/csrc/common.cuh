@@ -37,6 +37,26 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float
 // x rounded to T (round to nearest even, as PyTorch casts) and widened again
 template <typename T> __device__ __forceinline__ float round_to(float x) { return to_f(from_f<T>(x)); }
 
+// The log-softmax of a row in the compute dtype R, rounded where
+// jax.nn.log_softmax rounds an R row (sparse_caption_tpu/models/layers.py:472):
+//   sh = R(x - max);  s = sum exp(sh) in f32;  lse = R(log(R(s)));  lp = R(sh - lse)
+// (kernels/vocab_log_softmax.py rounded_log_softmax is the plain rule). Each
+// rounding is the identity in f32. lp grows with x (R is monotone), so the
+// largest logit of a set has its largest log-prob. `lsm_shift2` rounds two
+// shifts by one conversion of the pair.
+template <typename R> __device__ __forceinline__ float lsm_shift(float x, float m) { return round_to<R>(x - m); }
+template <typename R> __device__ __forceinline__ float lsm_lse(float s) { return round_to<R>(logf(round_to<R>(s))); }
+template <typename R> __device__ __forceinline__ float lsm_logprob(float x, float m, float lse) {
+  return round_to<R>(lsm_shift<R>(x, m) - lse);
+}
+template <typename R> __device__ __forceinline__ float2 lsm_shift2(float a, float b, float m) {
+  if constexpr (sizeof(R) == 2) {
+    return __bfloat1622float2(__floats2bfloat162_rn(a - m, b - m));
+  } else {
+    return make_float2(a - m, b - m);
+  }
+}
+
 // two neighbouring elements in one 8-byte (f32) or 4-byte (bf16) access
 __device__ __forceinline__ float2 load2(const float* p) { return *reinterpret_cast<const float2*>(p); }
 __device__ __forceinline__ float2 load2(const __nv_bfloat16* p) {

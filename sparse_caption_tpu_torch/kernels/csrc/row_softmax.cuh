@@ -5,7 +5,8 @@
 // t + nt, ...). The row's max and log-sum-exp are reduced in one fixed order
 // (each thread's values in order, a warp shuffle tree, then the warps in
 // order), so the two kernels give the same log-sum, and so the same log-probs,
-// bit for bit, and a run repeats bit for bit.
+// bit for bit, and a run repeats bit for bit. A bf16 row's log-probs round
+// where jax.nn.log_softmax rounds them (common.cuh lsm_*).
 #pragma once
 
 #include "common.cuh"
@@ -51,13 +52,36 @@ __device__ __forceinline__ float block_sum(float v, float* red) {
   return r;
 }
 
-// the row's max m and log(sum exp(x - m)) from the held vectors (raw[k] is
-// vector k nt + t of the row, `units` vectors in all), in every thread, and
-// the thread's own largest value in `mine` (-inf if it holds none); one expf
-// an element, no online rescale. red_max, red_sum: 32 floats each.
-template <typename T, int PER>
+// the two sums' block totals, in every thread, each in block_sum's order; red: 64 floats
+__device__ __forceinline__ float2 block_sum2(float a, float b, float* red) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x / 32;
+  a = warp_sum(a);
+  b = warp_sum(b);
+  if (lane == 0) {
+    red[warp] = a;
+    red[32 + warp] = b;
+  }
+  __syncthreads();
+  float2 r = make_float2(0.f, 0.f);
+  for (int w = 0; w < (int)blockDim.x / 32; ++w) {
+    r.x += red[w];
+    r.y += red[32 + w];
+  }
+  return r;
+}
+
+// the row's max m and lse = R(log(R(sum exp(R(x - m))))) (common.cuh lsm_*:
+// R the dtype the log-probs round in, T itself or f32 where they are not
+// rounded) from the held vectors (raw[k] is vector k nt + t of the row,
+// `units` vectors in all), in every thread, and the thread's own largest
+// value in `mine` (-inf if it holds none); one expf an element, no online
+// rescale. With `exact` (K13's forward in bf16 when a backward follows, which
+// recomputes the f32 softmax), also log(sum exp(x - m)) unrounded: a second
+// expf an element, both sums reduced at once. red_max: 32 floats; red_sum: 32 floats, 64 with
+// `exact`.
+template <typename T, int PER, typename R = T>
 __device__ __forceinline__ void held_row_stats(const uint4 (&raw)[PER], int units, float* red_max, float* red_sum,
-                                               float& m, float& logsum, float& mine) {
+                                               float& m, float& lse, float& mine, float* exact = nullptr) {
   constexpr int UE = 16 / sizeof(T);
   const int nt = blockDim.x, tid = threadIdx.x;
   float mloc = -INFINITY;
@@ -72,17 +96,42 @@ __device__ __forceinline__ void held_row_stats(const uint4 (&raw)[PER], int unit
   }
   mine = mloc;
   m = block_max(mloc, red_max);
-  float sloc = 0.f;
+  float sloc = 0.f, eloc = 0.f;
+  if (exact != nullptr) {
+#pragma unroll
+    for (int k = 0; k < PER; ++k) {
+      if (k * nt + tid < units) {
+        float v[UE];
+        unpack16<T>(raw[k], v);
+#pragma unroll
+        for (int i = 0; i < UE; i += 2) {
+          const float2 sh = lsm_shift2<R>(v[i], v[i + 1], m);
+          sloc += expf(sh.x);
+          sloc += expf(sh.y);
+          eloc += expf(v[i] - m);
+          eloc += expf(v[i + 1] - m);
+        }
+      }
+    }
+    const float2 sums = block_sum2(sloc, eloc, red_sum);
+    lse = lsm_lse<R>(sums.x);
+    *exact = logf(sums.y);
+    return;
+  }
 #pragma unroll
   for (int k = 0; k < PER; ++k) {
     if (k * nt + tid < units) {
       float v[UE];
       unpack16<T>(raw[k], v);
 #pragma unroll
-      for (int i = 0; i < UE; ++i) sloc += expf(v[i] - m);
+      for (int i = 0; i < UE; i += 2) {
+        const float2 sh = lsm_shift2<R>(v[i], v[i + 1], m);
+        sloc += expf(sh.x);
+        sloc += expf(sh.y);
+      }
     }
   }
-  logsum = logf(block_sum(sloc, red_sum));
+  lse = lsm_lse<R>(block_sum(sloc, red_sum));
 }
 
 }  // namespace sct

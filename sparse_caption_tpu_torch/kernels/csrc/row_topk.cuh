@@ -2,7 +2,8 @@
 // beam_topk.cu) and K9's top-k filter (sample_step.cu): one block a row.
 //
 // - row_logsumexp: the row's max and log(sum exp(x - max)), an online max /
-//   sum per thread merged across the block (every thread returns them).
+//   sum per thread merged across the block (every thread returns them); in
+//   bf16 the max, then the sum at jax.nn.log_softmax's rounding points.
 // - The register path (k <= KMAX <= 32): each thread keeps its best KMAX
 //   (value, index) entries sorted (topk_insert, indices growing within a
 //   thread, so an equal value never displaces a lower index), then k rounds
@@ -18,17 +19,29 @@
 #include <climits>
 
 #include "common.cuh"
+#include "row_softmax.cuh"
 
 namespace sct {
 
-// Row statistics: the max and log(sum exp(x - max)) of one row of V values,
-// merged across the block (every thread returns them). red_a, red_b: 32
-// floats of shared memory each, free again when this returns.
+// Row statistics: the max and lse = log(sum exp(x - max)) of one row of V
+// values, merged across the block (every thread returns them), lse rounded
+// where jax.nn.log_softmax rounds a T row (common.cuh lsm_*). f32: an online
+// max / sum. bf16: the max, then the sum of exp of the rounded shifts (they
+// need the row's max), the row read twice. red_a, red_b: 32 floats of
+// shared memory each, free again when this returns.
 template <typename T>
 __device__ __forceinline__ void row_logsumexp(const T* __restrict__ x, int V, float* red_a, float* red_b, float& mx,
-                                              float& logsum) {
+                                              float& lse) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x / 32, nwarps = blockDim.x / 32;
   float m = -INFINITY, s = 0.f;
+  if constexpr (sizeof(T) == 2) {
+    for (int i = threadIdx.x; i < V; i += blockDim.x) m = fmaxf(m, to_f(x[i]));
+    mx = block_max(m, red_a);
+    for (int i = threadIdx.x; i < V; i += blockDim.x) s += expf(lsm_shift<T>(to_f(x[i]), mx));
+    lse = lsm_lse<T>(block_sum(s, red_b));
+    __syncthreads();  // red_a / red_b are reused by the caller
+    return;
+  }
   for (int i = threadIdx.x; i < V; i += blockDim.x) {
     const float xi = to_f(x[i]);
     if (xi > m) {
@@ -52,7 +65,7 @@ __device__ __forceinline__ void row_logsumexp(const T* __restrict__ x, int V, fl
   s = 0.f;
   for (int w = 0; w < nwarps; ++w) merge_max_sum(m, s, red_a[w], red_b[w]);
   mx = m;
-  logsum = logf(s);
+  lse = logf(s);
   __syncthreads();  // red_a / red_b are reused by the caller
 }
 

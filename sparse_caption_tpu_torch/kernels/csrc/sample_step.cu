@@ -15,7 +15,9 @@
 // log-probs); left to XLA on the TPU too.
 //
 // For each row n of logits (N, V) in the compute dtype T:
-//   lp[v] = T((x[v] - max) - log(sum exp(x - max)))        (log_softmax, f32 stats)
+//   lp[v] = T(T(x[v] - max) - lse), lse = T(log(T(sum exp(T(x - max)))))
+//           (log_softmax, f32 sums, rounded where jax.nn.log_softmax rounds a
+//           T row: common.cuh lsm_*; no rounding in f32)
 //   c[v]  = f32(lp[v]) + (-1e30 if ban_prev and v == prev[n])  (decoding_constraint, t > 0)
 //   g[v]  = -log(-log(u)),  u = ((bits >> 9) * 2 + 1) * 2^-24 in (0, 1)
 //           bits: Philox4x32-10 under (key, site), counter (site, t, n, v / 4), word v % 4
@@ -206,17 +208,20 @@ __device__ __forceinline__ bool row_vectors(const T* logits, int V) {
   return V % kUnit<T> == 0 && (reinterpret_cast<uintptr_t>(logits) & 15u) == 0;
 }
 
-// Pass 1 of the register top-k and the nucleus: the row's max and
-// log(sum exp(x - max)) (an online max / sum per thread, rescaled once a
-// vector; merged across the block in a fixed order) and the row's KC largest
-// logits other than the banned one (the first k exact, sorted descending,
-// repeats kept), in lane 0 of every warp. One __syncthreads for both merges.
-// cand: KC x the block's warps of shared memory; red_a, red_b, cand free on
-// return.
+// Pass 1 of the register top-k and the nucleus: the row's max and lse =
+// log(sum exp(x - max)) (f32: an online max / sum per thread, rescaled once
+// a vector; merged across the block in a fixed order; bf16: the max in this
+// pass, then a second pass over the row (from L2) sums exp of the rounded
+// shifts, common.cuh lsm_*) and the row's KC largest logits other than the
+// banned one (the first k exact, sorted descending, repeats kept), in lane 0
+// of every warp. One __syncthreads for both merges (bf16: one more for the
+// sum). cand: KC x the block's warps of shared memory; red_a, red_b, cand
+// free on return.
 template <typename T, int KC>
 __device__ __forceinline__ void row_stats_candidates(const T* __restrict__ x, int V, bool vec, int ban, int k,
                                                      float* red_a, float* red_b, float* cand, float& mx,
-                                                     float& logsum, float (&tv)[KC]) {
+                                                     float& lse, float (&tv)[KC]) {
+  constexpr bool online = sizeof(T) == 4;
   const int lane = threadIdx.x & 31, warp = threadIdx.x / 32, nwarps = blockDim.x / 32;
   float m = -INFINITY, s = 0.f, thr = -INFINITY;
 #pragma unroll
@@ -231,19 +236,21 @@ __device__ __forceinline__ void row_stats_candidates(const T* __restrict__ x, in
 #pragma unroll
       for (int q = 1; q < UE; ++q) vm = fmaxf(vm, v[q]);
       if (vm > m) {
-        s *= expf(m - vm);
+        if (online) s *= expf(m - vm);
         m = vm;
       }
 #pragma unroll
       for (int q = 0; q < UE; ++q) {
-        s += expf(v[q] - m);
+        if (online) s += expf(v[q] - m);
         if (v[q] > thr && u * UE + q != ban) cand_insert(v[q], k, tv, thr);
       }
     }
   } else {
     for (int i = threadIdx.x; i < V; i += blockDim.x) {
       const float xi = to_f(x[i]);
-      if (xi > m) {
+      if (!online) {
+        m = fmaxf(m, xi);
+      } else if (xi > m) {
         s = s * expf(m - xi) + 1.f;
         m = xi;
       } else {
@@ -255,7 +262,11 @@ __device__ __forceinline__ void row_stats_candidates(const T* __restrict__ x, in
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) {
     const float om = __shfl_xor_sync(0xffffffffu, m, o), os = __shfl_xor_sync(0xffffffffu, s, o);
-    merge_max_sum(m, s, om, os);
+    if (online) {
+      merge_max_sum(m, s, om, os);
+    } else {
+      m = fmaxf(m, om);
+    }
   }
   cand_merge<KC, 32>(tv);
   if (lane == 0) {
@@ -267,12 +278,34 @@ __device__ __forceinline__ void row_stats_candidates(const T* __restrict__ x, in
   __syncthreads();
   m = -INFINITY;
   s = 0.f;
-  for (int w = 0; w < nwarps; ++w) merge_max_sum(m, s, red_a[w], red_b[w]);
+  for (int w = 0; w < nwarps; ++w) {
+    if (online) {
+      merge_max_sum(m, s, red_a[w], red_b[w]);
+    } else {
+      m = fmaxf(m, red_a[w]);
+    }
+  }
   mx = m;
-  logsum = logf(s);
 #pragma unroll
   for (int j = 0; j < KC; ++j) tv[j] = lane < nwarps ? cand[lane * KC + j] : -INFINITY;
   cand_merge<KC, kSampleWarps>(tv);
+  if (online) {
+    lse = logf(s);
+  } else {
+    float sl = 0.f;
+    if (vec) {
+      constexpr int UE = kUnit<T>;
+      for (int u = threadIdx.x; u < V / UE; u += blockDim.x) {
+        float v[UE];
+        unpack16<T>(ld16(x + (size_t)u * UE), v);
+#pragma unroll
+        for (int q = 0; q < UE; ++q) sl += expf(lsm_shift<T>(v[q], mx));
+      }
+    } else {
+      for (int i = threadIdx.x; i < V; i += blockDim.x) sl += expf(lsm_shift<T>(to_f(x[i]), mx));
+    }
+    lse = lsm_lse<T>(block_sum(sl, red_b));
+  }
   __syncthreads();  // red_a / red_b / cand are reused by the caller
 }
 
@@ -521,15 +554,15 @@ sample_step_kernel(const T* __restrict__ logits, int V, const int* __restrict__ 
   const int row = blockIdx.x, lane = threadIdx.x & 31, warp = threadIdx.x / 32, nwarps = blockDim.x / 32;
   const T* x = logits + (size_t)row * V;
   const int ban = ban_prev ? prev[row] : -1;
-  float mx, logsum;
+  float mx, lse;
   auto logprob = [&](int i) {  // c[i] of the module notes
-    float c = round_to<T>((to_f(x[i]) - mx) - logsum);
+    float c = lsm_logprob<T>(to_f(x[i]), mx, lse);
     if (i == ban) c += kBanPrev;
     return c;
   };
-  auto tempered_logit = [&](float xv) { return round_to<T>((xv - mx) - logsum) / temperature; };  // s, not banned
+  auto tempered_logit = [&](float xv) { return lsm_logprob<T>(xv, mx, lse) / temperature; };  // s, not banned
   auto tempered = [&](int i, float xv) {  // s[i] of the module notes from its logit xv
-    float c = round_to<T>((xv - mx) - logsum);
+    float c = lsm_logprob<T>(xv, mx, lse);
     if (i == ban) c += kBanPrev;
     return c / temperature;
   };
@@ -547,7 +580,7 @@ sample_step_kernel(const T* __restrict__ logits, int V, const int* __restrict__ 
   if constexpr (kMode == kTopK && KC > 0) {
     __shared__ float cand[kSampleWarps * (KC > 0 ? KC : 1)];
     float tv[KC > 0 ? KC : 1];
-    row_stats_candidates<T>(x, V, vec, ban, top_k, red_a, red_b, cand, mx, logsum, tv);
+    row_stats_candidates<T>(x, V, vec, ban, top_k, red_a, red_b, cand, mx, lse, tv);
     // the k-th largest s is s of the k-th largest logit (s is non-decreasing in x), the banned entry merged in
     const float xk = __shfl_sync(0xffffffffu, entry(tv, top_k - 1), 0);
     const float xk1 = __shfl_sync(0xffffffffu, entry(tv, top_k - 2), 0);
@@ -559,12 +592,12 @@ sample_step_kernel(const T* __restrict__ logits, int V, const int* __restrict__ 
   } else if constexpr (kMode == kNucleus) {
     __shared__ float cand[kSampleWarps];
     float tv[1];
-    row_stats_candidates<T>(x, V, vec, ban, 1, red_a, red_b, cand, mx, logsum, tv);
+    row_stats_candidates<T>(x, V, vec, ban, 1, red_a, red_b, cand, mx, lse, tv);
     float max_s = tempered_logit(__shfl_sync(0xffffffffu, tv[0], 0));
     if (ban >= 0) max_s = fmaxf(max_s, logprob(ban) / temperature);
     cut = nucleus_cut(x, V, vec, tempered, max_s, top_p, keys);
   } else {
-    row_logsumexp(x, V, red_a, red_b, mx, logsum);
+    row_logsumexp(x, V, red_a, red_b, mx, lse);
     if constexpr (radix_topk) {  // the row's s in shared memory, the radix select of the k-th
       __shared__ int hist[256];
       __shared__ unsigned int prefix_s;
@@ -729,10 +762,10 @@ sample_held_kernel(const T* __restrict__ logits, int V, const int* __restrict__ 
     raw[j] = u < units ? ld16(x + (size_t)u * UE) : make_uint4(0u, 0u, 0u, 0u);
   }
   const int ban = ban_prev ? prev[row] : -1;
-  float m, logsum, xmax;
-  held_row_stats<T, PER>(raw, units, red[0], red[1], m, logsum, xmax);
+  float m, lse, xmax;
+  held_row_stats<T, PER>(raw, units, red[0], red[1], m, lse, xmax);
   auto logprob = [&](int i, float xv) {  // c[i] of the module notes from its logit xv
-    float c = round_to<T>((xv - m) - logsum);
+    float c = lsm_logprob<T>(xv, m, lse);
     if (i == ban) c += kBanPrev;
     return c;
   };
@@ -775,7 +808,7 @@ sample_held_kernel(const T* __restrict__ logits, int V, const int* __restrict__ 
   }
 
   // z from the registers, 4 columns a Philox call; each thread's best (z, index)
-  float best = -INFINITY;
+  float best = -INFINITY, xg = -INFINITY;  // xg: greedy, the largest logit offered (not banned)
   int best_i = INT_MAX;
   auto offer = [&](float z, int i) {
     if (z > best) {  // i grows within a thread, so a tie keeps the lower index
@@ -792,15 +825,23 @@ sample_held_kernel(const T* __restrict__ logits, int V, const int* __restrict__ 
 #pragma unroll
     for (int h = 0; h < GV; ++h) {
       const int i0 = u * UE + 4 * h;
-      if (greedy) {
+      if (greedy) {  // c grows with x: only a logit above the largest so far can raise the best
 #pragma unroll
-        for (int q = 0; q < 4; ++q) offer(logprob(i0 + q, v[4 * h + q]), i0 + q);
+        for (int q = 0; q < 4; ++q) {
+          const float xv = v[4 * h + q];
+          if (i0 + q == ban) {
+            offer(logprob(i0 + q, xv), i0 + q);
+          } else if (xv > xg) {
+            xg = xv;
+            offer(logprob(i0 + q, xv), i0 + q);
+          }
+        }
         continue;
       }
       // a of the group's largest logit, which no entry of the group exceeds (c and a grow with the logit;
       // the ban only lowers one)
       const float amax =
-          value(round_to<T>((fmaxf(fmaxf(v[4 * h], v[4 * h + 1]), fmaxf(v[4 * h + 2], v[4 * h + 3])) - m) - logsum));
+          value(lsm_logprob<T>(fmaxf(fmaxf(v[4 * h], v[4 * h + 1]), fmaxf(v[4 * h + 2], v[4 * h + 3])), m, lse));
       // an entry whose u cannot lift it to z_ref takes no log: 1 - u > lim = exp(amax - z_ref + delta) gives
       // -log u > exp(a - z_ref + delta), so g < z_ref - a - delta and fl(a + g) < z_ref (delta above the
       // logs' and the adds' rounding, the factor above __expf's error)

@@ -8,11 +8,18 @@
 // fuse their own (K4, K9). Left to XLA on the TPU.
 //
 // For each row of x (rows, V) in Tin, with f32 arithmetic throughout:
-//   forward   y  = Tout((x - max) - log(sum exp(x - max)))   (rounded as torch.log_softmax)
-//             stats[row] = (max, log sum)
+//   forward   y  = Tout(lp), lp = (x - max) - log(sum exp(x - max)),
+//             rounded where jax.nn.log_softmax rounds a bf16 row when x and
+//             y are both bf16 (common.cuh lsm_*: R(x - max), the f32 sum of
+//             their exp rounded, its log rounded, R(sh - lse)); f32 within
+//             otherwise (bf16 -> f32 is the Generator's train site, where the
+//             JAX package casts the logits to f32 first)
+//             stats[row] = (max, log sum exp(x - max)), unrounded (stats null:
+//             no backward follows; bf16 -> bf16 then sums exp once)
 //   backward  dx = Tin(dy - exp((x - max) - log sum) * sum(dy))
-// The backward recomputes the softmax from x and the row's two stats, so a
-// bf16 output costs the gradient no precision.
+// The backward recomputes the f32 softmax from x and the row's two stats
+// (the plain version's gradient is the f32 log-softmax's), so a bf16 output
+// costs the gradient no precision.
 //
 // Bound on the H100: bytes. The forward reads x once and writes y; the
 // backward reads dy and x and writes dx (21,760 rows x 10,000 of the XE
@@ -29,11 +36,17 @@
 // row_softmax.cuh, which K4 shares), then y from the held values. The backward holds dy in registers and sums it while each
 // thread's part of the x row streams into shared memory with cp.async, then
 // writes dx from the two. Block reductions run in a fixed order (warp
-// shuffle tree, then the warps in order), so a run repeats bit for bit.
+// shuffle tree, then the warps in order), so a run repeats bit for bit. A
+// bf16 -> bf16 row sums exp of the rounded shifts and, for the stats, exp of
+// the unrounded ones (two expf an element, one reduction).
 // Other rows (V not a multiple of the vector, unaligned rows such as bf16
 // with odd V, or rows too long to hold) take the general path: 256 threads
 // per row, scalar loads, an online max / sum over the row in chunks of 256
-// elements, then a second pass that rereads the row.
+// elements, then a second pass that rereads the row; a bf16 -> bf16 row
+// takes its max first and sums in a second pass (the rounded shifts need the
+// row's max), then a third pass writes it.
+#include <type_traits>
+
 #include "row_softmax.cuh"
 
 namespace sct {
@@ -42,6 +55,10 @@ constexpr int kLsmThreads = 256;       // general path
 constexpr int kLsmWarps = kLsmThreads / 32;
 constexpr int kLsmMaxThreads = 1024;   // held path
 
+// the dtype a row's log-probs round in: bf16 where x and y are both bf16, else none (f32)
+template <typename Tin, typename Tout>
+using LsmRound = typename std::conditional<sizeof(Tin) == 2 && sizeof(Tout) == 2, Tin, float>::type;
+
 // ------------------------------------------------------------ held path
 // one row per block; thread t holds the 16-byte vectors t, t + nt, ... (PER of them)
 template <typename Tin, typename Tout>
@@ -49,7 +66,8 @@ __global__ void __launch_bounds__(kLsmMaxThreads)
 log_softmax_fwd_held_kernel(const Tin* __restrict__ x, Tout* __restrict__ y, float* __restrict__ stats, int V) {
   constexpr int UE = 16 / sizeof(Tin);
   constexpr int PER = kRowHeld / UE;
-  __shared__ float red[2][32];
+  using R = LsmRound<Tin, Tout>;
+  __shared__ float red[3][32];
   const int nt = blockDim.x, tid = threadIdx.x;
   const int units = V / UE;
   const size_t base = (size_t)blockIdx.x * V;
@@ -59,20 +77,27 @@ log_softmax_fwd_held_kernel(const Tin* __restrict__ x, Tout* __restrict__ y, flo
     const int u = k * nt + tid;
     raw[k] = u < units ? ld16(x + base + (size_t)u * UE) : make_uint4(0u, 0u, 0u, 0u);
   }
-  float m, logsum, mine;
-  held_row_stats<Tin, PER>(raw, units, red[0], red[1], m, logsum, mine);
+  float m, lse, mine, logsum;
+  held_row_stats<Tin, PER, R>(raw, units, red[0], red[1], m, lse, mine,
+                              sizeof(R) == 2 && stats != nullptr ? &logsum : nullptr);
+  if (sizeof(R) == 4) logsum = lse;
 #pragma unroll
   for (int k = 0; k < PER; ++k) {
     const int u = k * nt + tid;
     if (u < units) {
       float v[UE];
       unpack16<Tin>(raw[k], v);
+      // the last rounding, to Tout (= R in bf16), is the store's
 #pragma unroll
-      for (int i = 0; i < UE; ++i) v[i] = (v[i] - m) - logsum;
+      for (int i = 0; i < UE; i += 2) {
+        const float2 sh = lsm_shift2<R>(v[i], v[i + 1], m);
+        v[i] = sh.x - lse;
+        v[i + 1] = sh.y - lse;
+      }
       store_n<UE>(y + base + (size_t)u * UE, v);
     }
   }
-  if (tid == 0) reinterpret_cast<float2*>(stats)[blockIdx.x] = make_float2(m, logsum);
+  if (tid == 0 && stats != nullptr) reinterpret_cast<float2*>(stats)[blockIdx.x] = make_float2(m, logsum);
 }
 
 // dynamic shared memory: the x row, thread t's vectors at (k nt + t) x 16 bytes
@@ -148,23 +173,41 @@ __device__ __forceinline__ void block_max_sum(float& m, float& s, float* red_m, 
 template <typename Tin, typename Tout>
 __global__ void __launch_bounds__(kLsmThreads)
 log_softmax_fwd_kernel(const Tin* __restrict__ x, Tout* __restrict__ y, float* __restrict__ stats, int V) {
-  __shared__ float red_m[kLsmWarps];
-  __shared__ float red_s[kLsmWarps];
+  using R = LsmRound<Tin, Tout>;
+  __shared__ float red_m[32];
+  __shared__ float red_s[64];
   const size_t base = (size_t)blockIdx.x * V;
-  float m = -INFINITY, s = 0.f;
-  for (int i = threadIdx.x; i < V; i += kLsmThreads) {  // pass 1: online max / sum
-    const float xi = to_f(x[base + i]);
-    if (xi > m) {
-      s = s * expf(m - xi) + 1.f;
-      m = xi;
-    } else {
-      s += expf(xi - m);
+  float m = -INFINITY, s = 0.f, lse, logsum;
+  if constexpr (sizeof(R) == 4) {
+    for (int i = threadIdx.x; i < V; i += kLsmThreads) {  // pass 1: online max / sum
+      const float xi = to_f(x[base + i]);
+      if (xi > m) {
+        s = s * expf(m - xi) + 1.f;
+        m = xi;
+      } else {
+        s += expf(xi - m);
+      }
     }
+    block_max_sum(m, s, red_m, red_s);
+    lse = logsum = logf(s);
+  } else {  // the max, then the rounded shifts' sum and the unrounded one (the stats)
+    for (int i = threadIdx.x; i < V; i += kLsmThreads) {  // pass 1: the max
+      m = fmaxf(m, to_f(x[base + i]));
+    }
+    m = block_max(m, red_m);
+    float e = 0.f;
+    for (int i = threadIdx.x; i < V; i += kLsmThreads) {
+      const float xi = to_f(x[base + i]);
+      s += expf(lsm_shift<R>(xi, m));
+      if (stats != nullptr) e += expf(xi - m);
+    }
+    const float2 sums = block_sum2(s, e, red_s);
+    lse = lsm_lse<R>(sums.x);
+    logsum = logf(sums.y);
   }
-  block_max_sum(m, s, red_m, red_s);
-  const float logsum = logf(s);
-  for (int i = threadIdx.x; i < V; i += kLsmThreads) y[base + i] = from_f<Tout>((to_f(x[base + i]) - m) - logsum);
-  if (threadIdx.x == 0) {
+  for (int i = threadIdx.x; i < V; i += kLsmThreads)
+    y[base + i] = from_f<Tout>(lsm_shift<R>(to_f(x[base + i]), m) - lse);
+  if (threadIdx.x == 0 && stats != nullptr) {
     stats[2 * blockIdx.x] = m;
     stats[2 * blockIdx.x + 1] = logsum;
   }
@@ -238,7 +281,8 @@ cudaError_t launch_bwd(const void* dy, const void* x, const void* stats, void* d
 }  // namespace sct
 
 // dtype codes: 0 = float32, 1 = bfloat16, for x (in) and y (out). x, y (rows, V)
-// row-major; stats (rows, 2) f32 receives each row's max and log sum.
+// row-major; stats (rows, 2) f32 receives each row's max and log sum (null: none,
+// where no backward follows).
 extern "C" int sct_vocab_log_softmax(int in_dtype, int out_dtype, const void* x, void* y, void* stats, int rows, int V,
                                      void* stream) {
   if (rows < 0 || V < 1 || !sct::aligned_to(stats, 8)) return (int)cudaErrorInvalidValue;

@@ -92,12 +92,20 @@ def bf16_smem(regions: int, rep: int, kv: bool = False, dk: int = 64) -> int:
 
 def bwd_smem(dk: int, regions: int, rep: int, kv: bool = False) -> int:
     """Shared memory of the backward kernel (``cross_bwd_smem_bytes``): K and
-    V of one (image, head) (K alone in the kv mode) at row stride
-    padded_width(dk) + 1, every row's q, dout (padded_width(dk) each),
-    probabilities and score gradients (a region each), f32, and the region
-    flags."""
-    p = padded_width(dk)
-    return ((1 if kv else 2) * (p + 1) * regions + rep * (2 * p + 2 * regions)) * 4 + regions
+    V of one (image, head) (K alone in the kv mode) at row pitch
+    padded_width(dk) + 4, every row's q and dout (padded_width(dk) each), at
+    dk 13 the raw stage (each memory span's 16-byte envelope, 16 floats a q
+    and a dout row), probabilities and score gradients (a region each), f32,
+    and the region flags."""
+    p, arrays = padded_width(dk), 1 if kv else 2
+    raw = 0 if dk % 4 == 0 else arrays * bwd_raw_floats(regions * dk) + 2 * rep * 16
+    return (arrays * regions * (p + 4) + 2 * rep * p + raw + 2 * rep * regions) * 4 + regions
+
+
+def bwd_raw_floats(n: int) -> int:
+    """Floats of the backward's raw stage for the 16-byte envelope of n f32
+    elements (``cross_bwd_raw``: an offset of at most 12 bytes)."""
+    return (4 * n + 12 + 15) // 16 * 4
 
 
 def grouped_cross_attention_plain(q, mem_k, mem_v: Optional[torch.Tensor], mask):
@@ -202,7 +210,7 @@ def grouped_cross_attention_backward(q, mem_k, mem_v: Optional[torch.Tensor], ma
     if s > 64 or bwd_smem(dk, s, n // b, kv) > _build.BLOCK_SMEM_LIMIT:
         raise ValueError(f"K3's backward kernel holds an (image, head)'s memory and its {n // b} rows in shared "
                          f"memory and takes S <= 64; {s} regions do not fit")
-    mem_k = _build.aligned16(mem_k)
+    q, dout, mem_k = _build.aligned16(q), _build.aligned16(dout), _build.aligned16(mem_k)
     dq, dmk = torch.empty_like(q), torch.empty_like(mem_k)
     sqrt_dk, stream = score_divisor(dk, q.dtype), _build.stream_handle(q)
     if kv:

@@ -34,6 +34,7 @@ import torch
 from sparse_caption_tpu_torch.kernels import _build
 from sparse_caption_tpu_torch.kernels._checks import check_float, check_same_device, check_tensor
 from sparse_caption_tpu_torch.kernels.keyed_dropout import M32, keyed_bits
+from sparse_caption_tpu_torch.kernels.vocab_log_softmax import rounded_log_softmax
 
 ARGS = [
     _build.I, _build.P, _build.I, _build.I, _build.P, _build.P, _build.P, _build.P, _build.P, _build.I, _build.I,
@@ -96,9 +97,10 @@ def gumbel_noise(key: int, site: int, t: int, n: int, vocab: int, device) -> tor
 
 
 def sample_logprobs(logits, prev, ban_prev: bool):
-    """f32 log-probs rounded through the logits' dtype, with the previous
-    token of each row knocked down by 1e30 when ``ban_prev``."""
-    c = torch.log_softmax(logits, dim=-1).float()
+    """f32 log-probs rounded through the logits' dtype at the JAX package's
+    points (``rounded_log_softmax``), with the previous token of each row
+    knocked down by 1e30 when ``ban_prev``."""
+    c = rounded_log_softmax(logits).float()
     if ban_prev:
         c[torch.arange(c.shape[0], device=c.device), prev.long()] += BAN_PREV
     return c

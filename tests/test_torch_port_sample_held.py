@@ -41,6 +41,7 @@ from sparse_caption_tpu.decoding import beam as jax_beam
 from sparse_caption_tpu.decoding import sample as jax_sample
 from sparse_caption_tpu_torch.kernels import beam_topk as k4
 from sparse_caption_tpu_torch.kernels import sample_step as k9
+from sparse_caption_tpu_torch.kernels.vocab_log_softmax import rounded_log_softmax
 
 CSRC = Path(k9.__file__).parent / "csrc"
 V9 = 2048  # held rows of 64 threads: two warps in f32 and in bf16
@@ -192,7 +193,7 @@ def _held_diverse_topk(logits, k: int, ban, ban_eos, eos_id: int, unk_id: int, d
     ue = 16 // logits.element_size()
     units = -(-vocab // ue)
     nt = chip_smoke.held_block(units, ue)
-    lp = torch.log_softmax(logits, dim=-1).float()
+    lp = rounded_log_softmax(logits).float()
     rows = torch.arange(n)
     group = n // div_tokens.shape[0]
     counts = torch.zeros(n, vocab).index_put_(
@@ -255,7 +256,7 @@ def test_k4_held_diverse_selection_matches_plain_and_jax(dtype, images, width, p
                                    kw["div_tokens"], lam)
     pvals, pidx, _ = k4.beam_topk_plain(logits, width, div_lambda=lam, **kw)
     assert torch.equal(vals, pvals) and torch.equal(idx, pidx)
-    lp = jnp.asarray(torch.log_softmax(logits, dim=-1).float().numpy())
+    lp = jnp.asarray(rounded_log_softmax(logits).float().numpy())
     c = lp + jax.nn.one_hot(kw["ban_token"].numpy(), vocab) * k4.NEG_BIG
     c = c + jnp.where(kw["ban_eos"].numpy()[:, None] & (jnp.arange(vocab)[None] == 3), k4.NEG_BIG, 0.0)
     c = c.at[:, 1].add(-1000.0)
